@@ -2,12 +2,20 @@
 
     python3 chip_smoke.py
 
-Builds the port's three hand-written kernels from ``src/repro_torch``,
-holds each against its plain PyTorch version on the card, runs the paper's
-Table-1 experiment (alpha-seeded 10-fold CV, cold / ato / mir / sir, float64)
-on heart (n=270) and adult (n=1000), then adult at the paper's cardinality
-(n=32,560). Phases print one JSON line each, with their own seconds; a
-failing phase raises and the script exits non-zero. The last lines are the
+Builds the port's hand-written kernels from ``src/repro_torch`` (one
+``nvcc`` per source, all at once), holds each against its plain PyTorch
+version on the card, and drives two paths, each with the launch counts set
+to 0 just before it and read just after:
+
+* Table 1 (alpha-seeded 10-fold CV, cold / ato / mir / sir, float64) on
+  heart (n=270) and adult (n=1000) through ``run_cv``, then adult at the
+  paper's cardinality (n=32,560) over a dense K;
+* the batched cold CV through the lane pool (``run_cv_batched``: the
+  matrix-free ``cold_pallas`` and the two dense schedules) on the same two
+  datasets, then matrix-free at n=32,560, where no (n, n) tensor may exist.
+
+Phases print one JSON line each, with their own seconds; a failing phase
+raises and the script exits non-zero. The last lines are the
 ``{"kernels": [...]}`` summary and ``{"ok": true, "device": ...}``. Without
 a CUDA device, or without the repository beside it, it exits non-zero
 before printing any result.
@@ -36,6 +44,18 @@ REFERENCE = {
         "cold": 16263, "ato": 18674, "mir": 13055, "sir": 11315}},
 }
 METHODS = ("cold", "ato", "mir", "sir")
+#: the reference's batched rows of the same run: (iterations, accuracy)
+REFERENCE_BATCHED = {
+    "heart": {"cold_pallas": 182058, "cold_batched": 101046,
+              "cold_batched_repacked": 101046},
+    "adult": {"cold_pallas": 16260, "cold_batched": 16263,
+              "cold_batched_repacked": 16263},
+}
+BATCHED = {"cold_pallas": {"source_backend": "pallas_rbf"},
+           "cold_batched": {"schedule": "batched"},
+           "cold_batched_repacked": {}}
+#: the matrix-free size phase's bar: X, lane states and the streaming slabs
+PEAK_LIMIT = 3 * 2 ** 30
 SIZE_N = 32561            # adult at the paper's cardinality (32,560 after k=10)
 #: peaks of one H100 SXM (NVIDIA data sheet): HBM3 bytes/s, and FP64 FLOP/s
 #: through the tensor cores (the most the card can do in float64)
@@ -325,7 +345,7 @@ def phase_table1(build_s: float):
     from repro_torch.core.cv import run_cv
     from repro_torch.data.svm_suite import make_dataset
     t0 = time.perf_counter()
-    rows = []
+    rows, cold_folds = [], {}
     for name, refd in REFERENCE.items():
         ds = make_dataset(name, n_override=refd["n"])
         per_fold = {}
@@ -353,8 +373,10 @@ def phase_table1(build_s: float):
                     f"{refd['accuracy']}")
         require(all(per_fold[m] == per_fold["cold"] for m in METHODS),
                 f"{name}: per-fold accuracies differ across methods")
+        cold_folds[name] = per_fold["cold"]
     emit({"phase": "table1", "seconds": time.perf_counter() - t0,
           "kernel_build_s": build_s, "rows": rows})
+    return cold_folds
 
 
 def phase_size(ds, n_sir_folds: int = 2):
@@ -409,6 +431,364 @@ def phase_size(ds, n_sir_folds: int = 2):
           "kernel_s": kernel_s, "slab_max_abs_err": slab_err,
           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
           "folds": folds})
+    return [f["accuracy"] for f in folds]
+
+
+def _bound(nbytes: float, flops: float) -> dict:
+    t_ops, t_bytes = flops / FP64_FLOPS, nbytes / HBM_BPS
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def phase_fused(datasets):
+    """fused_smo_step and the WSS-1 selection kernel against their plain
+    versions at the reference's ragged shapes and the main path's, at one
+    lane and ten; then their times, plain times, bounds and yardstick."""
+    from repro_torch.core.cv import _fold_masks
+    from repro_torch.data.svm_suite import kfold_chunks
+    from repro_torch.kernels import ops, ref
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(1)
+    cases = [(f"{n}x{d}", rng.normal(size=(n, d)), 0.5)
+             for n, d in ((257, 9), (100, 130), (120, 40))]
+    for (name, m), ds in datasets.items():
+        cases.append((f"{name} {m}x{ds.X.shape[1]}", ds.X[:m], ds.gamma))
+    # The reference's bars hold on its problem (tests/test_kernels.py::
+    # _step_problem): pair rows (3, n-1), delta 0.37. In f64 the other lanes
+    # take random pairs. In f32 a pair's own row cancels d2 to 0 from terms
+    # of |x|^2 ~ d, which costs delta * gamma * a few ulp(2 |x|^2) in any
+    # summation order (1.1e-5 at 100x130), so there every lane takes the
+    # reference's pair and its own f; random f32 pairs are held instead to
+    # the plain f32 version's own error against f64 (at most twice it).
+    checks = []
+    for label, X, gamma in cases:
+        n = X.shape[0]
+        X64 = torch.as_tensor(X, dtype=torch.float64, device=dev)
+        for dtype, atol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+            Xt = X64.to(dtype)
+            sq = torch.sum(Xt * Xt, -1)
+            for b in (1, 10):
+                pairs = rng.integers(0, n, size=(b, 2))
+                pairs[0] = (3, n - 1)
+                if dtype == torch.float32:
+                    pairs[:] = (3, n - 1)
+                xij = Xt[torch.as_tensor(pairs, device=dev)]
+                f = torch.as_tensor(rng.normal(size=(b, n)), dtype=dtype,
+                                    device=dev)
+                delta = torch.full((b,), 0.37, dtype=dtype, device=dev)
+                got = ops.fused_smo_step(f, Xt, xij, sq, delta, gamma)
+                want = ref.fused_smo_step_ref(f, Xt, xij, sq, delta, gamma)
+                err = float((got - want).abs().max())
+                require(math.isfinite(err) and err <= atol,
+                        f"fused_smo_step {label} {dtype} b={b}: err {err}")
+                one = ops.fused_smo_step(f[0], Xt, xij[0], sq, 0.37, gamma)
+                require(torch.equal(one, got[0]),
+                        f"fused_smo_step {label} {dtype} b={b}: lane 0 "
+                        "differs from the one-lane launch")
+                checks.append({"shape": label, "dtype": str(dtype), "b": b,
+                               "max_abs_err": err})
+        # f32 with random pairs against f64 truth, beside the plain f32
+        pairs = torch.as_tensor(rng.integers(0, n, size=(10, 2)), device=dev)
+        f = torch.as_tensor(rng.normal(size=(10, n)), device=dev)
+        delta = torch.full((10,), 0.37, dtype=torch.float64, device=dev)
+        truth = ref.fused_smo_step_ref(f, X64, X64[pairs],
+                                       torch.sum(X64 * X64, -1), delta, gamma)
+        X32 = X64.float()
+        sq32 = torch.sum(X32 * X32, -1)
+        args32 = (f.float(), X32, X32[pairs], sq32, delta.float(), gamma)
+        k_err = float((ops.fused_smo_step(*args32).double() - truth)
+                      .abs().max())
+        p_err = float((ref.fused_smo_step_ref(*args32).double() - truth)
+                      .abs().max())
+        require(k_err <= 2.0 * p_err + 1e-6,
+                f"fused_smo_step {label} f32 random pairs: err vs f64 "
+                f"{k_err}, the plain f32's {p_err}")
+        checks.append({"shape": label, "dtype": "torch.float32", "b": 10,
+                       "random_pairs_err_vs_f64": k_err,
+                       "plain_err_vs_f64": p_err})
+
+    # ---- times at the main path's largest shape: adult 32,560 x 123,
+    # the ten lanes of the matrix-free CV; and at n=1000 in a CUDA graph
+    big = datasets[("adult", SIZE_N - 1)]
+    X = torch.as_tensor(big.X[:SIZE_N - 1], device=dev)
+    n, d = X.shape
+    b, g = 10, big.gamma
+    sq = torch.sum(X * X, -1)
+    xij = X[torch.as_tensor(rng.integers(0, n, size=(b, 2)), device=dev)]
+    f = torch.as_tensor(rng.normal(size=(b, n)), device=dev)
+    delta = torch.full((b,), 0.37, dtype=torch.float64, device=dev)
+    ms = cuda_ms(lambda: ops.fused_smo_step(f, X, xij, sq, delta, g), 50, 3)
+    ms_graph = graph_ms(lambda: ops.fused_smo_step(f, X, xij, sq, delta, g),
+                        50)
+    plain_ms = cuda_ms(
+        lambda: ref.fused_smo_step_ref(f, X, xij, sq, delta, g), 10)
+
+    def library():
+        P = xij.reshape(2 * b, d)
+        d2 = torch.addmm(sq[:, None] + torch.sum(P * P, -1)[None], X, P.T,
+                         alpha=-2.0)
+        K2 = d2.clamp_(min=0.0).mul_(-g).exp_()
+        return torch.addcmul(f, (K2[:, 0::2] - K2[:, 1::2]).T, delta[:, None])
+    library_ms = cuda_ms(library, 50, 3)
+    lib_err = float((library() - ops.fused_smo_step(f, X, xij, sq, delta, g))
+                    .abs().max())
+    fused = dict(
+        shape=[n, d, b], ms=ms, ms_graph=ms_graph, plain_ms=plain_ms,
+        library_ms=library_ms, library_max_abs_diff=lib_err,
+        max_abs_err=max(c["max_abs_err"] for c in checks
+                        if c["dtype"] == "torch.float64"),
+        max_abs_err_f32=max(c.get("max_abs_err", 0.0) for c in checks
+                            if c["dtype"] == "torch.float32"),
+        **_bound(8.0 * (n * d + n + 2 * b * n + 2 * b * d + b),
+                 4.0 * b * n * d))
+    small = datasets[("adult", 1000)]
+    Xs = torch.as_tensor(small.X, device=dev)
+    sqs = torch.sum(Xs * Xs, -1)
+    xs1 = Xs[[3, 999]]
+    fs1 = torch.as_tensor(rng.normal(size=1000), device=dev)
+    d1 = torch.tensor([0.37], dtype=torch.float64, device=dev)
+    fused["ms_graph_n1000_b1"] = graph_ms(
+        lambda: ops.fused_smo_step(fs1, Xs, xs1, sqs, d1, small.gamma), 200)
+    fused["plain_ms_graph_n1000_b1"] = graph_ms(
+        lambda: ref.fused_smo_step_ref(fs1, Xs, xs1, sqs, d1, small.gamma),
+        200)
+
+    # ---- the selection kernel: the ten cold folds' first step, against
+    # its plain version on the card, at each main-path size
+    sel_checks = []
+    for (name, m), ds in datasets.items():
+        chunks = kfold_chunks(ds.n, 10)
+        Xc = torch.as_tensor(ds.X[:m], device=dev)
+        yc = torch.as_tensor(ds.y[:m], dtype=torch.float64, device=dev)
+        sqc = torch.sum(Xc * Xc, -1)
+        masks = torch.as_tensor(_fold_masks(chunks), device=dev)
+        # C and the caps as device tensors: no host copy inside a graph
+        args = (Xc, sqc, ds.gamma, yc, masks,
+                torch.full((10,), ds.C, dtype=torch.float64, device=dev),
+                1e-3, torch.full((10,), 10 ** 6, device=dev),
+                torch.zeros((10, m), dtype=torch.float64, device=dev),
+                -yc.repeat(10, 1), torch.zeros(10, dtype=torch.int64,
+                                               device=dev),
+                torch.zeros(10, dtype=torch.bool, device=dev))
+        got = ops.smo_select(*args)
+        want = ref.smo_select_lanes_ref(*args)
+        for k, what in ((1, "n_iter"), (2, "done"), (3, "pair rows")):
+            require(torch.equal(got[k], want[k]),
+                    f"smo_select {name} n={m}: {what} differ")
+        err = max(float((got[k] - want[k]).abs().max()) for k in (0, 4))
+        require(err <= 1e-12, f"smo_select {name} n={m}: err {err}")
+        rec = {"n": m, "max_abs_err": err}
+        if m == SIZE_N - 1:
+            rec["ms"] = graph_ms(lambda: ops.smo_select(*args), 50)
+            sync()
+            tp = time.perf_counter()
+            ref.smo_select_lanes_ref(*args)
+            sync()
+            rec["plain_ms"] = 1e3 * (time.perf_counter() - tp)
+            # per lane: alpha read and written, f and mask read, the pair
+            # rows read from X and written; y shared. The norms are read
+            # at j alone.
+            d = Xc.shape[1]
+            rec.update(_bound(8.0 * (10 * m * 3 + m + 10 * 4 * d) + 10 * m,
+                              10.0 * 10 * m))
+            select = dict(rec, max_abs_err=None)
+        sel_checks.append(rec)
+    select["max_abs_err"] = max(c["max_abs_err"] for c in sel_checks)
+    emit({"phase": "kernels_fused", "seconds": time.perf_counter() - t0,
+          "fused_checks": checks, "fused_smo_step": fused,
+          "smo_select": sel_checks})
+    return {"fused_smo_step": fused, "smo_select": select}
+
+
+def _lane_masks(ds, k: int = 10):
+    from repro_torch.core.cv import _fold_masks
+    from repro_torch.data.svm_suite import kfold_chunks
+    chunks = kfold_chunks(ds.n, k)
+    return chunks.size, _fold_masks(chunks)
+
+
+def phase_lane_chunks(datasets):
+    """The chunks over lanes. Dense: each of 4 cold folds through the lane
+    grid is bitwise (alpha, f, n_iter, done) the one-lane launch.
+    Streaming: each cold fold is bitwise the same alone, packed at width 4
+    and at width 12 (10 folds + 2 pads), and within 1e-10 of the plain loop
+    on the card after 200 iterations. heart and adult n=1000 run to
+    convergence; n=32,560 stops at it_cap=300."""
+    from repro_torch.kernels import ops, ref
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    dense, stream = [], []
+    for (name, _), ds in datasets.items():
+        n, masks = _lane_masks(ds)
+        cap = 300 if n > 10_000 else 5_000_000
+        X = torch.as_tensor(ds.X[:n], device=dev)
+        y = torch.as_tensor(ds.y[:n], dtype=torch.float64, device=dev)
+        masks = torch.as_tensor(masks, device=dev)
+
+        def cold(lanes):
+            return (torch.zeros((lanes, n), dtype=torch.float64, device=dev),
+                    -y.repeat(lanes, 1),
+                    torch.zeros(lanes, dtype=torch.int64, device=dev),
+                    torch.zeros(lanes, dtype=torch.bool, device=dev))
+
+        # ---- dense lane grid vs the one-lane launch
+        K = ops.rbf_kernel_matrix(X, X, ds.gamma)
+        diag = torch.diagonal(K).contiguous()
+        grid = (K, diag, y, masks[:4], [ds.C] * 4, 1e-3, [cap] * 4, cap + 1,
+                "2", *cold(4))
+        got = ops.smo_chunk_lanes(*grid)
+        for l in range(4):
+            one = ops.smo_chunk(K, diag, y, masks[l], ds.C, 1e-3, cap,
+                                cap + 1, "2", *(t[0] for t in cold(1)))
+            for a, c, what in zip(one, got, ("alpha", "f", "n_iter",
+                                             "done")):
+                require(torch.equal(a, c[l]), f"lane grid {name} n={n} "
+                                              f"lane {l}: {what} differs")
+        ms = cuda_ms(lambda: ops.smo_chunk_lanes(*grid), 3)
+        it = int(got[2].max())
+        dense.append({"n": n, "lanes": 4, "n_iter": got[2].tolist(),
+                      "ms": ms, "us_per_iter": 1e3 * ms / it})
+        del K, diag
+        torch.cuda.empty_cache()
+
+        # ---- streaming chunk: width invariance
+        sq = torch.sum(X * X, -1)
+
+        def run(ids, width, it_cap=cap):
+            ids = list(ids)
+            st = [t[ids] for t in cold(10)]
+            m, C, caps = masks[ids], [ds.C] * len(ids), [it_cap] * len(ids)
+            pad = width - len(ids)
+            if pad:
+                st = [torch.cat([t, t[:1].expand(pad, *t.shape[1:])])
+                      for t in st]
+                st[3][len(ids):] = True
+                m = torch.cat([m, m[:1].expand(pad, n)])
+                C, caps = C + [ds.C] * pad, caps + [0] * pad
+            t = time.perf_counter()
+            l0 = ops.launch_counts()["fused_smo_step"]
+            while True:
+                st = ops.smo_stream_chunk(X, sq, ds.gamma, y, m, C, 1e-3,
+                                          caps, min(4096, it_cap + 1), *st)
+                if bool(st[3].all()):
+                    break
+            sync()
+            secs = time.perf_counter() - t
+            # the chunk stops within 128 iterations of the last lane's stop
+            issued = ops.launch_counts()["fused_smo_step"] - l0
+            require(issued <= int(st[2].max()) + 128,
+                    f"stream chunk {name} n={n}: {issued} iterations "
+                    f"launched for {int(st[2].max())}")
+            return [u[:len(ids)] for u in st], secs, issued
+
+        alone = [run([l], 1)[0] for l in range(10)]
+        w4, _, _ = run(range(4), 4)
+        w12, w12_s, w12_issued = run(range(10), 12)
+        for l in range(10):
+            for packed, width in ((w4, 4), (w12, 12)):
+                if l >= packed[0].shape[0]:
+                    continue
+                for a, c, what in zip(alone[l], packed, ("alpha", "f",
+                                                         "n_iter", "done")):
+                    require(torch.equal(a[0], c[l]),
+                            f"stream chunk {name} n={n} lane {l}: {what} "
+                            f"alone differs from width {width}")
+        its = [int(a[2][0]) for a in alone]
+        # ---- against the plain loop on the card, 200 iterations
+        got200, _, _ = run([0], 1, it_cap=200)
+        plain = ref.smo_chunk_ref(
+            None, torch.ones(n, dtype=torch.float64, device=dev), y,
+            masks[0], ds.C, 1e-3, 200, 201, "1", *(t[0] for t in cold(1)),
+            stream=(X, sq, ds.gamma))
+        require(int(got200[2][0]) == int(plain[2]) == 200,
+                f"stream chunk {name} n={n}: capped run not at 200")
+        err = max(float((got200[k][0] - plain[k]).abs().max())
+                  for k in (0, 1))
+        require(err <= 1e-10, f"stream chunk {name} n={n}: err {err} vs "
+                              "the plain loop")
+        stream.append({"n": n, "it_cap": cap, "n_iter": its,
+                       "width12_s": w12_s, "width12_launched": w12_issued,
+                       "us_per_iter_width12": 1e6 * w12_s / max(its),
+                       "max_abs_err_vs_plain_200": err})
+        del X, sq
+        torch.cuda.empty_cache()
+    emit({"phase": "lane_chunks", "seconds": time.perf_counter() - t0,
+          "dense_lane_grid": dense, "streaming": stream})
+
+
+def phase_table1_batched(cold_folds):
+    """Cold 10-fold CV through ``run_cv_batched`` in its three
+    configurations on heart and adult: per-fold accuracy equal to Table 1's
+    (and so to the reference), iterations beside the reference's."""
+    from repro_torch.core.cv import run_cv_batched
+    from repro_torch.data.svm_suite import make_dataset
+    t0 = time.perf_counter()
+    rows = []
+    for name, refd in REFERENCE.items():
+        ds = make_dataset(name, n_override=refd["n"])
+        for method, kw in BATCHED.items():
+            sync()
+            tw = time.perf_counter()
+            rep = run_cv_batched(ds, k=10, **kw)
+            wall = time.perf_counter() - tw
+            require(rep.method == method, f"{rep.method} != {method}")
+            require(all(f.converged for f in rep.folds)
+                    and all(math.isfinite(f.objective) for f in rep.folds),
+                    f"{name} {method}: a fold did not converge")
+            per_fold = [(f.acc_correct, f.acc_total) for f in rep.folds]
+            require(per_fold == cold_folds[name],
+                    f"{name} {method}: per-fold accuracy {per_fold} != "
+                    f"Table 1's {cold_folds[name]}")
+            require(round(rep.accuracy, 4) == refd["accuracy"],
+                    f"{name} {method}: accuracy {rep.accuracy}")
+            it = rep.total_iterations
+            lane_max = max(f.n_iter for f in rep.folds)
+            rows.append({
+                "dataset": name, "n": rep.n, "method": method,
+                "iterations": it,
+                "reference_iterations": REFERENCE_BATCHED[name][method],
+                "per_fold_iterations": [f.n_iter for f in rep.folds],
+                "kernel_s": rep.kernel_time, "solve_s": rep.total_solve_time,
+                "wall_s": wall,
+                "us_per_iteration": 1e6 * rep.total_solve_time / max(it, 1),
+                "us_per_longest_lane_iteration":
+                    1e6 * rep.total_solve_time / max(lane_max, 1),
+                "accuracy": rep.accuracy, "occupancy": rep.occupancy})
+    emit({"phase": "table1_batched", "seconds": time.perf_counter() - t0,
+          "rows": rows})
+
+
+def phase_size_matrix_free(ds, dense_accs):
+    """Matrix-free 10-fold cold CV at the paper's cardinality: peak device
+    memory under 3 GiB (the dense path's K alone is 8.48 GB), and the
+    folds the dense path solved give its accuracy (the evaluation by
+    ``rows_at`` and the streaming ``matvec`` checked at that size)."""
+    from repro_torch.core.cv import run_cv_batched
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rep = run_cv_batched(ds, k=10, source_backend="pallas_rbf")
+    peak = torch.cuda.max_memory_allocated()
+    require(peak < PEAK_LIMIT, f"matrix-free peak {peak} B >= 3 GiB")
+    require(all(f.converged for f in rep.folds)
+            and all(math.isfinite(f.objective) for f in rep.folds),
+            "matrix-free size: a fold did not converge")
+    accs = [f.acc_correct / f.acc_total for f in rep.folds]
+    require(accs[:len(dense_accs)] == dense_accs,
+            f"matrix-free size: fold accuracies {accs[:len(dense_accs)]} "
+            f"differ from the dense path's {dense_accs}")
+    lane_max = max(f.n_iter for f in rep.folds)
+    emit({"phase": "size_matrix_free", "seconds": time.perf_counter() - t0,
+          "n": rep.n, "k": rep.k, "kernel_s": rep.kernel_time,
+          "solve_s": rep.total_solve_time,
+          "iterations": rep.total_iterations,
+          "per_fold_iterations": [f.n_iter for f in rep.folds],
+          "us_per_longest_lane_iteration":
+              1e6 * rep.total_solve_time / max(lane_max, 1),
+          "accuracy": rep.accuracy,
+          "per_fold_accuracy": accs, "dense_accuracy": dense_accs,
+          "peak_gb": peak / 1e9, "occupancy": rep.occupancy})
 
 
 def main() -> int:
@@ -423,31 +803,59 @@ def main() -> int:
     build_s, card = phase_build()
     datasets = _datasets()
     info = phase_kernels(datasets)
+    info.update(phase_fused(datasets))
+    phase_lane_chunks(datasets)
 
-    # the main path: counts from 0 just before it, read just after
+    # each path: counts from 0 just before it, read just after
+    counts = {}
     ops.reset_launch_counts()
-    phase_table1(build_s)
-    main_counts = ops.launch_counts()
+    cold_folds = phase_table1(build_s)
+    counts["table1"] = ops.launch_counts()
     ops.reset_launch_counts()
-    phase_size(datasets[("adult", SIZE_N - 1)])
-    size_counts = ops.launch_counts()
-    emit({"phase": "kernel_counts", "main_path": main_counts,
-          "size": size_counts})
-    for name, c in main_counts.items():
-        require(c > 0, f"{name} was not launched on the main path")
+    phase_table1_batched(cold_folds)
+    counts["table1_batched"] = ops.launch_counts()
+    ops.reset_launch_counts()
+    dense_accs = phase_size(datasets[("adult", SIZE_N - 1)])
+    counts["size"] = ops.launch_counts()
+    ops.reset_launch_counts()
+    phase_size_matrix_free(datasets[("adult", SIZE_N - 1)], dense_accs)
+    counts["size_matrix_free"] = ops.launch_counts()
+    emit({"phase": "kernel_counts", **counts})
+    for name in ("rbf_kernel_matrix", "smo_f_update", "smo_chunk"):
+        require(counts["table1"][name] > 0,
+                f"{name} was not launched on the Table-1 path")
+    for name in ("rbf_kernel_matrix", "smo_chunk", "fused_smo_step",
+                 "smo_select"):
+        require(counts["table1_batched"][name] > 0,
+                f"{name} was not launched on the batched path")
+    for name in ("fused_smo_step", "smo_select"):
+        require(counts["size_matrix_free"][name] > 0,
+                f"{name} was not launched on the matrix-free size path")
+    require(counts["size_matrix_free"]["rbf_kernel_matrix"] == 0,
+            "the matrix-free path built a kernel matrix")
 
-    sources = {"rbf_kernel_matrix": ("src/repro_torch/kernels/csrc/rbf.cu",
-                                     "src/repro/kernels/rbf.py:54"),
-               "smo_f_update": ("src/repro_torch/kernels/csrc/smo_update.cu",
-                                "src/repro/kernels/smo_update.py:24"),
-               "smo_chunk": ("src/repro_torch/kernels/csrc/smo_chunk.cu",
-                             "src/repro/svm/engine.py:566")}
+    csrc = "src/repro_torch/kernels/csrc/"
+    # kernel -> (source, the TPU kernel or loop it replaces, its path)
+    sources = {"rbf_kernel_matrix": (csrc + "rbf.cu",
+                                     "src/repro/kernels/rbf.py:54",
+                                     "table1"),
+               "smo_f_update": (csrc + "smo_update.cu",
+                                "src/repro/kernels/smo_update.py:24",
+                                "table1"),
+               "smo_chunk": (csrc + "smo_chunk.cu",
+                             "src/repro/svm/engine.py:566", "table1"),
+               "fused_smo_step": (csrc + "smo_step.cu",
+                                  "src/repro/kernels/smo_step.py:67",
+                                  "table1_batched"),
+               "smo_select": (csrc + "smo_step.cu",
+                              "src/repro/svm/engine.py:519",
+                              "table1_batched")}
     kernels = []
-    for name, (src, replaces) in sources.items():
+    for name, (src, replaces, path) in sources.items():
         k = info[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": main_counts[name],
+            "replaces": replaces, "launches": counts[path][name],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k.get("library_ms")})

@@ -3,16 +3,18 @@
 The reference hands its results over as numpy arrays (``np.asarray`` of
 each field), so this module needs neither jax nor ``repro``. The tests use
 it to start the port from the reference's exact state (for example fold
-h's solution) and so check a seeder or a solve in isolation.
+h's solution) and so check a seeder or a solve in isolation, and to build
+the port's kernel sources and plan lanes from the reference's operands.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.core.study import LaneSpec
 from repro_torch.data.svm_suite import SVMDataset
 from repro_torch.device import DTYPE, resolve_device
-from repro_torch.svm.engine import SMOResult
+from repro_torch.svm.engine import DenseKernel, PallasRBF, SMOResult
 
 
 def result_from_reference(res: dict, device=None) -> SMOResult:
@@ -33,3 +35,39 @@ def dataset_from_reference(ds) -> SVMDataset:
     return SVMDataset(name=ds.name, X=np.array(ds.X, dtype=np.float64),
                       y=np.array(ds.y, dtype=np.int64), C=float(ds.C),
                       gamma=float(ds.gamma))
+
+
+def source_from_reference(*, K=None, X=None, sq_norms=None, gamma=None,
+                          device=None):
+    """The port's ``DenseKernel`` from the reference's K, or its
+    ``PallasRBF`` from the reference's X, row norms and gamma; arrays as
+    numpy, copied to ``device`` in float64."""
+    dev = resolve_device(device)
+    if (K is None) == (X is None):
+        raise ValueError("give K (a dense source) or X (a PallasRBF)")
+    if K is not None:
+        return DenseKernel(torch.as_tensor(np.array(K), dtype=DTYPE,
+                                           device=dev))
+    Xt = torch.as_tensor(np.array(X), dtype=DTYPE, device=dev)
+    sq = None if sq_norms is None else torch.as_tensor(
+        np.array(sq_norms), dtype=DTYPE, device=dev)
+    return PallasRBF(Xt, float(gamma), sq)
+
+
+def lane_from_reference(spec, device=None) -> LaneSpec:
+    """The port's ``LaneSpec`` of a start lane from any object with the
+    reference's ``LaneSpec`` fields (``id``, ``source``, ``train_mask``,
+    ``C``, ``alpha0``, ``f0``, ``n_iter0``, ``max_iter``, ``after``);
+    arrays as numpy, copied to ``device``."""
+    dev = resolve_device(device)
+
+    def t(a, dtype):
+        return None if a is None else torch.as_tensor(np.array(a),
+                                                      dtype=dtype, device=dev)
+
+    return LaneSpec(id=spec.id, source=spec.source,
+                    train_mask=t(spec.train_mask, torch.bool),
+                    C=None if spec.C is None else float(spec.C),
+                    alpha0=t(spec.alpha0, DTYPE), f0=t(spec.f0, DTYPE),
+                    n_iter0=int(spec.n_iter0), max_iter=int(spec.max_iter),
+                    after=spec.after)

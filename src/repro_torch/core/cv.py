@@ -1,13 +1,16 @@
 """Alpha-seeded k-fold cross-validation, the paper's protocol.
 
 Mirrors ``src/repro/core/cv.py``: ``FoldStat``, ``CVReport``,
-``_transition_idx``, ``_fold_masks``, ``_eval_fold`` and ``run_cv``. The
-reference declares the fold chain as a Study plan run by its lane pool;
-here ``run_cv`` is the direct loop with the same semantics under the
-``strict`` straggler policy: fold 0 starts cold, fold h is seeded from fold
-h-1 (``f0 = init_f``), solved, and evaluated on its held-out chunk.
-Checkpoints, stragglers, shrinking, the batched schedules and the Study
-layer are later slices of the port.
+``_transition_idx``, ``_fold_masks``, ``_eval_fold``, ``_eval_fold_rows``,
+``run_cv`` and ``run_cv_batched``. The reference declares the fold chain as
+a Study plan run by its lane pool; here ``run_cv`` is the direct loop with
+the same semantics under the ``strict`` straggler policy: fold 0 starts
+cold, fold h is seeded from fold h-1 (``f0 = init_f``), solved, and
+evaluated on its held-out chunk. ``run_cv_batched`` solves the k cold folds
+concurrently: as a k-lane plan on the lane pool (``schedule="repacked"``,
+over a dense K or the matrix-free ``PallasRBF``), or as one fixed batch
+(``schedule="batched"``). Checkpoints, stragglers and shrinking are later
+slices of the port.
 """
 from __future__ import annotations
 
@@ -18,10 +21,12 @@ import numpy as np
 import torch
 
 from repro_torch.core import seeding
+from repro_torch.core.study import Plan, run_plan
 from repro_torch.data.svm_suite import SVMDataset, kfold_chunks
 from repro_torch.device import DTYPE, resolve_device
-from repro_torch.svm import (bias_from_solution, dual_objective, init_f,
-                             kernel_matrix, predict, smo_solve)
+from repro_torch.svm import (DenseKernel, PallasRBF, bias_from_solution,
+                             dual_objective, init_f, kernel_matrix, predict,
+                             smo_solve, smo_solve_batched)
 
 
 @dataclasses.dataclass
@@ -45,6 +50,7 @@ class CVReport:
     n: int
     kernel_time: float
     folds: list[FoldStat]
+    occupancy: dict = dataclasses.field(default_factory=dict)
 
     @property
     def total_iterations(self) -> int:
@@ -95,6 +101,21 @@ def _eval_fold(K, y, chunks, h, res, C) -> tuple[int, int, float]:
     pred = predict(K[test_idx], y, res.alpha, b)
     return (int((pred == y[test_idx]).sum()), int(test_idx.shape[0]),
             float(dual_objective(K, y, res.alpha)))
+
+
+def _eval_fold_rows(source, y, chunks, h, res, C) -> tuple[int, int, float]:
+    """``_eval_fold`` for row-streaming sources: the test chunk's kernel
+    rows come from ``rows_at`` and the dual objective's quadratic term from
+    the streaming ``matvec``; no (n, n) matrix is ever resident."""
+    test_idx = torch.as_tensor(chunks[h], device=y.device)
+    train_mask = torch.ones(chunks.size, dtype=torch.bool, device=y.device)
+    train_mask[test_idx] = False
+    b = bias_from_solution(res, y, train_mask, C)
+    pred = predict(source.rows_at(test_idx), y, res.alpha, b)
+    v = res.alpha * y
+    obj = res.alpha.sum() - 0.5 * torch.dot(v, source.matvec(v))
+    return (int((pred == y[test_idx]).sum()), int(test_idx.shape[0]),
+            float(obj))
 
 
 def _sync(device: torch.device) -> None:
@@ -151,3 +172,102 @@ def run_cv(ds: SVMDataset, k: int = 10, method: str = "sir",
         prev = res
     return CVReport(dataset=ds.name, method=method, k=k, n=n,
                     kernel_time=kernel_time, folds=folds)
+
+
+def run_cv_batched(ds: SVMDataset, k: int = 10, tol: float = 1e-3,
+                   max_iter: int = 5_000_000, seed: int = 0,
+                   chunk_iters: int = 4096, schedule: str = "repacked",
+                   lane_quantum: int = 4, max_width: int | None = None,
+                   source_backend: str = "dense", device=None) -> CVReport:
+    """Cold k-fold CV with all folds solved concurrently; runs on ``cuda``
+    unless ``device="cpu"``.
+
+    ``schedule="repacked"`` (method "cold_batched_repacked") runs the folds
+    as a k-lane plan on the lane pool: converged folds retire between
+    chunks and the live ones are repacked; the width is capped by the cost
+    model (width-1 round-robin on the CPU, all live lanes on ``cuda``).
+    ``schedule="batched"`` (method "cold_batched") is the fixed-width
+    ``smo_solve_batched`` batch. ``source_backend="pallas_rbf"`` (repacked
+    only, method "cold_pallas") solves over the matrix-free ``PallasRBF``
+    under WSS-1: no (n, n) kernel is built (``kernel_time`` covers the row
+    norms only), each iteration is one fused pass over X, and evaluation
+    streams test rows through ``rows_at`` and the objective through
+    ``matvec``. Per fold, each schedule ends bitwise where ``run_cv(method=
+    "cold")``'s solve over the same source would.
+    """
+    if schedule not in ("repacked", "batched"):
+        raise ValueError(f"unknown schedule {schedule!r}")
+    if source_backend not in ("dense", "pallas_rbf"):
+        raise ValueError(f"unknown source_backend {source_backend!r}")
+    if source_backend == "pallas_rbf" and schedule != "repacked":
+        raise ValueError("source_backend='pallas_rbf' requires the repacked "
+                         "schedule: the streaming source runs through the "
+                         "lane pool, not engine.solve_batched on a matrix")
+    dev = resolve_device(device)
+    X = torch.as_tensor(ds.X, dtype=DTYPE, device=dev)
+    y = torch.as_tensor(ds.y, dtype=DTYPE, device=dev)
+
+    chunks = kfold_chunks(ds.n, k, seed=seed)
+    n = chunks.size
+    # slice before the kernel call (see run_cv)
+    _sync(dev)
+    t0 = time.perf_counter()
+    if source_backend == "pallas_rbf":
+        K = None
+        source = PallasRBF(X[:n], ds.gamma)
+    else:
+        K = kernel_matrix(X[:n], X[:n], kind="rbf", gamma=ds.gamma)
+        source = DenseKernel(K)
+    _sync(dev)
+    kernel_time = time.perf_counter() - t0
+    y = y[:n]
+    masks = torch.as_tensor(_fold_masks(chunks), device=dev)
+    zeros = torch.zeros((k, n), dtype=DTYPE, device=dev)
+
+    if schedule == "batched":
+        t0 = time.perf_counter()
+        res = smo_solve_batched(K, y, masks, ds.C, zeros, -y.repeat(k, 1),
+                                tol=tol, max_iter=max_iter,
+                                chunk_iters=chunk_iters)
+        _sync(dev)
+        solve_time = time.perf_counter() - t0
+        folds = []
+        for h in range(k):
+            fold_res = type(res)(*(t[h] for t in res))
+            correct, total, obj = _eval_fold(K, y, chunks, h, fold_res, ds.C)
+            folds.append(FoldStat(
+                fold=h, seed_from=-1, n_iter=int(fold_res.n_iter),
+                init_time=0.0, solve_time=solve_time / k,
+                acc_correct=correct, acc_total=total, objective=obj,
+                converged=bool(fold_res.converged)))
+        return CVReport(dataset=ds.name, method="cold_batched", k=k, n=n,
+                        kernel_time=kernel_time, folds=folds)
+
+    # ---- repacked schedule: a k-lane cold plan ----
+    method = ("cold_pallas" if source_backend == "pallas_rbf"
+              else "cold_batched_repacked")
+    plan = Plan(sources={"cv": source}, y=y, tol=tol,
+                wss="1" if source_backend == "pallas_rbf" else "2",
+                chunk_iters=chunk_iters, lane_quantum=lane_quantum,
+                max_width=max_width, device=dev)
+    for h in range(k):
+        plan.lane(h, train_mask=masks[h], C=ds.C, alpha0=zeros[h], f0=-y,
+                  max_iter=max_iter)
+    t0 = time.perf_counter()
+    sres = run_plan(plan)
+    solve_time = time.perf_counter() - t0
+
+    folds = []
+    for h in range(k):
+        res = sres.results[h]
+        correct, total, obj = (
+            _eval_fold(K, y, chunks, h, res, ds.C) if K is not None
+            else _eval_fold_rows(source, y, chunks, h, res, ds.C))
+        folds.append(FoldStat(
+            fold=h, seed_from=-1, n_iter=int(res.n_iter), init_time=0.0,
+            solve_time=solve_time / k, acc_correct=correct,
+            acc_total=total, objective=obj,
+            converged=bool(res.converged)))
+    return CVReport(dataset=ds.name, method=method, k=k, n=n,
+                    kernel_time=kernel_time, folds=folds,
+                    occupancy=sres.occupancy)

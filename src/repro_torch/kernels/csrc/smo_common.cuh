@@ -1,4 +1,5 @@
-// Device helpers shared by the SMO kernels (smo_update.cu, smo_chunk.cu).
+// Device helpers shared by the SMO kernels (smo_update.cu, smo_chunk.cu,
+// smo_step.cu).
 //
 // Every kernel of the port is compiled with -fmad=false, so nvcc contracts
 // nothing on its own: the one fused multiply-add below is the rounding the
@@ -8,11 +9,21 @@
 
 #include <cuda_runtime.h>
 
+#include <climits>
+
+// One fused multiply-add a * b + c in the type's own precision.
+__device__ __forceinline__ double fma_t(double a, double b, double c) {
+  return fma(a, b, c);
+}
+__device__ __forceinline__ float fma_t(float a, float b, float c) {
+  return fmaf(a, b, c);
+}
+
 // The SMO rank-2 indicator update of one element: f + delta * (K_i - K_j),
-// with one rounding of the product-sum. Reused as the chunk kernel's tail.
-__device__ __forceinline__ double smo_f_update_elem(double f, double ki,
-                                                    double kj, double delta) {
-  return fma(delta, ki - kj, f);
+// with one rounding of the product-sum. Reused as the chunk kernels' tail.
+template <typename T>
+__device__ __forceinline__ T smo_f_update_elem(T f, T ki, T kj, T delta) {
+  return fma_t(delta, ki - kj, f);
 }
 
 // NaN-propagating min / max: jnp.minimum / maximum / clip and torch's
@@ -23,4 +34,145 @@ __device__ __forceinline__ double nan_min(double a, double b) {
 
 __device__ __forceinline__ double nan_max(double a, double b) {
   return (isnan(a) || isnan(b)) ? a + b : (b > a ? b : a);
+}
+
+// ---------------------------------------------------------------------------
+// The WSS selection's block-wide (value, index) reductions. Each min or max
+// lets NaN win and the lowest index win a tie, which is exact in any
+// reduction order: a lane's choice does not depend on the block's width.
+// ---------------------------------------------------------------------------
+
+constexpr int kMaxThreads = 1024;
+constexpr int kMaxWarps = kMaxThreads / 32;
+constexpr double kTau = 1e-12;
+
+__device__ __forceinline__ bool better_min(double va, int ia, double vb,
+                                           int ib) {
+  const bool na = isnan(va), nb = isnan(vb);
+  if (na != nb) return na;
+  if (!na && va != vb) return va < vb;
+  return ia < ib;
+}
+
+__device__ __forceinline__ bool better_max(double va, int ia, double vb,
+                                           int ib) {
+  const bool na = isnan(va), nb = isnan(vb);
+  if (na != nb) return na;
+  if (!na && va != vb) return va > vb;
+  return ia < ib;
+}
+
+template <bool MAX>
+__device__ __forceinline__ void warp_best(double& v, int& i) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const double ov = __shfl_down_sync(0xffffffffu, v, off);
+    const int oi = __shfl_down_sync(0xffffffffu, i, off);
+    if (MAX ? better_max(ov, oi, v, i) : better_min(ov, oi, v, i)) {
+      v = ov;
+      i = oi;
+    }
+  }
+}
+
+struct Scratch {
+  double v0[kMaxWarps], v1[kMaxWarps];
+  int i0[kMaxWarps], i1[kMaxWarps], flags[kMaxWarps];
+  double r_v0, r_v1, delta;
+  int r_i0, r_i1, r_flags;
+};
+
+// Block-wide (value, index) reduction of one min-pair, one max-pair and an OR
+// of flag bits; the results land in s.r_* for every thread to read.
+__device__ __forceinline__ void block_reduce(Scratch& s, double v0, int i0,
+                                             double v1, int i1, int flags,
+                                             bool need_min) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = (blockDim.x + 31) >> 5;
+  if (need_min) warp_best<false>(v0, i0);
+  warp_best<true>(v1, i1);
+  flags = __reduce_or_sync(0xffffffffu, flags);
+  if (lane == 0) {
+    s.v0[warp] = v0;
+    s.i0[warp] = i0;
+    s.v1[warp] = v1;
+    s.i1[warp] = i1;
+    s.flags[warp] = flags;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const bool live = lane < nwarps;
+    v0 = live ? s.v0[lane] : INFINITY;
+    i0 = live ? s.i0[lane] : INT_MAX;
+    v1 = live ? s.v1[lane] : -INFINITY;
+    i1 = live ? s.i1[lane] : INT_MAX;
+    flags = live ? s.flags[lane] : 0;
+    if (need_min) warp_best<false>(v0, i0);
+    warp_best<true>(v1, i1);
+    flags = __reduce_or_sync(0xffffffffu, flags);
+    if (lane == 0) {
+      s.r_v0 = v0;
+      s.r_i0 = i0;
+      s.r_v1 = v1;
+      s.r_i1 = i1;
+      s.r_flags = flags;
+    }
+  }
+  __syncthreads();
+}
+
+// I_up / I_low membership of one instance (paper Eq. 4).
+__device__ __forceinline__ void sets(double a, double yk, bool m, double C,
+                                     bool& up, bool& low) {
+  const bool pos = yk > 0.0, neg = yk < 0.0;
+  const bool at_lo = a <= 0.0, at_hi = a >= C;
+  up = m && !((pos && at_hi) || (neg && at_lo));
+  low = m && !((pos && at_lo) || (neg && at_hi));
+}
+
+__device__ __forceinline__ double clip(double a, double C) {
+  return nan_min(nan_max(a, 0.0), C);
+}
+
+// Pass 1 of every SMO step: the sets, b_up and its argmin i over I_up, b_low
+// and its argmax over I_low (the WSS-1 j), and whether both sets are
+// non-empty. Every thread of the block returns the same (i, j, gap).
+__device__ __forceinline__ double select_pass1(Scratch& s, const double* alpha,
+                                               const double* f,
+                                               const double* y,
+                                               const unsigned char* mask,
+                                               double C, int n, int& i,
+                                               int& j) {
+  double vu = INFINITY, vl = -INFINITY;
+  int iu = INT_MAX, il = INT_MAX, fl = 0;
+  for (int k = threadIdx.x; k < n; k += blockDim.x) {
+    bool up, low;
+    sets(alpha[k], y[k], mask[k] != 0, C, up, low);
+    const double fk = f[k];
+    const double cu = up ? fk : INFINITY, cl = low ? fk : -INFINITY;
+    if (better_min(cu, k, vu, iu)) { vu = cu; iu = k; }
+    if (better_max(cl, k, vl, il)) { vl = cl; il = k; }
+    fl |= (up ? 1 : 0) | (low ? 2 : 0);
+  }
+  block_reduce(s, vu, iu, vl, il, fl, true);
+  i = s.r_i0;
+  j = s.r_i1;
+  return s.r_flags == 3 ? s.r_v1 - s.r_v0 : -INFINITY;
+}
+
+// The clipped two-variable step from the pair's scalars, alpha_i and alpha_j
+// written in the reference's order (j == i sees the new alpha_i). Returns
+// delta. Run by one thread.
+__device__ __forceinline__ double pair_update(double* alpha, const double* f,
+                                              const double* y, int i, int j,
+                                              double eta_ij, double C) {
+  const double f_i = f[i], f_j = f[j], a_i = alpha[i], a_j = alpha[j];
+  const double y_i = y[i], y_j = y[j];
+  double delta = (f_j - f_i) / eta_ij;
+  const double hi_i = y_i > 0.0 ? C - a_i : a_i;
+  const double hi_j = y_j > 0.0 ? a_j : C - a_j;
+  delta = nan_max(nan_min(nan_min(delta, hi_i), hi_j), 0.0);
+  alpha[i] = a_i + y_i * delta;
+  alpha[j] = alpha[j] + (-y_j) * delta;
+  return delta;
 }

@@ -2,21 +2,35 @@
 
 Mirrors ``src/repro/kernels/ops.py``. Each wrapper launches its CUDA kernel
 on a CUDA tensor (or raises) and runs its plain PyTorch version
-(``ref.py``) on a CPU tensor; ``wrapper.launches`` counts kernel launches
-only.
+(``ref.py``) on a CPU tensor; a kernel's count grows by its launches only.
+``smo_chunk`` counts the dense chunk kernel's launches at one lane and over
+lanes; ``smo_stream_chunk`` adds its launches of the WSS-1 selection kernel
+to ``smo_select`` and of the fused step to ``fused_smo_step``.
 """
 from repro_torch.kernels.rbf import rbf_kernel_matrix
-from repro_torch.kernels.smo_chunk import smo_chunk
+from repro_torch.kernels.smo_chunk import (smo_chunk, smo_chunk_lanes,
+                                           smo_select, smo_stream_chunk)
+from repro_torch.kernels.smo_step import fused_smo_step
 from repro_torch.kernels.smo_update import smo_f_update
 
-KERNELS = (rbf_kernel_matrix, smo_f_update, smo_chunk)
+__all__ = ["rbf_kernel_matrix", "smo_f_update", "smo_chunk",
+           "smo_chunk_lanes", "smo_stream_chunk", "smo_select",
+           "fused_smo_step",
+           "launch_counts", "reset_launch_counts"]
+
+#: kernel name -> the wrapper that carries its count
+KERNELS = {"rbf_kernel_matrix": rbf_kernel_matrix,
+           "smo_f_update": smo_f_update,
+           "smo_chunk": smo_chunk,
+           "fused_smo_step": fused_smo_step,
+           "smo_select": smo_select}
 
 
 def launch_counts() -> dict[str, int]:
     """{kernel name: launches since the last reset}."""
-    return {k.__name__: k.launches for k in KERNELS}
+    return {name: w.launches for name, w in KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
-    for k in KERNELS:
-        k.launches = 0
+    for w in KERNELS.values():
+        w.launches = 0

@@ -1,10 +1,12 @@
 """Plain PyTorch versions of every kernel of the port.
 
-Mirrors ``src/repro/kernels/ref.py`` (the jnp oracles) and adds the dense
-SMO step and chunk loop that ``csrc/smo_chunk.cu`` replaces (the reference
-keeps them in ``src/repro/svm/engine.py::_step`` / ``smo_chunk``). On a CPU
-tensor the wrappers in ``ops.py`` run these; on the card ``chip_smoke.py``
-holds each kernel against them on the same inputs.
+Mirrors ``src/repro/kernels/ref.py`` (the jnp oracles) and adds the SMO
+step and chunk loop that ``csrc/smo_chunk.cu`` and ``csrc/smo_step.cu``
+replace (the reference keeps them in ``src/repro/svm/engine.py::_step`` /
+``smo_chunk``): the dense step, and the streaming WSS-1 step whose K[i, j]
+and f-update come from X. On a CPU tensor the wrappers in ``ops.py`` run
+these; on the card ``chip_smoke.py`` holds each kernel against them on the
+same inputs.
 
 Rounding contract (what makes the dense engine bitwise equal to the JAX
 reference on a shared K): XLA-CPU contracts the f-update
@@ -38,8 +40,41 @@ def smo_f_update_ref(f, K_i, K_j, delta):
     return torch.addcmul(f, K_i - K_j, delta)
 
 
+def fused_smo_step_ref(f, X, xij, sq_norms, delta, gamma, done=None):
+    """The fused pair-rows + rank-2 update (``FusedRBF.rows2``'s expression):
+    ``f + delta * (K2[:, 0] - K2[:, 1])`` with
+    ``K2 = exp(-gamma * max(|x|^2 + |x_{i,j}|^2 - 2 X [x_i; x_j]^T, 0))``.
+
+    One lane: f (n,), xij (2, d), delta a scalar. Lanes: f (b, n), xij
+    (b, 2, d), delta (b,), and ``done`` (b,) bool keeps a lane's f as it
+    is. The last step is one FMA per element (``torch.addcmul``), as XLA-CPU
+    rounds the reference's expression."""
+    if f.dim() == 2:
+        return torch.stack([
+            f[l] if done is not None and bool(done[l]) else
+            fused_smo_step_ref(f[l], X, xij[l], sq_norms, delta[l], gamma)
+            for l in range(f.shape[0])])
+    cross = X @ xij.T
+    d2 = torch.clamp_min(sq_norms[:, None] + torch.sum(xij * xij, 1)[None]
+                         - 2.0 * cross, 0.0)
+    K2 = torch.exp(-gamma * d2)
+    delta = torch.as_tensor(delta, dtype=f.dtype, device=f.device)
+    return torch.addcmul(f, K2[:, 0] - K2[:, 1], delta)
+
+
+def rbf_kij_ref(X, sq_norms, gamma, i, j):
+    """K[i, j] of an RBF source without a row in scope: the ``rows2``
+    expression at row j, ``exp(-gamma * max(|x_j|^2 + |x_i|^2 - 2 x_j.x_i,
+    0))`` (the reference's interpret-mode ``PallasRBF.kij``), not the
+    ``|x_i - x_j|^2`` form."""
+    xi = X[i]
+    d2 = torch.clamp_min(sq_norms[j] + torch.sum(xi * xi)
+                         - 2.0 * torch.dot(X[j], xi), 0.0)
+    return torch.exp(-gamma * d2)
+
+
 # --------------------------------------------------------------------------
-# the dense SMO step (reference: svm/engine.py _sets, _argmin, _argmax, _step)
+# the SMO step (reference: svm/engine.py _sets, _argmin, _argmax, _step)
 # --------------------------------------------------------------------------
 
 def _sets(alpha, y, mask, C):
@@ -81,17 +116,20 @@ def _nan_max(a: float, b: float) -> float:
     return a + b if (a != a or b != b) else (b if b > a else a)
 
 
-def smo_step_ref(K, diag, y, mask, C, tol, it_cap, wss, alpha, f, it,
-                 update_f=smo_f_update_ref):
-    """One SMO iteration on a dense K: WSS pair selection + box-clipped
-    rank-2 update. ``it`` is the host iteration count; returns
-    ``(alpha, f, done)``.
+def smo_select_ref(K, diag, y, mask, C, tol, it_cap, wss, alpha, f, it,
+                   stream=None):
+    """The selection half of one SMO iteration: the freeze test, the WSS
+    pair, the clipped delta and the new alpha (box-clipped). Returns
+    ``(alpha, i, j, delta, done)``; a frozen state comes back unchanged
+    with ``done`` True (and i = j = None, delta = 0).
 
-    A state that is optimal, iteration-capped or NaN-poisoned comes back
-    unchanged with ``done`` True (the reference's freeze). The freeze test
-    and the scalar part of the update run on the host in Python floats,
-    which round as the reference's f64 scalars do: the plain version is
-    the oracle, and one host read per step is cheap on the CPU.
+    Over a dense K, or, with ``stream = (X, sq_norms, gamma)``, over a
+    row-streaming RBF source (the reference's ``streams_rows`` branch; K is
+    None and ``wss`` must be "1"): K[i, j] then comes from ``rbf_kij_ref``.
+
+    The freeze test and the scalar part of the update run on the host in
+    Python floats, which round as the reference's f64 scalars do: the plain
+    version is the oracle, and one host read per step is cheap on the CPU.
     """
     i_up, i_low = _sets(alpha, y, mask, C)
     v_up = torch.where(i_up, f, _INF)
@@ -99,7 +137,7 @@ def smo_step_ref(K, diag, y, mask, C, tol, it_cap, wss, alpha, f, it,
     b_up, b_low = float(v_up.min()), float(v_low.max())  # NaN propagates
     gap = b_low - b_up if bool(i_up.any()) and bool(i_low.any()) else -_INF
     if gap <= tol or it >= it_cap or math.isnan(gap):
-        return alpha, f, True
+        return alpha, None, None, 0.0, True
 
     # no NaN in v_up here (it would make gap NaN), so _argmin's NaN guard
     # is moot; WSS-2's gain can still hold one (a NaN row of K or diag)
@@ -115,10 +153,11 @@ def smo_step_ref(K, diag, y, mask, C, tol, it_cap, wss, alpha, f, it,
         # WSS-1 (maximal violating pair)
         j = int(_argmax(v_low))
 
-    f_i, f_j, a_i, a_j, y_i, y_j, d_i, d_j = torch.stack(
+    k_ij = rbf_kij_ref(*stream, i, j) if stream is not None else K[i, j]
+    f_i, f_j, a_i, a_j, y_i, y_j, d_i, d_j, k_ij = torch.stack(
         (f[i], f[j], alpha[i], alpha[j], y[i], y[j], diag[i],
-         diag[j])).tolist()
-    eta_ij = _nan_max(d_i + d_j - 2.0 * float(K[i, j]), _TAU)
+         diag[j], k_ij)).tolist()
+    eta_ij = _nan_max(d_i + d_j - 2.0 * k_ij, _TAU)
     delta = (f_j - f_i) / eta_ij
     hi_i = C - a_i if y_i > 0 else a_i
     hi_j = a_j if y_j > 0 else C - a_j
@@ -127,22 +166,68 @@ def smo_step_ref(K, diag, y, mask, C, tol, it_cap, wss, alpha, f, it,
     alpha[i] = a_i + y_i * delta
     alpha[j] = float(alpha[j]) + -y_j * delta   # j == i sees the new value
     alpha = torch.clamp(alpha, 0.0, C)   # kill fp dust at the box boundary
+    return alpha, i, j, delta, False
+
+
+def smo_select_lanes_ref(X, sq_norms, gamma, y, masks, Cs, tol, it_caps,
+                         alphas, fs, n_iter, done):
+    """The selection kernel's plain version (``kernels/smo_chunk.py::
+    smo_select``): ``smo_select_ref`` of the streaming step for each of b
+    lanes; returns new ``(alphas, n_iter, done, xij, delta)``, the pair rows
+    and delta zero for a lane that did not step."""
+    b, d = masks.shape[0], X.shape[1]
+    ones = torch.ones(X.shape[0], dtype=X.dtype, device=X.device)
+    Cs = torch.as_tensor(Cs, dtype=torch.float64).reshape(-1).tolist()
+    caps = torch.as_tensor(it_caps).reshape(-1).tolist()
+    alphas, n_iter, done = alphas.clone(), n_iter.clone(), done.clone()
+    xij = torch.zeros((b, 2, d), dtype=X.dtype, device=X.device)
+    delta = torch.zeros(b, dtype=X.dtype, device=X.device)
+    for l in range(b):
+        if bool(done[l]):
+            continue
+        a, i, j, dl, stop = smo_select_ref(
+            None, ones, y, masks[l], Cs[l], tol, caps[l], "1", alphas[l],
+            fs[l], int(n_iter[l]), (X, sq_norms, float(gamma)))
+        if stop:
+            done[l] = True
+            continue
+        alphas[l], xij[l], delta[l] = a, X[[i, j]], dl
+        n_iter[l] += 1
+    return alphas, n_iter, done, xij, delta
+
+
+def smo_step_ref(K, diag, y, mask, C, tol, it_cap, wss, alpha, f, it,
+                 update_f=smo_f_update_ref, stream=None):
+    """One SMO iteration: ``smo_select_ref``, then the rank-2 f-update
+    (``update_f`` over K's rows, or ``fused_smo_step_ref`` from X with a
+    ``stream``). ``it`` is the host iteration count; returns ``(alpha, f,
+    done)``. A frozen state comes back unchanged with ``done`` True."""
+    alpha, i, j, delta, done = smo_select_ref(K, diag, y, mask, C, tol,
+                                              it_cap, wss, alpha, f, it,
+                                              stream)
+    if done:
+        return alpha, f, True
     # the rank-2 update keeps f consistent for ALL rows (masked ones too)
+    if stream is not None:
+        X, sq_norms, gamma = stream
+        return alpha, fused_smo_step_ref(f, X, X[[i, j]], sq_norms, delta,
+                                         gamma), False
     return alpha, update_f(f, K[i], K[j], delta), False
 
 
 def smo_chunk_ref(K, diag, y, mask, C, tol, it_cap, n_iters, wss, alpha, f,
-                  n_iter, done, update_f=smo_f_update_ref):
+                  n_iter, done, update_f=smo_f_update_ref, stream=None):
     """Up to ``n_iters`` SMO steps from ``(alpha, f, n_iter, done)``: the
-    loop that the chunk kernel runs on the card in one launch. Returns the
-    new state; ``update_f`` lets the card's copy of this loop route the
-    f-update through the ``smo_f_update`` kernel."""
+    loop that the chunk kernels run on the card. Returns the new state;
+    ``update_f`` lets the card's copy of this loop route the dense f-update
+    through the ``smo_f_update`` kernel; ``stream`` selects the streaming
+    step (see ``smo_step_ref``)."""
     it, stop = int(n_iter), bool(done)
     for _ in range(n_iters):
         if stop:
             break
         alpha, f, stop = smo_step_ref(K, diag, y, mask, C, tol, it_cap, wss,
-                                      alpha, f, it, update_f)
+                                      alpha, f, it, update_f, stream)
         it += 0 if stop else 1
     return (alpha, f, torch.tensor(it, dtype=torch.int64, device=f.device),
             torch.tensor(stop, device=f.device))

@@ -1,12 +1,20 @@
-"""Device-resident SMO chunk on the card, built from ``csrc/smo_chunk.cu``:
-the counterpart of the ``lax.while_loop`` over ``_step`` in
-``src/repro/svm/engine.py::smo_chunk`` (whose f-update is the Pallas
-``smo_f_update`` on a TPU).
+"""Device-resident SMO chunks on the card: the counterparts of the
+``lax.while_loop`` over ``_step`` in ``src/repro/svm/engine.py::smo_chunk``
+(one lane) and ``chunk_batched_jit`` (lanes vmapped over one source).
 
-On a CUDA tensor the wrapper runs up to ``n_iters`` SMO iterations in one
-launch (or raises); on a CPU tensor it runs the plain per-step loop,
-``ref.smo_chunk_ref``. Either way the inputs are left untouched and the new
-state comes back as new tensors.
+* ``smo_chunk`` / ``smo_chunk_lanes`` — a dense K, built from
+  ``csrc/smo_chunk.cu``: up to ``n_iters`` iterations for every lane in ONE
+  launch, one thread block per lane.
+* ``smo_stream_chunk`` — a row-streaming RBF source (X, no K), built from
+  ``csrc/smo_step.cu``: up to ``n_iters`` (``smo_select``,
+  ``fused_smo_step``) launch pairs over all lanes, issued by one host call
+  that stops soon after every lane is done; ``smo_select`` also launches
+  the selection kernel alone.
+
+The caller reads the lanes' ``done`` flags only between chunks. On a CPU
+tensor each wrapper runs the plain per-step loop, ``ref.smo_chunk_ref``,
+lane by lane (the lanes are independent). Either way the inputs are left
+untouched and the new state comes back as new tensors.
 """
 from __future__ import annotations
 
@@ -15,57 +23,188 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import smo_chunk_ref
+from repro_torch.kernels.ref import smo_chunk_ref, smo_select_lanes_ref
+from repro_torch.kernels.smo_step import fused_smo_step
 
-_P, _LL, _D = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_double
+_P, _LL, _D, _I = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_double,
+                   ctypes.c_int)
 
 
-def _check(K, diag, y, mask, alpha, f, n_iter, done, wss):
+def _lane_args(dev, b, n, masks, Cs, it_caps, alphas, fs, n_iter, done,
+               copy_f=True):
+    """Check a chunk's per-lane tensors; C and the caps may come as host
+    sequences and are moved to ``dev``. The state comes back as copies (f
+    only if ``copy_f``), which the kernel then updates in place."""
+    Cs = torch.as_tensor(Cs, dtype=torch.float64, device=dev).reshape(-1)
+    it_caps = torch.as_tensor(it_caps, dtype=torch.int64,
+                              device=dev).reshape(-1)
+    for name, t, dtype, shape in (
+            ("masks", masks, torch.bool, (b, n)),
+            ("Cs", Cs, torch.float64, (b,)),
+            ("it_caps", it_caps, torch.int64, (b,)),
+            ("alphas", alphas, torch.float64, (b, n)),
+            ("fs", fs, torch.float64, (b, n)),
+            ("n_iter", n_iter, torch.int64, (b,)),
+            ("done", done, torch.bool, (b,))):
+        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"smo chunk: {name} must be {dtype} {shape} on "
+                             f"{dev}, got {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}")
+    copy = (lambda t: t.clone(memory_format=torch.contiguous_format))
+    return (masks.contiguous(), Cs.contiguous(), it_caps.contiguous(),
+            copy(alphas), copy(fs) if copy_f else fs.contiguous(),
+            copy(n_iter), copy(done))
+
+
+def _lanes_ref(one, masks, Cs, it_caps, alphas, fs, n_iter, done):
+    """The plain loop lane by lane: ``one(mask, C, it_cap, alpha, f,
+    n_iter, done)`` -> one lane's new state; stacked back into lanes."""
+    Cs = torch.as_tensor(Cs, dtype=torch.float64).reshape(-1).tolist()
+    caps = torch.as_tensor(it_caps).reshape(-1).tolist()
+    outs = [one(masks[l], Cs[l], caps[l], alphas[l], fs[l], n_iter[l],
+                done[l]) for l in range(masks.shape[0])]
+    return tuple(torch.stack(t) for t in zip(*outs))
+
+
+def smo_chunk_lanes(K, diag, y, masks, Cs, tol, it_caps, n_iters, wss,
+                    alphas, fs, n_iter, done):
+    """Up to ``n_iters`` dense SMO iterations for each of b lanes over one
+    K (n, n) float64. masks, alphas, fs (b, n); Cs, it_caps, n_iter, done
+    (b,). Returns the new ``(alphas, fs, n_iter, done)``. A lane is bitwise
+    the same whatever the other lanes of the launch."""
+    if wss not in ("1", "2"):
+        raise ValueError(f"smo_chunk: wss must be '1' or '2', got {wss!r}")
+    if K.device.type == "cpu":
+        return _lanes_ref(
+            lambda m, C, cap, a, f, it, dn: smo_chunk_ref(
+                K, diag, y, m, C, tol, cap, n_iters, wss, a, f, it, dn),
+            masks, Cs, it_caps, alphas, fs, n_iter, done)
+    if K.device.type != "cuda":
+        raise ValueError(f"smo_chunk: unsupported device {K.device}")
     n = K.shape[0]
     if K.dim() != 2 or K.shape[1] != n or n >= 2 ** 31:
         raise ValueError(f"smo_chunk: K must be square, got {tuple(K.shape)}")
-    for name, t, dtype, shape in (
-            ("K", K, torch.float64, (n, n)),
-            ("diag", diag, torch.float64, (n,)),
-            ("y", y, torch.float64, (n,)),
-            ("mask", mask, torch.bool, (n,)),
-            ("alpha", alpha, torch.float64, (n,)),
-            ("f", f, torch.float64, (n,)),
-            ("n_iter", n_iter, torch.int64, ()),
-            ("done", done, torch.bool, ())):
-        if t.device != K.device or t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(f"smo_chunk: {name} must be {dtype} {shape} on "
-                             f"{K.device}, got {t.dtype} {tuple(t.shape)} on "
-                             f"{t.device}")
-    if wss not in ("1", "2"):
-        raise ValueError(f"smo_chunk: wss must be '1' or '2', got {wss!r}")
+    for name, t in (("K", K), ("diag", diag), ("y", y)):
+        if t.device != K.device or t.dtype != torch.float64 \
+                or t.shape[-1] != n:
+            raise ValueError(f"smo_chunk: {name} must be float64 over {n} "
+                             f"rows on {K.device}")
+    b = masks.shape[0]
+    masks, Cs, it_caps, alphas, fs, n_iter, done = _lane_args(
+        K.device, b, n, masks, Cs, it_caps, alphas, fs, n_iter, done)
+    K, diag, y = K.contiguous(), diag.contiguous(), y.contiguous()
+    fn = _build.entry("smo_chunk", "smo_chunk_f64", _P, _P, _P, _P, _P, _D,
+                      _P, _LL, _I, _P, _P, _P, _P, _I, _I, _P)
+    err = fn(K.data_ptr(), diag.data_ptr(), y.data_ptr(), masks.data_ptr(),
+             Cs.data_ptr(), float(tol), it_caps.data_ptr(), int(n_iters),
+             2 if wss == "2" else 1, alphas.data_ptr(), fs.data_ptr(),
+             n_iter.data_ptr(), done.data_ptr(), n, b, _build.stream_ptr(K))
+    _build.check(err, "smo_chunk")
+    smo_chunk.launches += 1
+    return alphas, fs, n_iter, done
 
 
 def smo_chunk(K, diag, y, mask, C, tol, it_cap, n_iters, wss, alpha, f,
               n_iter, done):
     """Up to ``n_iters`` dense SMO iterations from ``(alpha, f, n_iter,
     done)`` over K (n, n) float64; returns the new ``(alpha, f, n_iter,
-    done)``. ``C``, ``tol``, ``it_cap`` and ``n_iters`` are host scalars."""
+    done)``. ``C``, ``tol``, ``it_cap`` and ``n_iters`` are host scalars.
+    On the card: the lane kernel at one lane."""
     if K.device.type == "cpu":
         return smo_chunk_ref(K, diag, y, mask, C, tol, it_cap, n_iters, wss,
                              alpha, f, n_iter, done)
-    if K.device.type != "cuda":
-        raise ValueError(f"smo_chunk: unsupported device {K.device}")
-    _check(K, diag, y, mask, alpha, f, n_iter, done, wss)
-    K, diag, y, mask = (t.contiguous() for t in (K, diag, y, mask))
-    alpha, f, n_iter, done = (t.clone(memory_format=torch.contiguous_format)
-                              for t in (alpha, f, n_iter, done))
-    fn = _build.entry("smo_chunk", "smo_chunk_f64", _P, _P, _P, _P, _D, _D,
-                      _LL, _LL, ctypes.c_int, _P, _P, _P, _P, ctypes.c_int,
-                      _P)
-    err = fn(K.data_ptr(), diag.data_ptr(), y.data_ptr(), mask.data_ptr(),
-             float(C), float(tol), int(it_cap), int(n_iters),
-             2 if wss == "2" else 1, alpha.data_ptr(), f.data_ptr(),
-             n_iter.data_ptr(), done.data_ptr(), K.shape[0],
-             _build.stream_ptr(K))
-    _build.check(err, "smo_chunk")
-    smo_chunk.launches += 1
-    return alpha, f, n_iter, done
+    out = smo_chunk_lanes(K, diag, y, mask[None], [float(C)], tol,
+                          [int(it_cap)], n_iters, wss, alpha[None], f[None],
+                          n_iter.reshape(1), done.reshape(1))
+    return tuple(t[0] for t in out)
 
 
 smo_chunk.launches = 0
+
+
+def smo_stream_chunk(X, sq_norms, gamma, y, masks, Cs, tol, it_caps,
+                     n_iters, alphas, fs, n_iter, done):
+    """Up to ``n_iters`` streaming WSS-1 SMO iterations for each of b lanes
+    over one RBF source (X (n, d), sq_norms (n,), gamma; K_ii = 1), float64.
+    Lane tensors as for ``smo_chunk_lanes``. Returns the new ``(alphas, fs,
+    n_iter, done)``.
+
+    On the card every iteration is one selection launch (a block per lane:
+    the pair, K[i, j], delta and alpha) and one ``fused_smo_step`` launch
+    over all lanes. The chunk stops within 128 iterations of every lane's
+    stop (a done lane's blocks exit at once meanwhile), and both counts
+    grow by the iterations it launched."""
+    n, d = X.shape
+    if X.device.type == "cpu":
+        ones = torch.ones(n, dtype=X.dtype)
+        stream = (X, sq_norms, float(gamma))
+        return _lanes_ref(
+            lambda m, C, cap, a, f, it, dn: smo_chunk_ref(
+                None, ones, y, m, C, tol, cap, n_iters, "1", a, f, it, dn,
+                stream=stream),
+            masks, Cs, it_caps, alphas, fs, n_iter, done)
+    if X.device.type != "cuda":
+        raise ValueError(f"smo_stream_chunk: unsupported device {X.device}")
+    for name, t, shape in (("X", X, (n, d)), ("sq_norms", sq_norms, (n,)),
+                           ("y", y, (n,))):
+        if t.device != X.device or t.dtype != torch.float64 \
+                or tuple(t.shape) != shape:
+            raise ValueError(f"smo_stream_chunk: {name} must be float64 "
+                             f"{shape} on {X.device}")
+    if max(n, d) >= 2 ** 31:
+        raise ValueError("smo_stream_chunk: n and d must be below 2**31")
+    b = masks.shape[0]
+    masks, Cs, it_caps, alphas, fs, n_iter, done = _lane_args(
+        X.device, b, n, masks, Cs, it_caps, alphas, fs, n_iter, done)
+    X, sq_norms, y = X.contiguous(), sq_norms.contiguous(), y.contiguous()
+    xij = torch.empty((b, 2, d), dtype=torch.float64, device=X.device)
+    delta = torch.zeros(b, dtype=torch.float64, device=X.device)
+    fn = _build.entry("smo_step", "smo_stream_chunk_f64", _P, _P, _P, _P, _P,
+                      _D, _P, _LL, _D, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                      _P, _P)
+    issued = ctypes.c_longlong(0)
+    err = fn(X.data_ptr(), sq_norms.data_ptr(), y.data_ptr(),
+             masks.data_ptr(), Cs.data_ptr(), float(tol), it_caps.data_ptr(),
+             int(n_iters), float(gamma), alphas.data_ptr(), fs.data_ptr(),
+             n_iter.data_ptr(), done.data_ptr(), xij.data_ptr(),
+             delta.data_ptr(), n, d, b, _build.stream_ptr(X),
+             ctypes.addressof(issued))
+    smo_select.launches += issued.value
+    fused_smo_step.launches += issued.value
+    _build.check(err, "smo_stream_chunk")
+    return alphas, fs, n_iter, done
+
+
+def smo_select(X, sq_norms, gamma, y, masks, Cs, tol, it_caps, alphas, fs,
+               n_iter, done):
+    """One streaming WSS-1 selection step for each of b lanes (lane tensors
+    as for ``smo_stream_chunk``): the freeze test, the maximal violating
+    pair, K[i, j], the clipped delta and the new (box-clipped) alpha.
+    Returns new ``(alphas, n_iter, done, xij, delta)``: the pair rows (b,
+    2, d) and delta (b,) that ``fused_smo_step`` takes next (zeros for a
+    lane that did not step). The streaming chunk runs this kernel once per
+    iteration; this wrapper launches it alone, to check and time it."""
+    if X.device.type == "cpu":
+        return smo_select_lanes_ref(X, sq_norms, gamma, y, masks, Cs, tol,
+                                    it_caps, alphas, fs, n_iter, done)
+    n, d = X.shape
+    b = masks.shape[0]
+    masks, Cs, it_caps, alphas, fs, n_iter, done = _lane_args(
+        X.device, b, n, masks, Cs, it_caps, alphas, fs, n_iter, done,
+        copy_f=False)
+    xij = torch.zeros((b, 2, d), dtype=torch.float64, device=X.device)
+    delta = torch.zeros(b, dtype=torch.float64, device=X.device)
+    X, sq_norms, y = X.contiguous(), sq_norms.contiguous(), y.contiguous()
+    fn = _build.entry("smo_step", "smo_select_f64", _P, _P, _P, _P, _P, _D,
+                      _P, _D, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P)
+    err = fn(X.data_ptr(), sq_norms.data_ptr(), y.data_ptr(),
+             masks.data_ptr(), Cs.data_ptr(), float(tol), it_caps.data_ptr(),
+             float(gamma), alphas.data_ptr(), fs.data_ptr(),
+             n_iter.data_ptr(), done.data_ptr(), xij.data_ptr(),
+             delta.data_ptr(), n, d, b, _build.stream_ptr(X))
+    _build.check(err, "smo_select")
+    smo_select.launches += 1
+    return alphas, n_iter, done, xij, delta
+
+
+smo_select.launches = 0

@@ -1,18 +1,25 @@
-"""The dense SMO engine: state types, optimality, and chunked dispatch.
+"""The SMO engine: state types, kernel sources, optimality, and chunked
+dispatch at one lane and over lanes.
 
-Mirrors the dense core of ``src/repro/svm/engine.py``: ``SMOResult``,
-``EngineState``, ``optimality``, ``DenseKernel``, ``smo_chunk``,
-``init_state``, ``finalize`` and ``solve`` (with ``chunk_iters``,
-``on_chunk`` and ``n_iter0``). The step itself (WSS-2 and WSS-1, with
-``_sets`` and the NaN-guarded first-index ``_argmin``/``_argmax``) is
-``kernels/ref.py::smo_step_ref``, kept beside the chunk kernel that runs
-it on the card.
+Mirrors ``src/repro/svm/engine.py``: ``SMOResult``, ``EngineState`` (with
+the lane helpers ``stack``/``lane``/``gather``/``scatter``),
+``optimality``, the sources ``DenseKernel``, ``OnDemandRBF``, ``FusedRBF``
+and ``PallasRBF``, ``smo_chunk``, ``chunk_batched`` (the reference's
+``chunk_batched_jit``), ``init_state``, ``finalize``, ``solve`` and
+``solve_batched``. The step itself (WSS-2 and WSS-1, dense or streaming)
+is ``kernels/ref.py::smo_step_ref``, kept beside the chunk kernels that
+run it on the card.
 
-A chunk on a CUDA tensor is ONE launch of the device-resident chunk kernel
-(``kernels/smo_chunk.py``): the host reads ``done`` only between chunks, as
-the reference's jitted ``lax.while_loop`` does. On a CPU tensor it is the
-plain per-step loop. The row-streaming sources, the batched lanes and
-shrinking are later slices of the port.
+A chunk on a CUDA tensor runs on the card without a host sync inside it:
+over a ``DenseKernel`` it is ONE launch of the dense chunk kernel (a block
+per lane); over a row-streaming source (``PallasRBF``) it is ``n_iters``
+pairs of launches, the WSS-1 selection and ``fused_smo_step``, issued by
+one host call. The host reads ``done`` only between chunks, as the
+reference's jitted ``lax.while_loop`` does. On a CPU tensor a chunk is the
+plain per-step loop, lane by lane. ``OnDemandRBF`` and ``FusedRBF`` serve
+kernel rows (``row``, ``rows2``, ``kij``, ``rows_at``, ``matvec``); solves
+go through ``DenseKernel`` or ``PallasRBF``. Stacked per-lane sources and
+``compact`` belong to shrinking, a later slice of the port.
 """
 from __future__ import annotations
 
@@ -21,10 +28,13 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.kernels.ops import (fused_smo_step, smo_chunk_lanes,
+                                     smo_stream_chunk)
 from repro_torch.kernels.ops import smo_chunk as _smo_chunk_kernel
-from repro_torch.kernels.ref import _sets
+from repro_torch.kernels.ref import _sets, rbf_kij_ref
 
 _INF = math.inf
+_INT32_MAX = 2 ** 31 - 1
 
 
 class SMOResult(NamedTuple):
@@ -37,11 +47,37 @@ class SMOResult(NamedTuple):
 
 
 class EngineState(NamedTuple):
-    """Resumable solver state — the unit chunks pass between themselves."""
+    """Resumable solver state — the unit chunks pass between themselves.
+    A batched state carries a leading lane axis on every field; the lane
+    pool ``stack``s single-lane states into a batch and ``lane``-extracts
+    them back; ``gather``/``scatter`` compact a batch to a lane subset and
+    write it back (new tensors, as the reference's functional updates)."""
     alpha: torch.Tensor
     f: torch.Tensor
     n_iter: torch.Tensor   # () int64 — updates applied so far
     done: torch.Tensor     # () bool — converged or iteration-capped
+
+    @staticmethod
+    def stack(states: "list[EngineState]") -> "EngineState":
+        """Pack single-lane states into a batched state (axis 0 = lane)."""
+        return EngineState(*(torch.stack(xs) for xs in zip(*states)))
+
+    def lane(self, i) -> "EngineState":
+        """Lane ``i`` of a batched state as a single-lane state."""
+        return EngineState(*(t[i] for t in self))
+
+    def gather(self, idx) -> "EngineState":
+        """The lanes in ``idx`` of a batched state (repacking)."""
+        idx = torch.as_tensor(idx, device=self.alpha.device)
+        return EngineState(*(t[idx] for t in self))
+
+    def scatter(self, idx, sub: "EngineState") -> "EngineState":
+        """A copy of this batch with the lanes of ``sub`` at ``idx``."""
+        idx = torch.as_tensor(idx, device=self.alpha.device)
+        out = [t.clone() for t in self]
+        for t, s in zip(out, sub):
+            t[idx] = s
+        return EngineState(*out)
 
 
 def optimality(alpha, f, y, train_mask, C):
@@ -55,8 +91,15 @@ def optimality(alpha, f, y, train_mask, C):
     return b_up, b_low, gap
 
 
+# --------------------------------------------------------------------------
+# kernel sources
+# --------------------------------------------------------------------------
+
 class DenseKernel:
     """Precomputed kernel matrix — the LibSVM-parity source."""
+
+    fused = False
+    streams_rows = False
 
     def __init__(self, K):
         self.K = K
@@ -65,8 +108,160 @@ class DenseKernel:
     def dtype(self):
         return self.K.dtype
 
+    @property
+    def device(self):
+        return self.K.device
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes held resident (what the source cache budgets)."""
+        return self.K.numel() * self.K.element_size()
+
     def diag(self):
         return torch.diagonal(self.K).contiguous()
+
+    def row(self, i):
+        return self.K[i]
+
+    def to(self, device) -> "DenseKernel":
+        return DenseKernel(torch.as_tensor(self.K, device=device))
+
+
+class OnDemandRBF:
+    """RBF kernel rows recomputed from X (K_ii = 1); holds X and its row
+    norms only. ``rows_at`` and ``matvec`` stream row slabs, O(t n) or
+    O(block n) transient memory, never n^2 resident."""
+
+    fused = False
+    streams_rows = False
+
+    def __init__(self, X, gamma: float, sq_norms=None):
+        self.X = X
+        self.gamma = float(gamma)
+        self.sq_norms = torch.sum(X * X, -1) if sq_norms is None \
+            else sq_norms
+
+    @property
+    def dtype(self):
+        return self.X.dtype
+
+    @property
+    def device(self):
+        return self.X.device
+
+    @property
+    def nbytes(self) -> int:
+        """Resident bytes are X's, not n^2 kernel bytes."""
+        return self.X.numel() * self.X.element_size()
+
+    def diag(self):
+        return torch.ones(self.X.shape[0], dtype=self.X.dtype,
+                          device=self.X.device)
+
+    def row(self, i):
+        xi = self.X[i]
+        d2 = torch.clamp_min(self.sq_norms + torch.sum(xi * xi)
+                             - 2.0 * (self.X @ xi), 0.0)
+        return torch.exp(-self.gamma * d2)
+
+    def rows2(self, i, j):
+        """Both kernel rows in one pass over X."""
+        xij = self.X[[int(i), int(j)]]
+        d2 = torch.clamp_min(self.sq_norms[:, None]
+                             + torch.sum(xij * xij, 1)[None]
+                             - 2.0 * (self.X @ xij.T), 0.0)
+        K2 = torch.exp(-self.gamma * d2)
+        return K2[:, 0], K2[:, 1]
+
+    def kij(self, i, j):
+        """K[i, j] by the ``rows2`` expression at row j (the reference's
+        interpret-mode ``kij``; the card's selection kernel computes the
+        same expression)."""
+        return rbf_kij_ref(self.X, self.sq_norms, self.gamma, i, j)
+
+    def _slab(self, Xb, sqb):
+        """exp(-gamma * max(|xb|^2 + |x|^2 - 2 xb.x, 0)) for the rows Xb,
+        rounded as the reference's expression, with one (t, n) temporary
+        besides the result."""
+        t = sqb[:, None] + self.sq_norms[None]
+        t.sub_((Xb @ self.X.T).mul_(2.0))
+        return t.clamp_min_(0.0).mul_(-self.gamma).exp_()
+
+    def rows_at(self, idx):
+        """Kernel row slab K[idx, :] -> (t, n): the evaluation path for
+        K-less sources."""
+        Xi = self.X[torch.as_tensor(idx, device=self.X.device)]
+        return self._slab(Xi, torch.sum(Xi * Xi, -1))
+
+    def matvec(self, v, *, block: int = 2048):
+        """Streaming ``K @ v``: row blocks of K formed and reduced at once,
+        O(block n) transient memory."""
+        n = self.X.shape[0]
+        return torch.cat([
+            self._slab(self.X[s:s + block], self.sq_norms[s:s + block]) @ v
+            for s in range(0, n, block)])
+
+    def to(self, device):
+        return type(self)(torch.as_tensor(self.X, device=device), self.gamma,
+                          torch.as_tensor(self.sq_norms, device=device))
+
+
+class FusedRBF(OnDemandRBF):
+    """One-pass two-row RBF evaluation; forces WSS-1 pair selection (the
+    second index must come from f alone so both rows stream together)."""
+
+    fused = True
+
+
+class PallasRBF(FusedRBF):
+    """Row-streaming RBF source over the fused step kernel: each SMO
+    iteration is one pass over X that computes the WSS-1 pair's kernel rows
+    and applies ``f += delta * (K_i - K_j)`` in the same launch
+    (``kernels/smo_step.py``); the rows never reach memory. ``streams_rows``
+    routes the engine's update through ``update_f(f, i, j, delta)`` and
+    ``kij(i, j)``; selection must be WSS-1 (``fused``)."""
+
+    streams_rows = True
+
+    def update_f(self, f, i, j, delta):
+        return fused_smo_step(f, self.X, self.X[[int(i), int(j)]],
+                              self.sq_norms, delta, self.gamma)
+
+
+# --------------------------------------------------------------------------
+# chunks
+# --------------------------------------------------------------------------
+
+def _check_source(source, wss: str) -> None:
+    if getattr(source, "fused", False) and wss == "2":
+        raise ValueError("fused kernel sources evaluate both rows in one "
+                         "pass and require WSS-1 (wss='1')")
+    if not (isinstance(source, DenseKernel) or source.streams_rows):
+        raise ValueError(f"{type(source).__name__} serves kernel rows only: "
+                         "solve through DenseKernel or PallasRBF")
+
+
+def chunk_batched(source, y, train_masks, Cs, tol, it_caps,
+                  states: EngineState, n_iters: int,
+                  wss: str) -> EngineState:
+    """One chunk over a batch of lanes sharing ``source`` and ``y``:
+    per-lane ``train_masks`` (b, n), ``Cs`` (b,) and ``it_caps`` (b,) (a
+    scalar broadcasts). A done lane passes through unchanged, so each lane
+    is bitwise the same whatever it is packed with."""
+    _check_source(source, wss)
+    b = train_masks.shape[0]
+    Cs = torch.as_tensor(Cs, dtype=torch.float64).reshape(-1).expand(b)
+    it_caps = torch.as_tensor(it_caps, dtype=torch.int64).reshape(-1) \
+        .expand(b)
+    if source.streams_rows:
+        out = smo_stream_chunk(source.X, source.sq_norms, source.gamma, y,
+                               train_masks, Cs, float(tol), it_caps,
+                               int(n_iters), *states)
+    else:
+        out = smo_chunk_lanes(source.K, source.diag(), y, train_masks, Cs,
+                              float(tol), it_caps, int(n_iters), wss,
+                              *states)
+    return EngineState(*out)
 
 
 def smo_chunk(source, y, train_mask, C, state: EngineState, *,
@@ -75,19 +270,28 @@ def smo_chunk(source, y, train_mask, C, state: EngineState, *,
     """Run up to ``n_iters`` SMO iterations from ``state``; chunk N+1
     continues chunk N's iterate sequence bit-exactly. ``it_cap`` bounds the
     total ``n_iter`` across chunks."""
+    _check_source(source, wss)
     if it_cap is None:
-        it_cap = torch.iinfo(torch.int32).max
+        it_cap = _INT32_MAX
+    if source.streams_rows:
+        return chunk_batched(source, y, train_mask[None], [float(C)], tol,
+                             [int(it_cap)], EngineState.stack([state]),
+                             n_iters, wss).lane(0)
     out = _smo_chunk_kernel(source.K, source.diag(), y, train_mask, float(C),
                             float(tol), int(it_cap), int(n_iters), wss,
                             *state)
     return EngineState(*out)
 
 
+# --------------------------------------------------------------------------
+# drivers: single solve / batched solve
+# --------------------------------------------------------------------------
+
 def init_state(source, y, train_mask, alpha0, f0, n_iter0=0) -> EngineState:
     """Zero alphas outside the training mask, cast to the source dtype,
     reset the done flag."""
     alpha0 = torch.where(train_mask, alpha0, 0.0).to(source.dtype)
-    dev = source.K.device
+    dev = source.device
     return EngineState(alpha0, f0.to(source.dtype),
                        torch.tensor(int(n_iter0), dtype=torch.int64,
                                     device=dev),
@@ -124,3 +328,39 @@ def solve(source, y, train_mask, C, alpha0, f0, *, tol: float = 1e-3,
         if on_chunk is not None:
             on_chunk(state)
     return finalize(state, y, train_mask, C, tol)
+
+
+def solve_batched(source, y, train_masks, Cs, alpha0s, f0s, *,
+                  tol: float = 1e-3, max_iter: int = 10_000_000,
+                  wss: str = "2", chunk_iters: int = 4096,
+                  on_chunk=None, n_iter0s=None) -> SMOResult:
+    """Solve a batch of folds concurrently over one shared kernel source.
+
+    ``train_masks`` (b, n), ``Cs`` () or (b,), ``alpha0s``/``f0s`` (b, n).
+    Each chunk advances every unconverged lane up to ``chunk_iters``
+    iterations; converged lanes freeze, so each lane ends bitwise where its
+    own ``solve`` would. Returns a batched ``SMOResult`` (leading axis =
+    lane). ``n_iter0s`` (() or (b,)) pre-loads per-lane iteration counters;
+    ``max_iter`` caps the total including the preload.
+    """
+    _check_source(source, wss)
+    b, n = train_masks.shape
+    dev = source.device
+    Cs = torch.as_tensor(Cs, dtype=torch.float64).expand(b).tolist()
+    alpha0s = torch.where(train_masks, alpha0s, 0.0).to(source.dtype)
+    n_iter0s = torch.as_tensor(0 if n_iter0s is None else n_iter0s,
+                               dtype=torch.int64).expand(b).to(dev)
+    states = EngineState(alpha0s, f0s.to(source.dtype), n_iter0s,
+                         torch.zeros(b, dtype=torch.bool, device=dev))
+    while True:
+        states = chunk_batched(source, y, train_masks, Cs, tol, max_iter,
+                               states, chunk_iters, wss)
+        if bool(states.done.all()):
+            break
+        if on_chunk is not None:
+            on_chunk(states)
+    opt = [optimality(states.alpha[l], states.f[l], y, train_masks[l], Cs[l])
+           for l in range(b)]
+    b_up, b_low, gap = (torch.stack(t) for t in zip(*opt))
+    return SMOResult(alpha=states.alpha, f=states.f, n_iter=states.n_iter,
+                     converged=gap <= tol, b_up=b_up, b_low=b_low)

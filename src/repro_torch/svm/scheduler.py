@@ -1,0 +1,509 @@
+"""Lane pool: multi-source repacked batched dispatch with incremental
+admission.
+
+Mirrors ``src/repro/svm/scheduler.py``: the pure helpers ``bucket_width``,
+``possible_widths``, ``order_capped``, ``select_capped`` and
+``budget_sources`` (verbatim in logic), and ``LanePool``:
+
+* **repacking** — between chunks, converged lanes retire (their state
+  finalized into an ``SMOResult`` keyed by lane id) and the live lanes of a
+  source are gathered into a compact batch, so device work tracks
+  ``sum_h n_iter_h``;
+* **source and width bucketing** — one batched chunk per (source, width)
+  group; a group's width is rounded up to a multiple of ``lane_quantum``
+  (1 and 2 exact) with pad lanes that copy lane 0 with ``done`` set and a
+  cap of 0, which the chunk kernels pass through untouched; a group of one
+  runs the single-lane chunk;
+* **width capping** — ``max_width`` from the cost model
+  (``cost_model.py``): width 1 on the CPU (round-robin, source-sticky,
+  least-served first), unbounded on ``cuda``;
+* **admission** — a lane may start from a given state, or depend on
+  another lane's result through ``seed_fn(result) -> (alpha0, f0)``,
+  and/or wait on an ``after`` ordering edge;
+* **kernel residency** — factory sources (``sources.KernelSpec``)
+  materialize through the ``SourceCache`` under its budget, and selection
+  is budget-aware.
+
+Each lane's iterate sequence depends only on its own (source, mask, C,
+state), and a done lane passes through a chunk unchanged, so per-lane
+results are bitwise those of sequential ``engine.solve`` runs whatever the
+packing. The host reads a batch's ``done`` flags once per chunk.
+
+Shrinking (``_step_shrink``), ``snapshot_lanes``, the retirement and
+per-chunk callbacks, and the daemon's live source admission and tenant
+accounting are later slices of the port (``select_capped`` itself
+fair-shares lanes of several tenants; the pool's lanes carry none).
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.svm import cost_model
+from repro_torch.svm.engine import (EngineState, SMOResult, chunk_batched,
+                                    finalize, init_state, smo_chunk)
+from repro_torch.svm.sources import SourceCache
+
+
+def bucket_width(w: int, quantum: int = 4) -> int:
+    """Packed width for ``w`` live lanes: 1 and 2 are exact, wider batches
+    round up to the next multiple of ``quantum``."""
+    if w <= 2:
+        return max(w, 1)
+    q = max(int(quantum), 1)
+    return -(-w // q) * q
+
+
+def possible_widths(peak: int, quantum: int = 4,
+                    max_width: int = 0) -> tuple[int, ...]:
+    """Every distinct packed width the pool can dispatch for a source whose
+    live-lane count ranges over 1..``peak`` under a ``max_width`` cap
+    (0 = unbounded)."""
+    cap = int(peak) if not max_width else min(int(peak), int(max_width))
+    return tuple(sorted({bucket_width(w, quantum)
+                         for w in range(1, max(cap, 1) + 1)}))
+
+
+def order_capped(lanes, *, sticky, resident, served, source) -> list:
+    """Width-capped dispatch priority: the sticky source's lanes, then
+    lanes of resident sources, then the rest; each tier stable-sorted by
+    ``served``."""
+    stick = [ln for ln in lanes if source(ln) == sticky]
+    near = [ln for ln in lanes
+            if source(ln) != sticky and resident(source(ln))]
+    far = [ln for ln in lanes
+           if source(ln) != sticky and not resident(source(ln))]
+    return (sorted(stick, key=served) + sorted(near, key=served)
+            + sorted(far, key=served))
+
+
+def select_capped(lanes, *, max_width, sticky, resident, served, source,
+                  tenant, tenant_served) -> list:
+    """``order_capped`` truncated to ``max_width``; lanes of several
+    tenants fair-share the width, tenants interleaved round-robin,
+    least-served first."""
+    tenants = list(dict.fromkeys(tenant(ln) for ln in lanes))
+    order = dict(sticky=sticky, resident=resident, served=served,
+                 source=source)
+    if len(tenants) <= 1:
+        return order_capped(lanes, **order)[:max_width]
+    per = {t: order_capped([ln for ln in lanes
+                            if tenant(ln) is t or tenant(ln) == t], **order)
+           for t in tenants}
+    tenants.sort(key=lambda t: tenant_served.get(t, 0))
+    out: list = []
+    while len(out) < max_width and any(per.values()):
+        for t in tenants:
+            if per[t] and len(out) < max_width:
+                out.append(per[t].pop(0))
+    return out
+
+
+def budget_sources(srcs, *, budgeted, pinned, resident, sticky, nbytes,
+                   fits) -> set:
+    """Which candidate source keys may dispatch this chunk under the
+    residency budget: pinned ones always, managed ones greedily in sticky >
+    resident > cold order while ``fits(count, bytes)`` admits them."""
+    srcs = list(dict.fromkeys(srcs))
+    if not budgeted or len(srcs) <= 1:
+        return set(srcs)
+    allowed = {s for s in srcs if pinned(s)}
+    managed = sorted((s for s in srcs if s not in allowed),
+                     key=lambda s: (s != sticky, not resident(s)))
+    taken: list = []
+    used = 0
+    for s in managed:
+        nb = nbytes(s)
+        if taken and not fits(len(taken) + 1, used + nb):
+            break
+        taken.append(s)
+        used += nb
+    return allowed | set(taken)
+
+
+def _sync(*tensors) -> None:
+    """Wait for the card (so a host clock times work, not its enqueue)."""
+    for t in tensors:
+        if isinstance(t, torch.Tensor) and t.device.type == "cuda":
+            torch.cuda.synchronize(t.device)
+            return
+
+
+@dataclasses.dataclass
+class _Lane:
+    id: Any
+    source: Any                           # key into the pool's sources
+    train_mask: Any
+    C: float
+    max_iter: int
+    state: EngineState | None = None      # admitted, not yet retired
+    dep: Any = None                       # lane id this lane seeds from
+    seed_fn: Callable | None = None       # SMOResult -> (alpha0, f0)
+    after: Any = None                     # ordering-only admission edge
+    alpha0: Any = None                    # deferred start (held by ``after``)
+    f0: Any = None
+    n_iter0: int = 0
+    result: SMOResult | None = None       # set at retirement
+    served: int = 0                       # chunks dispatched (fairness)
+    seed_s: float = 0.0                   # admission-transform wall time
+    solve_s: float = 0.0                  # dispatch wall time attributed here
+
+
+class LanePool:
+    """Independent solve lanes over one or more kernel sources, driven to
+    convergence by repacked, source-bucketed, incrementally admitted chunk
+    dispatch (see the module docstring). ``sources`` maps a key to a
+    kernel source or a factory (``sources.KernelSpec``); ``y`` is shared or
+    a dict keyed like ``sources``. ``on_trace(event)`` receives the
+    schedule's event tuples (admit, given, pack, dispatch, retire, resident,
+    materialize, evict).
+    """
+
+    def __init__(self, sources, y, *, tol: float = 1e-3, wss: str = "2",
+                 chunk_iters: int = 2048, lane_quantum: int = 4,
+                 max_width: int | None = None, max_resident: int = 0,
+                 cache_bytes: int = 0, on_trace=None):
+        if not isinstance(sources, dict) or not sources:
+            raise ValueError("sources must be a non-empty {key: source} "
+                             "dict")
+        self.sources = dict(sources)
+        self._ys = {k: (y[k] if isinstance(y, dict) else y)
+                    for k in self.sources}
+        if max_width is None:
+            kinds = {cost_model.source_kind(s) for s in sources.values()}
+            device = next(iter(self._ys.values())).device.type
+            max_width = cost_model.pick_max_width(device, kinds=kinds)
+        self.max_width = int(max_width)   # 0 = unbounded
+        self.tol = tol
+        self.wss = wss
+        self.chunk_iters = int(chunk_iters)
+        self.lane_quantum = int(lane_quantum)
+        self.on_trace = on_trace
+        self._lanes: dict[Any, _Lane] = {}
+        self._order: list[Any] = []       # insertion order = packing order
+        self.results: dict[Any, SMOResult] = {}
+        self.seed_time = 0.0              # admission transforms (paper "init.")
+        self.chunk_count = 0
+        self._width_log: list[tuple[int, int]] = []   # (live, dispatched)
+        self._programs: set[tuple] = set()            # (source, width) seen
+        self._src_live: dict[Any, list] = {}          # key -> [sum, n, peak]
+        self._sticky: Any = None          # last dispatched source
+        # packed batch per source, rebuilt when the group's membership
+        # changes (the old pack is written back to its lanes first)
+        self._packed: dict[Any, tuple] = {}  # key -> (ids, payload)
+        self.cache = SourceCache(
+            self.sources, max_resident=max_resident, cache_bytes=cache_bytes,
+            wss=wss, distance=self._source_distance,
+            sticky=lambda: self._sticky, on_evict=self._on_source_evict,
+            on_trace=self._trace)
+        for key, entry in self.sources.items():
+            self.cache.check_fused(key, entry)
+
+    def _trace(self, *event) -> None:
+        if self.on_trace is not None:
+            self.on_trace(tuple(event))
+
+    def y_of(self, source_key):
+        return self._ys[source_key]
+
+    def resolve_source(self, source_key):
+        """The usable kernel source for ``source_key``, through the
+        residency cache."""
+        return self.cache.get(source_key)
+
+    def _source_distance(self, source_key) -> int:
+        """Unretired lanes of a source: the fewest is evicted first."""
+        return sum(1 for lane in self._lanes.values()
+                   if lane.source == source_key and lane.result is None)
+
+    def _on_source_evict(self, source_key) -> None:
+        if source_key in self._packed:
+            self._writeback(source_key)
+
+    def _budget_sources(self, lanes) -> set:
+        return budget_sources(
+            [ln.source for ln in lanes], budgeted=self.cache.budgeted,
+            pinned=self.cache.pinned, resident=self.cache.resident,
+            sticky=self._sticky, nbytes=self.cache.nbytes_of,
+            fits=self.cache.fits)
+
+    def _source_key(self, source) -> Any:
+        if source is not None:
+            if source not in self.sources:
+                raise ValueError(f"unknown source key {source!r}")
+            return source
+        if len(self.sources) == 1:
+            return next(iter(self.sources))
+        raise ValueError("a multi-source pool needs an explicit source key "
+                         "per lane")
+
+    # ---------------------------------------------------------- lane intake
+
+    def add(self, lane_id, train_mask, C, alpha0=None, f0=None, *,
+            source=None, n_iter0: int = 0, max_iter: int = 10_000_000,
+            dep=None, seed_fn=None, after=None) -> None:
+        """Register a lane: its start point (``alpha0``/``f0``, optionally
+        ``n_iter0``) or a dependency (``dep`` + ``seed_fn`` mapping that
+        lane's ``SMOResult`` to (alpha0, f0)), admitted when the dependency
+        retires. ``after`` holds the lane until that lane retires."""
+        if lane_id in self._lanes:
+            raise ValueError(f"duplicate lane id {lane_id!r}")
+        if (dep is None) == (alpha0 is None):
+            raise ValueError("give exactly one of alpha0/f0 or dep/seed_fn")
+        if (alpha0 is None) != (f0 is None):
+            raise ValueError("alpha0 and f0 must be given together "
+                             "(f0 = init_f(K, y, alpha0))")
+        if dep is not None and seed_fn is None:
+            raise ValueError("a dependent lane needs a seed_fn")
+        key = self._source_key(source)
+        lane = _Lane(id=lane_id, source=key, train_mask=train_mask, C=C,
+                     max_iter=int(max_iter), dep=dep, seed_fn=seed_fn,
+                     after=after)
+        if alpha0 is not None:
+            if after is None:
+                lane.state = init_state(self.cache.meta(key), self._ys[key],
+                                        train_mask, alpha0, f0,
+                                        n_iter0=n_iter0)
+            else:   # held: built at admission, when ``after`` retires
+                lane.alpha0, lane.f0, lane.n_iter0 = alpha0, f0, int(n_iter0)
+        self._lanes[lane_id] = lane
+        self._order.append(lane_id)
+        if lane.state is not None:
+            self._trace("admit", lane_id, key)
+
+    def add_result(self, lane_id, result: SMOResult) -> None:
+        """Register an already-solved lane: it can seed others but is never
+        dispatched."""
+        if lane_id in self._lanes:
+            raise ValueError(f"duplicate lane id {lane_id!r}")
+        lane = _Lane(id=lane_id, source=None, train_mask=None, C=None,
+                     max_iter=0, result=result)
+        self._lanes[lane_id] = lane
+        self._order.append(lane_id)
+        self.results[lane_id] = result
+        self._trace("given", lane_id)
+
+    def lane_times(self, lane_id) -> tuple[float, float]:
+        """(seed_s, solve_s): a lane's admission transform, and its share
+        of every chunk it was dispatched in."""
+        lane = self._lanes[lane_id]
+        return lane.seed_s, lane.solve_s
+
+    # ------------------------------------------------------------ scheduling
+
+    def _admit(self) -> None:
+        """Admit every pending lane whose edges have retired."""
+        for lane_id in self._order:
+            lane = self._lanes[lane_id]
+            if lane.state is not None or lane.result is not None:
+                continue
+            if lane.after is not None and lane.after not in self.results:
+                continue
+            meta, y = self.cache.meta(lane.source), self._ys[lane.source]
+            if lane.dep is None:          # explicit start held by ``after``
+                lane.state = init_state(meta, y, lane.train_mask, lane.alpha0,
+                                        lane.f0, n_iter0=lane.n_iter0)
+                lane.alpha0 = lane.f0 = None
+                self._trace("admit", lane_id, lane.source)
+                continue
+            if lane.dep not in self.results:
+                continue
+            # a seed transform may materialize its kernel; that time is
+            # kernel time, not seed time
+            t0 = time.perf_counter()
+            k0 = self.cache.kernel_time
+            alpha0, f0 = lane.seed_fn(self.results[lane.dep])
+            _sync(alpha0, f0)
+            dt = (time.perf_counter() - t0) - (self.cache.kernel_time - k0)
+            lane.seed_s += dt
+            self.seed_time += dt
+            lane.state = init_state(self.cache.meta(lane.source), y,
+                                    lane.train_mask, alpha0, f0)
+            self._trace("admit", lane_id, lane.source)
+
+    def _live(self) -> list[_Lane]:
+        return [self._lanes[i] for i in self._order
+                if self._lanes[i].state is not None
+                and self._lanes[i].result is None]
+
+    def _retire(self, lane: _Lane) -> None:
+        lane.result = finalize(lane.state, self._ys[lane.source],
+                               lane.train_mask, lane.C, self.tol)
+        self.results[lane.id] = lane.result
+        if self.on_trace is not None:     # int() syncs — only when tracing
+            self._trace("retire", lane.id, int(lane.result.n_iter))
+
+    def _pack(self, key, live: list[_Lane]) -> None:
+        """Gather a source group's live lanes into a batch of bucketed
+        width; pad lanes copy lane 0 with ``done`` set and a cap of 0."""
+        width = bucket_width(len(live), self.lane_quantum)
+        states = [ln.state for ln in live]
+        masks = [ln.train_mask for ln in live]
+        Cs = [float(ln.C) for ln in live]
+        caps = [ln.max_iter for ln in live]
+        dev = live[0].state.alpha.device
+        for _ in range(width - len(live)):
+            states.append(live[0].state._replace(
+                done=torch.ones((), dtype=torch.bool, device=dev)))
+            masks.append(live[0].train_mask)
+            Cs.append(float(live[0].C))
+            caps.append(0)
+        payload = (torch.stack(masks),
+                   torch.tensor(Cs, dtype=torch.float64, device=dev),
+                   torch.tensor(caps, dtype=torch.int64, device=dev),
+                   EngineState.stack(states))
+        self._packed[key] = (tuple(ln.id for ln in live), payload)
+        self._trace("pack", key, tuple(ln.id for ln in live))
+
+    def _writeback(self, key) -> None:
+        """Write a source's packed states back into its lanes and drop the
+        pack."""
+        ids, payload = self._packed.pop(key)
+        states = payload[3]
+        for i, lane_id in enumerate(ids):
+            self._lanes[lane_id].state = states.lane(i)
+
+    def _cap_select(self, selected: list[_Lane]) -> list[_Lane]:
+        """The lanes that dispatch this chunk under ``max_width``:
+        source-sticky, resident sources next, least-served first."""
+        return select_capped(selected, max_width=self.max_width,
+                             sticky=self._sticky,
+                             resident=self.cache.resident,
+                             served=lambda ln: ln.served,
+                             source=lambda ln: ln.source,
+                             tenant=lambda ln: None, tenant_served={})
+
+    def run(self) -> dict[Any, SMOResult]:
+        """Drive every lane to retirement; returns {lane_id: SMOResult}."""
+        while self.step():
+            pass
+        pending = [i for i in self._order
+                   if self._lanes[i].result is None]
+        if pending:
+            raise RuntimeError(
+                f"lanes {pending} wait on dependencies that never "
+                "retire (missing or cyclic dep)")
+        return dict(self.results)
+
+    def step(self) -> bool:
+        """One scheduling round: admit ready lanes, select under the budget
+        and width policy, dispatch one chunk per (source, width) group.
+        Returns False when nothing is runnable."""
+        self._admit()
+        live = self._live()
+        if not live:
+            return False
+        selected = live
+        if len(self.sources) > 1 and self.cache.budgeted:
+            allowed = self._budget_sources(live)
+            if len(allowed) < len({ln.source for ln in live}):
+                selected = [ln for ln in live if ln.source in allowed]
+        if self.max_width and len(selected) > self.max_width:
+            selected = self._cap_select(selected)
+        for lane in selected:
+            lane.served += 1
+        groups: dict[Any, list[_Lane]] = {}
+        for lane in selected:
+            groups.setdefault(lane.source, []).append(lane)
+        if len(self.sources) > 1:
+            counts: dict[Any, int] = {}
+            for lane in live:
+                counts[lane.source] = counts.get(lane.source, 0) + 1
+            for key, c in counts.items():
+                rec = self._src_live.setdefault(key, [0, 0, 0])
+                rec[0] += c
+                rec[1] += 1
+                rec[2] = max(rec[2], c)
+        # affinity follows the chunk's primary group
+        self._sticky = selected[0].source
+        chunk = self.chunk_count
+        dispatched = 0
+        for key, lanes in groups.items():
+            width = (1 if len(lanes) == 1
+                     else bucket_width(len(lanes), self.lane_quantum))
+            dispatched += width
+            self._programs.add((key, width))
+            self._trace("dispatch", chunk, key, 0, width,
+                        tuple(ln.id for ln in lanes))
+            # a materialization inside the dispatch is kernel time
+            t0 = time.perf_counter()
+            k0 = self.cache.kernel_time
+            if len(lanes) == 1:
+                self._step_single(lanes[0])
+            else:
+                self._step_batched(key, lanes)
+            dt = (time.perf_counter() - t0) \
+                - (self.cache.kernel_time - k0)
+            for lane in lanes:
+                lane.solve_s += dt / len(lanes)
+        self._width_log.append((len(live), dispatched))
+        self._trace("resident", chunk,
+                    self.cache.pinned_bytes + self.cache.resident_bytes)
+        self.chunk_count += 1
+        return True
+
+    def _step_single(self, lane: _Lane) -> None:
+        """Width 1: the single-lane chunk (bitwise ``engine.solve``'s)."""
+        cached = self._packed.get(lane.source)
+        if cached is not None and lane.id in cached[0]:
+            self._writeback(lane.source)
+        src, y = self.resolve_source(lane.source), self._ys[lane.source]
+        lane.state = smo_chunk(src, y, lane.train_mask, lane.C, lane.state,
+                               n_iters=self.chunk_iters, wss=self.wss,
+                               tol=self.tol, it_cap=lane.max_iter)
+        if bool(lane.state.done):
+            self._retire(lane)
+
+    def _step_batched(self, key, lanes: list[_Lane]) -> None:
+        """One chunk over one source's selected lanes; a membership change
+        writes the old pack back and repacks first."""
+        ids = tuple(ln.id for ln in lanes)
+        cached = self._packed.get(key)
+        if cached is None or cached[0] != ids:
+            if cached is not None:
+                self._writeback(key)
+            self._pack(key, lanes)
+        # resolve BEFORE reading the pack: materializing this source may
+        # evict another source (flushing ITS pack), never this group's
+        src = self.resolve_source(key)
+        masks, Cs, caps, states = self._packed[key][1]
+        states = chunk_batched(src, self._ys[key], masks, Cs, self.tol, caps,
+                               states, self.chunk_iters, self.wss)
+        self._packed[key] = (ids, (masks, Cs, caps, states))
+        done = states.done[:len(lanes)].tolist()   # one (w,) transfer
+        if any(done):
+            self._writeback(key)
+            for flag, lane in zip(done, lanes):
+                if flag:
+                    self._retire(lane)
+
+    # ---------------------------------------------------------- observability
+
+    @property
+    def occupancy(self) -> dict:
+        """Schedule shape over the run: runnable lanes per chunk
+        (``mean_live_width``), dispatched width summed over the chunk's
+        groups (``mean_packed_width``, ``peak_width``), distinct (source,
+        width) programs, and per-source live widths for multi-source
+        pools."""
+        if not self._width_log:
+            return {"chunks": 0, "mean_live_width": 0.0,
+                    "mean_packed_width": 0.0, "peak_width": 0,
+                    "programs": 0}
+        lives = [w for w, _ in self._width_log]
+        packed = [p for _, p in self._width_log]
+        occ = {"chunks": len(self._width_log),
+               "mean_live_width": round(sum(lives) / len(lives), 3),
+               "mean_packed_width": round(sum(packed) / len(packed), 3),
+               "peak_width": max(packed),
+               "programs": len(self._programs)}
+        if len(self.sources) > 1:
+            occ["per_source"] = {
+                str(key): {"chunks": n,
+                           "mean_live_width": round(s / max(n, 1), 3),
+                           "peak_live_width": peak}
+                for key, (s, n, peak) in self._src_live.items()}
+        return occ

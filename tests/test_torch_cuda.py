@@ -104,3 +104,144 @@ def test_cuda_chunk_bitwise_vs_plain_steps_many_rows_per_thread(cuda):
     assert int(got[2]) == 200 and bool(got[3])
     for a, b in zip(got, plain):
         assert torch.equal(a, b)
+
+
+def _pair_case(n, d, b, dtype, dev):
+    """The reference's ``fused_smo_step`` test problem
+    (``tests/test_kernels.py::_step_problem``: normal X and f, pair rows
+    (3, n - 1), delta 0.37, gamma 0.5 below) widened to b lanes, each with
+    its own f. In f64 lanes 1.. take random pairs. In f32 every lane keeps
+    the reference's pair: its bar holds for those values, while at a pair's
+    own row d2 cancels to 0 from terms of |x|^2 ~ d, an error of delta *
+    gamma * a few ulp(2 |x|^2) in any summation order."""
+    X = torch.from_numpy(RNG.normal(size=(n, d))).to(dev, dtype)
+    pairs = torch.from_numpy(RNG.integers(0, n, size=(b, 2))).to(dev)
+    pairs[0] = torch.tensor([3, n - 1])
+    if dtype == torch.float32:
+        pairs[:] = torch.tensor([3, n - 1])
+    xij = X[pairs]
+    f = torch.from_numpy(RNG.normal(size=(b, n))).to(dev, dtype)
+    delta = torch.full((b,), 0.37, dtype=dtype, device=dev)
+    return f, X, xij, torch.sum(X * X, -1), delta
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d", [(257, 9), (100, 130), (120, 40)])
+@pytest.mark.parametrize("dtype,atol", [(torch.float64, 1e-12),
+                                        (torch.float32, 1e-5)])
+def test_cuda_fused_smo_step_matches_plain(cuda, n, d, dtype, atol):
+    """One lane (the reference's signature) and 4 lanes, one of them done,
+    on the reference's ragged shapes, at the reference's bars."""
+    f, X, xij, sq, delta = _pair_case(n, d, 4, dtype, cuda)
+    one = ops.fused_smo_step(f[0], X, xij[0], sq, 0.37, 0.5)
+    torch.testing.assert_close(
+        one, ref.fused_smo_step_ref(f[0], X, xij[0], sq, 0.37, 0.5),
+        rtol=0, atol=atol)
+    done = torch.tensor([False, True, False, False], device=cuda)
+    got = ops.fused_smo_step(f, X, xij, sq, delta, 0.5, done=done)
+    want = ref.fused_smo_step_ref(f, X, xij, sq, delta, 0.5, done)
+    torch.testing.assert_close(got, want, rtol=0, atol=atol)
+    assert torch.equal(got[1], f[1])
+    # a lane's result does not depend on the lanes launched beside it
+    assert torch.equal(got[0], one)
+
+
+def _lane_problem(cuda, n, b):
+    from repro_torch.data.svm_suite import make_dataset
+    ds = make_dataset("heart", n_override=n)
+    X = torch.from_numpy(ds.X).to(cuda)
+    y = torch.from_numpy(ds.y).to(cuda, torch.float64)
+    masks = torch.ones((b, n), dtype=torch.bool, device=cuda)
+    for l in range(b):
+        masks[l, l * (n // b):(l + 1) * (n // b)] = False
+    state = (torch.zeros((b, n), dtype=torch.float64, device=cuda),
+             -y.repeat(b, 1), torch.zeros(b, dtype=torch.int64, device=cuda),
+             torch.zeros(b, dtype=torch.bool, device=cuda))
+    return ds, X, y, masks, state
+
+
+@pytest.mark.cuda
+def test_cuda_lane_grid_chunk_equals_one_lane(cuda):
+    """Each lane of the dense lane grid (with a pad lane that arrives done)
+    is bitwise the one-lane launch."""
+    ds, X, y, masks, state = _lane_problem(cuda, 150, 4)
+    K = ops.rbf_kernel_matrix(X, X, ds.gamma)
+    diag = torch.diagonal(K).contiguous()
+    caps = [10**6, 10**6, 300, 0]
+    dn = state[3].clone()
+    dn[3] = True
+    got = ops.smo_chunk_lanes(K, diag, y, masks, [ds.C] * 4, 1e-3, caps,
+                              10**6, "2", state[0], state[1], state[2], dn)
+    for l in range(3):
+        one = ops.smo_chunk(K, diag, y, masks[l], ds.C, 1e-3, caps[l], 10**6,
+                            "2", state[0][l], state[1][l], state[2][l],
+                            state[3][l])
+        for a, b in zip(one, got):
+            assert torch.equal(a, b[l])
+    assert int(got[2][3]) == 0 and torch.equal(got[1][3], state[1][3])
+
+
+@pytest.mark.cuda
+def test_cuda_stream_chunk_width_invariant_and_near_plain(cuda):
+    """The streaming chunk: a lane alone and packed at width 4 is bitwise
+    the same; against the plain loop on the card within 1e-10 after a
+    capped run."""
+    ds, X, y, masks, state = _lane_problem(cuda, 150, 4)
+    sq = torch.sum(X * X, -1)
+    caps = [200] * 4
+    args = (X, sq, ds.gamma, y)
+    got = ops.smo_stream_chunk(*args, masks, [ds.C] * 4, 1e-3, caps, 250,
+                               *state)
+    for l in range(4):
+        one = ops.smo_stream_chunk(*args, masks[l:l + 1], [ds.C], 1e-3,
+                                   caps[l:l + 1], 250,
+                                   *(t[l:l + 1] for t in state))
+        for a, b in zip(one, got):
+            assert torch.equal(a[0], b[l])
+    plain = ref.smo_chunk_ref(None, torch.ones_like(y), y, masks[0], ds.C,
+                              1e-3, 200, 250, "1", state[0][0], state[1][0],
+                              state[2][0], state[3][0],
+                              stream=(X, sq, ds.gamma))
+    assert int(got[2][0]) == int(plain[2]) == 200
+    for k in (0, 1):
+        torch.testing.assert_close(got[k][0], plain[k], rtol=0, atol=1e-10)
+
+
+@pytest.mark.cuda
+def test_cuda_stream_chunk_stops_after_the_lanes(cuda):
+    """A long chunk stops within 128 iterations of its last lane's stop,
+    with the state of chunks short enough to launch every iteration."""
+    ds, X, y, masks, state = _lane_problem(cuda, 150, 4)
+    sq = torch.sum(X * X, -1)
+    args = (X, sq, ds.gamma, y, masks, [ds.C] * 4, 1e-3, [10 ** 6] * 4)
+    before = ops.launch_counts()["fused_smo_step"]
+    got = ops.smo_stream_chunk(*args, 10 ** 6, *state)
+    issued = ops.launch_counts()["fused_smo_step"] - before
+    assert bool(got[3].all())
+    assert int(got[2].max()) < issued <= int(got[2].max()) + 128
+    short = state
+    while not bool(short[3].all()):
+        short = ops.smo_stream_chunk(*args, 64, *short)
+    for a, b in zip(got, short):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_select_matches_plain(cuda):
+    """The selection kernel alone against its plain version: the same
+    pairs (so bitwise pair rows), alpha and delta within 1e-12, the same
+    counts and freezes (one lane arrives done, one is at its cap)."""
+    ds, X, y, masks, state = _lane_problem(cuda, 150, 4)
+    sq = torch.sum(X * X, -1)
+    n_iter = torch.tensor([0, 5, 0, 3], device=cuda)
+    done = torch.tensor([False, False, True, False], device=cuda)
+    args = (X, sq, ds.gamma, y, masks, [ds.C] * 4, 1e-3, [100, 100, 100, 3],
+            state[0], state[1], n_iter, done)
+    got = ops.smo_select(*args)
+    # on CPU tensors the wrapper runs the plain version
+    want = [t.to(cuda) for t in ops.smo_select(
+        *(a.cpu() if isinstance(a, torch.Tensor) else a for a in args))]
+    for k in (1, 2, 3):
+        assert torch.equal(got[k], want[k])
+    for k in (0, 4):
+        torch.testing.assert_close(got[k], want[k], rtol=0, atol=1e-12)

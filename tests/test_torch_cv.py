@@ -34,3 +34,43 @@ def test_run_cv_matches_reference(name, n, method):
     for g, w in zip(got.folds, want.folds):
         assert g.converged and w.converged
         assert abs(g.objective - w.objective) <= 1e-6 * abs(w.objective)
+
+
+_BATCHED = {"cold_pallas": dict(source_backend="pallas_rbf"),
+            "cold_batched_repacked": dict(),
+            "cold_batched": dict(schedule="batched")}
+
+
+@pytest.mark.parametrize("name,n", [("heart", 150), ("adult", 300)])
+@pytest.mark.parametrize("method", list(_BATCHED))
+def test_run_cv_batched_matches_reference(name, n, method):
+    """``run_cv_batched`` in its three configurations: per-fold accuracy
+    identical to the reference's, each fold's dual objective within rel
+    1e-6; iterations printed side by side."""
+    from repro.core.cv import run_cv_batched as ref_run_cv_batched
+    from repro_torch.core.cv import run_cv_batched
+    ds = make_dataset(name, n_override=n)
+    kw = _BATCHED[method]
+    want = ref_run_cv_batched(ds, k=5, **kw)
+    got = run_cv_batched(dataset_from_reference(ds), k=5, device="cpu", **kw)
+    print(f"{name} n={n} {method}: iterations port {got.total_iterations} "
+          f"reference {want.total_iterations}; per fold "
+          f"{[f.n_iter for f in got.folds]} vs "
+          f"{[f.n_iter for f in want.folds]}")
+    assert got.method == want.method == method
+    assert [(f.acc_correct, f.acc_total) for f in got.folds] == \
+        [(f.acc_correct, f.acc_total) for f in want.folds]
+    for g, w in zip(got.folds, want.folds):
+        assert g.converged and w.converged and g.seed_from == -1
+        assert abs(g.objective - w.objective) <= 1e-6 * abs(w.objective)
+
+
+def test_run_cv_batched_rejects_like_reference():
+    from repro_torch.core.cv import run_cv_batched
+    ds = dataset_from_reference(make_dataset("heart", n_override=40))
+    for kw, match in ((dict(schedule="nope"), "unknown schedule"),
+                      (dict(source_backend="nope"), "unknown source_backend"),
+                      (dict(source_backend="pallas_rbf", schedule="batched"),
+                       "requires the repacked")):
+        with pytest.raises(ValueError, match=match):
+            run_cv_batched(ds, k=4, device="cpu", **kw)

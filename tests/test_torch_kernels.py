@@ -14,8 +14,10 @@ import pytest
 import torch
 
 from repro.kernels.rbf import rbf_kernel_matrix as pallas_rbf
+from repro.kernels.ref import fused_smo_step_ref as jnp_step_ref
 from repro.kernels.ref import rbf_kernel_matrix_ref as jnp_rbf_ref
 from repro.kernels.ref import smo_f_update_ref as jnp_fupdate_ref
+from repro.kernels.smo_step import fused_smo_step as pallas_step
 from repro.kernels.smo_update import smo_f_update as pallas_fupdate
 from repro.svm.kernels import rbf_kernel as jnp_rbf_kernel
 from repro_torch.kernels import ops, ref
@@ -71,13 +73,24 @@ def test_cpu_tensors_launch_no_kernel():
     K = ops.rbf_kernel_matrix(X, X, 0.5)
     ops.smo_f_update(K[0], K[1], K[2], 0.1)
     n = K.shape[0]
-    ops.smo_chunk(K, torch.diagonal(K).contiguous(),
-                  torch.where(torch.arange(n) % 2 == 0, 1.0, -1.0).double(),
+    y = torch.where(torch.arange(n) % 2 == 0, 1.0, -1.0).double()
+    ops.smo_chunk(K, torch.diagonal(K).contiguous(), y,
                   torch.ones(n, dtype=torch.bool), 1.0, 1e-3, 100, 5, "2",
                   torch.zeros(n, dtype=torch.float64), -torch.ones(n).double(),
                   torch.tensor(0), torch.tensor(False))
+    sq = torch.sum(X * X, -1)
+    ops.fused_smo_step(-y, X, X[[0, 1]], sq, 0.1, 0.5)
+    lanes = (torch.ones((2, n), dtype=torch.bool), [1.0, 1.0], 1e-3,
+             [100, 100], 5, torch.zeros((2, n), dtype=torch.float64),
+             -y.repeat(2, 1), torch.zeros(2, dtype=torch.int64),
+             torch.zeros(2, dtype=torch.bool))
+    ops.smo_chunk_lanes(K, torch.diagonal(K).contiguous(), y, *lanes[:4],
+                        lanes[4], "2", *lanes[5:])
+    ops.smo_stream_chunk(X, sq, 0.5, y, *lanes)
+    ops.smo_select(X, sq, 0.5, y, *lanes[:4], *lanes[5:])
     assert ops.launch_counts() == {"rbf_kernel_matrix": 0,
-                                   "smo_f_update": 0, "smo_chunk": 0}
+                                   "smo_f_update": 0, "smo_chunk": 0,
+                                   "fused_smo_step": 0, "smo_select": 0}
 
 
 def test_arg_reduces_nan_guard():
@@ -92,3 +105,98 @@ def test_arg_reduces_nan_guard():
     assert int(ref._argmin(T([nan, nan]))) == 0
     assert int(ref._argmin(T([inf, inf, inf]))) == 0
     assert int(ref._argmax(T([-inf, -inf, -inf]))) == 0
+
+
+def _step_problem(n, d, dtype):
+    """The reference's ``fused_smo_step`` test problem
+    (``tests/test_kernels.py::_step_problem``), as numpy."""
+    X = RNG.normal(size=(n, d)).astype(dtype)
+    xij = X[[3, n - 1]]
+    f = RNG.normal(size=(n,)).astype(dtype)
+    return f, X, xij, np.sum(X * X, axis=1), dtype(0.37)
+
+
+@pytest.mark.parametrize("n,d,bm,bk", [(257, 9, 64, 64), (100, 130, 64, 64),
+                                       (120, 40, 32, 16), (150, 13, None,
+                                                           None)])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_fused_smo_step_plain_matches_reference(n, d, bm, bk, dtype):
+    """The port's plain version against the reference's Pallas kernel in
+    interpret mode (ragged blocks, and full blocks where bm = bk = None) and
+    its jnp oracle, at the reference's bars: f64 atol 1e-12, f32 1e-5."""
+    f, X, xij, sq, delta = _step_problem(n, d, dtype)
+    out = ops.fused_smo_step(*(torch.from_numpy(a) for a in (f, X, xij, sq)),
+                             float(delta), 0.5).numpy()
+    assert out.dtype == dtype and out.shape == (n,)
+    tol = 1e-12 if dtype == np.float64 else 1e-5
+    for want in (pallas_step(jnp.asarray(f), jnp.asarray(X),
+                             jnp.asarray(xij), jnp.asarray(sq),
+                             jnp.asarray(delta), gamma=0.5, bm=bm, bk=bk),
+                 jnp_step_ref(jnp.asarray(f), jnp.asarray(X),
+                              jnp.asarray(xij), jnp.asarray(sq),
+                              jnp.asarray(delta), 0.5)):
+        np.testing.assert_allclose(out, np.asarray(want), atol=tol, rtol=0)
+
+
+def test_fused_smo_step_plain_lanes():
+    """Lanes: each is the one-lane result; a done lane keeps its f."""
+    n, d, b = 120, 40, 3
+    X = torch.from_numpy(RNG.normal(size=(n, d)))
+    sq = torch.sum(X * X, -1)
+    xij = X[torch.tensor([[3, 7], [0, 0], [119, 5]])]
+    f = torch.from_numpy(RNG.normal(size=(b, n)))
+    delta = torch.tensor([0.1, 0.2, 0.3], dtype=torch.float64)
+    done = torch.tensor([False, False, True])
+    got = ops.fused_smo_step(f, X, xij, sq, delta, 0.5, done=done)
+    for l in range(2):
+        assert torch.equal(got[l], ops.fused_smo_step(f[l], X, xij[l], sq,
+                                                      delta[l], 0.5))
+    assert torch.equal(got[2], f[2])
+
+
+def test_kij_is_the_rows2_expression():
+    """``rbf_kij_ref`` equals the one-pass rows expression at row j, and
+    K[i, i] = 1 up to the clamp."""
+    from repro.svm import FusedRBF as ref_fused
+    X = RNG.normal(size=(90, 13))
+    sq = np.sum(X * X, 1)
+    src = ref_fused(jnp.asarray(X), 0.3)
+    for i, j in [(0, 7), (31, 89), (40, 40)]:
+        got = float(ref.rbf_kij_ref(torch.from_numpy(X), torch.from_numpy(sq),
+                                    0.3, i, j))
+        want = float(np.asarray(src.rows2(i, j)[0])[j])
+        assert abs(got - want) <= 1e-12
+
+
+def test_select_then_fused_step_is_one_streaming_step():
+    """``smo_select`` followed by ``fused_smo_step`` over its pair rows and
+    delta is the plain streaming step, lane by lane; a lane that arrives
+    done, or freezes at its cap, is left as it was."""
+    from repro.data.svm_suite import make_dataset
+    ds = make_dataset("heart", n_override=90)
+    X = torch.from_numpy(ds.X)
+    y = torch.from_numpy(ds.y.astype(np.float64))
+    sq = torch.sum(X * X, -1)
+    n, b = 90, 4
+    masks = torch.ones((b, n), dtype=torch.bool)
+    for l in range(b):
+        masks[l, l * 20:(l + 1) * 20] = False
+    alphas = torch.zeros((b, n), dtype=torch.float64)
+    fs = -y.repeat(b, 1)
+    n_iter = torch.tensor([0, 5, 0, 3])
+    done = torch.tensor([False, False, True, False])
+    caps = [100, 100, 100, 3]
+    a, it, dn, xij, delta = ops.smo_select(X, sq, ds.gamma, y, masks,
+                                           [ds.C] * b, 1e-3, caps, alphas,
+                                           fs, n_iter, done)
+    f = ops.fused_smo_step(fs, X, xij, sq, delta, ds.gamma, done=dn)
+    assert it.tolist() == [1, 6, 0, 3] and dn.tolist() == [False, False,
+                                                         True, True]
+    for l in (0, 1):
+        want = ref.smo_step_ref(None, torch.ones(n, dtype=torch.float64), y,
+                                masks[l], ds.C, 1e-3, caps[l], "1",
+                                alphas[l], fs[l], int(n_iter[l]),
+                                stream=(X, sq, ds.gamma))
+        assert torch.equal(a[l], want[0]) and torch.equal(f[l], want[1])
+    for l in (2, 3):
+        assert torch.equal(a[l], alphas[l]) and torch.equal(f[l], fs[l])
