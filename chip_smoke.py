@@ -12,7 +12,11 @@ to 0 just before it and read just after:
   paper's cardinality (n=32,560) over a dense K;
 * the batched cold CV through the lane pool (``run_cv_batched``: the
   matrix-free ``cold_pallas`` and the two dense schedules) on the same two
-  datasets, then matrix-free at n=32,560, where no (n, n) tensor may exist.
+  datasets, then matrix-free at n=32,560, where no (n, n) tensor may exist;
+* LM serving of granite-8b at full width and depth in bf16 (random weights
+  from a seed): prefill of 2 x 4,096 tokens, every attention layer through
+  the flash-attention kernel, then 4 requests served through the KV cache
+  (a 16-token prompt teacher-forced, 32 greedy tokens).
 
 Phases print one JSON line each, with their own seconds; a failing phase
 raises and the script exits non-zero. The last lines are the
@@ -61,6 +65,48 @@ SIZE_N = 32561            # adult at the paper's cardinality (32,560 after k=10)
 #: through the tensor cores (the most the card can do in float64)
 HBM_BPS = 3.35e12
 FP64_FLOPS = 67e12
+#: dense bf16 FLOP/s of the tensor cores (the attention kernel's bound)
+BF16_FLOPS = 989e12
+#: the reference's flash-attention sweep (tests/test_kernels.py:37-40):
+#: (S, D, causal, window), f32 at atol 2e-5; and its bf16 case at 0.06
+FLASH_CASES = ((64, 32, True, None), (100, 32, False, None),
+               (128, 64, True, 24), (96, 16, False, 40), (33, 32, True, None))
+#: granite-8b's prefill attention: (B, H, KV, S, D), causal, bf16
+FLASH_GRANITE = (2, 32, 8, 4096, 128)
+#: bf16 cases beyond the reference's one, on the mma path: the sweep's
+#: shapes (several kv tiles, ragged S, windows), then grouped kv heads read
+#: in place from (B, S, H, D) activations at D=128 with ragged S:
+#: (B, H, KV, S, D, causal, window)
+FLASH_BF16_CASES = tuple((2, 3, 3, S, D, causal, window)
+                         for S, D, causal, window in FLASH_CASES) + (
+    (2, 8, 2, 300, 128, True, None), (1, 4, 1, 200, 128, False, 70),
+    (2, 8, 2, 1000, 128, True, 256))
+#: a bf16 output against the plain version in float32 on the same bf16
+#: inputs, row by row: max over rows of max |o - o_f32| / max |o_f32| (a
+#: row being one query's D outputs), so the bar keeps its meaning however
+#: small the outputs are. The kernel rounds each output to bf16 (2**-9 of
+#: the row's largest at most) and each probability before the product with
+#: v (about as much again): 0.02 is five bf16 ulps of the row's largest.
+#: The kernel must also come within twice the plain version's own error in
+#: bf16 on the same inputs (the rule the fused SMO step is held to)
+FLASH_ROW_REL = 0.02
+#: granite-8b's parameters (model_params_def at full width)
+GRANITE_PARAMS = 8_254_689_280
+#: LM serving: prefill batch and length; served requests, prompt, new tokens
+PREFILL_B, PREFILL_S = 2, 4096
+SERVE_B, PROMPT, NEW_TOKENS = 4, 16, 32
+#: one block's attention (its mixer) fed the same float32 input by the
+#: prefill route (kernel) and the decode route (plain, through the cache),
+#: row by row (``_row_rel``, a row being one position's d outputs): 2.4
+#: times the largest difference measured over the 36 layers (4.2e-5)
+LAYER_REL_F32 = 1e-4
+#: the whole model, the prompt's forward (kernel) against the teacher-forced
+#: decode (plain), at position 0, where attention has one key and so no
+#: choice to amplify a rounding difference: max |diff| of the logits (up
+#: to 6.6). bf16: three times the bf16-vs-f32 spread there (0.083; the
+#: routes differed by 0.089); f32: ten times the difference measured (1e-5)
+POS0_ATOL_BF16 = 0.25
+POS0_ATOL_F32 = 1e-4
 
 
 def emit(obj) -> None:
@@ -434,8 +480,8 @@ def phase_size(ds, n_sir_folds: int = 2):
     return [f["accuracy"] for f in folds]
 
 
-def _bound(nbytes: float, flops: float) -> dict:
-    t_ops, t_bytes = flops / FP64_FLOPS, nbytes / HBM_BPS
+def _bound(nbytes: float, flops: float, peak: float = FP64_FLOPS) -> dict:
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BPS
     return {"bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
@@ -791,6 +837,390 @@ def phase_size_matrix_free(ds, dense_accs):
           "peak_gb": peak / 1e9, "occupancy": rep.occupancy})
 
 
+def _row_rel(got, want) -> float:
+    """max over rows (the last axis) of max |got - want| / max |want|."""
+    w = want.float()
+    err = (got.float() - w).abs().amax(-1)
+    return float((err / w.abs().amax(-1).clamp_min(1e-30)).max())
+
+
+def flash_bf16_errors(got, q, k, v, causal=True, window=None) -> dict:
+    """The kernel's output ``got`` on bf16 q, k, v against the plain
+    version run in float32 on the same inputs (row by row, ``_row_rel``),
+    beside the plain version's own error in bf16."""
+    from repro_torch.kernels import ref
+    want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                   causal=causal, window=window)
+    plain = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    return {"row_rel_err": _row_rel(got, want),
+            "plain_row_rel_err": _row_rel(plain, want),
+            "max_abs_err": float((got.float() - want).abs().max()),
+            "max_abs_diff_bf16_plain": float(
+                (got.float() - plain.float()).abs().max())}
+
+
+def flash_bf16_ok(rec: dict) -> bool:
+    """Within FLASH_ROW_REL and within twice the plain version's error."""
+    return (math.isfinite(rec["row_rel_err"])
+            and rec["row_rel_err"] <= FLASH_ROW_REL
+            and rec["row_rel_err"] <= 2.0 * rec["plain_row_rel_err"])
+
+
+def flash_bf16_check(q, k, v, causal=True, window=None) -> dict:
+    """``flash_bf16_errors`` of one launch of the kernel; raises unless
+    ``flash_bf16_ok``."""
+    from repro_torch.kernels import ops
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    rec = flash_bf16_errors(got, q, k, v, causal, window)
+    require(flash_bf16_ok(rec), f"flash_attention bf16 {tuple(q.shape)} "
+            f"causal={causal} window={window}: {rec}")
+    return rec
+
+
+def phase_flash():
+    """flash_attention against its plain version on the card: the
+    reference's sweep in f32 (atol 2e-5) and its bf16 case (0.06); the
+    sweep's shapes and three with grouped kv heads at D=128 in bf16
+    (FLASH_BF16_CASES), each also within 0.06 of the plain version in
+    bf16; then granite-8b's prefill shape with grouped kv heads, read in
+    place from (B, S, H, D) activations. Every bf16 case is held to the
+    plain version run in float32 on the same bf16 inputs, row by row
+    (``flash_bf16_check``). Then the kernel's time, the plain version's
+    (bf16), ``F.scaled_dot_product_attention``'s on broadcast K/V (the
+    yardstick, never called by the port) and the bound."""
+    from repro_torch.kernels import ops, ref
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(2)
+    checks = []
+    for S, D, causal, window in FLASH_CASES:
+        q, k, v = (torch.as_tensor(rng.normal(size=(2, 3, S, D)),
+                                   dtype=torch.float32, device=dev)
+                   for _ in range(3))
+        got = ops.flash_attention(q, k, v, causal=causal, window=window)
+        want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        err = float((got - want).abs().max())
+        require(math.isfinite(err) and err <= 2e-5,
+                f"flash_attention S={S} D={D} causal={causal} "
+                f"window={window} f32: err {err} > 2e-5")
+        checks.append({"shape": [2, 3, S, D], "causal": causal,
+                       "window": window, "dtype": "float32",
+                       "max_abs_err": err})
+    for B, H, KV, S, D, causal, window in ((1, 2, 2, 64, 32, True, None),) \
+            + FLASH_BF16_CASES:
+        q, k, v = (torch.as_tensor(rng.normal(size=(B, S, h, D)),
+                                   dtype=torch.bfloat16,
+                                   device=dev).transpose(1, 2)
+                   for h in (H, KV, KV))
+        if KV == H:            # the reference's layout: (B, H, S, D)
+            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        rec = flash_bf16_check(q, k, v, causal, window)
+        require(rec["max_abs_diff_bf16_plain"] <= 0.06,
+                f"flash_attention {(B, H, KV, S, D)} bf16: "
+                f"{rec['max_abs_diff_bf16_plain']} from the plain version "
+                "in bf16 > 0.06")
+        checks.append({"shape": [B, H, KV, S, D], "causal": causal,
+                       "window": window, "dtype": "bfloat16", **rec})
+
+    B, H, KV, S, D = FLASH_GRANITE
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    q, k, v = (torch.randn((B, S, h, D), generator=gen, device=dev,
+                           dtype=torch.bfloat16).transpose(1, 2)
+               for h in (H, KV, KV))
+    granite = flash_bf16_check(q, k, v)
+    torch.cuda.empty_cache()
+    got = ops.flash_attention(q, k, v)
+    ms = cuda_ms(lambda: ops.flash_attention(q, k, v), 5)
+    plain_ms = cuda_ms(lambda: ref.flash_attention_ref(q, k, v), 2)
+    torch.cuda.empty_cache()
+    qc = q.contiguous()
+    kb, vb = (t.repeat_interleave(H // KV, dim=1).contiguous() for t in (k, v))
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qc, kb, vb, is_causal=True)
+    library_ms = cuda_ms(library, 10)
+    lib_diff = float((library().float() - got.float()).abs().max())
+    pairs = S * (S + 1) // 2          # (query, visible key) pairs, causal
+    rec = dict(shape=[B, H, KV, S, D], ms=ms, plain_ms=plain_ms,
+               library_ms=library_ms, library_max_abs_diff=lib_diff,
+               row_rel_err=granite["row_rel_err"],
+               plain_row_rel_err=granite["plain_row_rel_err"],
+               max_abs_err_vs_f32_plain=granite["max_abs_err"],
+               max_abs_err=max([c["max_abs_err"] for c in checks]
+                               + [granite["max_abs_err"]]),
+               tflops=4.0 * B * H * D * pairs / ms / 1e9,
+               **_bound(2.0 * (2 * B * H * S * D + 2 * B * KV * S * D),
+                        4.0 * B * H * D * pairs, BF16_FLOPS))
+    emit({"phase": "kernels_flash", "seconds": time.perf_counter() - t0,
+          "checks": checks, "granite": rec})
+    return rec
+
+
+def _mixer_routes(block, x, kv_shape):
+    """One block's attention (its mixer, after its first norm) fed the same
+    input ``x`` (B, P, d) by both routes: all P positions at once (prefill;
+    through the kernel on the card) and token by token through a fresh KV
+    cache (decode; plain attention). Returns both outputs."""
+    B, P = x.shape[:2]
+    pos = torch.arange(P, device=x.device)[None].expand(B, P)
+    h = block.ln1(x)
+    pre, _ = block.mixer(h, pos)
+    cache = {"k": torch.zeros(kv_shape, dtype=x.dtype, device=x.device),
+             "v": torch.zeros(kv_shape, dtype=x.dtype, device=x.device)}
+    dec = torch.cat([block.mixer(h[:, t:t + 1], pos[:, t:t + 1], cache=cache,
+                                 step=t)[0] for t in range(P)], 1)
+    return pre, dec
+
+
+def _profile(fn) -> dict:
+    """``fn()`` under ``torch.profiler`` (CPU and CUDA activity): the
+    device time summed over its kernels and the eight kernels with the
+    most of it. (The profiler's own host cost makes its wall time no
+    measure of the unprofiled run's; the caller divides by that instead.)"""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    return {"device_ms": sum(e.self_device_time_total for e in kernels) / 1e3,
+            "launches": sum(e.count for e in kernels),
+            "top": [{"name": e.key[:80], "calls": e.count,
+                     "device_ms": e.self_device_time_total / 1e3}
+                    for e in kernels[:8]]}
+
+
+def phase_serve_lm(flash_ms: float):
+    """granite-8b at full width and depth in bf16 on the card, weights
+    drawn from a seeded generator. The main path, with the launch counts
+    set to 0 just before it and read just after: prefill of PREFILL_B x
+    PREFILL_S tokens twice (each attention layer one flash_attention
+    launch), then SERVE_B requests through the KV cache: PROMPT tokens
+    teacher-forced, NEW_TOKENS greedy.
+
+    Then the checks, whose launches are counted apart. (1) Every prefill
+    layer's attention on the main path's own bf16 q, k, v, against the
+    plain version in float32 on them (``flash_bf16_errors``, FLASH_ROW_REL
+    and twice the bf16 plain version's error). (2) Layer by layer, each
+    block's attention fed the same input (the forward's hidden state at its
+    depth) by the prefill route (kernel) and the decode route (plain,
+    through the cache): in float32 the two must agree within LAYER_REL_F32,
+    row by row; in bf16 the kernel route must come within twice the plain
+    route's error, both against the float32 plain route. (3) The whole
+    model: the prompt's forward (kernel attention) against the
+    teacher-forced decode (plain), reported position by position in bf16
+    and with the same weights in float32, and gated at position 0 only
+    (POS0_ATOL_*): under the reference's init attention is one-hot, and
+    where it has a choice of keys the model amplifies a rounding
+    difference from layer to layer until, after 36 layers, two float32
+    routes disagree at the scale of the logits themselves.
+    Returns the main path's launch counts."""
+    import copy
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.inputs import concrete_batch
+    from repro_torch.models.layers import embed
+    from repro_torch.models.transformer import (count_params, decode_step,
+                                                forward, init_cache,
+                                                init_model)
+    from repro_torch.serving import build_serve_step, prefill_logits
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("granite-8b")
+    require(cfg.n_layers == 36 and cfg.d_model == 4096,
+            "serve_lm: not granite-8b's full width and depth")
+    model = init_model(cfg, seed=0, dtype=torch.bfloat16)
+    sync()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    require(n_params == count_params(cfg) == GRANITE_PARAMS,
+            f"serve_lm: {n_params} parameters, want {GRANITE_PARAMS}")
+
+    def prefill(tokens, call=prefill_logits):
+        before = ops.launch_counts()["flash_attention"]
+        sync()
+        tp = time.perf_counter()
+        out = call(model, {"tokens": tokens})
+        sync()
+        secs = time.perf_counter() - tp
+        launched = ops.launch_counts()["flash_attention"] - before
+        require(launched == cfg.n_layers,
+                f"serve_lm: {launched} flash_attention launches in one "
+                f"prefill, want {cfg.n_layers}")
+        require(bool(torch.isfinite(out).all()),
+                "serve_lm: non-finite prefill logits")
+        return out, secs
+
+    tokens = concrete_batch(cfg, PREFILL_B, PREFILL_S, seed=0)["tokens"]
+    prompt = concrete_batch(cfg, SERVE_B, PROMPT, seed=1)["tokens"]
+    serve = build_serve_step(cfg)
+
+    # ---- the main path: counts from 0 just before it, read just after
+    ops.reset_launch_counts()
+    logits, first_s = prefill(tokens)
+    logits, prefill_s = prefill(tokens)
+    prefill_peak = torch.cuda.max_memory_allocated()
+    # serving: the prompt teacher-forced through the cache, then greedy
+    cache = init_cache(cfg, SERVE_B, PROMPT + NEW_TOKENS, torch.bfloat16)
+    sync()
+    tp = time.perf_counter()
+    prompt_logits = []
+    for t in range(PROMPT):
+        last, cache = decode_step(model, cache, {
+            "tokens": prompt[:, t:t + 1], "step": t})
+        prompt_logits.append(last[:, 0])
+    sync()
+    prompt_s = time.perf_counter() - tp
+    tok = torch.argmax(last[:, -1].float(), dim=-1)
+    out, step_s = [tok], []
+    for t in range(PROMPT, PROMPT + NEW_TOKENS - 1):
+        ts = time.perf_counter()
+        tok, cache = serve(model, cache, {"tokens": tok[:, None], "step": t})
+        sync()
+        step_s.append(time.perf_counter() - ts)
+        out.append(tok)
+    main_counts = ops.launch_counts()
+    # ---- end of the main path
+
+    require(tuple(logits.shape) == (PREFILL_B, 1, cfg.vocab_size),
+            f"serve_lm: prefill logits {tuple(logits.shape)}")
+    generated = torch.stack(out, 1)
+    require(tuple(generated.shape) == (SERVE_B, NEW_TOKENS)
+            and int(generated.min()) >= 0
+            and int(generated.max()) < cfg.vocab_size,
+            f"serve_lm: generated tokens {tuple(generated.shape)}")
+    steady = step_s[2:]
+    decode_ms = 1e3 * sum(steady) / len(steady)
+    serve_peak = torch.cuda.max_memory_allocated()
+    del cache
+    ops.reset_launch_counts()
+
+    # where the time goes: one prefill, and 8 decode steps, under the
+    # profiler; busy share = their device time over the unprofiled times
+    prof_prefill = _profile(lambda: prefill(tokens))
+    prof_prefill["device_busy_share"] = prof_prefill["device_ms"] / (
+        1e3 * prefill_s)
+    cache = init_cache(cfg, SERVE_B, 8, torch.bfloat16)
+
+    def steps():
+        for t in range(8):
+            decode_step(model, cache, {"tokens": prompt[:, t:t + 1],
+                                       "step": t})
+    prof_decode = _profile(steps)
+    prof_decode["device_busy_share"] = prof_decode["device_ms"] / (
+        8 * decode_ms)
+    del cache
+
+    # (1) every prefill layer's attention on the main path's own inputs
+    kernel, attn = ops.flash_attention, []
+
+    def checked(q, k, v, *, causal=True, window=None):
+        got = kernel(q, k, v, causal=causal, window=window)
+        attn.append(flash_bf16_errors(got, q, k, v, causal, window))
+        return got
+    ops.flash_attention = checked
+    try:
+        prefill(tokens)
+    finally:
+        ops.flash_attention = kernel
+    torch.cuda.empty_cache()
+
+    # (2) layer by layer: the same input through both routes, bf16 and f32
+    kv_shape = (SERVE_B, PROMPT, cfg.n_kv_heads, cfg.head_dim_)
+    pos = torch.arange(PROMPT, device=prompt.device)[None].expand(SERVE_B,
+                                                                 PROMPT)
+    with torch.inference_mode():
+        x = embed(model.embed, prompt)
+        layers = []
+        for i, block in enumerate(model.layers):
+            pre, dec = _mixer_routes(block, x, kv_shape)
+            block32 = copy.deepcopy(block).float()
+            pre32, dec32 = _mixer_routes(block32, x.float(), kv_shape)
+            del block32
+            layers.append({"layer": i, "f32": _row_rel(pre32, dec32),
+                           "bf16_kernel_route": _row_rel(pre, dec32),
+                           "bf16_plain_route": _row_rel(dec, dec32)})
+            x = block(x, pos)[0]
+    worst_f32 = max(r["f32"] for r in layers)
+    bf16_ok = all(r["bf16_kernel_route"] <= 2.0 * r["bf16_plain_route"]
+                  for r in layers)
+
+    # (3) the whole model: the prompt's forward (kernel attention) against
+    # the teacher-forced decode (plain), position by position
+    def full_logits(call=lambda m, b: forward(m, b)[0]):
+        return prefill(prompt, call)[0]
+
+    def by_position(a, b):
+        return (a.float() - b.float()).abs().amax(dim=(0, 2)).tolist()
+    full, dec = full_logits(), torch.stack(prompt_logits, 1)
+    pos_bf16 = by_position(full, dec)
+    rec = {"phase": "serve_lm", "arch": cfg.name, "n_params": n_params,
+           "dtype": "bfloat16", "init_s": init_s,
+           "prefill_shape": [PREFILL_B, PREFILL_S],
+           "prefill_first_s": first_s, "prefill_s": prefill_s,
+           "prefill_tokens_per_s": PREFILL_B * PREFILL_S / prefill_s,
+           "flash_share_of_prefill_est": cfg.n_layers * flash_ms / 1e3
+           / prefill_s,
+           "prefill_peak_gb": prefill_peak / 1e9,
+           "serve_batch": SERVE_B, "prompt": PROMPT,
+           "new_tokens": NEW_TOKENS, "prompt_s": prompt_s,
+           "decode_ms_per_step": decode_ms,
+           "decode_ms_per_step_min": 1e3 * min(steady),
+           "decode_tokens_per_s": SERVE_B / (decode_ms / 1e3),
+           "serve_peak_gb": serve_peak / 1e9,
+           "main_path_launches": main_counts,
+           "profile_prefill": prof_prefill, "profile_decode_8_steps":
+               prof_decode,
+           "first_tokens": generated[0, :16].tolist(),
+           "prefill_attention_row_rel_max": max(r["row_rel_err"]
+                                                for r in attn),
+           "prefill_attention_plain_row_rel_min": min(
+               r["plain_row_rel_err"] for r in attn),
+           "prefill_attention": attn,
+           "layer_rel_max_f32": worst_f32, "layers": layers,
+           "logits_by_position_max_abs_diff": pos_bf16,
+           "logits_last_position_same_argmax": int(
+               (full[:, -1].float().argmax(-1)
+                == dec[:, -1].float().argmax(-1)).sum()),
+           "logits_max_abs": float(dec.float().abs().max())}
+
+    # the same weights in float32, the whole model once more
+    model.float()
+    cache = init_cache(cfg, SERVE_B, PROMPT, torch.float32)
+    dec32 = []
+    for t in range(PROMPT):
+        last32, cache = decode_step(model, cache, {
+            "tokens": prompt[:, t:t + 1], "step": t})
+        dec32.append(last32[:, 0])
+    full32, dec32 = full_logits(), torch.stack(dec32, 1)
+    pos_f32 = by_position(full32, dec32)
+    rec["logits_f32_by_position_max_abs_diff"] = pos_f32
+    rec["logits_bf16_vs_f32_by_position"] = by_position(full, full32)
+    rec["check_launches"] = ops.launch_counts()
+    rec["seconds"] = time.perf_counter() - t0
+    emit(rec)
+    require(len(attn) == cfg.n_layers and all(map(flash_bf16_ok, attn)),
+            "serve_lm: a prefill layer's attention is off its plain "
+            "version in float32 by more than FLASH_ROW_REL or twice the "
+            "bf16 plain version's error")
+    require(math.isfinite(worst_f32) and worst_f32 <= LAYER_REL_F32,
+            f"serve_lm: a layer's two attention routes differ by "
+            f"{worst_f32} (f32) > {LAYER_REL_F32}")
+    require(bf16_ok, "serve_lm: a layer's bf16 kernel route is off the "
+            "float32 route by more than twice the bf16 plain route")
+    require(pos_bf16[0] <= POS0_ATOL_BF16 and pos_f32[0] <= POS0_ATOL_F32,
+            f"serve_lm: the prompt's forward and decode logits differ at "
+            f"position 0 by {pos_bf16[0]} (bf16) / {pos_f32[0]} (f32)")
+    del model, cache
+    torch.cuda.empty_cache()
+    return main_counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -804,6 +1234,7 @@ def main() -> int:
     datasets = _datasets()
     info = phase_kernels(datasets)
     info.update(phase_fused(datasets))
+    info["flash_attention"] = phase_flash()
     phase_lane_chunks(datasets)
 
     # each path: counts from 0 just before it, read just after
@@ -820,6 +1251,9 @@ def main() -> int:
     ops.reset_launch_counts()
     phase_size_matrix_free(datasets[("adult", SIZE_N - 1)], dense_accs)
     counts["size_matrix_free"] = ops.launch_counts()
+    # the serving path resets and reads the counts around its main path
+    # itself: its checks that follow launch the kernel too
+    counts["serve_lm"] = phase_serve_lm(info["flash_attention"]["ms"])
     emit({"phase": "kernel_counts", **counts})
     for name in ("rbf_kernel_matrix", "smo_f_update", "smo_chunk"):
         require(counts["table1"][name] > 0,
@@ -833,6 +1267,10 @@ def main() -> int:
                 f"{name} was not launched on the matrix-free size path")
     require(counts["size_matrix_free"]["rbf_kernel_matrix"] == 0,
             "the matrix-free path built a kernel matrix")
+    # two prefills, one launch per layer (also checked per call)
+    require(counts["serve_lm"]["flash_attention"] == 2 * 36,
+            "flash_attention was not launched once per prefill layer on the "
+            "serving path")
 
     csrc = "src/repro_torch/kernels/csrc/"
     # kernel -> (source, the TPU kernel or loop it replaces, its path)
@@ -849,7 +1287,10 @@ def main() -> int:
                                   "table1_batched"),
                "smo_select": (csrc + "smo_step.cu",
                               "src/repro/svm/engine.py:519",
-                              "table1_batched")}
+                              "table1_batched"),
+               "flash_attention": (csrc + "flash_attention.cu",
+                                   "src/repro/kernels/flash_attention.py:71",
+                                   "serve_lm")}
     kernels = []
     for name, (src, replaces, path) in sources.items():
         k = info[name]

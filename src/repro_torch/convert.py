@@ -4,7 +4,9 @@ The reference hands its results over as numpy arrays (``np.asarray`` of
 each field), so this module needs neither jax nor ``repro``. The tests use
 it to start the port from the reference's exact state (for example fold
 h's solution) and so check a seeder or a solve in isolation, and to build
-the port's kernel sources and plan lanes from the reference's operands.
+the port's kernel sources and plan lanes from the reference's operands,
+and to load the reference's LM parameters and KV caches into the port's
+layer-by-layer trees.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import torch
 from repro_torch.core.study import LaneSpec
 from repro_torch.data.svm_suite import SVMDataset
 from repro_torch.device import DTYPE, resolve_device
+from repro_torch.models.transformer import layer_plan
 from repro_torch.svm.engine import DenseKernel, PallasRBF, SMOResult
 
 
@@ -71,3 +74,49 @@ def lane_from_reference(spec, device=None) -> LaneSpec:
                     alpha0=t(spec.alpha0, DTYPE), f0=t(spec.f0, DTYPE),
                     n_iter0=int(spec.n_iter0), max_iter=int(spec.max_iter),
                     after=spec.after)
+
+
+def _unstack(stages, cfg, to_tensor) -> list:
+    """The reference's scanned stages (``transformer.py::_stack_defs``: a
+    stage repeated r times holds each leaf with a leading (r, ...) axis)
+    as one subtree per layer, in layer order."""
+    def tree(x, i):
+        if isinstance(x, dict):
+            return {k: tree(v, i) for k, v in x.items()}
+        return to_tensor(x if i is None else np.asarray(x)[i])
+    layers = []
+    for (pattern, repeat), stage in zip(layer_plan(cfg), stages,
+                                        strict=True):
+        for i in range(repeat):
+            for li in range(len(pattern)):
+                layers.append(tree(stage[li], i if repeat > 1 else None))
+    return layers
+
+
+def model_params_from_reference(params_np, cfg, device=None,
+                                dtype=torch.float32) -> dict:
+    """The port's parameter tree (``Transformer``'s input) from the
+    reference's, given as nested dicts and lists of numpy arrays. Every
+    weight keeps the reference's layout (``wq`` (D, H, Dh), ``wo``
+    (H, Dh, D), MLP weights (in, out)); the stages are unstacked."""
+    dev = resolve_device(device)
+
+    def t(a):
+        return torch.as_tensor(np.array(a), device=dev).to(dtype)
+    out = {"embed": {"table": t(params_np["embed"]["table"])},
+           "final_norm": {"scale": t(params_np["final_norm"]["scale"])},
+           "layers": _unstack(params_np["stages"], cfg, t)}
+    if "lm_head" in params_np:
+        out["lm_head"] = {"table": t(params_np["lm_head"]["table"])}
+    return out
+
+
+def cache_from_reference(cache_np, cfg, device=None,
+                         dtype=torch.float32) -> dict:
+    """The port's KV cache (``{"layers": [{"k", "v"}, ...]}``) from the
+    reference's ``init_cache`` tree of numpy arrays."""
+    dev = resolve_device(device)
+
+    def t(a):
+        return torch.as_tensor(np.array(a), device=dev).to(dtype)
+    return {"layers": _unstack(cache_np["stages"], cfg, t)}

@@ -1,0 +1,84 @@
+"""Flash attention on the card: the counterpart of
+``src/repro/kernels/flash_attention.py`` (Pallas ``flash_attention``),
+built from ``csrc/flash_attention.cu``.
+
+On CUDA tensors the wrapper launches the hand-written kernel (float32 or
+bfloat16) or raises; on CPU tensors it runs the plain version,
+``ref.flash_attention_ref``. The kernel reads q, k and v through their
+(b, h, s) strides, so a (B, S, H, D) activation passed as its
+``transpose(1, 2)`` view is read in place, and the output keeps q's layout.
+kv heads may be grouped: k and v carry KV heads with KV dividing H, and q
+head h reads kv head ``h // (H // KV)``, so no broadcast copy is made.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import flash_attention_ref
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SYMBOLS = {torch.float32: "flash_attention_f32",
+            torch.bfloat16: "flash_attention_bf16"}
+#: head dims the kernel is instantiated for
+HEAD_DIMS = (16, 32, 64, 128, 256)
+
+
+def _rows_aligned(t) -> bool:
+    """Every (b, h, s) row of ``t`` starts on 16 bytes, d contiguous."""
+    step = 16 // t.element_size()
+    return (t.stride(3) == 1 and t.data_ptr() % 16 == 0
+            and all(s % step == 0 for s in t.stride()[:3]))
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window=None):
+    """q (B, H, S, D), k and v (B, KV, T, D), KV dividing H ->
+    (B, H, S, D). ``causal`` masks keys after the query's position,
+    ``window`` (a positive int) keys at or before ``s - window``."""
+    if window is not None and (int(window) != window or window < 1):
+        raise ValueError(f"flash_attention: window must be a positive int, "
+                         f"got {window}")
+    if all(t.device.type == "cpu" for t in (q, k, v)):
+        return flash_attention_ref(q, k, v, causal=causal, window=window)
+    if q.device.type != "cuda" or k.device != q.device \
+            or v.device != q.device:
+        raise ValueError(f"flash_attention: q, k, v on {q.device}, "
+                         f"{k.device}, {v.device}: all must be on one CUDA "
+                         "device (or all on the CPU)")
+    if q.dtype not in _SYMBOLS or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention takes float32 or bfloat16, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"flash_attention: shapes {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}: want "
+                         "(B, H, S, D) and (B, KV, T, D) twice")
+    B, H, S, D = q.shape
+    KV, T = k.shape[1], k.shape[2]
+    if k.shape[0] != B or k.shape[3] != D or KV == 0 or H % KV:
+        raise ValueError(f"flash_attention: k/v {tuple(k.shape)} do not "
+                         f"match q {tuple(q.shape)} (KV must divide H)")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {D} not in {HEAD_DIMS}")
+    if window is not None and T < S:
+        # a row past T could then see no key at all
+        raise ValueError("flash_attention: a window needs T >= S")
+    if B * H >= 2 ** 16 or max(S, T) >= 2 ** 31:
+        raise ValueError("flash_attention: B*H must be below 2**16 and S, "
+                         "T below 2**31")
+    q, k, v = (t if _rows_aligned(t) else t.contiguous() for t in (q, k, v))
+    out = torch.empty_like(q)
+    strides = (ctypes.c_longlong * 12)(
+        *(s for t in (q, k, v, out) for s in t.stride()[:3]))
+    fn = _build.entry("flash_attention", _SYMBOLS[q.dtype], _P, _P, _P, _P,
+                      _I, _I, _I, _I, _I, _I, _P, _I, _I, _P)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H,
+             KV, S, T, D, ctypes.addressof(strides), int(bool(causal)),
+             0 if window is None else int(window), _build.stream_ptr(q))
+    _build.check(err, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

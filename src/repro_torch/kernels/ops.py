@@ -6,7 +6,10 @@ on a CUDA tensor (or raises) and runs its plain PyTorch version
 ``smo_chunk`` counts the dense chunk kernel's launches at one lane and over
 lanes; ``smo_stream_chunk`` adds its launches of the WSS-1 selection kernel
 to ``smo_select`` and of the fused step to ``fused_smo_step``.
+``flash_attention`` counts one per launch (one per prefill attention layer
+on the LM serving path).
 """
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rbf import rbf_kernel_matrix
 from repro_torch.kernels.smo_chunk import (smo_chunk, smo_chunk_lanes,
                                            smo_select, smo_stream_chunk)
@@ -15,7 +18,7 @@ from repro_torch.kernels.smo_update import smo_f_update
 
 __all__ = ["rbf_kernel_matrix", "smo_f_update", "smo_chunk",
            "smo_chunk_lanes", "smo_stream_chunk", "smo_select",
-           "fused_smo_step",
+           "fused_smo_step", "flash_attention",
            "launch_counts", "reset_launch_counts"]
 
 #: kernel name -> the wrapper that carries its count
@@ -23,7 +26,8 @@ KERNELS = {"rbf_kernel_matrix": rbf_kernel_matrix,
            "smo_f_update": smo_f_update,
            "smo_chunk": smo_chunk,
            "fused_smo_step": fused_smo_step,
-           "smo_select": smo_select}
+           "smo_select": smo_select,
+           "flash_attention": flash_attention}
 
 
 def launch_counts() -> dict[str, int]:

@@ -32,6 +32,33 @@ def rbf_kernel_matrix_ref(X, Z, gamma):
     return torch.exp(-gamma * d2)
 
 
+def flash_attention_ref(q, k, v, *, causal=True, window=None):
+    """q (B, H, S, D), k and v (B, KV, T, D) -> (B, H, S, D): plain softmax
+    attention, as the reference's oracle computes it. Scores are the
+    product in the input dtype cast to float32 and divided by sqrt(D); the
+    mask (causal ``t <= s``, window ``t > s - window``) writes -1e30; the
+    float32 softmax is cast to the input dtype before the product with v.
+    With KV < H, q head h reads kv head ``h // (H // KV)`` (the reference
+    broadcasts kv heads before its call; the result is the same)."""
+    H, KV = q.shape[1], k.shape[1]
+    if KV != H:
+        k = k.repeat_interleave(H // KV, dim=1)
+        v = v.repeat_interleave(H // KV, dim=1)
+    S, T = q.shape[2], k.shape[2]
+    scores = torch.einsum("bhsd,bhtd->bhst", q, k).float()
+    scores = scores / math.sqrt(q.shape[-1])
+    qpos = torch.arange(S, device=q.device)[:, None]
+    kpos = torch.arange(T, device=q.device)[None, :]
+    mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    scores = torch.where(mask, scores, -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhst,bhtd->bhsd", probs.to(q.dtype), v)
+
+
 def smo_f_update_ref(f, K_i, K_j, delta):
     """The SMO rank-2 indicator update ``f + delta * (K_i - K_j)``, as one
     fused multiply-add per element (the rounding XLA-CPU gives the

@@ -1,0 +1,277 @@
+"""Model assembly for the dense decoder LMs: a ``Transformer`` module over
+an ``nn.ModuleList`` of blocks (RMS norm, GQA attention, RMS norm, gated
+MLP), the full forward, the KV cache and one-token decode. Mirrors
+``src/repro/models/transformer.py`` for the llama-family plan
+``[GQA + dense] * L``; the reference's ``lax.scan`` over stacked layers is
+a Python loop over the list.
+
+``layer_plan`` is kept as the reference computes it, so that
+``repro_torch.convert`` can unstack the reference's scanned stages. Only
+``mixer="attn"`` with ``mlp="dense"`` is ported: any other layer spec (MLA,
+MoE, mamba, xLSTM, cross-attention) raises and names ROADMAP.
+
+The port's parameter tree is the reference's with the stages unstacked:
+``{"embed": {"table"}, "final_norm": {"scale"}, "layers": [{"ln1",
+"mixer", "ln2", "mlp"}, ...], "lm_head": {"table"}}`` (no ``lm_head`` with
+tied embeddings), every weight in the reference's layout. The module's
+parameter names are the same paths (``layers.0.mixer.wq``).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch import nn
+
+from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.layers import (embed, embedding_def, mlp, mlp_def,
+                                       rmsnorm, rmsnorm_def, unembed)
+from repro_torch.models.params import ParamDef, count_from_defs, init_params
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerSpec:
+    mixer: str                # attn | mla | mamba | mlstm | slstm
+    mlp: str                  # dense | moe | none
+    window: int | None = None
+    cross: bool = False       # enc-dec decoder layers
+
+
+# ------------------------------------------------------------- planning ----
+
+def _layer_specs(cfg) -> list[LayerSpec]:
+    specs = []
+    for i in range(cfg.n_layers):
+        if cfg.block_kinds is not None:
+            mixer = cfg.block_kinds[i % len(cfg.block_kinds)]
+        elif cfg.attn_every > 1:
+            mixer = ("mla" if cfg.attn_kind == "mla" else "attn") \
+                if i % cfg.attn_every == cfg.attn_offset else "mamba"
+        else:
+            mixer = "mla" if cfg.attn_kind == "mla" else "attn"
+        if cfg.d_ff == 0 and cfg.n_experts == 0:
+            m = "none"
+        elif cfg.n_experts and i >= cfg.first_dense_layers \
+                and i % cfg.moe_every == cfg.moe_offset:
+            m = "moe"
+        else:
+            m = "dense"
+        w = None
+        if cfg.window_pattern is not None:
+            w = cfg.window_pattern[i % len(cfg.window_pattern)]
+        specs.append(LayerSpec(mixer=mixer, mlp=m, window=w,
+                               cross=cfg.is_encoder_decoder))
+    return specs
+
+
+def layer_plan(cfg) -> list[tuple[tuple[LayerSpec, ...], int]]:
+    """The reference's stages: (pattern, repeat) pairs covering the layers,
+    a repeated pattern stacked along a leading axis of its parameters."""
+    specs = _layer_specs(cfg)
+    L = len(specs)
+    stages, i = [], 0
+    while i < L:
+        best = (1, 1)
+        for p in (1, 2, 3, 4, 6, 8):
+            if i + p > L:
+                break
+            pat = specs[i:i + p]
+            r = 1
+            while i + (r + 1) * p <= L and specs[i + r * p: i + (r + 1) * p] == pat:
+                r += 1
+            if (p == 1 or r >= 2) and p * r > best[0] * best[1]:
+                best = (p, r)
+        p, r = best
+        stages.append((tuple(specs[i:i + p]), r))
+        i += p * r
+    return stages
+
+
+def _check_spec(spec: LayerSpec) -> None:
+    if spec.mixer != "attn" or spec.mlp != "dense" or spec.cross:
+        raise NotImplementedError(
+            f"layer {spec}: only GQA attention with a dense MLP is ported "
+            "(ROADMAP.md, Queue 1 item 12 lists MLA, MoE, mamba, xLSTM and "
+            "enc-dec)")
+
+
+# ---------------------------------------------------------- param trees ----
+
+def _layer_def(spec: LayerSpec, cfg):
+    _check_spec(spec)
+    return {"ln1": rmsnorm_def(cfg.d_model), "mixer": attn_mod.gqa_def(cfg),
+            "ln2": rmsnorm_def(cfg.d_model),
+            "mlp": mlp_def(cfg.d_model, cfg.d_ff)}
+
+
+def model_params_def(cfg):
+    """The port's ``ParamDef`` tree (layers unstacked)."""
+    if cfg.is_encoder_decoder or cfg.mtp_depth or cfg.frontend:
+        raise NotImplementedError(
+            f"{cfg.name}: enc-dec, multi-token prediction and modality "
+            "frontends are not ported yet (ROADMAP.md, Queue 1 item 12)")
+    defs = {
+        "embed": embedding_def(cfg.vocab_size, cfg.d_model),
+        "final_norm": rmsnorm_def(cfg.d_model),
+        "layers": [_layer_def(s, cfg) for s in _layer_specs(cfg)],
+    }
+    if not cfg.tie_embeddings:
+        defs["lm_head"] = {"table": ParamDef(
+            (cfg.vocab_size, cfg.d_model), ("vocab", "embed"), scale=0.02)}
+    return defs
+
+
+def cache_def(cfg, batch, max_len):
+    """One {'k', 'v'} (batch, max_len, KV, Dh) pair per layer."""
+    for spec in _layer_specs(cfg):
+        _check_spec(spec)
+    return {"layers": [attn_mod.gqa_cache_def(cfg, batch, max_len)
+                       for _ in range(cfg.n_layers)]}
+
+
+def init_cache(cfg, batch, max_len, dtype=torch.bfloat16, device=None):
+    """A zeroed KV cache, preallocated at ``max_len`` rows; decode writes
+    into it in place."""
+    dev = resolve_device(device)
+    return init_params(cache_def(cfg, batch, max_len),
+                       torch.Generator(device=dev), dtype, dev)
+
+
+# -------------------------------------------------------------- modules ----
+
+class ParamModule(nn.Module):
+    """A module whose parameters are the given tensors (no copy, no
+    gradient), readable as ``module["name"]`` like the reference's dicts."""
+
+    def __init__(self, tensors: dict):
+        super().__init__()
+        for name, t in tensors.items():
+            self.register_parameter(name, nn.Parameter(t,
+                                                       requires_grad=False))
+
+    def __getitem__(self, name):
+        return getattr(self, name)
+
+
+class RMSNorm(ParamModule):
+    def __init__(self, tensors, eps):
+        super().__init__(tensors)
+        self.eps = eps
+
+    def forward(self, x):
+        return rmsnorm(self, x, self.eps)
+
+
+class MLP(ParamModule):
+    def __init__(self, tensors, act):
+        super().__init__(tensors)
+        self.act = act
+
+    def forward(self, x):
+        return mlp(self, x, act=self.act)
+
+
+class Attention(ParamModule):
+    def __init__(self, tensors, cfg, window):
+        super().__init__(tensors)
+        self.cfg, self.window = cfg, window
+
+    def forward(self, x, positions, cache=None, step=None):
+        return attn_mod.gqa_apply(self, x, positions, self.cfg,
+                                  window=self.window, cache=cache, step=step)
+
+
+class Block(nn.Module):
+    """``x + attn(norm(x))``, then ``x + mlp(norm(x))``."""
+
+    def __init__(self, p, spec: LayerSpec, cfg):
+        super().__init__()
+        _check_spec(spec)
+        self.ln1 = RMSNorm(p["ln1"], cfg.norm_eps)
+        self.mixer = Attention(p["mixer"], cfg, spec.window)
+        self.ln2 = RMSNorm(p["ln2"], cfg.norm_eps)
+        self.mlp = MLP(p["mlp"], cfg.act)
+
+    def forward(self, x, positions, cache=None, step=None):
+        mix, cache = self.mixer(self.ln1(x), positions, cache, step)
+        x = x + mix
+        return x + self.mlp(self.ln2(x)), cache
+
+
+class Transformer(nn.Module):
+    """A dense decoder LM over the port's parameter tree (see the module
+    docstring); its device and dtype are those of the tensors given."""
+
+    def __init__(self, cfg, params):
+        super().__init__()
+        self.cfg = cfg
+        self.embed = ParamModule(params["embed"])
+        self.layers = nn.ModuleList(
+            Block(p, s, cfg) for p, s in zip(params["layers"],
+                                             _layer_specs(cfg), strict=True))
+        self.final_norm = RMSNorm(params["final_norm"], cfg.norm_eps)
+        self.lm_head = None if cfg.tie_embeddings \
+            else ParamModule(params["lm_head"])
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.table.device
+
+    def logits(self, x):
+        h = self.final_norm(x)
+        return unembed(self.embed if self.cfg.tie_embeddings
+                       else self.lm_head, h)
+
+
+def init_model(cfg, *, seed: int = 0, dtype=torch.bfloat16,
+               device=None) -> Transformer:
+    """A ``Transformer`` with parameters drawn by the reference's init
+    rules from a ``torch.Generator`` seeded with ``seed`` on ``device``."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return Transformer(cfg, init_params(model_params_def(cfg), gen, dtype,
+                                        dev))
+
+
+# -------------------------------------------------------------- forward ----
+
+@torch.inference_mode()
+def forward(model: Transformer, batch, mode="train"):
+    """batch: tokens (B,S). Returns (logits, extras).
+    ``mode="prefill"`` keeps the last position's logits only."""
+    if mode not in ("train", "prefill"):
+        raise ValueError(f"mode must be 'train' or 'prefill', got {mode!r}")
+    dev = model.device
+    tokens = torch.as_tensor(batch["tokens"], device=dev)
+    B, S = tokens.shape
+    x = embed(model.embed, tokens)
+    positions = torch.arange(S, device=dev)[None].expand(B, S)
+    for block in model.layers:
+        x, _ = block(x, positions)
+    if mode == "prefill":      # serving prefill: last-position logits only
+        x = x[:, -1:]
+    return model.logits(x), {"aux_loss": torch.zeros((), device=dev)}
+
+
+@torch.inference_mode()
+def decode_step(model: Transformer, cache, batch):
+    """One-token decode. batch: tokens (B,1), step (an int: the cache rows
+    already filled). Writes each layer's k and v into ``cache`` in place at
+    ``step``; returns (logits (B,1,V), cache)."""
+    dev = model.device
+    tokens = torch.as_tensor(batch["tokens"], device=dev)
+    B, S = tokens.shape
+    step = int(batch["step"])
+    x = embed(model.embed, tokens)
+    positions = torch.full((B, S), step, dtype=torch.int64, device=dev)
+    for block, c in zip(model.layers, cache["layers"], strict=True):
+        x, _ = block(x, positions, cache=c, step=step)
+    return model.logits(x), cache
+
+
+# ------------------------------------------------------------- counting ----
+
+def count_params(cfg) -> int:
+    return count_from_defs(model_params_def(cfg))

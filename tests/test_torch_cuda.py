@@ -245,3 +245,99 @@ def test_cuda_select_matches_plain(cuda):
         assert torch.equal(got[k], want[k])
     for k in (0, 4):
         torch.testing.assert_close(got[k], want[k], rtol=0, atol=1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,D,causal,window", [
+    (64, 32, True, None), (100, 32, False, None), (128, 64, True, 24),
+    (96, 16, False, 40), (33, 32, True, None),
+])
+def test_cuda_flash_attention_matches_plain(cuda, S, D, causal, window):
+    """The reference's sweep (``tests/test_kernels.py``), f32 atol 2e-5."""
+    q, k, v = (torch.from_numpy(RNG.normal(size=(2, 3, S, D))).to(
+        cuda, torch.float32) for _ in range(3))
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_bf16_matches_plain(cuda):
+    q, k, v = (torch.from_numpy(RNG.normal(size=(1, 2, 64, 32))).to(
+        cuda, torch.bfloat16) for _ in range(3))
+    got = ops.flash_attention(q, k, v)
+    want = ref.flash_attention_ref(q, k, v)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=0.06)
+
+
+def _row_rel(got, want) -> float:
+    """max over rows of max |got - want| / max |want| (a row: the last
+    axis), a measure that keeps its meaning however small the outputs."""
+    w = want.float()
+    err = (got.float() - w).abs().amax(-1)
+    return float((err / w.abs().amax(-1).clamp_min(1e-30)).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,KV,S,D,causal,window", [
+    (2, 3, 3, 64, 32, True, None), (2, 3, 3, 100, 32, False, None),
+    (2, 3, 3, 128, 64, True, 24), (2, 3, 3, 96, 16, False, 40),
+    (2, 3, 3, 33, 32, True, None), (2, 8, 2, 300, 128, True, None),
+    (1, 4, 1, 200, 128, False, 70), (2, 8, 2, 1000, 128, True, 256),
+])
+def test_cuda_flash_attention_bf16_rows_vs_f32_plain(cuda, B, H, KV, S, D,
+                                                      causal, window):
+    """bf16 on the tensor-core path (several kv tiles, ragged S, windows,
+    grouped kv heads read through (B, S, H, D) strides) against the plain
+    version run in float32 on the same bf16 inputs, row by row: within
+    0.02 of each row's largest output and within twice the bf16 plain
+    version's own error; and within the reference's 0.06 of the plain
+    version in bf16."""
+    q, k, v = (torch.from_numpy(RNG.normal(size=(B, S, h, D))).to(
+        cuda, torch.bfloat16).transpose(1, 2) for h in (H, KV, KV))
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                   causal=causal, window=window)
+    plain = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    err = _row_rel(got, want)
+    assert err <= 0.02 and err <= 2 * _row_rel(plain, want)
+    torch.testing.assert_close(got.float(), plain.float(), rtol=0, atol=0.06)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [128, 256])
+def test_cuda_flash_attention_gqa_strided(cuda, D):
+    """kv heads grouped (KV=2 under H=8), read in place from (B, S, H, D)
+    tensors through their strides; the output keeps q's layout."""
+    q = torch.from_numpy(RNG.normal(size=(2, 70, 8, D))).to(cuda,
+                                                            torch.float32)
+    k, v = (torch.from_numpy(RNG.normal(size=(2, 70, 2, D))).to(
+        cuda, torch.float32) for _ in range(2))
+    got = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2))
+    want = ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2))
+    assert got.transpose(1, 2).is_contiguous()
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_prefill_goes_through_the_kernel(cuda):
+    """A SMOKE granite on the card: every prefill layer launches the kernel
+    once, and the logits match the same model on the CPU (f32, whose
+    attention is the plain version) within 1e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.inputs import concrete_batch
+    from repro_torch.models.transformer import init_model
+    from repro_torch.serving import prefill_logits
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("granite-8b", smoke=True)
+    cpu = init_model(cfg, seed=0, dtype=torch.float32, device="cpu")
+    card = init_model(cfg, seed=0, dtype=torch.float32, device="cpu").to(cuda)
+    batch = concrete_batch(cfg, 2, 40, device="cpu")
+    before = ops.launch_counts()["flash_attention"]
+    got = prefill_logits(card, {"tokens": batch["tokens"].to(cuda)})
+    assert ops.launch_counts()["flash_attention"] - before == cfg.n_layers
+    want = prefill_logits(cpu, batch)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)

@@ -4,8 +4,10 @@ import numpy as np
 import pytest
 
 from repro.data import svm_suite as ref_suite
+from repro.data import tokens as ref_tokens
 from repro_torch.convert import dataset_from_reference
 from repro_torch.data import svm_suite as port_suite
+from repro_torch.data import tokens as port_tokens
 
 
 @pytest.mark.parametrize("name", ref_suite.DATASETS)
@@ -33,3 +35,16 @@ def test_specs_and_dataset_conversion():
     np.testing.assert_array_equal(p.X, r.X)
     np.testing.assert_array_equal(p.y, r.y)
     assert (p.name, p.C, p.gamma) == (r.name, r.C, r.gamma)
+
+
+@pytest.mark.parametrize("vocab,batch,seq,seed,step", [
+    (512, 2, 32, 0, 0), (49_152, 2, 4096, 0, 0), (256_000, 3, 18, 7, 5)])
+def test_synthetic_token_batch_bitwise(vocab, batch, seq, seed, step):
+    r = ref_tokens.synthetic_token_batch(vocab, batch, seq, seed=seed,
+                                         step=step)
+    p = port_tokens.synthetic_token_batch(vocab, batch, seq, seed=seed,
+                                          step=step)
+    assert p.keys() == r.keys()
+    for key in r:
+        assert p[key].dtype == r[key].dtype
+        np.testing.assert_array_equal(p[key], r[key])

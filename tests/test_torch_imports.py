@@ -33,7 +33,9 @@ def test_the_walk_sees_the_port():
     assert {"chip_smoke.py", "engine.py", "seeding.py", "cv.py",
             "rbf.py", "smo_chunk.py", "smo_update.py", "smo_step.py",
             "scheduler.py", "sources.py", "cost_model.py", "study.py",
-            "convert.py"} <= names
+            "convert.py", "flash_attention.py", "attention.py",
+            "transformer.py", "layers.py", "params.py", "decode.py",
+            "inputs.py", "tokens.py", "granite_8b.py", "gemma_7b.py"} <= names
 
 
 def test_entry_points_default_to_cuda():
@@ -57,3 +59,31 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         result_from_reference({})
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_lm_entry_points_default_to_cuda():
+    """Building a model, a cache, a batch or converted parameters without
+    ``device="cpu"`` raises when there is no GPU; a model built on the CPU
+    serves there."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is valid here")
+    from repro_torch.configs import get_config
+    from repro_torch.convert import (cache_from_reference,
+                                     model_params_from_reference)
+    from repro_torch.launch.inputs import concrete_batch
+    from repro_torch.models.transformer import init_cache, init_model
+    from repro_torch.serving import build_serve_step, prefill_logits
+    cfg = get_config("granite-8b", smoke=True)
+    for build in (lambda: init_model(cfg), lambda: init_cache(cfg, 1, 4),
+                  lambda: concrete_batch(cfg, 1, 4),
+                  lambda: model_params_from_reference({}, cfg),
+                  lambda: cache_from_reference({}, cfg)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
+    model = init_model(cfg, dtype=torch.float32, device="cpu")
+    batch = concrete_batch(cfg, 1, 4, device="cpu")
+    assert prefill_logits(model, batch).shape == (1, 1, cfg.vocab_size)
+    cache = init_cache(cfg, 1, 4, torch.float32, device="cpu")
+    nxt, _ = build_serve_step(cfg)(model, cache, {
+        "tokens": batch["tokens"][:, :1], "step": 0})
+    assert nxt.shape == (1,)

@@ -88,9 +88,12 @@ def test_cpu_tensors_launch_no_kernel():
                         lanes[4], "2", *lanes[5:])
     ops.smo_stream_chunk(X, sq, 0.5, y, *lanes)
     ops.smo_select(X, sq, 0.5, y, *lanes[:4], *lanes[5:])
+    q = torch.from_numpy(RNG.normal(size=(1, 4, 9, 16)))
+    ops.flash_attention(q, q[:, :2], q[:, :2], window=3)
     assert ops.launch_counts() == {"rbf_kernel_matrix": 0,
                                    "smo_f_update": 0, "smo_chunk": 0,
-                                   "fused_smo_step": 0, "smo_select": 0}
+                                   "fused_smo_step": 0, "smo_select": 0,
+                                   "flash_attention": 0}
 
 
 def test_arg_reduces_nan_guard():

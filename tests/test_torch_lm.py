@@ -1,0 +1,368 @@
+"""The port's LM serving path against the JAX reference, on the CPU.
+
+The same numpy inputs (and the reference's own parameters, through
+``repro_torch.convert``) go through ``repro.models`` / ``repro.serving``
+and their counterparts in ``repro_torch``. The flash-attention wrapper runs
+its plain version on CPU tensors; it is held to the reference's Pallas
+kernel in interpret mode, as the reference's own tests run it, at their
+bars (f32 atol 2e-5, bf16 0.06). Layers: f32 atol 1e-5; whole models
+(SMOKE sizes of granite-8b and gemma-7b): f32 atol 1e-4 on logits of
+magnitude up to 1, scaled by the logits' largest magnitude above that (see
+``_assert_logits_close``), and greedy tokens identical. The kernel itself is held to the plain version on the card
+(``test_torch_cuda.py``, ``chip_smoke.py``).
+"""
+from functools import partial
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as ref_get_config
+from repro.kernels.flash_attention import flash_attention as pallas_flash
+from repro.kernels.ref import flash_attention_ref as jnp_flash_ref
+from repro.launch.inputs import concrete_batch as ref_concrete_batch
+from repro.models import attention as ref_attn
+from repro.models import layers as ref_layers
+from repro.models import transformer as RT
+from repro.models.params import init_params as ref_init_params
+from repro.serving.decode import build_serve_step as ref_build_serve_step
+from repro.serving.decode import prefill_logits as ref_prefill_logits
+from repro_torch.configs import get_config
+from repro_torch.convert import (cache_from_reference,
+                                 model_params_from_reference)
+from repro_torch.kernels import ops
+from repro_torch.launch.inputs import concrete_batch
+from repro_torch.models import attention, layers
+from repro_torch.models import transformer as PT
+from repro_torch.models.params import ParamDef, init_params
+from repro_torch.serving import build_serve_step, prefill_logits
+
+RNG = np.random.default_rng(11)
+ARCHS = ("granite-8b", "gemma-7b")
+B, S = 2, 32
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _assert_logits_close(got, want):
+    """atol 1e-4 x max(1, max|want|). Under the reference's init the
+    attention scores reach O(60) at SMOKE size, so a last-bit difference in
+    a projection moves the softmax, and the error reaching the logits
+    scales with them: gemma-7b's tied table gives logits up to 35, where
+    the reference's own f32 forward differs from its float64 one by 3.8e-4
+    (granite-8b: logits below 1, 5e-6)."""
+    want = np.asarray(want)
+    np.testing.assert_allclose(np.asarray(got), want,
+                               atol=1e-4 * max(1.0, np.abs(want).max()))
+
+
+# ------------------------------------------------------- flash attention ----
+
+@pytest.mark.parametrize("S_,D,causal,window", [
+    (64, 32, True, None), (100, 32, False, None), (128, 64, True, 24),
+    (96, 16, False, 40), (33, 32, True, None),
+])
+def test_flash_plain_matches_reference(S_, D, causal, window):
+    """The reference's sweep (``tests/test_kernels.py``), f32 atol 2e-5."""
+    q, k, v = (RNG.normal(size=(2, 3, S_, D)).astype(np.float32)
+               for _ in range(3))
+    out = ops.flash_attention(_t(q), _t(k), _t(v), causal=causal,
+                              window=window)
+    assert out.dtype == torch.float32 and out.shape == (2, 3, S_, D)
+    for want in (pallas_flash(q, k, v, causal=causal, window=window, bq=32,
+                              bk=32),
+                 jnp_flash_ref(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(v), causal=causal, window=window)):
+        np.testing.assert_allclose(out.numpy(), np.asarray(want), atol=2e-5)
+
+
+def test_flash_plain_bf16_matches_reference():
+    q, k, v = (RNG.normal(size=(1, 2, 64, 32)).astype(np.float32)
+               for _ in range(3))
+    out = ops.flash_attention(*(_t(a).to(torch.bfloat16) for a in (q, k, v)))
+    want = pallas_flash(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)),
+                        bq=32, bk=32)
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(want, np.float32), atol=0.06)
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (False, 24),
+                                           (True, 40)])
+def test_flash_plain_gqa_matches_reference_on_broadcast_kv(causal, window):
+    """kv heads grouped (KV=2 under H=8): the port reads kv head
+    h // (H/KV); the reference's kernel gets K/V broadcast to H heads."""
+    q = RNG.normal(size=(2, 8, 80, 16)).astype(np.float32)
+    k, v = (RNG.normal(size=(2, 2, 80, 16)).astype(np.float32)
+            for _ in range(2))
+    out = ops.flash_attention(_t(q), _t(k), _t(v), causal=causal,
+                              window=window)
+    kb, vb = (np.repeat(a, 4, axis=1) for a in (k, v))
+    want = pallas_flash(q, kb, vb, causal=causal, window=window, bq=32,
+                        bk=32)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), atol=2e-5)
+
+
+def test_flash_refuses_a_bad_window():
+    q = torch.zeros(1, 1, 4, 16)
+    for window in (0, -3, 2.5):
+        with pytest.raises(ValueError, match="window"):
+            ops.flash_attention(q, q, q, window=window)
+
+
+# ---------------------------------------------------------------- layers ----
+
+def test_rmsnorm_matches_reference():
+    x = RNG.normal(size=(2, 5, 64)).astype(np.float32) * 3
+    scale = RNG.normal(size=(64,)).astype(np.float32)
+    out = layers.rmsnorm({"scale": _t(scale)}, _t(x), 1e-6)
+    want = ref_layers.rmsnorm({"scale": jnp.asarray(scale)}, jnp.asarray(x),
+                              1e-6)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), atol=1e-5)
+
+
+@pytest.mark.parametrize("theta", [10_000.0, 10_000_000.0])
+def test_rope_matches_reference(theta):
+    x = RNG.normal(size=(2, 7, 3, 16)).astype(np.float32)
+    pos = np.stack([np.arange(7), np.arange(100, 107)])
+    out = layers.rope(_t(x), _t(pos), theta)
+    want = ref_layers.rope(jnp.asarray(x), jnp.asarray(pos), theta)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), atol=1e-5)
+
+
+@pytest.mark.parametrize("act", ["silu", "gelu"])
+def test_mlp_matches_reference(act):
+    """SwiGLU, and GeGLU with gelu's tanh approximation (jax's default)."""
+    x = RNG.normal(size=(2, 5, 64)).astype(np.float32)
+    p = {"wi_gate": RNG.normal(size=(64, 128)).astype(np.float32) / 8,
+         "wi_up": RNG.normal(size=(64, 128)).astype(np.float32) / 8,
+         "wo": RNG.normal(size=(128, 64)).astype(np.float32) / 11}
+    out = layers.mlp({k: _t(v) for k, v in p.items()}, _t(x), act=act)
+    want = ref_layers.mlp({k: jnp.asarray(v) for k, v in p.items()},
+                          jnp.asarray(x), act=act)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), atol=1e-5)
+
+
+@pytest.mark.parametrize("kw", [
+    {"causal": True}, {"causal": False}, {"causal": True, "window": 5},
+    {"causal": True, "softcap": 30.0},
+    {"causal": True, "q_offset": 9, "kv_len": 12},
+], ids=["causal", "full", "window", "softcap", "offset_kv_len"])
+def test_sdpa_matches_reference(kw):
+    """GQA by head groups (H=8 over KV=2); decode-style masks when
+    ``q_offset`` and ``kv_len`` are set (3 queries against 16 cache rows)."""
+    Sq = 3 if "q_offset" in kw else 16
+    q = RNG.normal(size=(2, Sq, 8, 16)).astype(np.float32)
+    k, v = (RNG.normal(size=(2, 16, 2, 16)).astype(np.float32)
+            for _ in range(2))
+    out = attention.sdpa(_t(q), _t(k), _t(v), **kw)
+    want = ref_attn.sdpa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                         **kw)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), atol=1e-5)
+
+
+def test_chunked_forms_and_mla_raise():
+    cfg = get_config("granite-8b", smoke=True)
+    q = torch.zeros(1, 8, 2, 16)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        attention.sdpa_q_chunked(q, q, q)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        attention.sdpa_local_chunked(q, q, q, window=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        PT.model_params_def(cfg.replace(attn_kind="mla"))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        PT.model_params_def(cfg.replace(n_experts=4, moe_d_ff=32))
+
+
+# ---------------------------------------------------------------- models ----
+
+@pytest.fixture(scope="module", params=ARCHS)
+def pair(request):
+    """(cfg, reference params, port model from those params) at SMOKE
+    size in float32."""
+    arch = request.param
+    cfg = ref_get_config(arch, smoke=True)
+    params = ref_init_params(RT.model_params_def(cfg), jax.random.PRNGKey(0),
+                             jnp.float32)
+    params_np = jax.tree.map(np.asarray, params)
+    pcfg = get_config(arch, smoke=True)
+    model = PT.Transformer(pcfg, model_params_from_reference(
+        params_np, pcfg, device="cpu"))
+    return cfg, params, model
+
+
+# runtime options of the reference that nothing in the port reads
+_DROPPED = {"remat_policy": "full", "decode_kv_shard": "heads",
+            "moe_impl": "scatter"}
+
+
+def test_configs_are_the_reference_configs():
+    for arch in ARCHS:
+        for smoke in (False, True):
+            ref = dict(ref_get_config(arch, smoke=smoke).__dict__)
+            for name, default in _DROPPED.items():
+                assert ref.pop(name) == default, (arch, name)
+            assert get_config(arch, smoke=smoke).__dict__ == ref
+
+
+def test_get_config_refuses_unported_archs():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        get_config("deepseek-v2-236b")
+    with pytest.raises(ValueError, match="unknown"):
+        get_config("no-such-model")
+
+
+def test_layer_plan_matches_reference():
+    for arch in ARCHS:
+        for smoke in (False, True):
+            cfg = ref_get_config(arch, smoke=smoke)
+            want = [(tuple(s.__dict__ for s in p), r)
+                    for p, r in RT.layer_plan(cfg)]
+            got = [(tuple(s.__dict__ for s in p), r)
+                   for p, r in PT.layer_plan(get_config(arch, smoke=smoke))]
+            assert got == want
+
+
+@pytest.mark.parametrize("arch,count", [("granite-8b", 8_254_689_280),
+                                        ("gemma-7b", None)])
+def test_count_params_matches_reference(arch, count):
+    """Full widths, from the definitions alone (nothing is allocated)."""
+    want = RT.count_params(ref_get_config(arch))
+    assert PT.count_params(get_config(arch)) == want
+    if count is not None:
+        assert want == count
+
+
+def test_init_params_rules():
+    defs = {"w": ParamDef((64, 8, 32), ("a", "b", "c")),
+            "e": ParamDef((300, 40), ("v", "d"), scale=0.5),
+            "n": ParamDef((40,), ("d",), init="ones"),
+            "z": ParamDef((3, 4), ("x", "y"), init="zeros")}
+    gen = torch.Generator().manual_seed(3)
+    p = init_params(defs, gen, torch.float32, "cpu")
+    assert torch.equal(p["n"], torch.ones(40))
+    assert torch.equal(p["z"], torch.zeros(3, 4))
+    # default scale 1/sqrt(shape[-2]) = 1/sqrt(8); explicit 0.5
+    assert abs(float(p["w"].std()) - 8 ** -0.5) < 0.01
+    assert abs(float(p["e"].std()) - 0.5) < 0.01
+    again = init_params(defs, torch.Generator().manual_seed(3),
+                        torch.bfloat16, "cpu")
+    assert again["w"].dtype == torch.bfloat16
+    assert torch.equal(again["w"], p["w"].to(torch.bfloat16))
+
+
+def test_concrete_batch_matches_reference():
+    cfg = get_config("granite-8b", smoke=True)
+    got = concrete_batch(cfg, 3, 20, seed=4, device="cpu")
+    want = ref_concrete_batch(ref_get_config("granite-8b", smoke=True), 3,
+                              20, seed=4)
+    for key in ("tokens", "targets", "mask"):
+        np.testing.assert_array_equal(got[key].numpy(), np.asarray(want[key]))
+
+
+def test_forward_matches_reference(pair):
+    cfg, params, model = pair
+    batch = ref_concrete_batch(cfg, B, S)
+    want, _ = RT.forward(params, batch, cfg, mode="train")
+    got, extras = PT.forward(model, {"tokens": _t(batch["tokens"])},
+                             mode="train")
+    assert got.shape == (B, S, cfg.vocab_size)
+    _assert_logits_close(got.numpy(), want)
+    assert float(extras["aux_loss"]) == 0.0
+
+
+def test_prefill_logits_matches_reference(pair):
+    cfg, params, model = pair
+    batch = ref_concrete_batch(cfg, B, S, seed=1)
+    want = ref_prefill_logits(params, batch, cfg)
+    got = prefill_logits(model, {"tokens": _t(batch["tokens"])})
+    assert got.shape == (B, 1, cfg.vocab_size)
+    _assert_logits_close(got.numpy(), want)
+
+
+def test_decode_steps_match_reference(pair):
+    """8 teacher-forced one-token steps through the cache: logits and the
+    cache itself against the reference's, step by step."""
+    cfg, params, model = pair
+    tokens = np.asarray(ref_concrete_batch(cfg, B, S, seed=2)["tokens"])
+    ref_cache = RT.init_cache(cfg, B, 12, jnp.float32)
+    cache = cache_from_reference(jax.tree.map(np.asarray, ref_cache), cfg,
+                                 device="cpu")
+    ref_step = jax.jit(partial(RT.decode_step, cfg=cfg))
+    for t in range(8):
+        tok = tokens[:, t:t + 1]
+        want, ref_cache = ref_step(params, ref_cache,
+                                   {"tokens": jnp.asarray(tok),
+                                    "step": jnp.asarray(t, jnp.int32)})
+        got, cache = PT.decode_step(model, cache, {"tokens": _t(tok),
+                                                   "step": t})
+        _assert_logits_close(got.numpy(), want)
+    want_cache = cache_from_reference(jax.tree.map(np.asarray, ref_cache),
+                                      cfg, device="cpu")
+    for a, b in zip(cache["layers"], want_cache["layers"], strict=True):
+        for key in ("k", "v"):
+            np.testing.assert_allclose(a[key].numpy(), b[key].numpy(),
+                                       atol=1e-4)
+
+
+def test_greedy_serve_tokens_match_reference(pair):
+    """A 4-token prompt teacher-forced, then 8 free-running greedy steps:
+    the same tokens as the reference's serve step."""
+    cfg, params, model = pair
+    prompt = np.asarray(ref_concrete_batch(cfg, B, 4, seed=3)["tokens"])
+    ref_serve = jax.jit(ref_build_serve_step(cfg))
+    serve = build_serve_step(model.cfg)
+    ref_cache = RT.init_cache(cfg, B, 12, jnp.float32)
+    cache = PT.init_cache(model.cfg, B, 12, torch.float32, device="cpu")
+    tok = prompt[:, :1]
+    ref_tok, got_tokens, want_tokens = jnp.asarray(tok), [], []
+    for t in range(11):
+        nxt_ref, ref_cache = ref_serve(params, ref_cache,
+                                       {"tokens": ref_tok,
+                                        "step": jnp.asarray(t, jnp.int32)})
+        nxt, cache = serve(model, cache, {"tokens": _t(tok), "step": t})
+        if t + 1 < 4:
+            tok = prompt[:, t + 1:t + 2]
+            ref_tok = jnp.asarray(tok)
+        else:
+            want_tokens.append(np.asarray(nxt_ref))
+            got_tokens.append(nxt.numpy())
+            tok, ref_tok = nxt.numpy()[:, None], nxt_ref[:, None]
+    assert len(got_tokens) == 8
+    np.testing.assert_array_equal(np.stack(got_tokens),
+                                  np.stack(want_tokens))
+
+
+def test_decode_matches_forward():
+    """The reference's ``test_decode_matches_forward`` on the port alone:
+    teacher-forced decode reproduces the full forward's logits."""
+    cfg = get_config("granite-8b", smoke=True)
+    model = PT.init_model(cfg, seed=5, dtype=torch.float32, device="cpu")
+    batch = concrete_batch(cfg, B, 10, device="cpu")
+    full, _ = PT.forward(model, batch)
+    cache = PT.init_cache(cfg, B, 12, torch.float32, device="cpu")
+    for t in range(10):
+        lg, cache = PT.decode_step(model, cache, {
+            "tokens": batch["tokens"][:, t:t + 1], "step": t})
+        torch.testing.assert_close(lg[:, 0], full[:, t], rtol=0, atol=1e-4)
+    with pytest.raises(ValueError, match="outside"):
+        PT.decode_step(model, cache, {"tokens": batch["tokens"][:, :1],
+                                      "step": 12})
+
+
+def test_sampled_serve_step_is_seeded_by_step():
+    cfg = get_config("gemma-7b", smoke=True)
+    model = PT.init_model(cfg, seed=1, dtype=torch.float32, device="cpu")
+    serve = build_serve_step(cfg, sample="temperature")
+    tok = concrete_batch(cfg, 3, 1, device="cpu")["tokens"]
+    draws = []
+    for _ in range(2):
+        cache = PT.init_cache(cfg, 3, 4, torch.float32, device="cpu")
+        nxt, _ = serve(model, cache, {"tokens": tok, "step": 0})
+        draws.append(nxt)
+    assert torch.equal(draws[0], draws[1])
+    assert draws[0].shape == (3,) and int(draws[0].max()) < cfg.vocab_size
