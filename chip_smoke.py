@@ -15,8 +15,14 @@ to 0 just before it and read just after:
   datasets, then matrix-free at n=32,560, where no (n, n) tensor may exist;
 * LM serving of granite-8b at full width and depth in bf16 (random weights
   from a seed): prefill of 2 x 4,096 tokens, every attention layer through
-  the flash-attention kernel, then 4 requests served through the KV cache
-  (a 16-token prompt teacher-forced, 32 greedy tokens).
+  the flash-attention kernel's wgmma route, then 4 requests served through
+  the KV cache (a 16-token prompt teacher-forced, 32 greedy tokens).
+
+Two kernels have routes, and every check and path records the one it
+took (``ops.route_counts``): the dense ``smo_chunk`` runs one block a lane
+or, where a time model fitted on the card says it is faster and the lanes'
+state fits in shared memory, many blocks a lane (the size phase); bf16 ``flash_attention`` runs on wgmma + TMA at head dims 64-256
+and on ``mma.sync`` below.
 
 Phases print one JSON line each, with their own seconds; a failing phase
 raises and the script exits non-zero. The last lines are the
@@ -73,14 +79,24 @@ FLASH_CASES = ((64, 32, True, None), (100, 32, False, None),
                (128, 64, True, 24), (96, 16, False, 40), (33, 32, True, None))
 #: granite-8b's prefill attention: (B, H, KV, S, D), causal, bf16
 FLASH_GRANITE = (2, 32, 8, 4096, 128)
-#: bf16 cases beyond the reference's one, on the mma path: the sweep's
-#: shapes (several kv tiles, ragged S, windows), then grouped kv heads read
-#: in place from (B, S, H, D) activations at D=128 with ragged S:
+#: gemma-7b's prefill attention at its context (B, H, KV, S, D), causal
+FLASH_GEMMA = (1, 16, 16, 8192, 256)
+#: bf16 cases beyond the reference's one: the sweep's shapes (several kv
+#: tiles, ragged S, windows; D=16 and 32 on the mma.sync route, D=64 on
+#: wgmma), then grouped kv heads read in place from (B, S, H, D)
+#: activations with ragged S and windows at D=128 and D=256 (wgmma) and
+#: at D=32 (mma.sync):
 #: (B, H, KV, S, D, causal, window)
 FLASH_BF16_CASES = tuple((2, 3, 3, S, D, causal, window)
                          for S, D, causal, window in FLASH_CASES) + (
     (2, 8, 2, 300, 128, True, None), (1, 4, 1, 200, 128, False, 70),
-    (2, 8, 2, 1000, 128, True, 256))
+    (2, 8, 2, 1000, 128, True, 256), (1, 4, 1, 200, 256, False, 70),
+    (2, 8, 2, 1000, 256, True, 256), (2, 4, 2, 256, 32, True, 48))
+#: the dense chunk's crossover sweep: rows, iterations timed on each route
+CHUNK_SWEEP_N = (1000, 2000, 4096, 8192, 16384)
+CHUNK_SWEEP_ITERS = 500
+#: rows of its sweep over lanes (where the plan's blocks a lane shrink)
+CHUNK_LANE_SWEEP_N = (4608, 8192, 32560)
 #: a bf16 output against the plain version in float32 on the same bf16
 #: inputs, row by row: max over rows of max |o - o_f32| / max |o_f32| (a
 #: row being one query's D outputs), so the bar keeps its meaning however
@@ -309,28 +325,143 @@ def phase_kernels(datasets):
     for (name, n), ds in datasets.items():
         chunk_checks += _chunk_checks(ds, 300 if n > 10_000 else 5_000_000)
         torch.cuda.empty_cache()
-    cold = chunk_checks[0]      # heart cold fold 0
-    it, ops_per_elem, n = cold["n_iter"], 10.0, cold["n"]
-    rows = min(2 * it, n)      # rows of K the run reads, each counted once
-    nbytes = 8.0 * (rows * n + 7 * n)
-    t_ops = ops_per_elem * n * it / FP64_FLOPS
-    t_bytes = nbytes / HBM_BPS
-    info["smo_chunk"] = dict(
-        cold, max_abs_err=max(c["max_abs_err"] for c in chunk_checks),
-        bound_ms=1e3 * max(t_ops, t_bytes),
-        bound_by="operations" if t_ops >= t_bytes else "bytes")
+    # each route per iteration, at its main path's largest n: one block at
+    # adult n=1000 (Table 1), many blocks at n=32,560 (the size phase)
+    err = max(c["max_abs_err"] for c in chunk_checks)
+    for name, route in (("smo_chunk", "one_block"),
+                        ("smo_chunk_multi_block", "multi_block")):
+        rec = max((c for c in chunk_checks if c["fold"] == "cold fold 0"
+                   and c["route"] == route), key=lambda c: c["n"])
+        info[name] = dict(rec, max_abs_err=err, ms=rec["ms_per_iter"],
+                          plain_ms=rec["plain_ms_per_iter"],
+                          **_bound(_chunk_iter_bytes(rec["n"], rec["n_iter"]),
+                                   0.0))
+    big = datasets[("adult", SIZE_N - 1)]
+    sweep = _chunk_crossover(big)
+    lane_sweep = _chunk_lane_sweep(big)
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0,
           "rbf_checks": rbf_checks, "rbf_tile_64_vs_32_max_diff": tile_diff,
           "rbf_times": rbf_times, "smo_f_update": fu,
-          "smo_chunk": chunk_checks})
+          "smo_chunk": chunk_checks, "smo_chunk_crossover": sweep,
+          "smo_chunk_lane_sweep": lane_sweep})
     return info
+
+
+def _chunk_iter_bytes(n: int, iters: int) -> float:
+    """Bytes a dense SMO chunk of ``iters`` iterations must move, per
+    iteration: the K_i and K_j rows of each iteration (16 n), and once a
+    chunk the lane's state, alpha, f, y and diag (8 bytes each) and the
+    mask (1 byte) read, alpha and f written (49 n). The state fits on
+    chip, and alpha changes at i and j only."""
+    return 16.0 * n + 49.0 * n / max(iters, 1)
+
+
+def _chunk_crossover(ds):
+    """The two routes of the dense chunk side by side on adult's first n
+    rows, its first tenth held out, CHUNK_SWEEP_ITERS capped WSS-2
+    iterations: bitwise equal, each route's time per iteration (with the
+    lane sweep, what ``smo_chunk.ONE_BLOCK_US`` and ``MULTI_BLOCK_US`` were
+    fitted to), the faster, and the route ``chunk_route`` picks."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.smo_chunk import chunk_route, multi_block_plan
+    dev = torch.device("cuda")
+    zero_it, no = torch.tensor(0, device=dev), torch.tensor(False, device=dev)
+    out = []
+    for n in CHUNK_SWEEP_N:
+        X = torch.as_tensor(ds.X[:n], device=dev)
+        y = torch.as_tensor(ds.y[:n], dtype=torch.float64, device=dev)
+        K = ops.rbf_kernel_matrix(X, X, ds.gamma)
+        mask = torch.ones(n, dtype=torch.bool, device=dev)
+        mask[:n // 10] = False           # fold 0 of 10 at this n
+        cap = CHUNK_SWEEP_ITERS
+        args = (K, torch.diagonal(K).contiguous(), y, mask, ds.C, 1e-3,
+                cap, cap + 1, "2", torch.zeros_like(y), -y, zero_it, no)
+        res = {r: ops.smo_chunk(*args, _route=r)
+               for r in ("one_block", "multi_block")}
+        for a, b, what in zip(*res.values(), ("alpha", "f", "n_iter",
+                                              "done")):
+            require(torch.equal(a, b), f"smo_chunk n={n}: the routes' {what} "
+                                       "differ")
+        it = int(res["one_block"][2])
+        rec = {"n": n, "n_iter": it,
+               "route": chunk_route(n, multi_block_plan(n, 1)[0])}
+        for r in res:
+            ms = cuda_ms(lambda: ops.smo_chunk(*args, _route=r), 3)
+            rec[f"us_per_iter_{r}"] = 1e3 * ms / it
+        rec["faster"] = min(res, key=lambda r: rec[f"us_per_iter_{r}"])
+        out.append(rec)
+        del K
+    return out
+
+
+def _chunk_lane_sweep(ds):
+    """The two routes of the dense chunk over b lanes (lane l holds out
+    adult's tenth l mod 10), CHUNK_SWEEP_ITERS capped WSS-2 iterations, at
+    each n of CHUNK_LANE_SWEEP_N: b = 1, 4, 16 and the widest batch the
+    multi-block plan still places (its lanes' state fills the card's
+    shared memory, so few blocks a lane), bitwise equal lane by lane; then
+    one lane more, which the plan cannot place, so it must route to one
+    block a lane. Each route's time per iteration, the faster, and the
+    plan's blocks a lane (what ``chunk_route`` decides from)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.smo_chunk import chunk_route, multi_block_plan
+    dev = torch.device("cuda")
+    out = []
+    for n in CHUNK_LANE_SWEEP_N:
+        widest = 1
+        while multi_block_plan(n, widest + 1)[0] >= 1:
+            widest += 1
+        X = torch.as_tensor(ds.X[:n], device=dev)
+        y = torch.as_tensor(ds.y[:n], dtype=torch.float64, device=dev)
+        K = ops.rbf_kernel_matrix(X, X, ds.gamma)
+        diag = torch.diagonal(K).contiguous()
+        for b in sorted({1, 4, 16, widest, widest + 1}):
+            masks = torch.ones((b, n), dtype=torch.bool, device=dev)
+            for l in range(b):
+                masks[l, (l % 10) * (n // 10):(l % 10 + 1) * (n // 10)] = False
+            cap = CHUNK_SWEEP_ITERS
+            lanes = (K, diag, y, masks, [ds.C] * b, 1e-3, [cap] * b, cap + 1,
+                     "2", torch.zeros((b, n), dtype=torch.float64,
+                                      device=dev),
+                     -y.repeat(b, 1), torch.zeros(b, dtype=torch.int64,
+                                                  device=dev),
+                     torch.zeros(b, dtype=torch.bool, device=dev))
+            m = multi_block_plan(n, b)[0]
+            before = ops.route_counts()["smo_chunk"]
+            res = {"auto": ops.smo_chunk_lanes(*lanes)}
+            route = _route_taken(before, ops.route_counts()["smo_chunk"])
+            require(route == chunk_route(n, m), f"smo_chunk n={n} b={b}: "
+                    f"took {route}, chunk_route says {chunk_route(n, m)}")
+            require((m >= 1) == (b <= widest), f"smo_chunk n={n} b={b}: "
+                    f"{m} blocks a lane, {widest} lanes the widest placed")
+            routes = ("one_block", "multi_block") if m >= 1 else ("one_block",)
+            rec = {"n": n, "b": b, "blocks_per_lane": m, "route": route,
+                   "widest_multi_block": widest}
+            for r in routes:
+                got = ops.smo_chunk_lanes(*lanes, _route=r)
+                for a, w, what in zip(got, res["auto"], ("alpha", "f",
+                                                         "n_iter", "done")):
+                    require(torch.equal(a, w), f"smo_chunk n={n} b={b}: {r}"
+                                               f"'s {what} differ")
+                require(bool(got[3].all()) and int(got[2].min()) == cap,
+                        f"smo_chunk n={n} b={b}: {r} stopped short of the cap")
+                ms = cuda_ms(lambda: ops.smo_chunk_lanes(*lanes, _route=r), 3)
+                rec[f"us_per_iter_{r}"] = 1e3 * ms / cap
+            rec["faster"] = min(routes, key=lambda r: rec[f"us_per_iter_{r}"])
+            out.append(rec)
+            del lanes, res, masks
+        del K, diag
+        torch.cuda.empty_cache()
+    return out
 
 
 def _chunk_checks(ds, it_cap: int):
     """smo_chunk against the plain step engine (its f-update through the
     smo_f_update kernel) on ``ds``'s cold fold 0 and SIR-seeded fold 1:
-    alpha, f, n_iter and done must be bitwise equal. At heart's size also
-    checks that ``chunk_iters=512`` equals one chunk."""
+    alpha, f, n_iter and done must be bitwise equal. Where the route is
+    multi-block (n=32,560) also bitwise against the one-block kernel and
+    against its own replay from a CUDA graph. At
+    heart's size also checks that ``chunk_iters=512`` equals one chunk."""
     from repro_torch.core.cv import _fold_masks, _transition_idx
     from repro_torch.core.seeding import sir_seed
     from repro_torch.data.svm_suite import kfold_chunks
@@ -356,7 +487,9 @@ def _chunk_checks(ds, it_cap: int):
                                   update_f=ops.smo_f_update)
         sync()
         plain_s = time.perf_counter() - t
+        before = ops.route_counts()["smo_chunk"]
         got = ops.smo_chunk(*args, alpha0, f0, zero_it, no)
+        route = _route_taken(before, ops.route_counts()["smo_chunk"])
         err = max(float((got[k] - plain[k]).abs().max()) for k in (0, 1))
         for a, b, what in zip(got, plain, ("alpha", "f", "n_iter", "done")):
             require(torch.equal(a, b), f"smo_chunk n={n} {label}: {what} "
@@ -365,9 +498,39 @@ def _chunk_checks(ds, it_cap: int):
         ms = cuda_ms(lambda: ops.smo_chunk(*args, alpha0, f0, zero_it, no),
                      3)
         it = int(got[2])
-        checks.append({"fold": label, "n": n, "it_cap": it_cap,
-                       "n_iter": it, "ms": ms, "plain_ms": 1e3 * plain_s,
-                       "us_per_iter": 1e3 * ms / it, "max_abs_err": err})
+        rec = {"fold": label, "n": n, "it_cap": it_cap, "route": route,
+               "n_iter": it, "ms": ms, "plain_ms": 1e3 * plain_s,
+               "ms_per_iter": ms / it, "plain_ms_per_iter": 1e3 * plain_s / it,
+               "us_per_iter": 1e3 * ms / it, "max_abs_err": err}
+        if route == "multi_block":
+            # the route against the one-block kernel, bitwise
+            one = ops.smo_chunk(*args, alpha0, f0, zero_it, no,
+                                _route="one_block")
+            for a, b, what in zip(got, one, ("alpha", "f", "n_iter",
+                                             "done")):
+                require(torch.equal(a, b), f"smo_chunk n={n} {label}: {what}"
+                                           " differs from the one-block "
+                                           "kernel")
+            rec["us_per_iter_one_block"] = 1e3 * cuda_ms(
+                lambda: ops.smo_chunk(*args, alpha0, f0, zero_it, no,
+                                      _route="one_block"), 3) / it
+            # and captured in a CUDA graph (C and the cap on the device)
+            lanes = (K, diag, y, mask[None],
+                     torch.full((1,), ds.C, dtype=torch.float64, device=dev),
+                     1e-3, torch.full((1,), it_cap, device=dev), it_cap + 1,
+                     "2", alpha0[None], f0[None], zero_it.reshape(1),
+                     no.reshape(1))
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                out = ops.smo_chunk_lanes(*lanes)
+            graph.replay()
+            sync()
+            require(all(torch.equal(a[0], b) for a, b in zip(out, got)),
+                    f"smo_chunk n={n} {label}: the graph's replay differs")
+            del graph, out
+            rec["us_per_iter_graph"] = 1e3 * graph_ms(
+                lambda: ops.smo_chunk_lanes(*lanes), 3) / it
+        checks.append(rec)
 
     zeros = torch.zeros(n, dtype=torch.float64, device=dev)
     compare("cold fold 0", masks[0], zeros, -y)
@@ -384,6 +547,14 @@ def _chunk_checks(ds, it_cap: int):
     alpha1 = sir_seed(K, y, ds.C, prev, S, R, T)
     compare("sir fold 1", masks[1], alpha1, init_f(K, y, alpha1))
     return checks
+
+
+def _route_taken(before: dict, after: dict) -> str:
+    """The one route whose launch count grew between two ``route_counts``
+    readings of one kernel."""
+    grew = [r for r in after if after[r] != before[r]]
+    require(len(grew) == 1, f"expected launches on one route, got {grew}")
+    return grew[0]
 
 
 def phase_table1(build_s: float):
@@ -427,11 +598,12 @@ def phase_table1(build_s: float):
 
 def phase_size(ds, n_sir_folds: int = 2):
     """Adult at the paper's cardinality: K by the RBF kernel (checked on a
-    slab of rows), cold fold 0, then SIR-seeded folds."""
+    slab of rows), cold fold 0, then SIR-seeded folds, each with the route
+    its chunk took and its time per iteration."""
     from repro_torch.core.cv import _eval_fold, _fold_masks, _transition_idx
     from repro_torch.core.seeding import sir_seed
     from repro_torch.data.svm_suite import kfold_chunks
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ops, ref
     from repro_torch.svm import init_f, kernel_matrix, smo_solve
     t0 = time.perf_counter()
     dev = torch.device("cuda")
@@ -461,14 +633,17 @@ def phase_size(ds, n_sir_folds: int = 2):
             f0 = init_f(K, y, alpha0)
         sync()
         t1 = time.perf_counter()
+        before = ops.route_counts()["smo_chunk"]
         res = smo_solve(K, y, masks[h], ds.C, alpha0, f0, max_iter=5_000_000)
         it = int(res.n_iter)
         t2 = time.perf_counter()
+        route = _route_taken(before, ops.route_counts()["smo_chunk"])
         correct, total, obj = _eval_fold(K, y, chunks, h, res, ds.C)
         require(bool(res.converged) and math.isfinite(obj),
                 f"size fold {h}: converged={bool(res.converged)} obj={obj}")
         folds.append({"fold": h, "seed": "cold" if prev is None else "sir",
-                      "n_iter": it, "init_s": t1 - ts, "solve_s": t2 - t1,
+                      "route": route, "n_iter": it, "init_s": t1 - ts,
+                      "solve_s": t2 - t1,
                       "us_per_iter": 1e6 * (t2 - t1) / max(it, 1),
                       "accuracy": correct / total, "objective": obj})
         prev = res
@@ -867,27 +1042,37 @@ def flash_bf16_ok(rec: dict) -> bool:
 
 
 def flash_bf16_check(q, k, v, causal=True, window=None) -> dict:
-    """``flash_bf16_errors`` of one launch of the kernel; raises unless
-    ``flash_bf16_ok``."""
+    """``flash_bf16_errors`` of one launch of the kernel, with the route it
+    took; raises unless ``flash_bf16_ok`` and the route is the one
+    ``route`` names for the head dim."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import route
+    before = ops.route_counts()["flash_attention"]
     got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    took = _route_taken(before, ops.route_counts()["flash_attention"])
     rec = flash_bf16_errors(got, q, k, v, causal, window)
     require(flash_bf16_ok(rec), f"flash_attention bf16 {tuple(q.shape)} "
             f"causal={causal} window={window}: {rec}")
-    return rec
+    require(took == route(q.dtype, q.shape[-1]),
+            f"flash_attention bf16 D={q.shape[-1]} took the {took} route")
+    return {"route": took, **rec}
 
 
 def phase_flash():
     """flash_attention against its plain version on the card: the
-    reference's sweep in f32 (atol 2e-5) and its bf16 case (0.06); the
-    sweep's shapes and three with grouped kv heads at D=128 in bf16
-    (FLASH_BF16_CASES), each also within 0.06 of the plain version in
-    bf16; then granite-8b's prefill shape with grouped kv heads, read in
-    place from (B, S, H, D) activations. Every bf16 case is held to the
-    plain version run in float32 on the same bf16 inputs, row by row
+    reference's sweep in f32 (atol 2e-5, the FMA route) and its bf16 case
+    (0.06); the sweep's shapes and six with grouped kv heads at D=32, 128
+    and 256 in bf16 (FLASH_BF16_CASES), each also within 0.06 of the plain
+    version in bf16; then granite-8b's and gemma-7b's prefill shapes,
+    granite's with grouped kv heads, read in place from (B, S, H, D)
+    activations. Every bf16 case is held to the plain version run in
+    float32 on the same bf16 inputs, row by row
     (``flash_bf16_check``). Then the kernel's time, the plain version's
     (bf16), ``F.scaled_dot_product_attention``'s on broadcast K/V (the
-    yardstick, never called by the port) and the bound."""
+    yardstick, never called by the port) and the bound, there and at
+    gemma-7b's prefill shape; and the mma.sync route's time at both, the
+    wgmma route's predecessor. Every bf16 case also shows the route it
+    took (wgmma at D >= 64, mma.sync below)."""
     from repro_torch.kernels import ops, ref
     t0 = time.perf_counter()
     dev = torch.device("cuda")
@@ -897,14 +1082,16 @@ def phase_flash():
         q, k, v = (torch.as_tensor(rng.normal(size=(2, 3, S, D)),
                                    dtype=torch.float32, device=dev)
                    for _ in range(3))
+        before = ops.route_counts()["flash_attention"]
         got = ops.flash_attention(q, k, v, causal=causal, window=window)
+        took = _route_taken(before, ops.route_counts()["flash_attention"])
         want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
         err = float((got - want).abs().max())
-        require(math.isfinite(err) and err <= 2e-5,
+        require(math.isfinite(err) and err <= 2e-5 and took == "fma",
                 f"flash_attention S={S} D={D} causal={causal} "
-                f"window={window} f32: err {err} > 2e-5")
+                f"window={window} f32: err {err} > 2e-5, or route {took}")
         checks.append({"shape": [2, 3, S, D], "causal": causal,
-                       "window": window, "dtype": "float32",
+                       "window": window, "dtype": "float32", "route": took,
                        "max_abs_err": err})
     for B, H, KV, S, D, causal, window in ((1, 2, 2, 64, 32, True, None),) \
             + FLASH_BF16_CASES:
@@ -922,39 +1109,49 @@ def phase_flash():
         checks.append({"shape": [B, H, KV, S, D], "causal": causal,
                        "window": window, "dtype": "bfloat16", **rec})
 
-    B, H, KV, S, D = FLASH_GRANITE
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-    q, k, v = (torch.randn((B, S, h, D), generator=gen, device=dev,
-                           dtype=torch.bfloat16).transpose(1, 2)
-               for h in (H, KV, KV))
-    granite = flash_bf16_check(q, k, v)
-    torch.cuda.empty_cache()
-    got = ops.flash_attention(q, k, v)
-    ms = cuda_ms(lambda: ops.flash_attention(q, k, v), 5)
-    plain_ms = cuda_ms(lambda: ref.flash_attention_ref(q, k, v), 2)
-    torch.cuda.empty_cache()
-    qc = q.contiguous()
-    kb, vb = (t.repeat_interleave(H // KV, dim=1).contiguous() for t in (k, v))
+    shapes = {}
+    for name, (B, H, KV, S, D) in (("granite-8b", FLASH_GRANITE),
+                                   ("gemma-7b", FLASH_GEMMA)):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        q, k, v = (torch.randn((B, S, h, D), generator=gen, device=dev,
+                               dtype=torch.bfloat16).transpose(1, 2)
+                   for h in (H, KV, KV))
+        check = flash_bf16_check(q, k, v)
+        torch.cuda.empty_cache()
+        got = ops.flash_attention(q, k, v)
+        ms = cuda_ms(lambda: ops.flash_attention(q, k, v), 20, 3)
+        mma_ms = cuda_ms(lambda: ops.flash_attention(q, k, v, _route="mma"),
+                         5)
+        plain_ms = cuda_ms(lambda: ref.flash_attention_ref(q, k, v), 2)
+        torch.cuda.empty_cache()
+        qc = q.contiguous()
+        kb, vb = (t.repeat_interleave(H // KV, dim=1).contiguous()
+                  for t in (k, v))
 
-    def library():
-        return torch.nn.functional.scaled_dot_product_attention(
-            qc, kb, vb, is_causal=True)
-    library_ms = cuda_ms(library, 10)
-    lib_diff = float((library().float() - got.float()).abs().max())
-    pairs = S * (S + 1) // 2          # (query, visible key) pairs, causal
-    rec = dict(shape=[B, H, KV, S, D], ms=ms, plain_ms=plain_ms,
-               library_ms=library_ms, library_max_abs_diff=lib_diff,
-               row_rel_err=granite["row_rel_err"],
-               plain_row_rel_err=granite["plain_row_rel_err"],
-               max_abs_err_vs_f32_plain=granite["max_abs_err"],
-               max_abs_err=max([c["max_abs_err"] for c in checks]
-                               + [granite["max_abs_err"]]),
-               tflops=4.0 * B * H * D * pairs / ms / 1e9,
-               **_bound(2.0 * (2 * B * H * S * D + 2 * B * KV * S * D),
-                        4.0 * B * H * D * pairs, BF16_FLOPS))
+        def library():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qc, kb, vb, is_causal=True)
+        library_ms = cuda_ms(library, 20, 3)
+        lib_diff = float((library().float() - got.float()).abs().max())
+        del qc, kb, vb, got
+        torch.cuda.empty_cache()
+        pairs = S * (S + 1) // 2          # (query, visible key) pairs
+        shapes[name] = dict(
+            shape=[B, H, KV, S, D], route=check["route"], ms=ms,
+            mma_route_ms=mma_ms, plain_ms=plain_ms, library_ms=library_ms,
+            library_max_abs_diff=lib_diff, row_rel_err=check["row_rel_err"],
+            plain_row_rel_err=check["plain_row_rel_err"],
+            max_abs_err_vs_f32_plain=check["max_abs_err"],
+            tflops=4.0 * B * H * D * pairs / ms / 1e9,
+            **_bound(2.0 * (2 * B * H * S * D + 2 * B * KV * S * D),
+                     4.0 * B * H * D * pairs, BF16_FLOPS))
+        del q, k, v
+    rec = dict(shapes["granite-8b"], max_abs_err=max(
+        [c["max_abs_err"] for c in checks]
+        + [r["max_abs_err_vs_f32_plain"] for r in shapes.values()]))
     emit({"phase": "kernels_flash", "seconds": time.perf_counter() - t0,
-          "checks": checks, "granite": rec})
+          "checks": checks, "granite": rec, "gemma": shapes["gemma-7b"]})
     return rec
 
 
@@ -1018,7 +1215,8 @@ def phase_serve_lm(flash_ms: float):
     where it has a choice of keys the model amplifies a rounding
     difference from layer to layer until, after 36 layers, two float32
     routes disagree at the scale of the logits themselves.
-    Returns the main path's launch counts."""
+    Returns the main path's launch counts and route counts; every prefill
+    launch must take the wgmma route."""
     import copy
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
@@ -1085,7 +1283,12 @@ def phase_serve_lm(flash_ms: float):
         step_s.append(time.perf_counter() - ts)
         out.append(tok)
     main_counts = ops.launch_counts()
+    main_routes = ops.route_counts()
     # ---- end of the main path
+    require(main_routes["flash_attention"] == {
+        "fma": 0, "mma": 0, "wgmma": 2 * cfg.n_layers},
+        f"serve_lm: the prefills' attention took routes "
+        f"{main_routes['flash_attention']}, want wgmma for all 72")
 
     require(tuple(logits.shape) == (PREFILL_B, 1, cfg.vocab_size),
             f"serve_lm: prefill logits {tuple(logits.shape)}")
@@ -1174,6 +1377,7 @@ def phase_serve_lm(flash_ms: float):
            "decode_tokens_per_s": SERVE_B / (decode_ms / 1e3),
            "serve_peak_gb": serve_peak / 1e9,
            "main_path_launches": main_counts,
+           "main_path_routes": main_routes,
            "profile_prefill": prof_prefill, "profile_decode_8_steps":
                prof_decode,
            "first_tokens": generated[0, :16].tolist(),
@@ -1218,7 +1422,7 @@ def phase_serve_lm(flash_ms: float):
             f"position 0 by {pos_bf16[0]} (bf16) / {pos_f32[0]} (f32)")
     del model, cache
     torch.cuda.empty_cache()
-    return main_counts
+    return main_counts, main_routes
 
 
 def main() -> int:
@@ -1238,26 +1442,38 @@ def main() -> int:
     phase_lane_chunks(datasets)
 
     # each path: counts from 0 just before it, read just after
-    counts = {}
+    counts, routes = {}, {}
     ops.reset_launch_counts()
     cold_folds = phase_table1(build_s)
-    counts["table1"] = ops.launch_counts()
+    counts["table1"], routes["table1"] = (ops.launch_counts(),
+                                          ops.route_counts())
     ops.reset_launch_counts()
     phase_table1_batched(cold_folds)
-    counts["table1_batched"] = ops.launch_counts()
+    counts["table1_batched"], routes["table1_batched"] = (
+        ops.launch_counts(), ops.route_counts())
     ops.reset_launch_counts()
     dense_accs = phase_size(datasets[("adult", SIZE_N - 1)])
-    counts["size"] = ops.launch_counts()
+    counts["size"], routes["size"] = ops.launch_counts(), ops.route_counts()
     ops.reset_launch_counts()
     phase_size_matrix_free(datasets[("adult", SIZE_N - 1)], dense_accs)
-    counts["size_matrix_free"] = ops.launch_counts()
+    counts["size_matrix_free"], routes["size_matrix_free"] = (
+        ops.launch_counts(), ops.route_counts())
     # the serving path resets and reads the counts around its main path
     # itself: its checks that follow launch the kernel too
-    counts["serve_lm"] = phase_serve_lm(info["flash_attention"]["ms"])
+    counts["serve_lm"], routes["serve_lm"] = phase_serve_lm(
+        info["flash_attention"]["ms"])
     emit({"phase": "kernel_counts", **counts})
+    emit({"phase": "route_counts", **routes})
     for name in ("rbf_kernel_matrix", "smo_f_update", "smo_chunk"):
         require(counts["table1"][name] > 0,
                 f"{name} was not launched on the Table-1 path")
+    # heart and adult n=1000 stay one block a lane; n=32,560 spreads
+    require(routes["table1"]["smo_chunk"]["multi_block"] == 0
+            and routes["table1_batched"]["smo_chunk"]["multi_block"] == 0,
+            "the dense chunk took the multi-block route at n <= 1,000")
+    require(routes["size"]["smo_chunk"]["multi_block"] > 0
+            and routes["size"]["smo_chunk"]["one_block"] == 0,
+            "the size path's chunk did not take the multi-block route")
     for name in ("rbf_kernel_matrix", "smo_chunk", "fused_smo_step",
                  "smo_select"):
         require(counts["table1_batched"][name] > 0,
@@ -1282,6 +1498,9 @@ def main() -> int:
                                 "table1"),
                "smo_chunk": (csrc + "smo_chunk.cu",
                              "src/repro/svm/engine.py:566", "table1"),
+               "smo_chunk_multi_block": (csrc + "smo_chunk.cu",
+                                         "src/repro/svm/engine.py:566",
+                                         "size"),
                "fused_smo_step": (csrc + "smo_step.cu",
                                   "src/repro/kernels/smo_step.py:67",
                                   "table1_batched"),
@@ -1291,15 +1510,24 @@ def main() -> int:
                "flash_attention": (csrc + "flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:71",
                                    "serve_lm")}
+    # the dense chunk's two routes are two kernels, each counted on its own
+    # path; flash_attention's routes are listed beside its launches
+    launches = {name: counts[path].get(name) for name, (_, _, path)
+                in sources.items()}
+    launches["smo_chunk"] = routes["table1"]["smo_chunk"]["one_block"]
+    launches["smo_chunk_multi_block"] = (
+        routes["size"]["smo_chunk"]["multi_block"])
     kernels = []
     for name, (src, replaces, path) in sources.items():
         k = info[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": counts[path][name],
+            "replaces": replaces, "launches": launches[name],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k.get("library_ms")})
+        if name == "flash_attention":
+            kernels[-1]["routes"] = routes[path]["flash_attention"]
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "build_s": build_s, "card": card})
     print(json.dumps({"kernels": kernels}), flush=True)

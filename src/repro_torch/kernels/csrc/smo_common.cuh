@@ -1,10 +1,11 @@
 // Device helpers shared by the SMO kernels (smo_update.cu, smo_chunk.cu,
 // smo_step.cu).
 //
-// Every kernel of the port is compiled with -fmad=false, so nvcc contracts
-// nothing on its own: the one fused multiply-add below is the rounding the
-// JAX reference gets from XLA-CPU for f + delta * (K_i - K_j), and every other
-// expression rounds op by op, as the plain PyTorch versions do.
+// Every SMO source is compiled with -fmad=false (kernels/_build.py), so
+// nvcc contracts nothing on its own: the one fused multiply-add below is
+// the rounding the JAX reference gets from XLA-CPU for
+// f + delta * (K_i - K_j), and every other expression rounds op by op, as
+// the plain PyTorch versions do.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -163,16 +164,29 @@ __device__ __forceinline__ double select_pass1(Scratch& s, const double* alpha,
 // The clipped two-variable step from the pair's scalars, alpha_i and alpha_j
 // written in the reference's order (j == i sees the new alpha_i). Returns
 // delta. Run by one thread.
-__device__ __forceinline__ double pair_update(double* alpha, const double* f,
-                                              const double* y, int i, int j,
-                                              double eta_ij, double C) {
-  const double f_i = f[i], f_j = f[j], a_i = alpha[i], a_j = alpha[j];
-  const double y_i = y[i], y_j = y[j];
+// The same step from the pair's scalars alone: the new alpha_i and alpha_j
+// (alpha_j after alpha_i, so j == i sees the new alpha_i) and delta.
+__device__ __forceinline__ double pair_step(double f_i, double f_j,
+                                            double a_i, double a_j,
+                                            double y_i, double y_j, bool same,
+                                            double eta_ij, double C,
+                                            double& new_i, double& new_j) {
   double delta = (f_j - f_i) / eta_ij;
   const double hi_i = y_i > 0.0 ? C - a_i : a_i;
   const double hi_j = y_j > 0.0 ? a_j : C - a_j;
   delta = nan_max(nan_min(nan_min(delta, hi_i), hi_j), 0.0);
-  alpha[i] = a_i + y_i * delta;
-  alpha[j] = alpha[j] + (-y_j) * delta;
+  new_i = a_i + y_i * delta;
+  new_j = (same ? new_i : a_j) + (-y_j) * delta;
+  return delta;
+}
+
+__device__ __forceinline__ double pair_update(double* alpha, const double* f,
+                                              const double* y, int i, int j,
+                                              double eta_ij, double C) {
+  double new_i, new_j;
+  const double delta = pair_step(f[i], f[j], alpha[i], alpha[j], y[i], y[j],
+                                 i == j, eta_ij, C, new_i, new_j);
+  alpha[i] = new_i;
+  alpha[j] = new_j;
   return delta;
 }

@@ -7,7 +7,9 @@ on a CUDA tensor (or raises) and runs its plain PyTorch version
 lanes; ``smo_stream_chunk`` adds its launches of the WSS-1 selection kernel
 to ``smo_select`` and of the fused step to ``fused_smo_step``.
 ``flash_attention`` counts one per launch (one per prefill attention layer
-on the LM serving path).
+on the LM serving path). ``route_counts`` splits the two kernels that have
+routes: ``smo_chunk`` (one_block / multi_block) and ``flash_attention``
+(wgmma / mma / fma).
 """
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rbf import rbf_kernel_matrix
@@ -19,7 +21,7 @@ from repro_torch.kernels.smo_update import smo_f_update
 __all__ = ["rbf_kernel_matrix", "smo_f_update", "smo_chunk",
            "smo_chunk_lanes", "smo_stream_chunk", "smo_select",
            "fused_smo_step", "flash_attention",
-           "launch_counts", "reset_launch_counts"]
+           "launch_counts", "reset_launch_counts", "route_counts"]
 
 #: kernel name -> the wrapper that carries its count
 KERNELS = {"rbf_kernel_matrix": rbf_kernel_matrix,
@@ -35,6 +37,17 @@ def launch_counts() -> dict[str, int]:
     return {name: w.launches for name, w in KERNELS.items()}
 
 
+#: the wrappers whose launches split into routes
+ROUTED = {"smo_chunk": smo_chunk, "flash_attention": flash_attention}
+
+
+def route_counts() -> dict[str, dict[str, int]]:
+    """{kernel name: {route: launches since the last reset}}."""
+    return {name: dict(w.route_launches) for name, w in ROUTED.items()}
+
+
 def reset_launch_counts() -> None:
     for w in KERNELS.values():
         w.launches = 0
+    for w in ROUTED.values():
+        w.route_launches = dict.fromkeys(w.route_launches, 0)

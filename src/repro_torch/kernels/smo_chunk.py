@@ -4,7 +4,11 @@
 
 * ``smo_chunk`` / ``smo_chunk_lanes`` — a dense K, built from
   ``csrc/smo_chunk.cu``: up to ``n_iters`` iterations for every lane in ONE
-  launch, one thread block per lane.
+  launch. Two routes (``chunk_route``, the faster by a time model fitted
+  on the card): one thread block per lane, or each lane over many blocks
+  of one cooperative launch, its state held in their shared memory (only
+  while every lane's state fits the card's shared memory at once).
+  ``smo_chunk.launches`` counts both, ``smo_chunk.route_launches`` each.
 * ``smo_stream_chunk`` — a row-streaming RBF source (X, no K), built from
   ``csrc/smo_step.cu``: up to ``n_iters`` (``smo_select``,
   ``fused_smo_step``) launch pairs over all lanes, issued by one host call
@@ -19,6 +23,7 @@ untouched and the new state comes back as new tensors.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -28,6 +33,28 @@ from repro_torch.kernels.smo_step import fused_smo_step
 
 _P, _LL, _D, _I = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_double,
                    ctypes.c_int)
+#: an iteration's time on each route, in us: floor + slope x the rows each
+#: thread handles (one block a lane: 1,024 threads; multi-block: 256 a
+#: block, m blocks a lane), fitted to chip_smoke.py's crossover and lane
+#: sweeps on an H100 (PERF.md §6). Spread over blocks, a lane pays two
+#: barriers across blocks a step (the floor) but shares its rows out.
+ONE_BLOCK_US = (2.9, 1.52)
+MULTI_BLOCK_US = (8.1, 1.4)
+ROUTES = ("one_block", "multi_block")
+
+
+def chunk_route(n: int, m: int) -> str:
+    """The dense chunk's route over n rows: the faster by ``ONE_BLOCK_US``
+    and ``MULTI_BLOCK_US``, where ``m`` is the blocks a lane that
+    ``multi_block_plan`` gives the launch's lanes (0: their state does not
+    fit the card's shared memory, so they keep one block each). At one
+    lane the multi-block route wins from about n = 4,450 on; wide batches
+    leave it few blocks a lane, and so large slices."""
+    if m < 1:
+        return "one_block"
+    one = ONE_BLOCK_US[0] + ONE_BLOCK_US[1] * n / 1024
+    multi = MULTI_BLOCK_US[0] + MULTI_BLOCK_US[1] * -(-n // m) / 256
+    return "multi_block" if multi < one else "one_block"
 
 
 def _lane_args(dev, b, n, masks, Cs, it_caps, alphas, fs, n_iter, done,
@@ -67,11 +94,13 @@ def _lanes_ref(one, masks, Cs, it_caps, alphas, fs, n_iter, done):
 
 
 def smo_chunk_lanes(K, diag, y, masks, Cs, tol, it_caps, n_iters, wss,
-                    alphas, fs, n_iter, done):
+                    alphas, fs, n_iter, done, _route=None):
     """Up to ``n_iters`` dense SMO iterations for each of b lanes over one
     K (n, n) float64. masks, alphas, fs (b, n); Cs, it_caps, n_iter, done
     (b,). Returns the new ``(alphas, fs, n_iter, done)``. A lane is bitwise
-    the same whatever the other lanes of the launch."""
+    the same whatever the other lanes of the launch, and on either route.
+    ``_route`` ("one_block" or "multi_block") overrides ``chunk_route``,
+    to check and time the routes against each other."""
     if wss not in ("1", "2"):
         raise ValueError(f"smo_chunk: wss must be '1' or '2', got {wss!r}")
     if K.device.type == "cpu":
@@ -93,19 +122,54 @@ def smo_chunk_lanes(K, diag, y, masks, Cs, tol, it_caps, n_iters, wss,
     masks, Cs, it_caps, alphas, fs, n_iter, done = _lane_args(
         K.device, b, n, masks, Cs, it_caps, alphas, fs, n_iter, done)
     K, diag, y = K.contiguous(), diag.contiguous(), y.contiguous()
-    fn = _build.entry("smo_chunk", "smo_chunk_f64", _P, _P, _P, _P, _P, _D,
-                      _P, _LL, _I, _P, _P, _P, _P, _I, _I, _P)
-    err = fn(K.data_ptr(), diag.data_ptr(), y.data_ptr(), masks.data_ptr(),
-             Cs.data_ptr(), float(tol), it_caps.data_ptr(), int(n_iters),
-             2 if wss == "2" else 1, alphas.data_ptr(), fs.data_ptr(),
-             n_iter.data_ptr(), done.data_ptr(), n, b, _build.stream_ptr(K))
-    _build.check(err, "smo_chunk")
+    if _route not in (None, *ROUTES):
+        raise ValueError(f"smo_chunk: route must be one of {ROUTES}, got "
+                         f"{_route!r}")
+    m, ws_bytes = multi_block_plan(n, b)
+    path = _route or chunk_route(n, m)
+    if path == "multi_block" and m < 1:
+        raise ValueError(f"smo_chunk: the multi-block route cannot place {b}"
+                         f" lanes over {n} rows in this card's shared memory")
+    args = (K.data_ptr(), diag.data_ptr(), y.data_ptr(), masks.data_ptr(),
+            Cs.data_ptr(), float(tol), it_caps.data_ptr(), int(n_iters),
+            2 if wss == "2" else 1, alphas.data_ptr(), fs.data_ptr(),
+            n_iter.data_ptr(), done.data_ptr(), n, b)
+    types = (_P, _P, _P, _P, _P, _D, _P, _LL, _I, _P, _P, _P, _P, _I, _I)
+    if path == "one_block":
+        fn = _build.entry("smo_chunk", "smo_chunk_f64", *types, _P)
+        err = fn(*args, _build.stream_ptr(K))
+    else:
+        # the lanes' barrier counters start at 0 in every launch
+        ws = torch.zeros(ws_bytes, dtype=torch.uint8, device=K.device)
+        fn = _build.entry("smo_chunk", "smo_chunk_multi_f64", *types, _I, _P,
+                          _P)
+        err = fn(*args, m, ws.data_ptr(), _build.stream_ptr(K))
+    _build.check(err, f"smo_chunk ({path})")
     smo_chunk.launches += 1
+    smo_chunk.route_launches[path] += 1
     return alphas, fs, n_iter, done
 
 
+def multi_block_plan(n: int, b: int) -> tuple[int, int]:
+    """The multi-block route's (blocks per lane, workspace bytes) for b
+    lanes over n rows on the current device: the most blocks, up to about
+    256 rows a block, for which each slice fits a block's shared memory and
+    all b * m blocks are resident at once (a cooperative launch); 0 blocks
+    when none fits. Computed once per device, n and b."""
+    return _plan(torch.cuda.current_device(), n, b)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(device: int, n: int, b: int) -> tuple[int, int]:
+    m, ws = ctypes.c_int(0), ctypes.c_longlong(0)
+    fn = _build.entry("smo_chunk", "smo_chunk_multi_plan", _I, _I, _P, _P)
+    _build.check(fn(n, b, ctypes.addressof(m), ctypes.addressof(ws)),
+                 "smo_chunk_multi_plan")
+    return m.value, ws.value
+
+
 def smo_chunk(K, diag, y, mask, C, tol, it_cap, n_iters, wss, alpha, f,
-              n_iter, done):
+              n_iter, done, _route=None):
     """Up to ``n_iters`` dense SMO iterations from ``(alpha, f, n_iter,
     done)`` over K (n, n) float64; returns the new ``(alpha, f, n_iter,
     done)``. ``C``, ``tol``, ``it_cap`` and ``n_iters`` are host scalars.
@@ -115,11 +179,12 @@ def smo_chunk(K, diag, y, mask, C, tol, it_cap, n_iters, wss, alpha, f,
                              alpha, f, n_iter, done)
     out = smo_chunk_lanes(K, diag, y, mask[None], [float(C)], tol,
                           [int(it_cap)], n_iters, wss, alpha[None], f[None],
-                          n_iter.reshape(1), done.reshape(1))
+                          n_iter.reshape(1), done.reshape(1), _route=_route)
     return tuple(t[0] for t in out)
 
 
 smo_chunk.launches = 0
+smo_chunk.route_launches = dict.fromkeys(ROUTES, 0)
 
 
 def smo_stream_chunk(X, sq_norms, gamma, y, masks, Cs, tol, it_caps,

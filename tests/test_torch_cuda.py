@@ -341,3 +341,135 @@ def test_cuda_prefill_goes_through_the_kernel(cuda):
     assert ops.launch_counts()["flash_attention"] - before == cfg.n_layers
     want = prefill_logits(cpu, batch)
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,KV,S,T,D,causal,window", [
+    (2, 8, 2, 300, 300, 64, True, None), (1, 4, 1, 200, 200, 64, False, 70),
+    (2, 8, 2, 300, 300, 128, True, None), (1, 4, 1, 200, 200, 128, False, 70),
+    (2, 8, 2, 1000, 1000, 128, True, 256), (1, 4, 2, 100, 333, 128, False,
+                                            None),
+    (2, 4, 2, 77, 77, 256, True, None), (1, 4, 1, 200, 200, 256, False, 70),
+    (2, 8, 2, 1000, 1000, 256, True, 256),
+])
+def test_cuda_flash_attention_wgmma_route(cuda, B, H, KV, S, T, D, causal,
+                                         window):
+    """The wgmma route at head dims 64, 128 and 256 (ragged S and T,
+    windows, grouped kv heads read through (B, S, H, D) strides) against
+    the plain version in float32 on the same bf16 inputs, row by row
+    (within 0.02 of each row's largest output and twice the bf16 plain
+    version's error), and counted on its route."""
+    q = torch.from_numpy(RNG.normal(size=(B, S, H, D))).to(
+        cuda, torch.bfloat16).transpose(1, 2)
+    k, v = (torch.from_numpy(RNG.normal(size=(B, T, KV, D))).to(
+        cuda, torch.bfloat16).transpose(1, 2) for _ in range(2))
+    before = ops.route_counts()["flash_attention"]["wgmma"]
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert ops.route_counts()["flash_attention"]["wgmma"] == before + 1
+    want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                   causal=causal, window=window)
+    plain = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    err = _row_rel(got, want)
+    assert err <= 0.02 and err <= 2 * _row_rel(plain, want)
+    # the mma.sync route on the same inputs, to the same gate
+    old = ops.flash_attention(q, k, v, causal=causal, window=window,
+                              _route="mma")
+    err = _row_rel(old, want)
+    assert err <= 0.02 and err <= 2 * _row_rel(plain, want)
+
+
+def _multi_problem(cuda, n, b):
+    """adult's first n rows, b lanes, lane l holding out tenth l mod 10."""
+    from repro_torch.data.svm_suite import make_dataset
+    ds = make_dataset("adult", n_override=n)
+    X = torch.from_numpy(ds.X).to(cuda)
+    y = torch.from_numpy(ds.y).to(cuda, torch.float64)
+    K = ops.rbf_kernel_matrix(X, X, ds.gamma)
+    masks = torch.ones((b, n), dtype=torch.bool, device=cuda)
+    for l in range(b):
+        masks[l, (l % 10) * (n // 10):(l % 10 + 1) * (n // 10)] = False
+    state = (torch.zeros((b, n), dtype=torch.float64, device=cuda),
+             -y.repeat(b, 1), torch.zeros(b, dtype=torch.int64, device=cuda),
+             torch.zeros(b, dtype=torch.bool, device=cuda))
+    return ds, K, torch.diagonal(K).contiguous(), y, masks, state
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wss", ["2", "1"])
+def test_cuda_multi_block_chunk_bitwise(cuda, wss):
+    """At n=20,000 (78 blocks a lane) the multi-block route is bitwise the
+    one-block kernel and the plain step engine after a capped run, and
+    three lanes packed are bitwise each lane alone."""
+    n = 20_000
+    ds, K, diag, y, masks, state = _multi_problem(cuda, n, 3)
+    args = (K, diag, y, masks[0], ds.C, 1e-3, 200, 201, wss)
+    one = tuple(t[0] for t in state)
+    before = ops.route_counts()["smo_chunk"]["multi_block"]
+    got = ops.smo_chunk(*args, *one)
+    assert ops.route_counts()["smo_chunk"]["multi_block"] == before + 1
+    assert int(got[2]) == 200 and bool(got[3])
+    for want in (ops.smo_chunk(*args, *one, _route="one_block"),
+                 ref.smo_chunk_ref(*args, *one, update_f=ops.smo_f_update)):
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    caps = [200, 150, 200]
+    packed = ops.smo_chunk_lanes(K, diag, y, masks, [ds.C] * 3, 1e-3, caps,
+                                 201, wss, *state)
+    for l in range(3):
+        alone = ops.smo_chunk(K, diag, y, masks[l], ds.C, 1e-3, caps[l], 201,
+                              wss, *(t[l] for t in state))
+        for a, b in zip(alone, packed):
+            assert torch.equal(a, b[l])
+
+
+@pytest.mark.cuda
+def test_cuda_multi_block_chunk_widest_lanes(cuda):
+    """At n=32,560 the widest batch the multi-block plan still places (the
+    lanes' state fills the card's shared memory, so few blocks a lane)
+    takes that route and is bitwise the one-block kernel lane by lane; one
+    lane more keeps one block a lane, and its lanes are the same."""
+    from repro_torch.kernels.smo_chunk import chunk_route, multi_block_plan
+    n = 32_560
+    b = 1
+    while multi_block_plan(n, b + 1)[0] >= 1:
+        b += 1
+    assert chunk_route(n, multi_block_plan(n, b)[0]) == "multi_block"
+    assert chunk_route(n, multi_block_plan(n, b + 1)[0]) == "one_block"
+    ds, K, diag, y, masks, state = _multi_problem(cuda, n, b + 1)
+    caps = [100 + 3 * l for l in range(b + 1)]
+
+    def run(w, route=None):
+        return ops.smo_chunk_lanes(K, diag, y, masks[:w], [ds.C] * w, 1e-3,
+                                   caps[:w], 200, "2",
+                                   *(t[:w] for t in state), _route=route)
+
+    before = ops.route_counts()["smo_chunk"]
+    got = run(b)
+    assert ops.route_counts()["smo_chunk"]["multi_block"] == \
+        before["multi_block"] + 1
+    assert got[2].tolist() == caps[:b] and bool(got[3].all())
+    for a, w in zip(got, run(b, "one_block")):
+        assert torch.equal(a, w)
+    before = ops.route_counts()["smo_chunk"]
+    wide = run(b + 1)
+    assert ops.route_counts()["smo_chunk"]["one_block"] == \
+        before["one_block"] + 1
+    for a, w in zip(wide, got):
+        assert torch.equal(a[:b], w)
+
+
+@pytest.mark.cuda
+def test_cuda_multi_block_chunk_halts_on_nan(cuda):
+    """A NaN in f on a training row freezes the lane at once on the
+    multi-block route too, like the plain step."""
+    n = 8192
+    ds, K, diag, y, masks, state = _multi_problem(cuda, n, 1)
+    f0 = state[1][0].clone()
+    f0[n - 3] = float("nan")
+    args = (K, diag, y, masks[0], ds.C, 1e-3, 10**6, 10**6, "2",
+            state[0][0], f0, state[2][0], state[3][0])
+    got = ops.smo_chunk(*args, _route="multi_block")
+    plain = ref.smo_chunk_ref(*args, update_f=ops.smo_f_update)
+    assert int(got[2]) == int(plain[2]) == 0 and bool(got[3])
+    assert torch.equal(got[0], plain[0])
+    assert torch.equal(got[1].isnan(), plain[1].isnan())

@@ -1,5 +1,6 @@
-"""Import rule of the port: no module of ``src/repro_torch/`` and not
-``chip_smoke.py`` imports jax or the JAX package ``repro``; and every entry
+"""Import rule of the port: no module of ``src/repro_torch/``, and neither
+``chip_smoke.py`` nor ``chip_flash_mutants.py``, imports jax or the JAX
+package ``repro``; and every entry
 point defaults to ``cuda``, raising without a GPU unless given
 ``device="cpu"``."""
 import ast
@@ -10,7 +11,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py"]
+    + [ROOT / "chip_smoke.py", ROOT / "chip_flash_mutants.py"]
 
 
 def _imported(tree):

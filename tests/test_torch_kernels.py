@@ -203,3 +203,100 @@ def test_select_then_fused_step_is_one_streaming_step():
         assert torch.equal(a[l], want[0]) and torch.equal(f[l], want[1])
     for l in (2, 3):
         assert torch.equal(a[l], alphas[l]) and torch.equal(f[l], fs[l])
+
+
+# ---- the routes of the redesigned kernels, and the wrappers' checks ----
+
+@pytest.mark.parametrize("D", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_route(dtype, D):
+    """float32 runs on FMA; bf16 on wgmma from the 64-column panel up,
+    on mma.sync below it."""
+    from repro_torch.kernels.flash_attention import route
+    want = ("fma" if dtype == torch.float32
+            else "wgmma" if D >= 64 else "mma")
+    assert route(dtype, D) == want
+
+
+@pytest.mark.parametrize("n,m,want", [
+    (270, 2, "one_block"), (1000, 4, "one_block"), (2000, 8, "one_block"),
+    (4608, 18, "multi_block"), (4608, 5, "one_block"),
+    (16384, 64, "multi_block"), (32560, 128, "multi_block"),
+    (32560, 24, "multi_block"), (32560, 0, "one_block"),
+])
+def test_chunk_route(n, m, want):
+    """The faster route at the card's measured points: heart (270) and
+    adult n=1000 stay one block a lane; larger lanes spread over the m
+    blocks the plan gives them, unless a wide batch leaves each only a few
+    (4,608 rows over 5 blocks: 132 lanes) or none (m = 0: the lanes' state
+    is more than the card's shared memory)."""
+    from repro_torch.kernels.smo_chunk import chunk_route
+    assert chunk_route(n, m) == want
+
+
+def test_cpu_tensors_count_no_route():
+    """The plain versions on CPU tensors add to no route's count."""
+    ops.reset_launch_counts()
+    q = torch.from_numpy(RNG.normal(size=(1, 2, 9, 64))).to(torch.bfloat16)
+    ops.flash_attention(q, q, q)
+    X = torch.from_numpy(RNG.normal(size=(20, 5)))
+    K = ops.rbf_kernel_matrix(X, X, 0.5)
+    y = torch.where(torch.arange(20) % 2 == 0, 1.0, -1.0).double()
+    ops.smo_chunk(K, torch.diagonal(K).contiguous(), y,
+                  torch.ones(20, dtype=torch.bool), 1.0, 1e-3, 100, 5, "2",
+                  torch.zeros(20, dtype=torch.float64), -y, torch.tensor(0),
+                  torch.tensor(False), _route="multi_block")
+    assert ops.route_counts() == {
+        "smo_chunk": {"one_block": 0, "multi_block": 0},
+        "flash_attention": {"fma": 0, "mma": 0, "wgmma": 0}}
+
+
+@pytest.mark.parametrize("window", [0, -3, 2.5])
+def test_flash_wrapper_rejects_bad_window(window):
+    q = torch.zeros((1, 2, 8, 16))
+    with pytest.raises(ValueError, match="window"):
+        ops.flash_attention(q, q, q, window=window)
+
+
+def test_flash_wrapper_rejects_mixed_devices():
+    """Tensors on the CPU and elsewhere: raise, never fall back."""
+    q = torch.zeros((1, 2, 8, 16))
+    with pytest.raises(ValueError, match="CUDA device"):
+        ops.flash_attention(q, q.to("meta"), q)
+
+
+def test_chunk_wrapper_rejects_bad_wss():
+    K = torch.eye(4, dtype=torch.float64)
+    with pytest.raises(ValueError, match="wss"):
+        ops.smo_chunk_lanes(K, torch.ones(4, dtype=torch.float64),
+                            torch.ones(4, dtype=torch.float64),
+                            torch.ones((1, 4), dtype=torch.bool), [1.0],
+                            1e-3, [10], 5, "3",
+                            torch.zeros((1, 4), dtype=torch.float64),
+                            torch.zeros((1, 4), dtype=torch.float64),
+                            torch.zeros(1, dtype=torch.int64),
+                            torch.zeros(1, dtype=torch.bool))
+
+
+def test_chunk_wrapper_rejects_other_devices():
+    K = torch.eye(4, dtype=torch.float64, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        ops.smo_chunk_lanes(K, K[0], K[0], torch.ones((1, 4), dtype=torch.bool,
+                                                      device="meta"),
+                            [1.0], 1e-3, [10], 5, "2", K[:1], K[:1],
+                            torch.zeros(1, dtype=torch.int64, device="meta"),
+                            torch.zeros(1, dtype=torch.bool, device="meta"))
+
+
+@pytest.mark.parametrize("name", ["rbf", "smo_update", "smo_chunk",
+                                  "smo_step", "flash_attention"])
+def test_build_flags_per_source(name):
+    """The SVM sources keep -fmad=false, which their bitwise parity with
+    the plain versions needs; the attention source, held to tolerances,
+    drops it. Every source targets sm_90a, and none links libcuda."""
+    from repro_torch.kernels import _build
+    flags = _build.flags(name)
+    assert ("-fmad=false" in flags) == (name != "flash_attention")
+    assert "arch=compute_90a,code=sm_90a" in flags
+    assert not any(f.startswith("-lcuda") for f in flags)
+    assert name in _build.SOURCES
