@@ -18,11 +18,19 @@ to 0 just before it and read just after:
   the flash-attention kernel's wgmma route, then 4 requests served through
   the KV cache (a 16-token prompt teacher-forced, 32 greedy tokens).
 
-Two kernels have routes, and every check and path records the one it
+Three kernels have routes, and every check and path records the one it
 took (``ops.route_counts``): the dense ``smo_chunk`` runs one block a lane
 or, where a time model fitted on the card says it is faster and the lanes'
-state fits in shared memory, many blocks a lane (the size phase); bf16 ``flash_attention`` runs on wgmma + TMA at head dims 64-256
-and on ``mma.sync`` below.
+state fits in shared memory, many blocks a lane (the size phase); the
+matrix-free ``smo_stream_chunk`` runs as one persistent cooperative launch
+wherever its plan places the lanes (up to 16), else as a launch pair per
+iteration (the fused step and the selection; the batched path's 20-fold
+row); bf16 ``flash_attention`` runs on wgmma + TMA at head dims 64-256 and
+on ``mma.sync`` below.
+
+``smo_step.cu`` is also built with its float64 dot products on the FMA
+pipes (``_build.VARIANTS``); the fused kernel of that build must give the
+tensor-core build's outputs bit for bit.
 
 Phases print one JSON line each, with their own seconds; a failing phase
 raises and the script exits non-zero. The last lines are the
@@ -32,6 +40,7 @@ before printing any result.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import os
@@ -61,12 +70,17 @@ REFERENCE_BATCHED = {
     "adult": {"cold_pallas": 16260, "cold_batched": 16263,
               "cold_batched_repacked": 16263},
 }
+#: folds of the matrix-free run past the persistent route's 16 lanes
+WIDE_K = 20
 BATCHED = {"cold_pallas": {"source_backend": "pallas_rbf"},
            "cold_batched": {"schedule": "batched"},
            "cold_batched_repacked": {}}
 #: the matrix-free size phase's bar: X, lane states and the streaming slabs
 PEAK_LIMIT = 3 * 2 ** 30
 SIZE_N = 32561            # adult at the paper's cardinality (32,560 after k=10)
+#: its matrix-free cold CV's iterations on the card since they were first
+#: run (the streaming engine is bitwise across its routes and packings)
+SIZE_MATRIX_FREE_ITERATIONS = 443_772
 #: peaks of one H100 SXM (NVIDIA data sheet): HBM3 bytes/s, and FP64 FLOP/s
 #: through the tensor cores (the most the card can do in float64)
 HBM_BPS = 3.35e12
@@ -81,6 +95,8 @@ FLASH_CASES = ((64, 32, True, None), (100, 32, False, None),
 FLASH_GRANITE = (2, 32, 8, 4096, 128)
 #: gemma-7b's prefill attention at its context (B, H, KV, S, D), causal
 FLASH_GEMMA = (1, 16, 16, 8192, 256)
+#: granite's prefill shape at head dim 32: the bf16 mma.sync route's timing
+FLASH_D32 = (2, 32, 8, 4096, 32)
 #: bf16 cases beyond the reference's one: the sweep's shapes (several kv
 #: tiles, ragged S, windows; D=16 and 32 on the mma.sync route, D=64 on
 #: wgmma), then grouped kv heads read in place from (B, S, H, D)
@@ -97,6 +113,10 @@ CHUNK_SWEEP_N = (1000, 2000, 4096, 8192, 16384)
 CHUNK_SWEEP_ITERS = 500
 #: rows of its sweep over lanes (where the plan's blocks a lane shrink)
 CHUNK_LANE_SWEEP_N = (4608, 8192, 32560)
+#: the streaming chunk's route sweep: adult's first n rows, and iterations
+#: timed on each route
+STREAM_SWEEP_N = (270, 1000, 4096, 32560)
+STREAM_SWEEP_ITERS = 200
 #: a bf16 output against the plain version in float32 on the same bf16
 #: inputs, row by row: max over rows of max |o - o_f32| / max |o_f32| (a
 #: row being one query's D outputs), so the bar keeps its meaning however
@@ -196,12 +216,13 @@ def require(cond: bool, what: str) -> None:
 def phase_build():
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    per_source = _build.build_all()
+    names = _build.SOURCES + tuple(_build.VARIANTS)
+    per_source = _build.build_all(names)
     secs = time.perf_counter() - t0
-    for name in _build.SOURCES:
+    for name in names:
         _build.load(name)
     ptxas = {}
-    for name in _build.SOURCES:
+    for name in names:
         lines = [ln.split(":", 1)[-1].strip()
                  for ln in _build.ptxas_log(name).splitlines()
                  if "registers" in ln or "spill" in ln]
@@ -661,10 +682,63 @@ def _bound(nbytes: float, flops: float, peak: float = FP64_FLOPS) -> dict:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
+def _time_fused(X, b: int, gamma: float, rng) -> dict:
+    """fused_smo_step over X with b lanes of random pairs: the kernel alone
+    (its C entry over one f, in place, as the chunks run it) by events and
+    in a CUDA graph, the wrapper (which also copies f) both ways, the
+    plain version, one library expression, its bound and FLOP floor; and
+    whether the FMA-path build gives the kernel's output bitwise."""
+    from repro_torch.kernels import _build, ops, ref
+    n, d = X.shape
+    sq = torch.sum(X * X, -1)
+    xij = X[torch.as_tensor(rng.integers(0, n, size=(b, 2)), device=X.device)]
+    f = torch.as_tensor(rng.normal(size=(b, n)), device=X.device)
+    delta = torch.full((b,), 0.37, dtype=torch.float64, device=X.device)
+    types = (*(ctypes.c_void_p,) * 6, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_double, ctypes.c_void_p)
+
+    def alone(lib, out):
+        fn = _build.entry(lib, "fused_smo_step_f64", *types)
+        return lambda: _build.check(
+            fn(out.data_ptr(), X.data_ptr(), sq.data_ptr(), xij.data_ptr(),
+               delta.data_ptr(), None, n, d, b, float(gamma),
+               _build.stream_ptr(out)), "fused_smo_step")
+    f_tc, f_fma = f.clone(), f.clone()
+    alone("smo_step", f_tc)()
+    alone("smo_step_fma", f_fma)()
+    fma_bitwise = torch.equal(f_tc, f_fma)
+    kernel_alone = alone("smo_step", f.clone())
+    wrapper = lambda: ops.fused_smo_step(f, X, xij, sq, delta,  # noqa: E731
+                                         gamma)
+
+    def library():
+        P = xij.reshape(2 * b, d)
+        d2 = torch.addmm(sq[:, None] + torch.sum(P * P, -1)[None], X, P.T,
+                         alpha=-2.0)
+        K2 = d2.clamp_(min=0.0).mul_(-gamma).exp_()
+        return torch.addcmul(f, (K2[:, 0::2] - K2[:, 1::2]).T, delta[:, None])
+    flops = 4.0 * b * n * d
+    return dict(
+        shape=[n, d, b], ms=graph_ms(kernel_alone, 50),
+        ms_kernel=cuda_ms(kernel_alone, 50, 3), ms_wrapper=cuda_ms(wrapper,
+                                                                   50, 3),
+        ms_wrapper_graph=graph_ms(wrapper, 50),
+        plain_ms=cuda_ms(lambda: ref.fused_smo_step_ref(f, X, xij, sq, delta,
+                                                        gamma), 10),
+        library_ms=cuda_ms(library, 50, 3),
+        library_max_abs_diff=float((library() - wrapper()).abs().max()),
+        fma_bitwise=fma_bitwise,
+        # X's rows stay in the 50 MB L2 between graph launches, so the
+        # FLOP floor at the FP64 tensor rate sits beside the HBM bound
+        flop_floor_ms=1e3 * flops / FP64_FLOPS,
+        **_bound(8.0 * (n * d + n + 2 * b * n + 2 * b * d + b), flops))
+
+
 def phase_fused(datasets):
     """fused_smo_step and the WSS-1 selection kernel against their plain
     versions at the reference's ragged shapes and the main path's, at one
-    lane and ten; then their times, plain times, bounds and yardstick."""
+    lane, ten and twenty; then their times, plain times, bounds and
+    yardstick, and the fused kernel against its FMA-path build."""
     from repro_torch.core.cv import _fold_masks
     from repro_torch.data.svm_suite import kfold_chunks
     from repro_torch.kernels import ops, ref
@@ -689,7 +763,7 @@ def phase_fused(datasets):
         for dtype, atol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
             Xt = X64.to(dtype)
             sq = torch.sum(Xt * Xt, -1)
-            for b in (1, 10):
+            for b in (1, 10, WIDE_K):
                 pairs = rng.integers(0, n, size=(b, 2))
                 pairs[0] = (3, n - 1)
                 if dtype == torch.float32:
@@ -707,6 +781,18 @@ def phase_fused(datasets):
                 require(torch.equal(one, got[0]),
                         f"fused_smo_step {label} {dtype} b={b}: lane 0 "
                         "differs from the one-lane launch")
+                if b == WIDE_K and dtype == torch.float64:
+                    # the pair route's late launches: 17 of 20 lanes live
+                    done = torch.zeros(b, dtype=torch.bool, device=dev)
+                    done[-3:] = True
+                    got = ops.fused_smo_step(f, Xt, xij, sq, delta, gamma,
+                                             done=done)
+                    want = ref.fused_smo_step_ref(f, Xt, xij, sq, delta,
+                                                  gamma, done)
+                    err = max(err, float((got - want).abs().max()))
+                    require(err <= atol and torch.equal(got[-3:], f[-3:]),
+                            f"fused_smo_step {label} b={b}, 3 lanes done: "
+                            f"err {err}")
                 checks.append({"shape": label, "dtype": str(dtype), "b": b,
                                "max_abs_err": err})
         # f32 with random pairs against f64 truth, beside the plain f32
@@ -729,41 +815,28 @@ def phase_fused(datasets):
                        "random_pairs_err_vs_f64": k_err,
                        "plain_err_vs_f64": p_err})
 
-    # ---- times at the main path's largest shape: adult 32,560 x 123,
-    # the ten lanes of the matrix-free CV; and at n=1000 in a CUDA graph
-    big = datasets[("adult", SIZE_N - 1)]
-    X = torch.as_tensor(big.X[:SIZE_N - 1], device=dev)
-    n, d = X.shape
-    b, g = 10, big.gamma
-    sq = torch.sum(X * X, -1)
-    xij = X[torch.as_tensor(rng.integers(0, n, size=(b, 2)), device=dev)]
-    f = torch.as_tensor(rng.normal(size=(b, n)), device=dev)
-    delta = torch.full((b,), 0.37, dtype=torch.float64, device=dev)
-    ms = cuda_ms(lambda: ops.fused_smo_step(f, X, xij, sq, delta, g), 50, 3)
-    ms_graph = graph_ms(lambda: ops.fused_smo_step(f, X, xij, sq, delta, g),
-                        50)
-    plain_ms = cuda_ms(
-        lambda: ref.fused_smo_step_ref(f, X, xij, sq, delta, g), 10)
-
-    def library():
-        P = xij.reshape(2 * b, d)
-        d2 = torch.addmm(sq[:, None] + torch.sum(P * P, -1)[None], X, P.T,
-                         alpha=-2.0)
-        K2 = d2.clamp_(min=0.0).mul_(-g).exp_()
-        return torch.addcmul(f, (K2[:, 0::2] - K2[:, 1::2]).T, delta[:, None])
-    library_ms = cuda_ms(library, 50, 3)
-    lib_err = float((library() - ops.fused_smo_step(f, X, xij, sq, delta, g))
-                    .abs().max())
-    fused = dict(
-        shape=[n, d, b], ms=ms, ms_graph=ms_graph, plain_ms=plain_ms,
-        library_ms=library_ms, library_max_abs_diff=lib_err,
-        max_abs_err=max(c["max_abs_err"] for c in checks
-                        if c["dtype"] == "torch.float64"),
-        max_abs_err_f32=max(c.get("max_abs_err", 0.0) for c in checks
-                            if c["dtype"] == "torch.float32"),
-        **_bound(8.0 * (n * d + n + 2 * b * n + 2 * b * d + b),
-                 4.0 * b * n * d))
+    # ---- times: at the main path's shape (adult n=1000 in 20 folds, the
+    # pair route's 20 packed lanes) for the kernels line, and at the paper's
+    # cardinality (32,560 x 123, ten lanes) beside it. The fused kernel is
+    # also held bitwise, at both shapes, to its build with the float64 dot
+    # products on the FMA pipes (an ordered fma chain): the witness that
+    # the FP64 tensor cores round the same.
     small = datasets[("adult", 1000)]
+    big = datasets[("adult", SIZE_N - 1)]
+    fused = _time_fused(torch.as_tensor(small.X, device=dev), WIDE_K,
+                        small.gamma, rng)
+    at_big = _time_fused(torch.as_tensor(big.X[:SIZE_N - 1], device=dev), 10,
+                         big.gamma, rng)
+    fused["witness_fma_bitwise"] = [fused.pop("fma_bitwise"),
+                                    at_big.pop("fma_bitwise")]
+    require(all(fused["witness_fma_bitwise"]),
+            "fused_smo_step: the FP64 tensor-core build differs from the "
+            "FMA-path build")
+    fused.update({f"{k}_{SIZE_N - 1}x10": v for k, v in at_big.items()})
+    fused["max_abs_err"] = max(c["max_abs_err"] for c in checks
+                               if c["dtype"] == "torch.float64")
+    fused["max_abs_err_f32"] = max(c.get("max_abs_err", 0.0) for c in checks
+                                   if c["dtype"] == "torch.float32")
     Xs = torch.as_tensor(small.X, device=dev)
     sqs = torch.sum(Xs * Xs, -1)
     xs1 = Xs[[3, 999]]
@@ -775,32 +848,36 @@ def phase_fused(datasets):
         lambda: ref.fused_smo_step_ref(fs1, Xs, xs1, sqs, d1, small.gamma),
         200)
 
-    # ---- the selection kernel: the ten cold folds' first step, against
-    # its plain version on the card, at each main-path size
-    sel_checks = []
-    for (name, m), ds in datasets.items():
-        chunks = kfold_chunks(ds.n, 10)
+    # ---- the selection kernel: the cold folds' first step, against its
+    # plain version on the card, at each main-path size in ten folds and at
+    # adult n=1000 in 20 (the pair route's lanes); timed at the latter and
+    # at n=32,560
+    sel_checks, select = [], None
+    cases = [(name, ds, m, 10) for (name, m), ds in datasets.items()]
+    cases.append(("adult", small, kfold_chunks(small.n, WIDE_K).size, WIDE_K))
+    for name, ds, m, k in cases:
+        chunks = kfold_chunks(ds.n, k)
         Xc = torch.as_tensor(ds.X[:m], device=dev)
         yc = torch.as_tensor(ds.y[:m], dtype=torch.float64, device=dev)
         sqc = torch.sum(Xc * Xc, -1)
         masks = torch.as_tensor(_fold_masks(chunks), device=dev)
         # C and the caps as device tensors: no host copy inside a graph
         args = (Xc, sqc, ds.gamma, yc, masks,
-                torch.full((10,), ds.C, dtype=torch.float64, device=dev),
-                1e-3, torch.full((10,), 10 ** 6, device=dev),
-                torch.zeros((10, m), dtype=torch.float64, device=dev),
-                -yc.repeat(10, 1), torch.zeros(10, dtype=torch.int64,
-                                               device=dev),
-                torch.zeros(10, dtype=torch.bool, device=dev))
+                torch.full((k,), ds.C, dtype=torch.float64, device=dev),
+                1e-3, torch.full((k,), 10 ** 6, device=dev),
+                torch.zeros((k, m), dtype=torch.float64, device=dev),
+                -yc.repeat(k, 1), torch.zeros(k, dtype=torch.int64,
+                                              device=dev),
+                torch.zeros(k, dtype=torch.bool, device=dev))
         got = ops.smo_select(*args)
         want = ref.smo_select_lanes_ref(*args)
-        for k, what in ((1, "n_iter"), (2, "done"), (3, "pair rows")):
-            require(torch.equal(got[k], want[k]),
-                    f"smo_select {name} n={m}: {what} differ")
-        err = max(float((got[k] - want[k]).abs().max()) for k in (0, 4))
-        require(err <= 1e-12, f"smo_select {name} n={m}: err {err}")
-        rec = {"n": m, "max_abs_err": err}
-        if m == SIZE_N - 1:
+        for i, what in ((1, "n_iter"), (2, "done"), (3, "pair rows")):
+            require(torch.equal(got[i], want[i]),
+                    f"smo_select {name} n={m} b={k}: {what} differ")
+        err = max(float((got[i] - want[i]).abs().max()) for i in (0, 4))
+        require(err <= 1e-12, f"smo_select {name} n={m} b={k}: err {err}")
+        rec = {"n": m, "b": k, "max_abs_err": err}
+        if m == SIZE_N - 1 or k == WIDE_K:
             rec["ms"] = graph_ms(lambda: ops.smo_select(*args), 50)
             sync()
             tp = time.perf_counter()
@@ -811,10 +888,14 @@ def phase_fused(datasets):
             # rows read from X and written; y shared. The norms are read
             # at j alone.
             d = Xc.shape[1]
-            rec.update(_bound(8.0 * (10 * m * 3 + m + 10 * 4 * d) + 10 * m,
-                              10.0 * 10 * m))
-            select = dict(rec, max_abs_err=None)
+            rec.update(_bound(8.0 * (k * m * 3 + m + k * 4 * d) + k * m,
+                              10.0 * k * m))
+        if k == WIDE_K:
+            select = dict(rec)
         sel_checks.append(rec)
+    big_sel = next(c for c in sel_checks if c["n"] == SIZE_N - 1)
+    select.update({f"{k}_{SIZE_N - 1}x10": big_sel[k]
+                   for k in ("ms", "plain_ms", "bound_ms")})
     select["max_abs_err"] = max(c["max_abs_err"] for c in sel_checks)
     emit({"phase": "kernels_fused", "seconds": time.perf_counter() - t0,
           "fused_checks": checks, "fused_smo_step": fused,
@@ -833,8 +914,9 @@ def phase_lane_chunks(datasets):
     """The chunks over lanes. Dense: each of 4 cold folds through the lane
     grid is bitwise (alpha, f, n_iter, done) the one-lane launch.
     Streaming: each cold fold is bitwise the same alone, packed at width 4
-    and at width 12 (10 folds + 2 pads), and within 1e-10 of the plain loop
-    on the card after 200 iterations. heart and adult n=1000 run to
+    and at width 12 (10 folds + 2 pads), on its route (persistent) and at
+    width 12 on the pair route too, and within 1e-10 of the plain loop on
+    the card after 200 iterations. heart and adult n=1000 run to
     convergence; n=32,560 stops at it_cap=300."""
     from repro_torch.kernels import ops, ref
     t0 = time.perf_counter()
@@ -876,7 +958,7 @@ def phase_lane_chunks(datasets):
         # ---- streaming chunk: width invariance
         sq = torch.sum(X * X, -1)
 
-        def run(ids, width, it_cap=cap):
+        def run(ids, width, it_cap=cap, route=None):
             ids = list(ids)
             st = [t[ids] for t in cold(10)]
             m, C, caps = masks[ids], [ds.C] * len(ids), [it_cap] * len(ids)
@@ -891,12 +973,14 @@ def phase_lane_chunks(datasets):
             l0 = ops.launch_counts()["fused_smo_step"]
             while True:
                 st = ops.smo_stream_chunk(X, sq, ds.gamma, y, m, C, 1e-3,
-                                          caps, min(4096, it_cap + 1), *st)
+                                          caps, min(4096, it_cap + 1), *st,
+                                          _route=route)
                 if bool(st[3].all()):
                     break
             sync()
             secs = time.perf_counter() - t
-            # the chunk stops within 128 iterations of the last lane's stop
+            # the pair route stops within 128 iterations of the last lane's
+            # stop (the persistent route, on the device, at it)
             issued = ops.launch_counts()["fused_smo_step"] - l0
             require(issued <= int(st[2].max()) + 128,
                     f"stream chunk {name} n={n}: {issued} iterations "
@@ -905,9 +989,10 @@ def phase_lane_chunks(datasets):
 
         alone = [run([l], 1)[0] for l in range(10)]
         w4, _, _ = run(range(4), 4)
-        w12, w12_s, w12_issued = run(range(10), 12)
+        w12, w12_s, _ = run(range(10), 12)
+        w12_pair, w12_pair_s, w12_issued = run(range(10), 12, route="pair")
         for l in range(10):
-            for packed, width in ((w4, 4), (w12, 12)):
+            for packed, width in ((w4, 4), (w12, 12), (w12_pair, 12)):
                 if l >= packed[0].shape[0]:
                     continue
                 for a, c, what in zip(alone[l], packed, ("alpha", "f",
@@ -929,8 +1014,11 @@ def phase_lane_chunks(datasets):
         require(err <= 1e-10, f"stream chunk {name} n={n}: err {err} vs "
                               "the plain loop")
         stream.append({"n": n, "it_cap": cap, "n_iter": its,
-                       "width12_s": w12_s, "width12_launched": w12_issued,
+                       "width12_s": w12_s, "width12_pair_s": w12_pair_s,
+                       "width12_pair_launched": w12_issued,
                        "us_per_iter_width12": 1e6 * w12_s / max(its),
+                       "us_per_iter_width12_pair":
+                           1e6 * w12_pair_s / max(its),
                        "max_abs_err_vs_plain_200": err})
         del X, sq
         torch.cuda.empty_cache()
@@ -938,21 +1026,173 @@ def phase_lane_chunks(datasets):
           "dense_lane_grid": dense, "streaming": stream})
 
 
+def _stream_lanes(X, y, b, dev):
+    """b cold lanes over X's n rows (a streaming source), lane l holding
+    out tenth l mod 10: (masks, state)."""
+    n = X.shape[0]
+    masks = torch.ones((b, n), dtype=torch.bool, device=dev)
+    for l in range(b):
+        masks[l, (l % 10) * (n // 10):(l % 10 + 1) * (n // 10)] = False
+    state = (torch.zeros((b, n), dtype=torch.float64, device=dev),
+             -y.repeat(b, 1), torch.zeros(b, dtype=torch.int64, device=dev),
+             torch.zeros(b, dtype=torch.bool, device=dev))
+    return masks, state
+
+
+def phase_stream_routes(datasets):
+    """The streaming chunk's two routes side by side. Checks: ten cold
+    folds at heart (n=270) and adult n=1000 (to convergence) and adult
+    n=32,560 (capped at 300) are bitwise equal on the persistent and the
+    pair route (alpha, f, n_iter, done), each timed per longest-lane
+    iteration; at n=32,560 one lane against the plain loop after 200
+    iterations. Sweep: adult's first n rows x lanes (1, 4, 10, the widest
+    the persistent plan places, one more), 200 capped iterations on each
+    route the plan allows: the faster, and the route ``stream_route``
+    takes (required to be the persistent one wherever it places the
+    lanes, the pair route past them)."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.smo_chunk import (pad_rows, stream_plan,
+                                               stream_route)
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    checks, info = [], {}
+    for (name, _), ds in datasets.items():
+        n, masks = _lane_masks(ds)
+        cap = 300 if n > 10_000 else 5_000_000
+        X = torch.as_tensor(ds.X[:n], device=dev)
+        y = torch.as_tensor(ds.y[:n], dtype=torch.float64, device=dev)
+        sq = torch.sum(X * X, -1)
+        masks = torch.as_tensor(masks, device=dev)
+        state = _stream_lanes(X, y, 10, dev)[1]
+        args = (X, sq, ds.gamma, y, masks, [ds.C] * 10, 1e-3, [cap] * 10,
+                cap + 1, *state)
+        X_rows = pad_rows(X)
+        before = ops.route_counts()["smo_stream_chunk"]
+        got = ops.smo_stream_chunk(*args, X_rows=X_rows)
+        route = _route_taken(before, ops.route_counts()["smo_stream_chunk"])
+        require(route == "persistent", f"stream chunk {name} n={n}: took "
+                                       f"the {route} route")
+        pair = ops.smo_stream_chunk(*args, _route="pair")
+        for a, c, what in zip(got, pair, ("alpha", "f", "n_iter", "done")):
+            require(torch.equal(a, c), f"stream chunk {name} n={n}: the "
+                                       f"routes' {what} differ")
+        it = int(got[2].max())
+        rec = {"n": n, "lanes": 10, "it_cap": cap, "n_iter": got[2].tolist()}
+        for r in ("persistent", "pair"):
+            ms = cuda_ms(lambda: ops.smo_stream_chunk(*args, X_rows=X_rows,
+                                                      _route=r), 1)
+            rec[f"us_per_iter_{r}"] = 1e3 * ms / it
+        if n > 10_000:
+            one = ops.smo_stream_chunk(X, sq, ds.gamma, y, masks[:1], [ds.C],
+                                       1e-3, [200], 201,
+                                       *(t[:1] for t in state))
+            plain = ref.smo_chunk_ref(
+                None, torch.ones(n, dtype=torch.float64, device=dev), y,
+                masks[0], ds.C, 1e-3, 200, 201, "1", *(t[0] for t in state),
+                stream=(X, sq, ds.gamma))
+            err = max(float((one[k][0] - plain[k]).abs().max())
+                      for k in (0, 1))
+            require(err <= 1e-10, f"stream chunk n={n}: err {err} vs the "
+                                  "plain loop")
+            # the plain loop for all ten lanes, per iteration
+            sync()
+            tp = time.perf_counter()
+            for l in range(10):
+                ref.smo_chunk_ref(
+                    None, torch.ones(n, dtype=torch.float64, device=dev), y,
+                    masks[l], ds.C, 1e-3, 10, 11, "1",
+                    *(t[l] for t in state), stream=(X, sq, ds.gamma))
+            sync()
+            plain_ms = 1e3 * (time.perf_counter() - tp) / 10
+            # per iteration: the function reads X and the lanes' state once
+            # a chunk and runs 4 b n d FP64 operations an iteration; beside
+            # it, X read from HBM every iteration (it stays in the L2)
+            d, b_ = X.shape[1], 10
+            state_bytes = b_ * n * (8 * 4 + 1) + 16 * n
+            info["smo_stream_chunk"] = dict(
+                shape=[n, d, b_], ms=rec["us_per_iter_persistent"] / 1e3,
+                plain_ms=plain_ms, max_abs_err=err, library_ms=None,
+                x_per_iter_hbm_ms=1e3 * 8.0 * n * d / HBM_BPS,
+                **_bound((8.0 * n * d + state_bytes) / it, 4.0 * b_ * n * d))
+            rec["max_abs_err_vs_plain_200"] = err
+        checks.append(rec)
+        del X, sq
+        torch.cuda.empty_cache()
+
+    big = datasets[("adult", SIZE_N - 1)]
+    sweep = []
+    for n in STREAM_SWEEP_N:
+        X = torch.as_tensor(big.X[:n], device=dev)
+        y = torch.as_tensor(big.y[:n], dtype=torch.float64, device=dev)
+        sq = torch.sum(X * X, -1)
+        d = X.shape[1]
+        widest = 1
+        while widest < 64 and stream_plan(n, d, widest + 1)[0] >= 1:
+            widest += 1
+        for b in sorted({1, 4, 10, widest, widest + 1}):
+            masks, state = _stream_lanes(X, y, b, dev)
+            args = (X, sq, big.gamma, y, masks, [big.C] * b, 1e-3,
+                    [STREAM_SWEEP_ITERS] * b, STREAM_SWEEP_ITERS + 1, *state)
+            m = stream_plan(n, d, b)[0]
+            before = ops.route_counts()["smo_stream_chunk"]
+            got = ops.smo_stream_chunk(*args)
+            route = _route_taken(before,
+                                 ops.route_counts()["smo_stream_chunk"])
+            require(route == stream_route(m), f"stream chunk n={n} b={b}: "
+                    f"took {route}, stream_route says {stream_route(m)}")
+            require(route == ("pair" if b > widest else "persistent"),
+                    f"stream chunk n={n} b={b}: took the {route} route")
+            routes = ("persistent", "pair") if m >= 1 else ("pair",)
+            it = max(int(got[2].max()), 1)
+            rec = {"n": n, "b": b, "blocks": m, "route": route,
+                   "n_iter_max": it}
+            for r in routes:
+                out = ops.smo_stream_chunk(*args, _route=r)
+                for a, c, what in zip(got, out, ("alpha", "f", "n_iter",
+                                                 "done")):
+                    require(torch.equal(a, c), f"stream chunk n={n} b={b}: "
+                            f"the {r} route's {what} differs")
+                ms = cuda_ms(lambda: ops.smo_stream_chunk(*args, _route=r), 2)
+                rec[f"us_per_iter_{r}"] = 1e3 * ms / it
+            rec["faster"] = min(routes, key=lambda r: rec[f"us_per_iter_{r}"])
+            sweep.append(rec)
+        del X, sq
+        torch.cuda.empty_cache()
+    emit({"phase": "stream_routes", "seconds": time.perf_counter() - t0,
+          "checks": checks, "sweep": sweep})
+    return info
+
+
 def phase_table1_batched(cold_folds):
     """Cold 10-fold CV through ``run_cv_batched`` in its three
     configurations on heart and adult: per-fold accuracy equal to Table 1's
-    (and so to the reference), iterations beside the reference's."""
+    (and so to the reference), iterations beside the reference's (the
+    matrix-free ones equal to them), and the streaming chunk's route.
+    Then adult n=1000 in 20 folds matrix-free: more lanes than the
+    persistent route places, so its chunks take the pair route until at
+    most 16 folds are left; per-fold accuracy equal to the dense chunk's."""
     from repro_torch.core.cv import run_cv_batched
     from repro_torch.data.svm_suite import make_dataset
+    from repro_torch.kernels import ops
     t0 = time.perf_counter()
     rows = []
     for name, refd in REFERENCE.items():
         ds = make_dataset(name, n_override=refd["n"])
         for method, kw in BATCHED.items():
             sync()
+            before = ops.route_counts()["smo_stream_chunk"]
             tw = time.perf_counter()
             rep = run_cv_batched(ds, k=10, **kw)
             wall = time.perf_counter() - tw
+            after = ops.route_counts()["smo_stream_chunk"]
+            routes = {r: after[r] - before[r] for r in after}
+            if method == "cold_pallas":
+                require(routes["pair"] == 0 and routes["persistent"] > 0,
+                        f"{name} cold_pallas: stream chunk routes {routes}")
+                require(rep.total_iterations
+                        == REFERENCE_BATCHED[name][method],
+                        f"{name} cold_pallas: {rep.total_iterations} "
+                        "iterations, not the reference's")
             require(rep.method == method, f"{rep.method} != {method}")
             require(all(f.converged for f in rep.folds)
                     and all(math.isfinite(f.objective) for f in rep.folds),
@@ -975,7 +1215,32 @@ def phase_table1_batched(cold_folds):
                 "us_per_iteration": 1e6 * rep.total_solve_time / max(it, 1),
                 "us_per_longest_lane_iteration":
                     1e6 * rep.total_solve_time / max(lane_max, 1),
-                "accuracy": rep.accuracy, "occupancy": rep.occupancy})
+                "accuracy": rep.accuracy, "occupancy": rep.occupancy,
+                "stream_routes": routes})
+    ds = make_dataset("adult", n_override=REFERENCE["adult"]["n"])
+    dense = run_cv_batched(ds, k=WIDE_K)
+    before = ops.route_counts()["smo_stream_chunk"]
+    sync()
+    tw = time.perf_counter()
+    rep = run_cv_batched(ds, k=WIDE_K, source_backend="pallas_rbf")
+    wall = time.perf_counter() - tw
+    after = ops.route_counts()["smo_stream_chunk"]
+    routes = {r: after[r] - before[r] for r in after}
+    require(routes["pair"] > 0, f"adult k={WIDE_K} cold_pallas: stream "
+                                f"chunk routes {routes}, no pair route")
+    require(all(f.converged for f in rep.folds + dense.folds),
+            f"adult k={WIDE_K}: a fold did not converge")
+    per_fold = [(f.acc_correct, f.acc_total) for f in rep.folds]
+    require(per_fold == [(f.acc_correct, f.acc_total) for f in dense.folds],
+            f"adult k={WIDE_K} cold_pallas: per-fold accuracy {per_fold} "
+            "differs from the dense chunk's")
+    rows.append({"dataset": "adult", "n": rep.n, "k": WIDE_K,
+                 "method": rep.method, "iterations": rep.total_iterations,
+                 "dense_iterations": dense.total_iterations,
+                 "per_fold_iterations": [f.n_iter for f in rep.folds],
+                 "solve_s": rep.total_solve_time, "wall_s": wall,
+                 "accuracy": rep.accuracy, "dense_accuracy": dense.accuracy,
+                 "stream_routes": routes})
     emit({"phase": "table1_batched", "seconds": time.perf_counter() - t0,
           "rows": rows})
 
@@ -986,11 +1251,20 @@ def phase_size_matrix_free(ds, dense_accs):
     folds the dense path solved give its accuracy (the evaluation by
     ``rows_at`` and the streaming ``matvec`` checked at that size)."""
     from repro_torch.core.cv import run_cv_batched
+    from repro_torch.kernels import ops
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    before = ops.route_counts()["smo_stream_chunk"]
     rep = run_cv_batched(ds, k=10, source_backend="pallas_rbf")
     peak = torch.cuda.max_memory_allocated()
+    after = ops.route_counts()["smo_stream_chunk"]
+    routes = {r: after[r] - before[r] for r in after}
+    require(routes["pair"] == 0 and routes["persistent"] > 0,
+            f"matrix-free size: stream chunk routes {routes}")
+    require(rep.total_iterations == SIZE_MATRIX_FREE_ITERATIONS,
+            f"matrix-free size: {rep.total_iterations} iterations, not "
+            f"{SIZE_MATRIX_FREE_ITERATIONS}")
     require(peak < PEAK_LIMIT, f"matrix-free peak {peak} B >= 3 GiB")
     require(all(f.converged for f in rep.folds)
             and all(math.isfinite(f.objective) for f in rep.folds),
@@ -1009,7 +1283,8 @@ def phase_size_matrix_free(ds, dense_accs):
               1e6 * rep.total_solve_time / max(lane_max, 1),
           "accuracy": rep.accuracy,
           "per_fold_accuracy": accs, "dense_accuracy": dense_accs,
-          "peak_gb": peak / 1e9, "occupancy": rep.occupancy})
+          "peak_gb": peak / 1e9, "occupancy": rep.occupancy,
+          "stream_routes": routes})
 
 
 def _row_rel(got, want) -> float:
@@ -1069,9 +1344,10 @@ def phase_flash():
     float32 on the same bf16 inputs, row by row
     (``flash_bf16_check``). Then the kernel's time, the plain version's
     (bf16), ``F.scaled_dot_product_attention``'s on broadcast K/V (the
-    yardstick, never called by the port) and the bound, there and at
-    gemma-7b's prefill shape; and the mma.sync route's time at both, the
-    wgmma route's predecessor. Every bf16 case also shows the route it
+    yardstick, never called by the port) and the bound, there, at
+    gemma-7b's prefill shape and at granite's with head dim 32 (the
+    mma.sync route's own); and the mma.sync route's time at the first two,
+    the wgmma route's predecessor. Every bf16 case also shows the route it
     took (wgmma at D >= 64, mma.sync below)."""
     from repro_torch.kernels import ops, ref
     t0 = time.perf_counter()
@@ -1111,7 +1387,8 @@ def phase_flash():
 
     shapes = {}
     for name, (B, H, KV, S, D) in (("granite-8b", FLASH_GRANITE),
-                                   ("gemma-7b", FLASH_GEMMA)):
+                                   ("gemma-7b", FLASH_GEMMA),
+                                   ("d32", FLASH_D32)):
         gen = torch.Generator(device=dev)
         gen.manual_seed(0)
         q, k, v = (torch.randn((B, S, h, D), generator=gen, device=dev,
@@ -1151,7 +1428,8 @@ def phase_flash():
         [c["max_abs_err"] for c in checks]
         + [r["max_abs_err_vs_f32_plain"] for r in shapes.values()]))
     emit({"phase": "kernels_flash", "seconds": time.perf_counter() - t0,
-          "checks": checks, "granite": rec, "gemma": shapes["gemma-7b"]})
+          "checks": checks, "granite": rec, "gemma": shapes["gemma-7b"],
+          "mma_d32": shapes["d32"]})
     return rec
 
 
@@ -1440,6 +1718,7 @@ def main() -> int:
     info.update(phase_fused(datasets))
     info["flash_attention"] = phase_flash()
     phase_lane_chunks(datasets)
+    info.update(phase_stream_routes(datasets))
 
     # each path: counts from 0 just before it, read just after
     counts, routes = {}, {}
@@ -1474,13 +1753,20 @@ def main() -> int:
     require(routes["size"]["smo_chunk"]["multi_block"] > 0
             and routes["size"]["smo_chunk"]["one_block"] == 0,
             "the size path's chunk did not take the multi-block route")
+    # the batched path's ten folds take the persistent streaming chunk, its
+    # twenty folds the pair route (fused step + selection) while more than
+    # 16 are live; the matrix-free size path the persistent route alone
     for name in ("rbf_kernel_matrix", "smo_chunk", "fused_smo_step",
-                 "smo_select"):
+                 "smo_select", "smo_stream_chunk"):
         require(counts["table1_batched"][name] > 0,
                 f"{name} was not launched on the batched path")
-    for name in ("fused_smo_step", "smo_select"):
-        require(counts["size_matrix_free"][name] > 0,
-                f"{name} was not launched on the matrix-free size path")
+    require(routes["table1_batched"]["smo_stream_chunk"]["pair"] > 0
+            and routes["table1_batched"]["smo_stream_chunk"]["persistent"]
+            > 0, "the batched path did not take both streaming routes")
+    require(counts["size_matrix_free"]["smo_stream_chunk"] > 0
+            and routes["size_matrix_free"]["smo_stream_chunk"]["pair"] == 0,
+            "the matrix-free size path did not run the persistent chunk "
+            "alone")
     require(counts["size_matrix_free"]["rbf_kernel_matrix"] == 0,
             "the matrix-free path built a kernel matrix")
     # two prefills, one launch per layer (also checked per call)
@@ -1507,6 +1793,9 @@ def main() -> int:
                "smo_select": (csrc + "smo_step.cu",
                               "src/repro/svm/engine.py:519",
                               "table1_batched"),
+               "smo_stream_chunk": (csrc + "smo_step.cu",
+                                    "src/repro/svm/engine.py:566",
+                                    "size_matrix_free"),
                "flash_attention": (csrc + "flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:71",
                                    "serve_lm")}
@@ -1526,8 +1815,14 @@ def main() -> int:
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k.get("library_ms")})
-        if name == "flash_attention":
-            kernels[-1]["routes"] = routes[path]["flash_attention"]
+        if name in ("flash_attention", "smo_stream_chunk"):
+            kernels[-1]["routes"] = routes[path][name]
+        # beside the main path's shape: the paper's cardinality, and the
+        # floors that X held in the L2 leaves
+        kernels[-1].update({key: v for key, v in k.items()
+                            if key.endswith(f"_{SIZE_N - 1}x10")
+                            or key in ("shape", "flop_floor_ms",
+                                       "x_per_iter_hbm_ms")})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "build_s": build_s, "card": card})
     print(json.dumps({"kernels": kernels}), flush=True)

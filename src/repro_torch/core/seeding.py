@@ -22,10 +22,9 @@ Where the reference's arithmetic is not reproducible bit for bit:
   ``eps * max(M, N) * s[0]``; the port takes the same SVD path (never
   ``gels``, which assumes full rank and is the only CUDA driver of
   ``torch.linalg.lstsq``). The SVD itself differs in the last bits.
-* ``sir_seed``'s random fallback: the reference draws
-  ``jax.random.uniform(PRNGKey(0))``; the port draws from a CPU
-  ``torch.Generator`` (seed 0 by default), so the same seed gives the same
-  priorities on any device, or takes the priority vector itself.
+* ``sir_seed``'s random fallback draws the reference's priorities bit for
+  bit (``jax.random.uniform(PRNGKey(seed))``, reproduced in numpy by
+  ``core/threefry.py``), so it is not among these.
 * ``ato_seed``: ``torch.linalg.solve`` of the bordered KKT system, an LU
   like the reference's, in another library.
 """
@@ -35,6 +34,7 @@ import math
 
 import torch
 
+from repro_torch.core.threefry import uniform
 from repro_torch.kernels.ops import smo_f_update
 from repro_torch.svm.engine import SMOResult
 
@@ -163,9 +163,9 @@ def mir_seed(K, y, C, prev: SMOResult, S_idx, R_idx, T_idx):
 # SIR — Single Instance Replacement (paper Eq. 19-21, Algorithm 3)
 # --------------------------------------------------------------------------
 
-def sir_seed(K, y, C, prev: SMOResult, S_idx, R_idx, T_idx, *,
-             generator: torch.Generator | None = None, priority=None,
-             fallback: str = "random"):
+def sir_seed(K, y, C, prev: SMOResult, S_idx, R_idx, T_idx,
+             rng_key: int | None = None, fallback: str = "random", *,
+             priority=None):
     """Greedy replacement: each removed x_r hands its alpha to the most
     similar (max kernel value) unused same-label x_t, then the constraints
     are repaired.
@@ -173,16 +173,18 @@ def sir_seed(K, y, C, prev: SMOResult, S_idx, R_idx, T_idx, *,
     When no unused same-label x_t is left, ``fallback="random"`` (the
     paper's rule) picks the unused x_t of highest random ``priority``;
     ``"skip"`` drops that alpha and lets the repair absorb the mass.
-    ``priority`` (|T|,) defaults to ``torch.rand`` from ``generator``, a
-    CPU generator (seed 0 when None), so the draw is device-independent.
+    ``priority`` (|T|,) defaults to the reference's draw,
+    ``jax.random.uniform(PRNGKey(rng_key), (|T|,), K.dtype)`` (``rng_key``
+    an int seed, 0 when None), made on the host by ``threefry.uniform``,
+    so the draw is the reference's on any device.
     """
     if fallback not in ("random", "skip"):
         raise ValueError(f"fallback must be 'random' or 'skip', got {fallback!r}")
     m, t_n = R_idx.shape[0], T_idx.shape[0]
     if priority is None:
-        if generator is None:
-            generator = torch.Generator().manual_seed(0)
-        priority = torch.rand(t_n, generator=generator, dtype=K.dtype)
+        priority = torch.from_numpy(uniform(
+            0 if rng_key is None else rng_key, t_n,
+            "float32" if K.dtype == torch.float32 else "float64"))
     priority = torch.as_tensor(priority, dtype=K.dtype).to(K.device)
     K_RT = K[R_idx][:, T_idx]
     y_T = y[T_idx]

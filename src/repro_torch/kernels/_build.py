@@ -7,6 +7,11 @@ library's file name carries a digest of its sources and flags, so an edited
 source is rebuilt and a stale library is never loaded. ``build_all``
 starts one ``nvcc`` per source, all at once.
 
+A variant (``VARIANTS``) is another build of one source with a macro
+set: ``smo_step_fma`` keeps ``csrc/smo_step.cu``'s float64 dot products on
+the FMA pipes, the witness that ``chip_smoke.py`` holds bitwise equal to
+the FP64 tensor-core build the port runs.
+
 Flags are per source (``flags``). The SVM sources keep ``-fmad=false``,
 which keeps ``nvcc`` from contracting any expression into an FMA behind
 the code's back: they spell out the one FMA the reference rounds as one
@@ -38,9 +43,20 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
+#: variant -> (its source, the flags it adds)
+VARIANTS = {"smo_step_fma": ("smo_step", ("-DSMO_STEP_TENSOR_F64=0",))}
+
+
+def source(name: str) -> Path:
+    """The ``.cu`` file that a source or variant builds from."""
+    return CSRC / f"{VARIANTS.get(name, (name,))[0]}.cu"
+
+
 def flags(name: str) -> tuple[str, ...]:
-    """``nvcc`` flags of ``csrc/<name>.cu``."""
-    return FLAGS + (("-fmad=false",) if name in BITWISE_SOURCES else ())
+    """``nvcc`` flags of a source or variant."""
+    src, extra = VARIANTS.get(name, (name, ()))
+    return FLAGS + (("-fmad=false",) if src in BITWISE_SOURCES else ()) \
+        + extra
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _ENTRIES: dict[tuple[str, str], ctypes._CFuncPtr] = {}
@@ -63,9 +79,10 @@ def nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu``'s library lives, keyed by source digest."""
+    """Where a source's or variant's library lives, keyed by the digest of
+    its sources and flags."""
     h = hashlib.sha256(" ".join(flags(name)).encode())
-    for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+    for src in sorted(CSRC.glob("*.cuh")) + [source(name)]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
@@ -87,7 +104,7 @@ def build_all(names=SOURCES) -> dict[str, float]:
     for name in todo:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc(), *flags(name), "-o", tmp, str(CSRC / f"{name}.cu")]
+        cmd = [nvcc(), *flags(name), "-o", tmp, str(source(name))]
         procs[name] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     secs, errors = {}, []
@@ -96,7 +113,8 @@ def build_all(names=SOURCES) -> dict[str, float]:
         secs[name] = time.perf_counter() - t0
         if proc.returncode != 0:
             os.unlink(tmp)
-            errors.append(f"nvcc failed on csrc/{name}.cu:\n{out}")
+            errors.append(f"nvcc failed on {name} "
+                          f"(csrc/{source(name).name}):\n{out}")
             continue
         final = lib_path(name)
         final.with_suffix(".ptxas.txt").write_text(out)
@@ -107,18 +125,19 @@ def build_all(names=SOURCES) -> dict[str, float]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library of a source or variant, built first if needed
+    (every source at once)."""
     lib = _LIBS.get(name)
     if lib is None:
         if not lib_path(name).exists():
-            build_all(SOURCES)
+            build_all(SOURCES if name in SOURCES else (name,))
         lib = ctypes.CDLL(str(lib_path(name)))
         _LIBS[name] = lib
     return lib
 
 
 def entry(name: str, symbol: str, *argtypes):
-    """The C function ``symbol`` of ``csrc/<name>.cu``, typed: pointers and
+    """The C function ``symbol`` of a source or variant, typed: pointers and
     the stream as ``c_void_p`` (an untyped int would be cut to 32 bits).
     Looked up and typed once, then served from a cache."""
     fn = _ENTRIES.get((name, symbol))

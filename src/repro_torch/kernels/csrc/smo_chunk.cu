@@ -181,12 +181,6 @@ struct Pick {                 // a reduced candidate, in shared memory
   Scalars sc;
 };
 
-__device__ __forceinline__ unsigned long long now_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
-
 // Thread 0 publishes its block's candidate (to L2: readers bypass L1).
 __device__ __forceinline__ void publish(Key* key, Scalars* sc, double v,
                                         int i, int flags, int lo,
@@ -202,40 +196,6 @@ __device__ __forceinline__ void publish(Key* key, Scalars* sc, double v,
   __stcg(&sc->y, own ? y_s[k] : 0.0);
   __stcg(&sc->d, own ? d_s[k] : 0.0);
   __stcg(&sc->kij, kij);
-}
-
-__device__ __forceinline__ unsigned long long ld_acquire(
-    const unsigned long long* p) {
-  unsigned long long v;
-  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];\n" : "=l"(v) : "l"(p)
-               : "memory");
-  return v;
-}
-
-// Every block of a lane arrives at the lane's counter, then waits for all
-// m of them. Thread 0's arrival is a release (its block's picks are
-// visible first) and its polls are acquires (the others' picks are
-// visible after). A wait of more than two minutes can only be a fault, and
-// traps: an error, not a hang, but a sticky one that ends the process's
-// CUDA context, so the guard is kept far above any slow but sound wait (a
-// preempted block, a debugger).
-__device__ __forceinline__ void lane_barrier(unsigned long long* ctr,
-                                             unsigned long long target) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    // release: this block's picks are visible before its arrival counts
-    asm volatile("red.release.gpu.global.add.u64 [%0], 1;\n" ::"l"(ctr)
-                 : "memory");
-    unsigned long long t0 = 0;
-    // acquire: the other blocks' picks are visible once all have arrived
-    while (ld_acquire(ctr) < target) {
-      if (t0 == 0)
-        t0 = now_ns();
-      else if (now_ns() - t0 > 120000000000ull)
-        __trap();
-    }
-  }
-  __syncthreads();
 }
 
 // Warp 0 reduces the m published keys keys[q * 3] (q = 0 .. m-1: the

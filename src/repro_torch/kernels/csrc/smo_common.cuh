@@ -122,6 +122,53 @@ __device__ __forceinline__ void block_reduce(Scratch& s, double v0, int i0,
   __syncthreads();
 }
 
+// ---------------------------------------------------------------------------
+// A barrier across the blocks of a cooperative launch (smo_chunk.cu's
+// multi-block route, smo_step.cu's persistent streaming chunk).
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ unsigned long long now_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+__device__ __forceinline__ unsigned long long ld_acquire(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];\n" : "=l"(v) : "l"(p)
+               : "memory");
+  return v;
+}
+
+// Every block of a group (a lane's blocks, or the whole grid) arrives at
+// the group's monotonic counter, then waits until it reaches `target` (the
+// group's blocks times the barriers so far). Thread 0's arrival is a
+// release after the block's barrier (what the block wrote is visible
+// first) and its polls are acquires (what the others wrote is visible
+// after). A wait of more than two minutes can only be a fault, and traps:
+// an error, not a hang, but a sticky one that ends the process's CUDA
+// context, so the guard is kept far above any slow but sound wait (a
+// preempted block, a debugger).
+__device__ __forceinline__ void lane_barrier(unsigned long long* ctr,
+                                             unsigned long long target) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    // release: this block's picks are visible before its arrival counts
+    asm volatile("red.release.gpu.global.add.u64 [%0], 1;\n" ::"l"(ctr)
+                 : "memory");
+    unsigned long long t0 = 0;
+    // acquire: the other blocks' picks are visible once all have arrived
+    while (ld_acquire(ctr) < target) {
+      if (t0 == 0)
+        t0 = now_ns();
+      else if (now_ns() - t0 > 120000000000ull)
+        __trap();
+    }
+  }
+  __syncthreads();
+}
+
 // I_up / I_low membership of one instance (paper Eq. 4).
 __device__ __forceinline__ void sets(double a, double yk, bool m, double C,
                                      bool& up, bool& low) {

@@ -4,12 +4,14 @@ Mirrors ``src/repro/kernels/ops.py``. Each wrapper launches its CUDA kernel
 on a CUDA tensor (or raises) and runs its plain PyTorch version
 (``ref.py``) on a CPU tensor; a kernel's count grows by its launches only.
 ``smo_chunk`` counts the dense chunk kernel's launches at one lane and over
-lanes; ``smo_stream_chunk`` adds its launches of the WSS-1 selection kernel
-to ``smo_select`` and of the fused step to ``fused_smo_step``.
+lanes. ``smo_stream_chunk`` counts its persistent kernel's launches; on its
+pair route it adds its launches of the WSS-1 selection kernel to
+``smo_select`` and of the fused step to ``fused_smo_step``.
 ``flash_attention`` counts one per launch (one per prefill attention layer
-on the LM serving path). ``route_counts`` splits the two kernels that have
-routes: ``smo_chunk`` (one_block / multi_block) and ``flash_attention``
-(wgmma / mma / fma).
+on the LM serving path). ``route_counts`` splits the three kernels that have
+routes: ``smo_chunk`` (one_block / multi_block), ``smo_stream_chunk``
+(pair / persistent: the chunks on each) and ``flash_attention`` (wgmma /
+mma / fma).
 """
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rbf import rbf_kernel_matrix
@@ -29,6 +31,7 @@ KERNELS = {"rbf_kernel_matrix": rbf_kernel_matrix,
            "smo_chunk": smo_chunk,
            "fused_smo_step": fused_smo_step,
            "smo_select": smo_select,
+           "smo_stream_chunk": smo_stream_chunk,
            "flash_attention": flash_attention}
 
 
@@ -38,7 +41,8 @@ def launch_counts() -> dict[str, int]:
 
 
 #: the wrappers whose launches split into routes
-ROUTED = {"smo_chunk": smo_chunk, "flash_attention": flash_attention}
+ROUTED = {"smo_chunk": smo_chunk, "smo_stream_chunk": smo_stream_chunk,
+          "flash_attention": flash_attention}
 
 
 def route_counts() -> dict[str, dict[str, int]]:

@@ -10,10 +10,16 @@
   while every lane's state fits the card's shared memory at once).
   ``smo_chunk.launches`` counts both, ``smo_chunk.route_launches`` each.
 * ``smo_stream_chunk`` — a row-streaming RBF source (X, no K), built from
-  ``csrc/smo_step.cu``: up to ``n_iters`` (``smo_select``,
-  ``fused_smo_step``) launch pairs over all lanes, issued by one host call
-  that stops soon after every lane is done; ``smo_select`` also launches
-  the selection kernel alone.
+  ``csrc/smo_step.cu``. Two routes (``stream_route``): ``persistent``, all
+  ``n_iters`` WSS-1 iterations over all lanes in ONE cooperative launch
+  whose blocks own slices of rows and stop on the device when every lane
+  is done; or ``pair``, up to ``n_iters`` (``smo_select``,
+  ``fused_smo_step``) launch pairs issued by one host call that stops soon
+  after every lane is done, where the persistent plan cannot place the
+  lanes. ``smo_stream_chunk.launches`` counts the persistent kernel,
+  ``smo_select`` and ``fused_smo_step`` the pair route's launches, and
+  ``smo_stream_chunk.route_launches`` the chunks on each route;
+  ``smo_select`` also launches the selection kernel alone.
 
 The caller reads the lanes' ``done`` flags only between chunks. On a CPU
 tensor each wrapper runs the plain per-step loop, ``ref.smo_chunk_ref``,
@@ -41,6 +47,8 @@ _P, _LL, _D, _I = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_double,
 ONE_BLOCK_US = (2.9, 1.52)
 MULTI_BLOCK_US = (8.1, 1.4)
 ROUTES = ("one_block", "multi_block")
+#: the streaming chunk's routes
+STREAM_ROUTES = ("pair", "persistent")
 
 
 def chunk_route(n: int, m: int) -> str:
@@ -187,18 +195,67 @@ smo_chunk.launches = 0
 smo_chunk.route_launches = dict.fromkeys(ROUTES, 0)
 
 
+def stream_route(m: int) -> str:
+    """The streaming chunk's route, given the blocks ``m`` that
+    ``stream_plan`` places: the persistent launch wherever it places the
+    lanes (it ran faster than the launch pairs at every point of
+    ``chip_smoke.py``'s sweep over n and lanes, PERF.md §6), else pairs."""
+    return "persistent" if m >= 1 else "pair"
+
+
+def stream_plan(n: int, d: int, b: int) -> tuple[int, int, int]:
+    """The persistent route's (blocks, rows a block, workspace bytes) for b
+    lanes over n rows of d features on the current device: about 128 rows
+    a block, every block resident at once, the slice's state in a block's
+    shared memory; 0 blocks past 16 lanes or when the state does not fit.
+    Computed once per device, n, d and b."""
+    return _stream_plan(torch.cuda.current_device(), n, d, b)
+
+
+@functools.lru_cache(maxsize=None)
+def _stream_plan(device: int, n: int, d: int, b: int) -> tuple[int, int,
+                                                                 int]:
+    m, slice_, ws = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_longlong(0)
+    fn = _build.entry("smo_step", "smo_stream_plan", _I, _I, _I, _P, _P, _P)
+    _build.check(fn(n, d, b, ctypes.addressof(m), ctypes.addressof(slice_),
+                    ctypes.addressof(ws)), "smo_stream_plan")
+    return m.value, slice_.value, ws.value
+
+
+def pad_rows(X):
+    """X (n, d) float64 as the persistent streaming route reads it: each row
+    on a 16-byte boundary (it copies two features at a time), with a zero
+    column past an odd d. X itself where it already is so (or off the
+    card), else an (n, d) view of a zeroed (n, d + 1) copy. A caller that
+    runs many chunks over one X makes this once and passes it on."""
+    n, d = X.shape
+    if X.device.type != "cuda" or (d % 2 == 0 and X.stride(1) == 1
+                                   and X.stride(0) % 2 == 0
+                                   and X.data_ptr() % 16 == 0):
+        return X
+    Xp = torch.zeros((n, d + d % 2), dtype=X.dtype, device=X.device)
+    Xp[:, :d] = X
+    return Xp[:, :d]
+
+
 def smo_stream_chunk(X, sq_norms, gamma, y, masks, Cs, tol, it_caps,
-                     n_iters, alphas, fs, n_iter, done):
+                     n_iters, alphas, fs, n_iter, done, *, X_rows=None,
+                     _route=None):
     """Up to ``n_iters`` streaming WSS-1 SMO iterations for each of b lanes
     over one RBF source (X (n, d), sq_norms (n,), gamma; K_ii = 1), float64.
     Lane tensors as for ``smo_chunk_lanes``. Returns the new ``(alphas, fs,
-    n_iter, done)``.
+    n_iter, done)``, bitwise the same on either route and whatever the
+    lanes launched beside a lane.
 
-    On the card every iteration is one selection launch (a block per lane:
-    the pair, K[i, j], delta and alpha) and one ``fused_smo_step`` launch
-    over all lanes. The chunk stops within 128 iterations of every lane's
-    stop (a done lane's blocks exit at once meanwhile), and both counts
-    grow by the iterations it launched."""
+    On the card the ``persistent`` route runs the chunk in one launch that
+    ends when every lane is done; the ``pair`` route launches, per
+    iteration, the selection kernel (a block per lane: the pair, K[i, j],
+    delta and alpha) and ``fused_smo_step`` over all lanes, and stops
+    within 128 iterations of every lane's stop (a done lane's blocks exit
+    at once meanwhile); both their counts grow by the iterations it
+    launched. ``X_rows`` is ``pad_rows(X)``, made per call when not given.
+    ``_route`` overrides ``stream_route``, to check and time the routes
+    against each other."""
     n, d = X.shape
     if X.device.type == "cpu":
         ones = torch.ones(n, dtype=X.dtype)
@@ -218,26 +275,54 @@ def smo_stream_chunk(X, sq_norms, gamma, y, masks, Cs, tol, it_caps,
                              f"{shape} on {X.device}")
     if max(n, d) >= 2 ** 31:
         raise ValueError("smo_stream_chunk: n and d must be below 2**31")
+    if _route not in (None, *STREAM_ROUTES):
+        raise ValueError(f"smo_stream_chunk: route must be one of "
+                         f"{STREAM_ROUTES}, got {_route!r}")
     b = masks.shape[0]
     masks, Cs, it_caps, alphas, fs, n_iter, done = _lane_args(
         X.device, b, n, masks, Cs, it_caps, alphas, fs, n_iter, done)
     X, sq_norms, y = X.contiguous(), sq_norms.contiguous(), y.contiguous()
-    xij = torch.empty((b, 2, d), dtype=torch.float64, device=X.device)
-    delta = torch.zeros(b, dtype=torch.float64, device=X.device)
-    fn = _build.entry("smo_step", "smo_stream_chunk_f64", _P, _P, _P, _P, _P,
-                      _D, _P, _LL, _D, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                      _P, _P)
-    issued = ctypes.c_longlong(0)
-    err = fn(X.data_ptr(), sq_norms.data_ptr(), y.data_ptr(),
-             masks.data_ptr(), Cs.data_ptr(), float(tol), it_caps.data_ptr(),
-             int(n_iters), float(gamma), alphas.data_ptr(), fs.data_ptr(),
-             n_iter.data_ptr(), done.data_ptr(), xij.data_ptr(),
-             delta.data_ptr(), n, d, b, _build.stream_ptr(X),
-             ctypes.addressof(issued))
-    smo_select.launches += issued.value
-    fused_smo_step.launches += issued.value
-    _build.check(err, "smo_stream_chunk")
+    m, slice_, ws_bytes = stream_plan(n, d, b)
+    path = _route or stream_route(m)
+    if path == "persistent" and m < 1:
+        raise ValueError(f"smo_stream_chunk: the persistent route cannot "
+                         f"place {b} lanes over {n} x {d} on this card")
+    args = (X.data_ptr(), sq_norms.data_ptr(), y.data_ptr(),
+            masks.data_ptr(), Cs.data_ptr(), float(tol), it_caps.data_ptr(),
+            int(n_iters), float(gamma), alphas.data_ptr(), fs.data_ptr(),
+            n_iter.data_ptr(), done.data_ptr())
+    types = (_P, _P, _P, _P, _P, _D, _P, _LL, _D, _P, _P, _P, _P)
+    if path == "persistent":
+        # the barrier counter starts at 0 in every launch
+        ws = torch.zeros(ws_bytes, dtype=torch.uint8, device=X.device)
+        Xp = pad_rows(X) if X_rows is None else X_rows
+        if tuple(Xp.shape) != (n, d) or Xp.stride(1) != 1 \
+                or Xp.stride(0) % 2 or Xp.data_ptr() % 16:
+            raise ValueError("smo_stream_chunk: X_rows must be pad_rows(X)")
+        fn = _build.entry("smo_step", "smo_stream_persistent_f64", *types,
+                          _I, _I, _I, _I, _I, _I, _P, _P)
+        err = fn(Xp.data_ptr(), *args[1:], n, d, Xp.stride(0), b, m, slice_,
+                 ws.data_ptr(), _build.stream_ptr(X))
+        _build.check(err, "smo_stream_chunk (persistent)")
+        if n_iters > 0:
+            smo_stream_chunk.launches += 1
+    else:
+        xij = torch.empty((b, 2, d), dtype=torch.float64, device=X.device)
+        delta = torch.zeros(b, dtype=torch.float64, device=X.device)
+        fn = _build.entry("smo_step", "smo_stream_chunk_f64", *types, _P, _P,
+                          _I, _I, _I, _P, _P)
+        issued = ctypes.c_longlong(0)
+        err = fn(*args, xij.data_ptr(), delta.data_ptr(), n, d, b,
+                 _build.stream_ptr(X), ctypes.addressof(issued))
+        smo_select.launches += issued.value
+        fused_smo_step.launches += issued.value
+        _build.check(err, "smo_stream_chunk (pair)")
+    smo_stream_chunk.route_launches[path] += 1
     return alphas, fs, n_iter, done
+
+
+smo_stream_chunk.launches = 0
+smo_stream_chunk.route_launches = dict.fromkeys(STREAM_ROUTES, 0)
 
 
 def smo_select(X, sq_norms, gamma, y, masks, Cs, tol, it_caps, alphas, fs,

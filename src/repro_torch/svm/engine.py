@@ -23,6 +23,7 @@ go through ``DenseKernel`` or ``PallasRBF``. Stacked per-lane sources and
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -32,6 +33,7 @@ from repro_torch.kernels.ops import (fused_smo_step, smo_chunk_lanes,
                                      smo_stream_chunk)
 from repro_torch.kernels.ops import smo_chunk as _smo_chunk_kernel
 from repro_torch.kernels.ref import _sets, rbf_kij_ref
+from repro_torch.kernels.smo_chunk import pad_rows
 
 _INF = math.inf
 _INT32_MAX = 2 ** 31 - 1
@@ -223,6 +225,12 @@ class PallasRBF(FusedRBF):
 
     streams_rows = True
 
+    @functools.cached_property
+    def X_rows(self):
+        """X as the persistent streaming chunk reads it (``pad_rows``),
+        made once for every chunk over this source."""
+        return pad_rows(self.X)
+
     def update_f(self, f, i, j, delta):
         return fused_smo_step(f, self.X, self.X[[int(i), int(j)]],
                               self.sq_norms, delta, self.gamma)
@@ -256,7 +264,8 @@ def chunk_batched(source, y, train_masks, Cs, tol, it_caps,
     if source.streams_rows:
         out = smo_stream_chunk(source.X, source.sq_norms, source.gamma, y,
                                train_masks, Cs, float(tol), it_caps,
-                               int(n_iters), *states)
+                               int(n_iters), *states,
+                               X_rows=getattr(source, "X_rows", None))
     else:
         out = smo_chunk_lanes(source.K, source.diag(), y, train_masks, Cs,
                               float(tol), it_caps, int(n_iters), wss,

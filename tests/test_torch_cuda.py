@@ -209,20 +209,28 @@ def test_cuda_stream_chunk_width_invariant_and_near_plain(cuda):
 
 @pytest.mark.cuda
 def test_cuda_stream_chunk_stops_after_the_lanes(cuda):
-    """A long chunk stops within 128 iterations of its last lane's stop,
-    with the state of chunks short enough to launch every iteration."""
+    """On the pair route a long chunk stops within 128 iterations of its
+    last lane's stop, with the state of chunks short enough to launch every
+    iteration; the persistent route stops on the device, in one launch."""
     ds, X, y, masks, state = _lane_problem(cuda, 150, 4)
     sq = torch.sum(X * X, -1)
     args = (X, sq, ds.gamma, y, masks, [ds.C] * 4, 1e-3, [10 ** 6] * 4)
     before = ops.launch_counts()["fused_smo_step"]
-    got = ops.smo_stream_chunk(*args, 10 ** 6, *state)
+    got = ops.smo_stream_chunk(*args, 10 ** 6, *state, _route="pair")
     issued = ops.launch_counts()["fused_smo_step"] - before
     assert bool(got[3].all())
     assert int(got[2].max()) < issued <= int(got[2].max()) + 128
     short = state
     while not bool(short[3].all()):
-        short = ops.smo_stream_chunk(*args, 64, *short)
+        short = ops.smo_stream_chunk(*args, 64, *short, _route="pair")
     for a, b in zip(got, short):
+        assert torch.equal(a, b)
+    before = ops.launch_counts()
+    one = ops.smo_stream_chunk(*args, 10 ** 6, *state, _route="persistent")
+    after = ops.launch_counts()
+    assert after["smo_stream_chunk"] == before["smo_stream_chunk"] + 1
+    assert after["fused_smo_step"] == before["fused_smo_step"]
+    for a, b in zip(one, got):
         assert torch.equal(a, b)
 
 
@@ -473,3 +481,211 @@ def test_cuda_multi_block_chunk_halts_on_nan(cuda):
     assert int(got[2]) == int(plain[2]) == 0 and bool(got[3])
     assert torch.equal(got[0], plain[0])
     assert torch.equal(got[1].isnan(), plain[1].isnan())
+
+
+# ---- the streaming chunk's persistent route ----
+
+def _stream_problem(cuda, n, b, name="adult"):
+    """A dataset's first n rows as a streaming source, b cold lanes, lane l
+    holding out tenth l mod 10."""
+    from repro_torch.data.svm_suite import make_dataset
+    ds = make_dataset(name, n_override=max(n, 270 if name == "heart" else
+                                           1000))
+    X = torch.from_numpy(ds.X[:n]).to(cuda)
+    y = torch.from_numpy(ds.y[:n]).to(cuda, torch.float64)
+    masks = torch.ones((b, n), dtype=torch.bool, device=cuda)
+    for l in range(b):
+        masks[l, (l % 10) * (n // 10):(l % 10 + 1) * (n // 10)] = False
+    state = (torch.zeros((b, n), dtype=torch.float64, device=cuda),
+             -y.repeat(b, 1), torch.zeros(b, dtype=torch.int64, device=cuda),
+             torch.zeros(b, dtype=torch.bool, device=cuda))
+    return ds, X, torch.sum(X * X, -1), y, masks, state
+
+
+def _step_engine(X, sq, gamma, y, masks, Cs, tol, caps, n_iters, alphas, fs,
+                 n_iter, done):
+    """The streaming step engine of the two kernels, one iteration at a
+    time from the host: ``smo_select`` then ``fused_smo_step`` over its
+    pair rows and delta (the selection clips all of alpha every step, the
+    chunk only at its first: the same values, clip being idempotent)."""
+    for _ in range(n_iters):
+        if bool(done.all()):
+            break
+        alphas, n_iter, done, xij, delta = ops.smo_select(
+            X, sq, gamma, y, masks, Cs, tol, caps, alphas, fs, n_iter, done)
+        fs = ops.fused_smo_step(fs, X, xij, sq, delta, gamma, done=done)
+    return alphas, fs, n_iter, done
+
+
+def _routes_equal(a, b):
+    """Bitwise equal states, NaN where NaN (a NaN lane keeps its f)."""
+    for u, v, what in zip(a, b, ("alpha", "f", "n_iter", "done")):
+        if u.is_floating_point():
+            assert torch.equal(u.isnan(), v.isnan()), what
+            u, v = (torch.where(t.isnan(), 0.0, t) for t in (u, v))
+        assert torch.equal(u, v), what
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,n,cap", [
+    ("heart", 270, 10 ** 6), ("adult", 270, 10 ** 6),
+    ("adult", 1000, 10 ** 6), ("adult", 32560, 300)])
+def test_cuda_stream_persistent_bitwise(cuda, name, n, cap):
+    """One chunk of ten lanes on the persistent route is bitwise the pair
+    route and (at n <= 1,000) the step engine of the two kernels: heart
+    (one block: the picks stay in shared memory), adult's first 270 and
+    1,000 rows (3 and 8 blocks), all to convergence, and adult n=32,560
+    (132 blocks) to a cap of 300. Within 1e-10 of the plain loop after 200
+    iterations (its products are a matmul, not the kernels' ordered
+    fma)."""
+    ds, X, sq, y, masks, state = _stream_problem(cuda, n, 10, name)
+    args = (X, sq, ds.gamma, y, masks, [ds.C] * 10, 1e-3, [cap] * 10)
+    before = ops.route_counts()["smo_stream_chunk"]["persistent"]
+    got = ops.smo_stream_chunk(*args, 10 ** 6, *state)
+    assert ops.route_counts()["smo_stream_chunk"]["persistent"] == before + 1
+    assert bool(got[3].all())
+    _routes_equal(got, ops.smo_stream_chunk(*args, 10 ** 6, *state,
+                                            _route="pair"))
+    Cs = torch.full((10,), ds.C, dtype=torch.float64, device=cuda)
+    caps = torch.full((10,), cap, device=cuda)
+    if n <= 1000:
+        _routes_equal(got, _step_engine(X, sq, ds.gamma, y, masks, Cs, 1e-3,
+                                        caps, 10 ** 6, *state))
+    capped = ops.smo_stream_chunk(X, sq, ds.gamma, y, masks[:1], [ds.C],
+                                  1e-3, [200], 201, *(t[:1] for t in state))
+    plain = ref.smo_chunk_ref(None, torch.ones_like(y), y, masks[0], ds.C,
+                              1e-3, 200, 201, "1",
+                              *(t[0] for t in state), stream=(X, sq, ds.gamma))
+    assert int(capped[2][0]) == int(plain[2]) == 200
+    for k in (0, 1):
+        torch.testing.assert_close(capped[k][0], plain[k], rtol=0, atol=1e-10)
+
+
+@pytest.mark.cuda
+def test_cuda_stream_persistent_lane_widths(cuda):
+    """At n=32,560: one lane, ten, and the widest batch the plan places are
+    bitwise lane by lane the same lanes alone (lanes stop at caps spread
+    over the chunk); one lane more takes the pair route, with the same
+    lanes."""
+    from repro_torch.kernels.smo_chunk import stream_plan
+    n = 32560
+    b = 1
+    while stream_plan(n, 123, b + 1)[0] >= 1:
+        b += 1
+    assert b >= 10
+    ds, X, sq, y, masks, state = _stream_problem(cuda, n, b + 1)
+    caps = [40 + 7 * l for l in range(b + 1)]
+
+    def run(ids, route=None):
+        ids = list(ids)
+        return ops.smo_stream_chunk(X, sq, ds.gamma, y, masks[ids],
+                                    [ds.C] * len(ids), 1e-3,
+                                    [caps[l] for l in ids], 500,
+                                    *(t[ids] for t in state), _route=route)
+
+    for width in (1, 10, b):
+        before = ops.route_counts()["smo_stream_chunk"]["persistent"]
+        got = run(range(width))
+        assert ops.route_counts()["smo_stream_chunk"]["persistent"] == \
+            before + 1
+        assert got[2].tolist() == caps[:width]
+        for l in (0, width - 1):
+            _routes_equal(run([l], "pair"), tuple(t[l:l + 1] for t in got))
+    before = ops.route_counts()["smo_stream_chunk"]["pair"]
+    wide = run(range(b + 1))
+    assert ops.route_counts()["smo_stream_chunk"]["pair"] == before + 1
+    _routes_equal(tuple(t[:b] for t in wide), got)
+
+
+@pytest.mark.cuda
+def test_cuda_stream_persistent_resumes_and_caps(cuda):
+    """A chunk cut by n_iters and resumed is bitwise one chunk, on either
+    route; lanes capped mid-chunk freeze there, the others go on."""
+    ds, X, sq, y, masks, state = _stream_problem(cuda, 1000, 4)
+    args = (X, sq, ds.gamma, y, masks, [ds.C] * 4, 1e-3, [50, 10 ** 6,
+                                                          333, 10 ** 6])
+    whole = ops.smo_stream_chunk(*args, 10 ** 6, *state)
+    assert whole[2].tolist()[0] == 50 and whole[2].tolist()[2] == 333
+    for route in ("persistent", "pair"):
+        part = state
+        while not bool(part[3].all()):
+            part = ops.smo_stream_chunk(*args, 97, *part, _route=route)
+        _routes_equal(part, whole)
+
+
+@pytest.mark.cuda
+def test_cuda_stream_persistent_nan_lane(cuda):
+    """A NaN in f on a training row freezes its lane at once, as the plain
+    step does; the other lanes of the launch are bitwise their runs
+    alone."""
+    ds, X, sq, y, masks, state = _stream_problem(cuda, 1000, 3)
+    fs = state[1].clone()
+    fs[1, 997] = float("nan")
+    lanes = (state[0], fs, state[2], state[3])
+    args = (X, sq, ds.gamma, y, masks, [ds.C] * 3, 1e-3, [10 ** 6] * 3)
+    got = ops.smo_stream_chunk(*args, 10 ** 6, *lanes)
+    assert int(got[2][1]) == 0 and bool(got[3][1])
+    assert torch.equal(got[0][1], state[0][1])
+    for l in (0, 2):
+        alone = ops.smo_stream_chunk(X, sq, ds.gamma, y, masks[l:l + 1],
+                                     [ds.C], 1e-3, [10 ** 6], 10 ** 6,
+                                     *(t[l:l + 1] for t in lanes))
+        _routes_equal(alone, tuple(t[l:l + 1] for t in got))
+    _routes_equal(got, ops.smo_stream_chunk(*args, 10 ** 6, *lanes,
+                                            _route="pair"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [3, 17])
+def test_cuda_fused_smo_step_many_tiles(cuda, b):
+    """More tiles than the card has blocks (each block walks several) and
+    more lanes than a block stages at once (17: two lane blocks): within
+    1e-12 of the plain version, and each lane bitwise its one-lane
+    launch."""
+    f, X, xij, sq, delta = _pair_case(40_000, 9, b, torch.float64, cuda)
+    got = ops.fused_smo_step(f, X, xij, sq, delta, 0.5)
+    want = ref.fused_smo_step_ref(f, X, xij, sq, delta, 0.5)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-12)
+    for l in (0, b - 1):
+        assert torch.equal(
+            got[l], ops.fused_smo_step(f[l], X, xij[l], sq, 0.37, 0.5))
+
+
+@pytest.mark.cuda
+def test_cuda_stream_persistent_x_rows(cuda):
+    """The padded X that a source makes once (``pad_rows``, odd d) gives
+    the chunk made per call bitwise; an X_rows with rows off 16-byte
+    boundaries is refused."""
+    from repro_torch.kernels.smo_chunk import pad_rows
+    ds, X, sq, y, masks, state = _stream_problem(cuda, 1000, 3)
+    assert X.shape[1] % 2 == 1
+    X_rows = pad_rows(X)
+    assert X_rows.stride(0) == X.shape[1] + 1 and torch.equal(X_rows, X)
+    args = (X, sq, ds.gamma, y, masks, [ds.C] * 3, 1e-3, [10 ** 6] * 3,
+            10 ** 6)
+    _routes_equal(ops.smo_stream_chunk(*args, *state, X_rows=X_rows),
+                  ops.smo_stream_chunk(*args, *state))
+    with pytest.raises(ValueError, match="X_rows"):
+        ops.smo_stream_chunk(*args, *state, X_rows=X)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,b", [(1000, 20), (40_000, 10)])
+def test_cuda_fused_smo_step_fma_build_bitwise(cuda, n, b):
+    """The FP64 tensor cores round like an ordered fma chain: the build of
+    ``smo_step.cu`` with its float64 dot products on the FMA pipes gives
+    the fused kernel's outputs bit for bit (20 lanes: two lane blocks)."""
+    import ctypes
+    from repro_torch.kernels import _build
+    f, X, xij, sq, delta = _pair_case(n, 123, b, torch.float64, cuda)
+    types = (*(ctypes.c_void_p,) * 6, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_double, ctypes.c_void_p)
+    outs = []
+    for lib in ("smo_step", "smo_step_fma"):
+        out = f.clone()
+        fn = _build.entry(lib, "fused_smo_step_f64", *types)
+        _build.check(fn(out.data_ptr(), X.data_ptr(), sq.data_ptr(),
+                        xij.data_ptr(), delta.data_ptr(), None, n, 123, b,
+                        0.5, _build.stream_ptr(out)), lib)
+        outs.append(out)
+    assert torch.equal(outs[0], outs[1])

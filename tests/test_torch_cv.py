@@ -2,10 +2,13 @@
 four paper methods.
 
 Per-fold accuracy must be identical and each fold's dual objective within
-rel 1e-6. The iteration totals are printed side by side, not compared: the
-port builds its own K (a torch matmul, not XLA's: the last bits differ) and
-the SIR fallback draws its own priorities, so the SMO paths may differ
-while the fixed point does not.
+rel 1e-6. The iteration totals are printed side by side, and compared
+only where the paths are known to agree: the port builds its own K (a
+torch matmul, not XLA's: the last bits differ), which heart's
+ill-conditioned solve (C = 2182) amplifies into other SMO paths to the same
+fixed point. The SIR fallback draws the reference's priorities
+(``core/threefry.py``), so adult n=300 SIR takes the reference's
+iterations fold by fold.
 """
 import pytest
 
@@ -34,6 +37,19 @@ def test_run_cv_matches_reference(name, n, method):
     for g, w in zip(got.folds, want.folds):
         assert g.converged and w.converged
         assert abs(g.objective - w.objective) <= 1e-6 * abs(w.objective)
+
+
+def test_run_cv_sir_iterations_match_reference():
+    """Adult n=300 k=5 SIR takes the reference's iterations in every fold:
+    the seeds agree to 1e-10 once the fallback draws the same priorities,
+    and adult's solves do not amplify that. (Heart's, at C = 2182, do:
+    its counts are printed by ``test_run_cv_matches_reference``, not
+    compared.)"""
+    ds = make_dataset("adult", n_override=300)
+    want = ref_run_cv(ds, k=5, method="sir")
+    got = run_cv(dataset_from_reference(ds), k=5, method="sir", device="cpu")
+    assert [f.n_iter for f in want.folds] == [749, 64, 460, 384, 228]
+    assert [f.n_iter for f in got.folds] == [f.n_iter for f in want.folds]
 
 
 _BATCHED = {"cold_pallas": dict(source_backend="pallas_rbf"),

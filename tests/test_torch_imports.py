@@ -1,6 +1,6 @@
-"""Import rule of the port: no module of ``src/repro_torch/``, and neither
-``chip_smoke.py`` nor ``chip_flash_mutants.py``, imports jax or the JAX
-package ``repro``; and every entry
+"""Import rule of the port: no module of ``src/repro_torch/``, and none of
+``chip_smoke.py``, ``chip_flash_mutants.py`` and ``chip_smo_variants.py``,
+imports jax or the JAX package ``repro``; and every entry
 point defaults to ``cuda``, raising without a GPU unless given
 ``device="cpu"``."""
 import ast
@@ -11,7 +11,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py", ROOT / "chip_flash_mutants.py"]
+    + [ROOT / "chip_smoke.py", ROOT / "chip_flash_mutants.py",
+       ROOT / "chip_smo_variants.py"]
 
 
 def _imported(tree):
@@ -36,7 +37,8 @@ def test_the_walk_sees_the_port():
             "scheduler.py", "sources.py", "cost_model.py", "study.py",
             "convert.py", "flash_attention.py", "attention.py",
             "transformer.py", "layers.py", "params.py", "decode.py",
-            "inputs.py", "tokens.py", "granite_8b.py", "gemma_7b.py"} <= names
+            "inputs.py", "tokens.py", "granite_8b.py", "gemma_7b.py",
+            "threefry.py", "chip_smo_variants.py"} <= names
 
 
 def test_entry_points_default_to_cuda():

@@ -7,6 +7,8 @@ reference's bars (``tests/test_kernels.py``). The CUDA kernels themselves
 are held to the plain versions on the card (``test_torch_cuda.py`` and
 ``chip_smoke.py``).
 """
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -93,6 +95,7 @@ def test_cpu_tensors_launch_no_kernel():
     assert ops.launch_counts() == {"rbf_kernel_matrix": 0,
                                    "smo_f_update": 0, "smo_chunk": 0,
                                    "fused_smo_step": 0, "smo_select": 0,
+                                   "smo_stream_chunk": 0,
                                    "flash_attention": 0}
 
 
@@ -205,6 +208,106 @@ def test_select_then_fused_step_is_one_streaming_step():
         assert torch.equal(a[l], alphas[l]) and torch.equal(f[l], fs[l])
 
 
+# ---- the persistent streaming chunk's selection across blocks ----
+
+def _better(va, ia, vb, ib, want_max):
+    """The kernels' (value, index) rule (``smo_common.cuh``
+    ``better_min`` / ``better_max``): NaN wins, then the smaller (larger)
+    value, then the lower index."""
+    na, nb = va != va, vb != vb
+    if na != nb:
+        return na
+    if not na and va != vb:
+        return va > vb if want_max else va < vb
+    return ia < ib
+
+
+def _two_level_select(alpha, f, y, mask, C, tiles, rng):
+    """The persistent chunk's selection, modelled: every block (a slice
+    of rows, cut as ``smo_stream_plan`` cuts them) takes its candidates
+    for b_up / i and b_low / j and the OR of its set flags, visiting its
+    rows in any order; every block then reduces all blocks' candidates in
+    any order by the same rule. Returns (i, j, gap)."""
+    n = f.shape[0]
+    slice_ = -(-n // tiles)
+    i_up, i_low = ref._sets(alpha, y, mask, C)
+    up, low, fv = i_up.tolist(), i_low.tolist(), f.tolist()
+    cands = []
+    for lo in range(0, n, slice_):
+        vu, iu, vl, il, fl = math.inf, 2 ** 31 - 1, -math.inf, 2 ** 31 - 1, 0
+        for k in rng.permutation(range(lo, min(n, lo + slice_))).tolist():
+            cu = fv[k] if up[k] else math.inf
+            cl = fv[k] if low[k] else -math.inf
+            if _better(cu, k, vu, iu, False):
+                vu, iu = cu, k
+            if _better(cl, k, vl, il, True):
+                vl, il = cl, k
+            fl |= (1 if up[k] else 0) | (2 if low[k] else 0)
+        cands.append((vu, iu, vl, il, fl))
+    assert len(cands) == tiles
+    vu, iu, vl, il, fl = math.inf, 2 ** 31 - 1, -math.inf, 2 ** 31 - 1, 0
+    for p in rng.permutation(tiles).tolist():
+        cu, ju, cl, jl, cf = cands[p]
+        if _better(cu, ju, vu, iu, False):
+            vu, iu = cu, ju
+        if _better(cl, jl, vl, il, True):
+            vl, il = cl, jl
+        fl |= cf
+    return iu, il, (vl - vu if fl == 3 else -math.inf)
+
+
+@pytest.mark.parametrize("tiles", [1, 3, 264])
+@pytest.mark.parametrize("case", ["ties", "nan_at_edges", "nan_off_set",
+                                  "bound"])
+def test_two_level_selection_is_select_ref(tiles, case):
+    """Per-block candidates reduced across blocks (the persistent
+    chunk's one exchange an iteration) give ``smo_select_ref``'s pair and
+    gap: the rule is exact in any order and at any cut into blocks. Ties
+    (f on a coarse grid, so many rows share the extreme), NaN f on rows at
+    block edges (the first NaN row must win), NaN f on rows outside both
+    sets (it must not), and lanes pinned at the box."""
+    rng = np.random.default_rng(tiles)
+    n = 264 * 4   # 264, 3 and 1 blocks under the plan's cut
+    y = torch.from_numpy(np.where(rng.random(n) < 0.5, 1.0, -1.0))
+    C = 2.0
+    alpha = torch.from_numpy(rng.choice([0.0, 0.7, C], size=n))
+    f = torch.from_numpy(np.round(rng.normal(size=n), 1))
+    mask = torch.from_numpy(rng.random(n) < 0.9)
+    slice_ = -(-n // tiles)
+    edges = sorted({min(n - 1, e) for lo in range(0, n, slice_)
+                    for e in (lo, lo + slice_ - 1)})
+    if case == "nan_at_edges":
+        nan_rows = edges[len(edges) // 2:]
+        mask[nan_rows] = True
+        alpha[nan_rows] = 0.7   # free: in both sets
+        f[nan_rows] = math.nan
+    elif case == "nan_off_set":
+        alpha[:] = 0.7
+        mask[edges] = False
+        f[edges] = math.nan
+    elif case == "bound":
+        alpha[:] = torch.where(y > 0, C, 0.0)
+        alpha[edges[0]] = 0.7
+    i, j, gap = _two_level_select(alpha, f, y, mask, C, tiles, rng)
+    i_up, i_low = ref._sets(alpha, y, mask, C)
+    v_up = torch.where(i_up, f, math.inf)
+    v_low = torch.where(i_low, f, -math.inf)
+    # the pair, stopping or not: NaN first, then the first extreme
+    assert (i, j) == (int(ref._argmin(v_up)), int(ref._argmax(v_low)))
+    want_gap = (float(v_low.max()) - float(v_up.min())
+                if bool(i_up.any()) and bool(i_low.any()) else -math.inf)
+    assert gap == want_gap or (math.isnan(gap) and math.isnan(want_gap))
+    _, wi, wj, _, stop = ref.smo_select_ref(
+        None, torch.ones(n, dtype=torch.float64), y, mask, C, 1e-3, 10 ** 6,
+        "1", alpha, f, 0, (torch.ones((n, 1), dtype=torch.float64),
+                           torch.ones(n, dtype=torch.float64), 0.5))
+    assert stop == (gap <= 1e-3 or math.isnan(gap))
+    if not stop:
+        assert (i, j) == (wi, wj)
+    if case == "nan_at_edges":
+        assert math.isnan(gap) and i == j == nan_rows[0]
+
+
 # ---- the routes of the redesigned kernels, and the wrappers' checks ----
 
 @pytest.mark.parametrize("D", [16, 32, 64, 128, 256])
@@ -246,8 +349,15 @@ def test_cpu_tensors_count_no_route():
                   torch.ones(20, dtype=torch.bool), 1.0, 1e-3, 100, 5, "2",
                   torch.zeros(20, dtype=torch.float64), -y, torch.tensor(0),
                   torch.tensor(False), _route="multi_block")
+    sq = torch.sum(X * X, -1)
+    ops.smo_stream_chunk(X, sq, 0.5, y, torch.ones((1, 20), dtype=torch.bool),
+                         [1.0], 1e-3, [100], 5,
+                         torch.zeros((1, 20), dtype=torch.float64), -y[None],
+                         torch.zeros(1, dtype=torch.int64),
+                         torch.zeros(1, dtype=torch.bool), _route="persistent")
     assert ops.route_counts() == {
         "smo_chunk": {"one_block": 0, "multi_block": 0},
+        "smo_stream_chunk": {"pair": 0, "persistent": 0},
         "flash_attention": {"fma": 0, "mma": 0, "wgmma": 0}}
 
 
@@ -300,3 +410,15 @@ def test_build_flags_per_source(name):
     assert "arch=compute_90a,code=sm_90a" in flags
     assert not any(f.startswith("-lcuda") for f in flags)
     assert name in _build.SOURCES
+
+
+def test_build_fma_variant_of_the_step():
+    """The witness build of ``smo_step.cu`` (float64 dot products on the FMA
+    pipes) compiles the same file with the same flags and one macro more,
+    into a library of its own; the source reads the macro."""
+    from repro_torch.kernels import _build
+    assert _build.source("smo_step_fma") == _build.source("smo_step")
+    assert _build.flags("smo_step_fma") == (_build.flags("smo_step")
+                                            + ("-DSMO_STEP_TENSOR_F64=0",))
+    assert _build.lib_path("smo_step_fma") != _build.lib_path("smo_step")
+    assert "SMO_STEP_TENSOR_F64" in _build.source("smo_step").read_text()

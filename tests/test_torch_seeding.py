@@ -126,12 +126,30 @@ def test_mir_seeded_solve_matches_reference(tr):
     assert np.sum(pred_p == y_test) == np.sum(pred_r == y_test)
 
 
-def test_sir_fallback_draws_from_generator(tr):
-    """Without a priority vector the port draws one from a CPU generator:
-    the same seed gives the same seed alphas, and seed 0 is the default."""
-    a = tr.port("sir", generator=torch.Generator().manual_seed(0))
-    b = tr.port("sir")
-    assert torch.equal(a, b)
+def test_sir_default_seed_is_the_reference_seed(tr):
+    """Without a priority vector the port draws the reference's own
+    priorities (``PRNGKey(0)``), so its default seed is the reference's
+    default seed, at the bar the seeds are held to given those priorities;
+    an explicit priority vector still wins."""
+    got = tr.port("sir").numpy()
+    np.testing.assert_allclose(got, tr.reference("sir"), rtol=0,
+                               atol=ATOL["sir"](tr.ds.C))
+    np.testing.assert_array_equal(
+        got, tr.port("sir", priority=tr.sir_priority()).numpy())
+
+
+@pytest.mark.parametrize("seed", [0, 1, 7])
+@pytest.mark.parametrize("m", [1, 13, 1001])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_threefry_uniform_is_jax_uniform(seed, m, dtype):
+    """The port's numpy draw equals ``jax.random.uniform(PRNGKey(seed),
+    (m,), dtype)`` bit for bit."""
+    from repro_torch.core.threefry import uniform
+    want = np.asarray(jax.random.uniform(jax.random.PRNGKey(seed), (m,),
+                                         jnp.dtype(dtype)))
+    got = uniform(seed, m, dtype)
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got.view(np.uint8), want.view(np.uint8))
 
 
 @pytest.mark.parametrize("n,target", [(40, 0.3), (64, -5.0), (17, 100.0)])
