@@ -8,8 +8,10 @@ version on the card, and drives two paths, each with the launch counts set
 to 0 just before it and read just after:
 
 * Table 1 (alpha-seeded 10-fold CV, cold / ato / mir / sir, float64) on
-  heart (n=270) and adult (n=1000) through ``run_cv``, then adult at the
-  paper's cardinality (n=32,560) over a dense K;
+  heart (n=270) and adult (n=1000) through ``run_cv`` (adult's iterations
+  gated on the installed JAX reference's), then adult at the paper's
+  cardinality (n=32,560) over a dense K, one fold at a time and 24 folds
+  at once;
 * the batched cold CV through the lane pool (``run_cv_batched``: the
   matrix-free ``cold_pallas`` and the two dense schedules) on the same two
   datasets, then matrix-free at n=32,560, where no (n, n) tensor may exist;
@@ -20,8 +22,11 @@ to 0 just before it and read just after:
 
 Three kernels have routes, and every check and path records the one it
 took (``ops.route_counts``): the dense ``smo_chunk`` runs one block a lane
-or, where a time model fitted on the card says it is faster and the lanes'
-state fits in shared memory, many blocks a lane (the size phase); the
+holding the lane's state on chip (every Table-1 lane), or, where a time
+model fitted on the card says it is faster and the lanes' state fits in
+shared memory, many blocks a lane (the size phase), or, for lanes that fit
+neither, one block a lane with the state in global memory (the wide dense
+batch at n=32,560, 24 folds at once); the
 matrix-free ``smo_stream_chunk`` runs as one persistent cooperative launch
 wherever its plan places the lanes (up to 16), else as a launch pair per
 iteration (the fused step and the selection; the batched path's 20-fold
@@ -54,19 +59,26 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-#: the JAX reference's quick Table-1 run (BENCH_table1.json, k=10, CPU):
-#: iteration counts and accuracy do not depend on the hardware's speed
+#: the JAX reference's Table-1 run (``repro.core.cv.run_cv``, k=10, on the
+#: CPU under jax 0.9.0, the installed reference; BENCH_table1.json came from
+#: jax 0.4.37, whose threefry draw differed): iteration counts and accuracy
+#: do not depend on the hardware's speed. Adult's counts gate the port's
+#: (``tests/test_torch_chip_reference.py`` holds these to the reference);
+#: heart's are printed beside the port's: the port builds its own K, whose
+#: last bits heart's ill-conditioned solves (C = 2182) amplify
 REFERENCE = {
-    "heart": {"n": 270, "accuracy": 0.5519, "iterations": {
-        "cold": 101046, "ato": 98592, "mir": 98458, "sir": 98579}},
-    "adult": {"n": 1000, "accuracy": 0.885, "iterations": {
-        "cold": 16263, "ato": 18674, "mir": 13055, "sir": 11315}},
+    "heart": {"n": 270, "accuracy": 0.5519, "gated": False, "iterations": {
+        "cold": 101197, "ato": 98039, "mir": 98297, "sir": 97639}},
+    "adult": {"n": 1000, "accuracy": 0.885, "gated": True, "iterations": {
+        "cold": 16263, "ato": 18674, "mir": 13055, "sir": 11357}},
 }
 METHODS = ("cold", "ato", "mir", "sir")
-#: the reference's batched rows of the same run: (iterations, accuracy)
+#: the reference's batched rows of the same run (``run_cv_batched``):
+#: iterations; the matrix-free rows gate both datasets, the dense rows
+#: adult's
 REFERENCE_BATCHED = {
-    "heart": {"cold_pallas": 182058, "cold_batched": 101046,
-              "cold_batched_repacked": 101046},
+    "heart": {"cold_pallas": 182058, "cold_batched": 101197,
+              "cold_batched_repacked": 101197},
     "adult": {"cold_pallas": 16260, "cold_batched": 16263,
               "cold_batched_repacked": 16263},
 }
@@ -109,10 +121,19 @@ FLASH_BF16_CASES = tuple((2, 3, 3, S, D, causal, window)
     (2, 8, 2, 1000, 128, True, 256), (1, 4, 1, 200, 256, False, 70),
     (2, 8, 2, 1000, 256, True, 256), (2, 4, 2, 256, 32, True, 48))
 #: the dense chunk's crossover sweep: rows, iterations timed on each route
-CHUNK_SWEEP_N = (1000, 2000, 4096, 8192, 16384)
+CHUNK_SWEEP_N = (100, 270, 500, 1000, 2000, 4096, 6144, 8192, 16384)
 CHUNK_SWEEP_ITERS = 500
 #: rows of its sweep over lanes (where the plan's blocks a lane shrink)
 CHUNK_LANE_SWEEP_N = (4608, 8192, 32560)
+#: rows of the resident one-block kernel's sweep over its builds (rows a
+#: thread, and so the block's width): heart's n=270 and adult's n=1000
+#: (Table 1's lanes, cold fold 0 to convergence), and adult's first n rows
+#: (CHUNK_SWEEP_ITERS capped iterations) around them
+CHUNK_WIDTH_SWEEP_N = (100, 500, 2000, 4096)
+#: folds of the wide dense batch at the paper's cardinality: more lanes
+#: than the multi-block plan places (22 at n = 32,560), so every chunk
+#: keeps one block a lane on the global-state kernel
+WIDE_DENSE_K = 24
 #: the streaming chunk's route sweep: adult's first n rows, and iterations
 #: timed on each route
 STREAM_SWEEP_N = (270, 1000, 4096, 32560)
@@ -249,6 +270,7 @@ def phase_kernels(datasets):
     """Each kernel against its plain version at the main path's shapes,
     then its time, the plain version's time, and its bound."""
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.smo_chunk import RESIDENT_BUILDS, resident_build
     t0 = time.perf_counter()
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
@@ -357,14 +379,33 @@ def phase_kernels(datasets):
                           plain_ms=rec["plain_ms_per_iter"],
                           **_bound(_chunk_iter_bytes(rec["n"], rec["n_iter"]),
                                    0.0))
+    # (the global-state kernel's entry is taken on its own path's lanes,
+    # in phase_size_wide)
     big = datasets[("adult", SIZE_N - 1)]
     sweep = _chunk_crossover(big)
+    widths = _chunk_width_sweep(datasets)
     lane_sweep = _chunk_lane_sweep(big)
+    # each route's (floor, slope) over the sweeps' one-lane points and the
+    # lane sweep's, in the form of smo_chunk.ONE_BLOCK_US and its kin
+    points = {r: [] for r in ("one_block", "one_block_global",
+                              "multi_block")}
+    for rec in sweep + lane_sweep:
+        for r in points:
+            if f"us_per_iter_{r}" in rec:
+                x = rec["n"] if r != "multi_block" else \
+                    4 * -(-rec["n"] // rec["blocks_per_lane"])
+                points[r].append((x, rec[f"us_per_iter_{r}"]))
+    fits = {r: _fit_line(p) for r, p in points.items() if len(p) >= 2}
+    builds = {_build_name(r, 0, s).split("x")[0]: dict(zip(
+        ("threads", "regs", "local_bytes"), resident_build(r, s)))
+        for r, s in RESIDENT_BUILDS}
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0,
           "rbf_checks": rbf_checks, "rbf_tile_64_vs_32_max_diff": tile_diff,
           "rbf_times": rbf_times, "smo_f_update": fu,
           "smo_chunk": chunk_checks, "smo_chunk_crossover": sweep,
-          "smo_chunk_lane_sweep": lane_sweep})
+          "smo_chunk_width_sweep": widths,
+          "smo_chunk_lane_sweep": lane_sweep, "smo_chunk_fits": fits,
+          "smo_chunk_resident_builds": builds})
     return info
 
 
@@ -377,53 +418,139 @@ def _chunk_iter_bytes(n: int, iters: int) -> float:
     return 16.0 * n + 49.0 * n / max(iters, 1)
 
 
+def _chunk_problem(ds, n, dev):
+    """adult's (or ``ds``'s) first n rows as one dense lane: cold, its first
+    tenth held out. Returns K, diag, y, the mask and the cold state."""
+    from repro_torch.kernels import ops
+    X = torch.as_tensor(ds.X[:n], device=dev)
+    y = torch.as_tensor(ds.y[:n], dtype=torch.float64, device=dev)
+    K = ops.rbf_kernel_matrix(X, X, ds.gamma)
+    mask = torch.ones(n, dtype=torch.bool, device=dev)
+    mask[:n // 10] = False           # fold 0 of 10 at this n
+    state = (torch.zeros_like(y), -y, torch.tensor(0, device=dev),
+             torch.tensor(False, device=dev))
+    return K, torch.diagonal(K).contiguous(), y, mask, state
+
+
+def _routes_here(n: int, m: int) -> tuple:
+    """The dense chunk's routes that can take a lane of n rows, given the
+    multi-block plan's m blocks a lane."""
+    from repro_torch.kernels.smo_chunk import one_block_plan
+    return (("one_block",) if one_block_plan(n) is not None else ()) \
+        + (("multi_block",) if m >= 1 else ()) + ("one_block_global",)
+
+
+def _fit_line(points) -> list:
+    """Least-squares (floor, slope) of us against n / 1024 (the form of
+    ``smo_chunk.ONE_BLOCK_US``)."""
+    xs = np.array([p[0] / 1024 for p in points])
+    ys = np.array([p[1] for p in points])
+    slope, floor = np.polyfit(xs, ys, 1)
+    return [float(floor), float(slope)]
+
+
 def _chunk_crossover(ds):
-    """The two routes of the dense chunk side by side on adult's first n
-    rows, its first tenth held out, CHUNK_SWEEP_ITERS capped WSS-2
-    iterations: bitwise equal, each route's time per iteration (with the
-    lane sweep, what ``smo_chunk.ONE_BLOCK_US`` and ``MULTI_BLOCK_US`` were
-    fitted to), the faster, and the route ``chunk_route`` picks."""
+    """The dense chunk's routes side by side on adult's first n rows, its
+    first tenth held out, CHUNK_SWEEP_ITERS capped WSS-2 iterations: bitwise
+    equal, each route's time per iteration (with the lane sweep, what
+    ``smo_chunk.ONE_BLOCK_US`` and ``MULTI_BLOCK_US`` were fitted to), the
+    faster, and the route ``chunk_route`` picks. Where it picks the
+    resident one-block kernel, that kernel must be no slower than the
+    global-state one it replaced."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.smo_chunk import chunk_route, multi_block_plan
     dev = torch.device("cuda")
-    zero_it, no = torch.tensor(0, device=dev), torch.tensor(False, device=dev)
     out = []
     for n in CHUNK_SWEEP_N:
-        X = torch.as_tensor(ds.X[:n], device=dev)
-        y = torch.as_tensor(ds.y[:n], dtype=torch.float64, device=dev)
-        K = ops.rbf_kernel_matrix(X, X, ds.gamma)
-        mask = torch.ones(n, dtype=torch.bool, device=dev)
-        mask[:n // 10] = False           # fold 0 of 10 at this n
+        K, diag, y, mask, state = _chunk_problem(ds, n, dev)
         cap = CHUNK_SWEEP_ITERS
-        args = (K, torch.diagonal(K).contiguous(), y, mask, ds.C, 1e-3,
-                cap, cap + 1, "2", torch.zeros_like(y), -y, zero_it, no)
-        res = {r: ops.smo_chunk(*args, _route=r)
-               for r in ("one_block", "multi_block")}
-        for a, b, what in zip(*res.values(), ("alpha", "f", "n_iter",
-                                              "done")):
-            require(torch.equal(a, b), f"smo_chunk n={n}: the routes' {what} "
-                                       "differ")
-        it = int(res["one_block"][2])
-        rec = {"n": n, "n_iter": it,
-               "route": chunk_route(n, multi_block_plan(n, 1)[0])}
-        for r in res:
+        args = (K, diag, y, mask, ds.C, 1e-3, cap, cap + 1, "2", *state)
+        m = multi_block_plan(n, 1)[0]
+        routes = _routes_here(n, m)
+        res = {r: ops.smo_chunk(*args, _route=r) for r in routes}
+        for r in routes[1:]:
+            for a, b, what in zip(res[routes[0]], res[r],
+                                  ("alpha", "f", "n_iter", "done")):
+                require(torch.equal(a, b), f"smo_chunk n={n}: {routes[0]} "
+                                           f"and {r}'s {what} differ")
+        it = int(res[routes[0]][2])
+        rec = {"n": n, "n_iter": it, "blocks_per_lane": m,
+               "route": chunk_route(n, m)}
+        for r in routes:
             ms = cuda_ms(lambda: ops.smo_chunk(*args, _route=r), 3)
             rec[f"us_per_iter_{r}"] = 1e3 * ms / it
-        rec["faster"] = min(res, key=lambda r: rec[f"us_per_iter_{r}"])
+        rec["faster"] = min(routes, key=lambda r: rec[f"us_per_iter_{r}"])
+        if rec["route"] == "one_block":
+            require(rec["us_per_iter_one_block"]
+                    <= rec["us_per_iter_one_block_global"],
+                    f"smo_chunk n={n}: the resident kernel is slower than "
+                    "the global-state one where chunk_route picks it")
         out.append(rec)
-        del K
+        del K, diag, res
     return out
 
 
+def _chunk_width_sweep(datasets):
+    """The resident one-block kernel at each of its builds (rows a thread
+    in registers or shared memory, so the block's width) that holds a
+    lane: heart n=270 and adult n=1000 on their cold fold 0 to
+    convergence, and adult's first n rows of CHUNK_WIDTH_SWEEP_N capped at
+    CHUNK_SWEEP_ITERS. Every build bitwise equal; each one's time per
+    iteration, the fastest, and the build ``one_block_plan`` picks; and
+    each build's most threads, registers and spilled bytes a thread."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.smo_chunk import (RESIDENT_BUILDS,
+                                               one_block_plan,
+                                               resident_build,
+                                               resident_threads)
+    dev = torch.device("cuda")
+    big = datasets[("adult", SIZE_N - 1)]
+    cases = [("heart", datasets[("heart", 270)], 270, 10 ** 6),
+             ("adult", datasets[("adult", 1000)], 1000, 10 ** 6)] + [
+        ("adult", big, n, CHUNK_SWEEP_ITERS) for n in CHUNK_WIDTH_SWEEP_N]
+    out = []
+    for name, ds, n, cap in cases:
+        K, diag, y, mask, state = _chunk_problem(ds, n, dev)
+        args = (K, diag, y, mask, ds.C, 1e-3, cap, cap + 1, "2", *state)
+        plan = one_block_plan(n)
+        want = ops.smo_chunk(*args, _route="one_block")
+        it = int(want[2])
+        times = {}
+        for rows, smem in RESIDENT_BUILDS:
+            threads = resident_threads(n, rows)
+            if threads > resident_build(rows, smem)[0]:
+                continue
+            got = ops.smo_chunk(*args, _route="one_block", _rows=(rows, smem))
+            for a, b, what in zip(got, want, ("alpha", "f", "n_iter",
+                                              "done")):
+                require(torch.equal(a, b), f"smo_chunk n={n}: build {rows} "
+                                           f"rows ({smem}) {what} differs")
+            ms = cuda_ms(lambda: ops.smo_chunk(
+                *args, _route="one_block", _rows=(rows, smem)), 3)
+            times[_build_name(rows, threads, smem)] = 1e3 * ms / it
+        out.append({"dataset": name, "n": n, "n_iter": it,
+                    "us_per_iter": times,
+                    "fastest": min(times, key=times.get),
+                    "plan": _build_name(*plan)})
+        del K, diag
+    return out
+
+
+def _build_name(rows: int, threads: int, smem: bool) -> str:
+    """A resident build at a block: "4x256" (registers), "8sx512" (shared
+    memory)."""
+    return f"{rows}{'s' if smem else ''}x{threads}"
+
+
 def _chunk_lane_sweep(ds):
-    """The two routes of the dense chunk over b lanes (lane l holds out
-    adult's tenth l mod 10), CHUNK_SWEEP_ITERS capped WSS-2 iterations, at
-    each n of CHUNK_LANE_SWEEP_N: b = 1, 4, 16 and the widest batch the
-    multi-block plan still places (its lanes' state fills the card's
-    shared memory, so few blocks a lane), bitwise equal lane by lane; then
-    one lane more, which the plan cannot place, so it must route to one
-    block a lane. Each route's time per iteration, the faster, and the
-    plan's blocks a lane (what ``chunk_route`` decides from)."""
+    """The dense chunk's routes over b lanes (lane l holds out adult's
+    tenth l mod 10), CHUNK_SWEEP_ITERS capped WSS-2 iterations, at each n of
+    CHUNK_LANE_SWEEP_N: b = 1, 4, 16 and the widest batch the multi-block
+    plan still places (its lanes' state fills the card's shared memory, so
+    few blocks a lane), bitwise equal lane by lane; then one lane more,
+    which that plan cannot place, so it must route to one block a lane.
+    Each route's time per iteration, the faster, and the plan's blocks a
+    lane (what ``chunk_route`` decides from)."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.smo_chunk import chunk_route, multi_block_plan
     dev = torch.device("cuda")
@@ -455,7 +582,7 @@ def _chunk_lane_sweep(ds):
                     f"took {route}, chunk_route says {chunk_route(n, m)}")
             require((m >= 1) == (b <= widest), f"smo_chunk n={n} b={b}: "
                     f"{m} blocks a lane, {widest} lanes the widest placed")
-            routes = ("one_block", "multi_block") if m >= 1 else ("one_block",)
+            routes = _routes_here(n, m)
             rec = {"n": n, "b": b, "blocks_per_lane": m, "route": route,
                    "widest_multi_block": widest}
             for r in routes:
@@ -479,10 +606,11 @@ def _chunk_lane_sweep(ds):
 def _chunk_checks(ds, it_cap: int):
     """smo_chunk against the plain step engine (its f-update through the
     smo_f_update kernel) on ``ds``'s cold fold 0 and SIR-seeded fold 1:
-    alpha, f, n_iter and done must be bitwise equal. Where the route is
-    multi-block (n=32,560) also bitwise against the one-block kernel and
-    against its own replay from a CUDA graph. At
-    heart's size also checks that ``chunk_iters=512`` equals one chunk."""
+    alpha, f, n_iter and done must be bitwise equal, and bitwise the
+    global-state one-block kernel, whose time is taken beside the route's.
+    Where the route is multi-block (n=32,560) also bitwise against its own
+    replay from a CUDA graph. At heart's size also checks that
+    ``chunk_iters=512`` equals one chunk."""
     from repro_torch.core.cv import _fold_masks, _transition_idx
     from repro_torch.core.seeding import sir_seed
     from repro_torch.data.svm_suite import kfold_chunks
@@ -523,18 +651,16 @@ def _chunk_checks(ds, it_cap: int):
                "n_iter": it, "ms": ms, "plain_ms": 1e3 * plain_s,
                "ms_per_iter": ms / it, "plain_ms_per_iter": 1e3 * plain_s / it,
                "us_per_iter": 1e3 * ms / it, "max_abs_err": err}
+        # the route against the global-state one-block kernel, bitwise
+        one = ops.smo_chunk(*args, alpha0, f0, zero_it, no,
+                            _route="one_block_global")
+        for a, b, what in zip(got, one, ("alpha", "f", "n_iter", "done")):
+            require(torch.equal(a, b), f"smo_chunk n={n} {label}: {what} "
+                                       "differs from the global-state kernel")
+        rec["us_per_iter_one_block_global"] = 1e3 * cuda_ms(
+            lambda: ops.smo_chunk(*args, alpha0, f0, zero_it, no,
+                                  _route="one_block_global"), 3) / it
         if route == "multi_block":
-            # the route against the one-block kernel, bitwise
-            one = ops.smo_chunk(*args, alpha0, f0, zero_it, no,
-                                _route="one_block")
-            for a, b, what in zip(got, one, ("alpha", "f", "n_iter",
-                                             "done")):
-                require(torch.equal(a, b), f"smo_chunk n={n} {label}: {what}"
-                                           " differs from the one-block "
-                                           "kernel")
-            rec["us_per_iter_one_block"] = 1e3 * cuda_ms(
-                lambda: ops.smo_chunk(*args, alpha0, f0, zero_it, no,
-                                      _route="one_block"), 3) / it
             # and captured in a CUDA graph (C and the cap on the device)
             lanes = (K, diag, y, mask[None],
                      torch.full((1,), ds.C, dtype=torch.float64, device=dev),
@@ -596,10 +722,15 @@ def phase_table1(build_s: float):
                     f"{name} {method}: non-finite objective")
             per_fold[method] = [(f.acc_correct, f.acc_total)
                                 for f in rep.folds]
+            if refd["gated"]:
+                require(it == refd["iterations"][method],
+                        f"{name} {method}: {it} iterations, the reference "
+                        f"takes {refd['iterations'][method]}")
             rows.append({
                 "dataset": name, "n": rep.n, "method": method,
                 "iterations": it,
                 "reference_iterations": refd["iterations"][method],
+                "gated": refd["gated"],
                 "per_fold_iterations": [f.n_iter for f in rep.folds],
                 "kernel_s": rep.kernel_time, "init_s": rep.total_init_time,
                 "solve_s": rep.total_solve_time,
@@ -674,6 +805,104 @@ def phase_size(ds, n_sir_folds: int = 2):
           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
           "folds": folds})
     return [f["accuracy"] for f in folds]
+
+
+def phase_size_wide(ds):
+    """Dense cold CV at the paper's cardinality in WIDE_DENSE_K folds at
+    once (``run_cv_batched``, the fixed-width batch): more lanes than the
+    multi-block plan places, so every chunk keeps one block a lane on the
+    global-state kernel. Every fold converges with a finite objective, and
+    fold 0 solved alone (one lane: the multi-block route) takes the same
+    iterations and classifies its test rows the same. Then the
+    global-state kernel on this path's shape, all WIDE_DENSE_K fold masks
+    as lanes from the cold state, capped at 300 iterations (as
+    ``_chunk_checks`` caps n=32,560): every lane bitwise the plain step
+    engine's from the same state, timed; the kernels line's entry for
+    the kernel. Resets the launch counts and reads them around the
+    batched run itself: the checks that follow launch the chunk too.
+    Returns the counts, the routes and that entry."""
+    from repro_torch.core.cv import _eval_fold, _fold_masks, run_cv_batched
+    from repro_torch.data.svm_suite import kfold_chunks
+    from repro_torch.kernels import ops, ref
+    from repro_torch.svm import kernel_matrix, smo_solve
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    sync()
+    tw = time.perf_counter()
+    rep = run_cv_batched(ds, k=WIDE_DENSE_K, schedule="batched")
+    wall = time.perf_counter() - tw
+    counts, routes = ops.launch_counts(), ops.route_counts()
+    chunk = routes["smo_chunk"]
+    require(all(f.converged and math.isfinite(f.objective)
+                for f in rep.folds), "size_wide: a fold did not converge")
+    require(chunk["one_block_global"] > 0 and chunk["multi_block"] == 0
+            and chunk["one_block"] == 0,
+            f"size_wide: the dense chunk's routes {chunk}")
+    # fold 0 alone, on the multi-block route
+    dev = torch.device("cuda")
+    chunks = kfold_chunks(ds.n, WIDE_DENSE_K)
+    n = chunks.size
+    X = torch.as_tensor(ds.X[:n], device=dev)
+    y = torch.as_tensor(ds.y[:n], dtype=torch.float64, device=dev)
+    K = kernel_matrix(X, X, gamma=ds.gamma)
+    mask = torch.as_tensor(_fold_masks(chunks)[0], device=dev)
+    res = smo_solve(K, y, mask, ds.C, torch.zeros(n, dtype=torch.float64,
+                                                  device=dev), -y,
+                    max_iter=5_000_000)
+    correct, total, _ = _eval_fold(K, y, chunks, 0, res, ds.C)
+    f0 = rep.folds[0]
+    require((int(res.n_iter), correct, total)
+            == (f0.n_iter, f0.acc_correct, f0.acc_total),
+            f"size_wide fold 0: {f0.n_iter} iterations, {f0.acc_correct}/"
+            f"{f0.acc_total} in the batch; alone {int(res.n_iter)}, "
+            f"{correct}/{total}")
+    # the global-state kernel at this path's shape against the plain step
+    # engine (its f-update through the smo_f_update kernel), lane by lane
+    masks = torch.as_tensor(_fold_masks(chunks), device=dev)
+    b, cap = masks.shape[0], 300
+    diag = torch.diagonal(K).contiguous()
+    state = (torch.zeros((b, n), dtype=torch.float64, device=dev),
+             -y.repeat(b, 1), torch.zeros(b, dtype=torch.int64, device=dev),
+             torch.zeros(b, dtype=torch.bool, device=dev))
+    lanes = (K, diag, y, masks, [ds.C] * b, 1e-3, [cap] * b, cap + 1, "2",
+             *state)
+    got = ops.smo_chunk_lanes(*lanes, _route="one_block_global")
+    sync()
+    t = time.perf_counter()
+    plain = [ref.smo_chunk_ref(K, diag, y, masks[l], ds.C, 1e-3, cap,
+                               cap + 1, "2", *(v[l] for v in state),
+                               update_f=ops.smo_f_update) for l in range(b)]
+    sync()
+    plain_s = time.perf_counter() - t
+    for l, want in enumerate(plain):
+        for a, w, what in zip(got, want, ("alpha", "f", "n_iter", "done")):
+            require(torch.equal(a[l], w), f"size_wide lane {l}: the "
+                    f"global-state kernel's {what} differs from the plain "
+                    "step engine")
+    require(bool(got[3].all()) and int(got[2].min()) == cap,
+            "size_wide: a capped lane did not stop at its cap")
+    ms = cuda_ms(lambda: ops.smo_chunk_lanes(*lanes,
+                                             _route="one_block_global"), 3)
+    it = int(got[2].max())
+    entry = {"n": n, "lanes": b, "n_iter": it, "max_abs_err": max(
+        float((got[k][l] - plain[l][k]).abs().max()) for k in (0, 1)
+        for l in range(b)), "ms": ms / it, "plain_ms": 1e3 * plain_s / it,
+        "us_per_iter_one_block_global": 1e3 * ms / it,
+        **_bound(b * _chunk_iter_bytes(n, it), 0.0)}
+    del K, diag, got, plain, lanes, state
+    torch.cuda.empty_cache()
+    lane_max = max(f.n_iter for f in rep.folds)
+    emit({"phase": "size_wide", "seconds": time.perf_counter() - t0,
+          "n": rep.n, "k": WIDE_DENSE_K, "method": rep.method,
+          "iterations": rep.total_iterations,
+          "per_fold_iterations": [f.n_iter for f in rep.folds],
+          "solve_s": rep.total_solve_time, "wall_s": wall,
+          "us_per_longest_lane_iteration":
+              1e6 * rep.total_solve_time / max(lane_max, 1),
+          "accuracy": rep.accuracy, "chunk_routes": chunk,
+          "global_state_check": entry})
+    return counts, routes, entry
 
 
 def _bound(nbytes: float, flops: float, peak: float = FP64_FLOPS) -> dict:
@@ -1189,9 +1418,10 @@ def phase_table1_batched(cold_folds):
             if method == "cold_pallas":
                 require(routes["pair"] == 0 and routes["persistent"] > 0,
                         f"{name} cold_pallas: stream chunk routes {routes}")
+            if method == "cold_pallas" or refd["gated"]:
                 require(rep.total_iterations
                         == REFERENCE_BATCHED[name][method],
-                        f"{name} cold_pallas: {rep.total_iterations} "
+                        f"{name} {method}: {rep.total_iterations} "
                         "iterations, not the reference's")
             require(rep.method == method, f"{rep.method} != {method}")
             require(all(f.converged for f in rep.folds)
@@ -1733,6 +1963,9 @@ def main() -> int:
     ops.reset_launch_counts()
     dense_accs = phase_size(datasets[("adult", SIZE_N - 1)])
     counts["size"], routes["size"] = ops.launch_counts(), ops.route_counts()
+    (counts["size_wide"], routes["size_wide"],
+     info["smo_chunk_one_block_global"]) = phase_size_wide(
+        datasets[("adult", SIZE_N - 1)])
     ops.reset_launch_counts()
     phase_size_matrix_free(datasets[("adult", SIZE_N - 1)], dense_accs)
     counts["size_matrix_free"], routes["size_matrix_free"] = (
@@ -1746,13 +1979,19 @@ def main() -> int:
     for name in ("rbf_kernel_matrix", "smo_f_update", "smo_chunk"):
         require(counts["table1"][name] > 0,
                 f"{name} was not launched on the Table-1 path")
-    # heart and adult n=1000 stay one block a lane; n=32,560 spreads
-    require(routes["table1"]["smo_chunk"]["multi_block"] == 0
-            and routes["table1_batched"]["smo_chunk"]["multi_block"] == 0,
-            "the dense chunk took the multi-block route at n <= 1,000")
-    require(routes["size"]["smo_chunk"]["multi_block"] > 0
-            and routes["size"]["smo_chunk"]["one_block"] == 0,
-            "the size path's chunk did not take the multi-block route")
+    # every dense chunk of Table 1 and its batched rows (heart and adult
+    # n=1000) takes the resident one-block kernel; n=32,560 spreads one
+    # lane over many blocks, and the wide batch there keeps one block a
+    # lane on the global-state kernel
+    for path in ("table1", "table1_batched"):
+        chunk = routes[path]["smo_chunk"]
+        require(chunk["one_block"] > 0 and chunk["multi_block"] == 0
+                and chunk["one_block_global"] == 0,
+                f"{path}: the dense chunk's routes {chunk}")
+    chunk = routes["size"]["smo_chunk"]
+    require(chunk["multi_block"] > 0 and chunk["one_block"] == 0
+            and chunk["one_block_global"] == 0,
+            f"size: the dense chunk's routes {chunk}")
     # the batched path's ten folds take the persistent streaming chunk, its
     # twenty folds the pair route (fused step + selection) while more than
     # 16 are live; the matrix-free size path the persistent route alone
@@ -1787,6 +2026,9 @@ def main() -> int:
                "smo_chunk_multi_block": (csrc + "smo_chunk.cu",
                                          "src/repro/svm/engine.py:566",
                                          "size"),
+               "smo_chunk_one_block_global": (csrc + "smo_chunk.cu",
+                                              "src/repro/svm/engine.py:566",
+                                              "size_wide"),
                "fused_smo_step": (csrc + "smo_step.cu",
                                   "src/repro/kernels/smo_step.py:67",
                                   "table1_batched"),
@@ -1799,13 +2041,15 @@ def main() -> int:
                "flash_attention": (csrc + "flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:71",
                                    "serve_lm")}
-    # the dense chunk's two routes are two kernels, each counted on its own
-    # path; flash_attention's routes are listed beside its launches
+    # the dense chunk's three routes are three kernels, each counted on its
+    # own path; flash_attention's routes are listed beside its launches
     launches = {name: counts[path].get(name) for name, (_, _, path)
                 in sources.items()}
     launches["smo_chunk"] = routes["table1"]["smo_chunk"]["one_block"]
     launches["smo_chunk_multi_block"] = (
         routes["size"]["smo_chunk"]["multi_block"])
+    launches["smo_chunk_one_block_global"] = (
+        routes["size_wide"]["smo_chunk"]["one_block_global"])
     kernels = []
     for name, (src, replaces, path) in sources.items():
         k = info[name]
@@ -1817,12 +2061,17 @@ def main() -> int:
             "bound_by": k["bound_by"], "library_ms": k.get("library_ms")})
         if name in ("flash_attention", "smo_stream_chunk"):
             kernels[-1]["routes"] = routes[path][name]
-        # beside the main path's shape: the paper's cardinality, and the
-        # floors that X held in the L2 leaves
+        # beside the main path's shape: the paper's cardinality, the
+        # floors that X held in the L2 leaves, and the dense chunk's rows
+        # and the global-state kernel's time there
         kernels[-1].update({key: v for key, v in k.items()
                             if key.endswith(f"_{SIZE_N - 1}x10")
                             or key in ("shape", "flop_floor_ms",
                                        "x_per_iter_hbm_ms")})
+        if name.startswith("smo_chunk"):
+            kernels[-1].update(n=k["n"], lanes=k.get("lanes", 1),
+                               us_per_iter_one_block_global=k[
+                                   "us_per_iter_one_block_global"])
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "build_s": build_s, "card": card})
     print(json.dumps({"kernels": kernels}), flush=True)

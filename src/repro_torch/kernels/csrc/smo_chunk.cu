@@ -1,8 +1,8 @@
 // Device-resident dense SMO chunk over a grid of lanes: up to n_iters
 // iterations of the dense engine's step (WSS-2 or WSS-1 pair selection,
-// box-clipped rank-2 update) in ONE launch, float64, one thread block per
-// lane, state in global memory. The lanes share K, diag and y; each has its
-// own train mask, C, iteration cap, alpha, f, n_iter and done flag.
+// box-clipped rank-2 update) in ONE launch, float64. The lanes share K,
+// diag and y; each has its own train mask, C, iteration cap, alpha, f,
+// n_iter and done flag.
 //
 // Replaces the lax.while_loop of src/repro/svm/engine.py::smo_chunk over
 // _step (one lane) and chunk_batched_jit (the vmapped lanes), whose f-update
@@ -11,7 +11,18 @@
 // iteration and sync on the convergence test. Here the host reads the lanes'
 // `done` flags only between chunks.
 //
-// One iteration, all inside the lane's block:
+// Three kernels, routes by size (kernels/smo_chunk.py::chunk_route):
+//   * smo_chunk_resident_kernel ("one_block"): one block a lane, the
+//     lane's state in registers or shared memory, wherever it fits a block
+//     (n <= 6,144): every Table-1 launch;
+//   * smo_chunk_multi_kernel ("multi_block"): each lane over many blocks of
+//     a cooperative launch, for large n while the lanes' state fits the
+//     card's shared memory;
+//   * smo_chunk_kernel ("one_block_global", below): one block a lane, state
+//     in global memory, for lanes that fit neither (wide batches at large
+//     n: past 22 lanes at n = 32,560).
+//
+// smo_chunk_kernel's iteration, all inside the lane's block:
 //   pass 1  I_up / I_low from (alpha, y, mask, C); argmin of f over I_up
 //           (i, b_up), argmax of f over I_low (b_low, the WSS-1 j); the done
 //           freeze (gap <= tol, it >= it_cap, NaN gap) ends the lane's loop;
@@ -21,26 +32,24 @@
 //   pass 3  f += delta * (K_i - K_j) through smo_f_update_elem (the same
 //           fma as smo_update.cu), alpha clipped to [0, C].
 //
-// Bitwise equal to the plain step (kernels/ref.py::smo_step_ref): the
-// (value, index) reductions of smo_common.cuh are exact in any order, and
-// -fmad=false rounds the selection arithmetic op by op, as torch does. The
-// first update of a launch clips all of alpha (the reference clips every
-// element every step; after one step the others are inside the box, and clip
-// is idempotent), later ones only i and j. A lane's block does the same work
-// whatever the grid's width, so a lane packed with others is bitwise equal to
-// the lane alone; a pad lane arrives done and exits at once.
+// Bitwise equal to the plain step (kernels/ref.py::smo_step_ref), and the
+// three kernels to each other: the (value, index) reductions of
+// smo_common.cuh are exact in any order, and -fmad=false rounds the
+// selection arithmetic op by op, as torch does. The first update of a
+// launch clips all of alpha (the reference clips every element every step;
+// after one step the others are inside the box, and clip is idempotent),
+// later ones only i and j. A lane's block does the same work whatever the
+// grid's width, so a lane packed with others is bitwise equal to the lane
+// alone; a pad lane arrives done and exits at once.
 //
 // Bound: what a chunk must move is the K_i and K_j rows of each iteration
 // (16 n bytes) and the lane's state once: alpha, f, y, diag and the mask
 // read (33 n), alpha and f written (16 n); alpha changes at i and j only,
 // and the state of a lane fits on chip. So about 16 n + 49 n / iterations
-// bytes an iteration. This kernel keeps the state in global memory and
-// streams it every iteration (~65 n bytes). One block uses one SM, so at
-// large n its iteration is one SM's share of bandwidth and its block
-// barriers, not the card's; lanes run on separate SMs in parallel. At
-// small n that is the better trade (kernels/smo_chunk.py::chunk_route): an
-// iteration at heart's n = 270 is a latency floor of a few block barriers.
-// At large n the multi-block route below spreads each lane over many SMs.
+// bytes an iteration. smo_chunk_kernel keeps the state in global memory
+// and streams it every iteration (~65 n bytes) through one SM; lanes run
+// on separate SMs in parallel. What bounds every route at the paper's
+// sizes is latency (barriers and dependent L2 round trips), not bytes.
 #include <cuda_runtime.h>
 
 #include "smo_common.cuh"
@@ -119,6 +128,442 @@ smo_chunk_kernel(const double* __restrict__ K, const double* __restrict__ diag,
   }
 }
 
+
+// ------------------------------------------------------------------------
+// Resident one-block route (the wrapper's "one_block"): one block a lane,
+// the lane's state on chip for the whole launch. What bounds an iteration
+// at Table 1's sizes is a chain of dependent latencies, not bytes (a few
+// ns of them). The kernel above pays, every iteration, three passes that
+// re-read the state from L2, six block barriers, a scalar step that
+// thread 0 runs from eight dependent global loads, and four block
+// reductions of five shuffle levels each, every level a chain of NaN-aware
+// float64 compares (3.4-4.9 us an iteration on an H100). Here:
+//
+//   * thread t owns rows t R .. t R + R - 1 (T threads, R rows a thread,
+//     both fixed per launch; rows rise with the lane, which the tie rule
+//     below uses) and holds their alpha, f, y, diag, mask bit and the
+//     signs of y in registers (or, past 2,048 rows, in the block's shared
+//     memory, 33 bytes a row), loaded once and stored once a launch; the
+//     only global reads left in the loop are the K_i and K_j rows;
+//   * one sweep a step: the f-update of step t and pass 1 of step t+1 are
+//     one loop over the thread's rows, branch-free;
+//   * a thread keeps its best row by one float64 compare a row; only that
+//     row becomes an order key (see min_key), and a warp finds its least
+//     key with two __reduce_min_sync and a ballot (the lowest lane, so
+//     the lowest row, wins a tie);
+//   * one barrier a reduction: the lane that holds the warp's winner writes
+//     its key, value and row's scalars to the warp's slot in shared
+//     memory; one __syncthreads; every warp then reduces the slots itself
+//     and reads the winner's scalars. Slots alternate by reduction parity,
+//     so a warp that runs ahead never overwrites a slot another still
+//     reads;
+//   * no serial scalar step: every thread computes delta and the new
+//     alpha_i / alpha_j with pair_step from the published scalars, while
+//     its K_j loads are in flight; the owners of rows i and j take them
+//     in the next sweep;
+//   * each thread issues its rows' K_i loads as soon as i is known and its
+//     K_j loads as soon as j is (WSS-1: both, and K_ij, at once).
+//
+// That leaves an iteration two block barriers (one in WSS-1), four warp
+// reductions with their slot exchanges, and two dependent round trips for
+// the K rows (one in WSS-1), which at Table 1's sizes hit the L2 (heart's
+// K is 0.58 MB, adult's 8 MB; the kernel prefers L1 to shared memory, so
+// hot rows may hit L1). Fewer rows a thread shorten the sweeps; more warps
+// lengthen the reductions (every warp reduces the slots) and the
+// barriers: the wrapper's placement picks R from the card's sweep.
+//
+// Every quantity is the kernel above's, by the same expressions in the
+// same order (the sets, the gain's diff * diff / eta, eta_ij, pair_step,
+// smo_f_update_elem, the clip on the launch's first update only), and
+// the reductions pick the same winner under the same order, so a lane is
+// bitwise that kernel, the multi-block route and the plain step engine,
+// and does the same work whatever the grid's width.
+// ------------------------------------------------------------------------
+
+// The most threads a build of the resident kernel takes: R rows a thread
+// in registers (SMEM false) or in shared memory (SMEM true). Registers
+// bound it: 65,536 a SM over the rows' state, the K rows and the
+// candidates. The wrapper reads it through smo_chunk_resident_build.
+template <int R, bool SMEM>
+struct Resident {
+  static constexpr int kThreads = SMEM ? 768 : R <= 2 ? 1024 : 512;
+};
+
+// Order keys. A (value, row) candidate reduces across lanes by an unsigned
+// 64-bit key of its value whose integer order is the value's order, -0
+// and +0 one key, NaN the smallest key (NaN first); a max reduces by the
+// key's complement. Equal keys fall to the lowest row. That is the order of
+// better_min / better_max exactly, so the winner is theirs; and two
+// warp-wide integer reductions (__reduce_min_sync) and a ballot find it,
+// where a shuffle tree takes five levels of float64 compares.
+__device__ __forceinline__ unsigned long long order_bits(double v) {
+  unsigned long long b = (unsigned long long)__double_as_longlong(v);
+  if ((b << 1) == 0) b = 0;  // -0 -> +0
+  return (b >> 63) ? ~b : b | 0x8000000000000000ull;
+}
+
+__device__ __forceinline__ unsigned long long min_key(double v) {
+  return isnan(v) ? 0ull : order_bits(v);
+}
+
+__device__ __forceinline__ unsigned long long max_key(double v) {
+  return isnan(v) ? 0ull : ~order_bits(v);
+}
+
+// The warp's least key: every lane gets it, and the lowest lane that holds
+// it. Lanes hold rows in rising order (see Rows), so the lowest lane
+// holds the lowest row: the tie rule.
+__device__ __forceinline__ int warp_least(unsigned long long& key) {
+  const unsigned hi = (unsigned)(key >> 32), lo = (unsigned)key;
+  const unsigned mh = __reduce_min_sync(0xffffffffu, hi);
+  const unsigned ml = __reduce_min_sync(0xffffffffu, hi == mh ? lo : ~0u);
+  const unsigned at = __ballot_sync(0xffffffffu, hi == mh && lo == ml);
+  key = ((unsigned long long)mh << 32) | ml;
+  return __ffs(at) - 1;
+}
+
+// One row's candidate against a thread's best so far, rows rising: a NaN
+// beats a number and nothing beats an earlier NaN; otherwise only a
+// strictly better value wins, so a tie keeps the earlier (lower) row. The
+// rule of better_min / better_max over one thread's rows, with one float64
+// compare a row; the thread's winner alone becomes a key. (The per-row
+// logic is written with & and | on bools: && and || made nvcc branch
+// around each compare, and the rows ran one after another.)
+template <bool MAX>
+__device__ __forceinline__ void row_best(double v, int r, double& bv,
+                                         int& br) {
+  const bool take =
+      (isnan(v) & !isnan(bv)) | (MAX ? v > bv : v < bv);
+  bv = take ? v : bv;
+  br = take ? r : br;
+}
+
+// A warp's candidate of one reduction, in shared memory: its key, value
+// and row, the OR of the set flags (pass 1), and its row's scalars (WSS-2's
+// second reduction: f, alpha, y, diag and K_ij of j).
+struct Cand {
+  unsigned long long key;
+  double v;
+  int i;
+  int flags;
+  double f, a, y, d, kij;
+};
+
+// A thread's R rows: thread t owns rows t R .. t R + R - 1, so rows rise
+// with the lane and, within a thread, with r. State in registers...
+template <int R, bool SMEM>
+struct Rows {
+  double a_[R], f_[R], y_[R], d_[R];
+  unsigned m_ = 0, pos_ = 0, neg_ = 0;
+  __device__ Rows(double*, int, int) {}
+  __device__ double& a(int r) { return a_[r]; }
+  __device__ double& f(int r) { return f_[r]; }
+  __device__ double& y(int r) { return y_[r]; }
+  __device__ double& d(int r) { return d_[r]; }
+  __device__ bool m(int r) const { return (m_ >> r) & 1u; }
+  __device__ bool pos(int r) const { return (pos_ >> r) & 1u; }
+  __device__ bool neg(int r) const { return (neg_ >> r) & 1u; }
+  __device__ void set(int r, double a, double f, double y, double d,
+                      bool m) {
+    a_[r] = a;
+    f_[r] = f;
+    y_[r] = y;
+    d_[r] = d;
+    m_ |= (m ? 1u : 0u) << r;
+    pos_ |= (y > 0.0 ? 1u : 0u) << r;
+    neg_ |= (y < 0.0 ? 1u : 0u) << r;
+  }
+};
+
+// ... or in shared memory, row r of thread t at [r * T + t]
+template <int R>
+struct Rows<R, true> {
+  double *a_, *f_, *y_, *d_;
+  unsigned char* m_;
+  int T;
+  __device__ Rows(double* base, int T_, int tid) : T(T_) {
+    const int rows = R * T_;
+    a_ = base + tid;
+    f_ = a_ + rows;
+    y_ = f_ + rows;
+    d_ = y_ + rows;
+    m_ = reinterpret_cast<unsigned char*>(base + 4 * rows) + tid;
+  }
+  __device__ double& a(int r) { return a_[r * T]; }
+  __device__ double& f(int r) { return f_[r * T]; }
+  __device__ double& y(int r) { return y_[r * T]; }
+  __device__ double& d(int r) { return d_[r * T]; }
+  __device__ bool m(int r) const { return m_[r * T] != 0; }
+  __device__ bool pos(int r) { return y(r) > 0.0; }
+  __device__ bool neg(int r) { return y(r) < 0.0; }
+  __device__ void set(int r, double a, double f, double y, double d,
+                      bool m) {
+    a_[r * T] = a;
+    f_[r * T] = f;
+    y_[r * T] = y;
+    d_[r * T] = d;
+    m_[r * T] = m ? 1 : 0;
+  }
+};
+
+// The lane that holds the warp's winner writes it to the warp's slot, with
+// row rb's scalars (selected without indexing the register arrays).
+template <int R, bool SMEM>
+__device__ __forceinline__ void publish_cand(Cand& c, Rows<R, SMEM>& s,
+                                             int rb, unsigned long long key,
+                                             double v, int i, int flags) {
+  c.key = key;
+  c.v = v;
+  c.i = i;
+  c.flags = flags;
+  double f = s.f(0), a = s.a(0), y = s.y(0), d = s.d(0);
+#pragma unroll
+  for (int r = 1; r < R; ++r)
+    if (r == rb) {
+      f = s.f(r);
+      a = s.a(r);
+      y = s.y(r);
+      d = s.d(r);
+    }
+  c.f = f;
+  c.a = a;
+  c.y = y;
+  c.d = d;
+}
+
+template <int R, bool SMEM>
+__global__ void __launch_bounds__(Resident<R, SMEM>::kThreads)
+smo_chunk_resident_kernel(const double* __restrict__ K,
+                          const double* __restrict__ diag,
+                          const double* __restrict__ y,
+                          const unsigned char* __restrict__ masks,
+                          const double* __restrict__ Cs, double tol,
+                          const long long* __restrict__ it_caps,
+                          long long n_iters, int wss, double* alphas,
+                          double* fs, long long* n_iter,
+                          unsigned char* done_flags, int n) {
+  extern __shared__ double rows_smem[];  // the SMEM build's state
+  __shared__ Cand c_up[2][kMaxWarps], c_low[2][kMaxWarps];
+  const int lane = blockIdx.x;
+  if (done_flags[lane] != 0) return;  // a pad or done lane exits at once
+  const int tid = threadIdx.x, T = blockDim.x;
+  const int wl = tid & 31, warp = tid >> 5, W = (T + 31) >> 5;
+  // every warp reduces all W slots: lane l reads slot l % W (so every
+  // slot is read, some twice, which a least-key reduction ignores); slots
+  // rise with their warps' rows, so the lowest lane that holds the least
+  // key reads the lowest row's slot
+  const int q = wl % W;
+  const int k0 = tid * R;  // this thread's first row
+  const unsigned char* mask = masks + (size_t)lane * n;
+  double* alpha = alphas + (size_t)lane * n;
+  double* f = fs + (size_t)lane * n;
+  const double C = Cs[lane];
+  const long long it_cap = it_caps[lane];
+  long long it = n_iter[lane];
+  bool done = false;
+
+  // rows past n hold no set (mask 0) and K entries 0: they never win a
+  // reduction (every row below n ties or beats them, at a lower row), so
+  // the sweeps need no guard
+  Rows<R, SMEM> s(rows_smem, T, tid);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int k = k0 + r;
+    const bool in = k < n;
+    s.set(r, in ? alpha[k] : 0.0, in ? f[k] : 0.0, in ? y[k] : 0.0,
+          in ? diag[k] : 0.0, in && mask[k] != 0);
+  }
+
+  double ki[R], kj[R];
+  // the step whose update the next sweep applies (none before the first):
+  // its rows, delta, and the new alpha_i / alpha_j already clipped
+  int pi = -1, pj = -1;
+  double p_delta = 0.0, p_ci = 0.0, p_cj = 0.0;
+  bool p_clip_all = false;
+  int slot = 0;
+  for (long long t = 0;; ++t) {
+    // ---- the sweep: step t-1's f-update and clip, then step t's pass 1
+    if (pi >= 0) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int k = k0 + r;
+        s.f(r) = smo_f_update_elem(s.f(r), ki[r], kj[r], p_delta);
+        s.a(r) = k == pj ? p_cj : k == pi ? p_ci : s.a(r);
+      }
+      if (p_clip_all) {  // the launch's first update clips all of alpha
+#pragma unroll
+        for (int r = 0; r < R; ++r) s.a(r) = clip(s.a(r), C);
+      }
+    }
+    double bu = 0.0, bl = 0.0;
+    int ru = 0, rl = 0, fl = 0;
+    unsigned low_bits = 0;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      // I_up / I_low as sets() decides them
+      const double ar = s.a(r);
+      const bool at_lo = ar <= 0.0, at_hi = ar >= C;
+      const bool pos = s.pos(r), neg = s.neg(r), m = s.m(r);
+      const bool up = m & !((pos & at_hi) | (neg & at_lo));
+      const bool low = m & !((pos & at_lo) | (neg & at_hi));
+      const double fk = s.f(r);
+      const double cu = up ? fk : INFINITY, cl = low ? fk : -INFINITY;
+      if (r == 0) {
+        bu = cu;
+        bl = cl;
+      } else {
+        row_best<false>(cu, r, bu, ru);
+        row_best<true>(cl, r, bl, rl);
+      }
+      fl |= (up ? 1 : 0) | (low ? 2 : 0);
+      low_bits |= (low ? 1u : 0u) << r;
+    }
+    if (t >= n_iters) break;
+
+    // ---- reduction 1: b_up / i and b_low / the WSS-1 j, the set flags
+    {
+      unsigned long long ku = min_key(bu), kl = max_key(bl);
+      const int wu = warp_least(ku), wlo = warp_least(kl);
+      fl = __reduce_or_sync(0xffffffffu, fl);
+      if (wl == wu)
+        publish_cand(c_up[slot][warp], s, ru, ku, bu, k0 + ru, fl);
+      if (wl == wlo)
+        publish_cand(c_low[slot][warp], s, rl, kl, bl, k0 + rl, fl);
+    }
+    __syncthreads();
+    unsigned long long ku = c_up[slot][q].key, kl = c_low[slot][q].key;
+    const Cand& ci = c_up[slot][warp_least(ku)];
+    const Cand& cl = c_low[slot][warp_least(kl)];
+    fl = __reduce_or_sync(0xffffffffu, c_up[slot][q].flags);
+    const double gap = fl == 3 ? cl.v - ci.v : -INFINITY;
+    done = (gap <= tol) || (it >= it_cap) || isnan(gap);
+    if (done) break;  // uniform: every warp reduced the same slots
+    const int i = ci.i;
+    const double f_i = ci.f, a_i = ci.a, y_i = ci.y, d_i = ci.d;
+    const double* Ki = K + (size_t)i * n;
+    int j;
+    double f_j, a_j, y_j, d_j, kij;
+    if (wss == 2) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) ki[r] = k0 + r < n ? Ki[k0 + r] : 0.0;
+      slot ^= 1;
+      // ---- pass 2 and reduction 2: WSS-2's second-order j
+      double bg = 0.0;
+      int rg = 0;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const bool low = (low_bits >> r) & 1u;
+        const double diff = s.f(r) - f_i;
+        const double eta = nan_max(d_i + s.d(r) - 2.0 * ki[r], kTau);
+        const double q = diff * diff / eta;
+        const double g = (low & (diff > 0.0)) ? q : -INFINITY;
+        if (r == 0)
+          bg = g;
+        else
+          row_best<true>(g, r, bg, rg);
+      }
+      unsigned long long kg = max_key(bg);
+      if (wl == warp_least(kg)) {
+        Cand& c = c_low[slot][warp];
+        publish_cand(c, s, rg, kg, bg, k0 + rg, 0);
+        double kk = ki[0];
+#pragma unroll
+        for (int r = 1; r < R; ++r) kk = r == rg ? ki[r] : kk;
+        c.kij = kk;
+      }
+      __syncthreads();
+      kg = c_low[slot][q].key;
+      const Cand& cj = c_low[slot][warp_least(kg)];
+      j = cj.i;
+      const double* Kj = K + (size_t)j * n;
+#pragma unroll
+      for (int r = 0; r < R; ++r) kj[r] = k0 + r < n ? Kj[k0 + r] : 0.0;
+      f_j = cj.f;
+      a_j = cj.a;
+      y_j = cj.y;
+      d_j = cj.d;
+      kij = cj.kij;
+    } else {
+      // WSS-1: j is b_low's row; K_i, K_j and K_ij in one round trip
+      j = cl.i;
+      const double* Kj = K + (size_t)j * n;
+      kij = Ki[j];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        ki[r] = k0 + r < n ? Ki[k0 + r] : 0.0;
+        kj[r] = k0 + r < n ? Kj[k0 + r] : 0.0;
+      }
+      f_j = cl.f;
+      a_j = cl.a;
+      y_j = cl.y;
+      d_j = cl.d;
+    }
+    slot ^= 1;
+
+    // ---- the scalar step, in every thread while its K_j loads are in
+    // flight; the next sweep applies it
+    const double eta_ij = nan_max(d_i + d_j - 2.0 * kij, kTau);
+    double new_i, new_j;
+    p_delta = pair_step(f_i, f_j, a_i, a_j, y_i, y_j, i == j, eta_ij, C,
+                        new_i, new_j);
+    p_ci = clip(new_i, C);
+    p_cj = clip(new_j, C);
+    p_clip_all = pi < 0;
+    pi = i;
+    pj = j;
+    ++it;
+  }
+
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int k = k0 + r;
+    if (k < n) {
+      alpha[k] = s.a(r);
+      f[k] = s.f(r);
+    }
+  }
+  if (tid == 0) {
+    n_iter[lane] = it;
+    done_flags[lane] = done ? 1 : 0;
+  }
+}
+
+// Threads of the resident kernel's block for n rows at R rows a thread.
+int resident_threads(int n, int rows) {
+  const int per = (n + rows - 1) / rows;
+  return ((per + 31) / 32) * 32;
+}
+
+size_t resident_smem(int threads, int rows, bool smem) {
+  return smem ? (size_t)rows * threads * (4 * sizeof(double) + 1) : 0;
+}
+
+template <int R, bool SMEM>
+int launch_resident(const double* K, const double* diag, const double* y,
+                    const unsigned char* masks, const double* Cs, double tol,
+                    const long long* it_caps, long long n_iters, int wss,
+                    double* alphas, double* fs, long long* n_iter,
+                    unsigned char* done, int n, int b, cudaStream_t stream) {
+  const int threads = resident_threads(n, R);
+  if (threads > Resident<R, SMEM>::kThreads) return (int)cudaErrorInvalidValue;
+  const size_t smem = resident_smem(threads, R, SMEM);
+  auto kernel = smo_chunk_resident_kernel<R, SMEM>;
+  // the rows' K entries are the loop's only global reads: as much L1 as
+  // the block's shared memory leaves
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+      SMEM ? (int)cudaSharedmemCarveoutMaxShared
+           : (int)cudaSharedmemCarveoutMaxL1);
+  if (e == cudaSuccess && SMEM)
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<b, threads, smem, stream>>>(K, diag, y, masks, Cs, tol, it_caps,
+                                       n_iters, wss, alphas, fs, n_iter,
+                                       done, n);
+  return (int)cudaGetLastError();
+}
 
 // ------------------------------------------------------------------------
 // Multi-block route: one lane over m blocks. At n = 32,560 the one-block
@@ -452,6 +897,65 @@ extern "C" int smo_chunk_f64(const double* K, const double* diag,
                                                 fs, n_iter, done, n);
   }
   return (int)cudaGetLastError();
+}
+
+// The resident route (smo_chunk_resident_kernel) for b lanes over n rows:
+// `rows` rows a thread (1, 2, 4 or 8), in registers, or in shared memory
+// with `smem` (rows 8 only); the block is 32 * ceil(n / (32 rows))
+// threads. cudaErrorInvalidValue for a build that does not exist or a
+// block wider than its build takes (kernels/smo_chunk.py::
+// one_block_plan places only what fits).
+extern "C" int smo_chunk_resident_f64(const double* K, const double* diag,
+                                      const double* y,
+                                      const unsigned char* masks,
+                                      const double* Cs, double tol,
+                                      const long long* it_caps,
+                                      long long n_iters, int wss,
+                                      double* alphas, double* fs,
+                                      long long* n_iter, unsigned char* done,
+                                      int n, int b, int rows, int smem,
+                                      cudaStream_t stream) {
+  if (n <= 0 || b <= 0 || n_iters <= 0) return (int)cudaGetLastError();
+#define SMO_RESIDENT(R, S)                                                  \
+  launch_resident<R, S>(K, diag, y, masks, Cs, tol, it_caps, n_iters, wss, \
+                        alphas, fs, n_iter, done, n, b, stream)
+  if (smem) return rows == 8 ? SMO_RESIDENT(8, true)
+                             : (int)cudaErrorInvalidValue;
+  switch (rows) {
+    case 1: return SMO_RESIDENT(1, false);
+    case 2: return SMO_RESIDENT(2, false);
+    case 4: return SMO_RESIDENT(4, false);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef SMO_RESIDENT
+}
+
+// A build of the resident route: its most threads a block
+// (Resident<R, SMEM>::kThreads), and from the built kernel its registers a
+// thread and its local memory (spills) a thread, in bytes.
+// cudaErrorInvalidValue for a build that does not exist.
+template <int R, bool SMEM>
+int resident_build(int* threads, int* regs, int* local_bytes) {
+  cudaFuncAttributes a;
+  const cudaError_t e =
+      cudaFuncGetAttributes(&a, smo_chunk_resident_kernel<R, SMEM>);
+  *threads = Resident<R, SMEM>::kThreads;
+  *regs = a.numRegs;
+  *local_bytes = (int)a.localSizeBytes;
+  return (int)e;
+}
+
+extern "C" int smo_chunk_resident_build(int rows, int smem, int* threads,
+                                        int* regs, int* local_bytes) {
+  if (smem) return rows == 8 ? resident_build<8, true>(threads, regs,
+                                                       local_bytes)
+                             : (int)cudaErrorInvalidValue;
+  switch (rows) {
+    case 1: return resident_build<1, false>(threads, regs, local_bytes);
+    case 2: return resident_build<2, false>(threads, regs, local_bytes);
+    case 4: return resident_build<4, false>(threads, regs, local_bytes);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // The multi-block route's plan for b lanes over n rows: m blocks a lane (0:

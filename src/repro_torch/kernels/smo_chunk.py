@@ -4,11 +4,15 @@
 
 * ``smo_chunk`` / ``smo_chunk_lanes`` — a dense K, built from
   ``csrc/smo_chunk.cu``: up to ``n_iters`` iterations for every lane in ONE
-  launch. Two routes (``chunk_route``, the faster by a time model fitted
-  on the card): one thread block per lane, or each lane over many blocks
-  of one cooperative launch, its state held in their shared memory (only
-  while every lane's state fits the card's shared memory at once).
-  ``smo_chunk.launches`` counts both, ``smo_chunk.route_launches`` each.
+  launch. Three kernels, routes by size (``chunk_route``, the faster by a
+  time model fitted on the card): ``one_block``, one block a lane with the
+  lane's state in registers or shared memory (wherever
+  ``one_block_plan`` fits it in a block: n <= 6,144); ``multi_block``,
+  each lane over many blocks of one cooperative launch, its state in their
+  shared memory (only while every lane's state fits the card's shared
+  memory at once); ``one_block_global``, one block a lane with the state
+  in global memory, for lanes that fit neither. ``smo_chunk.launches``
+  counts all three, ``smo_chunk.route_launches`` each.
 * ``smo_stream_chunk`` — a row-streaming RBF source (X, no K), built from
   ``csrc/smo_step.cu``. Two routes (``stream_route``): ``persistent``, all
   ``n_iters`` WSS-1 iterations over all lanes in ONE cooperative launch
@@ -40,29 +44,60 @@ from repro_torch.kernels.smo_step import fused_smo_step
 _P, _LL, _D, _I = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_double,
                    ctypes.c_int)
 #: an iteration's time on each route, in us: floor + slope x the rows each
-#: thread handles (one block a lane: 1,024 threads; multi-block: 256 a
-#: block, m blocks a lane), fitted to chip_smoke.py's crossover and lane
-#: sweeps on an H100 (PERF.md §6). Spread over blocks, a lane pays two
-#: barriers across blocks a step (the floor) but shares its rows out.
-ONE_BLOCK_US = (2.9, 1.52)
-MULTI_BLOCK_US = (8.1, 1.4)
-ROUTES = ("one_block", "multi_block")
+#: thread would handle at 1,024 threads (n / 1,024; multi-block: 256
+#: threads a block, m blocks a lane, so ceil(n / m) / 256), fitted to
+#: chip_smoke.py's crossover and lane sweeps on an H100 (PERF.md §6).
+#: Spread over blocks, a lane pays two barriers across blocks a step (the
+#: floor) but shares its rows out.
+ONE_BLOCK_US = (1.46, 1.72)
+MULTI_BLOCK_US = (7.86, 1.4)
+#: the global-state one-block kernel's
+GLOBAL_US = (3.69, 1.5)
+ROUTES = ("one_block", "multi_block", "one_block_global")
+#: the build of the resident one-block kernel a lane of n rows takes: the
+#: first (most rows, rows a thread, state in shared memory) with n <= most
+#: rows; the fastest build at each n of chip_smoke.py's width sweep on an
+#: H100 (PERF.md §6). A block is 32 * ceil(n / (32 rows)) threads
+RESIDENT_ROWS = ((320, 1, False), (640, 2, False), (2048, 4, False),
+                 (6144, 8, True))
+#: the resident kernel's builds, (rows a thread, state in shared memory)
+RESIDENT_BUILDS = tuple((rows, smem) for _, rows, smem in RESIDENT_ROWS)
 #: the streaming chunk's routes
 STREAM_ROUTES = ("pair", "persistent")
 
 
+def resident_threads(n: int, rows: int) -> int:
+    """The resident kernel's block for n rows at ``rows`` rows a thread."""
+    return 32 * -(-n // (32 * rows))
+
+
+def one_block_plan(n: int) -> tuple[int, int, bool] | None:
+    """Where the resident one-block kernel holds a lane of n rows: ``(rows
+    a thread, threads, state in shared memory)`` by ``RESIDENT_ROWS``, or
+    None past its last entry (n > 6,144: 33 bytes a row of state in a
+    768-thread block). Pure: the same on any card."""
+    for most, rows, smem in RESIDENT_ROWS:
+        if n <= most:
+            return rows, resident_threads(n, rows), smem
+    return None
+
+
 def chunk_route(n: int, m: int) -> str:
     """The dense chunk's route over n rows: the faster by ``ONE_BLOCK_US``
-    and ``MULTI_BLOCK_US``, where ``m`` is the blocks a lane that
+    (where ``one_block_plan`` places the lane, else ``GLOBAL_US``) and
+    ``MULTI_BLOCK_US``, where ``m`` is the blocks a lane that
     ``multi_block_plan`` gives the launch's lanes (0: their state does not
-    fit the card's shared memory, so they keep one block each). At one
-    lane the multi-block route wins from about n = 4,450 on; wide batches
-    leave it few blocks a lane, and so large slices."""
+    fit the card's shared memory). Wide batches leave the multi-block
+    route few blocks a lane, and so large slices."""
+    if one_block_plan(n) is not None:
+        one, us = "one_block", ONE_BLOCK_US
+    else:
+        one, us = "one_block_global", GLOBAL_US
     if m < 1:
-        return "one_block"
-    one = ONE_BLOCK_US[0] + ONE_BLOCK_US[1] * n / 1024
+        return one
+    t_one = us[0] + us[1] * n / 1024
     multi = MULTI_BLOCK_US[0] + MULTI_BLOCK_US[1] * -(-n // m) / 256
-    return "multi_block" if multi < one else "one_block"
+    return "multi_block" if multi < t_one else one
 
 
 def _lane_args(dev, b, n, masks, Cs, it_caps, alphas, fs, n_iter, done,
@@ -102,13 +137,15 @@ def _lanes_ref(one, masks, Cs, it_caps, alphas, fs, n_iter, done):
 
 
 def smo_chunk_lanes(K, diag, y, masks, Cs, tol, it_caps, n_iters, wss,
-                    alphas, fs, n_iter, done, _route=None):
+                    alphas, fs, n_iter, done, _route=None, _rows=None):
     """Up to ``n_iters`` dense SMO iterations for each of b lanes over one
     K (n, n) float64. masks, alphas, fs (b, n); Cs, it_caps, n_iter, done
     (b,). Returns the new ``(alphas, fs, n_iter, done)``. A lane is bitwise
-    the same whatever the other lanes of the launch, and on either route.
-    ``_route`` ("one_block" or "multi_block") overrides ``chunk_route``,
-    to check and time the routes against each other."""
+    the same whatever the other lanes of the launch, and on every route.
+    ``_route`` (one of ``ROUTES``) overrides ``chunk_route``, and
+    ``_rows`` = (rows a thread, shared memory) the resident kernel's build
+    (one of ``RESIDENT_BUILDS``), to check and time them against each
+    other."""
     if wss not in ("1", "2"):
         raise ValueError(f"smo_chunk: wss must be '1' or '2', got {wss!r}")
     if K.device.type == "cpu":
@@ -138,12 +175,30 @@ def smo_chunk_lanes(K, diag, y, masks, Cs, tol, it_caps, n_iters, wss,
     if path == "multi_block" and m < 1:
         raise ValueError(f"smo_chunk: the multi-block route cannot place {b}"
                          f" lanes over {n} rows in this card's shared memory")
+    if path == "one_block":
+        if _rows is None:
+            plan = one_block_plan(n)
+        elif tuple(_rows) in RESIDENT_BUILDS:
+            rows, smem = _rows
+            threads = resident_threads(n, rows)
+            plan = ((rows, threads, smem)
+                    if threads <= resident_build(rows, smem)[0] else None)
+        else:
+            raise ValueError(f"smo_chunk: no resident build {_rows!r}")
+        if plan is None:
+            raise ValueError(f"smo_chunk: the one-block route cannot hold "
+                             f"{n} rows a lane in one block"
+                             + (f" at {_rows!r}" if _rows else ""))
     args = (K.data_ptr(), diag.data_ptr(), y.data_ptr(), masks.data_ptr(),
             Cs.data_ptr(), float(tol), it_caps.data_ptr(), int(n_iters),
             2 if wss == "2" else 1, alphas.data_ptr(), fs.data_ptr(),
             n_iter.data_ptr(), done.data_ptr(), n, b)
     types = (_P, _P, _P, _P, _P, _D, _P, _LL, _I, _P, _P, _P, _P, _I, _I)
     if path == "one_block":
+        fn = _build.entry("smo_chunk", "smo_chunk_resident_f64", *types, _I,
+                          _I, _P)
+        err = fn(*args, plan[0], int(plan[2]), _build.stream_ptr(K))
+    elif path == "one_block_global":
         fn = _build.entry("smo_chunk", "smo_chunk_f64", *types, _P)
         err = fn(*args, _build.stream_ptr(K))
     else:
@@ -156,6 +211,26 @@ def smo_chunk_lanes(K, diag, y, masks, Cs, tol, it_caps, n_iters, wss,
     smo_chunk.launches += 1
     smo_chunk.route_launches[path] += 1
     return alphas, fs, n_iter, done
+
+
+def resident_build(rows: int, smem: bool) -> tuple[int, int, int]:
+    """A build of the resident kernel, as built for the current device:
+    (the most threads its block takes, registers a thread, local memory a
+    thread in bytes: spills). The threads are csrc/smo_chunk.cu's
+    ``Resident`` table (registers bound them); ``one_block_plan`` must
+    place no wider block. Read once per device and build."""
+    return _resident_build(torch.cuda.current_device(), rows, bool(smem))
+
+
+@functools.lru_cache(maxsize=None)
+def _resident_build(device: int, rows: int, smem: bool) -> tuple[int, int,
+                                                                   int]:
+    out = [ctypes.c_int(0) for _ in range(3)]
+    fn = _build.entry("smo_chunk", "smo_chunk_resident_build", _I, _I, _P,
+                      _P, _P)
+    _build.check(fn(rows, int(smem), *map(ctypes.addressof, out)),
+                 f"smo_chunk_resident_build({rows}, {smem})")
+    return tuple(v.value for v in out)
 
 
 def multi_block_plan(n: int, b: int) -> tuple[int, int]:
@@ -177,7 +252,7 @@ def _plan(device: int, n: int, b: int) -> tuple[int, int]:
 
 
 def smo_chunk(K, diag, y, mask, C, tol, it_cap, n_iters, wss, alpha, f,
-              n_iter, done, _route=None):
+              n_iter, done, _route=None, _rows=None):
     """Up to ``n_iters`` dense SMO iterations from ``(alpha, f, n_iter,
     done)`` over K (n, n) float64; returns the new ``(alpha, f, n_iter,
     done)``. ``C``, ``tol``, ``it_cap`` and ``n_iters`` are host scalars.
@@ -187,7 +262,8 @@ def smo_chunk(K, diag, y, mask, C, tol, it_cap, n_iters, wss, alpha, f,
                              alpha, f, n_iter, done)
     out = smo_chunk_lanes(K, diag, y, mask[None], [float(C)], tol,
                           [int(it_cap)], n_iters, wss, alpha[None], f[None],
-                          n_iter.reshape(1), done.reshape(1), _route=_route)
+                          n_iter.reshape(1), done.reshape(1), _route=_route,
+                          _rows=_rows)
     return tuple(t[0] for t in out)
 
 

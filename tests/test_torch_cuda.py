@@ -85,9 +85,10 @@ def test_cuda_chunk_halts_on_nan_like_plain(cuda):
 
 @pytest.mark.cuda
 def test_cuda_chunk_bitwise_vs_plain_steps_many_rows_per_thread(cuda):
-    """At n=3000 the one-block kernel's 1024 threads each stride over
-    three rows, so its per-thread (value, index) accumulation runs; the
-    run stops at it_cap, so the cap's freeze is compared too."""
+    """At n=3000 the resident one-block kernel holds 8 rows a thread in
+    shared memory and the global-state kernel's 1024 threads each stride
+    over three rows, so their per-thread (value, index) accumulations run;
+    the run stops at it_cap, so the cap's freeze is compared too."""
     n = 3000
     X = torch.from_numpy(RNG.normal(size=(n, 20))).to(cuda)
     K = ops.rbf_kernel_matrix(X, X, 0.05)
@@ -100,10 +101,11 @@ def test_cuda_chunk_bitwise_vs_plain_steps_many_rows_per_thread(cuda):
     args = (K, torch.diagonal(K).contiguous(), y, mask, 10.0, 1e-3, 200, 201,
             "2")
     plain = ref.smo_chunk_ref(*args, *state, update_f=ops.smo_f_update)
-    got = ops.smo_chunk(*args, *state)
-    assert int(got[2]) == 200 and bool(got[3])
-    for a, b in zip(got, plain):
-        assert torch.equal(a, b)
+    for route in ("one_block", "one_block_global"):
+        got = ops.smo_chunk(*args, *state, _route=route)
+        assert int(got[2]) == 200 and bool(got[3])
+        for a, b in zip(got, plain):
+            assert torch.equal(a, b)
 
 
 def _pair_case(n, d, b, dtype, dev):
@@ -406,8 +408,8 @@ def _multi_problem(cuda, n, b):
 @pytest.mark.parametrize("wss", ["2", "1"])
 def test_cuda_multi_block_chunk_bitwise(cuda, wss):
     """At n=20,000 (78 blocks a lane) the multi-block route is bitwise the
-    one-block kernel and the plain step engine after a capped run, and
-    three lanes packed are bitwise each lane alone."""
+    global-state one-block kernel and the plain step engine after a capped
+    run, and three lanes packed are bitwise each lane alone."""
     n = 20_000
     ds, K, diag, y, masks, state = _multi_problem(cuda, n, 3)
     args = (K, diag, y, masks[0], ds.C, 1e-3, 200, 201, wss)
@@ -416,7 +418,7 @@ def test_cuda_multi_block_chunk_bitwise(cuda, wss):
     got = ops.smo_chunk(*args, *one)
     assert ops.route_counts()["smo_chunk"]["multi_block"] == before + 1
     assert int(got[2]) == 200 and bool(got[3])
-    for want in (ops.smo_chunk(*args, *one, _route="one_block"),
+    for want in (ops.smo_chunk(*args, *one, _route="one_block_global"),
                  ref.smo_chunk_ref(*args, *one, update_f=ops.smo_f_update)):
         for a, b in zip(got, want):
             assert torch.equal(a, b)
@@ -434,15 +436,18 @@ def test_cuda_multi_block_chunk_bitwise(cuda, wss):
 def test_cuda_multi_block_chunk_widest_lanes(cuda):
     """At n=32,560 the widest batch the multi-block plan still places (the
     lanes' state fills the card's shared memory, so few blocks a lane)
-    takes that route and is bitwise the one-block kernel lane by lane; one
-    lane more keeps one block a lane, and its lanes are the same."""
+    takes that route and is bitwise the global-state one-block kernel lane
+    by lane; one lane more keeps one block a lane on that kernel (the
+    resident one holds no lane of 32,560 rows), and its lanes are the
+    same."""
     from repro_torch.kernels.smo_chunk import chunk_route, multi_block_plan
     n = 32_560
     b = 1
     while multi_block_plan(n, b + 1)[0] >= 1:
         b += 1
     assert chunk_route(n, multi_block_plan(n, b)[0]) == "multi_block"
-    assert chunk_route(n, multi_block_plan(n, b + 1)[0]) == "one_block"
+    assert chunk_route(n, multi_block_plan(n, b + 1)[0]) == \
+        "one_block_global"
     ds, K, diag, y, masks, state = _multi_problem(cuda, n, b + 1)
     caps = [100 + 3 * l for l in range(b + 1)]
 
@@ -456,12 +461,12 @@ def test_cuda_multi_block_chunk_widest_lanes(cuda):
     assert ops.route_counts()["smo_chunk"]["multi_block"] == \
         before["multi_block"] + 1
     assert got[2].tolist() == caps[:b] and bool(got[3].all())
-    for a, w in zip(got, run(b, "one_block")):
+    for a, w in zip(got, run(b, "one_block_global")):
         assert torch.equal(a, w)
     before = ops.route_counts()["smo_chunk"]
     wide = run(b + 1)
-    assert ops.route_counts()["smo_chunk"]["one_block"] == \
-        before["one_block"] + 1
+    assert ops.route_counts()["smo_chunk"]["one_block_global"] == \
+        before["one_block_global"] + 1
     for a, w in zip(wide, got):
         assert torch.equal(a[:b], w)
 
@@ -689,3 +694,129 @@ def test_cuda_fused_smo_step_fma_build_bitwise(cuda, n, b):
                         0.5, _build.stream_ptr(out)), lib)
         outs.append(out)
     assert torch.equal(outs[0], outs[1])
+
+
+# ---- the dense chunk's resident one-block route ----
+
+def _same(got, want):
+    """Two chunk results bitwise equal, a NaN matching a NaN."""
+    for a, w, what in zip(got, want, ("alpha", "f", "n_iter", "done")):
+        if a.is_floating_point():
+            assert torch.equal(a.isnan(), w.isnan()), what
+            a, w = a.nan_to_num(), w.nan_to_num()
+        assert torch.equal(a, w), what
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wss", ["2", "1"])
+@pytest.mark.parametrize("b", [1, 3, 20])
+@pytest.mark.parametrize("n", [1, 31, 33, 270, 1000, 2048, 2049, 6144])
+def test_cuda_resident_chunk_bitwise(cuda, n, b, wss):
+    """The resident one-block route (registers to 2,048 rows, shared
+    memory past them, 6,144 the most it places) is bitwise the
+    global-state kernel on every lane, capped and to convergence, and the
+    plain step engine on the first and last lanes of a capped run."""
+    from repro_torch.kernels.smo_chunk import one_block_plan
+    assert one_block_plan(n) is not None
+    ds, K, diag, y, masks, state = _multi_problem(cuda, n, b)
+    Cs = [ds.C] * b
+    caps = [120 + 7 * l for l in range(b)]
+    for lane_caps in (caps, [10**6] * b):
+        lanes = (K, diag, y, masks, Cs, 1e-3, lane_caps, 10**6, wss, *state)
+        before = ops.route_counts()["smo_chunk"]["one_block"]
+        got = ops.smo_chunk_lanes(*lanes, _route="one_block")
+        assert ops.route_counts()["smo_chunk"]["one_block"] == before + 1
+        assert bool(got[3].all())
+        _same(got, ops.smo_chunk_lanes(*lanes, _route="one_block_global"))
+    for l in sorted({0, b - 1}):
+        plain = ref.smo_chunk_ref(K, diag, y, masks[l], Cs[l], 1e-3, caps[l],
+                                  caps[l] + 1, wss, *(t[l] for t in state),
+                                  update_f=ops.smo_f_update)
+        got = ops.smo_chunk(K, diag, y, masks[l], Cs[l], 1e-3, caps[l],
+                            caps[l] + 1, wss, *(t[l] for t in state),
+                            _route="one_block")
+        _same(got, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [270, 1000])
+def test_cuda_resident_chunk_every_build(cuda, n):
+    """Each build of the resident kernel (1, 2, 4 rows a thread in
+    registers, 8 in shared memory) that holds n rows gives the same lanes,
+    bitwise; a build whose block would be too wide raises."""
+    from repro_torch.kernels.smo_chunk import (RESIDENT_BUILDS,
+                                               resident_build,
+                                               resident_threads)
+    ds, K, diag, y, masks, state = _multi_problem(cuda, n, 3)
+    lanes = (K, diag, y, masks, [ds.C] * 3, 1e-3, [10**6] * 3, 10**6, "2",
+             *state)
+    want = ops.smo_chunk_lanes(*lanes, _route="one_block_global")
+    for build in RESIDENT_BUILDS:
+        if resident_threads(n, build[0]) > resident_build(*build)[0]:
+            with pytest.raises(ValueError, match="one-block"):
+                ops.smo_chunk_lanes(*lanes, _rows=build)
+            continue
+        _same(ops.smo_chunk_lanes(*lanes, _route="one_block", _rows=build),
+              want)
+
+
+@pytest.mark.cuda
+def test_cuda_resident_builds_hold_their_rows(cuda):
+    """Each build the placement table names exists on the card and takes
+    the widest block the table gives it; one that does not exist raises."""
+    from repro_torch.kernels.smo_chunk import (RESIDENT_ROWS,
+                                               resident_build,
+                                               resident_threads)
+    for most, rows, smem in RESIDENT_ROWS:
+        threads, regs, _ = resident_build(rows, smem)
+        assert resident_threads(most, rows) <= threads <= 1024 and regs > 0
+    with pytest.raises(RuntimeError, match="resident_build"):
+        resident_build(3, False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wss", ["2", "1"])
+def test_cuda_resident_chunk_freezes(cuda, wss):
+    """Lanes that arrive done, hold a NaN in f, or reach their cap freeze
+    as the plain step does, bitwise, beside a lane that converges; a done
+    lane's state is left as it came."""
+    n = 1000
+    ds, K, diag, y, masks, state = _multi_problem(cuda, n, 4)
+    Cs = [ds.C] * 4
+    alphas, fs, its, dn = (t.clone() for t in state)
+    dn[0] = True
+    fs[1, n - 5] = float("nan")
+    its[2] = 40
+    caps = [10**6, 10**6, 97, 10**6]
+    lanes = (K, diag, y, masks, Cs, 1e-3, caps, 10**6, wss, alphas, fs, its,
+             dn)
+    got = ops.smo_chunk_lanes(*lanes)
+    _same(got, ops.smo_chunk_lanes(*lanes, _route="one_block_global"))
+    assert int(got[2][0]) == 0 and torch.equal(got[1][0], fs[0])
+    assert int(got[2][1]) == 0 and bool(got[3][1])
+    assert int(got[2][2]) == 97 and bool(got[3][2])
+    for l in (1, 2):
+        plain = ref.smo_chunk_ref(K, diag, y, masks[l], Cs[l], 1e-3, caps[l],
+                                  10**6, wss, alphas[l], fs[l], its[l],
+                                  dn[l], update_f=ops.smo_f_update)
+        _same(tuple(t[l] for t in got), plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wss", ["2", "1"])
+@pytest.mark.parametrize("n", [270, 1000])
+def test_cuda_resident_chunk_cut_into_chunks(cuda, n, wss):
+    """A capped solve cut into chunks of 1 and of 7 iterations (each
+    launch clips all of alpha on its first update) equals one chunk,
+    bitwise, on three lanes."""
+    ds, K, diag, y, masks, state = _multi_problem(cuda, n, 3)
+    Cs = [ds.C] * 3
+    caps = [150, 203, 260]
+    one = ops.smo_chunk_lanes(K, diag, y, masks, Cs, 1e-3, caps, 10**6, wss,
+                              *state)
+    for step in (1, 7):
+        st = state
+        while not bool(st[3].all()):
+            st = ops.smo_chunk_lanes(K, diag, y, masks, Cs, 1e-3, caps, step,
+                                     wss, *st)
+        _same(st, one)

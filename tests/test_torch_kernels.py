@@ -323,18 +323,69 @@ def test_flash_route(dtype, D):
 
 @pytest.mark.parametrize("n,m,want", [
     (270, 2, "one_block"), (1000, 4, "one_block"), (2000, 8, "one_block"),
-    (4608, 18, "multi_block"), (4608, 5, "one_block"),
+    (4096, 16, "one_block"), (4608, 18, "one_block"), (4608, 5, "one_block"),
+    (4608, 0, "one_block"), (6144, 24, "multi_block"),
+    (8192, 32, "multi_block"), (8192, 6, "multi_block"),
+    (8192, 0, "one_block_global"),
     (16384, 64, "multi_block"), (32560, 128, "multi_block"),
-    (32560, 24, "multi_block"), (32560, 0, "one_block"),
+    (32560, 24, "multi_block"), (32560, 0, "one_block_global"),
 ])
 def test_chunk_route(n, m, want):
-    """The faster route at the card's measured points: heart (270) and
-    adult n=1000 stay one block a lane; larger lanes spread over the m
-    blocks the plan gives them, unless a wide batch leaves each only a few
-    (4,608 rows over 5 blocks: 132 lanes) or none (m = 0: the lanes' state
-    is more than the card's shared memory)."""
+    """The faster route at the card's measured points (chip_smoke.py's
+    crossover and lane sweeps): heart (270) and adult n=1000, and every
+    lane to 4,608 rows, stay one block a lane on the resident kernel;
+    larger lanes spread over the m blocks the plan gives them (one lane:
+    from 6,144 rows), unless a wide batch leaves them none (m = 0: the
+    lanes' state is more than the card's shared memory), where they keep
+    one block a lane, on the global-state kernel past 6,144 rows."""
     from repro_torch.kernels.smo_chunk import chunk_route
     assert chunk_route(n, m) == want
+
+
+@pytest.mark.parametrize("n", [270, 1000])
+def test_one_block_plan_takes_table1(n):
+    """Every Table-1 lane (heart n=270, adult n=1000; one lane, or the ten
+    of the batched rows, which leave the multi-block plan at most as many
+    blocks a lane as one lane does) is held by the resident one-block
+    kernel, in registers, whatever the multi-block plan gives."""
+    from repro_torch.kernels.smo_chunk import chunk_route, one_block_plan
+    rows, threads, smem = one_block_plan(n)
+    assert not smem and threads <= 1024
+    assert rows * threads >= n > rows * (threads - 32)
+    for m in range(0, -(-n // 256) + 1):
+        assert chunk_route(n, m) == "one_block"
+
+
+@pytest.mark.parametrize("n", [6145, 8192, 32560])
+def test_one_block_plan_refuses_large_lanes(n):
+    """Past 6,144 rows no resident build holds a lane: where the
+    multi-block plan places none either (m = 0), the lanes keep one block
+    each on the global-state kernel."""
+    from repro_torch.kernels.smo_chunk import chunk_route, one_block_plan
+    assert one_block_plan(n) is None
+    assert chunk_route(n, 0) == "one_block_global"
+
+
+def test_resident_rows_fit_their_builds():
+    """Each entry of the placement table names one build, its widest
+    block within a block's 1,024 threads (each build's own limit, read
+    from the built kernel, is checked on the card), and (in shared memory)
+    its state, 33 bytes a row, within a block's 227 KB beside the static
+    slots; the entries rise, and each takes every n up to its bound."""
+    from repro_torch.kernels.smo_chunk import (RESIDENT_BUILDS,
+                                               RESIDENT_ROWS,
+                                               one_block_plan,
+                                               resident_threads)
+    assert len(set(RESIDENT_BUILDS)) == len(RESIDENT_ROWS)
+    lows = [0] + [most for most, _, _ in RESIDENT_ROWS[:-1]]
+    for low, (most, rows, smem) in zip(lows, RESIDENT_ROWS):
+        assert most > low
+        threads = resident_threads(most, rows)
+        assert threads <= 1024
+        if smem:
+            assert 33 * rows * threads + 4 * 32 * 64 <= 232_448
+        for n in (low + 1, most):
+            assert one_block_plan(n)[::2] == (rows, smem)
 
 
 def test_cpu_tensors_count_no_route():
@@ -356,7 +407,8 @@ def test_cpu_tensors_count_no_route():
                          torch.zeros(1, dtype=torch.int64),
                          torch.zeros(1, dtype=torch.bool), _route="persistent")
     assert ops.route_counts() == {
-        "smo_chunk": {"one_block": 0, "multi_block": 0},
+        "smo_chunk": {"one_block": 0, "multi_block": 0,
+                      "one_block_global": 0},
         "smo_stream_chunk": {"pair": 0, "persistent": 0},
         "flash_attention": {"fma": 0, "mma": 0, "wgmma": 0}}
 
