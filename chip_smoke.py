@@ -21,12 +21,13 @@ to 0 just before it and read just after:
   the KV cache (a 16-token prompt teacher-forced, 32 greedy tokens).
 
 Three kernels have routes, and every check and path records the one it
-took (``ops.route_counts``): the dense ``smo_chunk`` runs one block a lane
-holding the lane's state on chip (every Table-1 lane), or, where a time
-model fitted on the card says it is faster and the lanes' state fits in
-shared memory, many blocks a lane (the size phase), or, for lanes that fit
-neither, one block a lane with the state in global memory (the wide dense
-batch at n=32,560, 24 folds at once); the
+took (``ops.route_counts``): the dense ``smo_chunk`` takes, of the routes
+that place a launch, the fastest by a time model fitted on the card: one
+block a lane holding the lane's state on chip (every Table-1 lane), many
+blocks a lane of a cooperative launch (the size phase), a thread-block
+cluster a lane holding its state in the cluster's shared memory (the wide
+dense batch at n=32,544, 24 folds at once), or, for batches that fit
+nowhere on chip, one block a lane with the state in global memory; the
 matrix-free ``smo_stream_chunk`` runs as one persistent cooperative launch
 wherever its plan places the lanes (up to 16), else as a launch pair per
 iteration (the fused step and the selection; the batched path's 20-fold
@@ -125,6 +126,13 @@ CHUNK_SWEEP_N = (100, 270, 500, 1000, 2000, 4096, 6144, 8192, 16384)
 CHUNK_SWEEP_ITERS = 500
 #: rows of its sweep over lanes (where the plan's blocks a lane shrink)
 CHUNK_LANE_SWEEP_N = (4608, 8192, 32560)
+#: how much slower than the fastest route (a share of its time) the one
+#: ``chunk_route`` picks at a sweep point may be: a route's time at one
+#: point spreads by up to ~6% from call to call on the card (PERF.md §6)
+CHUNK_ROUTE_MARGIN = 0.05
+#: and its wide points, past the multi-block plan's widest batch: rows ->
+#: lanes (size_wide's 24 folds and wider at n = 32,544; 88 at 8,192)
+CHUNK_WIDE_SWEEP = {32544: (24, 32, 48), 8192: (88,)}
 #: rows of the resident one-block kernel's sweep over its builds (rows a
 #: thread, and so the block's width): heart's n=270 and adult's n=1000
 #: (Table 1's lanes, cold fold 0 to convergence), and adult's first n rows
@@ -132,7 +140,7 @@ CHUNK_LANE_SWEEP_N = (4608, 8192, 32560)
 CHUNK_WIDTH_SWEEP_N = (100, 500, 2000, 4096)
 #: folds of the wide dense batch at the paper's cardinality: more lanes
 #: than the multi-block plan places (22 at n = 32,560), so every chunk
-#: keeps one block a lane on the global-state kernel
+#: takes the cluster route
 WIDE_DENSE_K = 24
 #: the streaming chunk's route sweep: adult's first n rows, and iterations
 #: timed on each route
@@ -270,7 +278,11 @@ def phase_kernels(datasets):
     """Each kernel against its plain version at the main path's shapes,
     then its time, the plain version's time, and its bound."""
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.smo_chunk import RESIDENT_BUILDS, resident_build
+    from repro_torch.kernels.smo_chunk import (CLUSTER_ROWS, RESIDENT_BUILDS,
+                                               cluster_build,
+                                               cluster_capacity,
+                                               cluster_shape,
+                                               resident_build)
     t0 = time.perf_counter()
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
@@ -379,33 +391,54 @@ def phase_kernels(datasets):
                           plain_ms=rec["plain_ms_per_iter"],
                           **_bound(_chunk_iter_bytes(rec["n"], rec["n_iter"]),
                                    0.0))
-    # (the global-state kernel's entry is taken on its own path's lanes,
-    # in phase_size_wide)
+    # (the cluster and global-state kernels' entries are taken on the wide
+    # batch's lanes, in phase_size_wide)
     big = datasets[("adult", SIZE_N - 1)]
     sweep = _chunk_crossover(big)
     widths = _chunk_width_sweep(datasets)
     lane_sweep = _chunk_lane_sweep(big)
-    # each route's (floor, slope) over the sweeps' one-lane points and the
+    # each route's time model over the sweeps' one-lane points and the
     # lane sweep's, in the form of smo_chunk.ONE_BLOCK_US and its kin
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     points = {r: [] for r in ("one_block", "one_block_global",
-                              "multi_block")}
+                              "multi_block", "cluster")}
     for rec in sweep + lane_sweep:
+        n, b, m = rec["n"], rec.get("b", 1), rec["blocks_per_lane"]
         for r in points:
             if f"us_per_iter_{r}" in rec:
-                x = rec["n"] if r != "multi_block" else \
-                    4 * -(-rec["n"] // rec["blocks_per_lane"])
-                points[r].append((x, rec[f"us_per_iter_{r}"]))
-    fits = {r: _fit_line(p) for r, p in points.items() if len(p) >= 2}
+                us = rec[f"us_per_iter_{r}"]
+                if r == "multi_block":
+                    x = [n / 1024, -(-n // m) * -(-(b * m) // sms) / 1024]
+                elif r == "cluster":    # every shape the point times
+                    for name, us in rec["cluster_shapes_us"].items():
+                        c = cluster_shape(n, b, *map(int, name.split("x")),
+                                          sms)
+                        points[r].append(([n / 1024, c.load / 1024, c.rows],
+                                          us))
+                    continue
+                else:   # per lane an SM carries
+                    x, us = [n / 1024], us / -(-b // sms)
+                points[r].append((x, us))
+    fits = {r: _fit(p) for r, p in points.items() if len(p) > len(p[0][0])}
     builds = {_build_name(r, 0, s).split("x")[0]: dict(zip(
         ("threads", "regs", "local_bytes"), resident_build(r, s)))
         for r, s in RESIDENT_BUILDS}
+    # the cluster kernel's builds, and the clusters the card runs at once
+    # for each shape (blocks a cluster x rows a thread) at the sweeps' n
+    cluster_builds = {r: dict(zip(("threads", "regs", "local_bytes"),
+                                  cluster_build(r))) for r in CLUSTER_ROWS}
+    capacity = {n: {f"{m}x{r}": c for (m, r), c in
+                    cluster_capacity(n).items() if c}
+                for n in (270, 1000, 4608, 8192, 32544, 32560)}
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0,
           "rbf_checks": rbf_checks, "rbf_tile_64_vs_32_max_diff": tile_diff,
           "rbf_times": rbf_times, "smo_f_update": fu,
           "smo_chunk": chunk_checks, "smo_chunk_crossover": sweep,
           "smo_chunk_width_sweep": widths,
           "smo_chunk_lane_sweep": lane_sweep, "smo_chunk_fits": fits,
-          "smo_chunk_resident_builds": builds})
+          "smo_chunk_resident_builds": builds,
+          "smo_chunk_cluster_builds": cluster_builds,
+          "smo_chunk_cluster_capacity": capacity})
     return info
 
 
@@ -432,41 +465,53 @@ def _chunk_problem(ds, n, dev):
     return K, torch.diagonal(K).contiguous(), y, mask, state
 
 
-def _routes_here(n: int, m: int) -> tuple:
-    """The dense chunk's routes that can take a lane of n rows, given the
-    multi-block plan's m blocks a lane."""
+def _routes_here(n: int, m: int, cluster) -> tuple:
+    """The dense chunk's routes that can take a launch's lanes of n rows,
+    given the multi-block plan's m blocks a lane and the cluster plan."""
     from repro_torch.kernels.smo_chunk import one_block_plan
     return (("one_block",) if one_block_plan(n) is not None else ()) \
-        + (("multi_block",) if m >= 1 else ()) + ("one_block_global",)
+        + (("multi_block",) if m >= 1 else ()) \
+        + (("cluster",) if cluster is not None else ()) \
+        + ("one_block_global",)
 
 
-def _fit_line(points) -> list:
-    """Least-squares (floor, slope) of us against n / 1024 (the form of
-    ``smo_chunk.ONE_BLOCK_US``)."""
-    xs = np.array([p[0] / 1024 for p in points])
-    ys = np.array([p[1] for p in points])
-    slope, floor = np.polyfit(xs, ys, 1)
-    return [float(floor), float(slope)]
+def _plans(n: int, b: int) -> tuple:
+    """The multi-block plan's blocks a lane and the cluster plan for b
+    lanes of n rows on this card: what ``chunk_route`` decides from."""
+    from repro_torch.kernels.smo_chunk import (_sms, cluster_capacity,
+                                               cluster_plan,
+                                               multi_block_plan)
+    return (multi_block_plan(n, b)[0],
+            cluster_plan(n, b, cluster_capacity(n), _sms()))
+
+
+def _fit(points) -> list:
+    """Least-squares [floor, slope, ...] of us against each feature (the
+    form of ``smo_chunk.ONE_BLOCK_US`` and its kin); a point is (features,
+    us)."""
+    X = np.array([[1.0] + list(x) for x, _ in points])
+    ys = np.array([y for _, y in points])
+    return [float(c) for c in np.linalg.lstsq(X, ys, rcond=None)[0]]
 
 
 def _chunk_crossover(ds):
     """The dense chunk's routes side by side on adult's first n rows, its
     first tenth held out, CHUNK_SWEEP_ITERS capped WSS-2 iterations: bitwise
     equal, each route's time per iteration (with the lane sweep, what
-    ``smo_chunk.ONE_BLOCK_US`` and ``MULTI_BLOCK_US`` were fitted to), the
-    faster, and the route ``chunk_route`` picks. Where it picks the
+    ``smo_chunk.ONE_BLOCK_US`` and its kin were fitted to), the fastest,
+    and the route ``chunk_route`` picks. Where it picks the
     resident one-block kernel, that kernel must be no slower than the
     global-state one it replaced."""
     from repro_torch.kernels import ops
-    from repro_torch.kernels.smo_chunk import chunk_route, multi_block_plan
+    from repro_torch.kernels.smo_chunk import _sms, chunk_route
     dev = torch.device("cuda")
     out = []
     for n in CHUNK_SWEEP_N:
         K, diag, y, mask, state = _chunk_problem(ds, n, dev)
         cap = CHUNK_SWEEP_ITERS
         args = (K, diag, y, mask, ds.C, 1e-3, cap, cap + 1, "2", *state)
-        m = multi_block_plan(n, 1)[0]
-        routes = _routes_here(n, m)
+        m, cluster = _plans(n, 1)
+        routes = _routes_here(n, m, cluster)
         res = {r: ops.smo_chunk(*args, _route=r) for r in routes}
         for r in routes[1:]:
             for a, b, what in zip(res[routes[0]], res[r],
@@ -475,11 +520,17 @@ def _chunk_crossover(ds):
                                            f"and {r}'s {what} differ")
         it = int(res[routes[0]][2])
         rec = {"n": n, "n_iter": it, "blocks_per_lane": m,
-               "route": chunk_route(n, m)}
+               "cluster": cluster,
+               "route": chunk_route(n, 1, m, cluster, _sms())}
         for r in routes:
             ms = cuda_ms(lambda: ops.smo_chunk(*args, _route=r), 3)
             rec[f"us_per_iter_{r}"] = 1e3 * ms / it
-        rec["faster"] = min(routes, key=lambda r: rec[f"us_per_iter_{r}"])
+        if cluster is not None:
+            rec.update(_cluster_shapes(n, 1, cluster, res["cluster"], it,
+                                       lambda shape: ops.smo_chunk(
+                                           *args, _route="cluster",
+                                           _cluster=shape)))
+        _judge_routes(rec, routes)
         if rec["route"] == "one_block":
             require(rec["us_per_iter_one_block"]
                     <= rec["us_per_iter_one_block_global"],
@@ -547,15 +598,17 @@ def _chunk_lane_sweep(ds):
     tenth l mod 10), CHUNK_SWEEP_ITERS capped WSS-2 iterations, at each n of
     CHUNK_LANE_SWEEP_N: b = 1, 4, 16 and the widest batch the multi-block
     plan still places (its lanes' state fills the card's shared memory, so
-    few blocks a lane), bitwise equal lane by lane; then one lane more,
-    which that plan cannot place, so it must route to one block a lane.
-    Each route's time per iteration, the faster, and the plan's blocks a
-    lane (what ``chunk_route`` decides from)."""
+    few blocks a lane), then one lane more, which that plan cannot place;
+    and at the wide points of CHUNK_WIDE_SWEEP. Every route that places
+    the launch, bitwise equal lane by lane; each one's time per iteration,
+    the fastest, the plans (what ``chunk_route`` decides from), the route
+    it took, and whether that was the fastest."""
     from repro_torch.kernels import ops
-    from repro_torch.kernels.smo_chunk import chunk_route, multi_block_plan
+    from repro_torch.kernels.smo_chunk import (_sms, chunk_route,
+                                               multi_block_plan)
     dev = torch.device("cuda")
     out = []
-    for n in CHUNK_LANE_SWEEP_N:
+    for n in sorted(set(CHUNK_LANE_SWEEP_N) | set(CHUNK_WIDE_SWEEP)):
         widest = 1
         while multi_block_plan(n, widest + 1)[0] >= 1:
             widest += 1
@@ -563,7 +616,10 @@ def _chunk_lane_sweep(ds):
         y = torch.as_tensor(ds.y[:n], dtype=torch.float64, device=dev)
         K = ops.rbf_kernel_matrix(X, X, ds.gamma)
         diag = torch.diagonal(K).contiguous()
-        for b in sorted({1, 4, 16, widest, widest + 1}):
+        lanes_here = set(CHUNK_WIDE_SWEEP.get(n, ()))
+        if n in CHUNK_LANE_SWEEP_N:
+            lanes_here |= {1, 4, 16, widest, widest + 1}
+        for b in sorted(lanes_here):
             masks = torch.ones((b, n), dtype=torch.bool, device=dev)
             for l in range(b):
                 masks[l, (l % 10) * (n // 10):(l % 10 + 1) * (n // 10)] = False
@@ -574,17 +630,19 @@ def _chunk_lane_sweep(ds):
                      -y.repeat(b, 1), torch.zeros(b, dtype=torch.int64,
                                                   device=dev),
                      torch.zeros(b, dtype=torch.bool, device=dev))
-            m = multi_block_plan(n, b)[0]
+            m, cluster = _plans(n, b)
             before = ops.route_counts()["smo_chunk"]
             res = {"auto": ops.smo_chunk_lanes(*lanes)}
             route = _route_taken(before, ops.route_counts()["smo_chunk"])
-            require(route == chunk_route(n, m), f"smo_chunk n={n} b={b}: "
-                    f"took {route}, chunk_route says {chunk_route(n, m)}")
+            want = chunk_route(n, b, m, cluster, _sms())
+            require(route == want, f"smo_chunk n={n} b={b}: took {route}, "
+                    f"chunk_route says {want}")
             require((m >= 1) == (b <= widest), f"smo_chunk n={n} b={b}: "
                     f"{m} blocks a lane, {widest} lanes the widest placed")
-            routes = _routes_here(n, m)
-            rec = {"n": n, "b": b, "blocks_per_lane": m, "route": route,
-                   "widest_multi_block": widest}
+            routes = _routes_here(n, m, cluster)
+            rec = {"n": n, "b": b, "blocks_per_lane": m, "cluster": cluster,
+                   "route": route, "widest_multi_block": widest,
+                   "sms": _sms()}
             for r in routes:
                 got = ops.smo_chunk_lanes(*lanes, _route=r)
                 for a, w, what in zip(got, res["auto"], ("alpha", "f",
@@ -595,12 +653,52 @@ def _chunk_lane_sweep(ds):
                         f"smo_chunk n={n} b={b}: {r} stopped short of the cap")
                 ms = cuda_ms(lambda: ops.smo_chunk_lanes(*lanes, _route=r), 3)
                 rec[f"us_per_iter_{r}"] = 1e3 * ms / cap
-            rec["faster"] = min(routes, key=lambda r: rec[f"us_per_iter_{r}"])
+            if cluster is not None:
+                rec.update(_cluster_shapes(n, b, cluster, res["auto"], cap,
+                                           lambda shape: ops.smo_chunk_lanes(
+                                               *lanes, _route="cluster",
+                                               _cluster=shape)))
+            _judge_routes(rec, routes)
             out.append(rec)
             del lanes, res, masks
         del K, diag
         torch.cuda.empty_cache()
     return out
+
+
+def _judge_routes(rec: dict, routes) -> None:
+    """The fastest of a sweep point's routes, whether ``chunk_route``'s
+    pick (``rec["route"]``) was it, and a failure unless the pick is within
+    CHUNK_ROUTE_MARGIN of it."""
+    us = {r: rec[f"us_per_iter_{r}"] for r in routes}
+    rec["faster"] = min(us, key=us.get)
+    rec["picks_faster"] = rec["faster"] == rec["route"]
+    require(us[rec["route"]] <= (1 + CHUNK_ROUTE_MARGIN) * us[rec["faster"]],
+            f"smo_chunk n={rec['n']} b={rec.get('b', 1)}: chunk_route picks "
+            f"{rec['route']} at {us[rec['route']]:.2f} us, {rec['faster']} "
+            f"takes {us[rec['faster']]:.2f}")
+
+
+def _cluster_shapes(n: int, b: int, plan, want, iters: int, run) -> dict:
+    """Every cluster shape (blocks a cluster x rows a thread) of which the
+    card runs b clusters of n rows at once: bitwise ``want`` (the lanes on
+    ``plan``'s shape), and its time an iteration (``run(shape)`` launches
+    the chunk at a shape), beside the plan's: what
+    ``smo_chunk.CLUSTER_US`` is fitted to and how far the plan is from the
+    fastest shape."""
+    from repro_torch.kernels.smo_chunk import cluster_capacity
+    us = {}
+    for shape in sorted(s for s, c in cluster_capacity(n).items() if c >= b):
+        for a, w, what in zip(run(shape), want, ("alpha", "f", "n_iter",
+                                                 "done")):
+            require(torch.equal(a, w), f"smo_chunk n={n} b={b}: cluster "
+                                       f"shape {shape}'s {what} differs")
+        us[f"{shape[0]}x{shape[1]}"] = 1e3 * cuda_ms(lambda: run(shape),
+                                                     3) / iters
+    fastest = min(us, key=us.get)
+    return {"cluster_shapes_us": us, "cluster_fastest_shape": fastest,
+            "cluster_plan_regret_us": (us[f"{plan.blocks}x{plan.rows}"]
+                                       - us[fastest])}
 
 
 def _chunk_checks(ds, it_cap: int):
@@ -810,17 +908,18 @@ def phase_size(ds, n_sir_folds: int = 2):
 def phase_size_wide(ds):
     """Dense cold CV at the paper's cardinality in WIDE_DENSE_K folds at
     once (``run_cv_batched``, the fixed-width batch): more lanes than the
-    multi-block plan places, so every chunk keeps one block a lane on the
-    global-state kernel. Every fold converges with a finite objective, and
-    fold 0 solved alone (one lane: the multi-block route) takes the same
-    iterations and classifies its test rows the same. Then the
-    global-state kernel on this path's shape, all WIDE_DENSE_K fold masks
-    as lanes from the cold state, capped at 300 iterations (as
-    ``_chunk_checks`` caps n=32,560): every lane bitwise the plain step
-    engine's from the same state, timed; the kernels line's entry for
-    the kernel. Resets the launch counts and reads them around the
+    multi-block plan places, so every chunk takes the cluster route. Every
+    fold converges with a finite objective, and fold 0 solved alone (one
+    lane: the multi-block route) takes the same iterations and classifies
+    its test rows the same. Then, on this path's shape (all WIDE_DENSE_K
+    fold masks as lanes from the cold state, capped at 300 iterations, as
+    ``_chunk_checks`` caps n=32,560), the cluster kernel and the
+    global-state kernel, forced, every lane of each bitwise the plain step
+    engine's from the same state, each timed: the kernels line's entries
+    for the two; and every cluster shape the card places for those lanes,
+    bitwise and timed beside the plan's. Resets the launch counts and reads them around the
     batched run itself: the checks that follow launch the chunk too.
-    Returns the counts, the routes and that entry."""
+    Returns the counts, the routes and the two entries."""
     from repro_torch.core.cv import _eval_fold, _fold_masks, run_cv_batched
     from repro_torch.data.svm_suite import kfold_chunks
     from repro_torch.kernels import ops, ref
@@ -836,8 +935,8 @@ def phase_size_wide(ds):
     chunk = routes["smo_chunk"]
     require(all(f.converged and math.isfinite(f.objective)
                 for f in rep.folds), "size_wide: a fold did not converge")
-    require(chunk["one_block_global"] > 0 and chunk["multi_block"] == 0
-            and chunk["one_block"] == 0,
+    require(chunk["cluster"] > 0 and chunk["one_block_global"] == 0
+            and chunk["multi_block"] == 0 and chunk["one_block"] == 0,
             f"size_wide: the dense chunk's routes {chunk}")
     # fold 0 alone, on the multi-block route
     dev = torch.device("cuda")
@@ -857,8 +956,9 @@ def phase_size_wide(ds):
             f"size_wide fold 0: {f0.n_iter} iterations, {f0.acc_correct}/"
             f"{f0.acc_total} in the batch; alone {int(res.n_iter)}, "
             f"{correct}/{total}")
-    # the global-state kernel at this path's shape against the plain step
-    # engine (its f-update through the smo_f_update kernel), lane by lane
+    # the cluster and global-state kernels at this path's shape against the
+    # plain step engine (its f-update through the smo_f_update kernel),
+    # lane by lane
     masks = torch.as_tensor(_fold_masks(chunks), device=dev)
     b, cap = masks.shape[0], 300
     diag = torch.diagonal(K).contiguous()
@@ -867,7 +967,6 @@ def phase_size_wide(ds):
              torch.zeros(b, dtype=torch.bool, device=dev))
     lanes = (K, diag, y, masks, [ds.C] * b, 1e-3, [cap] * b, cap + 1, "2",
              *state)
-    got = ops.smo_chunk_lanes(*lanes, _route="one_block_global")
     sync()
     t = time.perf_counter()
     plain = [ref.smo_chunk_ref(K, diag, y, masks[l], ds.C, 1e-3, cap,
@@ -875,22 +974,38 @@ def phase_size_wide(ds):
                                update_f=ops.smo_f_update) for l in range(b)]
     sync()
     plain_s = time.perf_counter() - t
-    for l, want in enumerate(plain):
-        for a, w, what in zip(got, want, ("alpha", "f", "n_iter", "done")):
-            require(torch.equal(a[l], w), f"size_wide lane {l}: the "
-                    f"global-state kernel's {what} differs from the plain "
-                    "step engine")
-    require(bool(got[3].all()) and int(got[2].min()) == cap,
-            "size_wide: a capped lane did not stop at its cap")
-    ms = cuda_ms(lambda: ops.smo_chunk_lanes(*lanes,
-                                             _route="one_block_global"), 3)
-    it = int(got[2].max())
-    entry = {"n": n, "lanes": b, "n_iter": it, "max_abs_err": max(
-        float((got[k][l] - plain[l][k]).abs().max()) for k in (0, 1)
-        for l in range(b)), "ms": ms / it, "plain_ms": 1e3 * plain_s / it,
-        "us_per_iter_one_block_global": 1e3 * ms / it,
-        **_bound(b * _chunk_iter_bytes(n, it), 0.0)}
-    del K, diag, got, plain, lanes, state
+    entries = {}
+    for route in ("cluster", "one_block_global"):
+        got = ops.smo_chunk_lanes(*lanes, _route=route)
+        sync()
+        for l, want in enumerate(plain):
+            for a, w, what in zip(got, want, ("alpha", "f", "n_iter",
+                                              "done")):
+                require(torch.equal(a[l], w), f"size_wide lane {l}: the "
+                        f"{route} kernel's {what} differs from the plain "
+                        "step engine")
+        require(bool(got[3].all()) and int(got[2].min()) == cap,
+                f"size_wide: a capped lane did not stop at its cap ({route})")
+        ms = cuda_ms(lambda: ops.smo_chunk_lanes(*lanes, _route=route), 3)
+        it = int(got[2].max())
+        entries[route] = {
+            "n": n, "lanes": b, "n_iter": it, "max_abs_err": max(
+                float((got[k][l] - plain[l][k]).abs().max()) for k in (0, 1)
+                for l in range(b)), "ms": ms / it,
+            "plain_ms": 1e3 * plain_s / it,
+            f"us_per_iter_{route}": 1e3 * ms / it,
+            **_bound(b * _chunk_iter_bytes(n, it), 0.0)}
+        if route == "cluster":
+            cluster_out = got
+        del got
+    entries["cluster"]["us_per_iter_one_block_global"] = (
+        entries["one_block_global"]["us_per_iter_one_block_global"])
+    # every cluster shape the card places for these lanes, beside the plan's
+    plan = entries["cluster"]["plan"] = _plans(n, b)[1]
+    entries["cluster"].update(_cluster_shapes(
+        n, b, plan, cluster_out, cap, lambda shape: ops.smo_chunk_lanes(
+            *lanes, _route="cluster", _cluster=shape)))
+    del K, diag, plain, lanes, state, cluster_out
     torch.cuda.empty_cache()
     lane_max = max(f.n_iter for f in rep.folds)
     emit({"phase": "size_wide", "seconds": time.perf_counter() - t0,
@@ -901,8 +1016,8 @@ def phase_size_wide(ds):
           "us_per_longest_lane_iteration":
               1e6 * rep.total_solve_time / max(lane_max, 1),
           "accuracy": rep.accuracy, "chunk_routes": chunk,
-          "global_state_check": entry})
-    return counts, routes, entry
+          "capped_checks": entries})
+    return counts, routes, entries
 
 
 def _bound(nbytes: float, flops: float, peak: float = FP64_FLOPS) -> dict:
@@ -1963,9 +2078,10 @@ def main() -> int:
     ops.reset_launch_counts()
     dense_accs = phase_size(datasets[("adult", SIZE_N - 1)])
     counts["size"], routes["size"] = ops.launch_counts(), ops.route_counts()
-    (counts["size_wide"], routes["size_wide"],
-     info["smo_chunk_one_block_global"]) = phase_size_wide(
+    counts["size_wide"], routes["size_wide"], wide = phase_size_wide(
         datasets[("adult", SIZE_N - 1)])
+    info["smo_chunk_cluster"] = wide["cluster"]
+    info["smo_chunk_one_block_global"] = wide["one_block_global"]
     ops.reset_launch_counts()
     phase_size_matrix_free(datasets[("adult", SIZE_N - 1)], dense_accs)
     counts["size_matrix_free"], routes["size_matrix_free"] = (
@@ -1981,16 +2097,17 @@ def main() -> int:
                 f"{name} was not launched on the Table-1 path")
     # every dense chunk of Table 1 and its batched rows (heart and adult
     # n=1000) takes the resident one-block kernel; n=32,560 spreads one
-    # lane over many blocks, and the wide batch there keeps one block a
-    # lane on the global-state kernel
+    # lane over many blocks of a cooperative launch, and the wide batch
+    # there (checked in phase_size_wide) each lane over a cluster
     for path in ("table1", "table1_batched"):
         chunk = routes[path]["smo_chunk"]
         require(chunk["one_block"] > 0 and chunk["multi_block"] == 0
+                and chunk["cluster"] == 0
                 and chunk["one_block_global"] == 0,
                 f"{path}: the dense chunk's routes {chunk}")
     chunk = routes["size"]["smo_chunk"]
     require(chunk["multi_block"] > 0 and chunk["one_block"] == 0
-            and chunk["one_block_global"] == 0,
+            and chunk["cluster"] == 0 and chunk["one_block_global"] == 0,
             f"size: the dense chunk's routes {chunk}")
     # the batched path's ten folds take the persistent streaming chunk, its
     # twenty folds the pair route (fused step + selection) while more than
@@ -2026,6 +2143,9 @@ def main() -> int:
                "smo_chunk_multi_block": (csrc + "smo_chunk.cu",
                                          "src/repro/svm/engine.py:566",
                                          "size"),
+               "smo_chunk_cluster": (csrc + "smo_chunk.cu",
+                                     "src/repro/svm/engine.py:566",
+                                     "size_wide"),
                "smo_chunk_one_block_global": (csrc + "smo_chunk.cu",
                                               "src/repro/svm/engine.py:566",
                                               "size_wide"),
@@ -2041,13 +2161,15 @@ def main() -> int:
                "flash_attention": (csrc + "flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:71",
                                    "serve_lm")}
-    # the dense chunk's three routes are three kernels, each counted on its
-    # own path; flash_attention's routes are listed beside its launches
+    # the dense chunk's four routes are four kernels, each counted on its
+    # own path (the global-state one is on none now: its count there is
+    # 0); flash_attention's routes are listed beside its launches
     launches = {name: counts[path].get(name) for name, (_, _, path)
                 in sources.items()}
     launches["smo_chunk"] = routes["table1"]["smo_chunk"]["one_block"]
     launches["smo_chunk_multi_block"] = (
         routes["size"]["smo_chunk"]["multi_block"])
+    launches["smo_chunk_cluster"] = routes["size_wide"]["smo_chunk"]["cluster"]
     launches["smo_chunk_one_block_global"] = (
         routes["size_wide"]["smo_chunk"]["one_block_global"])
     kernels = []

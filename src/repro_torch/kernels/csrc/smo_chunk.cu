@@ -11,16 +11,19 @@
 // iteration and sync on the convergence test. Here the host reads the lanes'
 // `done` flags only between chunks.
 //
-// Three kernels, routes by size (kernels/smo_chunk.py::chunk_route):
+// Four kernels, routes by size and lanes (kernels/smo_chunk.py::
+// chunk_route, the fastest that places the launch):
 //   * smo_chunk_resident_kernel ("one_block"): one block a lane, the
 //     lane's state in registers or shared memory, wherever it fits a block
 //     (n <= 6,144): every Table-1 launch;
 //   * smo_chunk_multi_kernel ("multi_block"): each lane over many blocks of
 //     a cooperative launch, for large n while the lanes' state fits the
 //     card's shared memory;
+//   * smo_chunk_cluster_kernel ("cluster"): each lane over a thread-block
+//     cluster, its alpha and f in the cluster's shared memory, for wide
+//     batches at large n (24 folds at n = 32,544);
 //   * smo_chunk_kernel ("one_block_global", below): one block a lane, state
-//     in global memory, for lanes that fit neither (wide batches at large
-//     n: past 22 lanes at n = 32,560).
+//     in global memory, for batches whose state fits nowhere on chip.
 //
 // smo_chunk_kernel's iteration, all inside the lane's block:
 //   pass 1  I_up / I_low from (alpha, y, mask, C); argmin of f over I_up
@@ -50,9 +53,12 @@
 // and streams it every iteration (~65 n bytes) through one SM; lanes run
 // on separate SMs in parallel. What bounds every route at the paper's
 // sizes is latency (barriers and dependent L2 round trips), not bytes.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "smo_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -878,6 +884,456 @@ int multi_plan(int n, int b, int& m) {
   return 0;
 }
 
+// ------------------------------------------------------------------------
+// Cluster route ("cluster"): one lane over a thread-block cluster of m
+// blocks (2-8), for wide batches at large n. There the global-state
+// kernel runs each lane on one SM (24 lanes leave 108 of 132 SMs idle) and
+// streams the lane's state through it every iteration (~65 n bytes: ~52
+// us at n = 32,544), and the multi-block route cannot place the lanes:
+// it keeps 41 bytes a row a lane in shared memory, and 24 x 32,544 x 41 B
+// is more than the card has. Here:
+//
+//   * block rank c of the lane's cluster owns rows c T R .. (c + 1) T R -
+//     1; warp w of it the 32 R rows from c T R + 32 R w, lane l of the
+//     warp rows + 32 r + l (r = 0 .. R-1), so a warp reads 32 neighbouring
+//     K entries at once (R rows a lane side by side would make every load
+//     instruction touch 32 lines of L2), and rows rise with the rank, the
+//     warp and, within a lane, with r;
+//   * a lane keeps its state on chip for the whole launch: alpha, f and
+//     diag in the block's shared memory (24 bytes a row, in the block's
+//     row order, so a thread's offsets are constants), its mask and the
+//     signs of y as bits in registers; the K rows bypass L1 (__ldcg);
+//     diag_i, diag_j, y_i, y_j and K_ij, the same for every thread, load
+//     beside the K rows, off the chain. 24 x 32,544 rows take 18.7 MB of
+//     the card's ~30 MB of shared memory (diag there, not read through
+//     L1, keeps pass 2's R diag loads out of a thread's registers);
+//   * the iteration is the resident kernel's: one sweep (step t-1's
+//     f-update and clip, then step t's pass 1), a thread's best row by one
+//     float64 compare a row, a warp's winner by order keys (reductions of
+//     the key, then of the row among the lanes that hold it: a lane's rows
+//     are not contiguous), the scalar step in every thread;
+//   * a reduction across the cluster is one barrier: the lane that holds a
+//     warp's winner writes its key, value, row, f and alpha to the warp's
+//     slot in its block's shared memory; barrier.cluster (arrive.release
+//     / wait.acquire); then in every warp lane l reads slot l of the
+//     lane's m W <= 32 slots through distributed shared memory, all in one
+//     round trip; slots rise with the rows, so the lowest lane that holds
+//     the least key holds the winner, whose fields a shuffle hands round.
+//     Slots alternate by reduction parity, as in the resident kernel. That
+//     replaces the multi-block route's counter spin in L2. The gap, and so
+//     `done`, comes from the same slots in every block: uniform before
+//     anyone breaks;
+//   * lanes are independent clusters, so nothing waits across lanes; the
+//     plan (kernels/smo_chunk.py::cluster_plan) places a launch only where
+//     cudaOccupancyMaxActiveClusters holds all b clusters at once (a later
+//     one would wait for an earlier one to end).
+//
+// What bounds an iteration at 24 lanes x 32,544 rows: the K_i and K_j rows
+// from device memory (12.5 MB: 3.7 us at 3.35 TB/s), two round trips of
+// them on the chain, two cluster barriers, and the sweeps' float64 work
+// (~8,000 rows an SM). Every quantity is the resident kernel's, by the
+// same expressions in the same order, so a lane is bitwise that kernel,
+// the other routes and the plain step engine, and does the same work
+// whatever the launch's other lanes.
+// ------------------------------------------------------------------------
+
+// The most threads a build of the cluster kernel takes at R rows a thread:
+// registers bound it (the K_i and K_j rows, 4 R, beside the loop's own),
+// and a cluster's 32 warps (so 512 threads a block at 2 blocks).
+template <int R>
+struct ClusterBuild {
+  static constexpr int kThreads = R <= 8 ? 512 : R <= 16 ? 384 : 256;
+};
+
+constexpr int kMaxCluster = 8;  // blocks a cluster: the portable sizes
+
+// A warp's candidate of one reduction, in its block's shared memory and
+// read across the cluster: its order key and value, its row's f and
+// alpha, its row, and (pass 1) the OR of the warp's set flags. 16-byte
+// parts, so a reader takes it in three loads.
+struct alignas(16) Slot {
+  unsigned long long key;
+  double v;
+  double f, a;
+  int i, flags;
+};
+
+// The warp's least key, to every lane, and the lane that holds it at the
+// lowest row (rows are distinct); `row` is the lane's candidate's row.
+__device__ __forceinline__ int warp_least_row(unsigned long long& key,
+                                              int row) {
+  const unsigned hi = (unsigned)(key >> 32), lo = (unsigned)key;
+  const unsigned mh = __reduce_min_sync(0xffffffffu, hi);
+  const unsigned ml = __reduce_min_sync(0xffffffffu, hi == mh ? lo : ~0u);
+  const bool has = hi == mh && lo == ml;
+  const unsigned mr =
+      __reduce_min_sync(0xffffffffu, has ? (unsigned)row : ~0u);
+  const unsigned at = __ballot_sync(0xffffffffu, has && (unsigned)row == mr);
+  key = ((unsigned long long)mh << 32) | ml;
+  return __ffs(at) - 1;
+}
+
+// The lane's winner of one reduction, in every lane of every warp of the
+// cluster: lane l < G = m W reads slot l of the parity's slots (block l /
+// W, warp l % W, rising with the rows) through distributed shared memory,
+// all lanes at once; the lowest lane with the least key holds the lowest
+// row's slot, and its fields go to every lane. `flags`: the OR of the
+// slots' set flags.
+struct Winner {
+  double v, f, a;
+  int i, flags;
+};
+
+__device__ __forceinline__ Winner cluster_winner(
+    const cg::cluster_group& cluster, Slot* slots, int W, int G) {
+  const int wl = threadIdx.x & 31;
+  unsigned long long key = ~0ull;  // above every key (keys <= 0xfff0...)
+  double v = 0.0, f = 0.0, a = 0.0;
+  int i = 0, fl = 0;
+  if (wl < G) {
+    const Slot* c = cluster.map_shared_rank(slots, wl / W) + wl % W;
+    const ulonglong2 kv = *reinterpret_cast<const ulonglong2*>(&c->key);
+    const double2 fa = *reinterpret_cast<const double2*>(&c->f);
+    const int2 ifl = *reinterpret_cast<const int2*>(&c->i);
+    key = kv.x;
+    v = __longlong_as_double((long long)kv.y);
+    f = fa.x;
+    a = fa.y;
+    i = ifl.x;
+    fl = ifl.y;
+  }
+  const int at = warp_least(key);
+  Winner w;
+  w.v = __shfl_sync(0xffffffffu, v, at);
+  w.f = __shfl_sync(0xffffffffu, f, at);
+  w.a = __shfl_sync(0xffffffffu, a, at);
+  w.i = __shfl_sync(0xffffffffu, i, at);
+  w.flags = __reduce_or_sync(0xffffffffu, fl);
+  return w;
+}
+
+// The lane that holds a warp's winner writes it to the warp's slot.
+__device__ __forceinline__ void publish_slot(Slot& c, unsigned long long key,
+                                             double v, double f, double a,
+                                             int i, int flags) {
+  c.key = key;
+  c.v = v;
+  c.f = f;
+  c.a = a;
+  c.i = i;
+  c.flags = flags;
+}
+
+template <int R>
+__global__ void __launch_bounds__(ClusterBuild<R>::kThreads)
+smo_chunk_cluster_kernel(const double* __restrict__ K,
+                         const double* __restrict__ diag,
+                         const double* __restrict__ y,
+                         const unsigned char* __restrict__ masks,
+                         const double* __restrict__ Cs, double tol,
+                         const long long* __restrict__ it_caps,
+                         long long n_iters, int wss, double* alphas,
+                         double* fs, long long* n_iter,
+                         unsigned char* done_flags, int n) {
+  extern __shared__ double rows_smem[];  // alpha, f, diag
+  __shared__ Slot s_up[2][kMaxWarps], s_low[2][kMaxWarps];
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int m = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int lane = blockIdx.x / m;
+  if (done_flags[lane] != 0) return;  // the lane's whole cluster exits
+  const int tid = threadIdx.x, T = blockDim.x;
+  const int wl = tid & 31, warp = tid >> 5, W = (T + 31) >> 5;
+  const int G = m * W;  // <= 32: the wrapper's plan
+  // this thread's row r is k0 + 32 r
+  const int k0 = rank * T * R + warp * 32 * R + wl;
+  // row r of this thread at a_s[32 r]: the block's rows in their order,
+  // so a warp's 32 lanes hit 32 banks and every offset is a constant
+  double* a_s = rows_smem + warp * 32 * R + wl;
+  double* f_s = a_s + R * T;
+  double* d_s = f_s + R * T;
+  const double C = Cs[lane];
+  const long long it_cap = it_caps[lane];
+  long long it = n_iter[lane];
+  bool done = false;
+
+  // rows past n hold no set (mask 0) and K entries 0: they never win a
+  // reduction, so the sweeps need no guard
+  unsigned mb = 0, pos = 0, neg = 0;
+  {
+    const unsigned char* mask = masks + (size_t)lane * n;
+    const double* alpha = alphas + (size_t)lane * n;
+    const double* f = fs + (size_t)lane * n;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int k = k0 + 32 * r;
+      const bool in = k < n;
+      a_s[32 * r] = in ? alpha[k] : 0.0;
+      f_s[32 * r] = in ? f[k] : 0.0;
+      d_s[32 * r] = in ? diag[k] : 0.0;
+      const double yk = in ? y[k] : 0.0;
+      mb |= (in && mask[k] != 0 ? 1u : 0u) << r;
+      pos |= (yk > 0.0 ? 1u : 0u) << r;
+      neg |= (yk < 0.0 ? 1u : 0u) << r;
+    }
+  }
+
+  double ki[R], kj[R];
+  // the step whose update the next sweep applies (none before the first)
+  int pi = -1, pj = -1;
+  double p_delta = 0.0, p_ci = 0.0, p_cj = 0.0;
+  bool p_clip_all = false;
+  int slot = 0;
+  for (long long t = 0;; ++t) {
+    // ---- the sweep: step t-1's f-update and clip, then step t's pass 1
+    double bu = 0.0, bl = 0.0;
+    int ru = 0, rl = 0, fl = 0;
+    unsigned low_bits = 0;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int k = k0 + 32 * r;
+      double fk = f_s[32 * r], ar = a_s[32 * r];
+      if (pi >= 0) {
+        fk = smo_f_update_elem(fk, ki[r], kj[r], p_delta);
+        f_s[32 * r] = fk;
+        const bool pair = (k == pi) | (k == pj);
+        ar = k == pj ? p_cj : k == pi ? p_ci : ar;
+        if (p_clip_all) ar = clip(ar, C);  // the launch's first update
+        if (p_clip_all | pair) a_s[32 * r] = ar;
+      }
+      // I_up / I_low as sets() decides them
+      const bool at_lo = ar <= 0.0, at_hi = ar >= C;
+      const bool ps = (pos >> r) & 1u, ng = (neg >> r) & 1u;
+      const bool mk = (mb >> r) & 1u;
+      const bool up = mk & !((ps & at_hi) | (ng & at_lo));
+      const bool low = mk & !((ps & at_lo) | (ng & at_hi));
+      const double cu = up ? fk : INFINITY, cl = low ? fk : -INFINITY;
+      if (r == 0) {
+        bu = cu;
+        bl = cl;
+      } else {
+        row_best<false>(cu, r, bu, ru);
+        row_best<true>(cl, r, bl, rl);
+      }
+      fl |= (up ? 1 : 0) | (low ? 2 : 0);
+      low_bits |= (low ? 1u : 0u) << r;
+    }
+    if (t >= n_iters) break;
+
+    // ---- reduction 1: b_up / i and b_low / the WSS-1 j, the set flags
+    {
+      const int iu = k0 + 32 * ru, il = k0 + 32 * rl;
+      unsigned long long ku = min_key(bu), kl = max_key(bl);
+      const int wu = warp_least_row(ku, iu), wlo = warp_least_row(kl, il);
+      fl = __reduce_or_sync(0xffffffffu, fl);
+      if (wl == wu)
+        publish_slot(s_up[slot][warp], ku, bu, f_s[32 * ru], a_s[32 * ru],
+                     iu, fl);
+      if (wl == wlo)
+        publish_slot(s_low[slot][warp], kl, bl, f_s[32 * rl], a_s[32 * rl],
+                     il, fl);
+    }
+    cluster.sync();
+    const Winner wi = cluster_winner(cluster, &s_up[slot][0], W, G);
+    const Winner wlw = cluster_winner(cluster, &s_low[slot][0], W, G);
+    const double gap = wi.flags == 3 ? wlw.v - wi.v : -INFINITY;
+    done = (gap <= tol) || (it >= it_cap) || isnan(gap);
+    if (done) break;  // uniform: every warp of the cluster read the same
+    const int i = wi.i;
+    const double f_i = wi.f, a_i = wi.a;
+    const double* Ki = K + (size_t)i * n;
+    // i's diag and y (the same for every lane) with the K_i row
+    const double d_i = __ldg(diag + i), y_i = __ldg(y + i);
+    int j;
+    double f_j, a_j;
+    if (wss == 2) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int k = k0 + 32 * r;
+        ki[r] = k < n ? __ldcg(Ki + k) : 0.0;
+      }
+      slot ^= 1;
+      // ---- pass 2 and reduction 2: WSS-2's second-order j
+      double bg = 0.0;
+      int rg = 0;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const bool low = (low_bits >> r) & 1u;
+        const double diff = f_s[32 * r] - f_i;
+        const double eta = nan_max(d_i + d_s[32 * r] - 2.0 * ki[r], kTau);
+        const double q = diff * diff / eta;
+        const double g = (low & (diff > 0.0)) ? q : -INFINITY;
+        if (r == 0)
+          bg = g;
+        else
+          row_best<true>(g, r, bg, rg);
+      }
+      const int ig = k0 + 32 * rg;
+      unsigned long long kg = max_key(bg);
+      if (wl == warp_least_row(kg, ig))
+        publish_slot(s_low[slot][warp], kg, bg, f_s[32 * rg], a_s[32 * rg],
+                     ig, 0);
+      cluster.sync();
+      const Winner wj = cluster_winner(cluster, &s_low[slot][0], W, G);
+      j = wj.i;
+      f_j = wj.f;
+      a_j = wj.a;
+      const double* Kj = K + (size_t)j * n;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int k = k0 + 32 * r;
+        kj[r] = k < n ? __ldcg(Kj + k) : 0.0;
+      }
+    } else {
+      // WSS-1: j is b_low's row; K_i and K_j in one round trip
+      j = wlw.i;
+      f_j = wlw.f;
+      a_j = wlw.a;
+      const double* Kj = K + (size_t)j * n;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int k = k0 + 32 * r;
+        ki[r] = k < n ? __ldcg(Ki + k) : 0.0;
+        kj[r] = k < n ? __ldcg(Kj + k) : 0.0;
+      }
+    }
+    slot ^= 1;
+
+    // ---- the scalar step, in every thread while its K_j loads are in
+    // flight (K_ij, diag_j and y_j with them); the next sweep applies it
+    const double kij = __ldcg(Ki + j);
+    const double d_j = __ldg(diag + j), y_j = __ldg(y + j);
+    const double eta_ij = nan_max(d_i + d_j - 2.0 * kij, kTau);
+    double new_i, new_j;
+    p_delta = pair_step(f_i, f_j, a_i, a_j, y_i, y_j, i == j, eta_ij, C,
+                        new_i, new_j);
+    p_ci = clip(new_i, C);
+    p_cj = clip(new_j, C);
+    p_clip_all = pi < 0;
+    pi = i;
+    pj = j;
+    ++it;
+  }
+  // no block leaves while another may still read its slots
+  cluster.sync();
+
+  double* alpha = alphas + (size_t)lane * n;
+  double* f = fs + (size_t)lane * n;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int k = k0 + 32 * r;
+    if (k < n) {
+      alpha[k] = a_s[32 * r];
+      f[k] = f_s[32 * r];
+    }
+  }
+  if (rank == 0 && tid == 0) {
+    n_iter[lane] = it;
+    done_flags[lane] = done ? 1 : 0;
+  }
+}
+
+// Threads of the cluster kernel's blocks for n rows over m blocks at R
+// rows a thread, and the block's dynamic shared memory (alpha, f, diag).
+int cluster_threads(int n, int m, int rows) {
+  const int per = (n + m - 1) / m;
+  return ((per + 32 * rows - 1) / (32 * rows)) * 32;
+}
+
+size_t cluster_smem(int threads, int rows) {
+  return (size_t)3 * rows * threads * sizeof(double);
+}
+
+// The launch of b clusters of m blocks over n rows at R rows a thread:
+// cudaErrorInvalidValue where the build cannot take the block (too many
+// threads, registers or shared memory for it, more than 32 warps a
+// cluster: a warp reads the cluster's slots in one load a lane, or m
+// outside 2..8).
+template <int R>
+cudaError_t cluster_config(int n, int m, int b, cudaLaunchConfig_t& cfg,
+                           cudaLaunchAttribute* attr, cudaStream_t stream) {
+  const int threads = cluster_threads(n, m, R);
+  if (m < 2 || m > kMaxCluster || threads > ClusterBuild<R>::kThreads ||
+      m * (threads / 32) > 32)
+    return cudaErrorInvalidValue;
+  auto kernel = smo_chunk_cluster_kernel<R>;
+  int dev = 0, optin = 0, regs_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&regs_sm, cudaDevAttrMaxRegistersPerBlock,
+                               dev);
+  cudaFuncAttributes fa;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, kernel);
+  if (e != cudaSuccess) return e;
+  const size_t smem = cluster_smem(threads, R);
+  if (smem + fa.sharedSizeBytes > (size_t)optin ||
+      (long long)fa.numRegs * threads > regs_sm)
+    return cudaErrorInvalidValue;
+  e = cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e != cudaSuccess) return e;
+  cfg = {};
+  cfg.gridDim = dim3(b * m);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = m;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaSuccess;
+}
+
+template <int R>
+int launch_cluster(const double* K, const double* diag, const double* y,
+                   const unsigned char* masks, const double* Cs, double tol,
+                   const long long* it_caps, long long n_iters, int wss,
+                   double* alphas, double* fs, long long* n_iter,
+                   unsigned char* done, int n, int b, int m,
+                   cudaStream_t stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  cudaError_t e = cluster_config<R>(n, m, b, cfg, attr, stream);
+  if (e != cudaSuccess) return (int)e;
+  void* args[] = {&K, &diag, &y, &masks, &Cs, &tol, &it_caps, &n_iters,
+                  &wss, &alphas, &fs, &n_iter, &done, &n};
+  e = cudaLaunchKernelExC(&cfg, (const void*)smo_chunk_cluster_kernel<R>,
+                          args);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
+// Clusters of m blocks at R rows a thread over n rows that the card runs
+// at once (cudaOccupancyMaxActiveClusters: it knows how the GPCs hold
+// them); 0 where the build cannot take the block.
+template <int R>
+int cluster_capacity(int n, int m, int* clusters) {
+  *clusters = 0;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  const cudaError_t e = cluster_config<R>(n, m, 1, cfg, attr, 0);
+  if (e == cudaErrorInvalidValue) return 0;
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaOccupancyMaxActiveClusters(
+      clusters, (const void*)smo_chunk_cluster_kernel<R>, &cfg);
+}
+
+template <int R>
+int cluster_build(int* threads, int* regs, int* local_bytes) {
+  cudaFuncAttributes a;
+  const cudaError_t e =
+      cudaFuncGetAttributes(&a, smo_chunk_cluster_kernel<R>);
+  *threads = ClusterBuild<R>::kThreads;
+  *regs = a.numRegs;
+  *local_bytes = (int)a.localSizeBytes;
+  return (int)e;
+}
+
 }  // namespace
 
 // b lanes over one K (n, n): masks, alphas, fs (b, n); Cs, it_caps, n_iter,
@@ -1009,4 +1465,62 @@ extern "C" int smo_chunk_multi_f64(const double* K, const double* diag,
   const cudaError_t e =
       cudaLaunchKernelExC(&cfg, (const void*)smo_chunk_multi_kernel, args);
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
+// The cluster route (smo_chunk_cluster_kernel) for b lanes over n rows:
+// each lane a cluster of m blocks (2..8), `rows` rows a thread (4, 8, 16
+// or 32), 32 * ceil(ceil(n / m) / (32 rows)) threads a block. The launch is
+// cudaLaunchKernelExC with the cluster-dimension attribute; a shape the
+// build cannot take returns cudaErrorInvalidValue, and a refused launch
+// its error (kernels/smo_chunk.py::cluster_plan places only shapes of
+// which the card holds all b clusters at once).
+extern "C" int smo_chunk_cluster_f64(const double* K, const double* diag,
+                                     const double* y,
+                                     const unsigned char* masks,
+                                     const double* Cs, double tol,
+                                     const long long* it_caps,
+                                     long long n_iters, int wss,
+                                     double* alphas, double* fs,
+                                     long long* n_iter, unsigned char* done,
+                                     int n, int b, int m, int rows,
+                                     cudaStream_t stream) {
+  if (n <= 0 || b <= 0 || n_iters <= 0) return (int)cudaGetLastError();
+#define SMO_CLUSTER(R)                                                      \
+  launch_cluster<R>(K, diag, y, masks, Cs, tol, it_caps, n_iters, wss,     \
+                    alphas, fs, n_iter, done, n, b, m, stream)
+  switch (rows) {
+    case 4: return SMO_CLUSTER(4);
+    case 8: return SMO_CLUSTER(8);
+    case 16: return SMO_CLUSTER(16);
+    case 32: return SMO_CLUSTER(32);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef SMO_CLUSTER
+}
+
+// Clusters of m blocks at `rows` rows a thread over n rows that the card
+// runs at once (0 where the build cannot take the block).
+extern "C" int smo_chunk_cluster_capacity(int n, int m, int rows,
+                                          int* clusters) {
+  switch (rows) {
+    case 4: return cluster_capacity<4>(n, m, clusters);
+    case 8: return cluster_capacity<8>(n, m, clusters);
+    case 16: return cluster_capacity<16>(n, m, clusters);
+    case 32: return cluster_capacity<32>(n, m, clusters);
+    default: *clusters = 0; return (int)cudaErrorInvalidValue;
+  }
+}
+
+// A build of the cluster route: its most threads a block
+// (ClusterBuild<R>::kThreads), and from the built kernel its registers a
+// thread and its local memory (spills) a thread, in bytes.
+extern "C" int smo_chunk_cluster_build(int rows, int* threads, int* regs,
+                                       int* local_bytes) {
+  switch (rows) {
+    case 4: return cluster_build<4>(threads, regs, local_bytes);
+    case 8: return cluster_build<8>(threads, regs, local_bytes);
+    case 16: return cluster_build<16>(threads, regs, local_bytes);
+    case 32: return cluster_build<32>(threads, regs, local_bytes);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -4,14 +4,14 @@ Mirrors ``src/repro/kernels/ops.py``. Each wrapper launches its CUDA kernel
 on a CUDA tensor (or raises) and runs its plain PyTorch version
 (``ref.py``) on a CPU tensor; a kernel's count grows by its launches only.
 ``smo_chunk`` counts the dense chunk kernels' launches at one lane and over
-lanes, on all three of their routes. ``smo_stream_chunk`` counts its
+lanes, on all four of their routes. ``smo_stream_chunk`` counts its
 persistent kernel's launches; on its pair route it adds its launches of
 the WSS-1 selection kernel to ``smo_select`` and of the fused step to
 ``fused_smo_step``.
 ``flash_attention`` counts one per launch (one per prefill attention layer
 on the LM serving path). ``route_counts`` splits the three kernels that have
 routes: ``smo_chunk`` (one_block, the resident kernel / multi_block /
-one_block_global, the global-state kernel), ``smo_stream_chunk``
+cluster / one_block_global, the global-state kernel), ``smo_stream_chunk``
 (pair / persistent: the chunks on each) and ``flash_attention`` (wgmma /
 mma / fma).
 """

@@ -4,15 +4,19 @@
 
 * ``smo_chunk`` / ``smo_chunk_lanes`` — a dense K, built from
   ``csrc/smo_chunk.cu``: up to ``n_iters`` iterations for every lane in ONE
-  launch. Three kernels, routes by size (``chunk_route``, the faster by a
-  time model fitted on the card): ``one_block``, one block a lane with the
-  lane's state in registers or shared memory (wherever
-  ``one_block_plan`` fits it in a block: n <= 6,144); ``multi_block``,
-  each lane over many blocks of one cooperative launch, its state in their
-  shared memory (only while every lane's state fits the card's shared
-  memory at once); ``one_block_global``, one block a lane with the state
-  in global memory, for lanes that fit neither. ``smo_chunk.launches``
-  counts all three, ``smo_chunk.route_launches`` each.
+  launch. Four kernels, routes by size and lanes (``chunk_route``, the
+  fastest that places the launch by a time model fitted on the card):
+  ``one_block``, one block a lane with the lane's state in registers or
+  shared memory (wherever ``one_block_plan`` fits it in a block: n <=
+  6,144); ``multi_block``, each lane over many blocks of one cooperative
+  launch, its state in their shared memory (only while every lane's state
+  fits the card's shared memory at once); ``cluster``, each lane over a
+  thread-block cluster holding its alpha and f in the cluster's shared
+  memory (wherever ``cluster_plan`` places every lane's cluster at once:
+  the wide batches); ``one_block_global``, one block a lane with the state
+  in global memory, for batches that fit nowhere on chip.
+  ``smo_chunk.launches`` counts all four, ``smo_chunk.route_launches``
+  each.
 * ``smo_stream_chunk`` — a row-streaming RBF source (X, no K), built from
   ``csrc/smo_step.cu``. Two routes (``stream_route``): ``persistent``, all
   ``n_iters`` WSS-1 iterations over all lanes in ONE cooperative launch
@@ -34,6 +38,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -43,17 +48,30 @@ from repro_torch.kernels.smo_step import fused_smo_step
 
 _P, _LL, _D, _I = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_double,
                    ctypes.c_int)
-#: an iteration's time on each route, in us: floor + slope x the rows each
-#: thread would handle at 1,024 threads (n / 1,024; multi-block: 256
-#: threads a block, m blocks a lane, so ceil(n / m) / 256), fitted to
-#: chip_smoke.py's crossover and lane sweeps on an H100 (PERF.md §6).
-#: Spread over blocks, a lane pays two barriers across blocks a step (the
-#: floor) but shares its rows out.
-ONE_BLOCK_US = (1.46, 1.72)
-MULTI_BLOCK_US = (7.86, 1.4)
+#: an iteration's time on each route, in us, fitted to chip_smoke.py's
+#: crossover and lane sweeps on an H100 (PERF.md §6): the one-block routes
+#: floor + slope x n / 1,024 (the rows a thread would handle at 1,024
+#: threads), once for each lane an SM carries (ceil(b / SMs)); the
+#: multi-block route floor + a slope x n / 1,024 (the K rows' round trips
+#: grow with the lane) + a slope x the rows an SM carries / 1,024 (m
+#: blocks a lane of ceil(n / m) rows, the b m blocks spread over the
+#: SMs): spread over blocks, a lane pays two barriers across blocks a step
+#: (the floor) but shares its rows out
+ONE_BLOCK_US = (1.89, 1.40)
+MULTI_BLOCK_US = (8.357, 0.074, 0.952)
 #: the global-state one-block kernel's
-GLOBAL_US = (3.69, 1.5)
-ROUTES = ("one_block", "multi_block", "one_block_global")
+GLOBAL_US = (3.28, 1.50)
+#: the cluster kernel's, at the shape ``cluster_plan`` picks: floor + a
+#: slope x n / 1,024 (the K rows' round trips grow with the lane) + a
+#: slope x the rows an SM carries (``ClusterPlan.load``) / 1,024 + a slope
+#: x the rows a thread (each thread's chain of rows; fitted to every shape
+#: the sweeps time, not only the plan's)
+CLUSTER_US = (3.955, 0.071, 0.277, 0.196)
+ROUTES = ("one_block", "multi_block", "cluster", "one_block_global")
+#: the cluster kernel's builds (rows a thread) and blocks a cluster (the
+#: portable sizes)
+CLUSTER_ROWS = (4, 8, 16, 32)
+CLUSTER_SIZES = tuple(range(2, 9))
 #: the build of the resident one-block kernel a lane of n rows takes: the
 #: first (most rows, rows a thread, state in shared memory) with n <= most
 #: rows; the fastest build at each n of chip_smoke.py's width sweep on an
@@ -82,22 +100,76 @@ def one_block_plan(n: int) -> tuple[int, int, bool] | None:
     return None
 
 
-def chunk_route(n: int, m: int) -> str:
-    """The dense chunk's route over n rows: the faster by ``ONE_BLOCK_US``
-    (where ``one_block_plan`` places the lane, else ``GLOBAL_US``) and
-    ``MULTI_BLOCK_US``, where ``m`` is the blocks a lane that
-    ``multi_block_plan`` gives the launch's lanes (0: their state does not
-    fit the card's shared memory). Wide batches leave the multi-block
-    route few blocks a lane, and so large slices."""
+class ClusterPlan(NamedTuple):
+    """Where the cluster kernel holds a launch's lanes: blocks a cluster
+    (one cluster a lane), rows a thread, threads a block, and the rows an
+    SM carries when the launch's blocks spread over the card's SMs."""
+    blocks: int
+    rows: int
+    threads: int
+    load: int
+
+
+def cluster_threads(n: int, m: int, rows: int) -> int:
+    """The cluster kernel's block for n rows over m blocks at ``rows`` rows
+    a thread."""
+    return 32 * -(-(-(-n // m)) // (32 * rows))
+
+
+def cluster_shape(n: int, b: int, m: int, rows: int,
+                  sms: int) -> ClusterPlan:
+    """The cluster kernel's launch of b lanes of n rows as clusters of m
+    blocks at ``rows`` rows a thread on a card of ``sms`` SMs."""
+    threads = cluster_threads(n, m, rows)
+    return ClusterPlan(m, rows, threads,
+                       threads * rows * -(-(b * m) // sms))
+
+
+def cluster_plan(n: int, b: int, capacity: dict,
+                 sms: int) -> ClusterPlan | None:
+    """Where the cluster kernel holds b lanes of n rows, given
+    ``capacity`` {(blocks a cluster, rows a thread): clusters the card
+    runs at once} (``cluster_capacity``) and the card's ``sms``: of the
+    shapes that run all b clusters at once, the one whose SMs carry the
+    fewest rows (rows a block x the blocks an SM holds once the b m blocks
+    spread over the SMs), then the smaller cluster, then fewer rows a
+    thread (chip_smoke.py's sweeps time every placed shape beside this
+    one on the card; PERF.md §6). None where no shape holds them: the
+    lanes' own state (alpha, f and diag, 24 bytes a row, and the K rows in
+    registers) does not fit on chip. Pure: the card enters through
+    ``capacity`` and ``sms``."""
+    shapes = [cluster_shape(n, b, m, rows, sms)
+              for (m, rows), clusters in capacity.items() if clusters >= b]
+    return min(shapes, key=lambda p: (p.load, p.blocks, p.rows),
+               default=None)
+
+
+def chunk_route(n: int, lanes: int, m: int, cluster: ClusterPlan | None,
+                sms: int) -> str:
+    """The dense chunk's route for ``lanes`` lanes of n rows on a card of
+    ``sms`` SMs: the fastest by ``ONE_BLOCK_US`` (where ``one_block_plan``
+    places a lane, else ``GLOBAL_US``), ``MULTI_BLOCK_US`` and
+    ``CLUSTER_US``, of the routes that place the launch: ``m`` is the
+    blocks a lane that ``multi_block_plan`` gives the lanes (0: their state
+    does not fit the card's shared memory), ``cluster`` what
+    ``cluster_plan`` gives them (None: no shape holds them). Wide batches
+    load the multi-block route's SMs with many blocks of large slices;
+    the cluster route's SMs carry fewer rows."""
     if one_block_plan(n) is not None:
         one, us = "one_block", ONE_BLOCK_US
     else:
         one, us = "one_block_global", GLOBAL_US
-    if m < 1:
-        return one
-    t_one = us[0] + us[1] * n / 1024
-    multi = MULTI_BLOCK_US[0] + MULTI_BLOCK_US[1] * -(-n // m) / 256
-    return "multi_block" if multi < t_one else one
+    times = {one: (us[0] + us[1] * n / 1024) * -(-lanes // sms)}
+    if m >= 1:
+        load = -(-n // m) * -(-(lanes * m) // sms)
+        times["multi_block"] = (MULTI_BLOCK_US[0]
+                                + MULTI_BLOCK_US[1] * n / 1024
+                                + MULTI_BLOCK_US[2] * load / 1024)
+    if cluster is not None:
+        times["cluster"] = (CLUSTER_US[0] + CLUSTER_US[1] * n / 1024
+                            + CLUSTER_US[2] * cluster.load / 1024
+                            + CLUSTER_US[3] * cluster.rows)
+    return min(times, key=times.get)
 
 
 def _lane_args(dev, b, n, masks, Cs, it_caps, alphas, fs, n_iter, done,
@@ -137,15 +209,17 @@ def _lanes_ref(one, masks, Cs, it_caps, alphas, fs, n_iter, done):
 
 
 def smo_chunk_lanes(K, diag, y, masks, Cs, tol, it_caps, n_iters, wss,
-                    alphas, fs, n_iter, done, _route=None, _rows=None):
+                    alphas, fs, n_iter, done, _route=None, _rows=None,
+                    _cluster=None):
     """Up to ``n_iters`` dense SMO iterations for each of b lanes over one
     K (n, n) float64. masks, alphas, fs (b, n); Cs, it_caps, n_iter, done
     (b,). Returns the new ``(alphas, fs, n_iter, done)``. A lane is bitwise
     the same whatever the other lanes of the launch, and on every route.
-    ``_route`` (one of ``ROUTES``) overrides ``chunk_route``, and
-    ``_rows`` = (rows a thread, shared memory) the resident kernel's build
-    (one of ``RESIDENT_BUILDS``), to check and time them against each
-    other."""
+    ``_route`` (one of ``ROUTES``) overrides ``chunk_route``, ``_rows`` =
+    (rows a thread, shared memory) the resident kernel's build (one of
+    ``RESIDENT_BUILDS``), and ``_cluster`` = (blocks a cluster, rows a
+    thread) the cluster kernel's shape, to check and time them against
+    each other. A route or shape that cannot place the launch raises."""
     if wss not in ("1", "2"):
         raise ValueError(f"smo_chunk: wss must be '1' or '2', got {wss!r}")
     if K.device.type == "cpu":
@@ -171,10 +245,22 @@ def smo_chunk_lanes(K, diag, y, masks, Cs, tol, it_caps, n_iters, wss,
         raise ValueError(f"smo_chunk: route must be one of {ROUTES}, got "
                          f"{_route!r}")
     m, ws_bytes = multi_block_plan(n, b)
-    path = _route or chunk_route(n, m)
+    sms = _sms()
+    cplan = cluster_plan(n, b, cluster_capacity(n), sms)
+    if _cluster is not None:
+        cm, crows = _cluster
+        if cluster_capacity(n).get((cm, crows), 0) < b:
+            raise ValueError(f"smo_chunk: the cluster route cannot place {b}"
+                             f" clusters of {cm} blocks at {crows} rows a "
+                             f"thread over {n} rows on this card")
+        cplan = cluster_shape(n, b, cm, crows, sms)
+    path = _route or chunk_route(n, b, m, cplan, sms)
     if path == "multi_block" and m < 1:
         raise ValueError(f"smo_chunk: the multi-block route cannot place {b}"
                          f" lanes over {n} rows in this card's shared memory")
+    if path == "cluster" and cplan is None:
+        raise ValueError(f"smo_chunk: the cluster route cannot place {b} "
+                         f"lanes over {n} rows on chip")
     if path == "one_block":
         if _rows is None:
             plan = one_block_plan(n)
@@ -198,6 +284,10 @@ def smo_chunk_lanes(K, diag, y, masks, Cs, tol, it_caps, n_iters, wss,
         fn = _build.entry("smo_chunk", "smo_chunk_resident_f64", *types, _I,
                           _I, _P)
         err = fn(*args, plan[0], int(plan[2]), _build.stream_ptr(K))
+    elif path == "cluster":
+        fn = _build.entry("smo_chunk", "smo_chunk_cluster_f64", *types, _I,
+                          _I, _P)
+        err = fn(*args, cplan.blocks, cplan.rows, _build.stream_ptr(K))
     elif path == "one_block_global":
         fn = _build.entry("smo_chunk", "smo_chunk_f64", *types, _P)
         err = fn(*args, _build.stream_ptr(K))
@@ -251,8 +341,54 @@ def _plan(device: int, n: int, b: int) -> tuple[int, int]:
     return m.value, ws.value
 
 
+def cluster_capacity(n: int) -> dict[tuple[int, int], int]:
+    """{(blocks a cluster, rows a thread): clusters the current device runs
+    at once} for the cluster kernel over n rows, every size of
+    ``CLUSTER_SIZES`` and build of ``CLUSTER_ROWS`` (0 where the build
+    cannot take the block), from the CUDA occupancy calculator, which
+    knows how the card's GPCs hold clusters. Computed once per device and
+    n."""
+    return _cluster_capacity(torch.cuda.current_device(), n)
+
+
+@functools.lru_cache(maxsize=None)
+def _cluster_capacity(device: int, n: int) -> dict[tuple[int, int], int]:
+    fn = _build.entry("smo_chunk", "smo_chunk_cluster_capacity", _I, _I, _I,
+                      _P)
+    out = {}
+    for m in CLUSTER_SIZES:
+        for rows in CLUSTER_ROWS:
+            c = ctypes.c_int(0)
+            _build.check(fn(n, m, rows, ctypes.addressof(c)),
+                         f"smo_chunk_cluster_capacity({n}, {m}, {rows})")
+            out[(m, rows)] = c.value
+    return out
+
+
+def cluster_build(rows: int) -> tuple[int, int, int]:
+    """A build of the cluster kernel, as built for the current device: (the
+    most threads its block takes, registers a thread, local memory a thread
+    in bytes: spills). Read once per device and build."""
+    return _cluster_build(torch.cuda.current_device(), rows)
+
+
+@functools.lru_cache(maxsize=None)
+def _cluster_build(device: int, rows: int) -> tuple[int, int, int]:
+    out = [ctypes.c_int(0) for _ in range(3)]
+    fn = _build.entry("smo_chunk", "smo_chunk_cluster_build", _I, _P, _P, _P)
+    _build.check(fn(rows, *map(ctypes.addressof, out)),
+                 f"smo_chunk_cluster_build({rows})")
+    return tuple(v.value for v in out)
+
+
+def _sms() -> int:
+    """The current device's SMs."""
+    return torch.cuda.get_device_properties(
+        torch.cuda.current_device()).multi_processor_count
+
+
 def smo_chunk(K, diag, y, mask, C, tol, it_cap, n_iters, wss, alpha, f,
-              n_iter, done, _route=None, _rows=None):
+              n_iter, done, _route=None, _rows=None, _cluster=None):
     """Up to ``n_iters`` dense SMO iterations from ``(alpha, f, n_iter,
     done)`` over K (n, n) float64; returns the new ``(alpha, f, n_iter,
     done)``. ``C``, ``tol``, ``it_cap`` and ``n_iters`` are host scalars.
@@ -263,7 +399,7 @@ def smo_chunk(K, diag, y, mask, C, tol, it_cap, n_iters, wss, alpha, f,
     out = smo_chunk_lanes(K, diag, y, mask[None], [float(C)], tol,
                           [int(it_cap)], n_iters, wss, alpha[None], f[None],
                           n_iter.reshape(1), done.reshape(1), _route=_route,
-                          _rows=_rows)
+                          _rows=_rows, _cluster=_cluster)
     return tuple(t[0] for t in out)
 
 

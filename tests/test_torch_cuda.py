@@ -436,18 +436,21 @@ def test_cuda_multi_block_chunk_bitwise(cuda, wss):
 def test_cuda_multi_block_chunk_widest_lanes(cuda):
     """At n=32,560 the widest batch the multi-block plan still places (the
     lanes' state fills the card's shared memory, so few blocks a lane)
-    takes that route and is bitwise the global-state one-block kernel lane
-    by lane; one lane more keeps one block a lane on that kernel (the
-    resident one holds no lane of 32,560 rows), and its lanes are the
-    same."""
-    from repro_torch.kernels.smo_chunk import chunk_route, multi_block_plan
+    runs on that route, bitwise the global-state one-block kernel lane by
+    lane; one lane more, which that plan cannot place, takes the cluster
+    route (a thread-block cluster a lane; the resident kernel holds no
+    lane of 32,560 rows), and its lanes are the same."""
+    from repro_torch.kernels.smo_chunk import (_sms, chunk_route,
+                                               cluster_capacity,
+                                               cluster_plan,
+                                               multi_block_plan)
     n = 32_560
     b = 1
     while multi_block_plan(n, b + 1)[0] >= 1:
         b += 1
-    assert chunk_route(n, multi_block_plan(n, b)[0]) == "multi_block"
-    assert chunk_route(n, multi_block_plan(n, b + 1)[0]) == \
-        "one_block_global"
+    wider = cluster_plan(n, b + 1, cluster_capacity(n), _sms())
+    assert multi_block_plan(n, b + 1)[0] == 0 and wider is not None
+    assert chunk_route(n, b + 1, 0, wider, _sms()) == "cluster"
     ds, K, diag, y, masks, state = _multi_problem(cuda, n, b + 1)
     caps = [100 + 3 * l for l in range(b + 1)]
 
@@ -457,7 +460,7 @@ def test_cuda_multi_block_chunk_widest_lanes(cuda):
                                    *(t[:w] for t in state), _route=route)
 
     before = ops.route_counts()["smo_chunk"]
-    got = run(b)
+    got = run(b, "multi_block")
     assert ops.route_counts()["smo_chunk"]["multi_block"] == \
         before["multi_block"] + 1
     assert got[2].tolist() == caps[:b] and bool(got[3].all())
@@ -465,8 +468,8 @@ def test_cuda_multi_block_chunk_widest_lanes(cuda):
         assert torch.equal(a, w)
     before = ops.route_counts()["smo_chunk"]
     wide = run(b + 1)
-    assert ops.route_counts()["smo_chunk"]["one_block_global"] == \
-        before["one_block_global"] + 1
+    assert ops.route_counts()["smo_chunk"]["cluster"] == \
+        before["cluster"] + 1
     for a, w in zip(wide, got):
         assert torch.equal(a[:b], w)
 
@@ -820,3 +823,166 @@ def test_cuda_resident_chunk_cut_into_chunks(cuda, n, wss):
             st = ops.smo_chunk_lanes(K, diag, y, masks, Cs, 1e-3, caps, step,
                                      wss, *st)
         _same(st, one)
+
+
+# ---- the dense chunk's cluster route ----
+
+def _placed_shapes(n, b):
+    """Every (blocks a cluster, rows a thread) of which the card runs b
+    clusters at once over n rows."""
+    from repro_torch.kernels.smo_chunk import cluster_capacity
+    return sorted(s for s, c in cluster_capacity(n).items() if c >= b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wss", ["2", "1"])
+@pytest.mark.parametrize("n,b", [(1, 2), (33, 2), (1000, 3), (7000, 5),
+                                 (20_000, 4)])
+def test_cuda_cluster_chunk_bitwise(cuda, n, b, wss):
+    """The cluster route, at every shape the card places for the launch
+    (blocks a cluster, rows a thread: so rows past n, blocks with no row
+    below n, and every build), is bitwise the global-state kernel on
+    lanes with different C and iteration caps, and the plain step engine
+    on the first and last lanes."""
+    ds, K, diag, y, masks, state = _multi_problem(cuda, n, b)
+    Cs = [ds.C * (0.5 + 0.25 * l) for l in range(b)]
+    caps = [90 + 37 * l for l in range(b)]
+    lanes = (K, diag, y, masks, Cs, 1e-3, caps, 10**6, wss, *state)
+    want = ops.smo_chunk_lanes(*lanes, _route="one_block_global")
+    shapes = _placed_shapes(n, b)
+    assert shapes
+    before = ops.route_counts()["smo_chunk"]["cluster"]
+    _same(ops.smo_chunk_lanes(*lanes, _route="cluster"), want)
+    for shape in shapes:
+        _same(ops.smo_chunk_lanes(*lanes, _route="cluster", _cluster=shape),
+              want)
+    assert ops.route_counts()["smo_chunk"]["cluster"] == \
+        before + 1 + len(shapes)
+    for l in sorted({0, b - 1}):
+        plain = ref.smo_chunk_ref(K, diag, y, masks[l], Cs[l], 1e-3, caps[l],
+                                  10**6, wss, *(t[l] for t in state),
+                                  update_f=ops.smo_f_update)
+        _same(tuple(t[l] for t in want), plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wss", ["2", "1"])
+def test_cuda_cluster_chunk_freezes(cuda, wss):
+    """Lanes that arrive done, hold a NaN in f, or reach their cap freeze
+    on the cluster route as the plain step does, bitwise, beside a lane
+    that converges; a done lane's state is left as it came."""
+    n = 7000
+    ds, K, diag, y, masks, state = _multi_problem(cuda, n, 4)
+    Cs = [ds.C] * 4
+    alphas, fs, its, dn = (t.clone() for t in state)
+    dn[0] = True
+    fs[1, n - 5] = float("nan")
+    its[2] = 40
+    caps = [10**6, 10**6, 97, 400]
+    lanes = (K, diag, y, masks, Cs, 1e-3, caps, 10**6, wss, alphas, fs, its,
+             dn)
+    got = ops.smo_chunk_lanes(*lanes, _route="cluster")
+    _same(got, ops.smo_chunk_lanes(*lanes, _route="one_block_global"))
+    assert int(got[2][0]) == 0 and torch.equal(got[1][0], fs[0])
+    assert int(got[2][1]) == 0 and bool(got[3][1])
+    assert int(got[2][2]) == 97 and bool(got[3][2])
+    for l in (1, 2, 3):
+        plain = ref.smo_chunk_ref(K, diag, y, masks[l], Cs[l], 1e-3, caps[l],
+                                  10**6, wss, alphas[l], fs[l], its[l],
+                                  dn[l], update_f=ops.smo_f_update)
+        _same(tuple(t[l] for t in got), plain)
+
+
+@pytest.mark.cuda
+def test_cuda_cluster_chunk_lane_alone(cuda):
+    """A lane packed with others on the cluster route is bitwise the lane
+    alone (one cluster), at the plan's shapes for both launches, and a
+    capped solve cut into chunks of 7 iterations equals one chunk."""
+    n = 7000
+    ds, K, diag, y, masks, state = _multi_problem(cuda, n, 5)
+    Cs = [ds.C * (1 + l) for l in range(5)]
+    caps = [150, 203, 260, 310, 120]
+    packed = ops.smo_chunk_lanes(K, diag, y, masks, Cs, 1e-3, caps, 10**6,
+                                 "2", *state, _route="cluster")
+    for l in range(5):
+        alone = ops.smo_chunk(K, diag, y, masks[l], Cs[l], 1e-3, caps[l],
+                              10**6, "2", *(t[l] for t in state),
+                              _route="cluster")
+        _same(alone, tuple(t[l] for t in packed))
+    st = state
+    while not bool(st[3].all()):
+        st = ops.smo_chunk_lanes(K, diag, y, masks, Cs, 1e-3, caps, 7, "2",
+                                 *st, _route="cluster")
+    _same(st, packed)
+
+
+@pytest.mark.cuda
+def test_cuda_cluster_chunk_wide_batch(cuda):
+    """24 lanes at n=32,544 (the 24-fold CV at the paper's cardinality),
+    wider than the multi-block plan places: ``chunk_route`` gives them
+    the cluster route, whose lanes are bitwise the global-state kernel's
+    after a capped run, and the plain step engine's on lane 0."""
+    from repro_torch.kernels.smo_chunk import (_sms, chunk_route,
+                                               cluster_capacity,
+                                               cluster_plan,
+                                               multi_block_plan)
+    n, b = 32_544, 24
+    m = multi_block_plan(n, b)[0]
+    plan = cluster_plan(n, b, cluster_capacity(n), _sms())
+    assert m == 0 and plan is not None
+    assert chunk_route(n, b, m, plan, _sms()) == "cluster"
+    ds, K, diag, y, masks, state = _multi_problem(cuda, n, b)
+    caps = [60 + 2 * l for l in range(b)]
+    lanes = (K, diag, y, masks, [ds.C] * b, 1e-3, caps, 200, "2", *state)
+    before = ops.route_counts()["smo_chunk"]["cluster"]
+    got = ops.smo_chunk_lanes(*lanes)
+    assert ops.route_counts()["smo_chunk"]["cluster"] == before + 1
+    assert got[2].tolist() == caps and bool(got[3].all())
+    _same(got, ops.smo_chunk_lanes(*lanes, _route="one_block_global"))
+    plain = ref.smo_chunk_ref(K, diag, y, masks[0], ds.C, 1e-3, caps[0], 200,
+                              "2", *(t[0] for t in state),
+                              update_f=ops.smo_f_update)
+    _same(tuple(t[0] for t in got), plain)
+
+
+@pytest.mark.cuda
+def test_cuda_cluster_chunk_refuses_what_it_cannot_place(cuda):
+    """A cluster launch the plan cannot place raises, and never falls
+    back to another route: 48 lanes at n=32,544 (their state is more than
+    the card holds on chip: no plan, and chunk_route keeps them on the
+    global-state kernel), a shape the card cannot run b of at once, and a
+    shape outside the builds."""
+    from repro_torch.kernels.smo_chunk import (_sms, chunk_route,
+                                               cluster_capacity,
+                                               cluster_plan)
+    n, b = 32_544, 48
+    cap = cluster_capacity(n)
+    assert cluster_plan(n, b, cap, _sms()) is None
+    assert chunk_route(n, b, 0, None, _sms()) == "one_block_global"
+    ds, K, diag, y, masks, state = _multi_problem(cuda, n, b)
+    lanes = (K, diag, y, masks, [ds.C] * b, 1e-3, [10] * b, 20, "2", *state)
+    before = ops.route_counts()["smo_chunk"]
+    with pytest.raises(ValueError, match="cluster route cannot place"):
+        ops.smo_chunk_lanes(*lanes, _route="cluster")
+    short = min(cap, key=cap.get)
+    with pytest.raises(ValueError, match="cluster route cannot place"):
+        ops.smo_chunk_lanes(*lanes, _route="cluster", _cluster=short)
+    with pytest.raises(ValueError, match="cluster route cannot place"):
+        ops.smo_chunk_lanes(K, diag, y, masks[:2], [ds.C] * 2, 1e-3,
+                            [10] * 2, 20, "2", *(t[:2] for t in state),
+                            _route="cluster", _cluster=(17, 4))
+    assert ops.route_counts()["smo_chunk"] == before
+
+
+@pytest.mark.cuda
+def test_cuda_cluster_builds(cuda):
+    """Each build of the cluster kernel exists on the card, with at most
+    512 threads a block (a cluster reduces its warps' slots one a lane:
+    32 warps at most) and its registers within what that block allows;
+    one that does not exist raises."""
+    from repro_torch.kernels.smo_chunk import CLUSTER_ROWS, cluster_build
+    for rows in CLUSTER_ROWS:
+        threads, regs, _ = cluster_build(rows)
+        assert 32 <= threads <= 512 and 0 < regs * threads <= 65_536
+    with pytest.raises(RuntimeError, match="cluster_build"):
+        cluster_build(3)

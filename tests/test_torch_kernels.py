@@ -321,49 +321,157 @@ def test_flash_route(dtype, D):
     assert route(dtype, D) == want
 
 
-@pytest.mark.parametrize("n,m,want", [
-    (270, 2, "one_block"), (1000, 4, "one_block"), (2000, 8, "one_block"),
-    (4096, 16, "one_block"), (4608, 18, "one_block"), (4608, 5, "one_block"),
-    (4608, 0, "one_block"), (6144, 24, "multi_block"),
-    (8192, 32, "multi_block"), (8192, 6, "multi_block"),
-    (8192, 0, "one_block_global"),
-    (16384, 64, "multi_block"), (32560, 128, "multi_block"),
-    (32560, 24, "multi_block"), (32560, 0, "one_block_global"),
+#: clusters an H100 (132 SMs) runs at once for each (blocks a cluster, rows
+#: a thread) of the cluster kernel's builds, as ``cluster_capacity`` read
+#: them on an NVIDIA H100 80GB HBM3 (chip_smoke.py prints them: its
+#: ``smo_chunk_cluster_capacity``; n = 270 reads as 1,000, 32,560 as
+#: 32,544)
+H100_SMS = 132
+H100_CLUSTERS = {
+    1000: {(2, 4): 528, (2, 8): 528, (2, 16): 528, (2, 32): 462,
+           (3, 4): 327, (3, 8): 327, (3, 16): 327, (3, 32): 287,
+           (4, 4): 248, (4, 8): 248, (4, 16): 248, (4, 32): 216,
+           (5, 4): 193, (5, 8): 193, (5, 16): 193, (5, 32): 171,
+           (6, 4): 163, (6, 8): 163, (6, 16): 163, (6, 32): 141,
+           (7, 4): 139, (7, 8): 139, (7, 16): 139, (7, 32): 124,
+           (8, 4): 124, (8, 8): 124, (8, 16): 124, (8, 32): 107},
+    4608: {(2, 8): 66, (2, 16): 132, (2, 32): 132, (3, 8): 79, (3, 16): 163,
+           (3, 32): 163, (4, 8): 92, (4, 16): 124, (4, 32): 124, (5, 8): 94,
+           (5, 16): 146, (5, 32): 171, (6, 8): 101, (6, 16): 124,
+           (6, 32): 141, (7, 8): 84, (7, 16): 101, (7, 32): 124, (8, 8): 77,
+           (8, 16): 92, (8, 32): 107},
+    8192: {(2, 8): 66, (2, 16): 66, (2, 32): 132, (3, 16): 79, (3, 32): 79,
+           (4, 8): 62, (4, 16): 92, (4, 32): 124, (5, 16): 69, (5, 32): 94,
+           (6, 16): 79, (6, 32): 79, (7, 16): 69, (7, 32): 69, (8, 8): 62,
+           (8, 16): 92, (8, 32): 107},
+    32544: {(4, 32): 30, (8, 32): 30},
+}
+H100_CLUSTERS[270] = H100_CLUSTERS[1000]
+H100_CLUSTERS[32560] = H100_CLUSTERS[32544]
+
+
+def _h100_cluster(n, lanes):
+    """The cluster plan an H100 gives ``lanes`` lanes of n rows (None where
+    no shape places them)."""
+    from repro_torch.kernels.smo_chunk import cluster_plan
+    return cluster_plan(n, lanes, H100_CLUSTERS[n], H100_SMS)
+
+
+@pytest.mark.parametrize("n,lanes,m,cluster,want", [
+    (270, 1, 2, False, "one_block"), (1000, 1, 4, False, "one_block"),
+    (2000, 1, 8, False, "one_block"), (4096, 1, 16, False, "one_block"),
+    (4608, 1, 18, False, "one_block"), (4608, 132, 5, False, "one_block"),
+    (4608, 133, 0, False, "one_block"), (6144, 1, 24, False, "multi_block"),
+    (8192, 1, 32, False, "multi_block"), (8192, 88, 6, False, "multi_block"),
+    (8192, 89, 0, True, "cluster"),
+    (16384, 1, 64, False, "multi_block"),
+    (32560, 1, 128, False, "multi_block"),
+    (32560, 22, 24, False, "multi_block"), (32560, 23, 0, True, "cluster"),
+    (270, 1, 2, True, "one_block"), (270, 10, 2, True, "one_block"),
+    (1000, 1, 4, True, "one_block"), (1000, 10, 4, True, "one_block"),
+    (32560, 1, 128, True, "multi_block"), (32560, 4, 128, True, "multi_block"),
+    (32560, 16, 41, True, "cluster"), (32560, 22, 24, True, "cluster"),
+    (32544, 24, 0, True, "cluster"), (32544, 32, 0, True, "one_block_global"),
+    (8192, 88, 6, True, "cluster"), (4608, 1, 18, True, "cluster"),
+    (4608, 132, 5, True, "one_block"), (4608, 133, 0, True, "cluster"),
 ])
-def test_chunk_route(n, m, want):
-    """The faster route at the card's measured points (chip_smoke.py's
-    crossover and lane sweeps): heart (270) and adult n=1000, and every
-    lane to 4,608 rows, stay one block a lane on the resident kernel;
-    larger lanes spread over the m blocks the plan gives them (one lane:
-    from 6,144 rows), unless a wide batch leaves them none (m = 0: the
-    lanes' state is more than the card's shared memory), where they keep
-    one block a lane, on the global-state kernel past 6,144 rows."""
+def test_chunk_route(n, lanes, m, cluster, want):
+    """The fastest route at the card's measured points (chip_smoke.py's
+    crossover and lane sweeps), for ``lanes`` lanes of n rows given the m
+    blocks a lane of the multi-block plan and (``cluster``) the cluster
+    plan an H100 makes for them: heart (270) and adult n=1000 stay one
+    block a lane on the resident kernel, one lane or Table 1's batched
+    ten, whatever the other plans; at 4,608 rows the cluster route beats
+    it, up to the 132 lanes that load each SM with a lane's rows at 16
+    rows a thread (and past 132 lanes the one-block kernel runs in two
+    waves);
+    without a cluster plan, larger lanes spread over the m blocks
+    the multi-block plan gives them (one lane of 32,560 rows: the size
+    phase); a wide batch, which loads that route's SMs with large slices
+    or leaves it none (m = 0: the lanes' state is more than the card's
+    shared memory), takes the cluster route where its plan places the
+    lanes (24 folds at n = 32,544; 88 lanes of 8,192 rows; 16 or more at
+    32,560), and keeps one block a lane on the global-state kernel where
+    no route places them on chip (32 lanes at n = 32,544)."""
     from repro_torch.kernels.smo_chunk import chunk_route
-    assert chunk_route(n, m) == want
+    plan = _h100_cluster(n, lanes) if cluster else None
+    assert chunk_route(n, lanes, m, plan, H100_SMS) == want
+
+
+def test_cluster_plan_is_pure():
+    """The cluster plan is a function of (n, lanes, capacity, SMs) alone:
+    no card, the same answer for equal inputs; at 24 lanes of 32,544 rows
+    an H100 holds it as 4-block clusters at 32 rows a thread (256-thread
+    blocks, one a SM: 8,192 rows an SM, as 8-block clusters of two
+    128-thread blocks a SM would carry), and past the 30 clusters it runs
+    at once there is no plan."""
+    from repro_torch.kernels.smo_chunk import ClusterPlan, cluster_plan
+    cap = H100_CLUSTERS[32544]
+    got = cluster_plan(32544, 24, cap, H100_SMS)
+    assert got == cluster_plan(32544, 24, dict(reversed(cap.items())),
+                               H100_SMS)
+    assert got == ClusterPlan(blocks=4, rows=32, threads=256, load=8192)
+    assert cluster_plan(32544, 30, cap, H100_SMS) is not None
+    assert cluster_plan(32544, 31, cap, H100_SMS) is None
+    assert cluster_plan(32544, 1, {}, H100_SMS) is None
+
+
+def test_cluster_plan_prefers_portable_then_fewest_rows_an_sm():
+    """The card is asked for portable clusters only (2 to 8 blocks); of
+    the shapes that place every lane, the plan takes the fewest rows an SM,
+    then the smaller cluster, then fewer rows a thread; 88 lanes of 8,192
+    rows on an H100: 4-block clusters at 16 rows a thread (the 8-block
+    ones carry as many rows an SM)."""
+    from repro_torch.kernels.smo_chunk import CLUSTER_SIZES, cluster_plan
+    assert min(CLUSTER_SIZES) == 2 and max(CLUSTER_SIZES) == 8
+    cap = {(4, 8): 100, (8, 4): 100, (8, 8): 100, (2, 16): 100}
+    got = cluster_plan(4096, 2, cap, 132)
+    assert (got.blocks, got.rows, got.threads, got.load) == (8, 4, 128, 512)
+    got = cluster_plan(4096, 132, {(8, 4): 200, (4, 8): 200}, 132)
+    assert (got.blocks, got.rows, got.threads, got.load) == (4, 8, 128,
+                                                             4096)
+    got = _h100_cluster(8192, 88)
+    assert (got.blocks, got.rows, got.threads, got.load) == (4, 16, 128,
+                                                             6144)
+
+
+@pytest.mark.parametrize("n", [1, 33, 1000, 8192, 32544])
+@pytest.mark.parametrize("m", [2, 5, 8, 16])
+@pytest.mark.parametrize("rows", [4, 32])
+def test_cluster_threads_cover_the_lane(n, m, rows):
+    """A cluster's blocks hold every row of the lane, in whole warps, with
+    less than a warp's rows to spare in a block."""
+    from repro_torch.kernels.smo_chunk import cluster_threads
+    t = cluster_threads(n, m, rows)
+    assert t % 32 == 0 and t >= 32 and m * t * rows >= n
+    assert t == 32 or (t - 32) * rows < -(-n // m)
 
 
 @pytest.mark.parametrize("n", [270, 1000])
 def test_one_block_plan_takes_table1(n):
     """Every Table-1 lane (heart n=270, adult n=1000; one lane, or the ten
-    of the batched rows, which leave the multi-block plan at most as many
-    blocks a lane as one lane does) is held by the resident one-block
-    kernel, in registers, whatever the multi-block plan gives."""
+    of the batched rows) is held by the resident one-block kernel, in
+    registers, whatever the multi-block plan gives (m blocks a lane, 0 to
+    one a 256 rows) and with or without the cluster plan an H100 makes."""
     from repro_torch.kernels.smo_chunk import chunk_route, one_block_plan
     rows, threads, smem = one_block_plan(n)
     assert not smem and threads <= 1024
     assert rows * threads >= n > rows * (threads - 32)
-    for m in range(0, -(-n // 256) + 1):
-        assert chunk_route(n, m) == "one_block"
+    for lanes in (1, 10):
+        for cluster in (None, _h100_cluster(n, lanes)):
+            for m in range(0, -(-n // 256) + 1):
+                assert chunk_route(n, lanes, m, cluster,
+                                   H100_SMS) == "one_block"
 
 
 @pytest.mark.parametrize("n", [6145, 8192, 32560])
 def test_one_block_plan_refuses_large_lanes(n):
-    """Past 6,144 rows no resident build holds a lane: where the
-    multi-block plan places none either (m = 0), the lanes keep one block
-    each on the global-state kernel."""
+    """Past 6,144 rows no resident build holds a lane: where neither the
+    multi-block plan (m = 0) nor the cluster plan places the lanes, they
+    keep one block each on the global-state kernel."""
     from repro_torch.kernels.smo_chunk import chunk_route, one_block_plan
     assert one_block_plan(n) is None
-    assert chunk_route(n, 0) == "one_block_global"
+    assert chunk_route(n, 1, 0, None, H100_SMS) == "one_block_global"
 
 
 def test_resident_rows_fit_their_builds():
@@ -407,7 +515,7 @@ def test_cpu_tensors_count_no_route():
                          torch.zeros(1, dtype=torch.int64),
                          torch.zeros(1, dtype=torch.bool), _route="persistent")
     assert ops.route_counts() == {
-        "smo_chunk": {"one_block": 0, "multi_block": 0,
+        "smo_chunk": {"one_block": 0, "multi_block": 0, "cluster": 0,
                       "one_block_global": 0},
         "smo_stream_chunk": {"pair": 0, "persistent": 0},
         "flash_attention": {"fma": 0, "mma": 0, "wgmma": 0}}
