@@ -20,9 +20,13 @@ to 0 just before it and read just after:
   the flash-attention kernel's wgmma route, then 4 requests served through
   the KV cache (a 16-token prompt teacher-forced, 32 greedy tokens).
 
-Three kernels have routes, and every check and path records the one it
-took (``ops.route_counts``): the dense ``smo_chunk`` takes, of the routes
-that place a launch, the fastest by a time model fitted on the card: one
+Four kernels have routes, and every check and path records the one it
+took (``ops.route_counts``): every float64 ``rbf_kernel_matrix`` runs on
+the FP64 tensor cores (for K(X, X), the SVM paths' build, only the tiles
+on and above the diagonal), checked bit for bit against the FMA kernel,
+float32's route, at both its tiles; the dense ``smo_chunk`` takes, of
+the routes that place a launch, the fastest by a time model fitted on the
+card: one
 block a lane holding the lane's state on chip (every Table-1 lane), many
 blocks a lane of a cooperative launch (the size phase), a thread-block
 cluster a lane holding its state in the cluster's shared memory (the wide
@@ -121,6 +125,9 @@ FLASH_BF16_CASES = tuple((2, 3, 3, S, D, causal, window)
     (2, 8, 2, 300, 128, True, None), (1, 4, 1, 200, 128, False, 70),
     (2, 8, 2, 1000, 128, True, 256), (1, 4, 1, 200, 256, False, 70),
     (2, 8, 2, 1000, 256, True, 256), (2, 4, 2, 256, 32, True, 48))
+#: rows of the RBF kernel's tile sweep (adult's first n rows, K(X, X) and
+#: K(X, copy of X) at every tensor-route tile)
+RBF_SWEEP_N = (270, 1000, 2000, 4096, 4099, 8192, 16384, 32560)
 #: the dense chunk's crossover sweep: rows, iterations timed on each route
 CHUNK_SWEEP_N = (100, 270, 500, 1000, 2000, 4096, 6144, 8192, 16384)
 CHUNK_SWEEP_ITERS = 500
@@ -130,6 +137,11 @@ CHUNK_LANE_SWEEP_N = (4608, 8192, 32560)
 #: ``chunk_route`` picks at a sweep point may be: a route's time at one
 #: point spreads by up to ~6% from call to call on the card (PERF.md §6)
 CHUNK_ROUTE_MARGIN = 0.05
+#: rounds in which a sweep point's routes are timed: each round times every
+#: route once, in turn, and a route keeps its fastest round, so a slow
+#: stretch of the card (a clock step, a late warm-up) falls on all routes
+#: alike and not on the one that happened to be timed in it
+ROUTE_ROUNDS = 5
 #: and its wide points, past the multi-block plan's widest batch: rows ->
 #: lanes (size_wide's 24 folds and wider at n = 32,544; 88 at 8,192)
 CHUNK_WIDE_SWEEP = {32544: (24, 32, 48), 8192: (88,)}
@@ -196,6 +208,18 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def routes_ms(run, routes, reps: int = 3,
+              rounds: int = ROUTE_ROUNDS) -> dict:
+    """Device time of ``run(route)`` for each of ``routes``: ``rounds``
+    rounds that each time every route by ``cuda_ms`` (``reps`` calls), one
+    after another, and each route's fastest round."""
+    best = {r: float("inf") for r in routes}
+    for _ in range(rounds):
+        for r in routes:
+            best[r] = min(best[r], cuda_ms(lambda: run(r), reps))
+    return best
 
 
 def graph_ms(fn, reps: int) -> float:
@@ -274,6 +298,134 @@ def _datasets():
     return out
 
 
+def _rbf_checks(datasets, rng) -> list:
+    """The RBF kernel against its plain version (f64 within 1e-10, f32
+    within 1e-5) at the test shapes and the main path's, K(X, X) from one
+    tensor as the SVM paths build it; and, in float64, the tensor route
+    bitwise equal to the FMA kernel at both its tiles and, for K(X, X), to
+    itself with a copy of X as Z (every tile computed)."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.rbf import FMA_TILES
+    dev = torch.device("cuda")
+    checks = []
+    shapes = [(64, 64, 16), (100, 130, 70), (257, 63, 9), (32, 512, 128)]
+    cases = [(rng.normal(size=(n, d)), rng.normal(size=(m, d)), 0.37)
+             for n, m, d in shapes]
+    for (name, m), ds in datasets.items():
+        cases.append((ds.X[:m], None, ds.gamma))     # None: Z is X
+    for X, Z, gamma in cases:
+        for dtype, atol in ((torch.float64, 1e-10), (torch.float32, 1e-5)):
+            Xt = torch.as_tensor(X, dtype=dtype, device=dev)
+            Zt = Xt if Z is None else torch.as_tensor(Z, dtype=dtype,
+                                                      device=dev)
+            shape = [Xt.shape[0], Zt.shape[0], Xt.shape[1]]
+            got = ops.rbf_kernel_matrix(Xt, Zt, gamma)
+            want = ref.rbf_kernel_matrix_ref(Xt, Zt, gamma)
+            err = float((got - want).abs().max())
+            del want
+            require(math.isfinite(err) and err <= atol,
+                    f"rbf {shape} {dtype}: err {err} > {atol}")
+            rec = {"shape": shape, "dtype": str(dtype),
+                   "z_is_x": Z is None, "max_abs_err": err}
+            if dtype == torch.float64:
+                others = {f"fma_{t}": (Zt, {"_route": "fma", "_tile": t})
+                          for t in FMA_TILES}
+                if Z is None:
+                    others["tensor_z_copy"] = (Xt.clone(), {})
+                for label, (Zo, kw) in others.items():
+                    other = ops.rbf_kernel_matrix(Xt, Zo, gamma, **kw)
+                    require(torch.equal(got, other), f"rbf {shape}: the "
+                            f"tensor route and {label} differ")
+                    del other
+                rec["bitwise_equal_to"] = sorted(others)
+            checks.append(rec)
+            del got
+            torch.cuda.empty_cache()
+    return checks
+
+
+def timed(fn, n: int) -> float:
+    """Device ms of one RBF build of n rows: over a CUDA graph of 20 calls
+    below 10,000 rows (the kernel's time, not the wrapper's host rate), by
+    CUDA events over 3 calls above."""
+    return graph_ms(fn, 20) if n < 10_000 else cuda_ms(fn, 3)
+
+
+def _rbf_bounds(n: int, d: int, sym: bool) -> dict:
+    """The least time of an (n, n) K: its operations (for K(X, X) the
+    tiles on and above the diagonal) at the FP64 tensor rate against the
+    bytes (K written, X, Z and the norms read) at HBM's."""
+    flops = (1.0 * n * (n + 1) if sym else 2.0 * n * n) * d
+    nbytes = 8.0 * (n * n + (n * d + n) * (1 if sym else 2))
+    return _bound(nbytes, flops)
+
+
+def _rbf_times(datasets) -> list:
+    """At each main-path shape (K(X, X) of heart 270, adult 1,000 and adult
+    32,560): the tensor route with Z is X (what the paths launch), with a
+    copy of X as Z (every tile), the FMA kernel, the plain version and the
+    library call, each with its bound."""
+    from repro_torch.kernels import ops, ref
+    dev = torch.device("cuda")
+    rows = []
+    for (name, m), ds in datasets.items():
+        X = torch.as_tensor(ds.X[:m], device=dev)
+        Xc = X.clone()
+        n, d = X.shape
+        g = ds.gamma
+        ms = timed(lambda: ops.rbf_kernel_matrix(X, X, g), n)
+        ms_distinct = timed(lambda: ops.rbf_kernel_matrix(X, Xc, g), n)
+        fma_ms = timed(lambda: ops.rbf_kernel_matrix(X, X, g, _route="fma"),
+                       n)
+        plain_ms = timed(lambda: ref.rbf_kernel_matrix_ref(X, X, g), n)
+
+        def library():
+            xn = torch.sum(X * X, -1)
+            d2 = torch.addmm(xn[:, None] + xn[None, :], X, X.T, alpha=-2.0)
+            return torch.exp_(d2.clamp_(min=0.0).mul_(-g))
+        library_ms = timed(library, n)
+        sym, distinct = _rbf_bounds(n, d, True), _rbf_bounds(n, d, False)
+        rows.append({
+            "dataset": name, "shape": [n, n, d], "ms": ms,
+            "ms_distinct": ms_distinct, "fma_ms": fma_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms, **sym,
+            "bound_ms_distinct": distinct["bound_ms"],
+            "bound_by_distinct": distinct["bound_by"],
+            "tflops_distinct": 2.0 * n * n * d / ms_distinct / 1e9})
+        del X, Xc
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _rbf_tile_sweep(ds) -> list:
+    """The tensor route at every tile, K(X, X) and K(X, copy of X), over
+    adult's first n rows (RBF_SWEEP_N), beside the FMA kernel and
+    ``tensor_tile``'s picks: the points its rule is fitted to."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.rbf import TENSOR_TILES, tensor_tile
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    X_all = torch.as_tensor(ds.X, device=dev)
+    g = ds.gamma
+    rows = []
+    for n in RBF_SWEEP_N:
+        X = X_all[:n]
+        Xc = X.clone()
+        rec = {"n": n, "pick_sym": tensor_tile(n, n, True, sms),
+               "pick": tensor_tile(n, n, False, sms)}
+        for b in TENSOR_TILES:
+            rec[f"ms_sym_{b}"] = timed(
+                lambda: ops.rbf_kernel_matrix(X, X, g, _tile=b), n)
+            rec[f"ms_{b}"] = timed(
+                lambda: ops.rbf_kernel_matrix(X, Xc, g, _tile=b), n)
+        rec["fma_ms"] = timed(
+            lambda: ops.rbf_kernel_matrix(X, X, g, _route="fma"), n)
+        rows.append(rec)
+        del Xc
+        torch.cuda.empty_cache()
+    return rows
+
+
 def phase_kernels(datasets):
     """Each kernel against its plain version at the main path's shapes,
     then its time, the plain version's time, and its bound."""
@@ -289,59 +441,12 @@ def phase_kernels(datasets):
     info = {}
 
     # ---- rbf_kernel_matrix: f64 and f32, test shapes and main-path shapes
-    rbf_checks = []
-    shapes = [(64, 64, 16), (100, 130, 70), (257, 63, 9), (32, 512, 128)]
-    cases = [(rng.normal(size=(n, d)), rng.normal(size=(m, d)), 0.37)
-             for n, m, d in shapes]
-    for (name, m), ds in datasets.items():
-        X = ds.X[:m]
-        cases.append((X, X, ds.gamma))
-    for X, Z, gamma in cases:
-        for dtype, atol in ((torch.float64, 1e-10), (torch.float32, 1e-5)):
-            Xt = torch.as_tensor(X, dtype=dtype, device=dev)
-            Zt = torch.as_tensor(Z, dtype=dtype, device=dev)
-            got = ops.rbf_kernel_matrix(Xt, Zt, gamma)
-            want = ref.rbf_kernel_matrix_ref(Xt, Zt, gamma)
-            err = float((got - want).abs().max())
-            del got, want
-            rbf_checks.append({"shape": [X.shape[0], Z.shape[0], X.shape[1]],
-                               "dtype": str(dtype), "max_abs_err": err})
-            require(math.isfinite(err) and err <= atol,
-                    f"rbf {X.shape}x{Z.shape} {dtype}: err {err} > {atol}")
-    Xa = torch.as_tensor(datasets[("adult", 1000)].X, device=dev)
-    tile_diff = float((ops.rbf_kernel_matrix(Xa, Xa, 0.5, _tile=64)
-                       - ops.rbf_kernel_matrix(Xa, Xa, 0.5, _tile=32))
-                      .abs().max())
-    require(tile_diff <= 1e-12, f"rbf tile 64 vs 32 differ by {tile_diff}")
-    torch.cuda.empty_cache()
-
-    rbf_times = []
-    for (name, m), ds in datasets.items():
-        X = torch.as_tensor(ds.X[:m], device=dev)
-        n, d = X.shape
-        g = ds.gamma
-        reps = 3 if n > 10_000 else 20
-        ms = cuda_ms(lambda: ops.rbf_kernel_matrix(X, X, g), reps)
-        plain_ms = cuda_ms(lambda: ref.rbf_kernel_matrix_ref(X, X, g), reps)
-
-        def library():
-            xn = torch.sum(X * X, -1)
-            d2 = torch.addmm(xn[:, None] + xn[None, :], X, X.T, alpha=-2.0)
-            return torch.exp_(d2.clamp_(min=0.0).mul_(-g))
-        library_ms = cuda_ms(library, reps)
-        flops, nbytes = 2.0 * n * n * d, 8.0 * (n * n + 2 * n * d + 2 * n)
-        t_ops, t_bytes = flops / FP64_FLOPS, nbytes / HBM_BPS
-        rbf_times.append({
-            "shape": [n, n, d], "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": 1e3 * max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "tflops": flops / ms / 1e9})
-        del X
-        torch.cuda.empty_cache()
-    big = rbf_times[-1]
+    rbf_checks = _rbf_checks(datasets, rng)
+    rbf_times = _rbf_times(datasets)
+    rbf_sweep = _rbf_tile_sweep(datasets[("adult", SIZE_N - 1)])
     info["rbf_kernel_matrix"] = dict(
-        big, max_abs_err=max(c["max_abs_err"] for c in rbf_checks
-                             if c["dtype"] == "torch.float64"))
+        rbf_times[-1], max_abs_err=max(c["max_abs_err"] for c in rbf_checks
+                                       if c["dtype"] == "torch.float64"))
 
     # ---- smo_f_update: bitwise vs the CPU addcmul, rtol 1e-12 vs the card's
     fu = []
@@ -431,8 +536,8 @@ def phase_kernels(datasets):
                     cluster_capacity(n).items() if c}
                 for n in (270, 1000, 4608, 8192, 32544, 32560)}
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0,
-          "rbf_checks": rbf_checks, "rbf_tile_64_vs_32_max_diff": tile_diff,
-          "rbf_times": rbf_times, "smo_f_update": fu,
+          "rbf_checks": rbf_checks, "rbf_times": rbf_times,
+          "rbf_tile_sweep": rbf_sweep, "smo_f_update": fu,
           "smo_chunk": chunk_checks, "smo_chunk_crossover": sweep,
           "smo_chunk_width_sweep": widths,
           "smo_chunk_lane_sweep": lane_sweep, "smo_chunk_fits": fits,
@@ -522,8 +627,8 @@ def _chunk_crossover(ds):
         rec = {"n": n, "n_iter": it, "blocks_per_lane": m,
                "cluster": cluster,
                "route": chunk_route(n, 1, m, cluster, _sms())}
-        for r in routes:
-            ms = cuda_ms(lambda: ops.smo_chunk(*args, _route=r), 3)
+        for r, ms in routes_ms(lambda r: ops.smo_chunk(*args, _route=r),
+                               routes).items():
             rec[f"us_per_iter_{r}"] = 1e3 * ms / it
         if cluster is not None:
             rec.update(_cluster_shapes(n, 1, cluster, res["cluster"], it,
@@ -651,7 +756,8 @@ def _chunk_lane_sweep(ds):
                                                f"'s {what} differ")
                 require(bool(got[3].all()) and int(got[2].min()) == cap,
                         f"smo_chunk n={n} b={b}: {r} stopped short of the cap")
-                ms = cuda_ms(lambda: ops.smo_chunk_lanes(*lanes, _route=r), 3)
+            for r, ms in routes_ms(lambda r: ops.smo_chunk_lanes(
+                    *lanes, _route=r), routes).items():
                 rec[f"us_per_iter_{r}"] = 1e3 * ms / cap
             if cluster is not None:
                 rec.update(_cluster_shapes(n, b, cluster, res["auto"], cap,
@@ -2125,6 +2231,12 @@ def main() -> int:
             "alone")
     require(counts["size_matrix_free"]["rbf_kernel_matrix"] == 0,
             "the matrix-free path built a kernel matrix")
+    # every float64 K of the dense paths is built on the FP64 tensor cores
+    for path in ("table1", "table1_batched", "size", "size_wide"):
+        rbf = routes[path]["rbf_kernel_matrix"]
+        require(rbf["fma"] == 0
+                and rbf["tensor"] == counts[path]["rbf_kernel_matrix"] > 0,
+                f"{path}: the RBF kernel's routes {rbf}")
     # two prefills, one launch per layer (also checked per call)
     require(counts["serve_lm"]["flash_attention"] == 2 * 36,
             "flash_attention was not launched once per prefill layer on the "
@@ -2134,7 +2246,7 @@ def main() -> int:
     # kernel -> (source, the TPU kernel or loop it replaces, its path)
     sources = {"rbf_kernel_matrix": (csrc + "rbf.cu",
                                      "src/repro/kernels/rbf.py:54",
-                                     "table1"),
+                                     "size"),
                "smo_f_update": (csrc + "smo_update.cu",
                                 "src/repro/kernels/smo_update.py:24",
                                 "table1"),
@@ -2166,6 +2278,10 @@ def main() -> int:
     # 0); flash_attention's routes are listed beside its launches
     launches = {name: counts[path].get(name) for name, (_, _, path)
                 in sources.items()}
+    # the RBF kernel's time is K(X, X) at n = 32,560: the builds of that
+    # size are size's and size_wide's (Table 1's are at n <= 1,000)
+    launches["rbf_kernel_matrix"] = sum(
+        counts[path]["rbf_kernel_matrix"] for path in ("size", "size_wide"))
     launches["smo_chunk"] = routes["table1"]["smo_chunk"]["one_block"]
     launches["smo_chunk_multi_block"] = (
         routes["size"]["smo_chunk"]["multi_block"])
@@ -2183,6 +2299,12 @@ def main() -> int:
             "bound_by": k["bound_by"], "library_ms": k.get("library_ms")})
         if name in ("flash_attention", "smo_stream_chunk"):
             kernels[-1]["routes"] = routes[path][name]
+        if name == "rbf_kernel_matrix":
+            kernels[-1].update(
+                {key: k[key] for key in ("ms_distinct", "bound_ms_distinct",
+                                         "fma_ms")},
+                launches_table1=counts["table1"][name],
+                routes={p: routes[p][name] for p in ("size", "size_wide")})
         # beside the main path's shape: the paper's cardinality, the
         # floors that X held in the L2 leaves, and the dense chunk's rows
         # and the global-state kernel's time there

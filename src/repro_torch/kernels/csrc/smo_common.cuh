@@ -1,5 +1,5 @@
 // Device helpers shared by the SMO kernels (smo_update.cu, smo_chunk.cu,
-// smo_step.cu).
+// smo_step.cu) and the RBF kernel matrix (rbf.cu).
 //
 // Every SMO source is compiled with -fmad=false (kernels/_build.py), so
 // nvcc contracts nothing on its own: the one fused multiply-add below is
@@ -236,4 +236,45 @@ __device__ __forceinline__ double pair_update(double* alpha, const double* f,
   alpha[i] = new_i;
   alpha[j] = new_j;
   return delta;
+}
+
+// ---------------------------------------------------------------------------
+// Asynchronous copies into shared memory, and the FP64 tensor cores' product
+// (smo_step.cu's and rbf.cu's staged slabs). The m16n8k4 product rounds
+// each output like a chain of fmas in order of k on every input tried; the
+// witness builds (smo_step_fma, and rbf.cu's FMA kernel) hold a card to it.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "n"(BYTES)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// c0 += a . b for rows g and c1 for rows g + 8 of a 16 x 8 tile, one k-step
+// of 4 on the FP64 tensor cores (A 16 x 4 row-major, B 4 x 8 column-major;
+// a0 = A[g][t], a1 = A[g + 8][t], b = B[t][g], c = C[row][2 t .. 2 t + 1];
+// g = lane / 4, t = lane % 4).
+__device__ __forceinline__ void dmma16(double (&c0)[2], double (&c1)[2],
+                                       double a0, double a1, double b) {
+  asm("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, "
+      "{%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+d"(c0[0]), "+d"(c0[1]), "+d"(c1[0]), "+d"(c1[1])
+      : "d"(a0), "d"(a1), "d"(b));
 }

@@ -126,40 +126,6 @@ __device__ __forceinline__ double exp_t<double>(double x) { return exp(x); }
 template <>
 __device__ __forceinline__ float exp_t<float>(float x) { return expf(x); }
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-template <int BYTES>
-__device__ __forceinline__ void cp_async(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "n"(BYTES)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// c0 += a . b for rows g and c1 for rows g + 8 of a 16 x 8 tile, one k-step
-// of 4 on the FP64 tensor cores (A 16 x 4 row-major, B 4 x 8 column-major;
-// a0 = A[g][t], a1 = A[g + 8][t], b = B[t][g], c = C[row][2 t .. 2 t + 1];
-// g = lane / 4, t = lane % 4).
-__device__ __forceinline__ void dmma16(double (&c0)[2], double (&c1)[2],
-                                       double a0, double a1, double b) {
-  asm("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, "
-      "{%4, %5}, {%6}, {%0, %1, %2, %3};\n"
-      : "+d"(c0[0]), "+d"(c0[1]), "+d"(c1[0]), "+d"(c1[1])
-      : "d"(a0), "d"(a1), "d"(b));
-}
-
 // Rows [row0, row0 + rows) and features [k0, k0 + kw) of X (rows ldx
 // apart) into a ring stage laid out [row][x_stride], as one cp.async group
 // of VEC elements a copy (VEC = 2, 16 bytes, needs rows at 16-byte

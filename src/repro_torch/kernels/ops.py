@@ -9,11 +9,12 @@ persistent kernel's launches; on its pair route it adds its launches of
 the WSS-1 selection kernel to ``smo_select`` and of the fused step to
 ``fused_smo_step``.
 ``flash_attention`` counts one per launch (one per prefill attention layer
-on the LM serving path). ``route_counts`` splits the three kernels that have
-routes: ``smo_chunk`` (one_block, the resident kernel / multi_block /
-cluster / one_block_global, the global-state kernel), ``smo_stream_chunk``
-(pair / persistent: the chunks on each) and ``flash_attention`` (wgmma /
-mma / fma).
+on the LM serving path). ``route_counts`` splits the four kernels that have
+routes: ``rbf_kernel_matrix`` (tensor, the FP64 tensor cores / fma),
+``smo_chunk`` (one_block, the resident kernel / multi_block / cluster /
+one_block_global, the global-state kernel), ``smo_stream_chunk`` (pair /
+persistent: the chunks on each) and ``flash_attention`` (wgmma / mma /
+fma).
 """
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rbf import rbf_kernel_matrix
@@ -43,7 +44,8 @@ def launch_counts() -> dict[str, int]:
 
 
 #: the wrappers whose launches split into routes
-ROUTED = {"smo_chunk": smo_chunk, "smo_stream_chunk": smo_stream_chunk,
+ROUTED = {"rbf_kernel_matrix": rbf_kernel_matrix, "smo_chunk": smo_chunk,
+          "smo_stream_chunk": smo_stream_chunk,
           "flash_attention": flash_attention}
 
 

@@ -24,12 +24,114 @@ def cuda():
 @pytest.mark.parametrize("dtype,atol", [(torch.float64, 1e-10),
                                         (torch.float32, 1e-5)])
 def test_cuda_rbf_matches_plain(cuda, dtype, atol):
+    """Both routes at every tile within the stated tolerance of the plain
+    version (float64 has both, float32 the FMA kernel only)."""
+    from repro_torch.kernels.rbf import FMA_TILES, TENSOR_TILES
     X = torch.from_numpy(RNG.normal(size=(257, 70))).to(cuda, dtype)
     Z = torch.from_numpy(RNG.normal(size=(130, 70))).to(cuda, dtype)
     want = ref.rbf_kernel_matrix_ref(X, Z, 0.37)
-    for tile in (64, 32):
-        got = ops.rbf_kernel_matrix(X, Z, 0.37, _tile=tile)
+    forced = [("fma", t) for t in FMA_TILES]
+    if dtype == torch.float64:
+        forced += [("tensor", t) for t in TENSOR_TILES]
+    for route, tile in forced:
+        got = ops.rbf_kernel_matrix(X, Z, 0.37, _route=route, _tile=tile)
         torch.testing.assert_close(got, want, rtol=0, atol=atol)
+
+
+#: ragged sizes of the RBF kernel's bitwise checks
+RBF_ROWS = (1, 7, 129, 1000, 4099)
+
+
+def _rbf_fma(X, Z, gamma, tile=64):
+    return ops.rbf_kernel_matrix(X, Z, gamma, _route="fma", _tile=tile)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 3, 4, 5, 16, 17, 123, 128, 129])
+def test_cuda_rbf_tensor_route_bitwise_equals_fma(cuda, d):
+    """The float64 tensor route gives the FMA kernel's bits (tiles 64 and
+    32) over ragged n, m and d, at the tile it picks; every forced tile
+    too at two shapes."""
+    from repro_torch.kernels.rbf import TENSOR_TILES
+    gamma = 1.0 / d
+    for n in RBF_ROWS:
+        for m in RBF_ROWS:
+            X = torch.from_numpy(RNG.normal(size=(n, d))).to(cuda)
+            Z = torch.from_numpy(RNG.normal(size=(m, d))).to(cuda)
+            want = _rbf_fma(X, Z, gamma)
+            assert torch.equal(_rbf_fma(X, Z, gamma, 32), want), (n, m)
+            tiles = TENSOR_TILES if (n, m) in ((129, 1000), (4099, 7)) \
+                else (None,)
+            for tile in tiles:
+                got = ops.rbf_kernel_matrix(X, Z, gamma, _tile=tile)
+                assert torch.equal(got, want), (n, m, tile)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d", [(1, 5), (7, 3), (129, 17), (1000, 123),
+                                 (4098, 123), (4099, 128)])
+def test_cuda_rbf_z_is_x_bitwise_equals_copy(cuda, n, d):
+    """K(X, X) from one tensor, and from two equal slices of one tensor
+    (the SVM paths' ``X[:n], X[:n]``), computes the tiles on and above the
+    diagonal only; it equals K(X, copy of X), every tile computed, and the
+    FMA kernel, bit for bit, at every tile (odd n: 8-byte mirror stores;
+    odd d: padded rows)."""
+    from repro_torch.kernels.rbf import TENSOR_TILES, same_operand
+    gamma = 1.0 / d
+    X = torch.from_numpy(RNG.normal(size=(n + 3, d))).to(cuda)
+    Xn = X[:n].clone()
+    assert same_operand(X[:n], X[:n]) and not same_operand(Xn, Xn.clone())
+    want = ops.rbf_kernel_matrix(Xn, Xn.clone(), gamma)
+    assert torch.equal(want, _rbf_fma(Xn, Xn, gamma))
+    for tile in (None,) + TENSOR_TILES:
+        for A, B in ((Xn, Xn), (X[:n], X[:n])):
+            got = ops.rbf_kernel_matrix(A, B, gamma, _tile=tile)
+            assert torch.equal(got, want), tile
+
+
+@pytest.mark.cuda
+def test_cuda_rbf_nan_and_inf_like_fma(cuda):
+    """NaN and +-inf in X and Z give the FMA kernel's outputs (NaN where it
+    has NaN), on distinct operands and on K(X, X)."""
+    X = torch.from_numpy(RNG.normal(size=(300, 19)))
+    X[3, 5], X[10, 0], X[20, 7] = float("nan"), float("inf"), -float("inf")
+    Z = torch.from_numpy(RNG.normal(size=(130, 19)))
+    Z[4, 2], Z[9, 1], Z[100, 18] = float("nan"), float("inf"), -float("inf")
+    X, Z = X.to(cuda), Z.to(cuda)
+    for A, B in ((X, Z), (X, X), (Z, X)):
+        want = _rbf_fma(A, B, 0.1)
+        got = ops.rbf_kernel_matrix(A, B, 0.1)
+        assert bool(torch.isnan(want).any())
+        torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.cuda
+def test_cuda_rbf_underflow_to_zero_like_fma(cuda):
+    """A gamma large enough that K underflows to 0 off the diagonal: the
+    tensor route's zeros (and its diagonal) are the FMA kernel's."""
+    X = torch.from_numpy(RNG.normal(size=(257, 33))).to(cuda)
+    Z = torch.from_numpy(RNG.normal(size=(190, 33))).to(cuda)
+    for A, B in ((X, X), (X, Z)):
+        want = _rbf_fma(A, B, 1e3)
+        got = ops.rbf_kernel_matrix(A, B, 1e3)
+        assert torch.equal(got, want)
+        assert int((got == 0).sum()) >= A.shape[0] * (B.shape[0] - 1)
+
+
+@pytest.mark.cuda
+def test_cuda_rbf_route_counts(cuda):
+    """float64 takes the tensor route, float32 the FMA kernel; forcing the
+    FMA kernel counts there; the tensor route refuses float32."""
+    X = torch.from_numpy(RNG.normal(size=(40, 6))).to(cuda)
+    ops.reset_launch_counts()
+    ops.rbf_kernel_matrix(X, X, 0.5)
+    assert ops.route_counts()["rbf_kernel_matrix"] == {"tensor": 1, "fma": 0}
+    ops.rbf_kernel_matrix(X.float(), X.float(), 0.5)
+    ops.rbf_kernel_matrix(X, X, 0.5, _route="fma")
+    assert ops.route_counts()["rbf_kernel_matrix"] == {"tensor": 1, "fma": 2}
+    assert ops.launch_counts()["rbf_kernel_matrix"] == 3
+    with pytest.raises(ValueError, match="route"):
+        ops.rbf_kernel_matrix(X.float(), X.float(), 0.5, _route="tensor")
 
 
 @pytest.mark.cuda

@@ -321,6 +321,38 @@ def test_flash_route(dtype, D):
     assert route(dtype, D) == want
 
 
+def test_rbf_same_operand():
+    """Z is X for the RBF kernel (its tensor route then computes half the
+    tiles): one tensor passed twice, or two equal slices of one (the SVM
+    paths' ``X[:n], X[:n]``); never a copy, another slice, a transpose or
+    another dtype."""
+    from repro_torch.kernels.rbf import same_operand
+    X = torch.from_numpy(RNG.normal(size=(30, 6)))
+    assert same_operand(X, X) and same_operand(X[:20], X[:20])
+    assert not same_operand(X, X.clone())
+    assert not same_operand(X[:20], X[1:21])
+    assert not same_operand(X[:20], X[:21])
+    assert not same_operand(X[:6], X[:6].T)
+    assert not same_operand(X, X.float())
+
+
+@pytest.mark.parametrize("n,sym,want", [(270, True, 32), (1000, True, 32),
+                                        (4099, True, 128), (8192, True, 128),
+                                        (32560, True, 128), (270, False, 32),
+                                        (4099, False, 128), (2000, True, 64),
+                                        (1000, False, 64), (2000, False, 128)])
+def test_rbf_tensor_tile(n, sym, want):
+    """The tensor route's tile on an H100 (132 SMs): the largest edge that
+    gives every SM one and a half tiles (K(X, X) counts the tiles on and
+    above the diagonal only), else the smallest: Table 1's K at tile 32,
+    distinct operands of 1,000 rows at 64, the paper's n = 32,560 at 128."""
+    from repro_torch.kernels.rbf import TENSOR_TILES, tensor_tile, tensor_tiles
+    assert tensor_tile(n, n, sym, H100_SMS) == want
+    assert tensor_tiles(4099, 4099, True, 128) == 33 * 34 // 2
+    assert tensor_tiles(4099, 7, False, 64) == 65
+    assert tensor_tile(10, 10 ** 6, False, H100_SMS) == TENSOR_TILES[0]
+
+
 #: clusters an H100 (132 SMs) runs at once for each (blocks a cluster, rows
 #: a thread) of the cluster kernel's builds, as ``cluster_capacity`` read
 #: them on an NVIDIA H100 80GB HBM3 (chip_smoke.py prints them: its
@@ -497,12 +529,16 @@ def test_resident_rows_fit_their_builds():
 
 
 def test_cpu_tensors_count_no_route():
-    """The plain versions on CPU tensors add to no route's count."""
+    """The plain versions on CPU tensors add to no route's count, the RBF
+    kernel's forced routes included."""
     ops.reset_launch_counts()
     q = torch.from_numpy(RNG.normal(size=(1, 2, 9, 64))).to(torch.bfloat16)
     ops.flash_attention(q, q, q)
     X = torch.from_numpy(RNG.normal(size=(20, 5)))
     K = ops.rbf_kernel_matrix(X, X, 0.5)
+    for route in ("tensor", "fma"):
+        torch.testing.assert_close(
+            ops.rbf_kernel_matrix(X, X, 0.5, _route=route), K, rtol=0, atol=0)
     y = torch.where(torch.arange(20) % 2 == 0, 1.0, -1.0).double()
     ops.smo_chunk(K, torch.diagonal(K).contiguous(), y,
                   torch.ones(20, dtype=torch.bool), 1.0, 1e-3, 100, 5, "2",
@@ -515,6 +551,7 @@ def test_cpu_tensors_count_no_route():
                          torch.zeros(1, dtype=torch.int64),
                          torch.zeros(1, dtype=torch.bool), _route="persistent")
     assert ops.route_counts() == {
+        "rbf_kernel_matrix": {"tensor": 0, "fma": 0},
         "smo_chunk": {"one_block": 0, "multi_block": 0, "cluster": 0,
                       "one_block_global": 0},
         "smo_stream_chunk": {"pair": 0, "persistent": 0},
