@@ -9,7 +9,9 @@ to 0 just before it and read just after:
 
 * Table 1 (alpha-seeded 10-fold CV, cold / ato / mir / sir, float64) on
   heart (n=270) and adult (n=1000) through ``run_cv`` (adult's iterations
-  gated on the installed JAX reference's), then adult at the paper's
+  gated on the installed JAX reference's; the seeders' loops on the
+  seeding kernels, each seed's parts timed on fold 0 -> 1 just before
+  and printed beside each method's init), then adult at the paper's
   cardinality (n=32,560) over a dense K, one fold at a time and 24 folds
   at once;
 * the batched cold CV through the lane pool (``run_cv_batched``: the
@@ -41,6 +43,10 @@ on ``mma.sync`` below.
 ``smo_step.cu`` is also built with its float64 dot products on the FMA
 pipes (``_build.VARIANTS``); the fused kernel of that build must give the
 tensor-core build's outputs bit for bit.
+
+``python3 chip_smoke.py --seed-split [--src DIR]`` runs only the seeding
+split and Table 1's times, of the package under DIR (another checkout's
+``src``), so that two trees are timed in one call.
 
 Phases print one JSON line each, with their own seconds; a failing phase
 raises and the script exits non-zero. The last lines are the
@@ -535,7 +541,10 @@ def phase_kernels(datasets):
     capacity = {n: {f"{m}x{r}": c for (m, r), c in
                     cluster_capacity(n).items() if c}
                 for n in (270, 1000, 4608, 8192, 32544, 32560)}
+    seed_info, seed_checks = _seeding_kernels()
+    info.update(seed_info)
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0,
+          "seeding": seed_info, "seeding_checks": seed_checks,
           "rbf_checks": rbf_checks, "rbf_times": rbf_times,
           "rbf_tile_sweep": rbf_sweep, "smo_f_update": fu,
           "smo_chunk": chunk_checks, "smo_chunk_crossover": sweep,
@@ -545,6 +554,225 @@ def phase_kernels(datasets):
           "smo_chunk_cluster_builds": cluster_builds,
           "smo_chunk_cluster_capacity": capacity})
     return info
+
+
+def _record_seeding_inputs(name: str, n: int) -> dict:
+    """The inputs that Table 1's seeds give each seeding kernel: ATO, MIR
+    and SIR seeds of fold 0 -> 1 run with the kernels' wrappers wrapped to
+    keep a copy of each call's arguments (before the call: ``ato_apply``
+    works in place)."""
+    from repro_torch.core import seeding
+    ds, K, y, prev, idx = _seed_problem(name, n)
+    calls = {k: [] for k in ("water_fill", "sir_greedy", "ato_system",
+                             "ato_apply")}
+    saved = {}
+    for kern in calls:
+        fn = saved[kern] = getattr(seeding, kern)
+
+        def rec(*a, _fn=fn, _k=kern):
+            calls[_k].append(tuple(x.clone() if isinstance(x, torch.Tensor)
+                                   else x for x in a))
+            return _fn(*a)
+        setattr(seeding, kern, rec)
+    try:
+        for method in ("ato", "mir", "sir"):
+            seeding.SEEDERS[method](K, y, ds.C, prev, *idx)
+    finally:
+        for attr, fn in saved.items():
+            setattr(seeding, attr, fn)
+    sync()
+    return {"C": ds.C, "K": K, "calls": calls}
+
+
+#: the seeders' bars (``tests/test_torch_seeding.py``'s ``ATOL``), here
+#: between a seed through the kernels and through the plain versions on
+#: the CPU, from the same fold solution: the LU and SVD are other
+#: libraries', ``water_fill``'s sums run in another order
+SEED_ATOL = {"sir": lambda C: 1e-10, "mir": lambda C: 1e-10 * C,
+             "ato": lambda C: 1e-12 * C}
+
+
+def _seed_checks() -> list:
+    """Whole ATO, MIR and SIR seeds (heart and adult, fold 0 -> 1 and 3
+    -> 4) on the card against the same seeds through the plain versions on
+    the CPU, within the seeders' bars."""
+    from repro_torch.core import seeding
+    from repro_torch.svm.engine import SMOResult
+    out = []
+    for name, n in (("heart", 270), ("adult", 1000)):
+        for h in (1, 4):
+            ds, K, y, prev, idx = _seed_problem(name, n, h)
+            prev_c = SMOResult(*(t.cpu() for t in prev))
+            for method in ("ato", "mir", "sir"):
+                got = seeding.SEEDERS[method](K, y, ds.C, prev, *idx).cpu()
+                want = seeding.SEEDERS[method](
+                    K.cpu(), y.cpu(), ds.C, prev_c, *(i.cpu() for i in idx))
+                err = float((got - want).abs().max())
+                require(err <= SEED_ATOL[method](ds.C),
+                        f"{name} fold {h} {method}: seed {err} off the "
+                        "plain version")
+                out.append({"dataset": name, "fold": h, "method": method,
+                            "max_abs_err": err,
+                            "bar": SEED_ATOL[method](ds.C)})
+    return out
+
+
+def _cpu(args):
+    return tuple(a.cpu() if isinstance(a, torch.Tensor) else a for a in args)
+
+
+def _apply_ms(fn, args, reps: int = 20) -> float:
+    """Mean device time of an in-place ``ato_apply`` call (kernel or plain),
+    its state restored from ``args`` before each call (outside the timed
+    span), by CUDA events."""
+    times = []
+    for _ in range(reps + 1):
+        a = tuple(x.clone() if isinstance(x, torch.Tensor) else x
+                  for x in args)
+        sync()
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        fn(*a)
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e))
+    return sum(times[1:]) / reps
+
+
+def _seeding_kernels() -> dict:
+    """Each seeding kernel against its plain version run on the CPU, on
+    the inputs Table 1's adult fold 0 -> 1 seeds gave it (recorded), and
+    ``water_fill`` and ``sir_greedy`` at n = 32,560's shapes (seeded
+    numpy): bitwise for ``sir_greedy``, ``ato_apply`` and ``ato_system``'s
+    exact outputs, ``water_fill`` within 1e-12 max(C, 1) elementwise and
+    its sum within n eps max(C, 1) of the clamped target. Then each one's
+    time at the main path's shape (graph, or CUDA events for the in-place
+    ``ato_apply``), the plain version's on the card, and the bytes bound
+    (every one is bound by bytes: its operations, even 100 bisection
+    steps of 4 a row, take less)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import seeding as ks
+    dev = torch.device("cuda")
+    rec = _record_seeding_inputs("adult", 1000)
+    C, calls = rec["C"], rec["calls"]
+    # heart's ramp runs all 30 steps (adult's stops after one): check
+    # every one of its steps too
+    heart = _record_seeding_inputs("heart", 270)["calls"]
+    out, records = {}, {}
+    rng = np.random.default_rng(11)
+
+    # water_fill: every call of the three seeds, then n = 32,560's S side
+    wf = []
+    big = []
+    for n_big in (3256, 26048):
+        yb = np.where(rng.random(n_big) < 0.5, 1.0, -1.0)
+        lo, hi = np.where(yb > 0, 0.0, -C), np.where(yb > 0, C, 0.0)
+        beta = np.clip(rng.normal(size=n_big) * C / 3, lo, hi)
+        big.append(tuple(torch.as_tensor(a, device=dev) for a in
+                         (beta, lo, hi)) + (torch.tensor(
+                             float(beta.sum()) * 0.3, device=dev),))
+    for args in calls["water_fill"] + heart["water_fill"] + big:
+        got = ks.water_fill(*args)
+        want = ref.water_fill_ref(*_cpu(args))
+        err = float((got.cpu() - want).abs().max())
+        n = args[0].shape[0]
+        tgt = float(torch.clamp(args[3].cpu(), args[1].cpu().sum(),
+                                args[2].cpu().sum()))
+        sum_err = abs(float(got.sum()) - tgt)
+        box = max(float(args[1].abs().max()), float(args[2].abs().max()),
+                  1.0)                                     # max(C, 1)
+        require(err <= 1e-12 * box,
+                f"water_fill n={n}: {err} off the plain version")
+        require(sum_err <= n * 2.22e-16 * box,
+                f"water_fill n={n}: sum {sum_err} off the target")
+        wf.append({"n": n, "max_abs_err": err, "sum_err": sum_err})
+    main = max(calls["water_fill"], key=lambda a: a[0].shape[0])   # S side
+    n = main[0].shape[0]
+    rec_wf = {"n": n, "ms": graph_ms(lambda: ks.water_fill(*main), 20),
+              "plain_ms": cuda_ms(lambda: ref.water_fill_ref(
+                  *main, stop_early=False), 3),
+              "ms_32560_S": graph_ms(lambda: ks.water_fill(*big[1]), 5),
+              "max_abs_err": max(r["max_abs_err"] for r in wf),
+              **_bound(8.0 * (4 * n + 1), 0.0)}
+    records["water_fill"] = wf
+    out["water_fill"] = rec_wf
+
+    # sir_greedy: Table 1's call (both fallbacks), then 3,256 x 3,256
+    sg = []
+    args = calls["sir_greedy"][0]
+    m, t = args[0].shape
+    rows = np.random.default_rng(5)
+    kb = rows.random((3256, 3256))
+    kb[:, 1::2] = kb[:, 0::2][:, :kb[:, 1::2].shape[1]]   # tied values
+    big_sg = tuple(torch.as_tensor(a, device=dev) for a in (
+        kb, np.where(rows.random(3256) < 0.5, 1.0, -1.0),
+        np.where(rows.random(3256) < 0.5, 1.0, -1.0), rows.random(3256),
+        rows.random(3256)))
+    for a, fb in ((args[:5], "random"), (args[:5], "skip"),
+                  (heart["sir_greedy"][0][:5], "random"), (big_sg, "random")):
+        got = ks.sir_greedy(*a, fb)
+        want = ref.sir_greedy_ref(*_cpu(a), fb)
+        require(torch.equal(got.cpu(), want),
+                f"sir_greedy {tuple(a[0].shape)} {fb}: not bitwise equal "
+                "to the plain version")
+        sg.append({"shape": list(a[0].shape), "fallback": fb,
+                   "bitwise": True})
+    records["sir_greedy"] = sg
+    out["sir_greedy"] = {
+        "shape": [m, t], "ms": graph_ms(lambda: ks.sir_greedy(*args), 20),
+        "plain_ms": cuda_ms(lambda: ref.sir_greedy_ref(*args), 3),
+        "ms_32560": graph_ms(lambda: ks.sir_greedy(*big_sg, "random"), 3),
+        "max_abs_err": 0.0,
+        **_bound(8.0 * (m * t + 2 * m + 3 * t), 0.0)}
+
+    # ato_system / ato_apply: every ramp step of the ATO seed
+    exact = ("train_now", "free", "nf", "v", "w", "idx", "lane", "yM", "B")
+    sys_err = 0.0
+    for a in calls["ato_system"] + heart["ato_system"]:
+        got = ks.ato_system(*a)
+        want = ref.ato_system_ref(*_cpu(a))
+        for key in exact:
+            require(torch.equal(getattr(got, key).cpu(), getattr(want, key)),
+                    f"ato_system: {key} not bitwise equal to the plain "
+                    "version")
+        for key, g_, w_ in (("b", got.b, want.b),
+                            ("r0", got.rhs[0], want.rhs[0])):
+            e = float((g_.cpu() - w_).abs())
+            require(e <= 1e-12 * max(1.0, float(w_.abs())),
+                    f"ato_system: {key} off by {e}")
+            sys_err = max(sys_err, e)
+    a = calls["ato_system"][0]
+    n, m_cap = a[1].shape[0], a[-1]
+    out["ato_system"] = {
+        "n": n, "m_cap": m_cap,
+        "steps_checked": len(calls["ato_system"] + heart["ato_system"]),
+        "ms": graph_ms(lambda: ks.ato_system(*a), 20),
+        "plain_ms": cuda_ms(lambda: ref.ato_system_ref(*a), 10),
+        "max_abs_err": sys_err,
+        **_bound(8.0 * ((m_cap + 1) ** 2 + m_cap * m_cap + 5 * n
+                        + 3 * m_cap) + 6.0 * n, 0.0)}
+    for a in calls["ato_apply"] + heart["ato_apply"]:
+        card = tuple(x.clone() if isinstance(x, torch.Tensor) else x
+                     for x in a)
+        cpu = _cpu(a)
+        eta_c = ks.ato_apply(*card)
+        eta = ref.ato_apply_ref(*cpu)
+        require(torch.equal(eta_c.cpu(), eta)
+                and all(torch.equal(x.cpu(), w) for x, w in zip(card, cpu)
+                        if isinstance(x, torch.Tensor)),
+                "ato_apply: not bitwise equal to the plain version")
+    a = calls["ato_apply"][0]
+    n = a[0].shape[0]
+    out["ato_apply"] = {
+        "n": n,
+        "steps_checked": len(calls["ato_apply"] + heart["ato_apply"]),
+        "ms": _apply_ms(ks.ato_apply, a),
+        "plain_ms": _apply_ms(ref.ato_apply_ref, a), "max_abs_err": 0.0,
+        **_bound(8.0 * (7 * n) + 6.0 * n, 0.0)}
+    records["seeds"] = _seed_checks()
+    del rec, heart
+    torch.cuda.empty_cache()
+    return out, records
 
 
 def _chunk_iter_bytes(n: int, iters: int) -> float:
@@ -908,8 +1136,10 @@ def _route_taken(before: dict, after: dict) -> str:
     return grew[0]
 
 
-def phase_table1(build_s: float):
-    """The paper's Table 1 (k=10, four methods) through ``run_cv``."""
+def phase_table1(build_s: float, split: dict | None = None):
+    """The paper's Table 1 (k=10, four methods) through ``run_cv``; beside
+    each seeded method's init, its seed's split on fold 0 -> 1
+    (``seed_split``, measured before the counts were reset)."""
     from repro_torch.core.cv import run_cv
     from repro_torch.data.svm_suite import make_dataset
     t0 = time.perf_counter()
@@ -937,6 +1167,7 @@ def phase_table1(build_s: float):
                 "gated": refd["gated"],
                 "per_fold_iterations": [f.n_iter for f in rep.folds],
                 "kernel_s": rep.kernel_time, "init_s": rep.total_init_time,
+                "init_split_fold1": (split or {}).get(f"{name}/{method}"),
                 "solve_s": rep.total_solve_time,
                 "us_per_iteration": 1e6 * rep.total_solve_time / max(it, 1),
                 "accuracy": rep.accuracy,
@@ -950,6 +1181,244 @@ def phase_table1(build_s: float):
     emit({"phase": "table1", "seconds": time.perf_counter() - t0,
           "kernel_build_s": build_s, "rows": rows})
     return cold_folds
+
+
+#: the seeding split's wrapped functions: a leaf is timed whole (its time
+#: is its own, nested torch ops included), a container's torch ops are
+#: timed one by one and filed by kind; names absent from a tree are skipped
+SPLIT_LEAVES = ("water_fill", "uniform", "_priority", "_lstsq_svd",
+                "sir_greedy", "ato_system", "ato_apply", "smo_f_update")
+SPLIT_CONTAINERS = ("_ato_ramp",)
+#: torch functions filed under their own kind inside a container
+SPLIT_KINDS = {"nonzero": "nonzero", "linalg_solve": "lu_solve",
+               "solve": "lu_solve", "solve_ex": "lu_solve",
+               "linalg_solve_ex": "lu_solve",
+               "lu_factor_ex": "lu_solve", "lu_solve": "lu_solve",
+               "__matmul__": "products", "matmul": "products",
+               "mv": "products", "mm": "products"}
+
+
+class _SplitTimer:
+    """Times a seed's parts with a sync between parts (host clock).
+
+    Wraps ``SPLIT_LEAVES`` and ``SPLIT_CONTAINERS`` in
+    ``repro_torch.core.seeding`` (and ``init_f``); a ``TorchFunctionMode``
+    times every torch op outside the leaves: inside a container by
+    ``SPLIT_KINDS`` (else ``"<container>:ops"``), in the seeder's own body
+    as ``"copy"`` (a CPU tensor moved to the card) or ``"seed:ops"``."""
+
+    def __init__(self, seeding):
+        self.seeding, self.parts, self.calls = seeding, {}, {}
+        self.stack, self.saved = [], {}
+
+    def add(self, label, dt):
+        self.parts[label] = self.parts.get(label, 0.0) + dt
+        self.calls.setdefault(label, []).append(dt)
+
+    def wrap(self, name, leaf):
+        fn = getattr(self.seeding, name)
+        self.saved[name] = fn
+
+        def timed(*a, **kw):
+            sync()
+            self.stack.append((name, leaf))
+            t0 = time.perf_counter()
+            try:
+                out = fn(*a, **kw)
+                sync()
+            finally:
+                self.stack.pop()
+            if leaf:
+                self.add(name, time.perf_counter() - t0)
+            else:
+                self.add(name + ":calls", 0.0)
+            return out
+        setattr(self.seeding, name, timed)
+        return timed
+
+    def __enter__(self):
+        from torch.overrides import TorchFunctionMode
+        timer = self
+
+        class Mode(TorchFunctionMode):
+            def __torch_function__(self, func, types, args=(), kwargs=None):
+                kwargs = kwargs or {}
+                if timer.stack and timer.stack[-1][1]:
+                    return func(*args, **kwargs)      # inside a leaf
+                name = getattr(func, "__name__", str(func))
+                if timer.stack:
+                    kind = SPLIT_KINDS.get(name, "ops")
+                    label = f"{timer.stack[-1][0]}:{kind}"
+                elif name in ("to", "cuda", "copy_") and any(
+                        isinstance(a, torch.Tensor) and a.device.type == "cpu"
+                        for a in args):
+                    label = "copy"
+                else:
+                    label = "seed:ops"
+                sync()
+                t0 = time.perf_counter()
+                out = func(*args, **kwargs)
+                sync()
+                timer.add(label, time.perf_counter() - t0)
+                return out
+
+        for name in SPLIT_LEAVES + SPLIT_CONTAINERS:
+            if hasattr(self.seeding, name):
+                self.wrap(name, name in SPLIT_LEAVES)
+        self.mode = Mode()
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.mode.__exit__(*exc)
+        for name, fn in self.saved.items():
+            setattr(self.seeding, name, fn)
+
+
+def _count_syncs(fn) -> int:
+    """Host syncs that ``fn`` makes, by ``set_sync_debug_mode("warn")``."""
+    import warnings
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+            sync()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in seen)
+
+
+def _seed_problem(name: str, n: int, h: int = 1):
+    """K, y, fold h-1's cold solution and the h-1 -> h index sets."""
+    from repro_torch.core.cv import _fold_masks, _transition_idx
+    from repro_torch.data.svm_suite import kfold_chunks, make_dataset
+    from repro_torch.svm import kernel_matrix, smo_solve
+    dev = torch.device("cuda")
+    ds = make_dataset(name, n_override=n)
+    chunks = kfold_chunks(ds.n, 10)
+    m = chunks.size
+    X = torch.as_tensor(ds.X[:m], device=dev)
+    y = torch.as_tensor(ds.y[:m], dtype=torch.float64, device=dev)
+    K = kernel_matrix(X, X, gamma=ds.gamma)
+    masks = torch.as_tensor(_fold_masks(chunks), device=dev)
+    prev = smo_solve(K, y, masks[h - 1], ds.C, torch.zeros_like(y), -y,
+                     max_iter=5_000_000)
+    return ds, K, y, prev, _transition_idx(chunks, h - 1, h, dev)
+
+
+def _svd_drivers(seeding, run, reps: int = 5) -> dict:
+    """MIR's SVD (of its bordered system, caught from one seed) on each
+    CUDA driver: host ms after a sync, best of ``reps``."""
+    seen = []
+    fn = seeding._lstsq_svd
+    seeding._lstsq_svd = lambda A, b: (seen.append(A), fn(A, b))[1]
+    try:
+        run()
+    finally:
+        seeding._lstsq_svd = fn
+    A, out = seen[0], {"shape": list(seen[0].shape)}
+    for driver in (None, "gesvd", "gesvdj", "gesvda"):
+        best = math.inf
+        for _ in range(reps):
+            sync()
+            t0 = time.perf_counter()
+            torch.linalg.svd(A, full_matrices=False, driver=driver)
+            sync()
+            best = min(best, time.perf_counter() - t0)
+        out[driver or "default"] = 1e3 * best
+    return out
+
+
+def seed_split(cases=(("heart", 270), ("adult", 1000)),
+               methods=("ato", "mir", "sir"), reps: int = 3) -> dict:
+    """Each seeder on fold 0 -> 1, split into its parts: the wall time of
+    the seed plus ``init_f`` (host clock after a sync, best of ``reps``),
+    its host syncs, and one run with a sync between parts
+    (``_SplitTimer``: ``water_fill`` each call, SIR's greedy pass and its
+    draw and copy, MIR's SVD, ATO's ramp by kind of op, ``init_f``)."""
+    from repro_torch.core import seeding
+    from repro_torch.svm import init_f
+    out = {}
+    for name, n in cases:
+        ds, K, y, prev, (S, R, T) = _seed_problem(name, n)
+        for method in methods:
+            seeder = seeding.SEEDERS[method]
+
+            def run():
+                a = seeder(K, y, ds.C, prev, S, R, T)
+                return a, init_f(K, y, a)
+            run()                                    # warm-up
+            walls = []
+            for _ in range(reps):
+                sync()
+                t0 = time.perf_counter()
+                run()
+                sync()
+                walls.append(time.perf_counter() - t0)
+            syncs = _count_syncs(run)
+            with _SplitTimer(seeding) as timer:
+                a = seeder(K, y, ds.C, prev, S, R, T)
+                sync()
+                t0 = time.perf_counter()
+                init_f(K, y, a)
+                sync()
+                timer.add("init_f", time.perf_counter() - t0)
+            out[f"{name}/{method}"] = {
+                "wall_s": min(walls), "walls_s": walls, "syncs": syncs,
+                "parts_s": timer.parts,
+                "calls": {k: len(v) for k, v in timer.calls.items()},
+                "water_fill_calls_s": timer.calls.get("water_fill", [])}
+            if method == "mir":
+                out[f"{name}/{method}"]["svd_ms"] = _svd_drivers(
+                    seeding, lambda: seeder(K, y, ds.C, prev, S, R, T))
+        del K
+        torch.cuda.empty_cache()
+    return out
+
+
+def size_sir_init(ds, n_sir_folds: int = 2) -> list:
+    """``phase_size``'s SIR seeds alone (adult at n=32,560): cold fold 0,
+    then each SIR seed plus ``init_f`` timed (host clock after a sync)."""
+    from repro_torch.core.cv import _fold_masks, _transition_idx
+    from repro_torch.core.seeding import sir_seed
+    from repro_torch.data.svm_suite import kfold_chunks
+    from repro_torch.svm import init_f, kernel_matrix, smo_solve
+    dev = torch.device("cuda")
+    chunks = kfold_chunks(ds.n, 10)
+    n = chunks.size
+    X = torch.as_tensor(ds.X[:n], device=dev)
+    y = torch.as_tensor(ds.y[:n], dtype=torch.float64, device=dev)
+    K = kernel_matrix(X, X, gamma=ds.gamma)
+    masks = torch.as_tensor(_fold_masks(chunks), device=dev)
+    prev = smo_solve(K, y, masks[0], ds.C, torch.zeros_like(y), -y,
+                     max_iter=5_000_000)
+    inits = []
+    for h in range(1, 1 + n_sir_folds):
+        S, R, T = _transition_idx(chunks, h - 1, h, dev)
+        sync()
+        t0 = time.perf_counter()
+        alpha0 = sir_seed(K, y, ds.C, prev, S, R, T)
+        f0 = init_f(K, y, alpha0)
+        sync()
+        inits.append(time.perf_counter() - t0)
+        prev = smo_solve(K, y, masks[h], ds.C, alpha0, f0,
+                         max_iter=5_000_000)
+    del K
+    torch.cuda.empty_cache()
+    return inits
+
+
+def phase_seed_split(size_ds=None):
+    """The seeding split (``seed_split``) and, given adult at n=32,560,
+    ``phase_size``'s SIR seeds timed alone."""
+    t0 = time.perf_counter()
+    rec = {"phase": "seed_split", "split": seed_split()}
+    if size_ds is not None:
+        rec["size_sir_init_s"] = size_sir_init(size_ds)
+    rec["seconds"] = time.perf_counter() - t0
+    emit(rec)
+    return rec
 
 
 def phase_size(ds, n_sir_folds: int = 2):
@@ -2154,10 +2623,41 @@ def phase_serve_lm(flash_ms: float):
     return main_counts, main_routes
 
 
+def split_main(argv) -> int:
+    """``--seed-split [--src DIR]``: only the seeding split (and
+    ``phase_size``'s SIR seeds), then Table 1's init and solve times
+    (``run_cv``, k=10), of the package under DIR (default this checkout's
+    ``src``): the same measurement on another tree, in one call."""
+    if "--src" in argv:
+        sys.path.insert(0, os.path.abspath(argv[argv.index("--src") + 1]))
+    from repro_torch.data.svm_suite import make_dataset
+    from repro_torch.kernels import _build
+    import repro_torch
+    _build.build_all()
+    print(card_line(), flush=True)
+    emit({"phase": "seed_split_tree", "package": repro_torch.__file__})
+    phase_seed_split(make_dataset("adult", n_override=SIZE_N))
+    from repro_torch.core.cv import run_cv
+    rows = []
+    for name, refd in REFERENCE.items():
+        ds = make_dataset(name, n_override=refd["n"])
+        for method in METHODS:
+            rep = run_cv(ds, k=10, method=method)
+            rows.append({"dataset": name, "method": method,
+                         "iterations": rep.total_iterations,
+                         "init_s": rep.total_init_time,
+                         "solve_s": rep.total_solve_time,
+                         "accuracy": rep.accuracy})
+    emit({"phase": "table1_times", "rows": rows})
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if "--seed-split" in sys.argv:
+        return split_main(sys.argv)
     from repro_torch.kernels import ops
     # float32 products in full float32 (no TF32) in the plain versions too
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2171,10 +2671,12 @@ def main() -> int:
     phase_lane_chunks(datasets)
     info.update(phase_stream_routes(datasets))
 
+    split = phase_seed_split(datasets[("adult", SIZE_N - 1)])["split"]
+
     # each path: counts from 0 just before it, read just after
     counts, routes = {}, {}
     ops.reset_launch_counts()
-    cold_folds = phase_table1(build_s)
+    cold_folds = phase_table1(build_s, split)
     counts["table1"], routes["table1"] = (ops.launch_counts(),
                                           ops.route_counts())
     ops.reset_launch_counts()
@@ -2198,7 +2700,8 @@ def main() -> int:
         info["flash_attention"]["ms"])
     emit({"phase": "kernel_counts", **counts})
     emit({"phase": "route_counts", **routes})
-    for name in ("rbf_kernel_matrix", "smo_f_update", "smo_chunk"):
+    for name in ("rbf_kernel_matrix", "smo_f_update", "smo_chunk",
+                 "water_fill", "sir_greedy", "ato_system", "ato_apply"):
         require(counts["table1"][name] > 0,
                 f"{name} was not launched on the Table-1 path")
     # every dense chunk of Table 1 and its batched rows (heart and adult
@@ -2272,7 +2775,15 @@ def main() -> int:
                                     "size_matrix_free"),
                "flash_attention": (csrc + "flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:71",
-                                   "serve_lm")}
+                                   "serve_lm"),
+               "water_fill": (csrc + "seeding.cu",
+                              "src/repro/core/seeding.py:61", "table1"),
+               "sir_greedy": (csrc + "seeding.cu",
+                              "src/repro/core/seeding.py:225", "table1"),
+               "ato_system": (csrc + "seeding.cu",
+                              "src/repro/core/seeding.py:361", "table1"),
+               "ato_apply": (csrc + "seeding.cu",
+                             "src/repro/core/seeding.py:361", "table1")}
     # the dense chunk's four routes are four kernels, each counted on its
     # own path (the global-state one is on none now: its count there is
     # 0); flash_attention's routes are listed beside its launches
@@ -2312,6 +2823,10 @@ def main() -> int:
                             if key.endswith(f"_{SIZE_N - 1}x10")
                             or key in ("shape", "flop_floor_ms",
                                        "x_per_iter_hbm_ms")})
+        if name in ("water_fill", "sir_greedy", "ato_system", "ato_apply"):
+            kernels[-1].update({key: k[key] for key in (
+                "n", "m_cap", "ms_32560", "ms_32560_S", "steps_checked")
+                if key in k})
         if name.startswith("smo_chunk"):
             kernels[-1].update(n=k["n"], lanes=k.get("lanes", 1),
                                us_per_iter_one_block_global=k[

@@ -71,16 +71,20 @@ class CVReport:
         return c / max(t, 1)
 
 
-def _transition_idx(chunks: np.ndarray, g: int, h: int, device=None):
+def _transition_idx(chunks, g: int, h: int, device=None):
     """Index sets for seeding fold h from fold g's solution.
 
     Previous train set = all \\ chunk[g]; new train set = all \\ chunk[h]:
-    T (added) = chunk[g], R (removed) = chunk[h], S = the rest.
+    T (added) = chunk[g], R (removed) = chunk[h], S = the rest. ``chunks``
+    is the (k, n/k) array, or that array as a tensor already on the device
+    (then no copy from the host, so no sync).
     """
     k = chunks.shape[0]
-    S = np.concatenate([chunks[j] for j in range(k) if j not in (g, h)])
+    rest = [chunks[j] for j in range(k) if j not in (g, h)]
+    if isinstance(chunks, torch.Tensor):
+        return torch.cat(rest), chunks[h], chunks[g]
     return tuple(torch.as_tensor(a, device=device)
-                 for a in (S, chunks[h], chunks[g]))
+                 for a in (np.concatenate(rest), chunks[h], chunks[g]))
 
 
 def _fold_masks(chunks: np.ndarray) -> np.ndarray:
@@ -145,6 +149,7 @@ def run_cv(ds: SVMDataset, k: int = 10, method: str = "sir",
     kernel_time = time.perf_counter() - t0
     y = y[:n]
     masks = torch.as_tensor(_fold_masks(chunks), device=dev)
+    chunks_dev = torch.as_tensor(chunks, device=dev)
 
     folds: list[FoldStat] = []
     prev = None
@@ -155,7 +160,7 @@ def run_cv(ds: SVMDataset, k: int = 10, method: str = "sir",
             alpha0, f0 = torch.zeros(n, dtype=DTYPE, device=dev), -y
         else:
             seed_from = h - 1
-            S_idx, R_idx, T_idx = _transition_idx(chunks, seed_from, h, dev)
+            S_idx, R_idx, T_idx = _transition_idx(chunks_dev, seed_from, h)
             alpha0 = seeder(K, y, ds.C, prev, S_idx, R_idx, T_idx)
             f0 = init_f(K, y, alpha0)
         _sync(dev)

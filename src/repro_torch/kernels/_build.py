@@ -36,9 +36,10 @@ import torch
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
-SOURCES = ("rbf", "smo_update", "smo_chunk", "smo_step", "flash_attention")
+SOURCES = ("rbf", "smo_update", "smo_chunk", "smo_step", "seeding",
+           "flash_attention")
 #: the sources whose results are held bitwise to the plain versions
-BITWISE_SOURCES = ("rbf", "smo_update", "smo_chunk", "smo_step")
+BITWISE_SOURCES = ("rbf", "smo_update", "smo_chunk", "smo_step", "seeding")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

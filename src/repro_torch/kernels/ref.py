@@ -17,6 +17,7 @@ op by op, in the reference's order.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -258,3 +259,171 @@ def smo_chunk_ref(K, diag, y, mask, C, tol, it_cap, n_iters, wss, alpha, f,
         it += 0 if stop else 1
     return (alpha, f, torch.tensor(it, dtype=torch.int64, device=f.device),
             torch.tensor(stop, device=f.device))
+
+
+# --------------------------------------------------------------------------
+# alpha seeding's device loops (reference: core/seeding.py water_fill,
+# sir_seed's greedy pass, _ato_ramp's step; csrc/seeding.cu)
+# --------------------------------------------------------------------------
+
+def _same_bits(a, b) -> bool:
+    return torch.equal(a.view(torch.int64), b.view(torch.int64))
+
+
+def water_fill_ref(beta, lo, hi, target, iters: int = 100,
+                   stop_early: bool = True):
+    """Return clip(beta - c, lo, hi) with scalar c s.t. the sum == target.
+
+    ``sum(clip(beta - c, lo, hi))`` is monotone non-increasing in c, so c is
+    found by bisection (at most ``iters`` steps); ``target`` is clamped to
+    the feasible [sum(lo), sum(hi)] first. Once a step leaves (c_lo, c_hi)
+    as they were, every later step does too, so ``stop_early`` stops there
+    (the result is the same bit for bit; the check reads the device)."""
+    target = torch.as_tensor(target, dtype=beta.dtype, device=beta.device)
+    target = torch.minimum(torch.maximum(target, lo.sum()), hi.sum())
+    c_lo = (beta - hi).min() - 1.0   # => all at hi: sum maximal
+    c_hi = (beta - lo).max() + 1.0   # => all at lo: sum minimal
+    for _ in range(iters):
+        c = 0.5 * (c_lo + c_hi)
+        too_big = torch.clamp(beta - c, lo, hi).sum() > target
+        n_lo = torch.where(too_big, c, c_lo)
+        n_hi = torch.where(too_big, c_hi, c)
+        if stop_early and _same_bits(n_lo, c_lo) and _same_bits(n_hi, c_hi):
+            break
+        c_lo, c_hi = n_lo, n_hi
+    c = 0.5 * (c_lo + c_hi)
+    out = torch.clamp(beta - c, lo, hi)
+    # final exact touch-up on the single freest coordinate to kill bisection
+    # residue (keeps sum(y*alpha)=0 at fp-exact level for the solver)
+    resid = target - out.sum()
+    room = torch.where(resid >= 0, hi - out, out - lo)
+    j = torch.argmax(room)
+    fix = torch.sign(resid) * torch.minimum(resid.abs(), room[j])
+    return out.index_add(0, j.view(1), fix.view(1))
+
+
+def sir_greedy_ref(K_RT, y_R, y_T, alpha_R, priority, fallback="random"):
+    """SIR's greedy pass: removed row r (in order) hands ``y_T[t] *
+    alpha_R[r]`` to the unused same-label t of largest ``K_RT[r, t]`` (the
+    lowest t on a tie, as ``argmax`` picks), or, with none left, to the
+    unused t of largest ``priority`` (``fallback="skip"``: to none).
+    Returns beta_T (|T|,)."""
+    m, t_n = K_RT.shape
+    same = y_R[:, None] == y_T[None, :]
+    beta_T = torch.zeros(t_n, dtype=K_RT.dtype, device=K_RT.device)
+    used = torch.zeros(t_n, dtype=torch.bool, device=K_RT.device)
+    for r in range(m):   # sequential by nature; no host sync inside
+        scores = torch.where(same[r] & ~used, K_RT[r], -_INF)
+        t_best = torch.argmax(scores)
+        found = scores[t_best] > -_INF
+        t_rand = torch.argmax(torch.where(~used, priority, -_INF))
+        t = torch.where(found, t_best, t_rand)
+        write = (~used).any()
+        if fallback == "skip":
+            write = write & found
+        beta_T[t] = torch.where(write, y_T[t] * alpha_R[r], beta_T[t])
+        used[t] = used[t] | write
+    return beta_T
+
+
+def compact_ref(mask, m_cap: int):
+    """The indices where ``mask`` holds, ascending, padded with 0 to
+    ``m_cap`` (``torch.nonzero`` padded, as ``jnp.nonzero(size=m_cap)``
+    gives), by a prefix sum and a scatter: no host sync."""
+    pos = torch.cumsum(mask, 0) - 1
+    slot = torch.where(mask & (pos < m_cap), pos, m_cap)
+    idx = torch.zeros(m_cap + 1, dtype=torch.long, device=mask.device)
+    idx.scatter_(0, slot, torch.arange(mask.shape[0], device=mask.device))
+    return idx[:m_cap]
+
+
+class AtoSystem(NamedTuple):
+    """One ATO ramp step's system (``ato_system``): masks over n, the bias
+    b, directions v and w = y * v, the working set idx (m_cap,) with its
+    lanes and labels yM, the bordered matrix B (m_cap+1, m_cap+1) and the
+    right-hand side rhs (m_cap+1,) with rhs[0] = r0 set (rhs[1:] is the
+    caller's)."""
+    train_now: torch.Tensor
+    free: torch.Tensor
+    nf: torch.Tensor
+    b: torch.Tensor
+    v: torch.Tensor
+    w: torch.Tensor
+    idx: torch.Tensor
+    lane: torch.Tensor
+    yM: torch.Tensor
+    B: torch.Tensor
+    rhs: torch.Tensor
+
+
+def ato_system_ref(K, y, C, alpha, f, b_fallback, in_S, in_T, T_act, R_act,
+                   m_cap: int) -> AtoSystem:
+    """The first half of an ATO ramp step (``_ato_ramp``'s body up to the
+    solve): the bordered KKT system for (db, Phi),
+
+        [0    yM^T] [db ]   [sum(w)        ]
+        [yM   Q_MM] [Phi] = [yM * (K_M: @ w)]
+
+    over the free set padded to ``m_cap`` (padding lanes gather row 0, carry
+    an identity diagonal and zero rhs); a tiny relative ridge keeps the LU
+    finite on duplicate instances."""
+    train_now = in_S | (in_T & ~T_act)
+    free = train_now & (alpha > 0) & (alpha < C)
+    nf = free.sum()
+    b = torch.where(nf > 0,
+                    torch.where(free, f, 0.0).sum() / torch.clamp_min(nf, 1),
+                    b_fallback)
+    # ramp directions: T ramps up to C, R ramps down to 0 (per unit eta)
+    v = torch.where(T_act, C - alpha, 0.0) - torch.where(R_act, alpha, 0.0)
+    w = y * v
+    idx = compact_ref(free, m_cap)
+    lane = torch.arange(m_cap, device=K.device) < nf
+    yM = torch.where(lane, y[idx], 0.0)
+    Q = (yM[:, None] * yM[None, :]) * K[idx][:, idx]
+    lam = 1e-10 * (1.0 + torch.diagonal(Q).abs().max())
+    B = torch.zeros((m_cap + 1, m_cap + 1), dtype=K.dtype, device=K.device)
+    B[0, 0] = torch.where(nf > 0, 0.0, 1.0)
+    B[0, 1:] = yM
+    B[1:, 0] = yM
+    B[1:, 1:] = Q + torch.diag(torch.where(lane, lam, 1.0))
+    rhs = torch.zeros(m_cap + 1, dtype=K.dtype, device=K.device)
+    rhs[0] = torch.where(nf > 0, w.sum(), 0.0)
+    return AtoSystem(train_now, free, nf, b, v, w, idx, lane, yM, B, rhs)
+
+
+def ato_apply_ref(g, f, alpha, v, Phi_full, y, b, C, tol, train_now, free,
+                  T_act, R_act, done, step, max_steps: int):
+    """The second half of an ATO ramp step, in place on f, T_act, R_act,
+    done and step; returns eta. The step size is the smallest eta > 1e-12
+    putting some bound row's f at b (capped at 1, non-finite -> 1); f moves
+    by ``f + eta * g`` (one rounding, ``torch.addcmul``); with alpha' =
+    clip(alpha + eta (v - Phi), 0, C) (the ``smo_f_update`` and clamp that
+    follow), drained R rows retire and T rows meeting Eq. 5 graduate. done
+    is set once eta >= 1, step reaches max_steps or no R or T row is
+    active; a step that starts done changes nothing and returns eta = 0."""
+    bound = train_now & ~free
+    live = g.abs() > 1e-12
+    safe_g = torch.where(live, g, 1.0)
+    etas = torch.where(bound & live, (b - f) / safe_g, _INF)
+    etas = torch.where(etas > 1e-12, etas, _INF)
+    eta = torch.clamp_max(etas.min(), 1.0)
+    eta = torch.where(torch.isfinite(eta), eta, 1.0)
+    a_new = torch.clamp(smo_f_update_ref(alpha, v, Phi_full, eta), 0.0, C)
+    f_new = torch.addcmul(f, g, eta)
+    R_new = R_act & (a_new > 1e-12 * max(C, 1.0))
+    ok_m = (a_new > 0) & (a_new < C) & ((f_new - b).abs() <= tol)
+    ok_u = (((y > 0) & (a_new <= 0)) | ((y < 0) & (a_new >= C))) \
+        & (f_new >= b - tol)
+    ok_l = (((y > 0) & (a_new >= C)) | ((y < 0) & (a_new <= 0))) \
+        & (f_new <= b + tol)
+    T_new = T_act & ~(ok_m | ok_u | ok_l)
+    step_new = step + 1
+    done_new = (eta >= 1.0) | (step_new >= max_steps) | ~(R_new.any()
+                                                          | T_new.any())
+    f.copy_(torch.where(done, f, f_new))
+    R_act.copy_(torch.where(done, R_act, R_new))
+    T_act.copy_(torch.where(done, T_act, T_new))
+    step.copy_(torch.where(done, step, step_new))
+    eta = torch.where(done, 0.0, eta)
+    done.copy_(done | done_new)
+    return eta

@@ -1088,3 +1088,272 @@ def test_cuda_cluster_builds(cuda):
         assert 32 <= threads <= 512 and 0 < regs * threads <= 65_536
     with pytest.raises(RuntimeError, match="cluster_build"):
         cluster_build(3)
+
+
+# --------------------------------------------------------------------------
+# alpha seeding's kernels (csrc/seeding.cu): each against its plain version
+# run on the CPU on the same inputs; bitwise where the kernel only compares,
+# copies and rounds op by op, within the stated bars where it sums
+# --------------------------------------------------------------------------
+
+def _box_np(y, C):
+    return np.where(y > 0, 0.0, -C), np.where(y > 0, C, 0.0)
+
+
+def _water_case(n, case, C=2182.0):
+    """beta, lo, hi, target for water_fill: a feasible target, one above
+    sum(hi) (infeasible: clamped), or every row at a bound."""
+    rng = np.random.default_rng(n)
+    y = np.where(rng.random(n) < 0.5, 1.0, -1.0)
+    lo, hi = _box_np(y, C)
+    beta = np.clip(rng.normal(size=n) * C / 3, lo, hi)
+    target = float(beta.sum() * 0.3)
+    if case == "infeasible":
+        target = float(hi.sum()) + 5 * C
+    elif case == "at_bounds":
+        beta = np.where(rng.random(n) < 0.5, lo, hi)
+        target = float(beta.sum())
+    return beta, lo, hi, target
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["feasible", "infeasible", "at_bounds"])
+@pytest.mark.parametrize("n", [27, 100, 243, 900, 9000, 26048, 32560])
+def test_cuda_water_fill_matches_plain(cuda, n, case):
+    """Within 1e-12 max(C, 1) of the plain version elementwise, the sum
+    equal to the clamped target within n eps max(C, 1); Table 1's sizes,
+    and repair_equality's S side at n = 32,560 (streamed from L2 past the
+    shared memory's ~9,500 rows)."""
+    from repro_torch.kernels.seeding import water_fill
+    C = 2182.0
+    beta, lo, hi, target = _water_case(n, case, C)
+    args = [torch.from_numpy(a) for a in (beta, lo, hi)]
+    want = ref.water_fill_ref(*args, target)
+    got = water_fill(*(a.to(cuda) for a in args),
+                     torch.tensor(target, dtype=torch.float64).to(cuda))
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
+                               atol=1e-12 * max(C, 1.0))
+    clamped = min(max(target, lo.sum()), hi.sum())
+    assert abs(float(got.sum()) - clamped) <= n * np.finfo(float).eps * C
+    assert bool((got.cpu() >= args[1]).all() & (got.cpu() <= args[2]).all())
+
+
+def _sir_case(m, t, rng, ties=True, one_label=False):
+    K = rng.random((m, t))
+    if ties:   # duplicate instances: equal kernel values in a row
+        K[:, 1::3] = K[:, 0:-1:3][:, :K[:, 1::3].shape[1]]
+    y_R = np.where(rng.random(m) < 0.5, 1.0, -1.0)
+    y_T = np.where(rng.random(t) < (0.9 if one_label else 0.5), 1.0, -1.0)
+    if one_label:   # most rows run out of same-label candidates
+        y_R[:] = -1.0
+    alpha_R = rng.random(m) * 3
+    priority = rng.random(t)
+    priority[5::7] = priority[0]    # tied priorities
+    return [torch.from_numpy(a) for a in (K, y_R, y_T, alpha_R, priority)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fallback", ["random", "skip"])
+@pytest.mark.parametrize("m,t,one_label", [(27, 27, False), (100, 100, False),
+                                           (100, 100, True), (150, 90, True),
+                                           (3256, 3256, False),
+                                           (40, 6000, True)])
+def test_cuda_sir_greedy_bitwise(cuda, m, t, one_label, fallback):
+    """SIR's greedy pass equals the plain version bit for bit: tied kernel
+    values and priorities (lowest index wins), rows with no same-label
+    candidate left, more rows than candidates, both fallbacks; Table 1's
+    |R| and n = 32,560's, and past 4,096 entries of T (8 a thread)."""
+    from repro_torch.kernels.seeding import sir_greedy
+    args = _sir_case(m, t, np.random.default_rng(m + t), one_label=one_label)
+    want = ref.sir_greedy_ref(*args, fallback)
+    got = sir_greedy(*(a.to(cuda) for a in args), fallback)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_cuda_sir_greedy_refuses_what_it_cannot_hold(cuda):
+    """Past 8,192 entries of T (8 a thread of 1,024) the wrapper raises."""
+    from repro_torch.kernels.seeding import sir_greedy
+    t = 8193
+    z = torch.zeros(t, dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError, match="past the kernel"):
+        sir_greedy(torch.zeros((1, t), dtype=torch.float64, device=cuda),
+                   z[:1], z, z[:1], z)
+
+
+def _ato_state(n, t_n, rng, C=10.0, case="mixed"):
+    """A ramp step's inputs: K an RBF matrix, S/T/R masks, alpha with rows
+    free and at both bounds, T and R partly active."""
+    X = torch.from_numpy(rng.normal(size=(n, 5)))
+    K = ref.rbf_kernel_matrix_ref(X, X, 0.2)
+    y = torch.from_numpy(np.where(rng.random(n) < 0.5, 1.0, -1.0))
+    perm = rng.permutation(n)
+    in_T = torch.zeros(n, dtype=torch.bool)
+    in_R = torch.zeros(n, dtype=torch.bool)
+    in_T[perm[:t_n]] = True
+    in_R[perm[t_n:2 * t_n]] = True
+    in_S = ~(in_T | in_R)
+    u = rng.random(n)
+    alpha = np.where(u < 0.3, 0.0, np.where(u < 0.5, C, rng.random(n) * C))
+    if case == "bound":          # nf = 0: every row at a bound
+        alpha = np.where(u < 0.5, 0.0, C)
+    alpha = torch.from_numpy(alpha)
+    f = torch.from_numpy(rng.normal(size=n))
+    T_act = in_T & torch.from_numpy(rng.random(n) < 0.7)
+    R_act = in_R & (alpha > 0)
+    return K, y, C, alpha, f, in_S, in_T, T_act, R_act
+
+
+def _bucket(m, n):
+    from repro_torch.core.seeding import _bucket_cap
+    return _bucket_cap(m, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,t_n,case", [(243, 27, "mixed"),
+                                        (900, 100, "mixed"),
+                                        (900, 100, "bound"),
+                                        (2600, 1100, "mixed")])
+def test_cuda_ato_system_bitwise(cuda, n, t_n, case):
+    """ato_system's masks, v, w, nf, the compacted working set, lanes, yM,
+    B and r0's flag are the plain version's bit for bit (b and rhs[0] are
+    sums: rel 1e-13); Table 1's sizes, nf = 0, and |T| > 1,024."""
+    from repro_torch.kernels.seeding import ato_system
+    rng = np.random.default_rng(n + t_n)
+    K, y, C, alpha, f, in_S, in_T, T_act, R_act = _ato_state(n, t_n, rng,
+                                                             case=case)
+    nf0 = int((in_S & (alpha > 0) & (alpha < C)).sum())
+    m_cap = _bucket(nf0 + t_n, n)
+    b_fb = torch.tensor(0.25, dtype=torch.float64)
+    args = (K, y, C, alpha, f, b_fb, in_S, in_T, T_act, R_act, m_cap)
+    want = ref.ato_system_ref(*args)
+    got = ato_system(*(a.to(cuda) if isinstance(a, torch.Tensor) else a
+                       for a in args))
+    for name in ("train_now", "free", "nf", "v", "w", "idx", "lane", "yM",
+                 "B"):
+        assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), \
+            name
+    assert torch.equal(got.idx.cpu(), ref.compact_ref(want.free, m_cap))
+    torch.testing.assert_close(got.b.cpu(), want.b, rtol=1e-13, atol=0)
+    torch.testing.assert_close(got.rhs[0].cpu(), want.rhs[0], rtol=1e-13,
+                               atol=1e-13 * float(want.w.abs().sum()))
+    if case == "bound":
+        assert int(got.nf) == 0 and float(got.B[0, 0]) == 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("done", [False, True])
+@pytest.mark.parametrize("n", [243, 1000, 32560])
+def test_cuda_ato_apply_bitwise(cuda, n, done):
+    """ato_apply's eta, f, T_act, R_act, done and step are the plain
+    version's bit for bit; a step that starts done changes nothing."""
+    from repro_torch.kernels.seeding import ato_apply
+    rng = np.random.default_rng(n)
+    C, tol = 10.0, 1e-3
+    mk = lambda a: torch.from_numpy(np.asarray(a))  # noqa: E731
+    alpha = mk(np.where(rng.random(n) < 0.4, 0.0, rng.random(n) * C))
+    g = mk(rng.normal(size=n) * np.where(rng.random(n) < 0.1, 0.0, 1.0))
+    f, v, Phi = (mk(rng.normal(size=n)) for _ in range(3))
+    y = mk(np.where(rng.random(n) < 0.5, 1.0, -1.0))
+    train_now = mk(rng.random(n) < 0.8)
+    free = train_now & mk(rng.random(n) < 0.3)
+    T_act, R_act = mk(rng.random(n) < 0.1), mk(rng.random(n) < 0.1)
+    b = torch.tensor(0.1, dtype=torch.float64)
+    state = [f, T_act, R_act, torch.tensor(done), torch.tensor(3)]
+    card = [s.to(cuda) for s in state]
+    cpu = [s.clone() for s in state]
+    rest = (C, tol, train_now, free)
+    eta_c = ato_apply(g.to(cuda), card[0], alpha.to(cuda), v.to(cuda),
+                      Phi.to(cuda), y.to(cuda), b.to(cuda), C, tol,
+                      train_now.to(cuda), free.to(cuda), card[1], card[2],
+                      card[3], card[4], 30)
+    eta = ref.ato_apply_ref(g, cpu[0], alpha, v, Phi, y, b, *rest, *cpu[1:],
+                            30)
+    assert torch.equal(eta_c.cpu(), eta)
+    for a, w in zip(card, cpu):
+        assert torch.equal(a.cpu(), w)
+    if done:
+        for a, w in zip(card, state):
+            assert torch.equal(a.cpu(), w)
+
+
+def _seed_problem(cuda, name="heart", n=270, h=1):
+    from repro_torch.core.cv import _fold_masks, _transition_idx
+    from repro_torch.data.svm_suite import kfold_chunks, make_dataset
+    from repro_torch.svm import kernel_matrix, smo_solve
+    ds = make_dataset(name, n_override=n)
+    chunks = kfold_chunks(ds.n, 10)
+    m = chunks.size
+    X = torch.as_tensor(ds.X[:m], device=cuda)
+    y = torch.as_tensor(ds.y[:m], dtype=torch.float64, device=cuda)
+    K = kernel_matrix(X, X, gamma=ds.gamma)
+    masks = torch.as_tensor(_fold_masks(chunks), device=cuda)
+    prev = smo_solve(K, y, masks[h - 1], ds.C, torch.zeros_like(y), -y)
+    idx = _transition_idx(chunks, h - 1, h, cuda)
+    torch.cuda.synchronize()
+    return ds, K, y, prev, idx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,n", [("heart", 270), ("adult", 1000)])
+def test_cuda_seeds_make_no_other_sync(cuda, name, n):
+    """Whole ATO, MIR and SIR seeds under set_sync_debug_mode("error"):
+    any host sync raises but the three that are wrapped and counted
+    (ATO's m_cap once and its stop flag once a chunk, MIR's SVD once)."""
+    from repro_torch.core import seeding
+    ds, K, y, prev, idx = _seed_problem(cuda, name, n)
+    for method in ("ato", "mir", "sir"):   # first calls set up libraries
+        seeding.SEEDERS[method](K, y, ds.C, prev, *idx)
+    torch.cuda.synchronize()
+    for method in ("ato", "mir", "sir"):
+        seeding.HOST_SYNCS.update(dict.fromkeys(seeding.HOST_SYNCS, 0))
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            seeding.SEEDERS[method](K, y, ds.C, prev, *idx)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        syncs = dict(seeding.HOST_SYNCS)
+        if method == "ato":
+            assert syncs["ato_m_cap"] == 1 and syncs["ato_flag"] >= 1
+            assert syncs["mir_svd"] == 0
+        elif method == "mir":
+            assert syncs == {"ato_m_cap": 0, "ato_flag": 0, "mir_svd": 1}
+        else:
+            assert syncs == dict.fromkeys(syncs, 0)
+
+
+#: the seeders' bars against the plain versions on the CPU: the card's LU
+#: and SVD are other libraries' (tests/test_torch_seeding.py's ATOL)
+SEED_ATOL = {"sir": lambda C: 1e-10, "mir": lambda C: 1e-10 * C,
+             "ato": lambda C: 1e-12 * C}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,n,h", [("heart", 270, 1), ("heart", 270, 4),
+                                      ("adult", 1000, 1)])
+def test_cuda_seeds_match_plain(cuda, name, n, h):
+    """Each seed through the kernels within the seeders' bars of the same
+    seed through the plain versions on the CPU, from the same prev."""
+    from repro_torch.core import seeding
+    from repro_torch.svm.engine import SMOResult
+    ds, K, y, prev, idx = _seed_problem(cuda, name, n, h)
+    prev_c = SMOResult(*(t.cpu() for t in prev))
+    for method in ("ato", "mir", "sir"):
+        got = seeding.SEEDERS[method](K, y, ds.C, prev, *idx).cpu()
+        want = seeding.SEEDERS[method](K.cpu(), y.cpu(), ds.C, prev_c,
+                                       *(i.cpu() for i in idx))
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                                   atol=SEED_ATOL[method](ds.C))
+
+
+@pytest.mark.cuda
+def test_cuda_ato_ramp_chunks_bitwise(cuda):
+    """The chunked ramp gives the same seed at chunk sizes 1, 4 and 30 on
+    the card: steps past the stop flag are the identity."""
+    from repro_torch.core import seeding
+    ds, K, y, prev, idx = _seed_problem(cuda, "heart", 270, 1)
+    seeds = [seeding.ato_seed(K, y, ds.C, prev, *idx, chunk=c)
+             for c in (1, 4, 30)]
+    assert torch.equal(seeds[0], seeds[1]) and torch.equal(seeds[0],
+                                                           seeds[2])

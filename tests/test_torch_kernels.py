@@ -92,11 +92,21 @@ def test_cpu_tensors_launch_no_kernel():
     ops.smo_select(X, sq, 0.5, y, *lanes[:4], *lanes[5:])
     q = torch.from_numpy(RNG.normal(size=(1, 4, 9, 16)))
     ops.flash_attention(q, q[:, :2], q[:, :2], window=3)
+    lo, hi = torch.zeros(n, dtype=torch.float64), torch.ones(n).double()
+    ops.water_fill(y, lo, hi, 0.5)
+    ops.sir_greedy(K[:3], y[:3], y, torch.ones(3).double(),
+                   torch.rand(n).double())
+    on = torch.ones(n, dtype=torch.bool)
+    s = ops.ato_system(K, y, 1.0, lo, -y, 0.0, on, ~on, ~on, ~on, 4)
+    ops.ato_apply(K[0], -y, lo, s.v, lo, y, s.b, 1.0, 1e-3, s.train_now,
+                  s.free, ~on, ~on, torch.tensor(False), torch.tensor(0), 30)
     assert ops.launch_counts() == {"rbf_kernel_matrix": 0,
                                    "smo_f_update": 0, "smo_chunk": 0,
                                    "fused_smo_step": 0, "smo_select": 0,
                                    "smo_stream_chunk": 0,
-                                   "flash_attention": 0}
+                                   "flash_attention": 0, "water_fill": 0,
+                                   "sir_greedy": 0, "ato_system": 0,
+                                   "ato_apply": 0}
 
 
 def test_arg_reduces_nan_guard():
@@ -596,7 +606,7 @@ def test_chunk_wrapper_rejects_other_devices():
 
 
 @pytest.mark.parametrize("name", ["rbf", "smo_update", "smo_chunk",
-                                  "smo_step", "flash_attention"])
+                                  "smo_step", "seeding", "flash_attention"])
 def test_build_flags_per_source(name):
     """The SVM sources keep -fmad=false, which their bitwise parity with
     the plain versions needs; the attention source, held to tolerances,
@@ -619,3 +629,57 @@ def test_build_fma_variant_of_the_step():
                                             + ("-DSMO_STEP_TENSOR_F64=0",))
     assert _build.lib_path("smo_step_fma") != _build.lib_path("smo_step")
     assert "SMO_STEP_TENSOR_F64" in _build.source("smo_step").read_text()
+
+
+@pytest.mark.parametrize("n,m_cap,p", [(1, 1, 0.5), (10, 10, 1.0),
+                                       (100, 128, 0.3), (257, 128, 0.2),
+                                       (1000, 512, 0.0), (1000, 384, 0.35)])
+def test_compact_is_padded_nonzero(n, m_cap, p):
+    """The plain compaction (prefix sum + scatter, no host sync) is
+    ``torch.nonzero`` padded with 0 to m_cap, the working set ATO's
+    ``jnp.nonzero(size=m_cap)`` gives."""
+    for seed in range(3):
+        mask = torch.from_numpy(np.random.default_rng(seed).random(n) < p)
+        nz = torch.nonzero(mask).flatten()[:m_cap]
+        want = torch.zeros(m_cap, dtype=torch.long)
+        want[:nz.shape[0]] = nz
+        assert torch.equal(ref.compact_ref(mask, m_cap), want)
+
+
+@pytest.mark.parametrize("n,target", [(27, 0.3), (100, -5.0), (243, 1e9),
+                                      (900, 0.0), (17, -1e9)])
+def test_water_fill_early_stop_is_bitwise(n, target):
+    """Stopping the bisection once (c_lo, c_hi) repeat gives the 100-step
+    result bit for bit, infeasible targets included."""
+    rng = np.random.default_rng(n)
+    y = np.where(rng.random(n) < 0.5, 1.0, -1.0)
+    lo, hi = np.where(y > 0, 0.0, -7.0), np.where(y > 0, 7.0, 0.0)
+    beta = np.clip(rng.normal(size=n) * 3, lo, hi)
+    args = [torch.from_numpy(a) for a in (beta, lo, hi)]
+    early = ref.water_fill_ref(*args, target)
+    full = ref.water_fill_ref(*args, target, stop_early=False)
+    assert torch.equal(early, full)
+    assert torch.equal(ops.water_fill(*args, target), full)
+
+
+def test_ato_done_step_is_the_identity():
+    """A ramp step that starts with the stop flag set leaves alpha, f,
+    T_act, R_act and the step count as they were, bit for bit."""
+    from repro_torch.core.seeding import _ato_step
+    rng = np.random.default_rng(5)
+    n, C = 120, 4.0
+    X = torch.from_numpy(rng.normal(size=(n, 3)))
+    K = ref.rbf_kernel_matrix_ref(X, X, 0.3)
+    y = torch.from_numpy(np.where(rng.random(n) < 0.5, 1.0, -1.0))
+    in_T = torch.from_numpy(rng.random(n) < 0.1)
+    in_S = ~in_T
+    alpha = torch.from_numpy(np.where(rng.random(n) < 0.5, 0.0,
+                                      rng.random(n) * C)) * (~in_T)
+    f = torch.from_numpy(rng.normal(size=n))
+    T_act, R_act = in_T.clone(), torch.zeros(n, dtype=torch.bool)
+    state = [alpha, f, T_act, R_act, torch.tensor(True), torch.tensor(2)]
+    before = [s.clone() for s in state]
+    _ato_step(K, y, C, 1e-3, torch.tensor(0.0, dtype=torch.float64), in_S,
+              in_T, 128, 30, *state, torch.zeros(n, dtype=torch.float64))
+    for s, b in zip(state, before):
+        assert torch.equal(s, b)

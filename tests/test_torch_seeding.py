@@ -165,3 +165,60 @@ def test_water_fill_matches_reference(n, target):
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
     np.testing.assert_allclose(got.sum(), np.clip(target, lo.sum(), hi.sum()),
                                atol=1e-12)
+
+
+@pytest.mark.parametrize("chunk", [1, 4, 30])
+def test_ato_chunked_ramp_matches_reference(tr, chunk):
+    """ATO's ramp enqueued ``chunk`` steps at a time, its stop flag read
+    once a chunk, gives one seed bit for bit at every chunk size, within
+    the ATO bar of the reference's ``while_loop``."""
+    got = tr.port("ato", chunk=chunk)
+    assert torch.equal(got, tr.port("ato", chunk=1))
+    np.testing.assert_allclose(got.numpy(), tr.reference("ato"), rtol=0,
+                               atol=ATOL["ato"](tr.ds.C))
+
+
+def _crafted_sir(n=60, seed=3, dup=True, skew=True):
+    """A transition built to stress SIR's greedy picks: duplicate instances
+    (tied kernel values), and T short of R's label (rows with no same-label
+    candidate left, so the fallback decides). Returns the reference's and
+    the port's (K, y, C, prev, S, R, T)."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, 4))
+    if dup:
+        X[1::4] = X[0:-1:4][:X[1::4].shape[0]]
+    y = np.where(rng.random(n) < 0.5, 1.0, -1.0)
+    perm = rng.permutation(n)
+    R, T, S = perm[:12], perm[12:24], perm[24:]
+    if skew:
+        y[R] = 1.0
+        y[T[:9]] = -1.0
+    C = 3.0
+    alpha = np.where(rng.random(n) < 0.3, C, rng.random(n) * C)
+    alpha[T] = 0.0
+    K = np.exp(-0.5 * ((X[:, None] - X[None]) ** 2).sum(-1))
+    f = K @ (alpha * y) - y
+    prev = {"alpha": alpha, "f": f, "n_iter": np.int64(0),
+            "converged": np.bool_(True), "b_up": np.float64(-0.1),
+            "b_low": np.float64(0.1)}
+    ref_prev = ref_seeding.SMOResult(**{k: jnp.asarray(v)
+                                        for k, v in prev.items()})
+    jidx = tuple(jnp.asarray(a) for a in (S, R, T))
+    tidx = tuple(torch.from_numpy(a) for a in (S, R, T))
+    return ((jnp.asarray(K), jnp.asarray(y), C, ref_prev, *jidx),
+            (torch.from_numpy(K), torch.from_numpy(y), C,
+             result_from_reference(prev, device="cpu"), *tidx))
+
+
+@pytest.mark.parametrize("fallback", ["random", "skip"])
+@pytest.mark.parametrize("dup,skew", [(True, True), (True, False),
+                                      (False, True)])
+def test_sir_greedy_picks_are_the_reference_picks(fallback, dup, skew):
+    """The plain greedy pass picks the reference's x_t for every removed
+    row: among tied kernel values the lowest index, the fallback's draw
+    where no same-label x_t is left, none under ``fallback="skip"``. A
+    single different pick moves a whole alpha, far beyond the SIR bar."""
+    ref_args, port_args = _crafted_sir(dup=dup, skew=skew)
+    want = np.asarray(ref_seeding.sir_seed(*ref_args, fallback=fallback))
+    got = seeding.sir_seed(*port_args, fallback=fallback).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL["sir"](3.0))
