@@ -8,7 +8,10 @@ each bf16 route: ``l`` or the accumulator not rescaled when the running
 max moves, the window's edge off by one, the softmax scale 1% off. The
 wgmma route (head dims 64, 128, 256) and the mma.sync route (16, 32) get
 the four faults each. Each build runs the bf16 cases of ``chip_smoke.py``
-(the reference's, FLASH_BF16_CASES and granite-8b's prefill shape) and
+(the reference's, FLASH_BF16_CASES, and granite-8b's prefill shape at
+head dims 128, 32 and 16: the mma.sync route's kv tiles are 128 keys, so
+the sweep's short rows see one tile, and its rescaling faults show on the
+long ones) and
 holds them to the gate ``chip_smoke.py`` uses (``flash_bf16_ok``: row by
 row against the plain version in float32) and to the absolute bars it
 used before (0.06 from the plain version in bf16; 0.02 from the float32
@@ -42,12 +45,12 @@ MUTANTS = {
                                 "kpos + window >= qpos"),
     "wgmma_scale_1pct": ("1.4426950408889634f / sqrtf((float)D)",
                          "1.01f * 1.4426950408889634f / sqrtf((float)D)"),
-    "mma_l_not_rescaled": ("l[i] = alpha * l[i] + sum;",
-                           "l[i] = l[i] + sum;"),
-    "mma_acc_not_rescaled": ("acc[j][2 * i] *= alpha;\n"
-                             "        acc[j][2 * i + 1] *= alpha;",
-                             "acc[j][2 * i] *= 1.0f;\n"
-                             "        acc[j][2 * i + 1] *= 1.0f;"),
+    "mma_l_not_rescaled": ("l[mt][i] = alpha * l[mt][i] + sum;",
+                           "l[mt][i] = l[mt][i] + sum;"),
+    "mma_acc_not_rescaled": ("acc[mt][j][2 * i] *= alpha;\n"
+                             "        acc[mt][j][2 * i + 1] *= alpha;",
+                             "acc[mt][j][2 * i] *= 1.0f;\n"
+                             "        acc[mt][j][2 * i + 1] *= 1.0f;"),
     "mma_window_off_by_one": ("kpos > qpos - window", "kpos >= qpos - window"),
     "mma_scale_1pct": ("1.0f / sqrtf((float)D)", "1.01f / sqrtf((float)D)"),
 }
@@ -65,7 +68,8 @@ import chip_smoke as cs
 rng = np.random.default_rng(2)
 rows = []
 for B, H, KV, S, D, causal, window in (((1, 2, 2, 64, 32, True, None),)
-        + cs.FLASH_BF16_CASES + ((*cs.FLASH_GRANITE, True, None),)):
+        + cs.FLASH_BF16_CASES + tuple((*shape, True, None) for shape in (
+            cs.FLASH_GRANITE, cs.FLASH_D32, cs.FLASH_D16))):
     q, k, v = (torch.as_tensor(rng.normal(size=(B, S, h, D)),
                                dtype=torch.bfloat16, device="cuda"
                                ).transpose(1, 2) for h in (H, KV, KV))
@@ -73,6 +77,8 @@ for B, H, KV, S, D, causal, window in (((1, 2, 2, 64, 32, True, None),)
     r = cs.flash_bf16_errors(got, q, k, v, causal, window)
     old = (r["max_abs_err"] <= 0.02 if S == cs.FLASH_GRANITE[3]
            else r["max_abs_diff_bf16_plain"] <= 0.06)
+    del got, q, k, v
+    torch.cuda.empty_cache()
     rows.append({"case": [B, H, KV, S, D, causal, window],
                  "route": route(torch.bfloat16, D),
                  "gate_passes": cs.flash_bf16_ok(r),

@@ -114,8 +114,8 @@ def entries(lib: str):
     plan = so.smo_stream_plan
     plan.argtypes = [_I, _I, _I, _P, _P, _P]
     pers = so.smo_stream_persistent_f64
-    pers.argtypes = [_P, _P, _P, _P, _P, _D, _P, _LL, _D, _P, _P, _P, _P,
-                     _I, _I, _I, _I, _I, _I, _P, _P]
+    pers.argtypes = [_P, _P, _P, _P, _P, _P, _D, _P, _LL, _D, _P, _P, _P,
+                     _P, _I, _I, _I, _I, _I, _I, _P, _P]
     for fn in (fused, plan, pers):
         fn.restype = ctypes.c_int
     return fused, plan, pers
@@ -155,7 +155,7 @@ def main() -> int:
     from repro_torch.core.cv import _fold_masks
     from repro_torch.data.svm_suite import kfold_chunks, make_dataset
     from repro_torch.kernels import ref
-    from repro_torch.kernels.smo_chunk import pad_rows
+    from repro_torch.kernels.smo_chunk import pad_rows, seq_norms
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
@@ -167,6 +167,7 @@ def main() -> int:
     Xp = pad_rows(X)
     y = torch.as_tensor(ds.y[:N], dtype=torch.float64, device=dev)
     sq = torch.sum(X * X, -1)
+    sn = seq_norms(X)
     d = X.shape[1]
     masks = torch.as_tensor(_fold_masks(chunks), device=dev)
     Cs = torch.full((LANES,), ds.C, dtype=torch.float64, device=dev)
@@ -217,8 +218,8 @@ def main() -> int:
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
                 start.record()
-                check(pers(Xp.data_ptr(), sq.data_ptr(), y.data_ptr(),
-                           masks.data_ptr(), Cs.data_ptr(), 1e-3,
+                check(pers(Xp.data_ptr(), sq.data_ptr(), sn.data_ptr(),
+                           y.data_ptr(), masks.data_ptr(), Cs.data_ptr(), 1e-3,
                            caps.data_ptr(), CAP + 1, ds.gamma,
                            *(t.data_ptr() for t in st), N, d, Xp.stride(0),
                            LANES, m.value, sl.value, w.data_ptr(), stream()),

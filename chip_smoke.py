@@ -46,7 +46,9 @@ tensor-core build's outputs bit for bit.
 
 ``python3 chip_smoke.py --seed-split [--src DIR]`` runs only the seeding
 split and Table 1's times, of the package under DIR (another checkout's
-``src``), so that two trees are timed in one call.
+``src``), so that two trees are timed in one call; ``--compare [--src
+DIR]`` likewise the bf16 mma.sync attention route's times at head dims 32
+and 16 and the 20-fold matrix-free row's (the selection kernel's path).
 
 Phases print one JSON line each, with their own seconds; a failing phase
 raises and the script exits non-zero. The last lines are the
@@ -118,8 +120,13 @@ FLASH_CASES = ((64, 32, True, None), (100, 32, False, None),
 FLASH_GRANITE = (2, 32, 8, 4096, 128)
 #: gemma-7b's prefill attention at its context (B, H, KV, S, D), causal
 FLASH_GEMMA = (1, 16, 16, 8192, 256)
-#: granite's prefill shape at head dim 32: the bf16 mma.sync route's timing
+#: granite's prefill shape at head dims 32 and 16: the bf16 mma.sync
+#: route's timing
 FLASH_D32 = (2, 32, 8, 4096, 32)
+FLASH_D16 = (2, 32, 8, 4096, 16)
+#: exp2 results a clock an SM on Hopper's SFU (MUFU.EX2; CUDA programming
+#: guide, compute capability 9.0): the floor of attention at small D
+SFU_EX2_PER_CLOCK = 16
 #: bf16 cases beyond the reference's one: the sweep's shapes (several kv
 #: tiles, ragged S, windows; D=16 and 32 on the mma.sync route, D=64 on
 #: wgmma), then grouped kv heads read in place from (B, S, H, D)
@@ -261,6 +268,24 @@ def card_line() -> str:
     if out.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def sm_clock_mhz() -> float:
+    """The card's top SM clock (``nvidia-smi``'s ``clocks.max.sm``), MHz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60)
+    if out.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def exp_bound_ms(exps: float) -> float:
+    """The least time of ``exps`` exp2s on the card's SFUs at its top
+    clock."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return 1e3 * exps / (SFU_EX2_PER_CLOCK * sms * sm_clock_mhz() * 1e6)
 
 
 def require(cond: bool, what: str) -> None:
@@ -1653,6 +1678,74 @@ def _time_fused(X, b: int, gamma: float, rng) -> dict:
         **_bound(8.0 * (n * d + n + 2 * b * n + 2 * b * d + b), flops))
 
 
+def _time_select(args) -> dict:
+    """The selection kernel's time at ``args`` (``smo_select``'s), each over
+    a CUDA graph of 50 calls, and its bounds. ``ms``: its C entry as the
+    pair route calls it (``clip_all`` 0) from a mid-solve state (the lanes
+    after 100 pair-route iterations from ``args``' cold state). Only the
+    first launch sees a state the route gives (the others find alpha moved
+    and f not, the same work), so beside it ``iteration_ms`` times the
+    route's iteration as it runs: the selection and ``fused_smo_step``'s C
+    entry, from the same state. ``ms_cold``: the cold first step
+    (``clip_all`` 1, a chunk's first iteration); ``ms_wrapper``: the
+    wrapper there (which also copies the state). ``bound_ms`` holds ``ms``:
+    alpha, f and mask read once, y shared, the pair rows read and written,
+    two alphas written a lane; ``bound_ms_cold`` the cold step's, which
+    writes the whole of alpha. On the mid-solve state, where alpha lies in
+    its box, the kernel must give the same bits with either clip."""
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels.smo_chunk import seq_norms
+    X, sq, gamma, y, masks, Cs, tol, caps, alphas, fs, n_iter, done = args
+    (b, n), d = masks.shape, X.shape[1]
+    sn = seq_norms(X)
+    mid = ops.smo_stream_chunk(X, sq, gamma, y, masks, Cs, tol, caps, 100,
+                               alphas, fs, n_iter, done, X_norms=sn,
+                               _route="pair")
+    fn = _build.entry("smo_step", "smo_select_f64", *(ctypes.c_void_p,) * 6,
+                      ctypes.c_double, ctypes.c_void_p, ctypes.c_double,
+                      *(ctypes.c_void_p,) * 6, *(ctypes.c_int,) * 4,
+                      ctypes.c_void_p)
+    fused = _build.entry("smo_step", "fused_smo_step_f64",
+                         *(ctypes.c_void_p,) * 6, *(ctypes.c_int,) * 3,
+                         ctypes.c_double, ctypes.c_void_p)
+    xij = torch.zeros((b, 2, d), dtype=torch.float64, device=X.device)
+    delta = torch.zeros(b, dtype=torch.float64, device=X.device)
+
+    def launch(state, clip):
+        a, f, it, dn = state
+        return lambda: _build.check(fn(
+            X.data_ptr(), sq.data_ptr(), sn.data_ptr(), y.data_ptr(),
+            masks.data_ptr(), Cs.data_ptr(), float(tol), caps.data_ptr(),
+            float(gamma), a.data_ptr(), f.data_ptr(), it.data_ptr(),
+            dn.data_ptr(), xij.data_ptr(), delta.data_ptr(), n, d, b, clip,
+            _build.stream_ptr(X)), "smo_select")
+
+    def iteration(state):
+        select = launch(state, 0)
+        return lambda: (select(), _build.check(fused(
+            state[1].data_ptr(), X.data_ptr(), sq.data_ptr(), xij.data_ptr(),
+            delta.data_ptr(), state[3].data_ptr(), n, d, b, float(gamma),
+            _build.stream_ptr(X)), "fused_smo_step"))
+    one = [tuple(t.clone() for t in mid) for _ in range(2)]
+    launch(one[0], 0)()
+    launch(one[1], 1)()
+    require(all(torch.equal(u, v) for u, v in zip(*one)),
+            "smo_select: clip_all 0 and 1 differ on a mid-solve state")
+    flops = 10.0 * b * n
+    cold = _bound(8.0 * (3 * b * n + n + 4 * b * d) + b * n, flops)
+    return {"ms": graph_ms(launch(tuple(t.clone() for t in mid), 0), 50),
+            "iteration_ms": graph_ms(
+                iteration(tuple(t.clone() for t in mid)), 50),
+            "ms_cold": graph_ms(launch((alphas.clone(), fs, n_iter.clone(),
+                                        done.clone()), 1), 50),
+            "ms_wrapper": graph_ms(lambda: ops.smo_select(*args, X_norms=sn),
+                                   50),
+            "mid_iterations": int(mid[2].max()),
+            **_bound(8.0 * (2 * b * n + n + 4 * b * d + 2 * b) + b * n,
+                     flops),
+            "bound_ms_cold": cold["bound_ms"]}
+
+
 def phase_fused(datasets):
     """fused_smo_step and the WSS-1 selection kernel against their plain
     versions at the reference's ragged shapes and the main path's, at one
@@ -1661,6 +1754,7 @@ def phase_fused(datasets):
     from repro_torch.core.cv import _fold_masks
     from repro_torch.data.svm_suite import kfold_chunks
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.smo_chunk import seq_norms
     t0 = time.perf_counter()
     dev = torch.device("cuda")
     rng = np.random.default_rng(1)
@@ -1788,7 +1882,7 @@ def phase_fused(datasets):
                 -yc.repeat(k, 1), torch.zeros(k, dtype=torch.int64,
                                               device=dev),
                 torch.zeros(k, dtype=torch.bool, device=dev))
-        got = ops.smo_select(*args)
+        got = ops.smo_select(*args, X_norms=seq_norms(Xc))
         want = ref.smo_select_lanes_ref(*args)
         for i, what in ((1, "n_iter"), (2, "done"), (3, "pair rows")):
             require(torch.equal(got[i], want[i]),
@@ -1797,24 +1891,19 @@ def phase_fused(datasets):
         require(err <= 1e-12, f"smo_select {name} n={m} b={k}: err {err}")
         rec = {"n": m, "b": k, "max_abs_err": err}
         if m == SIZE_N - 1 or k == WIDE_K:
-            rec["ms"] = graph_ms(lambda: ops.smo_select(*args), 50)
+            rec.update(_time_select(args))
             sync()
             tp = time.perf_counter()
             ref.smo_select_lanes_ref(*args)
             sync()
             rec["plain_ms"] = 1e3 * (time.perf_counter() - tp)
-            # per lane: alpha read and written, f and mask read, the pair
-            # rows read from X and written; y shared. The norms are read
-            # at j alone.
-            d = Xc.shape[1]
-            rec.update(_bound(8.0 * (k * m * 3 + m + k * 4 * d) + k * m,
-                              10.0 * k * m))
         if k == WIDE_K:
             select = dict(rec)
         sel_checks.append(rec)
     big_sel = next(c for c in sel_checks if c["n"] == SIZE_N - 1)
     select.update({f"{k}_{SIZE_N - 1}x10": big_sel[k]
-                   for k in ("ms", "plain_ms", "bound_ms")})
+                   for k in ("ms", "iteration_ms", "ms_cold", "ms_wrapper",
+                             "plain_ms", "bound_ms", "bound_ms_cold")})
     select["max_abs_err"] = max(c["max_abs_err"] for c in sel_checks)
     emit({"phase": "kernels_fused", "seconds": time.perf_counter() - t0,
           "fused_checks": checks, "fused_smo_step": fused,
@@ -1838,6 +1927,7 @@ def phase_lane_chunks(datasets):
     the card after 200 iterations. heart and adult n=1000 run to
     convergence; n=32,560 stops at it_cap=300."""
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.smo_chunk import seq_norms
     t0 = time.perf_counter()
     dev = torch.device("cuda")
     dense, stream = [], []
@@ -1875,7 +1965,7 @@ def phase_lane_chunks(datasets):
         torch.cuda.empty_cache()
 
         # ---- streaming chunk: width invariance
-        sq = torch.sum(X * X, -1)
+        sq, sn = torch.sum(X * X, -1), seq_norms(X)
 
         def run(ids, width, it_cap=cap, route=None):
             ids = list(ids)
@@ -1893,7 +1983,7 @@ def phase_lane_chunks(datasets):
             while True:
                 st = ops.smo_stream_chunk(X, sq, ds.gamma, y, m, C, 1e-3,
                                           caps, min(4096, it_cap + 1), *st,
-                                          _route=route)
+                                          X_norms=sn, _route=route)
                 if bool(st[3].all()):
                     break
             sync()
@@ -1970,8 +2060,8 @@ def phase_stream_routes(datasets):
     takes (required to be the persistent one wherever it places the
     lanes, the pair route past them)."""
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.smo_chunk import (pad_rows, stream_plan,
-                                               stream_route)
+    from repro_torch.kernels.smo_chunk import (pad_rows, seq_norms,
+                                               stream_plan, stream_route)
     t0 = time.perf_counter()
     dev = torch.device("cuda")
     checks, info = [], {}
@@ -1980,31 +2070,31 @@ def phase_stream_routes(datasets):
         cap = 300 if n > 10_000 else 5_000_000
         X = torch.as_tensor(ds.X[:n], device=dev)
         y = torch.as_tensor(ds.y[:n], dtype=torch.float64, device=dev)
-        sq = torch.sum(X * X, -1)
+        sq, sn = torch.sum(X * X, -1), seq_norms(X)
         masks = torch.as_tensor(masks, device=dev)
         state = _stream_lanes(X, y, 10, dev)[1]
         args = (X, sq, ds.gamma, y, masks, [ds.C] * 10, 1e-3, [cap] * 10,
                 cap + 1, *state)
         X_rows = pad_rows(X)
         before = ops.route_counts()["smo_stream_chunk"]
-        got = ops.smo_stream_chunk(*args, X_rows=X_rows)
+        got = ops.smo_stream_chunk(*args, X_rows=X_rows, X_norms=sn)
         route = _route_taken(before, ops.route_counts()["smo_stream_chunk"])
         require(route == "persistent", f"stream chunk {name} n={n}: took "
                                        f"the {route} route")
-        pair = ops.smo_stream_chunk(*args, _route="pair")
+        pair = ops.smo_stream_chunk(*args, X_norms=sn, _route="pair")
         for a, c, what in zip(got, pair, ("alpha", "f", "n_iter", "done")):
             require(torch.equal(a, c), f"stream chunk {name} n={n}: the "
                                        f"routes' {what} differ")
         it = int(got[2].max())
         rec = {"n": n, "lanes": 10, "it_cap": cap, "n_iter": got[2].tolist()}
         for r in ("persistent", "pair"):
-            ms = cuda_ms(lambda: ops.smo_stream_chunk(*args, X_rows=X_rows,
-                                                      _route=r), 1)
+            ms = cuda_ms(lambda: ops.smo_stream_chunk(
+                *args, X_rows=X_rows, X_norms=sn, _route=r), 1)
             rec[f"us_per_iter_{r}"] = 1e3 * ms / it
         if n > 10_000:
             one = ops.smo_stream_chunk(X, sq, ds.gamma, y, masks[:1], [ds.C],
                                        1e-3, [200], 201,
-                                       *(t[:1] for t in state))
+                                       *(t[:1] for t in state), X_norms=sn)
             plain = ref.smo_chunk_ref(
                 None, torch.ones(n, dtype=torch.float64, device=dev), y,
                 masks[0], ds.C, 1e-3, 200, 201, "1", *(t[0] for t in state),
@@ -2035,7 +2125,7 @@ def phase_stream_routes(datasets):
                 **_bound((8.0 * n * d + state_bytes) / it, 4.0 * b_ * n * d))
             rec["max_abs_err_vs_plain_200"] = err
         checks.append(rec)
-        del X, sq
+        del X, sq, sn
         torch.cuda.empty_cache()
 
     big = datasets[("adult", SIZE_N - 1)]
@@ -2043,7 +2133,7 @@ def phase_stream_routes(datasets):
     for n in STREAM_SWEEP_N:
         X = torch.as_tensor(big.X[:n], device=dev)
         y = torch.as_tensor(big.y[:n], dtype=torch.float64, device=dev)
-        sq = torch.sum(X * X, -1)
+        sq, sn = torch.sum(X * X, -1), seq_norms(X)
         d = X.shape[1]
         widest = 1
         while widest < 64 and stream_plan(n, d, widest + 1)[0] >= 1:
@@ -2054,7 +2144,7 @@ def phase_stream_routes(datasets):
                     [STREAM_SWEEP_ITERS] * b, STREAM_SWEEP_ITERS + 1, *state)
             m = stream_plan(n, d, b)[0]
             before = ops.route_counts()["smo_stream_chunk"]
-            got = ops.smo_stream_chunk(*args)
+            got = ops.smo_stream_chunk(*args, X_norms=sn)
             route = _route_taken(before,
                                  ops.route_counts()["smo_stream_chunk"])
             require(route == stream_route(m), f"stream chunk n={n} b={b}: "
@@ -2066,16 +2156,17 @@ def phase_stream_routes(datasets):
             rec = {"n": n, "b": b, "blocks": m, "route": route,
                    "n_iter_max": it}
             for r in routes:
-                out = ops.smo_stream_chunk(*args, _route=r)
+                out = ops.smo_stream_chunk(*args, X_norms=sn, _route=r)
                 for a, c, what in zip(got, out, ("alpha", "f", "n_iter",
                                                  "done")):
                     require(torch.equal(a, c), f"stream chunk n={n} b={b}: "
                             f"the {r} route's {what} differs")
-                ms = cuda_ms(lambda: ops.smo_stream_chunk(*args, _route=r), 2)
+                ms = cuda_ms(lambda: ops.smo_stream_chunk(
+                    *args, X_norms=sn, _route=r), 2)
                 rec[f"us_per_iter_{r}"] = 1e3 * ms / it
             rec["faster"] = min(routes, key=lambda r: rec[f"us_per_iter_{r}"])
             sweep.append(rec)
-        del X, sq
+        del X, sq, sn
         torch.cuda.empty_cache()
     emit({"phase": "stream_routes", "seconds": time.perf_counter() - t0,
           "checks": checks, "sweep": sweep})
@@ -2264,10 +2355,11 @@ def phase_flash():
     float32 on the same bf16 inputs, row by row
     (``flash_bf16_check``). Then the kernel's time, the plain version's
     (bf16), ``F.scaled_dot_product_attention``'s on broadcast K/V (the
-    yardstick, never called by the port) and the bound, there, at
-    gemma-7b's prefill shape and at granite's with head dim 32 (the
-    mma.sync route's own); and the mma.sync route's time at the first two,
-    the wgmma route's predecessor. Every bf16 case also shows the route it
+    yardstick, never called by the port) and the bounds (``_time_flash``),
+    there, at gemma-7b's prefill shape and at granite's with head dims 32
+    and 16 (the mma.sync route's own, where the exps bound it); and the
+    mma.sync route's time at the first two. Every bf16 case also shows the
+    route it
     took (wgmma at D >= 64, mma.sync below)."""
     from repro_torch.kernels import ops, ref
     t0 = time.perf_counter()
@@ -2305,51 +2397,75 @@ def phase_flash():
         checks.append({"shape": [B, H, KV, S, D], "causal": causal,
                        "window": window, "dtype": "bfloat16", **rec})
 
-    shapes = {}
-    for name, (B, H, KV, S, D) in (("granite-8b", FLASH_GRANITE),
-                                   ("gemma-7b", FLASH_GEMMA),
-                                   ("d32", FLASH_D32)):
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(0)
-        q, k, v = (torch.randn((B, S, h, D), generator=gen, device=dev,
-                               dtype=torch.bfloat16).transpose(1, 2)
-                   for h in (H, KV, KV))
-        check = flash_bf16_check(q, k, v)
-        torch.cuda.empty_cache()
-        got = ops.flash_attention(q, k, v)
-        ms = cuda_ms(lambda: ops.flash_attention(q, k, v), 20, 3)
-        mma_ms = cuda_ms(lambda: ops.flash_attention(q, k, v, _route="mma"),
-                         5)
-        plain_ms = cuda_ms(lambda: ref.flash_attention_ref(q, k, v), 2)
-        torch.cuda.empty_cache()
-        qc = q.contiguous()
-        kb, vb = (t.repeat_interleave(H // KV, dim=1).contiguous()
-                  for t in (k, v))
-
-        def library():
-            return torch.nn.functional.scaled_dot_product_attention(
-                qc, kb, vb, is_causal=True)
-        library_ms = cuda_ms(library, 20, 3)
-        lib_diff = float((library().float() - got.float()).abs().max())
-        del qc, kb, vb, got
-        torch.cuda.empty_cache()
-        pairs = S * (S + 1) // 2          # (query, visible key) pairs
-        shapes[name] = dict(
-            shape=[B, H, KV, S, D], route=check["route"], ms=ms,
-            mma_route_ms=mma_ms, plain_ms=plain_ms, library_ms=library_ms,
-            library_max_abs_diff=lib_diff, row_rel_err=check["row_rel_err"],
-            plain_row_rel_err=check["plain_row_rel_err"],
-            max_abs_err_vs_f32_plain=check["max_abs_err"],
-            tflops=4.0 * B * H * D * pairs / ms / 1e9,
-            **_bound(2.0 * (2 * B * H * S * D + 2 * B * KV * S * D),
-                     4.0 * B * H * D * pairs, BF16_FLOPS))
-        del q, k, v
+    shapes = {name: _time_flash(shape, check=True)
+              for name, shape in (("granite-8b", FLASH_GRANITE),
+                                  ("gemma-7b", FLASH_GEMMA),
+                                  ("d32", FLASH_D32), ("d16", FLASH_D16))}
     rec = dict(shapes["granite-8b"], max_abs_err=max(
         [c["max_abs_err"] for c in checks]
-        + [r["max_abs_err_vs_f32_plain"] for r in shapes.values()]))
+        + [r["max_abs_err_vs_f32_plain"] for r in shapes.values()]),
+        mma_route={name: {key: shapes[name][key] for key in (
+            "shape", "ms", "library_ms", "plain_ms", "bound_ms",
+            "flop_bound_ms", "exp_bound_ms", "row_rel_err")}
+            for name in ("d32", "d16")})
     emit({"phase": "kernels_flash", "seconds": time.perf_counter() - t0,
           "checks": checks, "granite": rec, "gemma": shapes["gemma-7b"],
-          "mma_d32": shapes["d32"]})
+          "mma_d32": shapes["d32"], "mma_d16": shapes["d16"]})
+    return rec
+
+
+def _time_flash(shape, check: bool) -> dict:
+    """bf16 causal attention at ``shape`` (B, H, KV, S, D), q, k, v read in
+    place from (B, S, H, D) activations: the kernel's time on its route
+    (and, ``check``, its ``flash_bf16_check``, the forced mma.sync route's
+    time and the plain version's), ``F.scaled_dot_product_attention``'s on
+    broadcast K/V (the yardstick, never called by the port), and the
+    bounds: ``bound_ms`` from the bytes and the tensor cores' FLOPs, and
+    beside it ``exp_bound_ms``, the floor of a design that takes every exp
+    on the SFUs (one a score): a kernel that computes some of them as a
+    polynomial on the FMA pipes can go below it."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import route
+    dev = torch.device("cuda")
+    B, H, KV, S, D = shape
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    q, k, v = (torch.randn((B, S, h, D), generator=gen, device=dev,
+                           dtype=torch.bfloat16).transpose(1, 2)
+               for h in (H, KV, KV))
+    rec = {"shape": [B, H, KV, S, D], "route": route(q.dtype, D)}
+    if check:
+        c = flash_bf16_check(q, k, v)
+        rec.update(row_rel_err=c["row_rel_err"],
+                   plain_row_rel_err=c["plain_row_rel_err"],
+                   max_abs_err_vs_f32_plain=c["max_abs_err"])
+    torch.cuda.empty_cache()
+    got = ops.flash_attention(q, k, v)
+    rec["ms"] = ms = cuda_ms(lambda: ops.flash_attention(q, k, v), 20, 3)
+    if check:
+        rec["mma_route_ms"] = cuda_ms(
+            lambda: ops.flash_attention(q, k, v, _route="mma"), 5)
+        rec["plain_ms"] = cuda_ms(lambda: ref.flash_attention_ref(q, k, v),
+                                  2)
+    torch.cuda.empty_cache()
+    qc = q.contiguous()
+    kb, vb = (t.repeat_interleave(H // KV, dim=1).contiguous()
+              for t in (k, v))
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qc, kb, vb, is_causal=True)
+    rec["library_ms"] = cuda_ms(library, 20, 3)
+    rec["library_max_abs_diff"] = float(
+        (library().float() - got.float()).abs().max())
+    del qc, kb, vb, got, q, k, v
+    torch.cuda.empty_cache()
+    pairs = S * (S + 1) // 2          # (query, visible key) pairs
+    flops = 4.0 * B * H * D * pairs
+    bound = _bound(2.0 * (2 * B * H * S * D + 2 * B * KV * S * D), flops,
+                   BF16_FLOPS)
+    rec.update(tflops=flops / ms / 1e9, flop_bound_ms=1e3 * flops / BF16_FLOPS,
+               exp_bound_ms=exp_bound_ms(B * H * pairs), **bound)
     return rec
 
 
@@ -2652,12 +2768,50 @@ def split_main(argv) -> int:
     return 0
 
 
+def compare_main(argv) -> int:
+    """``--compare [--src DIR]``: the times of two redesigned kernels,
+    of the package under DIR (default this checkout's ``src``): the bf16
+    mma.sync route at FLASH_D32 and FLASH_D16 beside
+    SDPA's and the bounds (``_time_flash``), and the 20-fold matrix-free
+    row (adult n=1000, the selection kernel's main path), three times:
+    iterations, solve s and us per longest-lane iteration. So that two
+    trees are timed in one call, in turns (``chip_select_split.py --src
+    DIR`` times the selection kernel itself)."""
+    if "--src" in argv:
+        sys.path.insert(0, os.path.abspath(argv[argv.index("--src") + 1]))
+    from repro_torch.core.cv import run_cv_batched
+    from repro_torch.data.svm_suite import make_dataset
+    from repro_torch.kernels import _build
+    import repro_torch
+    _build.build_all()
+    print(card_line(), flush=True)
+    emit({"phase": "compare_tree", "package": repro_torch.__file__})
+    emit({"phase": "compare_flash", **{
+        name: _time_flash(shape, check=False)
+        for name, shape in (("d32", FLASH_D32), ("d16", FLASH_D16))}})
+    ds = make_dataset("adult", n_override=REFERENCE["adult"]["n"])
+    rows = []
+    for _ in range(3):
+        sync()
+        rep = run_cv_batched(ds, k=WIDE_K, source_backend="pallas_rbf")
+        lane_max = max(f.n_iter for f in rep.folds)
+        rows.append({"iterations": rep.total_iterations,
+                     "solve_s": rep.total_solve_time,
+                     "us_per_longest_lane_iteration":
+                         1e6 * rep.total_solve_time / max(lane_max, 1),
+                     "accuracy": rep.accuracy})
+    emit({"phase": "compare_wide_k", "k": WIDE_K, "rows": rows})
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     if "--seed-split" in sys.argv:
         return split_main(sys.argv)
+    if "--compare" in sys.argv:
+        return compare_main(sys.argv)
     from repro_torch.kernels import ops
     # float32 products in full float32 (no TF32) in the plain versions too
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2810,6 +2964,11 @@ def main() -> int:
             "bound_by": k["bound_by"], "library_ms": k.get("library_ms")})
         if name in ("flash_attention", "smo_stream_chunk"):
             kernels[-1]["routes"] = routes[path][name]
+        if name == "flash_attention":
+            kernels[-1]["mma_route"] = k["mma_route"]
+        if name == "smo_select":
+            kernels[-1].update({key: k[key] for key in (
+                "iteration_ms", "ms_cold", "ms_wrapper", "bound_ms_cold")})
         if name == "rbf_kernel_matrix":
             kernels[-1].update(
                 {key: k[key] for key in ("ms_distinct", "bound_ms_distinct",

@@ -20,9 +20,13 @@
 //   through TMA and mbarriers, two consumer warpgroups of 64 q rows each
 //   run S = Q K^T and O += P V on wgmma; 128 q rows per block.
 // * bf16, D = 16 and 32 (the SMOKE configs and the reference's sweep):
-//   mma.sync m16n8k16 (flash_fwd_mma_kernel), the first design. wgmma's
-//   depth is 16 and a tile's 128-byte swizzled panel is 64 columns, so a
-//   head narrower than a panel gains nothing from the wgmma route.
+//   mma.sync m16n8k16 (namespace mma_route), where the exps, not the
+//   FLOPs, set the floor: 128 q rows a block (4 warps of 32), kv tiles of
+//   128 keys in a three-stage cp.async ring, one FFMA and one ex2 a score,
+//   the mask only on the tiles that cross it. wgmma's depth is 16 and a
+//   tile's
+//   128-byte swizzled panel is 64 columns, so a head narrower than a panel
+//   gains nothing from the wgmma route.
 // * float32: FMA on the CUDA cores (tensor cores would round to TF32):
 //   thread (rg, cg) owns 4 rows, 8 keys of a tile and D / 8 output columns,
 //   the probabilities go through shared memory (flash_fwd_kernel).
@@ -40,7 +44,10 @@
 // wgmma reaches that rate on Hopper, so the bf16 route for the model's
 // head dims is built around it: operands straight from TMA-written
 // shared memory, no thread spends an instruction on a copy, and the mask
-// and exp2 work per score is one compare-free fma on interior tiles.
+// and exp2 work per score is one compare-free fma on interior tiles. At
+// D = 16 and 32 the exps bound it instead: one ex2 a score on the SFU, 16 a
+// clock an SM, is 0.128 ms for granite's shape at D = 32 (5.37e8 exps, 132
+// SMs at 1,980 MHz), above its 0.0695 ms of FLOPs.
 #include <cstdint>
 
 #include <cuda.h>   // CUtensorMap and its enums; no libcuda link
@@ -207,14 +214,29 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------- bf16 ----
-// The same loop on the tensor cores: mma.sync m16n8k16 (bf16 operands,
-// float32 accumulators). Each of the four warps owns 16 q rows. q, and two
-// buffers each of K and V, are staged as bf16 rows of pitch D + 8 by
-// cp.async, the next kv tile's copies in flight while the current one is
-// computed. Fragments come from shared memory by ldmatrix (transposed for
-// V, whose rows are keys). The scores' accumulator fragments become the
-// probabilities' A fragments in registers, rounded to bf16 there, as in
-// FlashAttention-2.
+// bf16 on mma.sync m16n8k16 (bf16 operands, float32 accumulators): the
+// route of head dims 16 and 32, which `_route="mma"` also runs at 64, 128
+// and 256. At D = 32 a score costs 128 tensor-core FLOPs and one exp: at
+// the card's dense bf16 rate the FLOPs take less time than the exps on
+// the SFU (16 a clock an SM), so the exps set the floor, and the design
+// spends as little as it can beside each exp:
+// * p = 2^(s c - m c) with c = scale * log2(e): one FFMA and one
+//   ex2.approx a score; m and l live in that domain; a row's max and sum
+//   over a tile are trees, not chains;
+// * the mask's compares run only on the tiles that cross T, the diagonal
+//   or the window's edge, per warp; every other tile takes none;
+// * 128 q rows a block and, at D <= 32, kv tiles of 128 keys, so one
+//   barrier is paid per 128 keys; a ring of STAGES K/V tiles staged by
+//   cp.async, the copies of the tiles ahead in flight while one is
+//   computed;
+// * l sums the unrounded p per thread, across the row's four threads once
+//   after the loop; p is rounded to bf16 in registers as the A operand of
+//   P V, as the plain version rounds probs.to(q.dtype).
+// mma.sync runs at well under wgmma's rate on Hopper, and a warp's
+// tensor-core work and its exps alternate, so the route stays above its
+// exp floor (PERF.md). q (in registers at D <= 64), K and V are bf16 rows
+// of pitch D + 8 in shared memory (conflict-free ldmatrix), fragments
+// loaded by ldmatrix (transposed for V, whose rows are keys).
 typedef __nv_bfloat16 bf16;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -224,6 +246,14 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&x);
+}
+
+// 2^x on the SFU in one instruction (exp2f adds range handling for
+// subnormal results, which the softmax flushes to 0 anyway)
+__device__ __forceinline__ float ex2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // four 8 x 8 bf16 matrices; lane l gives the address of row l % 8 of
@@ -262,13 +292,37 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Issue the copies of rows r0 .. r0 + 63 of a (n, D) bf16 slab into shared
-// memory (row pitch D + 8), 16 bytes each; rows past n are zero-filled.
+namespace mma_route {
+
+// The block shape at head dim D: warps, 16-row m-tiles a warp, keys a kv
+// tile, K/V ring stages, and the blocks an SM its registers are bounded
+// for. At D <= 32, 4 warps of 32 rows (each K and V fragment feeds two
+// m-tiles) and kv tiles of 128 keys: the fastest of the shapes
+// chip_flash_shapes.py times on the card (8 warps of 16 rows, tiles of 64
+// keys, 2 or 4 stages, one block an SM). The head dims of the wgmma route
+// keep 8 warps of 16 rows.
 template <int D>
+struct Cfg {
+  static constexpr int NW = D <= 32 ? 4 : 8;           // warps a block
+  static constexpr int MT = D <= 32 ? 2 : 1;           // m-tiles a warp
+  static constexpr int BK = D <= 32 ? 128 : 64;        // keys per kv tile
+  static constexpr int STAGES = D == 256 ? 2 : 3;      // K/V ring depth
+  static constexpr int MIN_BLOCKS = D <= 64 ? 2 : 1;   // registers
+  static constexpr int NT = 32 * NW;                   // threads a block
+  static constexpr int BQ = 16 * MT * NW;              // q rows a block
+  static constexpr int PQ = D + 8;                     // bf16 row pitch
+  static constexpr int TILE = BK * PQ;                 // one K or V tile
+  static constexpr int SMEM = 2 * (BQ * PQ + 2 * STAGES * TILE);
+};
+
+// Issue the copies of rows r0 .. r0 + ROWS - 1 of a (n, D) bf16 slab into
+// shared memory (row pitch D + 8), 16 bytes each, by the block's NT
+// threads; rows past n are zero-filled.
+template <int D, int ROWS, int NT>
 __device__ __forceinline__ void stage_async(bf16* dst, const bf16* src,
                                            long long rs, int r0, int n) {
   constexpr int PER_ROW = D / 8;
-  for (int e = threadIdx.x; e < BK * PER_ROW; e += NT) {
+  for (int e = threadIdx.x; e < ROWS * PER_ROW; e += NT) {
     const int r = e / PER_ROW, c = (e % PER_ROW) * 8;
     const bool in = r0 + r < n;
     const bf16* g = in ? src + (long long)(r0 + r) * rs + c : src;
@@ -278,150 +332,255 @@ __device__ __forceinline__ void stage_async(bf16* dst, const bf16* src,
   }
 }
 
+// The N values' max (or sum), pairwise: a tree of depth log2 N, not a
+// chain of N dependent instructions
+template <int N, bool SUM>
+__device__ __forceinline__ float tree(const float (&t)[N]) {
+  if constexpr (N == 1) {
+    return t[0];
+  } else {
+    float h[N / 2];
+#pragma unroll
+    for (int j = 0; j < N / 2; ++j)
+      h[j] = SUM ? t[j] + t[j + N / 2] : fmaxf(t[j], t[j + N / 2]);
+    return tree<N / 2, SUM>(h);
+  }
+}
+
+// Each warp owns MT m-tiles of 16 q rows. A tile's work is q k^T on the
+// tensor cores, then the mask and the online softmax on the FP32 pipes and
+// the SFU, then P V on the tensor cores. One barrier a tile: the copies of
+// the tiles STAGES - 1 ahead are in flight meanwhile.
 template <int D>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(Cfg<D>::NT, Cfg<D>::MIN_BLOCKS)
 flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ o, int H,
                      int G, int S, int Tk, Strides st, float scale, int causal,
                      int window) {
-  constexpr int PQ = D + 8;     // bf16 row pitch of every tile
-  constexpr int NS = BK / 8;    // score fragments (16 x 8) per warp
-  constexpr int NO = D / 8;     // output fragments per warp
-  constexpr int TILE = BK * PQ;
+  using C = Cfg<D>;
+  constexpr int BK = C::BK, STAGES = C::STAGES, PQ = C::PQ, TILE = C::TILE;
+  constexpr int MT = C::MT, BQ = C::BQ, NT = C::NT;
+  constexpr int NS = BK / 8;    // score fragments (16 x 8) per m-tile
+  constexpr int NO = D / 8;     // output fragments per m-tile
+  constexpr int KQ = D / 16;    // k-steps of q k^T
+  constexpr bool QREG = D <= 64;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // BQ x PQ
-  bf16* ks = qs + BQ * PQ;                       // 2 x (BK x PQ)
-  bf16* vs = ks + 2 * TILE;                      // 2 x (BK x PQ)
+  bf16* ks = qs + BQ * PQ;                       // STAGES x (BK x PQ)
+  bf16* vs = ks + STAGES * TILE;                 // STAGES x (BK x PQ)
 
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // longest tiles first
   const int b = blockIdx.y / H, h = blockIdx.y % H, hk = h / G;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, tq = lane & 3, r0 = warp * 16;
+  const int g = lane >> 2, tq = lane & 3, r0 = warp * 16 * MT;
+  const int r_lo = q0 + r0;     // the warp's rows: r_lo .. r_lo + 16 MT - 1
   const bf16* qp = q + b * st.qb + h * st.qh;
   const bf16* kp = k + b * st.kb + hk * st.kh;
   const bf16* vp = v + b * st.vb + hk * st.vh;
+  const float c = scale * 1.4426950408889634f;   // scale * log2(e)
 
   int kv_hi = Tk, kv_lo = 0;
   if (causal) kv_hi = min(Tk, q0 + BQ);
   if (window > 0) kv_lo = max(0, q0 - window + 1) / BK * BK;
+  const int n_tiles = kv_hi > kv_lo ? (kv_hi - kv_lo + BK - 1) / BK : 0;
 
-  stage_async<D>(qs, qp, st.qs, q0, S);
-  if (kv_lo < kv_hi) {
-    stage_async<D>(ks, kp, st.ks, kv_lo, Tk);
-    stage_async<D>(vs, vp, st.vs, kv_lo, Tk);
-  }
-  cp_async_commit();
-
-  float m[2] = {NEG, NEG}, l[2] = {0.0f, 0.0f}, acc[NO][4];
+  // q and the first STAGES - 1 tiles, one commit group each (tile t's
+  // group is the t-th)
+  stage_async<D, BQ, NT>(qs, qp, st.qs, q0, S);
 #pragma unroll
-  for (int j = 0; j < NO; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
-
-  for (int k0 = kv_lo, cur = 0; k0 < kv_hi; k0 += BK, cur ^= 1) {
-    if (k0 + BK < kv_hi) {  // the next tile's copies, into the other buffer
-      stage_async<D>(ks + (cur ^ 1) * TILE, kp, st.ks, k0 + BK, Tk);
-      stage_async<D>(vs + (cur ^ 1) * TILE, vp, st.vs, k0 + BK, Tk);
+  for (int t = 0; t < STAGES - 1; ++t) {
+    if (t < n_tiles) {
+      stage_async<D, BK, NT>(ks + t * TILE, kp, st.ks, kv_lo + t * BK, Tk);
+      stage_async<D, BK, NT>(vs + t * TILE, vp, st.vs, kv_lo + t * BK, Tk);
     }
     cp_async_commit();
-    cp_async_wait<1>();  // this tile (and q) landed for this thread...
-    __syncthreads();     // ...and for every thread
-    const bf16* kt = ks + cur * TILE;
-    const bf16* vt = vs + cur * TILE;
+  }
 
-    // s = q k^T for the warp's 16 rows and the tile's 64 keys
-    float s[NS][4];
+  float m[MT][2], l[MT][2], acc[MT][NO][4];
 #pragma unroll
-    for (int j = 0; j < NS; ++j)
+  for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+    for (int i = 0; i < 2; ++i) {
+      m[mt][i] = NEG;
+      l[mt][i] = 0.0f;
+    }
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t a[4];
-      ldsm_x4(a, qs + (r0 + (lane & 15)) * PQ + kk * 16 + (lane >> 4) * 8);
+    for (int j = 0; j < NO; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.0f;
+  }
+  uint32_t qf[MT][QREG ? KQ : 1][4];
+
+  // s = q k^T for the warp's rows and tile t's BK keys; each K fragment
+  // feeds the warp's MT m-tiles
+  auto qk = [&](float (&s)[MT][NS][4], int t) {
+    const bf16* kt = ks + (t % STAGES) * TILE;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[mt][j][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < KQ; ++kk) {
+      uint32_t a[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        if (QREG) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) a[mt][e] = qf[mt][QREG ? kk : 0][e];
+        } else {
+          ldsm_x4(a[mt], qs + (r0 + 16 * mt + (lane & 15)) * PQ + kk * 16 +
+                             (lane >> 4) * 8);
+        }
+      }
 #pragma unroll
       for (int j = 0; j < NS; j += 2) {
         uint32_t bb[4];
         ldsm_x4(bb, kt + ((j + (lane >> 4)) * 8 + (lane & 7)) * PQ + kk * 16 +
                         ((lane >> 3) & 1) * 8);
-        mma16816(s[j], a, bb[0], bb[1]);
-        mma16816(s[j + 1], a, bb[2], bb[3]);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma16816(s[mt][j], a[mt], bb[0], bb[1]);
+          mma16816(s[mt][j + 1], a[mt], bb[2], bb[3]);
+        }
       }
     }
+  };
 
-    // mask, then the online softmax of rows g (i = 0) and g + 8 (i = 1)
+  // tile t's mask, online softmax and acc += p v
+  auto softmax_pv = [&](float (&s)[MT][NS][4], int t) {
+    const int k0 = kv_lo + t * BK;
+    // the mask, on the warp's tiles that cross T, the diagonal or the
+    // window's edge only
+    if (k0 + BK > Tk || (causal && k0 + BK - 1 > r_lo) ||
+        (window > 0 && k0 + window <= r_lo + 16 * MT - 1)) {
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int qpos = q0 + r0 + g + 8 * i;
-      float mx = NEG;
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int qpos = r_lo + 16 * mt + g + 8 * i;
+#pragma unroll
+          for (int j = 0; j < NS; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int kpos = k0 + j * 8 + tq * 2 + e;
+              const bool ok = kpos < Tk && (!causal || kpos <= qpos) &&
+                              (window <= 0 || kpos > qpos - window);
+              if (!ok) s[mt][j][2 * i + e] = NEG;
+            }
+        }
+    }
+
+    // the online softmax of rows g (i = 0) and g + 8 (i = 1) of each
+    // m-tile, in exp2
+#pragma unroll
+    for (int mi = 0; mi < 2 * MT; ++mi) {
+      const int mt = mi / 2, i = mi % 2;
+      float t2[NS];
 #pragma unroll
       for (int j = 0; j < NS; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int kpos = k0 + j * 8 + tq * 2 + e;
-          const bool ok = kpos < Tk && (!causal || kpos <= qpos) &&
-                          (window <= 0 || kpos > qpos - window);
-          float& x = s[j][2 * i + e];
-          x = ok ? x * scale : NEG;
-          mx = fmaxf(mx, x);
-        }
+        t2[j] = fmaxf(s[mt][j][2 * i], s[mt][j][2 * i + 1]);
+      float mx = fmaxf(m[mt][i], tree<NS, false>(t2));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      float sum = 0.0f;
+      // a row that has seen only masked keys keeps m = NEG and takes p = 0
+      // (not 2^(NEG c - NEG c), whose rounding is no small number)
+      const float mc = mx == NEG ? 0.0f : mx * c;
+      const float alpha = ex2_ftz(__fmaf_rn(m[mt][i], c, -mc));
 #pragma unroll
-      for (int j = 0; j < NS; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float& x = s[j][2 * i + e];
-          x = expf(x - m_new);
-          sum += x;
-        }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      l[i] = alpha * l[i] + sum;
-      m[i] = m_new;
+      for (int j = 0; j < NS; ++j) {
+        float& x0 = s[mt][j][2 * i];
+        float& x1 = s[mt][j][2 * i + 1];
+        x0 = ex2_ftz(__fmaf_rn(x0, c, -mc));
+        x1 = ex2_ftz(__fmaf_rn(x1, c, -mc));
+        t2[j] = x0 + x1;
+      }
+      const float sum = tree<NS, true>(t2);
+      // l is this thread's share of the row's keys, summed across the
+      // row's four threads after the loop
+      l[mt][i] = alpha * l[mt][i] + sum;
+      m[mt][i] = mx;
 #pragma unroll
       for (int j = 0; j < NO; ++j) {
-        acc[j][2 * i] *= alpha;
-        acc[j][2 * i + 1] *= alpha;
+        acc[mt][j][2 * i] *= alpha;
+        acc[mt][j][2 * i + 1] *= alpha;
       }
     }
 
-    // acc += p v, p rounded to bf16 in the A fragments, 16 keys a step
+    // acc += p v, p rounded to bf16 in the A fragments, 16 keys a step;
+    // each V fragment feeds the warp's MT m-tiles
+    const bf16* vt = vs + (t % STAGES) * TILE;
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      uint32_t a[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        a[mt][0] = pack_bf16(s[mt][2 * kk][0], s[mt][2 * kk][1]);
+        a[mt][1] = pack_bf16(s[mt][2 * kk][2], s[mt][2 * kk][3]);
+        a[mt][2] = pack_bf16(s[mt][2 * kk + 1][0], s[mt][2 * kk + 1][1]);
+        a[mt][3] = pack_bf16(s[mt][2 * kk + 1][2], s[mt][2 * kk + 1][3]);
+      }
 #pragma unroll
       for (int j = 0; j < NO; j += 2) {
         uint32_t bb[4];
         ldsm_x4_t(bb, vt + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * PQ +
                           (j + (lane >> 4)) * 8);
-        mma16816(acc[j], a, bb[0], bb[1]);
-        mma16816(acc[j + 1], a, bb[2], bb[3]);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma16816(acc[mt][j], a[mt], bb[0], bb[1]);
+          mma16816(acc[mt][j + 1], a[mt], bb[2], bb[3]);
+        }
       }
     }
-    __syncthreads();  // every warp is done with this buffer before refill
+  };
+
+  float s[MT][NS][4];
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<STAGES - 2>();  // tile t (and q) landed for this thread...
+    __syncthreads();  // ...and for every thread, and tile t - 1 is free
+    {  // the tile STAGES - 1 ahead, into tile t - 1's stage
+      const int ta = t + STAGES - 1;
+      if (ta < n_tiles) {
+        stage_async<D, BK, NT>(ks + (ta % STAGES) * TILE, kp, st.ks,
+                               kv_lo + ta * BK, Tk);
+        stage_async<D, BK, NT>(vs + (ta % STAGES) * TILE, vp, st.vs,
+                               kv_lo + ta * BK, Tk);
+      }
+      cp_async_commit();
+    }
+    if (QREG && t == 0) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int kk = 0; kk < (QREG ? KQ : 0); ++kk)
+          ldsm_x4(qf[mt][kk], qs + (r0 + 16 * mt + (lane & 15)) * PQ +
+                                  kk * 16 + (lane >> 4) * 8);
+    }
+    qk(s, t);
+    softmax_pv(s, t);
   }
   cp_async_wait<0>();
 
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = q0 + r0 + g + 8 * i;
-    if (row >= S) continue;
-    const float den = fmaxf(l[i], 1e-30f);
-    bf16* orow = o + b * st.ob + h * st.oh + (long long)row * st.os;
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int j = 0; j < NO; ++j)
-      *reinterpret_cast<uint32_t*>(orow + j * 8 + tq * 2) =
-          pack_bf16(acc[j][2 * i] / den, acc[j][2 * i + 1] / den);
-  }
+    for (int i = 0; i < 2; ++i) {
+      float li = l[mt][i];
+      li += __shfl_xor_sync(0xffffffffu, li, 1);
+      li += __shfl_xor_sync(0xffffffffu, li, 2);
+      const int row = r_lo + 16 * mt + g + 8 * i;
+      if (row >= S) continue;
+      const float den = fmaxf(li, 1e-30f);
+      bf16* orow = o + b * st.ob + h * st.oh + (long long)row * st.os;
+#pragma unroll
+      for (int j = 0; j < NO; ++j)
+        *reinterpret_cast<uint32_t*>(orow + j * 8 + tq * 2) = pack_bf16(
+            acc[mt][j][2 * i] / den, acc[mt][j][2 * i + 1] / den);
+    }
 }
 
+}  // namespace mma_route
 
 // ------------------------------------------------------- bf16, wgmma ----
 // FlashAttention-3's shape for D = 64, 128 and 256 on Hopper. A block of
@@ -660,14 +819,6 @@ __device__ __forceinline__ void wgmma_rs<256>(float (&d)[128],
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// 2^x on the SFU in one instruction (exp2f adds range handling for
-// subnormal results, which the softmax flushes to 0 anyway)
-__device__ __forceinline__ float ex2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // The mask (only on tiles that cross T, the diagonal or the window) and
@@ -961,13 +1112,13 @@ template <int D>
 int launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B,
                 int H, int KV, int S, int Tk, const Strides& st, int causal,
                 int window, cudaStream_t stream) {
-  const int smem = (int)sizeof(bf16) * (BQ + 4 * BK) * (D + 8);
+  using C = mma_route::Cfg<D>;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      mma_route::flash_fwd_mma_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((S + BQ - 1) / BQ, B * H);
-  flash_fwd_mma_kernel<D><<<grid, NT, smem, stream>>>(
+  const dim3 grid((S + C::BQ - 1) / C::BQ, B * H);
+  mma_route::flash_fwd_mma_kernel<D><<<grid, C::NT, C::SMEM, stream>>>(
       q, k, v, o, H, H / KV, S, Tk, st, 1.0f / sqrtf((float)D), causal,
       window);
   return (int)cudaGetLastError();

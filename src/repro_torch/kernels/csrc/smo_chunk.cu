@@ -195,27 +195,6 @@ struct Resident {
   static constexpr int kThreads = SMEM ? 768 : R <= 2 ? 1024 : 512;
 };
 
-// Order keys. A (value, row) candidate reduces across lanes by an unsigned
-// 64-bit key of its value whose integer order is the value's order, -0
-// and +0 one key, NaN the smallest key (NaN first); a max reduces by the
-// key's complement. Equal keys fall to the lowest row. That is the order of
-// better_min / better_max exactly, so the winner is theirs; and two
-// warp-wide integer reductions (__reduce_min_sync) and a ballot find it,
-// where a shuffle tree takes five levels of float64 compares.
-__device__ __forceinline__ unsigned long long order_bits(double v) {
-  unsigned long long b = (unsigned long long)__double_as_longlong(v);
-  if ((b << 1) == 0) b = 0;  // -0 -> +0
-  return (b >> 63) ? ~b : b | 0x8000000000000000ull;
-}
-
-__device__ __forceinline__ unsigned long long min_key(double v) {
-  return isnan(v) ? 0ull : order_bits(v);
-}
-
-__device__ __forceinline__ unsigned long long max_key(double v) {
-  return isnan(v) ? 0ull : ~order_bits(v);
-}
-
 // The warp's least key: every lane gets it, and the lowest lane that holds
 // it. Lanes hold rows in rising order (see Rows), so the lowest lane
 // holds the lowest row: the tie rule.
@@ -957,21 +936,6 @@ struct alignas(16) Slot {
   double f, a;
   int i, flags;
 };
-
-// The warp's least key, to every lane, and the lane that holds it at the
-// lowest row (rows are distinct); `row` is the lane's candidate's row.
-__device__ __forceinline__ int warp_least_row(unsigned long long& key,
-                                              int row) {
-  const unsigned hi = (unsigned)(key >> 32), lo = (unsigned)key;
-  const unsigned mh = __reduce_min_sync(0xffffffffu, hi);
-  const unsigned ml = __reduce_min_sync(0xffffffffu, hi == mh ? lo : ~0u);
-  const bool has = hi == mh && lo == ml;
-  const unsigned mr =
-      __reduce_min_sync(0xffffffffu, has ? (unsigned)row : ~0u);
-  const unsigned at = __ballot_sync(0xffffffffu, has && (unsigned)row == mr);
-  key = ((unsigned long long)mh << 32) | ml;
-  return __ffs(at) - 1;
-}
 
 // The lane's winner of one reduction, in every lane of every warp of the
 // cluster: lane l < G = m W reads slot l of the parity's slots (block l /

@@ -41,7 +41,15 @@
 // same expression and the same order as the fused kernel's row j (the
 // reference's interpret-mode kij, engine.py:452-454), clips delta, updates
 // alpha_i and alpha_j, and writes (pair rows, delta, done) for the fused
-// launch. smo_stream_chunk_f64 (the "pair" route) issues up to n_iters
+// launch. Its bound is bytes (a lane's alpha, f and mask once, ~17 n
+// bytes), far below the latency of what it must do in order: one pass over
+// the rows, a block-wide reduction, the pair rows' round trip to memory and
+// the d-long chain of K[i, j]. So its design cuts the serial path: 256
+// threads of strided rows, one barrier (integer key reductions per warp,
+// then every warp reduces the slots), the winners' alpha and y carried in
+// the slots, one chain (|x_i|^2 comes from the table sn, summed in the same
+// order), read from shared memory, while the other warps write the pair
+// rows. smo_stream_chunk_f64 (the "pair" route) issues up to n_iters
 // (select, fused) pairs from one host call and stops soon after every lane
 // is done; the lanes' state stays in device memory throughout.
 //
@@ -51,7 +59,8 @@
 // memory. An iteration is: ONE barrier across the grid; every block reduces
 // all blocks' WSS-1 candidates itself with the NaN-first, lowest-index rule
 // (exact in any order: the one-block kernel's picks), the winners' alpha, y
-// and norms coming with them; it stages the pair rows and runs the fused
+// and norms coming with them (|x|^2 from the same table sn the selection
+// kernel reads); it stages the pair rows and runs the fused
 // kernel's tile loop over its slice, the side warp meanwhile taking K[i, j]
 // and delta as smo_select_kernel does; the f-update and the owners' new
 // alphas; and, cell by cell from the f it has just written, the block's
@@ -254,15 +263,6 @@ __device__ __forceinline__ T rbf_from_dot(T xr2, T sn, T c, T neg_gamma) {
   return exp_t<T>(neg_gamma * d2);
 }
 
-// A pair row's norm, summed in order of k (the order every kernel here
-// uses for it, and smo_select_kernel's K[i, j]).
-template <typename T>
-__device__ __forceinline__ T seq_norm(const T* p, int d) {
-  T sn = T(0);
-  for (int k = 0; k < d; ++k) sn = sn + p[k] * p[k];
-  return sn;
-}
-
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_smo_step_kernel(T* __restrict__ f, const T* __restrict__ X,
@@ -455,9 +455,47 @@ int launch_fused(T* f, const T* X, const T* xn, const T* xij, const T* delta,
   return (int)cudaGetLastError();
 }
 
-__global__ void __launch_bounds__(kMaxThreads)
+// ------------------------------------------------------------------------
+// The WSS-1 selection: one block of kSelThreads a lane.
+// ------------------------------------------------------------------------
+
+constexpr int kSelThreads = 256;
+constexpr int kSelWarps = kSelThreads / 32;
+constexpr int kSelBatch = 4;  // rows a thread loads before it compares
+
+// A warp's candidate of one reduction, in shared memory: its order key
+// (min_key / max_key), value and row, and the row's alpha and y, which
+// the scalar step needs, so that no thread reads them again.
+struct SelSlot {
+  unsigned long long key;
+  double v, a, y;
+  int row;
+};
+
+// The slot with the least key, the lowest row on a tie (a warp's rows are
+// strided over the block, so the slots do not rise with the rows), found
+// by a warp's integer reductions: lane q < kSelWarps holds slot q.
+__device__ __forceinline__ int least_slot(const SelSlot* s, int wl) {
+  unsigned long long key = wl < kSelWarps ? s[wl].key : ~0ull;
+  const int row = wl < kSelWarps ? s[wl].row : INT_MAX;
+  return warp_least_row(key, row);
+}
+
+// One selection step of a lane. Pass 1 strides the rows over the block
+// (coalesced loads, kSelBatch rows a thread in flight); a thread keeps its
+// best rows by one float64 compare each (a NaN first, a tie to the lower
+// row, as better_min / better_max); each warp reduces its keys by integer
+// reductions (warp_least_row) and publishes its winners with their alpha
+// and y; ONE barrier; every warp then reduces the slots itself, by the
+// same reductions, lane q taking slot q. Warp 0
+// stages x_i and x_j in shared memory and its lane 0 runs the one serial
+// chain, x_j . x_i in order of k (the fused kernel's row j, and so K[i, j]
+// bitwise), with |x_i|^2 from the table sn summed in the same order; the
+// other warps meanwhile write the pair rows for the fused launch and, on a
+// chunk's first step, clip the other rows of alpha.
+__global__ void __launch_bounds__(kSelThreads)
 smo_select_kernel(const double* __restrict__ X, const double* __restrict__ xn,
-                  const double* __restrict__ y,
+                  const double* __restrict__ sn, const double* __restrict__ y,
                   const unsigned char* __restrict__ masks,
                   const double* __restrict__ Cs, double tol,
                   const long long* __restrict__ it_caps, double* alphas,
@@ -465,59 +503,145 @@ smo_select_kernel(const double* __restrict__ X, const double* __restrict__ xn,
                   unsigned char* done_flags, double* xij,
                   double* __restrict__ deltas, int n, int d, double neg_gamma,
                   int clip_all) {
-  __shared__ Scratch s;
+  extern __shared__ double pair_s[];  // x_i, then x_j
+  __shared__ SelSlot up_s[kSelWarps], low_s[kSelWarps];
+  __shared__ int flags_s[kSelWarps];
   const int lane = blockIdx.x;
   if (done_flags[lane]) return;  // uniform over the block
-  const int tid = threadIdx.x, nt = blockDim.x;
+  const int tid = threadIdx.x, warp = tid / 32, wl = tid % 32;
   const unsigned char* mask = masks + (size_t)lane * n;
   double* alpha = alphas + (size_t)lane * n;
   const double* f = fs + (size_t)lane * n;
   const double C = Cs[lane];
-  const long long it = n_iter[lane];
+  const long long it = n_iter[lane], cap = it_caps[lane];
 
-  int i, j;
-  const double gap = select_pass1(s, alpha, f, y, mask, C, n, i, j);
-  if ((gap <= tol) || (it >= it_caps[lane]) || isnan(gap)) {
+  double vu = INFINITY, vl = -INFINITY, au = 0.0, yu = 0.0, al = 0.0,
+         yl = 0.0;
+  int iu = INT_MAX, il = INT_MAX, fl = 0;
+  for (int k0 = tid; k0 < n; k0 += kSelBatch * kSelThreads) {
+    double a[kSelBatch], yk[kSelBatch], fk[kSelBatch];
+    bool m[kSelBatch];
+#pragma unroll
+    for (int r = 0; r < kSelBatch; ++r) {
+      const int k = k0 + r * kSelThreads;
+      const bool in = k < n;
+      a[r] = in ? alpha[k] : 0.0;
+      yk[r] = in ? y[k] : 0.0;
+      fk[r] = in ? f[k] : 0.0;
+      m[r] = in && mask[k] != 0;
+    }
+#pragma unroll
+    for (int r = 0; r < kSelBatch; ++r) {
+      bool up, low;
+      sets(a[r], yk[r], m[r], C, up, low);
+      const double cu = up ? fk[r] : INFINITY, cl = low ? fk[r] : -INFINITY;
+      const bool tu = (isnan(cu) & !isnan(vu)) | (cu < vu);
+      const bool tl = (isnan(cl) & !isnan(vl)) | (cl > vl);
+      const int k = k0 + r * kSelThreads;
+      vu = tu ? cu : vu;
+      iu = tu ? k : iu;
+      au = tu ? a[r] : au;
+      yu = tu ? yk[r] : yu;
+      vl = tl ? cl : vl;
+      il = tl ? k : il;
+      al = tl ? a[r] : al;
+      yl = tl ? yk[r] : yl;
+      fl |= (up ? 1 : 0) | (low ? 2 : 0);
+    }
+  }
+  // the warp's winners, to its slots
+  unsigned long long ku = min_key(vu), kl = max_key(vl);
+  const int wu = warp_least_row(ku, iu), wlo = warp_least_row(kl, il);
+  fl = __reduce_or_sync(0xffffffffu, fl);
+  if (wl == wu) up_s[warp] = {ku, vu, au, yu, iu};
+  if (wl == wlo) low_s[warp] = {kl, vl, al, yl, il};
+  if (wl == 0) flags_s[warp] = fl;
+  __syncthreads();
+  // every warp reduces the slots itself
+  int flags = 0;
+#pragma unroll
+  for (int q = 0; q < kSelWarps; ++q) flags |= flags_s[q];
+  const SelSlot su = up_s[least_slot(up_s, wl)];
+  const SelSlot sl = low_s[least_slot(low_s, wl)];
+  const double gap = flags == 3 ? sl.v - su.v : -INFINITY;
+  if ((gap <= tol) || (it >= cap) || isnan(gap)) {
     if (tid == 0) done_flags[lane] = 1;
     return;
   }
-  double* pair = xij + (size_t)lane * 2 * d;  // x_i then x_j
-  for (int e = tid; e < 2 * d; e += nt)
-    pair[e] = e < d ? X[(size_t)i * d + e] : X[(size_t)j * d + e - d];
-  __syncthreads();  // the block's global writes are visible to thread 0
-  if (tid == 0) {
-    // K[i, j] as the fused kernel computes row j of lane pair (i, j)
-    const double sn = seq_norm(pair, d);
-    double cross = 0.0;
-    for (int k = 0; k < d; ++k) cross = fma(pair[d + k], pair[k], cross);
-    double d2 = xn[j] + sn - 2.0 * cross;
-    d2 = d2 < 0.0 ? 0.0 : d2;
-    const double kij = exp(neg_gamma * d2);
-    const double eta_ij = nan_max(1.0 + 1.0 - 2.0 * kij, kTau);  // diag = 1
-    deltas[lane] = pair_update(alpha, f, y, i, j, eta_ij, C);
-    if (!clip_all) {
-      alpha[i] = clip(alpha[i], C);
-      alpha[j] = clip(alpha[j], C);
+  // i is in I_up and j in I_low here (gap > tol), so their candidates'
+  // values are f_i and f_j
+  const int i = su.row, j = sl.row;
+  const double* xi = X + (size_t)i * d;
+  const double* xj = X + (size_t)j * d;
+  if (warp == 0) {  // the pair rows, then the chain
+    double xnj = 0.0, sni = 0.0;
+    if (wl == 0) {
+      xnj = xn[j];
+      sni = sn[i];
     }
-    n_iter[lane] = it + 1;
+    for (int e = wl; e < d; e += 32) {
+      pair_s[e] = xi[e];
+      pair_s[d + e] = xj[e];
+    }
+    __syncwarp();
+    if (wl == 0) {
+      double cross = 0.0;
+#pragma unroll 8
+      for (int k = 0; k < d; ++k)
+        cross = fma(pair_s[d + k], pair_s[k], cross);
+      double d2 = xnj + sni - 2.0 * cross;
+      d2 = d2 < 0.0 ? 0.0 : d2;
+      const double kij = exp(neg_gamma * d2);
+      const double eta_ij = nan_max(1.0 + 1.0 - 2.0 * kij, kTau);  // diag = 1
+      double new_i, new_j;
+      deltas[lane] = pair_step(su.v, sl.v, su.a, sl.a, su.y, sl.y, i == j,
+                               eta_ij, C, new_i, new_j);
+      alpha[i] = clip(new_i, C);  // j after i: j == i keeps new_j
+      alpha[j] = clip(new_j, C);
+      n_iter[lane] = it + 1;
+    }
+  } else {  // the pair rows for the fused launch, beside the chain
+    double* out = xij + (size_t)lane * 2 * d;
+    for (int e = tid - 32; e < 2 * d; e += kSelThreads - 32)
+      out[e] = e < d ? xi[e] : xj[e - d];
   }
-  if (clip_all) {
-    __syncthreads();
-    for (int k = tid; k < n; k += nt) alpha[k] = clip(alpha[k], C);
+  if (clip_all) {  // the other rows (clip is idempotent: write what moves)
+    for (int k0 = tid; k0 < n; k0 += kSelBatch * kSelThreads) {
+      double a[kSelBatch];
+#pragma unroll
+      for (int r = 0; r < kSelBatch; ++r) {
+        const int k = k0 + r * kSelThreads;
+        a[r] = k < n ? alpha[k] : 0.0;
+      }
+#pragma unroll
+      for (int r = 0; r < kSelBatch; ++r) {
+        const int k = k0 + r * kSelThreads;
+        const double c = clip(a[r], C);
+        if (k < n && k != i && k != j && !(c == a[r])) alpha[k] = c;
+      }
+    }
   }
+  // end of the selection
 }
 
-void launch_select(const double* X, const double* xn, const double* y,
-                   const unsigned char* masks, const double* Cs, double tol,
-                   const long long* it_caps, double gamma, double* alphas,
-                   const double* fs, long long* n_iter, unsigned char* done,
-                   double* xij, double* delta, int n, int d, int b,
-                   int clip_all, cudaStream_t stream) {
-  int threads = ((n + 31) / 32) * 32;
-  if (threads > kMaxThreads) threads = kMaxThreads;
-  smo_select_kernel<<<b, threads, 0, stream>>>(
-      X, xn, y, masks, Cs, tol, it_caps, alphas, fs, n_iter, done, xij, delta,
-      n, d, -gamma, clip_all);
+int launch_select(const double* X, const double* xn, const double* sn,
+                  const double* y, const unsigned char* masks,
+                  const double* Cs, double tol, const long long* it_caps,
+                  double gamma, double* alphas, const double* fs,
+                  long long* n_iter, unsigned char* done, double* xij,
+                  double* delta, int n, int d, int b, int clip_all,
+                  cudaStream_t stream) {
+  const size_t smem = 2 * (size_t)d * sizeof(double);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        smo_select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  smo_select_kernel<<<b, kSelThreads, smem, stream>>>(
+      X, xn, sn, y, masks, Cs, tol, it_caps, alphas, fs, n_iter, done, xij,
+      delta, n, d, -gamma, clip_all);
+  return (int)cudaGetLastError();
 }
 
 // ------------------------------------------------------------------------
@@ -540,7 +664,7 @@ __device__ __forceinline__ void put_cand(Cand* c, double v, int i,
 }
 
 // What the scalar step needs of a candidate's row beside its f: alpha, y
-// and the norm (summed in order of k); of b_low's (the WSS-1 j), xn too.
+// and the norm (the table sn's); of b_low's (the WSS-1 j), xn too.
 struct __align__(16) CandRow {
   double a, y, sn, xn;
 };
@@ -615,7 +739,7 @@ size_t stream_workspace(int b, int m) {
 template <int RB>
 __global__ void __launch_bounds__(kThreads, 1)
 smo_stream_kernel(const double* __restrict__ X, const double* __restrict__ xn,
-                  const double* __restrict__ y,
+                  const double* __restrict__ sn, const double* __restrict__ y,
                   const unsigned char* __restrict__ masks,
                   const double* __restrict__ Cs, double tol,
                   const long long* __restrict__ it_caps, long long n_iters,
@@ -670,7 +794,7 @@ smo_stream_kernel(const double* __restrict__ X, const double* __restrict__ xn,
   for (int k = tid; k < cnt; k += kThreads) {
     y_s[k] = y[lo + k];
     xn_s[k] = xn[lo + k];
-    pn_s[k] = seq_norm(X + (size_t)(lo + k) * ldx, d);
+    pn_s[k] = sn[lo + k];
   }
   if (tid < b) {
     l_C[tid] = Cs[tid];
@@ -1077,27 +1201,30 @@ extern "C" int fused_smo_step_f32(float* f, const float* X, const float* xn,
                              stream);
 }
 
-// One selection step over b lanes (alpha clipped whole, as the plain step
-// does): alphas, n_iter and done updated in place; the pair rows and delta
-// of each lane that steps written to xij (b, 2, d) and delta (b,).
+// One selection step over b lanes: alphas, n_iter and done updated in
+// place; the pair rows and delta of each lane that steps written to xij
+// (b, 2, d) and delta (b,). sn (n,) holds each row's |x|^2 summed in order
+// of k, op by op; clip_all 1 clips the whole of alpha (a chunk's first
+// step, and the plain step's every step), 0 the pair's two alone.
 extern "C" int smo_select_f64(const double* X, const double* xn,
-                              const double* y, const unsigned char* masks,
-                              const double* Cs, double tol,
-                              const long long* it_caps, double gamma,
-                              double* alphas, const double* fs,
+                              const double* sn, const double* y,
+                              const unsigned char* masks, const double* Cs,
+                              double tol, const long long* it_caps,
+                              double gamma, double* alphas, const double* fs,
                               long long* n_iter, unsigned char* done,
                               double* xij, double* delta, int n, int d, int b,
-                              cudaStream_t stream) {
-  if (n > 0 && b > 0)
-    launch_select(X, xn, y, masks, Cs, tol, it_caps, gamma, alphas, fs,
-                  n_iter, done, xij, delta, n, d, b, 1, stream);
-  return (int)cudaGetLastError();
+                              int clip_all, cudaStream_t stream) {
+  if (n <= 0 || b <= 0) return (int)cudaGetLastError();
+  return launch_select(X, xn, sn, y, masks, Cs, tol, it_caps, gamma, alphas,
+                       fs, n_iter, done, xij, delta, n, d, b, clip_all,
+                       stream);
 }
 
 // Up to n_iters streaming WSS-1 iterations over b lanes of one X: each is one
 // selection launch (one block per lane) and one fused launch over all lanes.
-// masks, alphas, fs (b, n); Cs, it_caps, n_iter, done (b,); xij (b, 2, d) and
-// delta (b,) are scratch. *issued gets the number of iterations launched.
+// masks, alphas, fs (b, n); Cs, it_caps, n_iter, done (b,); sn (n,) as for
+// smo_select_f64; xij (b, 2, d) and delta (b,) are scratch. *issued gets the
+// number of iterations launched.
 //
 // Like the reference's any(~done) loop, the chunk stops once every lane is
 // done, without draining the stream: every kPoll iterations the done flags
@@ -1106,7 +1233,8 @@ extern "C" int smo_select_f64(const double* X, const double* xn,
 // are launched past the last lane's stop while kPoll stay queued. A stream
 // being captured into a graph launches all n_iters.
 extern "C" int smo_stream_chunk_f64(const double* X, const double* xn,
-                                    const double* y, const unsigned char* masks,
+                                    const double* sn, const double* y,
+                                    const unsigned char* masks,
                                     const double* Cs, double tol,
                                     const long long* it_caps,
                                     long long n_iters, double gamma,
@@ -1155,9 +1283,9 @@ extern "C" int smo_stream_chunk_f64(const double* X, const double* xn,
       if (err) break;
       pending[slot] = true;
     }
-    launch_select(X, xn, y, masks, Cs, tol, it_caps, gamma, alphas, fs,
-                  n_iter, done, xij, delta, n, d, b, t == 0 ? 1 : 0, stream);
-    err = (int)cudaGetLastError();
+    err = launch_select(X, xn, sn, y, masks, Cs, tol, it_caps, gamma, alphas,
+                        fs, n_iter, done, xij, delta, n, d, b, t == 0 ? 1 : 0,
+                        stream);
     if (!err)
       err = launch_fused<double>(fs, X, xn, xij, delta, done, n, d, b, gamma,
                                  stream);
@@ -1189,10 +1317,10 @@ extern "C" int smo_stream_plan(int n, int d, int b, int* m, int* slice,
 // attribute, which stream capture takes into a CUDA graph): it fails rather
 // than start blocks that cannot all be resident. X's rows are ldx apart,
 // an even stride on 16-byte boundaries (a zero column past an odd d), for
-// 16-byte copies. `workspace` holds smo_stream_plan's bytes, the first 16
-// zeroed.
+// 16-byte copies. sn (n,) is smo_select_f64's table. `workspace` holds
+// smo_stream_plan's bytes, the first 16 zeroed.
 extern "C" int smo_stream_persistent_f64(
-    const double* X, const double* xn, const double* y,
+    const double* X, const double* xn, const double* sn, const double* y,
     const unsigned char* masks, const double* Cs, double tol,
     const long long* it_caps, long long n_iters, double gamma, double* alphas,
     double* fs, long long* n_iter, unsigned char* done, int n, int d,
@@ -1212,11 +1340,11 @@ extern "C" int smo_stream_persistent_f64(
   CandRow* cand_rows =
       reinterpret_cast<CandRow*>(ws + stream_rows_offset(b, m));
   const double neg_gamma = -gamma;
-  void* args[] = {&X,      &xn,     &y,      &masks,     &Cs,
-                  &tol,    &it_caps, &n_iters, const_cast<double*>(&neg_gamma),
-                  &alphas, &fs,     &n_iter, &done,      &n,
-                  &d,      &ldx,    &b,      &slice,     &counter,
-                  &cands,  &cand_rows};
+  void* args[] = {&X,       &xn,     &sn,     &y,      &masks,
+                  &Cs,      &tol,    &it_caps, &n_iters,
+                  const_cast<double*>(&neg_gamma), &alphas, &fs, &n_iter,
+                  &done,    &n,      &d,      &ldx,    &b,
+                  &slice,   &counter, &cands, &cand_rows};
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(m);
   cfg.blockDim = dim3(kThreads);

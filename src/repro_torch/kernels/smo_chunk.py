@@ -450,9 +450,30 @@ def pad_rows(X):
     return Xp[:, :d]
 
 
+def seq_norms(X):
+    """|x|^2 of each row of X (n, d), summed in order of k with each product
+    and each sum rounded on its own (the order of ``fused_smo_step``'s pair
+    norms): the table from which both streaming routes' kernels take
+    |x_i|^2 for K[i, j], so this loop alone fixes its rounding. A caller
+    that runs many chunks over one X makes it once and passes it on."""
+    sn = torch.zeros(X.shape[0], dtype=X.dtype, device=X.device)
+    for k in range(X.shape[1]):
+        sn = sn + X[:, k] * X[:, k]
+    return sn
+
+
+def _norms_arg(X, X_norms):
+    """``X_norms``, checked: the card's kernels need ``seq_norms(X)``."""
+    if X_norms is None or X_norms.device != X.device \
+            or X_norms.dtype != torch.float64 \
+            or tuple(X_norms.shape) != (X.shape[0],):
+        raise ValueError("X_norms must be seq_norms(X)")
+    return X_norms.contiguous()
+
+
 def smo_stream_chunk(X, sq_norms, gamma, y, masks, Cs, tol, it_caps,
                      n_iters, alphas, fs, n_iter, done, *, X_rows=None,
-                     _route=None):
+                     X_norms=None, _route=None):
     """Up to ``n_iters`` streaming WSS-1 SMO iterations for each of b lanes
     over one RBF source (X (n, d), sq_norms (n,), gamma; K_ii = 1), float64.
     Lane tensors as for ``smo_chunk_lanes``. Returns the new ``(alphas, fs,
@@ -465,9 +486,11 @@ def smo_stream_chunk(X, sq_norms, gamma, y, masks, Cs, tol, it_caps,
     delta and alpha) and ``fused_smo_step`` over all lanes, and stops
     within 128 iterations of every lane's stop (a done lane's blocks exit
     at once meanwhile); both their counts grow by the iterations it
-    launched. ``X_rows`` is ``pad_rows(X)``, made per call when not given.
-    ``_route`` overrides ``stream_route``, to check and time the routes
-    against each other."""
+    launched. ``X_norms`` is ``seq_norms(X)``, which both routes read and
+    the card requires (the plain version on the CPU reads none); ``X_rows``
+    is ``pad_rows(X)`` (the persistent route's), made per call when not
+    given. ``_route`` overrides ``stream_route``, to check and time the
+    routes against each other."""
     n, d = X.shape
     if X.device.type == "cpu":
         ones = torch.ones(n, dtype=X.dtype)
@@ -494,6 +517,7 @@ def smo_stream_chunk(X, sq_norms, gamma, y, masks, Cs, tol, it_caps,
     masks, Cs, it_caps, alphas, fs, n_iter, done = _lane_args(
         X.device, b, n, masks, Cs, it_caps, alphas, fs, n_iter, done)
     X, sq_norms, y = X.contiguous(), sq_norms.contiguous(), y.contiguous()
+    sn = _norms_arg(X, X_norms)
     m, slice_, ws_bytes = stream_plan(n, d, b)
     path = _route or stream_route(m)
     if path == "persistent" and m < 1:
@@ -511,21 +535,23 @@ def smo_stream_chunk(X, sq_norms, gamma, y, masks, Cs, tol, it_caps,
         if tuple(Xp.shape) != (n, d) or Xp.stride(1) != 1 \
                 or Xp.stride(0) % 2 or Xp.data_ptr() % 16:
             raise ValueError("smo_stream_chunk: X_rows must be pad_rows(X)")
-        fn = _build.entry("smo_step", "smo_stream_persistent_f64", *types,
-                          _I, _I, _I, _I, _I, _I, _P, _P)
-        err = fn(Xp.data_ptr(), *args[1:], n, d, Xp.stride(0), b, m, slice_,
-                 ws.data_ptr(), _build.stream_ptr(X))
+        fn = _build.entry("smo_step", "smo_stream_persistent_f64", _P, _P,
+                          *types[1:], _I, _I, _I, _I, _I, _I, _P, _P)
+        err = fn(Xp.data_ptr(), args[1], sn.data_ptr(), *args[2:], n, d,
+                 Xp.stride(0), b, m, slice_, ws.data_ptr(),
+                 _build.stream_ptr(X))
         _build.check(err, "smo_stream_chunk (persistent)")
         if n_iters > 0:
             smo_stream_chunk.launches += 1
     else:
         xij = torch.empty((b, 2, d), dtype=torch.float64, device=X.device)
         delta = torch.zeros(b, dtype=torch.float64, device=X.device)
-        fn = _build.entry("smo_step", "smo_stream_chunk_f64", *types, _P, _P,
-                          _I, _I, _I, _P, _P)
+        fn = _build.entry("smo_step", "smo_stream_chunk_f64", _P, _P,
+                          *types[1:], _P, _P, _I, _I, _I, _P, _P)
         issued = ctypes.c_longlong(0)
-        err = fn(*args, xij.data_ptr(), delta.data_ptr(), n, d, b,
-                 _build.stream_ptr(X), ctypes.addressof(issued))
+        err = fn(args[0], args[1], sn.data_ptr(), *args[2:], xij.data_ptr(),
+                 delta.data_ptr(), n, d, b, _build.stream_ptr(X),
+                 ctypes.addressof(issued))
         smo_select.launches += issued.value
         fused_smo_step.launches += issued.value
         _build.check(err, "smo_stream_chunk (pair)")
@@ -538,14 +564,17 @@ smo_stream_chunk.route_launches = dict.fromkeys(STREAM_ROUTES, 0)
 
 
 def smo_select(X, sq_norms, gamma, y, masks, Cs, tol, it_caps, alphas, fs,
-               n_iter, done):
+               n_iter, done, *, X_norms=None):
     """One streaming WSS-1 selection step for each of b lanes (lane tensors
     as for ``smo_stream_chunk``): the freeze test, the maximal violating
     pair, K[i, j], the clipped delta and the new (box-clipped) alpha.
     Returns new ``(alphas, n_iter, done, xij, delta)``: the pair rows (b,
     2, d) and delta (b,) that ``fused_smo_step`` takes next (zeros for a
     lane that did not step). The streaming chunk runs this kernel once per
-    iteration; this wrapper launches it alone, to check and time it."""
+    iteration; this wrapper launches it alone, to check and time it, and
+    clips the whole of alpha, as the plain step does. ``X_norms`` is
+    ``seq_norms(X)``, which the card requires (the plain version on the CPU
+    reads none)."""
     if X.device.type == "cpu":
         return smo_select_lanes_ref(X, sq_norms, gamma, y, masks, Cs, tol,
                                     it_caps, alphas, fs, n_iter, done)
@@ -557,13 +586,14 @@ def smo_select(X, sq_norms, gamma, y, masks, Cs, tol, it_caps, alphas, fs,
     xij = torch.zeros((b, 2, d), dtype=torch.float64, device=X.device)
     delta = torch.zeros(b, dtype=torch.float64, device=X.device)
     X, sq_norms, y = X.contiguous(), sq_norms.contiguous(), y.contiguous()
-    fn = _build.entry("smo_step", "smo_select_f64", _P, _P, _P, _P, _P, _D,
-                      _P, _D, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P)
-    err = fn(X.data_ptr(), sq_norms.data_ptr(), y.data_ptr(),
+    sn = _norms_arg(X, X_norms)
+    fn = _build.entry("smo_step", "smo_select_f64", _P, _P, _P, _P, _P, _P,
+                      _D, _P, _D, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
+    err = fn(X.data_ptr(), sq_norms.data_ptr(), sn.data_ptr(), y.data_ptr(),
              masks.data_ptr(), Cs.data_ptr(), float(tol), it_caps.data_ptr(),
              float(gamma), alphas.data_ptr(), fs.data_ptr(),
              n_iter.data_ptr(), done.data_ptr(), xij.data_ptr(),
-             delta.data_ptr(), n, d, b, _build.stream_ptr(X))
+             delta.data_ptr(), n, d, b, 1, _build.stream_ptr(X))
     _build.check(err, "smo_select")
     smo_select.launches += 1
     return alphas, n_iter, done, xij, delta

@@ -33,7 +33,7 @@ from repro_torch.kernels.ops import (fused_smo_step, smo_chunk_lanes,
                                      smo_stream_chunk)
 from repro_torch.kernels.ops import smo_chunk as _smo_chunk_kernel
 from repro_torch.kernels.ref import _sets, rbf_kij_ref
-from repro_torch.kernels.smo_chunk import pad_rows
+from repro_torch.kernels.smo_chunk import pad_rows, seq_norms
 
 _INF = math.inf
 _INT32_MAX = 2 ** 31 - 1
@@ -231,6 +231,12 @@ class PallasRBF(FusedRBF):
         made once for every chunk over this source."""
         return pad_rows(self.X)
 
+    @functools.cached_property
+    def seq_norms(self):
+        """|x|^2 summed in order of k (``seq_norms``), the table the
+        streaming chunk's kernels read, made once for every chunk."""
+        return seq_norms(self.X)
+
     def update_f(self, f, i, j, delta):
         return fused_smo_step(f, self.X, self.X[[int(i), int(j)]],
                               self.sq_norms, delta, self.gamma)
@@ -265,7 +271,8 @@ def chunk_batched(source, y, train_masks, Cs, tol, it_caps,
         out = smo_stream_chunk(source.X, source.sq_norms, source.gamma, y,
                                train_masks, Cs, float(tol), it_caps,
                                int(n_iters), *states,
-                               X_rows=getattr(source, "X_rows", None))
+                               X_rows=getattr(source, "X_rows", None),
+                               X_norms=source.seq_norms)
     else:
         out = smo_chunk_lanes(source.K, source.diag(), y, train_masks, Cs,
                               float(tol), it_caps, int(n_iters), wss,

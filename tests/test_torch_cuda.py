@@ -294,12 +294,12 @@ def test_cuda_stream_chunk_width_invariant_and_near_plain(cuda):
     sq = torch.sum(X * X, -1)
     caps = [200] * 4
     args = (X, sq, ds.gamma, y)
-    got = ops.smo_stream_chunk(*args, masks, [ds.C] * 4, 1e-3, caps, 250,
-                               *state)
+    got = _stream_chunk(*args, masks, [ds.C] * 4, 1e-3, caps, 250,
+                        *state)
     for l in range(4):
-        one = ops.smo_stream_chunk(*args, masks[l:l + 1], [ds.C], 1e-3,
-                                   caps[l:l + 1], 250,
-                                   *(t[l:l + 1] for t in state))
+        one = _stream_chunk(*args, masks[l:l + 1], [ds.C], 1e-3,
+                            caps[l:l + 1], 250,
+                            *(t[l:l + 1] for t in state))
         for a, b in zip(one, got):
             assert torch.equal(a[0], b[l])
     plain = ref.smo_chunk_ref(None, torch.ones_like(y), y, masks[0], ds.C,
@@ -320,17 +320,17 @@ def test_cuda_stream_chunk_stops_after_the_lanes(cuda):
     sq = torch.sum(X * X, -1)
     args = (X, sq, ds.gamma, y, masks, [ds.C] * 4, 1e-3, [10 ** 6] * 4)
     before = ops.launch_counts()["fused_smo_step"]
-    got = ops.smo_stream_chunk(*args, 10 ** 6, *state, _route="pair")
+    got = _stream_chunk(*args, 10 ** 6, *state, _route="pair")
     issued = ops.launch_counts()["fused_smo_step"] - before
     assert bool(got[3].all())
     assert int(got[2].max()) < issued <= int(got[2].max()) + 128
     short = state
     while not bool(short[3].all()):
-        short = ops.smo_stream_chunk(*args, 64, *short, _route="pair")
+        short = _stream_chunk(*args, 64, *short, _route="pair")
     for a, b in zip(got, short):
         assert torch.equal(a, b)
     before = ops.launch_counts()
-    one = ops.smo_stream_chunk(*args, 10 ** 6, *state, _route="persistent")
+    one = _stream_chunk(*args, 10 ** 6, *state, _route="persistent")
     after = ops.launch_counts()
     assert after["smo_stream_chunk"] == before["smo_stream_chunk"] + 1
     assert after["fused_smo_step"] == before["fused_smo_step"]
@@ -349,9 +349,9 @@ def test_cuda_select_matches_plain(cuda):
     done = torch.tensor([False, False, True, False], device=cuda)
     args = (X, sq, ds.gamma, y, masks, [ds.C] * 4, 1e-3, [100, 100, 100, 3],
             state[0], state[1], n_iter, done)
-    got = ops.smo_select(*args)
+    got = _select(*args)
     # on CPU tensors the wrapper runs the plain version
-    want = [t.to(cuda) for t in ops.smo_select(
+    want = [t.to(cuda) for t in _select(
         *(a.cpu() if isinstance(a, torch.Tensor) else a for a in args))]
     for k in (1, 2, 3):
         assert torch.equal(got[k], want[k])
@@ -490,6 +490,40 @@ def test_cuda_flash_attention_wgmma_route(cuda, B, H, KV, S, T, D, causal,
     assert err <= 0.02 and err <= 2 * _row_rel(plain, want)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,KV,S,T,D,causal,window", [
+    (2, 8, 2, 300, 300, 32, True, None), (1, 4, 1, 200, 200, 32, False, 70),
+    (2, 8, 2, 1000, 1000, 32, True, 256), (1, 4, 2, 100, 333, 32, False,
+                                            None),
+    (1, 4, 2, 300, 333, 32, True, None), (2, 4, 4, 513, 513, 32, True, 130),
+    (2, 4, 2, 77, 77, 16, True, None), (1, 4, 1, 200, 200, 16, False, 70),
+    (2, 8, 2, 1000, 1000, 16, True, 256), (1, 4, 2, 100, 333, 16, False,
+                                            None),
+    (1, 4, 2, 300, 333, 16, True, None), (2, 4, 4, 513, 513, 16, True, 130),
+])
+def test_cuda_flash_attention_mma_route(cuda, B, H, KV, S, T, D, causal,
+                                        window):
+    """The mma.sync route at head dims 16 and 32 (kv tiles of 128 keys:
+    several of them, ragged S and T, T > S, windows, tiles masked only
+    where they cross the mask, grouped kv heads read through (B, S, H, D)
+    strides) against the plain version in float32 on the same bf16
+    inputs, row by row (within 0.02 of each row's largest output and twice
+    the bf16 plain version's error), and counted on its route."""
+    q = torch.from_numpy(RNG.normal(size=(B, S, H, D))).to(
+        cuda, torch.bfloat16).transpose(1, 2)
+    k, v = (torch.from_numpy(RNG.normal(size=(B, T, KV, D))).to(
+        cuda, torch.bfloat16).transpose(1, 2) for _ in range(2))
+    before = ops.route_counts()["flash_attention"]["mma"]
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert ops.route_counts()["flash_attention"]["mma"] == before + 1
+    want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                   causal=causal, window=window)
+    plain = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    err = _row_rel(got, want)
+    assert err <= 0.02 and err <= 2 * _row_rel(plain, want)
+    assert got.transpose(1, 2).is_contiguous()
+
+
 def _multi_problem(cuda, n, b):
     """adult's first n rows, b lanes, lane l holding out tenth l mod 10."""
     from repro_torch.data.svm_suite import make_dataset
@@ -612,6 +646,18 @@ def _stream_problem(cuda, n, b, name="adult"):
     return ds, X, torch.sum(X * X, -1), y, masks, state
 
 
+def _stream_chunk(X, *args, **kw):
+    """``ops.smo_stream_chunk`` given X's norm table, as a source gives it."""
+    from repro_torch.kernels.smo_chunk import seq_norms
+    return ops.smo_stream_chunk(X, *args, X_norms=seq_norms(X), **kw)
+
+
+def _select(X, *args):
+    """``ops.smo_select`` given X's norm table, as a source gives it."""
+    from repro_torch.kernels.smo_chunk import seq_norms
+    return ops.smo_select(X, *args, X_norms=seq_norms(X))
+
+
 def _step_engine(X, sq, gamma, y, masks, Cs, tol, caps, n_iters, alphas, fs,
                  n_iter, done):
     """The streaming step engine of the two kernels, one iteration at a
@@ -621,7 +667,7 @@ def _step_engine(X, sq, gamma, y, masks, Cs, tol, caps, n_iters, alphas, fs,
     for _ in range(n_iters):
         if bool(done.all()):
             break
-        alphas, n_iter, done, xij, delta = ops.smo_select(
+        alphas, n_iter, done, xij, delta = _select(
             X, sq, gamma, y, masks, Cs, tol, caps, alphas, fs, n_iter, done)
         fs = ops.fused_smo_step(fs, X, xij, sq, delta, gamma, done=done)
     return alphas, fs, n_iter, done
@@ -634,6 +680,76 @@ def _routes_equal(a, b):
             assert torch.equal(u.isnan(), v.isnan()), what
             u, v = (torch.where(t.isnan(), 0.0, t) for t in (u, v))
         assert torch.equal(u, v), what
+
+
+def _select_problem(cuda, n, b, d=9, seed=0):
+    """Random rows (n, d), labels, b lanes holding out a tenth each, and
+    their cold state."""
+    rng = np.random.default_rng(seed)
+    X = torch.from_numpy(rng.normal(size=(n, d))).to(cuda)
+    y = torch.from_numpy(np.where(rng.random(n) < 0.5, -1.0, 1.0)).to(cuda)
+    masks = torch.from_numpy(rng.random((b, n)) >= 0.1).to(cuda)
+    state = (torch.zeros((b, n), dtype=torch.float64, device=cuda),
+             -y.repeat(b, 1), torch.zeros(b, dtype=torch.int64, device=cuda),
+             torch.zeros(b, dtype=torch.bool, device=cuda))
+    return X, torch.sum(X * X, -1), 0.5 / d, y, masks, state
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 16, 17, 20, 32])
+@pytest.mark.parametrize("n", [31, 33, 255, 257, 1023, 1025, 4096, 4097])
+def test_cuda_select_lanes_and_rows(cuda, b, n):
+    """The selection kernel at lane counts around the persistent route's
+    16 and rows around a warp, a block (256) and a thread's batch (1,024,
+    and 4,096: four batches a thread), at an odd d, cold and after 30
+    pair-route iterations: n_iter, done and
+    the pair rows bitwise the plain version's, alpha and delta within
+    1e-12."""
+    X, sq, gamma, y, masks, cold = _select_problem(cuda, n, b, d=13)
+    Cs = torch.full((b,), 1.0, dtype=torch.float64, device=cuda)
+    caps = torch.full((b,), 10 ** 6, dtype=torch.int64, device=cuda)
+    mid = _stream_chunk(X, sq, gamma, y, masks, Cs, 1e-3, caps, 30,
+                        *cold, _route="pair")
+    for a, f, it, dn in (cold, mid):
+        args = (X, sq, gamma, y, masks, Cs, 1e-3, caps, a, f, it, dn)
+        got = _select(*args)
+        want = ref.smo_select_lanes_ref(*args)
+        for k in (1, 2, 3):
+            assert torch.equal(got[k], want[k])
+        for k in (0, 4):
+            torch.testing.assert_close(got[k], want[k], rtol=0, atol=1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 16, 17, 20, 32])
+@pytest.mark.parametrize("n", [33, 257, 1025, 4097])
+def test_cuda_select_pair_route_bitwise_persistent(cuda, b, n):
+    """The pair route (the selection kernel and the fused step, per
+    iteration) bitwise the persistent route, to convergence: whole when
+    the persistent route places the lanes (16 at most), else in packs of
+    16 (a lane's bits do not depend on the lanes beside it)."""
+    X, sq, gamma, y, masks, state = _select_problem(cuda, n, b, d=13,
+                                                    seed=1)
+    args = (X, sq, gamma, y)
+    got = _stream_chunk(*args, masks, [1.0] * b, 1e-3, [10 ** 6] * b,
+                        10 ** 6, *state, _route="pair")
+    assert bool(got[3].all())
+    for lo in range(0, b, 16):
+        hi = min(b, lo + 16)
+        pers = _stream_chunk(*args, masks[lo:hi], [1.0] * (hi - lo),
+                             1e-3, [10 ** 6] * (hi - lo), 10 ** 6,
+                             *(t[lo:hi] for t in state),
+                             _route="persistent")
+        _routes_equal(tuple(t[lo:hi] for t in got), pers)
+
+
+@pytest.mark.cuda
+def test_cuda_seq_norms_on_the_card_bitwise(cuda):
+    """The norm table on the card is the CPU's, bit for bit (each product
+    and sum rounded on its own in both)."""
+    from repro_torch.kernels.smo_chunk import seq_norms
+    X = torch.from_numpy(np.random.default_rng(3).normal(size=(1000, 123)))
+    assert torch.equal(seq_norms(X.to(cuda)).cpu(), seq_norms(X))
 
 
 @pytest.mark.cuda
@@ -651,18 +767,18 @@ def test_cuda_stream_persistent_bitwise(cuda, name, n, cap):
     ds, X, sq, y, masks, state = _stream_problem(cuda, n, 10, name)
     args = (X, sq, ds.gamma, y, masks, [ds.C] * 10, 1e-3, [cap] * 10)
     before = ops.route_counts()["smo_stream_chunk"]["persistent"]
-    got = ops.smo_stream_chunk(*args, 10 ** 6, *state)
+    got = _stream_chunk(*args, 10 ** 6, *state)
     assert ops.route_counts()["smo_stream_chunk"]["persistent"] == before + 1
     assert bool(got[3].all())
-    _routes_equal(got, ops.smo_stream_chunk(*args, 10 ** 6, *state,
-                                            _route="pair"))
+    _routes_equal(got, _stream_chunk(*args, 10 ** 6, *state,
+                                     _route="pair"))
     Cs = torch.full((10,), ds.C, dtype=torch.float64, device=cuda)
     caps = torch.full((10,), cap, device=cuda)
     if n <= 1000:
         _routes_equal(got, _step_engine(X, sq, ds.gamma, y, masks, Cs, 1e-3,
                                         caps, 10 ** 6, *state))
-    capped = ops.smo_stream_chunk(X, sq, ds.gamma, y, masks[:1], [ds.C],
-                                  1e-3, [200], 201, *(t[:1] for t in state))
+    capped = _stream_chunk(X, sq, ds.gamma, y, masks[:1], [ds.C],
+                           1e-3, [200], 201, *(t[:1] for t in state))
     plain = ref.smo_chunk_ref(None, torch.ones_like(y), y, masks[0], ds.C,
                               1e-3, 200, 201, "1",
                               *(t[0] for t in state), stream=(X, sq, ds.gamma))
@@ -688,10 +804,10 @@ def test_cuda_stream_persistent_lane_widths(cuda):
 
     def run(ids, route=None):
         ids = list(ids)
-        return ops.smo_stream_chunk(X, sq, ds.gamma, y, masks[ids],
-                                    [ds.C] * len(ids), 1e-3,
-                                    [caps[l] for l in ids], 500,
-                                    *(t[ids] for t in state), _route=route)
+        return _stream_chunk(X, sq, ds.gamma, y, masks[ids],
+                             [ds.C] * len(ids), 1e-3,
+                             [caps[l] for l in ids], 500,
+                             *(t[ids] for t in state), _route=route)
 
     for width in (1, 10, b):
         before = ops.route_counts()["smo_stream_chunk"]["persistent"]
@@ -714,12 +830,12 @@ def test_cuda_stream_persistent_resumes_and_caps(cuda):
     ds, X, sq, y, masks, state = _stream_problem(cuda, 1000, 4)
     args = (X, sq, ds.gamma, y, masks, [ds.C] * 4, 1e-3, [50, 10 ** 6,
                                                           333, 10 ** 6])
-    whole = ops.smo_stream_chunk(*args, 10 ** 6, *state)
+    whole = _stream_chunk(*args, 10 ** 6, *state)
     assert whole[2].tolist()[0] == 50 and whole[2].tolist()[2] == 333
     for route in ("persistent", "pair"):
         part = state
         while not bool(part[3].all()):
-            part = ops.smo_stream_chunk(*args, 97, *part, _route=route)
+            part = _stream_chunk(*args, 97, *part, _route=route)
         _routes_equal(part, whole)
 
 
@@ -733,16 +849,16 @@ def test_cuda_stream_persistent_nan_lane(cuda):
     fs[1, 997] = float("nan")
     lanes = (state[0], fs, state[2], state[3])
     args = (X, sq, ds.gamma, y, masks, [ds.C] * 3, 1e-3, [10 ** 6] * 3)
-    got = ops.smo_stream_chunk(*args, 10 ** 6, *lanes)
+    got = _stream_chunk(*args, 10 ** 6, *lanes)
     assert int(got[2][1]) == 0 and bool(got[3][1])
     assert torch.equal(got[0][1], state[0][1])
     for l in (0, 2):
-        alone = ops.smo_stream_chunk(X, sq, ds.gamma, y, masks[l:l + 1],
-                                     [ds.C], 1e-3, [10 ** 6], 10 ** 6,
-                                     *(t[l:l + 1] for t in lanes))
+        alone = _stream_chunk(X, sq, ds.gamma, y, masks[l:l + 1],
+                              [ds.C], 1e-3, [10 ** 6], 10 ** 6,
+                              *(t[l:l + 1] for t in lanes))
         _routes_equal(alone, tuple(t[l:l + 1] for t in got))
-    _routes_equal(got, ops.smo_stream_chunk(*args, 10 ** 6, *lanes,
-                                            _route="pair"))
+    _routes_equal(got, _stream_chunk(*args, 10 ** 6, *lanes,
+                                     _route="pair"))
 
 
 @pytest.mark.cuda
@@ -773,10 +889,10 @@ def test_cuda_stream_persistent_x_rows(cuda):
     assert X_rows.stride(0) == X.shape[1] + 1 and torch.equal(X_rows, X)
     args = (X, sq, ds.gamma, y, masks, [ds.C] * 3, 1e-3, [10 ** 6] * 3,
             10 ** 6)
-    _routes_equal(ops.smo_stream_chunk(*args, *state, X_rows=X_rows),
-                  ops.smo_stream_chunk(*args, *state))
+    _routes_equal(_stream_chunk(*args, *state, X_rows=X_rows),
+                  _stream_chunk(*args, *state))
     with pytest.raises(ValueError, match="X_rows"):
-        ops.smo_stream_chunk(*args, *state, X_rows=X)
+        _stream_chunk(*args, *state, X_rows=X)
 
 
 @pytest.mark.cuda

@@ -683,3 +683,46 @@ def test_ato_done_step_is_the_identity():
               in_T, 128, 30, *state, torch.zeros(n, dtype=torch.float64))
     for s, b in zip(state, before):
         assert torch.equal(s, b)
+
+
+@pytest.mark.parametrize("n,d", [(1, 1), (31, 13), (257, 123), (1000, 9)])
+def test_seq_norms_is_the_ordered_sum(n, d):
+    """The selection kernel's norm table: each row's |x|^2 summed in order
+    of k with each product and each sum rounded on its own (Python floats
+    round op by op), bit for bit, over rows of mixed magnitudes, where
+    another order would round otherwise."""
+    from repro_torch.kernels.smo_chunk import seq_norms
+    X = RNG.normal(size=(n, d)) * 10.0 ** RNG.integers(-3, 4, size=(n, 1))
+    want = []
+    for row in X.tolist():
+        s = 0.0
+        for v in row:
+            s = s + v * v
+        want.append(s)
+    got = seq_norms(torch.from_numpy(X))
+    assert got.dtype == torch.float64
+    assert torch.equal(got, torch.tensor(want, dtype=torch.float64))
+
+
+def test_seq_norms_table_is_checked():
+    """The card's streaming wrappers require a norm table of
+    ``seq_norms(X)``'s shape and type; none is made from X."""
+    from repro_torch.kernels.smo_chunk import _norms_arg, seq_norms
+    X = torch.from_numpy(RNG.normal(size=(20, 5)))
+    assert torch.equal(_norms_arg(X, seq_norms(X)), seq_norms(X))
+    for bad in (None, torch.zeros(19, dtype=torch.float64),
+                torch.zeros(20, dtype=torch.float32)):
+        with pytest.raises(ValueError, match="seq_norms"):
+            _norms_arg(X, bad)
+
+
+def test_streaming_source_keeps_its_norm_table():
+    """``PallasRBF`` makes the table once (``seq_norms`` of its X) and the
+    batched chunk hands it to the streaming chunk; on the CPU the chunk is
+    the plain loop, which it leaves as it was."""
+    from repro_torch.kernels.smo_chunk import seq_norms
+    from repro_torch.svm.engine import PallasRBF
+    X = torch.from_numpy(RNG.normal(size=(40, 7)))
+    src = PallasRBF(X, 0.3)
+    assert src.seq_norms is src.seq_norms
+    assert torch.equal(src.seq_norms, seq_norms(X))
