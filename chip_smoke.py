@@ -4,7 +4,7 @@
 
 Builds the port's hand-written kernels from ``src/repro_torch`` (one
 ``nvcc`` per source, all at once), holds each against its plain PyTorch
-version on the card, and drives two paths, each with the launch counts set
+version on the card, and drives these paths, each with the launch counts set
 to 0 just before it and read just after:
 
 * Table 1 (alpha-seeded 10-fold CV, cold / ato / mir / sir, float64) on
@@ -17,6 +17,16 @@ to 0 just before it and read just after:
 * the batched cold CV through the lane pool (``run_cv_batched``: the
   matrix-free ``cold_pallas`` and the two dense schedules) on the same two
   datasets, then matrix-free at n=32,560, where no (n, n) tensor may exist;
+* the Study layer: ``study_seeds`` at Table 1's sizes (each seed transform
+  against its plain version and with no host sync but the counted reads;
+  the ATO C row of ``benchmarks/table1_kfold.py`` through every fold
+  transition, each lane of the batched ramp held to the solo ``ato_seed``;
+  ``run_cv`` with a lost fold under ``best_available``; ``run_grid`` over
+  a 3 x 3 (C, gamma) grid, k=5, "sir" and "ato"), ``grid_size`` (the
+  grid at adult n=32,560, d=123, 45 lanes, two 8.48 GB kernels resident
+  at a time; its cell at the paper's (C, gamma) equal to ``run_cv``
+  there) and ``loo`` (``run_loo``: the suppl. Fig. 2 cases, heart n=270
+  for 270 rounds and madelon n=600 for 120, and adult n=1000 for 20);
 * LM serving of granite-8b at full width and depth in bf16 (random weights
   from a seed): prefill of 2 x 4,096 tokens, every attention layer through
   the flash-attention kernel's wgmma route, then 4 requests served through
@@ -48,7 +58,8 @@ tensor-core build's outputs bit for bit.
 split and Table 1's times, of the package under DIR (another checkout's
 ``src``), so that two trees are timed in one call; ``--compare [--src
 DIR]`` likewise the bf16 mma.sync attention route's times at head dims 32
-and 16 and the 20-fold matrix-free row's (the selection kernel's path).
+and 16, the 20-fold matrix-free row's (the selection kernel's path) and
+Table 1's summed init and solve times.
 
 Phases print one JSON line each, with their own seconds; a failing phase
 raises and the script exits non-zero. The last lines are the
@@ -197,6 +208,104 @@ LAYER_REL_F32 = 1e-4
 #: routes differed by 0.089); f32: ten times the difference measured (1e-5)
 POS0_ATOL_BF16 = 0.25
 POS0_ATOL_F32 = 1e-4
+
+#: the Study layer's cases, as ``benchmarks/table1_kfold.py`` cuts them:
+#: the ``ato_bucketed`` row's C row (multiples of the paper's C), and the
+#: grid rows' multiples of the paper's C and gamma, k=5
+ATO_ROW_C = (0.01, 1.0, 100.0)
+GRID_C = (0.25, 1.0, 4.0)
+GRID_GAMMA = (0.5, 1.0, 2.0)
+GRID_K = 5
+#: ``grid_size``: the ``grid_pooled_lru`` row at the paper's cardinality,
+#: two of the three gamma kernels resident at once
+GRID_LRU_BUDGET = 2
+#: the straggler run: fold 3 is lost, the others seed from the nearest
+#: completed fold
+STRAGGLER_LOST = frozenset({3})
+#: LOO: ``benchmarks/fig2_loo.py``'s cases (dataset, n, rounds) and
+#: methods, and adult's gated case, with ATO as well
+FIG2_CASES = (("heart", 270, 270), ("madelon", 600, 120))
+FIG2_METHODS = ("cold", "avg", "top", "mir", "sir")
+LOO_ADULT = ("adult", 1000, 20)
+#: the installed JAX reference's runs of the same cases (jax 0.9.0 on the
+#: CPU; ``tests/test_torch_chip_reference.py`` holds the straggler, grid
+#: and adult LOO tables to it). Adult's gate the port's counts and
+#: accuracy; heart's are printed beside the port's (its solves amplify the
+#: last bits of the port's own K). Straggler: ``run_cv(k=10, "sir",
+#: "best_available", unavailable_folds={3})``: seed_from, per-fold
+#: iterations, accuracy
+REFERENCE_STRAGGLER = {
+    "adult": {"n": 1000, "gated": True, "accuracy": 0.885,
+              "seed_from": [-1, 0, 1, 2, 2, 4, 5, 6, 7, 8],
+              "per_fold": [1528, 825, 767, 1266, 821, 1295, 872, 1473, 737,
+                           1254]},
+    "heart": {"n": 270, "gated": False, "accuracy": 0.5519,
+              "seed_from": [-1, 0, 1, 2, 2, 4, 5, 6, 7, 8],
+              "per_fold": [10829, 10434, 9629, 9498, 9006, 9724, 9462, 8867,
+                           9579, 10484]},
+}
+#: ``run_grid(GRID_C x C, GRID_GAMMA x gamma, k=5)``: per cell [C, gamma,
+#: iterations, correct] with "sir", and with "ato" on the first gamma row
+REFERENCE_GRID = {
+    "adult": {"n": 1000, "gated": True, "sir": [
+        [25.0, 0.25, 4626, 891], [100.0, 0.25, 4626, 891],
+        [400.0, 0.25, 4630, 891], [25.0, 0.5, 5690, 876],
+        [100.0, 0.5, 5690, 876], [400.0, 0.5, 5690, 876],
+        [25.0, 1.0, 5485, 564], [100.0, 1.0, 5485, 564],
+        [400.0, 1.0, 5485, 564]], "ato": [
+        [25.0, 0.25, 7475, 891], [100.0, 0.25, 7549, 891],
+        [400.0, 0.25, 7765, 891]]},
+    "heart": {"n": 270, "gated": False, "sir": [
+        [545.5, 0.1, 62960, 151], [2182.0, 0.1, 107625, 144],
+        [8728.0, 0.1, 117455, 142], [545.5, 0.2, 36111, 139],
+        [2182.0, 0.2, 38979, 138], [8728.0, 0.2, 39195, 138],
+        [545.5, 0.4, 14151, 136], [2182.0, 0.4, 14154, 136],
+        [8728.0, 0.4, 14144, 136]], "ato": [
+        [545.5, 0.1, 64816, 151], [2182.0, 0.1, 107167, 144],
+        [8728.0, 0.1, 119960, 142]]},
+}
+#: ``benchmarks/fig2_loo.py``'s cases on the reference (jax 0.9.0, CPU):
+#: [base_iterations, iterations, accuracy] per method, printed beside the
+#: port's (heart's K differs in the last bits, ROADMAP Queue 3)
+REFERENCE_FIG2 = {
+    "heart": {"cold": [12567, 3330487, 0.5148],
+              "avg": [12567, 1236997, 0.5148],
+              "top": [12567, 1239775, 0.5148],
+              "mir": [12567, 1877020, 0.5148],
+              "sir": [12567, 1877020, 0.5148]},
+    "madelon": {"cold": [300, 82320, 0.0], "avg": [300, 120, 0.0],
+                "top": [300, 62652, 0.0], "mir": [300, 37408, 0.0],
+                "sir": [300, 37408, 0.0]},
+}
+#: adult's grid and LOO iterations are held to the reference's within
+#: ITER_BAND (relative, each cell and each LOO method), and to the card's
+#: own earlier runs exactly (CARD_GRID, CARD_LOO; NVIDIA H100 80GB HBM3):
+#: the port's seeds are within their bars of the reference's but not bit
+#: for bit, and a chain amplifies their last bits. Two witnesses in the
+#: CPU tests show where the gaps come from: with XLA's sums in place of
+#: torch's the port's SIR seeds of the grid's gamma = 0.25 row are the
+#: reference's bit for bit, and from the reference's seeds the port's
+#: solver takes the reference's count in every fold of that row and every
+#: round of LOO's ATO chain (tests/test_torch_grid.py,
+#: tests/test_torch_study.py). Widest gap seen: LOO's ATO chain, 36,330 on
+#: the port's CPU path against the reference's 36,540 (0.6%). A change to
+#: seeding or K arithmetic re-records the CARD_ tables from a chip run.
+ITER_BAND = 0.01
+CARD_GRID = {"sir": [4628, 4623, 4622, 5690, 5690, 5690, 5485, 5485, 5485],
+             "ato": [7476, 7553, 7765]}
+CARD_LOO = {"cold": 41048, "avg": 639, "top": 19737, "ato": 36479,
+            "mir": 11776, "sir": 11776}
+#: ``run_loo(adult n=1000, rounds=20)``: [base_iterations, iterations,
+#: accuracy] per method
+REFERENCE_LOO = {
+    "cold": [2088, 41048, 0.9], "avg": [2088, 639, 0.9],
+    "top": [2088, 19737, 0.9], "ato": [2088, 36540, 0.9],
+    "mir": [2088, 11776, 0.9], "sir": [2088, 11776, 0.9]}
+
+
+def _in_band(got: int, ref: int) -> bool:
+    """Whether an iteration count is within ITER_BAND of the reference's."""
+    return abs(got - ref) <= ITER_BAND * ref
 
 
 def emit(obj) -> None:
@@ -568,8 +677,11 @@ def phase_kernels(datasets):
                 for n in (270, 1000, 4608, 8192, 32544, 32560)}
     seed_info, seed_checks = _seeding_kernels()
     info.update(seed_info)
+    study_info = _study_kernels()
+    info.update(study_info)
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0,
           "seeding": seed_info, "seeding_checks": seed_checks,
+          "study": study_info,
           "rbf_checks": rbf_checks, "rbf_times": rbf_times,
           "rbf_tile_sweep": rbf_sweep, "smo_f_update": fu,
           "smo_chunk": chunk_checks, "smo_chunk_crossover": sweep,
@@ -581,32 +693,43 @@ def phase_kernels(datasets):
     return info
 
 
+class _Recorder:
+    """Wraps functions ``names`` of ``module`` to keep a copy of each
+    call's arguments, taken before the call (some work in place)."""
+
+    def __init__(self, module, names):
+        self.module, self.calls = module, {k: [] for k in names}
+        self.saved = {}
+
+    def __enter__(self):
+        for name in self.calls:
+            fn = self.saved[name] = getattr(self.module, name)
+
+            def rec(*a, _fn=fn, _k=name):
+                self.calls[_k].append(tuple(
+                    x.clone() if isinstance(x, torch.Tensor) else x
+                    for x in a))
+                return _fn(*a)
+            setattr(self.module, name, rec)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.module, name, fn)
+
+
 def _record_seeding_inputs(name: str, n: int) -> dict:
     """The inputs that Table 1's seeds give each seeding kernel: ATO, MIR
     and SIR seeds of fold 0 -> 1 run with the kernels' wrappers wrapped to
-    keep a copy of each call's arguments (before the call: ``ato_apply``
-    works in place)."""
+    keep a copy of each call's arguments (``_Recorder``)."""
     from repro_torch.core import seeding
     ds, K, y, prev, idx = _seed_problem(name, n)
-    calls = {k: [] for k in ("water_fill", "sir_greedy", "ato_system",
-                             "ato_apply")}
-    saved = {}
-    for kern in calls:
-        fn = saved[kern] = getattr(seeding, kern)
-
-        def rec(*a, _fn=fn, _k=kern):
-            calls[_k].append(tuple(x.clone() if isinstance(x, torch.Tensor)
-                                   else x for x in a))
-            return _fn(*a)
-        setattr(seeding, kern, rec)
-    try:
+    with _Recorder(seeding, ("water_fill", "sir_greedy", "ato_system_lanes",
+                             "ato_apply_lanes")) as rec:
         for method in ("ato", "mir", "sir"):
             seeding.SEEDERS[method](K, y, ds.C, prev, *idx)
-    finally:
-        for attr, fn in saved.items():
-            setattr(seeding, attr, fn)
     sync()
-    return {"C": ds.C, "K": K, "calls": calls}
+    return {"C": ds.C, "K": K, "calls": rec.calls}
 
 
 #: the seeders' bars (``tests/test_torch_seeding.py``'s ``ATOL``), here
@@ -647,15 +770,19 @@ def _cpu(args):
 
 
 def _apply_ms(fn, args, reps: int = 20) -> float:
-    """Mean device time of an in-place ``ato_apply`` call (kernel or plain),
-    its state restored from ``args`` before each call (outside the timed
-    span), by CUDA events."""
+    """Mean device time of an in-place ``ato_apply_lanes`` call (kernel or
+    plain), its state restored from ``args`` before each call (outside the
+    timed span), by CUDA events. The call is enqueued behind a spin kernel
+    (``torch.cuda._sleep``, about a millisecond), so the host's time to
+    launch it falls outside the span unless the call itself waits on the
+    card (the plain version reads its Cs on the host)."""
     times = []
     for _ in range(reps + 1):
         a = tuple(x.clone() if isinstance(x, torch.Tensor) else x
                   for x in args)
         sync()
         s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(2_000_000)
         s.record()
         fn(*a)
         e.record()
@@ -664,17 +791,104 @@ def _apply_ms(fn, args, reps: int = 20) -> float:
     return sum(times[1:]) / reps
 
 
+def _ato_system_bytes(a, got) -> float:
+    """Bytes that ``ato_system_lanes`` must move on the call ``a`` (its
+    output ``got``): K's entries on each lane's free rows and columns, read
+    once however many lanes share them (their union; padding reads nothing
+    the result needs), y, in_S and in_T once, and each lane's alpha, f,
+    T_act, R_act, b_fallback and C read and its masks, nf, b, v, w, idx,
+    lane, yM, B and rhs[0] written once."""
+    free = got.free.to(torch.float64)
+    lanes, n = free.shape
+    m_cap = a[-1]
+    k_entries = float(((free.t() @ free) > 0).sum())
+    shared = 8.0 * (k_entries + n) + 2.0 * n
+    per_lane = (8.0 * (2 * n + 2) + 2.0 * n        # alpha, f, b_fb, C; acts
+                + 2.0 * n + 8.0 * (2 * n + 3)      # masks; v, w, nf, b, r0
+                + 9.0 * m_cap + 8.0 * m_cap        # idx and lane; yM
+                + 8.0 * (m_cap + 1) ** 2)          # B
+    return shared + lanes * per_lane
+
+
+def _ato_apply_bytes(a) -> float:
+    """Bytes that ``ato_apply_lanes`` must move on the call ``a``: y once;
+    each lane's done flag read and eta written; and a lane that is not done
+    reads g, f, alpha, v, Phi, b, C, its step and its four masks and writes
+    f, T_act, R_act, done and step (a done lane stops at its flag)."""
+    n = a[0].shape[1]
+    done = a[13]
+    live = float((~done).sum())
+    return (8.0 * n + 9.0 * done.shape[0]
+            + live * (8.0 * (6 * n + 4) + 6.0 * n + 1.0))
+
+
+def _ato_system_check(calls) -> dict:
+    """``ato_system_lanes`` against its plain version on the CPU on each
+    recorded call: the exact outputs bitwise, b and r0 (sums in the
+    block's order) within 1e-12 of their scale. Then its time on the first
+    call, the plain version's on the card, and its bytes bound."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import seeding as ks
+    exact = ("train_now", "free", "nf", "v", "w", "idx", "lane", "yM", "B")
+    err = 0.0
+    for a in calls:
+        got = ks.ato_system_lanes(*a)
+        want = ref.ato_system_lanes_ref(*_cpu(a))
+        for key in exact:
+            require(torch.equal(getattr(got, key).cpu(), getattr(want, key)),
+                    f"ato_system_lanes: {key} not bitwise equal to the plain "
+                    "version")
+        for key, g_, w_ in (("b", got.b, want.b),
+                            ("r0", got.rhs[:, 0], want.rhs[:, 0])):
+            e = float((g_.cpu() - w_).abs().max())
+            require(e <= 1e-12 * max(1.0, float(w_.abs().max())),
+                    f"ato_system_lanes: {key} off by {e}")
+            err = max(err, e)
+    a = calls[0]
+    got = ks.ato_system_lanes(*a)
+    return {"lanes": a[3].shape[0], "n": a[1].shape[0], "m_cap": a[-1],
+            "nf": got.nf.tolist(), "steps_checked": len(calls),
+            "ms": graph_ms(lambda: ks.ato_system_lanes(*a), 20),
+            "plain_ms": cuda_ms(lambda: ref.ato_system_lanes_ref(*a), 5),
+            "max_abs_err": err, **_bound(_ato_system_bytes(a, got), 0.0)}
+
+
+def _ato_apply_check(calls) -> dict:
+    """``ato_apply_lanes`` against its plain version on the CPU on each
+    recorded call, every output bitwise; then its time on the first call,
+    the plain version's on the card, and its bytes bound."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import seeding as ks
+    for a in calls:
+        card = tuple(x.clone() if isinstance(x, torch.Tensor) else x
+                     for x in a)
+        cpu = _cpu(a)
+        eta_c = ks.ato_apply_lanes(*card)
+        eta = ref.ato_apply_lanes_ref(*cpu)
+        require(torch.equal(eta_c.cpu(), eta)
+                and all(torch.equal(x.cpu(), w) for x, w in zip(card, cpu)
+                        if isinstance(x, torch.Tensor)),
+                "ato_apply_lanes: not bitwise equal to the plain version")
+    a = calls[0]
+    return {"lanes": a[1].shape[0], "n": a[1].shape[1],
+            "steps_checked": len(calls),
+            "ms": _apply_ms(ks.ato_apply_lanes, a),
+            "plain_ms": _apply_ms(ref.ato_apply_lanes_ref, a),
+            "max_abs_err": 0.0, **_bound(_ato_apply_bytes(a), 0.0)}
+
+
 def _seeding_kernels() -> dict:
     """Each seeding kernel against its plain version run on the CPU, on
     the inputs Table 1's adult fold 0 -> 1 seeds gave it (recorded), and
     ``water_fill`` and ``sir_greedy`` at n = 32,560's shapes (seeded
-    numpy): bitwise for ``sir_greedy``, ``ato_apply`` and ``ato_system``'s
-    exact outputs, ``water_fill`` within 1e-12 max(C, 1) elementwise and
-    its sum within n eps max(C, 1) of the clamped target. Then each one's
-    time at the main path's shape (graph, or CUDA events for the in-place
-    ``ato_apply``), the plain version's on the card, and the bytes bound
-    (every one is bound by bytes: its operations, even 100 bisection
-    steps of 4 a row, take less)."""
+    numpy): bitwise for ``sir_greedy``, ``ato_apply_lanes`` and
+    ``ato_system_lanes``' exact outputs (one lane: the solo ramp),
+    ``water_fill`` within 1e-12 max(C, 1) elementwise and its sum within n
+    eps max(C, 1) of the clamped target. Then each one's time at the main
+    path's shape (graph, or CUDA events for the in-place
+    ``ato_apply_lanes``), the plain version's on the card, and the bytes
+    bound (every one is bound by bytes: its operations, even 100
+    bisection steps of 4 a row, take less)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import seeding as ks
     dev = torch.device("cuda")
@@ -750,50 +964,12 @@ def _seeding_kernels() -> dict:
         "max_abs_err": 0.0,
         **_bound(8.0 * (m * t + 2 * m + 3 * t), 0.0)}
 
-    # ato_system / ato_apply: every ramp step of the ATO seed
-    exact = ("train_now", "free", "nf", "v", "w", "idx", "lane", "yM", "B")
-    sys_err = 0.0
-    for a in calls["ato_system"] + heart["ato_system"]:
-        got = ks.ato_system(*a)
-        want = ref.ato_system_ref(*_cpu(a))
-        for key in exact:
-            require(torch.equal(getattr(got, key).cpu(), getattr(want, key)),
-                    f"ato_system: {key} not bitwise equal to the plain "
-                    "version")
-        for key, g_, w_ in (("b", got.b, want.b),
-                            ("r0", got.rhs[0], want.rhs[0])):
-            e = float((g_.cpu() - w_).abs())
-            require(e <= 1e-12 * max(1.0, float(w_.abs())),
-                    f"ato_system: {key} off by {e}")
-            sys_err = max(sys_err, e)
-    a = calls["ato_system"][0]
-    n, m_cap = a[1].shape[0], a[-1]
-    out["ato_system"] = {
-        "n": n, "m_cap": m_cap,
-        "steps_checked": len(calls["ato_system"] + heart["ato_system"]),
-        "ms": graph_ms(lambda: ks.ato_system(*a), 20),
-        "plain_ms": cuda_ms(lambda: ref.ato_system_ref(*a), 10),
-        "max_abs_err": sys_err,
-        **_bound(8.0 * ((m_cap + 1) ** 2 + m_cap * m_cap + 5 * n
-                        + 3 * m_cap) + 6.0 * n, 0.0)}
-    for a in calls["ato_apply"] + heart["ato_apply"]:
-        card = tuple(x.clone() if isinstance(x, torch.Tensor) else x
-                     for x in a)
-        cpu = _cpu(a)
-        eta_c = ks.ato_apply(*card)
-        eta = ref.ato_apply_ref(*cpu)
-        require(torch.equal(eta_c.cpu(), eta)
-                and all(torch.equal(x.cpu(), w) for x, w in zip(card, cpu)
-                        if isinstance(x, torch.Tensor)),
-                "ato_apply: not bitwise equal to the plain version")
-    a = calls["ato_apply"][0]
-    n = a[0].shape[0]
-    out["ato_apply"] = {
-        "n": n,
-        "steps_checked": len(calls["ato_apply"] + heart["ato_apply"]),
-        "ms": _apply_ms(ks.ato_apply, a),
-        "plain_ms": _apply_ms(ref.ato_apply_ref, a), "max_abs_err": 0.0,
-        **_bound(8.0 * (7 * n) + 6.0 * n, 0.0)}
+    # ato_system_lanes / ato_apply_lanes: every ramp step of the ATO seed
+    # (the solo ramp: one lane)
+    out["ato_system_lanes"] = _ato_system_check(
+        calls["ato_system_lanes"] + heart["ato_system_lanes"])
+    out["ato_apply_lanes"] = _ato_apply_check(
+        calls["ato_apply_lanes"] + heart["ato_apply_lanes"])
     records["seeds"] = _seed_checks()
     del rec, heart
     torch.cuda.empty_cache()
@@ -1212,7 +1388,8 @@ def phase_table1(build_s: float, split: dict | None = None):
 #: is its own, nested torch ops included), a container's torch ops are
 #: timed one by one and filed by kind; names absent from a tree are skipped
 SPLIT_LEAVES = ("water_fill", "uniform", "_priority", "_lstsq_svd",
-                "sir_greedy", "ato_system", "ato_apply", "smo_f_update")
+                "sir_greedy", "ato_system", "ato_apply", "ato_system_lanes",
+                "ato_apply_lanes", "smo_f_update")
 SPLIT_CONTAINERS = ("_ato_ramp",)
 #: torch functions filed under their own kind inside a container
 SPLIT_KINDS = {"nonzero": "nonzero", "linalg_solve": "lu_solve",
@@ -2739,6 +2916,500 @@ def phase_serve_lm(flash_ms: float):
     return main_counts, main_routes
 
 
+# --------------------------------------------------------------------------
+# the Study layer: seed transforms, the batched ATO ramp, stragglers, the
+# grid and LOO
+# --------------------------------------------------------------------------
+
+def _ato_row_problem(name: str, n: int, k: int = 10):
+    """The ATO C row (``ATO_ROW_C`` x C) of ``benchmarks/table1_kfold.py``:
+    K, y, the fold masks and chunks, and fold 0 solved cold at the three
+    C values by ``smo_solve_batched``."""
+    from repro_torch.core.cv import _fold_masks
+    from repro_torch.data.svm_suite import kfold_chunks, make_dataset
+    from repro_torch.svm import kernel_matrix, smo_solve_batched
+    dev = torch.device("cuda")
+    ds = make_dataset(name, n_override=n)
+    chunks = kfold_chunks(ds.n, k)
+    m = chunks.size
+    X = torch.as_tensor(ds.X[:m], device=dev)
+    y = torch.as_tensor(ds.y[:m], dtype=torch.float64, device=dev)
+    K = kernel_matrix(X, X, gamma=ds.gamma)
+    masks = torch.as_tensor(_fold_masks(chunks), device=dev)
+    Cs = [c * ds.C for c in ATO_ROW_C]
+    L = len(Cs)
+    prev = smo_solve_batched(K, y, masks[0].repeat(L, 1), Cs,
+                             torch.zeros((L, m), dtype=torch.float64,
+                                         device=dev), -y.repeat(L, 1))
+    return ds, K, y, masks, chunks, Cs, prev
+
+
+def _study_kernels() -> dict:
+    """The Study slice's kernels against their plain versions run on the
+    CPU, on the inputs that the main paths give them (recorded): the
+    batched ATO ramp's ``ato_system_lanes``, ``ato_apply_lanes`` and
+    ``smo_f_update`` over rows, over the ATO C row at fold 0 -> 1 (adult
+    n=1000; heart n=270, whose ramps run all 30 steps), each lane also
+    bitwise what a one-lane launch on its slice gives it; ``avg_spill``
+    and ``top_spill`` from LOO seeds of heart and adult. Then each one's
+    time at adult's shape, the plain version's on the card, and the bytes
+    bound (each is bound by its chain of block reductions or, for the
+    walk, by one thread's dependent steps, far above both floors). The
+    ramp kernels' readings are returned under ``<name>_row``: their
+    entries in the ``kernels`` line are Table 1's one-lane calls."""
+    from repro_torch.core import seeding
+    from repro_torch.core.cv import _transition_idx
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import seeding as ks
+    from repro_torch.kernels import smo_update as ku
+    names = ("ato_system_lanes", "ato_apply_lanes", "smo_f_update")
+    calls = {k: [] for k in names}
+    main, dev = {}, torch.device("cuda")
+    for name, n in (("adult", 1000), ("heart", 270)):
+        ds, K, y, masks, chunks, Cs, prev = _ato_row_problem(name, n)
+        idx = _transition_idx(chunks, 0, 1, dev)
+        with _Recorder(seeding, names) as rec:
+            seeding.ato_seed_batch(K, y, Cs, prev, *idx, bucket_by_lane=False)
+        for key in names:
+            calls[key] += rec.calls[key]
+        if name == "adult":
+            main = {key: rec.calls[key][0] for key in names}
+        del K
+    out = {"ato_system_lanes_row": _ato_system_check(
+               calls["ato_system_lanes"]),
+           "ato_apply_lanes_row": _ato_apply_check(calls["ato_apply_lanes"])}
+    for a in calls["ato_system_lanes"]:
+        got = ks.ato_system_lanes(*a)
+        K_, y_, Cs_, alpha, f, bfb, in_S, in_T, T_act, R_act, m_cap = a
+        for lane in range(alpha.shape[0]):
+            sl = slice(lane, lane + 1)
+            solo = ks.ato_system_lanes(K_, y_, Cs_[sl], alpha[sl], f[sl],
+                                       bfb[sl], in_S, in_T, T_act[sl],
+                                       R_act[sl], m_cap)
+            require(all(torch.equal(getattr(solo, key)[0], getattr(got, key)[
+                lane]) for key in solo._fields[:-1])   # rhs[1:]: the caller's
+                and torch.equal(solo.rhs[0, 0], got.rhs[lane, 0]),
+                "ato_system_lanes: a lane differs from a one-lane launch")
+    clones = lambda a: [x.clone() if isinstance(x, torch.Tensor)  # noqa
+                        else x for x in a]
+    for a in calls["ato_apply_lanes"]:
+        card, solo = clones(a), clones(a)
+        eta_c = ks.ato_apply_lanes(*card)
+        g, f, al, v, Phi, y_, b, Cs_, tol, tn, fr, Ta, Ra, dn, st, ms = solo
+        for lane in range(f.shape[0]):
+            sl = slice(lane, lane + 1)
+            e1 = ks.ato_apply_lanes(g[sl], f[sl], al[sl], v[sl], Phi[sl], y_,
+                                    b[sl], Cs_[sl], tol, tn[sl], fr[sl],
+                                    Ta[sl], Ra[sl], dn[sl], st[sl], ms)
+            require(torch.equal(e1[0], eta_c[lane]),
+                    "ato_apply_lanes: a lane's eta differs from a one-lane "
+                    "launch's")
+        require(all(torch.equal(x, w) for x, w in zip(solo, card)
+                    if isinstance(x, torch.Tensor)),
+                "ato_apply_lanes: a lane differs from a one-lane launch")
+    for a in calls["smo_f_update"]:
+        got = ku.smo_f_update(*a)
+        require(torch.equal(got.cpu(), ref.smo_f_update_ref(
+            *_cpu(a[:3]), a[3].cpu()[:, None])),
+            "smo_f_update: rows not bitwise equal to the CPU addcmul")
+        rows = torch.stack([ku.smo_f_update(a[0][r], a[1][r], a[2][r], a[3][r])
+                            for r in range(a[0].shape[0])])
+        require(torch.equal(got, rows),
+                "smo_f_update: a row differs from its one-row launch")
+    a = main["smo_f_update"]
+    L, n = a[0].shape
+    out["smo_f_update_row"] = {
+        "lanes": L, "n": n, "calls_checked": len(calls["smo_f_update"]),
+        "ms": graph_ms(lambda: ku.smo_f_update(*a), 200),
+        "plain_ms": graph_ms(lambda: ref.smo_f_update_ref(
+            *a[:3], a[3][:, None]), 200),
+        "max_abs_err": 0.0, **_bound(8.0 * (4 * L * n + L), 0.0)}
+    torch.cuda.empty_cache()
+
+    # the LOO spills: every row of heart, and adult's rows 0 / 499 / 999,
+    # from the full solution at each dataset's C
+    spills = {"avg_spill": [], "top_spill": []}
+    for name, n, ts in (("heart", 270, range(0, 270, 9)),
+                        ("adult", 1000, (0, 499, 999))):
+        ds, K, y, prev = _seed_problem_full(name, n)
+        with _Recorder(seeding, tuple(spills)) as rec:
+            for t in ts:
+                seeding.avg_seed_loo(K, y, ds.C, prev.alpha, t)
+                seeding.top_seed_loo(K, y, ds.C, prev.alpha, t)
+        for key in spills:
+            spills[key] += [(ds.C, a) for a in rec.calls[key]]
+        if name == "adult":
+            main = {key: rec.calls[key][0] for key in spills}
+        del K
+    avg_err = 0.0
+    for C, a in spills["avg_spill"]:
+        e = float((ks.avg_spill(*a).cpu() - ref.avg_spill_ref(
+            *_cpu(a))).abs().max())
+        require(e <= 1e-12 * max(C, 1.0),
+                f"avg_spill: {e} off the plain version")
+        avg_err = max(avg_err, e)
+    for C, a in spills["top_spill"]:
+        require(torch.equal(ks.top_spill(*a).cpu(),
+                            ref.top_spill_ref(*_cpu(a))),
+                "top_spill: not equal to the plain version")
+    a = main["avg_spill"]
+    n = a[0].shape[0]
+    out["avg_spill"] = {
+        "n": n, "calls_checked": len(spills["avg_spill"]),
+        "ms": graph_ms(lambda: ks.avg_spill(*a), 20),
+        "plain_ms": graph_ms(lambda: ref.avg_spill_ref(*a), 20),
+        "max_abs_err": avg_err, **_bound(33.0 * n + 8.0, 0.0)}
+    a = main["top_spill"]
+    out["top_spill"] = {
+        "n": n, "calls_checked": len(spills["top_spill"]),
+        "ms": graph_ms(lambda: ks.top_spill(*a), 20),
+        "plain_ms": cuda_ms(lambda: ref.top_spill_ref(*a), 1),
+        "max_abs_err": 0.0, **_bound(40.0 * n + 8.0, 0.0)}
+    torch.cuda.empty_cache()
+    return out
+
+
+def _seed_problem_full(name: str, n: int):
+    """LOO's start: the dataset cut to n, its K and y, and the full-data
+    SVM (every row in the training set)."""
+    from repro_torch.data.svm_suite import make_dataset
+    from repro_torch.svm import kernel_matrix, smo_solve
+    dev = torch.device("cuda")
+    ds = make_dataset(name, n_override=n)
+    X = torch.as_tensor(ds.X, device=dev)
+    y = torch.as_tensor(ds.y, dtype=torch.float64, device=dev)
+    K = kernel_matrix(X, X, gamma=ds.gamma)
+    full = smo_solve(K, y, torch.ones(n, dtype=torch.bool, device=dev), ds.C,
+                     torch.zeros_like(y), -y, max_iter=5_000_000)
+    return ds, K, y, full
+
+
+def _no_other_sync(fn) -> dict:
+    """``fn()`` under ``set_sync_debug_mode("error")`` after a warm-up call:
+    any host sync raises but the seeders' counted reads; returns them."""
+    from repro_torch.core import seeding
+    fn()
+    sync()
+    seeding.HOST_SYNCS.update(dict.fromkeys(seeding.HOST_SYNCS, 0))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    sync()
+    return dict(seeding.HOST_SYNCS)
+
+
+def _transform_checks() -> list:
+    """Each transform on the card against its plain version on the CPU,
+    from the same solution (heart and adult, fold 0 at its C, and the full
+    SVM for LOO): scale_C (C x 0.25 and x 4) and the LOO seeds within
+    1e-12 max(C, 1), fold (SIR) within its bar; and with no host sync."""
+    from repro_torch.core import seeding
+    from repro_torch.svm.engine import SMOResult
+    out = []
+    for name, n in (("heart", 270), ("adult", 1000)):
+        ds, K, y, prev, idx = _seed_problem(name, n)
+        prev_c = SMOResult(*(t.cpu() for t in prev))
+        # fold 0's training rows: all but its test chunk, T of 0 -> 1
+        mask = torch.ones_like(y, dtype=torch.bool).index_fill_(0, idx[2],
+                                                                False)
+        cases = [("scale_C", dict(C_old=ds.C, train_mask=mask), s * ds.C,
+                  lambda C: 1e-12 * max(C, 1.0)) for s in (0.25, 4.0)]
+        cases.append(("fold", dict(method="sir", S_idx=idx[0],
+                                   R_idx=idx[1], T_idx=idx[2]), ds.C,
+                      SEED_ATOL["sir"]))
+        _, K_f, y_f, full = _seed_problem_full(name, n)
+        full_c = SMOResult(*(t.cpu() for t in full))
+        for tr, params, C, bar in cases:
+            fn = seeding.TRANSFORMS[tr]
+            got = fn(K, y, C, prev, **params).cpu()
+            want = fn(K.cpu(), y.cpu(), C, prev_c,
+                      **{k: v.cpu() if isinstance(v, torch.Tensor) else v
+                         for k, v in params.items()})
+            err = float((got - want).abs().max())
+            require(err <= bar(C), f"{name} {tr}: {err} off the plain "
+                                   "version")
+            out.append({"dataset": name, "transform": tr, "C": C,
+                        "max_abs_err": err, "bar": bar(C)})
+        for tr in ("loo_avg", "loo_top"):
+            fn = seeding.TRANSFORMS[tr]
+            err = 0.0
+            for t in (0, n // 2, n - 1):
+                got = fn(K_f, y_f, ds.C, full, t=t).cpu()
+                want = fn(K_f.cpu(), y_f.cpu(), ds.C, full_c, t=t)
+                err = max(err, float((got - want).abs().max()))
+            require(err <= 1e-12 * max(ds.C, 1.0),
+                    f"{name} {tr}: {err} off the plain version")
+            out.append({"dataset": name, "transform": tr, "C": ds.C,
+                        "max_abs_err": err, "bar": 1e-12 * max(ds.C, 1.0)})
+        if name == "adult":   # no host sync but the counted reads
+            syncs = {
+                "scale_C": _no_other_sync(lambda: seeding.TRANSFORMS[
+                    "scale_C"](K, y, 4 * ds.C, prev, C_old=ds.C,
+                               train_mask=mask)),
+                "loo_avg": _no_other_sync(lambda: seeding.TRANSFORMS[
+                    "loo_avg"](K_f, y_f, ds.C, full, t=7)),
+                "loo_top": _no_other_sync(lambda: seeding.TRANSFORMS[
+                    "loo_top"](K_f, y_f, ds.C, full, t=7))}
+            for tr, s in syncs.items():
+                require(s == dict.fromkeys(s, 0),
+                        f"{tr}: counted host reads {s}")
+            out.append({"dataset": name, "host_syncs": syncs})
+        del K, K_f
+        torch.cuda.empty_cache()
+    return out
+
+
+def _ato_rows() -> list:
+    """The ATO C row (``ATO_ROW_C`` x C) through every fold transition of
+    heart and adult, k=10, bucketed by lane and padded to the widest lane:
+    each lane within the ATO bar (1e-12 C) of the solo ``ato_seed`` on that
+    lane, and the row's one host read of the free counts; the ramps timed
+    (host clock after a sync), the chain advanced on the bucketed seeds by
+    ``smo_solve_batched``."""
+    from repro_torch.core import seeding
+    from repro_torch.core.cv import _transition_idx
+    from repro_torch.svm import init_f, smo_solve_batched
+    from repro_torch.svm.engine import SMOResult
+    rows = []
+    for name, n in (("heart", 270), ("adult", 1000)):
+        ds, K, y, masks, chunks, Cs, prev = _ato_row_problem(name, n)
+        L, dev = len(Cs), K.device
+        iters = int(prev.n_iter.sum())
+        ramp = {"bucketed": 0.0, "padded": 0.0}
+        err, syncs = 0.0, {}
+        for h in range(1, chunks.shape[0]):
+            S, R, T = _transition_idx(chunks, h - 1, h, dev)
+            seeds = {}
+            for key, flag in (("bucketed", True), ("padded", False)):
+                seeding.HOST_SYNCS.update(
+                    dict.fromkeys(seeding.HOST_SYNCS, 0))
+                sync()
+                t0 = time.perf_counter()
+                seeds[key] = seeding.ato_seed_batch(K, y, Cs, prev, S, R, T,
+                                                    bucket_by_lane=flag)
+                sync()
+                ramp[key] += time.perf_counter() - t0
+                syncs[key] = dict(seeding.HOST_SYNCS)
+                require(syncs[key]["ato_m_cap"] == 1,
+                        f"{name} ATO row: {syncs[key]} host reads")
+            for lane, C in enumerate(Cs):
+                solo = seeding.ato_seed(K, y, C, SMOResult(
+                    *(t[lane] for t in prev)), S, R, T)
+                for key in seeds:
+                    e = float((seeds[key][lane] - solo).abs().max())
+                    require(e <= 1e-12 * C,
+                            f"{name} ATO row h={h} C={C} {key}: {e} off the "
+                            "solo ato_seed")
+                    err = max(err, e / C)
+            a0 = seeds["bucketed"]
+            f0 = torch.stack([init_f(K, y, a0[lane]) for lane in range(L)])
+            prev = smo_solve_batched(K, y, masks[h].repeat(L, 1), Cs, a0,
+                                     f0)
+            require(bool(prev.converged.all()),
+                    f"{name} ATO row fold {h}: a lane did not converge")
+            iters += int(prev.n_iter.sum())
+        rows.append({"dataset": name, "n": int(y.shape[0]), "Cs": Cs,
+                     "iterations": iters, "init_s_bucketed": ramp["bucketed"],
+                     "init_s_padded": ramp["padded"],
+                     "max_err_over_C_vs_solo": err,
+                     "host_syncs_last": syncs})
+        del K
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _ato_batch_syncs() -> dict:
+    """``ato_seed_batch`` on adult's C row under sync debug "error": only
+    the counted reads (the free counts once, the flags once a chunk)."""
+    from repro_torch.core import seeding
+    from repro_torch.core.cv import _transition_idx
+    ds, K, y, masks, chunks, Cs, prev = _ato_row_problem("adult", 1000)
+    idx = _transition_idx(chunks, 0, 1, K.device)
+    s = _no_other_sync(lambda: seeding.ato_seed_batch(K, y, Cs, prev, *idx))
+    require(s["ato_m_cap"] == 1 and s["ato_flag"] >= 1 and s["mir_svd"] == 0,
+            f"ato_seed_batch: host reads {s}")
+    return s
+
+
+def phase_study_seeds():
+    """The Study layer at Table 1's sizes (heart n=270, adult n=1000):
+    each transform against its plain version, the ATO C row against the
+    solo seeds, the straggler run (``run_cv`` best_available, fold 3
+    lost) and the (C, gamma) grid (``run_grid``, k=5, "sir", and "ato" on
+    the first gamma row). Adult's straggler counts and its cells' correct
+    counts are gated on the reference's, its cells' iterations on the
+    reference's within ``ITER_BAND`` and on the card's (``CARD_GRID``)
+    exactly; heart's are printed beside the reference's."""
+    from repro_torch.core.cv import run_cv
+    from repro_torch.core.grid import run_grid
+    from repro_torch.data.svm_suite import make_dataset
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    transforms = _transform_checks()
+    ato_rows = _ato_rows()
+    ato_syncs = _ato_batch_syncs()
+    straggler, failed = [], []
+    for name, want in REFERENCE_STRAGGLER.items():
+        ds = make_dataset(name, n_override=want["n"])
+        rep = run_cv(ds, k=10, method="sir",
+                     straggler_policy="best_available",
+                     unavailable_folds=STRAGGLER_LOST)
+        got = {"seed_from": [f.seed_from for f in rep.folds],
+               "per_fold": [f.n_iter for f in rep.folds],
+               "accuracy": round(rep.accuracy, 4)}
+        require(all(f.converged for f in rep.folds),
+                f"{name} straggler: a fold did not converge")
+        require(got["seed_from"] == want["seed_from"],
+                f"{name} straggler: seed_from {got['seed_from']}")
+        if want["gated"] and got != {k: want[k] for k in got}:
+            failed.append(f"{name} straggler: {got}, the reference's {want}")
+        straggler.append({"dataset": name, **got,
+                          "iterations": rep.total_iterations,
+                          "reference": want,
+                          "init_s": rep.total_init_time,
+                          "solve_s": rep.total_solve_time})
+    grid = []
+    for name, want in REFERENCE_GRID.items():
+        ds = make_dataset(name, n_override=want["n"])
+        Cs = [c * ds.C for c in GRID_C]
+        gammas = [g * ds.gamma for g in GRID_GAMMA]
+        for method, gs in (("sir", gammas), ("ato", gammas[:1])):
+            before = ops.route_counts()["smo_chunk"]
+            rep = run_grid(ds, Cs, gs, k=GRID_K, method=method)
+            after = ops.route_counts()["smo_chunk"]
+            cells = [[c.C, c.gamma, c.iterations, c.acc_correct]
+                     for c in rep.cells]
+            require(all(c.converged for c in rep.cells),
+                    f"{name} grid {method}: a cell did not converge")
+            if want["gated"] and (
+                    [c[:2] + c[3:] for c in cells]
+                    != [c[:2] + c[3:] for c in want[method]]
+                    or not all(_in_band(c[2], w[2])
+                               for c, w in zip(cells, want[method]))
+                    or [c[2] for c in cells] != CARD_GRID[method]):
+                failed.append(f"{name} grid {method}: {cells}; the "
+                              f"reference's {want[method]} (iterations "
+                              f"within {ITER_BAND:.0%}), the card's "
+                              f"iterations {CARD_GRID[method]}")
+            grid.append({"dataset": name, "method": method, "cells": cells,
+                         "reference": want[method],
+                         "kernel_s": rep.kernel_time,
+                         "seed_s": rep.seed_time,
+                         "solve_s": rep.solve_time,
+                         "occupancy": rep.occupancy,
+                         "chunk_routes": {r: after[r] - before[r]
+                                          for r in after}})
+    emit({"phase": "study_seeds", "seconds": time.perf_counter() - t0,
+          "transforms": transforms, "ato_rows": ato_rows,
+          "ato_seed_batch_host_syncs": ato_syncs, "straggler": straggler,
+          "grid": grid})
+    require(not failed, "; ".join(failed))
+
+
+def phase_grid_size(ds):
+    """The (C, gamma) grid at the paper's cardinality: adult n=32,560,
+    d=123, k=5, Cs = C x GRID_C, gammas = gamma x GRID_GAMMA, "sir",
+    cross-gamma pool with GRID_LRU_BUDGET kernels (8.48 GB each) resident:
+    every cell converges, cell (C, gamma) equals ``run_cv`` there, and at
+    most two kernels were resident at once."""
+    from repro_torch.core.cv import run_cv
+    from repro_torch.core.grid import run_grid
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    Cs = [c * ds.C for c in GRID_C]
+    gammas = [g * ds.gamma for g in GRID_GAMMA]
+    torch.cuda.empty_cache()
+    before = ops.route_counts()["smo_chunk"]
+    tw = time.perf_counter()
+    rep = run_grid(ds, Cs, gammas, k=GRID_K, method="sir",
+                   pool="cross_gamma", max_resident=GRID_LRU_BUDGET)
+    wall = time.perf_counter() - tw
+    after = ops.route_counts()["smo_chunk"]
+    n = rep.n
+    k_bytes = n * n * 8
+    require(all(c.converged for c in rep.cells),
+            "grid_size: a cell did not converge")
+    require(rep.resident["peak_resident"] == GRID_LRU_BUDGET
+            and rep.resident["peak_resident_bytes"]
+            <= GRID_LRU_BUDGET * k_bytes,
+            f"grid_size: residency {rep.resident}")
+    torch.cuda.empty_cache()
+    tc = time.perf_counter()
+    cv = run_cv(ds, k=GRID_K, method="sir")
+    cv_wall = time.perf_counter() - tc
+    cell = next(c for c in rep.cells
+                if c.C == float(ds.C) and c.gamma == float(ds.gamma))
+    require(cell.iterations == cv.total_iterations
+            and cell.acc_correct == sum(f.acc_correct for f in cv.folds),
+            f"grid_size: cell ({ds.C}, {ds.gamma}) {cell.iterations} "
+            f"iterations {cell.acc_correct} correct, run_cv "
+            f"{cv.total_iterations} / "
+            f"{sum(f.acc_correct for f in cv.folds)}")
+    emit({"phase": "grid_size", "seconds": time.perf_counter() - t0,
+          "n": n, "d": int(ds.X.shape[1]), "k": GRID_K, "lanes":
+          len(rep.cells) * GRID_K, "K_gb": k_bytes / 1e9, "wall_s": wall,
+          "cells": [{"C": c.C, "gamma": c.gamma, "iterations": c.iterations,
+                     "accuracy": c.accuracy, "seed_s": c.seed_s,
+                     "solve_s": c.solve_s} for c in rep.cells],
+          "kernel_s": rep.kernel_time, "seed_s": rep.seed_time,
+          "solve_s": rep.solve_time, "resident": rep.resident,
+          "occupancy": rep.occupancy,
+          "chunk_routes": {r: after[r] - before[r] for r in after},
+          "run_cv": {"iterations": cv.total_iterations,
+                     "per_fold": [f.n_iter for f in cv.folds],
+                     "accuracy": cv.accuracy, "wall_s": cv_wall}})
+
+
+def phase_loo():
+    """Leave-one-out CV (paper suppl. Fig. 2) through ``run_loo``: the
+    Fig. 2 cases (heart n=270, 270 rounds; madelon n=600, 120 rounds) with
+    cold, avg, top, mir and sir, beside the reference's counts, and adult
+    n=1000, 20 rounds, with ato as well: its base iterations and accuracy
+    gated on ``REFERENCE_LOO``, its iterations on the reference's within
+    ``ITER_BAND`` and on ``CARD_LOO`` exactly. Every round converges."""
+    from repro_torch.core.cv import run_loo
+    from repro_torch.data.svm_suite import make_dataset
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    rows, failed = [], []
+    cases = [(c, FIG2_METHODS, REFERENCE_FIG2.get(c[0], {}), False)
+             for c in FIG2_CASES]
+    cases.append((LOO_ADULT, FIG2_METHODS + ("ato",), REFERENCE_LOO, True))
+    for (name, n, rounds), methods, refs, gated in cases:
+        ds = make_dataset(name, n_override=n)
+        for method in methods:
+            before = ops.route_counts()["smo_chunk"]
+            sync()
+            tw = time.perf_counter()
+            got = run_loo(ds, method=method, rounds=rounds)
+            wall = time.perf_counter() - tw
+            after = ops.route_counts()["smo_chunk"]
+            require(got["converged"],
+                    f"LOO {name} {method}: a round did not converge")
+            want = refs.get(method)
+            mine = [got["base_iterations"], got["iterations"],
+                    got["accuracy"]]
+            if gated and (mine[::2] != want[::2]
+                          or not _in_band(mine[1], want[1])
+                          or mine[1] != CARD_LOO[method]):
+                failed.append(f"LOO {name} {method}: {mine}; the "
+                              f"reference's {want} (iterations within "
+                              f"{ITER_BAND:.0%}), the card's iterations "
+                              f"{CARD_LOO[method]}")
+            rows.append({"dataset": name, "n": n, "rounds": rounds,
+                         "method": method, "base_iterations": mine[0],
+                         "iterations": mine[1], "accuracy": mine[2],
+                         "reference": want, "gated": gated, "wall_s": wall,
+                         "chunk_routes": {r: after[r] - before[r]
+                                          for r in after}})
+        torch.cuda.empty_cache()
+    emit({"phase": "loo", "seconds": time.perf_counter() - t0,
+          "rows": rows})
+    require(not failed, "; ".join(failed))
+
+
 def split_main(argv) -> int:
     """``--seed-split [--src DIR]``: only the seeding split (and
     ``phase_size``'s SIR seeds), then Table 1's init and solve times
@@ -2753,7 +3424,15 @@ def split_main(argv) -> int:
     print(card_line(), flush=True)
     emit({"phase": "seed_split_tree", "package": repro_torch.__file__})
     phase_seed_split(make_dataset("adult", n_override=SIZE_N))
+    emit({"phase": "table1_times", "rows": _table1_times()})
+    return 0
+
+
+def _table1_times() -> list:
+    """Table 1 through ``run_cv`` (k=10, the four methods, heart and
+    adult): iterations, summed init and solve seconds, accuracy."""
     from repro_torch.core.cv import run_cv
+    from repro_torch.data.svm_suite import make_dataset
     rows = []
     for name, refd in REFERENCE.items():
         ds = make_dataset(name, n_override=refd["n"])
@@ -2764,8 +3443,7 @@ def split_main(argv) -> int:
                          "init_s": rep.total_init_time,
                          "solve_s": rep.total_solve_time,
                          "accuracy": rep.accuracy})
-    emit({"phase": "table1_times", "rows": rows})
-    return 0
+    return rows
 
 
 def compare_main(argv) -> int:
@@ -2774,9 +3452,11 @@ def compare_main(argv) -> int:
     mma.sync route at FLASH_D32 and FLASH_D16 beside
     SDPA's and the bounds (``_time_flash``), and the 20-fold matrix-free
     row (adult n=1000, the selection kernel's main path), three times:
-    iterations, solve s and us per longest-lane iteration. So that two
-    trees are timed in one call, in turns (``chip_select_split.py --src
-    DIR`` times the selection kernel itself)."""
+    iterations, solve s and us per longest-lane iteration; then Table 1's
+    iterations and summed init and solve seconds (``_table1_times``). So
+    that two trees are timed in one call, in turns
+    (``chip_select_split.py --src DIR`` times the selection kernel
+    itself)."""
     if "--src" in argv:
         sys.path.insert(0, os.path.abspath(argv[argv.index("--src") + 1]))
     from repro_torch.core.cv import run_cv_batched
@@ -2801,6 +3481,10 @@ def compare_main(argv) -> int:
                          1e6 * rep.total_solve_time / max(lane_max, 1),
                      "accuracy": rep.accuracy})
     emit({"phase": "compare_wide_k", "k": WIDE_K, "rows": rows})
+    rows = _table1_times()
+    emit({"phase": "compare_table1", "rows": rows, "init_s": sum(
+        r["init_s"] for r in rows), "solve_s": sum(r["solve_s"]
+                                                   for r in rows)})
     return 0
 
 
@@ -2848,6 +3532,14 @@ def main() -> int:
     phase_size_matrix_free(datasets[("adult", SIZE_N - 1)], dense_accs)
     counts["size_matrix_free"], routes["size_matrix_free"] = (
         ops.launch_counts(), ops.route_counts())
+    for path, run in (
+            ("study_seeds", phase_study_seeds),
+            ("grid_size",
+             lambda: phase_grid_size(datasets[("adult", SIZE_N - 1)])),
+            ("loo", phase_loo)):
+        ops.reset_launch_counts()
+        run()
+        counts[path], routes[path] = ops.launch_counts(), ops.route_counts()
     # the serving path resets and reads the counts around its main path
     # itself: its checks that follow launch the kernel too
     counts["serve_lm"], routes["serve_lm"] = phase_serve_lm(
@@ -2855,9 +3547,24 @@ def main() -> int:
     emit({"phase": "kernel_counts", **counts})
     emit({"phase": "route_counts", **routes})
     for name in ("rbf_kernel_matrix", "smo_f_update", "smo_chunk",
-                 "water_fill", "sir_greedy", "ato_system", "ato_apply"):
+                 "water_fill", "sir_greedy", "ato_system_lanes",
+                 "ato_apply_lanes"):
         require(counts["table1"][name] > 0,
                 f"{name} was not launched on the Table-1 path")
+    # the Study paths: the batched ATO ramp's kernels on the ATO C row,
+    # the spills on LOO, and the seeds and chunks on the grid at size
+    for name in ("ato_system_lanes", "ato_apply_lanes", "smo_f_update",
+                 "water_fill", "sir_greedy", "smo_chunk", "rbf_kernel_matrix"):
+        require(counts["study_seeds"][name] > 0,
+                f"{name} was not launched on the study_seeds path")
+    for name in ("avg_spill", "top_spill", "water_fill", "sir_greedy",
+                 "ato_system_lanes", "smo_chunk"):
+        require(counts["loo"][name] > 0,
+                f"{name} was not launched on the LOO path")
+    for name in ("rbf_kernel_matrix", "sir_greedy", "water_fill",
+                 "smo_chunk"):
+        require(counts["grid_size"][name] > 0,
+                f"{name} was not launched on the grid_size path")
     # every dense chunk of Table 1 and its batched rows (heart and adult
     # n=1000) takes the resident one-block kernel; n=32,560 spreads one
     # lane over many blocks of a cooperative launch, and the wide batch
@@ -2934,10 +3641,16 @@ def main() -> int:
                               "src/repro/core/seeding.py:61", "table1"),
                "sir_greedy": (csrc + "seeding.cu",
                               "src/repro/core/seeding.py:225", "table1"),
-               "ato_system": (csrc + "seeding.cu",
-                              "src/repro/core/seeding.py:361", "table1"),
-               "ato_apply": (csrc + "seeding.cu",
-                             "src/repro/core/seeding.py:361", "table1")}
+               "ato_system_lanes": (csrc + "seeding.cu",
+                                    "src/repro/core/seeding.py:361",
+                                    "table1"),
+               "ato_apply_lanes": (csrc + "seeding.cu",
+                                   "src/repro/core/seeding.py:361",
+                                   "table1"),
+               "avg_spill": (csrc + "seeding.cu",
+                             "src/repro/core/seeding.py:537", "loo"),
+               "top_spill": (csrc + "seeding.cu",
+                             "src/repro/core/seeding.py:566", "loo")}
     # the dense chunk's four routes are four kernels, each counted on its
     # own path (the global-state one is on none now: its count there is
     # 0); flash_attention's routes are listed beside its launches
@@ -2982,10 +3695,19 @@ def main() -> int:
                             if key.endswith(f"_{SIZE_N - 1}x10")
                             or key in ("shape", "flop_floor_ms",
                                        "x_per_iter_hbm_ms")})
-        if name in ("water_fill", "sir_greedy", "ato_system", "ato_apply"):
+        if name in ("water_fill", "sir_greedy", "ato_system_lanes",
+                    "ato_apply_lanes", "avg_spill", "top_spill"):
             kernels[-1].update({key: k[key] for key in (
-                "n", "m_cap", "ms_32560", "ms_32560_S", "steps_checked")
-                if key in k})
+                "n", "m_cap", "nf", "lanes", "ms_32560", "ms_32560_S",
+                "steps_checked", "calls_checked") if key in k})
+        # ATO's ramp kernels and its alpha update also run the batched
+        # ramp over the ATO C row (reference: _ato_seed_batch_jit): that
+        # path's launches and the kernels' readings on its 3-lane calls
+        if name in ("ato_system_lanes", "ato_apply_lanes", "smo_f_update"):
+            kernels[-1].update(
+                also_replaces="src/repro/core/seeding.py:435",
+                launches_study_seeds=counts["study_seeds"][name],
+                row=info[name + "_row"])
         if name.startswith("smo_chunk"):
             kernels[-1].update(n=k["n"], lanes=k.get("lanes", 1),
                                us_per_iter_one_block_global=k[

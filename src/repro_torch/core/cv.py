@@ -2,15 +2,16 @@
 
 Mirrors ``src/repro/core/cv.py``: ``FoldStat``, ``CVReport``,
 ``_transition_idx``, ``_fold_masks``, ``_eval_fold``, ``_eval_fold_rows``,
-``run_cv`` and ``run_cv_batched``. The reference declares the fold chain as
-a Study plan run by its lane pool; here ``run_cv`` is the direct loop with
-the same semantics under the ``strict`` straggler policy: fold 0 starts
-cold, fold h is seeded from fold h-1 (``f0 = init_f``), solved, and
-evaluated on its held-out chunk. ``run_cv_batched`` solves the k cold folds
-concurrently: as a k-lane plan on the lane pool (``schedule="repacked"``,
-over a dense K or the matrix-free ``PallasRBF``), or as one fixed batch
-(``schedule="batched"``). Checkpoints, stragglers and shrinking are later
-slices of the port.
+``run_cv``, ``run_cv_batched`` and ``run_loo``. Each declares its
+protocol as a Study plan (``repro_torch.core.study``) and ``run_plan`` runs
+it on the lane pool. ``run_cv`` is the paper's fold chain: fold 0 starts
+cold, fold h is a lane seeded through the ``"fold"`` transform from the
+fold the straggler policy picks, with an ``after`` edge on fold h-1, and
+is evaluated on its held-out chunk. ``run_cv_batched`` solves the k cold
+folds concurrently: as a k-lane plan (``schedule="repacked"``, over a
+dense K or the matrix-free ``PallasRBF``), or as one fixed batch
+(``schedule="batched"``). ``run_loo`` is the suppl. Fig. 2 protocol.
+Checkpoints and shrinking are later slices of the port.
 """
 from __future__ import annotations
 
@@ -25,8 +26,8 @@ from repro_torch.core.study import Plan, run_plan
 from repro_torch.data.svm_suite import SVMDataset, kfold_chunks
 from repro_torch.device import DTYPE, resolve_device
 from repro_torch.svm import (DenseKernel, PallasRBF, bias_from_solution,
-                             dual_objective, init_f, kernel_matrix, predict,
-                             smo_solve, smo_solve_batched)
+                             dual_objective, kernel_matrix, predict,
+                             smo_solve_batched)
 
 
 @dataclasses.dataclass
@@ -129,11 +130,22 @@ def _sync(device: torch.device) -> None:
 
 def run_cv(ds: SVMDataset, k: int = 10, method: str = "sir",
            tol: float = 1e-3, max_iter: int = 5_000_000, seed: int = 0,
-           device=None) -> CVReport:
-    """Run alpha-seeded k-fold CV with ``method`` in {cold, ato, mir, sir}:
-    fold 0 starts cold, fold h>0 is seeded from fold h-1 (every fold is
-    cold for ``"cold"``). Runs on ``cuda`` unless ``device="cpu"``."""
-    seeder = seeding.SEEDERS[method]
+           straggler_policy: str = "strict",
+           unavailable_folds: frozenset[int] = frozenset(),
+           chunk_iters: int | None = None, device=None) -> CVReport:
+    """Run alpha-seeded k-fold CV with ``method`` in ``seeding.SEEDERS``;
+    runs on ``cuda`` unless ``device="cpu"``.
+
+    The fold chain is one plan: fold h is a lane whose seed dependency
+    carries the ``"fold"`` transform, and an ``after`` edge on fold h-1
+    keeps the paper's sequential protocol. ``unavailable_folds`` simulates
+    stragglers or failures: those folds still solve, but do not seed.
+    ``straggler_policy="strict"`` (the paper) seeds fold h from fold h-1
+    or starts it cold; ``"best_available"`` seeds it from the nearest
+    completed fold (the earlier one on a tie). ``chunk_iters`` sets the
+    iterations between the host's reads of a fold's done flag (default:
+    one chunk of ``max_iter``)."""
+    seeding.SEEDERS[method]   # validate the method name up front
     dev = resolve_device(device)
     X = torch.as_tensor(ds.X, dtype=DTYPE, device=dev)
     y = torch.as_tensor(ds.y, dtype=DTYPE, device=dev)
@@ -151,32 +163,49 @@ def run_cv(ds: SVMDataset, k: int = 10, method: str = "sir",
     masks = torch.as_tensor(_fold_masks(chunks), device=dev)
     chunks_dev = torch.as_tensor(chunks, device=dev)
 
-    folds: list[FoldStat] = []
-    prev = None
+    plan = Plan(sources={"cv": DenseKernel(K)}, y=y, tol=tol,
+                chunk_iters=chunk_iters if chunk_iters is not None
+                else max_iter, device=dev)
+    # the seed-fold choice is deterministic: live folds run in order (the
+    # ``after`` chain), so fold h sees every earlier fold as completed
+    seed_froms: dict[int, int] = {}
+    done_folds: list[int] = []
+    prev_lane = None
+    zeros = torch.zeros(n, dtype=DTYPE, device=dev)
     for h in range(k):
-        t0 = time.perf_counter()
-        if h == 0 or method == "cold":
+        avail = [g for g in done_folds if g not in unavailable_folds]
+        if h == 0 or method == "cold" or not avail:
             seed_from = -1
-            alpha0, f0 = torch.zeros(n, dtype=DTYPE, device=dev), -y
+        elif straggler_policy == "strict":
+            seed_from = h - 1 if (h - 1) in avail else -1
+        else:  # best_available: nearest completed fold
+            seed_from = min(avail, key=lambda g: abs(h - g))
+        seed_froms[h] = seed_from
+        common = dict(train_mask=masks[h], C=ds.C, max_iter=max_iter,
+                      after=prev_lane)
+        if seed_from < 0:
+            plan.lane(h, alpha0=zeros, f0=-y, **common)
         else:
-            seed_from = h - 1
             S_idx, R_idx, T_idx = _transition_idx(chunks_dev, seed_from, h)
-            alpha0 = seeder(K, y, ds.C, prev, S_idx, R_idx, T_idx)
-            f0 = init_f(K, y, alpha0)
-        _sync(dev)
-        t1 = time.perf_counter()
-        res = smo_solve(K, y, masks[h], ds.C, alpha0, f0, tol=tol,
-                        max_iter=max_iter)
-        n_iter = int(res.n_iter)   # syncs
-        t2 = time.perf_counter()
+            plan.lane(h, dep=seed_from, transform="fold",
+                      params=dict(method=method, S_idx=S_idx, R_idx=R_idx,
+                                  T_idx=T_idx), **common)
+        done_folds.append(h)
+        prev_lane = h
+
+    sres = run_plan(plan)
+    folds: list[FoldStat] = []
+    for h in range(k):
+        res, stat = sres.results[h], sres.stats[h]
         correct, total, obj = _eval_fold(K, y, chunks, h, res, ds.C)
         folds.append(FoldStat(
-            fold=h, seed_from=seed_from, n_iter=n_iter, init_time=t1 - t0,
-            solve_time=t2 - t1, acc_correct=correct, acc_total=total,
-            objective=obj, converged=bool(res.converged)))
-        prev = res
+            fold=h, seed_from=seed_froms[h], n_iter=stat.n_iter,
+            init_time=stat.seed_s, solve_time=stat.solve_s,
+            acc_correct=correct, acc_total=total, objective=obj,
+            converged=stat.converged))
     return CVReport(dataset=ds.name, method=method, k=k, n=n,
-                    kernel_time=kernel_time, folds=folds)
+                    kernel_time=kernel_time, folds=folds,
+                    occupancy=sres.occupancy)
 
 
 def run_cv_batched(ds: SVMDataset, k: int = 10, tol: float = 1e-3,
@@ -276,3 +305,75 @@ def run_cv_batched(ds: SVMDataset, k: int = 10, tol: float = 1e-3,
     return CVReport(dataset=ds.name, method=method, k=k, n=n,
                     kernel_time=kernel_time, folds=folds,
                     occupancy=sres.occupancy)
+
+
+LOO_METHODS = ("cold", "avg", "top", "ato", "mir", "sir")
+
+
+def run_loo(ds: SVMDataset, method: str = "sir", rounds: int | None = None,
+            tol: float = 1e-3, max_iter: int = 2_000_000,
+            chunk_iters: int = 4096, max_width: int | None = None,
+            device=None) -> dict:
+    """Leave-one-out CV (paper suppl. Fig. 2) over the first ``rounds``
+    instances; runs on ``cuda`` unless ``device="cpu"``. AVG/TOP seed every
+    round from the full-data SVM (``"loo_avg"`` / ``"loo_top"``); ATO, MIR
+    and SIR chain round t from round t-1 through the ``"fold"`` transform
+    (T = the instance returned, R = the instance removed; round 0 enters
+    from the full SVM by AVG); cold starts every round from zero.
+
+    The protocol is one plan: the full-data solve is a lane, and the
+    AVG/TOP rounds all depend on it alone, so they fan out through the
+    pool's batched dispatch. The reference's ``seed`` only names its
+    checkpoints (the protocol draws nothing), so the port has none. Beside
+    the reference's keys, ``converged`` says whether the full lane and
+    every round converged."""
+    if method not in LOO_METHODS:
+        raise ValueError(f"unknown LOO method {method!r}")
+    dev = resolve_device(device)
+    X = torch.as_tensor(ds.X, dtype=DTYPE, device=dev)
+    y = torch.as_tensor(ds.y, dtype=DTYPE, device=dev)
+    n = ds.n
+    rounds = n if rounds is None else min(rounds, n)
+
+    t_start = time.perf_counter()
+    K = kernel_matrix(X, X, kind="rbf", gamma=ds.gamma)
+
+    plan = Plan(sources={"loo": DenseKernel(K)}, y=y, tol=tol,
+                chunk_iters=chunk_iters, max_width=max_width, device=dev)
+    zeros = torch.zeros(n, dtype=DTYPE, device=dev)
+    # round t's training mask: every instance but t (one copy to the card)
+    masks = torch.as_tensor(~np.eye(rounds, n, dtype=bool), device=dev)
+    rows = torch.arange(n, device=dev)
+    # full-data SVM (shared by AVG/TOP; also round -1 for the chain methods)
+    plan.lane("full", train_mask=torch.ones(n, dtype=torch.bool, device=dev),
+              C=ds.C, alpha0=zeros, f0=-y, max_iter=max_iter)
+    for t in range(rounds):
+        common = dict(train_mask=masks[t], C=ds.C, max_iter=max_iter)
+        if method == "cold":
+            plan.lane(t, alpha0=zeros, f0=-y, **common)
+        elif method in ("avg", "top"):
+            plan.lane(t, dep="full", transform=f"loo_{method}",
+                      params={"t": t}, **common)
+        elif t == 0:
+            # first round: remove t from the full SVM (AVG-style entry)
+            plan.lane(0, dep="full", transform="loo_avg", params={"t": 0},
+                      **common)
+        else:
+            plan.lane(t, dep=t - 1, transform="fold",
+                      params=dict(method=method,
+                                  S_idx=torch.cat([rows[:t - 1],
+                                                   rows[t + 1:]]),
+                                  R_idx=rows[t:t + 1],
+                                  T_idx=rows[t - 1:t]), **common)
+        plan.evaluate(t, np.asarray([t]))
+
+    sres = run_plan(plan)
+    total_iters = sum(sres.stats[t].n_iter for t in range(rounds))
+    correct = sum(sres.evals[t][0] for t in range(rounds))
+    elapsed = time.perf_counter() - t_start
+    return {"dataset": ds.name, "method": method, "rounds": rounds,
+            "base_iterations": sres.stats["full"].n_iter,
+            "iterations": total_iters,
+            "elapsed_s": round(elapsed, 4),
+            "accuracy": round(correct / rounds, 4),
+            "converged": all(st.converged for st in sres.stats.values())}

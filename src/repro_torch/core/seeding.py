@@ -1,10 +1,14 @@
 """Alpha-seeding algorithms (the paper's contribution).
 
 Mirrors ``src/repro/core/seeding.py``: ``water_fill``, ``_box``,
-``repair_equality``, ``_bias``, ``cold_seed``, ``mir_seed``, ``sir_seed``,
-``ato_seed`` over ``_ato_ramp``, and ``SEEDERS``. ``ato_seed_ref``,
-``ato_seed_batch``, ``scale_seed_C``, the LOO seeders and ``TRANSFORMS``
-are later slices of the port.
+``repair_equality``, ``_bias``, ``scale_seed_C``, ``cold_seed``,
+``mir_seed``, ``sir_seed``, ``ato_seed_ref`` (the host-side pinv loop,
+the oracle), ``ato_seed`` and ``ato_seed_batch`` over ``_ato_ramp`` (one
+lane, or a row of lanes), the LOO seeders ``avg_seed_loo`` and
+``top_seed_loo``, ``SEEDERS``, and the named seed transforms
+``TRANSFORMS`` (``fold``, ``scale_C``, ``loo_avg``, ``loo_top``) with
+``register_transform``. The re-export of ``seed_active_mask`` belongs to
+shrinking, a later slice of the port.
 
 All seeders share one contract::
 
@@ -26,27 +30,36 @@ Where the reference's arithmetic is not reproducible bit for bit:
   bit (``jax.random.uniform(PRNGKey(seed))``, reproduced in numpy by
   ``core/threefry.py``), so it is not among these.
 * ``ato_seed``: ``torch.linalg.solve_ex`` of the bordered KKT system, an
-  LU like the reference's, in another library.
+  LU like the reference's, in another library; ``ato_seed_batch`` solves
+  its lanes' systems as one batched LU, which may round otherwise again,
+  and ``ato_seed_ref`` takes ``torch.linalg.pinv`` (an SVD, with
+  ``jnp.linalg.pinv``'s cutoff).
+* ``avg_seed_loo``: the spill's sums run in another order.
 
 The reference runs its seeding loops as jitted device loops; so does the
-port. On the card ``water_fill``, SIR's greedy pass and the two halves of
-ATO's ramp step are kernels (``kernels/seeding.py``, one launch each; on
-the CPU their plain versions), and ATO's ramp is enqueued in chunks of
-steps with its stop flag on the device. A seed makes at most these host
-syncs, each counted in ``HOST_SYNCS`` and let through a
-``torch.cuda.set_sync_debug_mode("error")``: ATO's ``m_cap`` (once), its
-stop flag (once a chunk), and MIR's SVD (its error check, once).
+port. On the card ``water_fill``, SIR's greedy pass, the two halves of
+ATO's ramp step (over a row of lanes; one lane for ``ato_seed``) and the
+LOO seeders' spills are kernels (``kernels/seeding.py``, one launch each;
+on the CPU their plain versions), and ATO's ramp is enqueued in chunks of steps with its
+stop flag on the device. A seed makes at most these host syncs, each
+counted in ``HOST_SYNCS`` and let through a
+``torch.cuda.set_sync_debug_mode("error")``: ATO's ``m_cap`` (once; once
+for a whole row of lanes), its stop flag (once a chunk), and MIR's SVD
+(its error check, once). ``ato_seed_ref`` is the oracle and reads the
+host every step, as the reference's does.
 """
 from __future__ import annotations
 
 import contextlib
 import functools
+import math
 
 import torch
 
 from repro_torch.core.threefry import uniform
-from repro_torch.kernels.ops import (ato_apply, ato_system, sir_greedy,
-                                     smo_f_update, water_fill)
+from repro_torch.kernels.ops import (ato_apply_lanes, ato_system_lanes,
+                                     avg_spill, sir_greedy, smo_f_update,
+                                     top_spill, water_fill)
 from repro_torch.svm.engine import SMOResult
 
 #: the seeders' host syncs since the last reset, by the read that made it
@@ -108,6 +121,25 @@ def _bias(prev: SMOResult, y, train_mask, C):
     nf = free.sum()
     mean_f = torch.where(free, prev.f, 0.0).sum() / torch.clamp_min(nf, 1)
     return torch.where(nf > 0, mean_f, 0.5 * (prev.b_up + prev.b_low))
+
+
+# --------------------------------------------------------------------------
+# grid transitions: seed across adjacent C cells (same fold, same gamma)
+# --------------------------------------------------------------------------
+
+def scale_seed_C(alpha, y, C_old, C_new, train_mask):
+    """Warm-start the (C_new, gamma) grid cell from the (C_old, gamma)
+    solution of the SAME fold: ``alpha * C_new / C_old`` (bounded SVs sit
+    at C, which scales linearly), clipped to the new box, then water-filled
+    back to ``sum(y * alpha) = 0``. Rows outside ``train_mask`` stay 0.
+    No host sync."""
+    s = float(C_new) / float(C_old)
+    beta = y * alpha * s
+    lo, hi = _box(y, float(C_new))
+    lo = torch.where(train_mask, lo, 0.0)
+    hi = torch.where(train_mask, hi, 0.0)
+    beta = water_fill(torch.clamp(beta, lo, hi), lo, hi, 0.0)
+    return y * beta
 
 
 # --------------------------------------------------------------------------
@@ -224,6 +256,81 @@ def sir_seed(K, y, C, prev: SMOResult, S_idx, R_idx, T_idx,
 # ATO — Adjusting Alpha Towards Optimum (paper Eq. 7-11, Algorithm 1)
 # --------------------------------------------------------------------------
 
+def ato_seed_ref(K, y, C, prev: SMOResult, S_idx, R_idx, T_idx,
+                 max_steps: int = 30, tol: float = 1e-3):
+    """Karasuyama/Takeuchi-style incremental-decremental ramp, the
+    reference's host-side oracle (paper-faithful pinv least squares): the
+    working sets change size every step, read from the host. Ends when R
+    is drained, at eta >= 1 or after ``max_steps`` (alpha_R then clamped
+    to 0), then repairs the equality constraint."""
+    y = y.to(K.dtype)
+    alpha, f = prev.alpha.clone(), prev.f.clone()
+    n = y.shape[0]
+    in_S, in_T, in_R = _transition_masks(n, S_idx, R_idx, T_idx, K.device)
+    T_active = in_T.clone()
+    R_active = in_R & (alpha > 0)
+    alpha = torch.where(in_T, 0.0, alpha)
+    where = lambda m: torch.nonzero(m).squeeze(1)  # noqa: E731
+
+    for _ in range(max_steps):
+        if not bool(R_active.any()) and not bool(T_active.any()):
+            break
+        train_now = in_S | (in_T & ~T_active)
+        free = train_now & (alpha > 0) & (alpha < C)
+        b = (torch.where(free, f, 0.0).sum() / torch.clamp_min(free.sum(), 1)
+             if bool(free.any()) else 0.5 * (prev.b_up + prev.b_low))
+
+        M, Tc, Rc = where(free), where(T_active), where(R_active)
+        vT = C - alpha[Tc]                     # per-unit ramp-up of alpha_T
+        vR = -alpha[Rc]                        # per-unit ramp-down of alpha_R
+        # Phi = pinv([y_M; Q_MM]) [y_T y_R; Q_MT Q_MR] [C1-a_T; -a_R] (Eq.10)
+        if M.numel() > 0:
+            yM = y[M]
+            K_M = K[M]
+            Q_MM = (yM[:, None] * yM[None, :]) * K_M[:, M]
+            Q_MT = (yM[:, None] * y[Tc][None, :]) * K_M[:, Tc]
+            Q_MR = (yM[:, None] * y[Rc][None, :]) * K_M[:, Rc]
+            A1 = torch.cat([yM[None, :], Q_MM], 0)
+            rhs = torch.cat([(y[Tc] @ vT + y[Rc] @ vR)[None],
+                             Q_MT @ vT + Q_MR @ vR], 0)
+            rtol = 10.0 * max(A1.shape) * torch.finfo(K.dtype).eps
+            Phi = torch.linalg.pinv(A1, rtol=rtol) @ rhs
+        # per-unit df (Eq. 11 divided by y_i): g_i = -sum_M y_m Phi_m K_im
+        #   + sum_T y_t (C-a_t) K_it - sum_R y_r a_r K_ir
+        g = K[:, Tc] @ (y[Tc] * vT) + K[:, Rc] @ (y[Rc] * vR)
+        if M.numel() > 0:
+            g = g - K[:, M] @ (y[M] * Phi)
+        # step size: smallest eta>0 putting some bound instance's f at b (Eq.5)
+        bound = train_now & ~free
+        live = g.abs() > 1e-12
+        safe_g = torch.where(live, g, 1.0)
+        etas = torch.where(bound & live, (b - f) / safe_g, math.inf)
+        etas = torch.where(etas > 1e-12, etas, math.inf)
+        eta = float(torch.clamp_max(etas.min(), 1.0))
+        if not math.isfinite(eta):
+            eta = 1.0
+        if M.numel() > 0:
+            alpha = alpha.index_add(0, M, -eta * Phi)
+        alpha = alpha.index_add(0, Tc, eta * vT)
+        alpha = alpha.index_add(0, Rc, eta * vR)
+        alpha = torch.clamp(alpha, 0.0, C)
+        f = f + eta * g
+        # retire drained R instances; graduate T instances that meet Eq. 5
+        R_active = R_active & (alpha > 1e-12 * max(C, 1.0))
+        fT, aT, yT = f[Tc], alpha[Tc], y[Tc]
+        ok_m = (aT > 0) & (aT < C) & ((fT - b).abs() <= tol)
+        ok_u = ((yT > 0) & (aT <= 0) | ((yT < 0) & (aT >= C))) \
+            & (fT >= b - tol)
+        ok_l = ((yT > 0) & (aT >= C) | ((yT < 0) & (aT <= 0))) \
+            & (fT <= b + tol)
+        T_active = T_active.index_copy(0, Tc, ~(ok_m | ok_u | ok_l))
+        if eta >= 1.0:
+            break
+
+    alpha = torch.where(in_R, 0.0, alpha)   # R must leave the training set
+    return repair_equality(alpha, y, C, S_idx, T_idx)
+
+
 def _bucket_cap(m: int, n: int) -> int:
     """Smallest multiple of 128 >= m, clamped to [1, n]: the padded size of
     the ramp's working set."""
@@ -231,61 +338,77 @@ def _bucket_cap(m: int, n: int) -> int:
     return max(1, min(cap, n))
 
 
-def _ato_step(K, y, C, tol, b_fallback, in_S, in_T, m_cap, max_steps,
-              alpha, f, T_act, R_act, done, step, zeros):
-    """One ramp step, in place on the state (alpha, f, T_act, R_act, done,
-    step). No host sync: the working set is compacted on the device, the
-    LU reports no errors (a non-finite solve falls back to Phi = 0), and a
-    step that starts done leaves the state as it is (``ato_apply``'s eta =
-    0 makes the alpha update the identity)."""
-    s = ato_system(K, y, C, alpha, f, b_fallback, in_S, in_T, T_act, R_act,
-                   m_cap)
-    r = s.rhs[1:]
-    torch.mv(K.index_select(0, s.idx), s.w, out=r)
-    r.mul_(s.yM)                     # r = yM * (K_M: @ w)
+def _ato_step(K, y, Cs, box, tol, b_fallback, in_S, in_T, m_cap,
+              max_steps, alpha, f, T_act, R_act, done, step, zeros):
+    """One ramp step over a row of lanes, in place on the state (alpha, f,
+    T_act, R_act (lanes, n); done, step (lanes,)); Cs and b_fallback
+    (lanes,), ``box`` the lanes' alpha bounds as columns (0, Cs). No host
+    sync: each half of the step is one launch for every lane, the working
+    sets are compacted on the device, and the LU is one batched solve that
+    reports no errors (a non-finite solve falls back to Phi = 0). The
+    kernel products are taken lane by lane, so a lane is what a one-lane
+    ramp gives it but for the batched LU. A lane that is done passes
+    through unchanged (``ato_apply_lanes``' eta = 0 makes the alpha update
+    the identity)."""
+    s = ato_system_lanes(K, y, Cs, alpha, f, b_fallback, in_S, in_T, T_act,
+                         R_act, m_cap)
+    r = s.rhs[:, 1:]
+    for idx, w, r_l in zip(s.idx, s.w, r):
+        torch.mv(K.index_select(0, idx), w, out=r_l)
+    r.mul_(s.yM)                     # r = yM * (K_M: @ w), each lane
     sol = torch.linalg.solve_ex(s.B, s.rhs, check_errors=False).result
-    Phi = torch.where(s.lane & torch.isfinite(sol[1:]), sol[1:], 0.0)
-    Phi_full = zeros.index_add(0, s.idx, Phi)
-    # per-unit df (Eq. 11 divided by y_i), one kernel matvec
-    g = K @ (s.w - y * Phi_full)
-    eta = ato_apply(g, f, alpha, s.v, Phi_full, y, s.b, C, tol, s.train_now,
-                    s.free, T_act, R_act, done, step, max_steps)
+    sol = sol[:, 1:]
+    Phi = torch.where(s.lane & torch.isfinite(sol), sol, 0.0)
+    Phi_full = zeros.scatter_add(1, s.idx, Phi)
+    # per-unit df (Eq. 11 divided by y_i), one kernel matvec a lane
+    u = s.w - y * Phi_full
+    g = torch.empty_like(u)
+    for u_l, g_l in zip(u, g):
+        torch.mv(K, u_l, out=g_l)
+    eta = ato_apply_lanes(g, f, alpha, s.v, Phi_full, y, s.b, Cs, tol,
+                          s.train_now, s.free, T_act, R_act, done, step,
+                          max_steps)
     # M, T-active and R-active are disjoint: one fused update
-    torch.clamp(smo_f_update(alpha, s.v, Phi_full, eta), 0.0, C, out=alpha)
+    torch.clamp(smo_f_update(alpha, s.v, Phi_full, eta), *box, out=alpha)
 
 
-def _ato_ramp(K, y, C, alpha, f, b_fallback, in_S, in_T, in_R, tol,
+def _ato_ramp(K, y, Cs, alpha, f, b_fallback, in_S, in_T, in_R, tol,
               m_cap: int, max_steps: int, chunk: int | None = None):
-    """Fixed-shape ATO ramp: the M/T/R index sets are masks, and the
-    per-step least squares is a bordered KKT solve over the working set
-    padded to ``m_cap >= |free S at entry| + |T|`` (exact: a bounded row
-    never becomes free, graduated T rows can).
+    """Fixed-shape ATO ramp over a row of lanes (alpha, f (lanes, n); Cs,
+    b_fallback (lanes,)) sharing one fold transition and ``m_cap``: the
+    reference's while_loop (``_ato_seed_batch_jit`` vmaps it). The M/T/R
+    index sets are masks, and the per-step least squares is a bordered KKT
+    solve over the working set padded to ``m_cap >= |free S at entry| +
+    |T|`` (exact: a bounded row never becomes free, graduated T rows can).
 
     The steps are enqueued in chunks, ``chunk`` at a time (default: 1, 2,
-    4, then ``ATO_CHUNK``); the stop flag (the reference's loop condition:
-    no R or T row active, eta >= 1, or ``max_steps`` steps) lives on the
-    device and the host reads it once a chunk. Steps past it are the
-    identity, so the result does not depend on the chunks. The alpha and
-    f updates, ``alpha + eta * (v - Phi)`` and ``f + eta * g``, are rounded
-    by the reference as one FMA each: the first goes through
-    ``smo_f_update``, the second is ``ato_apply``'s.
+    4, then ``ATO_CHUNK``); each lane's stop flag (the reference's loop
+    condition: no R or T row active, eta >= 1, or ``max_steps`` steps)
+    lives on the device, a lane that is done freezes, and the host reads
+    the flags once a chunk and stops when every lane is done. Steps past a
+    lane's stop are the identity, so the result does not depend on the
+    chunks. The alpha and f updates, ``alpha + eta * (v - Phi)`` and ``f +
+    eta * g``, are rounded by the reference as one FMA each: the first
+    goes through ``smo_f_update`` (a row a lane), the second is ``ato_apply_lanes``'.
     """
-    n = y.shape[0]
-    T_act, R_act = in_T.clone(), in_R & (alpha > 0)
+    lanes, n = alpha.shape
+    T_act = in_T.expand(lanes, n).clone()
+    R_act = in_R & (alpha > 0)
     alpha = torch.where(in_T, 0.0, alpha)
     f = f.clone()
-    done = ~(R_act.any() | T_act.any())
+    done = ~(R_act.any(1) | T_act.any(1))
     if max_steps <= 0:
         done.fill_(True)
-    step = torch.zeros((), dtype=torch.int64, device=K.device)
-    zeros = torch.zeros(n, dtype=K.dtype, device=K.device)
+    step = torch.zeros(lanes, dtype=torch.int64, device=K.device)
+    zeros = torch.zeros_like(alpha)
+    box = (torch.zeros_like(Cs)[:, None], Cs[:, None])
     size = chunk or 1
     while True:
         for _ in range(size):
-            _ato_step(K, y, C, tol, b_fallback, in_S, in_T, m_cap, max_steps,
-                      alpha, f, T_act, R_act, done, step, zeros)
+            _ato_step(K, y, Cs, box, tol, b_fallback, in_S, in_T, m_cap,
+                      max_steps, alpha, f, T_act, R_act, done, step, zeros)
         with _host_read("ato_flag", K):
-            if bool(done):
+            if bool(done.all()):
                 break
         size = chunk or min(2 * size, ATO_CHUNK)
     return torch.where(in_R, 0.0, alpha)   # R must leave the training set
@@ -303,18 +426,178 @@ def ato_seed(K, y, C, prev: SMOResult, S_idx, R_idx, T_idx,
              max_steps: int = 30, tol: float = 1e-3,
              chunk: int | None = None):
     """ATO: ramp alpha_T up and alpha_R down along the KKT path (paper
-    Algorithm 1, ``_ato_ramp``), then repair the equality constraint."""
+    Algorithm 1, ``_ato_ramp`` over one lane), then repair the equality
+    constraint."""
     y = y.to(K.dtype)
     n = y.shape[0]
     in_S, in_T, in_R = _transition_masks(n, S_idx, R_idx, T_idx, K.device)
     with _host_read("ato_m_cap", K):   # sizes the pad, as the reference's
         nf0 = int((in_S & (prev.alpha > 0) & (prev.alpha < C)).sum())
     m_cap = _bucket_cap(nf0 + int(T_idx.shape[0]), n)
-    b_fb = 0.5 * (prev.b_up + prev.b_low)
-    out = _ato_ramp(K, y, C, prev.alpha, prev.f, b_fb, in_S, in_T, in_R, tol,
-                    m_cap, int(max_steps), chunk)
-    return repair_equality(out, y, C, S_idx, T_idx)
+    b_fb = torch.as_tensor(0.5 * (prev.b_up + prev.b_low), dtype=K.dtype,
+                           device=K.device)
+    out = _ato_ramp(K, y, _on_device([float(C)], K.dtype, K.device),
+                    prev.alpha[None], prev.f[None], b_fb.reshape(1), in_S,
+                    in_T, in_R, tol, m_cap, int(max_steps), chunk)
+    return repair_equality(out[0], y, C, S_idx, T_idx)
 
 
-SEEDERS = {"cold": cold_seed, "ato": ato_seed, "mir": mir_seed,
-           "sir": sir_seed}
+def _on_device(values, dtype, dev):
+    """A host sequence as a tensor on ``dev``, copied from pinned memory
+    without waiting on the stream (no sync)."""
+    t = torch.tensor(values, dtype=dtype)
+    if dev.type != "cuda":
+        return t
+    return t.pin_memory().to(dev, non_blocking=True)
+
+
+def ato_seed_batch(K, y, Cs, prev: SMOResult, S_idx, R_idx, T_idx,
+                   max_steps: int = 30, tol: float = 1e-3,
+                   bucket_by_lane: bool = True, chunk: int | None = None):
+    """Batched ATO over lanes sharing one fold transition, the grid's C-row
+    case: ``prev`` is a batched ``SMOResult`` (leading axis = lane, one per
+    C value) and ``Cs`` the lanes' C values (numbers). Returns the seeds
+    (lanes, n).
+
+    ``bucket_by_lane=True`` pads each lane's working set to its own
+    ``_bucket_cap(|free S|_l + |T|, n)`` (the solo ``ato_seed``'s exact
+    bound) and ramps each group of lanes of one cap together; ``False``
+    pads every lane to the widest cap in one group. The lanes' free counts
+    come to the host in one read. Each group is one ramp (``_ato_ramp``):
+    per step one launch of each half of the step for all its lanes and one
+    batched LU. Each lane is held to the solo ``ato_seed``
+    within the ATO bar (the batched LU may round otherwise).
+    """
+    y = y.to(K.dtype)
+    n, dev = y.shape[0], K.device
+    C_list = [float(c) for c in Cs]
+    lanes = len(C_list)
+    Cs_dev = _on_device(C_list, K.dtype, dev)
+    in_S, in_T, in_R = _transition_masks(n, S_idx, R_idx, T_idx, dev)
+    free0 = in_S & (prev.alpha > 0) & (prev.alpha < Cs_dev[:, None])
+    with _host_read("ato_m_cap", K):   # one (lanes,) read sizes every pad
+        nf0s = free0.sum(1).tolist()
+    t_sz = int(T_idx.shape[0])
+    b_fbs = 0.5 * (prev.b_up + prev.b_low)
+    if bucket_by_lane:
+        caps = [_bucket_cap(nf + t_sz, n) for nf in nf0s]
+    else:
+        caps = [_bucket_cap(max(nf0s) + t_sz, n)] * lanes
+    out = torch.empty_like(prev.alpha)
+    for cap in sorted(set(caps)):
+        sel = [l for l in range(lanes) if caps[l] == cap]
+        pick = lambda t: torch.stack([t[l] for l in sel])  # noqa: E731
+        ramp = _ato_ramp(K, y, _on_device([C_list[l] for l in sel],
+                                                K.dtype, dev),
+                               pick(prev.alpha), pick(prev.f), pick(b_fbs),
+                               in_S, in_T, in_R, tol, cap, int(max_steps),
+                               chunk)
+        for i, l in enumerate(sel):
+            out[l] = repair_equality(ramp[i], y, C_list[l], S_idx, T_idx)
+    return out
+
+
+# --------------------------------------------------------------------------
+# LOO baselines: AVG (DeCoste & Wagstaff 2000) and TOP (Lee et al. 2004)
+# --------------------------------------------------------------------------
+
+def _loo_start(y, C, alpha, t: int):
+    """beta = y * alpha with row t taken out (its mass is the residual),
+    and the box with row t closed."""
+    beta = y * alpha
+    resid = beta[t].clone()
+    beta.select(0, t).fill_(0.0)
+    lo, hi = _box(y, C)
+    lo.select(0, t).fill_(0.0)
+    hi.select(0, t).fill_(0.0)
+    return beta, resid, lo, hi
+
+
+def avg_seed_loo(K, y, C, alpha, t: int):
+    """Remove instance t; distribute beta_t = y_t alpha_t uniformly over the
+    free set, 8 rounds of spilling what the boxes refuse (``avg_spill``),
+    then water-fill (paper suppl.). No host sync."""
+    t = int(t)
+    beta, resid, lo, hi = _loo_start(y, C, alpha, t)
+    free0 = (alpha > 0) & (alpha < C)
+    free0.select(0, t).fill_(False)
+    beta = avg_spill(beta, lo, hi, free0, resid)
+    return y * water_fill(beta, lo, hi, 0.0)
+
+
+def top_seed_loo(K, y, C, alpha, t: int):
+    """Remove instance t; spill beta_t into instances by descending kernel
+    similarity K(x_j, x_t) until absorbed (``top_spill``), then water-fill
+    (paper suppl., TOP). The order is a stable argsort, as ``jnp.argsort``
+    is, with row t (similarity -inf) last. No host sync."""
+    t = int(t)
+    beta, resid, lo, hi = _loo_start(y, C, alpha, t)
+    sim = K[:, t].clone()
+    sim.select(0, t).fill_(-math.inf)
+    order = torch.argsort(-sim, stable=True)
+    beta = top_spill(order, beta, lo, hi, resid)
+    return y * water_fill(beta, lo, hi, 0.0)
+
+
+SEEDERS = {"cold": cold_seed, "ato": ato_seed, "ato_ref": ato_seed_ref,
+           "mir": mir_seed, "sir": sir_seed}
+
+
+# --------------------------------------------------------------------------
+# named seed transforms — the Study API's admission vocabulary
+# --------------------------------------------------------------------------
+#
+# A transform maps a retired lane's ``SMOResult`` to the next lane's start
+# point under one contract::
+#
+#     alpha0 = TRANSFORMS[name](K, y, C, prev, **params)
+#
+# where (K, y) come from the depending lane's kernel source, C is ITS box
+# bound, and ``params`` are the plan-declared keyword arguments (index
+# sets, the neighbour C, the held-out instance). Plans name transforms
+# (plus params) instead of closures, so a lane graph is data.
+# ``repro_torch.core.study`` finishes the admission with
+# ``f0 = init_f(K, y, alpha0)``.
+
+TRANSFORMS: dict[str, callable] = {}
+
+
+def register_transform(name: str):
+    """Register a seed transform under ``name`` (see TRANSFORMS above)."""
+    def deco(fn):
+        TRANSFORMS[name] = fn
+        return fn
+    return deco
+
+
+@register_transform("fold")
+def fold_transform(K, y, C, prev, *, method, S_idx, R_idx, T_idx):
+    """The paper's fold-transition seeders by name: ``method`` picks the
+    SEEDERS entry, the index sets describe the h-1 -> h transition."""
+    return SEEDERS[method](K, y, C, prev, S_idx, R_idx, T_idx)
+
+
+@register_transform("scale_C")
+def scale_C_transform(K, y, C, prev, *, C_old, train_mask):
+    """C-adjacent grid warm start: scale the (C_old, gamma) solution of the
+    SAME fold to this lane's C (``scale_seed_C``)."""
+    return scale_seed_C(prev.alpha, y, C_old, C, train_mask)
+
+
+#: scale_C never touches K, so the Study API admits it on K-less
+#: (row-streaming) sources, deriving f0 from the source's streaming matvec
+scale_C_transform.kernel_free = True
+
+
+@register_transform("loo_avg")
+def loo_avg_transform(K, y, C, prev, *, t):
+    """LOO round entry (DeCoste & Wagstaff AVG): remove instance ``t`` from
+    ``prev``'s solution, spreading its mass over the free set."""
+    return avg_seed_loo(K, y, C, prev.alpha, t)
+
+
+@register_transform("loo_top")
+def loo_top_transform(K, y, C, prev, *, t):
+    """LOO round entry (Lee et al. TOP): spill instance ``t``'s mass by
+    descending kernel similarity."""
+    return top_seed_loo(K, y, C, prev.alpha, t)

@@ -9,11 +9,16 @@ to its device (``cuda`` unless ``Plan.device="cpu"``), runs it on one
 ``LanePool`` and evaluates it.
 
 Lanes are start lanes (``alpha0``/``f0``, optionally held by an ``after``
-edge) or given lanes (``result``). Dependent lanes carry a named seed
-transform from ``seeding.TRANSFORMS``, which is not ported yet: a plan that
-names one is refused at entry. Checkpoints, the static plan analysis
-(``StudyResult.analysis`` stays None), support-vector-only evaluation,
-shrinking and the wire format are later slices of the port.
+edge), dependent lanes (``dep`` + ``transform``, a name in
+``seeding.TRANSFORMS``, + ``params``: admitted the moment the dependency
+retires, started at ``transform(K, y, C, dep_result, **params)`` with
+``f0 = init_f(K, y, alpha0)``, or from the source's streaming ``matvec``
+for a kernel-free transform on a K-less source; dependencies may cross
+kernel sources), or given lanes (``result``). ``run_cv``, ``run_loo``
+and ``run_grid`` declare their protocols as plans for this entry point.
+Checkpoints, the static plan analysis (``StudyResult.analysis`` stays
+None), support-vector-only evaluation, shrinking and the wire format are
+later slices of the port.
 """
 from __future__ import annotations
 
@@ -24,9 +29,11 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.core import seeding
 from repro_torch.device import DTYPE, resolve_device
 from repro_torch.svm.engine import SMOResult
 from repro_torch.svm.scheduler import LanePool
+from repro_torch.svm.smo import init_f
 from repro_torch.svm.sources import KernelSpec, is_factory
 from repro_torch.svm.svc import bias_from_solution, predict
 
@@ -145,6 +152,14 @@ def _result_on(r, dev) -> SMOResult:
     return SMOResult(*(torch.as_tensor(t, device=dev) for t in r))
 
 
+def _params_on(params: dict, dev) -> dict:
+    """A transform's params with every array (index sets, masks) as a
+    tensor on ``dev``; numbers stay as they are."""
+    return {k: torch.as_tensor(v, device=dev)
+            if isinstance(v, (np.ndarray, torch.Tensor)) else v
+            for k, v in params.items()}
+
+
 def plan_on_device(plan: Plan) -> Plan:
     """The plan with every array as a tensor on its device (``cuda`` unless
     ``plan.device`` says otherwise; raises without a GPU)."""
@@ -154,6 +169,7 @@ def plan_on_device(plan: Plan) -> Plan:
     lanes = [dataclasses.replace(
         s, train_mask=_tensor(s.train_mask, dev, torch.bool),
         alpha0=_tensor(s.alpha0, dev, DTYPE), f0=_tensor(s.f0, dev, DTYPE),
+        params=_params_on(s.params, dev),
         result=None if s.result is None else _result_on(s.result, dev))
         for s in plan.lanes]
     return dataclasses.replace(
@@ -162,21 +178,60 @@ def plan_on_device(plan: Plan) -> Plan:
         y=y, lanes=lanes, device=dev)
 
 
-def _check_evaluable(plan: Plan, lane_id, key) -> None:
-    """An evaluation needs a dense K or a ``rows_at`` row slab; checkable
-    at entry for an already-usable source."""
+def _make_seed_fn(plan: Plan, spec: LaneSpec, resolve):
+    """The pool-facing seed closure of a dependent lane. ``resolve`` maps a
+    source key to a usable source at call time (the pool's residency
+    cache), so a factory source materializes only when a lane of its seeds.
+    """
+    fn = seeding.TRANSFORMS[spec.transform]
+    key = plan.source_key_of(spec)
+    y, C, params = plan.y_of(key), spec.C, dict(spec.params)
+
+    def seed(prev):
+        source = resolve(key)
+        K = getattr(source, "K", None)
+        if K is None:
+            # kernel-free transforms never touch K; f0 comes from the
+            # source's streaming matvec instead of the dense init_f
+            if getattr(fn, "kernel_free", False) and \
+                    callable(getattr(source, "matvec", None)):
+                alpha0 = fn(None, y, C, prev, **params)
+                return alpha0, source.matvec(alpha0 * y) - y
+            raise ValueError(f"lane {spec.id!r}: transform "
+                             f"{spec.transform!r} needs a dense kernel "
+                             f"source (source {key!r} has no K)")
+        alpha0 = fn(K, y, C, prev, **params)
+        return alpha0, init_f(K, y, alpha0)
+
+    return seed
+
+
+def _check_dense(plan: Plan, lane_id, key, what: str,
+                 transform: str | None = None) -> None:
+    """Seed transforms and evaluations need a dense K, unless the source
+    supports the K-less alternative: kernel-free transforms run off a
+    streaming ``matvec``, evaluations off a ``rows_at`` row slab. Checkable
+    at entry for an already-usable source; factory entries are checked
+    when they resolve."""
     entry = plan.sources[key]
-    if is_factory(entry) or getattr(entry, "K", None) is not None \
-            or callable(getattr(entry, "rows_at", None)):
+    if is_factory(entry) or getattr(entry, "K", None) is not None:
         return
-    raise ValueError(f"lane {lane_id!r}: evaluation needs a dense kernel "
+    if transform is not None:
+        fn = seeding.TRANSFORMS[transform]
+        if getattr(fn, "kernel_free", False) and \
+                callable(getattr(entry, "matvec", None)):
+            return
+    elif callable(getattr(entry, "rows_at", None)):
+        return
+    raise ValueError(f"lane {lane_id!r}: {what} a dense kernel "
                      f"source (source {key!r} has no K)")
 
 
 def _validate_plan(plan: Plan, specs: dict) -> None:
     """Fail fast, by name, on a malformed lane graph: unknown source keys,
-    edges to undeclared lanes, seed transforms (not ported), evaluations
-    that cannot run, and dep/after cycles."""
+    edges to undeclared lanes, unknown transform names, transforms and
+    evaluations that need a dense K on a K-less source, and dep/after
+    cycles."""
     for spec in plan.lanes:
         if spec.source is not None and spec.source not in plan.sources:
             raise ValueError(f"lane {spec.id!r}: unknown source key "
@@ -187,14 +242,19 @@ def _validate_plan(plan: Plan, specs: dict) -> None:
                 raise ValueError(
                     f"lane {spec.id!r}: {edge} edge targets undeclared "
                     f"lane {target!r}")
-        if spec.dep is not None or spec.transform is not None:
-            raise ValueError(
-                f"lane {spec.id!r}: seed transform {spec.transform!r} is "
-                "not ported yet (it waits for seeding.TRANSFORMS)")
+        if spec.dep is not None:
+            if spec.transform not in seeding.TRANSFORMS:
+                raise ValueError(f"lane {spec.id!r}: unknown transform "
+                                 f"{spec.transform!r} (have "
+                                 f"{sorted(seeding.TRANSFORMS)})")
+            _check_dense(plan, spec.id, plan.source_key_of(spec),
+                         f"transform {spec.transform!r} needs",
+                         transform=spec.transform)
     for ev in plan.evals:
         if ev.lane not in specs:
             raise ValueError(f"EvalSpec targets undeclared lane {ev.lane!r}")
-        _check_evaluable(plan, ev.lane, plan.source_key_of(specs[ev.lane]))
+        _check_dense(plan, ev.lane, plan.source_key_of(specs[ev.lane]),
+                     "evaluation needs")
     # cycle check over the admission edges: iterative three-color DFS
     edges = {spec.id: [t for t in (spec.dep, spec.after)
                        if t is not None and specs[t].result is None]
@@ -254,17 +314,25 @@ def plan_specs(plan: Plan) -> dict:
 
 def enroll_plan_lanes(pool: LanePool, plan: Plan, specs: dict) -> set:
     """Register every plan lane with ``pool``: given results directly,
-    start lanes with their state (held by ``after`` edges). Returns the ids
-    that entered pre-solved."""
+    dependent lanes with their lazy seed closure, start lanes with their
+    state (each may be held by an ``after`` edge). Returns the ids that
+    entered pre-solved."""
     pre_done: set = set()
     for spec in plan.lanes:
         if spec.result is not None:
             pool.add_result(spec.id, spec.result)
             pre_done.add(spec.id)
             continue
-        pool.add(spec.id, spec.train_mask, spec.C, spec.alpha0, spec.f0,
-                 source=plan.source_key_of(spec), n_iter0=spec.n_iter0,
-                 max_iter=spec.max_iter, after=spec.after)
+        key = plan.source_key_of(spec)
+        if spec.dep is not None:
+            pool.add(spec.id, spec.train_mask, spec.C, source=key,
+                     dep=spec.dep,
+                     seed_fn=_make_seed_fn(plan, spec, pool.resolve_source),
+                     max_iter=spec.max_iter, after=spec.after)
+        else:
+            pool.add(spec.id, spec.train_mask, spec.C, spec.alpha0, spec.f0,
+                     source=key, n_iter0=spec.n_iter0,
+                     max_iter=spec.max_iter, after=spec.after)
     return pre_done
 
 

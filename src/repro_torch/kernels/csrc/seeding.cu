@@ -1,13 +1,16 @@
 // Alpha seeding's device loops in float64: water_fill's bisection, SIR's
-// greedy replacement pass, and one step of ATO's ramp in two halves
-// (ato_system before the LU solve, ato_apply after it).
+// greedy replacement pass, one step of ATO's ramp over a row of lanes in
+// two halves (ato_system before the LU solve, ato_apply after it; the solo
+// ramp is one lane), and the LOO seeders' spills (avg_spill, top_spill).
 //
 // Replaces the reference's jitted device loops in src/repro/core/seeding.py
 // (lax loops, not Pallas): water_fill's fori_loop (:61), sir_seed's
-// fori_loop over |R| (:225) and the body of _ato_ramp's while_loop
-// (:361-420), which the port had run as eager torch ops launched from the
-// host (~8 launches a bisection step, ~20 a removed row, ~50 and four host
-// syncs a ramp step).
+// fori_loop over |R| (:225), the body of _ato_ramp's while_loop
+// (:361-420) and its vmap over a C row (_ato_seed_batch_jit, :435),
+// avg_seed_loo's 8-round spill (:537) and top_seed_loo's spill over the
+// instances in order of similarity (:566), which would otherwise run as
+// eager torch ops launched from the host (~8 launches a bisection step, ~20
+// a removed row, ~50 and four host syncs a ramp step, ~10 a spill step).
 //
 // Every loop here is sequential by nature and small (|T| and |R| are a
 // tenth of n, the working set a few hundred rows), so each kernel is bound
@@ -22,7 +25,15 @@
 // that one launch of many blocks also writes the bordered (m_cap + 1)^2
 // KKT matrix row by row. ato_apply reduces the step size, applies the f
 // update and retires / graduates rows in one block, and writes the ramp's
-// device stop flag, which the host reads once per chunk of steps.
+// device stop flag, which the host reads once per chunk of steps. Over a
+// row of lanes (a grid's C row, one fold transition) each lane takes the
+// same code on its own slice: ato_system's blocks are a (rows, lanes) grid,
+// ato_apply runs a block a lane, so a lane's outputs do not depend on the
+// other lanes. avg_spill runs its 8 rounds in one
+// block, two block reductions a round (the count, exact, and the sum of the
+// adds). top_spill is a chain through the residual: one thread walks the
+// order over lo, hi and beta that the block gathered into shared memory,
+// and stops where the residual is 0, past which every take is a zero.
 //
 // Built with -fmad=false (kernels/_build.py): each expression rounds op by
 // op as the plain versions (kernels/ref.py) do, the f update being one
@@ -381,18 +392,41 @@ sir_greedy_kernel(const double* __restrict__ K_RT,
 // rhs[0] = nf > 0 ? sum(w) : 0. Every block compacts the free set in
 // shared memory; block 0 writes the vectors; the blocks share B's rows.
 // ---------------------------------------------------------------------------
+// Lane l = blockIdx.y reads row l of alpha, f, T_act, R_act (n each), its
+// b_fallback and C (Cs[l]), and writes row l of every output.
 __global__ void ato_system_kernel(
     const double* __restrict__ K, int n, const double* __restrict__ y,
     const double* __restrict__ alpha, const double* __restrict__ f,
     const double* __restrict__ b_fallback, const bool* __restrict__ in_S,
     const bool* __restrict__ in_T, const bool* __restrict__ T_act,
-    const bool* __restrict__ R_act, double C, int m_cap,
-    bool* __restrict__ train_now_o, bool* __restrict__ free_o,
+    const bool* __restrict__ R_act, const double* __restrict__ Cs,
+    int m_cap, bool* __restrict__ train_now_o, bool* __restrict__ free_o,
     long long* __restrict__ nf_o, double* __restrict__ b_o,
     double* __restrict__ v_o, double* __restrict__ w_o,
     long long* __restrict__ idx_o, bool* __restrict__ lane_o,
     double* __restrict__ yM_o, double* __restrict__ Bm,
     double* __restrict__ rhs) {
+  {
+    const long long l = blockIdx.y, ln = l * n, lm = l * m_cap,
+                    M1 = (long long)m_cap + 1;
+    alpha += ln;
+    f += ln;
+    T_act += ln;
+    R_act += ln;
+    b_fallback += l;
+    train_now_o += ln;
+    free_o += ln;
+    v_o += ln;
+    w_o += ln;
+    nf_o += l;
+    b_o += l;
+    idx_o += lm;
+    lane_o += lm;
+    yM_o += lm;
+    Bm += l * M1 * M1;
+    rhs += l * M1;
+  }
+  const double C = Cs[blockIdx.y];
   extern __shared__ double dyn[];
   double* s_yM = dyn;                          // m_cap doubles
   int* s_idx = reinterpret_cast<int*>(dyn + m_cap);   // m_cap ints
@@ -495,6 +529,9 @@ __global__ void ato_system_kernel(
 // done = eta >= 1 or step == max_steps or no R or T row active. A step
 // that starts done writes eta = 0 and changes nothing. One block.
 // ---------------------------------------------------------------------------
+// Lane l = blockIdx.x: row l of g, f, alpha, v, Phi, train_now, free_m,
+// T_act and R_act, and entry l of b, done, step and eta (y is shared); C is
+// Cs[l]; thresh = 1e-12 max(C, 1).
 __global__ void ato_apply_kernel(
     const double* __restrict__ g, double* __restrict__ f,
     const double* __restrict__ alpha, const double* __restrict__ v,
@@ -503,10 +540,28 @@ __global__ void ato_apply_kernel(
     const bool* __restrict__ free_m, bool* __restrict__ T_act,
     bool* __restrict__ R_act, bool* __restrict__ done,
     long long* __restrict__ step, double* __restrict__ eta_o, int n,
-    double C, double tol, double thresh, long long max_steps) {
+    const double* __restrict__ Cs, double tol, long long max_steps) {
   __shared__ Red red;
   int par = 0;
   const int tid = threadIdx.x, nt = blockDim.x;
+  {
+    const long long l = blockIdx.x, ln = l * n;
+    g += ln;
+    f += ln;
+    alpha += ln;
+    v += ln;
+    Phi += ln;
+    train_now += ln;
+    free_m += ln;
+    T_act += ln;
+    R_act += ln;
+    b_p += l;
+    done += l;
+    step += l;
+    eta_o += l;
+  }
+  const double C = Cs[blockIdx.x];
+  const double thresh = 1e-12 * (1.0 > C ? 1.0 : C);   // Python's max(C, 1)
   if (*done) {
     if (tid == 0) *eta_o = 0.0;
     return;
@@ -550,6 +605,104 @@ __global__ void ato_apply_kernel(
     *step = st;
     *done = eta >= 1.0 || st >= max_steps || !(anyR || anyT);
   }
+}
+
+// ---------------------------------------------------------------------------
+// avg_spill: avg_seed_loo's spill of the held-out residual over the free set,
+// `rounds` times: room = resid >= 0 ? hi - beta : beta - lo, can = free0 &
+// room > 1e-15, share = resid / max(#can, 1), add = clip(can ? share : 0,
+// -(beta - lo), hi - beta), beta += add, resid -= sum(add). One block; each
+// thread owns rows tid + k nt of out (beta's copy) and reads them from L1/L2;
+// #can is an integer count (exact), sum(add) sums in the block's order.
+// ---------------------------------------------------------------------------
+__global__ void avg_spill_kernel(const double* __restrict__ beta,
+                                 const double* __restrict__ lo,
+                                 const double* __restrict__ hi,
+                                 const bool* __restrict__ free0,
+                                 const double* __restrict__ resid_p,
+                                 double* __restrict__ out, int n,
+                                 int rounds) {
+  __shared__ Red red;
+  int par = 0;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  for (int i = tid; i < n; i += nt) out[i] = beta[i];
+  double resid = *resid_p;
+  for (int r = 0; r < rounds; ++r) {
+    double cnt = 0.0;
+    for (int i = tid; i < n; i += nt) {
+      const double b = out[i];
+      const double room = resid >= 0.0 ? hi[i] - b : b - lo[i];
+      cnt += (free0[i] && room > 1e-15) ? 1.0 : 0.0;
+    }
+    const double d = block_sum(cnt, red, par);   // integers: exact
+    const double share = resid / (d > 1.0 ? d : 1.0);
+    double sum_add = 0.0;
+    for (int i = tid; i < n; i += nt) {
+      const double b = out[i], l = lo[i], h = hi[i];
+      const double room = resid >= 0.0 ? h - b : b - l;
+      const bool can = free0[i] && room > 1e-15;
+      const double add = clamp_t(can ? share : 0.0, -(b - l), h - b);
+      out[i] = b + add;
+      sum_add += add;
+    }
+    resid = resid - block_sum(sum_add, red, par);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// top_spill: top_seed_loo's spill of the held-out residual over the rows in
+// `order` (the first `steps`): room = resid >= 0 ? hi[j] - beta[j] : lo[j] -
+// beta[j], take = clip(resid, min(room, 0), max(room, 0)), beta[j] += take,
+// resid -= take. Each step needs the last one's residual, so one thread
+// walks the order; the block first gathers lo, hi and beta by the order into
+// shared memory (where they fit; past that the walker gathers from global
+// memory), and scatters the visited rows back. Once resid == 0 every later
+// take is a zero, which leaves beta's values as they are: the walk stops.
+// ---------------------------------------------------------------------------
+__global__ void top_spill_kernel(const long long* __restrict__ order,
+                                 const double* __restrict__ beta,
+                                 const double* __restrict__ lo,
+                                 const double* __restrict__ hi,
+                                 const double* __restrict__ resid_p,
+                                 double* __restrict__ out, int n, int steps,
+                                 int in_smem) {
+  extern __shared__ double stage[];
+  __shared__ int visited;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  double* sb = stage;
+  double* sl = stage + steps;
+  double* sh = stage + 2 * (long long)steps;
+  for (int i = tid; i < n; i += nt) out[i] = beta[i];
+  if (in_smem) {
+    for (int i = tid; i < steps; i += nt) {
+      const long long j = order[i];
+      sb[i] = beta[j];
+      sl[i] = lo[j];
+      sh[i] = hi[j];
+    }
+  }
+  __syncthreads();
+  if (tid == 0) {
+    double resid = *resid_p;
+    int i = 0;
+    for (; i < steps && resid != 0.0; ++i) {
+      const long long j = order[i];
+      const double b = in_smem ? sb[i] : beta[j];
+      const double room = resid >= 0.0 ? (in_smem ? sh[i] : hi[j]) - b
+                                       : (in_smem ? sl[i] : lo[j]) - b;
+      const double take =
+          nan_min(nan_max(resid, nan_min(room, 0.0)), nan_max(room, 0.0));
+      if (in_smem)
+        sb[i] = b + take;
+      else
+        out[j] = b + take;
+      resid = resid - take;
+    }
+    visited = i;
+  }
+  __syncthreads();
+  if (in_smem)
+    for (int i = tid; i < visited; i += nt) out[order[i]] = sb[i];
 }
 
 int threads_for(long long n, int per_thread) {
@@ -607,15 +760,18 @@ extern "C" int ato_system_max_m_cap() {
   return (kMaxDynSmem - 4096) / 12;
 }
 
-extern "C" int ato_system_f64(
+// ato_system over `lanes` lanes: alpha, f, T_act, R_act (lanes, n), Cs and
+// b_fallback (lanes,); every output has a leading lane axis.
+extern "C" int ato_system_lanes_f64(
     const double* K, int n, const double* y, const double* alpha,
     const double* f, const double* b_fallback, const bool* in_S,
-    const bool* in_T, const bool* T_act, const bool* R_act, double C,
-    int m_cap, bool* train_now, bool* free_m, long long* nf, double* b,
-    double* v, double* w, long long* idx, bool* lane, double* yM, double* B,
-    double* rhs, cudaStream_t stream) {
-  if (n <= 0 || m_cap <= 0) return 0;
-  if (m_cap > ato_system_max_m_cap()) return (int)cudaErrorInvalidValue;
+    const bool* in_T, const bool* T_act, const bool* R_act, const double* Cs,
+    int lanes, int m_cap, bool* train_now, bool* free_m, long long* nf,
+    double* b, double* v, double* w, long long* idx, bool* lane, double* yM,
+    double* B, double* rhs, cudaStream_t stream) {
+  if (n <= 0 || m_cap <= 0 || lanes <= 0) return 0;
+  if (m_cap > ato_system_max_m_cap() || lanes > 65535)
+    return (int)cudaErrorInvalidValue;
   static bool attr = false;
   if (!attr) {
     cudaFuncSetAttribute(ato_system_kernel,
@@ -624,24 +780,55 @@ extern "C" int ato_system_f64(
     attr = true;
   }
   const int rows = m_cap + 1;
-  const int blocks = rows < 264 ? rows : 264;
-  ato_system_kernel<<<blocks, 256, (size_t)12 * m_cap, stream>>>(
-      K, n, y, alpha, f, b_fallback, in_S, in_T, T_act, R_act, C, m_cap,
+  const dim3 grid(rows < 264 ? rows : 264, lanes);
+  ato_system_kernel<<<grid, 256, (size_t)12 * m_cap, stream>>>(
+      K, n, y, alpha, f, b_fallback, in_S, in_T, T_act, R_act, Cs, m_cap,
       train_now, free_m, nf, b, v, w, idx, lane, yM, B, rhs);
   return (int)cudaGetLastError();
 }
 
-extern "C" int ato_apply_f64(const double* g, double* f, const double* alpha,
-                             const double* v, const double* Phi,
-                             const double* y, const double* b,
-                             const bool* train_now, const bool* free_m,
-                             bool* T_act, bool* R_act, bool* done,
-                             long long* step, double* eta, int n, double C,
-                             double tol, double thresh, long long max_steps,
-                             cudaStream_t stream) {
-  if (n <= 0) return 0;
-  ato_apply_kernel<<<1, threads_for(n, 4), 0, stream>>>(
+// ato_apply over `lanes` lanes, a block each: every array but y has a
+// leading lane axis, and C is per lane (Cs).
+extern "C" int ato_apply_lanes_f64(
+    const double* g, double* f, const double* alpha, const double* v,
+    const double* Phi, const double* y, const double* b,
+    const bool* train_now, const bool* free_m, bool* T_act, bool* R_act,
+    bool* done, long long* step, double* eta, int n, const double* Cs,
+    int lanes, double tol, long long max_steps, cudaStream_t stream) {
+  if (n <= 0 || lanes <= 0) return 0;
+  ato_apply_kernel<<<lanes, threads_for(n, 4), 0, stream>>>(
       g, f, alpha, v, Phi, y, b, train_now, free_m, T_act, R_act, done, step,
-      eta, n, C, tol, thresh, max_steps);
+      eta, n, Cs, tol, max_steps);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int avg_spill_f64(const double* beta, const double* lo,
+                             const double* hi, const bool* free0,
+                             const double* resid, double* out, int n,
+                             int rounds, cudaStream_t stream) {
+  if (n <= 0) return 0;
+  avg_spill_kernel<<<1, threads_for(n, 4), 0, stream>>>(
+      beta, lo, hi, free0, resid, out, n, rounds);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int top_spill_f64(const long long* order, const double* beta,
+                             const double* lo, const double* hi,
+                             const double* resid, double* out, int n,
+                             int steps, cudaStream_t stream) {
+  if (n <= 0) return 0;
+  if (steps < 0 || steps > n) return (int)cudaErrorInvalidValue;
+  const long long stage = 3LL * 8 * steps;
+  const int in_smem = stage <= kMaxDynSmem - 4096;
+  static bool attr = false;
+  if (!attr) {
+    cudaFuncSetAttribute(top_spill_kernel,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         kMaxDynSmem - 4096);
+    attr = true;
+  }
+  top_spill_kernel<<<1, threads_for(n, 4), in_smem ? (size_t)stage : 0,
+                     stream>>>(order, beta, lo, hi, resid, out, n, steps,
+                               in_smem);
   return (int)cudaGetLastError();
 }

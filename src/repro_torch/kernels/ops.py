@@ -8,8 +8,9 @@ lanes, on all four of their routes. ``smo_stream_chunk`` counts its
 persistent kernel's launches; on its pair route it adds its launches of
 the WSS-1 selection kernel to ``smo_select`` and of the fused step to
 ``fused_smo_step``.
-``water_fill``, ``sir_greedy``, ``ato_system`` and ``ato_apply`` (the
-seeders' device loops) count one per launch.
+``water_fill``, ``sir_greedy``, ``ato_system_lanes`` / ``ato_apply_lanes``
+(ATO's ramp step, one lane or a row) and ``avg_spill`` / ``top_spill``
+(the LOO seeders) count one per launch.
 ``flash_attention`` counts one per launch (one per prefill attention layer
 on the LM serving path). ``route_counts`` splits the four kernels that have
 routes: ``rbf_kernel_matrix`` (tensor, the FP64 tensor cores / fma),
@@ -20,7 +21,8 @@ fma).
 """
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rbf import rbf_kernel_matrix
-from repro_torch.kernels.seeding import (ato_apply, ato_system, sir_greedy,
+from repro_torch.kernels.seeding import (ato_apply_lanes, ato_system_lanes,
+                                         avg_spill, sir_greedy, top_spill,
                                          water_fill)
 from repro_torch.kernels.smo_chunk import (smo_chunk, smo_chunk_lanes,
                                            smo_select, smo_stream_chunk)
@@ -30,7 +32,8 @@ from repro_torch.kernels.smo_update import smo_f_update
 __all__ = ["rbf_kernel_matrix", "smo_f_update", "smo_chunk",
            "smo_chunk_lanes", "smo_stream_chunk", "smo_select",
            "fused_smo_step", "flash_attention", "water_fill",
-           "sir_greedy", "ato_system", "ato_apply",
+           "sir_greedy", "ato_system_lanes", "ato_apply_lanes", "avg_spill",
+           "top_spill",
            "launch_counts", "reset_launch_counts", "route_counts"]
 
 #: kernel name -> the wrapper that carries its count
@@ -43,8 +46,10 @@ KERNELS = {"rbf_kernel_matrix": rbf_kernel_matrix,
            "flash_attention": flash_attention,
            "water_fill": water_fill,
            "sir_greedy": sir_greedy,
-           "ato_system": ato_system,
-           "ato_apply": ato_apply}
+           "ato_system_lanes": ato_system_lanes,
+           "ato_apply_lanes": ato_apply_lanes,
+           "avg_spill": avg_spill,
+           "top_spill": top_spill}
 
 
 def launch_counts() -> dict[str, int]:

@@ -338,8 +338,8 @@ def compact_ref(mask, m_cap: int):
 
 
 class AtoSystem(NamedTuple):
-    """One ATO ramp step's system (``ato_system``): masks over n, the bias
-    b, directions v and w = y * v, the working set idx (m_cap,) with its
+    """One ATO ramp step's system (a lane of ``ato_system_lanes``): masks
+    over n, the bias b, directions v and w = y * v, the working set idx (m_cap,) with its
     lanes and labels yM, the bordered matrix B (m_cap+1, m_cap+1) and the
     right-hand side rhs (m_cap+1,) with rhs[0] = r0 set (rhs[1:] is the
     caller's)."""
@@ -397,9 +397,9 @@ def ato_apply_ref(g, f, alpha, v, Phi_full, y, b, C, tol, train_now, free,
     done and step; returns eta. The step size is the smallest eta > 1e-12
     putting some bound row's f at b (capped at 1, non-finite -> 1); f moves
     by ``f + eta * g`` (one rounding, ``torch.addcmul``); with alpha' =
-    clip(alpha + eta (v - Phi), 0, C) (the ``smo_f_update`` and clamp that
-    follow), drained R rows retire and T rows meeting Eq. 5 graduate. done
-    is set once eta >= 1, step reaches max_steps or no R or T row is
+    clip(alpha + eta (v - Phi), 0, C) (the ``smo_f_update`` and clamp
+    that follow), drained R rows retire and T rows meeting Eq. 5
+    graduate. done is set once eta >= 1, step reaches max_steps or no R or T row is
     active; a step that starts done changes nothing and returns eta = 0."""
     bound = train_now & ~free
     live = g.abs() > 1e-12
@@ -427,3 +427,60 @@ def ato_apply_ref(g, f, alpha, v, Phi_full, y, b, C, tol, train_now, free,
     eta = torch.where(done, 0.0, eta)
     done.copy_(done | done_new)
     return eta
+
+
+def ato_system_lanes_ref(K, y, Cs, alpha, f, b_fallback, in_S, in_T, T_act,
+                         R_act, m_cap: int) -> AtoSystem:
+    """``ato_system_ref`` over a row of lanes sharing K, y and the
+    transition (in_S, in_T): alpha, f, T_act, R_act (lanes, n), Cs and
+    b_fallback (lanes,); every field of the result gains a leading lane
+    axis. Each lane is ``ato_system_ref`` of its own slice."""
+    parts = [ato_system_ref(K, y, C, alpha[l], f[l], b_fallback[l], in_S,
+                            in_T, T_act[l], R_act[l], m_cap)
+             for l, C in enumerate(torch.as_tensor(Cs).tolist())]
+    return AtoSystem(*(torch.stack(xs) for xs in zip(*parts)))
+
+
+def ato_apply_lanes_ref(g, f, alpha, v, Phi_full, y, b, Cs, tol, train_now,
+                        free, T_act, R_act, done, step, max_steps: int):
+    """``ato_apply_ref`` over a row of lanes, in place on each lane's row of
+    f, T_act, R_act and its entry of done and step (y is shared, Cs and b
+    are per lane); returns eta (lanes,)."""
+    return torch.stack([
+        ato_apply_ref(g[l], f[l], alpha[l], v[l], Phi_full[l], y, b[l], C,
+                      tol, train_now[l], free[l], T_act[l], R_act[l], done[l],
+                      step[l], max_steps)
+        for l, C in enumerate(torch.as_tensor(Cs).tolist())])
+
+
+def avg_spill_ref(beta, lo, hi, free0, resid, rounds: int = 8):
+    """avg_seed_loo's spill (DeCoste & Wagstaff AVG): ``rounds`` times,
+    spread the residual ``resid`` (0-d) uniformly over the free rows that
+    have room in its direction, each add clipped to the row's box [lo, hi];
+    what the boxes refuse carries to the next round. Returns beta."""
+    resid = torch.as_tensor(resid, dtype=beta.dtype, device=beta.device)
+    for _ in range(rounds):
+        room = torch.where(resid >= 0, hi - beta, beta - lo)
+        can = free0 & (room > 1e-15)
+        share = resid / torch.clamp_min(can.sum(), 1)
+        add = torch.clamp(torch.where(can, share, 0.0), -(beta - lo),
+                          hi - beta)
+        beta = beta + add
+        resid = resid - add.sum()
+    return beta
+
+
+def top_spill_ref(order, beta, lo, hi, resid):
+    """top_seed_loo's spill (Lee et al. TOP): walk the rows in ``order``
+    (all but the last, the held-out row), each taking as much of the
+    residual ``resid`` (0-d) as its box [lo, hi] has room for. Returns
+    beta."""
+    resid = torch.as_tensor(resid, dtype=beta.dtype, device=beta.device)
+    beta = beta.clone()
+    for j in order[:-1]:      # sequential by nature; no host sync inside
+        room = torch.where(resid >= 0, hi[j] - beta[j], lo[j] - beta[j])
+        take = torch.clamp(resid, torch.clamp_max(room, 0.0),
+                           torch.clamp_min(room, 0.0))
+        beta[j] = beta[j] + take
+        resid = resid - take
+    return beta

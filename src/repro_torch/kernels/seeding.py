@@ -1,13 +1,16 @@
 """Alpha seeding's device loops on the card, built from ``csrc/seeding.cu``:
 ``water_fill`` (the bisection of ``src/repro/core/seeding.py:61``),
-``sir_greedy`` (SIR's greedy pass, ``:225``), and ``ato_system`` /
-``ato_apply``, the two halves of ATO's ramp step around its LU solve
-(``:361-420``). Each is one launch and makes no host sync.
+``sir_greedy`` (SIR's greedy pass, ``:225``), ``ato_system_lanes`` /
+``ato_apply_lanes``, the two halves of ATO's ramp step around its LU
+solve over a row of lanes (``:361-420``, and the batched ramp, ``:435``;
+the solo ramp is one lane), and the LOO seeders' spills ``avg_spill``
+(``:537``) and ``top_spill`` (``:566``). Each is one launch and makes no
+host sync.
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it runs its plain version (``ref.water_fill_ref``,
-``sir_greedy_ref``, ``ato_system_ref``, ``ato_apply_ref``). Float64 only,
-as the seeders run.
+``sir_greedy_ref``, ``ato_system_lanes_ref``, ``ato_apply_lanes_ref``,
+``avg_spill_ref``, ``top_spill_ref``). Float64 only, as the seeders run.
 """
 from __future__ import annotations
 
@@ -16,8 +19,10 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import (AtoSystem, ato_apply_ref, ato_system_ref,
-                                     sir_greedy_ref, water_fill_ref)
+from repro_torch.kernels.ref import (AtoSystem, ato_apply_lanes_ref,
+                                     ato_system_lanes_ref, avg_spill_ref,
+                                     sir_greedy_ref, top_spill_ref,
+                                     water_fill_ref)
 
 _P, _I, _L, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_double
@@ -109,75 +114,151 @@ def sir_greedy(K_RT, y_R, y_T, alpha_R, priority, fallback: str = "random"):
     return beta_T
 
 
-def ato_system(K, y, C: float, alpha, f, b_fallback, in_S, in_T, T_act,
-               R_act, m_cap: int) -> AtoSystem:
-    """The first half of an ATO ramp step (``ref.ato_system_ref``): masks,
-    b, v, w, the free set compacted into ``idx`` (ascending, padded with
-    row 0, as ``torch.nonzero`` gives with no sync), lanes, yM, the
-    bordered KKT matrix B and rhs[0]. On the card every output but b and
-    rhs[0] (sums in the block's order) is the plain version's bit for
-    bit."""
-    if not _device("ato_system", K):
-        return ato_system_ref(K, y, C, alpha, f, b_fallback, in_S, in_T,
-                              T_act, R_act, m_cap)
+def ato_system_lanes(K, y, Cs, alpha, f, b_fallback, in_S, in_T, T_act,
+                     R_act, m_cap: int) -> AtoSystem:
+    """The first half of an ATO ramp step over a row of lanes sharing K, y
+    and the transition (in_S, in_T), in one launch
+    (``ref.ato_system_lanes_ref``): alpha, f, T_act, R_act (lanes, n), Cs
+    and b_fallback (lanes,) tensors. Each lane's masks, b, v, w, its free
+    set compacted into ``idx`` (ascending, padded with row 0, as
+    ``torch.nonzero`` gives with no sync), lanes, yM, the bordered KKT
+    matrix B and rhs[0] (rhs[1:] is left to the caller), every field with
+    a leading lane axis. On the card every output but b and rhs[0] (sums
+    in the block's order) is the plain version's bit for bit, and a lane's
+    outputs do not depend on the other lanes."""
+    if not _device("ato_system_lanes", K):
+        return ato_system_lanes_ref(K, y, Cs, alpha, f, b_fallback, in_S,
+                                    in_T, T_act, R_act, m_cap)
     dev, f64, b8 = K.device, torch.float64, torch.bool
-    bfb = _scalar(b_fallback, K)
-    _need("ato_system", dev, K=(K, f64), y=(y, f64), alpha=(alpha, f64),
-          f=(f, f64), in_S=(in_S, b8), in_T=(in_T, b8), T_act=(T_act, b8),
-          R_act=(R_act, b8))
-    n = y.shape[0]
-    if K.shape != (n, n):
-        raise ValueError(f"ato_system: K must be ({n}, {n})")
+    _need("ato_system_lanes", dev, K=(K, f64), y=(y, f64),
+          Cs=(Cs, f64), alpha=(alpha, f64), f=(f, f64),
+          b_fallback=(b_fallback, f64), in_S=(in_S, b8), in_T=(in_T, b8),
+          T_act=(T_act, b8), R_act=(R_act, b8))
+    lanes, n = alpha.shape
+    if K.shape != (n, n) or y.shape != (n,) or f.shape != alpha.shape \
+            or T_act.shape != alpha.shape or R_act.shape != alpha.shape \
+            or Cs.shape != (lanes,) or b_fallback.shape != (lanes,):
+        raise ValueError("ato_system_lanes: shapes must be K (n, n), y, in_S "
+                         "and in_T (n,), alpha, f, T_act and R_act (lanes, "
+                         "n), Cs and b_fallback (lanes,)")
     cap = _build.entry("seeding", "ato_system_max_m_cap")()
     if not 0 < m_cap <= min(n, cap):
-        raise ValueError(f"ato_system: m_cap {m_cap} outside [1, "
+        raise ValueError(f"ato_system_lanes: m_cap {m_cap} outside [1, "
                          f"{min(n, cap)}]")
-    e = lambda *s, dt=f64: torch.empty(s, dtype=dt, device=dev)  # noqa: E731
+    e = lambda *s, dt=f64: torch.empty((lanes,) + s, dtype=dt,  # noqa: E731
+                                       device=dev)
     out = AtoSystem(train_now=e(n, dt=b8), free=e(n, dt=b8),
                     nf=e(dt=torch.int64), b=e(), v=e(n), w=e(n),
                     idx=e(m_cap, dt=torch.int64), lane=e(m_cap, dt=b8),
                     yM=e(m_cap), B=e(m_cap + 1, m_cap + 1), rhs=e(m_cap + 1))
-    fn = _build.entry("seeding", "ato_system_f64", _P, _I, _P, _P, _P, _P,
-                      _P, _P, _P, _P, _D, _I, *([_P] * 11), _P)
+    fn = _build.entry("seeding", "ato_system_lanes_f64", _P, _I, _P, _P, _P,
+                      _P, _P, _P, _P, _P, _P, _I, _I, *([_P] * 11), _P)
     _build.check(fn(K.data_ptr(), n, y.data_ptr(), alpha.data_ptr(),
-                    f.data_ptr(), bfb.data_ptr(), in_S.data_ptr(),
+                    f.data_ptr(), b_fallback.data_ptr(), in_S.data_ptr(),
                     in_T.data_ptr(), T_act.data_ptr(), R_act.data_ptr(),
-                    float(C), int(m_cap),
+                    Cs.data_ptr(), lanes, int(m_cap),
                     *(t.data_ptr() for t in out), _build.stream_ptr(K)),
-                 "ato_system")
-    ato_system.launches += 1
+                 "ato_system_lanes")
+    ato_system_lanes.launches += 1
     return out
 
 
-def ato_apply(g, f, alpha, v, Phi_full, y, b, C: float, tol: float,
-              train_now, free, T_act, R_act, done, step, max_steps: int):
-    """The second half of an ATO ramp step (``ref.ato_apply_ref``), in place
-    on f, T_act, R_act, done (0-d bool) and step (0-d int64); returns eta
-    (0-d). A step that starts done changes nothing and returns 0. On the
-    card every output is the plain version's bit for bit."""
-    if not _device("ato_apply", f):
-        return ato_apply_ref(g, f, alpha, v, Phi_full, y, b, C, tol,
-                             train_now, free, T_act, R_act, done, step,
-                             max_steps)
-    dev, f64, b8 = f.device, torch.float64, torch.bool
-    _need("ato_apply", dev, g=(g, f64), f=(f, f64), alpha=(alpha, f64),
-          v=(v, f64), Phi_full=(Phi_full, f64), y=(y, f64), b=(b, f64),
-          train_now=(train_now, b8), free=(free, b8), T_act=(T_act, b8),
-          R_act=(R_act, b8), done=(done, b8), step=(step, torch.int64))
-    n = f.shape[0]
-    eta = torch.empty((), dtype=f64, device=dev)
-    fn = _build.entry("seeding", "ato_apply_f64", *([_P] * 14), _I, _D, _D,
-                      _D, _L, _P)
-    _build.check(fn(g.data_ptr(), f.data_ptr(), alpha.data_ptr(),
-                    v.data_ptr(), Phi_full.data_ptr(), y.data_ptr(),
-                    b.data_ptr(), train_now.data_ptr(), free.data_ptr(),
-                    T_act.data_ptr(), R_act.data_ptr(), done.data_ptr(),
-                    step.data_ptr(), eta.data_ptr(), n, float(C), float(tol),
-                    1e-12 * max(C, 1.0), int(max_steps),
-                    _build.stream_ptr(f)), "ato_apply")
-    ato_apply.launches += 1
+#: ato_apply_lanes' tensors, in the kernel's order
+_APPLY_NEEDS = ("g", "f", "alpha", "v", "Phi_full", "y", "b", "train_now",
+                "free", "T_act", "R_act", "done", "step")
+
+
+def ato_apply_lanes(g, f, alpha, v, Phi_full, y, b, Cs, tol: float,
+                    train_now, free, T_act, R_act, done, step,
+                    max_steps: int):
+    """The second half of an ATO ramp step over a row of lanes, one
+    launch, a block a lane (``ref.ato_apply_lanes_ref``): every tensor but
+    y (shared) has a leading lane axis, Cs (lanes,) is each lane's C; in
+    place on each lane's row of f, T_act, R_act and its entry of done and
+    step; returns eta (lanes,). A lane that starts done changes nothing
+    and takes eta 0. On the card every output is the plain version's bit
+    for bit."""
+    if not _device("ato_apply_lanes", f):
+        return ato_apply_lanes_ref(g, f, alpha, v, Phi_full, y, b, Cs, tol,
+                                   train_now, free, T_act, R_act, done, step,
+                                   max_steps)
+    args, b8 = locals(), torch.bool
+    dt = {"train_now": b8, "free": b8, "T_act": b8, "R_act": b8, "done": b8,
+          "step": torch.int64}
+    _need("ato_apply_lanes", f.device, Cs=(Cs, torch.float64),
+          **{k: (args[k], dt.get(k, torch.float64)) for k in _APPLY_NEEDS})
+    lanes, n = f.shape
+    if y.shape != (n,) or Cs.shape != (lanes,) or b.shape != (lanes,) \
+            or done.shape != (lanes,) or step.shape != (lanes,) \
+            or any(t.shape != f.shape for t in (g, alpha, v, Phi_full,
+                                               train_now, free, T_act,
+                                               R_act)):
+        raise ValueError("ato_apply_lanes: shapes must be y (n,), Cs, b, "
+                         "done and step (lanes,), the rest (lanes, n)")
+    eta = torch.empty(lanes, dtype=torch.float64, device=f.device)
+    fn = _build.entry("seeding", "ato_apply_lanes_f64", *([_P] * 14), _I,
+                      _P, _I, _D, _L, _P)
+    _build.check(fn(*(args[k].data_ptr() for k in _APPLY_NEEDS),
+                    eta.data_ptr(), n, Cs.data_ptr(), lanes, float(tol),
+                    int(max_steps), _build.stream_ptr(f)),
+                 "ato_apply_lanes")
+    ato_apply_lanes.launches += 1
     return eta
 
 
-for _w in (water_fill, sir_greedy, ato_system, ato_apply):
+def avg_spill(beta, lo, hi, free0, resid, rounds: int = 8):
+    """avg_seed_loo's spill (``ref.avg_spill_ref``): ``rounds`` rounds of
+    spreading ``resid`` (0-d) over the free rows with room, in one block,
+    one launch. The count of rows is exact; the sum of the adds runs in the
+    block's order, so within 1e-12 max(C, 1) of the plain version."""
+    if not _device("avg_spill", beta):
+        return avg_spill_ref(beta, lo, hi, free0, resid, rounds)
+    dev, f64 = beta.device, torch.float64
+    _need("avg_spill", dev, beta=(beta, f64), lo=(lo, f64), hi=(hi, f64),
+          free0=(free0, torch.bool))
+    n = beta.shape[0]
+    if beta.dim() != 1 or any(t.shape != beta.shape
+                              for t in (lo, hi, free0)):
+        raise ValueError("avg_spill: beta, lo, hi and free0 must be (n,) "
+                         "alike")
+    res = _scalar(resid, beta)
+    out = torch.empty_like(beta)
+    fn = _build.entry("seeding", "avg_spill_f64", _P, _P, _P, _P, _P, _P,
+                      _I, _I, _P)
+    _build.check(fn(beta.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+                    free0.data_ptr(), res.data_ptr(), out.data_ptr(), n,
+                    int(rounds), _build.stream_ptr(beta)), "avg_spill")
+    avg_spill.launches += 1
+    return out
+
+
+def top_spill(order, beta, lo, hi, resid):
+    """top_seed_loo's spill (``ref.top_spill_ref``): the rows in ``order``
+    (int64, all but its last) take the residual ``resid`` (0-d) in turn,
+    one thread walking them in one launch. It stops where the residual is
+    0 (every later take is a zero), so its beta equals the plain version's
+    value for value (``torch.equal``)."""
+    if not _device("top_spill", beta):
+        return top_spill_ref(order, beta, lo, hi, resid)
+    dev, f64 = beta.device, torch.float64
+    _need("top_spill", dev, order=(order, torch.int64), beta=(beta, f64),
+          lo=(lo, f64), hi=(hi, f64))
+    n = beta.shape[0]
+    if beta.dim() != 1 or any(t.shape != beta.shape
+                              for t in (order, lo, hi)):
+        raise ValueError("top_spill: order, beta, lo and hi must be (n,) "
+                         "alike")
+    res = _scalar(resid, beta)
+    out = torch.empty_like(beta)
+    fn = _build.entry("seeding", "top_spill_f64", _P, _P, _P, _P, _P, _P,
+                      _I, _I, _P)
+    _build.check(fn(order.data_ptr(), beta.data_ptr(), lo.data_ptr(),
+                    hi.data_ptr(), res.data_ptr(), out.data_ptr(), n,
+                    max(n - 1, 0), _build.stream_ptr(beta)), "top_spill")
+    top_spill.launches += 1
+    return out
+
+
+for _w in (water_fill, sir_greedy, ato_system_lanes, ato_apply_lanes,
+           avg_spill, top_spill):
     _w.launches = 0

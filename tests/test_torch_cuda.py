@@ -1331,10 +1331,11 @@ def _bucket(m, n):
                                         (900, 100, "bound"),
                                         (2600, 1100, "mixed")])
 def test_cuda_ato_system_bitwise(cuda, n, t_n, case):
-    """ato_system's masks, v, w, nf, the compacted working set, lanes, yM,
-    B and r0's flag are the plain version's bit for bit (b and rhs[0] are
-    sums: rel 1e-13); Table 1's sizes, nf = 0, and |T| > 1,024."""
-    from repro_torch.kernels.seeding import ato_system
+    """ato_system_lanes' masks, v, w, nf, the compacted working set, lanes,
+    yM, B and r0's flag are the plain version's bit for bit (b and rhs[0]
+    are sums: rel 1e-13), on one lane (the solo ramp's step); Table 1's
+    sizes, nf = 0, and |T| > 1,024."""
+    from repro_torch.kernels.seeding import ato_system_lanes
     rng = np.random.default_rng(n + t_n)
     K, y, C, alpha, f, in_S, in_T, T_act, R_act = _ato_state(n, t_n, rng,
                                                              case=case)
@@ -1343,8 +1344,12 @@ def test_cuda_ato_system_bitwise(cuda, n, t_n, case):
     b_fb = torch.tensor(0.25, dtype=torch.float64)
     args = (K, y, C, alpha, f, b_fb, in_S, in_T, T_act, R_act, m_cap)
     want = ref.ato_system_ref(*args)
-    got = ato_system(*(a.to(cuda) if isinstance(a, torch.Tensor) else a
-                       for a in args))
+    one = lambda t: t[None].to(cuda)  # noqa: E731
+    got = ato_system_lanes(K.to(cuda), y.to(cuda),
+                           torch.tensor([C], dtype=torch.float64, device=cuda),
+                           one(alpha), one(f), one(b_fb), in_S.to(cuda),
+                           in_T.to(cuda), one(T_act), one(R_act), m_cap)
+    got = type(got)(*(t[0] for t in got))
     for name in ("train_now", "free", "nf", "v", "w", "idx", "lane", "yM",
                  "B"):
         assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), \
@@ -1361,9 +1366,10 @@ def test_cuda_ato_system_bitwise(cuda, n, t_n, case):
 @pytest.mark.parametrize("done", [False, True])
 @pytest.mark.parametrize("n", [243, 1000, 32560])
 def test_cuda_ato_apply_bitwise(cuda, n, done):
-    """ato_apply's eta, f, T_act, R_act, done and step are the plain
-    version's bit for bit; a step that starts done changes nothing."""
-    from repro_torch.kernels.seeding import ato_apply
+    """ato_apply_lanes' eta, f, T_act, R_act, done and step are the plain
+    version's bit for bit, on one lane (the solo ramp's step); a step that
+    starts done changes nothing."""
+    from repro_torch.kernels.seeding import ato_apply_lanes
     rng = np.random.default_rng(n)
     C, tol = 10.0, 1e-3
     mk = lambda a: torch.from_numpy(np.asarray(a))  # noqa: E731
@@ -1376,21 +1382,23 @@ def test_cuda_ato_apply_bitwise(cuda, n, done):
     T_act, R_act = mk(rng.random(n) < 0.1), mk(rng.random(n) < 0.1)
     b = torch.tensor(0.1, dtype=torch.float64)
     state = [f, T_act, R_act, torch.tensor(done), torch.tensor(3)]
-    card = [s.to(cuda) for s in state]
+    card = [s[None].to(cuda) for s in state]
     cpu = [s.clone() for s in state]
     rest = (C, tol, train_now, free)
-    eta_c = ato_apply(g.to(cuda), card[0], alpha.to(cuda), v.to(cuda),
-                      Phi.to(cuda), y.to(cuda), b.to(cuda), C, tol,
-                      train_now.to(cuda), free.to(cuda), card[1], card[2],
-                      card[3], card[4], 30)
+    one = lambda t: t[None].to(cuda)  # noqa: E731
+    eta_c = ato_apply_lanes(one(g), card[0], one(alpha), one(v), one(Phi),
+                            y.to(cuda), one(b),
+                            torch.tensor([C], dtype=torch.float64,
+                                         device=cuda), tol, one(train_now),
+                            one(free), card[1], card[2], card[3], card[4], 30)
     eta = ref.ato_apply_ref(g, cpu[0], alpha, v, Phi, y, b, *rest, *cpu[1:],
                             30)
-    assert torch.equal(eta_c.cpu(), eta)
+    assert torch.equal(eta_c[0].cpu(), eta)
     for a, w in zip(card, cpu):
-        assert torch.equal(a.cpu(), w)
+        assert torch.equal(a[0].cpu(), w)
     if done:
         for a, w in zip(card, state):
-            assert torch.equal(a.cpu(), w)
+            assert torch.equal(a[0].cpu(), w)
 
 
 def _seed_problem(cuda, name="heart", n=270, h=1):
@@ -1473,3 +1481,277 @@ def test_cuda_ato_ramp_chunks_bitwise(cuda):
              for c in (1, 4, 30)]
     assert torch.equal(seeds[0], seeds[1]) and torch.equal(seeds[0],
                                                            seeds[2])
+
+
+# --------------------------------------------------------------------------
+# the Study slice's kernels: ATO's step over a row of lanes, the rows-of-n
+# f-update, and the LOO spills; each against its plain version on the CPU
+# and, over lanes, against the one-lane kernel on every lane
+# --------------------------------------------------------------------------
+
+def _lanes_state(n, t_n, C_row, seed):
+    """A row of lanes sharing K, y and the transition, each with its own
+    C, alpha, f and active sets (``_ato_state`` per lane)."""
+    # one seed for every lane: the same K, y and masks, alpha scaled by C
+    per = [_ato_state(n, t_n, np.random.default_rng(seed), C=C)
+           for C in C_row]
+    K, y, _, _, _, in_S, in_T, _, _ = per[0]
+    stack = lambda i: torch.stack([p[i] for p in per])  # noqa: E731
+    alpha, f, T_act, R_act = stack(3), stack(4), stack(7), stack(8)
+    Cs = torch.tensor(C_row, dtype=torch.float64)
+    nf0 = max(int((in_S & (a > 0) & (a < C)).sum())
+              for a, C in zip(alpha, C_row))
+    return (K, y, Cs, alpha, f, torch.linspace(-0.5, 0.5, len(C_row),
+                                               dtype=torch.float64),
+            in_S, in_T, T_act, R_act, _bucket(nf0 + t_n, n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,t_n", [(243, 27), (900, 100), (2600, 1100)])
+def test_cuda_ato_system_lanes_bitwise(cuda, n, t_n):
+    """Over three lanes (C = 0.1, 10, 1000): every exact output is the
+    plain version's bit for bit (b and rhs[0] within rel 1e-13), and every
+    lane, sums included, is what a one-lane launch on its slice gives it,
+    bit for bit (rhs[1:] is left to the caller)."""
+    from repro_torch.kernels.seeding import ato_system_lanes
+    args = _lanes_state(n, t_n, [0.1, 10.0, 1000.0], n)
+    want = ref.ato_system_lanes_ref(*args)
+    dev = [a.to(cuda) if isinstance(a, torch.Tensor) else a for a in args]
+    got = ato_system_lanes(*dev)
+    for name in ("train_now", "free", "nf", "v", "w", "idx", "lane", "yM",
+                 "B"):
+        assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), \
+            name
+    torch.testing.assert_close(got.b.cpu(), want.b, rtol=1e-13, atol=0)
+    torch.testing.assert_close(got.rhs[:, 0].cpu(), want.rhs[:, 0],
+                               rtol=1e-13, atol=1e-13 * float(
+                                   want.w.abs().sum()))
+    K, y, Cs, alpha, f, bfb, in_S, in_T, T_act, R_act, m_cap = dev
+    for lane in range(3):
+        sl = slice(lane, lane + 1)
+        solo = ato_system_lanes(K, y, Cs[sl], alpha[sl], f[sl], bfb[sl],
+                                in_S, in_T, T_act[sl], R_act[sl], m_cap)
+        for name in solo._fields[:-1]:   # rhs[1:] is the caller's
+            assert torch.equal(getattr(solo, name)[0],
+                               getattr(got, name)[lane]), (lane, name)
+        assert torch.equal(solo.rhs[0, 0], got.rhs[lane, 0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [243, 1000, 32560])
+def test_cuda_ato_apply_lanes_bitwise(cuda, n):
+    """Over three lanes, one of them done: eta, f, T_act, R_act, done and
+    step are the plain version's bit for bit and each lane's is what a
+    one-lane launch on its slice gives it; the done lane changes
+    nothing."""
+    from repro_torch.kernels.seeding import ato_apply_lanes
+    rng = np.random.default_rng(n)
+    L, tol = 3, 1e-3
+    Cs = torch.tensor([0.1, 10.0, 1000.0], dtype=torch.float64)
+    mk = lambda a: torch.from_numpy(np.asarray(a))  # noqa: E731
+    alpha = mk(np.where(rng.random((L, n)) < 0.4, 0.0,
+                        rng.random((L, n)))) * Cs[:, None]
+    g = mk(rng.normal(size=(L, n)) * np.where(rng.random((L, n)) < 0.1, 0.0,
+                                              1.0))
+    f, v, Phi = (mk(rng.normal(size=(L, n))) for _ in range(3))
+    y = mk(np.where(rng.random(n) < 0.5, 1.0, -1.0))
+    train_now = mk(rng.random((L, n)) < 0.8)
+    free = train_now & mk(rng.random((L, n)) < 0.3)
+    T_act, R_act = mk(rng.random((L, n)) < 0.1), mk(rng.random((L, n)) < 0.1)
+    b = torch.tensor([0.1, -0.2, 0.3], dtype=torch.float64)
+    state = [f, T_act, R_act, torch.tensor([False, True, False]),
+             torch.tensor([3, 5, 29])]
+    card = [s.to(cuda) for s in state]
+    solo = [s.to(cuda) for s in state]
+    cpu = [s.clone() for s in state]
+    eta_c = ato_apply_lanes(g.to(cuda), card[0], alpha.to(cuda), v.to(cuda),
+                            Phi.to(cuda), y.to(cuda), b.to(cuda), Cs.to(cuda),
+                            tol, train_now.to(cuda), free.to(cuda), *card[1:],
+                            30)
+    eta = ref.ato_apply_lanes_ref(g, cpu[0], alpha, v, Phi, y, b, Cs, tol,
+                                  train_now, free, *cpu[1:], 30)
+    assert torch.equal(eta_c.cpu(), eta)
+    for a, w in zip(card, cpu):
+        assert torch.equal(a.cpu(), w)
+    for lane in range(L):
+        sl = slice(lane, lane + 1)
+        e = ato_apply_lanes(g[sl].to(cuda), solo[0][sl], alpha[sl].to(cuda),
+                            v[sl].to(cuda), Phi[sl].to(cuda), y.to(cuda),
+                            b[sl].to(cuda), Cs[sl].to(cuda), tol,
+                            train_now[sl].to(cuda), free[sl].to(cuda),
+                            solo[1][sl], solo[2][sl], solo[3][sl],
+                            solo[4][sl], 30)
+        assert torch.equal(e[0], eta_c[lane])
+    for a, w in zip(card, solo):
+        assert torch.equal(a, w)
+    assert float(eta_c[1]) == 0.0
+    for a, w in zip(card, state):
+        assert torch.equal(a[1].cpu(), w[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n", [(1, 1000), (3, 1000), (5, 32560)])
+def test_cuda_f_update_rows_bitwise(cuda, rows, n):
+    """smo_f_update over rows: each row is the CPU addcmul's bit for bit,
+    and smo_f_update's on that row alone with its delta."""
+    from repro_torch.kernels.smo_update import smo_f_update
+    rng = np.random.default_rng(rows * n)
+    f, Ki, Kj = (torch.from_numpy(rng.normal(size=(rows, n)))
+                 for _ in range(3))
+    d = torch.from_numpy(rng.normal(size=rows))
+    got = smo_f_update(f.to(cuda), Ki.to(cuda), Kj.to(cuda), d.to(cuda))
+    assert torch.equal(got.cpu(), ref.smo_f_update_ref(f, Ki, Kj,
+                                                       d[:, None]))
+    for r in range(rows):
+        assert torch.equal(got[r], smo_f_update(
+            f[r].to(cuda), Ki[r].to(cuda), Kj[r].to(cuda), d[r].to(cuda)))
+
+
+def _spill_case(n, seed, C=2182.0):
+    rng = np.random.default_rng(seed)
+    y = np.where(rng.random(n) < 0.5, 1.0, -1.0)
+    lo, hi = _box_np(y, C)
+    alpha = np.where(rng.random(n) < 0.3, 0.0,
+                     np.where(rng.random(n) < 0.3, C, rng.random(n) * C))
+    beta = y * alpha
+    t = int(rng.integers(n))
+    resid = beta[t]
+    beta[t], lo[t], hi[t] = 0.0, 0.0, 0.0
+    free0 = (alpha > 0) & (alpha < C)
+    free0[t] = False
+    return [torch.from_numpy(a) for a in (beta, lo, hi, free0)] + [
+        torch.tensor(resid)], t, rng
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [27, 270, 1000, 9000])
+def test_cuda_avg_spill_matches_plain(cuda, n):
+    """The 8 rounds in one block: within 1e-12 max(C, 1) of the plain
+    version (the count is exact, the adds sum in the block's order)."""
+    from repro_torch.kernels.seeding import avg_spill
+    C = 2182.0
+    args, _, _ = _spill_case(n, n, C)
+    want = ref.avg_spill_ref(*args)
+    got = avg_spill(*(a.to(cuda) for a in args))
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
+                               atol=1e-12 * max(C, 1.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [27, 270, 1000, 12000])
+def test_cuda_top_spill_equals_plain(cuda, n):
+    """The walk equals the plain version value for value (torch.equal):
+    tied similarities in the order, a residual that runs out early, and
+    past shared memory's ~9,500 rows (gathered from global memory)."""
+    from repro_torch.kernels.seeding import top_spill
+    args, t, rng = _spill_case(n, n + 1)
+    beta, lo, hi, _, resid = args
+    sim = torch.from_numpy(rng.random(n))
+    sim[1::4] = sim[0]            # ties: stable order
+    sim[t] = -np.inf
+    order = torch.argsort(-sim, stable=True)
+    want = ref.top_spill_ref(order, beta, lo, hi, resid)
+    got = top_spill(order.to(cuda), beta.to(cuda), lo.to(cuda), hi.to(cuda),
+                    resid.to(cuda))
+    assert torch.equal(got.cpu(), want)
+
+
+def _row_problem(cuda, name="heart", n=270, h=1):
+    """The ATO C row (0.01, 1, 100 x C) at fold h-1, solved by the batched
+    solve, and the h-1 -> h index sets."""
+    from repro_torch.core.cv import _fold_masks
+    from repro_torch.data.svm_suite import kfold_chunks
+    from repro_torch.svm import smo_solve_batched
+    ds, K, y, _, idx = _seed_problem(cuda, name, n, h)
+    masks = torch.as_tensor(_fold_masks(kfold_chunks(ds.n, 10)), device=cuda)
+    Cs = [s * ds.C for s in (0.01, 1.0, 100.0)]
+    m = y.shape[0]
+    prev = smo_solve_batched(K, y, masks[h - 1].repeat(3, 1), Cs,
+                             torch.zeros((3, m), dtype=torch.float64,
+                                         device=cuda), -y.repeat(3, 1))
+    return ds, K, y, Cs, prev, idx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bucket_by_lane", [True, False])
+@pytest.mark.parametrize("name,n", [("heart", 270), ("adult", 1000)])
+def test_cuda_ato_seed_batch_matches_solo(cuda, name, n, bucket_by_lane):
+    """Each lane of the batched ramp within the ATO bar (1e-12 C) of the
+    solo ato_seed on the card and of the batched ramp's plain version on
+    the CPU; the chunk size does not change the seeds."""
+    from repro_torch.core import seeding
+    from repro_torch.svm.engine import SMOResult
+    ds, K, y, Cs, prev, idx = _row_problem(cuda, name, n)
+    got = seeding.ato_seed_batch(K, y, Cs, prev, *idx,
+                                 bucket_by_lane=bucket_by_lane)
+    cpu = seeding.ato_seed_batch(K.cpu(), y.cpu(), Cs,
+                                 SMOResult(*(t.cpu() for t in prev)),
+                                 *(i.cpu() for i in idx),
+                                 bucket_by_lane=bucket_by_lane)
+    for lane, C in enumerate(Cs):
+        solo = seeding.ato_seed(K, y, C, SMOResult(*(t[lane] for t in prev)),
+                                *idx)
+        np.testing.assert_allclose(got[lane].cpu().numpy(),
+                                   solo.cpu().numpy(), rtol=0, atol=1e-12 * C)
+        np.testing.assert_allclose(got[lane].cpu().numpy(),
+                                   cpu[lane].numpy(), rtol=0, atol=1e-12 * C)
+    again = seeding.ato_seed_batch(K, y, Cs, prev, *idx,
+                                   bucket_by_lane=bucket_by_lane, chunk=30)
+    assert torch.equal(again, got)
+
+
+@pytest.mark.cuda
+def test_cuda_study_transforms_make_no_other_sync(cuda):
+    """scale_C, loo_avg, loo_top and ato_seed_batch under
+    set_sync_debug_mode("error"): no host sync but the batched ramp's
+    counted reads (the free counts once, the stop flags once a chunk)."""
+    from repro_torch.core import seeding
+    ds, K, y, Cs, prev, idx = _row_problem(cuda, "adult", 1000)
+    lane0 = type(prev)(*(t[1] for t in prev))
+    mask = torch.ones_like(y, dtype=torch.bool).index_fill_(0, idx[2], False)
+    runs = {
+        "scale_C": lambda: seeding.TRANSFORMS["scale_C"](
+            K, y, 4 * ds.C, lane0, C_old=ds.C, train_mask=mask),
+        "loo_avg": lambda: seeding.TRANSFORMS["loo_avg"](K, y, ds.C, lane0,
+                                                         t=7),
+        "loo_top": lambda: seeding.TRANSFORMS["loo_top"](K, y, ds.C, lane0,
+                                                         t=7),
+        "ato_seed_batch": lambda: seeding.ato_seed_batch(K, y, Cs, prev,
+                                                         *idx)}
+    for name, run in runs.items():
+        run()                       # first calls set up libraries
+        torch.cuda.synchronize()
+        seeding.HOST_SYNCS.update(dict.fromkeys(seeding.HOST_SYNCS, 0))
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        syncs = dict(seeding.HOST_SYNCS)
+        if name == "ato_seed_batch":
+            assert syncs["ato_m_cap"] == 1 and syncs["ato_flag"] >= 1
+            assert syncs["mir_svd"] == 0
+        else:
+            assert syncs == dict.fromkeys(syncs, 0), name
+
+
+@pytest.mark.cuda
+def test_cuda_grid_and_loo_run_on_the_card(cuda):
+    """run_grid (cross-gamma, one kernel resident) and run_loo (AVG fan-out
+    and the SIR chain) on the card: every cell and round converges, and
+    the grid's cell equals run_cv on it."""
+    from repro_torch.core.cv import run_cv, run_loo
+    from repro_torch.core.grid import run_grid
+    from repro_torch.data.svm_suite import make_dataset
+    ds = make_dataset("adult", n_override=300)
+    rep = run_grid(ds, [ds.C, 4 * ds.C], [ds.gamma, 2 * ds.gamma], k=5,
+                   max_resident=1)
+    assert all(c.converged for c in rep.cells)
+    assert rep.resident["peak_resident"] == 1
+    cv = run_cv(ds, k=5, method="sir")
+    assert rep.cells[0].iterations == cv.total_iterations
+    assert rep.cells[0].acc_correct == sum(f.acc_correct for f in cv.folds)
+    for method in ("avg", "sir"):
+        out = run_loo(ds, method=method, rounds=8)
+        assert out["converged"] and out["rounds"] == 8

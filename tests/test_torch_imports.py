@@ -38,14 +38,15 @@ def test_the_walk_sees_the_port():
             "convert.py", "flash_attention.py", "attention.py",
             "transformer.py", "layers.py", "params.py", "decode.py",
             "inputs.py", "tokens.py", "granite_8b.py", "gemma_7b.py",
-            "threefry.py", "chip_smo_variants.py"} <= names
+            "threefry.py", "chip_smo_variants.py", "grid.py"} <= names
 
 
 def test_entry_points_default_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is valid here")
     from repro_torch.convert import result_from_reference
-    from repro_torch.core.cv import run_cv, run_cv_batched
+    from repro_torch.core.cv import run_cv, run_cv_batched, run_loo
+    from repro_torch.core.grid import grid_plans, run_grid
     from repro_torch.core.study import Plan, run_plan
     from repro_torch.data.svm_suite import make_dataset
     from repro_torch.device import resolve_device
@@ -57,6 +58,12 @@ def test_entry_points_default_to_cuda():
     for kw in ({}, {"schedule": "batched"}, {"source_backend": "pallas_rbf"}):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             run_cv_batched(ds, k=4, **kw)
+    for method in ("cold", "avg", "sir"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            run_loo(ds, method=method, rounds=2)
+    for entry in (run_grid, grid_plans):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            entry(ds, [1.0], [0.1], k=4)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         run_plan(Plan(sources={}, y=ds.y))
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -69,6 +69,18 @@ def test_f_update_plain_bitwise(n):
         np.testing.assert_array_equal(out, np.asarray(want))
 
 
+@pytest.mark.parametrize("rows,n", [(1, 100), (3, 1000)])
+def test_f_update_rows_plain_is_each_rows_f_update(rows, n):
+    """Each row of smo_f_update over rows is smo_f_update of that row with
+    its delta, bit for bit (one FMA an element)."""
+    f, Ki, Kj = (torch.from_numpy(RNG.normal(size=(rows, n)))
+                 for _ in range(3))
+    d = torch.from_numpy(RNG.normal(size=rows))
+    got = ops.smo_f_update(f, Ki, Kj, d)
+    for r in range(rows):
+        assert torch.equal(got[r], ops.smo_f_update(f[r], Ki[r], Kj[r], d[r]))
+
+
 def test_cpu_tensors_launch_no_kernel():
     ops.reset_launch_counts()
     X = torch.from_numpy(RNG.normal(size=(20, 5)))
@@ -97,16 +109,26 @@ def test_cpu_tensors_launch_no_kernel():
     ops.sir_greedy(K[:3], y[:3], y, torch.ones(3).double(),
                    torch.rand(n).double())
     on = torch.ones(n, dtype=torch.bool)
-    s = ops.ato_system(K, y, 1.0, lo, -y, 0.0, on, ~on, ~on, ~on, 4)
-    ops.ato_apply(K[0], -y, lo, s.v, lo, y, s.b, 1.0, 1e-3, s.train_now,
-                  s.free, ~on, ~on, torch.tensor(False), torch.tensor(0), 30)
+    two = lambda t: t.expand(2, *t.shape).clone()  # noqa: E731
+    Cs = torch.ones(2, dtype=torch.float64)
+    s2 = ops.ato_system_lanes(K, y, Cs, two(lo), two(-y), Cs * 0, on, ~on,
+                              two(~on), two(~on), 4)
+    ops.ato_apply_lanes(two(K[0]), two(-y), two(lo), s2.v, two(lo), y, s2.b,
+                        Cs, 1e-3, s2.train_now, s2.free, two(~on), two(~on),
+                        torch.zeros(2, dtype=torch.bool),
+                        torch.zeros(2, dtype=torch.int64), 30)
+    ops.smo_f_update(two(y), two(lo), two(hi), Cs)
+    ops.avg_spill(y, lo - 1, hi, on, torch.tensor(0.5, dtype=torch.float64))
+    ops.top_spill(torch.arange(n), y, lo - 1, hi,
+                  torch.tensor(0.5, dtype=torch.float64))
     assert ops.launch_counts() == {"rbf_kernel_matrix": 0,
                                    "smo_f_update": 0, "smo_chunk": 0,
                                    "fused_smo_step": 0, "smo_select": 0,
                                    "smo_stream_chunk": 0,
                                    "flash_attention": 0, "water_fill": 0,
-                                   "sir_greedy": 0, "ato_system": 0,
-                                   "ato_apply": 0}
+                                   "sir_greedy": 0, "ato_system_lanes": 0,
+                                   "ato_apply_lanes": 0, "avg_spill": 0,
+                                   "top_spill": 0}
 
 
 def test_arg_reduces_nan_guard():
@@ -663,8 +685,9 @@ def test_water_fill_early_stop_is_bitwise(n, target):
 
 
 def test_ato_done_step_is_the_identity():
-    """A ramp step that starts with the stop flag set leaves alpha, f,
-    T_act, R_act and the step count as they were, bit for bit."""
+    """A ramp step leaves a lane that starts with its stop flag set (alpha,
+    f, T_act, R_act and its step count) as it was, bit for bit, while the
+    lane beside it steps."""
     from repro_torch.core.seeding import _ato_step
     rng = np.random.default_rng(5)
     n, C = 120, 4.0
@@ -676,13 +699,18 @@ def test_ato_done_step_is_the_identity():
     alpha = torch.from_numpy(np.where(rng.random(n) < 0.5, 0.0,
                                       rng.random(n) * C)) * (~in_T)
     f = torch.from_numpy(rng.normal(size=n))
-    T_act, R_act = in_T.clone(), torch.zeros(n, dtype=torch.bool)
-    state = [alpha, f, T_act, R_act, torch.tensor(True), torch.tensor(2)]
+    two = lambda t: t.expand(2, *t.shape).clone()  # noqa: E731
+    state = [two(alpha), two(f), two(in_T), torch.zeros((2, n), dtype=bool),
+             torch.tensor([True, False]), torch.tensor([2, 2])]
     before = [s.clone() for s in state]
-    _ato_step(K, y, C, 1e-3, torch.tensor(0.0, dtype=torch.float64), in_S,
-              in_T, 128, 30, *state, torch.zeros(n, dtype=torch.float64))
+    Cs = torch.full((2,), C, dtype=torch.float64)
+    _ato_step(K, y, Cs, (torch.zeros((2, 1), dtype=torch.float64),
+                         Cs[:, None]), 1e-3,
+              torch.zeros(2, dtype=torch.float64), in_S, in_T, 128, 30,
+              *state, torch.zeros((2, n), dtype=torch.float64))
     for s, b in zip(state, before):
-        assert torch.equal(s, b)
+        assert torch.equal(s[0], b[0])
+    assert int(state[5][1]) == 3
 
 
 @pytest.mark.parametrize("n,d", [(1, 1), (31, 13), (257, 123), (1000, 9)])

@@ -276,8 +276,9 @@ def test_run_plan_validates_by_name():
         p.lane("b", train_mask=mask, C=1.0, **lane)
         return p
 
-    with pytest.raises(ValueError, match="waits for seeding.TRANSFORMS"):
-        run_plan(plan(dep="a", transform="fold"))
+    with pytest.raises(ValueError, match="lane 'b': unknown transform "
+                                         "'nope'"):
+        run_plan(plan(dep="a", transform="nope"))
     with pytest.raises(ValueError, match="undeclared lane 'zz'"):
         run_plan(plan(alpha0=z, f0=-yt, after="zz"))
     with pytest.raises(ValueError, match="unknown source key"):
