@@ -58,8 +58,17 @@ tensor-core build's outputs bit for bit.
 split and Table 1's times, of the package under DIR (another checkout's
 ``src``), so that two trees are timed in one call; ``--compare [--src
 DIR]`` likewise the bf16 mma.sync attention route's times at head dims 32
-and 16, the 20-fold matrix-free row's (the selection kernel's path) and
-Table 1's summed init and solve times.
+and 16, the 20-fold matrix-free row's (the selection kernel's path), the
+seeding kernels' times, one SIR seed of the grid at size split into its
+parts, Table 1's summed init and solve times, and the grid at size and
+LOO phases.
+
+``water_fill`` is also built with one bisection level a round
+(``water_fill_seq``, ``_build.VARIANTS``): every call the script checks
+must give that build's outputs bit for bit. ``sir_greedy`` is checked
+bitwise at adult n=32,560's fold sizes (|T| = 3,256, 6,512 and 10,853),
+reading K through the index sets, and prints the rows it rescanned and
+the rows that took the fallback.
 
 Phases print one JSON line each, with their own seconds; a failing phase
 raises and the script exits non-zero. The last lines are the
@@ -675,7 +684,8 @@ def phase_kernels(datasets):
     capacity = {n: {f"{m}x{r}": c for (m, r), c in
                     cluster_capacity(n).items() if c}
                 for n in (270, 1000, 4608, 8192, 32544, 32560)}
-    seed_info, seed_checks = _seeding_kernels()
+    seed_info, seed_checks = _seeding_kernels(datasets[("adult",
+                                                        SIZE_N - 1)])
     info.update(seed_info)
     study_info = _study_kernels()
     info.update(study_info)
@@ -877,18 +887,180 @@ def _ato_apply_check(calls) -> dict:
             "max_abs_err": 0.0, **_bound(_ato_apply_bytes(a), 0.0)}
 
 
-def _seeding_kernels() -> dict:
+#: water_fill's rows at n = 32,560's shapes: the S side of a k = 10
+#: transition (3,256 of T; 26,048 of S)
+WATER_BIG = (3256, 26048)
+#: SIR's fold counts at adult n = 32,560: |R| = |T| = 3,256, 6,512, 10,853
+SIR_SIZE_K = (10, 5, 3)
+#: removed rows a segment of sir_greedy's walk, timed at 6,512 (0: one)
+SIR_SEGMENTS = (0, 512, 1024, 1628, 2048, 4096)
+
+
+def _water_fill_big(C: float, sizes=WATER_BIG) -> list:
+    """water_fill's inputs at ``sizes`` rows (seeded numpy): beta in the
+    box of C, a feasible target."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(11)
+    out = []
+    for n_big in sizes:
+        yb = np.where(rng.random(n_big) < 0.5, 1.0, -1.0)
+        lo, hi = np.where(yb > 0, 0.0, -C), np.where(yb > 0, C, 0.0)
+        beta = np.clip(rng.normal(size=n_big) * C / 3, lo, hi)
+        out.append(tuple(torch.as_tensor(a, device=dev) for a in
+                         (beta, lo, hi)) + (torch.tensor(
+                             float(beta.sum()) * 0.3, device=dev),))
+    return out
+
+
+def _water_fill_levels_ms(small, large) -> dict:
+    """water_fill's time (graph) at each forced levels a round, 1-5, and
+    the witness build's, on Table 1's call and at 26,048 rows."""
+    from repro_torch.kernels import seeding as ks
+    out = {}
+    for key, a, reps in (("small", small, 20), ("large", large, 5)):
+        row = {"n": a[0].shape[0], "seq": graph_ms(
+            lambda: ks.water_fill(*a, _build_name="water_fill_seq"), reps)}
+        for lv in (1, 2, 3, 4, 5):
+            row[str(lv)] = graph_ms(lambda: ks.water_fill(*a, _levels=lv),
+                                    reps)
+        out[key] = row
+    return out
+
+
+def _sir_plain(K, y_R, y_T, alpha_R, priority, R=None, T=None,
+               fallback="random"):
+    """The plain greedy pass on the card, over the gathered block."""
+    from repro_torch.kernels import ref
+    block = K if R is None else K[R[:, None], T]
+    return ref.sir_greedy_ref(block, y_R, y_T, alpha_R, priority, fallback)
+
+
+def _sir_bytes(m: int, t: int) -> float:
+    """Bytes sir_greedy must move: the (m, t) entries of K it reads, y_R,
+    alpha_R and R_idx, y_T, the priorities and T_idx, once each, and
+    beta_T written."""
+    return 8.0 * (m * t + 3 * m + 4 * t)
+
+
+def _sir_check(a, fb: str) -> dict:
+    """sir_greedy on ``a`` (K, y_R, y_T, alpha_R, priority[, R_idx,
+    T_idx]) bitwise the plain version run on the CPU over the gathered
+    block, with the rescanned and fallback rows it counted."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import seeding as ks
+    K, rest, idx = a[0], a[1:5], a[5:]
+    ks.reset_sir_greedy_events()
+    got = ks.sir_greedy(K, *rest, fb, *idx)
+    events = ks.sir_greedy_events()
+    block = K.cpu() if not idx else K[idx[0][:, None], idx[1]].cpu()
+    want = ref.sir_greedy_ref(block, *_cpu(rest), fb)
+    m, t = block.shape
+    require(torch.equal(got.cpu(), want),
+            f"sir_greedy {m} x {t} {fb}: not bitwise equal to the plain "
+            "version")
+    return {"shape": [m, t], "fallback": fb, "indexed": bool(idx),
+            "bitwise": True, **events}
+
+
+def _sir_size_inputs(K, y, k: int):
+    """sir_greedy's inputs at fold 0 -> 1 of k folds over adult n =
+    32,560 (``K`` over its first 32,560 rows): y_R, y_T, a seeded alpha_R
+    in [0, C), the reference's priorities, R_idx and T_idx."""
+    from repro_torch.core.cv import _transition_idx
+    from repro_torch.core.threefry import uniform
+    from repro_torch.data.svm_suite import kfold_chunks
+    dev = K.device
+    chunks = kfold_chunks(SIZE_N, k)
+    _, R, T = _transition_idx(chunks, 0, 1, dev)
+    alpha = torch.as_tensor(np.random.default_rng(k).random(R.shape[0]),
+                            device=dev)
+    pri = torch.as_tensor(uniform(0, T.shape[0], "float64"), device=dev)
+    return y[R], y[T], alpha, pri, R, T
+
+
+def _sir_pass_ms(K, y_R, y_T, alpha_R, priority, R, T, reps: int = 3) -> dict:
+    """The greedy pass as ``sir_seed`` takes it, by CUDA events: the
+    package's own route (a package whose ``sir_greedy`` takes the index
+    sets reads K through them; an older one gathers the block first), and
+    the gather of the (|R|, |T|) block alone. ``refused``: the package's
+    kernel does not take this |T|."""
+    import inspect
+    from repro_torch.kernels import seeding as ks
+    rest = (y_R, y_T, alpha_R, priority)
+    gather = lambda: K[R][:, T]   # noqa: E731
+    out = {"gather_ms": cuda_ms(gather, reps)}
+    try:
+        if "R_idx" in inspect.signature(ks.sir_greedy).parameters:
+            out["ms"] = cuda_ms(
+                lambda: ks.sir_greedy(K, *rest, "random", R, T), reps)
+            out["route"] = "indexed"
+        else:
+            out["ms"] = cuda_ms(lambda: ks.sir_greedy(gather(), *rest),
+                                reps)
+            out["route"] = "gather_kernel"
+    except ValueError as e:
+        out["refused"] = str(e)
+    return out
+
+
+def _sir_at_size(ds) -> dict:
+    """sir_greedy at adult n = 32,560 (K from the RBF kernel, read through
+    fold 0 -> 1's index sets at k = 10, 5 and 3): bitwise the plain
+    version for both fallbacks, with the rescanned and fallback rows; its
+    time (graph) and bound at each, the gather that the parent's design
+    made before its kernel and the same kernel over that block (at 6,512),
+    and each list length's time at 6,512."""
+    from repro_torch.kernels import seeding as ks
+    from repro_torch.svm import kernel_matrix
+    dev = torch.device("cuda")
+    X = torch.as_tensor(ds.X[:SIZE_N - 1], device=dev)
+    y = torch.as_tensor(ds.y[:SIZE_N - 1], dtype=torch.float64, device=dev)
+    K = kernel_matrix(X, X, gamma=ds.gamma)
+    out = {"at_size_checks": []}
+    for k in SIR_SIZE_K:
+        a = _sir_size_inputs(K, y, k)
+        m = a[4].shape[0]
+        for fb in ("random", "skip"):
+            out["at_size_checks"].append(_sir_check((K,) + a, fb))
+        run = lambda: ks.sir_greedy(K, *a[:4], "random", *a[4:])  # noqa
+        out[f"ms_{m}"] = graph_ms(run, 3)
+        out[f"bound_ms_{m}"] = _bound(_sir_bytes(m, m), 0.0)["bound_ms"]
+        if k == 5:
+            block = K[a[4]][:, a[5]]
+            out[f"gather_ms_{m}"] = cuda_ms(lambda: K[a[4]][:, a[5]], 3)
+            out[f"block_ms_{m}"] = graph_ms(
+                lambda: ks.sir_greedy(block, *a[:4]), 3)
+            out[f"list_ms_{m}"] = {str(L): graph_ms(lambda: ks.sir_greedy(
+                K, *a[:4], "random", *a[4:], _list=L), 3)
+                for L in ks.SIR_LISTS}
+            out[f"segment_ms_{m}"] = {}
+            for seg in sorted(set(SIR_SEGMENTS + (ks.sir_segment(m),))):
+                ks.reset_sir_greedy_events()
+                ks.sir_greedy(K, *a[:4], "random", *a[4:], _segment=seg)
+                out[f"segment_ms_{m}"][str(seg)] = {
+                    "ms": graph_ms(lambda: ks.sir_greedy(
+                        K, *a[:4], "random", *a[4:], _segment=seg), 3),
+                    **ks.sir_greedy_events()}
+            del block
+    del K
+    torch.cuda.empty_cache()
+    return out
+
+
+def _seeding_kernels(size_ds) -> dict:
     """Each seeding kernel against its plain version run on the CPU, on
     the inputs Table 1's adult fold 0 -> 1 seeds gave it (recorded), and
-    ``water_fill`` and ``sir_greedy`` at n = 32,560's shapes (seeded
-    numpy): bitwise for ``sir_greedy``, ``ato_apply_lanes`` and
-    ``ato_system_lanes``' exact outputs (one lane: the solo ramp),
-    ``water_fill`` within 1e-12 max(C, 1) elementwise and its sum within n
-    eps max(C, 1) of the clamped target. Then each one's time at the main
-    path's shape (graph, or CUDA events for the in-place
-    ``ato_apply_lanes``), the plain version's on the card, and the bytes
-    bound (every one is bound by bytes: its operations, even 100
-    bisection steps of 4 a row, take less)."""
+    ``water_fill`` and ``sir_greedy`` at n = 32,560's shapes (seeded numpy
+    for ``water_fill``, adult's K through its folds' index sets for
+    ``sir_greedy``, ``_sir_at_size``): bitwise for ``sir_greedy``,
+    ``ato_apply_lanes`` and ``ato_system_lanes``' exact outputs (one lane:
+    the solo ramp), ``water_fill`` bitwise its one-level witness build
+    (``water_fill_seq``), within 1e-12 max(C, 1) of the plain version
+    elementwise and its sum within n eps max(C, 1) of the clamped target.
+    Then each one's time at the main path's shape (graph, or CUDA events
+    for the in-place ``ato_apply_lanes``), the plain version's on the
+    card, and the bytes bound (every one is bound by bytes: its
+    operations, even 100 bisection steps of 4 a row, take less)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import seeding as ks
     dev = torch.device("cuda")
@@ -898,23 +1070,19 @@ def _seeding_kernels() -> dict:
     # every one of its steps too
     heart = _record_seeding_inputs("heart", 270)["calls"]
     out, records = {}, {}
-    rng = np.random.default_rng(11)
 
-    # water_fill: every call of the three seeds, then n = 32,560's S side
+    # water_fill: every call of the three seeds, then n = 32,560's S side;
+    # each bitwise the one-level witness build
     wf = []
-    big = []
-    for n_big in (3256, 26048):
-        yb = np.where(rng.random(n_big) < 0.5, 1.0, -1.0)
-        lo, hi = np.where(yb > 0, 0.0, -C), np.where(yb > 0, C, 0.0)
-        beta = np.clip(rng.normal(size=n_big) * C / 3, lo, hi)
-        big.append(tuple(torch.as_tensor(a, device=dev) for a in
-                         (beta, lo, hi)) + (torch.tensor(
-                             float(beta.sum()) * 0.3, device=dev),))
+    big = _water_fill_big(C)
     for args in calls["water_fill"] + heart["water_fill"] + big:
         got = ks.water_fill(*args)
         want = ref.water_fill_ref(*_cpu(args))
-        err = float((got.cpu() - want).abs().max())
+        seq = ks.water_fill(*args, _build_name="water_fill_seq")
         n = args[0].shape[0]
+        require(torch.equal(got.view(torch.int64), seq.view(torch.int64)),
+                f"water_fill n={n}: not bitwise the one-level witness")
+        err = float((got.cpu() - want).abs().max())
         tgt = float(torch.clamp(args[3].cpu(), args[1].cpu().sum(),
                                 args[2].cpu().sum()))
         sum_err = abs(float(got.sum()) - tgt)
@@ -924,46 +1092,46 @@ def _seeding_kernels() -> dict:
                 f"water_fill n={n}: {err} off the plain version")
         require(sum_err <= n * 2.22e-16 * box,
                 f"water_fill n={n}: sum {sum_err} off the target")
-        wf.append({"n": n, "max_abs_err": err, "sum_err": sum_err})
+        wf.append({"n": n, "max_abs_err": err, "sum_err": sum_err,
+                   "witness_bitwise": True})
     main = max(calls["water_fill"], key=lambda a: a[0].shape[0])   # S side
     n = main[0].shape[0]
     rec_wf = {"n": n, "ms": graph_ms(lambda: ks.water_fill(*main), 20),
               "plain_ms": cuda_ms(lambda: ref.water_fill_ref(
                   *main, stop_early=False), 3),
               "ms_32560_S": graph_ms(lambda: ks.water_fill(*big[1]), 5),
+              "levels_ms": _water_fill_levels_ms(main, big[1]),
+              "calls_checked": len(wf),
               "max_abs_err": max(r["max_abs_err"] for r in wf),
               **_bound(8.0 * (4 * n + 1), 0.0)}
     records["water_fill"] = wf
     out["water_fill"] = rec_wf
 
-    # sir_greedy: Table 1's call (both fallbacks), then 3,256 x 3,256
+    # sir_greedy: Table 1's call (both fallbacks, K through its indices),
+    # heart's, a tied 3,256 x 3,256 block, then adult n = 32,560's folds
     sg = []
-    args = calls["sir_greedy"][0]
-    m, t = args[0].shape
+    args = calls["sir_greedy"][0][:5] + calls["sir_greedy"][0][6:]
     rows = np.random.default_rng(5)
     kb = rows.random((3256, 3256))
     kb[:, 1::2] = kb[:, 0::2][:, :kb[:, 1::2].shape[1]]   # tied values
-    big_sg = tuple(torch.as_tensor(a, device=dev) for a in (
+    tied = tuple(torch.as_tensor(a, device=dev) for a in (
         kb, np.where(rows.random(3256) < 0.5, 1.0, -1.0),
         np.where(rows.random(3256) < 0.5, 1.0, -1.0), rows.random(3256),
         rows.random(3256)))
-    for a, fb in ((args[:5], "random"), (args[:5], "skip"),
-                  (heart["sir_greedy"][0][:5], "random"), (big_sg, "random")):
-        got = ks.sir_greedy(*a, fb)
-        want = ref.sir_greedy_ref(*_cpu(a), fb)
-        require(torch.equal(got.cpu(), want),
-                f"sir_greedy {tuple(a[0].shape)} {fb}: not bitwise equal "
-                "to the plain version")
-        sg.append({"shape": list(a[0].shape), "fallback": fb,
-                   "bitwise": True})
+    heart_sg = heart["sir_greedy"][0][:5] + heart["sir_greedy"][0][6:]
+    for a, fb in ((args, "random"), (args, "skip"), (heart_sg, "random"),
+                  (tied, "random"), (tied, "skip")):
+        sg.append(_sir_check(a, fb))
+    m, t = args[5].shape[0], args[6].shape[0]
+    sir_args = args[1:5] + ("random",) + args[5:]
     records["sir_greedy"] = sg
     out["sir_greedy"] = {
-        "shape": [m, t], "ms": graph_ms(lambda: ks.sir_greedy(*args), 20),
-        "plain_ms": cuda_ms(lambda: ref.sir_greedy_ref(*args), 3),
-        "ms_32560": graph_ms(lambda: ks.sir_greedy(*big_sg, "random"), 3),
-        "max_abs_err": 0.0,
-        **_bound(8.0 * (m * t + 2 * m + 3 * t), 0.0)}
-
+        "shape": [m, t],
+        "ms": graph_ms(lambda: ks.sir_greedy(args[0], *sir_args), 20),
+        "plain_ms": cuda_ms(lambda: _sir_plain(*args), 3),
+        "max_abs_err": 0.0, "checks": sg,
+        **_bound(_sir_bytes(m, t), 0.0),
+        **_sir_at_size(size_ds)}
     # ato_system_lanes / ato_apply_lanes: every ramp step of the ATO seed
     # (the solo ramp: one lane)
     out["ato_system_lanes"] = _ato_system_check(
@@ -1400,6 +1568,11 @@ SPLIT_KINDS = {"nonzero": "nonzero", "linalg_solve": "lu_solve",
                "mv": "products", "mm": "products"}
 
 
+#: the least entries of a tensor whose index the split files as a gather
+#: of K (``_SplitTimer``): a (|R|, n) slab of K or K itself, at n = 32,560
+GATHER_MIN = 1 << 24
+
+
 class _SplitTimer:
     """Times a seed's parts with a sync between parts (host clock).
 
@@ -1455,6 +1628,10 @@ class _SplitTimer:
                         isinstance(a, torch.Tensor) and a.device.type == "cpu"
                         for a in args):
                     label = "copy"
+                elif name == "__getitem__" and isinstance(
+                        args[0], torch.Tensor) \
+                        and args[0].numel() >= GATHER_MIN:
+                    label = "gather"   # rows or a block of K
                 else:
                     label = "seed:ops"
                 sync()
@@ -1491,14 +1668,15 @@ def _count_syncs(fn) -> int:
     return sum("synchroniz" in str(w.message) for w in seen)
 
 
-def _seed_problem(name: str, n: int, h: int = 1):
-    """K, y, fold h-1's cold solution and the h-1 -> h index sets."""
+def _seed_problem(name: str, n: int, h: int = 1, k: int = 10):
+    """K, y, fold h-1's cold solution and the h-1 -> h index sets, of k
+    folds."""
     from repro_torch.core.cv import _fold_masks, _transition_idx
     from repro_torch.data.svm_suite import kfold_chunks, make_dataset
     from repro_torch.svm import kernel_matrix, smo_solve
     dev = torch.device("cuda")
     ds = make_dataset(name, n_override=n)
-    chunks = kfold_chunks(ds.n, 10)
+    chunks = kfold_chunks(ds.n, k)
     m = chunks.size
     X = torch.as_tensor(ds.X[:m], device=dev)
     y = torch.as_tensor(ds.y[:m], dtype=torch.float64, device=dev)
@@ -1577,6 +1755,59 @@ def seed_split(cases=(("heart", 270), ("adult", 1000)),
         del K
         torch.cuda.empty_cache()
     return out
+
+
+def grid_seed_split(reps: int = 3) -> dict:
+    """One SIR seed of ``grid_size`` (adult n = 32,560, k = GRID_K, the
+    paper's (C, gamma), fold 0 -> 1 from fold 0's cold solution): its wall
+    time (host clock after a sync, best of ``reps``), one run split by
+    ``_SplitTimer`` into the gather of K (none where the greedy pass reads
+    K through the index sets), the greedy pass, ``water_fill`` (each
+    call) and the rest, and the seed's peak memory on the card above what
+    was allocated before it."""
+    from repro_torch.core import seeding
+    ds, K, y, prev, (S, R, T) = _seed_problem("adult", SIZE_N, 1, GRID_K)
+
+    def run():
+        return seeding.sir_seed(K, y, ds.C, prev, S, R, T)
+    run()                                               # warm-up
+    walls = []
+    for _ in range(reps):
+        sync()
+        t0 = time.perf_counter()
+        run()
+        sync()
+        walls.append(time.perf_counter() - t0)
+    with _SplitTimer(seeding) as timer:
+        run()
+    parts = timer.parts
+    named = {"gather_s": parts.get("gather", 0.0),
+             "greedy_s": parts.get("sir_greedy", 0.0),
+             "water_fill_s": parts.get("water_fill", 0.0)}
+    named["rest_s"] = sum(parts.values()) - sum(named.values())
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    run()
+    sync()
+    peak = torch.cuda.max_memory_allocated() - base
+    out = {"n": K.shape[0], "m": R.shape[0], "t": T.shape[0],
+           "wall_s": min(walls), "walls_s": walls, **named,
+           "parts_s": parts,
+           "calls": {key: len(v) for key, v in timer.calls.items()},
+           "water_fill_calls_s": timer.calls.get("water_fill", []),
+           "peak_bytes": peak}
+    del K, prev
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_grid_seed_split() -> dict:
+    t0 = time.perf_counter()
+    rec = grid_seed_split()
+    emit({"phase": "grid_seed_split", "seconds": time.perf_counter() - t0,
+          **rec})
+    return rec
 
 
 def size_sir_init(ds, n_sir_folds: int = 2) -> list:
@@ -3446,17 +3677,51 @@ def _table1_times() -> list:
     return rows
 
 
+def _compare_seeding() -> dict:
+    """The seeding kernels this tree runs, on inputs that do not depend on
+    the tree: ``water_fill`` at 800 and 26,048 rows (seeded numpy, graph),
+    and SIR's greedy pass as ``sir_seed`` takes it (``_sir_pass_ms``) at
+    adult n = 1,000's Table 1 fold (100 x 100) and n = 32,560's k = 10, 5
+    and 3 folds."""
+    from repro_torch.kernels import seeding as ks
+    from repro_torch.svm import kernel_matrix
+    from repro_torch.data.svm_suite import make_dataset
+    out = {"water_fill": {}}
+    for a in _water_fill_big(1.0, (800, 26048)):
+        out["water_fill"][str(a[0].shape[0])] = graph_ms(
+            lambda: ks.water_fill(*a), 20)
+    ds, K, y, _, (S, R, T) = _seed_problem("adult", 1000)
+    pri = torch.as_tensor(np.random.default_rng(1).random(T.shape[0]),
+                          device=K.device)
+    alpha = torch.ones(R.shape[0], dtype=torch.float64, device=K.device)
+    out["sir_greedy"] = {"100": _sir_pass_ms(K, y[R], y[T], alpha, pri, R,
+                                             T, 20)}
+    ds = make_dataset("adult", n_override=SIZE_N)
+    dev = torch.device("cuda")
+    X = torch.as_tensor(ds.X[:SIZE_N - 1], device=dev)
+    y = torch.as_tensor(ds.y[:SIZE_N - 1], dtype=torch.float64, device=dev)
+    K = kernel_matrix(X, X, gamma=ds.gamma)
+    for k in SIR_SIZE_K:
+        a = _sir_size_inputs(K, y, k)
+        out["sir_greedy"][str(a[4].shape[0])] = _sir_pass_ms(K, *a)
+    del K
+    torch.cuda.empty_cache()
+    return out
+
+
 def compare_main(argv) -> int:
-    """``--compare [--src DIR]``: the times of two redesigned kernels,
-    of the package under DIR (default this checkout's ``src``): the bf16
-    mma.sync route at FLASH_D32 and FLASH_D16 beside
-    SDPA's and the bounds (``_time_flash``), and the 20-fold matrix-free
-    row (adult n=1000, the selection kernel's main path), three times:
-    iterations, solve s and us per longest-lane iteration; then Table 1's
-    iterations and summed init and solve seconds (``_table1_times``). So
-    that two trees are timed in one call, in turns
-    (``chip_select_split.py --src DIR`` times the selection kernel
-    itself)."""
+    """``--compare [--src DIR]``: times of the package under DIR (default
+    this checkout's ``src``), so that two trees are timed in one call, in
+    turns: the bf16 mma.sync route at FLASH_D32 and FLASH_D16 beside SDPA's
+    and the bounds (``_time_flash``), and the 20-fold matrix-free row
+    (adult n=1000, the selection kernel's main path), three times:
+    iterations, solve s and us per longest-lane iteration; the seeding
+    kernels (``_compare_seeding``) and one SIR seed of the grid at size
+    split into its parts (``grid_seed_split``); then Table 1's iterations
+    and summed init and solve seconds (``_table1_times``), the grid at size
+    (``phase_grid_size``) and LOO (``phase_loo``), each gated as in the
+    full run (``chip_select_split.py --src DIR`` times the selection
+    kernel itself)."""
     if "--src" in argv:
         sys.path.insert(0, os.path.abspath(argv[argv.index("--src") + 1]))
     from repro_torch.core.cv import run_cv_batched
@@ -3481,10 +3746,14 @@ def compare_main(argv) -> int:
                          1e6 * rep.total_solve_time / max(lane_max, 1),
                      "accuracy": rep.accuracy})
     emit({"phase": "compare_wide_k", "k": WIDE_K, "rows": rows})
+    emit({"phase": "compare_seeding", **_compare_seeding()})
+    phase_grid_seed_split()
     rows = _table1_times()
     emit({"phase": "compare_table1", "rows": rows, "init_s": sum(
         r["init_s"] for r in rows), "solve_s": sum(r["solve_s"]
                                                    for r in rows)})
+    phase_grid_size(make_dataset("adult", n_override=SIZE_N))
+    phase_loo()
     return 0
 
 
@@ -3497,6 +3766,7 @@ def main() -> int:
     if "--compare" in sys.argv:
         return compare_main(sys.argv)
     from repro_torch.kernels import ops
+    from repro_torch.kernels import seeding as ks
     # float32 products in full float32 (no TF32) in the plain versions too
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3512,11 +3782,13 @@ def main() -> int:
     split = phase_seed_split(datasets[("adult", SIZE_N - 1)])["split"]
 
     # each path: counts from 0 just before it, read just after
-    counts, routes = {}, {}
+    counts, routes, sir_events = {}, {}, {}
     ops.reset_launch_counts()
+    ks.reset_sir_greedy_events()
     cold_folds = phase_table1(build_s, split)
     counts["table1"], routes["table1"] = (ops.launch_counts(),
                                           ops.route_counts())
+    sir_events["table1"] = ks.sir_greedy_events()
     ops.reset_launch_counts()
     phase_table1_batched(cold_folds)
     counts["table1_batched"], routes["table1_batched"] = (
@@ -3538,13 +3810,19 @@ def main() -> int:
              lambda: phase_grid_size(datasets[("adult", SIZE_N - 1)])),
             ("loo", phase_loo)):
         ops.reset_launch_counts()
+        ks.reset_sir_greedy_events()
         run()
         counts[path], routes[path] = ops.launch_counts(), ops.route_counts()
+        sir_events[path] = ks.sir_greedy_events()
+    # one SIR seed of the grid at size, split into its parts (outside the
+    # counted paths)
+    info["grid_seed_split"] = phase_grid_seed_split()
     # the serving path resets and reads the counts around its main path
     # itself: its checks that follow launch the kernel too
     counts["serve_lm"], routes["serve_lm"] = phase_serve_lm(
         info["flash_attention"]["ms"])
     emit({"phase": "kernel_counts", **counts})
+    emit({"phase": "sir_greedy_events", **sir_events})
     emit({"phase": "route_counts", **routes})
     for name in ("rbf_kernel_matrix", "smo_f_update", "smo_chunk",
                  "water_fill", "sir_greedy", "ato_system_lanes",
@@ -3697,9 +3975,19 @@ def main() -> int:
                                        "x_per_iter_hbm_ms")})
         if name in ("water_fill", "sir_greedy", "ato_system_lanes",
                     "ato_apply_lanes", "avg_spill", "top_spill"):
-            kernels[-1].update({key: k[key] for key in (
+            kernels[-1].update({key: k[key] for key in k if key in (
                 "n", "m_cap", "nf", "lanes", "ms_32560", "ms_32560_S",
-                "steps_checked", "calls_checked") if key in k})
+                "steps_checked", "calls_checked", "levels_ms")
+                or key.startswith(("ms_", "bound_ms_", "gather_ms_",
+                                   "block_ms_", "list_ms_", "segment_ms_"))})
+        # the seeding kernels that run on every seeded path: their
+        # launches on each
+        if name in ("water_fill", "sir_greedy"):
+            kernels[-1]["launches_by_path"] = {
+                p: counts[p][name] for p in ("table1", "size", "grid_size",
+                                             "study_seeds", "loo")}
+        if name == "sir_greedy":
+            kernels[-1]["events_by_path"] = sir_events
         # ATO's ramp kernels and its alpha update also run the batched
         # ramp over the ATO C row (reference: _ato_seed_batch_jit): that
         # path's launches and the kernels' readings on its 3-lane calls

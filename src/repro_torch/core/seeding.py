@@ -238,10 +238,11 @@ def sir_seed(K, y, C, prev: SMOResult, S_idx, R_idx, T_idx,
         priority = priority.to(K.device, non_blocking=True)
     else:
         priority = torch.as_tensor(priority, dtype=K.dtype).to(K.device)
-    K_RT = K[R_idx][:, T_idx]
     y_T = y[T_idx]
-    beta_T = sir_greedy(K_RT, y[R_idx], y_T, prev.alpha[R_idx], priority,
-                        fallback)
+    # K is read through the indices: on the card no (|R|, n) rows or (|R|,
+    # |T|) block is gathered; on the CPU the block is, in one index
+    beta_T = sir_greedy(K, y[R_idx], y_T, prev.alpha[R_idx], priority,
+                        fallback, R_idx, T_idx)
 
     lo, hi = _box(y_T, C)
     beta_T = water_fill(torch.clamp(beta_T, lo, hi), lo, hi,

@@ -10,7 +10,9 @@ starts one ``nvcc`` per source, all at once.
 A variant (``VARIANTS``) is another build of one source with a macro
 set: ``smo_step_fma`` keeps ``csrc/smo_step.cu``'s float64 dot products on
 the FMA pipes, the witness that ``chip_smoke.py`` holds bitwise equal to
-the FP64 tensor-core build the port runs.
+the FP64 tensor-core build the port runs; ``water_fill_seq`` builds
+``csrc/seeding.cu`` with one bisection level a round, the sequential loop
+that the multi-level ``water_fill`` must equal bit for bit.
 
 Flags are per source (``flags``). The SVM sources keep ``-fmad=false``,
 which keeps ``nvcc`` from contracting any expression into an FMA behind
@@ -45,7 +47,8 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 
 #: variant -> (its source, the flags it adds)
-VARIANTS = {"smo_step_fma": ("smo_step", ("-DSMO_STEP_TENSOR_F64=0",))}
+VARIANTS = {"smo_step_fma": ("smo_step", ("-DSMO_STEP_TENSOR_F64=0",)),
+            "water_fill_seq": ("seeding", ("-DWATER_FILL_LEVELS=1",))}
 
 
 def source(name: str) -> Path:

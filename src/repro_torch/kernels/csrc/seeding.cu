@@ -16,11 +16,17 @@
 // tenth of n, the working set a few hundred rows), so each kernel is bound
 // by its chain of block-wide reductions, not by bytes or operations: one
 // block runs the whole loop on chip, with one reduction (a few barriers)
-// a step. water_fill keeps beta, lo and hi in shared memory while they fit
-// and streams them from L2 past that (repair_equality's S side at n =
-// 32,560: ~26,000 rows). sir_greedy keeps each thread's share of T
-// (priorities, labels, used bits) in registers and loads the next row of
-// the kernel block while it reduces this one. ato_system compacts the free set in ascending order (what
+// a step. water_fill takes several bisection steps a barrier: a round
+// sums every midpoint of the next levels of the bisection tree, in the
+// one-level loop's order, and walks the outcomes; it keeps as many rows in
+// shared memory as fit (an SVM box as beta and a bit a row: all of
+// repair_equality's S side at n = 32,560, ~26,000 rows) and reads the rest
+// from L2 once a round. sir_greedy splits its pass: its reads of K
+// (through the index sets, no gathered block) do not depend on the earlier
+// picks, so for a segment of removed rows at a time every SM builds each
+// row's list of best candidates among the T still unused, and one block
+// then walks the segment's rows in order over used bits in shared memory,
+// a row an on-chip check. ato_system compacts the free set in ascending order (what
 // torch.nonzero gives, with no host sync) redundantly in every block, so
 // that one launch of many blocks also writes the bordered (m_cap + 1)^2
 // KKT matrix row by row. ato_apply reduces the step size, applies the f
@@ -162,77 +168,207 @@ __device__ __forceinline__ bool same_bits(double a, double b) {
 // (c_lo, c_hi) repeat, after which every step is the identity), then the
 // residue added to the freest coordinate. One block.
 // ---------------------------------------------------------------------------
-__global__ void water_fill_kernel(const double* __restrict__ beta,
-                                  const double* __restrict__ lo,
-                                  const double* __restrict__ hi,
-                                  const double* __restrict__ target_p,
-                                  double* __restrict__ out, int n, int iters,
-                                  int in_smem) {
+// A round evaluates the next LV levels of the bisection tree: its 2^LV - 1
+// midpoints, each 0.5 * (lo + hi) of the interval its path would reach (node
+// q's children: 2q + 1 where the sum is not too big, c_hi = mid; 2q + 2 where
+// it is, c_lo = mid). Each thread keeps one partial sum a midpoint over its
+// strided rows, in the rows' order, loading each row once a round; the warp
+// butterflies of all the midpoints interleave; one barrier, and every thread
+// folds the warps' slots in warp order for the midpoints on its path and
+// walks the round's outcomes, stopping at the first step that leaves (c_lo,
+// c_hi) as they were. So every midpoint on the path is summed in the order of
+// the one-level loop (LV = 1, the witness build water_fill_seq) and the
+// bisection takes its steps bit for bit. The first `ns` rows are staged in
+// shared memory (a box's rows as beta and one bit each), the rest are read
+// from L2 each round.
+#ifndef WATER_FILL_LEVELS
+#define WATER_FILL_LEVELS 0   // 0: the levels the entry is given, or 2
+#endif
+
+// clamp_t with no NaN operand: nan_max and nan_min are then one compare and
+// select each, bit for bit.
+__device__ __forceinline__ double clamp_plain(double x, double lo, double hi) {
+  const double a = lo > x ? lo : x;
+  return hi < a ? hi : a;
+}
+
+template <int LV, int MAXT>
+__global__ void __launch_bounds__(MAXT)
+water_fill_kernel(const double* __restrict__ beta,
+                  const double* __restrict__ lo,
+                  const double* __restrict__ hi,
+                  const double* __restrict__ target_p,
+                  double* __restrict__ out, int n, int iters, int room) {
+  constexpr int NODES = (1 << LV) - 1;
   extern __shared__ double stage[];
   __shared__ Red red;
-  int par = 0;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const double* B = beta;
-  const double* L = lo;
-  const double* H = hi;
-  if (in_smem) {
-    for (int i = tid; i < n; i += nt) {
-      stage[i] = beta[i];
-      stage[n + i] = lo[i];
-      stage[2 * n + i] = hi[i];
-    }
-    B = stage;
-    L = stage + n;
-    H = stage + 2 * n;
-    __syncthreads();
-  }
+  __shared__ double slots[2][NODES][kMaxWarps];
+  int par = 0, spar = 0;
+  const int tid = threadIdx.x, nt = blockDim.x, nw = nt >> 5, w = tid >> 5;
+  // The first pass reads every row from global memory; it also finds
+  // whether the rows are an SVM box (lo, hi) = (+0, C) or (-C, +0) with one
+  // C > 0, bit for bit.
   double slo = 0.0, shi = 0.0, mn = CUDART_INF, mx = -CUDART_INF;
+  double cmin = CUDART_INF, cmax = -CUDART_INF;
+  bool finite = true, other = false;   // other: a row outside the box form
   for (int i = tid; i < n; i += nt) {
-    const double b = B[i], l = L[i], h = H[i];
+    const double b = beta[i], l = lo[i], h = hi[i];
     slo += l;
     shi += h;
     mn = nan_min(mn, b - h);
     mx = nan_max(mx, b - l);
+    finite = finite && isfinite(b) && isfinite(l) && isfinite(h);
+    const bool up = __double_as_longlong(l) == 0;   // (+0, C)
+    const double c = up ? h : -l;
+    other = other || !(up || __double_as_longlong(h) == 0) ||
+            !(c > 0.0) || !isfinite(c);
+    cmin = fmin(cmin, c);
+    cmax = fmax(cmax, c);
   }
   slo = block_sum(slo, red, par);
   shi = block_sum(shi, red, par);
   mn = block_ext<false>(mn, red, par);
   mx = block_ext<true>(mx, red, par);
+  cmin = block_ext<false>(cmin, red, par);
+  cmax = block_ext<true>(cmax, red, par);
+  const bool box = !__syncthreads_or(other) && cmin == cmax;
+  // Stage as many rows as shared memory holds: beta and a bit a row (its
+  // box's side) for a box, else beta, lo and hi; the rest stay in L2.
+  int ns;
+  unsigned* side = nullptr;
+  if (box) {
+    ns = (int)(((long long)(room - 4) * 32) / (8 * 32 + 4));
+    ns = ns < n ? ns : n;
+    side = reinterpret_cast<unsigned*>(stage + ns);
+    for (int i = tid; i < (ns + 31) / 32; i += nt) side[i] = 0u;
+    __syncthreads();
+    for (int i = tid; i < ns; i += nt) {
+      stage[i] = beta[i];
+      if (__double_as_longlong(lo[i]) == 0)
+        atomicOr(&side[i >> 5], 1u << (i & 31));
+    }
+  } else {
+    ns = room / 24 < n ? room / 24 : n;
+    for (int i = tid; i < ns; i += nt) {
+      stage[i] = beta[i];
+      stage[ns + i] = lo[i];
+      stage[2 * ns + i] = hi[i];
+    }
+  }
+  __syncthreads();
+  const double C = cmin, negC = -cmin;
+  // f(i, b, l, h) over this thread's rows tid + k nt in order: staged, then
+  // L2; a staged box row's (l, h) is (+0, C) or (-C, +0) by its bit
+  auto rows = [&](auto&& f) {
+    int i = tid;
+    if (box) {
+      for (; i < ns; i += nt) {
+        const bool up = (side[i >> 5] >> (i & 31)) & 1u;
+        f(i, stage[i], up ? 0.0 : negC, up ? C : 0.0);
+      }
+    } else {
+      for (; i < ns; i += nt)
+        f(i, stage[i], stage[ns + i], stage[2 * ns + i]);
+    }
+    for (; i < n; i += nt) f(i, beta[i], lo[i], hi[i]);
+  };
   const double target = nan_min(nan_max(*target_p, slo), shi);
   double c_lo = mn - 1.0, c_hi = mx + 1.0;
-  for (int k = 0; k < iters; ++k) {
-    const double c = 0.5 * (c_lo + c_hi);
-    double s = 0.0;
-    for (int i = tid; i < n; i += nt) s += clamp_t(B[i] - c, L[i], H[i]);
-    const bool too_big = block_sum(s, red, par) > target;
-    const double nlo = too_big ? c : c_lo, nhi = too_big ? c_hi : c;
-    if (same_bits(nlo, c_lo) && same_bits(nhi, c_hi)) break;
-    c_lo = nlo;
-    c_hi = nhi;
+  int k = 0;
+  bool stop = false;
+  while (k < iters && !stop) {
+    double mid[NODES], s[NODES];
+    {
+      double a[NODES], z[NODES];
+      a[0] = c_lo;
+      z[0] = c_hi;
+#pragma unroll
+      for (int q = 0; q < NODES; ++q) {
+        mid[q] = 0.5 * (a[q] + z[q]);
+        s[q] = 0.0;
+        if (2 * q + 2 < NODES) {
+          a[2 * q + 1] = a[q];
+          z[2 * q + 1] = mid[q];
+          a[2 * q + 2] = mid[q];
+          z[2 * q + 2] = z[q];
+        }
+      }
+    }
+    bool plain = finite;
+#pragma unroll
+    for (int q = 0; q < NODES; ++q) plain = plain && isfinite(mid[q]);
+    if (plain) {
+      rows([&](int, double b, double l, double h) {
+#pragma unroll
+        for (int q = 0; q < NODES; ++q) s[q] += clamp_plain(b - mid[q], l, h);
+      });
+    } else {
+      rows([&](int, double b, double l, double h) {
+#pragma unroll
+        for (int q = 0; q < NODES; ++q) s[q] += clamp_t(b - mid[q], l, h);
+      });
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+      for (int q = 0; q < NODES; ++q) s[q] += __shfl_xor_sync(kFull, s[q], off);
+    if (nw > 1) {
+      if ((tid & 31) == 0) {
+#pragma unroll
+        for (int q = 0; q < NODES; ++q) slots[spar][q][w] = s[q];
+      }
+      __syncthreads();
+    } else {
+      __syncwarp();
+    }
+    int q = 0;
+    for (int lv = 0; lv < LV && k < iters; ++lv) {
+      double sum;
+      if (nw > 1) {
+        sum = 0.0;
+        for (int x = 0; x < nw; ++x) sum += slots[spar][q][x];
+      } else {
+#pragma unroll
+        for (int qq = 0; qq < NODES; ++qq)
+          if (qq == q) sum = s[qq];
+      }
+      const double c = 0.5 * (c_lo + c_hi);   // == mid[q]
+      const bool too_big = sum > target;
+      const double nlo = too_big ? c : c_lo, nhi = too_big ? c_hi : c;
+      if (same_bits(nlo, c_lo) && same_bits(nhi, c_hi)) {
+        stop = true;
+        break;
+      }
+      c_lo = nlo;
+      c_hi = nhi;
+      ++k;
+      q = 2 * q + 1 + (too_big ? 1 : 0);
+    }
+    spar ^= 1;
   }
   const double c = 0.5 * (c_lo + c_hi);
   double s = 0.0;
-  for (int i = tid; i < n; i += nt) {
-    const double o = clamp_t(B[i] - c, L[i], H[i]);
+  rows([&](int i, double b, double l, double h) {
+    const double o = clamp_t(b - c, l, h);
     out[i] = o;
     s += o;
-  }
+  });
   const double resid = target - block_sum(s, red, par);
   double rv = -CUDART_INF;
   int ri = INT_MAX;
-  for (int i = tid; i < n; i += nt) {
+  rows([&](int i, double, double l, double h) {
     const double o = out[i];
-    const double room = resid >= 0.0 ? H[i] - o : o - L[i];
+    const double room = resid >= 0.0 ? h - o : o - l;
     if (better_max(room, i, rv, ri)) {
       rv = room;
       ri = i;
     }
-  }
+  });
   block_argmax(rv, ri, red, par);
   if (tid == 0) {
     const int j = ri;
     const double o = out[j];
-    const double room = resid >= 0.0 ? H[j] - o : o - L[j];
+    const double room = resid >= 0.0 ? hi[j] - o : o - lo[j];
     const double sgn = resid > 0.0 ? 1.0 : (resid < 0.0 ? -1.0 : 0.0);
     out[j] = o + sgn * nan_min(fabs(resid), room);
   }
@@ -240,145 +376,497 @@ __global__ void water_fill_kernel(const double* __restrict__ beta,
 
 // ---------------------------------------------------------------------------
 // sir_greedy: for r = 0..m-1, removed row r hands y_T[t] * alpha_R[r] to
-// the unused same-label t of largest K_RT[r, t] (lowest t on a tie), or,
-// with no such t, to the unused t of largest priority (skip: to none).
-// One block, one reduction (one barrier; none at one warp) a row, two where
-// the fallback decides.
+// the unused same-label t of largest K[R_idx[r], T_idx[t]] (lowest t on a
+// tie, NaN first; found only if that value is above -inf), or, with none,
+// to the unused t of largest priority (skip: to none). K is read through
+// the indices (null: the identity over an (m, t) block of row stride ld).
 // ---------------------------------------------------------------------------
-// The block's pick for one removed row, from each thread's best same-label
-// candidate (bv, bi) and best unused priority (pv, pi): every thread gets
-// `found` and `pick`; `any` says some t is unused. The priority pick
-// matters only where no same-label t is left (`found` false on every
-// thread alike), so it is reduced only there.
-struct SirRed {
-  Red kv, pr;
-  int any[2][kMaxWarps];
-};
+// The pass is sequential only through the used bits; its reads of K are not.
+// So it runs as segments of W removed rows, each two launches (and one
+// ranking of the fallback's priorities first, under "random"):
+//   sir_lists (every SM; the bytes): a warp a removed row of the segment
+//     builds the row's top-L candidates (same label, unused when the
+//     segment starts, value above -inf) in the argmax's order (NaN first,
+//     then the larger value, then the lower index), as ordered 64-bit keys
+//     with the index as the tie-break in a sorted list spread over the
+//     warp's lanes, and writes the list, the row's count of candidates, of
+//     NaN candidates and its label's class;
+//   sir_order (random only, once): each t's rank in the fallback's order
+//     (NaN first, then the larger priority, then the lower index), by
+//     counting;
+//   sir_walk (one block; the order): the used bits in shared memory (kept
+//     in global memory between segments, with the walk's state), one warp
+//     walks the segment's rows, 32 at a time, with the next 32 rows' lists
+//     in flight (cp.async into shared memory), so a row is an on-chip
+//     check: the pick is the first unused entry of the list (NaN: not
+//     found), and a run of rows whose picks differ is taken in one step.
+//     Where every entry is used but the row had more than L candidates,
+//     the whole block rescans the row (today's per-row reduction); where
+//     nothing is found, the fallback takes the first unused t of the
+//     priority order (a pointer that only moves forward).
+//     A label with no unused t left finds nothing, with no rescan. The
+//     segment's picks are scattered into beta_T, and the counts of
+//     rescanned and fallback rows added to `stats`.
+// A list is built over the t still unused when its segment starts, so it
+// runs out only through the picks of its own segment: the kernel block's
+// hubs (the t that many rows rank first) are taken in early segments and
+// are in no later list. Every decision is taken on the device, and each is
+// a compare or a copy, so beta_T is the plain version's bit for bit.
+constexpr int kListWarps = 8;   // sir_lists: removed rows a block
+constexpr int kListLoads = 8;   // sir_lists: loads of K in flight a lane
+constexpr int kOrderWarps = 8;  // sir_order: warps sharing a t's count
+constexpr int kWin = 32;        // sir_walk: rows a window, a lane each
 
-__device__ __forceinline__ void sir_pick(double bv, int bi, double pv, int pi,
-                                         int any, SirRed& sr, int& par,
-                                         bool& found, int& pick, bool& free_t) {
-  const int tid = threadIdx.x, nw = blockDim.x >> 5, w = tid >> 5;
-  warp_argmax(bv, bi);
-  if (nw > 1) {
-    if ((tid & 31) == 0) {
-      sr.kv.v[par][w] = bv;
-      sr.kv.i[par][w] = bi;
-    }
-    __syncthreads();
-    bv = sr.kv.v[par][0];
-    bi = sr.kv.i[par][0];
-    for (int x = 1; x < nw; ++x)
-      if (better_max(sr.kv.v[par][x], sr.kv.i[par][x], bv, bi)) {
-        bv = sr.kv.v[par][x];
-        bi = sr.kv.i[par][x];
-      }
-    par ^= 1;
-  }
-  found = bv > -CUDART_INF;
-  if (found) {            // a same-label candidate is an unused t
-    pick = bi;
-    free_t = true;
-    return;
-  }
-  warp_argmax(pv, pi);
-  any = __any_sync(kFull, any);
-  if (nw > 1) {
-    if ((tid & 31) == 0) {
-      sr.pr.v[par][w] = pv;
-      sr.pr.i[par][w] = pi;
-      sr.any[par][w] = any;
-    }
-    __syncthreads();
-    pv = sr.pr.v[par][0];
-    pi = sr.pr.i[par][0];
-    any = sr.any[par][0];
-    for (int x = 1; x < nw; ++x) {
-      if (better_max(sr.pr.v[par][x], sr.pr.i[par][x], pv, pi)) {
-        pv = sr.pr.v[par][x];
-        pi = sr.pr.i[par][x];
-      }
-      any |= sr.any[par][x];
-    }
-    par ^= 1;
-  }
-  pick = pi;
-  free_t = any != 0;
+// The ascending order of doubles as 64-bit integers, -0.0 as +0.0 and
+// every NaN above +inf: a > b as keys exactly where better_max ranks a
+// first (with the index as the tie-break, key_better).
+__device__ __forceinline__ unsigned long long order_key(double v) {
+  if (isnan(v)) return ~0ull;
+  const unsigned long long b = __double_as_longlong(v == 0.0 ? 0.0 : v);
+  return (b >> 63) ? ~b : (b | (1ull << 63));
 }
 
-// Up to E of t's entries a thread (t = tid + k nt), their priorities,
-// labels and used bits held in registers for the whole pass, and the next
-// row of K_RT loaded while this one is reduced: a row costs one load
-// latency and one reduction. Only an entry's owner reads or writes its
-// used bit and beta_T: every thread reaches the same pick, so the owner
-// applies it, with no barrier after it.
-template <int E>
-__global__ void __launch_bounds__(kMaxThreads)
-sir_greedy_kernel(const double* __restrict__ K_RT,
-                                  long long ld, const double* __restrict__ y_R,
-                                  const double* __restrict__ y_T,
-                                  const double* __restrict__ alpha_R,
-                                  const double* __restrict__ priority,
-                                  double* __restrict__ beta_T, int m, int t,
-                                  int skip) {
-  __shared__ SirRed sr;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  int par = 0;
-  double pri[E], yt[E], next[E];
-  unsigned used = 0;
+__device__ __forceinline__ bool key_better(unsigned long long ka, int ia,
+                                           unsigned long long kb, int ib) {
+  return ka > kb || (ka == kb && ia < ib);
+}
+
+// The warp's sorted list: position p = s * 32 + lane holds (key[s], idx[s]),
+// best first; (ck, ci), better than position L - 1, goes in at its place
+// and the tail shifts down by one.
+template <int L, int S>
+__device__ __forceinline__ void list_insert(unsigned long long (&key)[S],
+                                            int (&idx)[S],
+                                            unsigned long long ck, int ci,
+                                            int lane) {
+  int pos = 0;
 #pragma unroll
-  for (int k = 0; k < E; ++k) {
-    const int i = tid + k * nt;
-    pri[k] = yt[k] = next[k] = 0.0;
-    if (i < t) {
-      pri[k] = priority[i];
-      yt[k] = y_T[i];
-      beta_T[i] = 0.0;
-      if (m > 0) next[k] = K_RT[i];
-    } else {
-      used |= 1u << k;            // past t: never a candidate
+  for (int s = 0; s < S; ++s)
+    pos += __popc(__ballot_sync(
+        kFull, s * 32 + lane < L && key_better(key[s], idx[s], ck, ci)));
+  unsigned long long nk[S];
+  int ni[S];
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    unsigned long long up = __shfl_up_sync(kFull, key[s], 1);
+    int upi = __shfl_up_sync(kFull, idx[s], 1);
+    if (s > 0) {
+      const unsigned long long ck2 = __shfl_sync(kFull, key[s - 1], 31);
+      const int ci2 = __shfl_sync(kFull, idx[s - 1], 31);
+      if (lane == 0) {
+        up = ck2;
+        upi = ci2;
+      }
+    }
+    const int p = s * 32 + lane;
+    nk[s] = p < pos ? key[s] : (p == pos ? ck : up);
+    ni[s] = p < pos ? idx[s] : (p == pos ? ci : upi);
+  }
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    key[s] = nk[s];
+    idx[s] = ni[s];
+  }
+}
+
+__device__ __forceinline__ int label_class(double y) {
+  return y == 1.0 ? 0 : (y == -1.0 ? 1 : 2);
+}
+
+__device__ __forceinline__ bool is_used(const unsigned* used, int j) {
+  return (used[j >> 5] >> (j & 31)) & 1u;
+}
+
+// Rows r0 <= r < r1: head[r] = (candidates, min(NaN candidates, L) | class
+// << 8); a t marked in `used` (null: none) is no candidate.
+template <int L>
+__global__ void __launch_bounds__(kListWarps * 32)
+sir_lists_kernel(const double* __restrict__ K, long long ld,
+                 const long long* __restrict__ R_idx,
+                 const long long* __restrict__ T_idx,
+                 const double* __restrict__ y_R,
+                 const double* __restrict__ y_T, int r0, int r1, int t,
+                 const unsigned* __restrict__ used,
+                 int* __restrict__ lists, int2* __restrict__ head) {
+  constexpr int S = (L + 31) / 32;
+  constexpr int U = kListLoads;
+  const int lane = threadIdx.x & 31;
+  const int r = r0 + blockIdx.x * kListWarps + (threadIdx.x >> 5);
+  if (r >= r1) return;
+  const double yr = y_R[r];
+  const double* row = K + (R_idx ? R_idx[r] : (long long)r) * ld;
+  unsigned long long key[S];
+  int idx[S];
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    key[s] = 0ull;   // below every candidate's key
+    idx[s] = INT_MAX;
+  }
+  unsigned long long tk = 0ull;   // position L - 1
+  int ti = INT_MAX, cnt = 0, nnan = 0;
+  for (int c0 = 0; c0 < t; c0 += 32 * U) {
+    double v[U];
+    bool same[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int j = c0 + 32 * u + lane;
+      same[u] = j < t && y_T[j] == yr && !(used && is_used(used, j));
+      v[u] = same[u] ? row[T_idx ? T_idx[j] : (long long)j] : 0.0;
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int j = c0 + 32 * u + lane;
+      const bool cand = same[u] && v[u] != -CUDART_INF;
+      cnt += cand ? 1 : 0;
+      nnan += (cand && isnan(v[u])) ? 1 : 0;
+      const unsigned long long kk = order_key(v[u]);
+      unsigned want = __ballot_sync(kFull, cand && key_better(kk, j, tk, ti));
+      while (want) {
+        const int src = __ffs(want) - 1;
+        list_insert<L, S>(key, idx, __shfl_sync(kFull, kk, src),
+                          __shfl_sync(kFull, j, src), lane);
+        tk = __shfl_sync(kFull, key[(L - 1) / 32], (L - 1) % 32);
+        ti = __shfl_sync(kFull, idx[(L - 1) / 32], (L - 1) % 32);
+        want &= ~(1u << src);
+        want &= __ballot_sync(kFull, cand && key_better(kk, j, tk, ti));
+      }
     }
   }
-  double yr_next = m > 0 ? y_R[0] : 0.0;
-  for (int r = 0; r < m; ++r) {
-    double kv[E];
+  cnt = __reduce_add_sync(kFull, cnt);
+  nnan = __reduce_add_sync(kFull, nnan);
 #pragma unroll
-    for (int k = 0; k < E; ++k) kv[k] = next[k];
-    const double yr = yr_next;
-    if (r + 1 < m) {
-      const double* row = K_RT + (long long)(r + 1) * ld;
-#pragma unroll
-      for (int k = 0; k < E; ++k)
-        if (tid + k * nt < t) next[k] = row[tid + k * nt];
-      yr_next = y_R[r + 1];
-    }
-    double bv = -CUDART_INF, pv = -CUDART_INF;
-    int bi = INT_MAX, pi = INT_MAX, any = 0;
-#pragma unroll
-    for (int k = 0; k < E; ++k) {
-      if ((used >> k) & 1u) continue;
-      const int i = tid + k * nt;
-      any = 1;
-      if (better_max(pri[k], i, pv, pi)) {
-        pv = pri[k];
-        pi = i;
+  for (int s = 0; s < S; ++s)
+    if (s * 32 + lane < L) lists[(long long)r * L + s * 32 + lane] = idx[s];
+  if (lane == 0)
+    head[r] = make_int2(cnt, (nnan < L ? nnan : L) | (label_class(yr) << 8));
+}
+
+// order[rank] = t, rank = the number of t' that better_max ranks first:
+// a warp's lanes are 32 t's, the block's warps split the t' between them.
+__global__ void __launch_bounds__(kOrderWarps * 32)
+sir_order_kernel(const double* __restrict__ priority, int t,
+                 int* __restrict__ order) {
+  __shared__ int part[kOrderWarps][32];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int i = blockIdx.x * 32 + lane;
+  const double p = i < t ? priority[i] : 0.0;
+  int rank = 0;
+  for (int s = w; s < t; s += kOrderWarps)
+    rank += better_max(priority[s], s, p, i) ? 1 : 0;
+  part[w][lane] = rank;
+  __syncthreads();
+  if (w == 0 && i < t) {
+    int tot = 0;
+    for (int x = 0; x < kOrderWarps; ++x) tot += part[x][lane];
+    order[tot] = i;
+  }
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// One lane takes t = pick for row r: its used bit, the row's pick, and one
+// fewer unused t of its label's class.
+__device__ __forceinline__ void sir_take(unsigned* used, int* picks,
+                                         int* left, int r, int pick,
+                                         int cls) {
+  used[pick >> 5] |= 1u << (pick & 31);
+  picks[r] = pick;
+  if (cls < 2) --left[cls];
+}
+
+// The walking warp's fallback for row r: the first unused t of the
+// priority order from fp on (every t before fp is used), taken by lane 0;
+// skip (ord null) takes none.
+__device__ __forceinline__ void sir_fallback(unsigned* used, int* picks,
+                                             int* left, const int* ord,
+                                             const double* __restrict__ y_T,
+                                             int r, int t, int& fp,
+                                             int lane) {
+  int pick = -1;
+  if (ord) {
+    while (fp < t) {
+      const int j = fp + lane;
+      const int o = j < t ? ord[j] : 0;
+      const unsigned b = __ballot_sync(kFull, j < t && !is_used(used, o));
+      if (b) {
+        const int f = __ffs(b) - 1;
+        pick = __shfl_sync(kFull, o, f);
+        fp += f;
+        break;
       }
-      if (yt[k] == yr && better_max(kv[k], i, bv, bi)) {
-        bv = kv[k];
-        bi = i;
-      }
+      fp += 32;
     }
-    bool found, free_t;
-    int pick;
-    sir_pick(bv, bi, pv, pi, any, sr, par, found, pick, free_t);
-    if (free_t && (found || !skip) && pick % nt == tid) {
-      const int own = pick / nt;
-#pragma unroll
-      for (int k = 0; k < E; ++k)
-        if (k == own) {
-          used |= 1u << k;
-          beta_T[pick] = yt[k] * alpha_R[r];
+  }
+  if (lane == 0) {
+    if (pick >= 0)
+      sir_take(used, picks, left, r, pick, label_class(y_T[pick]));
+    else
+      picks[r] = -1;
+  }
+}
+
+// The walk's state between segments (global memory, beside the used bits):
+// the fallback's pointer and the unused t of each label class.
+struct SirState {
+  int fp, left[2];
+};
+
+// Rows r0 <= r < r1 of the walk. The first segment (r0 == 0) starts from
+// nothing used and zeroes beta_T; each segment leaves its used bits and
+// state in used_g and st for the next.
+template <int L>
+__global__ void __launch_bounds__(kMaxThreads)
+sir_walk_kernel(const double* __restrict__ K, long long ld,
+                const long long* __restrict__ R_idx,
+                const long long* __restrict__ T_idx,
+                const double* __restrict__ y_R,
+                const double* __restrict__ y_T,
+                const double* __restrict__ alpha_R,
+                double* __restrict__ beta_T, int r0, int r1, int t,
+                const int* __restrict__ lists, const int2* __restrict__ head,
+                int* __restrict__ picks, const int* __restrict__ order,
+                int order_in_smem, int cols_in_smem,
+                unsigned* __restrict__ used_g,
+                SirState* __restrict__ st, long long* __restrict__ stats) {
+  // shared: the used bits ((t + 31) / 32 words); then, where they fit, the
+  // fallback's order, and for the rescans K's column of each t (T_idx) and
+  // the t of each label class as bits
+  extern __shared__ unsigned used[];
+  const int words = (t + 31) >> 5;
+  int* s_order = reinterpret_cast<int*>(used + words);
+  int* s_col = s_order + (order_in_smem ? t : 0);
+  unsigned* s_pos = reinterpret_cast<unsigned*>(s_col + (cols_in_smem ? t : 0));
+  unsigned* s_neg = s_pos + words;
+  __shared__ __align__(16) int s_list[2 * kWin][L];
+  __shared__ int2 s_head[2 * kWin];
+  __shared__ Red red;
+  __shared__ int s_row, s_cls, s_left[2];
+  const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31;
+  const bool walker = tid < 32;
+  int par = 0, fp = 0;
+  if (r0 == 0) {
+    if (tid == 0) s_left[0] = s_left[1] = 0;
+    for (int i = tid; i < words; i += nt) used[i] = 0u;
+    int pos = 0, neg = 0;
+    for (int i = tid; i < t; i += nt) {
+      beta_T[i] = 0.0;
+      const double y = y_T[i];
+      pos += y == 1.0 ? 1 : 0;
+      neg += y == -1.0 ? 1 : 0;
+    }
+    pos = __reduce_add_sync(kFull, pos);
+    neg = __reduce_add_sync(kFull, neg);
+    __syncthreads();   // s_left zeroed
+    if (lane == 0) {
+      atomicAdd(&s_left[0], pos);
+      atomicAdd(&s_left[1], neg);
+    }
+  } else {
+    for (int i = tid; i < words; i += nt) used[i] = used_g[i];
+    if (tid == 0) {
+      s_left[0] = st->left[0];
+      s_left[1] = st->left[1];
+    }
+    fp = st->fp;
+  }
+  if (order && order_in_smem)
+    for (int i = tid; i < t; i += nt) s_order[i] = order[i];
+  const int* ord = order && order_in_smem ? s_order : order;
+  if (cols_in_smem) {
+    for (int i = tid; i < words; i += nt) {
+      unsigned p = 0u, q = 0u;
+      for (int b = 0; b < 32 && 32 * i + b < t; ++b) {
+        const double y = y_T[32 * i + b];
+        p |= (y == 1.0 ? 1u : 0u) << b;
+        q |= (y == -1.0 ? 1u : 0u) << b;
+      }
+      s_pos[i] = p;
+      s_neg[i] = q;
+    }
+    for (int i = tid; i < t; i += nt)
+      s_col[i] = T_idx ? (int)T_idx[i] : i;
+  }
+  // The walker takes the rows a window of kWin at a time, lane i row w + i
+  // (its list and head staged a window ahead by cp.async). Each lane
+  // proposes its row's first unused entry (a cursor that only moves on:
+  // entries behind it are used). Of the rows from a on, the longest run
+  // whose proposals are distinct and plain (no NaN, not out of entries)
+  // picks them at once: row j's true pick skips only the picks of the rows
+  // before it, and its proposal is none of theirs. The walk then goes on
+  // from the first row that clashed (it proposes again) or, where that row
+  // is the first of the run, decides it alone (a fallback, or the block's
+  // rescan).
+  auto stage_win = [&](int w) {
+    const int q = w + lane;
+    if (q < r1) {
+      const int slot = q & (2 * kWin - 1);
+      for (int p = 0; p < L; p += 4)
+        cp_async16(&s_list[slot][p], lists + (long long)q * L + p);
+      cp_async8(&s_head[slot], head + q);
+    }
+    cp_commit();
+  };
+  int w = r0, a = 0, cur = 0, cnt_l = 0, nn_l = 0, cls_l = 2, cls = 2;
+  bool fresh = true;
+  int n_rescan = 0, n_fb = 0;
+  if (walker) stage_win(r0);
+  __syncthreads();   // used and s_left complete
+  while (true) {
+    if (walker) {
+      bool rescan = false;
+      while (w < r1) {
+        const int rows = r1 - w < kWin ? r1 - w : kWin;
+        if (fresh) {   // window w: stage the next, wait for this one
+          stage_win(w + kWin);
+          cp_wait<1>();
+          __syncwarp();
+          if (lane < rows) {
+            const int2 hd = s_head[(w + lane) & (2 * kWin - 1)];
+            cnt_l = hd.x;
+            nn_l = hd.y & 0xff;
+            cls_l = hd.y >> 8;
+          }
+          cur = 0;
+          a = 0;
+          fresh = false;
         }
+        while (a < rows) {
+          const bool act = lane >= a && lane < rows;
+          int c = -1;
+          bool special = false;
+          if (act) {
+            const int* lst = s_list[(w + lane) & (2 * kWin - 1)];
+            const int nl = cnt_l < L ? cnt_l : L;
+            while (cur < nl && is_used(used, lst[cur])) ++cur;
+            if (cur < nl) c = lst[cur];
+            special = cur >= nl || cur < nn_l;
+          }
+          const bool plain = act && !special;
+          const unsigned same = __match_any_sync(kFull, plain ? c : -2 - lane);
+          const bool clash = plain && (same & ((1u << lane) - 1u)) != 0;
+          const unsigned stop = __ballot_sync(kFull, act && (special || clash));
+          const int k = stop ? __ffs(stop) - 1 : rows;
+          const bool take = lane >= a && lane < k;
+          if (take) {
+            atomicOr(&used[c >> 5], 1u << (c & 31));
+            picks[w + lane] = c;
+          }
+          const int t0 = __popc(__ballot_sync(kFull, take && cls_l == 0));
+          const int t1 = __popc(__ballot_sync(kFull, take && cls_l == 1));
+          if (lane == 0) {
+            s_left[0] -= t0;
+            s_left[1] -= t1;
+          }
+          __syncwarp();
+          if (k > a) {   // rows a..k-1 picked; row k proposes again
+            a = k;
+            continue;
+          }
+          // row w + a, first of the run, is special: no plain pick left
+          const int r = w + a, cnt = __shfl_sync(kFull, cnt_l, a),
+                    pos = __shfl_sync(kFull, cur, a);
+          cls = __shfl_sync(kFull, cls_l, a);
+          if (pos >= (cnt < L ? cnt : L) && cnt > L &&
+              (cls == 2 || s_left[cls] > 0)) {
+            if (lane == 0) {   // the block rescans row r
+              s_row = r;
+              s_cls = cls;
+            }
+            rescan = true;
+            break;
+          }
+          ++n_fb;
+          sir_fallback(used, picks, s_left, ord, y_T, r, t, fp, lane);
+          __syncwarp();
+          ++a;
+        }
+        if (rescan) break;
+        w += kWin;
+        fresh = true;
+      }
+      if (!rescan && lane == 0) s_row = r1;
+    }
+    __syncthreads();
+    const int rr = s_row;
+    if (rr >= r1) break;
+    // the rescan: kListLoads columns a thread in flight at once, the
+    // labels and K's columns from shared memory where they are staged (a
+    // row of class 0 or 1 by its class's bits, else by y_T)
+    const double yr = y_R[rr];
+    const double* row = K + (R_idx ? R_idx[rr] : (long long)rr) * ld;
+    const int rc = s_cls;
+    const unsigned* mine = rc == 0 ? s_pos : s_neg;
+    const bool bits = cols_in_smem && rc < 2;
+    double bv = -CUDART_INF;
+    int bi = INT_MAX;
+    for (int j0 = tid; j0 < t; j0 += kListLoads * nt) {
+      double v[kListLoads];
+      bool ok[kListLoads];
+#pragma unroll
+      for (int u = 0; u < kListLoads; ++u) {
+        const int j = j0 + u * nt;
+        ok[u] = j < t && !is_used(used, j) &&
+                (bits ? is_used(mine, j) : y_T[j] == yr);
+        v[u] = !ok[u] ? 0.0
+               : row[cols_in_smem ? (long long)s_col[j]
+                                  : (T_idx ? T_idx[j] : (long long)j)];
+      }
+#pragma unroll
+      for (int u = 0; u < kListLoads; ++u)
+        if (ok[u] && better_max(v[u], j0 + u * nt, bv, bi)) {
+          bv = v[u];
+          bi = j0 + u * nt;
+        }
+    }
+    block_argmax(bv, bi, red, par);
+    if (walker) {
+      ++n_rescan;
+      if (bv > -CUDART_INF) {
+        if (lane == 0) sir_take(used, picks, s_left, rr, bi, cls);
+      } else {
+        ++n_fb;
+        sir_fallback(used, picks, s_left, ord, y_T, rr, t, fp, lane);
+      }
+      __syncwarp();
+      ++a;
+    }
+    __syncthreads();
+  }
+  for (int i = tid; i < words; i += nt) used_g[i] = used[i];
+  for (int q = r0 + tid; q < r1; q += nt) {
+    const int p = picks[q];
+    if (p >= 0) beta_T[p] = y_T[p] * alpha_R[q];
+  }
+  if (tid == 0) {
+    st->fp = fp;
+    st->left[0] = s_left[0];
+    st->left[1] = s_left[1];
+    if (stats) {
+      atomicAdd(reinterpret_cast<unsigned long long*>(stats),
+                (unsigned long long)n_rescan);
+      atomicAdd(reinterpret_cast<unsigned long long*>(stats + 1),
+                (unsigned long long)n_fb);
     }
   }
 }
@@ -716,42 +1204,169 @@ int threads_for(long long n, int per_thread) {
 // the most dynamic shared memory a block may take on sm_90
 static constexpr int kMaxDynSmem = 227 * 1024;
 
-extern "C" int water_fill_f64(const double* beta, const double* lo,
-                              const double* hi, const double* target,
-                              double* out, int n, int iters,
-                              cudaStream_t stream) {
-  if (n <= 0) return 0;
-  const long long stage = 3LL * 8 * n;
-  const int in_smem = stage <= kMaxDynSmem - 4096;
-  static bool attr = false;
-  if (!attr) {
-    cudaFuncSetAttribute(water_fill_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         kMaxDynSmem - 4096);
-    attr = true;
+namespace {
+
+// The most shared memory a block of `kernel` may take beside its static
+// share, set as its dynamic limit once (the card's opt-in maximum).
+template <typename F>
+int dyn_smem_limit(F kernel, bool& done, int& limit) {
+  if (!done) {
+    int dev = 0, optin = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                           dev);
+    cudaFuncAttributes fa;
+    cudaFuncGetAttributes(&fa, kernel);
+    limit = optin - (int)fa.sharedSizeBytes;
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         limit);
+    done = true;
   }
-  water_fill_kernel<<<1, threads_for(n, 8), in_smem ? (size_t)stage : 0,
-                      stream>>>(beta, lo, hi, target, out, n, iters, in_smem);
+  return limit;
+}
+
+template <int LV, int MAXT>
+int launch_water_fill(const double* beta, const double* lo, const double* hi,
+                      const double* target, double* out, int n, int iters,
+                      int threads, cudaStream_t stream) {
+  static bool done = false;
+  static int limit = 0;
+  const int room = dyn_smem_limit(water_fill_kernel<LV, MAXT>, done, limit);
+  const long long want = 24LL * n;   // every row, either staging
+  const int dyn = want < room ? (int)want : room;
+  water_fill_kernel<LV, MAXT><<<1, threads, (size_t)dyn, stream>>>(
+      beta, lo, hi, target, out, n, iters, dyn);
   return (int)cudaGetLastError();
 }
 
-// the most entries of T sir_greedy takes: 8 a thread of 1,024
-extern "C" int sir_greedy_max_t() { return 8 * kMaxThreads; }
+// water_fill's levels a round: 2, the fastest at 800 rows on the H100
+// (chip_smoke.py's sweep of 1-5): a round's FP64 work grows as 2^LV - 1
+// while its barriers and butterflies fall as 1 / LV
+constexpr int kWaterFillLevels = 2;
 
-extern "C" int sir_greedy_f64(const double* K_RT, long long ld,
+}  // namespace
+
+extern "C" int water_fill_f64(const double* beta, const double* lo,
+                              const double* hi, const double* target,
+                              double* out, int n, int iters, int levels,
+                              cudaStream_t stream) {
+  if (n <= 0) return 0;
+  const int threads = threads_for(n, 8);
+  const int lv = WATER_FILL_LEVELS > 0
+                     ? WATER_FILL_LEVELS
+                     : (levels > 0 ? levels : kWaterFillLevels);
+  const bool small = threads <= 256;
+#define WF(LV, T)                                                      \
+  return launch_water_fill<LV, T>(beta, lo, hi, target, out, n, iters, \
+                                  threads, stream)
+  switch (lv) {
+    case 1: WF(1, kMaxThreads);
+    case 2: WF(2, kMaxThreads);
+    case 3: WF(3, kMaxThreads);
+    case 4: if (small) WF(4, 256); WF(4, kMaxThreads);
+    case 5: if (small) WF(5, 256); WF(5, kMaxThreads);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef WF
+}
+
+namespace {
+
+template <int L>
+int launch_sir(const double* K, long long ld, const long long* R_idx,
+               const long long* T_idx, const double* y_R, const double* y_T,
+               const double* alpha_R, const double* priority, double* beta_T,
+               int m, int t, int skip, int seg, int* lists, int* head,
+               int* picks, int* order, unsigned* used, int* state,
+               long long* stats, cudaStream_t stream) {
+  static bool done = false;
+  static int limit = 0;
+  const int room = dyn_smem_limit(sir_walk_kernel<L>, done, limit);
+  const long long words = ((long long)t + 31) / 32;
+  if (4 * words > room) return (int)cudaErrorInvalidValue;
+  if (!skip && m > 0)
+    sir_order_kernel<<<(t + 31) / 32, kOrderWarps * 32, 0, stream>>>(
+        priority, t, order);
+  const int order_in_smem = !skip && 4 * (words + t) <= room;
+  const long long base = words + (order_in_smem ? t : 0);
+  const int cols_in_smem = 4 * (base + t + 2 * words) <= room;
+  const size_t smem = 4 * (size_t)(base + (cols_in_smem ? t + 2 * words : 0));
+  const int w = seg > 0 ? seg : (m > 0 ? m : 1);
+  for (int r0 = 0; r0 == 0 || r0 < m; r0 += w) {
+    const int r1 = r0 + w < m ? r0 + w : m;
+    if (r1 > r0)
+      sir_lists_kernel<L><<<(r1 - r0 + kListWarps - 1) / kListWarps,
+                            kListWarps * 32, 0, stream>>>(
+          K, ld, R_idx, T_idx, y_R, y_T, r0, r1, t,
+          r0 == 0 ? nullptr : used, lists, reinterpret_cast<int2*>(head));
+    sir_walk_kernel<L><<<1, kMaxThreads, smem, stream>>>(
+        K, ld, R_idx, T_idx, y_R, y_T, alpha_R, beta_T, r0, r1, t, lists,
+        reinterpret_cast<const int2*>(head), picks,
+        skip ? nullptr : order, order_in_smem, cols_in_smem, used,
+        reinterpret_cast<SirState*>(state), stats);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// SIR's greedy pass over K read through R_idx (m) and T_idx (t) (both null:
+// K is the (m, t) block, row stride ld), in segments of `seg` removed rows
+// (0: one). Scratch from the caller: lists (m L ints), head (2 m), picks
+// (m), order (t; unused by skip), used ((t + 31) / 32), state (3); stats
+// (2 int64, or null) gains the rescanned and the fallback rows. L is 8,
+// 16, 32 or 64; |T| up to the used bits that shared memory holds (~1.8
+// million).
+extern "C" int sir_greedy_f64(const double* K, long long ld,
+                              const long long* R_idx, const long long* T_idx,
                               const double* y_R, const double* y_T,
                               const double* alpha_R, const double* priority,
                               double* beta_T, int m, int t, int skip,
-                              cudaStream_t stream) {
+                              int list_len, int seg, int* lists, int* head,
+                              int* picks, int* order, int* used, int* state,
+                              long long* stats, cudaStream_t stream) {
   if (t <= 0) return 0;
-  if (t > sir_greedy_max_t()) return (int)cudaErrorInvalidValue;
-  const int threads = threads_for(t, 4);
-  if ((long long)threads * 4 >= t)
-    sir_greedy_kernel<4><<<1, threads, 0, stream>>>(
-        K_RT, ld, y_R, y_T, alpha_R, priority, beta_T, m, t, skip);
-  else
-    sir_greedy_kernel<8><<<1, threads, 0, stream>>>(
-        K_RT, ld, y_R, y_T, alpha_R, priority, beta_T, m, t, skip);
+  if (m < 0 || seg < 0 || (R_idx == nullptr) != (T_idx == nullptr))
+    return (int)cudaErrorInvalidValue;
+  unsigned* u = reinterpret_cast<unsigned*>(used);
+#define SG(L)                                                              \
+  return launch_sir<L>(K, ld, R_idx, T_idx, y_R, y_T, alpha_R, priority, \
+                       beta_T, m, t, skip, seg, lists, head, picks, order, \
+                       u, state, stats, stream)
+  switch (list_len) {
+    case 8: SG(8);
+    case 16: SG(16);
+    case 32: SG(32);
+    case 64: SG(64);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef SG
+}
+
+// sir_greedy's first phase alone (checks): each removed row's top-L list
+// (m L ints, INT_MAX past its candidates) and head (2 m ints).
+extern "C" int sir_lists_f64(const double* K, long long ld,
+                             const long long* R_idx, const long long* T_idx,
+                             const double* y_R, const double* y_T, int m,
+                             int t, int list_len, int* lists, int* head,
+                             cudaStream_t stream) {
+  if (m <= 0) return 0;
+  if ((R_idx == nullptr) != (T_idx == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int blocks = (m + kListWarps - 1) / kListWarps;
+  int2* h = reinterpret_cast<int2*>(head);
+#define SL(L)                                                               \
+  sir_lists_kernel<L><<<blocks, kListWarps * 32, 0, stream>>>(              \
+      K, ld, R_idx, T_idx, y_R, y_T, 0, m, t, nullptr, lists, h);           \
+  break
+  switch (list_len) {
+    case 8: SL(8);
+    case 16: SL(16);
+    case 32: SL(32);
+    case 64: SL(64);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef SL
   return (int)cudaGetLastError();
 }
 

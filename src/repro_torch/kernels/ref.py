@@ -279,10 +279,7 @@ def water_fill_ref(beta, lo, hi, target, iters: int = 100,
     the feasible [sum(lo), sum(hi)] first. Once a step leaves (c_lo, c_hi)
     as they were, every later step does too, so ``stop_early`` stops there
     (the result is the same bit for bit; the check reads the device)."""
-    target = torch.as_tensor(target, dtype=beta.dtype, device=beta.device)
-    target = torch.minimum(torch.maximum(target, lo.sum()), hi.sum())
-    c_lo = (beta - hi).min() - 1.0   # => all at hi: sum maximal
-    c_hi = (beta - lo).max() + 1.0   # => all at lo: sum minimal
+    target, c_lo, c_hi = _water_fill_start(beta, lo, hi, target)
     for _ in range(iters):
         c = 0.5 * (c_lo + c_hi)
         too_big = torch.clamp(beta - c, lo, hi).sum() > target
@@ -291,6 +288,21 @@ def water_fill_ref(beta, lo, hi, target, iters: int = 100,
         if stop_early and _same_bits(n_lo, c_lo) and _same_bits(n_hi, c_hi):
             break
         c_lo, c_hi = n_lo, n_hi
+    return _water_fill_finish(beta, lo, hi, target, c_lo, c_hi)
+
+
+def _water_fill_start(beta, lo, hi, target):
+    """The clamped target and the bisection's first (c_lo, c_hi)."""
+    target = torch.as_tensor(target, dtype=beta.dtype, device=beta.device)
+    target = torch.minimum(torch.maximum(target, lo.sum()), hi.sum())
+    c_lo = (beta - hi).min() - 1.0   # => all at hi: sum maximal
+    c_hi = (beta - lo).max() + 1.0   # => all at lo: sum minimal
+    return target, c_lo, c_hi
+
+
+def _water_fill_finish(beta, lo, hi, target, c_lo, c_hi):
+    """clip(beta - c, lo, hi) at c = the midpoint of (c_lo, c_hi), then
+    the residue on the freest coordinate."""
     c = 0.5 * (c_lo + c_hi)
     out = torch.clamp(beta - c, lo, hi)
     # final exact touch-up on the single freest coordinate to kill bisection
@@ -300,6 +312,43 @@ def water_fill_ref(beta, lo, hi, target, iters: int = 100,
     j = torch.argmax(room)
     fix = torch.sign(resid) * torch.minimum(resid.abs(), room[j])
     return out.index_add(0, j.view(1), fix.view(1))
+
+
+def water_fill_levels_ref(beta, lo, hi, target, iters: int = 100,
+                          stop_early: bool = True, levels: int = 1):
+    """``water_fill_ref`` in the card kernel's rounds (only tests use it):
+    a round sums the 2^levels - 1 midpoints of the next ``levels`` levels
+    of the bisection tree (node q's children: 2q + 1 for c_hi = mid, 2q + 2
+    for c_lo = mid), each midpoint 0.5 (lo + hi) of the interval its path
+    reaches, then walks the outcomes: at most ``iters`` steps in all,
+    stopping (``stop_early``) at the first that leaves (c_lo, c_hi) as they
+    were. Each sum is the one-level loop's, so the result is its bit for
+    bit."""
+    target, c_lo, c_hi = _water_fill_start(beta, lo, hi, target)
+    k, moving = 0, True
+    while k < iters and moving:
+        ivl, mids, sums = [(c_lo, c_hi)], [], []
+        for q in range(2 ** levels - 1):
+            a, z = ivl[q]
+            mid = 0.5 * (a + z)
+            mids.append(mid)
+            sums.append(torch.clamp(beta - mid, lo, hi).sum())
+            ivl += [(a, mid), (mid, z)]
+        q = 0
+        for _ in range(levels):
+            if k == iters:
+                break
+            too_big = sums[q] > target
+            n_lo = torch.where(too_big, mids[q], c_lo)
+            n_hi = torch.where(too_big, c_hi, mids[q])
+            if stop_early and _same_bits(n_lo, c_lo) \
+                    and _same_bits(n_hi, c_hi):
+                moving = False
+                break
+            c_lo, c_hi = n_lo, n_hi
+            k += 1
+            q = 2 * q + 1 + int(too_big)
+    return _water_fill_finish(beta, lo, hi, target, c_lo, c_hi)
 
 
 def sir_greedy_ref(K_RT, y_R, y_T, alpha_R, priority, fallback="random"):
@@ -323,6 +372,110 @@ def sir_greedy_ref(K_RT, y_R, y_T, alpha_R, priority, fallback="random"):
             write = write & found
         beta_T[t] = torch.where(write, y_T[t] * alpha_R[r], beta_T[t])
         used[t] = used[t] | write
+    return beta_T
+
+
+#: an empty place of a candidate list (``sir_lists_ref``)
+SIR_NONE = 2 ** 31 - 1
+
+
+def _label_class(y) -> int:
+    return 0 if y == 1.0 else (1 if y == -1.0 else 2)
+
+
+def _argmax_order(v):
+    """The indices of ``v`` in ``argmax``'s order: NaN first (lower index
+    first), then the larger value, then the lower index (-0.0 == 0.0)."""
+    idx = torch.arange(v.shape[0])
+    nan = torch.isnan(v)
+    rest = idx[~nan]
+    srt = torch.sort(v[~nan], descending=True, stable=True).indices
+    return torch.cat([idx[nan], rest[srt]])
+
+
+def sir_lists_ref(K_RT, y_R, y_T, L: int, used=None, rows=None):
+    """The card pass's first phase (csrc/seeding.cu ``sir_lists``): each
+    removed row's candidates (same label, not in ``used``, value above
+    -inf; NaN is one) in ``argmax``'s order, the first ``L`` as an (m, L)
+    int32 list padded with ``SIR_NONE``, and its head (m, 2) int32: the
+    count of candidates, and min(NaN candidates, L) | the row label's
+    class << 8 (y = 1: 0, -1: 1, else 2); for the ``rows`` given (default
+    all), the others left as padding."""
+    K_RT, y_R, y_T = K_RT.cpu(), y_R.cpu(), y_T.cpu()
+    m, t = K_RT.shape
+    free = torch.ones(t, dtype=torch.bool) if used is None else ~used
+    lists = torch.full((m, L), SIR_NONE, dtype=torch.int32)
+    head = torch.zeros((m, 2), dtype=torch.int32)
+    for r in (range(m) if rows is None else rows):
+        cand = torch.nonzero((y_T == y_R[r]) & free
+                             & (K_RT[r] != -_INF)).flatten()
+        vals = K_RT[r, cand]
+        top = cand[_argmax_order(vals)][:L]
+        lists[r, :top.shape[0]] = top.to(torch.int32)
+        nnan = int(torch.isnan(vals).sum())
+        head[r, 0] = cand.shape[0]
+        head[r, 1] = min(nnan, L) | (_label_class(float(y_R[r])) << 8)
+    return lists, head
+
+
+def sir_greedy_lists_ref(K_RT, y_R, y_T, alpha_R, priority,
+                         fallback="random", L: int = 32, events=None,
+                         segment: int = 0):
+    """``sir_greedy_ref`` in the card kernel's phases (only tests use
+    it), over segments of ``segment`` removed rows (0: one): at a
+    segment's start ``sir_lists_ref``'s lists of its rows over the t still
+    unused, then the walk over its rows: the pick is the first unused
+    entry of row r's list (a NaN entry: none found); a list all used of a
+    row with more than L candidates is rescanned (the unused same-label t
+    of largest value) unless its label has no unused t left; a row with
+    none found takes the first unused t of the priority order (``skip``:
+    none). ``events`` (a dict) gets the counts of rescanned and fallback
+    rows. Returns beta_T, the plain pass's bit for bit."""
+    K_RT, y_R, y_T = K_RT.cpu(), y_R.cpu(), y_T.cpu()
+    alpha_R, priority = alpha_R.cpu(), priority.cpu()
+    m, t = K_RT.shape
+    seg = segment if segment > 0 else max(m, 1)
+    order = _argmax_order(priority).tolist()
+    used = torch.zeros(t, dtype=torch.bool)
+    picks = [-1] * m
+    left = [int((y_T == 1.0).sum()), int((y_T == -1.0).sum()), 0]
+    fp = rescans = fallbacks = 0
+    for r in range(m):
+        if r % seg == 0:
+            lists, head = sir_lists_ref(K_RT, y_R, y_T, L, used,
+                                        range(r, min(r + seg, m)))
+        cnt, hy = int(head[r, 0]), int(head[r, 1])
+        nn, cls = hy & 0xFF, hy >> 8
+        ent = lists[r, :min(cnt, L)].long()
+        unused = torch.nonzero(~used[ent]).flatten()
+        pick = -1
+        if unused.numel():
+            if int(unused[0]) >= nn:
+                pick = int(ent[unused[0]])
+        elif cnt > L and (cls == 2 or left[cls] > 0):
+            rescans += 1
+            scores = torch.where((y_T == y_R[r]) & ~used, K_RT[r], -_INF)
+            j = int(torch.argmax(scores))
+            if scores[j] > -_INF:
+                pick = j
+        if pick < 0:
+            fallbacks += 1
+            while fallback == "random" and fp < t and used[order[fp]]:
+                fp += 1
+            if fallback == "random" and fp < t:
+                pick = order[fp]
+        if pick >= 0:
+            used[pick] = True
+            picks[r] = pick
+            pc = _label_class(float(y_T[pick]))
+            if pc < 2:
+                left[pc] -= 1
+    beta_T = torch.zeros(t, dtype=K_RT.dtype)
+    for r, p in enumerate(picks):
+        if p >= 0:
+            beta_T[p] = y_T[p] * alpha_R[r]
+    if events is not None:
+        events.update(rescans=rescans, fallbacks=fallbacks)
     return beta_T
 
 

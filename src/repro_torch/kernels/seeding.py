@@ -4,8 +4,10 @@
 ``ato_apply_lanes``, the two halves of ATO's ramp step around its LU
 solve over a row of lanes (``:361-420``, and the batched ramp, ``:435``;
 the solo ramp is one lane), and the LOO seeders' spills ``avg_spill``
-(``:537``) and ``top_spill`` (``:566``). Each is one launch and makes no
-host sync.
+(``:537``) and ``top_spill`` (``:566``). Each is one launch
+(``sir_greedy``: a list pass and a walk a segment of the removed rows,
+and a ranking of the fallback's priorities under ``"random"``) and makes
+no host sync.
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it runs its plain version (``ref.water_fill_ref``,
@@ -46,6 +48,11 @@ def _need(name: str, dev, **tensors) -> None:
                              f"tensor on {dev}, got {t.dtype} on {t.device}")
 
 
+def _ptr(t) -> int:
+    """A tensor's data pointer, 0 for none."""
+    return 0 if t is None else t.data_ptr()
+
+
 def _scalar(x, like):
     """A float64 0-d tensor on ``like``'s device; a Python number is filled
     in on the device (no copy from the host, so no sync)."""
@@ -54,13 +61,22 @@ def _scalar(x, like):
     return torch.full((), float(x), dtype=torch.float64, device=like.device)
 
 
-def water_fill(beta, lo, hi, target, iters: int = 100):
+#: water_fill's bisection levels a round that a call may force
+#: (``_levels``); 0 takes the kernel's own (2)
+WATER_FILL_LEVELS = (0, 1, 2, 3, 4, 5)
+
+
+def water_fill(beta, lo, hi, target, iters: int = 100, *, _levels: int = 0,
+               _build_name: str = "seeding"):
     """clip(beta - c, lo, hi) with scalar c s.t. the sum == clip(target,
     sum(lo), sum(hi)), c by at most ``iters`` bisection steps, then the
     residue put on the freest coordinate. ``target`` is a number or a 0-d
-    tensor (kept on the device). On the card: one block, one launch; sums
-    in the block's order, so within ``1e-12 * max(C, 1)`` of the plain
-    version elementwise."""
+    tensor (kept on the device). On the card: one block, one launch, that
+    evaluates several levels of the bisection tree between two barriers;
+    every step's sum runs in the one-level loop's order (the witness build
+    ``water_fill_seq``, bit for bit), the block's order, so within ``1e-12
+    * max(C, 1)`` of the plain version elementwise. ``_levels`` forces the
+    levels a round and ``_build_name`` the library (checks and timing)."""
     if not _device("water_fill", beta):
         return water_fill_ref(beta, lo, hi, target, iters)
     dev = beta.device
@@ -69,49 +85,147 @@ def water_fill(beta, lo, hi, target, iters: int = 100):
     n = beta.shape[0]
     if lo.shape != beta.shape or hi.shape != beta.shape or beta.dim() != 1:
         raise ValueError("water_fill: beta, lo and hi must be (n,) alike")
+    if _levels not in WATER_FILL_LEVELS:
+        raise ValueError(f"water_fill: _levels {_levels} not in "
+                         f"{WATER_FILL_LEVELS}")
     tgt = _scalar(target, beta)
     out = torch.empty_like(beta)
-    fn = _build.entry("seeding", "water_fill_f64", _P, _P, _P, _P, _P, _I,
-                      _I, _P)
+    fn = _build.entry(_build_name, "water_fill_f64", _P, _P, _P, _P, _P, _I,
+                      _I, _I, _P)
     _build.check(fn(beta.data_ptr(), lo.data_ptr(), hi.data_ptr(),
                     tgt.data_ptr(), out.data_ptr(), n, int(iters),
-                    _build.stream_ptr(beta)), "water_fill")
+                    int(_levels), _build.stream_ptr(beta)), "water_fill")
     water_fill.launches += 1
     return out
 
 
-def sir_greedy(K_RT, y_R, y_T, alpha_R, priority, fallback: str = "random"):
+#: SIR's candidate list lengths the kernel is built for, and the one it
+#: takes (``chip_smoke.py``'s sweep on the H100: the fastest at 3,256 and
+#: 6,512 rows)
+SIR_LISTS = (8, 16, 32, 64)
+SIR_LIST = 64
+
+
+def sir_segment(m: int) -> int:
+    """The removed rows a segment of SIR's walk takes on fresh lists: 1,024
+    up to 4,096 removed rows, else 2,048. Shorter segments go stale less
+    (the rescans fall) but give each list pass fewer rows to spread over
+    the card, which costs more as the rows grow (``chip_sir_split.py`` on
+    the H100: the fastest of 1,024, 2,048 and a quarter of the rows at
+    3,256, 6,512 and 10,853 rows)."""
+    return 1024 if m <= 4096 else 2048
+
+
+#: card -> its (rescanned rows, fallback rows) since the last reset, an
+#: int64 pair on the card that the kernel adds to (no host read)
+_SIR_EVENTS: dict = {}
+
+
+def sir_greedy_events() -> dict[str, int]:
+    """SIR's greedy passes since the last reset, summed over the cards:
+    the rows whose list ran out and were rescanned, and the rows that
+    found no same-label t and took the fallback (reads the card)."""
+    tot = [0, 0]
+    for ev in _SIR_EVENTS.values():
+        a, b = ev.tolist()
+        tot[0] += a
+        tot[1] += b
+    return {"rescans": tot[0], "fallbacks": tot[1]}
+
+
+def reset_sir_greedy_events() -> None:
+    for ev in _SIR_EVENTS.values():
+        ev.zero_()
+
+
+def sir_greedy(K, y_R, y_T, alpha_R, priority, fallback: str = "random",
+               R_idx=None, T_idx=None, *, _list: int | None = None,
+               _segment: int | None = None):
     """SIR's greedy pass (``ref.sir_greedy_ref``): beta_T (|T|,) from the
-    (|R|, |T|) kernel block, the labels, alpha_R and the fallback
-    priorities. It only compares and copies, so the card's result is the
-    plain version's bit for bit."""
+    kernel entries K[R_idx[r], T_idx[t]], the labels, alpha_R and the
+    fallback priorities. With no indices K is the (|R|, |T|) block itself.
+    On the CPU the block is gathered (one advanced index) for the plain
+    version; on the card the kernel reads K through the indices, so
+    neither the rows nor the block is gathered: in segments of
+    ``sir_segment(|R|)`` removed rows, a parallel pass builds each row's
+    top ``SIR_LIST`` candidates among the T still unused, then one block
+    walks the segment's rows in order (``_list`` and ``_segment`` force
+    others; ``_segment=0``: one segment).
+    It only compares and copies, so the card's result is the plain
+    version's bit for bit, at any |T|."""
     if fallback not in ("random", "skip"):
         raise ValueError("fallback must be 'random' or 'skip', "
                          f"got {fallback!r}")
-    if not _device("sir_greedy", K_RT):
+    if (R_idx is None) != (T_idx is None):
+        raise ValueError("sir_greedy: give both R_idx and T_idx, or neither")
+    if not _device("sir_greedy", K):
+        K_RT = K if R_idx is None else K[R_idx[:, None], T_idx]
         return sir_greedy_ref(K_RT, y_R, y_T, alpha_R, priority, fallback)
-    dev = K_RT.device
-    f64 = torch.float64
-    _need("sir_greedy", dev, K_RT=(K_RT, f64), y_R=(y_R, f64),
-          y_T=(y_T, f64), alpha_R=(alpha_R, f64), priority=(priority, f64))
-    m, t = K_RT.shape
-    if y_R.shape != (m,) or alpha_R.shape != (m,) or y_T.shape != (t,) \
-            or priority.shape != (t,):
-        raise ValueError("sir_greedy: shapes must be K_RT (m, t), y_R and "
-                         "alpha_R (m,), y_T and priority (t,)")
-    t_max = _build.entry("seeding", "sir_greedy_max_t")()
-    if t > t_max:
-        raise ValueError(f"sir_greedy: |T| = {t} is past the kernel's "
-                         f"{t_max}")
+    dev = K.device
+    f64, i64 = torch.float64, torch.int64
+    _need("sir_greedy", dev, K=(K, f64), y_R=(y_R, f64), y_T=(y_T, f64),
+          alpha_R=(alpha_R, f64), priority=(priority, f64))
+    if R_idx is None:
+        m, t = K.shape
+    else:
+        _need("sir_greedy", dev, R_idx=(R_idx, i64), T_idx=(T_idx, i64))
+        m, t = R_idx.shape[0], T_idx.shape[0]
+    if K.dim() != 2 or y_R.shape != (m,) or alpha_R.shape != (m,) \
+            or y_T.shape != (t,) or priority.shape != (t,) \
+            or (R_idx is not None and (R_idx.dim() != 1 or T_idx.dim() != 1)):
+        raise ValueError("sir_greedy: shapes must be K (m, t) or (n, n') "
+                         "with R_idx (m,) and T_idx (t,), y_R and alpha_R "
+                         "(m,), y_T and priority (t,)")
+    L = SIR_LIST if _list is None else int(_list)
+    seg = sir_segment(m) if _segment is None else int(_segment)
+    if L not in SIR_LISTS or seg < 0:
+        raise ValueError(f"sir_greedy: list length {L} not in {SIR_LISTS} "
+                         f"or segment {seg} < 0")
+    i32 = torch.int32
+    lists = torch.empty(m * L, dtype=i32, device=dev)
+    head = torch.empty(2 * m, dtype=i32, device=dev)
+    picks = torch.empty(m, dtype=i32, device=dev)
+    order = torch.empty(t, dtype=i32, device=dev)
+    used = torch.empty((t + 31) // 32, dtype=i32, device=dev)
+    state = torch.empty(3, dtype=i32, device=dev)
     beta_T = torch.empty(t, dtype=f64, device=dev)
+    ev = _SIR_EVENTS.get(dev)
+    if ev is None:
+        ev = _SIR_EVENTS[dev] = torch.zeros(2, dtype=i64, device=dev)
     fn = _build.entry("seeding", "sir_greedy_f64", _P, _L, _P, _P, _P, _P,
-                      _P, _I, _I, _I, _P)
-    _build.check(fn(K_RT.data_ptr(), t, y_R.data_ptr(), y_T.data_ptr(),
-                    alpha_R.data_ptr(), priority.data_ptr(),
-                    beta_T.data_ptr(), m, t, int(fallback == "skip"),
-                    _build.stream_ptr(K_RT)), "sir_greedy")
+                      _P, _P, _P, _I, _I, _I, _I, _I, *([_P] * 8))
+    _build.check(fn(K.data_ptr(), K.stride(0), _ptr(R_idx), _ptr(T_idx),
+                    y_R.data_ptr(), y_T.data_ptr(), alpha_R.data_ptr(),
+                    priority.data_ptr(), beta_T.data_ptr(), m, t,
+                    int(fallback == "skip"), L, seg, lists.data_ptr(),
+                    head.data_ptr(), picks.data_ptr(), order.data_ptr(),
+                    used.data_ptr(), state.data_ptr(), ev.data_ptr(),
+                    _build.stream_ptr(K)), "sir_greedy")
     sir_greedy.launches += 1
     return beta_T
+
+
+def sir_candidate_lists(K, y_R, y_T, L: int = SIR_LIST, R_idx=None,
+                        T_idx=None):
+    """The card pass's first phase alone (``ref.sir_lists_ref``): each
+    removed row's top-L same-label candidates, (m, L) int32 padded with
+    ``ref.SIR_NONE``, and its head (m, 2) int32. Card only (checks)."""
+    dev = K.device
+    if dev.type != "cuda":
+        raise ValueError("sir_candidate_lists: the kernel's phase runs on "
+                         "the card only")
+    m, t = K.shape if R_idx is None else (R_idx.shape[0], T_idx.shape[0])
+    if L not in SIR_LISTS:
+        raise ValueError(f"sir_candidate_lists: L {L} not in {SIR_LISTS}")
+    lists = torch.empty((m, L), dtype=torch.int32, device=dev)
+    head = torch.empty((m, 2), dtype=torch.int32, device=dev)
+    fn = _build.entry("seeding", "sir_lists_f64", _P, _L, _P, _P, _P, _P,
+                      _I, _I, _I, _P, _P, _P)
+    _build.check(fn(K.data_ptr(), K.stride(0), _ptr(R_idx), _ptr(T_idx),
+                    y_R.data_ptr(), y_T.data_ptr(), m, t, L,
+                    lists.data_ptr(), head.data_ptr(),
+                    _build.stream_ptr(K)), "sir_candidate_lists")
+    return lists, head
 
 
 def ato_system_lanes(K, y, Cs, alpha, f, b_fallback, in_S, in_T, T_act,

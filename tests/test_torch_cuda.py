@@ -1229,6 +1229,10 @@ def _water_case(n, case, C=2182.0):
     elif case == "at_bounds":
         beta = np.where(rng.random(n) < 0.5, lo, hi)
         target = float(beta.sum())
+    elif case == "unboxed":   # bounds of every row its own
+        lo, hi = -rng.random(n) * C, rng.random(n) * C
+        beta = np.clip(rng.normal(size=n) * C / 3, lo, hi)
+        target = float(beta.sum() * 0.3)
     return beta, lo, hi, target
 
 
@@ -1278,7 +1282,7 @@ def test_cuda_sir_greedy_bitwise(cuda, m, t, one_label, fallback):
     """SIR's greedy pass equals the plain version bit for bit: tied kernel
     values and priorities (lowest index wins), rows with no same-label
     candidate left, more rows than candidates, both fallbacks; Table 1's
-    |R| and n = 32,560's, and past 4,096 entries of T (8 a thread)."""
+    |R| and n = 32,560's, and a long T beside a few rows."""
     from repro_torch.kernels.seeding import sir_greedy
     args = _sir_case(m, t, np.random.default_rng(m + t), one_label=one_label)
     want = ref.sir_greedy_ref(*args, fallback)
@@ -1287,14 +1291,105 @@ def test_cuda_sir_greedy_bitwise(cuda, m, t, one_label, fallback):
 
 
 @pytest.mark.cuda
-def test_cuda_sir_greedy_refuses_what_it_cannot_hold(cuda):
-    """Past 8,192 entries of T (8 a thread of 1,024) the wrapper raises."""
+def test_cuda_sir_greedy_past_8192_is_bitwise(cuda):
+    """|T| = |R| = 10,853 (adult n = 32,560 at k = 3), K read through the
+    index sets from a larger matrix: bitwise the plain version over the
+    gathered block, with the random fallback on label-skewed folds."""
     from repro_torch.kernels.seeding import sir_greedy
-    t = 8193
-    z = torch.zeros(t, dtype=torch.float64, device=cuda)
-    with pytest.raises(ValueError, match="past the kernel"):
-        sir_greedy(torch.zeros((1, t), dtype=torch.float64, device=cuda),
-                   z[:1], z, z[:1], z)
+    rng = np.random.default_rng(10853)
+    n, t = 12000, 10853
+    K = torch.from_numpy(rng.random((n, n)))
+    R = torch.from_numpy(rng.permutation(n)[:t])
+    T = torch.from_numpy(rng.permutation(n)[:t])
+    y = torch.from_numpy(np.where(rng.random(n) < 0.3, 1.0, -1.0))
+    alpha = torch.from_numpy(rng.random(n) * 3)
+    priority = torch.from_numpy(rng.random(t))
+    args = (y[R], y[T], alpha[R], priority)
+    want = ref.sir_greedy_ref(K[R[:, None], T], *args, "random")
+    got = sir_greedy(K.to(cuda), *(a.to(cuda) for a in args), "random",
+                     R.to(cuda), T.to(cuda))
+    assert torch.equal(got.cpu(), want)
+
+
+def _sir_index_case(case, rng, n=900, t=300):
+    """K (n, n) and index sets R, T of t rows each, with tied values, a
+    NaN and a -inf entry, or label-skewed folds."""
+    K = rng.random((n, n))
+    K[:, 1::3] = K[:, 0:-1:3][:, :K[:, 1::3].shape[1]]
+    R, T = rng.permutation(n)[:t], rng.permutation(n)[:t]
+    y = np.where(rng.random(n) < 0.5, 1.0, -1.0)
+    if case == "nan_inf":
+        K[R[3], T[7]] = K[R[3], T[20]] = np.nan
+        K[R[5], :] = -np.inf
+        K[:, T[11]] = np.nan
+    elif case == "skewed":
+        y[R[: 2 * t // 3]] = -1.0
+        y[T] = np.where(np.arange(t) < t // 4, -1.0, 1.0)
+    priority = rng.random(t)
+    priority[5::7] = priority[0]
+    return (torch.from_numpy(K), torch.from_numpy(R), torch.from_numpy(T),
+            torch.from_numpy(y), torch.from_numpy(rng.random(n) * 3),
+            torch.from_numpy(priority))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("segment", [0, 37])
+@pytest.mark.parametrize("fallback", ["random", "skip"])
+@pytest.mark.parametrize("case", ["mixed", "nan_inf", "skewed"])
+@pytest.mark.parametrize("L", [8, 16, 32, 64])
+def test_cuda_sir_greedy_indexed_bitwise(cuda, L, case, fallback, segment):
+    """K read through R_idx and T_idx at every list length, in one segment
+    or in segments of 37 rows: bitwise the plain version over the
+    gathered block (ties, NaN and -inf entries, label-skewed folds that
+    rescan and fall back)."""
+    from repro_torch.kernels.seeding import sir_greedy
+    K, R, T, y, alpha, priority = _sir_index_case(
+        case, np.random.default_rng(L))
+    args = (y[R], y[T], alpha[R], priority)
+    want = ref.sir_greedy_ref(K[R[:, None], T], *args, fallback)
+    got = sir_greedy(K.to(cuda), *(a.to(cuda) for a in args), fallback,
+                     R.to(cuda), T.to(cuda), _list=L, _segment=segment)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["mixed", "nan_inf", "skewed"])
+@pytest.mark.parametrize("L", [8, 64])
+def test_cuda_sir_lists_match_the_model(cuda, L, case):
+    """The first phase's lists and heads, bitwise the plain model's
+    (``ref.sir_lists_ref``), through the indices and over a block."""
+    from repro_torch.kernels.seeding import sir_candidate_lists
+    K, R, T, y, _, _ = _sir_index_case(case, np.random.default_rng(3 * L))
+    want = ref.sir_lists_ref(K[R[:, None], T], y[R], y[T], L)
+    got = sir_candidate_lists(K.to(cuda), y[R].to(cuda), y[T].to(cuda), L,
+                              R.to(cuda), T.to(cuda))
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    block = K[R[:, None], T].to(cuda)
+    got = sir_candidate_lists(block, y[R].to(cuda), y[T].to(cuda), L)
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["feasible", "infeasible", "at_bounds",
+                                  "unboxed"])
+@pytest.mark.parametrize("n", [27, 100, 243, 800, 2048, 9000, 26048, 40000])
+def test_cuda_water_fill_levels_equal_the_witness(cuda, n, case):
+    """Every levels a round (1-5, and the kernel's own choice) gives the
+    one-level witness build's (``water_fill_seq``) result bit for bit, the
+    SVM box staged as beta and a bit a row and other bounds staged whole,
+    each read from L2 past what shared memory holds; and within 1e-12 C of
+    the plain version."""
+    from repro_torch.kernels.seeding import water_fill
+    args = [torch.from_numpy(a).to(cuda) for a in _water_case(n, case)[:3]]
+    target = torch.tensor(_water_case(n, case)[3], dtype=torch.float64,
+                          device=cuda)
+    want = water_fill(*args, target, _build_name="water_fill_seq")
+    for lv in (0, 1, 2, 3, 4, 5):
+        got = water_fill(*args, target, _levels=lv)
+        assert torch.equal(got.view(torch.int64), want.view(torch.int64)), lv
+    plain = ref.water_fill_ref(*(a.cpu() for a in args), target.cpu())
+    np.testing.assert_allclose(want.cpu().numpy(), plain.numpy(), rtol=0,
+                               atol=1e-12 * 2182.0)
 
 
 def _ato_state(n, t_n, rng, C=10.0, case="mixed"):

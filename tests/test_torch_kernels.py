@@ -653,6 +653,18 @@ def test_build_fma_variant_of_the_step():
     assert "SMO_STEP_TENSOR_F64" in _build.source("smo_step").read_text()
 
 
+def test_build_water_fill_witness():
+    """The one-level witness build of ``seeding.cu`` compiles the same file
+    with the same flags and one macro more, into a library of its own; the
+    source reads the macro."""
+    from repro_torch.kernels import _build
+    assert _build.source("water_fill_seq") == _build.source("seeding")
+    assert _build.flags("water_fill_seq") == (_build.flags("seeding")
+                                              + ("-DWATER_FILL_LEVELS=1",))
+    assert _build.lib_path("water_fill_seq") != _build.lib_path("seeding")
+    assert "WATER_FILL_LEVELS" in _build.source("seeding").read_text()
+
+
 @pytest.mark.parametrize("n,m_cap,p", [(1, 1, 0.5), (10, 10, 1.0),
                                        (100, 128, 0.3), (257, 128, 0.2),
                                        (1000, 512, 0.0), (1000, 384, 0.35)])
@@ -682,6 +694,104 @@ def test_water_fill_early_stop_is_bitwise(n, target):
     full = ref.water_fill_ref(*args, target, stop_early=False)
     assert torch.equal(early, full)
     assert torch.equal(ops.water_fill(*args, target), full)
+
+
+@pytest.mark.parametrize("case", ["feasible", "above", "below"])
+@pytest.mark.parametrize("stop_early", [True, False])
+@pytest.mark.parametrize("levels", [1, 2, 3, 4, 5])
+def test_water_fill_levels_model_is_the_plain_loop(levels, stop_early, case):
+    """The card kernel's rounds (``levels`` levels of the bisection tree a
+    round, the path walked after one barrier) give the one-level loop's
+    result bit for bit, with early stop on and off, on a feasible target
+    and on targets above sum(hi) and below sum(lo) (clamped)."""
+    rng = np.random.default_rng(40 + levels)
+    n = 137
+    y = np.where(rng.random(n) < 0.5, 1.0, -1.0)
+    lo, hi = np.where(y > 0, 0.0, -7.0), np.where(y > 0, 7.0, 0.0)
+    beta = np.clip(rng.normal(size=n) * 3, lo, hi)
+    target = {"feasible": float(beta.sum()) * 0.3,
+              "above": float(hi.sum()) + 20.0,
+              "below": float(lo.sum()) - 20.0}[case]
+    args = [torch.from_numpy(a) for a in (beta, lo, hi)]
+    for iters in (100, 7):
+        want = ref.water_fill_ref(*args, target, iters, stop_early)
+        got = ref.water_fill_levels_ref(*args, target, iters, stop_early,
+                                        levels)
+        assert torch.equal(got.view(torch.int64), want.view(torch.int64))
+
+
+def _sir_lists_case(case, rng):
+    """K_RT, y_R, y_T, alpha_R, priority for the list model: tied values
+    and priorities, a NaN and a -inf entry, one label only, label-skewed
+    folds, and more or fewer rows than candidates."""
+    m, t = {"more_t": (30, 70), "more_r": (70, 30)}.get(case, (50, 50))
+    K = rng.random((m, t))
+    K[:, 1::3] = K[:, 0:-1:3][:, :K[:, 1::3].shape[1]]   # ties in a row
+    y_R = np.where(rng.random(m) < 0.5, 1.0, -1.0)
+    y_T = np.where(rng.random(t) < 0.5, 1.0, -1.0)
+    if case == "nan_inf":
+        K[3, 7] = np.nan
+        K[3, 20] = np.nan
+        K[5, :] = -np.inf
+        K[8, 2:9] = -np.inf
+        K[:, 11] = np.nan
+    elif case == "one_label":
+        y_R[:], y_T[:] = 1.0, 1.0
+    elif case == "skewed":
+        y_R[: 2 * m // 3] = -1.0
+        y_T[: t // 4] = -1.0
+        y_T[t // 4:] = 1.0
+    priority = rng.random(t)
+    priority[5::7] = priority[0]   # tied priorities
+    return [torch.from_numpy(a) for a in
+            (K, y_R, y_T, rng.random(m) * 3, priority)]
+
+
+@pytest.mark.parametrize("fallback", ["random", "skip"])
+@pytest.mark.parametrize("L,segment", [(1, 0), (2, 0), (4, 0), (32, 0),
+                                       (1, 7), (4, 16)])
+@pytest.mark.parametrize("case", ["mixed", "nan_inf", "one_label", "skewed",
+                                  "more_t", "more_r"])
+def test_sir_greedy_lists_model_is_the_plain_pass(case, L, segment,
+                                                  fallback):
+    """The card pass's phases (each removed row's top-L same-label
+    candidates among the t unused when its segment starts, then the walk
+    with its rescans and fallbacks; one segment or several) pick what the
+    plain pass picks, bit for bit; the short lists do rescan."""
+    args = _sir_lists_case(case, np.random.default_rng(len(case) + L))
+    events = {}
+    got = ref.sir_greedy_lists_ref(*args, fallback, L, events, segment)
+    want = ref.sir_greedy_ref(*args, fallback)
+    assert torch.equal(got.view(torch.int64), want.view(torch.int64))
+    if L == 1 and segment == 0 and case in ("mixed", "one_label"):
+        assert events["rescans"] > 0
+    if case in ("skewed", "more_r"):
+        assert events["fallbacks"] > 0
+
+
+@pytest.mark.parametrize("m,want", [(0, 1024), (100, 1024), (3256, 1024),
+                                    (4096, 1024), (6512, 2048),
+                                    (10853, 2048)])
+def test_sir_segment_rule(m, want):
+    """SIR's walk takes segments of 1,024 removed rows up to 4,096 rows,
+    else 2,048 (one segment at Table 1's sizes)."""
+    from repro_torch.kernels.seeding import sir_segment
+    assert sir_segment(m) == want
+
+
+def test_sir_lists_model_orders_like_argmax():
+    """A list is the row's same-label candidates in argmax's order: NaN
+    first, then the larger value, then the lower index; -inf is none and
+    -0.0 ties with 0.0."""
+    K = torch.tensor([[0.5, float("nan"), -0.0, 0.0, float("-inf"), 0.5,
+                       float("nan"), 0.9]])
+    y_R = torch.tensor([1.0])
+    y_T = torch.tensor([1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, -1.0])
+    lists, head = ref.sir_lists_ref(K, y_R, y_T, 8)
+    assert lists[0].tolist() == [1, 6, 0, 5, 2, 3] + [ref.SIR_NONE] * 2
+    assert head[0].tolist() == [6, 2]
+    lists, head = ref.sir_lists_ref(K, -y_R, y_T, 1)
+    assert lists[0].tolist() == [7] and head[0].tolist() == [1, 1 << 8]
 
 
 def test_ato_done_step_is_the_identity():
