@@ -703,23 +703,50 @@ def phase_kernels(datasets):
     return info
 
 
+def _clone(x, memo=None, to=None):
+    """A copy of ``x`` (on device ``to`` where given): tensors cloned,
+    tuples (named ones too) copied item by item, anything else as it is.
+    One ``memo`` over a call's arguments keeps its aliases: a tensor passed
+    twice is copied once."""
+    memo = {} if memo is None else memo
+    if isinstance(x, torch.Tensor):
+        if id(x) not in memo:
+            memo[id(x)] = (x if to is None else x.to(to)).clone()
+        return memo[id(x)]
+    if isinstance(x, tuple):
+        items = [_clone(v, memo, to) for v in x]
+        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+    return x
+
+
+def _clone_call(a, kw=None, to=None):
+    """Copies of a call's positional and keyword arguments (aliases kept),
+    on device ``to`` where given."""
+    memo = {}
+    return (tuple(_clone(x, memo, to) for x in a),
+            {k: _clone(v, memo, to) for k, v in (kw or {}).items()})
+
+
 class _Recorder:
     """Wraps functions ``names`` of ``module`` to keep a copy of each
-    call's arguments, taken before the call (some work in place)."""
+    call's arguments, taken before the call (some work in place):
+    ``calls`` the positional ones, ``kwargs`` the keyword ones (a call's
+    aliases kept)."""
 
     def __init__(self, module, names):
         self.module, self.calls = module, {k: [] for k in names}
+        self.kwargs = {k: [] for k in names}
         self.saved = {}
 
     def __enter__(self):
         for name in self.calls:
             fn = self.saved[name] = getattr(self.module, name)
 
-            def rec(*a, _fn=fn, _k=name):
-                self.calls[_k].append(tuple(
-                    x.clone() if isinstance(x, torch.Tensor) else x
-                    for x in a))
-                return _fn(*a)
+            def rec(*a, _fn=fn, _k=name, **kw):
+                a_c, kw_c = _clone_call(a, kw)
+                self.calls[_k].append(a_c)
+                self.kwargs[_k].append(kw_c)
+                return _fn(*a, **kw)
             setattr(self.module, name, rec)
         return self
 
@@ -739,7 +766,7 @@ def _record_seeding_inputs(name: str, n: int) -> dict:
         for method in ("ato", "mir", "sir"):
             seeding.SEEDERS[method](K, y, ds.C, prev, *idx)
     sync()
-    return {"C": ds.C, "K": K, "calls": rec.calls}
+    return {"C": ds.C, "K": K, "calls": rec.calls, "kwargs": rec.kwargs}
 
 
 #: the seeders' bars (``tests/test_torch_seeding.py``'s ``ATOL``), here
@@ -779,52 +806,89 @@ def _cpu(args):
     return tuple(a.cpu() if isinstance(a, torch.Tensor) else a for a in args)
 
 
-def _apply_ms(fn, args, reps: int = 20) -> float:
+def _leaves(x, seen=None):
+    """The tensors of an argument tree (tuples, dicts), each once, in
+    order."""
+    seen = set() if seen is None else seen
+    if isinstance(x, torch.Tensor):
+        if id(x) not in seen:
+            seen.add(id(x))
+            yield x
+    elif isinstance(x, (tuple, list)):
+        for v in x:
+            yield from _leaves(v, seen)
+    elif isinstance(x, dict):
+        for v in x.values():
+            yield from _leaves(v, seen)
+
+
+def _apply_ms(fn, args, reps: int = 20, kw=None) -> float:
     """Mean device time of an in-place ``ato_apply_lanes`` call (kernel or
-    plain), its state restored from ``args`` before each call (outside the
-    timed span), by CUDA events. The call is enqueued behind a spin kernel
+    plain) on one copy of ``args`` and ``kw`` (aliases kept), its state
+    copied back from them before each call (outside the timed span; the
+    copy leaves the inputs in L2, as the ramp's kernels before the call
+    do), by CUDA events. The call is enqueued behind a spin kernel
     (``torch.cuda._sleep``, about a millisecond), so the host's time to
     launch it falls outside the span unless the call itself waits on the
     card (the plain version reads its Cs on the host)."""
+    a, k = _clone_call(args, kw)
+    pairs = list(zip(_leaves((args, kw)), _leaves((a, k))))
     times = []
     for _ in range(reps + 1):
-        a = tuple(x.clone() if isinstance(x, torch.Tensor) else x
-                  for x in args)
+        for src, dst in pairs:
+            dst.copy_(src)
         sync()
         s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         torch.cuda._sleep(2_000_000)
         s.record()
-        fn(*a)
+        fn(*a, **k)
         e.record()
         e.synchronize()
         times.append(s.elapsed_time(e))
     return sum(times[1:]) / reps
 
 
+def _ato_k_entries(free) -> float:
+    """K's entries that the lanes' working sets need, read once however
+    many lanes share them: the union of each lane's free rows x free
+    columns (padding reads nothing the result needs)."""
+    free = free.to(torch.float64)
+    return float(((free.t() @ free) > 0).sum())
+
+
 def _ato_system_bytes(a, got) -> float:
-    """Bytes that ``ato_system_lanes`` must move on the call ``a`` (its
-    output ``got``): K's entries on each lane's free rows and columns, read
-    once however many lanes share them (their union; padding reads nothing
-    the result needs), y, in_S and in_T once, and each lane's alpha, f,
+    """Bytes that ``ato_system_lanes``' compact route must move on the call
+    ``a`` (its output ``got``): K's entries on the working sets
+    (``_ato_k_entries``), y, in_S and in_T once, and each lane's alpha, f,
     T_act, R_act, b_fallback and C read and its masks, nf, b, v, w, idx,
-    lane, yM, B and rhs[0] written once."""
-    free = got.free.to(torch.float64)
-    lanes, n = free.shape
+    lane, yM, lam, B and rhs[0] written once."""
+    lanes, n = got.free.shape
     m_cap = a[-1]
-    k_entries = float(((free.t() @ free) > 0).sum())
-    shared = 8.0 * (k_entries + n) + 2.0 * n
+    shared = 8.0 * (_ato_k_entries(got.free) + n) + 2.0 * n
     per_lane = (8.0 * (2 * n + 2) + 2.0 * n        # alpha, f, b_fb, C; acts
-                + 2.0 * n + 8.0 * (2 * n + 3)      # masks; v, w, nf, b, r0
+                + 2.0 * n + 8.0 * (2 * n + 4)      # masks; v, w, nf, b, lam,
+                                                   # r0
                 + 9.0 * m_cap + 8.0 * m_cap        # idx and lane; yM
                 + 8.0 * (m_cap + 1) ** 2)          # B
     return shared + lanes * per_lane
 
 
+def _ato_carried_bytes(a, got) -> float:
+    """Bytes that ``ato_system_lanes``' carried route must move on the call
+    ``a`` (the working set ``got``): K's entries on the working sets, each
+    lane's idx and yM, nf and lam read, and its B written."""
+    lanes = got.free.shape[0]
+    m_cap = a[-1]
+    return 8.0 * _ato_k_entries(got.free) + lanes * (
+        16.0 * m_cap + 16.0 + 8.0 * (m_cap + 1) ** 2)
+
+
 def _ato_apply_bytes(a) -> float:
-    """Bytes that ``ato_apply_lanes`` must move on the call ``a``: y once;
-    each lane's done flag read and eta written; and a lane that is not done
-    reads g, f, alpha, v, Phi, b, C, its step and its four masks and writes
-    f, T_act, R_act, done and step (a done lane stops at its flag)."""
+    """Bytes that ``ato_apply_lanes``' split route must move on the call
+    ``a``: y once; each lane's done flag read and eta written; and a lane
+    that is not done reads g, f, alpha, v, Phi, b, C, its step and its four
+    masks and writes f, T_act, R_act, done and step (a done lane stops at
+    its flag)."""
     n = a[0].shape[1]
     done = a[13]
     live = float((~done).sum())
@@ -832,16 +896,52 @@ def _ato_apply_bytes(a) -> float:
             + live * (8.0 * (6 * n + 4) + 6.0 * n + 1.0))
 
 
-def _ato_system_check(calls) -> dict:
+def _ato_fused_bytes(a, kw, nf_next) -> float:
+    """Bytes that ``ato_apply_lanes``' fused route must move on the call
+    ``a`` / ``kw`` (``nf_next``: each lane's free rows after it): y, in_S
+    and in_T once; each lane's done flag read and eta written; and a lane
+    that is not done reads g, f, alpha, v, Phi, its four masks, b, C,
+    b_fallback and step, and K's diagonal on its next free rows, and
+    writes f, alpha, v, w, T_act, R_act, train_now, free, idx, lane, yM,
+    nf, b, lam, rhs[0], done and step."""
+    n = a[0].shape[1]
+    done = a[13]
+    m_cap = kw["carry"].s.idx.shape[1]
+    live = ~done.cpu()
+    nf = torch.as_tensor(nf_next).cpu().to(torch.float64)
+    return (10.0 * n + 9.0 * done.shape[0]
+            + float(live.sum()) * (8.0 * (5 * n + 4) + 4.0 * n
+                                   + 8.0 * (4 * n) + 4.0 * n
+                                   + 17.0 * m_cap + 8.0 * 4 + 9.0)
+            + 8.0 * float(nf[live].sum()))
+
+
+def _bits(t):
+    """A tensor's bits (float64 as int64), for bitwise comparisons."""
+    return t.view(torch.int64) if t.dtype == torch.float64 else t
+
+
+def _same_bits(x, y) -> bool:
+    return torch.equal(_bits(x), _bits(y))
+
+
+def _ato_system_check(calls, kwargs=None) -> dict:
     """``ato_system_lanes`` against its plain version on the CPU on each
-    recorded call: the exact outputs bitwise, b and r0 (sums in the
-    block's order) within 1e-12 of their scale. Then its time on the first
-    call, the plain version's on the card, and its bytes bound."""
+    recorded call, replayed on its compact route from the recorded state:
+    the exact outputs bitwise, b and r0 (sums in the block's order) within
+    1e-12 of their scale. Each recorded call of the carried route (a
+    ramp's steps after its first) replayed on its recorded working set
+    against the compact route on the same state: every carried field, B
+    and rhs[0] bit for bit. Then both routes' times on the first call (the
+    carried route on the working set that compact writes there: it is the
+    ramp's, as the checks show), the plain version's on the card, and
+    each route's bytes bound (the carried route's is ``bound_ms``)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import seeding as ks
-    exact = ("train_now", "free", "nf", "v", "w", "idx", "lane", "yM", "B")
-    err = 0.0
-    for a in calls:
+    exact = ("train_now", "free", "nf", "v", "w", "idx", "lane", "yM", "lam",
+             "B")
+    err, carried = 0.0, 0
+    for a, kw in zip(calls, kwargs or [{}] * len(calls)):
         got = ks.ato_system_lanes(*a)
         want = ref.ato_system_lanes_ref(*_cpu(a))
         for key in exact:
@@ -854,22 +954,63 @@ def _ato_system_check(calls) -> dict:
             require(e <= 1e-12 * max(1.0, float(w_.abs().max())),
                     f"ato_system_lanes: {key} off by {e}")
             err = max(err, e)
+        if kw.get("_route") != "carried":
+            continue
+        out = _clone(kw["out"])
+        ks.ato_system_lanes(*a, out=out, _route="carried")
+        for key in ref.ATO_CARRIED + ("B",):
+            require(_same_bits(getattr(out, key), getattr(got, key)),
+                    f"ato_system_lanes: the carried route's {key} is not "
+                    "the compact route's")
+        require(_same_bits(out.rhs[:, 0], got.rhs[:, 0]),
+                "ato_system_lanes: the carried rhs[0] is not the compact "
+                "route's")
+        carried += 1
     a = calls[0]
     got = ks.ato_system_lanes(*a)
+    work = ks.ato_system_lanes(*a)
+    # each time the least of three graphs: one graph's reading of the
+    # carried route once came out 13 times the others' on the H100
+    best = lambda fn: min(graph_ms(fn, 20) for _ in range(3))  # noqa: E731
     return {"lanes": a[3].shape[0], "n": a[1].shape[0], "m_cap": a[-1],
             "nf": got.nf.tolist(), "steps_checked": len(calls),
-            "ms": graph_ms(lambda: ks.ato_system_lanes(*a), 20),
+            "carried_steps_checked": carried,
+            "ms": best(lambda: ks.ato_system_lanes(
+                *a, out=work, _route="carried")),
+            "ms_compact": best(lambda: ks.ato_system_lanes(*a)),
             "plain_ms": cuda_ms(lambda: ref.ato_system_lanes_ref(*a), 5),
-            "max_abs_err": err, **_bound(_ato_system_bytes(a, got), 0.0)}
+            "max_abs_err": err, **_bound(_ato_carried_bytes(a, got), 0.0),
+            "bound_ms_compact": _bound(_ato_system_bytes(a, got),
+                                       0.0)["bound_ms"]}
 
 
-def _ato_apply_check(calls) -> dict:
-    """``ato_apply_lanes`` against its plain version on the CPU on each
-    recorded call, every output bitwise; then its time on the first call,
-    the plain version's on the card, and its bytes bound."""
+def _split_update_clamp(g, f, alpha, v, Phi, y, b, Cs, *rest):
+    """The parent's step tail: the split apply, then ``smo_f_update`` and
+    the clamp of alpha."""
+    from repro_torch.kernels import seeding as ks
+    from repro_torch.kernels.smo_update import smo_f_update
+    eta = ks.ato_apply_lanes(g, f, alpha, v, Phi, y, b, Cs, *rest)
+    torch.clamp(smo_f_update(alpha, v, Phi, eta),
+                torch.zeros_like(Cs)[:, None], Cs[:, None], out=alpha)
+    return eta
+
+
+def _ato_apply_check(calls, kwargs=None) -> dict:
+    """``ato_apply_lanes`` on each recorded call: its split route (the
+    positional arguments alone) against the plain split version on the
+    CPU, every output bitwise; and each fused call (the ramp's) against
+    the split route, ``smo_f_update`` and the clamp on the card (alpha, f,
+    T_act, R_act, done, step, eta bit for bit) and against the plain fused
+    version on the CPU (those, and every field it hands the next step but
+    b and rhs[0], bitwise; b and rhs[0] within 1e-12 of their scale: sums
+    in the block's order). Then the fused route's time, the split route's
+    alone and with ``smo_f_update`` and the clamp (the parent's step
+    tail), the plain fused version's on the card, and the bytes bounds."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import seeding as ks
-    for a in calls:
+    exact = ("train_now", "free", "nf", "v", "w", "idx", "lane", "yM", "lam")
+    fused, first, err = 0, None, 0.0
+    for a, kw in zip(calls, kwargs or [{}] * len(calls)):
         card = tuple(x.clone() if isinstance(x, torch.Tensor) else x
                      for x in a)
         cpu = _cpu(a)
@@ -879,12 +1020,52 @@ def _ato_apply_check(calls) -> dict:
                 and all(torch.equal(x.cpu(), w) for x, w in zip(card, cpu)
                         if isinstance(x, torch.Tensor)),
                 "ato_apply_lanes: not bitwise equal to the plain version")
+        if kw.get("carry") is None:
+            continue
+        fa, fkw = _clone_call(a, kw)
+        eta_f = ks.ato_apply_lanes(*fa, **fkw)
+        sa, _ = _clone_call(a)
+        eta_s = _split_update_clamp(*sa)
+        require(_same_bits(eta_f, eta_s)
+                and all(_same_bits(fa[i], sa[i])
+                        for i in (1, 2, 11, 12, 13, 14)),
+                "ato_apply_lanes: the fused route is not the split route, "
+                "smo_f_update and the clamp")
+        pa, pkw = _clone_call(a, kw, to="cpu")
+        eta_p = ref.ato_apply_lanes_ref(*pa, **pkw)
+        require(_same_bits(eta_f.cpu(), eta_p)
+                and all(_same_bits(fa[i].cpu(), pa[i])
+                        for i in (1, 2, 11, 12, 13, 14)),
+                "ato_apply_lanes: the fused route is not the plain fused "
+                "version")
+        s_c, s_p = fkw["carry"].s, pkw["carry"].s
+        for key in exact:
+            require(_same_bits(getattr(s_c, key).cpu(), getattr(s_p, key)),
+                    f"ato_apply_lanes: the fused route's next {key} is not "
+                    "the plain version's")
+        for g_, w_ in ((s_c.b, s_p.b), (s_c.rhs[:, 0], s_p.rhs[:, 0])):
+            e = float((g_.cpu() - w_).abs().max())
+            require(e <= 1e-12 * max(1.0, float(w_.abs().max())),
+                    f"ato_apply_lanes: the fused route's b or r0 off by {e}")
+            err = max(err, e)
+        fused += 1
+        if first is None:
+            first = (a, kw, s_c.nf.clone())
     a = calls[0]
-    return {"lanes": a[1].shape[0], "n": a[1].shape[1],
-            "steps_checked": len(calls),
-            "ms": _apply_ms(ks.ato_apply_lanes, a),
-            "plain_ms": _apply_ms(ref.ato_apply_lanes_ref, a),
-            "max_abs_err": 0.0, **_bound(_ato_apply_bytes(a), 0.0)}
+    out = {"lanes": a[1].shape[0], "n": a[1].shape[1],
+           "steps_checked": len(calls), "fused_steps_checked": fused,
+           "ms_split": _apply_ms(ks.ato_apply_lanes, a),
+           "ms_split_update_clamp": _apply_ms(_split_update_clamp, a),
+           "bound_ms_split": _bound(_ato_apply_bytes(a), 0.0)["bound_ms"],
+           "max_abs_err": err}
+    if first is None:   # no fused call recorded: the split route's row
+        return {**out, "ms": out["ms_split"],
+                "plain_ms": _apply_ms(ref.ato_apply_lanes_ref, a),
+                **_bound(_ato_apply_bytes(a), 0.0)}
+    a, kw, nf = first
+    return {**out, "ms": _apply_ms(ks.ato_apply_lanes, a, kw=kw),
+            "plain_ms": _apply_ms(ref.ato_apply_lanes_ref, a, kw=kw),
+            **_bound(_ato_fused_bytes(a, kw, nf), 0.0)}
 
 
 #: water_fill's rows at n = 32,560's shapes: the S side of a k = 10
@@ -1068,7 +1249,8 @@ def _seeding_kernels(size_ds) -> dict:
     C, calls = rec["C"], rec["calls"]
     # heart's ramp runs all 30 steps (adult's stops after one): check
     # every one of its steps too
-    heart = _record_seeding_inputs("heart", 270)["calls"]
+    heart_rec = _record_seeding_inputs("heart", 270)
+    heart = heart_rec["calls"]
     out, records = {}, {}
 
     # water_fill: every call of the three seeds, then n = 32,560's S side;
@@ -1133,13 +1315,17 @@ def _seeding_kernels(size_ds) -> dict:
         **_bound(_sir_bytes(m, t), 0.0),
         **_sir_at_size(size_ds)}
     # ato_system_lanes / ato_apply_lanes: every ramp step of the ATO seed
-    # (the solo ramp: one lane)
+    # (the solo ramp: one lane), the carried route against the compact one
+    # and the fused apply against the split one on each
+    kw, heart_kw = rec["kwargs"], heart_rec["kwargs"]
     out["ato_system_lanes"] = _ato_system_check(
-        calls["ato_system_lanes"] + heart["ato_system_lanes"])
+        calls["ato_system_lanes"] + heart["ato_system_lanes"],
+        kw["ato_system_lanes"] + heart_kw["ato_system_lanes"])
     out["ato_apply_lanes"] = _ato_apply_check(
-        calls["ato_apply_lanes"] + heart["ato_apply_lanes"])
+        calls["ato_apply_lanes"] + heart["ato_apply_lanes"],
+        kw["ato_apply_lanes"] + heart_kw["ato_apply_lanes"])
     records["seeds"] = _seed_checks()
-    del rec, heart
+    del rec, heart, heart_rec
     torch.cuda.empty_cache()
     return out, records
 
@@ -3178,53 +3364,65 @@ def _ato_row_problem(name: str, n: int, k: int = 10):
 def _study_kernels() -> dict:
     """The Study slice's kernels against their plain versions run on the
     CPU, on the inputs that the main paths give them (recorded): the
-    batched ATO ramp's ``ato_system_lanes``, ``ato_apply_lanes`` and
-    ``smo_f_update`` over rows, over the ATO C row at fold 0 -> 1 (adult
-    n=1000; heart n=270, whose ramps run all 30 steps), each lane also
-    bitwise what a one-lane launch on its slice gives it; ``avg_spill``
-    and ``top_spill`` from LOO seeds of heart and adult. Then each one's
-    time at adult's shape, the plain version's on the card, and the bytes
-    bound (each is bound by its chain of block reductions or, for the
-    walk, by one thread's dependent steps, far above both floors). The
-    ramp kernels' readings are returned under ``<name>_row``: their
-    entries in the ``kernels`` line are Table 1's one-lane calls."""
+    batched ATO ramp's ``ato_system_lanes`` and ``ato_apply_lanes`` over
+    the ATO C row at fold 0 -> 1 (adult n=1000; heart n=270, whose ramps
+    run all 30 steps), the carried route against the compact one and the
+    fused apply against the split one with ``smo_f_update`` and the clamp
+    on every step, each lane also bitwise what a one-lane launch on its
+    slice gives it (both routes of each); ``avg_spill`` and ``top_spill``
+    from LOO seeds of heart and adult. Then each one's time at adult's
+    shape, the plain version's on the card, and the bytes bound (each is
+    bound by its chain of block reductions or, for the walk, by one
+    thread's dependent steps, far above both floors). The ramp kernels'
+    readings are returned under ``<name>_row``, and ``smo_f_update``'s at
+    the row's shape (it is off the ramp now): their entries in the
+    ``kernels`` line are Table 1's one-lane calls."""
     from repro_torch.core import seeding
     from repro_torch.core.cv import _transition_idx
     from repro_torch.kernels import ref
     from repro_torch.kernels import seeding as ks
     from repro_torch.kernels import smo_update as ku
-    names = ("ato_system_lanes", "ato_apply_lanes", "smo_f_update")
+    names = ("ato_system_lanes", "ato_apply_lanes")
     calls = {k: [] for k in names}
-    main, dev = {}, torch.device("cuda")
+    kwargs = {k: [] for k in names}
     for name, n in (("adult", 1000), ("heart", 270)):
         ds, K, y, masks, chunks, Cs, prev = _ato_row_problem(name, n)
-        idx = _transition_idx(chunks, 0, 1, dev)
+        idx = _transition_idx(chunks, 0, 1, torch.device("cuda"))
         with _Recorder(seeding, names) as rec:
             seeding.ato_seed_batch(K, y, Cs, prev, *idx, bucket_by_lane=False)
         for key in names:
             calls[key] += rec.calls[key]
-        if name == "adult":
-            main = {key: rec.calls[key][0] for key in names}
+            kwargs[key] += rec.kwargs[key]
         del K
     out = {"ato_system_lanes_row": _ato_system_check(
-               calls["ato_system_lanes"]),
-           "ato_apply_lanes_row": _ato_apply_check(calls["ato_apply_lanes"])}
-    for a in calls["ato_system_lanes"]:
+               calls["ato_system_lanes"], kwargs["ato_system_lanes"]),
+           "ato_apply_lanes_row": _ato_apply_check(
+               calls["ato_apply_lanes"], kwargs["ato_apply_lanes"])}
+    lanes_of = lambda t, sl: type(t)(*(x[sl] for x in t))  # noqa: E731
+    for a, kw in zip(calls["ato_system_lanes"], kwargs["ato_system_lanes"]):
         got = ks.ato_system_lanes(*a)
         K_, y_, Cs_, alpha, f, bfb, in_S, in_T, T_act, R_act, m_cap = a
+        carried = kw.get("_route") == "carried"
+        row = _clone(kw["out"]) if carried else None
+        if carried:
+            ks.ato_system_lanes(*a, out=row, _route="carried")
         for lane in range(alpha.shape[0]):
             sl = slice(lane, lane + 1)
-            solo = ks.ato_system_lanes(K_, y_, Cs_[sl], alpha[sl], f[sl],
-                                       bfb[sl], in_S, in_T, T_act[sl],
-                                       R_act[sl], m_cap)
+            one = (K_, y_, Cs_[sl], alpha[sl], f[sl], bfb[sl], in_S, in_T,
+                   T_act[sl], R_act[sl], m_cap)
+            solo = ks.ato_system_lanes(*one)
             require(all(torch.equal(getattr(solo, key)[0], getattr(got, key)[
                 lane]) for key in solo._fields[:-1])   # rhs[1:]: the caller's
                 and torch.equal(solo.rhs[0, 0], got.rhs[lane, 0]),
                 "ato_system_lanes: a lane differs from a one-lane launch")
-    clones = lambda a: [x.clone() if isinstance(x, torch.Tensor)  # noqa
-                        else x for x in a]
-    for a in calls["ato_apply_lanes"]:
-        card, solo = clones(a), clones(a)
+            if carried:
+                work = lanes_of(_clone(kw["out"]), sl)
+                ks.ato_system_lanes(*one, out=work, _route="carried")
+                require(_same_bits(work.B[0], row.B[lane]),
+                        "ato_system_lanes: a lane's carried B differs from "
+                        "a one-lane launch's")
+    for a, kw in zip(calls["ato_apply_lanes"], kwargs["ato_apply_lanes"]):
+        card, solo = _clone_call(a)[0], _clone_call(a)[0]
         eta_c = ks.ato_apply_lanes(*card)
         g, f, al, v, Phi, y_, b, Cs_, tol, tn, fr, Ta, Ra, dn, st, ms = solo
         for lane in range(f.shape[0]):
@@ -3238,22 +3436,48 @@ def _study_kernels() -> dict:
         require(all(torch.equal(x, w) for x, w in zip(solo, card)
                     if isinstance(x, torch.Tensor)),
                 "ato_apply_lanes: a lane differs from a one-lane launch")
-    for a in calls["smo_f_update"]:
-        got = ku.smo_f_update(*a)
-        require(torch.equal(got.cpu(), ref.smo_f_update_ref(
-            *_cpu(a[:3]), a[3].cpu()[:, None])),
-            "smo_f_update: rows not bitwise equal to the CPU addcmul")
-        rows = torch.stack([ku.smo_f_update(a[0][r], a[1][r], a[2][r], a[3][r])
-                            for r in range(a[0].shape[0])])
-        require(torch.equal(got, rows),
-                "smo_f_update: a row differs from its one-row launch")
-    a = main["smo_f_update"]
-    L, n = a[0].shape
+        if kw.get("carry") is None:
+            continue
+        (ra, rkw), (oa, okw) = _clone_call(a, kw), _clone_call(a, kw)
+        eta_r = ks.ato_apply_lanes(*ra, **rkw)
+        g, f, al, v, Phi, y_, b, Cs_, tol, tn, fr, Ta, Ra, dn, st, ms = oa
+        c = okw["carry"]
+        for lane in range(f.shape[0]):
+            sl = slice(lane, lane + 1)
+            s1 = lanes_of(c.s, sl)
+            e1 = ks.ato_apply_lanes(g[sl], f[sl], al[sl], s1.v, Phi[sl], y_,
+                                    s1.b, Cs_[sl], tol, s1.train_now,
+                                    s1.free, Ta[sl], Ra[sl], dn[sl], st[sl],
+                                    ms, carry=c._replace(
+                                        b_fallback=c.b_fallback[sl], s=s1))
+            require(_same_bits(e1[0], eta_r[lane]),
+                    "ato_apply_lanes: a lane's fused eta differs from a "
+                    "one-lane launch's")
+        require(all(_same_bits(x, w) for x, w in zip(oa, ra)
+                    if isinstance(x, torch.Tensor))
+                and all(_same_bits(x, w) for x, w in zip(c.s, rkw["carry"].s)
+                        if x is not c.s.rhs),
+                "ato_apply_lanes: a lane's fused step differs from a "
+                "one-lane launch's")
+    # smo_f_update at the row's shape (it is off the ramp now: checked and
+    # timed beside it)
+    a = calls["ato_apply_lanes"][0]
+    L, n = a[1].shape
+    args = (a[2], a[3], a[4], torch.full((L,), 0.37, dtype=torch.float64,
+                                         device=a[2].device))
+    got = ku.smo_f_update(*args)
+    require(torch.equal(got.cpu(), ref.smo_f_update_ref(
+        *_cpu(args[:3]), args[3].cpu()[:, None])),
+        "smo_f_update: rows not bitwise equal to the CPU addcmul")
+    rows = torch.stack([ku.smo_f_update(*(x[r] for x in args))
+                        for r in range(L)])
+    require(torch.equal(got, rows),
+            "smo_f_update: a row differs from its one-row launch")
     out["smo_f_update_row"] = {
-        "lanes": L, "n": n, "calls_checked": len(calls["smo_f_update"]),
-        "ms": graph_ms(lambda: ku.smo_f_update(*a), 200),
+        "lanes": L, "n": n, "calls_checked": 1,
+        "ms": graph_ms(lambda: ku.smo_f_update(*args), 200),
         "plain_ms": graph_ms(lambda: ref.smo_f_update_ref(
-            *a[:3], a[3][:, None]), 200),
+            *args[:3], args[3][:, None]), 200),
         "max_abs_err": 0.0, **_bound(8.0 * (4 * L * n + L), 0.0)}
     torch.cuda.empty_cache()
 
@@ -3718,7 +3942,8 @@ def compare_main(argv) -> int:
     iterations, solve s and us per longest-lane iteration; the seeding
     kernels (``_compare_seeding``) and one SIR seed of the grid at size
     split into its parts (``grid_seed_split``); then Table 1's iterations
-    and summed init and solve seconds (``_table1_times``), the grid at size
+    and summed init and solve seconds (``_table1_times``), the Study
+    layer at Table 1's sizes (``phase_study_seeds``), the grid at size
     (``phase_grid_size``) and LOO (``phase_loo``), each gated as in the
     full run (``chip_select_split.py --src DIR`` times the selection
     kernel itself)."""
@@ -3752,6 +3977,7 @@ def compare_main(argv) -> int:
     emit({"phase": "compare_table1", "rows": rows, "init_s": sum(
         r["init_s"] for r in rows), "solve_s": sum(r["solve_s"]
                                                    for r in rows)})
+    phase_study_seeds()
     phase_grid_size(make_dataset("adult", n_override=SIZE_N))
     phase_loo()
     return 0
@@ -3824,17 +4050,38 @@ def main() -> int:
     emit({"phase": "kernel_counts", **counts})
     emit({"phase": "sir_greedy_events", **sir_events})
     emit({"phase": "route_counts", **routes})
-    for name in ("rbf_kernel_matrix", "smo_f_update", "smo_chunk",
-                 "water_fill", "sir_greedy", "ato_system_lanes",
-                 "ato_apply_lanes"):
+    for name in ("rbf_kernel_matrix", "smo_chunk", "water_fill",
+                 "sir_greedy", "ato_system_lanes", "ato_apply_lanes"):
         require(counts["table1"][name] > 0,
                 f"{name} was not launched on the Table-1 path")
     # the Study paths: the batched ATO ramp's kernels on the ATO C row,
     # the spills on LOO, and the seeds and chunks on the grid at size
-    for name in ("ato_system_lanes", "ato_apply_lanes", "smo_f_update",
-                 "water_fill", "sir_greedy", "smo_chunk", "rbf_kernel_matrix"):
+    for name in ("ato_system_lanes", "ato_apply_lanes", "water_fill",
+                 "sir_greedy", "smo_chunk", "rbf_kernel_matrix"):
         require(counts["study_seeds"][name] > 0,
                 f"{name} was not launched on the study_seeds path")
+    # ATO's ramp: its first step compact, the others carried, every apply
+    # fused (alpha updated in it: no smo_f_update or clamp launch)
+    ato_steps = {}
+    for path in ("table1", "study_seeds", "loo"):
+        sysr = routes[path]["ato_system_lanes"]
+        appr = routes[path]["ato_apply_lanes"]
+        steps = counts[path]["ato_apply_lanes"]
+        require(appr == {"split": 0, "fused": steps}
+                and sysr["compact"] + sysr["carried"] == steps
+                and counts[path]["smo_f_update"] == 0,
+                f"{path}: ATO's ramp took {sysr} / {appr} and "
+                f"{counts[path]['smo_f_update']} smo_f_update launches")
+        ato_steps[path] = {
+            "steps": steps, "ramps": sysr["compact"],
+            "launches_per_step": {
+                name: counts[path][name] / max(steps, 1)
+                for name in ("ato_system_lanes", "ato_apply_lanes",
+                             "smo_f_update")},
+            "ato_system_lanes": sysr, "ato_apply_lanes": appr}
+    require(ato_steps["table1"]["ato_system_lanes"]["carried"] > 0,
+            "table1: no ramp step took the carried route")
+    emit({"phase": "ato_step_launches", **ato_steps})
     for name in ("avg_spill", "top_spill", "water_fill", "sir_greedy",
                  "ato_system_lanes", "smo_chunk"):
         require(counts["loo"][name] > 0,
@@ -3977,7 +4224,8 @@ def main() -> int:
                     "ato_apply_lanes", "avg_spill", "top_spill"):
             kernels[-1].update({key: k[key] for key in k if key in (
                 "n", "m_cap", "nf", "lanes", "ms_32560", "ms_32560_S",
-                "steps_checked", "calls_checked", "levels_ms")
+                "steps_checked", "calls_checked", "levels_ms",
+                "carried_steps_checked", "fused_steps_checked")
                 or key.startswith(("ms_", "bound_ms_", "gather_ms_",
                                    "block_ms_", "list_ms_", "segment_ms_"))})
         # the seeding kernels that run on every seeded path: their
@@ -3995,7 +4243,11 @@ def main() -> int:
             kernels[-1].update(
                 also_replaces="src/repro/core/seeding.py:435",
                 launches_study_seeds=counts["study_seeds"][name],
+                launches_loo=counts["loo"][name],
                 row=info[name + "_row"])
+        if name in ("ato_system_lanes", "ato_apply_lanes"):
+            kernels[-1]["routes"] = {p: routes[p][name] for p in (
+                "table1", "study_seeds", "loo")}
         if name.startswith("smo_chunk"):
             kernels[-1].update(n=k["n"], lanes=k.get("lanes", 1),
                                us_per_iter_one_block_global=k[

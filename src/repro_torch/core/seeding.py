@@ -58,8 +58,10 @@ import torch
 
 from repro_torch.core.threefry import uniform
 from repro_torch.kernels.ops import (ato_apply_lanes, ato_system_lanes,
-                                     avg_spill, sir_greedy, smo_f_update,
-                                     top_spill, water_fill)
+                                     avg_spill, sir_greedy, top_spill,
+                                     water_fill)
+from repro_torch.kernels.ref import AtoCarry, AtoSystem
+from repro_torch.kernels.seeding import ato_system_buffers
 from repro_torch.svm.engine import SMOResult
 
 #: the seeders' host syncs since the last reset, by the read that made it
@@ -339,20 +341,25 @@ def _bucket_cap(m: int, n: int) -> int:
     return max(1, min(cap, n))
 
 
-def _ato_step(K, y, Cs, box, tol, b_fallback, in_S, in_T, m_cap,
-              max_steps, alpha, f, T_act, R_act, done, step, zeros):
+def _ato_step(K, y, Cs, tol, b_fallback, in_S, in_T, m_cap, max_steps,
+              alpha, f, T_act, R_act, done, step, zeros, s: AtoSystem,
+              carried: bool):
     """One ramp step over a row of lanes, in place on the state (alpha, f,
-    T_act, R_act (lanes, n); done, step (lanes,)); Cs and b_fallback
-    (lanes,), ``box`` the lanes' alpha bounds as columns (0, Cs). No host
-    sync: each half of the step is one launch for every lane, the working
-    sets are compacted on the device, and the LU is one batched solve that
-    reports no errors (a non-finite solve falls back to Phi = 0). The
-    kernel products are taken lane by lane, so a lane is what a one-lane
-    ramp gives it but for the batched LU. A lane that is done passes
-    through unchanged (``ato_apply_lanes``' eta = 0 makes the alpha update
-    the identity)."""
-    s = ato_system_lanes(K, y, Cs, alpha, f, b_fallback, in_S, in_T, T_act,
-                         R_act, m_cap)
+    T_act, R_act (lanes, n); done, step (lanes,)) and on the step's system
+    ``s`` (``ato_system_buffers``); Cs and b_fallback (lanes,). No host
+    sync, two launches of the ramp's own kernels: ``ato_system_lanes``
+    writes the system (``carried``: B alone, from the working set that the
+    step before left in ``s``; else every field, from the state), the
+    working sets are compacted on the device, the LU is one batched solve
+    that reports no errors (a non-finite solve falls back to Phi = 0), and
+    the fused ``ato_apply_lanes`` takes the step size, the alpha and f
+    updates (M, T-active and R-active are disjoint: one update of alpha)
+    and the next step's working set. The kernel products are taken lane
+    by lane, so a lane is what a one-lane ramp gives it but for the batched
+    LU. A lane that is done passes through unchanged."""
+    ato_system_lanes(K, y, Cs, alpha, f, b_fallback, in_S, in_T, T_act,
+                     R_act, m_cap, out=s,
+                     _route="carried" if carried else "compact")
     r = s.rhs[:, 1:]
     for idx, w, r_l in zip(s.idx, s.w, r):
         torch.mv(K.index_select(0, idx), w, out=r_l)
@@ -366,11 +373,9 @@ def _ato_step(K, y, Cs, box, tol, b_fallback, in_S, in_T, m_cap,
     g = torch.empty_like(u)
     for u_l, g_l in zip(u, g):
         torch.mv(K, u_l, out=g_l)
-    eta = ato_apply_lanes(g, f, alpha, s.v, Phi_full, y, s.b, Cs, tol,
-                          s.train_now, s.free, T_act, R_act, done, step,
-                          max_steps)
-    # M, T-active and R-active are disjoint: one fused update
-    torch.clamp(smo_f_update(alpha, s.v, Phi_full, eta), *box, out=alpha)
+    ato_apply_lanes(g, f, alpha, s.v, Phi_full, y, s.b, Cs, tol, s.train_now,
+                    s.free, T_act, R_act, done, step, max_steps,
+                    carry=AtoCarry(K, in_S, in_T, b_fallback, s))
 
 
 def _ato_ramp(K, y, Cs, alpha, f, b_fallback, in_S, in_T, in_R, tol,
@@ -389,8 +394,10 @@ def _ato_ramp(K, y, Cs, alpha, f, b_fallback, in_S, in_T, in_R, tol,
     the flags once a chunk and stops when every lane is done. Steps past a
     lane's stop are the identity, so the result does not depend on the
     chunks. The alpha and f updates, ``alpha + eta * (v - Phi)`` and ``f +
-    eta * g``, are rounded by the reference as one FMA each: the first
-    goes through ``smo_f_update`` (a row a lane), the second is ``ato_apply_lanes``'.
+    eta * g``, are rounded by the reference as one FMA each, as the fused
+    ``ato_apply_lanes`` rounds them. The step's system lives in one set of
+    buffers for the whole ramp: the first step computes it from the state,
+    each later one takes the working set the step before left there.
     """
     lanes, n = alpha.shape
     T_act = in_T.expand(lanes, n).clone()
@@ -402,12 +409,14 @@ def _ato_ramp(K, y, Cs, alpha, f, b_fallback, in_S, in_T, in_R, tol,
         done.fill_(True)
     step = torch.zeros(lanes, dtype=torch.int64, device=K.device)
     zeros = torch.zeros_like(alpha)
-    box = (torch.zeros_like(Cs)[:, None], Cs[:, None])
-    size = chunk or 1
+    s = ato_system_buffers(lanes, n, m_cap, K.device)
+    size, carried = chunk or 1, False
     while True:
         for _ in range(size):
-            _ato_step(K, y, Cs, box, tol, b_fallback, in_S, in_T, m_cap,
-                      max_steps, alpha, f, T_act, R_act, done, step, zeros)
+            _ato_step(K, y, Cs, tol, b_fallback, in_S, in_T, m_cap,
+                      max_steps, alpha, f, T_act, R_act, done, step, zeros,
+                      s, carried)
+            carried = True
         with _host_read("ato_flag", K):
             if bool(done.all()):
                 break

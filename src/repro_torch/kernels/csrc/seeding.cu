@@ -26,28 +26,37 @@
 // picks, so for a segment of removed rows at a time every SM builds each
 // row's list of best candidates among the T still unused, and one block
 // then walks the segment's rows in order over used bits in shared memory,
-// a row an on-chip check. ato_system compacts the free set in ascending order (what
-// torch.nonzero gives, with no host sync) redundantly in every block, so
-// that one launch of many blocks also writes the bordered (m_cap + 1)^2
-// KKT matrix row by row. ato_apply reduces the step size, applies the f
-// update and retires / graduates rows in one block, and writes the ramp's
-// device stop flag, which the host reads once per chunk of steps. Over a
-// row of lanes (a grid's C row, one fold transition) each lane takes the
-// same code on its own slice: ato_system's blocks are a (rows, lanes) grid,
-// ato_apply runs a block a lane, so a lane's outputs do not depend on the
-// other lanes. avg_spill runs its 8 rounds in one
-// block, two block reductions a round (the count, exact, and the sum of the
-// adds). top_spill is a chain through the residual: one thread walks the
-// order over lo, hi and beta that the block gathered into shared memory,
-// and stops where the residual is 0, past which every take is a zero.
+// a row an on-chip check. ATO's step has two routes a half. ato_apply's
+// fused route reduces the step size, applies the f and alpha updates,
+// retires / graduates rows and writes the ramp's device stop flag (read by
+// the host once per chunk of steps) in one block, and from the rows it
+// holds builds the next step's working set: the free set compacted in
+// ascending order (what torch.nonzero gives, with no host sync), its
+// labels, the ridge and the sums b and r0. ato_system's carried route
+// then writes the bordered (m_cap + 1)^2 KKT matrix alone, every block
+// storing at once; its compact route (a ramp's first step, and the
+// witness) compacts the free set redundantly in every block before its
+// rows of B, and the split apply (the witness of the fused one) leaves
+// alpha to the caller. Over a row of lanes (a grid's C row, one fold
+// transition) each lane takes the same code on its own slice:
+// ato_system's blocks are a (rows, lanes) grid, ato_apply runs a block a
+// lane, so a lane's outputs do not depend on the other lanes. avg_spill
+// runs its 8 rounds in one block, two block reductions a round (the count,
+// exact, and the sum of the adds). top_spill is a chain through the
+// residual: one thread walks the order over lo, hi and beta that the block
+// gathered into shared memory, and stops where the residual is 0, past
+// which every take is a zero.
 //
 // Built with -fmad=false (kernels/_build.py): each expression rounds op by
-// op as the plain versions (kernels/ref.py) do, the f update being one
-// fma as torch.addcmul rounds it. Only sums differ in order from torch's
-// (water_fill's, ato_system's b and r0); every compare, copy, min and max
-// is exact.
+// op as the plain versions (kernels/ref.py) do, the f and alpha updates
+// being one fma each as torch.addcmul rounds them. Only sums differ in
+// order from torch's (water_fill's, ATO's b and r0, which both ATO routes
+// that write them sum in one order); every compare, copy, min and max is
+// exact.
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include <cstdint>
 
 #include "smo_common.cuh"
 
@@ -872,13 +881,15 @@ sir_walk_kernel(const double* __restrict__ K, long long ld,
 }
 
 // ---------------------------------------------------------------------------
-// ato_system: the ramp step's masks, bias b, directions v and w = y * v,
-// the free set compacted into idx[m_cap] (ascending, padded with row 0),
-// lane = j < nf, yM, the bordered KKT matrix
+// ato_system, route `compact`: the ramp step's masks, bias b, directions v
+// and w = y * v, the free set compacted into idx[m_cap] (ascending, padded
+// with row 0), lane = j < nf, yM, lam, the bordered KKT matrix
 //     B = [[nf > 0 ? 0 : 1, yM^T], [yM, (yM yM^T) * K[idx][:, idx] + diag]]
 // (diag: lam on lanes, 1 on padding; lam = 1e-10 (1 + max |diag Q|)) and
-// rhs[0] = nf > 0 ? sum(w) : 0. Every block compacts the free set in
-// shared memory; block 0 writes the vectors; the blocks share B's rows.
+// rhs[0] = nf > 0 ? sum(w) : 0, all from the state. Every block compacts
+// the free set in shared memory; block 0 writes the vectors; the blocks
+// share B's rows. A ramp's first step, standalone calls and the witness
+// of the carried route (below) take it.
 // ---------------------------------------------------------------------------
 // Lane l = blockIdx.y reads row l of alpha, f, T_act, R_act (n each), its
 // b_fallback and C (Cs[l]), and writes row l of every output.
@@ -892,8 +903,8 @@ __global__ void ato_system_kernel(
     long long* __restrict__ nf_o, double* __restrict__ b_o,
     double* __restrict__ v_o, double* __restrict__ w_o,
     long long* __restrict__ idx_o, bool* __restrict__ lane_o,
-    double* __restrict__ yM_o, double* __restrict__ Bm,
-    double* __restrict__ rhs) {
+    double* __restrict__ yM_o, double* __restrict__ lam_o,
+    double* __restrict__ Bm, double* __restrict__ rhs) {
   {
     const long long l = blockIdx.y, ln = l * n, lm = l * m_cap,
                     M1 = (long long)m_cap + 1;
@@ -908,6 +919,7 @@ __global__ void ato_system_kernel(
     w_o += ln;
     nf_o += l;
     b_o += l;
+    lam_o += l;
     idx_o += lm;
     lane_o += lm;
     yM_o += lm;
@@ -984,6 +996,7 @@ __global__ void ato_system_kernel(
   if (writer && tid == 0) {
     *nf_o = nf;
     *b_o = nf > 0 ? sf / (double)nf : *b_fallback;
+    *lam_o = lam;
     rhs[0] = nf > 0 ? sw : 0.0;
   }
   const long long M1 = (long long)m_cap + 1;
@@ -1010,12 +1023,76 @@ __global__ void ato_system_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// ato_apply: eta = min(1, the smallest eta > 1e-12 that puts a bound row's
-// f at b), non-finite -> 1; f += eta * g (one fma); R rows retire at alpha'
-// <= thresh and T rows graduate by Eq. 5, alpha' = clip(alpha + eta (v -
-// Phi), 0, C) being what smo_f_update and the clamp then store; step += 1;
-// done = eta >= 1 or step == max_steps or no R or T row active. A step
-// that starts done writes eta = 0 and changes nothing. One block.
+// ato_system, route `carried`: B alone, from the working set that the fused
+// ato_apply (below) wrote on the step before (idx, yM, nf and lam a lane),
+// so no block compacts or reduces anything before it stores: ~10 dependent
+// L2 round trips of the compact route's prologue are gone, and B's bytes
+// (8 MB at m_cap = 1,000) are the bound. A warp takes a segment of U x 64
+// columns of one row (U = kBUnroll): each lane computes two neighbouring
+// entries U times (their idx, yM and K loads all in flight) and
+// stores each pair as one 16-byte store (a row whose address is 8 bytes
+// off 16 stores its column 0 alone, and its pairs from column 1). Every
+// entry is the compact route's expression, so B is its B bit for bit. K
+// is read at [idx_i, idx_j] for every (i, j): no symmetry is assumed.
+// ---------------------------------------------------------------------------
+constexpr int kBWarps = 8;
+// pairs of entries in flight a lane: 2 was the fastest at m_cap = 1,000 on
+// the H100, one lane and three (4 and 8 were slower; PERF.md)
+constexpr int kBUnroll = 2;
+
+__global__ void __launch_bounds__(kBWarps * 32) ato_b_kernel(
+    const double* __restrict__ K, int n, int m_cap, int segs,
+    const long long* __restrict__ idx, const double* __restrict__ yM,
+    const long long* __restrict__ nf_p, const double* __restrict__ lam_p,
+    double* __restrict__ Bm) {
+  const long long l = blockIdx.y, M1 = (long long)m_cap + 1;
+  const long long wg = (long long)blockIdx.x * kBWarps + (threadIdx.x >> 5);
+  if (wg >= M1 * segs) return;
+  const int r = (int)(wg / segs), seg = (int)(wg % segs);
+  const int lane = threadIdx.x & 31;
+  constexpr int U = kBUnroll;
+  idx += l * m_cap;
+  yM += l * m_cap;
+  double* row = Bm + l * M1 * M1 + (long long)r * M1;
+  const long long nf = nf_p[l];
+  const int i = r - 1;   // B's row r >= 1 is the working set's row i
+  const double yi = r > 0 ? yM[i] : 0.0;
+  const double di = i < nf ? lam_p[l] : 1.0;
+  const double* Ki = K + (r > 0 ? idx[i] : 0) * (long long)n;
+  const auto val = [&](int c) -> double {
+    if (r == 0) return c == 0 ? (nf > 0 ? 0.0 : 1.0) : yM[c - 1];
+    if (c == 0) return yi;
+    const int j = c - 1;
+    return (yi * yM[j]) * Ki[idx[j]] + (i == j ? di : 0.0);
+  };
+  const int off = (int)((reinterpret_cast<uintptr_t>(row) >> 3) & 1);
+  if (off && seg == 0 && lane == 0) row[0] = val(0);
+  const int c0 = off + seg * 64 * U + 2 * lane;
+  double v0[U], v1[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int c = c0 + 64 * u;
+    v0[u] = c < M1 ? val(c) : 0.0;
+    v1[u] = c + 1 < M1 ? val(c + 1) : 0.0;
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int c = c0 + 64 * u;
+    if (c + 1 < M1)
+      *reinterpret_cast<double2*>(row + c) = make_double2(v0[u], v1[u]);
+    else if (c < M1)
+      row[c] = v0[u];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// ato_apply, route `split`: eta = min(1, the smallest eta > 1e-12 that
+// puts a bound row's f at b), non-finite -> 1; f += eta * g (one fma); R
+// rows retire at alpha' <= thresh and T rows graduate by Eq. 5, alpha' =
+// clip(alpha + eta (v - Phi), 0, C) being what smo_f_update and the clamp
+// then store; step += 1; done = eta >= 1 or step == max_steps or no R or T
+// row active. A step that starts done writes eta = 0 and changes nothing.
+// One block. Standalone calls and the fused route's witness take it.
 // ---------------------------------------------------------------------------
 // Lane l = blockIdx.x: row l of g, f, alpha, v, Phi, train_now, free_m,
 // T_act and R_act, and entry l of b, done, step and eta (y is shared); C is
@@ -1092,6 +1169,234 @@ __global__ void ato_apply_kernel(
     const long long st = *step + 1;
     *step = st;
     *done = eta >= 1.0 || st >= max_steps || !(anyR || anyT);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// ato_apply, route `fused` (the ramp's): the split route's step tail
+// (above), plus the alpha update alpha' = clip(fma(eta, v - Phi, alpha), 0,
+// C) that the split route leaves to smo_f_update and a clamp, plus the next
+// step's working set, built from the rows each thread holds after its
+// update: train_now', free', v', w', nf', the free set compacted in
+// ascending order into idx / lane / yM (padded with row 0), lam' from K's
+// diagonal, b' and r0' = rhs[0]. What the compact route would recompute
+// from the state the step leaves, bit for bit: 256 threads take rows tid +
+// 256 k as ato_system_kernel does, so b' and r0' are its sums in its order
+// (strided partials, butterflies, the warps folded in order); every other
+// output is a compare, a copy, a product rounded alone, the one fma or a
+// max. Each thread loads its R rows once, before the step size's min, and
+// holds them in registers (R = 0: any n, rows read again from memory).
+// Two barriers: the min, then the ballots' counts and the sums. The
+// working set (train_now, free, v, b) is read and rewritten in place: a
+// thread rewrites only its own rows, and b after the last barrier. A
+// lane that starts done writes eta = 0 and nothing else.
+// ---------------------------------------------------------------------------
+constexpr int kApplyThreads = 256;
+
+struct AtoRow {
+  double g, f, a, v, phi, y, kd;
+  bool tn, fr, ta, ra, s, t;
+};
+
+template <int R>
+__global__ void __launch_bounds__(kApplyThreads) ato_apply_fused_kernel(
+    const double* __restrict__ K, int n, const double* __restrict__ g,
+    double* __restrict__ f, double* __restrict__ alpha,
+    const double* __restrict__ Phi, const double* __restrict__ y,
+    const bool* __restrict__ in_S, const bool* __restrict__ in_T,
+    bool* __restrict__ T_act, bool* __restrict__ R_act,
+    bool* __restrict__ done, long long* __restrict__ step,
+    double* __restrict__ eta_o, const double* __restrict__ Cs,
+    const double* __restrict__ b_fallback, double tol, long long max_steps,
+    int m_cap, bool* __restrict__ train_now, bool* __restrict__ free_m,
+    long long* __restrict__ nf_o, double* __restrict__ b_io,
+    double* __restrict__ v_io, double* __restrict__ w_o,
+    long long* __restrict__ idx_o, bool* __restrict__ lane_o,
+    double* __restrict__ yM_o, double* __restrict__ lam_o,
+    double* __restrict__ rhs) {
+  constexpr int nt = kApplyThreads, nw = nt / 32;
+  const int l = blockIdx.x;
+  {
+    const long long ln = (long long)l * n, lm = (long long)l * m_cap;
+    g += ln;
+    f += ln;
+    alpha += ln;
+    Phi += ln;
+    T_act += ln;
+    R_act += ln;
+    train_now += ln;
+    free_m += ln;
+    v_io += ln;
+    w_o += ln;
+    idx_o += lm;
+    lane_o += lm;
+    yM_o += lm;
+    rhs += (long long)l * (m_cap + 1);
+  }
+  extern __shared__ int wcnt[];   // [tile][warp]: each ballot's free' rows
+  __shared__ Red red;
+  __shared__ double part[3][nw];  // the warps' sf', sw', lam's max
+  __shared__ int any_w[nw];
+  int par = 0;
+  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+  // the flag is tested after the rows' loads are issued, so its round
+  // trip overlaps theirs; a done lane returns before it writes anything
+  const bool was_done = done[l];
+  const double C = Cs[l];
+  const double thresh = 1e-12 * (1.0 > C ? 1.0 : C);   // Python's max(C, 1)
+  const double b = b_io[l];
+  const double k00 = tid == 0 ? K[0] : 0.0;   // lam's padding term, ahead
+  const int tiles = R > 0 ? R : (n + nt - 1) / nt;
+  const auto load = [&](int i) {
+    AtoRow r;
+    r.g = g[i];
+    r.f = f[i];
+    r.a = alpha[i];
+    r.v = v_io[i];
+    r.phi = Phi[i];
+    r.y = y[i];
+    r.kd = K[(long long)i * n + i];
+    r.tn = train_now[i];
+    r.fr = free_m[i];
+    r.ta = T_act[i];
+    r.ra = R_act[i];
+    r.s = in_S[i];
+    r.t = in_T[i];
+    return r;
+  };
+  AtoRow rows[R > 0 ? R : 1];
+  double mn = CUDART_INF;
+#pragma unroll
+  for (int k = 0; k < tiles; ++k) {
+    const int i = k * nt + tid;
+    if (i < n) {
+      const AtoRow r = load(i);
+      if (R > 0) rows[k] = r;
+      const bool live = fabs(r.g) > 1e-12;
+      const bool bound = r.tn && !r.fr;
+      double e = (bound && live) ? (b - r.f) / r.g : CUDART_INF;
+      e = e > 1e-12 ? e : CUDART_INF;
+      mn = nan_min(mn, e);
+    }
+  }
+  if (was_done) {   // (uniform)
+    if (tid == 0) eta_o[l] = 0.0;
+    return;
+  }
+  mn = block_ext<false>(mn, red, par);
+  double eta = nan_min(mn, 1.0);
+  if (!isfinite(eta)) eta = 1.0;
+  double sf = 0.0, sw = 0.0, dmax = -CUDART_INF;
+  int anyR = 0, anyT = 0;
+  unsigned fbits = 0;   // bit k: row k nt + tid is free' (R > 0)
+#pragma unroll
+  for (int k = 0; k < tiles; ++k) {
+    const int i = k * nt + tid;
+    bool fr = false;
+    if (i < n) {
+      const AtoRow r = R > 0 ? rows[k] : load(i);
+      const double a = clamp_t(fma(eta, r.v - r.phi, r.a), 0.0, C);
+      const double fi = fma(eta, r.g, r.f);
+      const bool ra = r.ra && a > thresh;
+      const double yi = r.y;
+      const bool ok_m = a > 0.0 && a < C && fabs(fi - b) <= tol;
+      const bool ok_u = ((yi > 0.0 && a <= 0.0) || (yi < 0.0 && a >= C)) &&
+                        fi >= b - tol;
+      const bool ok_l = ((yi > 0.0 && a >= C) || (yi < 0.0 && a <= 0.0)) &&
+                        fi <= b + tol;
+      const bool ta = r.ta && !(ok_m || ok_u || ok_l);
+      anyR |= ra;
+      anyT |= ta;
+      // step s+1's row, as ato_system_kernel computes it from the state
+      const bool tn = r.s || (r.t && !ta);
+      fr = tn && a > 0.0 && a < C;
+      const double v = (ta ? C - a : 0.0) - (ra ? a : 0.0);
+      const double w = yi * v;
+      sw += w;
+      if (fr) sf += fi;
+      if (fr) dmax = nan_max(dmax, fabs((yi * yi) * r.kd));
+      f[i] = fi;
+      alpha[i] = a;
+      R_act[i] = ra;
+      T_act[i] = ta;
+      train_now[i] = tn;
+      free_m[i] = fr;
+      v_io[i] = v;
+      w_o[i] = w;
+    }
+    const unsigned bal = __ballot_sync(kFull, fr);
+    if (lane == 0) wcnt[k * nw + wid] = __popc(bal);
+    if (R > 0 && fr) fbits |= 1u << k;
+  }
+  sf = warp_sum(sf);
+  sw = warp_sum(sw);
+  dmax = warp_ext<true>(dmax);
+  anyR = __any_sync(kFull, anyR);
+  anyT = __any_sync(kFull, anyT);
+  if (lane == 0) {
+    part[0][wid] = sf;
+    part[1][wid] = sw;
+    part[2][wid] = dmax;
+    any_w[wid] = anyR | (anyT << 1);
+  }
+  __syncthreads();
+  // block_sum's fold: 0.0 plus the warps' partials in order
+  double SF = 0.0, SW = 0.0, DM = part[2][0];
+  int any = 0;
+  for (int w = 0; w < nw; ++w) {
+    SF += part[0][w];
+    SW += part[1][w];
+    if (w > 0) DM = nan_max(DM, part[2][w]);
+    any |= any_w[w];
+  }
+  // the free rows' places: the counts of earlier tiles and warps, then the
+  // lanes below in the ballot
+  int base = 0;
+  double dcap = -CUDART_INF;   // lam's max over the placed rows alone
+#pragma unroll
+  for (int k = 0; k < tiles; ++k) {
+    const int i = k * nt + tid;
+    const bool fr = R > 0 ? ((fbits >> k) & 1u) != 0
+                          : (i < n && free_m[i]);
+    const unsigned bal = __ballot_sync(kFull, fr);
+    int pre = base, tot = 0;
+    for (int w = 0; w < nw; ++w) {
+      const int c = wcnt[k * nw + w];
+      if (w < wid) pre += c;
+      tot += c;
+    }
+    if (fr) {
+      const int pos = pre + __popc(bal & ((1u << lane) - 1u));
+      if (pos < m_cap) {
+        const double yi = R > 0 ? rows[k].y : y[i];
+        idx_o[pos] = i;
+        lane_o[pos] = true;
+        yM_o[pos] = yi;
+        dcap = nan_max(dcap, fabs((yi * yi) *
+                                  (R > 0 ? rows[k].kd
+                                         : K[(long long)i * n + i])));
+      }
+    }
+    base += tot;
+  }
+  const int nf = base;
+  if (nf > m_cap)   // (uniform) some free rows are not placed: lam over
+    DM = block_ext<true>(dcap, red, par);   // the placed ones alone
+  for (int j = (nf < m_cap ? nf : m_cap) + tid; j < m_cap; j += nt) {
+    idx_o[j] = 0;
+    lane_o[j] = false;
+    yM_o[j] = 0.0;
+  }
+  if (tid == 0) {
+    if (nf < m_cap) DM = nan_max(DM, fabs((0.0 * 0.0) * k00));   // padding
+    eta_o[l] = eta;
+    const long long st = step[l] + 1;
+    step[l] = st;
+    done[l] = eta >= 1.0 || st >= max_steps || any == 0;
+    nf_o[l] = nf;
+    b_io[l] = nf > 0 ? SF / (double)nf : b_fallback[l];
+    lam_o[l] = 1e-10 * (1.0 + DM);
+    rhs[0] = nf > 0 ? SW : 0.0;
   }
 }
 
@@ -1375,15 +1680,16 @@ extern "C" int ato_system_max_m_cap() {
   return (kMaxDynSmem - 4096) / 12;
 }
 
-// ato_system over `lanes` lanes: alpha, f, T_act, R_act (lanes, n), Cs and
-// b_fallback (lanes,); every output has a leading lane axis.
+// ato_system (route compact) over `lanes` lanes: alpha, f, T_act, R_act
+// (lanes, n), Cs and b_fallback (lanes,); every output has a leading lane
+// axis.
 extern "C" int ato_system_lanes_f64(
     const double* K, int n, const double* y, const double* alpha,
     const double* f, const double* b_fallback, const bool* in_S,
     const bool* in_T, const bool* T_act, const bool* R_act, const double* Cs,
     int lanes, int m_cap, bool* train_now, bool* free_m, long long* nf,
     double* b, double* v, double* w, long long* idx, bool* lane, double* yM,
-    double* B, double* rhs, cudaStream_t stream) {
+    double* lam, double* B, double* rhs, cudaStream_t stream) {
   if (n <= 0 || m_cap <= 0 || lanes <= 0) return 0;
   if (m_cap > ato_system_max_m_cap() || lanes > 65535)
     return (int)cudaErrorInvalidValue;
@@ -1398,7 +1704,25 @@ extern "C" int ato_system_lanes_f64(
   const dim3 grid(rows < 264 ? rows : 264, lanes);
   ato_system_kernel<<<grid, 256, (size_t)12 * m_cap, stream>>>(
       K, n, y, alpha, f, b_fallback, in_S, in_T, T_act, R_act, Cs, m_cap,
-      train_now, free_m, nf, b, v, w, idx, lane, yM, B, rhs);
+      train_now, free_m, nf, b, v, w, idx, lane, yM, lam, B, rhs);
+  return (int)cudaGetLastError();
+}
+
+// ato_system (route carried) over `lanes` lanes: B (lanes, m_cap + 1,
+// m_cap + 1) from idx and yM (lanes, m_cap), nf and lam (lanes,).
+extern "C" int ato_system_carried_f64(const double* K, int n, int lanes,
+                                      int m_cap, const long long* idx,
+                                      const double* yM, const long long* nf,
+                                      const double* lam, double* B,
+                                      cudaStream_t stream) {
+  if (n <= 0 || m_cap <= 0 || lanes <= 0) return 0;
+  if (lanes > 65535) return (int)cudaErrorInvalidValue;
+  const long long M1 = (long long)m_cap + 1;
+  const int segs = (int)((M1 + 64 * kBUnroll - 1) / (64 * kBUnroll));
+  const long long blocks = (M1 * segs + kBWarps - 1) / kBWarps;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  ato_b_kernel<<<dim3((unsigned)blocks, lanes), kBWarps * 32, 0, stream>>>(
+      K, n, m_cap, segs, idx, yM, nf, lam, B);
   return (int)cudaGetLastError();
 }
 
@@ -1415,6 +1739,66 @@ extern "C" int ato_apply_lanes_f64(
       g, f, alpha, v, Phi, y, b, train_now, free_m, T_act, R_act, done, step,
       eta, n, Cs, tol, max_steps);
   return (int)cudaGetLastError();
+}
+
+namespace {
+
+template <int R>
+int launch_apply_fused(int lanes, size_t smem, cudaStream_t stream,
+                       const double* K, int n, const double* g, double* f,
+                       double* alpha, const double* Phi, const double* y,
+                       const bool* in_S, const bool* in_T, bool* T_act,
+                       bool* R_act, bool* done, long long* step, double* eta,
+                       const double* Cs, const double* b_fallback, double tol,
+                       long long max_steps, int m_cap, bool* train_now,
+                       bool* free_m, long long* nf, double* b, double* v,
+                       double* w, long long* idx, bool* lane, double* yM,
+                       double* lam, double* rhs) {
+  static bool done_attr = false;
+  static int limit = 0;
+  if ((long long)smem > dyn_smem_limit(ato_apply_fused_kernel<R>,
+                                       done_attr, limit))
+    return (int)cudaErrorInvalidValue;
+  ato_apply_fused_kernel<R><<<lanes, kApplyThreads, smem, stream>>>(
+      K, n, g, f, alpha, Phi, y, in_S, in_T, T_act, R_act, done, step, eta,
+      Cs, b_fallback, tol, max_steps, m_cap, train_now, free_m, nf, b, v, w,
+      idx, lane, yM, lam, rhs);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// ato_apply (route fused) over `lanes` lanes, a block each: the split
+// route's arrays, alpha updated too, and the working set (train_now, free,
+// v, b read and rewritten; nf, w, idx, lane, yM, lam and rhs[0] written)
+// for the next step; K (its diagonal), in_S and in_T (n,) and b_fallback
+// (lanes,) beside them. 256 threads a lane; rows in registers up to 1,024
+// (4 a thread).
+extern "C" int ato_apply_fused_f64(
+    const double* K, int n, const double* g, double* f, double* alpha,
+    const double* Phi, const double* y, const bool* in_S, const bool* in_T,
+    bool* T_act, bool* R_act, bool* done, long long* step, double* eta,
+    const double* Cs, const double* b_fallback, int lanes, double tol,
+    long long max_steps, int m_cap, bool* train_now, bool* free_m,
+    long long* nf, double* b, double* v, double* w, long long* idx,
+    bool* lane, double* yM, double* lam, double* rhs, cudaStream_t stream) {
+  if (n <= 0 || lanes <= 0 || m_cap <= 0) return 0;
+  const int per = (n + kApplyThreads - 1) / kApplyThreads;
+  const int R = per <= 1 ? 1 : per <= 2 ? 2 : per <= 4 ? 4 : 0;
+  const size_t smem =
+      sizeof(int) * (size_t)(R > 0 ? R : per) * (kApplyThreads / 32);
+#define AF(RR)                                                               \
+  return launch_apply_fused<RR>(                                             \
+      lanes, smem, stream, K, n, g, f, alpha, Phi, y, in_S, in_T, T_act,     \
+      R_act, done, step, eta, Cs, b_fallback, tol, max_steps, m_cap,         \
+      train_now, free_m, nf, b, v, w, idx, lane, yM, lam, rhs)
+  switch (R) {
+    case 1: AF(1);
+    case 2: AF(2);
+    case 4: AF(4);
+    default: AF(0);
+  }
+#undef AF
 }
 
 extern "C" int avg_spill_f64(const double* beta, const double* lo,

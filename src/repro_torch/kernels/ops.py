@@ -12,12 +12,13 @@ the WSS-1 selection kernel to ``smo_select`` and of the fused step to
 (ATO's ramp step, one lane or a row) and ``avg_spill`` / ``top_spill``
 (the LOO seeders) count one per launch.
 ``flash_attention`` counts one per launch (one per prefill attention layer
-on the LM serving path). ``route_counts`` splits the four kernels that have
+on the LM serving path). ``route_counts`` splits the six kernels that have
 routes: ``rbf_kernel_matrix`` (tensor, the FP64 tensor cores / fma),
 ``smo_chunk`` (one_block, the resident kernel / multi_block / cluster /
 one_block_global, the global-state kernel), ``smo_stream_chunk`` (pair /
-persistent: the chunks on each) and ``flash_attention`` (wgmma / mma /
-fma).
+persistent: the chunks on each), ``flash_attention`` (wgmma / mma /
+fma), ``ato_system_lanes`` (compact / carried: a ramp's later steps) and
+``ato_apply_lanes`` (split / fused: the ramp's, with the alpha update).
 """
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rbf import rbf_kernel_matrix
@@ -60,7 +61,9 @@ def launch_counts() -> dict[str, int]:
 #: the wrappers whose launches split into routes
 ROUTED = {"rbf_kernel_matrix": rbf_kernel_matrix, "smo_chunk": smo_chunk,
           "smo_stream_chunk": smo_stream_chunk,
-          "flash_attention": flash_attention}
+          "flash_attention": flash_attention,
+          "ato_system_lanes": ato_system_lanes,
+          "ato_apply_lanes": ato_apply_lanes}
 
 
 def route_counts() -> dict[str, dict[str, int]]:

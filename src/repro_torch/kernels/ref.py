@@ -493,9 +493,9 @@ def compact_ref(mask, m_cap: int):
 class AtoSystem(NamedTuple):
     """One ATO ramp step's system (a lane of ``ato_system_lanes``): masks
     over n, the bias b, directions v and w = y * v, the working set idx (m_cap,) with its
-    lanes and labels yM, the bordered matrix B (m_cap+1, m_cap+1) and the
-    right-hand side rhs (m_cap+1,) with rhs[0] = r0 set (rhs[1:] is the
-    caller's)."""
+    lanes and labels yM, the ridge lam on its diagonal, the bordered matrix
+    B (m_cap+1, m_cap+1) and the right-hand side rhs (m_cap+1,) with rhs[0]
+    = r0 set (rhs[1:] is the caller's)."""
     train_now: torch.Tensor
     free: torch.Tensor
     nf: torch.Tensor
@@ -505,8 +505,28 @@ class AtoSystem(NamedTuple):
     idx: torch.Tensor
     lane: torch.Tensor
     yM: torch.Tensor
+    lam: torch.Tensor
     B: torch.Tensor
     rhs: torch.Tensor
+
+
+#: the fields of an ``AtoSystem`` that the fused ``ato_apply_lanes`` hands
+#: the next step (with rhs[0]); the carried route then writes B alone
+ATO_CARRIED = ("train_now", "free", "nf", "b", "v", "w", "idx", "lane", "yM",
+               "lam")
+
+
+class AtoCarry(NamedTuple):
+    """What the fused ``ato_apply_lanes`` reads beside a ramp step's state
+    to hand the next step its working set: K (its diagonal), the
+    transition's in_S and in_T, each lane's b_fallback, and the step's
+    system ``s``, whose ``ATO_CARRIED`` fields and rhs[:, 0] it rewrites in
+    place for every lane that was not done."""
+    K: torch.Tensor
+    in_S: torch.Tensor
+    in_T: torch.Tensor
+    b_fallback: torch.Tensor
+    s: AtoSystem
 
 
 def ato_system_ref(K, y, C, alpha, f, b_fallback, in_S, in_T, T_act, R_act,
@@ -541,19 +561,93 @@ def ato_system_ref(K, y, C, alpha, f, b_fallback, in_S, in_T, T_act, R_act,
     B[1:, 1:] = Q + torch.diag(torch.where(lane, lam, 1.0))
     rhs = torch.zeros(m_cap + 1, dtype=K.dtype, device=K.device)
     rhs[0] = torch.where(nf > 0, w.sum(), 0.0)
-    return AtoSystem(train_now, free, nf, b, v, w, idx, lane, yM, B, rhs)
+    return AtoSystem(train_now, free, nf, b, v, w, idx, lane, yM, lam, B, rhs)
+
+
+class AtoCarried(NamedTuple):
+    """The working set ``ato_carry_ref`` builds: ``ATO_CARRIED``'s fields
+    and r0 (rhs[0])."""
+    train_now: torch.Tensor
+    free: torch.Tensor
+    nf: torch.Tensor
+    b: torch.Tensor
+    v: torch.Tensor
+    w: torch.Tensor
+    idx: torch.Tensor
+    lane: torch.Tensor
+    yM: torch.Tensor
+    lam: torch.Tensor
+    r0: torch.Tensor
+
+
+def ato_carry_ref(K, y, C, alpha, f, b_fallback, in_S, in_T, T_act, R_act,
+                  m_cap: int) -> AtoCarried:
+    """The next step's working set as the fused ``ato_apply`` builds it
+    from the rows it holds after its update (alpha', f', T_act', R_act'):
+    each row's masks and directions, the free rows placed by their rank
+    among the free rows (a running count, as the kernel's ballots give it)
+    up to ``m_cap``, the rest of idx padded with row 0, and lam from K's
+    diagonal over the placed rows and, where there is padding, row 0's
+    entry times a zero label. Equal to ``ato_system_ref`` on that state in
+    every field but B and rhs[1:]."""
+    train_now = in_S | (in_T & ~T_act)
+    free = train_now & (alpha > 0) & (alpha < C)
+    v = torch.where(T_act, C - alpha, 0.0) - torch.where(R_act, alpha, 0.0)
+    w = y * v
+    nf = free.sum()
+    rank = torch.cumsum(free, 0) - 1
+    placed = free & (rank < m_cap)
+    rows = torch.arange(y.shape[0], device=y.device)
+    idx = torch.zeros(m_cap, dtype=torch.long, device=y.device)
+    idx[rank[placed]] = rows[placed]
+    lane = torch.arange(m_cap, device=y.device) < nf
+    yM = torch.where(lane, y[idx], 0.0)
+    diag = torch.diagonal(K)
+    terms = ((y * y) * diag)[placed].abs()
+    if int(nf) < m_cap:
+        terms = torch.cat([terms, ((0.0 * 0.0) * diag[:1]).abs()])
+    lam = 1e-10 * (1.0 + terms.max())
+    b = torch.where(nf > 0,
+                    torch.where(free, f, 0.0).sum() / torch.clamp_min(nf, 1),
+                    b_fallback)
+    r0 = torch.where(nf > 0, w.sum(), 0.0)
+    return AtoCarried(train_now, free, nf, b, v, w, idx, lane, yM, lam, r0)
+
+
+def ato_b_ref(K, idx, yM, nf, lam):
+    """The carried ``ato_system_lanes`` route's B over a row of lanes, from
+    the working set alone (idx, yM (lanes, m_cap); nf, lam (lanes,)): the
+    bordered matrix ``ato_system_ref`` builds, entry for entry."""
+    lanes, m_cap = idx.shape
+    lane = torch.arange(m_cap, device=idx.device)[None] < nf[:, None]
+    Q = (yM[:, :, None] * yM[:, None, :]) * torch.stack(
+        [K[i][:, i] for i in idx])
+    B = torch.zeros((lanes, m_cap + 1, m_cap + 1), dtype=K.dtype,
+                    device=K.device)
+    B[:, 0, 0] = torch.where(nf > 0, 0.0, 1.0)
+    B[:, 0, 1:] = yM
+    B[:, 1:, 0] = yM
+    B[:, 1:, 1:] = Q + torch.diag_embed(torch.where(lane, lam[:, None], 1.0))
+    return B
 
 
 def ato_apply_ref(g, f, alpha, v, Phi_full, y, b, C, tol, train_now, free,
-                  T_act, R_act, done, step, max_steps: int):
+                  T_act, R_act, done, step, max_steps: int,
+                  carry: AtoCarry | None = None):
     """The second half of an ATO ramp step, in place on f, T_act, R_act,
     done and step; returns eta. The step size is the smallest eta > 1e-12
     putting some bound row's f at b (capped at 1, non-finite -> 1); f moves
     by ``f + eta * g`` (one rounding, ``torch.addcmul``); with alpha' =
-    clip(alpha + eta (v - Phi), 0, C) (the ``smo_f_update`` and clamp
-    that follow), drained R rows retire and T rows meeting Eq. 5
-    graduate. done is set once eta >= 1, step reaches max_steps or no R or T row is
-    active; a step that starts done changes nothing and returns eta = 0."""
+    clip(alpha + eta (v - Phi), 0, C) (one rounding too), drained R rows
+    retire and T rows meeting Eq. 5 graduate. done is set once eta >= 1,
+    step reaches max_steps or no R or T row is active; a step that starts
+    done changes nothing and returns eta = 0.
+
+    Without ``carry`` (the split route) alpha is left to the caller (the
+    ``smo_f_update`` and clamp that followed it). With ``carry`` (the fused
+    route, one lane's ``AtoCarry``) alpha' is stored too, and the step's
+    system ``carry.s`` takes the next step's working set
+    (``ato_carry_ref`` of the state left), rhs[0] included."""
     bound = train_now & ~free
     live = g.abs() > 1e-12
     safe_g = torch.where(live, g, 1.0)
@@ -573,6 +667,15 @@ def ato_apply_ref(g, f, alpha, v, Phi_full, y, b, C, tol, train_now, free,
     step_new = step + 1
     done_new = (eta >= 1.0) | (step_new >= max_steps) | ~(R_new.any()
                                                           | T_new.any())
+    if carry is not None:
+        alpha.copy_(torch.where(done, alpha, a_new))
+        nxt = ato_carry_ref(carry.K, y, C, a_new, f_new, carry.b_fallback,
+                            carry.in_S, carry.in_T, T_new, R_new,
+                            carry.s.idx.shape[0])
+        for key in ATO_CARRIED:
+            t = getattr(carry.s, key)
+            t.copy_(torch.where(done, t, getattr(nxt, key)))
+        carry.s.rhs[0] = torch.where(done, carry.s.rhs[0], nxt.r0)
     f.copy_(torch.where(done, f, f_new))
     R_act.copy_(torch.where(done, R_act, R_new))
     T_act.copy_(torch.where(done, T_act, T_new))
@@ -595,14 +698,22 @@ def ato_system_lanes_ref(K, y, Cs, alpha, f, b_fallback, in_S, in_T, T_act,
 
 
 def ato_apply_lanes_ref(g, f, alpha, v, Phi_full, y, b, Cs, tol, train_now,
-                        free, T_act, R_act, done, step, max_steps: int):
+                        free, T_act, R_act, done, step, max_steps: int,
+                        carry: AtoCarry | None = None):
     """``ato_apply_ref`` over a row of lanes, in place on each lane's row of
     f, T_act, R_act and its entry of done and step (y is shared, Cs and b
-    are per lane); returns eta (lanes,)."""
+    are per lane); returns eta (lanes,). With ``carry`` (the fused route:
+    ``carry.s`` the lanes' system, whose v, b, train_now and free these
+    are) also on alpha and on each lane's slice of ``carry.s``."""
+    def lane_carry(l):
+        if carry is None:
+            return None
+        return carry._replace(b_fallback=carry.b_fallback[l],
+                              s=AtoSystem(*(t[l] for t in carry.s)))
     return torch.stack([
         ato_apply_ref(g[l], f[l], alpha[l], v[l], Phi_full[l], y, b[l], C,
                       tol, train_now[l], free[l], T_act[l], R_act[l], done[l],
-                      step[l], max_steps)
+                      step[l], max_steps, lane_carry(l))
         for l, C in enumerate(torch.as_tensor(Cs).tolist())])
 
 

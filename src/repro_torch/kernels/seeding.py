@@ -7,7 +7,12 @@ the solo ramp is one lane), and the LOO seeders' spills ``avg_spill``
 (``:537``) and ``top_spill`` (``:566``). Each is one launch
 (``sir_greedy``: a list pass and a walk a segment of the removed rows,
 and a ranking of the fallback's priorities under ``"random"``) and makes
-no host sync.
+no host sync. ATO's two halves have two routes each: a ramp takes
+``ato_system_lanes``' ``compact`` route on its first step and its
+``carried`` route (B alone) after it, and ``ato_apply_lanes``' ``fused``
+route, which also updates alpha and hands the next step its working set;
+standalone calls take ``compact`` and ``split`` (today's kernels, the
+witnesses).
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it runs its plain version (``ref.water_fill_ref``,
@@ -21,7 +26,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import (AtoSystem, ato_apply_lanes_ref,
+from repro_torch.kernels.ref import (ATO_CARRIED, AtoCarry, AtoSystem,
+                                     ato_apply_lanes_ref,
                                      ato_system_lanes_ref, avg_spill_ref,
                                      sir_greedy_ref, top_spill_ref,
                                      water_fill_ref)
@@ -228,21 +234,73 @@ def sir_candidate_lists(K, y_R, y_T, L: int = SIR_LIST, R_idx=None,
     return lists, head
 
 
+def ato_system_buffers(lanes: int, n: int, m_cap: int,
+                       device) -> AtoSystem:
+    """Empty outputs of ``ato_system_lanes`` for ``lanes`` lanes of n rows
+    and working sets of ``m_cap`` rows (``out=``; a ramp allocates them
+    once)."""
+    f64, b8 = torch.float64, torch.bool
+    e = lambda *s, dt=f64: torch.empty((lanes,) + s, dtype=dt,  # noqa: E731
+                                       device=device)
+    return AtoSystem(train_now=e(n, dt=b8), free=e(n, dt=b8),
+                     nf=e(dt=torch.int64), b=e(), v=e(n), w=e(n),
+                     idx=e(m_cap, dt=torch.int64), lane=e(m_cap, dt=b8),
+                     yM=e(m_cap), lam=e(), B=e(m_cap + 1, m_cap + 1),
+                     rhs=e(m_cap + 1))
+
+
+def _need_system(name: str, s: AtoSystem, lanes: int, n: int,
+                 m_cap: int, dev) -> None:
+    """``s`` shaped and typed as ``ato_system_buffers`` makes it, each
+    field contiguous on ``dev``."""
+    want = ato_system_buffers(lanes, n, m_cap, "meta")
+    for key, t, w in zip(AtoSystem._fields, s, want):
+        if t.device != dev or t.dtype != w.dtype or t.shape != w.shape \
+                or not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be a contiguous {w.dtype} "
+                             f"tensor of shape {tuple(w.shape)} on {dev}")
+
+
+#: ato_system_lanes' routes: ``compact`` (every output, from the state)
+#: and ``carried`` (B alone, from the working set in ``out``)
+ATO_SYSTEM_ROUTES = ("compact", "carried")
+
+
 def ato_system_lanes(K, y, Cs, alpha, f, b_fallback, in_S, in_T, T_act,
-                     R_act, m_cap: int) -> AtoSystem:
+                     R_act, m_cap: int, *, out: AtoSystem | None = None,
+                     _route: str = "compact") -> AtoSystem:
     """The first half of an ATO ramp step over a row of lanes sharing K, y
     and the transition (in_S, in_T), in one launch
     (``ref.ato_system_lanes_ref``): alpha, f, T_act, R_act (lanes, n), Cs
     and b_fallback (lanes,) tensors. Each lane's masks, b, v, w, its free
     set compacted into ``idx`` (ascending, padded with row 0, as
-    ``torch.nonzero`` gives with no sync), lanes, yM, the bordered KKT
+    ``torch.nonzero`` gives with no sync), lanes, yM, lam, the bordered KKT
     matrix B and rhs[0] (rhs[1:] is left to the caller), every field with
-    a leading lane axis. On the card every output but b and rhs[0] (sums
-    in the block's order) is the plain version's bit for bit, and a lane's
-    outputs do not depend on the other lanes."""
+    a leading lane axis, written into ``out`` where given
+    (``ato_system_buffers``).
+
+    Routes on the card: ``compact`` computes every field from the state;
+    ``carried`` (a ramp's steps after its first) writes B alone, from the
+    working set that the fused ``ato_apply_lanes`` left in ``out`` on the
+    step before (idx, yM, nf, lam), which is what ``compact`` gives on
+    this state, so B is too. Every output but b and rhs[0] (sums in the
+    block's order) is the plain version's bit for bit, and a lane's
+    outputs do not depend on the other lanes. On the CPU both routes run
+    the plain version."""
+    if _route not in ATO_SYSTEM_ROUTES:
+        raise ValueError(f"ato_system_lanes: unknown route {_route!r}")
+    if _route == "carried" and out is None:
+        raise ValueError("ato_system_lanes: the carried route reads and "
+                         "writes out=")
     if not _device("ato_system_lanes", K):
-        return ato_system_lanes_ref(K, y, Cs, alpha, f, b_fallback, in_S,
-                                    in_T, T_act, R_act, m_cap)
+        s = ato_system_lanes_ref(K, y, Cs, alpha, f, b_fallback, in_S,
+                                 in_T, T_act, R_act, m_cap)
+        if out is None:
+            return s
+        for key in ATO_CARRIED + ("B",):
+            getattr(out, key).copy_(getattr(s, key))
+        out.rhs[:, 0] = s.rhs[:, 0]
+        return out
     dev, f64, b8 = K.device, torch.float64, torch.bool
     _need("ato_system_lanes", dev, K=(K, f64), y=(y, f64),
           Cs=(Cs, f64), alpha=(alpha, f64), f=(f, f64),
@@ -259,43 +317,60 @@ def ato_system_lanes(K, y, Cs, alpha, f, b_fallback, in_S, in_T, T_act,
     if not 0 < m_cap <= min(n, cap):
         raise ValueError(f"ato_system_lanes: m_cap {m_cap} outside [1, "
                          f"{min(n, cap)}]")
-    e = lambda *s, dt=f64: torch.empty((lanes,) + s, dtype=dt,  # noqa: E731
-                                       device=dev)
-    out = AtoSystem(train_now=e(n, dt=b8), free=e(n, dt=b8),
-                    nf=e(dt=torch.int64), b=e(), v=e(n), w=e(n),
-                    idx=e(m_cap, dt=torch.int64), lane=e(m_cap, dt=b8),
-                    yM=e(m_cap), B=e(m_cap + 1, m_cap + 1), rhs=e(m_cap + 1))
-    fn = _build.entry("seeding", "ato_system_lanes_f64", _P, _I, _P, _P, _P,
-                      _P, _P, _P, _P, _P, _P, _I, _I, *([_P] * 11), _P)
-    _build.check(fn(K.data_ptr(), n, y.data_ptr(), alpha.data_ptr(),
-                    f.data_ptr(), b_fallback.data_ptr(), in_S.data_ptr(),
-                    in_T.data_ptr(), T_act.data_ptr(), R_act.data_ptr(),
-                    Cs.data_ptr(), lanes, int(m_cap),
-                    *(t.data_ptr() for t in out), _build.stream_ptr(K)),
-                 "ato_system_lanes")
+    if out is None:
+        out = ato_system_buffers(lanes, n, m_cap, dev)
+    else:
+        _need_system("ato_system_lanes", out, lanes, n, m_cap, dev)
+    if _route == "carried":
+        fn = _build.entry("seeding", "ato_system_carried_f64", _P, _I, _I,
+                          _I, _P, _P, _P, _P, _P, _P)
+        _build.check(fn(K.data_ptr(), n, lanes, int(m_cap),
+                        out.idx.data_ptr(), out.yM.data_ptr(),
+                        out.nf.data_ptr(), out.lam.data_ptr(),
+                        out.B.data_ptr(), _build.stream_ptr(K)),
+                     "ato_system_lanes")
+    else:
+        fn = _build.entry("seeding", "ato_system_lanes_f64", _P, _I, _P, _P,
+                          _P, _P, _P, _P, _P, _P, _P, _I, _I, *([_P] * 12),
+                          _P)
+        _build.check(fn(K.data_ptr(), n, y.data_ptr(), alpha.data_ptr(),
+                        f.data_ptr(), b_fallback.data_ptr(), in_S.data_ptr(),
+                        in_T.data_ptr(), T_act.data_ptr(), R_act.data_ptr(),
+                        Cs.data_ptr(), lanes, int(m_cap),
+                        *(t.data_ptr() for t in out), _build.stream_ptr(K)),
+                     "ato_system_lanes")
     ato_system_lanes.launches += 1
+    ato_system_lanes.route_launches[_route] += 1
     return out
 
 
-#: ato_apply_lanes' tensors, in the kernel's order
+#: ato_apply_lanes' tensors, in the split kernel's order
 _APPLY_NEEDS = ("g", "f", "alpha", "v", "Phi_full", "y", "b", "train_now",
                 "free", "T_act", "R_act", "done", "step")
 
 
 def ato_apply_lanes(g, f, alpha, v, Phi_full, y, b, Cs, tol: float,
                     train_now, free, T_act, R_act, done, step,
-                    max_steps: int):
+                    max_steps: int, *, carry: AtoCarry | None = None):
     """The second half of an ATO ramp step over a row of lanes, one
     launch, a block a lane (``ref.ato_apply_lanes_ref``): every tensor but
     y (shared) has a leading lane axis, Cs (lanes,) is each lane's C; in
     place on each lane's row of f, T_act, R_act and its entry of done and
     step; returns eta (lanes,). A lane that starts done changes nothing
-    and takes eta 0. On the card every output is the plain version's bit
-    for bit."""
+    and takes eta 0.
+
+    Routes: without ``carry``, ``split`` (alpha is the caller's, as
+    ``smo_f_update`` and a clamp took it); with ``carry``, ``fused``: alpha
+    takes clip(alpha + eta (v - Phi), 0, C) in place (one fma), and the
+    step's system ``carry.s`` (whose v, b, train_now and free these must
+    be) takes the next step's working set (``ref.ato_carry_ref``) for the
+    carried ``ato_system_lanes``. On the card every output is the plain
+    version's bit for bit but the fused route's b and rhs[0] (sums in the
+    block's order, the compact route's)."""
     if not _device("ato_apply_lanes", f):
         return ato_apply_lanes_ref(g, f, alpha, v, Phi_full, y, b, Cs, tol,
                                    train_now, free, T_act, R_act, done, step,
-                                   max_steps)
+                                   max_steps, carry)
     args, b8 = locals(), torch.bool
     dt = {"train_now": b8, "free": b8, "T_act": b8, "R_act": b8, "done": b8,
           "step": torch.int64}
@@ -310,13 +385,47 @@ def ato_apply_lanes(g, f, alpha, v, Phi_full, y, b, Cs, tol: float,
         raise ValueError("ato_apply_lanes: shapes must be y (n,), Cs, b, "
                          "done and step (lanes,), the rest (lanes, n)")
     eta = torch.empty(lanes, dtype=torch.float64, device=f.device)
-    fn = _build.entry("seeding", "ato_apply_lanes_f64", *([_P] * 14), _I,
-                      _P, _I, _D, _L, _P)
-    _build.check(fn(*(args[k].data_ptr() for k in _APPLY_NEEDS),
-                    eta.data_ptr(), n, Cs.data_ptr(), lanes, float(tol),
-                    int(max_steps), _build.stream_ptr(f)),
-                 "ato_apply_lanes")
+    if carry is None:
+        fn = _build.entry("seeding", "ato_apply_lanes_f64", *([_P] * 14), _I,
+                          _P, _I, _D, _L, _P)
+        _build.check(fn(*(args[k].data_ptr() for k in _APPLY_NEEDS),
+                        eta.data_ptr(), n, Cs.data_ptr(), lanes, float(tol),
+                        int(max_steps), _build.stream_ptr(f)),
+                     "ato_apply_lanes")
+        route = "split"
+    else:
+        s, dev = carry.s, f.device
+        m_cap = s.idx.shape[1]
+        _need_system("ato_apply_lanes", s, lanes, n, m_cap, dev)
+        _need("ato_apply_lanes", dev, K=(carry.K, torch.float64),
+              in_S=(carry.in_S, b8), in_T=(carry.in_T, b8),
+              b_fallback=(carry.b_fallback, torch.float64))
+        if carry.K.shape != (n, n) or carry.in_S.shape != (n,) \
+                or carry.in_T.shape != (n,) \
+                or carry.b_fallback.shape != (lanes,):
+            raise ValueError("ato_apply_lanes: carry needs K (n, n), in_S "
+                             "and in_T (n,), b_fallback (lanes,)")
+        if any(t.data_ptr() != u.data_ptr() for t, u in (
+                (v, s.v), (b, s.b), (train_now, s.train_now),
+                (free, s.free))):
+            raise ValueError("ato_apply_lanes: v, b, train_now and free must "
+                             "be carry.s's (rewritten in place)")
+        fn = _build.entry("seeding", "ato_apply_fused_f64", _P, _I,
+                          *([_P] * 14), _I, _D, _L, _I, *([_P] * 11), _P)
+        _build.check(fn(carry.K.data_ptr(), n, g.data_ptr(), f.data_ptr(),
+                        alpha.data_ptr(), Phi_full.data_ptr(), y.data_ptr(),
+                        carry.in_S.data_ptr(), carry.in_T.data_ptr(),
+                        T_act.data_ptr(), R_act.data_ptr(), done.data_ptr(),
+                        step.data_ptr(), eta.data_ptr(), Cs.data_ptr(),
+                        carry.b_fallback.data_ptr(), lanes, float(tol),
+                        int(max_steps), int(m_cap),
+                        *(getattr(s, k).data_ptr() for k in (
+                            "train_now", "free", "nf", "b", "v", "w", "idx",
+                            "lane", "yM", "lam", "rhs")),
+                        _build.stream_ptr(f)), "ato_apply_lanes")
+        route = "fused"
     ato_apply_lanes.launches += 1
+    ato_apply_lanes.route_launches[route] += 1
     return eta
 
 
@@ -376,3 +485,5 @@ def top_spill(order, beta, lo, hi, resid):
 for _w in (water_fill, sir_greedy, ato_system_lanes, ato_apply_lanes,
            avg_spill, top_spill):
     _w.launches = 0
+ato_system_lanes.route_launches = dict.fromkeys(ATO_SYSTEM_ROUTES, 0)
+ato_apply_lanes.route_launches = {"split": 0, "fused": 0}

@@ -1684,6 +1684,163 @@ def test_cuda_ato_apply_lanes_bitwise(cuda, n):
         assert torch.equal(a[1].cpu(), w[1])
 
 
+def _bits(t):
+    """A tensor's bits (float64 as int64), for bitwise comparisons."""
+    return t.view(torch.int64) if t.dtype == torch.float64 else t
+
+
+class _RampWitness:
+    """Wraps the ramp's two kernels in ``core.seeding``: each carried
+    ``ato_system_lanes`` call is held, field by field and bit for bit, to
+    the compact route (today's kernel) on the same state, and each fused
+    ``ato_apply_lanes`` to the split route, then ``smo_f_update`` and the
+    clamp, on copies of its inputs (alpha, f, T_act, R_act, done, step
+    and eta)."""
+
+    def __enter__(self):
+        from repro_torch.core import seeding as cs
+        from repro_torch.kernels import seeding as ks
+        from repro_torch.kernels.smo_update import smo_f_update
+        self.cs, self.saved = cs, (cs.ato_system_lanes, cs.ato_apply_lanes)
+        self.steps = {"carried": 0, "fused": 0}
+
+        def system(*a, out=None, _route="compact"):
+            if _route != "carried":
+                return ks.ato_system_lanes(*a, out=out, _route=_route)
+            want = ks.ato_system_lanes(*a)
+            got = ks.ato_system_lanes(*a, out=out, _route="carried")
+            for key in ref.ATO_CARRIED + ("B",):
+                assert torch.equal(_bits(getattr(got, key)),
+                                   _bits(getattr(want, key))), key
+            assert torch.equal(_bits(got.rhs[:, 0]), _bits(want.rhs[:, 0]))
+            self.steps["carried"] += 1
+            return got
+
+        def apply(g, f, alpha, v, Phi, y, b, Cs, tol, tn, fr, T_act, R_act,
+                  done, step, max_steps, *, carry=None):
+            sp = [t.clone() for t in (f, alpha, v, b, tn, fr, T_act, R_act,
+                                      done, step)]
+            eta_s = ks.ato_apply_lanes(g, sp[0], sp[1], sp[2], Phi, y, sp[3],
+                                       Cs, tol, *sp[4:], max_steps)
+            a_s = torch.clamp(smo_f_update(sp[1], sp[2], Phi, eta_s),
+                              torch.zeros_like(Cs)[:, None], Cs[:, None])
+            eta = ks.ato_apply_lanes(g, f, alpha, v, Phi, y, b, Cs, tol, tn,
+                                     fr, T_act, R_act, done, step, max_steps,
+                                     carry=carry)
+            for got, want in ((eta, eta_s), (alpha, a_s), (f, sp[0]),
+                              (T_act, sp[6]), (R_act, sp[7]), (done, sp[8]),
+                              (step, sp[9])):
+                assert torch.equal(_bits(got), _bits(want))
+            self.steps["fused"] += 1
+            return eta
+
+        cs.ato_system_lanes, cs.ato_apply_lanes = system, apply
+        return self
+
+    def __exit__(self, *exc):
+        self.cs.ato_system_lanes, self.cs.ato_apply_lanes = self.saved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [1, 3])
+@pytest.mark.parametrize("name,n", [("heart", 270), ("adult", 1000)])
+def test_cuda_ato_carried_route_is_the_compact_route(cuda, name, n, lanes):
+    """Over every step of a ramp (fold 0 -> 1; one lane, the solo seed, or
+    three, the C row at 0.01 / 1 / 100 x C): the carried route's working
+    set, B and rhs[0] are the compact route's on the same state, bit for
+    bit, and the fused apply is the split apply, ``smo_f_update`` and the
+    clamp, bit for bit; the seed is the plain version's within the ATO bar
+    on the CPU. Heart's ramps run many carried steps."""
+    from repro_torch.core import seeding
+    from repro_torch.svm import smo_solve
+    from repro_torch.svm.engine import SMOResult
+    ds, K, y, prev, idx = _seed_problem(cuda, name, n)
+    if lanes == 1:
+        run = lambda: seeding.ato_seed(K, y, ds.C, prev, *idx)  # noqa: E731
+        cpu = lambda: seeding.ato_seed(  # noqa: E731
+            K.cpu(), y.cpu(), ds.C, SMOResult(*(t.cpu() for t in prev)),
+            *(i.cpu() for i in idx))
+    else:
+        from repro_torch.core.cv import _fold_masks
+        from repro_torch.data.svm_suite import kfold_chunks
+        Cs = [c * ds.C for c in (0.01, 1.0, 100.0)]
+        mask = torch.as_tensor(_fold_masks(kfold_chunks(ds.n, 10))[0],
+                               device=cuda)
+        sols = [smo_solve(K, y, mask, C, torch.zeros_like(y), -y)
+                for C in Cs]
+        prev = SMOResult(*(torch.stack([torch.as_tensor(getattr(r, k))
+                                        for r in sols])
+                           for k in SMOResult._fields))
+        run = lambda: seeding.ato_seed_batch(  # noqa: E731
+            K, y, Cs, prev, *idx, bucket_by_lane=False)
+        cpu = lambda: seeding.ato_seed_batch(  # noqa: E731
+            K.cpu(), y.cpu(), Cs, SMOResult(*(t.cpu() for t in prev)),
+            *(i.cpu() for i in idx), bucket_by_lane=False)
+    with _RampWitness() as w:
+        got = run()
+    torch.cuda.synchronize()
+    assert w.steps["fused"] >= 1
+    if name == "heart":
+        assert w.steps["carried"] >= 10
+    np.testing.assert_allclose(got.cpu().numpy(), cpu().numpy(), rtol=0,
+                               atol=1e-12 * 100.0 * ds.C)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [243, 1000, 1100, 2600])
+def test_cuda_ato_fused_apply_bitwise(cuda, n):
+    """The fused apply over three lanes (C = 0.1, 10, 1000; one done): its
+    alpha, f, T_act, R_act, done, step and eta are the split apply's, then
+    ``smo_f_update``'s and the clamp's, bit for bit, and every field it
+    hands the next step is the compact route's on the state it leaves
+    (the done lane's stays); the plain fused apply on the CPU gives the
+    same bits. n = 1,100 and 2,600 take the rows-from-memory build."""
+    from repro_torch.kernels.seeding import ato_system_lanes
+    args = _lanes_state(n, n // 10, [0.1, 10.0, 1000.0], n + 1)
+    K, y, Cs, alpha, f, bfb, in_S, in_T, T_act, R_act, m_cap = [
+        a.to(cuda) if isinstance(a, torch.Tensor) else a for a in args]
+    s = ato_system_lanes(K, y, Cs, alpha, f, bfb, in_S, in_T, T_act, R_act,
+                         m_cap)
+    rng = np.random.default_rng(n)
+    g = torch.from_numpy(rng.normal(size=(3, n)) * np.where(
+        rng.random((3, n)) < 0.1, 0.0, 1.0)).to(cuda)
+    Phi = torch.where(s.free, torch.from_numpy(
+        rng.normal(size=(3, n))).to(cuda), 0.0)
+    done = torch.tensor([False, True, False], device=cuda)
+    step = torch.tensor([3, 5, 29], device=cuda)
+    state = [alpha, f, T_act, R_act, done, step]
+    with _RampWitness() as w:
+        from repro_torch.core import seeding as cs
+        fused = [t.clone() for t in state]
+        sf = ref.AtoSystem(*(t.clone() for t in s))
+        eta = cs.ato_apply_lanes(g, fused[1], fused[0], sf.v, Phi, y, sf.b,
+                                 Cs, 1e-3, sf.train_now, sf.free,
+                                 *fused[2:], 30,
+                                 carry=ref.AtoCarry(K, in_S, in_T, bfb, sf))
+    assert w.steps["fused"] == 1
+    nxt = ato_system_lanes(K, y, Cs, *fused[:2], bfb, in_S, in_T,
+                           *fused[2:4], m_cap)
+    for key in ref.ATO_CARRIED:
+        want = getattr(nxt, key).clone()
+        want[1] = getattr(s, key)[1]
+        assert torch.equal(_bits(getattr(sf, key)), _bits(want)), key
+    assert torch.equal(_bits(sf.rhs[[0, 2], 0]), _bits(nxt.rhs[[0, 2], 0]))
+    cpu_state = [t.cpu() for t in state]
+    cpu_s = ref.AtoSystem(*(t.cpu() for t in s))
+    eta_c = ref.ato_apply_lanes_ref(
+        g.cpu(), cpu_state[1], cpu_state[0], cpu_s.v, Phi.cpu(), y.cpu(),
+        cpu_s.b, Cs.cpu(), 1e-3, cpu_s.train_now, cpu_s.free,
+        *cpu_state[2:], 30, ref.AtoCarry(K.cpu(), in_S.cpu(), in_T.cpu(),
+                                         bfb.cpu(), cpu_s))
+    assert torch.equal(_bits(eta.cpu()), _bits(eta_c))
+    for a, c in zip(fused, cpu_state):
+        assert torch.equal(_bits(a.cpu()), _bits(c))
+    for key in ("train_now", "free", "nf", "v", "w", "idx", "lane", "yM",
+                "lam"):
+        assert torch.equal(_bits(getattr(sf, key).cpu()),
+                           _bits(getattr(cpu_s, key))), key
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows,n", [(1, 1000), (3, 1000), (5, 32560)])
 def test_cuda_f_update_rows_bitwise(cuda, rows, n):

@@ -582,12 +582,29 @@ def test_cpu_tensors_count_no_route():
                          torch.zeros((1, 20), dtype=torch.float64), -y[None],
                          torch.zeros(1, dtype=torch.int64),
                          torch.zeros(1, dtype=torch.bool), _route="persistent")
+    # ATO's ramp step on both pairs of routes
+    from repro_torch.kernels.seeding import ato_system_buffers
+    Cs, on = torch.ones(1, dtype=torch.float64), torch.ones(20, dtype=bool)
+    one = lambda t: t[None].clone()  # noqa: E731
+    state = (one(y.abs() * 0.5), one(-y), torch.zeros(1, dtype=torch.float64),
+             on, ~on, one(~on), one(on))
+    s = ato_system_buffers(1, 20, 4, "cpu")
+    for route in ("compact", "carried"):
+        ops.ato_system_lanes(K, y, Cs, *state, 4, out=s, _route=route)
+    for carry in (None, ref.AtoCarry(K, on, ~on, state[2], s)):
+        ops.ato_apply_lanes(one(y), *state[1::-1], s.v, one(y), y, s.b, Cs,
+                            1e-3, s.train_now, s.free, *state[5:],
+                            torch.zeros(1, dtype=torch.bool),
+                            torch.zeros(1, dtype=torch.int64), 30,
+                            carry=carry)
     assert ops.route_counts() == {
         "rbf_kernel_matrix": {"tensor": 0, "fma": 0},
         "smo_chunk": {"one_block": 0, "multi_block": 0, "cluster": 0,
                       "one_block_global": 0},
         "smo_stream_chunk": {"pair": 0, "persistent": 0},
-        "flash_attention": {"fma": 0, "mma": 0, "wgmma": 0}}
+        "flash_attention": {"fma": 0, "mma": 0, "wgmma": 0},
+        "ato_system_lanes": {"compact": 0, "carried": 0},
+        "ato_apply_lanes": {"split": 0, "fused": 0}}
 
 
 @pytest.mark.parametrize("window", [0, -3, 2.5])
@@ -796,9 +813,12 @@ def test_sir_lists_model_orders_like_argmax():
 
 def test_ato_done_step_is_the_identity():
     """A ramp step leaves a lane that starts with its stop flag set (alpha,
-    f, T_act, R_act and its step count) as it was, bit for bit, while the
-    lane beside it steps."""
+    f, T_act, R_act, its step count and its working set, carried or
+    recomputed) as it was, bit for bit, while the lane beside it steps;
+    the fused apply of that step equals the split apply, then
+    ``smo_f_update`` and the clamp, bit for bit, on both lanes."""
     from repro_torch.core.seeding import _ato_step
+    from repro_torch.kernels.seeding import ato_system_buffers
     rng = np.random.default_rng(5)
     n, C = 120, 4.0
     X = torch.from_numpy(rng.normal(size=(n, 3)))
@@ -814,13 +834,202 @@ def test_ato_done_step_is_the_identity():
              torch.tensor([True, False]), torch.tensor([2, 2])]
     before = [s.clone() for s in state]
     Cs = torch.full((2,), C, dtype=torch.float64)
-    _ato_step(K, y, Cs, (torch.zeros((2, 1), dtype=torch.float64),
-                         Cs[:, None]), 1e-3,
-              torch.zeros(2, dtype=torch.float64), in_S, in_T, 128, 30,
-              *state, torch.zeros((2, n), dtype=torch.float64))
-    for s, b in zip(state, before):
-        assert torch.equal(s[0], b[0])
-    assert int(state[5][1]) == 3
+    b_fb = torch.zeros(2, dtype=torch.float64)
+    for carried in (False, True):
+        for t, b in zip(state, before):
+            t.copy_(b)
+        sys_ = ato_system_buffers(2, n, 128, "cpu")
+        ops.ato_system_lanes(K, y, Cs, *state[:2], b_fb, in_S, in_T,
+                             *state[2:4], 128, out=sys_)
+        kept = [t[0].clone() for t in sys_]
+        # the split step on copies, from the same system
+        split = [t.clone() for t in state]
+        split_sys = ref.AtoSystem(*(t.clone() for t in sys_))
+        _ato_step(K, y, Cs, 1e-3, b_fb, in_S, in_T, 128, 30, *state,
+                  torch.zeros((2, n), dtype=torch.float64), sys_, carried)
+        for t, b in zip(state, before):
+            assert torch.equal(t[0], b[0])
+        assert int(state[5][1]) == 3
+        # lane 0's working set as the step found it (B and rhs[1:] are
+        # the step's own, rewritten every step)
+        for key in ref.ATO_CARRIED:
+            assert torch.equal(getattr(sys_, key)[0], kept[
+                ref.AtoSystem._fields.index(key)]), key
+        assert torch.equal(sys_.rhs[0, 0], kept[-1][0])
+        # lane 1 stepped: the split route, then the f-update and the clamp
+        s2 = ops.ato_system_lanes(K, y, Cs, *split[:2], b_fb, in_S, in_T,
+                                  *split[2:4], 128)
+        for key in ("B", "idx", "lane", "yM", "v", "w", "b"):
+            assert torch.equal(getattr(s2, key), getattr(split_sys, key))
+        r = s2.rhs[:, 1:]
+        for idx, w, r_l in zip(s2.idx, s2.w, r):
+            torch.mv(K.index_select(0, idx), w, out=r_l)
+        r.mul_(s2.yM)
+        sol = torch.linalg.solve_ex(s2.B, s2.rhs).result[:, 1:]
+        Phi = torch.zeros((2, n), dtype=torch.float64).scatter_add(
+            1, s2.idx, torch.where(s2.lane & torch.isfinite(sol), sol, 0.0))
+        g = torch.stack([K @ u for u in s2.w - y * Phi])
+        eta = ref.ato_apply_lanes_ref(g, split[1], split[0], s2.v, Phi, y,
+                                      s2.b, Cs, 1e-3, s2.train_now, s2.free,
+                                      *split[2:], 30)
+        a2 = torch.clamp(ops.smo_f_update(split[0], s2.v, Phi, eta),
+                         torch.zeros((2, 1), dtype=torch.float64),
+                         Cs[:, None])
+        for got, want in zip(state, [a2] + split[1:]):
+            assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+
+
+def _ato_ramp_case(seed, n, t_n, one_label=False, bound=False):
+    """A row of three lanes (C = 0.5, 3, 30) over one transition: K an RBF
+    matrix of 3-d points, T rows at 0, alpha with rows free and at both
+    bounds (``bound``: every row at a bound, nf = 0), f = K (alpha y) - y.
+    Returns ``_ato_ramp``'s arguments and ``m_cap``."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, 3))
+    y = np.ones(n) if one_label else np.where(rng.random(n) < 0.5, 1.0, -1.0)
+    perm = rng.permutation(n)
+    T, R = perm[:t_n], perm[t_n:2 * t_n]
+    K = np.exp(-0.5 * ((X[:, None] - X[None]) ** 2).sum(-1))
+    Cs = (0.5, 3.0, 30.0)
+    alpha, f = [], []
+    for C in Cs:
+        u = rng.random(n)
+        a = np.where(u < 0.4, 0.0, np.where(u < 0.6, C, rng.random(n) * C))
+        if bound:
+            a = np.where(u < 0.5, 0.0, C)
+        a[T] = 0.0
+        alpha.append(a)
+        f.append(K @ (a * y) - y)
+    in_T, in_R = np.zeros(n, bool), np.zeros(n, bool)
+    in_T[T], in_R[R] = True, True
+    t = lambda a: torch.from_numpy(np.asarray(a))  # noqa: E731
+    nf0 = max(int(((a > 0) & (a < C) & ~in_T & ~in_R).sum())
+              for a, C in zip(alpha, Cs))
+    from repro_torch.core.seeding import _bucket_cap
+    return ((t(K), t(y), t(np.array(Cs)), t(np.stack(alpha)),
+             t(np.stack(f)), t(np.linspace(-0.1, 0.1, 3)),
+             t(~(in_T | in_R)), t(in_T), t(in_R)),
+            _bucket_cap(nf0 + t_n, n))
+
+
+#: (seed, n, |T|, one label, every row at a bound) and what the ramp shows
+ATO_RAMPS = {
+    "finish_apart": ((3, 80, 8, False, False), "done_apart"),
+    "padded": ((4, 300, 20, False, False), "done_apart"),
+    "nf_zero": ((3, 300, 20, False, True), "nf_zero"),
+    "graduate_all": ((0, 80, 8, False, False), "no_T_left"),
+    "one_label": ((8, 120, 12, True, False), "done_apart"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ATO_RAMPS))
+def test_ato_carried_set_is_the_recomputed_set(case, monkeypatch):
+    """Over every step of a ramp of three lanes, the working set that the
+    fused apply hands the next step (the plain model, ``ato_carry_ref``,
+    with nothing recomputed in between) is ``ato_system_lanes_ref`` on the
+    state that step starts from, every field but B and rhs[1:] bit for
+    bit, lanes that are done included; B from it is the recomputed B; and
+    the ramp's seed is the one recomputing every step gives. The cases:
+    lanes that finish at different steps (m_cap = n, and padded), a lane
+    with no free row, a lane whose T rows all graduate, one label."""
+    import repro_torch.core.seeding as cs
+    (args, m_cap), show = _ato_ramp_case(*ATO_RAMPS[case][0]), \
+        ATO_RAMPS[case][1]
+    K, y, Cs, alpha, f, b_fb, in_S, in_T, in_R = args
+    real = cs.ato_system_lanes
+    seen = {"done": [], "nf": [], "T": []}
+
+    def carried(K_, y_, Cs_, a_, f_, bfb_, S_, T_, T_act, R_act, m_,
+                *, out, _route):
+        want = ref.ato_system_lanes_ref(K_, y_, Cs_, a_, f_, bfb_, S_, T_,
+                                        T_act, R_act, m_)
+        if _route == "compact":
+            return real(K_, y_, Cs_, a_, f_, bfb_, S_, T_, T_act, R_act, m_,
+                        out=out, _route=_route)
+        for key in ref.ATO_CARRIED:
+            assert torch.equal(getattr(out, key).view(torch.uint8),
+                               getattr(want, key).view(torch.uint8)), key
+        assert torch.equal(out.rhs[:, 0], want.rhs[:, 0])
+        B = ref.ato_b_ref(K_, out.idx, out.yM, out.nf, out.lam)
+        assert torch.equal(B, want.B)
+        out.B.copy_(B)
+        seen["nf"] += out.nf.tolist()
+        seen["T"] += T_act.sum(1).tolist()
+        return out
+
+    done_at = []
+    real_step = cs._ato_step
+
+    def step(*a):
+        real_step(*a)
+        done_at.append(a[13].tolist())
+
+    monkeypatch.setattr(cs, "ato_system_lanes", carried)
+    monkeypatch.setattr(cs, "_ato_step", step)
+    got = cs._ato_ramp(*args, 1e-3, m_cap, 30, 1)
+    monkeypatch.undo()
+    want = cs._ato_ramp(*args, 1e-3, m_cap, 30, 1)
+    assert torch.equal(got.view(torch.int64), want.view(torch.int64))
+    assert len(done_at) >= 3
+    first = {next(k for k, d in enumerate(done_at) if d[l]) for l in range(3)}
+    assert {"done_apart": len(first) > 1, "nf_zero": 0 in seen["nf"],
+            "no_T_left": 0 in seen["T"]}[show]
+    if case == "padded":
+        assert m_cap < y.shape[0]
+
+
+@pytest.mark.parametrize("n", [37, 300, 1100])
+def test_ato_fused_apply_is_split_update_clamp(n):
+    """The fused plain apply (``carry``) gives the split apply, then
+    ``smo_f_update`` and the clamp, bit for bit over three lanes, one of
+    them done (it changes nothing), and writes the working set
+    ``ato_system_lanes_ref`` gives on the state it leaves."""
+    rng = np.random.default_rng(n)
+    K = ref.rbf_kernel_matrix_ref(torch.from_numpy(rng.normal(size=(n, 4))),
+                                  torch.from_numpy(rng.normal(size=(n, 4))),
+                                  0.3)
+    Cs = torch.tensor([0.1, 10.0, 1000.0], dtype=torch.float64)
+    y = torch.from_numpy(np.where(rng.random(n) < 0.5, 1.0, -1.0))
+    in_T = torch.from_numpy(rng.random(n) < 0.1)
+    in_S = ~in_T & torch.from_numpy(rng.random(n) < 0.9)
+    mk = lambda a: torch.from_numpy(np.asarray(a))  # noqa: E731
+    alpha = mk(np.where(rng.random((3, n)) < 0.4, 0.0,
+                        rng.random((3, n)))) * Cs[:, None]
+    f = mk(rng.normal(size=(3, n)))
+    T_act = in_T & mk(rng.random((3, n)) < 0.7)
+    R_act = ~in_S & ~in_T & (alpha > 0)
+    b_fb = torch.tensor([0.3, -0.2, 0.1], dtype=torch.float64)
+    m_cap = n
+    s = ref.ato_system_lanes_ref(K, y, Cs, alpha, f, b_fb, in_S, in_T,
+                                 T_act, R_act, m_cap)
+    g = mk(rng.normal(size=(3, n)) * np.where(rng.random((3, n)) < 0.1, 0.0,
+                                              1.0))
+    Phi = torch.where(s.free, mk(rng.normal(size=(3, n))), 0.0)
+    done, step = torch.tensor([False, True, False]), torch.tensor([3, 5, 29])
+    split = [t.clone() for t in (alpha, f, T_act, R_act, done, step)]
+    eta_s = ref.ato_apply_lanes_ref(g, split[1], split[0], s.v, Phi, y, s.b,
+                                    Cs, 1e-3, s.train_now, s.free,
+                                    *split[2:], 30)
+    split[0] = torch.clamp(ops.smo_f_update(split[0], s.v, Phi, eta_s),
+                           torch.zeros((3, 1), dtype=torch.float64),
+                           Cs[:, None])
+    fused = [t.clone() for t in (alpha, f, T_act, R_act, done, step)]
+    sf = ref.AtoSystem(*(t.clone() for t in s))
+    eta_f = ops.ato_apply_lanes(g, fused[1], fused[0], sf.v, Phi, y, sf.b,
+                                Cs, 1e-3, sf.train_now, sf.free, *fused[2:],
+                                30, carry=ref.AtoCarry(K, in_S, in_T, b_fb,
+                                                       sf))
+    assert torch.equal(eta_f.view(torch.int64), eta_s.view(torch.int64))
+    for a, b in zip(fused, split):
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+    nxt = ref.ato_system_lanes_ref(K, y, Cs, *fused[:2], b_fb, in_S, in_T,
+                                   *fused[2:4], m_cap)
+    for key in ref.ATO_CARRIED:
+        want = torch.where(done.reshape((3,) + (1,) * (getattr(
+            s, key).dim() - 1)), getattr(s, key), getattr(nxt, key))
+        assert torch.equal(getattr(sf, key), want), key
+    assert torch.equal(sf.rhs[:, 0], torch.where(done, s.rhs[:, 0],
+                                                 nxt.rhs[:, 0]))
 
 
 @pytest.mark.parametrize("n,d", [(1, 1), (31, 13), (257, 123), (1000, 9)])
