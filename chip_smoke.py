@@ -3369,12 +3369,11 @@ def _study_kernels() -> dict:
     run all 30 steps), the carried route against the compact one and the
     fused apply against the split one with ``smo_f_update`` and the clamp
     on every step, each lane also bitwise what a one-lane launch on its
-    slice gives it (both routes of each); ``avg_spill`` and ``top_spill``
-    from LOO seeds of heart and adult. Then each one's time at adult's
-    shape, the plain version's on the card, and the bytes bound (each is
-    bound by its chain of block reductions or, for the walk, by one
-    thread's dependent steps, far above both floors). The ramp kernels'
-    readings are returned under ``<name>_row``, and ``smo_f_update``'s at
+    slice gives it (both routes of each); the LOO spills (``_loo_spills``).
+    Then each one's time at adult's shape, the plain version's on the
+    card, and the bytes bound (each is bound by its chain of block
+    reductions or, for the walk, by its dependent steps, far above both
+    floors). The ramp kernels' readings are returned under ``<name>_row``, and ``smo_f_update``'s at
     the row's shape (it is off the ramp now): their entries in the
     ``kernels`` line are Table 1's one-lane calls."""
     from repro_torch.core import seeding
@@ -3481,46 +3480,144 @@ def _study_kernels() -> dict:
         "max_abs_err": 0.0, **_bound(8.0 * (4 * L * n + L), 0.0)}
     torch.cuda.empty_cache()
 
-    # the LOO spills: every row of heart, and adult's rows 0 / 499 / 999,
-    # from the full solution at each dataset's C
-    spills = {"avg_spill": [], "top_spill": []}
-    for name, n, ts in (("heart", 270, range(0, 270, 9)),
-                        ("adult", 1000, (0, 499, 999))):
+    out.update(_loo_spills())
+    torch.cuda.empty_cache()
+    return out
+
+
+#: the LOO seeds whose spills ``_loo_spills`` records: rows of the full
+#: solution of each of ``phase_loo``'s cases
+LOO_SPILL_ROWS = (("heart", 270, tuple(range(0, 270, 9))),
+                  ("madelon", 600, (0, 299, 599)),
+                  ("adult", 1000, (0, 499, 999)))
+
+
+def _parent_avg(y, alpha, C, t):
+    """avg_seed_loo's device work before the fused route: the prologue's
+    ops (``ref.loo_start_ref`` on the card), then the split kernel."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import seeding as ks
+    beta, resid, lo, hi, free0 = ref.loo_start_ref(y, alpha, C, t)
+    return ks.avg_spill(beta, lo, hi, free0, resid), lo, hi
+
+
+def _parent_top(K, y, alpha, C, t):
+    """top_seed_loo's device work before the fused route: the prologue's
+    ops, the order (clone, fill, negation and a stable argsort:
+    ``ref.loo_order_ref``), then the split kernel."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import seeding as ks
+    beta, resid, lo, hi, _ = ref.loo_start_ref(y, alpha, C, t)
+    return ks.top_spill(ref.loo_order_ref(K[:, t], t), beta, lo, hi,
+                        resid), lo, hi
+
+
+def _parent_seed(spill):
+    """A whole LOO seeder as the parent ran it: ``spill``'s device work,
+    water_fill with its target filled on the card, and the y product."""
+    from repro_torch.kernels import seeding as ks
+
+    def seed(K, y, C, alpha, t):
+        beta, lo, hi = spill(K, y, alpha, C, t)
+        zero = torch.full((), 0.0, dtype=torch.float64, device=y.device)
+        return y * ks.water_fill(beta, lo, hi, zero)
+    return seed
+
+
+def _loo_spills() -> dict:
+    """The LOO seeders' spills on the inputs ``phase_loo``'s seeds give
+    them (recorded at ``LOO_SPILL_ROWS``): each fused call against the
+    split route on the plain prologue (AVG bit for bit, TOP equal) and the
+    plain version on the CPU (AVG within 1e-12 max(C, 1), TOP equal), its
+    lo and hi bit for bit the plain prologue's. Then, in graphs, at adult
+    n = 1,000: each route's kernel, the parent's device work between alpha
+    and water_fill's input, the plain version, and each whole seeder
+    beside the parent's seeder; and TOP's fused route at every recorded
+    adult and madelon row and heart's first."""
+    from repro_torch.core import seeding
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import seeding as ks
+    names = ("avg_spill_loo", "top_spill_loo")
+    calls = {k: [] for k in names}
+    main = {}
+    for name, n, ts in LOO_SPILL_ROWS:
         ds, K, y, prev = _seed_problem_full(name, n)
-        with _Recorder(seeding, tuple(spills)) as rec:
+        with _Recorder(seeding, names) as rec:
             for t in ts:
                 seeding.avg_seed_loo(K, y, ds.C, prev.alpha, t)
                 seeding.top_seed_loo(K, y, ds.C, prev.alpha, t)
-        for key in spills:
-            spills[key] += [(ds.C, a) for a in rec.calls[key]]
-        if name == "adult":
-            main = {key: rec.calls[key][0] for key in spills}
-        del K
+        for key in names:
+            calls[key] += [(name, a) for a in rec.calls[key]]
+        main[name] = (K, y, ds.C, prev.alpha)
     avg_err = 0.0
-    for C, a in spills["avg_spill"]:
-        e = float((ks.avg_spill(*a).cpu() - ref.avg_spill_ref(
-            *_cpu(a))).abs().max())
-        require(e <= 1e-12 * max(C, 1.0),
-                f"avg_spill: {e} off the plain version")
+    for name, a in calls["avg_spill_loo"]:
+        got = ks.avg_spill_loo(*a)
+        split = _parent_avg(*a)
+        want = ref.avg_spill_loo_ref(*_cpu(a))
+        require(_same_bits(got[0], split[0]),
+                f"avg_spill {name} t={a[3]}: fused not bitwise the split "
+                "kernel")
+        require(all(_same_bits(g.cpu(), w) for g, w in zip(got[1:],
+                                                            want[1:])),
+                f"avg_spill {name} t={a[3]}: lo / hi not the plain "
+                "prologue's")
+        e = float((got[0].cpu() - want[0]).abs().max())
+        require(e <= 1e-12 * max(a[2], 1.0),
+                f"avg_spill {name} t={a[3]}: {e} off the plain version")
         avg_err = max(avg_err, e)
-    for C, a in spills["top_spill"]:
-        require(torch.equal(ks.top_spill(*a).cpu(),
-                            ref.top_spill_ref(*_cpu(a))),
-                "top_spill: not equal to the plain version")
-    a = main["avg_spill"]
-    n = a[0].shape[0]
+    for name, a in calls["top_spill_loo"]:
+        want = ref.top_spill_loo_ref(*_cpu(a))
+        got = ks.top_spill_loo(*a)
+        require(torch.equal(got[0].cpu(), want[0])
+                and all(_same_bits(g.cpu(), w)
+                        for g, w in zip(got[1:], want[1:])),
+                f"top_spill {name} t={a[4]}: not the plain version")
+        require(torch.equal(_parent_top(*a)[0].cpu(), want[0]),
+                f"top_spill {name} t={a[4]}: split not the plain version")
+    K, y, C, alpha = main["adult"]
+    n = y.shape[0]
+    t = LOO_SPILL_ROWS[-1][2][0]
+    pro = ref.loo_start_ref(y, alpha, C, t)
+    order = ref.loo_order_ref(K[:, t], t)
+    out = {}
     out["avg_spill"] = {
-        "n": n, "calls_checked": len(spills["avg_spill"]),
-        "ms": graph_ms(lambda: ks.avg_spill(*a), 20),
-        "plain_ms": graph_ms(lambda: ref.avg_spill_ref(*a), 20),
-        "max_abs_err": avg_err, **_bound(33.0 * n + 8.0, 0.0)}
-    a = main["top_spill"]
+        "n": n, "t": t, "calls_checked": len(calls["avg_spill_loo"]),
+        "ms": graph_ms(lambda: ks.avg_spill_loo(y, alpha, C, t), 20),
+        "split_ms": graph_ms(lambda: ks.avg_spill(pro[0], pro[2], pro[3],
+                                                  pro[4], pro[1]), 20),
+        "parent_ms": graph_ms(lambda: _parent_avg(y, alpha, C, t), 20),
+        "plain_ms": graph_ms(lambda: ref.avg_spill_loo_ref(y, alpha, C, t),
+                             20),
+        "seed_ms": graph_ms(lambda: seeding.avg_seed_loo(K, y, C, alpha, t),
+                            20),
+        "seed_parent_ms": graph_ms(lambda: _parent_seed(
+            lambda K_, *a: _parent_avg(*a))(K, y, C, alpha, t), 20),
+        "max_abs_err": avg_err, **_bound(40.0 * n + 16.0, 0.0),
+        "split_bound_ms": _bound(33.0 * n + 8.0, 0.0)["bound_ms"]}
+    rows_ms = {}
+    for name, _, ts in LOO_SPILL_ROWS:
+        K_, y_, C_, a_ = main[name]
+        for t_ in (ts if name != "heart" else ts[:1]):
+            rows_ms[f"{name}_{t_}"] = graph_ms(
+                lambda: ks.top_spill_loo(K_, y_, a_, C_, t_), 20)
     out["top_spill"] = {
-        "n": n, "calls_checked": len(spills["top_spill"]),
-        "ms": graph_ms(lambda: ks.top_spill(*a), 20),
-        "plain_ms": cuda_ms(lambda: ref.top_spill_ref(*a), 1),
-        "max_abs_err": 0.0, **_bound(40.0 * n + 8.0, 0.0)}
-    torch.cuda.empty_cache()
+        "n": n, "t": t, "calls_checked": len(calls["top_spill_loo"]),
+        "ms": graph_ms(lambda: ks.top_spill_loo(K, y, alpha, C, t), 20),
+        "rows_ms": rows_ms,
+        "split_ms": graph_ms(lambda: ks.top_spill(order, pro[0], pro[2],
+                                                  pro[3], pro[1]), 20),
+        "order_split_ms": graph_ms(lambda: ks.top_spill(
+            ref.loo_order_ref(K[:, t], t), pro[0], pro[2], pro[3], pro[1]),
+            20),
+        "parent_ms": graph_ms(lambda: _parent_top(K, y, alpha, C, t), 20),
+        "plain_ms": cuda_ms(lambda: ref.top_spill_loo_ref(K, y, alpha, C, t),
+                            1),
+        "seed_ms": graph_ms(lambda: seeding.top_seed_loo(K, y, C, alpha, t),
+                            20),
+        "seed_parent_ms": graph_ms(lambda: _parent_seed(_parent_top)(
+            K, y, C, alpha, t), 20),
+        "max_abs_err": 0.0, **_bound(48.0 * n + 16.0, 0.0),
+        "split_bound_ms": _bound(40.0 * n + 8.0, 0.0)["bound_ms"]}
     return out
 
 
@@ -4008,7 +4105,7 @@ def main() -> int:
     split = phase_seed_split(datasets[("adult", SIZE_N - 1)])["split"]
 
     # each path: counts from 0 just before it, read just after
-    counts, routes, sir_events = {}, {}, {}
+    counts, routes, sir_events, top_walks = {}, {}, {}, {}
     ops.reset_launch_counts()
     ks.reset_sir_greedy_events()
     cold_folds = phase_table1(build_s, split)
@@ -4037,9 +4134,11 @@ def main() -> int:
             ("loo", phase_loo)):
         ops.reset_launch_counts()
         ks.reset_sir_greedy_events()
+        ks.reset_top_spill_walks()
         run()
         counts[path], routes[path] = ops.launch_counts(), ops.route_counts()
         sir_events[path] = ks.sir_greedy_events()
+        top_walks[path] = ks.top_spill_walks()
     # one SIR seed of the grid at size, split into its parts (outside the
     # counted paths)
     info["grid_seed_split"] = phase_grid_seed_split()
@@ -4049,6 +4148,7 @@ def main() -> int:
         info["flash_attention"]["ms"])
     emit({"phase": "kernel_counts", **counts})
     emit({"phase": "sir_greedy_events", **sir_events})
+    emit({"phase": "top_spill_walks", **top_walks})
     emit({"phase": "route_counts", **routes})
     for name in ("rbf_kernel_matrix", "smo_chunk", "water_fill",
                  "sir_greedy", "ato_system_lanes", "ato_apply_lanes"):
@@ -4086,6 +4186,16 @@ def main() -> int:
                  "ato_system_lanes", "smo_chunk"):
         require(counts["loo"][name] > 0,
                 f"{name} was not launched on the LOO path")
+    # every AVG and TOP seed of LOO takes its spill's fused route (the
+    # seeder's prologue, order and spill in one launch), every TOP walk
+    # counted
+    for name in ("avg_spill", "top_spill"):
+        require(routes["loo"][name] == {"fused": counts["loo"][name],
+                                        "split": 0},
+                f"loo: {name}'s routes {routes['loo'][name]}")
+    require(top_walks["loo"]["seeds"] == counts["loo"]["top_spill"],
+            f"loo: {top_walks['loo']['seeds']} TOP walks counted for "
+            f"{counts['loo']['top_spill']} seeds")
     for name in ("rbf_kernel_matrix", "sir_greedy", "water_fill",
                  "smo_chunk"):
         require(counts["grid_size"][name] > 0,
@@ -4173,9 +4283,9 @@ def main() -> int:
                                    "src/repro/core/seeding.py:361",
                                    "table1"),
                "avg_spill": (csrc + "seeding.cu",
-                             "src/repro/core/seeding.py:537", "loo"),
+                             "src/repro/core/seeding.py:548", "loo"),
                "top_spill": (csrc + "seeding.cu",
-                             "src/repro/core/seeding.py:566", "loo")}
+                             "src/repro/core/seeding.py:573", "loo")}
     # the dense chunk's four routes are four kernels, each counted on its
     # own path (the global-state one is on none now: its count there is
     # 0); flash_attention's routes are listed beside its launches
@@ -4220,8 +4330,17 @@ def main() -> int:
                             if key.endswith(f"_{SIZE_N - 1}x10")
                             or key in ("shape", "flop_floor_ms",
                                        "x_per_iter_hbm_ms")})
+        # the spills: their routes and times beside the fused route's (the
+        # split kernel, the parent's device work, the whole seeders), and
+        # TOP's walks on LOO
+        if name in ("avg_spill", "top_spill"):
+            kernels[-1].update({key: v for key, v in k.items()
+                                if key not in kernels[-1]},
+                               routes=routes[path][name])
+        if name == "top_spill":
+            kernels[-1]["walks_loo"] = top_walks["loo"]
         if name in ("water_fill", "sir_greedy", "ato_system_lanes",
-                    "ato_apply_lanes", "avg_spill", "top_spill"):
+                    "ato_apply_lanes"):
             kernels[-1].update({key: k[key] for key in k if key in (
                 "n", "m_cap", "nf", "lanes", "ms_32560", "ms_32560_S",
                 "steps_checked", "calls_checked", "levels_ms",

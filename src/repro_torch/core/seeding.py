@@ -58,8 +58,8 @@ import torch
 
 from repro_torch.core.threefry import uniform
 from repro_torch.kernels.ops import (ato_apply_lanes, ato_system_lanes,
-                                     avg_spill, sir_greedy, top_spill,
-                                     water_fill)
+                                     avg_spill_loo, sir_greedy,
+                                     top_spill_loo, water_fill)
 from repro_torch.kernels.ref import AtoCarry, AtoSystem
 from repro_torch.kernels.seeding import ato_system_buffers
 from repro_torch.svm.engine import SMOResult
@@ -511,41 +511,22 @@ def ato_seed_batch(K, y, Cs, prev: SMOResult, S_idx, R_idx, T_idx,
 # LOO baselines: AVG (DeCoste & Wagstaff 2000) and TOP (Lee et al. 2004)
 # --------------------------------------------------------------------------
 
-def _loo_start(y, C, alpha, t: int):
-    """beta = y * alpha with row t taken out (its mass is the residual),
-    and the box with row t closed."""
-    beta = y * alpha
-    resid = beta[t].clone()
-    beta.select(0, t).fill_(0.0)
-    lo, hi = _box(y, C)
-    lo.select(0, t).fill_(0.0)
-    hi.select(0, t).fill_(0.0)
-    return beta, resid, lo, hi
-
-
 def avg_seed_loo(K, y, C, alpha, t: int):
     """Remove instance t; distribute beta_t = y_t alpha_t uniformly over the
-    free set, 8 rounds of spilling what the boxes refuse (``avg_spill``),
-    then water-fill (paper suppl.). No host sync."""
-    t = int(t)
-    beta, resid, lo, hi = _loo_start(y, C, alpha, t)
-    free0 = (alpha > 0) & (alpha < C)
-    free0.select(0, t).fill_(False)
-    beta = avg_spill(beta, lo, hi, free0, resid)
+    free set, 8 rounds of spilling what the boxes refuse, then water-fill
+    (paper suppl.). The prologue and the spill are ``avg_spill_loo``: one
+    launch on the card. No host sync."""
+    beta, lo, hi = avg_spill_loo(y, alpha, C, int(t))
     return y * water_fill(beta, lo, hi, 0.0)
 
 
 def top_seed_loo(K, y, C, alpha, t: int):
     """Remove instance t; spill beta_t into instances by descending kernel
-    similarity K(x_j, x_t) until absorbed (``top_spill``), then water-fill
-    (paper suppl., TOP). The order is a stable argsort, as ``jnp.argsort``
-    is, with row t (similarity -inf) last. No host sync."""
-    t = int(t)
-    beta, resid, lo, hi = _loo_start(y, C, alpha, t)
-    sim = K[:, t].clone()
-    sim.select(0, t).fill_(-math.inf)
-    order = torch.argsort(-sim, stable=True)
-    beta = top_spill(order, beta, lo, hi, resid)
+    similarity K(x_j, x_t) until absorbed, then water-fill (paper suppl.,
+    TOP). The order is a stable argsort, as ``jnp.argsort`` is, with row t
+    (similarity -inf) last; the prologue, the order and the spill are
+    ``top_spill_loo``: one launch on the card. No host sync."""
+    beta, lo, hi = top_spill_loo(K, y, alpha, C, int(t))
     return y * water_fill(beta, lo, hi, 0.0)
 
 

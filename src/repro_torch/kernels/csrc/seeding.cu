@@ -40,12 +40,19 @@
 // alpha to the caller. Over a row of lanes (a grid's C row, one fold
 // transition) each lane takes the same code on its own slice:
 // ato_system's blocks are a (rows, lanes) grid, ato_apply runs a block a
-// lane, so a lane's outputs do not depend on the other lanes. avg_spill
-// runs its 8 rounds in one block, two block reductions a round (the count,
-// exact, and the sum of the adds). top_spill is a chain through the
-// residual: one thread walks the order over lo, hi and beta that the block
-// gathered into shared memory, and stops where the residual is 0, past
-// which every take is a zero.
+// lane, so a lane's outputs do not depend on the other lanes. The LOO
+// spills have two routes each. The fused routes are their seeder's whole
+// device work from alpha to water_fill's input, one block: avg_spill's
+// forms the prologue in registers and runs its 8 rounds with one block
+// reduction a round (the sum of the adds with both sides' counts for the
+// next round); top_spill's forms the prologue, reads column t of K, and
+// finds the order on chip only as far as the walk goes (per-warp sorted
+// lists, merged 32 rows at a time by the one warp that walks them). The
+// split routes (the witnesses, and TOP past the fused route's size) take
+// a prologue and an order formed by plain ops: avg_spill runs its rounds
+// with two block reductions each, top_spill has one thread walk the order
+// over lo, hi and beta that the block gathered into shared memory. Every
+// walk stops where the residual is 0, past which every take is a zero.
 //
 // Built with -fmad=false (kernels/_build.py): each expression rounds op by
 // op as the plain versions (kernels/ref.py) do, the f and alpha updates
@@ -57,6 +64,7 @@
 #include <math_constants.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "smo_common.cuh"
 
@@ -175,7 +183,8 @@ __device__ __forceinline__ bool same_bits(double a, double b) {
 // water_fill: out = clip(beta - c, lo, hi) with sum(out) == clip(target,
 // sum(lo), sum(hi)), c by bisection (at most `iters` steps; it stops once
 // (c_lo, c_hi) repeat, after which every step is the identity), then the
-// residue added to the freest coordinate. One block.
+// residue added to the freest coordinate. One block. The target is read from
+// the device (target_p) or, where that is null, given by value (target_v).
 // ---------------------------------------------------------------------------
 // A round evaluates the next LV levels of the bisection tree: its 2^LV - 1
 // midpoints, each 0.5 * (lo + hi) of the interval its path would reach (node
@@ -206,7 +215,7 @@ __global__ void __launch_bounds__(MAXT)
 water_fill_kernel(const double* __restrict__ beta,
                   const double* __restrict__ lo,
                   const double* __restrict__ hi,
-                  const double* __restrict__ target_p,
+                  const double* __restrict__ target_p, double target_v,
                   double* __restrict__ out, int n, int iters, int room) {
   constexpr int NODES = (1 << LV) - 1;
   extern __shared__ double stage[];
@@ -281,7 +290,8 @@ water_fill_kernel(const double* __restrict__ beta,
     }
     for (; i < n; i += nt) f(i, beta[i], lo[i], hi[i]);
   };
-  const double target = nan_min(nan_max(*target_p, slo), shi);
+  const double target =
+      nan_min(nan_max(target_p ? *target_p : target_v, slo), shi);
   double c_lo = mn - 1.0, c_hi = mx + 1.0;
   int k = 0;
   bool stop = false;
@@ -1498,6 +1508,422 @@ __global__ void top_spill_kernel(const long long* __restrict__ order,
     for (int i = tid; i < visited; i += nt) out[order[i]] = sb[i];
 }
 
+// ---------------------------------------------------------------------------
+// The LOO seeders' prologue (ref.loo_start_ref), row j of (y, alpha, C, t)
+// from its y_j = yy and alpha_j = a: beta = y alpha (one rounding), the box
+// hi = y > 0 ? C : 0 and lo = hi - C (exact: +0.0 or -C), row t closed
+// (beta, lo and hi +0.0; its mass y_t alpha_t is the residual), free0 = 0 <
+// alpha < C but row t.
+// ---------------------------------------------------------------------------
+struct LooRow {
+  double b, l, h;
+  bool free;
+};
+
+__device__ __forceinline__ LooRow loo_row(double a, double yy, double C,
+                                          int t, int j) {
+  LooRow r;
+  r.h = yy > 0.0 ? C : 0.0;
+  r.l = r.h - C;
+  r.b = yy * a;
+  r.free = a > 0.0 && a < C && j != t;
+  if (j == t) r.b = r.l = r.h = 0.0;
+  return r;
+}
+
+// ---------------------------------------------------------------------------
+// avg_spill, route fused: avg_seed_loo's device work from alpha to
+// water_fill's input in one block of threads_for(n, 4) threads: the
+// prologue (loo_row), the kAvgRounds rounds, and beta, lo and hi written
+// once.
+// A thread keeps its rows tid + k nt (the split kernel's map) in registers,
+// kAvgRows of them (every row up to n = 4,096), each with its rooms above
+// (hi - beta) and below (beta - lo); past that a row's beta lives in shared
+// memory as far as it holds them, then in `out` (L2), and its box and free
+// bit are formed again from y and alpha each round. One reduction a round:
+// round r's pass forms, on the beta it leaves, the rooms and the counts of
+// free rows with room above (> 1e-15) and below that round r + 1 reads,
+// and the block reduces (sum of the adds, both counts) behind one barrier;
+// the next round takes the count on its residual's side. Round 0's counts
+// come with the entry loads: 9 reductions where the split kernel takes 16.
+// The counts are integers (exact); the sum of the adds keeps block_sum's
+// tree (the same rows a thread summed in k order, the same butterfly and
+// fold of the warps), so beta is the split kernel's bit for bit. What bounds
+// it is the chain of rounds, not bytes (chip_spill_phases.py splits it):
+// a round is its pass over the rows (FP64 chains) and its reduction, and a
+// residual of 0 skips the division, whose slow path its operand would take.
+// ---------------------------------------------------------------------------
+constexpr int kAvgRows = 4;
+// the reference's rounds (src/repro/core/seeding.py:548)
+constexpr int kAvgRounds = 8;
+
+// A warp's slot of a reduction: one 16-byte store and load.
+struct __align__(16) AvgSlot {
+  double v;
+  int up, down;
+};
+
+struct AvgRed {
+  AvgSlot s[2][kMaxWarps];
+};
+
+// The block's (s, up, down), every thread getting them, behind one barrier
+// (slots double-buffered by `par`, as block_sum's): with SUM, s is a sum of
+// adds, summed in block_sum's order; without, a count the warp already
+// shares (exact as a double).
+// The slots of up to MW warps are loaded before the fold.
+template <bool SUM, int MW>
+__device__ __forceinline__ void avg_reduce(double& s, int& up, int& down,
+                                           AvgRed& red, int& par) {
+  if (SUM) s = warp_sum(s);
+  up = __reduce_add_sync(kFull, up);
+  down = __reduce_add_sync(kFull, down);
+  const int nw = blockDim.x >> 5;
+  if (nw == 1) {
+    __syncwarp();
+    return;
+  }
+  if ((threadIdx.x & 31) == 0) red.s[par][threadIdx.x >> 5] = {s, up, down};
+  __syncthreads();
+  double tot = 0.0;
+  up = down = 0;
+#pragma unroll
+  for (int q = 0; q < MW; ++q) {
+    if (q >= nw) break;
+    const AvgSlot slot = red.s[par][q];
+    tot += slot.v;
+    up += slot.up;
+    down += slot.down;
+  }
+  s = tot;
+  par ^= 1;
+}
+
+// A spill whose beta, C and residual start within +-kAvgBig stays finite in
+// every round (beta within its box after round 0, the residual within its
+// start plus n boxes a round, far below overflow for any n and rounds below
+// 2^80): no operand of a clamp is NaN, so clamp_plain is clamp_t bit for
+// bit, without its NaN tests.
+constexpr double kAvgBig = 1e280;
+
+template <int MAXT>
+__global__ void __launch_bounds__(MAXT)
+avg_spill_fused_kernel(const double* __restrict__ y,
+                       const double* __restrict__ alpha, double C, int t,
+                       double* __restrict__ out, double* __restrict__ lo_o,
+                       double* __restrict__ hi_o, int n, int room) {
+  constexpr int R = kAvgRows;
+  extern __shared__ double spill[];   // rows k >= R: [(k - R) nt + tid]
+  __shared__ AvgRed red;
+  int par = 0;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const double a_t = alpha[t], y_t = y[t];
+  // a row in registers: beta, its room above (h - b) and below (b - l),
+  // whether each exceeds 1e-15, its box's hi and lo, and its free bit
+  double b[R], up_r[R], dn_r[R], h[R], l[R];
+  bool gu[R], gd[R], fr[R];
+#pragma unroll
+  for (int k = 0; k < R; ++k) {   // every load in flight at once
+    const int j = tid + k * nt;
+    b[k] = j < n ? alpha[j] : 0.0;
+    h[k] = j < n ? y[j] : 0.0;
+  }
+  int up = 0, down = 0;
+  bool big = false;
+  // a row's rooms and counts on beta bb: what round r + 1 reads
+  auto rooms = [&](double bb, double ll, double hh, bool f, double& r_up,
+                   double& r_dn, bool& g_up, bool& g_dn) {
+    r_up = hh - bb;
+    r_dn = bb - ll;
+    g_up = r_up > 1e-15;
+    g_dn = r_dn > 1e-15;
+    up += (f && g_up) ? 1 : 0;
+    down += (f && g_dn) ? 1 : 0;
+  };
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    const int j = tid + k * nt;
+    const LooRow r = loo_row(b[k], h[k], C, t, j);
+    b[k] = l[k] = h[k] = up_r[k] = dn_r[k] = 0.0;
+    gu[k] = gd[k] = fr[k] = false;
+    if (j < n) {
+      b[k] = r.b;
+      l[k] = r.l;
+      h[k] = r.h;
+      fr[k] = r.free;
+      rooms(r.b, r.l, r.h, r.free, up_r[k], dn_r[k], gu[k], gd[k]);
+      big |= !(fabs(r.b) <= kAvgBig);
+    }
+  }
+  for (int j = tid + R * nt, s = tid; j < n; j += nt, s += nt) {
+    const LooRow r = loo_row(alpha[j], y[j], C, t, j);
+    lo_o[j] = r.l;
+    hi_o[j] = r.h;
+    (s < room ? spill[s] : out[j]) = r.b;
+    double r_up, r_dn;
+    bool g_up, g_dn;
+    rooms(r.b, r.l, r.h, r.free, r_up, r_dn, g_up, g_dn);
+    big |= !(fabs(r.b) <= kAvgBig);
+  }
+  double resid = y_t * a_t;
+  double bigs = __any_sync(kFull, big) ? 1.0 : 0.0;
+  avg_reduce<false, MAXT / 32>(bigs, up, down, red, par);
+  // the rounds, with the clamp's NaN tests (PLAIN false) or without
+  auto spill_rounds = [&](auto plain) {
+    for (int rd = 0; rd < kAvgRounds; ++rd) {
+      const bool pos = resid >= 0.0;
+      const int d = pos ? up : down;
+      // 0 / d is resid itself (d >= 1), and skips the division's slow path
+      const double share =
+          resid == 0.0 ? resid : resid / (d > 1 ? (double)d : 1.0);
+      double sum = 0.0;
+      up = down = 0;
+      // every register row, past n too, without a branch: the four rows'
+      // chains interleave. A row past n (all +0.0, not free) adds +0.0, and
+      // the sum, which starts at +0.0, is never -0.0: its bits stay.
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        const double x = fr[k] && (pos ? gu[k] : gd[k]) ? share : 0.0;
+        const double add = decltype(plain)::value
+                               ? clamp_plain(x, -dn_r[k], up_r[k])
+                               : clamp_t(x, -dn_r[k], up_r[k]);
+        b[k] = b[k] + add;
+        sum += add;
+        rooms(b[k], l[k], h[k], fr[k], up_r[k], dn_r[k], gu[k], gd[k]);
+      }
+      for (int j = tid + R * nt, s = tid; j < n; j += nt, s += nt) {
+        const LooRow r = loo_row(alpha[j], y[j], C, t, j);
+        double& bb = s < room ? spill[s] : out[j];
+        double r_up = r.h - bb, r_dn = bb - r.l;
+        const bool can = r.free && (pos ? r_up : r_dn) > 1e-15;
+        const double add = clamp_t(can ? share : 0.0, -r_dn, r_up);
+        bb = bb + add;
+        sum += add;
+        bool g_up, g_dn;
+        rooms(bb, r.l, r.h, r.free, r_up, r_dn, g_up, g_dn);
+      }
+      avg_reduce<true, MAXT / 32>(sum, up, down, red, par);
+      resid = resid - sum;
+    }
+  };
+  if (bigs == 0.0 && fabs(C) <= kAvgBig && fabs(resid) <= kAvgBig)
+    spill_rounds(std::true_type{});
+  else
+    spill_rounds(std::false_type{});
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    const int j = tid + k * nt;
+    if (j < n) {
+      out[j] = b[k];
+      lo_o[j] = l[k];
+      hi_o[j] = h[k];
+    }
+  }
+  for (int j = tid + R * nt, s = tid; j < n && s < room; j += nt, s += nt)
+    out[j] = spill[s];
+}
+
+// ---------------------------------------------------------------------------
+// top_spill, route fused: top_seed_loo's device work from alpha to
+// water_fill's input in one block: the prologue (loo_row), the order of the
+// rows by similarity, found on chip, and the walk. The order is
+// torch.argsort(-sim, stable=True) with sim = K[:, t] (column t, read with
+// stride ld) and sim[t] = -inf: ascending order_key(-sim) (-0.0 as +0.0,
+// NaN last), ties by the lower index. The walk needs the order only until
+// the residual is 0 (on LOO's cases within 9 rows), so it is never sorted
+// whole: each warp sorts its own 32 R rows (a bitonic network in registers
+// and shuffles) into a list in shared memory, and one warp then takes the
+// order 32 rows at a time: the next 32 of every list, merged pairwise to
+// the 32 least (min with the other list reversed, then a bitonic clean, in
+// shuffles), their rooms formed in parallel, the chain of residuals in
+// order (each step the split kernel's arithmetic), and the rows visited
+// stored. A row the walk does not reach is never gathered. The block's
+// copy of beta (with lo and hi) precedes the walker's stores by the
+// barrier between them. `walks` gains the walk's length in a
+// histogram: 0, 1, 2-3, 4-7, ..., 64 rows and more, then the rows visited
+// and the longest walk.
+// ---------------------------------------------------------------------------
+typedef unsigned long long Key;
+constexpr Key kNoKey = ~0ull;        // padding, index INT_MAX: after every row
+constexpr int kTopMaxRows = 16384;   // 16 rows a thread at 1,024 threads
+constexpr int kWalkBins = 8;
+
+__device__ __forceinline__ bool key_less(Key ka, int ia, Key kb, int ib) {
+  return ka < kb || (ka == kb && ia < ib);
+}
+
+// The entry (k, i) of a compare-exchange pair keeps its partner's (ok, oi)
+// where the pair's order wants it: the lower entry of the pair keeps the
+// lesser where `up`, the greater where not.
+__device__ __forceinline__ void keep(Key& k, int& i, Key ok, int oi,
+                                     bool lower, bool up) {
+  if (lower == up ? key_less(ok, oi, k, i) : key_less(k, i, ok, oi)) {
+    k = ok;
+    i = oi;
+  }
+}
+
+// One stage of a bitonic network over a warp's 32 R entries (entry e =
+// lane R + r in (k[r], i[r])): e pairs with e ^ stride, and the pair
+// ascends where e has bit `size` clear. Across lanes by shuffles, within a
+// lane in registers (size, stride and r are constants once the caller's
+// loops unroll).
+template <int R>
+__device__ __forceinline__ void bitonic_stage(Key (&k)[R], int (&i)[R],
+                                              int lane, int size,
+                                              int stride) {
+  if (stride >= R) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int e = lane * R + r;
+      const Key ok = __shfl_xor_sync(kFull, k[r], stride / R);
+      const int oi = __shfl_xor_sync(kFull, i[r], stride / R);
+      keep(k[r], i[r], ok, oi, (e & stride) == 0, (e & size) == 0);
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (r & stride) continue;
+      const int e = lane * R + r;
+      if (key_less(k[r + stride], i[r + stride], k[r], i[r]) ==
+          ((e & size) == 0)) {
+        const Key tk = k[r];
+        const int ti = i[r];
+        k[r] = k[r + stride];
+        i[r] = i[r + stride];
+        k[r + stride] = tk;
+        i[r + stride] = ti;
+      }
+    }
+  }
+}
+
+// The warp's 32 R entries sorted ascending.
+template <int R>
+__device__ __forceinline__ void warp_sort(Key (&k)[R], int (&i)[R],
+                                          int lane) {
+#pragma unroll
+  for (int size = 2; size <= 32 * R; size <<= 1)
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1)
+      bitonic_stage<R>(k, i, lane, size, stride);
+}
+
+// (k, i) over the lanes and (bk, bi) over the lanes, both ascending: (k, i)
+// becomes the 32 least of the two, ascending. min(a, b reversed) holds them
+// as a bitonic sequence; a bitonic clean sorts it.
+__device__ __forceinline__ void merge32(Key& k, int& i, Key bk, int bi,
+                                        int lane) {
+  const Key rk = __shfl_sync(kFull, bk, 31 - lane);
+  const int ri = __shfl_sync(kFull, bi, 31 - lane);
+  if (key_less(rk, ri, k, i)) {
+    k = rk;
+    i = ri;
+  }
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) {
+    const Key ok = __shfl_xor_sync(kFull, k, s);
+    const int oi = __shfl_xor_sync(kFull, i, s);
+    keep(k, i, ok, oi, (lane & s) == 0, true);
+  }
+}
+
+template <int NW, int R>
+__global__ void __launch_bounds__(NW * 32)
+top_spill_fused_kernel(const double* __restrict__ K, long long ld,
+                       const double* __restrict__ y,
+                       const double* __restrict__ alpha, double C, int t,
+                       double* __restrict__ out, double* __restrict__ lo_o,
+                       double* __restrict__ hi_o, int n,
+                       unsigned long long* __restrict__ walks) {
+  constexpr int NT = NW * 32, L = 32 * R, M = NW * L;
+  extern __shared__ Key lists_k[];   // list w: [w L, (w + 1) L); then indices
+  int* lists_i = reinterpret_cast<int*>(lists_k + M);
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  Key k[R];
+  int ix[R];
+  double sim[R], av[R], yv[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {   // column t and the rows: every load in
+    const int j = tid + r * NT;    // flight at once
+    sim[r] = j < n && j != t ? K[(long long)j * ld + t] : 0.0;
+    av[r] = j < n ? alpha[j] : 0.0;
+    yv[r] = j < n ? y[j] : 0.0;
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int j = tid + r * NT;
+    const LooRow row = loo_row(av[r], yv[r], C, t, j);
+    if (j < n) {
+      out[j] = row.b;
+      lo_o[j] = row.l;
+      hi_o[j] = row.h;
+    }
+    k[r] = j < n ? order_key(-(j == t ? -CUDART_INF : sim[r])) : kNoKey;
+    ix[r] = j < n ? j : INT_MAX;
+  }
+  warp_sort<R>(k, ix, lane);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    lists_k[w * L + lane * R + r] = k[r];
+    lists_i[w * L + lane * R + r] = ix[r];
+  }
+  __syncthreads();
+  if (w != 0) return;
+  double resid = y[t] * alpha[t];
+  const int steps = n - 1;
+  int walked = 0, head = 0;   // lane q < NW: list q's entries walked
+  while (walked < steps && resid != 0.0) {
+    Key ck[NW];
+    int ci[NW];
+#pragma unroll
+    for (int q = 0; q < NW; ++q) {
+      const int p = __shfl_sync(kFull, head, q) + lane;
+      ck[q] = p < L ? lists_k[q * L + p] : kNoKey;
+      ci[q] = p < L ? lists_i[q * L + p] : INT_MAX;
+    }
+#pragma unroll
+    for (int m = NW / 2; m > 0; m >>= 1)
+#pragma unroll
+      for (int q = 0; q < m; ++q)
+        merge32(ck[q], ci[q], ck[q + m], ci[q + m], lane);
+    const int j = ci[0];
+    double bj = 0.0, up = 0.0, down = 0.0;
+    if (walked + lane < steps) {
+      const LooRow row = loo_row(alpha[j], y[j], C, t, j);
+      bj = row.b;
+      up = row.h - bj;
+      down = row.l - bj;
+    }
+    double mine = 0.0;
+    int q = 0;
+    for (; q < 32 && walked + q < steps && resid != 0.0; ++q) {
+      const double ru = __shfl_sync(kFull, up, q);
+      const double rd = __shfl_sync(kFull, down, q);
+      const double room = resid >= 0.0 ? ru : rd;
+      const double take =
+          nan_min(nan_max(resid, nan_min(room, 0.0)), nan_max(room, 0.0));
+      if (lane == q) mine = take;
+      resid = resid - take;
+    }
+    if (lane < q) out[j] = bj + mine;
+    walked += q;
+    if (q < 32) break;
+    const int own = (j % NT) >> 5;   // each list on by its rows among the 32
+#pragma unroll
+    for (int p = 0; p < NW; ++p) {
+      const unsigned mask = __ballot_sync(kFull, own == p);
+      if (lane == p) head += __popc(mask);
+    }
+  }
+  if (lane == 0) {
+    const int bin = walked == 0 ? 0 : min(32 - __clz(walked), kWalkBins - 1);
+    atomicAdd(walks + bin, 1ull);
+    atomicAdd(walks + kWalkBins, (unsigned long long)walked);
+    atomicMax(walks + kWalkBins + 1, (unsigned long long)walked);
+  }
+}
+
 int threads_for(long long n, int per_thread) {
   long long t = (n + per_thread - 1) / per_thread;
   t = (t + 31) / 32 * 32;
@@ -1532,15 +1958,15 @@ int dyn_smem_limit(F kernel, bool& done, int& limit) {
 
 template <int LV, int MAXT>
 int launch_water_fill(const double* beta, const double* lo, const double* hi,
-                      const double* target, double* out, int n, int iters,
-                      int threads, cudaStream_t stream) {
+                      const double* target, double target_v, double* out,
+                      int n, int iters, int threads, cudaStream_t stream) {
   static bool done = false;
   static int limit = 0;
   const int room = dyn_smem_limit(water_fill_kernel<LV, MAXT>, done, limit);
   const long long want = 24LL * n;   // every row, either staging
   const int dyn = want < room ? (int)want : room;
   water_fill_kernel<LV, MAXT><<<1, threads, (size_t)dyn, stream>>>(
-      beta, lo, hi, target, out, n, iters, dyn);
+      beta, lo, hi, target, target_v, out, n, iters, dyn);
   return (int)cudaGetLastError();
 }
 
@@ -1553,17 +1979,17 @@ constexpr int kWaterFillLevels = 2;
 
 extern "C" int water_fill_f64(const double* beta, const double* lo,
                               const double* hi, const double* target,
-                              double* out, int n, int iters, int levels,
-                              cudaStream_t stream) {
+                              double target_v, double* out, int n, int iters,
+                              int levels, cudaStream_t stream) {
   if (n <= 0) return 0;
   const int threads = threads_for(n, 8);
   const int lv = WATER_FILL_LEVELS > 0
                      ? WATER_FILL_LEVELS
                      : (levels > 0 ? levels : kWaterFillLevels);
   const bool small = threads <= 256;
-#define WF(LV, T)                                                      \
-  return launch_water_fill<LV, T>(beta, lo, hi, target, out, n, iters, \
-                                  threads, stream)
+#define WF(LV, T)                                                          \
+  return launch_water_fill<LV, T>(beta, lo, hi, target, target_v, out, n, \
+                                  iters, threads, stream)
   switch (lv) {
     case 1: WF(1, kMaxThreads);
     case 2: WF(2, kMaxThreads);
@@ -1830,4 +2256,86 @@ extern "C" int top_spill_f64(const long long* order, const double* beta,
                      stream>>>(order, beta, lo, hi, resid, out, n, steps,
                                in_smem);
   return (int)cudaGetLastError();
+}
+
+namespace {
+
+// MAXT: the block's most threads (256: every row in registers without a
+// spill up to n = 1,024)
+template <int MAXT>
+int launch_avg_fused(const double* y, const double* alpha, double C, int t,
+                     double* out, double* lo, double* hi, int n, int threads,
+                     cudaStream_t stream) {
+  static bool done = false;
+  static int limit = 0;
+  const int room =
+      dyn_smem_limit(avg_spill_fused_kernel<MAXT>, done, limit) / 8;
+  const long long extra = (long long)n - (long long)kAvgRows * threads;
+  const int rows = extra <= 0 ? 0 : (extra < room ? (int)extra : room);
+  avg_spill_fused_kernel<MAXT><<<1, threads, 8 * (size_t)rows, stream>>>(
+      y, alpha, C, t, out, lo, hi, n, rows);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// avg_spill (route fused): avg_seed_loo from y, alpha (n,), C and t to the
+// spilled beta, lo and hi (n,).
+extern "C" int avg_spill_fused_f64(const double* y, const double* alpha,
+                                   double C, int t, double* out, double* lo,
+                                   double* hi, int n, cudaStream_t stream) {
+  if (n <= 0) return 0;
+  if (t < 0 || t >= n) return (int)cudaErrorInvalidValue;
+  const int threads = threads_for(n, 4);
+  return threads <= 256
+             ? launch_avg_fused<256>(y, alpha, C, t, out, lo, hi, n, threads,
+                                     stream)
+             : launch_avg_fused<kMaxThreads>(y, alpha, C, t, out, lo, hi, n,
+                                             threads, stream);
+}
+
+namespace {
+
+template <int NW, int R>
+int launch_top_fused(const double* K, long long ld, const double* y,
+                     const double* alpha, double C, int t, double* out,
+                     double* lo, double* hi, int n,
+                     unsigned long long* walks, cudaStream_t stream) {
+  static bool done = false;
+  static int limit = 0;
+  const size_t smem = (size_t)12 * NW * 32 * R;   // the lists
+  if ((long long)smem >
+      dyn_smem_limit(top_spill_fused_kernel<NW, R>, done, limit))
+    return (int)cudaErrorInvalidValue;
+  top_spill_fused_kernel<NW, R><<<1, NW * 32, smem, stream>>>(
+      K, ld, y, alpha, C, t, out, lo, hi, n, walks);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// top_spill (route fused): top_seed_loo from K (column t, row stride ld),
+// y, alpha (n,), C and t to the spilled beta, lo and hi (n,), n up to
+// kTopMaxRows (TOP_FUSED_MAX_ROWS in kernels/seeding.py); `walks` (10 int64)
+// gains the walk.
+// 256 threads up to 1,024 rows (R a thread), then 1,024.
+extern "C" int top_spill_fused_f64(const double* K, long long ld,
+                                   const double* y, const double* alpha,
+                                   double C, int t, double* out, double* lo,
+                                   double* hi, int n, long long* walks,
+                                   cudaStream_t stream) {
+  if (n <= 0) return 0;
+  if (t < 0 || t >= n || n > kTopMaxRows) return (int)cudaErrorInvalidValue;
+  unsigned long long* wk = reinterpret_cast<unsigned long long*>(walks);
+#define TF(NW, R)                                                        \
+  return launch_top_fused<NW, R>(K, ld, y, alpha, C, t, out, lo, hi, n, \
+                                 wk, stream)
+  if (n <= 256) TF(8, 1);
+  if (n <= 512) TF(8, 2);
+  if (n <= 1024) TF(8, 4);
+  if (n <= 2048) TF(32, 2);
+  if (n <= 4096) TF(32, 4);
+  if (n <= 8192) TF(32, 8);
+  TF(32, 16);
+#undef TF
 }

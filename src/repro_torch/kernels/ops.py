@@ -10,21 +10,25 @@ the WSS-1 selection kernel to ``smo_select`` and of the fused step to
 ``fused_smo_step``.
 ``water_fill``, ``sir_greedy``, ``ato_system_lanes`` / ``ato_apply_lanes``
 (ATO's ramp step, one lane or a row) and ``avg_spill`` / ``top_spill``
-(the LOO seeders) count one per launch.
+(the LOO seeders' spills; their fused entries ``avg_spill_loo`` /
+``top_spill_loo`` count on them) count one per launch.
 ``flash_attention`` counts one per launch (one per prefill attention layer
-on the LM serving path). ``route_counts`` splits the six kernels that have
-routes: ``rbf_kernel_matrix`` (tensor, the FP64 tensor cores / fma),
+on the LM serving path). ``route_counts`` splits the eight kernels that
+have routes: ``rbf_kernel_matrix`` (tensor, the FP64 tensor cores / fma),
 ``smo_chunk`` (one_block, the resident kernel / multi_block / cluster /
 one_block_global, the global-state kernel), ``smo_stream_chunk`` (pair /
 persistent: the chunks on each), ``flash_attention`` (wgmma / mma /
-fma), ``ato_system_lanes`` (compact / carried: a ramp's later steps) and
-``ato_apply_lanes`` (split / fused: the ramp's, with the alpha update).
+fma), ``ato_system_lanes`` (compact / carried: a ramp's later steps),
+``ato_apply_lanes`` (split / fused: the ramp's, with the alpha update),
+and ``avg_spill`` and ``top_spill`` (fused: the seeder's prologue, order
+and spill in one launch / split: the spill alone).
 """
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rbf import rbf_kernel_matrix
 from repro_torch.kernels.seeding import (ato_apply_lanes, ato_system_lanes,
-                                         avg_spill, sir_greedy, top_spill,
-                                         water_fill)
+                                         avg_spill, avg_spill_loo,
+                                         sir_greedy, top_spill,
+                                         top_spill_loo, water_fill)
 from repro_torch.kernels.smo_chunk import (smo_chunk, smo_chunk_lanes,
                                            smo_select, smo_stream_chunk)
 from repro_torch.kernels.smo_step import fused_smo_step
@@ -34,7 +38,7 @@ __all__ = ["rbf_kernel_matrix", "smo_f_update", "smo_chunk",
            "smo_chunk_lanes", "smo_stream_chunk", "smo_select",
            "fused_smo_step", "flash_attention", "water_fill",
            "sir_greedy", "ato_system_lanes", "ato_apply_lanes", "avg_spill",
-           "top_spill",
+           "avg_spill_loo", "top_spill", "top_spill_loo",
            "launch_counts", "reset_launch_counts", "route_counts"]
 
 #: kernel name -> the wrapper that carries its count
@@ -63,7 +67,9 @@ ROUTED = {"rbf_kernel_matrix": rbf_kernel_matrix, "smo_chunk": smo_chunk,
           "smo_stream_chunk": smo_stream_chunk,
           "flash_attention": flash_attention,
           "ato_system_lanes": ato_system_lanes,
-          "ato_apply_lanes": ato_apply_lanes}
+          "ato_apply_lanes": ato_apply_lanes,
+          "avg_spill": avg_spill,
+          "top_spill": top_spill}
 
 
 def route_counts() -> dict[str, dict[str, int]]:

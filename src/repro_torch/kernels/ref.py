@@ -748,3 +748,47 @@ def top_spill_ref(order, beta, lo, hi, resid):
         beta[j] = beta[j] + take
         resid = resid - take
     return beta
+
+
+def loo_start_ref(y, alpha, C, t: int):
+    """The LOO seeders' prologue: beta = y * alpha with row t taken out (its
+    mass is the residual ``resid``, 0-d), the box [lo, hi] of beta (y > 0:
+    [0, C], else [-C, 0]; C - C = +0.0 and 0.0 - C = -C, exact) with row t
+    closed, and the free rows free0 = 0 < alpha < C but row t."""
+    beta = y * alpha
+    resid = beta[t].clone()
+    beta.select(0, t).fill_(0.0)
+    c = torch.full_like(y, C)   # a Python C would become float32 in where
+    hi = torch.where(y > 0, c, 0.0)
+    lo = hi - c
+    lo.select(0, t).fill_(0.0)
+    hi.select(0, t).fill_(0.0)
+    free0 = (alpha > 0) & (alpha < C)
+    free0.select(0, t).fill_(False)
+    return beta, resid, lo, hi, free0
+
+
+def loo_order_ref(sim, t: int):
+    """TOP's order: the rows by descending similarity ``sim`` (K[:, t]),
+    ties by the lower index, row t (-inf) last, as ``jnp.argsort`` gives
+    it: a stable argsort of -sim."""
+    sim = sim.clone()
+    sim.select(0, t).fill_(-_INF)
+    return torch.argsort(-sim, stable=True)
+
+
+def avg_spill_loo_ref(y, alpha, C, t: int):
+    """avg_seed_loo from alpha to water_fill's input (``avg_spill``'s fused
+    route): the prologue, then ``avg_spill_ref``'s 8 rounds. Returns beta,
+    lo, hi."""
+    beta, resid, lo, hi, free0 = loo_start_ref(y, alpha, C, t)
+    return avg_spill_ref(beta, lo, hi, free0, resid), lo, hi
+
+
+def top_spill_loo_ref(K, y, alpha, C, t: int):
+    """top_seed_loo from alpha to water_fill's input (``top_spill``'s fused
+    route): the prologue, the order of column t, then ``top_spill_ref``.
+    Returns beta, lo, hi."""
+    beta, resid, lo, hi, _ = loo_start_ref(y, alpha, C, t)
+    order = loo_order_ref(K[:, t], t)
+    return top_spill_ref(order, beta, lo, hi, resid), lo, hi

@@ -4,7 +4,7 @@
 ``ato_apply_lanes``, the two halves of ATO's ramp step around its LU
 solve over a row of lanes (``:361-420``, and the batched ramp, ``:435``;
 the solo ramp is one lane), and the LOO seeders' spills ``avg_spill``
-(``:537``) and ``top_spill`` (``:566``). Each is one launch
+(``:548``) and ``top_spill`` (``:573``). Each is one launch
 (``sir_greedy``: a list pass and a walk a segment of the removed rows,
 and a ranking of the fallback's priorities under ``"random"``) and makes
 no host sync. ATO's two halves have two routes each: a ramp takes
@@ -12,12 +12,18 @@ no host sync. ATO's two halves have two routes each: a ramp takes
 ``carried`` route (B alone) after it, and ``ato_apply_lanes``' ``fused``
 route, which also updates alpha and hands the next step its working set;
 standalone calls take ``compact`` and ``split`` (today's kernels, the
-witnesses).
+witnesses). The spills too: the seeders call ``avg_spill_loo`` and
+``top_spill_loo``, route ``fused``, each its seeder's whole device work
+from alpha to ``water_fill``'s input (the prologue from y, alpha, C and
+t; TOP's order of column t found on chip); ``avg_spill`` and
+``top_spill`` on a prologue and an order formed by plain ops are route
+``split`` (the witnesses, and TOP past ``TOP_FUSED_MAX_ROWS``).
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it runs its plain version (``ref.water_fill_ref``,
 ``sir_greedy_ref``, ``ato_system_lanes_ref``, ``ato_apply_lanes_ref``,
-``avg_spill_ref``, ``top_spill_ref``). Float64 only, as the seeders run.
+``avg_spill_ref``, ``top_spill_ref``, ``avg_spill_loo_ref``,
+``top_spill_loo_ref``). Float64 only, as the seeders run.
 """
 from __future__ import annotations
 
@@ -28,8 +34,10 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import (ATO_CARRIED, AtoCarry, AtoSystem,
                                      ato_apply_lanes_ref,
-                                     ato_system_lanes_ref, avg_spill_ref,
-                                     sir_greedy_ref, top_spill_ref,
+                                     ato_system_lanes_ref, avg_spill_loo_ref,
+                                     avg_spill_ref, loo_order_ref,
+                                     loo_start_ref, sir_greedy_ref,
+                                     top_spill_loo_ref, top_spill_ref,
                                      water_fill_ref)
 
 _P, _I, _L, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
@@ -76,8 +84,9 @@ def water_fill(beta, lo, hi, target, iters: int = 100, *, _levels: int = 0,
                _build_name: str = "seeding"):
     """clip(beta - c, lo, hi) with scalar c s.t. the sum == clip(target,
     sum(lo), sum(hi)), c by at most ``iters`` bisection steps, then the
-    residue put on the freest coordinate. ``target`` is a number or a 0-d
-    tensor (kept on the device). On the card: one block, one launch, that
+    residue put on the freest coordinate. ``target`` is a number (passed
+    to the kernel by value) or a 0-d tensor (kept on the device). On the
+    card: one block, one launch, that
     evaluates several levels of the bisection tree between two barriers;
     every step's sum runs in the one-level loop's order (the witness build
     ``water_fill_seq``, bit for bit), the block's order, so within ``1e-12
@@ -94,13 +103,14 @@ def water_fill(beta, lo, hi, target, iters: int = 100, *, _levels: int = 0,
     if _levels not in WATER_FILL_LEVELS:
         raise ValueError(f"water_fill: _levels {_levels} not in "
                          f"{WATER_FILL_LEVELS}")
-    tgt = _scalar(target, beta)
+    tgt = _scalar(target, beta) if isinstance(target, torch.Tensor) else None
     out = torch.empty_like(beta)
-    fn = _build.entry(_build_name, "water_fill_f64", _P, _P, _P, _P, _P, _I,
-                      _I, _I, _P)
-    _build.check(fn(beta.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-                    tgt.data_ptr(), out.data_ptr(), n, int(iters),
-                    int(_levels), _build.stream_ptr(beta)), "water_fill")
+    fn = _build.entry(_build_name, "water_fill_f64", _P, _P, _P, _P, _D, _P,
+                      _I, _I, _I, _P)
+    _build.check(fn(beta.data_ptr(), lo.data_ptr(), hi.data_ptr(), _ptr(tgt),
+                    0.0 if tgt is not None else float(target),
+                    out.data_ptr(), n, int(iters), int(_levels),
+                    _build.stream_ptr(beta)), "water_fill")
     water_fill.launches += 1
     return out
 
@@ -430,10 +440,12 @@ def ato_apply_lanes(g, f, alpha, v, Phi_full, y, b, Cs, tol: float,
 
 
 def avg_spill(beta, lo, hi, free0, resid, rounds: int = 8):
-    """avg_seed_loo's spill (``ref.avg_spill_ref``): ``rounds`` rounds of
-    spreading ``resid`` (0-d) over the free rows with room, in one block,
-    one launch. The count of rows is exact; the sum of the adds runs in the
-    block's order, so within 1e-12 max(C, 1) of the plain version."""
+    """avg_seed_loo's spill (``ref.avg_spill_ref``), route ``split``:
+    ``rounds`` rounds of spreading ``resid`` (0-d) over the free rows with
+    room, in one block, one launch, from a prologue the caller formed (the
+    witness of ``avg_spill_loo``). The count of rows is exact; the sum of
+    the adds runs in the block's order, so within 1e-12 max(C, 1) of the
+    plain version."""
     if not _device("avg_spill", beta):
         return avg_spill_ref(beta, lo, hi, free0, resid, rounds)
     dev, f64 = beta.device, torch.float64
@@ -452,14 +464,54 @@ def avg_spill(beta, lo, hi, free0, resid, rounds: int = 8):
                     free0.data_ptr(), res.data_ptr(), out.data_ptr(), n,
                     int(rounds), _build.stream_ptr(beta)), "avg_spill")
     avg_spill.launches += 1
+    avg_spill.route_launches["split"] += 1
     return out
 
 
+def _loo_args(name: str, y, alpha, t: int) -> int:
+    """n, after checking y and alpha ((n,) float64 on one card) and t."""
+    _need(name, y.device, y=(y, torch.float64), alpha=(alpha, torch.float64))
+    n = y.shape[0]
+    if y.dim() != 1 or alpha.shape != y.shape or not 0 <= t < n:
+        raise ValueError(f"{name}: y and alpha must be (n,) alike and t in "
+                         f"[0, n), got {tuple(y.shape)}, "
+                         f"{tuple(alpha.shape)}, t = {t}")
+    return n
+
+
+def avg_spill_loo(y, alpha, C: float, t: int):
+    """avg_seed_loo from alpha to water_fill's input
+    (``ref.avg_spill_loo_ref``): the prologue (beta = y * alpha with row t
+    taken out as the residual, the box [lo, hi] with row t closed, the free
+    rows), then the spill's 8 rounds. Returns (beta, lo, hi).
+
+    On the card, route ``fused``: one launch, one block, the rows in
+    registers (in shared memory and then L2 past 4,096), one reduction a
+    round; beta is ``avg_spill``'s (the split route's, on the prologue
+    that the plain ops form) bit for bit, and lo and hi the plain
+    version's."""
+    t = int(t)
+    if not _device("avg_spill", y):
+        return avg_spill_loo_ref(y, alpha, C, t)
+    n = _loo_args("avg_spill_loo", y, alpha, t)
+    beta, lo, hi = (torch.empty_like(y) for _ in range(3))
+    fn = _build.entry("seeding", "avg_spill_fused_f64", _P, _P, _D, _I, _P,
+                      _P, _P, _I, _P)
+    _build.check(fn(y.data_ptr(), alpha.data_ptr(), float(C), t,
+                    beta.data_ptr(), lo.data_ptr(), hi.data_ptr(), n,
+                    _build.stream_ptr(y)), "avg_spill")
+    avg_spill.launches += 1
+    avg_spill.route_launches["fused"] += 1
+    return beta, lo, hi
+
+
 def top_spill(order, beta, lo, hi, resid):
-    """top_seed_loo's spill (``ref.top_spill_ref``): the rows in ``order``
-    (int64, all but its last) take the residual ``resid`` (0-d) in turn,
-    one thread walking them in one launch. It stops where the residual is
-    0 (every later take is a zero), so its beta equals the plain version's
+    """top_seed_loo's spill (``ref.top_spill_ref``), route ``split``: the
+    rows in ``order`` (int64, all but its last) take the residual
+    ``resid`` (0-d) in turn, one thread walking them in one launch, from an
+    order and a prologue the caller formed (``top_spill_loo`` past its
+    fused route's size, and the witness). It stops where the residual is 0
+    (every later take is a zero), so its beta equals the plain version's
     value for value (``torch.equal``)."""
     if not _device("top_spill", beta):
         return top_spill_ref(order, beta, lo, hi, resid)
@@ -479,7 +531,80 @@ def top_spill(order, beta, lo, hi, resid):
                     hi.data_ptr(), res.data_ptr(), out.data_ptr(), n,
                     max(n - 1, 0), _build.stream_ptr(beta)), "top_spill")
     top_spill.launches += 1
+    top_spill.route_launches["split"] += 1
     return out
+
+
+#: the most rows ``top_spill_loo``'s fused route takes: each warp's sorted
+#: list in shared memory, 16 rows a thread at 1,024 threads (192 KB);
+#: ``kTopMaxRows`` in ``csrc/seeding.cu``
+TOP_FUSED_MAX_ROWS = 16384
+#: the walk-length bins of ``top_spill_walks``: 0, 1, 2-3, ..., 64 and more
+TOP_WALK_BINS = ("0", "1", "2-3", "4-7", "8-15", "16-31", "32-63", "64+")
+
+#: card -> its fused TOP walks since the last reset: an int64 (10,) on the
+#: card that the kernel adds to (TOP_WALK_BINS, rows visited, the longest)
+_TOP_WALKS: dict = {}
+
+
+def top_spill_walks() -> dict:
+    """The fused TOP spills' walks since the last reset, summed over the
+    cards: the seeds, their walk lengths binned (``TOP_WALK_BINS``), the
+    rows visited and the longest walk (reads the card)."""
+    tot = [0] * (len(TOP_WALK_BINS) + 2)
+    for ev in _TOP_WALKS.values():
+        for i, v in enumerate(ev.tolist()):
+            tot[i] = max(tot[i], v) if i == len(tot) - 1 else tot[i] + v
+    bins = dict(zip(TOP_WALK_BINS, tot))
+    return {"seeds": sum(bins.values()), "lengths": bins,
+            "rows": tot[-2], "longest": tot[-1]}
+
+
+def reset_top_spill_walks() -> None:
+    for ev in _TOP_WALKS.values():
+        ev.zero_()
+
+
+def top_spill_loo(K, y, alpha, C: float, t: int):
+    """top_seed_loo from alpha to water_fill's input
+    (``ref.top_spill_loo_ref``): the prologue (as ``avg_spill_loo``'s),
+    the rows ordered by descending K[:, t] (ties by the lower index, row t
+    last: ``torch.argsort(-sim, stable=True)``), and the walk. Returns
+    (beta, lo, hi).
+
+    On the card, by size: up to ``TOP_FUSED_MAX_ROWS`` rows route
+    ``fused``, one launch: column t read in place, the order found on chip
+    only as far as the walk goes (each warp sorts its rows, one warp merges
+    32 rows of the order at a time and walks them); past that the plain
+    prologue and ``argsort``, then ``top_spill`` (route ``split``). Both
+    equal the plain version value for value (``torch.equal``)."""
+    t = int(t)
+    if not _device("top_spill", K):
+        return top_spill_loo_ref(K, y, alpha, C, t)
+    n = _loo_args("top_spill_loo", y, alpha, t)
+    _need("top_spill_loo", y.device, K=(K, torch.float64))
+    if K.dim() != 2 or K.shape[0] != n or K.shape[1] <= t \
+            or K.stride(1) != 1:
+        raise ValueError("top_spill_loo: K must be (n, >t) with unit column "
+                         "stride")
+    if n > TOP_FUSED_MAX_ROWS:
+        beta, resid, lo, hi, _ = loo_start_ref(y, alpha, C, t)
+        return top_spill(loo_order_ref(K[:, t], t), beta, lo, hi, resid), \
+            lo, hi
+    beta, lo, hi = (torch.empty_like(y) for _ in range(3))
+    walks = _TOP_WALKS.get(y.device)
+    if walks is None:
+        walks = _TOP_WALKS[y.device] = torch.zeros(
+            len(TOP_WALK_BINS) + 2, dtype=torch.int64, device=y.device)
+    fn = _build.entry("seeding", "top_spill_fused_f64", _P, _L, _P, _P, _D,
+                      _I, _P, _P, _P, _I, _P, _P)
+    _build.check(fn(K.data_ptr(), K.stride(0), y.data_ptr(),
+                    alpha.data_ptr(), float(C), t, beta.data_ptr(),
+                    lo.data_ptr(), hi.data_ptr(), n, walks.data_ptr(),
+                    _build.stream_ptr(y)), "top_spill")
+    top_spill.launches += 1
+    top_spill.route_launches["fused"] += 1
+    return beta, lo, hi
 
 
 for _w in (water_fill, sir_greedy, ato_system_lanes, ato_apply_lanes,
@@ -487,3 +612,5 @@ for _w in (water_fill, sir_greedy, ato_system_lanes, ato_apply_lanes,
     _w.launches = 0
 ato_system_lanes.route_launches = dict.fromkeys(ATO_SYSTEM_ROUTES, 0)
 ato_apply_lanes.route_launches = {"split": 0, "fused": 0}
+avg_spill.route_launches = {"fused": 0, "split": 0}
+top_spill.route_launches = {"fused": 0, "split": 0}

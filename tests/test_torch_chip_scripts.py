@@ -1,8 +1,9 @@
-"""``chip_ato_phases.py`` builds a copy of ``csrc/seeding.cu`` with
-counter reads put in by text: each of its edits must still find its text
-exactly once in the source, or the script's build would raise on the
-card. Held here on the CPU, so that an edit to those lines of the fused
-apply kernel that is not mirrored in the script fails at once."""
+"""``chip_ato_phases.py`` and ``chip_spill_phases.py`` build copies of
+``csrc/seeding.cu`` with counter reads put in by text: each of their
+edits must still find its text exactly once in the source, or the
+script's build would raise on the card. Held here on the CPU, so that an
+edit to those lines of the fused ATO apply or the fused AVG spill that is
+not mirrored in the script fails at once."""
 import importlib.util
 from pathlib import Path
 
@@ -12,15 +13,15 @@ ROOT = Path(__file__).resolve().parents[1]
 SOURCE = ROOT / "src" / "repro_torch" / "kernels" / "csrc" / "seeding.cu"
 
 
-def _phases():
-    spec = importlib.util.spec_from_file_location(
-        "chip_ato_phases", ROOT / "chip_ato_phases.py")
+def _phases(name="chip_ato_phases"):
+    spec = importlib.util.spec_from_file_location(name, ROOT / f"{name}.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
 
 
 EDITS = _phases().EDITS
+SPILL_EDITS = _phases("chip_spill_phases").EDITS
 
 
 @pytest.mark.parametrize("k", range(len(EDITS)))
@@ -41,3 +42,42 @@ def test_ato_phases_stamps_every_phase():
     body = src[src.index("ato_apply_fused_kernel("):
                src.index("// avg_spill:")]
     assert all(old in body for old, _ in mod.EDITS[1:])
+
+
+@pytest.mark.parametrize("k", range(len(SPILL_EDITS)))
+def test_spill_phases_edit_finds_its_text_once(k):
+    old, new = SPILL_EDITS[k]
+    assert SOURCE.read_text().count(old) == 1
+    assert old != new
+
+
+def test_spill_phases_stamps_the_fused_avg_spill():
+    """Every counter slot read once a call (the rounds' reads by their
+    index expression), and the edits inside the fused AVG kernel."""
+    mod = _phases("chip_spill_phases")
+    stamps = "".join(new for _, new in mod.EDITS[1:])
+    fixed = [i for i in range(3) if mod.STAMP.format(i) in stamps]
+    assert fixed == [0, 1, 2]
+    assert mod.STAMP.format("3 + 2 * rd") in stamps
+    assert mod.STAMP.format("4 + 2 * rd") in stamps
+    assert mod.SLOTS == 5 + 2 * (mod.ROUNDS - 1)
+    src = SOURCE.read_text()
+    assert f"constexpr int kAvgRounds = {mod.ROUNDS};" in src
+    body = src[src.index("avg_spill_fused_kernel(const double*"):
+               src.index("// top_spill, route fused:")]
+    assert all(old in body for old, _ in mod.EDITS[1:])
+
+
+@pytest.mark.parametrize("name", sorted(_phases("chip_spill_phases").MUTANTS))
+def test_spill_phases_ablation_finds_its_text_once(name):
+    """Each ablation's edit finds its text once, in the fused AVG kernel's
+    rounds, on the stamped copy's text."""
+    mod = _phases("chip_spill_phases")
+    src = SOURCE.read_text()
+    for old, new in mod.EDITS:
+        src = src.replace(old, new)
+    old, new = mod.MUTANTS[name]
+    assert src.count(old) == 1 and old != new
+    body = src[src.index("avg_spill_fused_kernel(const double*"):
+               src.index("// top_spill, route fused:")]
+    assert old in body

@@ -1908,6 +1908,158 @@ def test_cuda_top_spill_equals_plain(cuda, n):
     assert torch.equal(got.cpu(), want)
 
 
+LOO_AVG_CASES = ("random", "t0", "tlast", "neg", "long", "never", "nan",
+                 "huge")
+LOO_TOP_CASES = ("ties", "t0", "tlast", "neg", "first", "long", "never")
+
+
+def _loo_inputs(n, case, C=2182.0):
+    """(col, y, alpha, C, t) in numpy for the LOO spills' fused routes:
+    col is K[:, t]. ``random`` / ``ties``: mixed labels and alpha (at 0,
+    at C, inside), t drawn, and for ties ``_spill_case``'s tied
+    similarities with -0.0 and +0.0 in the column; ``t0`` / ``tlast``: t =
+    0 / n - 1; ``neg``: a negative residual; ``first``: the most similar
+    row takes the whole residual; ``never``: every other row is at the
+    bound on the residual's side (no room: AVG has no free row, TOP walks
+    every row and keeps the residual); ``long``: as ``never`` but every
+    seventh row free with room 0.05 C (TOP walks ~12 of them, some 80
+    rows); ``nan``: one alpha NaN, ``huge``: C = 1e300 (AVG's rounds keep
+    the clamp's NaN tests)."""
+    rng = np.random.default_rng(n + len(case))
+    C = 1e300 if case == "huge" else C
+    y = np.where(rng.random(n) < 0.5, 1.0, -1.0)
+    u = rng.random(n)
+    alpha = np.where(u < 0.3, 0.0, np.where(u < 0.5, C, rng.random(n) * C))
+    col = rng.random(n)
+    t = {"t0": 0, "tlast": n - 1}.get(case, int(rng.integers(n)))
+    y[t], alpha[t] = (-1.0 if case == "neg" else 1.0), 0.6 * C
+    if case == "ties":
+        col[1::4] = col[0]
+        col[2::9] = 0.0
+        col[3::9] = -0.0
+    if case == "first":
+        j = (t + 1) % n
+        col[j] = 2.0
+        y[j], alpha[j] = 1.0, 0.0
+    if case == "nan":
+        alpha[(t + 2) % n] = np.nan
+    if case in ("never", "long"):
+        alpha = np.where(y > 0, C, 0.0)
+        if case == "long":
+            alpha[::7] = np.where(y[::7] > 0, 0.95 * C, 0.05 * C)
+        y[t], alpha[t] = 1.0, 0.6 * C
+    return col, y, alpha, C, t
+
+
+def _loo_device(cuda, n, case):
+    """The inputs on the card, K (n, n) random but for its column t, and
+    on the CPU."""
+    col, y, alpha, C, t = _loo_inputs(n, case)
+    g = torch.Generator(device=cuda).manual_seed(n)
+    K = torch.rand((n, n), generator=g, dtype=torch.float64, device=cuda)
+    K[:, t] = torch.from_numpy(col).to(cuda)
+    cpu = [torch.from_numpy(a) for a in (col, y, alpha)]
+    return K, cpu[1].to(cuda), cpu[2].to(cuda), C, t, cpu
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", LOO_AVG_CASES)
+@pytest.mark.parametrize("n", [27, 270, 1000, 9000, 40000])
+def test_cuda_avg_spill_fused_is_split(cuda, n, case):
+    """avg_spill's fused route (prologue and 8 rounds in one launch) is
+    the split kernel on the plain prologue bit for bit, within 1e-12
+    max(C, 1) of the plain version, and writes _box's lo and hi (row t
+    closed) bit for bit: rows in registers (n <= 4,096), in shared memory
+    (9,000) and in L2 (40,000); a NaN and a C of 1e300 take the rounds
+    with the clamp's NaN tests."""
+    from repro_torch.kernels.seeding import avg_spill, avg_spill_loo
+    _, y_np, a_np, C, t = _loo_inputs(n, case)
+    yc, ac = torch.from_numpy(y_np), torch.from_numpy(a_np)
+    y, alpha = yc.to(cuda), ac.to(cuda)
+    before = ops.route_counts()["avg_spill"]
+    beta, lo, hi = avg_spill_loo(y, alpha, C, t)
+    after = ops.route_counts()["avg_spill"]
+    assert after == {"fused": before["fused"] + 1, "split": before["split"]}
+    b0, resid, lo0, hi0, free0 = ref.loo_start_ref(y, alpha, C, t)
+    split = avg_spill(b0, lo0, hi0, free0, resid)
+    assert torch.equal(_bits(beta.cpu()), _bits(split.cpu()))
+    _, _, lo_c, hi_c, _ = ref.loo_start_ref(yc, ac, C, t)
+    assert torch.equal(_bits(lo.cpu()), _bits(lo_c))
+    assert torch.equal(_bits(hi.cpu()), _bits(hi_c))
+    want, _, _ = ref.avg_spill_loo_ref(yc, ac, C, t)
+    np.testing.assert_allclose(beta.cpu().numpy(), want.numpy(), rtol=0,
+                               atol=1e-12 * max(C, 1.0))
+
+
+def _top_plain(col, y, alpha, C, t):
+    """top_spill_loo's plain version from column t alone: (beta, lo, hi)."""
+    b0, resid, lo, hi, _ = ref.loo_start_ref(y, alpha, C, t)
+    return ref.top_spill_ref(ref.loo_order_ref(col, t), b0, lo, hi,
+                             resid), lo, hi
+
+
+def _walk_length(col, y, alpha, C, t):
+    """The rows TOP's walk visits: until the residual is 0 or the order
+    (but its last row) runs out."""
+    beta, resid, lo, hi, _ = ref.loo_start_ref(y, alpha, C, t)
+    order = ref.loo_order_ref(col, t)[:-1].tolist()
+    b, l, h, r = beta.tolist(), lo.tolist(), hi.tolist(), float(resid)
+    k = 0
+    for j in order:
+        if r == 0.0:
+            break
+        room = h[j] - b[j] if r >= 0 else l[j] - b[j]
+        r -= min(max(r, min(room, 0.0)), max(room, 0.0))
+        k += 1
+    return k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", LOO_TOP_CASES)
+@pytest.mark.parametrize("n", [27, 270, 1000, 9000, 12000])
+def test_cuda_top_spill_fused_equals_plain(cuda, n, case):
+    """top_spill's fused route (prologue, the order of column t found on
+    chip, the walk; one launch) equals the plain version (the glue, a
+    stable argsort, top_spill_ref) value for value, writes _box's lo and
+    hi bit for bit, and adds its walk's length to ``top_spill_walks``."""
+    from repro_torch.kernels import seeding as ks
+    K, y, alpha, C, t, (col, yc, ac) = _loo_device(cuda, n, case)
+    before = ops.route_counts()["top_spill"]
+    ks.reset_top_spill_walks()
+    beta, lo, hi = ks.top_spill_loo(K, y, alpha, C, t)
+    after = ops.route_counts()["top_spill"]
+    assert after == {"fused": before["fused"] + 1, "split": before["split"]}
+    want, lo_c, hi_c = _top_plain(col, yc, ac, C, t)
+    assert torch.equal(beta.cpu(), want)
+    assert torch.equal(_bits(lo.cpu()), _bits(lo_c))
+    assert torch.equal(_bits(hi.cpu()), _bits(hi_c))
+    walks = ks.top_spill_walks()
+    k = _walk_length(col, yc, ac, C, t)
+    assert walks["seeds"] == 1 and walks["rows"] == walks["longest"] == k
+    if case == "first":
+        assert k == 1
+    if case == "never":
+        assert k == n - 1
+
+
+@pytest.mark.cuda
+def test_cuda_top_spill_past_fused_size_takes_split(cuda):
+    """Past the rows the fused route's lists fit in, top_spill_loo takes
+    the split route (the plain prologue and argsort, then the walk
+    kernel), counted, and equals the plain version."""
+    from repro_torch.kernels import seeding as ks
+    n = ks.TOP_FUSED_MAX_ROWS + 3616
+    K, y, alpha, C, t, (col, yc, ac) = _loo_device(cuda, n, "ties")
+    before = ops.route_counts()["top_spill"]
+    beta, lo, hi = ks.top_spill_loo(K, y, alpha, C, t)
+    after = ops.route_counts()["top_spill"]
+    assert after == {"fused": before["fused"], "split": before["split"] + 1}
+    want, lo_c, hi_c = _top_plain(col, yc, ac, C, t)
+    assert torch.equal(beta.cpu(), want)
+    assert torch.equal(_bits(lo.cpu()), _bits(lo_c))
+    assert torch.equal(_bits(hi.cpu()), _bits(hi_c))
+
+
 def _row_problem(cuda, name="heart", n=270, h=1):
     """The ATO C row (0.01, 1, 100 x C) at fold h-1, solved by the batched
     solve, and the h-1 -> h index sets."""

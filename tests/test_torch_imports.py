@@ -1,7 +1,7 @@
 """Import rule of the port: no module of ``src/repro_torch/``, and none of
 ``chip_smoke.py``, ``chip_flash_mutants.py``, ``chip_smo_variants.py``,
-``chip_sir_split.py``, ``chip_ato_split.py`` and ``chip_ato_phases.py``,
-imports jax or the JAX package ``repro``; and every entry point defaults
+``chip_sir_split.py``, ``chip_ato_split.py``, ``chip_ato_phases.py`` and
+``chip_spill_phases.py``, imports jax or the JAX package ``repro``; and every entry point defaults
 to ``cuda``, raising without a GPU unless given ``device="cpu"``."""
 import ast
 from pathlib import Path
@@ -13,7 +13,8 @@ ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py", ROOT / "chip_flash_mutants.py",
        ROOT / "chip_smo_variants.py", ROOT / "chip_sir_split.py",
-       ROOT / "chip_ato_split.py", ROOT / "chip_ato_phases.py"]
+       ROOT / "chip_ato_split.py", ROOT / "chip_ato_phases.py",
+       ROOT / "chip_spill_phases.py"]
 
 
 def _imported(tree):

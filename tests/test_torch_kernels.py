@@ -121,6 +121,8 @@ def test_cpu_tensors_launch_no_kernel():
     ops.avg_spill(y, lo - 1, hi, on, torch.tensor(0.5, dtype=torch.float64))
     ops.top_spill(torch.arange(n), y, lo - 1, hi,
                   torch.tensor(0.5, dtype=torch.float64))
+    ops.avg_spill_loo(y, hi * 0.5, 1.0, 0)
+    ops.top_spill_loo(K, y, hi * 0.5, 1.0, n - 1)
     assert ops.launch_counts() == {"rbf_kernel_matrix": 0,
                                    "smo_f_update": 0, "smo_chunk": 0,
                                    "fused_smo_step": 0, "smo_select": 0,
@@ -129,6 +131,162 @@ def test_cpu_tensors_launch_no_kernel():
                                    "sir_greedy": 0, "ato_system_lanes": 0,
                                    "ato_apply_lanes": 0, "avg_spill": 0,
                                    "top_spill": 0}
+    assert ops.route_counts()["avg_spill"] == {"fused": 0, "split": 0}
+    assert ops.route_counts()["top_spill"] == {"fused": 0, "split": 0}
+
+
+def _loo_case(n, t, seed, C=2.5):
+    """(y, alpha, C, t): labels +-1, alpha at 0 (beta -0.0 where y = -1),
+    at C and inside the box."""
+    rng = np.random.default_rng(seed)
+    y = torch.from_numpy(np.where(rng.random(n) < 0.5, 1.0, -1.0))
+    u = rng.random(n)
+    alpha = torch.from_numpy(np.where(u < 0.3, 0.0, np.where(
+        u < 0.5, C, rng.random(n) * C)))
+    return y, alpha, C, t
+
+
+def _glue(y, C, alpha, t):
+    """The LOO seeders' prologue as the seeders wrote it before the fused
+    routes (``_loo_start`` and the free0 lines)."""
+    beta = y * alpha
+    resid = beta[t].clone()
+    beta.select(0, t).fill_(0.0)
+    c = torch.full_like(y, C)
+    hi = torch.where(y > 0, c, 0.0)
+    lo = hi - c
+    lo.select(0, t).fill_(0.0)
+    hi.select(0, t).fill_(0.0)
+    free0 = (alpha > 0) & (alpha < C)
+    free0.select(0, t).fill_(False)
+    return beta, resid, lo, hi, free0
+
+
+def _same_bits(a, b):
+    if a.dtype == torch.float64:
+        return torch.equal(a.view(torch.int64), b.view(torch.int64))
+    return torch.equal(a, b)
+
+
+LOO_CASES = [(27, 0, 1), (27, 26, 2), (270, 9, 3), (270, 269, 4),
+             (1000, 499, 5), (1000, 0, 6)]
+
+
+@pytest.mark.parametrize("n,t,seed", LOO_CASES)
+def test_loo_start_plain_is_the_seeders_glue(n, t, seed):
+    """The fused spills' prologue from (y, alpha, C, t), bitwise the
+    seeders' earlier glue: beta (its -0.0 too), resid, lo, hi, free0."""
+    y, alpha, C, t = _loo_case(n, t, seed)
+    got = ref.loo_start_ref(y, alpha, C, t)
+    want = _glue(y, C, alpha, t)
+    assert all(_same_bits(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("n,t,seed", LOO_CASES)
+def test_spill_loo_plain_is_the_seeders_glue(n, t, seed):
+    """avg_spill_loo / top_spill_loo on the CPU: the glue, then the spill's
+    plain version (and TOP's stable argsort), bit for bit."""
+    y, alpha, C, t = _loo_case(n, t, seed)
+    K = torch.from_numpy(np.random.default_rng(seed).random((n, n)))
+    beta, resid, lo, hi, free0 = _glue(y, C, alpha, t)
+    got = ops.avg_spill_loo(y, alpha, C, t)
+    want = ref.avg_spill_ref(beta, lo, hi, free0, resid)
+    assert all(_same_bits(a, b) for a, b in zip(got, (want, lo, hi)))
+    sim = K[:, t].clone()
+    sim.select(0, t).fill_(-math.inf)
+    order = torch.argsort(-sim, stable=True)
+    got = ops.top_spill_loo(K, y, alpha, C, t)
+    want = ref.top_spill_ref(order, beta, lo, hi, resid)
+    assert all(_same_bits(a, b) for a, b in zip(got, (want, lo, hi)))
+
+
+def _avg_spill_counted(beta, lo, hi, free0, resid):
+    """avg_spill's fused route in plain torch: each of the 8 rounds takes
+    its count of free rows with room from the round before, which counts
+    both sides (above: hi - beta > 1e-15, below: beta - lo > 1e-15) on the
+    beta it leaves (round 0's from the entry), and picks the side of its
+    residual."""
+    resid = torch.as_tensor(resid, dtype=beta.dtype, device=beta.device)
+
+    def counts(b):
+        return ((free0 & (hi - b > 1e-15)).sum(),
+                (free0 & (b - lo > 1e-15)).sum())
+    up, down = counts(beta)
+    for _ in range(8):
+        share = resid / torch.clamp_min(torch.where(resid >= 0, up, down), 1)
+        room = torch.where(resid >= 0, hi - beta, beta - lo)
+        add = torch.clamp(torch.where(free0 & (room > 1e-15), share, 0.0),
+                          -(beta - lo), hi - beta)
+        beta = beta + add
+        up, down = counts(beta)
+        resid = resid - add.sum()
+    return beta
+
+
+def _loo_order_lists(sim, t: int, threads: int):
+    """top_spill's fused route's order in plain torch: the rows in lists
+    by warp (row j in list (j % threads) // 32), each list in
+    ``loo_order_ref``'s order, and the order taken 32 rows at a time, the
+    least of every list's next 32 (ties by the lower index), each list's
+    head moving on by its rows among them."""
+    n = sim.shape[0]
+    v = -sim.clone()
+    v.select(0, t).fill_(math.inf)
+    rows = torch.arange(n, device=sim.device)
+    owner = (rows % threads) // 32
+    lists = [rows[owner == w] for w in range((threads + 31) // 32)]
+    lists = [r[torch.argsort(v[r], stable=True)] for r in lists]
+    heads, out = [0] * len(lists), []
+    while sum(heads) < n:
+        cand = torch.cat([r[h:h + 32] for r, h in zip(lists, heads)])
+        cand = cand.sort().values
+        take = cand[torch.argsort(v[cand], stable=True)][:32]
+        out.append(take)
+        for w in range(len(lists)):
+            heads[w] += int((owner[take] == w).sum())
+    return torch.cat(out)
+
+
+@pytest.mark.parametrize("n,t,seed", LOO_CASES)
+@pytest.mark.parametrize("side", [1.0, -1.0])
+def test_avg_spill_counted_model_bitwise(n, t, seed, side):
+    """The fused AVG route's schedule (each round's count from the round
+    before, both sides counted) is the spill's plain version bit for bit,
+    with the residual of either sign."""
+    y, alpha, C, t = _loo_case(n, t, seed)
+    y[t], alpha[t] = side, 0.7 * C
+    beta, resid, lo, hi, free0 = ref.loo_start_ref(y, alpha, C, t)
+    assert _same_bits(_avg_spill_counted(beta, lo, hi, free0, resid),
+                      ref.avg_spill_ref(beta, lo, hi, free0, resid))
+
+
+def test_top_fused_max_rows_is_the_kernels():
+    """The wrapper's size limit for TOP's fused route is the kernel's own
+    (``kTopMaxRows`` in ``csrc/seeding.cu``), so the route by size never
+    hands the C entry a size it refuses."""
+    from pathlib import Path
+
+    from repro_torch.kernels import seeding as ks
+    src = (Path(ks.__file__).parent / "csrc" / "seeding.cu").read_text()
+    assert (f"constexpr int kTopMaxRows = {ks.TOP_FUSED_MAX_ROWS};"
+            in src)
+
+
+@pytest.mark.parametrize("n,threads", [(27, 32), (270, 256), (1000, 256),
+                                       (3000, 1024)])
+def test_loo_order_lists_model(n, threads):
+    """The fused TOP route's order (per-warp sorted lists, 32 rows merged
+    at a time) is the stable argsort's, entry for entry: ties, -0.0 beside
+    +0.0, NaN (after row t) and row t itself."""
+    rng = np.random.default_rng(n)
+    sim = torch.from_numpy(rng.random(n))
+    sim[1::4] = sim[0]
+    sim[2::7] = 0.0
+    sim[3::7] = -0.0
+    sim[n // 2] = math.nan
+    t = n // 3
+    assert torch.equal(_loo_order_lists(sim, t, threads),
+                       ref.loo_order_ref(sim, t))
 
 
 def test_arg_reduces_nan_guard():
@@ -597,6 +755,14 @@ def test_cpu_tensors_count_no_route():
                             torch.zeros(1, dtype=torch.bool),
                             torch.zeros(1, dtype=torch.int64), 30,
                             carry=carry)
+    # the LOO spills: the fused entries and the split kernels
+    alpha = y.abs() * 0.5
+    for t in (0, 19):
+        ops.avg_spill_loo(y, alpha, 1.0, t)
+        ops.top_spill_loo(K, y, alpha, 1.0, t)
+    beta, resid, lo, hi, free0 = ref.loo_start_ref(y, alpha, 1.0, 3)
+    ops.avg_spill(beta, lo, hi, free0, resid)
+    ops.top_spill(ref.loo_order_ref(K[:, 3], 3), beta, lo, hi, resid)
     assert ops.route_counts() == {
         "rbf_kernel_matrix": {"tensor": 0, "fma": 0},
         "smo_chunk": {"one_block": 0, "multi_block": 0, "cluster": 0,
@@ -604,7 +770,9 @@ def test_cpu_tensors_count_no_route():
         "smo_stream_chunk": {"pair": 0, "persistent": 0},
         "flash_attention": {"fma": 0, "mma": 0, "wgmma": 0},
         "ato_system_lanes": {"compact": 0, "carried": 0},
-        "ato_apply_lanes": {"split": 0, "fused": 0}}
+        "ato_apply_lanes": {"split": 0, "fused": 0},
+        "avg_spill": {"fused": 0, "split": 0},
+        "top_spill": {"fused": 0, "split": 0}}
 
 
 @pytest.mark.parametrize("window", [0, -3, 2.5])
