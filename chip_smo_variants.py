@@ -112,10 +112,10 @@ def entries(lib: str):
     fused = so.fused_smo_step_f64
     fused.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _D, _P]
     plan = so.smo_stream_plan
-    plan.argtypes = [_I, _I, _I, _P, _P, _P]
+    plan.argtypes = [_I, _I, _I, _I, _P, _P, _P]
     pers = so.smo_stream_persistent_f64
     pers.argtypes = [_P, _P, _P, _P, _P, _P, _D, _P, _LL, _D, _P, _P, _P,
-                     _P, _I, _I, _I, _I, _I, _I, _P, _P]
+                     _P, _I, _I, _I, _I, _I, _I, _P, _LL, _LL, _I, _P]
     for fn in (fused, plan, pers):
         fn.restype = ctypes.c_int
     return fused, plan, pers
@@ -205,8 +205,8 @@ def main() -> int:
                     ok &= err <= 1e-12
                 rec[f"fused_ms_graph_{rows}x{lanes}"] = graph_ms(step, REPS)
             m, sl, ws = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_longlong(0)
-            check(plan(N, d, LANES, ctypes.addressof(m), ctypes.addressof(sl),
-                       ctypes.addressof(ws)), "plan")
+            check(plan(N, d, LANES, 1, ctypes.addressof(m),
+                       ctypes.addressof(sl), ctypes.addressof(ws)), "plan")
             rec["blocks"], rec["slice"] = m.value, sl.value
             times = []
             for _ in range(2):   # the first launch warms up
@@ -222,7 +222,8 @@ def main() -> int:
                            y.data_ptr(), masks.data_ptr(), Cs.data_ptr(), 1e-3,
                            caps.data_ptr(), CAP + 1, ds.gamma,
                            *(t.data_ptr() for t in st), N, d, Xp.stride(0),
-                           LANES, m.value, sl.value, w.data_ptr(), stream()),
+                           LANES, m.value, sl.value, w.data_ptr(), 0, 0, 1,
+                           stream()),
                       "persistent")
                 end.record()
                 end.synchronize()

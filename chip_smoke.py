@@ -27,6 +27,13 @@ to 0 just before it and read just after:
   at a time; its cell at the paper's (C, gamma) equal to ``run_cv``
   there) and ``loo`` (``run_loo``: the suppl. Fig. 2 cases, heart n=270
   for 270 rounds and madelon n=600 for 120, and adult n=1000 for 20);
+* active-set shrinking (``shrink``, ``shrink_size``, ``svc``): ``run_cv``
+  and ``run_cv_batched`` (dense and matrix-free) at Table 1's sizes and
+  at adult n=32,560, each beside the same call without shrinking (equal
+  per-fold correct counts, objectives within 1e-6), compact groups of
+  lanes on the per-lane chunk kernels (``smo_chunk_sources``,
+  ``smo_stream_chunk_sources``: each replayed call bitwise its lanes'
+  solo launches), and the ``SVC`` estimator at adult n=32,560;
 * LM serving of granite-8b at full width and depth in bf16 (random weights
   from a seed): prefill of 2 x 4,096 tokens, every attention layer through
   the flash-attention kernel's wgmma route, then 4 requests served through
@@ -130,6 +137,8 @@ SIZE_MATRIX_FREE_ITERATIONS = 443_772
 #: through the tensor cores (the most the card can do in float64)
 HBM_BPS = 3.35e12
 FP64_FLOPS = 67e12
+#: the H100's L2: operands larger than this are read from HBM every pass
+L2_BYTES = 50e6
 #: dense bf16 FLOP/s of the tensor cores (the attention kernel's bound)
 BF16_FLOPS = 989e12
 #: the reference's flash-attention sweep (tests/test_kernels.py:37-40):
@@ -2043,7 +2052,7 @@ def phase_seed_split(size_ds=None):
 def phase_size(ds, n_sir_folds: int = 2):
     """Adult at the paper's cardinality: K by the RBF kernel (checked on a
     slab of rows), cold fold 0, then SIR-seeded folds, each with the route
-    its chunk took and its time per iteration."""
+    its chunk took and its time per iteration. Returns the folds' rows."""
     from repro_torch.core.cv import _eval_fold, _fold_masks, _transition_idx
     from repro_torch.core.seeding import sir_seed
     from repro_torch.data.svm_suite import kfold_chunks
@@ -2086,7 +2095,8 @@ def phase_size(ds, n_sir_folds: int = 2):
         require(bool(res.converged) and math.isfinite(obj),
                 f"size fold {h}: converged={bool(res.converged)} obj={obj}")
         folds.append({"fold": h, "seed": "cold" if prev is None else "sir",
-                      "route": route, "n_iter": it, "init_s": t1 - ts,
+                      "route": route, "n_iter": it, "correct": correct,
+                      "init_s": t1 - ts,
                       "solve_s": t2 - t1,
                       "us_per_iter": 1e6 * (t2 - t1) / max(it, 1),
                       "accuracy": correct / total, "objective": obj})
@@ -2096,7 +2106,7 @@ def phase_size(ds, n_sir_folds: int = 2):
           "kernel_s": kernel_s, "slab_max_abs_err": slab_err,
           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
           "folds": folds})
-    return [f["accuracy"] for f in folds]
+    return folds
 
 
 def phase_size_wide(ds):
@@ -2854,7 +2864,8 @@ def phase_size_matrix_free(ds, dense_accs):
     """Matrix-free 10-fold cold CV at the paper's cardinality: peak device
     memory under 3 GiB (the dense path's K alone is 8.48 GB), and the
     folds the dense path solved give its accuracy (the evaluation by
-    ``rows_at`` and the streaming ``matvec`` checked at that size)."""
+    ``rows_at`` and the streaming ``matvec`` checked at that size).
+    Returns the per-fold (correct, total)."""
     from repro_torch.core.cv import run_cv_batched
     from repro_torch.kernels import ops
     t0 = time.perf_counter()
@@ -2890,6 +2901,7 @@ def phase_size_matrix_free(ds, dense_accs):
           "per_fold_accuracy": accs, "dense_accuracy": dense_accs,
           "peak_gb": peak / 1e9, "occupancy": rep.occupancy,
           "stream_routes": routes})
+    return [(f.acc_correct, f.acc_total) for f in rep.folds]
 
 
 def _row_rel(got, want) -> float:
@@ -3962,6 +3974,424 @@ def phase_loo():
     require(not failed, "; ".join(failed))
 
 
+#: the shrink phase's heuristic period and compact quantum at Table 1's
+#: sizes (every case compacts at least once), and the size phases'
+SHRINK_EVERY, SHRINK_QUANTUM = 128, 32
+SHRINK_SIZE_EVERY = 1024
+#: the matrix-free size run's compact quantum: coarse, so that lanes share
+#: cap buckets and run as groups on the per-lane kernels
+SHRINK_SIZE_QUANTUM = 2048
+#: per-lane calls of each kernel and lane size the shrink phase keeps to
+#: check and time
+SHRINK_RECORD = 2
+
+
+class _LaneCalls:
+    """Wraps ``repro_torch.svm.engine``'s per-lane chunk wrappers (those
+    ``chunk_batched_sources`` calls) to keep a copy of the arguments of the
+    first ``keep`` calls of each over more than one lane at each lane size
+    (taken before the call, kept in host memory: the runs' device peaks
+    stay theirs; ``replay`` moves a call back to the card)."""
+
+    NAMES = ("smo_chunk_sources", "smo_stream_chunk_sources")
+
+    def __init__(self, keep: int):
+        from repro_torch.svm import engine
+        self.engine, self.keep = engine, keep
+        self.calls = {k: [] for k in self.NAMES}
+        self.saved = {}
+
+    def __enter__(self):
+        for name in self.NAMES:
+            fn = self.saved[name] = getattr(self.engine, name)
+
+            def rec(*a, _fn=fn, _k=name, **kw):
+                kept = sum(c[0][0].shape[1] == a[0].shape[1]
+                           for c in self.calls[_k])
+                if kept < self.keep and a[0].shape[0] > 1:
+                    self.calls[_k].append(_clone_call(a, kw, to="cpu"))
+                return _fn(*a, **kw)
+            setattr(self.engine, name, rec)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.engine, name, fn)
+
+    def replay(self, name: str):
+        """The kept calls of ``name``, on the card."""
+        return [_clone_call(a, kw, to="cuda") for a, kw in self.calls[name]]
+
+
+def _lane_iters(before, after) -> int:
+    """The most iterations a lane of a chunk took."""
+    return max(int((after - before).max()), 1)
+
+
+def _live_iters(before, after) -> list[int]:
+    """The iterations each lane of a chunk took, lanes that took none
+    (pad lanes, done at entry) left out: the work the chunk did."""
+    return [i for i in (after - before).tolist() if i > 0]
+
+
+def _check_dense_sources(a, kw) -> dict:
+    """A recorded ``smo_chunk_sources`` call, replayed: each lane bitwise
+    its own ``smo_chunk_lanes`` launch over its own K and the plain step
+    engine (its f-update through the ``smo_f_update`` kernel); the call
+    timed per iteration of its longest lane, the plain loop beside it."""
+    from repro_torch.kernels import ops, ref
+    (K, diag, y, masks, Cs, tol, caps, n_iters, wss, *state) = a
+    b, cap = masks.shape
+    before = ops.route_counts()["smo_chunk_sources"]
+    got = ops.smo_chunk_sources(*_clone(a), **kw)
+    route = _route_taken(before, ops.route_counts()["smo_chunk_sources"])
+    sync()
+    tp = time.perf_counter()
+    plain = ref.smo_chunk_sources_ref(*_clone(a), update_f=ops.smo_f_update)
+    sync()
+    plain_s = time.perf_counter() - tp
+    Cl = torch.as_tensor(Cs).reshape(-1).tolist()
+    cl = torch.as_tensor(caps).reshape(-1).tolist()
+    for l in range(b):
+        solo = ops.smo_chunk_lanes(K[l], diag[l], y[l], masks[l:l + 1],
+                                   [Cl[l]], tol, [cl[l]], n_iters, wss,
+                                   *(t[l:l + 1].clone() for t in state))
+        for g, s_, p_, what in zip(got, solo, plain,
+                                   ("alpha", "f", "n_iter", "done")):
+            require(torch.equal(g[l], s_[0]) and torch.equal(g[l], p_[l]),
+                    f"smo_chunk_sources lane {l} ({route}): {what} differs "
+                    "from its solo launch or the plain step engine")
+    it = _lane_iters(state[2], got[2])
+    # the wrapper copies the state it updates, so the inputs serve every
+    # timed call as they are
+    ms = cuda_ms(lambda: ops.smo_chunk_sources(*a, **kw), 3)
+    # the work done: each live lane's own iterations, its K_i and K_j rows
+    # an iteration and its state once, per iteration of the longest lane
+    lane_its = _live_iters(state[2], got[2])
+    work = sum(i * _chunk_iter_bytes(cap, i) for i in lane_its)
+    return {"lanes": b, "live_lanes": len(lane_its), "cap": cap,
+            "route": route, "iterations": it, "lane_iterations": lane_its,
+            "ms": ms / it, "plain_ms": 1e3 * plain_s / it,
+            "max_abs_err": 0.0, "library_ms": None,
+            **_bound(work / it, 0.0)}
+
+
+def _check_stream_sources(a, kw) -> dict:
+    """A recorded ``smo_stream_chunk_sources`` call, replayed: each lane
+    bitwise its own ``smo_stream_chunk`` over its own X on both routes,
+    and within 1e-10 of the plain loop after up to 200 iterations (its
+    products are a matmul, not the kernels' ordered fma); timed per
+    iteration of its longest lane, the plain loop beside it."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.smo_chunk import pad_rows
+    (X, sq, gamma, y, masks, Cs, tol, caps, n_iters, *state) = a
+    b, cap, d = X.shape
+    kw = dict(kw, X_rows=pad_rows(X))   # a copy keeps no padded rows
+    before = ops.route_counts()["smo_stream_chunk_sources"]
+    got = ops.smo_stream_chunk_sources(*_clone(a), **kw)
+    route = _route_taken(before,
+                         ops.route_counts()["smo_stream_chunk_sources"])
+    Cl = torch.as_tensor(Cs).reshape(-1).tolist()
+    cl = torch.as_tensor(caps).reshape(-1).tolist()
+    for l in range(b):
+        for r in ("pair", "persistent"):
+            solo = ops.smo_stream_chunk(
+                X[l], sq[l], gamma, y[l], masks[l:l + 1], [Cl[l]], tol,
+                [cl[l]], n_iters, *(t[l:l + 1].clone() for t in state),
+                X_norms=kw["X_norms"][l], _route=r)
+            for g, s_, what in zip(got, solo, ("alpha", "f", "n_iter",
+                                               "done")):
+                require(torch.equal(g[l], s_[0]),
+                        f"smo_stream_chunk_sources lane {l} ({route}): "
+                        f"{what} differs from its solo {r} launch")
+    short = min(int(n_iters), 200)
+    cut = ops.smo_stream_chunk_sources(*_clone(a[:8]), short,
+                                       *_clone(state), **kw)
+    sync()
+    tp = time.perf_counter()
+    plain = ref.smo_chunk_sources_ref(None, None, y, masks, Cs, tol, caps,
+                                      short, "1", *_clone(state),
+                                      stream=(X, sq, gamma))
+    sync()
+    plain_s = time.perf_counter() - tp
+    err = max(float((cut[k] - plain[k]).abs().max()) for k in (0, 1))
+    require(err <= 1e-10, f"smo_stream_chunk_sources: {err} from the plain "
+                          "loop")
+    it = _lane_iters(state[2], got[2])
+    # the wrapper copies the state it updates, so the inputs serve every
+    # timed call as they are
+    ms = cuda_ms(lambda: ops.smo_stream_chunk_sources(*a, **kw), 3)
+    # the work done: each live lane's own iterations, 4 cap d FP64
+    # operations each (both kernel rows); its state, labels and norms
+    # once; its X once where the live lanes' X fit in the L2 together,
+    # else at every iteration it takes; per iteration of the longest lane
+    lane_its = _live_iters(state[2], got[2])
+    x_lane = 8.0 * cap * d
+    x_bytes = sum(lane_its) * x_lane if len(lane_its) * x_lane > L2_BYTES \
+        else len(lane_its) * x_lane
+    state_bytes = len(lane_its) * cap * (8 * 4 + 1 + 8 * 3)
+    return {"lanes": b, "live_lanes": len(lane_its), "cap": cap, "d": d,
+            "route": route, "iterations": it, "lane_iterations": lane_its,
+            "ms": ms / it,
+            "plain_ms": 1e3 * plain_s / _lane_iters(state[2], plain[2]),
+            "max_abs_err": err, "library_ms": None,
+            "x_from_hbm_every_iteration": len(lane_its) * x_lane > L2_BYTES,
+            **_bound((x_bytes + state_bytes) / it,
+                     sum(lane_its) * 4.0 * cap * d / it)}
+
+
+def _shrink_gates(tag: str, base, shr) -> dict:
+    """A shrinking run against the same call without shrinking: every fold
+    converged (its full-set gap within tol), the same per-fold correct
+    counts, the objective within 1e-6 relative, a lane compacted; the
+    shrink lifecycle's host reads one at each lane's chunk end and the
+    others at boundaries only."""
+    from repro_torch.svm import shrink
+    occ = shr.occupancy
+    require(all(f.converged for f in shr.folds),
+            f"{tag}: a shrunk fold did not converge")
+    got = [(f.acc_correct, f.acc_total) for f in shr.folds]
+    want = [(f.acc_correct, f.acc_total) for f in base.folds]
+    require(got == want, f"{tag}: per-fold correct {got}, unshrunk {want}")
+    rel = max(abs(a.objective - b.objective) / abs(b.objective)
+              for a, b in zip(shr.folds, base.folds))
+    require(rel <= 1e-6, f"{tag}: objective {rel} relative from unshrunk")
+    chunks = occ.get("shrink_lane_chunks", 0)
+    require(chunks > 0 and occ["mean_active_frac"] < 1.0,
+            f"{tag}: no lane compacted ({occ})")
+    syncs = dict(shrink.HOST_SYNCS)
+    require(syncs["chunk_end"] == chunks
+            and syncs["gap"] + syncs["active"]
+            <= 3 * chunks + 2 * len(shr.folds),
+            f"{tag}: host reads {syncs} for {chunks} lane chunks")
+    return {"iterations": shr.total_iterations,
+            "unshrunk_iterations": base.total_iterations,
+            "per_fold_iterations": [f.n_iter for f in shr.folds],
+            "solve_s": shr.total_solve_time,
+            "unshrunk_solve_s": base.total_solve_time,
+            "init_s": shr.total_init_time,
+            "mean_active_frac": occ["mean_active_frac"],
+            "shrink_lane_chunks": chunks, "programs": occ["programs"],
+            "objective_rel": rel, "host_reads": syncs,
+            "accuracy": shr.accuracy}
+
+
+def _gather_no_sync() -> dict:
+    """A lane's compaction round trip (``enter``, ``scatter``,
+    ``tighten``) on the card under ``set_sync_debug_mode("error")``: the
+    gathers and scatters make no host sync."""
+    from repro_torch.data.svm_suite import make_dataset
+    from repro_torch.svm import kernel_matrix, shrink
+    from repro_torch.svm.engine import DenseKernel, init_state, solve
+    ds = make_dataset("adult", n_override=1000)
+    dev = torch.device("cuda")
+    X = torch.as_tensor(ds.X, device=dev)
+    y = torch.as_tensor(ds.y, dtype=torch.float64, device=dev)
+    src = DenseKernel(kernel_matrix(X, X, gamma=ds.gamma))
+    mask = torch.ones(1000, dtype=torch.bool, device=dev)
+    mask[:100] = False      # a fold's test rows never are active
+    done = solve(src, y, mask, ds.C, torch.zeros_like(y), -y)
+    state = init_state(src, y, mask, done.alpha, done.f)
+    active, _ = shrink.active_set(state.alpha, state.f, y, mask, ds.C)
+    ls = shrink.LaneShrink(1000, every=128, quantum=32)
+    require(ls.mark(active, int(active.sum())),
+            "shrink: the solved lane does not compact")
+    sync()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ls.enter(src, y, state)
+        full = ls.scatter(state)
+        ls.tighten(ls.cmask.clone(), ls.m)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    sync()
+    require(torch.equal(full.alpha, state.alpha)
+            and torch.equal(full.f, state.f),
+            "shrink: a compaction round trip changed the state")
+    return {"cap": ls.cap, "active": ls.m}
+
+
+def phase_shrink() -> dict:
+    """Active-set shrinking at Table 1's sizes (heart n=270, adult n=1000,
+    k=10, ``SHRINK_EVERY`` / ``SHRINK_QUANTUM``): ``run_cv`` cold and sir,
+    then ``run_cv_batched`` dense and matrix-free (``pallas_rbf``), each
+    beside the same call without shrinking (``_shrink_gates``); compact
+    groups of more than one lane run the per-lane kernels, whose first
+    calls are replayed (``_check_dense_sources`` /
+    ``_check_stream_sources``). Returns the kernels line's entries, and
+    the launch counts and routes read before the replays."""
+    from repro_torch.core.cv import run_cv, run_cv_batched
+    from repro_torch.data.svm_suite import make_dataset
+    from repro_torch.kernels import ops
+    from repro_torch.svm import shrink
+    t0 = time.perf_counter()
+    kw = dict(shrink_every=SHRINK_EVERY, shrink_quantum=SHRINK_QUANTUM)
+    rows = []
+    rec = _LaneCalls(SHRINK_RECORD)
+    for name, refd in REFERENCE.items():
+        ds = make_dataset(name, n_override=refd["n"])
+        for method in ("cold", "sir"):
+            base = run_cv(ds, k=10, method=method)
+            shrink.HOST_SYNCS.update(dict.fromkeys(shrink.HOST_SYNCS, 0))
+            shr = run_cv(ds, k=10, method=method, **kw)
+            rows.append({"dataset": name, "call": "run_cv",
+                         "method": method,
+                         **_shrink_gates(f"shrink {name} {method}", base,
+                                         shr)})
+        for backend in ("dense", "pallas_rbf"):
+            base = run_cv_batched(ds, k=10, source_backend=backend)
+            shrink.HOST_SYNCS.update(dict.fromkeys(shrink.HOST_SYNCS, 0))
+            with rec:
+                shr = run_cv_batched(ds, k=10, source_backend=backend, **kw)
+            rows.append({"dataset": name, "call": "run_cv_batched",
+                         "method": backend,
+                         **_shrink_gates(f"shrink {name} {backend}", base,
+                                         shr)})
+    for name in rec.NAMES:
+        require(rec.calls[name], f"shrink: no compact group of more than "
+                                 f"one lane reached {name}")
+    counts, routes = ops.launch_counts(), ops.route_counts()
+    checks = {
+        "smo_chunk_sources": [_check_dense_sources(*c)
+                              for c in rec.replay("smo_chunk_sources")],
+        "smo_stream_chunk_sources": [
+            _check_stream_sources(*c)
+            for c in rec.replay("smo_stream_chunk_sources")]}
+    no_sync = _gather_no_sync()
+    emit({"phase": "shrink", "seconds": time.perf_counter() - t0,
+          "shrink_every": SHRINK_EVERY, "shrink_quantum": SHRINK_QUANTUM,
+          "rows": rows, "per_lane_checks": checks,
+          "gather_no_sync": no_sync})
+    # the kernels line: the widest recorded call of each
+    return ({name: max(calls, key=lambda c: (c["lanes"], c["cap"]))
+             for name, calls in checks.items()}, counts, routes)
+
+
+def phase_shrink_size(ds, size_folds, mf_folds) -> dict:
+    """Shrinking at the paper's cardinality (adult n=32,560, d=123,
+    ``SHRINK_SIZE_EVERY``): (a) ``run_cv(k=10, method="sir")`` over the
+    dense K, one lane at a time, beside the same run without shrinking:
+    the same per-fold correct counts (``size``'s folds printed beside
+    them) and peak memory under 2 x K's bytes (K and a lane's compact K);
+    (b)
+    matrix-free ``run_cv_batched`` of ten lanes beside
+    ``size_matrix_free``'s unshrunk counts, peak under 3 GiB; its first
+    per-lane call replayed and timed (``_check_stream_sources``). Returns
+    the streaming entry at this size, and the launch counts and routes
+    read before the replay."""
+    from repro_torch.core.cv import run_cv, run_cv_batched
+    from repro_torch.kernels import ops
+    from repro_torch.svm import shrink
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    base = run_cv(ds, k=10, method="sir")
+    k_bytes = base.n * base.n * 8
+    # a finished run holds no K: reference counting alone frees it
+    held = torch.cuda.memory_allocated()
+    require(held < k_bytes, f"shrink_size: {held} B still allocated after "
+                            f"the unshrunk run, K's {k_bytes}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    shrink.HOST_SYNCS.update(dict.fromkeys(shrink.HOST_SYNCS, 0))
+    shr = run_cv(ds, k=10, method="sir", shrink_every=SHRINK_SIZE_EVERY)
+    peak = torch.cuda.max_memory_allocated()
+    dense = _shrink_gates("shrink_size dense", base, shr)
+    require(peak < 2 * k_bytes,
+            f"shrink_size dense: peak {peak} B >= 2 x K's {k_bytes}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    shrink.HOST_SYNCS.update(dict.fromkeys(shrink.HOST_SYNCS, 0))
+    rec = _LaneCalls(1)
+    with rec:
+        mf = run_cv_batched(ds, k=10, source_backend="pallas_rbf",
+                            shrink_every=SHRINK_SIZE_EVERY,
+                            shrink_quantum=SHRINK_SIZE_QUANTUM)
+    mf_peak = torch.cuda.max_memory_allocated()
+    require(mf_peak < PEAK_LIMIT, f"shrink_size matrix-free: peak {mf_peak}"
+                                  " B >= 3 GiB")
+    mf_got = [(f.acc_correct, f.acc_total) for f in mf.folds]
+    require(mf_got == mf_folds, f"shrink_size matrix-free: folds {mf_got}, "
+                                f"size_matrix_free's {mf_folds}")
+    require(all(f.converged for f in mf.folds)
+            and mf.occupancy.get("shrink_lane_chunks", 0) > 0,
+            "shrink_size matrix-free: a fold did not converge or no lane "
+            "compacted")
+    mf_syncs = dict(shrink.HOST_SYNCS)
+    counts, routes = ops.launch_counts(), ops.route_counts()
+    # the widest call kept at this size (one a lane size), on the card
+    calls = rec.calls["smo_stream_chunk_sources"]
+    entry = _check_stream_sources(*_clone_call(*max(
+        calls, key=lambda c: (c[0][0].shape[0], c[0][0].shape[1])),
+        to="cuda")) if calls else None
+    rec.calls.clear()
+    lane_max = max(f.n_iter for f in mf.folds)
+    emit({"phase": "shrink_size", "seconds": time.perf_counter() - t0,
+          "n": shr.n, "shrink_every": SHRINK_SIZE_EVERY,
+          "matrix_free_quantum": SHRINK_SIZE_QUANTUM,
+          "size_folds_correct": [f["correct"] for f in size_folds],
+          "dense": {**dense, "peak_gb": peak / 1e9, "K_gb": k_bytes / 1e9,
+                    "us_per_iteration":
+                        1e6 * shr.total_solve_time
+                        / max(shr.total_iterations, 1),
+                    "unshrunk_us_per_iteration":
+                        1e6 * base.total_solve_time
+                        / max(base.total_iterations, 1)},
+          "matrix_free": {
+              "iterations": mf.total_iterations,
+              "unshrunk_iterations": SIZE_MATRIX_FREE_ITERATIONS,
+              "per_fold_iterations": [f.n_iter for f in mf.folds],
+              "solve_s": mf.total_solve_time,
+              "us_per_longest_lane_iteration":
+                  1e6 * mf.total_solve_time / max(lane_max, 1),
+              "mean_active_frac": mf.occupancy["mean_active_frac"],
+              "shrink_lane_chunks": mf.occupancy["shrink_lane_chunks"],
+              "host_reads": mf_syncs, "peak_gb": mf_peak / 1e9,
+              "accuracy": mf.accuracy, "per_lane_call": entry}})
+    return entry, counts, routes
+
+
+def phase_svc(ds, size_folds, cold_folds) -> dict:
+    """The ``SVC`` estimator: fit on adult n=32,560 without fold 0's rows,
+    scored on fold 0 (the correct count of ``size``'s fold 0, and its
+    iterations beside it); the same fit with ``SHRINK_SIZE_EVERY``
+    predicting the same; ``cross_validate(k=10, method="sir")`` at adult
+    n=1000 with Table 1's per-fold counts."""
+    from repro_torch.data.svm_suite import kfold_chunks, make_dataset
+    from repro_torch.svm import SVC
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    chunks = kfold_chunks(ds.n, 10)
+    n = chunks.size
+    test = np.sort(chunks[0])
+    train = np.setdiff1d(np.arange(n), test)
+    X, y = ds.X[:n], ds.y[:n]
+    tf = time.perf_counter()
+    svc = SVC(C=ds.C, gamma=ds.gamma).fit(X[train], y[train])
+    sync()
+    fit_s = time.perf_counter() - tf
+    pred = svc.predict(X[test])
+    correct = int((pred == y[test]).sum())
+    f0 = size_folds[0]
+    require(svc.converged_, "svc: the fit did not converge")
+    require(correct == f0["correct"],
+            f"svc: {correct} correct on fold 0, size's fold 0 {f0['correct']}")
+    svc_s = SVC(C=ds.C, gamma=ds.gamma,
+                shrink_every=SHRINK_SIZE_EVERY).fit(X[train], y[train])
+    require(svc_s.converged_ and np.array_equal(svc_s.predict(X[test]), pred),
+            "svc: the shrinking fit predicts otherwise")
+    small = make_dataset("adult", n_override=REFERENCE["adult"]["n"])
+    cv = SVC(C=small.C, gamma=small.gamma).cross_validate(
+        small.X, small.y, k=10, method="sir")
+    per_fold = [(f.acc_correct, f.acc_total) for f in cv.folds]
+    require(per_fold == cold_folds["adult"],
+            f"svc cross_validate: {per_fold}, Table 1's {cold_folds['adult']}")
+    emit({"phase": "svc", "seconds": time.perf_counter() - t0,
+          "n_train": int(train.size), "n_test": int(test.size),
+          "n_iter": svc.n_iter_, "size_fold0_n_iter": f0["n_iter"],
+          "shrink_n_iter": svc_s.n_iter_, "correct": correct,
+          "fit_s": fit_s, "cross_validate_iterations": cv.total_iterations})
+
+
 def split_main(argv) -> int:
     """``--seed-split [--src DIR]``: only the seeding split (and
     ``phase_size``'s SIR seeds), then Table 1's init and solve times
@@ -3978,6 +4408,25 @@ def split_main(argv) -> int:
     phase_seed_split(make_dataset("adult", n_override=SIZE_N))
     emit({"phase": "table1_times", "rows": _table1_times()})
     return 0
+
+
+def _size_wide_times(reps: int = 2) -> list:
+    """``size_wide``'s batched run (``WIDE_DENSE_K`` dense folds at adult
+    n=32,560 on the cluster chunk), ``reps`` times: iterations, solve s
+    and us per longest-lane iteration."""
+    from repro_torch.core.cv import run_cv_batched
+    from repro_torch.data.svm_suite import make_dataset
+    ds = make_dataset("adult", n_override=SIZE_N)
+    rows = []
+    for _ in range(reps):
+        torch.cuda.empty_cache()
+        rep = run_cv_batched(ds, k=WIDE_DENSE_K, schedule="batched")
+        lane_max = max(f.n_iter for f in rep.folds)
+        rows.append({"iterations": rep.total_iterations,
+                     "solve_s": rep.total_solve_time,
+                     "us_per_longest_lane_iteration":
+                         1e6 * rep.total_solve_time / max(lane_max, 1)})
+    return rows
 
 
 def _table1_times() -> list:
@@ -4039,7 +4488,8 @@ def compare_main(argv) -> int:
     iterations, solve s and us per longest-lane iteration; the seeding
     kernels (``_compare_seeding``) and one SIR seed of the grid at size
     split into its parts (``grid_seed_split``); then Table 1's iterations
-    and summed init and solve seconds (``_table1_times``), the Study
+    and summed init and solve seconds (``_table1_times``), ``size_wide``'s
+    batched run (``_size_wide_times``), the Study
     layer at Table 1's sizes (``phase_study_seeds``), the grid at size
     (``phase_grid_size``) and LOO (``phase_loo``), each gated as in the
     full run (``chip_select_split.py --src DIR`` times the selection
@@ -4074,6 +4524,7 @@ def compare_main(argv) -> int:
     emit({"phase": "compare_table1", "rows": rows, "init_s": sum(
         r["init_s"] for r in rows), "solve_s": sum(r["solve_s"]
                                                    for r in rows)})
+    emit({"phase": "compare_size_wide", "rows": _size_wide_times()})
     phase_study_seeds()
     phase_grid_size(make_dataset("adult", n_override=SIZE_N))
     phase_loo()
@@ -4117,16 +4568,32 @@ def main() -> int:
     counts["table1_batched"], routes["table1_batched"] = (
         ops.launch_counts(), ops.route_counts())
     ops.reset_launch_counts()
-    dense_accs = phase_size(datasets[("adult", SIZE_N - 1)])
+    size_folds = phase_size(datasets[("adult", SIZE_N - 1)])
+    dense_accs = [f["accuracy"] for f in size_folds]
     counts["size"], routes["size"] = ops.launch_counts(), ops.route_counts()
     counts["size_wide"], routes["size_wide"], wide = phase_size_wide(
         datasets[("adult", SIZE_N - 1)])
     info["smo_chunk_cluster"] = wide["cluster"]
     info["smo_chunk_one_block_global"] = wide["one_block_global"]
     ops.reset_launch_counts()
-    phase_size_matrix_free(datasets[("adult", SIZE_N - 1)], dense_accs)
+    mf_folds = phase_size_matrix_free(datasets[("adult", SIZE_N - 1)],
+                                      dense_accs)
     counts["size_matrix_free"], routes["size_matrix_free"] = (
         ops.launch_counts(), ops.route_counts())
+    # active-set shrinking: Table 1's sizes, the paper's cardinality, and
+    # the SVC estimator (its per-lane kernels' replays launch after each
+    # path's counts are read)
+    ops.reset_launch_counts()
+    shrink_info, counts["shrink"], routes["shrink"] = phase_shrink()
+    ops.reset_launch_counts()
+    size_entry, counts["shrink_size"], routes["shrink_size"] = \
+        phase_shrink_size(datasets[("adult", SIZE_N - 1)], size_folds,
+                          mf_folds)
+    ops.reset_launch_counts()
+    phase_svc(datasets[("adult", SIZE_N - 1)], size_folds, cold_folds)
+    counts["svc"], routes["svc"] = ops.launch_counts(), ops.route_counts()
+    info.update(shrink_info)
+    info["smo_stream_chunk_sources"]["at_32560"] = size_entry
     for path, run in (
             ("study_seeds", phase_study_seeds),
             ("grid_size",
@@ -4241,6 +4708,15 @@ def main() -> int:
             "flash_attention was not launched once per prefill layer on the "
             "serving path")
 
+    # shrinking: compact groups of more than one lane on the per-lane
+    # kernels, dense and streaming, at Table 1's sizes; SVC's fit and
+    # scoring on the RBF kernel and the dense chunk
+    for name in ("smo_chunk_sources", "smo_stream_chunk_sources"):
+        require(counts["shrink"][name] > 0,
+                f"{name} was not launched on the shrink path")
+    for name in ("rbf_kernel_matrix", "smo_chunk", "sir_greedy"):
+        require(counts["svc"][name] > 0,
+                f"{name} was not launched on the svc path")
     csrc = "src/repro_torch/kernels/csrc/"
     # kernel -> (source, the TPU kernel or loop it replaces, its path)
     sources = {"rbf_kernel_matrix": (csrc + "rbf.cu",
@@ -4269,6 +4745,12 @@ def main() -> int:
                "smo_stream_chunk": (csrc + "smo_step.cu",
                                     "src/repro/svm/engine.py:566",
                                     "size_matrix_free"),
+               "smo_chunk_sources": (csrc + "smo_chunk.cu",
+                                     "src/repro/svm/engine.py:647",
+                                     "shrink"),
+               "smo_stream_chunk_sources": (csrc + "smo_step.cu",
+                                            "src/repro/svm/engine.py:647",
+                                            "shrink"),
                "flash_attention": (csrc + "flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:71",
                                    "serve_lm"),
@@ -4301,6 +4783,10 @@ def main() -> int:
     launches["smo_chunk_cluster"] = routes["size_wide"]["smo_chunk"]["cluster"]
     launches["smo_chunk_one_block_global"] = (
         routes["size_wide"]["smo_chunk"]["one_block_global"])
+    # the per-lane chunks run on every shrinking path
+    for name in ("smo_chunk_sources", "smo_stream_chunk_sources"):
+        launches[name] = sum(counts[p][name]
+                             for p in ("shrink", "shrink_size", "svc"))
     kernels = []
     for name, (src, replaces, path) in sources.items():
         k = info[name]
@@ -4367,7 +4853,13 @@ def main() -> int:
         if name in ("ato_system_lanes", "ato_apply_lanes"):
             kernels[-1]["routes"] = {p: routes[p][name] for p in (
                 "table1", "study_seeds", "loo")}
-        if name.startswith("smo_chunk"):
+        if name in ("smo_chunk_sources", "smo_stream_chunk_sources"):
+            kernels[-1].update(
+                lanes=k["lanes"], cap=k["cap"], call_route=k["route"],
+                routes={p: routes[p][name]
+                        for p in ("shrink", "shrink_size", "svc")},
+                **({"at_32560": k["at_32560"]} if "at_32560" in k else {}))
+        elif name.startswith("smo_chunk"):
             kernels[-1].update(n=k["n"], lanes=k.get("lanes", 1),
                                us_per_iter_one_block_global=k[
                                    "us_per_iter_one_block_global"])

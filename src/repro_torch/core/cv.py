@@ -11,7 +11,8 @@ is evaluated on its held-out chunk. ``run_cv_batched`` solves the k cold
 folds concurrently: as a k-lane plan (``schedule="repacked"``, over a
 dense K or the matrix-free ``PallasRBF``), or as one fixed batch
 (``schedule="batched"``). ``run_loo`` is the suppl. Fig. 2 protocol.
-Checkpoints and shrinking are later slices of the port.
+Each takes the shrink knobs of ``Plan`` (``svm/shrink.py``); checkpoints
+are a later slice of the port.
 """
 from __future__ import annotations
 
@@ -132,7 +133,9 @@ def run_cv(ds: SVMDataset, k: int = 10, method: str = "sir",
            tol: float = 1e-3, max_iter: int = 5_000_000, seed: int = 0,
            straggler_policy: str = "strict",
            unavailable_folds: frozenset[int] = frozenset(),
-           chunk_iters: int | None = None, device=None) -> CVReport:
+           chunk_iters: int | None = None, device=None,
+           shrink_every: int | str = 0, shrink_quantum: int = 128,
+           shrink_caps=None, shrink_on_seed: bool = True) -> CVReport:
     """Run alpha-seeded k-fold CV with ``method`` in ``seeding.SEEDERS``;
     runs on ``cuda`` unless ``device="cpu"``.
 
@@ -144,7 +147,9 @@ def run_cv(ds: SVMDataset, k: int = 10, method: str = "sir",
     or starts it cold; ``"best_available"`` seeds it from the nearest
     completed fold (the earlier one on a tie). ``chunk_iters`` sets the
     iterations between the host's reads of a fold's done flag (default:
-    one chunk of ``max_iter``)."""
+    one chunk of ``max_iter``). ``shrink_every`` turns on active-set
+    shrinking inside each fold's solve (0, the default, keeps every iterate
+    as without it); seeded folds start compact with ``shrink_on_seed``."""
     seeding.SEEDERS[method]   # validate the method name up front
     dev = resolve_device(device)
     X = torch.as_tensor(ds.X, dtype=DTYPE, device=dev)
@@ -164,6 +169,8 @@ def run_cv(ds: SVMDataset, k: int = 10, method: str = "sir",
     chunks_dev = torch.as_tensor(chunks, device=dev)
 
     plan = Plan(sources={"cv": DenseKernel(K)}, y=y, tol=tol,
+                shrink_every=shrink_every, shrink_quantum=shrink_quantum,
+                shrink_caps=shrink_caps, shrink_on_seed=shrink_on_seed,
                 chunk_iters=chunk_iters if chunk_iters is not None
                 else max_iter, device=dev)
     # the seed-fold choice is deterministic: live folds run in order (the
@@ -212,7 +219,9 @@ def run_cv_batched(ds: SVMDataset, k: int = 10, tol: float = 1e-3,
                    max_iter: int = 5_000_000, seed: int = 0,
                    chunk_iters: int = 4096, schedule: str = "repacked",
                    lane_quantum: int = 4, max_width: int | None = None,
-                   source_backend: str = "dense", device=None) -> CVReport:
+                   source_backend: str = "dense", device=None,
+                   shrink_every: int | str = 0, shrink_quantum: int = 128,
+                   shrink_caps=None, shrink_on_seed: bool = True) -> CVReport:
     """Cold k-fold CV with all folds solved concurrently; runs on ``cuda``
     unless ``device="cpu"``.
 
@@ -227,10 +236,16 @@ def run_cv_batched(ds: SVMDataset, k: int = 10, tol: float = 1e-3,
     norms only), each iteration is one fused pass over X, and evaluation
     streams test rows through ``rows_at`` and the objective through
     ``matvec``. Per fold, each schedule ends bitwise where ``run_cv(method=
-    "cold")``'s solve over the same source would.
+    "cold")``'s solve over the same source would. ``shrink_every``
+    (repacked only) shrinks each lane's active set; lanes of one cap bucket
+    then run as one launch over their own compact operands.
     """
     if schedule not in ("repacked", "batched"):
         raise ValueError(f"unknown schedule {schedule!r}")
+    if shrink_every and schedule != "repacked":
+        raise ValueError("shrink_every requires the repacked schedule: "
+                         "shrinking is a lane-pool transformation, not an "
+                         "engine.solve_batched feature")
     if source_backend not in ("dense", "pallas_rbf"):
         raise ValueError(f"unknown source_backend {source_backend!r}")
     if source_backend == "pallas_rbf" and schedule != "repacked":
@@ -281,6 +296,8 @@ def run_cv_batched(ds: SVMDataset, k: int = 10, tol: float = 1e-3,
     method = ("cold_pallas" if source_backend == "pallas_rbf"
               else "cold_batched_repacked")
     plan = Plan(sources={"cv": source}, y=y, tol=tol,
+                shrink_every=shrink_every, shrink_quantum=shrink_quantum,
+                shrink_caps=shrink_caps, shrink_on_seed=shrink_on_seed,
                 wss="1" if source_backend == "pallas_rbf" else "2",
                 chunk_iters=chunk_iters, lane_quantum=lane_quantum,
                 max_width=max_width, device=dev)

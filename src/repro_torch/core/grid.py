@@ -19,8 +19,8 @@ and ``run_grid``. The grid is one Study plan (``repro_torch.core.study``):
   its own (source, mask, C, state), so per-lane results are bitwise the
   same under either pool and any budget.
 
-Per-lane evaluations are plan ``EvalSpec``s. Checkpoints and shrinking are
-later slices of the port.
+Per-lane evaluations are plan ``EvalSpec``s; the shrink knobs go to the
+plans. Checkpoints are a later slice of the port.
 """
 from __future__ import annotations
 
@@ -169,7 +169,9 @@ def grid_plans(ds: SVMDataset, Cs, gammas, k: int = 10,
                lane_quantum: int = 4, max_width: int | None = None,
                pool: str = "cross_gamma", max_resident: int = 0,
                cache_bytes: int = 0, source_backend: str = "dense",
-               device=None) -> list:
+               device=None, shrink_every: int | str = 0,
+               shrink_quantum: int = 128, shrink_caps=None,
+               shrink_on_seed: bool = True) -> list:
     """The ``Plan``(s) ``run_grid`` runs for these arguments, built but not
     run: one multi-source plan for ``pool="cross_gamma"``, one plan per
     gamma for ``"per_gamma"``. Their arrays are already on the device
@@ -199,7 +201,9 @@ def grid_plans(ds: SVMDataset, Cs, gammas, k: int = 10,
                     chunk_iters=chunk_iters, lane_quantum=lane_quantum,
                     max_width=max_width, max_resident=max_resident,
                     cache_bytes=cache_bytes, source_backend=source_backend,
-                    device=dev)
+                    device=dev, shrink_every=shrink_every,
+                    shrink_quantum=shrink_quantum, shrink_caps=shrink_caps,
+                    shrink_on_seed=shrink_on_seed)
         for gi in keys:
             _row_lanes(plan, gi, Cs, masks, transitions, method,
                        seed_across_C, max_iter, zeros, y, chunks)
@@ -216,7 +220,9 @@ def run_grid(ds: SVMDataset, Cs, gammas, k: int = 10, method: str = "sir",
              lane_quantum: int = 4, max_width: int | None = None,
              pool: str = "cross_gamma", max_resident: int = 0,
              cache_bytes: int = 0, source_backend: str = "dense",
-             device=None) -> GridReport:
+             device=None, shrink_every: int | str = 0,
+             shrink_quantum: int = 128, shrink_caps=None,
+             shrink_on_seed: bool = True) -> GridReport:
     """Cross-validate every (C, gamma) cell; returns per-cell iterations
     and accuracy (``GridReport.best()`` picks the winner). Runs on
     ``cuda`` unless ``device="cpu"``.
@@ -232,7 +238,9 @@ def run_grid(ds: SVMDataset, Cs, gammas, k: int = 10, method: str = "sir",
     ``source_backend="pallas_rbf"`` solves over the matrix-free
     ``PallasRBF`` (WSS-1, row-slab evaluations) and requires
     ``method="cold"``. Per cell, the result equals ``run_cv`` on that
-    cell's (C, gamma) under either pool."""
+    cell's (C, gamma) under either pool. ``shrink_every`` (or ``"auto"``
+    for the cost model's verdict) turns on active-set shrinking in every
+    lane."""
     _check_grid_args(pool, source_backend, method)
     Cs = sorted(float(c) for c in Cs)
     gammas = [float(g) for g in gammas]
@@ -245,7 +253,11 @@ def run_grid(ds: SVMDataset, Cs, gammas, k: int = 10, method: str = "sir",
                        lane_quantum=lane_quantum, max_width=max_width,
                        pool=pool, max_resident=max_resident,
                        cache_bytes=cache_bytes,
-                       source_backend=source_backend, device=device)
+                       source_backend=source_backend, device=device,
+                       shrink_every=shrink_every,
+                       shrink_quantum=shrink_quantum,
+                       shrink_caps=shrink_caps,
+                       shrink_on_seed=shrink_on_seed)
     study_results = [run_plan(p) for p in plans]
     occupancy = (study_results[0].occupancy if pool == "cross_gamma"
                  else _merge_occupancy([s.occupancy for s in study_results]))

@@ -7,8 +7,8 @@ the oracle), ``ato_seed`` and ``ato_seed_batch`` over ``_ato_ramp`` (one
 lane, or a row of lanes), the LOO seeders ``avg_seed_loo`` and
 ``top_seed_loo``, ``SEEDERS``, and the named seed transforms
 ``TRANSFORMS`` (``fold``, ``scale_C``, ``loo_avg``, ``loo_top``) with
-``register_transform``. The re-export of ``seed_active_mask`` belongs to
-shrinking, a later slice of the port.
+``register_transform``, and the re-export of shrinking's
+``seed_active_mask``.
 
 All seeders share one contract::
 
@@ -532,6 +532,13 @@ def top_seed_loo(K, y, C, alpha, t: int):
 
 SEEDERS = {"cold": cold_seed, "ato": ato_seed, "ato_ref": ato_seed_ref,
            "mir": mir_seed, "sir": sir_seed}
+
+# Seeding -> shrinking handoff: a seeded start implies an initial active
+# set. Rows the seeder left bound-locked against the seeded (b_up, b_low)
+# start shrunk; the pool evaluates this at admission (``shrink_on_seed``)
+# through the heuristic the solver uses mid-run. Re-exported so that
+# seeding-layer callers can read the mask a transform implies.
+from repro_torch.svm.shrink import seed_active_mask  # noqa: E402,F401
 
 
 # --------------------------------------------------------------------------

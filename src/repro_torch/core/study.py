@@ -16,9 +16,10 @@ retires, started at ``transform(K, y, C, dep_result, **params)`` with
 for a kernel-free transform on a K-less source; dependencies may cross
 kernel sources), or given lanes (``result``). ``run_cv``, ``run_loo``
 and ``run_grid`` declare their protocols as plans for this entry point.
-Checkpoints, the static plan analysis (``StudyResult.analysis`` stays
-None), support-vector-only evaluation, shrinking and the wire format are
-later slices of the port.
+The shrink knobs (``shrink_every``, ``shrink_quantum``, ``shrink_caps``,
+``shrink_on_seed``) go to the ``LanePool``. Checkpoints, the static plan
+analysis (``StudyResult.analysis`` stays None), support-vector-only
+evaluation and the wire format are later slices of the port.
 """
 from __future__ import annotations
 
@@ -85,6 +86,16 @@ class Plan:
     #: ``"pallas_rbf"`` rewrites every dense-RBF ``KernelSpec`` to the
     #: row-streaming kind (``PallasRBF``; requires ``wss="1"``)
     source_backend: str = "dense"
+    #: active-set shrinking (``svm/shrink.py``): 0 = off (the pool's
+    #: schedule as without it), an int = heuristic period in iterations,
+    #: ``"auto"`` = the cost model's verdict (``cost_model.pick_shrink``);
+    #: ``shrink_quantum`` buckets compact capacities (``shrink_caps``
+    #: declares a ladder instead); ``shrink_on_seed`` applies the seeding
+    #: -> shrinking handoff at admission
+    shrink_every: int | str = 0
+    shrink_quantum: int = 128
+    shrink_caps: Any = None
+    shrink_on_seed: bool = True
     #: None means ``cuda``; ``"cpu"`` runs the plain PyTorch path
     device: Any = None
 
@@ -405,7 +416,11 @@ def run_plan(plan: Plan) -> StudyResult:
                     chunk_iters=plan.chunk_iters,
                     lane_quantum=plan.lane_quantum, max_width=plan.max_width,
                     max_resident=plan.max_resident,
-                    cache_bytes=plan.cache_bytes)
+                    cache_bytes=plan.cache_bytes,
+                    shrink_every=plan.shrink_every,
+                    shrink_quantum=plan.shrink_quantum,
+                    shrink_caps=plan.shrink_caps,
+                    shrink_on_seed=plan.shrink_on_seed)
     pre_done = enroll_plan_lanes(pool, plan, specs)
 
     t0 = time.perf_counter()

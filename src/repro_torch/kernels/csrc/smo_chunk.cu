@@ -1,11 +1,15 @@
 // Device-resident dense SMO chunk over a grid of lanes: up to n_iters
 // iterations of the dense engine's step (WSS-2 or WSS-1 pair selection,
-// box-clipped rank-2 update) in ONE launch, float64. The lanes share K,
-// diag and y; each has its own train mask, C, iteration cap, alpha, f,
-// n_iter and done flag.
+// box-clipped rank-2 update) in ONE launch, float64. Each lane has its own
+// train mask, C, iteration cap, alpha, f, n_iter and done flag. Lane l
+// reads K + l * k_lane, diag + l * v_lane and y + l * v_lane (elements):
+// strides of 0 share one K, diag and y (the lanes of one kernel source);
+// k_lane = n * n and v_lane = n give each lane its own (the shrinking
+// scheduler's compact lanes, each over the rows it kept active).
 //
 // Replaces the lax.while_loop of src/repro/svm/engine.py::smo_chunk over
-// _step (one lane) and chunk_batched_jit (the vmapped lanes), whose f-update
+// _step (one lane), chunk_batched_jit (the vmapped lanes) and
+// chunk_batched_sources_jit (lanes with their own operands), whose f-update
 // is the Pallas kernel kernels/smo_update.py on a TPU. XLA keeps that loop on
 // the device; a Python loop of torch ops would launch ~20 kernels per SMO
 // iteration and sync on the convergence test. Here the host reads the lanes'
@@ -69,10 +73,14 @@ smo_chunk_kernel(const double* __restrict__ K, const double* __restrict__ diag,
                  const double* __restrict__ Cs, double tol,
                  const long long* __restrict__ it_caps, long long n_iters,
                  int wss, double* alphas, double* fs, long long* n_iter,
-                 unsigned char* done_flags, int n) {
+                 unsigned char* done_flags, int n, long long k_lane,
+                 long long v_lane) {
   __shared__ Scratch s;
   const int lane = blockIdx.x;
   const int tid = threadIdx.x, nt = blockDim.x;
+  K += lane * k_lane;
+  diag += lane * v_lane;
+  y += lane * v_lane;
   const unsigned char* mask = masks + (size_t)lane * n;
   double* alpha = alphas + (size_t)lane * n;
   double* f = fs + (size_t)lane * n;
@@ -326,11 +334,15 @@ smo_chunk_resident_kernel(const double* __restrict__ K,
                           const long long* __restrict__ it_caps,
                           long long n_iters, int wss, double* alphas,
                           double* fs, long long* n_iter,
-                          unsigned char* done_flags, int n) {
+                          unsigned char* done_flags, int n, long long k_lane,
+                          long long v_lane) {
   extern __shared__ double rows_smem[];  // the SMEM build's state
   __shared__ Cand c_up[2][kMaxWarps], c_low[2][kMaxWarps];
   const int lane = blockIdx.x;
   if (done_flags[lane] != 0) return;  // a pad or done lane exits at once
+  K += lane * k_lane;
+  diag += lane * v_lane;
+  y += lane * v_lane;
   const int tid = threadIdx.x, T = blockDim.x;
   const int wl = tid & 31, warp = tid >> 5, W = (T + 31) >> 5;
   // every warp reduces all W slots: lane l reads slot l % W (so every
@@ -528,7 +540,8 @@ int launch_resident(const double* K, const double* diag, const double* y,
                     const unsigned char* masks, const double* Cs, double tol,
                     const long long* it_caps, long long n_iters, int wss,
                     double* alphas, double* fs, long long* n_iter,
-                    unsigned char* done, int n, int b, cudaStream_t stream) {
+                    unsigned char* done, int n, int b, long long k_lane,
+                    long long v_lane, cudaStream_t stream) {
   const int threads = resident_threads(n, R);
   if (threads > Resident<R, SMEM>::kThreads) return (int)cudaErrorInvalidValue;
   const size_t smem = resident_smem(threads, R, SMEM);
@@ -546,7 +559,7 @@ int launch_resident(const double* K, const double* diag, const double* y,
   if (e != cudaSuccess) return (int)e;
   kernel<<<b, threads, smem, stream>>>(K, diag, y, masks, Cs, tol, it_caps,
                                        n_iters, wss, alphas, fs, n_iter,
-                                       done, n);
+                                       done, n, k_lane, v_lane);
   return (int)cudaGetLastError();
 }
 
@@ -682,8 +695,9 @@ smo_chunk_multi_kernel(const double* __restrict__ K,
                        const long long* __restrict__ it_caps,
                        long long n_iters, int wss, double* alphas, double* fs,
                        long long* n_iter, unsigned char* done_flags, int n,
-                       int m, int slice, unsigned long long* counters,
-                       Key* keys, Scalars* scalars) {
+                       long long k_lane, long long v_lane, int m, int slice,
+                       unsigned long long* counters, Key* keys,
+                       Scalars* scalars) {
   extern __shared__ double state[];   // alpha, f, y, diag, K_i slices;
                                       // then the mask
   __shared__ Scratch s;
@@ -692,6 +706,9 @@ smo_chunk_multi_kernel(const double* __restrict__ K,
   const int lane = blockIdx.x / m, part = blockIdx.x % m;
   const int tid = threadIdx.x, nt = blockDim.x;
   const int lo = min(n, part * slice), cnt = min(n, lo + slice) - lo;
+  K += lane * k_lane;
+  diag += lane * v_lane;
+  y += lane * v_lane;
   double* a_s = state;
   double* f_s = a_s + slice;
   double* y_s = f_s + slice;
@@ -998,7 +1015,8 @@ smo_chunk_cluster_kernel(const double* __restrict__ K,
                          const long long* __restrict__ it_caps,
                          long long n_iters, int wss, double* alphas,
                          double* fs, long long* n_iter,
-                         unsigned char* done_flags, int n) {
+                         unsigned char* done_flags, int n, long long k_lane,
+                         long long v_lane) {
   extern __shared__ double rows_smem[];  // alpha, f, diag
   __shared__ Slot s_up[2][kMaxWarps], s_low[2][kMaxWarps];
   const cg::cluster_group cluster = cg::this_cluster();
@@ -1006,6 +1024,9 @@ smo_chunk_cluster_kernel(const double* __restrict__ K,
   const int rank = (int)cluster.block_rank();
   const int lane = blockIdx.x / m;
   if (done_flags[lane] != 0) return;  // the lane's whole cluster exits
+  K += lane * k_lane;
+  diag += lane * v_lane;
+  y += lane * v_lane;
   const int tid = threadIdx.x, T = blockDim.x;
   const int wl = tid & 31, warp = tid >> 5, W = (T + 31) >> 5;
   const int G = m * W;  // <= 32: the wrapper's plan
@@ -1260,13 +1281,14 @@ int launch_cluster(const double* K, const double* diag, const double* y,
                    const long long* it_caps, long long n_iters, int wss,
                    double* alphas, double* fs, long long* n_iter,
                    unsigned char* done, int n, int b, int m,
-                   cudaStream_t stream) {
+                   long long k_lane, long long v_lane, cudaStream_t stream) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   cudaError_t e = cluster_config<R>(n, m, b, cfg, attr, stream);
   if (e != cudaSuccess) return (int)e;
-  void* args[] = {&K, &diag, &y, &masks, &Cs, &tol, &it_caps, &n_iters,
-                  &wss, &alphas, &fs, &n_iter, &done, &n};
+  void* args[] = {&K,     &diag,  &y,      &masks,   &Cs,   &tol,
+                  &it_caps, &n_iters, &wss, &alphas, &fs, &n_iter,
+                  &done,  &n,     &k_lane, &v_lane};
   e = cudaLaunchKernelExC(&cfg, (const void*)smo_chunk_cluster_kernel<R>,
                           args);
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
@@ -1300,21 +1322,25 @@ int cluster_build(int* threads, int* regs, int* local_bytes) {
 
 }  // namespace
 
-// b lanes over one K (n, n): masks, alphas, fs (b, n); Cs, it_caps, n_iter,
-// done (b,). The block's width depends on n only.
+// b lanes over K (n, n): masks, alphas, fs (b, n); Cs, it_caps, n_iter,
+// done (b,). Lane l reads K + l * k_lane, diag + l * v_lane and y + l *
+// v_lane (0: one K, diag and y for every lane). The block's width depends
+// on n only. Every entry below takes the same two strides.
 extern "C" int smo_chunk_f64(const double* K, const double* diag,
                              const double* y, const unsigned char* masks,
                              const double* Cs, double tol,
                              const long long* it_caps, long long n_iters,
                              int wss, double* alphas, double* fs,
                              long long* n_iter, unsigned char* done, int n,
-                             int b, cudaStream_t stream) {
+                             int b, long long k_lane, long long v_lane,
+                             cudaStream_t stream) {
   if (n > 0 && b > 0 && n_iters > 0) {
     int threads = ((n + 31) / 32) * 32;
     if (threads > kMaxThreads) threads = kMaxThreads;
     smo_chunk_kernel<<<b, threads, 0, stream>>>(K, diag, y, masks, Cs, tol,
                                                 it_caps, n_iters, wss, alphas,
-                                                fs, n_iter, done, n);
+                                                fs, n_iter, done, n,
+                                                k_lane, v_lane);
   }
   return (int)cudaGetLastError();
 }
@@ -1333,12 +1359,14 @@ extern "C" int smo_chunk_resident_f64(const double* K, const double* diag,
                                       long long n_iters, int wss,
                                       double* alphas, double* fs,
                                       long long* n_iter, unsigned char* done,
-                                      int n, int b, int rows, int smem,
+                                      int n, int b, long long k_lane,
+                                      long long v_lane, int rows, int smem,
                                       cudaStream_t stream) {
   if (n <= 0 || b <= 0 || n_iters <= 0) return (int)cudaGetLastError();
 #define SMO_RESIDENT(R, S)                                                  \
   launch_resident<R, S>(K, diag, y, masks, Cs, tol, it_caps, n_iters, wss, \
-                        alphas, fs, n_iter, done, n, b, stream)
+                        alphas, fs, n_iter, done, n, b, k_lane, v_lane,   \
+                        stream)
   if (smem) return rows == 8 ? SMO_RESIDENT(8, true)
                              : (int)cudaErrorInvalidValue;
   switch (rows) {
@@ -1401,7 +1429,8 @@ extern "C" int smo_chunk_multi_f64(const double* K, const double* diag,
                                    const long long* it_caps, long long n_iters,
                                    int wss, double* alphas, double* fs,
                                    long long* n_iter, unsigned char* done,
-                                   int n, int b, int m, void* workspace,
+                                   int n, int b, long long k_lane,
+                                   long long v_lane, int m, void* workspace,
                                    cudaStream_t stream) {
   if (n <= 0 || b <= 0 || n_iters <= 0) return (int)cudaGetLastError();
   const int slice = (n + m - 1) / m;
@@ -1414,8 +1443,9 @@ extern "C" int smo_chunk_multi_f64(const double* K, const double* diag,
   Key* keys = reinterpret_cast<Key*>(counters + 2 * b);
   Scalars* scalars = reinterpret_cast<Scalars*>(keys + (size_t)b * 6 * m);
   void* args[] = {&K, &diag, &y, &masks, &Cs, &tol, &it_caps, &n_iters,
-                  &wss, &alphas, &fs, &n_iter, &done, &n, &m,
-                  const_cast<int*>(&slice), &counters, &keys, &scalars};
+                  &wss, &alphas, &fs, &n_iter, &done, &n, &k_lane,
+                  &v_lane, &m, const_cast<int*>(&slice), &counters, &keys,
+                  &scalars};
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(b * m);
   cfg.blockDim = dim3(kMultiThreads);
@@ -1446,12 +1476,14 @@ extern "C" int smo_chunk_cluster_f64(const double* K, const double* diag,
                                      long long n_iters, int wss,
                                      double* alphas, double* fs,
                                      long long* n_iter, unsigned char* done,
-                                     int n, int b, int m, int rows,
+                                     int n, int b, long long k_lane,
+                                     long long v_lane, int m, int rows,
                                      cudaStream_t stream) {
   if (n <= 0 || b <= 0 || n_iters <= 0) return (int)cudaGetLastError();
 #define SMO_CLUSTER(R)                                                      \
   launch_cluster<R>(K, diag, y, masks, Cs, tol, it_caps, n_iters, wss,     \
-                    alphas, fs, n_iter, done, n, b, m, stream)
+                    alphas, fs, n_iter, done, n, b, m, k_lane, v_lane,   \
+                    stream)
   switch (rows) {
     case 4: return SMO_CLUSTER(4);
     case 8: return SMO_CLUSTER(8);

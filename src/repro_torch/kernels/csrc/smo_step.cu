@@ -68,6 +68,19 @@
 // route. A slice of at most 128 rows runs 16 rows a warp (half the cells a
 // thread, so half its serial exps). It stops on the device when every lane
 // is done or n_iters are spent.
+//
+// Lanes with their own operands (the shrinking scheduler's compact lanes,
+// src/repro/svm/engine.py::chunk_batched_sources_jit): the entries take
+// element strides between the lanes' X, x_lane, and between their norms
+// and labels, v_lane (0: one X for every lane), and the persistent entry a
+// count of groups (a lane a group). The selection kernel reads lane l's
+// operands at l times the strides; the fused kernel then stages one lane a
+// lane block (each block streams that lane's own rows of X); the
+// persistent kernel runs the lanes as independent groups of blocks in one
+// cooperative launch, each group a one-lane launch over its own X with its
+// own barrier counter and candidates. Every output is computed by the same
+// chain in the same order as in a one-lane launch, so a lane is bitwise
+// its solo launch.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -269,7 +282,8 @@ fused_smo_step_kernel(T* __restrict__ f, const T* __restrict__ X,
                       const T* __restrict__ xn, const T* __restrict__ xij,
                       const T* __restrict__ delta,
                       const unsigned char* __restrict__ done, int n, int d,
-                      int b, int lane_block, T neg_gamma) {
+                      int b, int lane_block, T neg_gamma, long long x_lane,
+                      long long v_lane) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int XS = x_stride<T>();
   T* ring = reinterpret_cast<T*>(smem_raw);
@@ -291,6 +305,9 @@ fused_smo_step_kernel(T* __restrict__ f, const T* __restrict__ X,
   for (int l0 = (int)blockIdx.y * lane_block; l0 < b;
        l0 += lane_block * (int)gridDim.y) {
     const int nl = min(lane_block, b - l0);
+    // the lane block's X and norms (one lane a block where they are its own)
+    const T* __restrict__ Xl = X + l0 * x_lane;
+    const T* __restrict__ xnl = xn + l0 * v_lane;
     __syncthreads();  // the last lane block is done with ps and the ring
     if (tid < nl) live[tid] = done != nullptr && done[l0 + tid];  // flags
     __syncthreads();
@@ -313,7 +330,7 @@ fused_smo_step_kernel(T* __restrict__ f, const T* __restrict__ X,
         const int row0 = ((int)blockIdx.x + (q / nslabs) * (int)gridDim.x) *
                          kTile;
         const int k0 = (q % nslabs) * kSlab;
-        stage_slab<T, 1>(ring + (q % kStages) * kTile * XS, X, d, row0,
+        stage_slab<T, 1>(ring + (q % kStages) * kTile * XS, Xl, d, row0,
                          min(kTile, n - row0), k0, min(kSlab, d - k0));
       } else {
         cp_async_commit();  // keep the group count in step
@@ -357,7 +374,7 @@ fused_smo_step_kernel(T* __restrict__ f, const T* __restrict__ X,
           if (row < n && vb < nvb && s < G)
             fv[vb] = f[(size_t)live[s] * n + row];
         }
-        const T xr2 = xn[min(row, n - 1)];
+        const T xr2 = xnl[min(row, n - 1)];
 #pragma unroll
         for (int vb = 0; vb < kVB; ++vb) {
           if (vb < nvb) {  // uniform
@@ -441,17 +458,20 @@ cudaError_t fused_plan(int d, int b, int& lb, size_t& smem, int& blocks) {
 template <typename T>
 int launch_fused(T* f, const T* X, const T* xn, const T* xij, const T* delta,
                  const unsigned char* done, int n, int d, int b, double gamma,
-                 cudaStream_t stream) {
+                 long long x_lane, long long v_lane, cudaStream_t stream) {
   if (n <= 0 || b <= 0) return (int)cudaGetLastError();
   int lb = 0, blocks = 0;
   size_t smem = 0;
   const cudaError_t e = fused_plan<T>(d, b, lb, smem, blocks);
   if (e != cudaSuccess) return (int)e;
-  // lane blocks as even as the staging room allows, each a grid row
+  // lane blocks as even as the staging room allows, each a grid row; lanes
+  // with their own X take a grid row each
+  if (x_lane != 0 || v_lane != 0) lb = 1;
   const int rows = (b + lb - 1) / lb, per_row = (b + rows - 1) / rows;
   const dim3 grid(min((n + kTile - 1) / kTile, max(1, blocks / rows)), rows);
   fused_smo_step_kernel<T><<<grid, kThreads, smem, stream>>>(
-      f, X, xn, xij, delta, done, n, d, b, per_row, T(-gamma));
+      f, X, xn, xij, delta, done, n, d, b, per_row, T(-gamma), x_lane,
+      v_lane);
   return (int)cudaGetLastError();
 }
 
@@ -502,12 +522,16 @@ smo_select_kernel(const double* __restrict__ X, const double* __restrict__ xn,
                   const double* __restrict__ fs, long long* n_iter,
                   unsigned char* done_flags, double* xij,
                   double* __restrict__ deltas, int n, int d, double neg_gamma,
-                  int clip_all) {
+                  int clip_all, long long x_lane, long long v_lane) {
   extern __shared__ double pair_s[];  // x_i, then x_j
   __shared__ SelSlot up_s[kSelWarps], low_s[kSelWarps];
   __shared__ int flags_s[kSelWarps];
   const int lane = blockIdx.x;
   if (done_flags[lane]) return;  // uniform over the block
+  X += lane * x_lane;
+  xn += lane * v_lane;
+  sn += lane * v_lane;
+  y += lane * v_lane;
   const int tid = threadIdx.x, warp = tid / 32, wl = tid % 32;
   const unsigned char* mask = masks + (size_t)lane * n;
   double* alpha = alphas + (size_t)lane * n;
@@ -630,7 +654,7 @@ int launch_select(const double* X, const double* xn, const double* sn,
                   double gamma, double* alphas, const double* fs,
                   long long* n_iter, unsigned char* done, double* xij,
                   double* delta, int n, int d, int b, int clip_all,
-                  cudaStream_t stream) {
+                  long long x_lane, long long v_lane, cudaStream_t stream) {
   const size_t smem = 2 * (size_t)d * sizeof(double);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -640,7 +664,7 @@ int launch_select(const double* X, const double* xn, const double* sn,
   }
   smo_select_kernel<<<b, kSelThreads, smem, stream>>>(
       X, xn, sn, y, masks, Cs, tol, it_caps, alphas, fs, n_iter, done, xij,
-      delta, n, d, -gamma, clip_all);
+      delta, n, d, -gamma, clip_all, x_lane, v_lane);
   return (int)cudaGetLastError();
 }
 
@@ -726,14 +750,16 @@ __device__ __forceinline__ int group_or(int x) {
   return x;
 }
 
-// Workspace of the persistent route: the barrier counter (16 bytes), the
-// candidates [2 parities][b][2: up, low][m], then their rows' records
-// [2][b][2][m].
-size_t stream_rows_offset(int b, int m) {
-  return 16 + (size_t)2 * b * 2 * m * sizeof(Cand);
+// Workspace of the persistent route for `groups` groups of b lanes over m
+// blocks each: the groups' barrier counters (16 bytes each), the
+// candidates [groups][2 parities][b][2: up, low][m], then their rows'
+// records [groups][2][b][2][m].
+size_t stream_rows_offset(int b, int m, int groups = 1) {
+  return 16 * (size_t)groups + (size_t)groups * 2 * b * 2 * m * sizeof(Cand);
 }
-size_t stream_workspace(int b, int m) {
-  return stream_rows_offset(b, m) + (size_t)2 * b * 2 * m * sizeof(CandRow);
+size_t stream_workspace(int b, int m, int groups = 1) {
+  return stream_rows_offset(b, m, groups) +
+         (size_t)groups * 2 * b * 2 * m * sizeof(CandRow);
 }
 
 template <int RB>
@@ -746,7 +772,8 @@ smo_stream_kernel(const double* __restrict__ X, const double* __restrict__ xn,
                   double neg_gamma, double* alphas, double* fs,
                   long long* n_iter, unsigned char* done_flags, int n, int d,
                   int ldx, int b, int slice, unsigned long long* counter,
-                  Cand* cands, CandRow* cand_rows) {
+                  Cand* cands, CandRow* cand_rows, long long x_lane,
+                  long long v_lane, int groups) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int XS = x_stride<double>(), TILE = tile_rows<RB>();
   const int pst = pair_stride(d);
@@ -777,7 +804,25 @@ smo_stream_kernel(const double* __restrict__ X, const double* __restrict__ xn,
   __shared__ int w_iu[kWarps][kLanes], w_il[kWarps][kLanes],
       w_fg[kWarps][kLanes];
 
-  const int tid = threadIdx.x, m = gridDim.x, blk = blockIdx.x;
+  // the grid is `groups` independent launches of m blocks over b lanes
+  // each (groups > 1: a lane a group, over its own X); group grp's lanes,
+  // operands, barrier counter and candidates
+  const int tid = threadIdx.x, m = gridDim.x / groups;
+  const int grp = blockIdx.x / m, blk = blockIdx.x % m;
+  X += grp * x_lane;
+  xn += grp * v_lane;
+  sn += grp * v_lane;
+  y += grp * v_lane;
+  masks += (size_t)grp * b * n;
+  alphas += (size_t)grp * b * n;
+  fs += (size_t)grp * b * n;
+  Cs += grp * b;
+  it_caps += grp * b;
+  n_iter += grp * b;
+  done_flags += grp * b;
+  counter += 2 * grp;
+  cands += (size_t)grp * 4 * b * m;
+  cand_rows += (size_t)grp * 4 * b * m;
   const int warp = tid / 32, lane = tid % 32;
   const int gq = lane >> 2, tq = lane & 3;  // row and lane in a tile's cell
   const int lo = blk * slice, cnt = min(n - lo, slice);  // >= 1 (the plan)
@@ -1147,9 +1192,12 @@ const void* stream_kernel(int slice) {
 // slice's state, the ring and the pair rows in one block's shared memory.
 // m = 0 when it cannot place them (more than 16 lanes, or too little
 // shared memory), and the wrapper takes the pair route.
-int stream_plan(int n, int d, int b, int& m, int& slice) {
+//
+// `groups` such launches side by side (a lane a group, b = 1: lanes with
+// their own X) take m blocks each: all groups' blocks resident at once.
+int stream_plan(int n, int d, int b, int& m, int& slice, int groups = 1) {
   m = slice = 0;
-  if (n < 1 || d < 1 || b < 1 || b > kLanes) return 0;
+  if (n < 1 || d < 1 || b < 1 || b > kLanes || groups < 1) return 0;
   int sms = 0, optin = 0;
   cudaError_t e = card(sms, optin);
   if (e != cudaSuccess) return (int)e;
@@ -1171,12 +1219,12 @@ int stream_plan(int n, int d, int b, int& m, int& slice) {
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
                                                         kThreads, smem);
     if (e != cudaSuccess) return (int)e;
-    if ((long long)per_sm * sms >= mm) {
+    if ((long long)per_sm * sms >= (long long)mm * groups) {
       m = mm;
       slice = s;
       return 0;
     }
-    want = per_sm * sms;  // fewer, larger slices
+    want = per_sm * sms / groups;  // fewer, larger slices
   }
   return 0;
 }
@@ -1189,16 +1237,16 @@ extern "C" int fused_smo_step_f64(double* f, const double* X,
                                   const double* delta,
                                   const unsigned char* done, int n, int d,
                                   int b, double gamma, cudaStream_t stream) {
-  return launch_fused<double>(f, X, xn, xij, delta, done, n, d, b, gamma,
-                              stream);
+  return launch_fused<double>(f, X, xn, xij, delta, done, n, d, b, gamma, 0,
+                              0, stream);
 }
 
 extern "C" int fused_smo_step_f32(float* f, const float* X, const float* xn,
                                   const float* xij, const float* delta,
                                   const unsigned char* done, int n, int d,
                                   int b, double gamma, cudaStream_t stream) {
-  return launch_fused<float>(f, X, xn, xij, delta, done, n, d, b, gamma,
-                             stream);
+  return launch_fused<float>(f, X, xn, xij, delta, done, n, d, b, gamma, 0,
+                             0, stream);
 }
 
 // One selection step over b lanes: alphas, n_iter and done updated in
@@ -1216,7 +1264,7 @@ extern "C" int smo_select_f64(const double* X, const double* xn,
                               int clip_all, cudaStream_t stream) {
   if (n <= 0 || b <= 0) return (int)cudaGetLastError();
   return launch_select(X, xn, sn, y, masks, Cs, tol, it_caps, gamma, alphas,
-                       fs, n_iter, done, xij, delta, n, d, b, clip_all,
+                       fs, n_iter, done, xij, delta, n, d, b, clip_all, 0, 0,
                        stream);
 }
 
@@ -1224,7 +1272,8 @@ extern "C" int smo_select_f64(const double* X, const double* xn,
 // selection launch (one block per lane) and one fused launch over all lanes.
 // masks, alphas, fs (b, n); Cs, it_caps, n_iter, done (b,); sn (n,) as for
 // smo_select_f64; xij (b, 2, d) and delta (b,) are scratch. *issued gets the
-// number of iterations launched.
+// number of iterations launched. Lane l reads its X (n, d) at X + l * x_lane
+// and its xn, sn and y at l * v_lane (elements; 0: one X for every lane).
 //
 // Like the reference's any(~done) loop, the chunk stops once every lane is
 // done, without draining the stream: every kPoll iterations the done flags
@@ -1232,17 +1281,13 @@ extern "C" int smo_select_f64(const double* X, const double* xn,
 // copy made kPoll iterations earlier, so at most 2 kPoll no-op iterations
 // are launched past the last lane's stop while kPoll stay queued. A stream
 // being captured into a graph launches all n_iters.
-extern "C" int smo_stream_chunk_f64(const double* X, const double* xn,
-                                    const double* sn, const double* y,
-                                    const unsigned char* masks,
-                                    const double* Cs, double tol,
-                                    const long long* it_caps,
-                                    long long n_iters, double gamma,
-                                    double* alphas, double* fs,
-                                    long long* n_iter, unsigned char* done,
-                                    double* xij, double* delta, int n, int d,
-                                    int b, cudaStream_t stream,
-                                    long long* issued) {
+extern "C" int smo_stream_chunk_f64(
+    const double* X, const double* xn, const double* sn, const double* y,
+    const unsigned char* masks, const double* Cs, double tol,
+    const long long* it_caps, long long n_iters, double gamma, double* alphas,
+    double* fs, long long* n_iter, unsigned char* done, double* xij,
+    double* delta, int n, int d, int b, long long x_lane, long long v_lane,
+    cudaStream_t stream, long long* issued) {
   constexpr long long kPoll = 64;
   *issued = 0;
   if (n <= 0 || b <= 0) return (int)cudaGetLastError();
@@ -1285,10 +1330,10 @@ extern "C" int smo_stream_chunk_f64(const double* X, const double* xn,
     }
     err = launch_select(X, xn, sn, y, masks, Cs, tol, it_caps, gamma, alphas,
                         fs, n_iter, done, xij, delta, n, d, b, t == 0 ? 1 : 0,
-                        stream);
+                        x_lane, v_lane, stream);
     if (!err)
       err = launch_fused<double>(fs, X, xn, xij, delta, done, n, d, b, gamma,
-                                 stream);
+                                 x_lane, v_lane, stream);
     if (!err) *issued = t + 1;
   }
   // the host buffer is free again once the copies still in flight land
@@ -1302,31 +1347,39 @@ extern "C" int smo_stream_chunk_f64(const double* X, const double* xn,
   return err;
 }
 
-// The persistent route's plan for b lanes over n rows of d features: m
-// blocks of `slice` rows (m = 0: the route cannot place them), and the
-// bytes of the workspace the launch needs, whose first 16 it needs zeroed.
-extern "C" int smo_stream_plan(int n, int d, int b, int* m, int* slice,
-                               long long* workspace_bytes) {
-  const int e = stream_plan(n, d, b, *m, *slice);
-  *workspace_bytes = *m > 0 ? (long long)stream_workspace(b, *m) : 0;
+// The persistent route's plan for `groups` groups of b lanes over n rows of
+// d features (groups > 1: b = 1, a lane a group over its own X): m blocks
+// of `slice` rows a group (m = 0: the route cannot place them), and the
+// bytes of the workspace the launch needs, whose first 16 a group it needs
+// zeroed.
+extern "C" int smo_stream_plan(int n, int d, int b, int groups, int* m,
+                               int* slice, long long* workspace_bytes) {
+  const int e = stream_plan(n, d, b, *m, *slice, groups);
+  *workspace_bytes =
+      *m > 0 ? (long long)stream_workspace(b, *m, groups) : 0;
   return e;
 }
 
 // As smo_stream_chunk_f64, in one cooperative launch of smo_stream_plan's
-// m blocks of `slice` rows (cudaLaunchKernelExC with the cooperative
-// attribute, which stream capture takes into a CUDA graph): it fails rather
-// than start blocks that cannot all be resident. X's rows are ldx apart,
-// an even stride on 16-byte boundaries (a zero column past an odd d), for
-// 16-byte copies. sn (n,) is smo_select_f64's table. `workspace` holds
-// smo_stream_plan's bytes, the first 16 zeroed.
+// m blocks of `slice` rows for each of `groups` groups of b lanes
+// (cudaLaunchKernelExC with the cooperative attribute, which stream capture
+// takes into a CUDA graph): it fails rather than start blocks that cannot
+// all be resident. X's rows are ldx apart, an even stride on 16-byte
+// boundaries (a zero column past an odd d), for 16-byte copies. sn (n,) is
+// smo_select_f64's table. `workspace` holds smo_stream_plan's bytes, the
+// first 16 a group zeroed. Group g runs lanes g b .. g b + b - 1 over the X
+// at X + g * x_lane (an even stride) and the xn, sn and y at g * v_lane
+// (0: one X for every group); every group has its own barrier counter and
+// candidates, so a group is bitwise its own one-group launch.
 extern "C" int smo_stream_persistent_f64(
     const double* X, const double* xn, const double* sn, const double* y,
     const unsigned char* masks, const double* Cs, double tol,
     const long long* it_caps, long long n_iters, double gamma, double* alphas,
     double* fs, long long* n_iter, unsigned char* done, int n, int d,
-    int ldx, int b, int m, int slice, void* workspace, cudaStream_t stream) {
+    int ldx, int b, int m, int slice, void* workspace, long long x_lane,
+    long long v_lane, int groups, cudaStream_t stream) {
   if (n <= 0 || b <= 0 || n_iters <= 0) return (int)cudaGetLastError();
-  if (ldx < d + (d & 1) || ldx % 2 != 0 ||
+  if (ldx < d + (d & 1) || ldx % 2 != 0 || x_lane % 2 != 0 ||
       reinterpret_cast<uintptr_t>(X) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   const size_t smem = stream_smem(slice, d, b);
@@ -1336,17 +1389,18 @@ extern "C" int smo_stream_persistent_f64(
   if (a != cudaSuccess) return (int)a;
   unsigned char* ws = static_cast<unsigned char*>(workspace);
   unsigned long long* counter = reinterpret_cast<unsigned long long*>(ws);
-  Cand* cands = reinterpret_cast<Cand*>(ws + 16);
+  Cand* cands = reinterpret_cast<Cand*>(ws + 16 * (size_t)groups);
   CandRow* cand_rows =
-      reinterpret_cast<CandRow*>(ws + stream_rows_offset(b, m));
+      reinterpret_cast<CandRow*>(ws + stream_rows_offset(b, m, groups));
   const double neg_gamma = -gamma;
   void* args[] = {&X,       &xn,     &sn,     &y,      &masks,
                   &Cs,      &tol,    &it_caps, &n_iters,
                   const_cast<double*>(&neg_gamma), &alphas, &fs, &n_iter,
                   &done,    &n,      &d,      &ldx,    &b,
-                  &slice,   &counter, &cands, &cand_rows};
+                  &slice,   &counter, &cands, &cand_rows,
+                  &x_lane,  &v_lane, &groups};
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(m);
+  cfg.gridDim = dim3(m * groups);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;

@@ -8,16 +8,23 @@ lanes, on all four of their routes. ``smo_stream_chunk`` counts its
 persistent kernel's launches; on its pair route it adds its launches of
 the WSS-1 selection kernel to ``smo_select`` and of the fused step to
 ``fused_smo_step``.
+``smo_chunk_sources`` and ``smo_stream_chunk_sources`` are the same chunks
+over lanes that each carry their own operands (the shrinking scheduler's
+compact lanes); they count on their own names, split by route like
+``smo_chunk`` and ``smo_stream_chunk``, and the latter's pair route adds
+its selection and fused launches to ``smo_select`` and ``fused_smo_step``.
 ``water_fill``, ``sir_greedy``, ``ato_system_lanes`` / ``ato_apply_lanes``
 (ATO's ramp step, one lane or a row) and ``avg_spill`` / ``top_spill``
 (the LOO seeders' spills; their fused entries ``avg_spill_loo`` /
 ``top_spill_loo`` count on them) count one per launch.
 ``flash_attention`` counts one per launch (one per prefill attention layer
-on the LM serving path). ``route_counts`` splits the eight kernels that
+on the LM serving path). ``route_counts`` splits the ten kernels that
 have routes: ``rbf_kernel_matrix`` (tensor, the FP64 tensor cores / fma),
 ``smo_chunk`` (one_block, the resident kernel / multi_block / cluster /
 one_block_global, the global-state kernel), ``smo_stream_chunk`` (pair /
-persistent: the chunks on each), ``flash_attention`` (wgmma / mma /
+persistent: the chunks on each), ``smo_chunk_sources`` and
+``smo_stream_chunk_sources`` (the same routes, over lanes with their own
+operands), ``flash_attention`` (wgmma / mma /
 fma), ``ato_system_lanes`` (compact / carried: a ramp's later steps),
 ``ato_apply_lanes`` (split / fused: the ramp's, with the alpha update),
 and ``avg_spill`` and ``top_spill`` (fused: the seeder's prologue, order
@@ -30,12 +37,15 @@ from repro_torch.kernels.seeding import (ato_apply_lanes, ato_system_lanes,
                                          sir_greedy, top_spill,
                                          top_spill_loo, water_fill)
 from repro_torch.kernels.smo_chunk import (smo_chunk, smo_chunk_lanes,
-                                           smo_select, smo_stream_chunk)
+                                           smo_chunk_sources, smo_select,
+                                           smo_stream_chunk,
+                                           smo_stream_chunk_sources)
 from repro_torch.kernels.smo_step import fused_smo_step
 from repro_torch.kernels.smo_update import smo_f_update
 
 __all__ = ["rbf_kernel_matrix", "smo_f_update", "smo_chunk",
-           "smo_chunk_lanes", "smo_stream_chunk", "smo_select",
+           "smo_chunk_lanes", "smo_chunk_sources", "smo_stream_chunk",
+           "smo_stream_chunk_sources", "smo_select",
            "fused_smo_step", "flash_attention", "water_fill",
            "sir_greedy", "ato_system_lanes", "ato_apply_lanes", "avg_spill",
            "avg_spill_loo", "top_spill", "top_spill_loo",
@@ -45,9 +55,11 @@ __all__ = ["rbf_kernel_matrix", "smo_f_update", "smo_chunk",
 KERNELS = {"rbf_kernel_matrix": rbf_kernel_matrix,
            "smo_f_update": smo_f_update,
            "smo_chunk": smo_chunk,
+           "smo_chunk_sources": smo_chunk_sources,
            "fused_smo_step": fused_smo_step,
            "smo_select": smo_select,
            "smo_stream_chunk": smo_stream_chunk,
+           "smo_stream_chunk_sources": smo_stream_chunk_sources,
            "flash_attention": flash_attention,
            "water_fill": water_fill,
            "sir_greedy": sir_greedy,
@@ -64,7 +76,9 @@ def launch_counts() -> dict[str, int]:
 
 #: the wrappers whose launches split into routes
 ROUTED = {"rbf_kernel_matrix": rbf_kernel_matrix, "smo_chunk": smo_chunk,
+          "smo_chunk_sources": smo_chunk_sources,
           "smo_stream_chunk": smo_stream_chunk,
+          "smo_stream_chunk_sources": smo_stream_chunk_sources,
           "flash_attention": flash_attention,
           "ato_system_lanes": ato_system_lanes,
           "ato_apply_lanes": ato_apply_lanes,

@@ -261,6 +261,34 @@ def smo_chunk_ref(K, diag, y, mask, C, tol, it_cap, n_iters, wss, alpha, f,
             torch.tensor(stop, device=f.device))
 
 
+def smo_chunk_sources_ref(K, diag, y, masks, Cs, tol, it_caps, n_iters, wss,
+                          alphas, fs, n_iter, done, stream=None,
+                          update_f=smo_f_update_ref):
+    """The plain version of the chunk over lanes that each carry their own
+    operands (``smo_chunk_sources`` / ``smo_stream_chunk_sources``): lane
+    l runs ``smo_chunk_ref`` on K[l], diag[l] and y[l], or with ``stream =
+    (X, sq_norms, gamma)`` (X (b, n, d), sq_norms (b, n)) on its own
+    (X[l], sq_norms[l], gamma). Returns the stacked new state; ``update_f``
+    as for ``smo_chunk_ref``."""
+    Cs = torch.as_tensor(Cs, dtype=torch.float64).reshape(-1).tolist()
+    caps = torch.as_tensor(it_caps).reshape(-1).tolist()
+    outs = []
+    for l in range(masks.shape[0]):
+        if stream is not None:
+            X, sq, gamma = stream
+            ones = torch.ones(X.shape[1], dtype=X.dtype, device=X.device)
+            out = smo_chunk_ref(None, ones, y[l], masks[l], Cs[l], tol,
+                                caps[l], n_iters, "1", alphas[l], fs[l],
+                                n_iter[l], done[l],
+                                stream=(X[l], sq[l], gamma))
+        else:
+            out = smo_chunk_ref(K[l], diag[l], y[l], masks[l], Cs[l], tol,
+                                caps[l], n_iters, wss, alphas[l], fs[l],
+                                n_iter[l], done[l], update_f=update_f)
+        outs.append(out)
+    return tuple(torch.stack(t) for t in zip(*outs))
+
+
 # --------------------------------------------------------------------------
 # alpha seeding's device loops (reference: core/seeding.py water_fill,
 # sir_seed's greedy pass, _ato_ramp's step; csrc/seeding.cu)

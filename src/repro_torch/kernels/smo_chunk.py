@@ -17,6 +17,11 @@
   in global memory, for batches that fit nowhere on chip.
   ``smo_chunk.launches`` counts all four, ``smo_chunk.route_launches``
   each.
+* ``smo_chunk_sources`` — the same kernels over lanes that each carry their
+  own K (b, n, n), diag and y (the shrinking scheduler's compact lanes,
+  ``chunk_batched_sources_jit`` in the reference): one launch, each lane
+  reading its operands at a stride; its own ``launches`` and
+  ``route_launches`` count it.
 * ``smo_stream_chunk`` — a row-streaming RBF source (X, no K), built from
   ``csrc/smo_step.cu``. Two routes (``stream_route``): ``persistent``, all
   ``n_iters`` WSS-1 iterations over all lanes in ONE cooperative launch
@@ -28,6 +33,12 @@
   ``smo_select`` and ``fused_smo_step`` the pair route's launches, and
   ``smo_stream_chunk.route_launches`` the chunks on each route;
   ``smo_select`` also launches the selection kernel alone.
+* ``smo_stream_chunk_sources`` — the streaming chunk over lanes that each
+  carry their own X (b, n, d), norms and y, on the same two routes: the
+  persistent launch runs each lane on its own group of blocks; the pair
+  route's kernels read each lane's operands at a stride. Its own
+  ``launches`` and ``route_launches`` count the chunks; the pair route's
+  launches count on ``smo_select`` and ``fused_smo_step`` as above.
 
 The caller reads the lanes' ``done`` flags only between chunks. On a CPU
 tensor each wrapper runs the plain per-step loop, ``ref.smo_chunk_ref``,
@@ -43,7 +54,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import smo_chunk_ref, smo_select_lanes_ref
+from repro_torch.kernels.ref import (smo_chunk_ref, smo_chunk_sources_ref,
+                                     smo_select_lanes_ref)
 from repro_torch.kernels.smo_step import fused_smo_step
 
 _P, _LL, _D, _I = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_double,
@@ -237,10 +249,58 @@ def smo_chunk_lanes(K, diag, y, masks, Cs, tol, it_caps, n_iters, wss,
                 or t.shape[-1] != n:
             raise ValueError(f"smo_chunk: {name} must be float64 over {n} "
                              f"rows on {K.device}")
+    return _dense_launch(smo_chunk, K.contiguous(), diag.contiguous(),
+                         y.contiguous(), 0, 0, masks, Cs, tol, it_caps,
+                         n_iters, wss, alphas, fs, n_iter, done, _route,
+                         _rows, _cluster)
+
+
+def smo_chunk_sources(K, diag, y, masks, Cs, tol, it_caps, n_iters, wss,
+                      alphas, fs, n_iter, done, _route=None, _rows=None,
+                      _cluster=None):
+    """``smo_chunk_lanes`` over b lanes that each carry their own operands:
+    K (b, n, n), diag and y (b, n) float64, lane l's at index l (the
+    shrinking scheduler's compact lanes). One launch of the route's kernel,
+    lane l reading K[l], diag[l] and y[l]; each lane is bitwise its own
+    ``smo_chunk_lanes`` launch on its own operands, on every route, and the
+    plain version. The route and its plans see n = the lanes' rows.
+    ``_route`` / ``_rows`` / ``_cluster`` as for ``smo_chunk_lanes``; a
+    launch that cannot be placed raises."""
+    if wss not in ("1", "2"):
+        raise ValueError(f"smo_chunk: wss must be '1' or '2', got {wss!r}")
+    if K.device.type == "cpu":
+        return smo_chunk_sources_ref(K, diag, y, masks, Cs, tol, it_caps,
+                                     n_iters, wss, alphas, fs, n_iter, done)
+    if K.device.type != "cuda":
+        raise ValueError(f"smo_chunk: unsupported device {K.device}")
+    b = masks.shape[0]
+    if K.dim() != 3 or K.shape[0] != b or K.shape[1] != K.shape[2] \
+            or K.shape[1] >= 2 ** 31:
+        raise ValueError(f"smo_chunk_sources: K must be ({b}, n, n), got "
+                         f"{tuple(K.shape)}")
+    n = K.shape[1]
+    for name, t, shape in (("K", K, (b, n, n)), ("diag", diag, (b, n)),
+                           ("y", y, (b, n))):
+        if t.device != K.device or t.dtype != torch.float64 \
+                or tuple(t.shape) != shape:
+            raise ValueError(f"smo_chunk_sources: {name} must be float64 "
+                             f"{shape} on {K.device}")
+    return _dense_launch(smo_chunk_sources, K.contiguous(),
+                         diag.contiguous(), y.contiguous(), n * n, n, masks,
+                         Cs, tol, it_caps, n_iters, wss, alphas, fs, n_iter,
+                         done, _route, _rows, _cluster)
+
+
+def _dense_launch(counter, K, diag, y, k_lane, v_lane, masks, Cs, tol,
+                  it_caps, n_iters, wss, alphas, fs, n_iter, done, _route,
+                  _rows, _cluster):
+    """Place and launch the dense chunk over b lanes of n rows, lane l
+    reading K + l k_lane, diag and y + l v_lane (elements; 0: shared), and
+    count the launch on ``counter`` (the wrapper called)."""
+    n = K.shape[-1]
     b = masks.shape[0]
     masks, Cs, it_caps, alphas, fs, n_iter, done = _lane_args(
         K.device, b, n, masks, Cs, it_caps, alphas, fs, n_iter, done)
-    K, diag, y = K.contiguous(), diag.contiguous(), y.contiguous()
     if _route not in (None, *ROUTES):
         raise ValueError(f"smo_chunk: route must be one of {ROUTES}, got "
                          f"{_route!r}")
@@ -278,8 +338,10 @@ def smo_chunk_lanes(K, diag, y, masks, Cs, tol, it_caps, n_iters, wss,
     args = (K.data_ptr(), diag.data_ptr(), y.data_ptr(), masks.data_ptr(),
             Cs.data_ptr(), float(tol), it_caps.data_ptr(), int(n_iters),
             2 if wss == "2" else 1, alphas.data_ptr(), fs.data_ptr(),
-            n_iter.data_ptr(), done.data_ptr(), n, b)
-    types = (_P, _P, _P, _P, _P, _D, _P, _LL, _I, _P, _P, _P, _P, _I, _I)
+            n_iter.data_ptr(), done.data_ptr(), n, b, int(k_lane),
+            int(v_lane))
+    types = (_P, _P, _P, _P, _P, _D, _P, _LL, _I, _P, _P, _P, _P, _I, _I,
+             _LL, _LL)
     if path == "one_block":
         fn = _build.entry("smo_chunk", "smo_chunk_resident_f64", *types, _I,
                           _I, _P)
@@ -298,8 +360,8 @@ def smo_chunk_lanes(K, diag, y, masks, Cs, tol, it_caps, n_iters, wss,
                           _P)
         err = fn(*args, m, ws.data_ptr(), _build.stream_ptr(K))
     _build.check(err, f"smo_chunk ({path})")
-    smo_chunk.launches += 1
-    smo_chunk.route_launches[path] += 1
+    counter.launches += 1
+    counter.route_launches[path] += 1
     return alphas, fs, n_iter, done
 
 
@@ -405,6 +467,8 @@ def smo_chunk(K, diag, y, mask, C, tol, it_cap, n_iters, wss, alpha, f,
 
 smo_chunk.launches = 0
 smo_chunk.route_launches = dict.fromkeys(ROUTES, 0)
+smo_chunk_sources.launches = 0
+smo_chunk_sources.route_launches = dict.fromkeys(ROUTES, 0)
 
 
 def stream_route(m: int) -> str:
@@ -415,22 +479,27 @@ def stream_route(m: int) -> str:
     return "persistent" if m >= 1 else "pair"
 
 
-def stream_plan(n: int, d: int, b: int) -> tuple[int, int, int]:
+def stream_plan(n: int, d: int, b: int,
+                groups: int = 1) -> tuple[int, int, int]:
     """The persistent route's (blocks, rows a block, workspace bytes) for b
     lanes over n rows of d features on the current device: about 128 rows
     a block, every block resident at once, the slice's state in a block's
     shared memory; 0 blocks past 16 lanes or when the state does not fit.
-    Computed once per device, n, d and b."""
-    return _stream_plan(torch.cuda.current_device(), n, d, b)
+    ``groups`` such launches side by side (lanes with their own X: b = 1,
+    a lane a group) take that many blocks each, all resident at once.
+    Computed once per device, n, d, b and groups."""
+    return _stream_plan(torch.cuda.current_device(), n, d, b, groups)
 
 
 @functools.lru_cache(maxsize=None)
-def _stream_plan(device: int, n: int, d: int, b: int) -> tuple[int, int,
-                                                                 int]:
+def _stream_plan(device: int, n: int, d: int, b: int,
+                 groups: int) -> tuple[int, int, int]:
     m, slice_, ws = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_longlong(0)
-    fn = _build.entry("smo_step", "smo_stream_plan", _I, _I, _I, _P, _P, _P)
-    _build.check(fn(n, d, b, ctypes.addressof(m), ctypes.addressof(slice_),
-                    ctypes.addressof(ws)), "smo_stream_plan")
+    fn = _build.entry("smo_step", "smo_stream_plan", _I, _I, _I, _I, _P, _P,
+                      _P)
+    _build.check(fn(n, d, b, groups, ctypes.addressof(m),
+                    ctypes.addressof(slice_), ctypes.addressof(ws)),
+                 "smo_stream_plan")
     return m.value, slice_.value, ws.value
 
 
@@ -439,15 +508,18 @@ def pad_rows(X):
     on a 16-byte boundary (it copies two features at a time), with a zero
     column past an odd d. X itself where it already is so (or off the
     card), else an (n, d) view of a zeroed (n, d + 1) copy. A caller that
-    runs many chunks over one X makes this once and passes it on."""
-    n, d = X.shape
-    if X.device.type != "cuda" or (d % 2 == 0 and X.stride(1) == 1
-                                   and X.stride(0) % 2 == 0
+    runs many chunks over one X makes this once and passes it on. Stacked
+    lanes' X (b, n, d) pad the same way, lane by lane."""
+    d = X.shape[-1]
+    if X.device.type != "cuda" or (d % 2 == 0 and X.stride(-1) == 1
+                                   and all(s % 2 == 0
+                                           for s in X.stride()[:-1])
                                    and X.data_ptr() % 16 == 0):
         return X
-    Xp = torch.zeros((n, d + d % 2), dtype=X.dtype, device=X.device)
-    Xp[:, :d] = X
-    return Xp[:, :d]
+    Xp = torch.zeros((*X.shape[:-1], d + d % 2), dtype=X.dtype,
+                     device=X.device)
+    Xp[..., :d] = X
+    return Xp[..., :d]
 
 
 def seq_norms(X):
@@ -455,10 +527,11 @@ def seq_norms(X):
     and each sum rounded on its own (the order of ``fused_smo_step``'s pair
     norms): the table from which both streaming routes' kernels take
     |x_i|^2 for K[i, j], so this loop alone fixes its rounding. A caller
-    that runs many chunks over one X makes it once and passes it on."""
-    sn = torch.zeros(X.shape[0], dtype=X.dtype, device=X.device)
-    for k in range(X.shape[1]):
-        sn = sn + X[:, k] * X[:, k]
+    that runs many chunks over one X makes it once and passes it on.
+    Stacked lanes' X (b, n, d) give (b, n)."""
+    sn = torch.zeros(X.shape[:-1], dtype=X.dtype, device=X.device)
+    for k in range(X.shape[-1]):
+        sn = sn + X[..., k] * X[..., k]
     return sn
 
 
@@ -466,7 +539,7 @@ def _norms_arg(X, X_norms):
     """``X_norms``, checked: the card's kernels need ``seq_norms(X)``."""
     if X_norms is None or X_norms.device != X.device \
             or X_norms.dtype != torch.float64 \
-            or tuple(X_norms.shape) != (X.shape[0],):
+            or tuple(X_norms.shape) != tuple(X.shape[:-1]):
         raise ValueError("X_norms must be seq_norms(X)")
     return X_norms.contiguous()
 
@@ -508,59 +581,126 @@ def smo_stream_chunk(X, sq_norms, gamma, y, masks, Cs, tol, it_caps,
                 or tuple(t.shape) != shape:
             raise ValueError(f"smo_stream_chunk: {name} must be float64 "
                              f"{shape} on {X.device}")
+    return _stream_launch(smo_stream_chunk, X, sq_norms, gamma, y, masks, Cs,
+                          tol, it_caps, n_iters, alphas, fs, n_iter, done,
+                          X_rows, X_norms, _route, per_lane=False)
+
+
+def _stream_launch(counter, X, sq_norms, gamma, y, masks, Cs, tol, it_caps,
+                   n_iters, alphas, fs, n_iter, done, X_rows, X_norms,
+                   _route, *, per_lane: bool):
+    """Place and launch the streaming chunk over b lanes of n rows: one X
+    (n, d) for every lane, or (``per_lane``) lane l's own X[l] (b, n, d)
+    with its norms and labels at index l, each lane then a group of its
+    own on the persistent route and a stride of its own on the pair route.
+    Count the chunk on ``counter`` (the wrapper called)."""
+    n, d = X.shape[-2:]
+    b = masks.shape[0]
     if max(n, d) >= 2 ** 31:
         raise ValueError("smo_stream_chunk: n and d must be below 2**31")
     if _route not in (None, *STREAM_ROUTES):
         raise ValueError(f"smo_stream_chunk: route must be one of "
                          f"{STREAM_ROUTES}, got {_route!r}")
-    b = masks.shape[0]
     masks, Cs, it_caps, alphas, fs, n_iter, done = _lane_args(
         X.device, b, n, masks, Cs, it_caps, alphas, fs, n_iter, done)
-    X, sq_norms, y = X.contiguous(), sq_norms.contiguous(), y.contiguous()
+    sq_norms, y = sq_norms.contiguous(), y.contiguous()
     sn = _norms_arg(X, X_norms)
-    m, slice_, ws_bytes = stream_plan(n, d, b)
+    # lanes a group, groups, and the element stride of the norms and labels
+    lanes, groups, v_lane = (1, b, n) if per_lane else (b, 1, 0)
+    m, slice_, ws_bytes = stream_plan(n, d, lanes, groups)
     path = _route or stream_route(m)
     if path == "persistent" and m < 1:
         raise ValueError(f"smo_stream_chunk: the persistent route cannot "
-                         f"place {b} lanes over {n} x {d} on this card")
-    args = (X.data_ptr(), sq_norms.data_ptr(), y.data_ptr(),
+                         f"place {b} lanes over {'their own ' * per_lane}"
+                         f"{n} x {d} on this card")
+    args = (sq_norms.data_ptr(), sn.data_ptr(), y.data_ptr(),
             masks.data_ptr(), Cs.data_ptr(), float(tol), it_caps.data_ptr(),
             int(n_iters), float(gamma), alphas.data_ptr(), fs.data_ptr(),
             n_iter.data_ptr(), done.data_ptr())
     types = (_P, _P, _P, _P, _P, _D, _P, _LL, _D, _P, _P, _P, _P)
     if path == "persistent":
-        # the barrier counter starts at 0 in every launch
+        # the barrier counters start at 0 in every launch
         ws = torch.zeros(ws_bytes, dtype=torch.uint8, device=X.device)
         Xp = pad_rows(X) if X_rows is None else X_rows
-        if tuple(Xp.shape) != (n, d) or Xp.stride(1) != 1 \
-                or Xp.stride(0) % 2 or Xp.data_ptr() % 16:
+        if tuple(Xp.shape) != tuple(X.shape) or Xp.stride(-1) != 1 \
+                or any(st % 2 for st in Xp.stride()[:-1]) \
+                or (per_lane and Xp.stride(0) < n * Xp.stride(1)) \
+                or Xp.data_ptr() % 16:
             raise ValueError("smo_stream_chunk: X_rows must be pad_rows(X)")
-        fn = _build.entry("smo_step", "smo_stream_persistent_f64", _P, _P,
-                          *types[1:], _I, _I, _I, _I, _I, _I, _P, _P)
-        err = fn(Xp.data_ptr(), args[1], sn.data_ptr(), *args[2:], n, d,
-                 Xp.stride(0), b, m, slice_, ws.data_ptr(),
-                 _build.stream_ptr(X))
+        fn = _build.entry("smo_step", "smo_stream_persistent_f64", _P,
+                          *types, _I, _I, _I, _I, _I, _I, _P, _LL, _LL, _I,
+                          _P)
+        err = fn(Xp.data_ptr(), *args, n, d, Xp.stride(-2), lanes, m,
+                 slice_, ws.data_ptr(), Xp.stride(0) if per_lane else 0,
+                 v_lane, groups, _build.stream_ptr(X))
         _build.check(err, "smo_stream_chunk (persistent)")
         if n_iters > 0:
-            smo_stream_chunk.launches += 1
+            counter.launches += 1
     else:
+        X = X.contiguous()   # the pair route reads rows d apart
         xij = torch.empty((b, 2, d), dtype=torch.float64, device=X.device)
         delta = torch.zeros(b, dtype=torch.float64, device=X.device)
-        fn = _build.entry("smo_step", "smo_stream_chunk_f64", _P, _P,
-                          *types[1:], _P, _P, _I, _I, _I, _P, _P)
+        fn = _build.entry("smo_step", "smo_stream_chunk_f64", _P, *types, _P,
+                          _P, _I, _I, _I, _LL, _LL, _P, _P)
         issued = ctypes.c_longlong(0)
-        err = fn(args[0], args[1], sn.data_ptr(), *args[2:], xij.data_ptr(),
-                 delta.data_ptr(), n, d, b, _build.stream_ptr(X),
+        err = fn(X.data_ptr(), *args, xij.data_ptr(), delta.data_ptr(), n, d,
+                 b, n * d if per_lane else 0, v_lane, _build.stream_ptr(X),
                  ctypes.addressof(issued))
         smo_select.launches += issued.value
         fused_smo_step.launches += issued.value
         _build.check(err, "smo_stream_chunk (pair)")
-    smo_stream_chunk.route_launches[path] += 1
+    counter.route_launches[path] += 1
     return alphas, fs, n_iter, done
 
 
 smo_stream_chunk.launches = 0
 smo_stream_chunk.route_launches = dict.fromkeys(STREAM_ROUTES, 0)
+
+
+def smo_stream_chunk_sources(X, sq_norms, gamma, y, masks, Cs, tol, it_caps,
+                             n_iters, alphas, fs, n_iter, done, *,
+                             X_rows=None, X_norms=None, _route=None):
+    """``smo_stream_chunk`` over b lanes that each carry their own RBF
+    operands: X (b, n, d), sq_norms and y (b, n) float64, lane l's at index
+    l (the shrinking scheduler's compact lanes), one gamma. Lane tensors as
+    for ``smo_stream_chunk``; returns the new ``(alphas, fs, n_iter,
+    done)``, each lane bitwise its own ``smo_stream_chunk`` on its own
+    operands, on either route, and the plain version.
+
+    ``persistent``: one cooperative launch, each lane over its own group of
+    blocks (``stream_plan(n, d, 1, b)``); ``pair``: per iteration the
+    selection kernel (a block a lane, reading its lane's X) and
+    ``fused_smo_step`` (a grid row a lane, streaming its lane's X).
+    ``X_norms`` is ``seq_norms(X)`` (b, n), required on the card;
+    ``X_rows`` is ``pad_rows(X)``, made per call when not given.
+    ``_route`` overrides ``stream_route``; a route that cannot place the
+    lanes raises."""
+    if X.device.type == "cpu":
+        return smo_chunk_sources_ref(
+            None, None, y, masks, Cs, tol, it_caps, n_iters, "1", alphas, fs,
+            n_iter, done, stream=(X, sq_norms, float(gamma)))
+    if X.device.type != "cuda":
+        raise ValueError(f"smo_stream_chunk: unsupported device {X.device}")
+    b = masks.shape[0]
+    if X.dim() != 3 or X.shape[0] != b:
+        raise ValueError(f"smo_stream_chunk_sources: X must be ({b}, n, d), "
+                         f"got {tuple(X.shape)}")
+    _, n, d = X.shape
+    for name, t, shape in (("X", X, (b, n, d)),
+                           ("sq_norms", sq_norms, (b, n)),
+                           ("y", y, (b, n))):
+        if t.device != X.device or t.dtype != torch.float64 \
+                or tuple(t.shape) != shape:
+            raise ValueError(f"smo_stream_chunk_sources: {name} must be "
+                             f"float64 {shape} on {X.device}")
+    return _stream_launch(smo_stream_chunk_sources, X, sq_norms, gamma, y,
+                          masks, Cs, tol, it_caps, n_iters, alphas, fs,
+                          n_iter, done, X_rows, X_norms, _route,
+                          per_lane=True)
+
+
+smo_stream_chunk_sources.launches = 0
+smo_stream_chunk_sources.route_launches = dict.fromkeys(STREAM_ROUTES, 0)
 
 
 def smo_select(X, sq_norms, gamma, y, masks, Cs, tol, it_caps, alphas, fs,

@@ -1,14 +1,17 @@
-"""The lane pool's width verdict per (device type, source kind).
+"""The lane pool's width and shrink verdicts per (device type, source
+kind).
 
-Mirrors ``load``, ``source_kind``, ``fallback_max_width`` and
-``pick_max_width`` of ``src/repro/svm/cost_model.py``, as the port's own
-copy. The model is keyed by the torch device type (``"cpu"``, ``"cuda"``);
+Mirrors ``load``, ``source_kind``, ``fallback_max_width``,
+``pick_max_width``, ``fallback_shrink`` and ``pick_shrink`` of
+``src/repro/svm/cost_model.py``, as the port's own copy. The model is keyed by the torch device type (``"cpu"``, ``"cuda"``);
 it is read from ``results/cost_model.json`` (written by the reference's
 ``scripts/measure_cost_model.py``, which measured only ``cpu``), and the
 port never writes it. A missing device type or kind falls back to the
-historical verdict: width-1 round-robin on the CPU, no cap (0) elsewhere.
-So the port's CPU pool round-robins like the reference's on the CPU, and
-on ``cuda`` the pool dispatches every live lane.
+historical verdict: width-1 round-robin on the CPU, no cap (0) elsewhere;
+shrinking off on the CPU, on elsewhere (``shrink_every="auto"``). So the
+port's CPU pool round-robins like the reference's on the CPU, and on
+``cuda`` the pool dispatches every live lane. A measured ``cuda`` entry
+is not in the file yet.
 """
 from __future__ import annotations
 
@@ -61,3 +64,28 @@ def pick_max_width(device_type: str, kinds=("dense",), model=None,
             caps.append(int(entry["max_width"]))
     finite = [c for c in caps if c > 0]
     return min(finite) if finite else 0
+
+
+def fallback_shrink(device_type: str) -> bool:
+    """The default shrink verdict: off on the CPU (a width-1 step loop whose
+    iteration cost is per-op overhead, not operand bytes), on elsewhere."""
+    return device_type != "cpu"
+
+
+def pick_shrink(device_type: str, kinds=("dense",), model=None,
+                path=None) -> bool:
+    """Shrink verdict for a pool on ``device_type`` dispatching the given
+    source kinds (``shrink_every="auto"``): each kind's measured
+    ``shrink`` entry, enabled only when every kind says True; a missing
+    entry takes the fallback for the device type."""
+    if model is None:
+        model = load(path)
+    per_device = (model or {}).get("entries", {}).get(device_type, {})
+    verdicts = []
+    for kind in set(kinds) or {"dense"}:
+        entry = per_device.get(kind)
+        if not isinstance(entry, dict) or "shrink" not in entry:
+            verdicts.append(fallback_shrink(device_type))
+        else:
+            verdicts.append(bool(entry["shrink"]))
+    return all(verdicts)

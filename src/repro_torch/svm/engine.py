@@ -5,10 +5,11 @@ Mirrors ``src/repro/svm/engine.py``: ``SMOResult``, ``EngineState`` (with
 the lane helpers ``stack``/``lane``/``gather``/``scatter``),
 ``optimality``, the sources ``DenseKernel``, ``OnDemandRBF``, ``FusedRBF``
 and ``PallasRBF``, ``smo_chunk``, ``chunk_batched`` (the reference's
-``chunk_batched_jit``), ``init_state``, ``finalize``, ``solve`` and
-``solve_batched``. The step itself (WSS-2 and WSS-1, dense or streaming)
-is ``kernels/ref.py::smo_step_ref``, kept beside the chunk kernels that
-run it on the card.
+``chunk_batched_jit``), ``stack_sources``, ``chunk_batched_sources`` (the
+reference's ``chunk_batched_sources_jit``), ``init_state``, ``finalize``,
+``solve`` and ``solve_batched``. The step itself (WSS-2 and WSS-1, dense
+or streaming) is ``kernels/ref.py::smo_step_ref``, kept beside the chunk
+kernels that run it on the card.
 
 A chunk on a CUDA tensor runs on the card without a host sync inside it:
 over a ``DenseKernel`` it is ONE launch of the dense chunk kernel (a block
@@ -18,8 +19,17 @@ one host call. The host reads ``done`` only between chunks, as the
 reference's jitted ``lax.while_loop`` does. On a CPU tensor a chunk is the
 plain per-step loop, lane by lane. ``OnDemandRBF`` and ``FusedRBF`` serve
 kernel rows (``row``, ``rows2``, ``kij``, ``rows_at``, ``matvec``); solves
-go through ``DenseKernel`` or ``PallasRBF``. Stacked per-lane sources and
-``compact`` belong to shrinking, a later slice of the port.
+go through ``DenseKernel`` or ``PallasRBF``.
+
+Shrinking (``svm/shrink.py``) runs a lane on the rows it keeps active:
+``compact(idx)`` gathers a source of the same kind over those rows (pads,
+which the reference points at row n, are clamped to the last row here, as
+the reference's gathers clamp them), and ``matvec`` reconstructs f over
+the full set. Lanes of one (source, cap) group each carry their own
+compact operands: ``stack_sources`` stacks them and
+``chunk_batched_sources`` runs them in ONE launch of the chunk kernels'
+per-lane form (``smo_chunk_sources`` / ``smo_stream_chunk_sources``) on the
+card, the plain step loop lane by lane on the CPU.
 """
 from __future__ import annotations
 
@@ -30,13 +40,17 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels.ops import (fused_smo_step, smo_chunk_lanes,
-                                     smo_stream_chunk)
+                                     smo_chunk_sources, smo_stream_chunk,
+                                     smo_stream_chunk_sources)
 from repro_torch.kernels.ops import smo_chunk as _smo_chunk_kernel
 from repro_torch.kernels.ref import _sets, rbf_kij_ref
-from repro_torch.kernels.smo_chunk import pad_rows, seq_norms
+from repro_torch.kernels.smo_chunk import (pad_rows, seq_norms, stream_plan,
+                                           stream_route)
 
 _INF = math.inf
 _INT32_MAX = 2 ** 31 - 1
+#: entries of K a compaction gathers at once (a slab of rows: 128 MB)
+GATHER_ELEMS = 1 << 24
 
 
 class SMOResult(NamedTuple):
@@ -125,6 +139,33 @@ class DenseKernel:
     def row(self, i):
         return self.K[i]
 
+    def rows_at(self, idx):
+        """Kernel row slab K[idx, :]."""
+        return self.K[torch.as_tensor(idx, device=self.K.device)]
+
+    def matvec(self, v):
+        """``K @ v`` — the unshrink reconstruction path (``shrink.py``)."""
+        return self.K @ v
+
+    def compact(self, idx) -> "DenseKernel":
+        """The kernel restricted to rows and columns ``idx`` (the active
+        set); pads past the last row clamp to it, inert under the compact
+        validity mask. Gathered in slabs of rows (``GATHER_ELEMS`` entries
+        of K at a time) straight into the (cap, cap) result: neither
+        ``K[idx][:, idx]``'s (cap, n) intermediate (7.5 GB at cap 29,000 of
+        adult's n = 32,560) nor the (cap, cap) int64 index pair that
+        torch's broadcast 2-D index ``K[idx[:, None], idx[None, :]]``
+        builds."""
+        K = self.K
+        idx = _clamped(idx, K.shape[0], K.device)
+        cap = idx.shape[0]
+        out = torch.empty((cap, cap), dtype=K.dtype, device=K.device)
+        step = max(1, GATHER_ELEMS // K.shape[1])
+        for r in range(0, cap, step):
+            torch.index_select(K.index_select(0, idx[r:r + step]), 1, idx,
+                               out=out[r:r + step])
+        return DenseKernel(out)
+
     def to(self, device) -> "DenseKernel":
         return DenseKernel(torch.as_tensor(self.K, device=device))
 
@@ -203,6 +244,13 @@ class OnDemandRBF:
             self._slab(self.X[s:s + block], self.sq_norms[s:s + block]) @ v
             for s in range(0, n, block)])
 
+    def compact(self, idx):
+        """The same source kind over ``X[idx]`` (the active set: a compact
+        row-streaming source streams only the active rows); pads past the
+        last row clamp to it, inert under the compact validity mask."""
+        idx = _clamped(idx, self.X.shape[0], self.X.device)
+        return type(self)(self.X[idx], self.gamma, self.sq_norms[idx])
+
     def to(self, device):
         return type(self)(torch.as_tensor(self.X, device=device), self.gamma,
                           torch.as_tensor(self.sq_norms, device=device))
@@ -241,6 +289,70 @@ class PallasRBF(FusedRBF):
         return fused_smo_step(f, self.X, self.X[[int(i), int(j)]],
                               self.sq_norms, delta, self.gamma)
 
+    def compact(self, idx) -> "PallasRBF":
+        """``OnDemandRBF.compact`` with the streaming chunk's tables: the
+        ordered-norm table gathered (it is row by row, so the gather is
+        bitwise the table of the compact X) and ``pad_rows`` of the
+        compact X built once for its chunks."""
+        out = super().compact(idx)
+        idx = _clamped(idx, self.X.shape[0], self.X.device)
+        out.__dict__["seq_norms"] = self.seq_norms[idx]
+        out.__dict__["X_rows"] = pad_rows(out.X)
+        return out
+
+
+def _clamped(idx, n: int, device):
+    """Compaction indices on ``device``, pads past the last row clamped to
+    it (the reference's gathers clamp its pads, index n, the same way)."""
+    return torch.as_tensor(idx, device=device).clamp_max(n - 1)
+
+
+def stack_lanes(ts, width: int):
+    """``ts`` stacked along a new leading axis of ``width`` slots; the
+    slots past them zeroed."""
+    out = ts[0].new_empty((width, *ts[0].shape))
+    torch.stack(ts, out=out[:len(ts)])
+    out[len(ts):].zero_()
+    return out
+
+
+def stack_sources(sources, width: int | None = None):
+    """Stack same-kind compact sources of the same shape along a new
+    leading lane axis of ``width`` slots (``chunk_batched_sources``'
+    operand; one a source by default): a ``DenseKernel`` over K (width,
+    cap, cap), or a ``PallasRBF`` over X (width, cap, d) with its norms and
+    ordered norms stacked (one gamma). Slots past the sources hold zeros:
+    they are pad lanes', which are done and never read. X is laid out as
+    the route that will read it wants it, in one copy: where the
+    persistent route places the lanes, X is a view of its padded rows
+    (``X_rows``); else contiguous, for the pair route, with no padded
+    rows."""
+    first = sources[0]
+    width = len(sources) if width is None else int(width)
+    if isinstance(first, DenseKernel):
+        return DenseKernel(stack_lanes([s.K for s in sources], width))
+    if not isinstance(first, PallasRBF) \
+            or any(s.gamma != first.gamma for s in sources):
+        raise ValueError("stack_sources: DenseKernel, or PallasRBF of one "
+                         "gamma")
+    cap, d = first.X.shape
+    persistent = first.X.device.type == "cuda" and stream_route(
+        stream_plan(cap, d, 1, width)[0]) == "persistent"
+    if persistent:
+        rows = first.X.new_zeros((width, cap, d + d % 2))
+        for i, s in enumerate(sources):
+            rows[i, :, :d].copy_(s.X)
+        X = rows[..., :d]
+    else:
+        X = stack_lanes([s.X for s in sources], width)
+    out = PallasRBF(X, first.gamma,
+                    stack_lanes([s.sq_norms for s in sources], width))
+    out.__dict__["seq_norms"] = stack_lanes([s.seq_norms for s in sources],
+                                            width)
+    if persistent:
+        out.__dict__["X_rows"] = X
+    return out
+
 
 # --------------------------------------------------------------------------
 # chunks
@@ -277,6 +389,36 @@ def chunk_batched(source, y, train_masks, Cs, tol, it_caps,
         out = smo_chunk_lanes(source.K, source.diag(), y, train_masks, Cs,
                               float(tol), it_caps, int(n_iters), wss,
                               *states)
+    return EngineState(*out)
+
+
+def chunk_batched_sources(sources, ys, train_masks, Cs, tol, it_caps,
+                          states: EngineState, n_iters: int,
+                          wss: str) -> EngineState:
+    """One chunk over a batch of lanes that each carry their OWN kernel
+    operands: ``sources`` is a stacked source (``stack_sources``, leading
+    axis = lane), ``ys`` (b, cap); masks, Cs, caps and states as for
+    ``chunk_batched``. On a CUDA tensor one launch of the per-lane chunk
+    kernel; on a CPU tensor the plain step loop lane by lane. Each lane is
+    bitwise its own ``smo_chunk`` over its own source."""
+    _check_source(sources, wss)
+    b = train_masks.shape[0]
+    Cs = torch.as_tensor(Cs, dtype=torch.float64).reshape(-1).expand(b)
+    it_caps = torch.as_tensor(it_caps, dtype=torch.int64).reshape(-1) \
+        .expand(b)
+    if sources.streams_rows:
+        out = smo_stream_chunk_sources(
+            sources.X, sources.sq_norms, sources.gamma, ys, train_masks, Cs,
+            float(tol), it_caps, int(n_iters), *states,
+            # the padded rows where ``stack_sources`` made them (the
+            # persistent route's), else none: the pair route reads X
+            X_rows=sources.__dict__.get("X_rows"),
+            X_norms=sources.seq_norms)
+    else:
+        K = sources.K
+        out = smo_chunk_sources(K, torch.diagonal(K, dim1=1, dim2=2), ys,
+                                train_masks, Cs, float(tol), it_caps,
+                                int(n_iters), wss, *states)
     return EngineState(*out)
 
 

@@ -22,15 +22,24 @@ Mirrors ``src/repro/svm/scheduler.py``: the pure helpers ``bucket_width``,
   and/or wait on an ``after`` ordering edge;
 * **kernel residency** — factory sources (``sources.KernelSpec``)
   materialize through the ``SourceCache`` under its budget, and selection
-  is budget-aware.
+  is budget-aware;
+* **shrinking** (``shrink_every`` > 0, ``svm/shrink.py``) — each lane
+  carries a ``LaneShrink`` ledger from admission (seeded lanes start
+  compact with ``shrink_on_seed``); lanes group by (source, cap), a shrunk
+  lane running its compact subproblem at ``10 * tol``: a group of one runs
+  the single-lane chunk over its compact source, wider groups go through
+  ``chunk_batched_sources`` (ONE launch over the lanes' stacked compact
+  operands on the card), pad lanes done with a cap of 0.
+  ``shrink_every=0`` keeps the schedule, and its (source, width) program
+  keys, as they were.
 
 Each lane's iterate sequence depends only on its own (source, mask, C,
 state), and a done lane passes through a chunk unchanged, so per-lane
 results are bitwise those of sequential ``engine.solve`` runs whatever the
 packing. The host reads a batch's ``done`` flags once per chunk.
 
-Shrinking (``_step_shrink``), ``snapshot_lanes``, the retirement and
-per-chunk callbacks, and the daemon's live source admission and tenant
+``snapshot_lanes`` (and the shrink ledger it would carry), the retirement
+and per-chunk callbacks, and the daemon's live source admission and tenant
 accounting are later slices of the port (``select_capped`` itself
 fair-shares lanes of several tenants; the pool's lanes carry none).
 """
@@ -38,13 +47,17 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import weakref
 from typing import Any, Callable
 
 import torch
 
 from repro_torch.svm import cost_model
+from repro_torch.svm import shrink as shrink_mod
 from repro_torch.svm.engine import (EngineState, SMOResult, chunk_batched,
-                                    finalize, init_state, smo_chunk)
+                                    chunk_batched_sources, finalize,
+                                    init_state, smo_chunk, stack_lanes,
+                                    stack_sources)
 from repro_torch.svm.sources import SourceCache
 
 
@@ -150,6 +163,7 @@ class _Lane:
     served: int = 0                       # chunks dispatched (fairness)
     seed_s: float = 0.0                   # admission-transform wall time
     solve_s: float = 0.0                  # dispatch wall time attributed here
+    shrink: Any = None                    # shrink.LaneShrink when enabled
 
 
 class LanePool:
@@ -159,24 +173,39 @@ class LanePool:
     kernel source or a factory (``sources.KernelSpec``); ``y`` is shared or
     a dict keyed like ``sources``. ``on_trace(event)`` receives the
     schedule's event tuples (admit, given, pack, dispatch, retire, resident,
-    materialize, evict).
+    materialize, evict). ``shrink_every`` (iterations between heuristic
+    evaluations; 0 off, ``"auto"`` the cost model's verdict for the device
+    and kinds), ``shrink_quantum`` / ``shrink_caps`` (the compact
+    capacities) and ``shrink_on_seed`` (the admission handoff) turn on
+    active-set shrinking.
     """
 
     def __init__(self, sources, y, *, tol: float = 1e-3, wss: str = "2",
                  chunk_iters: int = 2048, lane_quantum: int = 4,
                  max_width: int | None = None, max_resident: int = 0,
-                 cache_bytes: int = 0, on_trace=None):
+                 cache_bytes: int = 0, shrink_every: int | str = 0,
+                 shrink_quantum: int = 128, shrink_caps=None,
+                 shrink_on_seed: bool = True, on_trace=None):
         if not isinstance(sources, dict) or not sources:
             raise ValueError("sources must be a non-empty {key: source} "
                              "dict")
         self.sources = dict(sources)
         self._ys = {k: (y[k] if isinstance(y, dict) else y)
                     for k in self.sources}
+        kinds = {cost_model.source_kind(s) for s in sources.values()}
+        device = next(iter(self._ys.values())).device.type
         if max_width is None:
-            kinds = {cost_model.source_kind(s) for s in sources.values()}
-            device = next(iter(self._ys.values())).device.type
             max_width = cost_model.pick_max_width(device, kinds=kinds)
         self.max_width = int(max_width)   # 0 = unbounded
+        if shrink_every == "auto":
+            shrink_every = shrink_mod.DEFAULT_SHRINK_EVERY \
+                if cost_model.pick_shrink(device, kinds=kinds) else 0
+        self.shrink_every = int(shrink_every)
+        self.shrink_quantum = int(shrink_quantum)
+        self.shrink_caps = tuple(int(c) for c in shrink_caps) \
+            if shrink_caps else None
+        self.shrink_on_seed = bool(shrink_on_seed)
+        self._frac_log: list[float] = []  # (cap or n)/n per lane-dispatch
         self.tol = tol
         self.wss = wss
         self.chunk_iters = int(chunk_iters)
@@ -188,17 +217,25 @@ class LanePool:
         self.seed_time = 0.0              # admission transforms (paper "init.")
         self.chunk_count = 0
         self._width_log: list[tuple[int, int]] = []   # (live, dispatched)
-        self._programs: set[tuple] = set()            # (source, width) seen
+        self._programs: set[tuple] = set()    # (source, width[, cap]) seen
         self._src_live: dict[Any, list] = {}          # key -> [sum, n, peak]
         self._sticky: Any = None          # last dispatched source
         # packed batch per source, rebuilt when the group's membership
         # changes (the old pack is written back to its lanes first)
         self._packed: dict[Any, tuple] = {}  # key -> (ids, payload)
+        # stacked compact operands per (source, cap) group under shrinking,
+        # rebuilt when the group's lanes or their compact sources change
+        self._stacked: dict[Any, tuple] = {}  # gkey -> (width, refs, src, ys)
+        # the cache calls back into the pool through weak references: a
+        # pool and its cache in a cycle would keep a finished run's kernels
+        # alive until a cyclic collection
+        pool = weakref.ref(self)
         self.cache = SourceCache(
             self.sources, max_resident=max_resident, cache_bytes=cache_bytes,
-            wss=wss, distance=self._source_distance,
-            sticky=lambda: self._sticky, on_evict=self._on_source_evict,
-            on_trace=self._trace)
+            wss=wss, distance=lambda key: pool()._source_distance(key),
+            sticky=lambda: pool()._sticky,
+            on_evict=lambda key: pool()._on_source_evict(key),
+            on_trace=lambda *event: pool()._trace(*event))
         for key, entry in self.sources.items():
             self.cache.check_fused(key, entry)
 
@@ -267,12 +304,28 @@ class LanePool:
                 lane.state = init_state(self.cache.meta(key), self._ys[key],
                                         train_mask, alpha0, f0,
                                         n_iter0=n_iter0)
+                self._attach_shrink(lane, n_iter0)
             else:   # held: built at admission, when ``after`` retires
                 lane.alpha0, lane.f0, lane.n_iter0 = alpha0, f0, int(n_iter0)
         self._lanes[lane_id] = lane
         self._order.append(lane_id)
         if lane.state is not None:
             self._trace("admit", lane_id, key)
+
+    def _attach_shrink(self, lane: _Lane, n_iter0: int = 0) -> None:
+        """Build a lane's shrink ledger the moment its state exists; the
+        seeding -> shrinking handoff evaluates the heuristic on the seeded
+        (alpha0, f0), so bound-locked seeded alphas start shrunk."""
+        if not self.shrink_every:
+            return
+        y = self._ys[lane.source]
+        lane.shrink = shrink_mod.LaneShrink(
+            int(y.shape[0]), every=self.shrink_every,
+            quantum=self.shrink_quantum, caps=self.shrink_caps,
+            n_iter=n_iter0)
+        if self.shrink_on_seed:
+            shrink_mod.seed_shrink(lane.shrink, y, lane.train_mask, lane.C,
+                                   lane.state, tol=self.tol)
 
     def add_result(self, lane_id, result: SMOResult) -> None:
         """Register an already-solved lane: it can seed others but is never
@@ -307,6 +360,7 @@ class LanePool:
                 lane.state = init_state(meta, y, lane.train_mask, lane.alpha0,
                                         lane.f0, n_iter0=lane.n_iter0)
                 lane.alpha0 = lane.f0 = None
+                self._attach_shrink(lane, lane.n_iter0)
                 self._trace("admit", lane_id, lane.source)
                 continue
             if lane.dep not in self.results:
@@ -316,12 +370,16 @@ class LanePool:
             t0 = time.perf_counter()
             k0 = self.cache.kernel_time
             alpha0, f0 = lane.seed_fn(self.results[lane.dep])
+            # used once; a seed closure may hold the pool (its sources), so
+            # keeping it would put the pool in a cycle through its lanes
+            lane.seed_fn = None
             _sync(alpha0, f0)
             dt = (time.perf_counter() - t0) - (self.cache.kernel_time - k0)
             lane.seed_s += dt
             self.seed_time += dt
             lane.state = init_state(self.cache.meta(lane.source), y,
                                     lane.train_mask, alpha0, f0)
+            self._attach_shrink(lane)
             self._trace("admit", lane_id, lane.source)
 
     def _live(self) -> list[_Lane]:
@@ -408,7 +466,11 @@ class LanePool:
             lane.served += 1
         groups: dict[Any, list[_Lane]] = {}
         for lane in selected:
-            groups.setdefault(lane.source, []).append(lane)
+            # under shrinking, lanes group by (source, cap): only lanes of
+            # one cap bucket share a stacked dispatch (same shapes)
+            gkey = (lane.source, lane.shrink.cap) if self.shrink_every \
+                else lane.source
+            groups.setdefault(gkey, []).append(lane)
         if len(self.sources) > 1:
             counts: dict[Any, int] = {}
             for lane in live:
@@ -420,19 +482,31 @@ class LanePool:
                 rec[2] = max(rec[2], c)
         # affinity follows the chunk's primary group
         self._sticky = selected[0].source
+        for gkey in set(self._stacked) - set(groups):
+            del self._stacked[gkey]      # a group that no longer runs
         chunk = self.chunk_count
         dispatched = 0
-        for key, lanes in groups.items():
+        for gkey, lanes in groups.items():
             width = (1 if len(lanes) == 1
                      else bucket_width(len(lanes), self.lane_quantum))
             dispatched += width
-            self._programs.add((key, width))
-            self._trace("dispatch", chunk, key, 0, width,
+            if self.shrink_every:
+                key, cap = gkey
+                n = int(self._ys[key].shape[0])
+                self._programs.add((key, width, cap or n))
+                for lane in lanes:
+                    self._frac_log.append((cap or n) / n)
+            else:
+                key, cap = gkey, 0
+                self._programs.add((key, width))
+            self._trace("dispatch", chunk, key, cap, width,
                         tuple(ln.id for ln in lanes))
             # a materialization inside the dispatch is kernel time
             t0 = time.perf_counter()
             k0 = self.cache.kernel_time
-            if len(lanes) == 1:
+            if self.shrink_every:
+                self._step_shrink(gkey, lanes)
+            elif len(lanes) == 1:
                 self._step_single(lanes[0])
             else:
                 self._step_batched(key, lanes)
@@ -489,6 +563,91 @@ class LanePool:
                 if flag:
                     self._retire(lane)
 
+    def _step_shrink(self, gkey, lanes: list[_Lane]) -> None:
+        """One chunk over a shrink-enabled (source, cap) group, then each
+        lane's shrink lifecycle. Unshrunk lanes (``cap == 0``) run the
+        full-set chunks with their cap at the next heuristic boundary;
+        shrunk lanes run the same chunks over their compact operands at
+        ``10 * tol`` (each lane its own rows: width > 1 goes through
+        ``chunk_batched_sources`` over the group's stacked operands, kept
+        while its lanes and their compact sources stay the same). States
+        are packed fresh every chunk (groups change membership as lanes
+        change buckets); the full-state mirror ``lane.state`` is kept
+        fresh by ``shrink.advance``."""
+        key, cap = gkey
+        src, y = self.resolve_source(key), self._ys[key]
+        for lane in lanes:
+            if lane.shrink.cap and lane.shrink.idx is None:
+                lane.shrink.enter(src, y, lane.state)
+        it_caps = [ln.shrink.it_cap(ln.shrink.n_iter, ln.max_iter)
+                   for ln in lanes]
+        if len(lanes) == 1:
+            ln = lanes[0]
+            if cap == 0:
+                ln.state = smo_chunk(src, y, ln.train_mask, ln.C, ln.state,
+                                     n_iters=self.chunk_iters, wss=self.wss,
+                                     tol=self.tol, it_cap=it_caps[0])
+            else:
+                ls = ln.shrink
+                ls.cstate = smo_chunk(ls.csrc, ls.cy, ls.cmask, ln.C,
+                                      ls.cstate, n_iters=self.chunk_iters,
+                                      wss=self.wss, tol=10.0 * self.tol,
+                                      it_cap=it_caps[0])
+        else:
+            width = bucket_width(len(lanes), self.lane_quantum)
+            pad = width - len(lanes)
+            Cs = [float(ln.C) for ln in lanes] + [float(lanes[0].C)] * pad
+            it_caps += [0] * pad
+            if cap == 0:
+                states = [ln.state for ln in lanes]
+                masks = [ln.train_mask for ln in lanes]
+            else:
+                states = [ln.shrink.cstate for ln in lanes]
+                masks = [ln.shrink.cmask for ln in lanes]
+            states += [states[0]._replace(done=torch.ones_like(
+                states[0].done))] * pad
+            masks += [masks[0]] * pad
+            if cap == 0:
+                out = chunk_batched(src, y, torch.stack(masks), Cs, self.tol,
+                                    it_caps, EngineState.stack(states),
+                                    self.chunk_iters, self.wss)
+            else:
+                csrc, cys = self._stacked_sources(gkey, lanes, width)
+                out = chunk_batched_sources(
+                    csrc, cys, torch.stack(masks), Cs, 10.0 * self.tol,
+                    it_caps, EngineState.stack(states), self.chunk_iters,
+                    self.wss)
+            for i, ln in enumerate(lanes):
+                if cap == 0:
+                    ln.state = out.lane(i)
+                else:
+                    ln.shrink.cstate = out.lane(i)
+        for ln in lanes:
+            ln.state, verdict = shrink_mod.advance(
+                ln.shrink, src, y, ln.train_mask, ln.C, ln.state,
+                tol=self.tol, max_iter=ln.max_iter)
+            if verdict == "retire":
+                self._retire(ln)
+
+    def _stacked_sources(self, gkey, lanes: list[_Lane], width: int):
+        """The group's compact sources and labels stacked along a lane axis
+        of ``width`` (``stack_sources``; the pad lanes' slots zeros): the
+        last dispatch's while the group's width, lanes and their compact
+        sources are the same (held by weak references, so a lane's dropped
+        compact source is not kept alive), else built anew."""
+        shr = [ln.shrink for ln in lanes]
+        hit = self._stacked.pop(gkey, None)   # the old stack goes first
+        if hit is not None and hit[0] == width and len(hit[1]) == len(shr) \
+                and all(r() is ls.csrc for r, ls in zip(hit[1], shr)):
+            self._stacked[gkey] = hit
+            return hit[2], hit[3]
+        del hit
+        csrc = stack_sources([ls.csrc for ls in shr], width)
+        cys = stack_lanes([ls.cy for ls in shr], width)
+        self._stacked[gkey] = (width, [weakref.ref(ls.csrc) for ls in shr],
+                               csrc, cys)
+        return csrc, cys
+
     # ---------------------------------------------------------- observability
 
     @property
@@ -496,8 +655,10 @@ class LanePool:
         """Schedule shape over the run: runnable lanes per chunk
         (``mean_live_width``), dispatched width summed over the chunk's
         groups (``mean_packed_width``, ``peak_width``), distinct (source,
-        width) programs, and per-source live widths for multi-source
-        pools."""
+        width) programs ((source, width, cap) under shrinking, which adds
+        ``shrink_lane_chunks``, the lane-dispatches, and
+        ``mean_active_frac``, their mean cap / n), and per-source live
+        widths for multi-source pools."""
         if not self._width_log:
             return {"chunks": 0, "mean_live_width": 0.0,
                     "mean_packed_width": 0.0, "peak_width": 0,
@@ -509,6 +670,10 @@ class LanePool:
                "mean_packed_width": round(sum(packed) / len(packed), 3),
                "peak_width": max(packed),
                "programs": len(self._programs)}
+        if self.shrink_every:
+            occ["shrink_lane_chunks"] = len(self._frac_log)
+            occ["mean_active_frac"] = round(
+                sum(self._frac_log) / max(len(self._frac_log), 1), 4)
         if len(self.sources) > 1:
             occ["per_source"] = {
                 str(key): {"chunks": n,

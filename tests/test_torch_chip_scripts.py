@@ -1,8 +1,9 @@
 """``chip_ato_phases.py`` and ``chip_spill_phases.py`` build copies of
-``csrc/seeding.cu`` with counter reads put in by text: each of their
-edits must still find its text exactly once in the source, or the
-script's build would raise on the card. Held here on the CPU, so that an
-edit to those lines of the fused ATO apply or the fused AVG spill that is
+``csrc/seeding.cu``, and ``chip_smo_variants.py`` and
+``chip_select_split.py`` copies of ``csrc/smo_step.cu``, with counter reads
+or ablations put in by text: each of their edits must still find its text
+exactly once in the source, or the script's build would raise on the card.
+Held here on the CPU, so that an edit to those lines of a kernel that is
 not mirrored in the script fails at once."""
 import importlib.util
 from pathlib import Path
@@ -81,3 +82,33 @@ def test_spill_phases_ablation_finds_its_text_once(name):
     body = src[src.index("avg_spill_fused_kernel(const double*"):
                src.index("// top_spill, route fused:")]
     assert old in body
+
+
+# ``chip_smo_variants.py`` and ``chip_select_split.py`` edit copies of
+# ``csrc/smo_step.cu`` by text too: each edit of the design the source
+# holds must find its text exactly once (the per-lane strides of the
+# streaming kernels sit beside those lines, not in them).
+STEP = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+SMO_VARIANTS = _phases("chip_smo_variants").VARIANTS
+SELECT = _phases("chip_select_split")
+
+
+@pytest.mark.parametrize("name", sorted(SMO_VARIANTS))
+def test_smo_variants_edits_find_their_text_once(name):
+    src = (STEP / "smo_step.cu").read_text()
+    for old, new in SMO_VARIANTS[name]:
+        assert src.count(old) == 1 and old != new
+
+
+def test_select_split_edits_find_their_text_once():
+    texts = {f: (STEP / f).read_text()
+             for f in ("smo_step.cu", "smo_common.cuh")}
+    which = SELECT.design(texts["smo_step.cu"])
+    assert which == "one_barrier"
+    _, entry, _, marks = SELECT.DESIGNS[which]
+    assert texts["smo_step.cu"].count(SELECT._HEAD[0]) == 1
+    for f, old, new in marks:
+        assert texts[f].count(old) == 1 and old != new
+    # the entry the timed build appends calls the C entry as it stands
+    assert "extern \"C\" int smo_select_f64(const double* X" in \
+        texts["smo_step.cu"]

@@ -2159,3 +2159,254 @@ def test_cuda_grid_and_loo_run_on_the_card(cuda):
     for method in ("avg", "sir"):
         out = run_loo(ds, method=method, rounds=8)
         assert out["converged"] and out["rounds"] == 8
+
+
+# --------------------------------------------------------------------------
+# chunks over lanes that each carry their own operands (shrinking's compact
+# lanes): one launch, each lane bitwise its own launch on its own source
+# --------------------------------------------------------------------------
+
+def _compact_lanes(cuda, n, cap, b, stream=False, seed=0):
+    """b lanes over compact subsets of adult's first n rows: each lane's
+    own rows (cap of them, sorted), its K or X, labels, a mask holding out
+    a fifth, a cold state."""
+    from repro_torch.data.svm_suite import make_dataset
+    from repro_torch.kernels.smo_chunk import seq_norms
+    ds = make_dataset("adult", n_override=n)
+    X = torch.from_numpy(ds.X).to(cuda)
+    y = torch.from_numpy(ds.y).to(cuda, torch.float64)
+    g = torch.Generator().manual_seed(seed)
+    idx = [torch.sort(torch.randperm(n, generator=g)[:cap]).values.to(cuda)
+           for _ in range(b)]
+    ys = torch.stack([y[i] for i in idx])
+    masks = torch.stack([torch.rand(cap, generator=g) >= 0.2
+                         for _ in idx]).to(cuda)
+    state = (torch.zeros((b, cap), dtype=torch.float64, device=cuda), -ys,
+             torch.zeros(b, dtype=torch.int64, device=cuda),
+             torch.zeros(b, dtype=torch.bool, device=cuda))
+    if stream:
+        Xs = torch.stack([X[i] for i in idx])
+        return ds, (Xs, torch.sum(Xs * Xs, -1), seq_norms(Xs)), ys, masks, \
+            state
+    K = ops.rbf_kernel_matrix(X, X, ds.gamma)
+    Ks = torch.stack([K[i[:, None], i[None, :]] for i in idx])
+    return ds, (Ks, torch.diagonal(Ks, dim1=1, dim2=2).contiguous()), ys, \
+        masks, state
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["one_block", "multi_block", "cluster",
+                                   "one_block_global"])
+@pytest.mark.parametrize("wss", ["2", "1"])
+def test_cuda_chunk_sources_bitwise_solo_and_plain(cuda, route, wss):
+    """Three lanes with their own compact K (1,024 of adult's 3,000 rows)
+    in ONE launch on each route: each lane bitwise its own launch over its
+    own K on that route, and the plain step loop; a done lane untouched;
+    the launch counted on ``smo_chunk_sources``'s route."""
+    ds, (Ks, diags), ys, masks, state = _compact_lanes(cuda, 3000, 1024, 3)
+    caps = [300, 220, 300]
+    before = ops.route_counts()["smo_chunk_sources"][route]
+    got = ops.smo_chunk_sources(Ks, diags, ys, masks, [ds.C] * 3, 1e-3, caps,
+                                301, wss, *state, _route=route)
+    assert ops.route_counts()["smo_chunk_sources"][route] == before + 1
+    assert got[2].tolist() == caps
+    plain = ref.smo_chunk_sources_ref(Ks, diags, ys, masks, [ds.C] * 3, 1e-3,
+                                      caps, 301, wss, *state,
+                                      update_f=ops.smo_f_update)
+    for l in range(3):
+        solo = ops.smo_chunk_lanes(Ks[l], diags[l], ys[l], masks[l:l + 1],
+                                   [ds.C], 1e-3, [caps[l]], 301, wss,
+                                   *(t[l:l + 1] for t in state),
+                                   _route=route)
+        for a, s, p in zip(got, solo, plain):
+            assert torch.equal(a[l], s[0])
+            assert torch.equal(a[l], p[l])
+    # a lane that arrives done passes through
+    frozen = list(state)
+    frozen[3] = torch.tensor([False, True, False], device=cuda)
+    out = ops.smo_chunk_sources(Ks, diags, ys, masks, [ds.C] * 3, 1e-3, caps,
+                                301, wss, *frozen, _route=route)
+    assert torch.equal(out[0][1], state[0][1])
+    assert int(out[2][1]) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["one_block", "multi_block", "cluster",
+                                   "one_block_global"])
+def test_cuda_shared_launch_is_per_lane_launch_of_copies(cuda, route):
+    """A shared-operand launch (strides 0) is bitwise the per-lane launch
+    over copies of the same K: the stride is the only difference."""
+    ds, K, diag, y, masks, state = _multi_problem(cuda, 2048, 3)
+    caps = [250, 250, 180]
+    shared = ops.smo_chunk_lanes(K, diag, y, masks, [ds.C] * 3, 1e-3, caps,
+                                 251, "2", *state, _route=route)
+    copies = ops.smo_chunk_sources(K.expand(3, -1, -1), diag.expand(3, -1),
+                                   y.expand(3, -1), masks, [ds.C] * 3, 1e-3,
+                                   caps, 251, "2", *state, _route=route)
+    _routes_equal(shared, copies)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["pair", "persistent"])
+@pytest.mark.parametrize("n,cap", [(1000, 300), (3000, 1024)])
+def test_cuda_stream_sources_bitwise_solo(cuda, route, n, cap):
+    """Three lanes with their own compact X in one chunk on each streaming
+    route: each lane bitwise its own ``smo_stream_chunk`` over its own X on
+    either route; within 1e-10 of the plain loop after a capped run (its
+    products are a matmul, not the kernels' ordered fma)."""
+    from repro_torch.kernels.smo_chunk import pad_rows
+    ds, (Xs, sqs, sns), ys, masks, state = _compact_lanes(cuda, n, cap, 3,
+                                                          stream=True)
+    caps = [200, 150, 200]
+    before = ops.route_counts()["smo_stream_chunk_sources"][route]
+    got = ops.smo_stream_chunk_sources(Xs, sqs, ds.gamma, ys, masks,
+                                       [ds.C] * 3, 1e-3, caps, 201, *state,
+                                       X_rows=pad_rows(Xs), X_norms=sns,
+                                       _route=route)
+    assert ops.route_counts()["smo_stream_chunk_sources"][route] == \
+        before + 1
+    assert got[2].tolist() == caps
+    for l in range(3):
+        for r in ("pair", "persistent"):
+            solo = _stream_chunk(Xs[l], sqs[l], ds.gamma, ys[l],
+                                 masks[l:l + 1], [ds.C], 1e-3, [caps[l]],
+                                 201, *(t[l:l + 1] for t in state), _route=r)
+            _routes_equal(tuple(t[l:l + 1] for t in got), solo)
+    plain = ref.smo_chunk_sources_ref(None, None, ys, masks, [ds.C] * 3,
+                                      1e-3, caps, 201, "1", *state,
+                                      stream=(Xs, sqs, ds.gamma))
+    for k in (0, 1):
+        torch.testing.assert_close(got[k], plain[k], rtol=0, atol=1e-10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,cap,width", [(1000, 300, 4), (32_560, 30_720,
+                                                         12)])
+def test_cuda_stacked_stream_sources_one_copy(cuda, n, cap, width):
+    """``stack_sources`` over compact ``PallasRBF`` lanes on the card: one
+    copy of the lanes' X, laid out for the route that reads it (a view of
+    the padded rows where the persistent route places the lanes,
+    contiguous with no padded rows for the pair route), pad slots zeros;
+    ``chunk_batched_sources`` over it gives each lane its own chunk, bit
+    for bit."""
+    from repro_torch.data.svm_suite import make_dataset
+    from repro_torch.kernels.smo_chunk import stream_plan
+    from repro_torch.svm.engine import (EngineState, PallasRBF,
+                                        chunk_batched_sources, smo_chunk,
+                                        stack_sources)
+    ds = make_dataset("adult", n_override=n)
+    full = PallasRBF(torch.from_numpy(ds.X[:n]).to(cuda), ds.gamma)
+    y = torch.from_numpy(ds.y[:n]).to(cuda, torch.float64)
+    g = torch.Generator().manual_seed(3)
+    idx = [torch.sort(torch.randperm(n, generator=g)[:cap]).values.to(cuda)
+           for _ in range(3)]
+    srcs = [full.compact(i) for i in idx]
+    st = stack_sources(srcs, width)
+    persistent = stream_plan(cap, ds.X.shape[1], 1, width)[0] >= 1
+    assert ("X_rows" in st.__dict__) == persistent
+    if persistent:
+        assert st.X_rows is st.X and st.X.stride(1) == st.X.shape[2] + 1
+    else:
+        assert st.X.is_contiguous()
+    assert not st.X[3:].any()
+    for l in range(3):
+        assert torch.equal(st.X[l], srcs[l].X)
+    ys = torch.stack([y[i] for i in idx] + [y[idx[0]]] * (width - 3))
+    masks = torch.ones((width, cap), dtype=torch.bool, device=cuda)
+    states = EngineState(torch.zeros((width, cap), dtype=torch.float64,
+                                     device=cuda), -ys,
+                         torch.zeros(width, dtype=torch.int64, device=cuda),
+                         torch.arange(width, device=cuda) >= 3)
+    out = chunk_batched_sources(st, ys, masks, [ds.C] * width, 1e-3,
+                                [100] * width, states, 100, "1")
+    for l in range(3):
+        one = smo_chunk(srcs[l], ys[l], masks[l], ds.C, states.lane(l),
+                        n_iters=100, wss="1", tol=1e-3, it_cap=100)
+        for a, b in zip(out.lane(l), one):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_dense_compact_peak_memory(cuda):
+    """``DenseKernel.compact`` gathers in slabs of rows into the result:
+    its peak is the compact K (cap^2 x 8 bytes) and one slab of K
+    (``GATHER_ELEMS`` entries), never a (cap, n) intermediate or a (cap,
+    cap) index."""
+    from repro_torch.svm.engine import GATHER_ELEMS, DenseKernel
+    n, cap = 12_000, 6_000
+    K = torch.rand((n, n), dtype=torch.float64, device=cuda)
+    idx = torch.sort(torch.randperm(n, device=cuda)[:cap]).values
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    comp = DenseKernel(K).compact(idx)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    assert peak <= cap * cap * 8 + GATHER_ELEMS * 8 + 4 * 1024 * 1024, peak
+    assert torch.equal(comp.K[5], K[idx[5]][idx])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shrink_every", [0, 128])
+def test_cuda_run_cv_returns_its_memory_without_gc(cuda, shrink_every):
+    """Once ``run_cv`` returns and its result is dropped, the card's
+    allocated bytes are back at their baseline by reference counting
+    alone (the cyclic collector off): no finished pool keeps its K or its
+    lanes' compact K."""
+    import gc
+
+    from repro_torch.core.cv import run_cv
+    from repro_torch.data.svm_suite import make_dataset
+    ds = make_dataset("adult", n_override=1000)
+    kw = dict(k=10, method="sir", shrink_every=shrink_every,
+              shrink_quantum=32)
+    run_cv(ds, **kw)          # builds the kernels and their plans
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    gc.disable()
+    try:
+        res = run_cv(ds, **kw)
+        assert all(f.converged for f in res.folds)
+        del res
+        torch.cuda.synchronize()
+        assert torch.cuda.memory_allocated() == base
+    finally:
+        gc.enable()
+
+
+@pytest.mark.cuda
+def test_cuda_svc_equals_cpu(cuda):
+    """``SVC`` on the card predicts as ``SVC`` on the CPU (heart n = 270,
+    with and without shrinking)."""
+    from repro_torch.data.svm_suite import make_dataset
+    from repro_torch.svm import SVC
+    ds = make_dataset("heart", n_override=270)
+    X, y = ds.X[:200], ds.y[:200]
+    for kw in ({}, {"shrink_every": 64, "shrink_quantum": 32}):
+        on = SVC(C=ds.C, gamma=ds.gamma, **kw).fit(X, y)
+        off = SVC(C=ds.C, gamma=ds.gamma, device="cpu", **kw).fit(X, y)
+        assert on.result_.alpha.device.type == "cuda"
+        assert np.array_equal(on.predict(ds.X[200:]),
+                              off.predict(ds.X[200:]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["dense", "pallas_rbf"])
+def test_cuda_shrink_pool_runs_per_lane_kernels(cuda, backend):
+    """``run_cv_batched`` with shrinking on the card: compact groups of
+    more than one lane go through the per-lane kernels, and every fold
+    scores as without shrinking."""
+    from repro_torch.core.cv import run_cv_batched
+    from repro_torch.data.svm_suite import make_dataset
+    ds = make_dataset("adult", n_override=1000)
+    plain = run_cv_batched(ds, k=10, source_backend=backend)
+    ops.reset_launch_counts()
+    shr = run_cv_batched(ds, k=10, source_backend=backend, shrink_every=128,
+                         shrink_quantum=64, chunk_iters=128)
+    key = "smo_stream_chunk_sources" if backend == "pallas_rbf" \
+        else "smo_chunk_sources"
+    assert sum(ops.route_counts()[key].values()) > 0
+    assert [f.acc_correct for f in shr.folds] == \
+        [f.acc_correct for f in plain.folds]
+    assert all(f.converged for f in shr.folds)

@@ -40,7 +40,8 @@ def test_the_walk_sees_the_port():
             "convert.py", "flash_attention.py", "attention.py",
             "transformer.py", "layers.py", "params.py", "decode.py",
             "inputs.py", "tokens.py", "granite_8b.py", "gemma_7b.py",
-            "threefry.py", "chip_smo_variants.py", "grid.py"} <= names
+            "threefry.py", "chip_smo_variants.py", "grid.py", "shrink.py",
+            "svc.py"} <= names
 
 
 def test_entry_points_default_to_cuda():
@@ -70,6 +71,13 @@ def test_entry_points_default_to_cuda():
         run_plan(Plan(sources={}, y=ds.y))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         result_from_reference({})
+    from repro_torch.svm import SVC
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SVC().fit(ds.X, ds.y)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SVC().cross_validate(ds.X, ds.y, k=4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_cv(ds, k=4, method="sir", shrink_every=64)
     assert resolve_device("cpu") == torch.device("cpu")
 
 

@@ -102,6 +102,10 @@ def test_cpu_tensors_launch_no_kernel():
                         lanes[4], "2", *lanes[5:])
     ops.smo_stream_chunk(X, sq, 0.5, y, *lanes)
     ops.smo_select(X, sq, 0.5, y, *lanes[:4], *lanes[5:])
+    two = lambda t: t.expand(2, *t.shape).clone()  # noqa: E731
+    ops.smo_chunk_sources(two(K), two(torch.diagonal(K)), two(y),
+                          *lanes[:4], lanes[4], "2", *lanes[5:])
+    ops.smo_stream_chunk_sources(two(X), two(sq), 0.5, two(y), *lanes)
     q = torch.from_numpy(RNG.normal(size=(1, 4, 9, 16)))
     ops.flash_attention(q, q[:, :2], q[:, :2], window=3)
     lo, hi = torch.zeros(n, dtype=torch.float64), torch.ones(n).double()
@@ -109,7 +113,6 @@ def test_cpu_tensors_launch_no_kernel():
     ops.sir_greedy(K[:3], y[:3], y, torch.ones(3).double(),
                    torch.rand(n).double())
     on = torch.ones(n, dtype=torch.bool)
-    two = lambda t: t.expand(2, *t.shape).clone()  # noqa: E731
     Cs = torch.ones(2, dtype=torch.float64)
     s2 = ops.ato_system_lanes(K, y, Cs, two(lo), two(-y), Cs * 0, on, ~on,
                               two(~on), two(~on), 4)
@@ -125,8 +128,10 @@ def test_cpu_tensors_launch_no_kernel():
     ops.top_spill_loo(K, y, hi * 0.5, 1.0, n - 1)
     assert ops.launch_counts() == {"rbf_kernel_matrix": 0,
                                    "smo_f_update": 0, "smo_chunk": 0,
+                                   "smo_chunk_sources": 0,
                                    "fused_smo_step": 0, "smo_select": 0,
                                    "smo_stream_chunk": 0,
+                                   "smo_stream_chunk_sources": 0,
                                    "flash_attention": 0, "water_fill": 0,
                                    "sir_greedy": 0, "ato_system_lanes": 0,
                                    "ato_apply_lanes": 0, "avg_spill": 0,
@@ -767,7 +772,10 @@ def test_cpu_tensors_count_no_route():
         "rbf_kernel_matrix": {"tensor": 0, "fma": 0},
         "smo_chunk": {"one_block": 0, "multi_block": 0, "cluster": 0,
                       "one_block_global": 0},
+        "smo_chunk_sources": {"one_block": 0, "multi_block": 0,
+                              "cluster": 0, "one_block_global": 0},
         "smo_stream_chunk": {"pair": 0, "persistent": 0},
+        "smo_stream_chunk_sources": {"pair": 0, "persistent": 0},
         "flash_attention": {"fma": 0, "mma": 0, "wgmma": 0},
         "ato_system_lanes": {"compact": 0, "carried": 0},
         "ato_apply_lanes": {"split": 0, "fused": 0},
