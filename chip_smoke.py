@@ -34,6 +34,13 @@ to 0 just before it and read just after:
   lanes on the per-lane chunk kernels (``smo_chunk_sources``,
   ``smo_stream_chunk_sources``: each replayed call bitwise its lanes'
   solo launches), and the ``SVC`` estimator at adult n=32,560;
+* the study service (``service``) at adult n=32,560: two tenants' plans
+  over one declared kernel served by a ``StudyServer`` daemon on an
+  AF_UNIX socket (one K for both, each lane bitwise the in-process
+  ``run_plan``), two plans refused before anything is put on the card, a
+  daemon killed mid-study and restarted under another width (bitwise),
+  and the cost model's ``cuda`` verdicts taken from
+  ``results/cost_model_torch.json``;
 * LM serving of granite-8b at full width and depth in bf16 (random weights
   from a seed): prefill of 2 x 4,096 tokens, every attention layer through
   the flash-attention kernel's wgmma route, then 4 requests served through
@@ -91,6 +98,7 @@ import math
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -4392,6 +4400,399 @@ def phase_svc(ds, size_folds, cold_folds) -> dict:
           "fit_s": fit_s, "cross_validate_iterations": cv.total_iterations})
 
 
+#: the service phase: tenant b's cold folds run at this multiple of the
+#: paper's C; the daemons' chunk; the refusing daemons' budgets (a 4 GB
+#: cache below one 8.48 GB K, and two Ks plus half the pinned K of
+#: SERVICE_PIN_N rows, 1.28 MB, beside which the schedule co-holds both)
+SERVICE_C_SCALE = 4.0
+SERVICE_CHUNK = 4096
+SERVICE_SMALL_CACHE = 4 * 10 ** 9
+SERVICE_PIN_N = 400
+#: the served part's peak allocated memory, in Ks
+SERVICE_PEAK_KS = 1.5
+
+
+def _service_plans(ds, Plan, KernelSpec):
+    """Tenant a: ``size``'s chain (fold 0 cold, folds 1-2 SIR, ``after``
+    edges); tenant b: folds 3-4 cold at ``SERVICE_C_SCALE`` x C. Both over
+    the same declared kernel, host arrays (the wire's)."""
+    from repro_torch.core.cv import _fold_masks, _transition_idx
+    from repro_torch.data.svm_suite import kfold_chunks
+    chunks = kfold_chunks(ds.n, 10)
+    n = chunks.size
+    X = torch.as_tensor(ds.X[:n], dtype=torch.float64)
+    y = torch.as_tensor(ds.y[:n], dtype=torch.float64)
+    masks = torch.as_tensor(_fold_masks(chunks))
+
+    def plan(folds, C, sir):
+        p = Plan(sources={"adult": KernelSpec(X=X, gamma=ds.gamma, n=n)},
+                 y=y, chunk_iters=SERVICE_CHUNK)
+        prev = None
+        for h in folds:
+            common = dict(train_mask=masks[h], C=C, after=prev)
+            if prev is None or not sir:
+                p.lane(h, alpha0=torch.zeros_like(y), f0=-y, **common)
+            else:
+                S, R, T = _transition_idx(chunks, prev, h)
+                p.lane(h, dep=prev, transform="fold", params=dict(
+                    method="sir", S_idx=S, R_idx=R, T_idx=T), **common)
+            p.evaluate(h, chunks[h])
+            prev = h
+        return p
+
+    return (plan((0, 1, 2), ds.C, True),
+            plan((3, 4), SERVICE_C_SCALE * ds.C, False), X, y, masks, chunks)
+
+
+def _bitwise(want: dict, got: dict) -> bool:
+    return set(want) == set(got) and all(
+        torch.equal(want[k].alpha.cpu(), got[k].alpha.cpu())
+        and torch.equal(want[k].f.cpu(), got[k].f.cpu())
+        and int(want[k].n_iter) == int(got[k].n_iter) for k in want)
+
+
+def _serve(service):
+    """A ``StudyServer`` over ``service`` on a fresh AF_UNIX socket under
+    /tmp, its accept loop on a thread: (server, thread)."""
+    import uuid
+    from repro_torch.service import StudyServer
+    sock = f"/tmp/study-{uuid.uuid4().hex[:8]}.sock"
+    server = StudyServer(sock, service)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    for _ in range(400):
+        if os.path.exists(sock):
+            return server, thread
+        time.sleep(0.05)
+    raise RuntimeError(f"the study daemon did not bind {sock}")
+
+
+def _stop(server, thread) -> None:
+    from repro_torch.service import StudyClient
+    with StudyClient(server.socket_path, "operator") as cli:
+        cli.shutdown()
+    thread.join(timeout=120)
+    require(not thread.is_alive(), "the study daemon did not drain")
+
+
+def phase_service(ds, size_folds):
+    """The study service at adult n=32,560 (d=123, k=10, Table 2's C and
+    gamma), one process: ``StudyServer`` daemons on AF_UNIX sockets under
+    /tmp and ``StudyClient`` tenants.
+
+    * two tenants, one kernel: tenant a's chain and tenant b's folds
+      (``_service_plans``) submitted at once; each served lane bitwise the
+      in-process ``run_plan`` of its plan on the card, one dedup hit, one
+      ``rbf_kernel_matrix`` launch over the served part (each solo run
+      launches one), the served part's peak allocated memory under
+      ``SERVICE_PEAK_KS`` Ks, both tenants served;
+    * two refusals over the wire before anything is put on the card: a
+      4 GB cache (``cache-infeasible``), and two gammas' Ks beside a
+      pinned K, each fitting, the schedule co-holding both
+      (``cache-infeasible-time``); the RBF kernel's count and the
+      allocated memory unchanged;
+    * kill and restart: a service stepped through chunks with snapshot
+      ticks until a lane retires, abandoned without a drain; a second one
+      of another width takes the same (tenant, plan_id): the retired lanes
+      enter solved, every lane bitwise the solo run;
+    * the cost model's ``cuda`` verdicts are the file's, and a pool built
+      with ``max_width=None, shrink_every="auto"`` takes them.
+
+    Returns (record, counts, routes) of the served part."""
+    import gc
+    import shutil
+    import tempfile
+    from repro_torch.analysis import plan_check
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint import manager as manager_mod
+    from repro_torch.core import study as study_mod
+    from repro_torch.kernels import ops
+    from repro_torch.service import (PlanRejectedByServer, StudyClient,
+                                     StudyService)
+    from repro_torch.svm import (DenseKernel, KernelSpec, LanePool, PallasRBF,
+                                 cost_model)
+    from repro_torch.svm.kernels import kernel_matrix
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    plan_a, plan_b, X, y, masks, chunks = _service_plans(
+        ds, study_mod.Plan, KernelSpec)
+    n = int(y.shape[0])
+    K_bytes = n * n * 8
+    rec = {"phase": "service", "n": n, "d": int(X.shape[1]),
+           "K_gb": K_bytes / 1e9}
+
+    # in-process runs of the same plans on the card
+    solo, solo_s, solo_rbf = {}, {}, {}
+    for t, plan in (("a", plan_a), ("b", plan_b)):
+        before = ops.launch_counts()["rbf_kernel_matrix"]
+        sync()
+        ts = time.perf_counter()
+        solo[t] = study_mod.run_plan(plan)
+        sync()
+        solo_s[t] = time.perf_counter() - ts
+        solo_rbf[t] = ops.launch_counts()["rbf_kernel_matrix"] - before
+        torch.cuda.empty_cache()
+    require(solo_rbf == {"a": 1, "b": 1},
+            f"service: the solo runs launched the RBF kernel {solo_rbf}")
+    rec["solo_s"], rec["solo_rbf_launches"] = solo_s, solo_rbf
+    rec["n_iter"] = {t: {str(k): st.n_iter for k, st in r.stats.items()}
+                     for t, r in solo.items()}
+    rec["size_n_iter"] = [f["n_iter"] for f in size_folds]
+
+    # admission's host cost: parse + check_plan with the simulator's
+    # bounds, on the host plan (what the daemon runs before any kernel)
+    wire_a = json.loads(json.dumps(study_mod.plan_to_dict(plan_a)))
+    ta = time.perf_counter()
+    parsed = study_mod.plan_from_dict(wire_a, device="cuda")
+    pa = plan_check.check_plan(parsed, simulate="bounds")
+    rec["admission_host_s"] = time.perf_counter() - ta
+    rec["admission_programs"] = pa.program_count
+
+    # two tenants, one kernel, served over the socket
+    service = StudyService(chunk_iters=SERVICE_CHUNK, max_width=0)
+    server, thread = _serve(service)
+    served, errors = {}, []
+
+    def tenant(t, plan):
+        try:
+            with StudyClient(server.socket_path, t) as cli:
+                served[t] = cli.submit("p", plan)
+        except Exception as e:          # re-raised on the main thread
+            errors.append(e)
+
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    base_alloc = torch.cuda.memory_allocated()
+    ops.reset_launch_counts()
+    ts = time.perf_counter()
+    # the service thread waits on a gate until both submissions are queued
+    # behind it, a's first: it then admits both before its first step, so
+    # b meets a's kernel in flight whatever the clients' encoding takes
+    gate = threading.Event()
+    service.enqueue(lambda: gate.wait(300))
+    clients = [threading.Thread(target=tenant, args=(t, plan))
+               for t, plan in (("a", plan_a), ("b", plan_b))]
+    for queued, c in enumerate(clients, 1):
+        c.start()
+        while service._cmds.qsize() < queued and c.is_alive():
+            time.sleep(0.005)
+    gate.set()
+    for c in clients:
+        c.join()
+    sync()
+    rec["served_s"] = time.perf_counter() - ts
+    counts, routes = ops.launch_counts(), ops.route_counts()
+    peak = torch.cuda.max_memory_allocated() - base_alloc
+    with StudyClient(server.socket_path, "operator") as cli:
+        status = cli.status()
+    _stop(server, thread)
+    if errors:
+        raise errors[0]
+    rec["peak_gb"] = peak / 1e9
+    rec["dedup_hits"] = {t: served[t].dedup_hits for t in served}
+    rec["sources_admitted"] = {t: served[t].sources_admitted for t in served}
+    rec["tenant_served"] = {t: served[t].tenant_stats["served"]
+                            for t in served}
+    rec["status_tenants"] = sorted(status["tenants"])
+    require(counts["rbf_kernel_matrix"] == 1,
+            f"service: {counts['rbf_kernel_matrix']} RBF launches for two "
+            "tenants on one kernel")
+    require(rec["dedup_hits"] == {"a": 0, "b": 1}
+            and rec["sources_admitted"] == {"a": 1, "b": 0},
+            f"service: dedup hits {rec['dedup_hits']}")
+    require(peak < SERVICE_PEAK_KS * K_bytes,
+            f"service: peak {peak / 1e9:.2f} GB over the served part")
+    for t in ("a", "b"):
+        require(_bitwise(solo[t].results, served[t].results),
+                f"service: tenant {t}'s served lanes are not its run_plan's")
+        require(served[t].evals == solo[t].evals,
+                f"service: tenant {t}'s counts {served[t].evals}, in-process "
+                f"{solo[t].evals}")
+        require(rec["tenant_served"][t] > 0 and t in status["tenants"],
+                f"service: tenant {t} was not served")
+    rec["correct"] = {t: {str(k): v[0] for k, v in served[t].evals.items()}
+                      for t in served}
+
+    # where the served wall goes: the wire images' encode and decode, and
+    # the same two submissions in process (the caller the service
+    # thread), admission, the pool's steps and the finishing evaluations
+    # timed apart
+    te = time.perf_counter()
+    text = json.dumps(study_mod.plan_to_dict(plan_a))
+    td = time.perf_counter()
+    json.loads(text)
+    split = {"encode_a_s": td - te, "decode_a_s": time.perf_counter() - td,
+             "wire_a_mb": len(text) / 1e6, "admit_s": 0.0, "steps_s": 0.0,
+             "finish_s": 0.0, "steps": 0}
+    wire_b = json.loads(json.dumps(study_mod.plan_to_dict(plan_b)))
+    inproc = StudyService(chunk_iters=SERVICE_CHUNK, max_width=0)
+    sync()
+    ts = time.perf_counter()
+    for t, wire in (("a", wire_a), ("b", wire_b)):
+        inproc.submit(t, "p", wire, lambda msg: None)
+    sync()
+    split["admit_s"] = time.perf_counter() - ts
+    while inproc._studies:
+        t1 = time.perf_counter()
+        inproc.pool.step()
+        sync()
+        t2 = time.perf_counter()
+        inproc._finish_ready()
+        sync()
+        split["steps_s"] += t2 - t1
+        split["finish_s"] += time.perf_counter() - t2
+        split["steps"] += 1
+    split["total_s"] = time.perf_counter() - ts
+    rec["served_split"] = split
+    del inproc
+    torch.cuda.empty_cache()
+
+    # refusals over the wire, before anything is put on the card
+    Xp = X[:SERVICE_PIN_N]
+    pinned_plan = study_mod.Plan(
+        sources={"pin": DenseKernel(kernel_matrix(Xp, Xp, gamma=ds.gamma)),
+                 **{g: KernelSpec(X=X, gamma=g * ds.gamma, n=n)
+                    for g in (0.5, 2.0)}},
+        y={"pin": y[:SERVICE_PIN_N], 0.5: y, 2.0: y},
+        chunk_iters=SERVICE_CHUNK)
+    for key in pinned_plan.sources:
+        rows = pinned_plan.y[key].shape[0]
+        pinned_plan.lane((key, 0), source=key, train_mask=masks[0][:rows],
+                         C=ds.C, alpha0=torch.zeros(rows,
+                                                    dtype=torch.float64),
+                         f0=-pinned_plan.y[key])
+    torch.cuda.empty_cache()
+    sync()
+    rbf0 = ops.launch_counts()["rbf_kernel_matrix"]
+    alloc0 = torch.cuda.memory_allocated()
+    refusals = {}
+    for name, budget, plan, rule in (
+            ("cache_4gb", SERVICE_SMALL_CACHE, plan_a, "cache-infeasible"),
+            ("co_held", 2 * K_bytes + SERVICE_PIN_N ** 2 * 4, pinned_plan,
+             "cache-infeasible-time")):
+        server, thread = _serve(StudyService(chunk_iters=SERVICE_CHUNK,
+                                             max_width=0,
+                                             cache_bytes=budget))
+        try:
+            with StudyClient(server.socket_path, "c") as cli:
+                cli.submit(name, plan)
+            refused = None
+        except PlanRejectedByServer as e:
+            refused = e
+        _stop(server, thread)
+        require(refused is not None, f"service: {name} was admitted")
+        rules = sorted({f["rule"] for f in refused.findings
+                        if f["severity"] == "error"})
+        require(rules == [rule] and refused.analysis is not None,
+                f"service: {name} refused with {rules}")
+        refusals[name] = {"cache_bytes": budget, "rules": rules,
+                          "peak_managed_bytes":
+                          refused.analysis["peak_managed_bytes"],
+                          "sim_min_peak_bytes":
+                          refused.analysis["sim"]["min"]
+                          ["peak_resident_bytes"]
+                          if refused.analysis["sim"] else None}
+    sync()
+    require(ops.launch_counts()["rbf_kernel_matrix"] == rbf0
+            and torch.cuda.memory_allocated() == alloc0,
+            "service: a refused plan put something on the card")
+    rec["refusals"] = refusals
+
+    # kill and restart under another width
+    root = tempfile.mkdtemp(prefix="study-ckpt-", dir="/tmp")
+    saves = {"records": 0, "bytes": 0, "host_syncs": 0, "seconds": 0.0}
+    real_save = manager_mod.CheckpointManager.save
+
+    def counted(self, step, tree, *args, **kwargs):
+        saves["records"] += 1
+        saves["host_syncs"] += sum(
+            1 for v in tree.values()
+            if isinstance(v, torch.Tensor) and v.device.type == "cuda")
+        saves["bytes"] += sum(v.numel() * v.element_size()
+                              for v in tree.values())
+        tw = time.perf_counter()
+        out = real_save(self, step, tree, *args, **kwargs)
+        saves["seconds"] += time.perf_counter() - tw
+        return out
+
+    manager_mod.CheckpointManager.save = counted
+    try:
+        first = StudyService(chunk_iters=SERVICE_CHUNK, max_width=0,
+                             checkpoint_root=root)
+        ev1 = []
+        first.submit("a", "p", wire_a, ev1.append)
+        ts = time.perf_counter()
+        while not [m for m in ev1 if m["type"] == "result"]:
+            require(first.pool.step(), "service: the first daemon idled")
+            first._snapshot_tick()
+        for _ in range(2):
+            first.pool.step()
+            first._snapshot_tick()
+        snap_s = time.perf_counter() - ts
+        require(first._studies, "service: the study ended before the kill")
+        del first                       # killed: no drain
+        # the lanes its newest snapshot holds retired
+        _, tree, extra = CheckpointManager.namespaced(
+            root, "a", "p").restore_latest_of_class("study")
+        retired = {study_mod._freeze(lid)[1] for lid, done in
+                   zip(extra["lane_ids"], tree["done"]) if done}
+        gc.collect()
+        torch.cuda.empty_cache()
+        second = StudyService(chunk_iters=SERVICE_CHUNK, max_width=1,
+                              checkpoint_root=root)
+        ev2 = []
+        second.submit("a", "p", wire_a, ev2.append)
+        while second._studies:
+            second.pool.step()
+            second._snapshot_tick()
+            second._finish_ready()
+    finally:
+        manager_mod.CheckpointManager.save = real_save
+    (adm,) = [m for m in ev2 if m["type"] == "admitted"]
+    (done,) = [m for m in ev2 if m["type"] == "done"]
+    resumed = {study_mod._from_wire(m["lane"]):
+               study_mod.result_from_dict(m["result"])
+               for m in ev2 if m["type"] == "result"}
+    require(adm["restored"] == len(retired) > 0
+            and {study_mod._freeze(x) for x in done["restored"]} == retired,
+            f"service: restored {adm['restored']}, retired {retired}")
+    require(_bitwise(solo["a"].results, resumed),
+            "service: the restarted study is not the solo run's")
+    rec["restart"] = {"retired_before_kill": sorted(retired),
+                      "restored": adm["restored"], "first_s": snap_s,
+                      "widths": [0, 1]}
+    rec["snapshots"] = saves
+    del second
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # the cost model's cuda verdicts are the file's, and a pool takes them
+    with open(os.path.join(ROOT, "results", "cost_model_torch.json")) as fh:
+        model = json.load(fh)
+    verdicts = {}
+    Xs = X[:64].cuda()
+    for kind in ("dense", "pallas_rbf"):
+        entry = model["entries"]["cuda"][kind]
+        source = (DenseKernel(kernel_matrix(Xs, Xs, gamma=ds.gamma))
+                  if kind == "dense" else PallasRBF(Xs, ds.gamma))
+        pool = LanePool({"s": source}, y[:64].cuda(),
+                        wss="1" if kind == "pallas_rbf" else "2",
+                        max_width=None, shrink_every="auto")
+        got = {"max_width": cost_model.pick_max_width("cuda", (kind,)),
+               "shrink": cost_model.pick_shrink("cuda", (kind,)),
+               "pool_max_width": pool.max_width,
+               "pool_shrink": bool(pool.shrink_every)}
+        require(got["max_width"] == got["pool_max_width"]
+                == entry["max_width"] and got["shrink"] == got["pool_shrink"]
+                == entry["shrink"],
+                f"service: the {kind} verdicts {got}, the file's {entry}")
+        verdicts[kind] = got
+    rec["cost_model"] = verdicts
+    rec["seconds"] = time.perf_counter() - t0
+    emit(rec)
+    return rec, counts, routes
+
+
 def split_main(argv) -> int:
     """``--seed-split [--src DIR]``: only the seeding split (and
     ``phase_size``'s SIR seeds), then Table 1's init and solve times
@@ -4606,6 +5007,10 @@ def main() -> int:
         counts[path], routes[path] = ops.launch_counts(), ops.route_counts()
         sir_events[path] = ks.sir_greedy_events()
         top_walks[path] = ks.top_spill_walks()
+    # the study service at size: the phase reads the counts around its
+    # served part itself (its solo runs and checks launch the kernels too)
+    service_rec, counts["service"], routes["service"] = phase_service(
+        datasets[("adult", SIZE_N - 1)], size_folds)
     # one SIR seed of the grid at size, split into its parts (outside the
     # counted paths)
     info["grid_seed_split"] = phase_grid_seed_split()
@@ -4667,6 +5072,15 @@ def main() -> int:
                  "smo_chunk"):
         require(counts["grid_size"][name] > 0,
                 f"{name} was not launched on the grid_size path")
+    # the daemon's served part: one K for two tenants, the SIR seeds and
+    # the dense chunk (many blocks a lane at n = 32,560)
+    for name in ("rbf_kernel_matrix", "sir_greedy", "water_fill",
+                 "smo_chunk"):
+        require(counts["service"][name] > 0,
+                f"{name} was not launched on the service path")
+    require(counts["service"]["rbf_kernel_matrix"] == 1,
+            f"service: {counts['service']['rbf_kernel_matrix']} RBF "
+            "launches on the served part")
     # every dense chunk of Table 1 and its batched rows (heart and adult
     # n=1000) takes the resident one-block kernel; n=32,560 spreads one
     # lane over many blocks of a cooperative launch, and the wide batch
@@ -4838,7 +5252,13 @@ def main() -> int:
         if name in ("water_fill", "sir_greedy"):
             kernels[-1]["launches_by_path"] = {
                 p: counts[p][name] for p in ("table1", "size", "grid_size",
-                                             "study_seeds", "loo")}
+                                             "study_seeds", "loo",
+                                             "service")}
+        # the study service's served part: its launches of each kernel
+        if name in counts["service"]:
+            kernels[-1]["launches_service"] = counts["service"][name]
+        if name.startswith("smo_chunk") and "_sources" not in name:
+            kernels[-1]["routes_service"] = routes["service"]["smo_chunk"]
         if name == "sir_greedy":
             kernels[-1]["events_by_path"] = sir_events
         # ATO's ramp kernels and its alpha update also run the batched

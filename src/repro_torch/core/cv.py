@@ -11,8 +11,19 @@ is evaluated on its held-out chunk. ``run_cv_batched`` solves the k cold
 folds concurrently: as a k-lane plan (``schedule="repacked"``, over a
 dense K or the matrix-free ``PallasRBF``), or as one fixed batch
 (``schedule="batched"``). ``run_loo`` is the suppl. Fig. 2 protocol.
-Each takes the shrink knobs of ``Plan`` (``svm/shrink.py``); checkpoints
-are a later slice of the port.
+Each takes the shrink knobs of ``Plan`` (``svm/shrink.py``).
+
+Checkpoints take the reference's records, steps and retention classes, so
+a run of either package resumes from the other's directory. ``run_cv``
+saves each completed fold (``phase: "done"`` at ``(h + 1) *
+_FOLD_STRIDE``, class ``"done"``) from the pool's retirement callback and,
+with ``chunk_iters``, every ``checkpoint_every``-th chunk of the live fold
+(``phase: "mid"`` at ``h * _FOLD_STRIDE + 1 + chunk``, class ``"mid"``);
+a resumed run restores every done record it keeps (``FoldStat.restored``)
+and the newest mid record at its exact state. ``run_cv_batched`` (the
+repacked schedule) and ``run_loo`` checkpoint as studies
+(``StudyCheckpoint``: ``"batch_mid"`` records from ``_BATCH_BASE``, study
+records from ``study.STUDY_BASE``).
 """
 from __future__ import annotations
 
@@ -23,12 +34,19 @@ import numpy as np
 import torch
 
 from repro_torch.core import seeding
-from repro_torch.core.study import Plan, run_plan
+from repro_torch.core.study import Plan, StudyCheckpoint, run_plan
 from repro_torch.data.svm_suite import SVMDataset, kfold_chunks
 from repro_torch.device import DTYPE, resolve_device
-from repro_torch.svm import (DenseKernel, PallasRBF, bias_from_solution,
-                             dual_objective, kernel_matrix, predict,
-                             smo_solve_batched)
+from repro_torch.svm import (DenseKernel, PallasRBF, SMOResult,
+                             bias_from_solution, dual_objective,
+                             kernel_matrix, predict, smo_solve_batched)
+
+# step numbers in a checkpoint directory: fold h's mid-fold chunk records
+# at h * _FOLD_STRIDE + 1 + chunk, its completion record at (h + 1) *
+# _FOLD_STRIDE, monotone in (fold, chunk); run_cv_batched's records from
+# _BATCH_BASE, above any run_cv step; study records from STUDY_BASE
+_FOLD_STRIDE = 1_000_000
+_BATCH_BASE = _FOLD_STRIDE ** 2
 
 
 @dataclasses.dataclass
@@ -42,6 +60,7 @@ class FoldStat:
     acc_total: int
     objective: float
     converged: bool
+    restored: bool = False  # rebuilt from a checkpoint (times then read 0.0)
 
 
 @dataclasses.dataclass
@@ -131,11 +150,12 @@ def _sync(device: torch.device) -> None:
 
 def run_cv(ds: SVMDataset, k: int = 10, method: str = "sir",
            tol: float = 1e-3, max_iter: int = 5_000_000, seed: int = 0,
-           straggler_policy: str = "strict",
+           checkpoint_manager=None, straggler_policy: str = "strict",
            unavailable_folds: frozenset[int] = frozenset(),
-           chunk_iters: int | None = None, device=None,
-           shrink_every: int | str = 0, shrink_quantum: int = 128,
-           shrink_caps=None, shrink_on_seed: bool = True) -> CVReport:
+           chunk_iters: int | None = None, checkpoint_every: int = 1,
+           device=None, shrink_every: int | str = 0,
+           shrink_quantum: int = 128, shrink_caps=None,
+           shrink_on_seed: bool = True) -> CVReport:
     """Run alpha-seeded k-fold CV with ``method`` in ``seeding.SEEDERS``;
     runs on ``cuda`` unless ``device="cpu"``.
 
@@ -149,8 +169,21 @@ def run_cv(ds: SVMDataset, k: int = 10, method: str = "sir",
     iterations between the host's reads of a fold's done flag (default:
     one chunk of ``max_iter``). ``shrink_every`` turns on active-set
     shrinking inside each fold's solve (0, the default, keeps every iterate
-    as without it); seeded folds start compact with ``shrink_on_seed``."""
+    as without it); seeded folds start compact with ``shrink_on_seed``.
+
+    With ``checkpoint_manager`` every completed fold is saved, and with
+    ``chunk_iters`` every ``checkpoint_every``-th chunk of the live fold
+    too; a run restarts from the folds and the mid-fold state it finds
+    (restored folds report ``restored=True`` and 0.0 times). Mid-fold
+    records carry no shrink ledger, so shrinking together with them is
+    refused."""
     seeding.SEEDERS[method]   # validate the method name up front
+    if shrink_every and checkpoint_manager is not None \
+            and chunk_iters is not None:
+        raise ValueError(
+            "run_cv mid-fold checkpoints do not record the shrink ledger; "
+            "use shrink_every=0 here, drop chunk_iters, or switch to a "
+            "study-keyed driver (run_cv_batched / run_grid)")
     dev = resolve_device(device)
     X = torch.as_tensor(ds.X, dtype=DTYPE, device=dev)
     y = torch.as_tensor(ds.y, dtype=DTYPE, device=dev)
@@ -168,29 +201,94 @@ def run_cv(ds: SVMDataset, k: int = 10, method: str = "sir",
     masks = torch.as_tensor(_fold_masks(chunks), device=dev)
     chunks_dev = torch.as_tensor(chunks, device=dev)
 
+    results: dict[int, SMOResult] = {}
+    restored_meta: dict[int, dict] = {}
+    folds: list[FoldStat] = []
+    start_fold = 0
+    resume = None   # (alpha, f, n_iter, seed_from) of an in-flight fold
+    if checkpoint_manager is not None:
+        # run_cv's records live below _BATCH_BASE; batch and study records
+        # are resumable only through run_plan
+        cv_steps = [s for s in checkpoint_manager.all_steps()
+                    if s < _BATCH_BASE]
+        latest = cv_steps[-1] if cv_steps else None
+        # every retained done record (the report covers the pre-crash
+        # folds, and the strict policy needs fold h-1 to seed fold h); a
+        # mid record only when it is the latest
+        for s in cv_steps:
+            if s % _FOLD_STRIDE != 0 and s != latest:
+                continue
+            step, tree, extra = checkpoint_manager.restore(step=s)
+            # only the same run resumes: a done record survives a method
+            # change (seeding never moves the fixed point), a mid record
+            # is the method's trajectory
+            want = {"k": k, "dataset": ds.name, "seed": seed}
+            if extra.get("phase") == "mid":
+                want["method"] = method
+            got = {key: extra.get(key) for key in want}
+            if got != want:
+                raise ValueError(
+                    f"checkpoint at step {step} belongs to run {got}, cannot "
+                    f"resume it as {want}; point the manager at a fresh "
+                    "directory or delete the stale checkpoints")
+            if extra.get("phase") == "mid":   # only possible for the latest
+                start_fold = extra["fold"]
+                resume = (torch.as_tensor(tree["alpha"], device=dev),
+                          torch.as_tensor(tree["f"], device=dev),
+                          int(tree["n_iter"]), extra["seed_from"])
+            else:
+                results[extra["fold"]] = _result_from_tree(tree, dev)
+                restored_meta[extra["fold"]] = extra
+                start_fold = max(start_fold, extra["fold"] + 1)
+
+    # the restored folds' stats, for records of this method only (another
+    # method's n_iter is that method's trajectory)
+    for h in sorted(results):
+        if restored_meta[h].get("method") != method:
+            continue
+        res = results[h]
+        correct, total, obj = _eval_fold(K, y, chunks, h, res, ds.C)
+        folds.append(FoldStat(
+            fold=h, seed_from=restored_meta[h].get("seed_from", -1),
+            n_iter=int(res.n_iter), init_time=0.0, solve_time=0.0,
+            acc_correct=correct, acc_total=total, objective=obj,
+            converged=bool(res.converged), restored=True))
+
     plan = Plan(sources={"cv": DenseKernel(K)}, y=y, tol=tol,
                 shrink_every=shrink_every, shrink_quantum=shrink_quantum,
                 shrink_caps=shrink_caps, shrink_on_seed=shrink_on_seed,
                 chunk_iters=chunk_iters if chunk_iters is not None
                 else max_iter, device=dev)
+    for g in sorted(results):
+        plan.lane(g, result=results[g])
     # the seed-fold choice is deterministic: live folds run in order (the
-    # ``after`` chain), so fold h sees every earlier fold as completed
+    # ``after`` chain), so fold h sees the restored folds and every earlier
+    # live fold as completed
     seed_froms: dict[int, int] = {}
-    done_folds: list[int] = []
+    base_counts: dict[int, int] = {}
+    done_folds = sorted(results)
     prev_lane = None
     zeros = torch.zeros(n, dtype=DTYPE, device=dev)
-    for h in range(k):
+    for h in range(start_fold, k):
         avail = [g for g in done_folds if g not in unavailable_folds]
-        if h == 0 or method == "cold" or not avail:
+        if resume is not None and h == start_fold:
+            seed_from = resume[3]
+        elif h == 0 or method == "cold" or not avail:
             seed_from = -1
         elif straggler_policy == "strict":
             seed_from = h - 1 if (h - 1) in avail else -1
         else:  # best_available: nearest completed fold
             seed_from = min(avail, key=lambda g: abs(h - g))
         seed_froms[h] = seed_from
+        base_counts[h] = 0
         common = dict(train_mask=masks[h], C=ds.C, max_iter=max_iter,
                       after=prev_lane)
-        if seed_from < 0:
+        if resume is not None and h == start_fold:
+            alpha0, f0, n_iter0, _ = resume
+            base_counts[h] = (n_iter0 // chunk_iters
+                              if chunk_iters is not None else 0)
+            plan.lane(h, alpha0=alpha0, f0=f0, n_iter0=n_iter0, **common)
+        elif seed_from < 0:
             plan.lane(h, alpha0=zeros, f0=-y, **common)
         else:
             S_idx, R_idx, T_idx = _transition_idx(chunks_dev, seed_from, h)
@@ -200,9 +298,41 @@ def run_cv(ds: SVMDataset, k: int = 10, method: str = "sir",
         done_folds.append(h)
         prev_lane = h
 
-    sres = run_plan(plan)
-    folds: list[FoldStat] = []
-    for h in range(k):
+    record = {"method": method, "k": k, "dataset": ds.name, "seed": seed}
+    on_lane_chunk = None
+    if checkpoint_manager is not None and chunk_iters is not None:
+        # the chunk counter starts from the restored n_iter, so a resumed
+        # run's records outnumber the pre-crash ones
+        counters = dict(base_counts)
+
+        def on_lane_chunk(h, state):
+            counters[h] += 1
+            if counters[h] % checkpoint_every:
+                return
+            step = h * _FOLD_STRIDE + min(counters[h], _FOLD_STRIDE - 2) + 1
+            # mid records retain apart from done records: frequent, and
+            # never evicting what a resume depends on
+            checkpoint_manager.save(
+                step, {"alpha": state.alpha, "f": state.f,
+                       "n_iter": state.n_iter},
+                extra_meta={"phase": "mid", "fold": h,
+                            "seed_from": seed_froms[h], **record},
+                blocking=False, retain_class="mid")
+
+    on_result = None
+    if checkpoint_manager is not None:
+        def on_result(h, res):
+            checkpoint_manager.save(
+                (h + 1) * _FOLD_STRIDE,
+                {"alpha": res.alpha, "f": res.f, "n_iter": res.n_iter,
+                 "converged": res.converged, "b_up": res.b_up,
+                 "b_low": res.b_low},
+                extra_meta={"phase": "done", "fold": h,
+                            "seed_from": seed_froms[h], **record},
+                blocking=False, retain_class="done")
+
+    sres = run_plan(plan, on_result=on_result, on_lane_chunk=on_lane_chunk)
+    for h in range(start_fold, k):
         res, stat = sres.results[h], sres.stats[h]
         correct, total, obj = _eval_fold(K, y, chunks, h, res, ds.C)
         folds.append(FoldStat(
@@ -210,6 +340,8 @@ def run_cv(ds: SVMDataset, k: int = 10, method: str = "sir",
             init_time=stat.seed_s, solve_time=stat.solve_s,
             acc_correct=correct, acc_total=total, objective=obj,
             converged=stat.converged))
+    if checkpoint_manager is not None:
+        checkpoint_manager.wait()
     return CVReport(dataset=ds.name, method=method, k=k, n=n,
                     kernel_time=kernel_time, folds=folds,
                     occupancy=sres.occupancy)
@@ -219,7 +351,8 @@ def run_cv_batched(ds: SVMDataset, k: int = 10, tol: float = 1e-3,
                    max_iter: int = 5_000_000, seed: int = 0,
                    chunk_iters: int = 4096, schedule: str = "repacked",
                    lane_quantum: int = 4, max_width: int | None = None,
-                   source_backend: str = "dense", device=None,
+                   source_backend: str = "dense", checkpoint_manager=None,
+                   checkpoint_every: int = 1, device=None,
                    shrink_every: int | str = 0, shrink_quantum: int = 128,
                    shrink_caps=None, shrink_on_seed: bool = True) -> CVReport:
     """Cold k-fold CV with all folds solved concurrently; runs on ``cuda``
@@ -238,10 +371,16 @@ def run_cv_batched(ds: SVMDataset, k: int = 10, tol: float = 1e-3,
     ``matvec``. Per fold, each schedule ends bitwise where ``run_cv(method=
     "cold")``'s solve over the same source would. ``shrink_every``
     (repacked only) shrinks each lane's active set; lanes of one cap bucket
-    then run as one launch over their own compact operands.
+    then run as one launch over their own compact operands. With
+    ``checkpoint_manager`` (repacked only), every ``checkpoint_every``-th
+    chunk saves all lanes keyed by fold id as one ``"batch_mid"`` record,
+    so a crashed run resumes each fold's exact iterates under any packing.
     """
     if schedule not in ("repacked", "batched"):
         raise ValueError(f"unknown schedule {schedule!r}")
+    if checkpoint_manager is not None and schedule != "repacked":
+        raise ValueError("mid-batch checkpointing requires the repacked "
+                         "schedule (snapshots are keyed by scheduler lane)")
     if shrink_every and schedule != "repacked":
         raise ValueError("shrink_every requires the repacked schedule: "
                          "shrinking is a lane-pool transformation, not an "
@@ -304,10 +443,21 @@ def run_cv_batched(ds: SVMDataset, k: int = 10, tol: float = 1e-3,
     for h in range(k):
         plan.lane(h, train_mask=masks[h], C=ds.C, alpha0=zeros[h], f0=-y,
                   max_iter=max_iter)
+    checkpoint = None
+    if checkpoint_manager is not None:
+        # tol and max_iter are part of the run's identity: retired lanes
+        # carry fixed points at the snapshot's tolerance and budget
+        checkpoint = StudyCheckpoint(
+            manager=checkpoint_manager, every=checkpoint_every,
+            retain_class="batch", phase="batch_mid", base_step=_BATCH_BASE,
+            meta={"k": k, "dataset": ds.name, "seed": seed, "tol": tol,
+                  "max_iter": max_iter, "method": method})
     t0 = time.perf_counter()
-    sres = run_plan(plan)
+    sres = run_plan(plan, checkpoint=checkpoint)
     solve_time = time.perf_counter() - t0
 
+    done_at_start = sres.restored
+    live = max(k - len(done_at_start), 1)
     folds = []
     for h in range(k):
         res = sres.results[h]
@@ -316,20 +466,27 @@ def run_cv_batched(ds: SVMDataset, k: int = 10, tol: float = 1e-3,
             else _eval_fold_rows(source, y, chunks, h, res, ds.C))
         folds.append(FoldStat(
             fold=h, seed_from=-1, n_iter=int(res.n_iter), init_time=0.0,
-            solve_time=solve_time / k, acc_correct=correct,
-            acc_total=total, objective=obj,
-            converged=bool(res.converged)))
+            solve_time=0.0 if h in done_at_start else solve_time / live,
+            acc_correct=correct, acc_total=total, objective=obj,
+            converged=bool(res.converged), restored=h in done_at_start))
     return CVReport(dataset=ds.name, method=method, k=k, n=n,
                     kernel_time=kernel_time, folds=folds,
                     occupancy=sres.occupancy)
+
+
+def _result_from_tree(tree, device) -> SMOResult:
+    """A done record's ``SMOResult``, its tensors on ``device``."""
+    return SMOResult(*(torch.as_tensor(tree[name], device=device)
+                       for name in SMOResult._fields))
 
 
 LOO_METHODS = ("cold", "avg", "top", "ato", "mir", "sir")
 
 
 def run_loo(ds: SVMDataset, method: str = "sir", rounds: int | None = None,
-            tol: float = 1e-3, max_iter: int = 2_000_000,
+            tol: float = 1e-3, max_iter: int = 2_000_000, seed: int = 0,
             chunk_iters: int = 4096, max_width: int | None = None,
+            checkpoint_manager=None, checkpoint_every: int = 1,
             device=None) -> dict:
     """Leave-one-out CV (paper suppl. Fig. 2) over the first ``rounds``
     instances; runs on ``cuda`` unless ``device="cpu"``. AVG/TOP seed every
@@ -340,10 +497,11 @@ def run_loo(ds: SVMDataset, method: str = "sir", rounds: int | None = None,
 
     The protocol is one plan: the full-data solve is a lane, and the
     AVG/TOP rounds all depend on it alone, so they fan out through the
-    pool's batched dispatch. The reference's ``seed`` only names its
-    checkpoints (the protocol draws nothing), so the port has none. Beside
-    the reference's keys, ``converged`` says whether the full lane and
-    every round converged."""
+    pool's batched dispatch. With ``checkpoint_manager`` the plan
+    checkpoints as a study (``"study"`` records, every
+    ``checkpoint_every``-th chunk); ``seed`` only names those records (the
+    protocol draws nothing). Beside the reference's keys, ``converged``
+    says whether the full lane and every round converged."""
     if method not in LOO_METHODS:
         raise ValueError(f"unknown LOO method {method!r}")
     dev = resolve_device(device)
@@ -384,7 +542,14 @@ def run_loo(ds: SVMDataset, method: str = "sir", rounds: int | None = None,
                                   T_idx=rows[t - 1:t]), **common)
         plan.evaluate(t, np.asarray([t]))
 
-    sres = run_plan(plan)
+    checkpoint = None
+    if checkpoint_manager is not None:
+        checkpoint = StudyCheckpoint(
+            manager=checkpoint_manager, every=checkpoint_every,
+            meta={"bench": "loo", "dataset": ds.name, "method": method,
+                  "rounds": rounds, "seed": seed, "tol": tol,
+                  "max_iter": max_iter})
+    sres = run_plan(plan, checkpoint=checkpoint)
     total_iters = sum(sres.stats[t].n_iter for t in range(rounds))
     correct = sum(sres.evals[t][0] for t in range(rounds))
     elapsed = time.perf_counter() - t_start

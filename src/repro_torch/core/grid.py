@@ -20,7 +20,9 @@ and ``run_grid``. The grid is one Study plan (``repro_torch.core.study``):
   same under either pool and any budget.
 
 Per-lane evaluations are plan ``EvalSpec``s; the shrink knobs go to the
-plans. Checkpoints are a later slice of the port.
+plans. With a checkpoint manager (cross-gamma pool only) the whole grid
+checkpoints as one study, the reference's ``"study"`` records, so a killed
+grid resumes every cell's exact iterates.
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ import dataclasses
 import torch
 
 from repro_torch.core.cv import _fold_masks, _transition_idx
-from repro_torch.core.study import Plan, run_plan
+from repro_torch.core.study import Plan, StudyCheckpoint, run_plan
 from repro_torch.data.svm_suite import SVMDataset, kfold_chunks
 from repro_torch.device import DTYPE, resolve_device
 from repro_torch.svm.sources import KernelSpec
@@ -220,6 +222,7 @@ def run_grid(ds: SVMDataset, Cs, gammas, k: int = 10, method: str = "sir",
              lane_quantum: int = 4, max_width: int | None = None,
              pool: str = "cross_gamma", max_resident: int = 0,
              cache_bytes: int = 0, source_backend: str = "dense",
+             checkpoint_manager=None, checkpoint_every: int = 1,
              device=None, shrink_every: int | str = 0,
              shrink_quantum: int = 128, shrink_caps=None,
              shrink_on_seed: bool = True) -> GridReport:
@@ -240,8 +243,12 @@ def run_grid(ds: SVMDataset, Cs, gammas, k: int = 10, method: str = "sir",
     ``method="cold"``. Per cell, the result equals ``run_cv`` on that
     cell's (C, gamma) under either pool. ``shrink_every`` (or ``"auto"``
     for the cost model's verdict) turns on active-set shrinking in every
-    lane."""
+    lane. ``checkpoint_manager`` (cross-gamma pool only) checkpoints the
+    grid as one study every ``checkpoint_every``-th chunk."""
     _check_grid_args(pool, source_backend, method)
+    if checkpoint_manager is not None and pool != "cross_gamma":
+        raise ValueError("grid checkpointing is plan-keyed and needs the "
+                         "cross-gamma pool (one study = one record stream)")
     Cs = sorted(float(c) for c in Cs)
     gammas = [float(g) for g in gammas]
     m = len(Cs)
@@ -258,9 +265,21 @@ def run_grid(ds: SVMDataset, Cs, gammas, k: int = 10, method: str = "sir",
                        shrink_quantum=shrink_quantum,
                        shrink_caps=shrink_caps,
                        shrink_on_seed=shrink_on_seed)
-    study_results = [run_plan(p) for p in plans]
-    occupancy = (study_results[0].occupancy if pool == "cross_gamma"
-                 else _merge_occupancy([s.occupancy for s in study_results]))
+    if pool == "cross_gamma":
+        checkpoint = None
+        if checkpoint_manager is not None:
+            checkpoint = StudyCheckpoint(
+                manager=checkpoint_manager, every=checkpoint_every,
+                meta={"bench": "grid", "dataset": ds.name, "method": method,
+                      "k": k, "seed": seed, "tol": tol, "max_iter": max_iter,
+                      "Cs": Cs, "gammas": gammas,
+                      "seed_across_C": seed_across_C,
+                      "shrink_every": shrink_every})
+        study_results = [run_plan(plans[0], checkpoint=checkpoint)]
+        occupancy = study_results[0].occupancy
+    else:
+        study_results = [run_plan(p) for p in plans]
+        occupancy = _merge_occupancy([s.occupancy for s in study_results])
 
     seed_time = sum(s.seed_time for s in study_results)
     solve_time = sum(s.solve_time for s in study_results)

@@ -9,7 +9,8 @@ from repro_torch.svm.engine import (  # noqa: F401
 from repro_torch.svm.sources import KernelSpec, SourceCache  # noqa: F401
 from repro_torch.svm.shrink import (  # noqa: F401
     LaneShrink, bucket_cap, possible_caps, seed_active_mask, solve_shrunk)
-from repro_torch.svm.scheduler import LanePool  # noqa: F401
+from repro_torch.svm.scheduler import (  # noqa: F401
+    LanePool, LaneScheduler)
 from repro_torch.svm.kernels import (  # noqa: F401
     kernel_matrix, linear_kernel, rbf_kernel)
 from repro_torch.svm.smo import (  # noqa: F401

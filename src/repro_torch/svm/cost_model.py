@@ -1,37 +1,59 @@
 """The lane pool's width and shrink verdicts per (device type, source
 kind).
 
-Mirrors ``load``, ``source_kind``, ``fallback_max_width``,
-``pick_max_width``, ``fallback_shrink`` and ``pick_shrink`` of
-``src/repro/svm/cost_model.py``, as the port's own copy. The model is keyed by the torch device type (``"cpu"``, ``"cuda"``);
-it is read from ``results/cost_model.json`` (written by the reference's
-``scripts/measure_cost_model.py``, which measured only ``cpu``), and the
-port never writes it. A missing device type or kind falls back to the
-historical verdict: width-1 round-robin on the CPU, no cap (0) elsewhere;
-shrinking off on the CPU, on elsewhere (``shrink_every="auto"``). So the
-port's CPU pool round-robins like the reference's on the CPU, and on
-``cuda`` the pool dispatches every live lane. A measured ``cuda`` entry
-is not in the file yet.
+Mirrors ``src/repro/svm/cost_model.py`` (``DEFAULT_PATH``, ``model_path``
+with its ``REPRO_COST_MODEL`` override, ``clear_cache``, ``load`` with its
+per-path cache, ``source_kind``, ``fallback_max_width``,
+``pick_max_width``, ``fallback_shrink`` and ``pick_shrink``), as the
+port's own copy. The model is keyed by the torch device type (``"cpu"``,
+``"cuda"``) and read from the port's own file,
+``results/cost_model_torch.json``, in the reference's schema: its
+``cuda`` entry is measured on the card by ``chip_cost_model.py`` (the
+reference's sweep, run on the port's pool); its ``cpu`` entry is the
+reference's ``results/cost_model.json`` entry, copied verbatim, so the
+port's CPU pool takes the reference's CPU verdicts (width 1, dense shrink
+off, ``pallas_rbf`` shrink on). A missing file, device type or kind falls
+back to the historical verdict: width-1 round-robin on the CPU, no cap (0)
+elsewhere; shrinking off on the CPU, on elsewhere.
 """
 from __future__ import annotations
 
 import json
+import os
 import pathlib
 
-#: repo-relative location of the measured model
+#: repo-relative location of the port's measured model
 DEFAULT_PATH = pathlib.Path(__file__).resolve().parents[3] \
-    / "results" / "cost_model.json"
+    / "results" / "cost_model_torch.json"
+
+_CACHE: dict[str, dict | None] = {}
+
+
+def clear_cache() -> None:
+    """Drop every cached parse (a test that rewrites a model file at the
+    same path must call this around the swap)."""
+    _CACHE.clear()
+
+
+def model_path() -> pathlib.Path:
+    """The model file: ``REPRO_COST_MODEL`` when set, else the port's."""
+    return pathlib.Path(os.environ.get("REPRO_COST_MODEL", DEFAULT_PATH))
 
 
 def load(path=None) -> dict | None:
-    """Parse the cost-model file; None when absent or unreadable (the
-    caller falls back to the default verdict)."""
-    try:
-        with open(path if path is not None else DEFAULT_PATH) as fh:
-            model = json.load(fh)
-    except (OSError, ValueError):
-        return None
-    return model if isinstance(model.get("entries"), dict) else None
+    """Parse the cost-model file, cached per path; None when absent or
+    unreadable (the caller falls back to the default verdict)."""
+    p = pathlib.Path(path) if path is not None else model_path()
+    key = str(p)
+    if key not in _CACHE:
+        try:
+            with open(p) as fh:
+                model = json.load(fh)
+            _CACHE[key] = model if isinstance(model.get("entries"), dict) \
+                else None
+        except (OSError, ValueError):
+            _CACHE[key] = None
+    return _CACHE[key]
 
 
 def source_kind(entry) -> str:

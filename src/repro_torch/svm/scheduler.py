@@ -38,10 +38,19 @@ state), and a done lane passes through a chunk unchanged, so per-lane
 results are bitwise those of sequential ``engine.solve`` runs whatever the
 packing. The host reads a batch's ``done`` flags once per chunk.
 
-``snapshot_lanes`` (and the shrink ledger it would carry), the retirement
-and per-chunk callbacks, and the daemon's live source admission and tenant
-accounting are later slices of the port (``select_capped`` itself
-fair-shares lanes of several tenants; the pool's lanes carry none).
+The study service's surface is the reference's too: ``add_source`` /
+``remove_source`` / ``remove_lanes`` admit and drop a plan's sources and
+lanes in a live pool (an empty pool is legal: the daemon builds it before
+any plan, on the ``device`` it is given, ``cuda`` by default); lanes carry
+a ``tenant`` tag, and the width-capped selection fair-shares the width
+between tenants (``select_capped``), counted in ``tenant_stats``.
+``on_result(lane_id, result)`` streams retirements, ``on_lane_chunk(
+lane_id, state)`` observes each live lane after its chunks, and
+``on_snapshot(pool)`` runs every ``snapshot_every`` chunks;
+``snapshot_lanes(only=)`` stacks the admitted and retired lanes' (alpha,
+f, n_iter, done), and under shrinking the shrink ledger, in lane-id order,
+so a snapshot restores under any packing (``core/study.py``).
+``LaneScheduler`` is the single-source facade.
 """
 from __future__ import annotations
 
@@ -52,6 +61,7 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.svm import cost_model
 from repro_torch.svm import shrink as shrink_mod
 from repro_torch.svm.engine import (EngineState, SMOResult, chunk_batched,
@@ -137,6 +147,19 @@ def budget_sources(srcs, *, budgeted, pinned, resident, sticky, nbytes,
     return allowed | set(taken)
 
 
+def snapshot_nbytes(n: int, itemsize: int, lane_count: int,
+                    shrink: bool = False) -> int:
+    """Estimated bytes of one pool snapshot record (``snapshot_lanes``): per
+    lane, ``alpha`` and ``f`` rows (``2 * n * itemsize``), an ``n_iter``
+    (8) and a ``done`` flag (1); shrinking pools add the ``active`` mask
+    (n), the ``shrunk`` / ``no_shrink`` flags and the int32 ``unshrinks``.
+    The schedule simulator prices checkpoint volume with this."""
+    per = 2 * int(n) * int(itemsize) + 8 + 1
+    if shrink:
+        per += int(n) + 1 + 1 + 4
+    return int(lane_count) * per
+
+
 def _sync(*tensors) -> None:
     """Wait for the card (so a host clock times work, not its enqueue)."""
     for t in tensors:
@@ -161,59 +184,83 @@ class _Lane:
     n_iter0: int = 0
     result: SMOResult | None = None       # set at retirement
     served: int = 0                       # chunks dispatched (fairness)
+    tenant: Any = None                    # fair-share accounting group
     seed_s: float = 0.0                   # admission-transform wall time
     solve_s: float = 0.0                  # dispatch wall time attributed here
     shrink: Any = None                    # shrink.LaneShrink when enabled
+    shrink0: Any = None                   # restored ledger (active, flags)
 
 
 class LanePool:
     """Independent solve lanes over one or more kernel sources, driven to
     convergence by repacked, source-bucketed, incrementally admitted chunk
     dispatch (see the module docstring). ``sources`` maps a key to a
-    kernel source or a factory (``sources.KernelSpec``); ``y`` is shared or
-    a dict keyed like ``sources``. ``on_trace(event)`` receives the
-    schedule's event tuples (admit, given, pack, dispatch, retire, resident,
-    materialize, evict). ``shrink_every`` (iterations between heuristic
-    evaluations; 0 off, ``"auto"`` the cost model's verdict for the device
-    and kinds), ``shrink_quantum`` / ``shrink_caps`` (the compact
-    capacities) and ``shrink_on_seed`` (the admission handoff) turn on
-    active-set shrinking.
+    kernel source or a factory (``sources.KernelSpec``), and may be empty;
+    ``y`` is shared or a dict keyed like ``sources``. ``device`` is where
+    the lanes run: by default the labels' device, or ``cuda`` for a pool
+    built empty (raising without a GPU). ``on_trace(event)`` receives the
+    schedule's event tuples (admit, given, pack, dispatch, retire, shares,
+    resident, checkpoint, materialize, evict). ``shrink_every``
+    (iterations between heuristic evaluations; 0 off, ``"auto"`` the cost
+    model's verdict for the device and kinds), ``shrink_quantum`` /
+    ``shrink_caps`` (the compact capacities) and ``shrink_on_seed`` (the
+    admission handoff) turn on active-set shrinking.
     """
 
     def __init__(self, sources, y, *, tol: float = 1e-3, wss: str = "2",
                  chunk_iters: int = 2048, lane_quantum: int = 4,
                  max_width: int | None = None, max_resident: int = 0,
-                 cache_bytes: int = 0, shrink_every: int | str = 0,
-                 shrink_quantum: int = 128, shrink_caps=None,
-                 shrink_on_seed: bool = True, on_trace=None):
-        if not isinstance(sources, dict) or not sources:
-            raise ValueError("sources must be a non-empty {key: source} "
-                             "dict")
+                 cache_bytes: int = 0, on_snapshot=None,
+                 snapshot_every: int = 1, on_result=None, on_lane_chunk=None,
+                 shrink_every: int | str = 0, shrink_quantum: int = 128,
+                 shrink_caps=None, shrink_on_seed: bool = True,
+                 on_trace=None, device=None):
+        if not isinstance(sources, dict):
+            raise ValueError("sources must be a {key: source} dict")
         self.sources = dict(sources)
         self._ys = {k: (y[k] if isinstance(y, dict) else y)
                     for k in self.sources}
         kinds = {cost_model.source_kind(s) for s in sources.values()}
-        device = next(iter(self._ys.values())).device.type
+        if device is None and self._ys:
+            device = next(iter(self._ys.values())).device
+        self.device = resolve_device(device)
+        for key, yv in self._ys.items():
+            self._check_device(key, yv)
         if max_width is None:
-            max_width = cost_model.pick_max_width(device, kinds=kinds)
+            max_width = cost_model.pick_max_width(self.device.type,
+                                                  kinds=kinds)
         self.max_width = int(max_width)   # 0 = unbounded
         if shrink_every == "auto":
             shrink_every = shrink_mod.DEFAULT_SHRINK_EVERY \
-                if cost_model.pick_shrink(device, kinds=kinds) else 0
+                if cost_model.pick_shrink(self.device.type, kinds=kinds) \
+                else 0
         self.shrink_every = int(shrink_every)
         self.shrink_quantum = int(shrink_quantum)
         self.shrink_caps = tuple(int(c) for c in shrink_caps) \
             if shrink_caps else None
         self.shrink_on_seed = bool(shrink_on_seed)
         self._frac_log: list[float] = []  # (cap or n)/n per lane-dispatch
+        if on_snapshot is not None and \
+                len({tuple(yv.shape) for yv in self._ys.values()}) > 1:
+            # snapshot_lanes stacks every lane's (alpha, f) into one (L, n)
+            # tree: fail at construction, not at the first snapshot
+            raise ValueError(
+                "snapshotting requires every source to share one instance "
+                "set (homogeneous y shapes); got "
+                f"{sorted({tuple(yv.shape) for yv in self._ys.values()})}")
         self.tol = tol
         self.wss = wss
         self.chunk_iters = int(chunk_iters)
         self.lane_quantum = int(lane_quantum)
+        self.on_snapshot = on_snapshot
+        self.snapshot_every = max(int(snapshot_every), 1)
+        self.on_result = on_result
+        self.on_lane_chunk = on_lane_chunk
         self.on_trace = on_trace
         self._lanes: dict[Any, _Lane] = {}
         self._order: list[Any] = []       # insertion order = packing order
         self.results: dict[Any, SMOResult] = {}
+        self._tenant_served: dict[Any, int] = {}   # fair-share accounting
         self.seed_time = 0.0              # admission transforms (paper "init.")
         self.chunk_count = 0
         self._width_log: list[tuple[int, int]] = []   # (live, dispatched)
@@ -238,6 +285,11 @@ class LanePool:
             on_trace=lambda *event: pool()._trace(*event))
         for key, entry in self.sources.items():
             self.cache.check_fused(key, entry)
+
+    def _check_device(self, key, y) -> None:
+        if y.device.type != self.device.type:
+            raise ValueError(f"source {key!r}: labels on {y.device}, the "
+                             f"pool runs on {self.device}")
 
     def _trace(self, *event) -> None:
         if self.on_trace is not None:
@@ -277,15 +329,66 @@ class LanePool:
         raise ValueError("a multi-source pool needs an explicit source key "
                          "per lane")
 
+    # ------------------------------------------------------- source lifecycle
+
+    def add_source(self, key, entry, y) -> None:
+        """Admit a source into a live pool (the daemon's per-plan intake):
+        the fused/WSS check runs now, a factory stays unmaterialized until
+        a dispatch needs it."""
+        if key in self.sources:
+            raise ValueError(f"duplicate source key {key!r}")
+        self._check_device(key, y)
+        self.cache.check_fused(key, entry)
+        self.sources[key] = entry
+        self._ys[key] = y
+        self.cache.add_entry(key, entry)
+
+    def remove_source(self, key) -> None:
+        """Drop a source whose lanes have all retired; refuses while an
+        unretired lane still reads it."""
+        live = [ln.id for ln in self._lanes.values()
+                if ln.source == key and ln.result is None]
+        if live:
+            raise ValueError(
+                f"source {key!r} still has unretired lanes {live!r}")
+        self._packed.pop(key, None)
+        for gkey in [g for g in self._stacked
+                     if isinstance(g, tuple) and g[0] == key]:
+            del self._stacked[gkey]
+        if self._sticky == key:
+            self._sticky = None
+        self.sources.pop(key, None)
+        self._ys.pop(key, None)
+        self._src_live.pop(key, None)
+        self.cache.remove_entry(key)
+
+    def remove_lanes(self, lane_ids) -> None:
+        """Forget retired lanes (a drained study leaves the pool); a live
+        or pending lane refuses."""
+        ids = set(lane_ids)
+        for lane_id in ids:
+            lane = self._lanes.get(lane_id)
+            if lane is not None and lane.result is None:
+                raise ValueError(f"lane {lane_id!r} is not retired")
+        for lane_id in ids:
+            self._lanes.pop(lane_id, None)
+            self.results.pop(lane_id, None)
+        self._order = [i for i in self._order if i not in ids]
+
     # ---------------------------------------------------------- lane intake
 
     def add(self, lane_id, train_mask, C, alpha0=None, f0=None, *,
             source=None, n_iter0: int = 0, max_iter: int = 10_000_000,
-            dep=None, seed_fn=None, after=None) -> None:
+            dep=None, seed_fn=None, after=None, shrink0=None,
+            tenant=None) -> None:
         """Register a lane: its start point (``alpha0``/``f0``, optionally
         ``n_iter0``) or a dependency (``dep`` + ``seed_fn`` mapping that
         lane's ``SMOResult`` to (alpha0, f0)), admitted when the dependency
-        retires. ``after`` holds the lane until that lane retires."""
+        retires. ``after`` holds the lane until that lane retires.
+        ``shrink0`` restores a snapshotted shrink ledger, ``(active mask or
+        None, no_shrink, unshrinks)``: the lane re-enters its compact
+        bucket instead of re-running the admission handoff. ``tenant`` tags
+        the lane's fair-share group."""
         if lane_id in self._lanes:
             raise ValueError(f"duplicate lane id {lane_id!r}")
         if (dep is None) == (alpha0 is None):
@@ -298,7 +401,7 @@ class LanePool:
         key = self._source_key(source)
         lane = _Lane(id=lane_id, source=key, train_mask=train_mask, C=C,
                      max_iter=int(max_iter), dep=dep, seed_fn=seed_fn,
-                     after=after)
+                     after=after, shrink0=shrink0, tenant=tenant)
         if alpha0 is not None:
             if after is None:
                 lane.state = init_state(self.cache.meta(key), self._ys[key],
@@ -313,27 +416,40 @@ class LanePool:
             self._trace("admit", lane_id, key)
 
     def _attach_shrink(self, lane: _Lane, n_iter0: int = 0) -> None:
-        """Build a lane's shrink ledger the moment its state exists; the
-        seeding -> shrinking handoff evaluates the heuristic on the seeded
-        (alpha0, f0), so bound-locked seeded alphas start shrunk."""
+        """Build a lane's shrink ledger the moment its state exists. A
+        restored ledger (``shrink0``) comes first; otherwise the seeding ->
+        shrinking handoff evaluates the heuristic on the seeded (alpha0,
+        f0), so bound-locked seeded alphas start shrunk."""
         if not self.shrink_every:
             return
         y = self._ys[lane.source]
-        lane.shrink = shrink_mod.LaneShrink(
+        lane.shrink = ls = shrink_mod.LaneShrink(
             int(y.shape[0]), every=self.shrink_every,
             quantum=self.shrink_quantum, caps=self.shrink_caps,
             n_iter=n_iter0)
+        if lane.shrink0 is not None:
+            active, no_shrink, unshrinks = lane.shrink0
+            ls.no_shrink = bool(no_shrink)
+            ls.unshrinks = int(unshrinks)
+            lane.shrink0 = None
+            if active is not None:
+                active = torch.as_tensor(active, dtype=torch.bool,
+                                         device=self.device) \
+                    & lane.train_mask.to(torch.bool)
+                ls.mark(active, shrink_mod._read_count(active))
+            return
         if self.shrink_on_seed:
             shrink_mod.seed_shrink(lane.shrink, y, lane.train_mask, lane.C,
                                    lane.state, tol=self.tol)
 
-    def add_result(self, lane_id, result: SMOResult) -> None:
+    def add_result(self, lane_id, result: SMOResult, *,
+                   tenant=None) -> None:
         """Register an already-solved lane: it can seed others but is never
         dispatched."""
         if lane_id in self._lanes:
             raise ValueError(f"duplicate lane id {lane_id!r}")
         lane = _Lane(id=lane_id, source=None, train_mask=None, C=None,
-                     max_iter=0, result=result)
+                     max_iter=0, result=result, tenant=tenant)
         self._lanes[lane_id] = lane
         self._order.append(lane_id)
         self.results[lane_id] = result
@@ -394,6 +510,8 @@ class LanePool:
         self.results[lane.id] = lane.result
         if self.on_trace is not None:     # int() syncs — only when tracing
             self._trace("retire", lane.id, int(lane.result.n_iter))
+        if self.on_result is not None:
+            self.on_result(lane.id, lane.result)
 
     def _pack(self, key, live: list[_Lane]) -> None:
         """Gather a source group's live lanes into a batch of bucketed
@@ -427,13 +545,15 @@ class LanePool:
 
     def _cap_select(self, selected: list[_Lane]) -> list[_Lane]:
         """The lanes that dispatch this chunk under ``max_width``:
-        source-sticky, resident sources next, least-served first."""
+        source-sticky, resident sources next, least-served first; lanes of
+        several tenants fair-share the width, least-served tenant first."""
         return select_capped(selected, max_width=self.max_width,
                              sticky=self._sticky,
                              resident=self.cache.resident,
                              served=lambda ln: ln.served,
                              source=lambda ln: ln.source,
-                             tenant=lambda ln: None, tenant_served={})
+                             tenant=lambda ln: ln.tenant,
+                             tenant_served=self._tenant_served)
 
     def run(self) -> dict[Any, SMOResult]:
         """Drive every lane to retirement; returns {lane_id: SMOResult}."""
@@ -464,6 +584,8 @@ class LanePool:
             selected = self._cap_select(selected)
         for lane in selected:
             lane.served += 1
+            self._tenant_served[lane.tenant] = \
+                self._tenant_served.get(lane.tenant, 0) + 1
         groups: dict[Any, list[_Lane]] = {}
         for lane in selected:
             # under shrinking, lanes group by (source, cap): only lanes of
@@ -515,9 +637,34 @@ class LanePool:
             for lane in lanes:
                 lane.solve_s += dt / len(lanes)
         self._width_log.append((len(live), dispatched))
-        self._trace("resident", chunk,
-                    self.cache.pinned_bytes + self.cache.resident_bytes)
+        if self.on_trace is not None:
+            if any(ln.tenant is not None for ln in selected):
+                shares: dict[Any, int] = {}
+                for lane in selected:
+                    shares[lane.tenant] = shares.get(lane.tenant, 0) + 1
+                self._trace("shares", chunk, tuple(sorted(
+                    (repr(t), c) for t, c in shares.items())))
+            self._trace("resident", chunk,
+                        self.cache.pinned_bytes + self.cache.resident_bytes)
         self.chunk_count += 1
+        if self.on_lane_chunk is not None:
+            for lane in selected:
+                if lane.result is None:
+                    self.on_lane_chunk(lane.id, self._lane_state(lane))
+        if self.on_snapshot is not None and \
+                self.chunk_count % self.snapshot_every == 0:
+            if self.on_trace is not None:
+                ids = [i for i in self._order
+                       if self._lanes[i].state is not None
+                       or self._lanes[i].result is not None]
+                first = self._lanes[ids[0]]
+                ref = (first.result.alpha if first.result is not None
+                       else first.state.alpha)
+                self._trace("checkpoint", chunk, tuple(ids),
+                            snapshot_nbytes(int(ref.shape[0]),
+                                            ref.element_size(), len(ids),
+                                            bool(self.shrink_every)))
+            self.on_snapshot(self)
         return True
 
     def _step_single(self, lane: _Lane) -> None:
@@ -650,6 +797,89 @@ class LanePool:
 
     # ---------------------------------------------------------- observability
 
+    def _lane_state(self, lane: _Lane) -> EngineState:
+        """Current state of a live lane, reading through the packed batch."""
+        cached = self._packed.get(lane.source)
+        if cached is not None and lane.id in cached[0]:
+            return cached[1][3].lane(cached[0].index(lane.id))
+        return lane.state
+
+    def tenant_stats(self) -> dict:
+        """Per-tenant accounting: lane counts by lifecycle stage and the
+        fair-share ``served`` counter (lane-chunks dispatched)."""
+        stats: dict[Any, dict] = {}
+
+        def rec(t):
+            return stats.setdefault(
+                t, {"lanes": 0, "live": 0, "pending": 0, "retired": 0,
+                    "served": 0})
+
+        for lane in self._lanes.values():
+            r = rec(lane.tenant)
+            r["lanes"] += 1
+            if lane.result is not None:
+                r["retired"] += 1
+            elif lane.state is not None:
+                r["live"] += 1
+            else:
+                r["pending"] += 1
+        for t, n in self._tenant_served.items():
+            rec(t)["served"] = n
+        return stats
+
+    def snapshot_lanes(self, *, only=None):
+        """(lane_ids, tree) of every admitted or retired lane, stacked in
+        lane-id (insertion) order, not packed position, so a snapshot
+        restores by lane id under any packing. ``tree`` = {alpha (L, n), f
+        (L, n), n_iter (L,), done (L,)}; pending lanes are omitted (their
+        seeds re-derive from the retired results). ``only`` restricts it
+        to a membership test over lane ids (the daemon snapshots each
+        study alone). Shrinking pools add the shrink ledger: ``active`` (L,
+        n) masks, ``shrunk`` / ``no_shrink`` (L,) flags and the int32
+        ``unshrinks`` (L,), so a resume re-enters the exact compact bucket
+        under any schedule; a live shrunk lane's mirror has alpha current
+        everywhere and f current on its active rows, what re-gathering
+        needs."""
+        ids, alphas, fs, iters, dones = [], [], [], [], []
+        actives, shrunks, noshrinks, unshrinks = [], [], [], []
+        for lane_id in self._order:
+            if only is not None and lane_id not in only:
+                continue
+            lane = self._lanes[lane_id]
+            if lane.result is not None:
+                src, done = lane.result, True
+            elif lane.state is not None:
+                src, done = self._lane_state(lane), False
+            else:
+                continue
+            ids.append(lane_id)
+            alphas.append(src.alpha)
+            fs.append(src.f)
+            iters.append(src.n_iter)
+            dones.append(done)
+            if self.shrink_every:
+                ls = lane.shrink if lane.result is None else None
+                if ls is not None and ls.shrunk:
+                    actives.append(ls.active)
+                else:
+                    actives.append(torch.ones(src.alpha.shape[0],
+                                              dtype=torch.bool,
+                                              device=src.alpha.device))
+                shrunks.append(bool(ls is not None and ls.shrunk))
+                noshrinks.append(bool(ls is not None and ls.no_shrink))
+                unshrinks.append(0 if ls is None else int(ls.unshrinks))
+        if not ids:       # nothing admitted yet
+            return [], {}
+        tree = {"alpha": torch.stack(alphas), "f": torch.stack(fs),
+                "n_iter": torch.stack(iters),
+                "done": torch.tensor(dones, dtype=torch.bool)}
+        if self.shrink_every:
+            tree["active"] = torch.stack(actives)
+            tree["shrunk"] = torch.tensor(shrunks, dtype=torch.bool)
+            tree["no_shrink"] = torch.tensor(noshrinks, dtype=torch.bool)
+            tree["unshrinks"] = torch.tensor(unshrinks, dtype=torch.int32)
+        return ids, tree
+
     @property
     def occupancy(self) -> dict:
         """Schedule shape over the run: runnable lanes per chunk
@@ -681,3 +911,21 @@ class LanePool:
                            "peak_live_width": peak}
                 for key, (s, n, peak) in self._src_live.items()}
         return occ
+
+
+class LaneScheduler(LanePool):
+    """Single-source facade over ``LanePool``: one kernel source, one label
+    vector; lanes omit the source key."""
+
+    _SOLO = "_solo"
+
+    def __init__(self, source, y, **kwargs):
+        super().__init__({self._SOLO: source}, y, **kwargs)
+
+    @property
+    def source(self):
+        return self.resolve_source(self._SOLO)
+
+    @property
+    def y(self):
+        return self._ys[self._SOLO]

@@ -13,14 +13,20 @@ a ``max_resident`` / ``cache_bytes`` budget, evicting the resident source
 with the fewest unretired lanes first, the sticky one last, ties least
 recently used. A spec is a pure function of its inputs, so a
 re-materialized kernel is bitwise the one evicted. ``source_identity``
-(the service's dedup key) waits for the service.
+is the study service's dedup key: the reference's tuple, with numpy dtype
+names and sha1 digests of the same bytes, so the same plan gets the same
+pool key in either package's daemon. ``SourceCache.add_entry`` /
+``remove_entry`` admit and drop entries of a live pool (the daemon's
+per-plan intake).
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import time
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
 from repro_torch.svm.engine import DenseKernel, PallasRBF
@@ -41,10 +47,14 @@ class KernelSpec:
     first ``n`` instances, applied to ``X`` before the kernel call (the
     k-fold truncation; the two slice orders differ in final bits).
     ``kind="pallas_rbf"`` declares a row-streaming source: ``nbytes`` is
-    X's bytes and ``fused`` is True without compute."""
+    X's bytes and ``fused`` is True without compute. ``backend`` is the
+    reference's K-build choice; the port has one K build, so it is inert
+    here, kept so that a wire plan round-trips to the same JSON and the
+    same ``source_identity``."""
     X: Any
     gamma: float = 1.0
     kind: str = "rbf"
+    backend: str = "jnp"
     n: int | None = None
 
     @property
@@ -71,7 +81,7 @@ class KernelSpec:
     def nbytes(self) -> int:
         """n^2 kernel bytes for dense kinds, X's bytes for row-streaming
         kinds — known without computing anything."""
-        item = self.X.element_size()
+        item = itemsize(self.X)
         if self.kind == "pallas_rbf":
             return self.n_rows * int(self.X.shape[1]) * item
         return self.n_rows * self.n_rows * item
@@ -85,6 +95,53 @@ class KernelSpec:
 
     def to(self, device) -> "KernelSpec":
         return dataclasses.replace(self, X=self.X.to(device))
+
+
+def dtype_name(dtype) -> str:
+    """numpy's name of a torch or numpy dtype (``"float64"``, ``"bool"``):
+    the name the reference's identities and programs carry."""
+    if isinstance(dtype, torch.dtype):
+        return str(dtype).removeprefix("torch.")
+    return str(np.dtype(dtype))
+
+
+def itemsize(a) -> int:
+    """Bytes per element of a tensor or an array."""
+    if isinstance(a, torch.Tensor):
+        return a.element_size()
+    return np.dtype(a.dtype).itemsize
+
+
+def host_array(a) -> np.ndarray:
+    """A tensor or array as a contiguous host numpy array."""
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu().numpy()
+    return np.ascontiguousarray(np.asarray(a))
+
+
+def digest(a) -> str:
+    """sha1 of an array's raw bytes."""
+    return hashlib.sha1(host_array(a).tobytes()).hexdigest()
+
+
+def source_identity(entry, y=None) -> tuple | None:
+    """Content identity of a sources-dict entry: equal identities declare
+    the same kernel values (and, with ``y``, the same labels), so a
+    multi-tenant pool may serve both tenants from one resident kernel.
+    None means "never dedup" (opaque sources). Arrays enter as sha1 digests
+    of their bytes, after the spec's own ``[:n]`` truncation."""
+    if isinstance(entry, KernelSpec):
+        ident = ("spec", entry.kind, float(entry.gamma), entry.backend,
+                 entry.n_rows, dtype_name(entry.dtype),
+                 digest(entry.X[: entry.n_rows]))
+    elif isinstance(entry, DenseKernel):
+        K = entry.K
+        ident = ("dense", dtype_name(K.dtype), int(K.shape[0]), digest(K))
+    else:
+        return None
+    if y is not None:
+        ident = ident + (digest(y),)
+    return ident
 
 
 def source_nbytes(src) -> int:
@@ -191,6 +248,24 @@ class SourceCache:
                 "kernel_time": round(self.kernel_time, 4),
                 "peak_resident": self.peak_resident,
                 "peak_resident_bytes": self.peak_resident_bytes}
+
+    def add_entry(self, key, entry) -> None:
+        """Admit an entry after construction (the daemon admits plans into
+        a live pool): a usable source is pinned, a factory managed."""
+        if key in self._entries:
+            raise ValueError(f"source {key!r} already present")
+        self._entries[key] = entry
+        if not is_factory(entry):
+            self._pinned[key] = entry
+            self.peak_resident = max(
+                self.peak_resident, len(self._pinned) + len(self._resident))
+
+    def remove_entry(self, key) -> None:
+        """Drop an entry and any residency it holds (a drained study's
+        sources leave the pool). Not an eviction: no ``on_evict``."""
+        self._entries.pop(key, None)
+        self._pinned.pop(key, None)
+        self._resident.pop(key, None)
 
     def check_fused(self, key, src) -> None:
         if getattr(src, "fused", False) and self.wss == "2":

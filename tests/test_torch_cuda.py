@@ -2410,3 +2410,173 @@ def test_cuda_shrink_pool_runs_per_lane_kernels(cuda, backend):
     assert [f.acc_correct for f in shr.folds] == \
         [f.acc_correct for f in plain.folds]
     assert all(f.converged for f in shr.folds)
+
+
+# ------------------------------------------------ the study service's path
+
+
+def _service_plan(ds, chunks, masks, y, X, C_scale=1.0, folds=(0, 1, 2),
+                  sir=True):
+    """A fold chain over a declared kernel: the first fold cold, the rest
+    SIR-seeded (or cold) with ``after`` edges, each evaluated."""
+    from repro_torch.core.cv import _transition_idx
+    from repro_torch.core.study import Plan
+    from repro_torch.svm import KernelSpec
+    n = y.shape[0]
+    plan = Plan(sources={"adult": KernelSpec(X=X, gamma=ds.gamma, n=n)},
+                y=y, chunk_iters=1024)
+    prev = None
+    for h in folds:
+        common = dict(train_mask=masks[h], C=ds.C * C_scale, after=prev)
+        if prev is None or not sir:
+            plan.lane(h, alpha0=torch.zeros_like(y), f0=-y, **common)
+        else:
+            S, R, T = _transition_idx(chunks, prev, h)
+            plan.lane(h, dep=prev, transform="fold", params=dict(
+                method="sir", S_idx=S, R_idx=R, T_idx=T), **common)
+        plan.evaluate(h, chunks[h])
+        prev = h
+    return plan
+
+
+def _same_bits(want, got) -> None:
+    assert set(want) == set(got)
+    for lid, w in want.items():
+        g = got[lid]
+        assert torch.equal(w.alpha.cpu(), g.alpha.cpu()), lid
+        assert torch.equal(w.f.cpu(), g.f.cpu()), lid
+        assert int(w.n_iter) == int(g.n_iter)
+
+
+@pytest.fixture
+def adult_1000(cuda):
+    from repro_torch.core.cv import _fold_masks
+    from repro_torch.data.svm_suite import kfold_chunks, make_dataset
+    ds = make_dataset("adult", n_override=1000)
+    chunks = kfold_chunks(ds.n, 10)
+    n = chunks.size
+    X = torch.as_tensor(ds.X[:n], device=cuda)
+    y = torch.as_tensor(ds.y[:n], dtype=torch.float64, device=cuda)
+    masks = torch.as_tensor(_fold_masks(chunks), device=cuda)
+    return ds, chunks, masks, y, X
+
+
+@pytest.mark.cuda
+def test_cuda_pool_snapshot_restores_bitwise(cuda, adult_1000, tmp_path):
+    """A live pool's snapshot mid-flight (some lanes retired, one packed),
+    restored into a new pool of another width through ``run_plan``'s
+    record: every lane bitwise the uninterrupted run."""
+    import shutil
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core.study import StudyCheckpoint, run_plan
+    ds, chunks, masks, y, X = adult_1000
+    plan = _service_plan(ds, chunks, masks, y, X, folds=range(6), sir=False)
+    for spec in plan.lanes:
+        spec.after = None                   # all live at once: packed
+    plan.chunk_iters = 128
+    want = run_plan(plan)
+    mgr = CheckpointManager(str(tmp_path), max_to_keep=10_000)
+    run_plan(plan, checkpoint=StudyCheckpoint(manager=mgr, meta={"t": 1}))
+    steps = mgr.all_steps()
+    mixed = [s for s in steps
+             if 0 < mgr.restore(step=s)[1]["done"].sum() < 6]
+    for s in steps:
+        if s > mixed[0]:
+            shutil.rmtree(mgr._step_dir(s))
+    plan.max_width = 1
+    got = run_plan(plan, checkpoint=StudyCheckpoint(
+        manager=CheckpointManager(str(tmp_path), max_to_keep=10_000),
+        meta={"t": 1}))
+    assert 0 < len(got.restored) < 6
+    _same_bits(want.results, got.results)
+    assert got.evals == want.evals
+
+
+@pytest.mark.cuda
+def test_cuda_two_tenants_one_service_bitwise(cuda, adult_1000):
+    """Two tenants on one ``StudyService(device="cuda")``: tenant a's SIR
+    chain, tenant b's cold folds at 4 x C, one kernel for both; each lane
+    bitwise the in-process ``run_plan`` on the card."""
+    import json
+    from repro_torch.core.study import (_from_wire, plan_to_dict,
+                                        result_from_dict, run_plan)
+    from repro_torch.service import StudyService
+    ds, chunks, masks, y, X = adult_1000
+    plan_a = _service_plan(ds, chunks, masks, y, X)
+    plan_b = _service_plan(ds, chunks, masks, y, X, C_scale=4.0,
+                           folds=(3, 4), sir=False)
+    solo = {"a": run_plan(plan_a), "b": run_plan(plan_b)}
+    service = StudyService(chunk_iters=512, max_width=0)
+    assert service.pool.device.type == "cuda"
+    events = {"a": [], "b": []}
+    ops.reset_launch_counts()
+    for t, plan in (("a", plan_a), ("b", plan_b)):
+        service.submit(t, "p", json.loads(json.dumps(plan_to_dict(plan))),
+                       events[t].append)
+    while service._studies:
+        service.pool.step()
+        service._finish_ready()
+    assert ops.launch_counts()["rbf_kernel_matrix"] == 1
+    for t in ("a", "b"):
+        served = {_from_wire(m["lane"]): result_from_dict(m["result"])
+                  for m in events[t] if m["type"] == "result"}
+        _same_bits(solo[t].results, served)
+        (done,) = [m for m in events[t] if m["type"] == "done"]
+        assert {lid: tuple(ct) for lid, ct in done["evals"]} == \
+            solo[t].evals
+        assert done["tenant_stats"]["served"] > 0
+    assert [m["dedup_hits"] for m in events["b"]
+            if m["type"] == "admitted"] == [1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["dense", "pallas_rbf"])
+def test_cuda_auto_verdicts_are_the_files(cuda, kind):
+    """``max_width=None`` and ``shrink_every="auto"`` on the card take the
+    measured ``cuda`` entries of ``results/cost_model_torch.json``."""
+    import json
+    import pathlib
+    from repro_torch.svm import DenseKernel, LanePool, PallasRBF, cost_model
+    path = pathlib.Path(__file__).resolve().parents[1] / "results" / \
+        "cost_model_torch.json"
+    entry = json.loads(path.read_text())["entries"]["cuda"][kind]
+    X = torch.rand(64, 5, dtype=torch.float64, device=cuda)
+    source = DenseKernel(X @ X.T) if kind == "dense" else PallasRBF(X, 0.5)
+    pool = LanePool({"s": source}, torch.ones(64, dtype=torch.float64,
+                                              device=cuda),
+                    wss="1" if kind == "pallas_rbf" else "2",
+                    max_width=None, shrink_every="auto")
+    assert pool.max_width == entry["max_width"] == \
+        cost_model.pick_max_width("cuda", (kind,))
+    assert bool(pool.shrink_every) is entry["shrink"] is \
+        cost_model.pick_shrink("cuda", (kind,))
+
+
+@pytest.mark.cuda
+def test_cuda_save_copies_state_before_its_writer(cuda, tmp_path,
+                                                 monkeypatch):
+    """``save`` copies card tensors to host before its writer thread runs:
+    a pool state mutated in place after ``save`` returns leaves the record
+    as it was."""
+    import threading
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint import manager as manager_mod
+    go = threading.Event()
+    real = manager_mod.save_pytree
+
+    def held(*args, **kwargs):
+        go.wait(10)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(manager_mod, "save_pytree", held)
+    alpha = torch.arange(1000, dtype=torch.float64, device=cuda)
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(1, {"alpha": alpha, "n_iter": torch.tensor(5, device=cuda)},
+             blocking=False)
+    alpha.mul_(-1.0)
+    torch.cuda.synchronize()
+    go.set()
+    mgr.wait()
+    _, flat, _ = mgr.restore()
+    assert np.array_equal(flat["alpha"], np.arange(1000, dtype=np.float64))
+    assert int(flat["n_iter"]) == 5

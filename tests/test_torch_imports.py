@@ -1,8 +1,9 @@
 """Import rule of the port: no module of ``src/repro_torch/``, and none of
 ``chip_smoke.py``, ``chip_flash_mutants.py``, ``chip_smo_variants.py``,
-``chip_sir_split.py``, ``chip_ato_split.py``, ``chip_ato_phases.py`` and
-``chip_spill_phases.py``, imports jax or the JAX package ``repro``; and every entry point defaults
-to ``cuda``, raising without a GPU unless given ``device="cpu"``."""
+``chip_sir_split.py``, ``chip_ato_split.py``, ``chip_ato_phases.py``,
+``chip_spill_phases.py`` and ``chip_cost_model.py``, imports jax or the JAX
+package ``repro``; and every entry point defaults to ``cuda``, raising
+without a GPU unless given ``device="cpu"``."""
 import ast
 from pathlib import Path
 
@@ -14,7 +15,7 @@ FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py", ROOT / "chip_flash_mutants.py",
        ROOT / "chip_smo_variants.py", ROOT / "chip_sir_split.py",
        ROOT / "chip_ato_split.py", ROOT / "chip_ato_phases.py",
-       ROOT / "chip_spill_phases.py"]
+       ROOT / "chip_spill_phases.py", ROOT / "chip_cost_model.py"]
 
 
 def _imported(tree):
@@ -41,7 +42,9 @@ def test_the_walk_sees_the_port():
             "transformer.py", "layers.py", "params.py", "decode.py",
             "inputs.py", "tokens.py", "granite_8b.py", "gemma_7b.py",
             "threefry.py", "chip_smo_variants.py", "grid.py", "shrink.py",
-            "svc.py"} <= names
+            "svc.py", "manager.py", "findings.py", "plan_check.py",
+            "plan_sim.py", "protocol.py", "server.py", "client.py",
+            "__main__.py", "chip_cost_model.py"} <= names
 
 
 def test_entry_points_default_to_cuda():
@@ -78,6 +81,22 @@ def test_entry_points_default_to_cuda():
         SVC().cross_validate(ds.X, ds.y, k=4)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         run_cv(ds, k=4, method="sir", shrink_every=64)
+    # the daemon and an empty pool run on cuda unless told otherwise; a
+    # wire plan parsed without a device names none, so it runs on cuda
+    from repro_torch.core.study import plan_from_dict, plan_to_dict
+    from repro_torch.service import StudyService
+    from repro_torch.svm import LanePool
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        StudyService()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LanePool({}, {})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LanePool({}, {}, device=None)
+    wire = plan_to_dict(Plan(sources={}, y=ds.y))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_plan(plan_from_dict(wire))
+    assert StudyService(device="cpu").pool.device == torch.device("cpu")
+    assert LanePool({}, {}, device="cpu").device == torch.device("cpu")
     assert resolve_device("cpu") == torch.device("cpu")
 
 

@@ -98,12 +98,13 @@ def test_budget_helpers_match_reference(max_resident, cache_bytes, sticky):
 @pytest.mark.parametrize("kinds", [("dense",), ("pallas_rbf",),
                                    ("dense", "pallas_rbf")])
 def test_cost_model_matches_reference(kinds):
-    """The committed model (cpu only) and synthetic ones give the
-    reference's verdicts; a device type the file lacks falls back to 0
+    """The committed model's cpu entry and synthetic ones give the
+    reference's verdicts; a device type a model lacks falls back to 0
     (unbounded) as the reference's accelerator backends do."""
     assert cost_model.pick_max_width("cpu", kinds) == \
         ref_cost_model.pick_max_width("cpu", kinds) == 1
-    assert cost_model.pick_max_width("cuda", kinds) == 0 == \
+    assert cost_model.pick_max_width("cuda", kinds,
+                                     model={"entries": {}}) == 0 == \
         ref_cost_model.pick_max_width("tpu", kinds)
     for model in ({"entries": {"cpu": {"dense": {"max_width": 4},
                                        "pallas_rbf": {"max_width": 0}}}},
