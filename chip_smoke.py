@@ -44,7 +44,13 @@ to 0 just before it and read just after:
 * LM serving of granite-8b at full width and depth in bf16 (random weights
   from a seed): prefill of 2 x 4,096 tokens, every attention layer through
   the flash-attention kernel's wgmma route, then 4 requests served through
-  the KV cache (a 16-token prompt teacher-forced, 32 greedy tokens).
+  the KV cache (a 16-token prompt teacher-forced, 32 greedy tokens);
+  gemma3-4b likewise (prefill of 1 x 32,768 tokens, its 29 sliding-window
+  layers through the kernel's window, its 5 global ones causal, all at
+  head dim 256, a windowed launch under a quarter of a global one's time)
+  and, last, yi-34b (68.78 GB of weights on the card, prefill of 1 x
+  2,048 tokens, 4 requests of 16 + 16 tokens, decode beside its
+  weight-read bound).
 
 Four kernels have routes, and every check and path records the one it
 took (``ops.route_counts``): every float64 ``rbf_kernel_matrix`` runs on
@@ -71,11 +77,12 @@ tensor-core build's outputs bit for bit.
 ``python3 chip_smoke.py --seed-split [--src DIR]`` runs only the seeding
 split and Table 1's times, of the package under DIR (another checkout's
 ``src``), so that two trees are timed in one call; ``--compare [--src
-DIR]`` likewise the bf16 mma.sync attention route's times at head dims 32
-and 16, the 20-fold matrix-free row's (the selection kernel's path), the
-seeding kernels' times, one SIR seed of the grid at size split into its
-parts, Table 1's summed init and solve times, and the grid at size and
-LOO phases.
+DIR] [--flash]`` likewise the bf16 attention routes' times (with
+``--flash``, those alone): the mma.sync route at head dims 32 and 16, the
+wgmma route at granite's and gemma3's prefill shapes; then the 20-fold
+matrix-free row's (the selection kernel's path), the seeding kernels'
+times, one SIR seed of the grid at size split into its parts, Table 1's
+summed init and solve times, and the grid at size and LOO phases.
 
 ``water_fill`` is also built with one bisection level a round
 (``water_fill_seq``, ``_build.VARIANTS``): every call the script checks
@@ -3145,15 +3152,13 @@ def phase_serve_lm(flash_ms: float):
     routes disagree at the scale of the logits themselves.
     Returns the main path's launch counts and route counts; every prefill
     launch must take the wgmma route."""
-    import copy
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch.inputs import concrete_batch
     from repro_torch.models.layers import embed
     from repro_torch.models.transformer import (count_params, decode_step,
-                                                forward, init_cache,
-                                                init_model)
-    from repro_torch.serving import build_serve_step, prefill_logits
+                                                init_cache, init_model)
+    from repro_torch.serving import prefill_logits
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3166,74 +3171,30 @@ def phase_serve_lm(flash_ms: float):
     n_params = sum(p.numel() for p in model.parameters())
     require(n_params == count_params(cfg) == GRANITE_PARAMS,
             f"serve_lm: {n_params} parameters, want {GRANITE_PARAMS}")
-
-    def prefill(tokens, call=prefill_logits):
-        before = ops.launch_counts()["flash_attention"]
-        sync()
-        tp = time.perf_counter()
-        out = call(model, {"tokens": tokens})
-        sync()
-        secs = time.perf_counter() - tp
-        launched = ops.launch_counts()["flash_attention"] - before
-        require(launched == cfg.n_layers,
-                f"serve_lm: {launched} flash_attention launches in one "
-                f"prefill, want {cfg.n_layers}")
-        require(bool(torch.isfinite(out).all()),
-                "serve_lm: non-finite prefill logits")
-        return out, secs
-
     tokens = concrete_batch(cfg, PREFILL_B, PREFILL_S, seed=0)["tokens"]
     prompt = concrete_batch(cfg, SERVE_B, PROMPT, seed=1)["tokens"]
-    serve = build_serve_step(cfg)
 
     # ---- the main path: counts from 0 just before it, read just after
     ops.reset_launch_counts()
-    logits, first_s = prefill(tokens)
-    logits, prefill_s = prefill(tokens)
-    prefill_peak = torch.cuda.max_memory_allocated()
-    # serving: the prompt teacher-forced through the cache, then greedy
-    cache = init_cache(cfg, SERVE_B, PROMPT + NEW_TOKENS, torch.bfloat16)
-    sync()
-    tp = time.perf_counter()
-    prompt_logits = []
-    for t in range(PROMPT):
-        last, cache = decode_step(model, cache, {
-            "tokens": prompt[:, t:t + 1], "step": t})
-        prompt_logits.append(last[:, 0])
-    sync()
-    prompt_s = time.perf_counter() - tp
-    tok = torch.argmax(last[:, -1].float(), dim=-1)
-    out, step_s = [tok], []
-    for t in range(PROMPT, PROMPT + NEW_TOKENS - 1):
-        ts = time.perf_counter()
-        tok, cache = serve(model, cache, {"tokens": tok[:, None], "step": t})
-        sync()
-        step_s.append(time.perf_counter() - ts)
-        out.append(tok)
+    main = _lm_main_path(model, cfg, tokens, prompt, NEW_TOKENS, prefills=2)
     main_counts = ops.launch_counts()
     main_routes = ops.route_counts()
+    main_windows = ops.window_counts()
     # ---- end of the main path
     require(main_routes["flash_attention"] == {
-        "fma": 0, "mma": 0, "wgmma": 2 * cfg.n_layers},
+        "fma": 0, "mma": 0, "wgmma": 2 * cfg.n_layers}
+        and main_windows == {"windowed": 0, "global": 2 * cfg.n_layers},
         f"serve_lm: the prefills' attention took routes "
-        f"{main_routes['flash_attention']}, want wgmma for all 72")
-
-    require(tuple(logits.shape) == (PREFILL_B, 1, cfg.vocab_size),
-            f"serve_lm: prefill logits {tuple(logits.shape)}")
-    generated = torch.stack(out, 1)
-    require(tuple(generated.shape) == (SERVE_B, NEW_TOKENS)
-            and int(generated.min()) >= 0
-            and int(generated.max()) < cfg.vocab_size,
-            f"serve_lm: generated tokens {tuple(generated.shape)}")
-    steady = step_s[2:]
-    decode_ms = 1e3 * sum(steady) / len(steady)
+        f"{main_routes['flash_attention']} ({main_windows}), want wgmma and "
+        "global for all 72")
+    prefill_s, decode_ms = main["prefill_s"], main["decode_ms_per_step"]
     serve_peak = torch.cuda.max_memory_allocated()
-    del cache
     ops.reset_launch_counts()
 
     # where the time goes: one prefill, and 8 decode steps, under the
     # profiler; busy share = their device time over the unprofiled times
-    prof_prefill = _profile(lambda: prefill(tokens))
+    prof_prefill = _profile(lambda: prefill_logits(model,
+                                                   {"tokens": tokens}))
     prof_prefill["device_busy_share"] = prof_prefill["device_ms"] / (
         1e3 * prefill_s)
     cache = init_cache(cfg, SERVE_B, 8, torch.bfloat16)
@@ -3248,17 +3209,7 @@ def phase_serve_lm(flash_ms: float):
     del cache
 
     # (1) every prefill layer's attention on the main path's own inputs
-    kernel, attn = ops.flash_attention, []
-
-    def checked(q, k, v, *, causal=True, window=None):
-        got = kernel(q, k, v, causal=causal, window=window)
-        attn.append(flash_bf16_errors(got, q, k, v, causal, window))
-        return got
-    ops.flash_attention = checked
-    try:
-        prefill(tokens)
-    finally:
-        ops.flash_attention = kernel
+    attn = _checked_prefill(model, tokens, flash_bf16_errors)
     torch.cuda.empty_cache()
 
     # (2) layer by layer: the same input through both routes, bf16 and f32
@@ -3269,13 +3220,7 @@ def phase_serve_lm(flash_ms: float):
         x = embed(model.embed, prompt)
         layers = []
         for i, block in enumerate(model.layers):
-            pre, dec = _mixer_routes(block, x, kv_shape)
-            block32 = copy.deepcopy(block).float()
-            pre32, dec32 = _mixer_routes(block32, x.float(), kv_shape)
-            del block32
-            layers.append({"layer": i, "f32": _row_rel(pre32, dec32),
-                           "bf16_kernel_route": _row_rel(pre, dec32),
-                           "bf16_plain_route": _row_rel(dec, dec32)})
+            layers.append({"layer": i, **_layer_routes(block, x, kv_shape)})
             x = block(x, pos)[0]
     worst_f32 = max(r["f32"] for r in layers)
     bf16_ok = all(r["bf16_kernel_route"] <= 2.0 * r["bf16_plain_route"]
@@ -3283,32 +3228,22 @@ def phase_serve_lm(flash_ms: float):
 
     # (3) the whole model: the prompt's forward (kernel attention) against
     # the teacher-forced decode (plain), position by position
-    def full_logits(call=lambda m, b: forward(m, b)[0]):
-        return prefill(prompt, call)[0]
-
     def by_position(a, b):
         return (a.float() - b.float()).abs().amax(dim=(0, 2)).tolist()
-    full, dec = full_logits(), torch.stack(prompt_logits, 1)
+    full, dec = _forward_checked(model, prompt), main["prompt_logits"]
     pos_bf16 = by_position(full, dec)
     rec = {"phase": "serve_lm", "arch": cfg.name, "n_params": n_params,
            "dtype": "bfloat16", "init_s": init_s,
            "prefill_shape": [PREFILL_B, PREFILL_S],
-           "prefill_first_s": first_s, "prefill_s": prefill_s,
-           "prefill_tokens_per_s": PREFILL_B * PREFILL_S / prefill_s,
+           **{key: v for key, v in main.items() if key != "prompt_logits"},
            "flash_share_of_prefill_est": cfg.n_layers * flash_ms / 1e3
            / prefill_s,
-           "prefill_peak_gb": prefill_peak / 1e9,
            "serve_batch": SERVE_B, "prompt": PROMPT,
-           "new_tokens": NEW_TOKENS, "prompt_s": prompt_s,
-           "decode_ms_per_step": decode_ms,
-           "decode_ms_per_step_min": 1e3 * min(steady),
-           "decode_tokens_per_s": SERVE_B / (decode_ms / 1e3),
-           "serve_peak_gb": serve_peak / 1e9,
+           "new_tokens": NEW_TOKENS, "serve_peak_gb": serve_peak / 1e9,
            "main_path_launches": main_counts,
            "main_path_routes": main_routes,
            "profile_prefill": prof_prefill, "profile_decode_8_steps":
                prof_decode,
-           "first_tokens": generated[0, :16].tolist(),
            "prefill_attention_row_rel_max": max(r["row_rel_err"]
                                                 for r in attn),
            "prefill_attention_plain_row_rel_min": min(
@@ -3329,7 +3264,7 @@ def phase_serve_lm(flash_ms: float):
         last32, cache = decode_step(model, cache, {
             "tokens": prompt[:, t:t + 1], "step": t})
         dec32.append(last32[:, 0])
-    full32, dec32 = full_logits(), torch.stack(dec32, 1)
+    full32, dec32 = _forward_checked(model, prompt), torch.stack(dec32, 1)
     pos_f32 = by_position(full32, dec32)
     rec["logits_f32_by_position_max_abs_diff"] = pos_f32
     rec["logits_bf16_vs_f32_by_position"] = by_position(full, full32)
@@ -3349,6 +3284,591 @@ def phase_serve_lm(flash_ms: float):
             f"serve_lm: the prompt's forward and decode logits differ at "
             f"position 0 by {pos_bf16[0]} (bf16) / {pos_f32[0]} (f32)")
     del model, cache
+    torch.cuda.empty_cache()
+    return main_counts, main_routes
+
+
+#: gemma3-4b's and yi-34b's parameters (model_params_def at full width)
+GEMMA3_PARAMS = 3_879_907_840
+YI_PARAMS = 34_388_917_248
+#: gemma3's prefill (``prefill_32k``'s length, one sequence) and the rows
+#: of each global layer checked against plain attention: an f32 score
+#: block over all 32,768 rows would be 34 GB
+GEMMA3_PREFILL_B, GEMMA3_PREFILL_S = 1, 32768
+GEMMA3_TAIL = 2048
+#: its prefill attention (B, H, KV, S, D), bf16, and its local layers'
+#: window
+FLASH_GEMMA3 = (1, 8, 4, 32768, 256)
+GEMMA3_WINDOW = 1024
+#: the local layer fed both routes at this length: decode steps past the
+#: window (1,024) mask keys on the plain route
+GEMMA3_ROUTES_S = 2560
+#: gemma3's local layer through both routes in float32, row by row: under
+#: the reference's init (wq's fan-in is its head axis) the scores' std is
+#: ~320, so the two routes' projections (2,560 rows at once against one)
+#: round a score apart by ~3e-4, and where two of 1,024 keys nearly tie
+#: (many rows at this length) that moves the row's output by as much;
+#: granite's LAYER_REL_F32 holds 16 positions
+GEMMA3_LAYER_REL_F32 = 1e-3
+#: the same layer's prefill route without its window, against with it: the
+#: window must change the rows past 1,024 (the decode route's mask bites)
+WINDOW_BITES_MIN = 0.1
+#: a windowed launch's device time over a global one's at gemma3's prefill:
+#: the band is 1/16 of the causal triangle there, so a kernel that skips
+#: the tiles outside it comes in well under this
+WINDOW_SHARE_MAX = 0.25
+#: yi-34b's prefill; its requests' prompt and new tokens
+YI_PREFILL_B, YI_PREFILL_S = 1, 2048
+YI_PROMPT, YI_NEW_TOKENS = 16, 16
+#: the most device memory that may be allocated before yi's weights
+#: (68.78 GB of the card's 80) are drawn
+YI_FREE_BEFORE = 2 ** 30
+#: the whole model at position 0 in float32 against float32's own error:
+#: ten times granite's measured difference (1e-5 at logits up to 6.6), a
+#: unit of the logits' scale (gemma3's tied table gives logits in the
+#: hundreds)
+POS0_REL_F32 = 1.5e-5
+
+
+def _lm_main_path(model, cfg, tokens, prompt, new_tokens: int,
+                  prefills: int) -> dict:
+    """The LM serving path of ``model``: ``prefills`` prefills of
+    ``tokens`` (each layer one flash_attention launch, checked per call),
+    then ``prompt``'s requests served through the KV cache, the prompt
+    teacher-forced and ``new_tokens`` greedy. Returns the times, each
+    prefill's windowed and global launches, the prompt's logits from the
+    cache and the generated tokens."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import decode_step, init_cache
+    from repro_torch.serving import build_serve_step, prefill_logits
+    prefill_s, kinds = [], []
+    for _ in range(prefills):
+        before = ops.launch_counts()["flash_attention"]
+        windows = ops.window_counts()
+        sync()
+        tp = time.perf_counter()
+        logits = prefill_logits(model, {"tokens": tokens})
+        sync()
+        prefill_s.append(time.perf_counter() - tp)
+        launched = ops.launch_counts()["flash_attention"] - before
+        kinds.append({key: n - windows[key]
+                      for key, n in ops.window_counts().items()})
+        require(launched == cfg.n_layers,
+                f"{cfg.name}: {launched} flash_attention launches in one "
+                f"prefill, want {cfg.n_layers}")
+        require(bool(torch.isfinite(logits).all())
+                and tuple(logits.shape) == (tokens.shape[0], 1,
+                                            cfg.vocab_size),
+                f"{cfg.name}: prefill logits {tuple(logits.shape)}, or "
+                "not finite")
+    prefill_peak = torch.cuda.max_memory_allocated()
+    B, P = prompt.shape
+    cache = init_cache(cfg, B, P + new_tokens, torch.bfloat16)
+    serve = build_serve_step(cfg)
+    sync()
+    tp = time.perf_counter()
+    prompt_logits = []
+    for t in range(P):
+        last, cache = decode_step(model, cache, {
+            "tokens": prompt[:, t:t + 1], "step": t})
+        prompt_logits.append(last[:, 0])
+    sync()
+    prompt_s = time.perf_counter() - tp
+    tok = torch.argmax(last[:, -1].float(), dim=-1)
+    out, step_s = [tok], []
+    for t in range(P, P + new_tokens - 1):
+        ts = time.perf_counter()
+        tok, cache = serve(model, cache, {"tokens": tok[:, None], "step": t})
+        sync()
+        step_s.append(time.perf_counter() - ts)
+        out.append(tok)
+    generated = torch.stack(out, 1)
+    require(tuple(generated.shape) == (B, new_tokens)
+            and int(generated.min()) >= 0
+            and int(generated.max()) < cfg.vocab_size,
+            f"{cfg.name}: generated tokens {tuple(generated.shape)}")
+    steady = step_s[2:]
+    decode_ms = 1e3 * sum(steady) / len(steady)
+    return {"prefill_s_each": prefill_s, "prefill_s": prefill_s[-1],
+            "prefill_launches_by_kind": kinds,
+            "prefill_tokens_per_s": tokens.numel() / prefill_s[-1],
+            "prefill_peak_gb": prefill_peak / 1e9,
+            "prompt_s": prompt_s, "decode_ms_per_step": decode_ms,
+            "decode_ms_per_step_min": 1e3 * min(steady),
+            "decode_tokens_per_s": B / (decode_ms / 1e3),
+            "first_tokens": generated[0].tolist(),
+            "prompt_logits": torch.stack(prompt_logits, 1)}
+
+
+def _checked_prefill(model, tokens, check) -> list:
+    """One prefill of ``tokens`` with every flash_attention launch also
+    passed, with its inputs and output, to ``check``; returns its
+    records."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import prefill_logits
+    kernel, recs = ops.flash_attention, []
+
+    def checked(q, k, v, *, causal=True, window=None):
+        got = kernel(q, k, v, causal=causal, window=window)
+        recs.append(check(got, q, k, v, causal, window))
+        return got
+    ops.flash_attention = checked
+    try:
+        prefill_logits(model, {"tokens": tokens})
+    finally:
+        ops.flash_attention = kernel
+    sync()
+    return recs
+
+
+def _forward_checked(model, tokens):
+    """The forward's logits over ``tokens`` by the prefill route: each
+    layer one flash_attention launch, the logits finite."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import forward
+    before = ops.launch_counts()["flash_attention"]
+    logits, _ = forward(model, {"tokens": tokens})
+    launched = ops.launch_counts()["flash_attention"] - before
+    require(launched == len(model.layers)
+            and bool(torch.isfinite(logits).all()),
+            f"{launched} flash_attention launches in the forward, want "
+            f"{len(model.layers)}; or its logits are not finite")
+    return logits
+
+
+def _pos0_routes(model, prompt, prompt_logits):
+    """The prompt's forward (kernel attention) against its teacher-forced
+    decode through the cache (plain): max |diff| of the logits at position
+    0, where attention has one key; and the forward's logits."""
+    full = _forward_checked(model, prompt)
+    return float((full[:, 0].float() - prompt_logits[:, 0].float())
+                 .abs().max()), full
+
+
+def _layer_routes(block, x, kv_shape) -> dict:
+    """One block's attention fed ``x`` by the prefill route (the kernel)
+    and the decode route (plain, through the cache) in bf16 and, with the
+    block's weights in float32, in float32 (``_mixer_routes``)."""
+    import copy
+    with torch.inference_mode():
+        pre, dec = _mixer_routes(block, x, kv_shape)
+        block32 = copy.deepcopy(block).float()
+        pre32, dec32 = _mixer_routes(block32, x.float(), kv_shape)
+        del block32
+    return {"f32": _row_rel(pre32, dec32),
+            "bf16_kernel_route": _row_rel(pre, dec32),
+            "bf16_plain_route": _row_rel(dec, dec32)}
+
+
+def _layer_routes_ok(rec: dict, f32_bar: float = LAYER_REL_F32) -> bool:
+    return (math.isfinite(rec["f32"]) and rec["f32"] <= f32_bar
+            and rec["bf16_kernel_route"] <= 2.0 * rec["bf16_plain_route"])
+
+
+def _window_band(S: int, W: int, device):
+    """The (S, S) boolean mask of ``causal=True, window=W``."""
+    s = torch.arange(S, device=device)
+    return (s[None, :] <= s[:, None]) & (s[None, :] > s[:, None] - W)
+
+
+def _gemma3_flash_inputs():
+    """Seeded bf16 q, k, v at FLASH_GEMMA3 as (B, S, h, D) activations, and
+    their (B, h, S, D) views, which the kernel reads in place."""
+    dev = torch.device("cuda")
+    B, H, KV, S, D = FLASH_GEMMA3
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    q, k, v = (torch.randn((B, S, h, D), generator=gen, device=dev,
+                           dtype=torch.bfloat16) for h in (H, KV, KV))
+    return (q, k, v), tuple(t.transpose(1, 2) for t in (q, k, v))
+
+
+def _gemma3_flash_ms(qt, kt, vt) -> dict:
+    """The kernel's device time (CUDA events) at gemma3-4b's prefill shape:
+    a local layer's windowed launch and a global layer's."""
+    from repro_torch.kernels import ops
+    return {name: cuda_ms(lambda: ops.flash_attention(
+        qt, kt, vt, causal=True, window=window), 10, 2)
+        for name, window in (("windowed", GEMMA3_WINDOW), ("global", None))}
+
+
+def _gemma3_flash_rows() -> dict:
+    """flash_attention at gemma3-4b's prefill shapes (FLASH_GEMMA3) bf16,
+    read in place from (B, S, H, D) activations: its windowed launch (a
+    local layer's, W = GEMMA3_WINDOW) and its global one, each timed by
+    CUDA events (the gate: windowed under WINDOW_SHARE_MAX of global) and
+    under the profiler (one launch), beside the plain form
+    of the same function (``sdpa_local_chunked_plain``;
+    ``sdpa_q_chunked_plain``, 2,048 queries a chunk), the bounds, and
+    ``F.scaled_dot_product_attention`` on broadcast K/V (with the band as
+    an explicit mask for the windowed row; never called by the port)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention
+    dev = torch.device("cuda")
+    B, H, KV, S, D = FLASH_GEMMA3
+    W = GEMMA3_WINDOW
+    (q, k, v), (qt, kt, vt) = _gemma3_flash_inputs()
+    ms = _gemma3_flash_ms(qt, kt, vt)
+    rows = {}
+    for name, window in (("windowed", W), ("global", None)):
+        rec = {"shape": [B, H, KV, S, D], "window": window}
+
+        def launch():
+            return ops.flash_attention(qt, kt, vt, causal=True,
+                                       window=window)
+        got = launch()
+        rec["ms"] = ms[name]
+        # the profiler's device time of one launch (none where its trace
+        # shows no device event: it has come back empty on that card late
+        # in a long process; the gate reads the CUDA events)
+        prof = _profile(launch)
+        rec["profiler_device_ms"] = prof["device_ms"] or None
+        rec["profiler_kernels"] = prof["top"][:2]
+        if window is None:
+            rec["plain_ms"] = cuda_ms(lambda: attention.sdpa_q_chunked_plain(
+                q, k, v, causal=True, q_chunk=GEMMA3_TAIL), 1)
+            pairs = S * (S + 1) // 2
+        else:
+            rec["plain_ms"] = cuda_ms(
+                lambda: attention.sdpa_local_chunked_plain(q, k, v,
+                                                           window=W), 1)
+            pairs = W * (W + 1) // 2 + (S - W) * W
+        torch.cuda.empty_cache()
+        qc = qt.contiguous()
+        kb, vb = (t.repeat_interleave(H // KV, dim=1).contiguous()
+                  for t in (kt, vt))
+        band = None if window is None else _window_band(S, W, dev)
+
+        def library():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qc, kb, vb, attn_mask=band, is_causal=band is None)
+        rec["library_ms"] = cuda_ms(library, 5, 1)
+        rec["library_max_abs_diff"] = float(
+            (library().float() - got.float()).abs().max())
+        del qc, kb, vb, band, got
+        torch.cuda.empty_cache()
+        flops = 4.0 * B * H * D * pairs
+        rec.update(pairs=pairs, tflops=flops / rec["ms"] / 1e9,
+                   **_bound(2.0 * (2 * B * H * S * D + 2 * B * KV * S * D),
+                            flops, BF16_FLOPS))
+        rows[name] = rec
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    share = rows["windowed"]["ms"] / rows["global"]["ms"]
+    rows["windowed_over_global"] = share
+    rows["windowed_over_global_pairs"] = (rows["windowed"]["pairs"]
+                                          / rows["global"]["pairs"])
+    require(share < WINDOW_SHARE_MAX,
+            f"serve_gemma3: a windowed launch takes {share:.3f} of a global "
+            f"one's device time, want under {WINDOW_SHARE_MAX}: the kernel "
+            "does not skip the tiles outside the band")
+    return rows
+
+
+def phase_serve_gemma3():
+    """gemma3-4b at full width and depth in bf16 on the card, weights drawn
+    from a seeded generator: 29 local layers (window 1,024) and 5 global
+    ones, head dim 256 over 8 heads and 4 kv heads. The main path, with the
+    launch counts set to 0 just before it and read just after: prefill of
+    1 x 32,768 tokens twice (a local layer's attention is
+    ``sdpa_local_chunked``, a global one's ``sdpa``: one flash_attention
+    launch each, all on the wgmma route), then SERVE_B requests through the
+    KV cache, PROMPT tokens teacher-forced and NEW_TOKENS greedy.
+
+    Then the checks, whose launches are counted apart. (1) Each prefill
+    layer's attention on its own bf16 q, k, v against the plain form in
+    float32 on them, row by row (FLASH_ROW_REL, and twice the bf16 plain
+    form's error): a local layer against ``sdpa_local_chunked_plain``, a
+    global one on its last GEMMA3_TAIL query rows against ``sdpa`` with
+    ``q_offset``. (2) The first local layer fed the same input (the
+    embedded GEMMA3_ROUTES_S tokens) by the prefill route (the kernel's
+    window) and the decode route (plain, through the cache, where the
+    window masks keys from step 1,024 on): float32 within LAYER_REL_F32,
+    bf16 within twice the plain route's error. (3) The prompt's forward
+    against its teacher-forced decode at position 0: bf16 within three
+    times the bf16-vs-float32 spread there (granite's rule, measured in
+    this run), float32 within POS0_REL_F32 of the logits' scale.
+    Then flash_attention at the prefill's shapes (``_gemma3_flash_rows``):
+    a windowed launch must take under WINDOW_SHARE_MAX of a global one.
+    Returns the main path's launch and route counts and those rows."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.inputs import concrete_batch
+    from repro_torch.models import attention
+    from repro_torch.models.layers import embed
+    from repro_torch.models.transformer import (count_params, decode_step,
+                                                init_cache, init_model)
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("gemma3-4b")
+    require(cfg.n_layers == 34 and cfg.d_model == 2560
+            and (GEMMA3_PREFILL_B, cfg.n_heads, cfg.n_kv_heads,
+                 GEMMA3_PREFILL_S, cfg.head_dim_) == FLASH_GEMMA3
+            and cfg.window_pattern[0] == GEMMA3_WINDOW,
+            "serve_gemma3: not gemma3-4b's full width and depth")
+    model = init_model(cfg, seed=0, dtype=torch.bfloat16)
+    sync()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    require(n_params == count_params(cfg) == GEMMA3_PARAMS,
+            f"serve_gemma3: {n_params} parameters, want {GEMMA3_PARAMS}")
+    windows = [blk.mixer.window for blk in model.layers]
+    n_local = sum(w is not None for w in windows)
+    tokens = concrete_batch(cfg, GEMMA3_PREFILL_B, GEMMA3_PREFILL_S,
+                            seed=0)["tokens"]
+    prompt = concrete_batch(cfg, SERVE_B, PROMPT, seed=1)["tokens"]
+
+    # ---- the main path: counts from 0 just before it, read just after
+    ops.reset_launch_counts()
+    main = _lm_main_path(model, cfg, tokens, prompt, NEW_TOKENS, prefills=2)
+    main_counts = ops.launch_counts()
+    main_routes = ops.route_counts()
+    main_windows = ops.window_counts()
+    # ---- end of the main path
+    peak = torch.cuda.max_memory_allocated()
+    require(n_local == 29 and main_routes["flash_attention"] == {
+        "fma": 0, "mma": 0, "wgmma": 2 * cfg.n_layers},
+        f"serve_gemma3: {n_local} local layers; the prefills' attention took "
+        f"routes {main_routes['flash_attention']}, want wgmma for all 68")
+    per_prefill = {"windowed": n_local, "global": cfg.n_layers - n_local}
+    require(main["prefill_launches_by_kind"] == [per_prefill] * 2
+            and main_windows == {key: 2 * n for key, n in per_prefill.items()},
+            f"serve_gemma3: the prefills made "
+            f"{main['prefill_launches_by_kind']} launches, want 29 windowed "
+            "and 5 global each")
+    ops.reset_launch_counts()
+
+    # (1) every prefill layer's attention on its own inputs
+    def check(got, q, k, v, causal, window):
+        qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
+        out = got.transpose(1, 2)
+        if window is not None:
+            want = attention.sdpa_local_chunked_plain(
+                qs.float(), ks.float(), vs.float(), window=window)
+            plain = attention.sdpa_local_chunked_plain(qs, ks, vs,
+                                                       window=window)
+        else:
+            off = qs.shape[1] - GEMMA3_TAIL
+            want = attention.sdpa(qs[:, off:].float(), ks.float(),
+                                  vs.float(), causal=True, q_offset=off)
+            plain = attention.sdpa(qs[:, off:], ks, vs, causal=True,
+                                   q_offset=off)
+            out = out[:, off:]
+        return {"window": window, "causal": causal,
+                "row_rel_err": _row_rel(out, want),
+                "plain_row_rel_err": _row_rel(plain, want),
+                "max_abs_err": float((out.float() - want).abs().max())}
+    attn = _checked_prefill(model, tokens, check)
+    torch.cuda.empty_cache()
+
+    # (2) the first local layer through both routes, past the window
+    layer = windows.index(cfg.window_pattern[0])
+    routes_tokens = concrete_batch(cfg, 1, GEMMA3_ROUTES_S,
+                                   seed=2)["tokens"]
+    with torch.inference_mode():
+        x = embed(model.embed, routes_tokens)
+    block = model.layers[layer]
+    local = _layer_routes(block, x, (
+        1, GEMMA3_ROUTES_S, cfg.n_kv_heads, cfg.head_dim_))
+    local["layer"] = layer
+    with torch.inference_mode():
+        h = block.ln1(x)
+        pos = torch.arange(GEMMA3_ROUTES_S, device=x.device)[None]
+        banded, _ = block.mixer(h, pos)
+        unbanded, _ = attention.gqa_apply(block.mixer, h, pos, cfg,
+                                          window=None)
+    local["no_window_row_rel"] = _row_rel(unbanded, banded)
+    del x, h, banded, unbanded
+    torch.cuda.empty_cache()
+
+    # (3) position 0 through both routes, bf16 then float32
+    pos0_bf16, full16 = _pos0_routes(model, prompt, main["prompt_logits"])
+    logits_max = float(main["prompt_logits"].float().abs().max())
+    model.float()
+    cache = init_cache(cfg, SERVE_B, PROMPT, torch.float32)
+    first32, cache = decode_step(model, cache, {"tokens": prompt[:, :1],
+                                                "step": 0})
+    full32 = _forward_checked(model, prompt)
+    pos0_f32 = float((full32[:, 0] - first32[:, 0]).abs().max())
+    bf16_spread = float((full16[:, 0].float() - full32[:, 0]).abs().max())
+    del model, cache, full16, full32, first32
+    torch.cuda.empty_cache()
+    flash_rows = _gemma3_flash_rows()
+    rec = {"phase": "serve_gemma3", "arch": cfg.name, "n_params": n_params,
+           "dtype": "bfloat16", "init_s": init_s,
+           "prefill_shape": [GEMMA3_PREFILL_B, GEMMA3_PREFILL_S],
+           "local_layers": n_local, "window": cfg.window_pattern[0],
+           **{key: v for key, v in main.items() if key != "prompt_logits"},
+           "peak_gb": peak / 1e9, "serve_batch": SERVE_B, "prompt": PROMPT,
+           "new_tokens": NEW_TOKENS, "main_path_launches": main_counts,
+           "main_path_routes": main_routes,
+           "main_path_windows": main_windows,
+           "prefill_attention_row_rel_max": max(r["row_rel_err"]
+                                                for r in attn),
+           "prefill_attention": attn, "local_layer_routes": local,
+           "logits_max_abs": logits_max,
+           "pos0_max_abs_diff_bf16": pos0_bf16,
+           "pos0_bf16_vs_f32_spread": bf16_spread,
+           "pos0_max_abs_diff_f32": pos0_f32, "flash": flash_rows,
+           "check_launches": ops.launch_counts(),
+           "seconds": time.perf_counter() - t0}
+    emit(rec)
+    require(len(attn) == cfg.n_layers,
+            f"serve_gemma3: {len(attn)} launches checked, want "
+            f"{cfg.n_layers}")
+    require(all(map(flash_bf16_ok, attn)),
+            "serve_gemma3: a prefill layer's attention is off its plain form "
+            "in float32 by more than FLASH_ROW_REL or twice the bf16 plain "
+            "form's error")
+    require(_layer_routes_ok(local, GEMMA3_LAYER_REL_F32)
+            and local["no_window_row_rel"] > WINDOW_BITES_MIN,
+            f"serve_gemma3: the local layer's two routes differ, or its "
+            f"window does not bite: {local}")
+    require(pos0_bf16 <= 3.0 * bf16_spread
+            and pos0_f32 <= POS0_REL_F32 * max(1.0, logits_max),
+            f"serve_gemma3: the prompt's forward and decode logits differ at "
+            f"position 0 by {pos0_bf16} (bf16; 3 x spread {bf16_spread}) / "
+            f"{pos0_f32} (f32)")
+    return main_counts, main_routes, flash_rows
+
+
+def _cuda_tensors_gb() -> list:
+    """The largest CUDA tensors still referenced, by size (a diagnosis
+    when memory that should be free is not)."""
+    import gc
+    found = []
+    for obj in gc.get_objects():
+        try:
+            if isinstance(obj, torch.Tensor) and obj.is_cuda:
+                found.append((obj.numel() * obj.element_size() / 1e9,
+                              tuple(obj.shape), str(obj.dtype)))
+        except Exception:  # noqa: BLE001 -- objects that refuse inspection
+            continue
+    return sorted(found, reverse=True)[:8]
+
+
+def phase_serve_yi():
+    """yi-34b at full width and depth in bf16 on the card (68.78 GB of
+    weights, the largest dense config that one card holds whole), weights
+    drawn from a seeded generator, after every other phase has released its
+    tensors (under YI_FREE_BEFORE allocated). The main path, with the
+    launch counts set to 0 just before it and read just after: prefill of
+    1 x 2,048 tokens (60 flash_attention launches at head dim 128, all on
+    the wgmma route), then SERVE_B requests of YI_PROMPT tokens
+    teacher-forced and YI_NEW_TOKENS greedy. A float32 copy of the weights
+    (137.6 GB) cannot exist, so the checks are: (1) every prefill layer's
+    attention on its own bf16 q, k, v against the plain version in float32
+    on them (FLASH_ROW_REL, twice the bf16 plain version's error); (2) the
+    first and last layers' attention fed the same input by both routes,
+    each layer's weights alone in float32 (``_layer_routes``); (3) the
+    prompt's forward against its teacher-forced decode at position 0 in
+    bf16 (POS0_ATOL_BF16). Decode is reported beside the step's
+    weight-read bound."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.inputs import concrete_batch
+    from repro_torch.models.layers import embed
+    from repro_torch.models.transformer import count_params, init_model
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    if before >= YI_FREE_BEFORE:
+        raise AssertionError(
+            f"serve_yi: {before / 1e9:.3f} GB allocated before init, want "
+            f"under {YI_FREE_BEFORE / 1e9:.3f}: {_cuda_tensors_gb()}")
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("yi-34b")
+    require(cfg.n_layers == 60 and cfg.d_model == 7168,
+            "serve_yi: not yi-34b's full width and depth")
+    model = init_model(cfg, seed=0, dtype=torch.bfloat16)
+    sync()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    require(n_params == count_params(cfg) == YI_PARAMS,
+            f"serve_yi: {n_params} parameters, want {YI_PARAMS}")
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    tokens = concrete_batch(cfg, YI_PREFILL_B, YI_PREFILL_S,
+                            seed=0)["tokens"]
+    prompt = concrete_batch(cfg, SERVE_B, YI_PROMPT, seed=1)["tokens"]
+
+    # ---- the main path: counts from 0 just before it, read just after
+    ops.reset_launch_counts()
+    main = _lm_main_path(model, cfg, tokens, prompt, YI_NEW_TOKENS,
+                         prefills=1)
+    main_counts = ops.launch_counts()
+    main_routes = ops.route_counts()
+    main_windows = ops.window_counts()
+    # ---- end of the main path
+    peak = torch.cuda.max_memory_allocated()
+    require(main_routes["flash_attention"] == {
+        "fma": 0, "mma": 0, "wgmma": cfg.n_layers}
+        and main_windows == {"windowed": 0, "global": cfg.n_layers},
+        f"serve_yi: the prefill's attention took routes "
+        f"{main_routes['flash_attention']} ({main_windows}), want wgmma and "
+        "global for all 60")
+    ops.reset_launch_counts()
+
+    # (1) every prefill layer's attention on its own inputs
+    attn = _checked_prefill(model, tokens, flash_bf16_errors)
+    torch.cuda.empty_cache()
+
+    # (2) the first and last layers through both routes, on the prompt's
+    # hidden states at their depth
+    kv_shape = (SERVE_B, YI_PROMPT, cfg.n_kv_heads, cfg.head_dim_)
+    pos = torch.arange(YI_PROMPT, device=prompt.device)[None].expand(
+        SERVE_B, YI_PROMPT)
+    layers = []
+    with torch.inference_mode():
+        x = embed(model.embed, prompt)
+        for i, block in enumerate(model.layers):
+            if i in (0, cfg.n_layers - 1):
+                layers.append({"layer": i, **_layer_routes(block, x,
+                                                            kv_shape)})
+            x = block(x, pos)[0]
+    del x
+
+    # (3) position 0 through both routes, bf16
+    pos0_bf16, _ = _pos0_routes(model, prompt, main["prompt_logits"])
+    step_bound_ms = 1e3 * weight_bytes / HBM_BPS
+    rec = {"phase": "serve_yi", "arch": cfg.name, "n_params": n_params,
+           "weight_gb": weight_bytes / 1e9, "allocated_before_gb":
+               before / 1e9, "dtype": "bfloat16", "init_s": init_s,
+           "prefill_shape": [YI_PREFILL_B, YI_PREFILL_S],
+           **{key: v for key, v in main.items() if key != "prompt_logits"},
+           "decode_step_bound_ms": step_bound_ms,
+           "decode_over_bound": main["decode_ms_per_step"] / step_bound_ms,
+           "peak_gb": peak / 1e9,
+           "peak_gb_with_checks": torch.cuda.max_memory_allocated() / 1e9,
+           "serve_batch": SERVE_B, "prompt": YI_PROMPT,
+           "new_tokens": YI_NEW_TOKENS, "main_path_launches": main_counts,
+           "main_path_routes": main_routes,
+           "main_path_windows": main_windows,
+           "prefill_attention_row_rel_max": max(r["row_rel_err"]
+                                                for r in attn),
+           "prefill_attention_plain_row_rel_min": min(
+               r["plain_row_rel_err"] for r in attn),
+           "layers": layers,
+           "logits_max_abs": float(main["prompt_logits"].float().abs()
+                                   .max()),
+           "pos0_max_abs_diff_bf16": pos0_bf16,
+           "check_launches": ops.launch_counts(),
+           "seconds": time.perf_counter() - t0}
+    emit(rec)
+    require(len(attn) == cfg.n_layers and all(map(flash_bf16_ok, attn)),
+            "serve_yi: a prefill layer's attention is off its plain version "
+            "in float32 by more than FLASH_ROW_REL or twice the bf16 plain "
+            "version's error")
+    require(all(map(_layer_routes_ok, layers)),
+            f"serve_yi: a layer's two attention routes differ: {layers}")
+    require(pos0_bf16 <= POS0_ATOL_BF16,
+            f"serve_yi: the prompt's forward and decode logits differ at "
+            f"position 0 by {pos0_bf16} (bf16) > {POS0_ATOL_BF16}")
+    del model, main
+    gc.collect()
     torch.cuda.empty_cache()
     return main_counts, main_routes
 
@@ -4883,8 +5403,10 @@ def _compare_seeding() -> dict:
 def compare_main(argv) -> int:
     """``--compare [--src DIR]``: times of the package under DIR (default
     this checkout's ``src``), so that two trees are timed in one call, in
-    turns: the bf16 mma.sync route at FLASH_D32 and FLASH_D16 beside SDPA's
-    and the bounds (``_time_flash``), and the 20-fold matrix-free row
+    turns: the bf16 mma.sync route at FLASH_D32 and FLASH_D16 and the
+    wgmma route at FLASH_GRANITE beside SDPA's and the bounds
+    (``_time_flash``), and at gemma3's prefill windowed and global
+    (``_gemma3_flash_ms``), and the 20-fold matrix-free row
     (adult n=1000, the selection kernel's main path), three times:
     iterations, solve s and us per longest-lane iteration; the seeding
     kernels (``_compare_seeding``) and one SIR seed of the grid at size
@@ -4894,7 +5416,7 @@ def compare_main(argv) -> int:
     layer at Table 1's sizes (``phase_study_seeds``), the grid at size
     (``phase_grid_size``) and LOO (``phase_loo``), each gated as in the
     full run (``chip_select_split.py --src DIR`` times the selection
-    kernel itself)."""
+    kernel itself). With ``--flash``, the attention times alone."""
     if "--src" in argv:
         sys.path.insert(0, os.path.abspath(argv[argv.index("--src") + 1]))
     from repro_torch.core.cv import run_cv_batched
@@ -4906,7 +5428,11 @@ def compare_main(argv) -> int:
     emit({"phase": "compare_tree", "package": repro_torch.__file__})
     emit({"phase": "compare_flash", **{
         name: _time_flash(shape, check=False)
-        for name, shape in (("d32", FLASH_D32), ("d16", FLASH_D16))}})
+        for name, shape in (("d32", FLASH_D32), ("d16", FLASH_D16),
+                            ("granite", FLASH_GRANITE))},
+        "gemma3": _gemma3_flash_ms(*_gemma3_flash_inputs()[1])})
+    if "--flash" in argv:
+        return 0
     ds = make_dataset("adult", n_override=REFERENCE["adult"]["n"])
     rows = []
     for _ in range(3):
@@ -5018,6 +5544,11 @@ def main() -> int:
     # itself: its checks that follow launch the kernel too
     counts["serve_lm"], routes["serve_lm"] = phase_serve_lm(
         info["flash_attention"]["ms"])
+    # gemma3-4b's sliding-window layers on the kernel; then yi-34b, whose
+    # 68.78 GB of weights need every other phase's tensors gone
+    counts["serve_gemma3"], routes["serve_gemma3"], gemma3_flash = \
+        phase_serve_gemma3()
+    counts["serve_yi"], routes["serve_yi"] = phase_serve_yi()
     emit({"phase": "kernel_counts", **counts})
     emit({"phase": "sir_greedy_events", **sir_events})
     emit({"phase": "top_spill_walks", **top_walks})
@@ -5121,6 +5652,10 @@ def main() -> int:
     require(counts["serve_lm"]["flash_attention"] == 2 * 36,
             "flash_attention was not launched once per prefill layer on the "
             "serving path")
+    for path, want in (("serve_gemma3", 2 * 34), ("serve_yi", 60)):
+        require(counts[path]["flash_attention"] == want,
+                f"flash_attention was launched {counts[path]['flash_attention']}"
+                f" times on {path}, want one per prefill layer ({want})")
 
     # shrinking: compact groups of more than one lane on the per-lane
     # kernels, dense and streaming, at Table 1's sizes; SVC's fit and
@@ -5214,6 +5749,12 @@ def main() -> int:
             kernels[-1]["routes"] = routes[path][name]
         if name == "flash_attention":
             kernels[-1]["mma_route"] = k["mma_route"]
+            kernels[-1]["launches_by_path"] = {
+                p: counts[p][name] for p in ("serve_lm", "serve_gemma3",
+                                             "serve_yi")}
+            kernels[-1]["routes_by_path"] = {
+                p: routes[p][name] for p in ("serve_gemma3", "serve_yi")}
+            kernels[-1]["gemma3"] = gemma3_flash
         if name == "smo_select":
             kernels[-1].update({key: k[key] for key in (
                 "iteration_ms", "ms_cold", "ms_wrapper", "bound_ms_cold")})

@@ -1,6 +1,5 @@
-"""Static analysis of Study plans, before anything runs.
-
-Mirrors the plan half of ``src/repro/analysis/``:
+"""Static analysis: Study plans before anything runs, and lint passes over
+the port's source. Mirrors ``src/repro/analysis/``:
 
 * :mod:`repro_torch.analysis.plan_check` — the pre-execution report on a
   ``Plan``: the distinct launch shapes its schedule can produce
@@ -12,10 +11,24 @@ Mirrors the plan half of ``src/repro/analysis/``:
 * :mod:`repro_torch.analysis.plan_sim` — the static schedule simulator: the
   ``LanePool`` loop replayed over a plan without kernels or solves,
   emitting the live pool's trace events.
+* :mod:`repro_torch.analysis.jit_lint` — AST lint of the port's eager
+  CUDA code: ``timer-no-sync``, and in the bodies that must not sync the
+  host (``SYNC_FREE``) ``host-sync-cast``, ``host-sync-branch`` and
+  ``data-dependent-shape``.
+* :mod:`repro_torch.analysis.kernel_lint` — static checks on the
+  hand-written launches: ``device-contract`` (the wrappers),
+  ``grid-tail``, ``smem-footprint`` and ``acc-dtype`` (``kernels/csrc``,
+  and TF32 in every module).
 * :mod:`repro_torch.analysis.findings` — the shared ``Finding`` /
-  ``Report`` structure.
+  ``Report`` structure, and the committed baseline
+  (``results/lint_baseline_torch.json``) that lets the gate fail on NEW
+  findings only.
+* :mod:`repro_torch.analysis.imports` — the intra-package import graph the
+  lint scope comes from (the LM zoo, which nothing on the SVM paths
+  imports, is left out).
 
-The reference's ``jit_lint``, ``kernel_lint`` and ``imports`` lint JAX and
-Pallas source and have no counterpart here yet.
+``python -m repro_torch.analysis --check`` runs the lint passes and a plan
+smoke against the baseline (``__main__``, the counterpart of
+``scripts/repro_lint.py``).
 """
 from repro_torch.analysis.findings import Finding, Report  # noqa: F401

@@ -6,7 +6,8 @@ dispatch). The port keeps its own copy: it imports nothing of ``repro``.
 
 ``get_config`` serves the architectures whose layer kinds the port has:
 the dense llama-family configs (GQA attention + dense MLP), today
-``granite-8b`` and ``gemma-7b``. Any other architecture of the zoo raises
+``granite-8b``, ``gemma-7b``, ``yi-34b`` and ``gemma3-4b`` (whose 5:1
+local:global layers take the sliding-window form). Any other architecture of the zoo raises
 and names ROADMAP, where its missing layer kinds are queued.
 """
 from __future__ import annotations
@@ -109,8 +110,9 @@ ARCH_IDS = (
     "granite-8b", "gemma-7b", "jamba-v0.1-52b", "seamless-m4t-large-v2",
     "xlstm-125m", "qwen2-vl-2b",
 )
-#: the architectures whose layer kinds the port has (GQA + dense MLP)
-PORTED = ("granite-8b", "gemma-7b")
+#: the architectures whose layer kinds the port has (GQA + dense MLP,
+#: sliding-window layers included)
+PORTED = ("granite-8b", "gemma-7b", "yi-34b", "gemma3-4b")
 
 
 def get_config(arch: str, smoke: bool = False) -> ModelConfig:

@@ -256,6 +256,24 @@ __device__ __forceinline__ float ex2_ftz(float x) {
   return y;
 }
 
+// The offset a tile's p are taken against (p = 2^(x c - mc)): mx c rounded
+// once, by __fmul_rn so that nvcc contracts it into no fma (0 for a row
+// that has seen only masked keys).
+__device__ __forceinline__ float offset(float mx, float c) {
+  return mx == NEG ? 0.0f : __fmul_rn(mx, c);
+}
+
+// The factor a row's running sums take when a tile moves its max from m to
+// mx: 2^(the earlier tiles' offset - this tile's), the difference of the
+// two offsets as rounded, so exactly 1 while the max holds. (2^(m c - mc)
+// by one fma is 2^(m c's rounding residual) there, a factor that
+// compounded tile by tile to 2% over 32k keys of scores in the thousands;
+// and each move of the max carried it.) 0 for a row that had seen only
+// masked keys, whose sums are 0.
+__device__ __forceinline__ float rescale(float m, float mc, float c) {
+  return ex2_ftz(__fmul_rn(m, c) - mc);
+}
+
 // four 8 x 8 bf16 matrices; lane l gives the address of row l % 8 of
 // matrix l / 8
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
@@ -486,8 +504,8 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
       // a row that has seen only masked keys keeps m = NEG and takes p = 0
       // (not 2^(NEG c - NEG c), whose rounding is no small number)
-      const float mc = mx == NEG ? 0.0f : mx * c;
-      const float alpha = ex2_ftz(__fmaf_rn(m[mt][i], c, -mc));
+      const float mc = offset(mx, c);
+      const float alpha = rescale(m[mt][i], mc, c);
 #pragma unroll
       for (int j = 0; j < NS; ++j) {
         float& x0 = s[mt][j][2 * i];
@@ -861,8 +879,8 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[BK / 2],
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
     // a row that has seen only masked keys keeps m = NEG and takes p = 0
     // (not 2^(NEG c - NEG c), whose rounding is no small number)
-    const float mc = mx == NEG ? 0.0f : mx * scale_log2;
-    alpha[i] = ex2_ftz(__fmaf_rn(m[i], scale_log2, -mc));
+    const float mc = offset(mx, scale_log2);
+    alpha[i] = rescale(m[i], mc, scale_log2);
     float psum = 0.0f;
 #pragma unroll
     for (int j = 0; j < BK / 8; ++j)

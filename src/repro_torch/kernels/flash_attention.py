@@ -12,8 +12,9 @@ head h reads kv head ``h // (H // KV)``, so no broadcast copy is made.
 
 Three routes (``route``): bfloat16 at head dims 64, 128 and 256 runs on
 wgmma with TMA-fed tiles; bfloat16 at 16 and 32 on ``mma.sync``; float32
-on FMA. ``flash_attention.launches`` counts every launch and
-``flash_attention.route_launches`` each route's.
+on FMA. ``flash_attention.launches`` counts every launch,
+``flash_attention.route_launches`` each route's and
+``flash_attention.window_launches`` the windowed and the global ones.
 """
 from __future__ import annotations
 
@@ -107,8 +108,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
     _build.check(err, "flash_attention")
     flash_attention.launches += 1
     flash_attention.route_launches[path] += 1
+    flash_attention.window_launches[
+        "global" if window is None else "windowed"] += 1
     return out
 
 
 flash_attention.launches = 0
 flash_attention.route_launches = dict.fromkeys(_SYMBOLS, 0)
+flash_attention.window_launches = {"windowed": 0, "global": 0}

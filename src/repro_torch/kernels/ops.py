@@ -18,13 +18,14 @@ its selection and fused launches to ``smo_select`` and ``fused_smo_step``.
 (the LOO seeders' spills; their fused entries ``avg_spill_loo`` /
 ``top_spill_loo`` count on them) count one per launch.
 ``flash_attention`` counts one per launch (one per prefill attention layer
-on the LM serving path). ``route_counts`` splits the ten kernels that
-have routes: ``rbf_kernel_matrix`` (tensor, the FP64 tensor cores / fma),
-``smo_chunk`` (one_block, the resident kernel / multi_block / cluster /
-one_block_global, the global-state kernel), ``smo_stream_chunk`` (pair /
-persistent: the chunks on each), ``smo_chunk_sources`` and
-``smo_stream_chunk_sources`` (the same routes, over lanes with their own
-operands), ``flash_attention`` (wgmma / mma /
+on the LM serving path), and ``window_counts`` splits its launches into
+windowed (a sliding-window layer's) and global ones. ``route_counts``
+splits the ten kernels that have routes: ``rbf_kernel_matrix`` (tensor,
+the FP64 tensor cores / fma), ``smo_chunk`` (one_block, the resident
+kernel / multi_block / cluster / one_block_global, the global-state
+kernel), ``smo_stream_chunk`` (pair / persistent: the chunks on each),
+``smo_chunk_sources`` and ``smo_stream_chunk_sources`` (the same routes,
+over lanes with their own operands), ``flash_attention`` (wgmma / mma /
 fma), ``ato_system_lanes`` (compact / carried: a ramp's later steps),
 ``ato_apply_lanes`` (split / fused: the ramp's, with the alpha update),
 and ``avg_spill`` and ``top_spill`` (fused: the seeder's prologue, order
@@ -49,7 +50,8 @@ __all__ = ["rbf_kernel_matrix", "smo_f_update", "smo_chunk",
            "fused_smo_step", "flash_attention", "water_fill",
            "sir_greedy", "ato_system_lanes", "ato_apply_lanes", "avg_spill",
            "avg_spill_loo", "top_spill", "top_spill_loo",
-           "launch_counts", "reset_launch_counts", "route_counts"]
+           "launch_counts", "reset_launch_counts", "route_counts",
+           "window_counts"]
 
 #: kernel name -> the wrapper that carries its count
 KERNELS = {"rbf_kernel_matrix": rbf_kernel_matrix,
@@ -91,8 +93,16 @@ def route_counts() -> dict[str, dict[str, int]]:
     return {name: dict(w.route_launches) for name, w in ROUTED.items()}
 
 
+def window_counts() -> dict[str, int]:
+    """{"windowed": ..., "global": ...}: ``flash_attention``'s launches
+    with a window and without one since the last reset."""
+    return dict(flash_attention.window_launches)
+
+
 def reset_launch_counts() -> None:
     for w in KERNELS.values():
         w.launches = 0
     for w in ROUTED.values():
         w.route_launches = dict.fromkeys(w.route_launches, 0)
+    flash_attention.window_launches = dict.fromkeys(
+        flash_attention.window_launches, 0)

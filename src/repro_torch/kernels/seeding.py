@@ -37,8 +37,8 @@ from repro_torch.kernels.ref import (ATO_CARRIED, AtoCarry, AtoSystem,
                                      ato_system_lanes_ref, avg_spill_loo_ref,
                                      avg_spill_ref, loo_order_ref,
                                      loo_start_ref, sir_greedy_ref,
-                                     top_spill_loo_ref, top_spill_ref,
-                                     water_fill_ref)
+                                     sir_lists_ref, top_spill_loo_ref,
+                                     top_spill_ref, water_fill_ref)
 
 _P, _I, _L, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_double
@@ -223,16 +223,17 @@ def sir_greedy(K, y_R, y_T, alpha_R, priority, fallback: str = "random",
 
 def sir_candidate_lists(K, y_R, y_T, L: int = SIR_LIST, R_idx=None,
                         T_idx=None):
-    """The card pass's first phase alone (``ref.sir_lists_ref``): each
-    removed row's top-L same-label candidates, (m, L) int32 padded with
-    ``ref.SIR_NONE``, and its head (m, 2) int32. Card only (checks)."""
-    dev = K.device
-    if dev.type != "cuda":
-        raise ValueError("sir_candidate_lists: the kernel's phase runs on "
-                         "the card only")
-    m, t = K.shape if R_idx is None else (R_idx.shape[0], T_idx.shape[0])
+    """The card pass's first phase alone: each removed row's top-L
+    same-label candidates, (m, L) int32 padded with ``ref.SIR_NONE``, and
+    its head (m, 2) int32. On CPU tensors the plain version,
+    ``ref.sir_lists_ref`` over the (R, T) block."""
     if L not in SIR_LISTS:
         raise ValueError(f"sir_candidate_lists: L {L} not in {SIR_LISTS}")
+    if not _device("sir_candidate_lists", K):
+        K_RT = K if R_idx is None else K[R_idx][:, T_idx]
+        return sir_lists_ref(K_RT, y_R, y_T, L)
+    dev = K.device
+    m, t = K.shape if R_idx is None else (R_idx.shape[0], T_idx.shape[0])
     lists = torch.empty((m, L), dtype=torch.int32, device=dev)
     head = torch.empty((m, 2), dtype=torch.int32, device=dev)
     fn = _build.entry("seeding", "sir_lists_f64", _P, _L, _P, _P, _P, _P,

@@ -718,6 +718,8 @@ def smo_select(X, sq_norms, gamma, y, masks, Cs, tol, it_caps, alphas, fs,
     if X.device.type == "cpu":
         return smo_select_lanes_ref(X, sq_norms, gamma, y, masks, Cs, tol,
                                     it_caps, alphas, fs, n_iter, done)
+    if X.device.type != "cuda":
+        raise ValueError(f"smo_select: unsupported device {X.device}")
     n, d = X.shape
     b = masks.shape[0]
     masks, Cs, it_caps, alphas, fs, n_iter, done = _lane_args(

@@ -456,6 +456,93 @@ def test_cuda_prefill_goes_through_the_kernel(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("route", ["wgmma", "mma"])
+def test_cuda_flash_attention_bf16_running_max_holds(cuda, route):
+    """Every key the same, with scores in the millions (q = k = 254 at D =
+    128): every row's attention is uniform over the keys it sees. The
+    running max holds from the first tile on, so the row's sums must take
+    a factor of exactly 1 a tile; a factor 2^(m c - round(m c)) (0.051 in
+    log2 here) compounded over 32 tiles skewed the weights threefold."""
+    q = torch.full((1, 2, 4096, 128), 254.0, device=cuda,
+                   dtype=torch.bfloat16)
+    k = q[:, :1].clone()
+    v = torch.from_numpy(RNG.normal(size=(1, 1, 4096, 128))).to(
+        cuda, torch.bfloat16)
+    got = ops.flash_attention(q, k, v, _route=route)
+    want = ref.flash_attention_ref(q.float(), k.float(), v.float())
+    assert _row_rel(got, want) <= 0.02
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [128, 256])
+@pytest.mark.parametrize("form,S,kw", [
+    ("local", 1000, {"window": 256}), ("local", 777, {"window": 128}),
+    ("q", 1000, {"causal": True, "q_chunk": 256}),
+    ("q", 777, {"causal": False, "window": 100, "q_chunk": 256}),
+])
+def test_cuda_chunked_attention_is_one_wgmma_launch(cuda, D, form, S, kw):
+    """gemma3's local layers (``sdpa_local_chunked``) and ``attn_q_chunk``
+    (``sdpa_q_chunked``) on the card without a softcap: one
+    flash_attention launch on the wgmma route (ragged S, grouped kv heads
+    read through (B, S, H, D) strides), within the bf16 bar of the plain
+    form run in float32 on the same inputs, row by row."""
+    from repro_torch.models import attention
+    fn, plain = ((attention.sdpa_local_chunked,
+                  attention.sdpa_local_chunked_plain) if form == "local"
+                 else (attention.sdpa_q_chunked,
+                       attention.sdpa_q_chunked_plain))
+    q, k, v = (torch.from_numpy(RNG.normal(size=(2, S, h, D))).to(
+        cuda, torch.bfloat16) for h in (8, 2, 2))
+    kind = "global" if form == "q" and "window" not in kw else "windowed"
+    before = ops.launch_counts()["flash_attention"]
+    wgmma = ops.route_counts()["flash_attention"]["wgmma"]
+    windows = ops.window_counts()
+    got = fn(q, k, v, **kw)
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    assert ops.route_counts()["flash_attention"]["wgmma"] == wgmma + 1
+    assert ops.window_counts() == {**windows, kind: windows[kind] + 1}
+    want = plain(q.float(), k.float(), v.float(), **kw)
+    bf16 = plain(q, k, v, **kw)
+    assert got.shape == (2, S, 8, D) and got.dtype == torch.bfloat16
+    err = _row_rel(got, want)
+    assert err <= 0.02 and err <= 2 * _row_rel(bf16, want)
+
+
+@pytest.mark.cuda
+def test_cuda_chunked_attention_with_a_softcap_runs_the_plain_form(cuda):
+    """The kernel has no softcap: with one, each chunked form makes no
+    launch and is its plain form."""
+    from repro_torch.models import attention
+    q, k, v = (torch.from_numpy(RNG.normal(size=(1, 300, h, 128))).to(
+        cuda, torch.float32) for h in (4, 2, 2))
+    before = ops.launch_counts()["flash_attention"]
+    for fn, plain, kw in (
+            (attention.sdpa_local_chunked,
+             attention.sdpa_local_chunked_plain, {"window": 64}),
+            (attention.sdpa_q_chunked, attention.sdpa_q_chunked_plain,
+             {"q_chunk": 128})):
+        got = fn(q, k, v, softcap=30.0, **kw)
+        assert torch.equal(got, plain(q, k, v, softcap=30.0, **kw))
+    assert ops.launch_counts()["flash_attention"] == before
+
+
+@pytest.mark.cuda
+def test_cuda_gemma3_init_model_allocates_count_params(cuda):
+    """gemma3-4b at full width on the card: the parameters allocated are
+    ``count_params`` (3,879,907,840), in bf16."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import count_params, init_model
+    cfg = get_config("gemma3-4b")
+    model = init_model(cfg, seed=0, dtype=torch.bfloat16)
+    params = list(model.parameters())
+    assert sum(p.numel() for p in params) == count_params(cfg) \
+        == 3_879_907_840
+    assert all(p.is_cuda and p.dtype == torch.bfloat16 for p in params)
+    del model, params
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("B,H,KV,S,T,D,causal,window", [
     (2, 8, 2, 300, 300, 64, True, None), (1, 4, 1, 200, 200, 64, False, 70),
     (2, 8, 2, 300, 300, 128, True, None), (1, 4, 1, 200, 200, 128, False, 70),

@@ -44,7 +44,11 @@ def test_the_walk_sees_the_port():
             "threefry.py", "chip_smo_variants.py", "grid.py", "shrink.py",
             "svc.py", "manager.py", "findings.py", "plan_check.py",
             "plan_sim.py", "protocol.py", "server.py", "client.py",
-            "__main__.py", "chip_cost_model.py"} <= names
+            "__main__.py", "chip_cost_model.py", "imports.py",
+            "jit_lint.py", "kernel_lint.py", "yi_34b.py",
+            "gemma3_4b.py"} <= names
+    analysis = ROOT / "src" / "repro_torch" / "analysis"
+    assert analysis / "__main__.py" in FILES
 
 
 def test_entry_points_default_to_cuda():

@@ -783,6 +783,19 @@ def test_cpu_tensors_count_no_route():
         "top_spill": {"fused": 0, "split": 0}}
 
 
+def test_window_counts_reset_and_skip_the_plain_version():
+    """``window_counts`` splits flash_attention's launches into windowed and
+    global ones: the reset zeroes both, and the plain version on CPU
+    tensors, with a window or without, adds to neither."""
+    ops.flash_attention.window_launches = {"windowed": 3, "global": 2}
+    ops.reset_launch_counts()
+    assert ops.window_counts() == {"windowed": 0, "global": 0}
+    q = torch.from_numpy(RNG.normal(size=(1, 4, 9, 16)))
+    ops.flash_attention(q, q[:, :2], q[:, :2], window=3)
+    ops.flash_attention(q, q[:, :2], q[:, :2])
+    assert ops.window_counts() == {"windowed": 0, "global": 0}
+
+
 @pytest.mark.parametrize("window", [0, -3, 2.5])
 def test_flash_wrapper_rejects_bad_window(window):
     q = torch.zeros((1, 2, 8, 16))
@@ -985,6 +998,35 @@ def test_sir_lists_model_orders_like_argmax():
     assert head[0].tolist() == [6, 2]
     lists, head = ref.sir_lists_ref(K, -y_R, y_T, 1)
     assert lists[0].tolist() == [7] and head[0].tolist() == [1, 1 << 8]
+
+
+def test_sir_candidate_lists_runs_its_plain_version_on_the_cpu():
+    """On CPU tensors the card phase's wrapper is ``sir_lists_ref`` over the
+    (R, T) block, read through the index sets as on the card (it raised
+    before: the contract's plain path on the CPU)."""
+    from repro_torch.kernels.seeding import sir_candidate_lists
+    K = torch.from_numpy(RNG.normal(size=(12, 12)))
+    y = torch.where(torch.arange(12) % 3 == 0, -1.0, 1.0).double()
+    R, T = torch.tensor([0, 4, 7]), torch.tensor([1, 2, 5, 8, 9, 11])
+    lists, head = sir_candidate_lists(K, y[R], y[T], 8, R_idx=R, T_idx=T)
+    want = ref.sir_lists_ref(K[R][:, T], y[R], y[T], 8)
+    assert torch.equal(lists, want[0]) and torch.equal(head, want[1])
+    lists, head = sir_candidate_lists(K[R][:, T], y[R], y[T], 8)
+    assert torch.equal(lists, want[0]) and torch.equal(head, want[1])
+
+
+def test_smo_select_refuses_a_device_other_than_cpu_or_cuda():
+    """A tensor neither on the CPU nor on CUDA raises before any launch
+    (it reached the kernel's entry before)."""
+    n, d = 6, 3
+    meta = torch.device("meta")
+    X = torch.empty((n, d), dtype=torch.float64, device=meta)
+    lane = lambda *shape, dtype=torch.float64: torch.empty(  # noqa: E731
+        shape, dtype=dtype, device=meta)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ops.smo_select(X, lane(n), 0.5, lane(n), lane(1, n, dtype=torch.bool),
+                       [1.0], 1e-3, [10], lane(1, n), lane(1, n),
+                       lane(1, dtype=torch.int64), lane(1, dtype=torch.bool))
 
 
 def test_ato_done_step_is_the_identity():

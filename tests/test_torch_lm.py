@@ -5,8 +5,10 @@ The same numpy inputs (and the reference's own parameters, through
 and their counterparts in ``repro_torch``. The flash-attention wrapper runs
 its plain version on CPU tensors; it is held to the reference's Pallas
 kernel in interpret mode, as the reference's own tests run it, at their
-bars (f32 atol 2e-5, bf16 0.06). Layers: f32 atol 1e-5; whole models
-(SMOKE sizes of granite-8b and gemma-7b): f32 atol 1e-4 on logits of
+bars (f32 atol 2e-5, bf16 0.06). Layers, the sliding-window and q-chunked
+forms included: f32 atol 1e-5; whole models (SMOKE sizes of granite-8b,
+gemma-7b, yi-34b and gemma3-4b, whose local layers take the chunked form
+past 2W = 32 tokens): f32 atol 1e-4 on logits of
 magnitude up to 1, scaled by the logits' largest magnitude above that (see
 ``_assert_logits_close``), and greedy tokens identical. The kernel itself is held to the plain version on the card
 (``test_torch_cuda.py``, ``chip_smoke.py``).
@@ -40,7 +42,7 @@ from repro_torch.models.params import ParamDef, init_params
 from repro_torch.serving import build_serve_step, prefill_logits
 
 RNG = np.random.default_rng(11)
-ARCHS = ("granite-8b", "gemma-7b")
+ARCHS = ("granite-8b", "gemma-7b", "yi-34b", "gemma3-4b")
 B, S = 2, 32
 
 
@@ -48,16 +50,26 @@ def _t(a):
     return torch.from_numpy(np.array(a))
 
 
-def _assert_logits_close(got, want):
+#: the logits' bar a unit of their scale, by arch (default 1e-4): gemma3's
+#: SMOKE attention is sharper still, and its f32 logits sit as far from the
+#: reference's as the reference's own f32 forward sits from its forward
+#: with float64 weights (4.1e-3 on logits up to 39, ~1e-4 of their scale;
+#: ``test_gemma3_f32_gap_is_the_references_own``; ROADMAP Queue 3): 3e-4
+#: holds that spread with room and no more
+LOGITS_REL = {"gemma3-4b": 3e-4}
+
+
+def _assert_logits_close(got, want, arch=None):
     """atol 1e-4 x max(1, max|want|). Under the reference's init the
     attention scores reach O(60) at SMOKE size, so a last-bit difference in
     a projection moves the softmax, and the error reaching the logits
     scales with them: gemma-7b's tied table gives logits up to 35, where
     the reference's own f32 forward differs from its float64 one by 3.8e-4
-    (granite-8b: logits below 1, 5e-6)."""
+    (granite-8b: logits below 1, 5e-6). gemma3-4b: ``LOGITS_REL``."""
     want = np.asarray(want)
-    np.testing.assert_allclose(np.asarray(got), want,
-                               atol=1e-4 * max(1.0, np.abs(want).max()))
+    np.testing.assert_allclose(
+        np.asarray(got), want,
+        atol=LOGITS_REL.get(arch, 1e-4) * max(1.0, np.abs(want).max()))
 
 
 # ------------------------------------------------------- flash attention ----
@@ -165,13 +177,76 @@ def test_sdpa_matches_reference(kw):
     np.testing.assert_allclose(out.numpy(), np.asarray(want), atol=1e-5)
 
 
-def test_chunked_forms_and_mla_raise():
+@pytest.mark.parametrize("S_,W,KV,softcap", [
+    (40, 16, 2, None), (48, 16, 2, None), (48, 16, 8, None),
+    (40, 16, 2, 30.0), (20, 16, 4, None),
+], ids=["ragged", "multiple", "mha", "softcap", "one_chunk_pad"])
+def test_sdpa_local_chunked_matches_reference(S_, W, KV, softcap):
+    """The band over 2W keys, S padded up to a multiple of W (40 and 20 at
+    W = 16), chunk 0 without a predecessor; grouped kv heads (H=8 over KV)
+    and a softcap."""
+    q = RNG.normal(size=(2, S_, 8, 16)).astype(np.float32)
+    k, v = (RNG.normal(size=(2, S_, KV, 16)).astype(np.float32)
+            for _ in range(2))
+    out = attention.sdpa_local_chunked(_t(q), _t(k), _t(v), window=W,
+                                       softcap=softcap)
+    want = ref_attn.sdpa_local_chunked(jnp.asarray(q), jnp.asarray(k),
+                                       jnp.asarray(v), window=W,
+                                       softcap=softcap)
+    assert out.shape == (2, S_, 8, 16)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), atol=1e-5)
+    # the same function as sdpa's causal window (the kernel's mask)
+    full = attention.sdpa(_t(q), _t(k), _t(v), causal=True, window=W,
+                          softcap=softcap)
+    np.testing.assert_allclose(out.numpy(), full.numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("S_,chunk,causal,window,softcap", [
+    (40, 16, True, None, None), (48, 16, False, None, None),
+    (48, 16, True, 10, None), (40, 16, False, 12, None),
+    (40, 16, True, None, 30.0),
+], ids=["ragged_causal", "full", "window", "full_window", "softcap"])
+def test_sdpa_q_chunked_matches_reference(S_, chunk, causal, window,
+                                          softcap):
+    """Chunks of ``q_chunk`` queries with their offsets and ``kv_len=S``;
+    ragged S (40 at 16), grouped kv heads (H=8 over KV=2), a softcap."""
+    q = RNG.normal(size=(2, S_, 8, 16)).astype(np.float32)
+    k, v = (RNG.normal(size=(2, S_, 2, 16)).astype(np.float32)
+            for _ in range(2))
+    kw = dict(causal=causal, window=window, softcap=softcap, q_chunk=chunk)
+    out = attention.sdpa_q_chunked(_t(q), _t(k), _t(v), **kw)
+    want = ref_attn.sdpa_q_chunked(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), **kw)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), atol=1e-5)
+
+
+def test_gqa_apply_routes_gemma3_local_layers_to_the_chunked_form(
+        monkeypatch):
+    """Past 2W tokens a windowed layer takes ``sdpa_local_chunked`` (with
+    the config's softcap), as the reference's ``gqa_apply`` does; at 2W or
+    fewer, and on a global layer, ``sdpa``."""
+    cfg = get_config("gemma3-4b", smoke=True)
+    calls = []
+    real = attention.sdpa_local_chunked
+
+    def spy(*a, **kw):
+        calls.append(kw)
+        return real(*a, **kw)
+    monkeypatch.setattr(attention, "sdpa_local_chunked", spy)
+    p = {name: torch.randn(d.shape, generator=torch.Generator()
+                           .manual_seed(i)) / 8
+         for i, (name, d) in enumerate(attention.gqa_def(cfg).items())}
+    for S_, window, taken in ((40, 16, 1), (32, 16, 0), (40, None, 0)):
+        calls.clear()
+        x = torch.randn(1, S_, cfg.d_model)
+        pos = torch.arange(S_)[None]
+        y, _ = attention.gqa_apply(p, x, pos, cfg, window=window)
+        assert y.shape == (1, S_, cfg.d_model) and len(calls) == taken
+    assert calls == [] or calls[0]["softcap"] is None
+
+
+def test_mla_and_moe_raise():
     cfg = get_config("granite-8b", smoke=True)
-    q = torch.zeros(1, 8, 2, 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        attention.sdpa_q_chunked(q, q, q)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        attention.sdpa_local_chunked(q, q, q, window=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PT.model_params_def(cfg.replace(attn_kind="mla"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -228,7 +303,9 @@ def test_layer_plan_matches_reference():
 
 
 @pytest.mark.parametrize("arch,count", [("granite-8b", 8_254_689_280),
-                                        ("gemma-7b", None)])
+                                        ("gemma-7b", None),
+                                        ("yi-34b", 34_388_917_248),
+                                        ("gemma3-4b", 3_879_907_840)])
 def test_count_params_matches_reference(arch, count):
     """Full widths, from the definitions alone (nothing is allocated)."""
     want = RT.count_params(ref_get_config(arch))
@@ -271,7 +348,7 @@ def test_forward_matches_reference(pair):
     got, extras = PT.forward(model, {"tokens": _t(batch["tokens"])},
                              mode="train")
     assert got.shape == (B, S, cfg.vocab_size)
-    _assert_logits_close(got.numpy(), want)
+    _assert_logits_close(got.numpy(), want, cfg.name)
     assert float(extras["aux_loss"]) == 0.0
 
 
@@ -281,7 +358,7 @@ def test_prefill_logits_matches_reference(pair):
     want = ref_prefill_logits(params, batch, cfg)
     got = prefill_logits(model, {"tokens": _t(batch["tokens"])})
     assert got.shape == (B, 1, cfg.vocab_size)
-    _assert_logits_close(got.numpy(), want)
+    _assert_logits_close(got.numpy(), want, cfg.name)
 
 
 def test_decode_steps_match_reference(pair):
@@ -300,13 +377,16 @@ def test_decode_steps_match_reference(pair):
                                     "step": jnp.asarray(t, jnp.int32)})
         got, cache = PT.decode_step(model, cache, {"tokens": _t(tok),
                                                    "step": t})
-        _assert_logits_close(got.numpy(), want)
+        _assert_logits_close(got.numpy(), want, cfg.name)
     want_cache = cache_from_reference(jax.tree.map(np.asarray, ref_cache),
                                       cfg, device="cpu")
     for a, b in zip(cache["layers"], want_cache["layers"], strict=True):
         for key in ("k", "v"):
-            np.testing.assert_allclose(a[key].numpy(), b[key].numpy(),
-                                       atol=1e-4)
+            want_kv = b[key].numpy()
+            # gemma3: the logits' bar, a unit of the cache's scale
+            atol = LOGITS_REL[cfg.name] * max(1.0, np.abs(want_kv).max()) \
+                if cfg.name in LOGITS_REL else 1e-4
+            np.testing.assert_allclose(a[key].numpy(), want_kv, atol=atol)
 
 
 def test_greedy_serve_tokens_match_reference(pair):
@@ -335,6 +415,55 @@ def test_greedy_serve_tokens_match_reference(pair):
     assert len(got_tokens) == 8
     np.testing.assert_array_equal(np.stack(got_tokens),
                                   np.stack(want_tokens))
+
+
+def test_gemma3_forward_takes_the_local_form_past_2w(monkeypatch):
+    """gemma3-4b at S = 40 (> 2W = 32): its five local layers take the
+    chunked band, padded to 48, the global layer ``sdpa``; the logits are
+    the reference's."""
+    cfg = ref_get_config("gemma3-4b", smoke=True)
+    params = ref_init_params(RT.model_params_def(cfg), jax.random.PRNGKey(1),
+                             jnp.float32)
+    pcfg = get_config("gemma3-4b", smoke=True)
+    model = PT.Transformer(pcfg, model_params_from_reference(
+        jax.tree.map(np.asarray, params), pcfg, device="cpu"))
+    calls = []
+    real = attention.sdpa_local_chunked
+    monkeypatch.setattr(attention, "sdpa_local_chunked",
+                        lambda *a, **kw: calls.append(kw) or real(*a, **kw))
+    batch = ref_concrete_batch(cfg, B, 40, seed=5)
+    want, _ = RT.forward(params, batch, cfg, mode="train")
+    got, _ = PT.forward(model, {"tokens": _t(batch["tokens"])}, mode="train")
+    assert [kw["window"] for kw in calls] == [16] * 5
+    _assert_logits_close(got.numpy(), want, cfg.name)
+
+
+def test_gemma3_f32_gap_is_the_references_own():
+    """gemma3-4b at SMOKE size in float32 (S = 32 and 40): the port's
+    logits differ from the reference's by no more than twice the largest
+    difference between the reference's own forward with float32 weights
+    and with float64 ones (4.1e-3 on logits up to 39):
+    the gap ``LOGITS_REL`` allows is rounding the reference makes too, not
+    a difference of function."""
+    cfg = ref_get_config("gemma3-4b", smoke=True)
+    pcfg = get_config("gemma3-4b", smoke=True)
+    gaps, spreads = [], []
+    ref_forward = jax.jit(partial(RT.forward, cfg=cfg))
+    # float64 is on for every test (tests/conftest.py imports repro.svm)
+    for key in (0,):
+        p32 = ref_init_params(RT.model_params_def(cfg),
+                              jax.random.PRNGKey(key), jnp.float32)
+        p64 = jax.tree.map(lambda a: a.astype(jnp.float64), p32)
+        model = PT.Transformer(pcfg, model_params_from_reference(
+            jax.tree.map(np.asarray, p32), pcfg, device="cpu"))
+        for S_, seed in ((32, 0), (40, 5)):
+            batch = ref_concrete_batch(cfg, B, S_, seed=seed)
+            w32 = np.asarray(ref_forward(p32, batch)[0])
+            w64 = np.asarray(ref_forward(p64, batch)[0])
+            got = PT.forward(model, {"tokens": _t(batch["tokens"])})[0]
+            gaps.append(np.abs(got.numpy() - w32).max())
+            spreads.append(np.abs(w32 - w64).max())
+    assert max(gaps) <= 2 * max(spreads), (gaps, spreads)
 
 
 def test_decode_matches_forward():
