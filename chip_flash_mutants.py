@@ -6,12 +6,12 @@ Builds the kernel from ``src/repro_torch`` as it is and from copies (in a
 temporary directory, never in the repository) with one fault each, on
 each bf16 route: ``l`` or the accumulator not rescaled when the running
 max moves, the window's edge off by one, the softmax scale 1% off. The
-wgmma route (head dims 64, 128, 256) and the mma.sync route (16, 32) get
-the four faults each. Each build runs the bf16 cases of ``chip_smoke.py``
+wgmma route (head dims 64, 128, 256 and MLA's (192, 128)) and the mma.sync
+route (16, 32) get the four faults each. Each build runs the bf16 cases of ``chip_smoke.py``
 (the reference's, FLASH_BF16_CASES, and granite-8b's prefill shape at
 head dims 128, 32 and 16: the mma.sync route's kv tiles are 128 keys, so
 the sweep's short rows see one tile, and its rescaling faults show on the
-long ones) and
+long ones; and MLA's pair, q and k 192 wide and v 128, at 1,000 rows) and
 holds them to the gate ``chip_smoke.py`` uses (``flash_bf16_ok``: row by
 row against the plain version in float32) and to the absolute bars it
 used before (0.06 from the plain version in bf16; 0.02 from the float32
@@ -43,8 +43,8 @@ MUTANTS = {
                                "          o_acc[4 * j + 2 * i + 1] *= 1.0f;"),
     "wgmma_window_off_by_one": ("kpos + window > qpos",
                                 "kpos + window >= qpos"),
-    "wgmma_scale_1pct": ("1.4426950408889634f / sqrtf((float)D)",
-                         "1.01f * 1.4426950408889634f / sqrtf((float)D)"),
+    "wgmma_scale_1pct": ("1.4426950408889634f / sqrtf((float)DQK)",
+                         "1.01f * 1.4426950408889634f / sqrtf((float)DQK)"),
     "mma_l_not_rescaled": ("l[mt][i] = alpha * l[mt][i] + sum;",
                            "l[mt][i] = l[mt][i] + sum;"),
     "mma_acc_not_rescaled": ("acc[mt][j][2 * i] *= alpha;\n"
@@ -67,20 +67,23 @@ sys.path.insert(0, sys.argv[2])
 import chip_smoke as cs
 rng = np.random.default_rng(2)
 rows = []
-for B, H, KV, S, D, causal, window in (((1, 2, 2, 64, 32, True, None),)
+for B, H, KV, S, D, causal, window, *dv in (((1, 2, 2, 64, 32, True, None),)
         + cs.FLASH_BF16_CASES + tuple((*shape, True, None) for shape in (
-            cs.FLASH_GRANITE, cs.FLASH_D32, cs.FLASH_D16))):
-    q, k, v = (torch.as_tensor(rng.normal(size=(B, S, h, D)),
+            cs.FLASH_GRANITE, cs.FLASH_D32, cs.FLASH_D16))
+        + ((1, 8, 8, 1000, 192, True, None, 128),)):
+    Dv = dv[0] if dv else D
+    q, k, v = (torch.as_tensor(rng.normal(size=(B, S, h, d)),
                                dtype=torch.bfloat16, device="cuda"
-                               ).transpose(1, 2) for h in (H, KV, KV))
+                               ).transpose(1, 2)
+               for h, d in ((H, D), (KV, D), (KV, Dv)))
     got = ops.flash_attention(q, k, v, causal=causal, window=window)
     r = cs.flash_bf16_errors(got, q, k, v, causal, window)
     old = (r["max_abs_err"] <= 0.02 if S == cs.FLASH_GRANITE[3]
            else r["max_abs_diff_bf16_plain"] <= 0.06)
     del got, q, k, v
     torch.cuda.empty_cache()
-    rows.append({"case": [B, H, KV, S, D, causal, window],
-                 "route": route(torch.bfloat16, D),
+    rows.append({"case": [B, H, KV, S, D, causal, window, Dv],
+                 "route": route(torch.bfloat16, D, Dv),
                  "gate_passes": cs.flash_bf16_ok(r),
                  "old_bars_pass": old, **r})
 print(json.dumps(rows))

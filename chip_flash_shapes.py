@@ -74,7 +74,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def build_all(tmp: str) -> dict:
-    """One nvcc per build, all started together; {name: (lib, ptxas)}."""
+    """One nvcc per build, all started together; {name: (lib, ptxas,
+    whether its entries take (DQK, DV))}."""
     from repro_torch.kernels import _build
     with open(CU) as fh:
         source = fh.read()
@@ -115,7 +116,9 @@ def build_all(tmp: str) -> dict:
                     and ("ILi32E" in cur or "ILi16E" in cur):
                 lines.append(("D32 " if "ILi32E" in cur else "D16 ")
                              + ln.split(":", 1)[-1].strip())
-        out[name] = (lib, lines)
+        # the C entry takes v's head dim after q's where the source is
+        # built for (DQK, DV) pairs; a parent's may not
+        out[name] = (lib, lines, "int Dv" in srcs[name])
     return out
 
 
@@ -132,11 +135,11 @@ def main() -> int:
            "rounds": ROUNDS, "reps": REPS}
     with tempfile.TemporaryDirectory() as tmp:
         builds = build_all(tmp)
-        fns = {}
-        for name, (lib, ptxas) in builds.items():
+        fns, pairs = {}, {}
+        for name, (lib, ptxas, pairs[name]) in builds.items():
             fn = ctypes.CDLL(lib).flash_attention_bf16
-            fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I,
-                           _I, _P]
+            fn.argtypes = [_P, _P, _P, _P, *[_I] * (7 if pairs[name] else 6),
+                           _P, _I, _I, _P]
             fn.restype = ctypes.c_int
             fns[name] = fn
             rec[f"ptxas_{name}"] = ptxas
@@ -151,15 +154,16 @@ def main() -> int:
             strides = (ctypes.c_longlong * 12)(
                 *(s for t in (q, k, v, out) for s in t.stride()[:3]))
 
-            def run(fn):
+            def run(fn, name):
+                dims = (D, D) if pairs[name] else (D,)
                 err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                         out.data_ptr(), B, H, KV, S, S, D,
+                         out.data_ptr(), B, H, KV, S, S, *dims,
                          ctypes.addressof(strides), 1, 0,
                          torch.cuda.current_stream().cuda_stream)
                 if err:
                     raise RuntimeError(f"CUDA error {err}")
             for name, fn in fns.items():
-                run(fn)
+                run(fn, name)
                 r = cs.flash_bf16_errors(out, q, k, v)
                 rec[f"ok_{label}_{name}"] = cs.flash_bf16_ok(r)
                 rec[f"row_rel_err_{label}_{name}"] = r["row_rel_err"]
@@ -167,7 +171,8 @@ def main() -> int:
             qc = q.contiguous()
             kb, vb = (t.repeat_interleave(H // KV, dim=1).contiguous()
                       for t in (k, v))
-            runs = {name: (lambda fn=fn: run(fn)) for name, fn in fns.items()}
+            runs = {name: (lambda fn=fn, name=name: run(fn, name))
+                    for name, fn in fns.items()}
             runs["sdpa"] = lambda: \
                 torch.nn.functional.scaled_dot_product_attention(
                     qc, kb, vb, is_causal=True)

@@ -48,9 +48,13 @@ to 0 just before it and read just after:
   gemma3-4b likewise (prefill of 1 x 32,768 tokens, its 29 sliding-window
   layers through the kernel's window, its 5 global ones causal, all at
   head dim 256, a windowed launch under a quarter of a global one's time)
-  and, last, yi-34b (68.78 GB of weights on the card, prefill of 1 x
+  then yi-34b (68.78 GB of weights on the card, prefill of 1 x
   2,048 tokens, 4 requests of 16 + 16 tokens, decode beside its
-  weight-read bound).
+  weight-read bound) and, last, deepseek-v2-236b at full width cut to 8
+  layers (58.38 GB: MLA's prefill on the kernel at q/k head dim 192 and v
+  head dim 128, 1 x 4,096 tokens; its absorbed decode over the latent
+  cache; the sort-based MoE of 160 experts; 4 requests of 16 + 16
+  tokens).
 
 Four kernels have routes, and every check and path records the one it
 took (``ops.route_counts``): every float64 ``rbf_kernel_matrix`` runs on
@@ -68,7 +72,7 @@ matrix-free ``smo_stream_chunk`` runs as one persistent cooperative launch
 wherever its plan places the lanes (up to 16), else as a launch pair per
 iteration (the fused step and the selection; the batched path's 20-fold
 row); bf16 ``flash_attention`` runs on wgmma + TMA at head dims 64-256 and
-on ``mma.sync`` below.
+MLA's (192, 128), and on ``mma.sync`` below.
 
 ``smo_step.cu`` is also built with its float64 dot products on the FMA
 pipes (``_build.VARIANTS``); the fused kernel of that build must give the
@@ -3094,13 +3098,17 @@ def _mixer_routes(block, x, kv_shape):
     """One block's attention (its mixer, after its first norm) fed the same
     input ``x`` (B, P, d) by both routes: all P positions at once (prefill;
     through the kernel on the card) and token by token through a fresh KV
-    cache (decode; plain attention). Returns both outputs."""
+    cache (decode; plain attention; MLA's absorbed form). ``kv_shape``: the
+    shape of k and of v, or {cache entry: shape} (MLA's ``c`` and ``kr``).
+    Returns both outputs."""
     B, P = x.shape[:2]
     pos = torch.arange(P, device=x.device)[None].expand(B, P)
     h = block.ln1(x)
     pre, _ = block.mixer(h, pos)
-    cache = {"k": torch.zeros(kv_shape, dtype=x.dtype, device=x.device),
-             "v": torch.zeros(kv_shape, dtype=x.dtype, device=x.device)}
+    shapes = kv_shape if isinstance(kv_shape, dict) \
+        else {"k": kv_shape, "v": kv_shape}
+    cache = {name: torch.zeros(shape, dtype=x.dtype, device=x.device)
+             for name, shape in shapes.items()}
     dec = torch.cat([block.mixer(h[:, t:t + 1], pos[:, t:t + 1], cache=cache,
                                  step=t)[0] for t in range(P)], 1)
     return pre, dec
@@ -3323,6 +3331,45 @@ YI_PROMPT, YI_NEW_TOKENS = 16, 16
 #: the most device memory that may be allocated before yi's weights
 #: (68.78 GB of the card's 80) are drawn
 YI_FREE_BEFORE = 2 ** 30
+#: deepseek-v2-236b at full width, cut to DEEPSEEK_LAYERS layers (1 dense +
+#: 7 MLA + MoE; its 60 are 471 GB in bf16, more than the card's 80): the
+#: parameters of that config (``tests/test_torch_lm.py`` holds the constant
+#: to the reference's count)
+DEEPSEEK_LAYERS = 8
+DEEPSEEK_PARAMS = 29_191_377_920
+#: its prefill; its requests' prompt and new tokens
+DEEPSEEK_PREFILL_B, DEEPSEEK_PREFILL_S = 1, 4096
+DEEPSEEK_PROMPT, DEEPSEEK_NEW_TOKENS = 16, 16
+#: MLA's prefill attention (B, H, KV, S, DQK, DV), bf16, causal
+FLASH_MLA = (1, 128, 128, 4096, 192, 128)
+#: the most device memory that may be allocated before deepseek's weights
+#: (58.38 GB) are drawn
+DEEPSEEK_FREE_BEFORE = 2 ** 30
+#: heads of an MLA prefill layer held to the plain version in float32 at a
+#: time: all 128 at once would be a 8.6 GB score block beside the weights
+MLA_CHECK_HEADS = 16
+#: one MoE layer in bf16 against its weights alone in float32 on the same
+#: bf16 input, row by row over the tokens whose experts and kept slots
+#: agree: the reference's own gap on the CPU at SMOKE size (512 tokens,
+#: seeds 0-2) is 0.0157-0.0161 (bf16's rounding of the expert GEMMs and
+#: their gate); 2.5 times that
+DEEPSEEK_MOE_ROW_REL = 0.04
+#: ... and at least this share of the tokens must agree, so that the check
+#: has rows to hold (the reference's router flips 0-1 of 512 tokens at
+#: SMOKE size; at 160 experts and bf16 logits more may flip: recorded)
+DEEPSEEK_MOE_AGREE_MIN = 0.5
+#: one MLA layer's absorbed decode against its prefill form over the same
+#: cache rows, float32, row by row: the reference's own gap on the CPU at
+#: SMOKE size is 2.1e-6-3.0e-6 (seeds 0-2); full width sums over 80 times
+#: as many terms (kv_lora_rank 512, d 5120), ~9 times the rounding
+DEEPSEEK_MLA_REL_F32 = 1e-4
+#: the (4, 1) forward (one key: the kernel returns v) against decode step 0
+#: of the 4 requests (the absorbed form), bf16, max |diff| over the logits'
+#: largest magnitude: the reference's own gap on the CPU at SMOKE size is
+#: 0.0 (and the port's there too); on the card the two forms take v from
+#: one product and the absorbed context from 128 per-head ones, whose bf16
+#: roundings may differ by an ulp (2^-8); five such ulps of the scale
+DEEPSEEK_POS0_REL = 0.02
 #: the whole model at position 0 in float32 against float32's own error:
 #: ten times granite's measured difference (1e-5 at logits up to 6.6), a
 #: unit of the logits' scale (gemma3's tied table gives logits in the
@@ -3871,6 +3918,336 @@ def phase_serve_yi():
     gc.collect()
     torch.cuda.empty_cache()
     return main_counts, main_routes
+
+
+def _flash_errors_by_heads(got, q, k, v, causal=True, window=None,
+                           heads: int = MLA_CHECK_HEADS) -> dict:
+    """``flash_bf16_errors`` taken ``heads`` heads at a time (q, k, v with
+    one kv head a head, as MLA's): each of its numbers is a maximum over
+    rows, so the maxima over the chunks are the whole tensors' numbers."""
+    recs = [flash_bf16_errors(got[:, h:h + heads], q[:, h:h + heads],
+                              k[:, h:h + heads], v[:, h:h + heads], causal,
+                              window)
+            for h in range(0, q.shape[1], heads)]
+    torch.cuda.empty_cache()
+    return {key: max(r[key] for r in recs) for key in recs[0]}
+
+
+def _sdpa_backends(q, k, v) -> dict:
+    """``F.scaled_dot_product_attention`` (causal) on q, k, v, each of its
+    backends alone: its time, or the reasons it refused (the warnings it
+    gave, less PyTorch's source locations)."""
+    import warnings
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    out = {}
+    for name in ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
+                 "MATH"):
+        backend = getattr(SDPBackend, name, None)
+        if backend is None:
+            out[name] = "not in this torch"
+            continue
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            try:
+                with sdpa_kernel([backend]):
+                    out[name] = {"ms": cuda_ms(
+                        lambda: torch.nn.functional.scaled_dot_product_attention(
+                            q, k, v, is_causal=True), 5, 1)}
+            except RuntimeError as err:
+                why = [str(w.message).split(" (Triggered internally")[0]
+                       for w in caught] or [str(err).splitlines()[0]]
+                out[name] = "refused: " + "; ".join(why)[:600]
+        torch.cuda.empty_cache()
+    return out
+
+
+def _mla_flash_rows() -> dict:
+    """flash_attention at MLA's prefill shape (FLASH_MLA: q and k 192 wide,
+    v 128, causal, read in place from (B, S, H, D) activations): its
+    route (wgmma), its rows against the plain version in float32
+    (``_flash_errors_by_heads``), its time beside the plain version's
+    (bf16), ``F.scaled_dot_product_attention``'s (the default dispatch and
+    each backend alone, or why it refused the unequal head dims) and the
+    bounds: 2 (DQK + DV) FLOPs a visible (query, key) pair and head against
+    q, k, v and o once."""
+    from repro_torch.kernels import ops, ref
+    dev = torch.device("cuda")
+    B, H, KV, S, D, Dv = FLASH_MLA
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    q, k, v = (torch.randn((B, S, h, d), generator=gen, device=dev,
+                           dtype=torch.bfloat16).transpose(1, 2)
+               for h, d in ((H, D), (KV, D), (KV, Dv)))
+    before = ops.route_counts()["flash_attention"]
+    got = ops.flash_attention(q, k, v)
+    took = _route_taken(before, ops.route_counts()["flash_attention"])
+    rec = {"shape": list(FLASH_MLA), "causal": True, "route": took,
+           **_flash_errors_by_heads(got, q, k, v)}
+    require(took == "wgmma" and flash_bf16_ok(rec),
+            f"flash_attention at MLA's shape: route {took}, {rec}")
+    rec["ms"] = ms = cuda_ms(lambda: ops.flash_attention(q, k, v), 20, 3)
+    del got
+    torch.cuda.empty_cache()
+    rec["plain_ms"] = cuda_ms(lambda: ref.flash_attention_ref(q, k, v), 2)
+    torch.cuda.empty_cache()
+    qc, kc, vc = (t.contiguous() for t in (q, k, v))
+    rec["sdpa_backends"] = _sdpa_backends(qc, kc, vc)
+    try:
+        rec["library_ms"] = cuda_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qc, kc, vc, is_causal=True), 20, 3)
+    except RuntimeError as err:
+        rec["library_ms"] = None
+        rec["library_refused"] = str(err).splitlines()[0][:300]
+    del q, k, v, qc, kc, vc
+    torch.cuda.empty_cache()
+    pairs = S * (S + 1) // 2          # (query, visible key) pairs
+    flops = 2.0 * B * H * (D + Dv) * pairs
+    nbytes = 2.0 * (B * H * S * D + B * KV * S * (D + Dv) + B * H * S * Dv)
+    rec.update(tflops=flops / ms / 1e9,
+               flop_bound_ms=1e3 * flops / BF16_FLOPS,
+               byte_bound_ms=1e3 * nbytes / HBM_BPS,
+               exp_bound_ms=exp_bound_ms(B * H * pairs),
+               **_bound(nbytes, flops, BF16_FLOPS))
+    return rec
+
+
+def _f32_tree(module) -> dict:
+    """A ParamModule's parameters as a nested dict of float32 copies."""
+    tree = {name: _f32_tree(m) for name, m in module.named_children()}
+    tree.update({name: p.float()
+                 for name, p in module.named_parameters(recurse=False)})
+    return tree
+
+
+def _kept_experts(e, n_experts: int, cap: int):
+    """Each token's experts with the ones whose slot dropped as -1,
+    sorted: (N, k)."""
+    from repro_torch.models import moe
+    order, _, _, _, keep = moe._dispatch(e, n_experts, cap)
+    kept = torch.empty_like(keep)
+    kept[order] = keep
+    return torch.sort(torch.where(kept.reshape(e.shape), e, -1), 1).values
+
+
+def _moe_layer_check(model, cfg, tokens) -> dict:
+    """Layer 1's MoE (the first) on the prefill's hidden states at its
+    depth, in bf16 and with its weights alone in float32 on the same bf16
+    input: how many tokens' top-k expert sets differ, how many slots
+    drop in each, and the output row by row over the tokens whose experts
+    and kept slots agree (DEEPSEEK_MOE_ROW_REL)."""
+    from repro_torch.models import moe
+    from repro_torch.models.layers import embed
+    blk = model.layers[1]
+    require(hasattr(blk, "moe"), "serve_deepseek: layer 1 has no MoE")
+    with torch.inference_mode():
+        B, S = tokens.shape
+        pos = torch.arange(S, device=tokens.device)[None].expand(B, S)
+        x = model.layers[0](embed(model.embed, tokens), pos)[0]
+        x = x + blk.mixer(blk.ln1(x), pos)[0]
+        h = blk.ln2(x)
+        del x
+        y16, aux16 = blk.moe(h)
+        p32 = _f32_tree(blk.moe)
+        y32, aux32 = moe.moe_apply(p32, h.float(), cfg, act=cfg.act)
+        N = B * S
+        cap = moe.capacity(cfg, N)
+        _, e16, _ = moe._route(blk.moe, h.reshape(N, -1), cfg)
+        _, e32, _ = moe._route(p32, h.float().reshape(N, -1), cfg)
+        del p32
+        same_experts = (torch.sort(e16, 1).values
+                        == torch.sort(e32, 1).values).all(1)
+        k16 = _kept_experts(e16, cfg.n_experts, cap)
+        k32 = _kept_experts(e32, cfg.n_experts, cap)
+        agree = same_experts & (k16 == k32).all(1)
+        n_agree = int(agree.sum())
+        rec = {"tokens": N, "capacity": cap,
+               "tokens_whose_experts_differ": int((~same_experts).sum()),
+               "tokens_agreeing": n_agree,
+               "dropped_slots_bf16": int((k16 < 0).sum()),
+               "dropped_slots_f32": int((k32 < 0).sum()),
+               "row_rel_agreeing": _row_rel(y16.reshape(N, -1)[agree],
+                                            y32.reshape(N, -1)[agree])
+               if n_agree else float("nan"),
+               "row_rel_all": _row_rel(y16.reshape(N, -1),
+                                       y32.reshape(N, -1)),
+               "aux_bf16": float(aux16), "aux_f32": float(aux32)}
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _attention_only(block):
+    """A module of the block's first norm and mixer alone (what
+    ``_layer_routes`` copies to float32; an MoE block's experts stay
+    out)."""
+    att = torch.nn.Module()
+    att.ln1, att.mixer = block.ln1, block.mixer
+    return att
+
+
+def phase_serve_deepseek():
+    """deepseek-v2-236b at full width in bf16 on the card, cut to
+    DEEPSEEK_LAYERS layers (1 dense + 7 MLA + MoE, 58.38 GB: its 60 layers
+    are 471 GB), weights drawn from a seeded generator, after every other
+    phase has released its tensors (under DEEPSEEK_FREE_BEFORE allocated).
+    First, before the weights, flash_attention at MLA's prefill shape
+    (``_mla_flash_rows``: times beside the bounds, the plain version and
+    SDPA). The main path, with the launch counts set to 0 just before it
+    and read just after: prefill of 1 x 4,096 tokens (8 flash_attention
+    launches at (192, 128), all on the wgmma route, all global), then
+    SERVE_B requests of DEEPSEEK_PROMPT tokens teacher-forced through the
+    latent cache (MLA's absorbed decode) and DEEPSEEK_NEW_TOKENS greedy.
+    A float32 copy of the model (117 GB) cannot exist, so the checks are:
+    (1) every prefill layer's attention on its own bf16 q, k, v against
+    the plain version in float32 (FLASH_ROW_REL, twice the bf16 plain
+    version's error); (2) one MoE layer in bf16 against its weights alone
+    in float32 on the same input (``_moe_layer_check``); (3) the prompt's
+    first token through the forward ((4, 1): the MoE's capacity is set by
+    the same 4 tokens) against decode step 0, bf16 (DEEPSEEK_POS0_REL of
+    the logits' scale); (4) the last layer's attention fed the prompt's
+    hidden states by the prefill form and by the absorbed decode step by
+    step over the same cache rows, its weights alone in float32
+    (DEEPSEEK_MLA_REL_F32; bf16 recorded). Decode beside the step's
+    weight-read bound."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.inputs import concrete_batch
+    from repro_torch.models.layers import embed
+    from repro_torch.models.transformer import (count_params, forward,
+                                                init_model)
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    if before >= DEEPSEEK_FREE_BEFORE:
+        raise AssertionError(
+            f"serve_deepseek: {before / 1e9:.3f} GB allocated before init, "
+            f"want under {DEEPSEEK_FREE_BEFORE / 1e9:.3f}: "
+            f"{_cuda_tensors_gb()}")
+    flash_rec = _mla_flash_rows()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    full = get_config("deepseek-v2-236b")
+    cfg = full.replace(n_layers=DEEPSEEK_LAYERS)
+    require(full.n_layers == 60 and cfg.d_model == 5120
+            and cfg.n_experts == 160 and cfg.top_k == 6
+            and (DEEPSEEK_PREFILL_B, cfg.n_heads, cfg.n_heads,
+                 DEEPSEEK_PREFILL_S, cfg.qk_nope_dim + cfg.qk_rope_dim,
+                 cfg.v_head_dim) == FLASH_MLA,
+            "serve_deepseek: not deepseek-v2-236b's full width")
+    t_init = time.perf_counter()
+    model = init_model(cfg, seed=0, dtype=torch.bfloat16)
+    sync()
+    init_s = time.perf_counter() - t_init
+    n_params = sum(p.numel() for p in model.parameters())
+    require(n_params == count_params(cfg) == DEEPSEEK_PARAMS,
+            f"serve_deepseek: {n_params} parameters, want {DEEPSEEK_PARAMS}")
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    tokens = concrete_batch(cfg, DEEPSEEK_PREFILL_B, DEEPSEEK_PREFILL_S,
+                            seed=0)["tokens"]
+    prompt = concrete_batch(cfg, SERVE_B, DEEPSEEK_PROMPT, seed=1)["tokens"]
+    # one prefill before the counted path, so that its time is a warm one
+    # (the first call's GEMM plans and allocations: 0.70 s against ~0.2)
+    with torch.inference_mode():
+        forward(model, {"tokens": tokens}, mode="prefill")
+    sync()
+
+    # ---- the main path: counts from 0 just before it, read just after
+    ops.reset_launch_counts()
+    main = _lm_main_path(model, cfg, tokens, prompt, DEEPSEEK_NEW_TOKENS,
+                         prefills=1)
+    main_counts = ops.launch_counts()
+    main_routes = ops.route_counts()
+    main_windows = ops.window_counts()
+    # ---- end of the main path
+    peak = torch.cuda.max_memory_allocated()
+    require(main_routes["flash_attention"] == {
+        "fma": 0, "mma": 0, "wgmma": cfg.n_layers}
+        and main_windows == {"windowed": 0, "global": cfg.n_layers},
+        f"serve_deepseek: the prefill's attention took routes "
+        f"{main_routes['flash_attention']} ({main_windows}), want wgmma and "
+        f"global for all {cfg.n_layers}")
+    ops.reset_launch_counts()
+
+    # (1) every prefill layer's attention on its own inputs, at (192, 128)
+    attn = _checked_prefill(
+        model, tokens, lambda got, q, k, v, causal, window: {
+            "dims": [q.shape[-1], v.shape[-1]],
+            **_flash_errors_by_heads(got, q, k, v, causal, window)})
+    torch.cuda.empty_cache()
+
+    # (2) the first MoE layer, bf16 against its weights in float32
+    moe_rec = _moe_layer_check(model, cfg, tokens)
+
+    # (3) the prompt's first token: a (4, 1) forward against decode step 0
+    with torch.inference_mode():
+        fwd, _ = forward(model, {"tokens": prompt[:, :1]})
+    dec0 = main["prompt_logits"][:, 0].float()
+    pos0_rel = float((fwd[:, 0].float() - dec0).abs().max()
+                     / dec0.abs().max())
+
+    # (4) the last layer's attention by both forms on the prompt's hidden
+    # states at its depth
+    last = cfg.n_layers - 1
+    pos = torch.arange(DEEPSEEK_PROMPT, device=prompt.device)[None].expand(
+        SERVE_B, DEEPSEEK_PROMPT)
+    with torch.inference_mode():
+        x = embed(model.embed, prompt)
+        for block in model.layers[:last]:
+            x = block(x, pos)[0]
+        mla = _layer_routes(_attention_only(model.layers[last]), x, {
+            "c": (SERVE_B, DEEPSEEK_PROMPT, cfg.kv_lora_rank),
+            "kr": (SERVE_B, DEEPSEEK_PROMPT, cfg.qk_rope_dim)})
+    del x
+    step_bound_ms = 1e3 * weight_bytes / HBM_BPS
+    rec = {"phase": "serve_deepseek", "arch": cfg.name,
+           "n_layers": cfg.n_layers, "n_layers_published": full.n_layers,
+           "n_params": n_params, "weight_gb": weight_bytes / 1e9,
+           "allocated_before_gb": before / 1e9, "dtype": "bfloat16",
+           "init_s": init_s,
+           "prefill_shape": [DEEPSEEK_PREFILL_B, DEEPSEEK_PREFILL_S],
+           **{key: v for key, v in main.items() if key != "prompt_logits"},
+           "decode_step_bound_ms": step_bound_ms,
+           "decode_over_bound": main["decode_ms_per_step"] / step_bound_ms,
+           "peak_gb": peak / 1e9,
+           "peak_gb_with_checks": torch.cuda.max_memory_allocated() / 1e9,
+           "serve_batch": SERVE_B, "prompt": DEEPSEEK_PROMPT,
+           "new_tokens": DEEPSEEK_NEW_TOKENS,
+           "main_path_launches": main_counts,
+           "main_path_routes": main_routes,
+           "main_path_windows": main_windows,
+           "prefill_attention_row_rel_max": max(r["row_rel_err"]
+                                                for r in attn),
+           "prefill_attention_plain_row_rel_min": min(
+               r["plain_row_rel_err"] for r in attn),
+           "moe_layer": moe_rec, "mla_layer": {"layer": last, **mla},
+           "logits_max_abs": float(dec0.abs().max()),
+           "pos0_rel_diff_bf16": pos0_rel, "mla_flash": flash_rec,
+           "check_launches": ops.launch_counts(),
+           "seconds": time.perf_counter() - t0}
+    emit(rec)
+    require(len(attn) == cfg.n_layers and all(map(flash_bf16_ok, attn))
+            and all(r["dims"] == [192, 128] for r in attn),
+            "serve_deepseek: a prefill layer's attention is off its plain "
+            "version in float32 by more than FLASH_ROW_REL or twice the bf16 "
+            "plain version's error, or not at (192, 128)")
+    require(moe_rec["tokens_agreeing"] >= DEEPSEEK_MOE_AGREE_MIN * moe_rec[
+        "tokens"] and moe_rec["row_rel_agreeing"] <= DEEPSEEK_MOE_ROW_REL,
+            f"serve_deepseek: the MoE layer in bf16 is off its float32 "
+            f"weights: {moe_rec}")
+    require(math.isfinite(pos0_rel) and pos0_rel <= DEEPSEEK_POS0_REL,
+            f"serve_deepseek: the (4, 1) forward and decode step 0 differ "
+            f"by {pos0_rel} of the logits' scale > {DEEPSEEK_POS0_REL}")
+    require(math.isfinite(mla["f32"]) and mla["f32"] <= DEEPSEEK_MLA_REL_F32,
+            f"serve_deepseek: the MLA layer's absorbed decode is off its "
+            f"prefill form in float32: {mla}")
+    del model, main
+    gc.collect()
+    torch.cuda.empty_cache()
+    return main_counts, main_routes, flash_rec
 
 
 # --------------------------------------------------------------------------
@@ -5549,6 +5926,10 @@ def main() -> int:
     counts["serve_gemma3"], routes["serve_gemma3"], gemma3_flash = \
         phase_serve_gemma3()
     counts["serve_yi"], routes["serve_yi"] = phase_serve_yi()
+    # deepseek-v2-236b (58.38 GB at 8 layers): MLA's prefill on the kernel
+    # at (192, 128), its absorbed decode and the MoE
+    counts["serve_deepseek"], routes["serve_deepseek"], mla_flash = \
+        phase_serve_deepseek()
     emit({"phase": "kernel_counts", **counts})
     emit({"phase": "sir_greedy_events", **sir_events})
     emit({"phase": "top_spill_walks", **top_walks})
@@ -5652,7 +6033,8 @@ def main() -> int:
     require(counts["serve_lm"]["flash_attention"] == 2 * 36,
             "flash_attention was not launched once per prefill layer on the "
             "serving path")
-    for path, want in (("serve_gemma3", 2 * 34), ("serve_yi", 60)):
+    for path, want in (("serve_gemma3", 2 * 34), ("serve_yi", 60),
+                       ("serve_deepseek", DEEPSEEK_LAYERS)):
         require(counts[path]["flash_attention"] == want,
                 f"flash_attention was launched {counts[path]['flash_attention']}"
                 f" times on {path}, want one per prefill layer ({want})")
@@ -5751,10 +6133,20 @@ def main() -> int:
             kernels[-1]["mma_route"] = k["mma_route"]
             kernels[-1]["launches_by_path"] = {
                 p: counts[p][name] for p in ("serve_lm", "serve_gemma3",
-                                             "serve_yi")}
+                                             "serve_yi", "serve_deepseek")}
             kernels[-1]["routes_by_path"] = {
-                p: routes[p][name] for p in ("serve_gemma3", "serve_yi")}
+                p: routes[p][name] for p in ("serve_gemma3", "serve_yi",
+                                             "serve_deepseek")}
             kernels[-1]["gemma3"] = gemma3_flash
+            # MLA's pair, (192, 128), on serve_deepseek
+            kernels[-1]["mla"] = {
+                "dims": [FLASH_MLA[4], FLASH_MLA[5]],
+                "launches": counts["serve_deepseek"][name],
+                **{key: mla_flash[key] for key in (
+                    "shape", "route", "ms", "plain_ms", "bound_ms",
+                    "bound_by", "flop_bound_ms", "byte_bound_ms",
+                    "exp_bound_ms", "library_ms", "sdpa_backends",
+                    "row_rel_err", "max_abs_err")}}
         if name == "smo_select":
             kernels[-1].update({key: k[key] for key in (
                 "iteration_ms", "ms_cold", "ms_wrapper", "bound_ms_cold")})

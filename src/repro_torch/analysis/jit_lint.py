@@ -99,6 +99,18 @@ SYNC_FREE = {
                    "on_chunk", "n_iter0")),
         ("solve_batched", ("source", "Cs", "tol", "max_iter", "wss",
                            "chunk_iters", "on_chunk", "n_iter0s")))},
+    # the MoE's dispatch and combine: the capacity comes from shapes
+    **{(f"{PACKAGE}/models/moe.py", name): static for name, static in (
+        ("_route", ("cfg",)),
+        ("_aux_loss", ("cfg",)),
+        ("capacity", ("cfg", "n_tokens")),
+        ("_dispatch", ("n_experts", "cap")),
+        ("_combine", ()),
+        ("moe_apply", ("cfg", "act")),
+        ("_moe_scatter", ("cfg", "act")))},
+    # MLA's prefill and absorbed decode (``step`` is a host int)
+    (f"{PACKAGE}/models/attention.py", "mla_apply"): (
+        "cfg", "step", "window", "causal"),
 }
 
 #: attribute reads that yield host values

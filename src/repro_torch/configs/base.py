@@ -7,8 +7,10 @@ dispatch). The port keeps its own copy: it imports nothing of ``repro``.
 ``get_config`` serves the architectures whose layer kinds the port has:
 the dense llama-family configs (GQA attention + dense MLP), today
 ``granite-8b``, ``gemma-7b``, ``yi-34b`` and ``gemma3-4b`` (whose 5:1
-local:global layers take the sliding-window form). Any other architecture of the zoo raises
-and names ROADMAP, where its missing layer kinds are queued.
+local:global layers take the sliding-window form), and the DeepSeek
+configs ``deepseek-v2-236b`` and ``deepseek-v3-671b`` (MLA attention, the
+sort-based MoE). Any other architecture of the zoo raises and names
+ROADMAP, where its missing layer kinds are queued.
 """
 from __future__ import annotations
 
@@ -111,8 +113,9 @@ ARCH_IDS = (
     "xlstm-125m", "qwen2-vl-2b",
 )
 #: the architectures whose layer kinds the port has (GQA + dense MLP,
-#: sliding-window layers included)
-PORTED = ("granite-8b", "gemma-7b", "yi-34b", "gemma3-4b")
+#: sliding-window layers included; MLA + MoE)
+PORTED = ("granite-8b", "gemma-7b", "yi-34b", "gemma3-4b",
+          "deepseek-v2-236b", "deepseek-v3-671b")
 
 
 def get_config(arch: str, smoke: bool = False) -> ModelConfig:

@@ -76,20 +76,27 @@ def lane_from_reference(spec, device=None) -> LaneSpec:
                     after=spec.after)
 
 
+def _tree(x, to_tensor, i=None):
+    """A nested dict of arrays as one of tensors (each leaf's index ``i``
+    of its leading axis, where given)."""
+    if isinstance(x, dict):
+        return {k: _tree(v, to_tensor, i) for k, v in x.items()}
+    return to_tensor(x if i is None else np.asarray(x)[i])
+
+
 def _unstack(stages, cfg, to_tensor) -> list:
     """The reference's scanned stages (``transformer.py::_stack_defs``: a
     stage repeated r times holds each leaf with a leading (r, ...) axis)
-    as one subtree per layer, in layer order."""
-    def tree(x, i):
-        if isinstance(x, dict):
-            return {k: tree(v, i) for k, v in x.items()}
-        return to_tensor(x if i is None else np.asarray(x)[i])
+    as one subtree per layer, in layer order: a deepseek-v2's repeated
+    [MLA + MoE] stage of 59 layers (3 at SMOKE size) becomes 59 subtrees,
+    the MoE's router and shared experts nested in each."""
     layers = []
     for (pattern, repeat), stage in zip(layer_plan(cfg), stages,
                                         strict=True):
         for i in range(repeat):
             for li in range(len(pattern)):
-                layers.append(tree(stage[li], i if repeat > 1 else None))
+                layers.append(_tree(stage[li], to_tensor,
+                                    i if repeat > 1 else None))
     return layers
 
 
@@ -98,7 +105,9 @@ def model_params_from_reference(params_np, cfg, device=None,
     """The port's parameter tree (``Transformer``'s input) from the
     reference's, given as nested dicts and lists of numpy arrays. Every
     weight keeps the reference's layout (``wq`` (D, H, Dh), ``wo``
-    (H, Dh, D), MLP weights (in, out)); the stages are unstacked."""
+    (H, Dh, D), MLP weights (in, out), MLA's and the experts' as the
+    reference has them); the stages are unstacked, and DeepSeek-V3's
+    ``mtp`` subtree is carried as it is."""
     dev = resolve_device(device)
 
     def t(a):
@@ -108,13 +117,16 @@ def model_params_from_reference(params_np, cfg, device=None,
            "layers": _unstack(params_np["stages"], cfg, t)}
     if "lm_head" in params_np:
         out["lm_head"] = {"table": t(params_np["lm_head"]["table"])}
+    if "mtp" in params_np:
+        out["mtp"] = _tree(params_np["mtp"], t)
     return out
 
 
 def cache_from_reference(cache_np, cfg, device=None,
                          dtype=torch.float32) -> dict:
-    """The port's KV cache (``{"layers": [{"k", "v"}, ...]}``) from the
-    reference's ``init_cache`` tree of numpy arrays."""
+    """The port's KV cache (``{"layers": [{"k", "v"} or, for MLA, {"c",
+    "kr"}, ...]}``) from the reference's ``init_cache`` tree of numpy
+    arrays."""
     dev = resolve_device(device)
 
     def t(a):

@@ -1,7 +1,11 @@
 // Causal / sliding-window flash attention, forward, with grouped kv heads:
 //   o[b, h, s] = sum_t softmax_t(q[b, h, s] . k[b, hk, t] * scale) v[b, hk, t]
 // over the keys t that the mask lets q row s see (t < T; t <= s if causal;
-// t > s - window if windowed), hk = h / (H / KV). float32 and bfloat16.
+// t > s - window if windowed), hk = h / (H / KV), scale = 1 / sqrt(DQK).
+// float32 and bfloat16. q and k have head dim DQK, v and o head dim DV:
+// the pairs built are (D, D) and, for DeepSeek's MLA prefill (q and k are
+// 128 nope + 64 rope columns, v 128), (192, 128) on the wgmma and float32
+// routes.
 //
 // Replaces the Pallas kernel src/repro/kernels/flash_attention.py::
 // flash_attention (_flash_kernel). It computes what that kernel computes,
@@ -15,7 +19,8 @@
 // unrounded.
 //
 // Three routes, picked by the wrapper (kernels/flash_attention.py::route):
-// * bf16, D = 64, 128, 256: FlashAttention-3's shape on wgmma + TMA
+// * bf16, D = 64, 128, 256 and (DQK, DV) = (192, 128): FlashAttention-3's
+//   shape on wgmma + TMA
 //   (namespace wg below): a producer warp keeps a ring of K/V tiles full
 //   through TMA and mbarriers, two consumer warpgroups of 64 q rows each
 //   run S = Q K^T and O += P V on wgmma; 128 q rows per block.
@@ -89,18 +94,27 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src,
   }
 }
 
-template <int D>
+// The FMA route's shared memory at (DQK, DV): the q tile, one K or V tile
+// (pitch of the wider), the probability tile
+template <int DQK, int DV>
+constexpr int f32_smem() {
+  return (int)sizeof(float) *
+         (BQ * (DQK + 1) + BK * ((DQK > DV ? DQK : DV) + 1) + BQ * PP);
+}
+
+template <int DQK, int DV>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o, int H,
                  int G, int S, int Tk, Strides st, float scale, int causal,
                  int window) {
-  constexpr int PQ = D + 1;   // row pitch of the q and k/v tiles (floats)
-  constexpr int DC = D / CG;  // output columns per thread
+  constexpr int PQ = DQK + 1;  // row pitch of the q and K tiles (floats)
+  constexpr int PV = DV + 1;   // row pitch of the V tile
+  constexpr int DC = DV / CG;  // output columns per thread
   extern __shared__ float smem[];
   float* qt = smem;                 // BQ x PQ
-  float* kv = smem + BQ * PQ;       // BK x PQ: the K tile, then the V tile
-  float* pt = kv + BK * PQ;         // BQ x PP: the tile's probabilities
+  float* kv = smem + BQ * PQ;       // the K tile (BK x PQ), then V (BK x PV)
+  float* pt = kv + BK * (PQ > PV ? PQ : PV);  // BQ x PP: probabilities
 
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // longest tiles first
   const int b = blockIdx.y / H, h = blockIdx.y % H, hk = h / G;
@@ -109,7 +123,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* kp = k + b * st.kb + hk * st.kh;
   const float* vp = v + b * st.vb + hk * st.vh;
 
-  load_tile<D>(qt, qp, st.qs, q0, S);
+  load_tile<DQK>(qt, qp, st.qs, q0, S);
 
   float m[RPT], l[RPT], acc[RPT][DC];
 #pragma unroll
@@ -126,7 +140,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int k0 = kv_lo; k0 < kv_hi; k0 += BK) {
     __syncthreads();  // q staged; the last tile's P and V no longer read
-    load_tile<D>(kv, kp, st.ks, k0, Tk);
+    load_tile<DQK>(kv, kp, st.ks, k0, Tk);
     __syncthreads();
 
     float s[RPT][CG];
@@ -135,7 +149,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < CG; ++j) s[r][j] = 0.0f;
 #pragma unroll 4
-    for (int d = 0; d < D; ++d) {
+    for (int d = 0; d < DQK; ++d) {
       float qa[RPT], kb[CG];
 #pragma unroll
       for (int r = 0; r < RPT; ++r) qa[r] = qt[(rg * RPT + r) * PQ + d];
@@ -185,7 +199,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int r = 0; r < RPT; ++r)
 #pragma unroll
       for (int j = 0; j < CG; ++j) pt[(rg * RPT + r) * PP + cg + CG * j] = s[r][j];
-    load_tile<D>(kv, vp, st.vs, k0, Tk);
+    load_tile<DV>(kv, vp, st.vs, k0, Tk);
     __syncthreads();
 
 #pragma unroll 4
@@ -194,7 +208,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int r = 0; r < RPT; ++r) pa[r] = pt[(rg * RPT + r) * PP + t];
 #pragma unroll
-      for (int c = 0; c < DC; ++c) vb[c] = kv[t * PQ + cg + CG * c];
+      for (int c = 0; c < DC; ++c) vb[c] = kv[t * PV + cg + CG * c];
 #pragma unroll
       for (int r = 0; r < RPT; ++r)
 #pragma unroll
@@ -625,17 +639,22 @@ constexpr int NT = 384;      // producer warpgroup + two consumer warpgroups
 constexpr int BQ = 128;      // q rows per block, 64 per consumer
 constexpr int STAGES = 2;    // K/V ring depth
 
-template <int D>
+// At (DQK, DV) = (192, 128) a stage holds 3 K panels and 2 V panels:
+// q 48 KB, K 2 x 48 KB, V 2 x 32 KB, 209 KB in all at 128 keys a tile.
+template <int DQK, int DV>
 struct Cfg {
-  static constexpr int BK = D == 256 ? 64 : 128;   // keys per kv tile
-  static constexpr int PANELS = D / 64;            // 128-byte columns
-  static constexpr int Q_PANEL = BQ * 128;         // bytes of a q panel
-  static constexpr int KV_PANEL = BK * 128;        // bytes of a k/v panel
-  static constexpr int Q_BYTES = PANELS * Q_PANEL;
-  static constexpr int KV_BYTES = PANELS * KV_PANEL;
+  static constexpr int BK = DQK == 256 ? 64 : 128;  // keys per kv tile
+  static constexpr int QK_PANELS = DQK / 64;        // 128-byte columns of q, k
+  static constexpr int V_PANELS = DV / 64;          // ... and of v
+  static constexpr int Q_PANEL = BQ * 128;          // bytes of a q panel
+  static constexpr int KV_PANEL = BK * 128;         // bytes of a k/v panel
+  static constexpr int Q_BYTES = QK_PANELS * Q_PANEL;
+  static constexpr int K_BYTES = QK_PANELS * KV_PANEL;   // one K stage
+  static constexpr int V_BYTES = V_PANELS * KV_PANEL;    // one V stage
   // 1024 bytes of slack align the tiles to the swizzle's 1024-byte atom
-  static constexpr int SMEM = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES +
+  static constexpr int SMEM = 1024 + Q_BYTES + STAGES * (K_BYTES + V_BYTES) +
                               8 * (1 + 2 * STAGES);
+  static_assert(SMEM <= 232448, "a block takes at most 227 KB");
 };
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
@@ -898,21 +917,21 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[BK / 2],
 }
 
 // s = q k^T for one consumer: raw f32 scores of 64 rows x BK keys from
-// the q panels at qa and the K stage at ka, issued as one wgmma group
-template <int D, int BK>
+// the DQK / 64 q panels at qa and the K stage at ka, issued as one wgmma
+// group
+template <int DQK, int BK>
 __device__ __forceinline__ void issue_qk(float (&sc)[BK / 2], uint32_t qa,
                                          uint32_t ka) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  for (int kk = 0; kk < DQK / 16; ++kk) {
     const uint32_t col = (kk % 4) * 32;   // 16 columns a step
-    wgmma_ss<BK>(sc, desc_sw128(qa + (kk / 4) * Cfg<D>::Q_PANEL + col, 16),
-                 desc_sw128(ka + (kk / 4) * Cfg<D>::KV_PANEL + col, 16),
-                 kk > 0);
+    wgmma_ss<BK>(sc, desc_sw128(qa + (kk / 4) * (BQ * 128) + col, 16),
+                 desc_sw128(ka + (kk / 4) * (BK * 128) + col, 16), kk > 0);
   }
   wg_commit();
 }
 
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(NT, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
@@ -920,14 +939,14 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        bf16* __restrict__ o, int H, int G, int S, int Tk,
                        long long ob, long long oh, long long os,
                        float scale_log2, int causal, int window) {
-  using C = Cfg<D>;
+  using C = Cfg<DQK, DV>;
   constexpr int BK = C::BK;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t sq = (raw + 1023) & ~1023u;          // q panels
   const uint32_t sk = sq + C::Q_BYTES;                 // K stages
-  const uint32_t sv = sk + STAGES * C::KV_BYTES;       // V stages
-  const uint32_t q_full = sv + STAGES * C::KV_BYTES;   // mbarriers
+  const uint32_t sv = sk + STAGES * C::K_BYTES;        // V stages
+  const uint32_t q_full = sv + STAGES * C::V_BYTES;    // mbarriers
   const uint32_t full = q_full + 8, empty = full + 8 * STAGES;
 
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // longest tiles first
@@ -953,17 +972,19 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (threadIdx.x == 0) {
       mbar_expect_tx(q_full, C::Q_BYTES);
-      for (int p = 0; p < C::PANELS; ++p)
+      for (int p = 0; p < C::QK_PANELS; ++p)
         tma_load(sq + p * C::Q_PANEL, &tq, q_full, p * 64, q0, h, b);
       for (int t = 0; t < n_tiles; ++t) {
         const int s = t % STAGES, k0 = kv_lo + t * BK;
         if (t >= STAGES) mbar_wait(empty + 8 * s, (t / STAGES - 1) & 1);
-        mbar_expect_tx(full + 8 * s, 2 * C::KV_BYTES);
-        for (int p = 0; p < C::PANELS; ++p) {
-          const int off = s * C::KV_BYTES + p * C::KV_PANEL;
-          tma_load(sk + off, &tk, full + 8 * s, p * 64, k0, hk, b);
-          tma_load(sv + off, &tv, full + 8 * s, p * 64, k0, hk, b);
-        }
+        // the stage's K panels and V panels complete one phase together
+        mbar_expect_tx(full + 8 * s, C::K_BYTES + C::V_BYTES);
+        for (int p = 0; p < C::QK_PANELS; ++p)
+          tma_load(sk + s * C::K_BYTES + p * C::KV_PANEL, &tk, full + 8 * s,
+                   p * 64, k0, hk, b);
+        for (int p = 0; p < C::V_PANELS; ++p)
+          tma_load(sv + s * C::V_BYTES + p * C::KV_PANEL, &tv, full + 8 * s,
+                   p * 64, k0, hk, b);
       }
     }
   } else {
@@ -978,9 +999,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const int row0 = r_lo + 16 * (tid / 32) + g;   // this thread's rows:
                                                    // row0 and row0 + 8
     const uint32_t qa = sq + 64 * 128 * cw;
-    float o_acc[D / 2], sc[BK / 2];
+    float o_acc[DV / 2], sc[BK / 2];
 #pragma unroll
-    for (int e = 0; e < D / 2; ++e) o_acc[e] = 0.0f;
+    for (int e = 0; e < DV / 2; ++e) o_acc[e] = 0.0f;
     float m[2] = {NEG, NEG}, l_part[2] = {0.0f, 0.0f}, alpha[2];
 
     mbar_wait(q_full, 0);
@@ -990,7 +1011,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int e = 0; e < BK / 2; ++e) sc[e] = 0.0f;
       wg_fence();
-      issue_qk<D, BK>(sc, qa, sk + s * C::KV_BYTES);
+      issue_qk<DQK, BK>(sc, qa, sk + s * C::K_BYTES);
       wg_wait<0>();
       fence_regs(sc);
       softmax_tile<BK>(sc, m, l_part, alpha, kv_lo + t * BK, r_lo, row0,
@@ -998,13 +1019,13 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int i = 0; i < 2; ++i)
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j) {
+        for (int j = 0; j < DV / 8; ++j) {
           o_acc[4 * j + 2 * i] *= alpha[i];
           o_acc[4 * j + 2 * i + 1] *= alpha[i];
         }
 
       // o += p v, p rounded to bf16 in the A fragments, 16 keys a step
-      const uint32_t va = sv + s * C::KV_BYTES;
+      const uint32_t va = sv + s * C::V_BYTES;
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
@@ -1012,7 +1033,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                                 pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]),
                                 pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]),
                                 pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7])};
-        wgmma_rs<D>(o_acc, pa, desc_sw128(va + kk * 16 * 128, C::KV_PANEL));
+        wgmma_rs<DV>(o_acc, pa, desc_sw128(va + kk * 16 * 128, C::KV_PANEL));
       }
       wg_commit();
       wg_wait<0>();
@@ -1030,7 +1051,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       const float den = fmaxf(l, 1e-30f);
       bf16* orow = o + b * ob + h * oh + (long long)row * os;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j)
+      for (int j = 0; j < DV / 8; ++j)
         *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * tq4) = pack_bf16(
             o_acc[4 * j + 2 * i] / den, o_acc[4 * j + 2 * i + 1] / den);
     }
@@ -1088,40 +1109,40 @@ int tensor_map(CUtensorMap* map, const void* ptr, int D, int rows, int heads,
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-template <int D>
+template <int DQK, int DV>
 int launch_bf16_wgmma(const bf16* q, const bf16* k, const bf16* v, bf16* o,
                       int B, int H, int KV, int S, int Tk, const Strides& st,
                       int causal, int window, cudaStream_t stream) {
-  using C = wg::Cfg<D>;
+  using C = wg::Cfg<DQK, DV>;
   CUtensorMap mq, mk, mv;
-  int e = tensor_map(&mq, q, D, S, H, B, st.qs, st.qh, st.qb, wg::BQ);
-  if (!e) e = tensor_map(&mk, k, D, Tk, KV, B, st.ks, st.kh, st.kb, C::BK);
-  if (!e) e = tensor_map(&mv, v, D, Tk, KV, B, st.vs, st.vh, st.vb, C::BK);
+  int e = tensor_map(&mq, q, DQK, S, H, B, st.qs, st.qh, st.qb, wg::BQ);
+  if (!e) e = tensor_map(&mk, k, DQK, Tk, KV, B, st.ks, st.kh, st.kb, C::BK);
+  if (!e) e = tensor_map(&mv, v, DV, Tk, KV, B, st.vs, st.vh, st.vb, C::BK);
   if (e) return e;
   cudaError_t err = cudaFuncSetAttribute(
-      wg::flash_fwd_wgmma_kernel<D>,
+      wg::flash_fwd_wgmma_kernel<DQK, DV>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((S + wg::BQ - 1) / wg::BQ, B * H);
-  const float scale_log2 = 1.4426950408889634f / sqrtf((float)D);
-  wg::flash_fwd_wgmma_kernel<D><<<grid, wg::NT, C::SMEM, stream>>>(
+  const float scale_log2 = 1.4426950408889634f / sqrtf((float)DQK);
+  wg::flash_fwd_wgmma_kernel<DQK, DV><<<grid, wg::NT, C::SMEM, stream>>>(
       mq, mk, mv, o, H, H / KV, S, Tk, st.ob, st.oh, st.os, scale_log2,
       causal, window);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int DQK, int DV>
 int launch_f32(const float* q, const float* k, const float* v, float* o,
                int B, int H, int KV, int S, int Tk, const Strides& st,
                int causal, int window, cudaStream_t stream) {
-  const int smem =
-      (int)sizeof(float) * (BQ * (D + 1) + BK * (D + 1) + BQ * PP);
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  constexpr int smem = f32_smem<DQK, DV>();
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<DQK, DV>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((S + BQ - 1) / BQ, B * H);
-  flash_fwd_kernel<D><<<grid, NT, smem, stream>>>(
-      q, k, v, o, H, H / KV, S, Tk, st, 1.0f / sqrtf((float)D), causal,
+  flash_fwd_kernel<DQK, DV><<<grid, NT, smem, stream>>>(
+      q, k, v, o, H, H / KV, S, Tk, st, 1.0f / sqrtf((float)DQK), causal,
       window);
   return (int)cudaGetLastError();
 }
@@ -1142,23 +1163,34 @@ int launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B,
   return (int)cudaGetLastError();
 }
 
+// The float32 route is built for (D, D) and (192, 128); the mma.sync route
+// for (D, D) only.
 struct F32 {
+  static constexpr bool MLA = true;
   template <int D, typename... A>
-  static int run(A... args) { return launch_f32<D>(args...); }
+  static int run(A... args) { return launch_f32<D, D>(args...); }
+  template <typename... A>
+  static int run_mla(A... args) { return launch_f32<192, 128>(args...); }
 };
 struct BF16 {
+  static constexpr bool MLA = false;
   template <int D, typename... A>
   static int run(A... args) { return launch_bf16<D>(args...); }
 };
 
 template <typename L, typename T>
 int dispatch(const T* q, const T* k, const T* v, T* o, int B, int H, int KV,
-             int S, int Tk, int D, const long long* strides, int causal,
-             int window, cudaStream_t stream) {
+             int S, int Tk, int D, int Dv, const long long* strides,
+             int causal, int window, cudaStream_t stream) {
   if (B <= 0 || S <= 0 || Tk <= 0) return 0;
   const long long* x = strides;
   const Strides st{x[0], x[1], x[2], x[3], x[4],  x[5],
                    x[6], x[7], x[8], x[9], x[10], x[11]};
+  if constexpr (L::MLA) {
+    if (D == 192 && Dv == 128)
+      return L::run_mla(q, k, v, o, B, H, KV, S, Tk, st, causal, window, stream);
+  }
+  if (Dv != D) return (int)cudaErrorInvalidValue;
   switch (D) {
     case 16:
       return L::template run<16>(q, k, v, o, B, H, KV, S, Tk, st, causal, window, stream);
@@ -1178,13 +1210,15 @@ int dispatch(const T* q, const T* k, const T* v, T* o, int B, int H, int KV,
 }  // namespace
 
 // strides: the (b, h, s) element strides of q, k, v, o, in that order.
-// window <= 0: no window. Returns cudaGetLastError() after the launch.
+// D: the head dim of q and k; Dv: that of v and o. window <= 0: no window.
+// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue
+// for a (D, Dv) pair the route is not built for.
 extern "C" int flash_attention_f32(const float* q, const float* k,
                                    const float* v, float* o, int B, int H,
-                                   int KV, int S, int Tk, int D,
+                                   int KV, int S, int Tk, int D, int Dv,
                                    const long long* strides, int causal,
                                    int window, cudaStream_t stream) {
-  return dispatch<F32>(q, k, v, o, B, H, KV, S, Tk, D, strides, causal,
+  return dispatch<F32>(q, k, v, o, B, H, KV, S, Tk, D, Dv, strides, causal,
                        window, stream);
 }
 
@@ -1192,30 +1226,35 @@ extern "C" int flash_attention_bf16(const __nv_bfloat16* q,
                                     const __nv_bfloat16* k,
                                     const __nv_bfloat16* v, __nv_bfloat16* o,
                                     int B, int H, int KV, int S, int Tk, int D,
-                                    const long long* strides, int causal,
-                                    int window, cudaStream_t stream) {
-  return dispatch<BF16>(q, k, v, o, B, H, KV, S, Tk, D, strides, causal,
+                                    int Dv, const long long* strides,
+                                    int causal, int window,
+                                    cudaStream_t stream) {
+  return dispatch<BF16>(q, k, v, o, B, H, KV, S, Tk, D, Dv, strides, causal,
                         window, stream);
 }
 
-// The wgmma route: D = 64, 128 or 256, every (b, h, s) stride a positive
-// multiple of 8 elements (TMA's 16-byte strides) and the bases 16-byte
-// aligned; the wrapper checks both.
+// The wgmma route: (D, Dv) = (64, 64), (128, 128), (256, 256) or
+// (192, 128), every (b, h, s) stride a positive multiple of 8 elements
+// (TMA's 16-byte strides) and the bases 16-byte aligned; the wrapper checks
+// both.
 extern "C" int flash_attention_bf16_wgmma(
     const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
-    __nv_bfloat16* o, int B, int H, int KV, int S, int Tk, int D,
+    __nv_bfloat16* o, int B, int H, int KV, int S, int Tk, int D, int Dv,
     const long long* strides, int causal, int window, cudaStream_t stream) {
   if (B <= 0 || S <= 0 || Tk <= 0) return 0;
   const long long* x = strides;
   const Strides st{x[0], x[1], x[2], x[3], x[4],  x[5],
                    x[6], x[7], x[8], x[9], x[10], x[11]};
+  if (D == 192 && Dv == 128)
+    return launch_bf16_wgmma<192, 128>(q, k, v, o, B, H, KV, S, Tk, st, causal, window, stream);
+  if (Dv != D) return (int)cudaErrorInvalidValue;
   switch (D) {
     case 64:
-      return launch_bf16_wgmma<64>(q, k, v, o, B, H, KV, S, Tk, st, causal, window, stream);
+      return launch_bf16_wgmma<64, 64>(q, k, v, o, B, H, KV, S, Tk, st, causal, window, stream);
     case 128:
-      return launch_bf16_wgmma<128>(q, k, v, o, B, H, KV, S, Tk, st, causal, window, stream);
+      return launch_bf16_wgmma<128, 128>(q, k, v, o, B, H, KV, S, Tk, st, causal, window, stream);
     case 256:
-      return launch_bf16_wgmma<256>(q, k, v, o, B, H, KV, S, Tk, st, causal, window, stream);
+      return launch_bf16_wgmma<256, 256>(q, k, v, o, B, H, KV, S, Tk, st, causal, window, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,14 +1,19 @@
 """Attention: grouped-query attention (GQA / MHA), its sliding-window and
-q-chunked forms, and single-token decode against a preallocated KV cache.
+q-chunked forms, DeepSeek's multi-head latent attention (MLA) with its
+absorbed decode, and single-token decode against a preallocated KV cache.
 Mirrors ``src/repro/models/attention.py`` for the ported configs
-(granite-8b, gemma-7b, yi-34b, gemma3-4b).
+(granite-8b, gemma-7b, yi-34b, gemma3-4b, deepseek-v2-236b,
+deepseek-v3-671b).
 
 ``sdpa``'s prefill case (no cache: ``q_offset == 0``, ``kv_len`` None, no
 softcap, causal or not, with or without a window, ``T >= S``) goes through
-the hand-written flash-attention kernel when the tensors are on CUDA
+the hand-written flash-attention kernel when the tensors are on CUDA and
+the kernel is built for their dtype and (q head dim, v head dim) pair
 (``repro_torch.kernels.ops.flash_attention``, the counterpart the reference
-names for this path); it computes the same function as the einsum form, kv
-head groups included. So do the chunked forms without a softcap:
+names for this path; MLA's prefill is (192, 128) at full width); it
+computes the same function as the einsum form, kv head groups included. A
+pair with no kernel (MLA at SMOKE width, (24, 16)) takes the einsum form.
+So do the chunked forms without a softcap:
 ``sdpa_local_chunked`` (gemma3's local layers) is the kernel's causal
 window, ``sdpa_q_chunked`` (``attn_q_chunk``) its plain causal or windowed
 mask; each is one launch. Every other case (decode against the cache, a
@@ -16,7 +21,12 @@ softcap, CPU tensors) runs the reference's einsum forms, the plain versions
 (``sdpa_local_chunked_plain``, ``sdpa_q_chunked_plain``). No ported config
 sets a softcap.
 
-Not ported yet (ROADMAP.md, Queue 1 item 12): MLA and cross-attention. The
+MLA's decode is the reference's absorbed form in torch einsums (as the
+reference's is XLA einsums outside any Pallas kernel): only the latent
+``c`` and the rope key ``kr`` are cached, and ``w_uk`` / ``w_uv`` are
+folded into the score and value products.
+
+Not ported yet (ROADMAP.md, Queue 1 item 12): cross-attention. The
 reference's sharding constraints are dropped: the port runs on one card.
 """
 from __future__ import annotations
@@ -26,7 +36,8 @@ import math
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.models.layers import apply_rope
+from repro_torch.kernels.flash_attention import route as flash_route
+from repro_torch.models.layers import apply_rope, rmsnorm, rmsnorm_def
 from repro_torch.models.params import ParamDef
 
 _NEG = -1e30
@@ -38,17 +49,25 @@ def _softcap(x, cap):
 
 # =========================================================== core maths ====
 
+def _has_kernel(q, v) -> bool:
+    """q and v on CUDA at a dtype and (q, v) head-dim pair the flash
+    kernel is built for."""
+    return q.is_cuda and flash_route(q.dtype, q.shape[-1],
+                                     v.shape[-1]) is not None
+
+
 def sdpa(q, k, v, *, causal=True, q_offset=0, window=None, softcap=None,
          kv_len=None):
-    """Grouped-query attention. q: (B,S,H,D); k, v: (B,T,KV,D).
+    """Grouped-query attention. q: (B,S,H,D); k: (B,T,KV,D); v: (B,T,KV,Dv)
+    (MLA's v is narrower than q and k) -> (B,S,H,Dv).
 
     ``q_offset``: absolute position of q[0] (decode: the current step).
     ``kv_len``: number of valid cache rows (decode masking).
     """
     B, S, H, D = q.shape
     T, KV = k.shape[1], k.shape[2]
-    if (q.is_cuda and q_offset == 0 and kv_len is None and not softcap
-            and T >= S and v.shape[-1] == D):
+    if (q_offset == 0 and kv_len is None and not softcap and T >= S
+            and _has_kernel(q, v)):
         return _flash(q, k, v, causal=causal, window=window)
     G = H // KV
     qg = q.reshape(B, S, KV, G, D)
@@ -88,8 +107,8 @@ def sdpa_q_chunked(q, k, v, *, causal=True, window=None, softcap=None,
     one ``flash_attention`` launch with the caller's ``causal`` and
     ``window`` (the kernel keeps one tile's scores live, as the chunks do);
     with a softcap, which the kernel lacks, or on the CPU, the plain
-    form."""
-    if q.is_cuda and not softcap:
+    form (and for a head-dim pair the kernel is not built for)."""
+    if not softcap and _has_kernel(q, v):
         return _flash(q, k, v, causal=causal, window=window)
     return sdpa_q_chunked_plain(q, k, v, causal=causal, window=window,
                                 softcap=softcap, q_chunk=q_chunk)
@@ -141,8 +160,9 @@ def sdpa_local_chunked(q, k, v, *, window, softcap=None):
 
 
 def _flash(q, k, v, *, causal, window):
-    """(B,S,H,D) q and (B,T,KV,D) k, v through the kernel, read in place
-    through their (b, h, s) strides; the output keeps q's layout."""
+    """(B,S,H,D) q, (B,T,KV,D) k and (B,T,KV,Dv) v through the kernel,
+    read in place through their (b, h, s) strides; the output keeps q's
+    layout."""
     out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                               v.transpose(1, 2), causal=causal,
                               window=window)
@@ -215,3 +235,104 @@ def gqa_cache_def(cfg, batch, max_len):
     kv_axes = ("batch", "seq", "kv_heads", None)
     return {"k": ParamDef((batch, max_len, KV, Dh), kv_axes, init="zeros"),
             "v": ParamDef((batch, max_len, KV, Dh), kv_axes, init="zeros")}
+
+
+# ======================================================== MLA attention ====
+
+def mla_def(cfg):
+    D, H = cfg.d_model, cfg.n_heads
+    nope, rope_d, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    p = {
+        "w_dkv": ParamDef((D, cfg.kv_lora_rank), ("embed", "kv_lora")),
+        "kv_norm": rmsnorm_def(cfg.kv_lora_rank),
+        "w_kr": ParamDef((D, rope_d), ("embed", None)),
+        "w_uk": ParamDef((cfg.kv_lora_rank, H, nope),
+                         ("kv_lora", "heads", None)),
+        "w_uv": ParamDef((cfg.kv_lora_rank, H, vd),
+                         ("kv_lora", "heads", None)),
+        "w_o": ParamDef((H, vd, D), ("heads", None, "embed_tp")),
+    }
+    if cfg.q_lora_rank:
+        p["w_dq"] = ParamDef((D, cfg.q_lora_rank), ("embed", "q_lora"))
+        p["q_norm"] = rmsnorm_def(cfg.q_lora_rank)
+        p["w_uq"] = ParamDef((cfg.q_lora_rank, H, nope + rope_d),
+                             ("q_lora", "heads", None))
+    else:
+        p["w_q"] = ParamDef((D, H, nope + rope_d), ("embed", "heads", None))
+    return p
+
+
+def _mla_q(params, x, positions, cfg):
+    """(q_nope (B,S,H,nope), q_rope (B,S,H,rope)), q_rope rotated."""
+    nope = cfg.qk_nope_dim
+    if cfg.q_lora_rank:
+        qa = rmsnorm(params["q_norm"], x @ params["w_dq"], cfg.norm_eps)
+        q = _proj(qa, params["w_uq"])
+    else:
+        q = _proj(x, params["w_q"])
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    return q_nope, apply_rope(q_rope, positions, cfg)
+
+
+def mla_apply(params, x, positions, cfg, *, cache=None, step=None,
+              window=None, causal=True):
+    """MLA. Returns (out, cache). Modes:
+
+    * prefill: ``cache`` None. The per-head k_nope and v are materialised
+      from the latent, q and k are their nope and rope parts joined (the
+      rope key broadcast across heads), and ``sdpa`` takes them: one
+      flash_attention launch on the card at (192, 128).
+    * decode (the reference's absorbed path): ``cache`` {'c' (B, Smax,
+      kv_lora_rank), 'kr' (B, Smax, qk_rope_dim)} and ``step`` (an int):
+      this call's latent and rope key are written into the cache in place
+      at ``step``; the scores are ``q_nope w_uk . c + q_rope . kr`` over
+      sqrt(nope + rope), the context ``probs . c`` goes through ``w_uv``
+      and ``w_o``.
+    """
+    B, S, _ = x.shape
+    q_nope, q_rope = _mla_q(params, x, positions, cfg)
+    c = rmsnorm(params["kv_norm"], x @ params["w_dkv"], cfg.norm_eps)
+    kr = apply_rope((x @ params["w_kr"])[:, :, None, :], positions,
+                    cfg)[:, :, 0, :]
+    wo = params["w_o"]
+    if cache is None:
+        k_nope = _proj(c, params["w_uk"])
+        v = _proj(c, params["w_uv"])
+        q = torch.cat([q_nope, q_rope], -1)
+        k = torch.cat([k_nope, kr[:, :, None, :].expand(
+            *k_nope.shape[:3], kr.shape[-1])], -1)
+        if cfg.attn_q_chunk and S > 2 * cfg.attn_q_chunk:
+            out = sdpa_q_chunked(q, k, v, causal=causal, window=window,
+                                 q_chunk=cfg.attn_q_chunk)
+        else:
+            out = sdpa(q, k, v, causal=causal, window=window)
+        return out.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1]), None
+    # ---------------- absorbed decode ----------------
+    step = int(step)
+    if step < 0 or step + S > cache["c"].shape[1]:
+        raise ValueError(f"decode step {step} + {S} token(s) outside "
+                         f"the cache's {cache['c'].shape[1]} rows")
+    cache["c"][:, step:step + S] = c
+    cache["kr"][:, step:step + S] = kr
+    cc, krc = cache["c"], cache["kr"]
+    q_abs = torch.einsum("bshk,rhk->bshr", q_nope, params["w_uk"])
+    scores = (torch.einsum("bshr,btr->bhst", q_abs, cc)
+              + torch.einsum("bshk,btk->bhst", q_rope, krc)).float()
+    scores = scores / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
+    T = cc.shape[1]
+    kpos = torch.arange(T, device=x.device)[None, :]
+    qpos = torch.arange(S, device=x.device)[:, None] + step
+    mask = (kpos <= qpos) & (kpos < step + S)
+    scores = torch.where(mask, scores, _NEG)
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    ctx = torch.einsum("bhst,btr->bshr", probs, cc)
+    out = torch.einsum("bshr,rhv->bshv", ctx, params["w_uv"])
+    return out.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1]), cache
+
+
+def mla_cache_def(cfg, batch, max_len):
+    """The absorbed decode's cache: the latent and the rope key a token."""
+    return {"c": ParamDef((batch, max_len, cfg.kv_lora_rank),
+                          ("batch", "seq", "kv_lora"), init="zeros"),
+            "kr": ParamDef((batch, max_len, cfg.qk_rope_dim),
+                           ("batch", "seq", None), init="zeros")}

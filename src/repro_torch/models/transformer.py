@@ -1,20 +1,26 @@
-"""Model assembly for the dense decoder LMs: a ``Transformer`` module over
-an ``nn.ModuleList`` of blocks (RMS norm, GQA attention, RMS norm, gated
-MLP), the full forward, the KV cache and one-token decode. Mirrors
+"""Model assembly for the decoder LMs: a ``Transformer`` module over an
+``nn.ModuleList`` of blocks (RMS norm, attention, RMS norm, gated MLP or
+MoE), the full forward, the KV cache and one-token decode. Mirrors
 ``src/repro/models/transformer.py`` for the llama-family plan
-``[GQA + dense] * L``; the reference's ``lax.scan`` over stacked layers is
-a Python loop over the list.
+``[GQA + dense] * L`` and DeepSeek's ``[MLA + dense] * k + [MLA + MoE] *
+(L - k)``; the reference's ``lax.scan`` over stacked layers is a Python
+loop over the list.
 
 ``layer_plan`` is kept as the reference computes it, so that
-``repro_torch.convert`` can unstack the reference's scanned stages. Only
-``mixer="attn"`` with ``mlp="dense"`` is ported: any other layer spec (MLA,
-MoE, mamba, xLSTM, cross-attention) raises and names ROADMAP.
+``repro_torch.convert`` can unstack the reference's scanned stages. The
+mixers ``attn`` (GQA) and ``mla`` and the MLPs ``dense`` and ``moe`` are
+ported: any other layer spec (mamba, xLSTM, cross-attention) raises and
+names ROADMAP, as do enc-dec and modality frontends.
 
 The port's parameter tree is the reference's with the stages unstacked:
 ``{"embed": {"table"}, "final_norm": {"scale"}, "layers": [{"ln1",
-"mixer", "ln2", "mlp"}, ...], "lm_head": {"table"}}`` (no ``lm_head`` with
-tied embeddings), every weight in the reference's layout. The module's
-parameter names are the same paths (``layers.0.mixer.wq``).
+"mixer", "ln2", "mlp" or "moe"}, ...], "lm_head": {"table"}, "mtp":
+{...}}`` (no ``lm_head`` with tied embeddings; ``mtp``, DeepSeek-V3's
+multi-token-prediction head, where ``mtp_depth`` is set), every weight in
+the reference's layout. The module's parameter names are the same paths
+(``layers.0.mixer.wq``, ``layers.3.moe.router.w``). The MTP head's weights
+are held and counted; its forward, which only training reads, waits for
+training (ROADMAP.md, Queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ from torch import nn
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (embed, embedding_def, mlp, mlp_def,
                                        rmsnorm, rmsnorm_def, unembed)
 from repro_torch.models.params import ParamDef, count_from_defs, init_params
@@ -89,28 +96,35 @@ def layer_plan(cfg) -> list[tuple[tuple[LayerSpec, ...], int]]:
 
 
 def _check_spec(spec: LayerSpec) -> None:
-    if spec.mixer != "attn" or spec.mlp != "dense" or spec.cross:
+    if spec.mixer not in ("attn", "mla") or spec.mlp not in ("dense", "moe") \
+            or spec.cross:
         raise NotImplementedError(
-            f"layer {spec}: only GQA attention with a dense MLP is ported "
-            "(ROADMAP.md, Queue 1 item 12 lists MLA, MoE, mamba, xLSTM and "
-            "enc-dec)")
+            f"layer {spec}: only GQA or MLA attention with a dense or MoE "
+            "MLP is ported (ROADMAP.md, Queue 1 item 12 lists mamba, xLSTM "
+            "and enc-dec)")
 
 
 # ---------------------------------------------------------- param trees ----
 
 def _layer_def(spec: LayerSpec, cfg):
     _check_spec(spec)
-    return {"ln1": rmsnorm_def(cfg.d_model), "mixer": attn_mod.gqa_def(cfg),
-            "ln2": rmsnorm_def(cfg.d_model),
-            "mlp": mlp_def(cfg.d_model, cfg.d_ff)}
+    d = {"ln1": rmsnorm_def(cfg.d_model),
+         "mixer": attn_mod.mla_def(cfg) if spec.mixer == "mla"
+         else attn_mod.gqa_def(cfg),
+         "ln2": rmsnorm_def(cfg.d_model)}
+    if spec.mlp == "moe":
+        d["moe"] = moe_mod.experts_def(cfg)
+    else:
+        d["mlp"] = mlp_def(cfg.d_model, cfg.d_ff)
+    return d
 
 
 def model_params_def(cfg):
     """The port's ``ParamDef`` tree (layers unstacked)."""
-    if cfg.is_encoder_decoder or cfg.mtp_depth or cfg.frontend:
+    if cfg.is_encoder_decoder or cfg.frontend:
         raise NotImplementedError(
-            f"{cfg.name}: enc-dec, multi-token prediction and modality "
-            "frontends are not ported yet (ROADMAP.md, Queue 1 item 12)")
+            f"{cfg.name}: enc-dec and modality frontends are not ported yet "
+            "(ROADMAP.md, Queue 1 item 12)")
     defs = {
         "embed": embedding_def(cfg.vocab_size, cfg.d_model),
         "final_norm": rmsnorm_def(cfg.d_model),
@@ -119,15 +133,31 @@ def model_params_def(cfg):
     if not cfg.tie_embeddings:
         defs["lm_head"] = {"table": ParamDef(
             (cfg.vocab_size, cfg.d_model), ("vocab", "embed"), scale=0.02)}
+    if cfg.mtp_depth:
+        defs["mtp"] = {
+            "proj": ParamDef((2 * cfg.d_model, cfg.d_model),
+                             ("embed", "embed_tp")),
+            "block": _layer_def(LayerSpec(
+                "mla" if cfg.attn_kind == "mla" else "attn", "dense"),
+                cfg.replace(n_experts=0)),
+            "norm": rmsnorm_def(cfg.d_model),
+        }
     return defs
 
 
+def _layer_cache_def(spec: LayerSpec, cfg, batch, max_len):
+    _check_spec(spec)
+    if spec.mixer == "mla":
+        return attn_mod.mla_cache_def(cfg, batch, max_len)
+    return attn_mod.gqa_cache_def(cfg, batch, max_len)
+
+
 def cache_def(cfg, batch, max_len):
-    """One {'k', 'v'} (batch, max_len, KV, Dh) pair per layer."""
-    for spec in _layer_specs(cfg):
-        _check_spec(spec)
-    return {"layers": [attn_mod.gqa_cache_def(cfg, batch, max_len)
-                       for _ in range(cfg.n_layers)]}
+    """Per layer: {'k', 'v'} (batch, max_len, KV, Dh) for GQA, {'c'
+    (batch, max_len, kv_lora_rank), 'kr' (batch, max_len, qk_rope_dim)}
+    for MLA."""
+    return {"layers": [_layer_cache_def(s, cfg, batch, max_len)
+                       for s in _layer_specs(cfg)]}
 
 
 def init_cache(cfg, batch, max_len, dtype=torch.bfloat16, device=None):
@@ -142,13 +172,17 @@ def init_cache(cfg, batch, max_len, dtype=torch.bfloat16, device=None):
 
 class ParamModule(nn.Module):
     """A module whose parameters are the given tensors (no copy, no
-    gradient), readable as ``module["name"]`` like the reference's dicts."""
+    gradient), a nested dict a submodule of its own, readable as
+    ``module["name"]`` like the reference's dicts."""
 
     def __init__(self, tensors: dict):
         super().__init__()
         for name, t in tensors.items():
-            self.register_parameter(name, nn.Parameter(t,
-                                                       requires_grad=False))
+            if isinstance(t, dict):
+                self.add_module(name, ParamModule(t))
+            else:
+                self.register_parameter(
+                    name, nn.Parameter(t, requires_grad=False))
 
     def __getitem__(self, name):
         return getattr(self, name)
@@ -172,6 +206,18 @@ class MLP(ParamModule):
         return mlp(self, x, act=self.act)
 
 
+class MoE(ParamModule):
+    """The routed experts (``moe.py``) and the shared ones; returns
+    (y, aux_loss)."""
+
+    def __init__(self, tensors, cfg):
+        super().__init__(tensors)
+        self.cfg = cfg
+
+    def forward(self, x):
+        return moe_mod.moe_apply(self, x, self.cfg, act=self.cfg.act)
+
+
 class Attention(ParamModule):
     def __init__(self, tensors, cfg, window):
         super().__init__(tensors)
@@ -182,21 +228,35 @@ class Attention(ParamModule):
                                   window=self.window, cache=cache, step=step)
 
 
+class MLA(Attention):
+    def forward(self, x, positions, cache=None, step=None):
+        return attn_mod.mla_apply(self, x, positions, self.cfg,
+                                  window=self.window, cache=cache, step=step)
+
+
 class Block(nn.Module):
-    """``x + attn(norm(x))``, then ``x + mlp(norm(x))``."""
+    """``x + attn(norm(x))``, then ``x + mlp(norm(x))`` (or the MoE's);
+    returns (x, cache, the MoE's aux loss or None)."""
 
     def __init__(self, p, spec: LayerSpec, cfg):
         super().__init__()
         _check_spec(spec)
         self.ln1 = RMSNorm(p["ln1"], cfg.norm_eps)
-        self.mixer = Attention(p["mixer"], cfg, spec.window)
+        self.mixer = (MLA if spec.mixer == "mla" else Attention)(
+            p["mixer"], cfg, spec.window)
         self.ln2 = RMSNorm(p["ln2"], cfg.norm_eps)
-        self.mlp = MLP(p["mlp"], cfg.act)
+        if spec.mlp == "moe":
+            self.moe = MoE(p["moe"], cfg)
+        else:
+            self.mlp = MLP(p["mlp"], cfg.act)
 
     def forward(self, x, positions, cache=None, step=None):
         mix, cache = self.mixer(self.ln1(x), positions, cache, step)
         x = x + mix
-        return x + self.mlp(self.ln2(x)), cache
+        if hasattr(self, "moe"):
+            y, aux = self.moe(self.ln2(x))
+            return x + y, cache, aux
+        return x + self.mlp(self.ln2(x)), cache, None
 
 
 class Transformer(nn.Module):
@@ -213,6 +273,8 @@ class Transformer(nn.Module):
         self.final_norm = RMSNorm(params["final_norm"], cfg.norm_eps)
         self.lm_head = None if cfg.tie_embeddings \
             else ParamModule(params["lm_head"])
+        # held and counted; only training reads it (``forward``)
+        self.mtp = ParamModule(params["mtp"]) if cfg.mtp_depth else None
 
     @property
     def device(self) -> torch.device:
@@ -239,27 +301,40 @@ def init_model(cfg, *, seed: int = 0, dtype=torch.bfloat16,
 
 @torch.inference_mode()
 def forward(model: Transformer, batch, mode="train"):
-    """batch: tokens (B,S). Returns (logits, extras).
-    ``mode="prefill"`` keeps the last position's logits only."""
+    """batch: tokens (B,S). Returns (logits, {"aux_loss": the MoE layers'
+    load-balancing losses summed, float32}). ``mode="prefill"`` keeps the
+    last position's logits only. ``mode="train"`` on a model with an MTP
+    head raises: the reference's train forward adds the MTP logits, which
+    wait for training (ROADMAP.md, Queue 1 item 12)."""
     if mode not in ("train", "prefill"):
         raise ValueError(f"mode must be 'train' or 'prefill', got {mode!r}")
+    if mode == "train" and model.cfg.mtp_depth:
+        raise NotImplementedError(
+            f"{model.cfg.name}: the multi-token-prediction forward waits for "
+            "training (ROADMAP.md, Queue 1 item 12); serve with "
+            "mode='prefill'")
     dev = model.device
     tokens = torch.as_tensor(batch["tokens"], device=dev)
     B, S = tokens.shape
     x = embed(model.embed, tokens)
     positions = torch.arange(S, device=dev)[None].expand(B, S)
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
     for block in model.layers:
-        x, _ = block(x, positions)
+        x, _, a = block(x, positions)
+        if a is not None:
+            aux = aux + a
     if mode == "prefill":      # serving prefill: last-position logits only
         x = x[:, -1:]
-    return model.logits(x), {"aux_loss": torch.zeros((), device=dev)}
+    return model.logits(x), {"aux_loss": aux}
 
 
 @torch.inference_mode()
 def decode_step(model: Transformer, cache, batch):
     """One-token decode. batch: tokens (B,1), step (an int: the cache rows
-    already filled). Writes each layer's k and v into ``cache`` in place at
-    ``step``; returns (logits (B,1,V), cache)."""
+    already filled). Writes each layer's k and v (MLA: its latent and rope
+    key) into ``cache`` in place at ``step``; returns (logits (B,1,V),
+    cache). An MoE layer routes the call's B tokens, its capacity set by
+    them."""
     dev = model.device
     tokens = torch.as_tensor(batch["tokens"], device=dev)
     B, S = tokens.shape
@@ -267,7 +342,7 @@ def decode_step(model: Transformer, cache, batch):
     x = embed(model.embed, tokens)
     positions = torch.full((B, S), step, dtype=torch.int64, device=dev)
     for block, c in zip(model.layers, cache["layers"], strict=True):
-        x, _ = block(x, positions, cache=c, step=step)
+        x, _, _ = block(x, positions, cache=c, step=step)
     return model.logits(x), cache
 
 
@@ -275,3 +350,14 @@ def decode_step(model: Transformer, cache, batch):
 
 def count_params(cfg) -> int:
     return count_from_defs(model_params_def(cfg))
+
+
+def active_params(cfg) -> int:
+    """Active parameters per token (MoE: top_k + shared experts only), the
+    reference's count."""
+    total = count_params(cfg)
+    if not cfg.n_experts:
+        return total
+    n_moe = sum(1 for s in _layer_specs(cfg) if s.mlp == "moe")
+    per_expert = 3 * cfg.d_model * cfg.moe_d_ff
+    return total - n_moe * (cfg.n_experts - cfg.top_k) * per_expert

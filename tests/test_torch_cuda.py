@@ -611,6 +611,196 @@ def test_cuda_flash_attention_mma_route(cuda, B, H, KV, S, T, D, causal,
     assert got.transpose(1, 2).is_contiguous()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["wgmma", "fma"])
+@pytest.mark.parametrize("B,H,S,T,causal", [
+    (1, 4, 300, 300, True), (2, 3, 200, 200, False), (1, 2, 100, 333, False),
+    (1, 2, 333, 333, True), (2, 2, 1000, 1000, True), (1, 2, 77, 77, True),
+])
+def test_cuda_flash_attention_mla_pair(cuda, dtype, B, H, S, T, causal):
+    """MLA's pair, q and k at head dim 192 and v at 128, on the wgmma
+    route (bf16) and the FMA route (f32): causal and not, S != T, lengths
+    that are no multiple of a tile, q, k and v strided views of (B, S, H,
+    D) activations. bf16 against the plain version in float32 on the same
+    inputs, row by row (0.02 of each row's largest output and twice the
+    bf16 plain version's error); f32 within 2e-5. The output is 128 wide,
+    in q's layout, and counted on its route."""
+    q = torch.from_numpy(RNG.normal(size=(B, S, H, 192))).to(
+        cuda, dtype).transpose(1, 2)
+    k = torch.from_numpy(RNG.normal(size=(B, T, H, 192))).to(
+        cuda, dtype).transpose(1, 2)
+    v = torch.from_numpy(RNG.normal(size=(B, T, H, 128))).to(
+        cuda, dtype).transpose(1, 2)
+    path = "wgmma" if dtype == torch.bfloat16 else "fma"
+    before = ops.route_counts()["flash_attention"][path]
+    got = ops.flash_attention(q, k, v, causal=causal)
+    assert ops.route_counts()["flash_attention"][path] == before + 1
+    assert got.shape == (B, H, S, 128) and got.transpose(1, 2).is_contiguous()
+    want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                   causal=causal)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
+    else:
+        plain = ref.flash_attention_ref(q, k, v, causal=causal)
+        err = _row_rel(got, want)
+        assert err <= 0.02 and err <= 2 * _row_rel(plain, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,D,Dv,kw", [
+    (torch.bfloat16, 24, 16, {}), (torch.float32, 24, 16, {}),
+    (torch.bfloat16, 128, 192, {}), (torch.bfloat16, 192, 192, {}),
+    (torch.bfloat16, 192, 128, {"_route": "mma"}),
+])
+def test_cuda_flash_attention_refuses_an_unbuilt_pair(cuda, dtype, D, Dv,
+                                                      kw):
+    """A (q/k, v) head-dim pair no route is built for raises, and launches
+    nothing: SMOKE MLA's (24, 16), the pairs turned round or unequal, and
+    the mma.sync route forced at (192, 128)."""
+    q = torch.zeros((1, 2, 8, D), dtype=dtype, device=cuda)
+    v = torch.zeros((1, 2, 8, Dv), dtype=dtype, device=cuda)
+    before = ops.launch_counts()["flash_attention"]
+    with pytest.raises(ValueError, match="head dims"):
+        ops.flash_attention(q, q, v, **kw)
+    assert ops.launch_counts()["flash_attention"] == before
+
+
+@pytest.mark.cuda
+def test_cuda_moe_matches_its_cpu_plain_run(cuda):
+    """``moe_apply`` on the card against its CPU run, f32, deepseek-v2's
+    SMOKE shape with slots dropping (capacity factor 0.5): the routers pick
+    the same experts; fed the same experts, the dispatch's order, buffer
+    rows and kept slots are bitwise the CPU's, and so is the combine fed
+    the same expert outputs (the fixed slot order, no atomics); the whole
+    layer within 1e-5 of its scale (the expert GEMMs sum in other orders),
+    and twice on the card bitwise."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.params import init_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("deepseek-v2-236b", smoke=True).replace(
+        capacity_factor=0.5)
+    p = init_params(moe.experts_def(cfg), torch.Generator().manual_seed(7),
+                    torch.float32, "cpu")
+    pc = {k: ({kk: t.to(cuda) for kk, t in v.items()} if isinstance(v, dict)
+              else v.to(cuda)) for k, v in p.items()}
+    x = torch.from_numpy(RNG.normal(size=(2, 40, cfg.d_model))).float()
+    y_cpu, aux_cpu = moe.moe_apply(p, x, cfg, act=cfg.act)
+    y, aux = moe.moe_apply(pc, x.to(cuda), cfg, act=cfg.act)
+    y2, _ = moe.moe_apply(pc, x.to(cuda), cfg, act=cfg.act)
+    assert torch.equal(y, y2)
+    scale = float(y_cpu.abs().max())
+    torch.testing.assert_close(y.cpu(), y_cpu, rtol=0, atol=1e-5 * scale)
+    torch.testing.assert_close(aux.cpu(), aux_cpu, rtol=0, atol=1e-6)
+    w, e, _ = moe._route(p, x.reshape(80, -1), cfg)
+    _, e_card, _ = moe._route(pc, x.reshape(80, -1).to(cuda), cfg)
+    assert torch.equal(e_card.cpu(), e)
+    cap = moe.capacity(cfg, 80)
+    slots = moe._dispatch(e, cfg.n_experts, cap)
+    slots_card = moe._dispatch(e.to(cuda), cfg.n_experts, cap)
+    assert not bool(slots[4].all())          # some slots drop
+    for a, b in zip(slots_card, slots, strict=True):
+        assert torch.equal(a.cpu(), b)
+    out = torch.from_numpy(RNG.normal(size=(cfg.n_experts, cap + 1,
+                                            cfg.d_model))).float()
+    want = moe._combine(out, w, *slots[:2], *slots[3:])
+    got = moe._combine(out.to(cuda), w.to(cuda), *slots_card[:2],
+                       *slots_card[3:])
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_cuda_moe_makes_no_host_sync(cuda):
+    """``moe_apply`` on the card, dispatch and combine included, under
+    ``set_sync_debug_mode("error")``: the capacity comes from shapes, so
+    nothing waits for the card (``jit_lint.SYNC_FREE`` names it)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.params import init_params
+    cfg = get_config("deepseek-v3-671b", smoke=True)
+    p = init_params(moe.experts_def(cfg), torch.Generator(cuda).manual_seed(2),
+                    torch.bfloat16, cuda)
+    x = torch.randn((3, 20, cfg.d_model), device=cuda, dtype=torch.bfloat16)
+    moe.moe_apply(p, x, cfg, act=cfg.act)      # warm up (first launches)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y, aux = moe.moe_apply(p, x, cfg, act=cfg.act)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert y.shape == x.shape and bool(torch.isfinite(y).all())
+
+
+def _narrow_deepseek():
+    """deepseek-v2-236b narrowed for a card test: MLA at its full head dims
+    (192 for q and k, 128 for v; 4 heads), 3 layers (1 dense + 2 MLA +
+    MoE, 8 experts, top 2)."""
+    from repro_torch.configs import get_config
+    return get_config("deepseek-v2-236b").replace(
+        n_layers=3, d_model=256, n_heads=4, n_kv_heads=4, d_ff=512,
+        vocab_size=512, q_lora_rank=64, kv_lora_rank=64, n_experts=8,
+        n_shared_experts=1, top_k=2, moe_d_ff=64)
+
+
+@pytest.mark.cuda
+def test_cuda_narrow_deepseek_prefill_takes_the_kernel(cuda):
+    """A narrowed deepseek-v2 at head dims 192 / 128 on the card: each
+    prefill layer is one flash_attention launch (f32: the FMA route;
+    bf16: wgmma), the f32 logits within 1e-4 of the same model on the CPU
+    (whose attention is the plain version), and teacher-forced decode on
+    the card within 1e-4 of the CPU's too."""
+    from repro_torch.launch.inputs import concrete_batch
+    from repro_torch.models.transformer import (decode_step, init_cache,
+                                                init_model)
+    from repro_torch.serving import prefill_logits
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _narrow_deepseek()
+    cpu = init_model(cfg, seed=0, dtype=torch.float32, device="cpu")
+    card = init_model(cfg, seed=0, dtype=torch.float32, device="cpu").to(cuda)
+    batch = concrete_batch(cfg, 2, 70, device="cpu")
+    fma = ops.route_counts()["flash_attention"]["fma"]
+    got = prefill_logits(card, {"tokens": batch["tokens"].to(cuda)})
+    assert ops.route_counts()["flash_attention"]["fma"] - fma == cfg.n_layers
+    want = prefill_logits(cpu, batch)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+    caches = [init_cache(cfg, 2, 6, torch.float32, device=d)
+              for d in ("cpu", cuda)]
+    for t in range(6):
+        tok = batch["tokens"][:, t:t + 1]
+        want, _ = decode_step(cpu, caches[0], {"tokens": tok, "step": t})
+        got, _ = decode_step(card, caches[1], {"tokens": tok.to(cuda),
+                                               "step": t})
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+    bf16 = init_model(cfg, seed=0, dtype=torch.bfloat16)
+    wgmma = ops.route_counts()["flash_attention"]["wgmma"]
+    logits = prefill_logits(bf16, {"tokens": batch["tokens"].to(cuda)})
+    assert ops.route_counts()["flash_attention"]["wgmma"] - wgmma \
+        == cfg.n_layers
+    assert bool(torch.isfinite(logits).all())
+
+
+@pytest.mark.cuda
+def test_cuda_smoke_deepseek_prefill_takes_the_einsum_form(cuda):
+    """At SMOKE width MLA's pair is (24, 16), which no route is built for:
+    the card's prefill routes by shape to the einsum form and launches no
+    kernel, with logits within 1e-4 of the CPU's."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.inputs import concrete_batch
+    from repro_torch.models.transformer import init_model
+    from repro_torch.serving import prefill_logits
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("deepseek-v2-236b", smoke=True)
+    cpu = init_model(cfg, seed=1, dtype=torch.float32, device="cpu")
+    batch = concrete_batch(cfg, 2, 34, device="cpu")
+    before = ops.launch_counts()["flash_attention"]
+    got = prefill_logits(cpu.to(cuda), {"tokens": batch["tokens"].to(cuda)})
+    assert ops.launch_counts()["flash_attention"] == before
+    want = prefill_logits(init_model(cfg, seed=1, dtype=torch.float32,
+                                     device="cpu"), batch)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+
+
 def _multi_problem(cuda, n, b):
     """adult's first n rows, b lanes, lane l holding out tenth l mod 10."""
     from repro_torch.data.svm_suite import make_dataset

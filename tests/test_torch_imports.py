@@ -1,9 +1,10 @@
 """Import rule of the port: no module of ``src/repro_torch/``, and none of
 ``chip_smoke.py``, ``chip_flash_mutants.py``, ``chip_smo_variants.py``,
 ``chip_sir_split.py``, ``chip_ato_split.py``, ``chip_ato_phases.py``,
-``chip_spill_phases.py`` and ``chip_cost_model.py``, imports jax or the JAX
-package ``repro``; and every entry point defaults to ``cuda``, raising
-without a GPU unless given ``device="cpu"``."""
+``chip_spill_phases.py``, ``chip_cost_model.py`` and
+``chip_flash_shapes.py``, imports jax or the JAX package ``repro``; and
+every entry point defaults to ``cuda``, raising without a GPU unless given
+``device="cpu"``."""
 import ast
 from pathlib import Path
 
@@ -15,7 +16,8 @@ FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py", ROOT / "chip_flash_mutants.py",
        ROOT / "chip_smo_variants.py", ROOT / "chip_sir_split.py",
        ROOT / "chip_ato_split.py", ROOT / "chip_ato_phases.py",
-       ROOT / "chip_spill_phases.py", ROOT / "chip_cost_model.py"]
+       ROOT / "chip_spill_phases.py", ROOT / "chip_cost_model.py",
+       ROOT / "chip_flash_shapes.py"]
 
 
 def _imported(tree):
@@ -46,7 +48,8 @@ def test_the_walk_sees_the_port():
             "plan_sim.py", "protocol.py", "server.py", "client.py",
             "__main__.py", "chip_cost_model.py", "imports.py",
             "jit_lint.py", "kernel_lint.py", "yi_34b.py",
-            "gemma3_4b.py"} <= names
+            "gemma3_4b.py", "moe.py", "deepseek_v2_236b.py",
+            "deepseek_v3_671b.py", "chip_flash_shapes.py"} <= names
     analysis = ROOT / "src" / "repro_torch" / "analysis"
     assert analysis / "__main__.py" in FILES
 

@@ -7,8 +7,9 @@ its plain version on CPU tensors; it is held to the reference's Pallas
 kernel in interpret mode, as the reference's own tests run it, at their
 bars (f32 atol 2e-5, bf16 0.06). Layers, the sliding-window and q-chunked
 forms included: f32 atol 1e-5; whole models (SMOKE sizes of granite-8b,
-gemma-7b, yi-34b and gemma3-4b, whose local layers take the chunked form
-past 2W = 32 tokens): f32 atol 1e-4 on logits of
+gemma-7b, yi-34b, gemma3-4b, whose local layers take the chunked form
+past 2W = 32 tokens, and deepseek-v2-236b and deepseek-v3-671b, MLA + MoE):
+f32 atol 1e-4 on logits of
 magnitude up to 1, scaled by the logits' largest magnitude above that (see
 ``_assert_logits_close``), and greedy tokens identical. The kernel itself is held to the plain version on the card
 (``test_torch_cuda.py``, ``chip_smoke.py``).
@@ -42,7 +43,8 @@ from repro_torch.models.params import ParamDef, init_params
 from repro_torch.serving import build_serve_step, prefill_logits
 
 RNG = np.random.default_rng(11)
-ARCHS = ("granite-8b", "gemma-7b", "yi-34b", "gemma3-4b")
+ARCHS = ("granite-8b", "gemma-7b", "yi-34b", "gemma3-4b",
+         "deepseek-v2-236b", "deepseek-v3-671b")
 B, S = 2, 32
 
 
@@ -245,12 +247,23 @@ def test_gqa_apply_routes_gemma3_local_layers_to_the_chunked_form(
     assert calls == [] or calls[0]["softcap"] is None
 
 
-def test_mla_and_moe_raise():
-    cfg = get_config("granite-8b", smoke=True)
+@pytest.mark.parametrize("kw", [
+    {"attn_every": 2},                                     # mamba
+    {"block_kinds": ("mlstm", "slstm")},                   # xLSTM
+    {"is_encoder_decoder": True, "n_enc_layers": 2},       # enc-dec
+    {"frontend": "audio_frames"},                          # frontends
+    {"frontend": "vision_patches"},
+], ids=["mamba", "xlstm", "enc_dec", "audio", "vision"])
+def test_unported_layer_kinds_raise(kw):
+    """MLA and MoE are ported; mamba, xLSTM, enc-dec and the modality
+    frontends still raise and name ROADMAP, for the parameters and the
+    cache alike."""
+    cfg = get_config("granite-8b", smoke=True).replace(**kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PT.model_params_def(cfg.replace(attn_kind="mla"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PT.model_params_def(cfg.replace(n_experts=4, moe_d_ff=32))
+        PT.model_params_def(cfg)
+    if not cfg.frontend:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            PT.cache_def(cfg, 1, 4)
 
 
 # ---------------------------------------------------------------- models ----
@@ -286,7 +299,7 @@ def test_configs_are_the_reference_configs():
 
 def test_get_config_refuses_unported_archs():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("deepseek-v2-236b")
+        get_config("jamba-v0.1-52b")
     with pytest.raises(ValueError, match="unknown"):
         get_config("no-such-model")
 
@@ -302,16 +315,46 @@ def test_layer_plan_matches_reference():
             assert got == want
 
 
-@pytest.mark.parametrize("arch,count", [("granite-8b", 8_254_689_280),
-                                        ("gemma-7b", None),
-                                        ("yi-34b", 34_388_917_248),
-                                        ("gemma3-4b", 3_879_907_840)])
+@pytest.mark.parametrize("arch,count", [
+    ("granite-8b", 8_254_689_280), ("gemma-7b", None),
+    ("yi-34b", 34_388_917_248), ("gemma3-4b", 3_879_907_840),
+    ("deepseek-v2-236b", 235_741_434_880),
+    ("deepseek-v3-671b", 671_712_655_360)])
 def test_count_params_matches_reference(arch, count):
     """Full widths, from the definitions alone (nothing is allocated)."""
     want = RT.count_params(ref_get_config(arch))
     assert PT.count_params(get_config(arch)) == want
     if count is not None:
         assert want == count
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "deepseek-v3-671b",
+                                  "granite-8b"])
+def test_active_params_matches_reference(arch):
+    """top_k of the routed experts and the shared ones, at full width (a
+    dense config: all of its parameters)."""
+    cfg = get_config(arch)
+    assert PT.active_params(cfg) == RT.active_params(ref_get_config(arch))
+    if not cfg.n_experts:
+        assert PT.active_params(cfg) == PT.count_params(cfg)
+
+
+def test_deepseek_v2_at_8_layers_is_chip_smokes_model():
+    """``chip_smoke.py``'s ``serve_deepseek`` serves deepseek-v2-236b cut
+    to 8 layers (1 dense + 7 MLA + MoE): its parameter constant is the
+    reference's count of that config."""
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    chip = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip)
+    cfg = ref_get_config("deepseek-v2-236b").replace(
+        n_layers=chip.DEEPSEEK_LAYERS)
+    want = RT.count_params(cfg)
+    assert chip.DEEPSEEK_PARAMS == want == PT.count_params(
+        get_config("deepseek-v2-236b").replace(n_layers=chip.DEEPSEEK_LAYERS))
+    assert [s.mlp for s in PT._layer_specs(cfg)] == ["dense"] + ["moe"] * 7
 
 
 def test_init_params_rules():
@@ -341,15 +384,39 @@ def test_concrete_batch_matches_reference():
         np.testing.assert_array_equal(got[key].numpy(), np.asarray(want[key]))
 
 
+def _trunk(model, tokens):
+    """Every position's logits and the summed aux loss through the blocks,
+    as ``forward(mode="train")`` computes them less an MTP head."""
+    x = layers.embed(model.embed, tokens)
+    pos = torch.arange(tokens.shape[1])[None].expand(*tokens.shape)
+    aux = torch.zeros(())
+    with torch.inference_mode():
+        for block in model.layers:
+            x, _, a = block(x, pos)
+            aux = aux if a is None else aux + a
+        return model.logits(x), {"aux_loss": aux}
+
+
 def test_forward_matches_reference(pair):
+    """Every position's logits and the MoE layers' summed aux loss (0 for
+    a dense config; f32 atol 1e-6). DeepSeek-V3's MTP head: the port's
+    train forward raises (its MTP logits wait for training), and the trunk
+    is held to the reference's main logits."""
     cfg, params, model = pair
     batch = ref_concrete_batch(cfg, B, S)
-    want, _ = RT.forward(params, batch, cfg, mode="train")
-    got, extras = PT.forward(model, {"tokens": _t(batch["tokens"])},
-                             mode="train")
+    want, want_extras = RT.forward(params, batch, cfg, mode="train")
+    tokens = _t(batch["tokens"])
+    if cfg.mtp_depth:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            PT.forward(model, {"tokens": tokens}, mode="train")
+        got, extras = _trunk(model, tokens)
+    else:
+        got, extras = PT.forward(model, {"tokens": tokens}, mode="train")
     assert got.shape == (B, S, cfg.vocab_size)
     _assert_logits_close(got.numpy(), want, cfg.name)
-    assert float(extras["aux_loss"]) == 0.0
+    np.testing.assert_allclose(float(extras["aux_loss"]),
+                               float(want_extras["aux_loss"]), atol=1e-6)
+    assert (float(extras["aux_loss"]) > 0) == bool(cfg.n_experts)
 
 
 def test_prefill_logits_matches_reference(pair):
@@ -381,7 +448,8 @@ def test_decode_steps_match_reference(pair):
     want_cache = cache_from_reference(jax.tree.map(np.asarray, ref_cache),
                                       cfg, device="cpu")
     for a, b in zip(cache["layers"], want_cache["layers"], strict=True):
-        for key in ("k", "v"):
+        assert a.keys() == b.keys()
+        for key in a:
             want_kv = b[key].numpy()
             # gemma3: the logits' bar, a unit of the cache's scale
             atol = LOGITS_REL[cfg.name] * max(1.0, np.abs(want_kv).max()) \
