@@ -50,11 +50,15 @@ to 0 just before it and read just after:
   head dim 256, a windowed launch under a quarter of a global one's time)
   then yi-34b (68.78 GB of weights on the card, prefill of 1 x
   2,048 tokens, 4 requests of 16 + 16 tokens, decode beside its
-  weight-read bound) and, last, deepseek-v2-236b at full width cut to 8
-  layers (58.38 GB: MLA's prefill on the kernel at q/k head dim 192 and v
-  head dim 128, 1 x 4,096 tokens; its absorbed decode over the latent
-  cache; the sort-based MoE of 160 experts; 4 requests of 16 + 16
-  tokens).
+  weight-read bound), deepseek-v2-236b at full width cut to 8 layers
+  (58.38 GB: MLA's prefill on the kernel at q/k head dim 192 and v head
+  dim 128, 1 x 4,096 tokens; its absorbed decode over the latent cache;
+  the sort-based MoE of 160 experts; 4 requests of 16 + 16 tokens) and,
+  last, jamba-v0.1-52b at full width cut to 16 layers (52.1 GB: 14 mamba
+  layers, each one launch of the selective scan kernel in a prefill of 1
+  x 32,768 tokens and in each decode step through the float32 state; 2
+  NoPE attention layers on the flash kernel; the MoE on every second
+  layer; 4 requests of 16 + 16 tokens).
 
 Four kernels have routes, and every check and path records the one it
 took (``ops.route_counts``): every float64 ``rbf_kernel_matrix`` runs on
@@ -2930,14 +2934,30 @@ def _row_rel(got, want) -> float:
     return float((err / w.abs().amax(-1).clamp_min(1e-30)).max())
 
 
-def flash_bf16_errors(got, q, k, v, causal=True, window=None) -> dict:
+def flash_bf16_errors(got, q, k, v, causal=True, window=None,
+                      tail=None) -> dict:
     """The kernel's output ``got`` on bf16 q, k, v against the plain
     version run in float32 on the same inputs (row by row, ``_row_rel``),
-    beside the plain version's own error in bf16."""
+    beside the plain version's own error in bf16. With ``tail``, the last
+    ``tail`` queries alone against every key (the plain form at their
+    offset, ``attention.sdpa``: a float32 score block over all the rows of
+    a long prefill does not fit beside its model)."""
     from repro_torch.kernels import ref
-    want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
-                                   causal=causal, window=window)
-    plain = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    if tail is None:
+        want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                       causal=causal, window=window)
+        plain = ref.flash_attention_ref(q, k, v, causal=causal,
+                                        window=window)
+    else:
+        from repro_torch.models import attention
+        off = q.shape[2] - tail
+        require(off > 0, f"a tail of {tail} queries of {q.shape[2]}")
+        qs, ks, vs = (t.transpose(1, 2) for t in (q[:, :, off:], k, v))
+        want, plain = (attention.sdpa(
+            *(t.to(dtype) for t in (qs, ks, vs)), causal=causal,
+            q_offset=off, window=window).transpose(1, 2)
+            for dtype in (torch.float32, q.dtype))
+        got = got[:, :, off:]
     return {"row_rel_err": _row_rel(got, want),
             "plain_row_rel_err": _row_rel(plain, want),
             "max_abs_err": float((got.float() - want).abs().max()),
@@ -3094,21 +3114,20 @@ def _time_flash(shape, check: bool) -> dict:
     return rec
 
 
-def _mixer_routes(block, x, kv_shape):
+def _mixer_routes(block, x, cache_def):
     """One block's attention (its mixer, after its first norm) fed the same
     input ``x`` (B, P, d) by both routes: all P positions at once (prefill;
-    through the kernel on the card) and token by token through a fresh KV
-    cache (decode; plain attention; MLA's absorbed form). ``kv_shape``: the
-    shape of k and of v, or {cache entry: shape} (MLA's ``c`` and ``kr``).
-    Returns both outputs."""
+    through the kernel on the card) and token by token through a fresh
+    cache drawn from ``cache_def`` (decode; plain attention; MLA's absorbed
+    form; mamba's state), in x's dtype but for the leaves that name their
+    own (mamba's float32 ``ssm``). Returns both outputs."""
+    from repro_torch.models.params import init_params
     B, P = x.shape[:2]
     pos = torch.arange(P, device=x.device)[None].expand(B, P)
     h = block.ln1(x)
     pre, _ = block.mixer(h, pos)
-    shapes = kv_shape if isinstance(kv_shape, dict) \
-        else {"k": kv_shape, "v": kv_shape}
-    cache = {name: torch.zeros(shape, dtype=x.dtype, device=x.device)
-             for name, shape in shapes.items()}
+    cache = init_params(cache_def, torch.Generator(device=x.device), x.dtype,
+                        x.device)
     dec = torch.cat([block.mixer(h[:, t:t + 1], pos[:, t:t + 1], cache=cache,
                                  step=t)[0] for t in range(P)], 1)
     return pre, dec
@@ -3217,18 +3236,18 @@ def phase_serve_lm(flash_ms: float):
     del cache
 
     # (1) every prefill layer's attention on the main path's own inputs
-    attn = _checked_prefill(model, tokens, flash_bf16_errors)
+    attn = _checked_prefill(model, tokens, {
+        "flash_attention": flash_bf16_errors})["flash_attention"]
     torch.cuda.empty_cache()
 
     # (2) layer by layer: the same input through both routes, bf16 and f32
-    kv_shape = (SERVE_B, PROMPT, cfg.n_kv_heads, cfg.head_dim_)
     pos = torch.arange(PROMPT, device=prompt.device)[None].expand(SERVE_B,
                                                                  PROMPT)
     with torch.inference_mode():
         x = embed(model.embed, prompt)
         layers = []
         for i, block in enumerate(model.layers):
-            layers.append({"layer": i, **_layer_routes(block, x, kv_shape)})
+            layers.append({"layer": i, **_layer_routes(block, x, cfg, i)})
             x = block(x, pos)[0]
     worst_f32 = max(r["f32"] for r in layers)
     bf16_ok = all(r["bf16_kernel_route"] <= 2.0 * r["bf16_plain_route"]
@@ -3328,9 +3347,10 @@ WINDOW_SHARE_MAX = 0.25
 #: yi-34b's prefill; its requests' prompt and new tokens
 YI_PREFILL_B, YI_PREFILL_S = 1, 2048
 YI_PROMPT, YI_NEW_TOKENS = 16, 16
-#: the most device memory that may be allocated before yi's weights
-#: (68.78 GB of the card's 80) are drawn
-YI_FREE_BEFORE = 2 ** 30
+#: the most device memory that may be allocated before a served model's
+#: weights are drawn (yi's 68.78 GB, deepseek's 58.38 and jamba's 52.1 of
+#: the card's 80; ``_serve_guard``)
+SERVE_FREE_BEFORE = 2 ** 30
 #: deepseek-v2-236b at full width, cut to DEEPSEEK_LAYERS layers (1 dense +
 #: 7 MLA + MoE; its 60 are 471 GB in bf16, more than the card's 80): the
 #: parameters of that config (``tests/test_torch_lm.py`` holds the constant
@@ -3342,9 +3362,6 @@ DEEPSEEK_PREFILL_B, DEEPSEEK_PREFILL_S = 1, 4096
 DEEPSEEK_PROMPT, DEEPSEEK_NEW_TOKENS = 16, 16
 #: MLA's prefill attention (B, H, KV, S, DQK, DV), bf16, causal
 FLASH_MLA = (1, 128, 128, 4096, 192, 128)
-#: the most device memory that may be allocated before deepseek's weights
-#: (58.38 GB) are drawn
-DEEPSEEK_FREE_BEFORE = 2 ** 30
 #: heads of an MLA prefill layer held to the plain version in float32 at a
 #: time: all 128 at once would be a 8.6 GB score block beside the weights
 MLA_CHECK_HEADS = 16
@@ -3377,32 +3394,103 @@ DEEPSEEK_POS0_REL = 0.02
 POS0_REL_F32 = 1.5e-5
 
 
+#: jamba-v0.1-52b at full width, cut to JAMBA_LAYERS layers (two of its
+#: period-8 blocks: 2 NoPE GQA + 14 mamba layers, 8 with the MoE; its 32
+#: are 103.1 GB in bf16, more than the card's 80): the parameters of that
+#: config (``tests/test_torch_ssm.py`` holds the constant to the
+#: reference's count)
+JAMBA_LAYERS = 16
+JAMBA_PARAMS = 26_053_595_136
+#: its prefill (``prefill_32k``'s length, one sequence: Jamba's users send
+#: long prompts); its requests' prompt and new tokens
+JAMBA_PREFILL_B, JAMBA_PREFILL_S = 1, 32768
+JAMBA_PROMPT, JAMBA_NEW_TOKENS = 16, 16
+#: the selective scan at the main path's prefill (B, S, Din, St), bf16,
+#: and at its decode step (the 4 requests, one token)
+SCAN_PREFILL = (1, 32768, 8192, 16)
+SCAN_DECODE = (4, 1, 8192, 16)
+#: positions of a prefill layer's scan held to the plain version (its
+#: first and, from the kernel's state there, its last): a float32 (B, S,
+#: Din) tensor over all 32,768 would be 1.07 GB a copy, and the plain
+#: loop a launch chain of 6 a step
+JAMBA_CHECK_S = 2048
+#: query heads of an attention layer held to the plain version at a time
+#: (two kv heads), over its last JAMBA_CHECK_S queries: all 32 at once
+#: against 32,768 keys would be a 8.6 GB float32 score block beside the
+#: weights
+JAMBA_CHECK_HEADS = 8
+#: the plain version's timed length at the prefill's width
+SCAN_PLAIN_S = 2048
+#: the kernel against the plain version on the same float32 inputs, row by
+#: row (``_row_rel``; the state h_out likewise): the two sum over the 16
+#: states in other orders and the kernel's exp is the SFU's (a few ulps
+#: of each factor of the state's products)
+SCAN_F32_REL = 1e-5
+#: a bf16 scan against the plain version run in float32 on the same bf16
+#: inputs, row by row: the reference's own bf16-against-f32 gap on the CPU
+#: at SMOKE size is 0.0058-0.0069 (seeds 3-5; the rounding of dt * u to
+#: bf16 and of y; ``tests/test_torch_ssm.py``); three times that. The
+#: kernel must also come within twice the bf16 plain version's own error
+JAMBA_SCAN_ROW_REL = 0.02
+#: one mamba layer fed the same float32 input by the prefill form (one
+#: launch over the prompt) and by decode step by step through its cache,
+#: its weights alone in float32, row by row: the reference's own gap on
+#: the CPU at SMOKE size is 3.3e-6-5.8e-6 (seeds 0-2); full width sums
+#: its projections over 64 times as many terms
+JAMBA_LAYER_REL_F32 = 1e-4
+#: the (4, 1) forward against decode step 0 of the 4 requests, bf16, max
+#: |diff| over the logits' largest magnitude: the reference's own gap at
+#: SMOKE size is 0.0 (seeds 0-2: the same arithmetic on the same 4
+#: tokens, the MoE's capacity set by them in both); DEEPSEEK_POS0_REL's bar
+JAMBA_POS0_REL = 0.02
+
+
+def attention_layers(cfg) -> int:
+    """The layers of ``cfg``'s plan whose mixer is attention (GQA or MLA):
+    one flash_attention launch each in a prefill."""
+    from repro_torch.models.transformer import _layer_specs
+    return sum(s.mixer in ("attn", "mla") for s in _layer_specs(cfg))
+
+
+def mamba_layers(cfg) -> int:
+    """The layers of ``cfg``'s plan whose mixer is mamba: one
+    selective_scan launch each in a prefill and in a decode step."""
+    from repro_torch.models.transformer import _layer_specs
+    return sum(s.mixer == "mamba" for s in _layer_specs(cfg))
+
+
 def _lm_main_path(model, cfg, tokens, prompt, new_tokens: int,
                   prefills: int) -> dict:
     """The LM serving path of ``model``: ``prefills`` prefills of
-    ``tokens`` (each layer one flash_attention launch, checked per call),
-    then ``prompt``'s requests served through the KV cache, the prompt
-    teacher-forced and ``new_tokens`` greedy. Returns the times, each
-    prefill's windowed and global launches, the prompt's logits from the
-    cache and the generated tokens."""
+    ``tokens`` (each attention layer one flash_attention launch, each
+    mamba layer one selective_scan launch, checked per call), then
+    ``prompt``'s requests served through the cache, the prompt
+    teacher-forced and ``new_tokens`` greedy (each mamba layer one
+    selective_scan launch a step, checked over the steps). Returns the
+    times, each prefill's windowed and global launches, the prompt's
+    logits from the cache and the generated tokens."""
     from repro_torch.kernels import ops
     from repro_torch.models.transformer import decode_step, init_cache
     from repro_torch.serving import build_serve_step, prefill_logits
+    n_attn, n_mamba = attention_layers(cfg), mamba_layers(cfg)
     prefill_s, kinds = [], []
     for _ in range(prefills):
-        before = ops.launch_counts()["flash_attention"]
+        before = ops.launch_counts()
         windows = ops.window_counts()
         sync()
         tp = time.perf_counter()
         logits = prefill_logits(model, {"tokens": tokens})
         sync()
         prefill_s.append(time.perf_counter() - tp)
-        launched = ops.launch_counts()["flash_attention"] - before
+        after = ops.launch_counts()
+        launched = {name: after[name] - before[name]
+                    for name in ("flash_attention", "selective_scan")}
         kinds.append({key: n - windows[key]
                       for key, n in ops.window_counts().items()})
-        require(launched == cfg.n_layers,
-                f"{cfg.name}: {launched} flash_attention launches in one "
-                f"prefill, want {cfg.n_layers}")
+        require(launched == {"flash_attention": n_attn,
+                             "selective_scan": n_mamba},
+                f"{cfg.name}: {launched} launches in one prefill, want "
+                f"{n_attn} flash_attention and {n_mamba} selective_scan")
         require(bool(torch.isfinite(logits).all())
                 and tuple(logits.shape) == (tokens.shape[0], 1,
                                             cfg.vocab_size),
@@ -3412,6 +3500,7 @@ def _lm_main_path(model, cfg, tokens, prompt, new_tokens: int,
     B, P = prompt.shape
     cache = init_cache(cfg, B, P + new_tokens, torch.bfloat16)
     serve = build_serve_step(cfg)
+    scans = ops.launch_counts()["selective_scan"]
     sync()
     tp = time.perf_counter()
     prompt_logits = []
@@ -3429,6 +3518,11 @@ def _lm_main_path(model, cfg, tokens, prompt, new_tokens: int,
         sync()
         step_s.append(time.perf_counter() - ts)
         out.append(tok)
+    decode_steps = P + new_tokens - 1
+    scans = ops.launch_counts()["selective_scan"] - scans
+    require(scans == decode_steps * n_mamba,
+            f"{cfg.name}: {scans} selective_scan launches over "
+            f"{decode_steps} decode steps, want {n_mamba} a step")
     generated = torch.stack(out, 1)
     require(tuple(generated.shape) == (B, new_tokens)
             and int(generated.min()) >= 0
@@ -3443,43 +3537,51 @@ def _lm_main_path(model, cfg, tokens, prompt, new_tokens: int,
             "prompt_s": prompt_s, "decode_ms_per_step": decode_ms,
             "decode_ms_per_step_min": 1e3 * min(steady),
             "decode_tokens_per_s": B / (decode_ms / 1e3),
+            "decode_steps": decode_steps,
             "first_tokens": generated[0].tolist(),
             "prompt_logits": torch.stack(prompt_logits, 1)}
 
 
-def _checked_prefill(model, tokens, check) -> list:
-    """One prefill of ``tokens`` with every flash_attention launch also
-    passed, with its inputs and output, to ``check``; returns its
-    records."""
+def _checked_prefill(model, tokens, checks: dict) -> dict:
+    """One prefill of ``tokens`` with every launch of each kernel that
+    ``checks`` names ({ops name: check}) also passed, its output first and
+    then its arguments, to that kernel's check; returns {ops name: the
+    checks' records, in launch order}."""
     from repro_torch.kernels import ops
     from repro_torch.serving import prefill_logits
-    kernel, recs = ops.flash_attention, []
+    kernels = {name: getattr(ops, name) for name in checks}
+    recs = {name: [] for name in checks}
 
-    def checked(q, k, v, *, causal=True, window=None):
-        got = kernel(q, k, v, causal=causal, window=window)
-        recs.append(check(got, q, k, v, causal, window))
-        return got
-    ops.flash_attention = checked
+    def checked(name):
+        def launch(*args, **kwargs):
+            got = kernels[name](*args, **kwargs)
+            recs[name].append(checks[name](got, *args, **kwargs))
+            return got
+        return launch
+    for name in checks:
+        setattr(ops, name, checked(name))
     try:
         prefill_logits(model, {"tokens": tokens})
     finally:
-        ops.flash_attention = kernel
+        for name, kernel in kernels.items():
+            setattr(ops, name, kernel)
     sync()
+    torch.cuda.empty_cache()
     return recs
 
 
 def _forward_checked(model, tokens):
     """The forward's logits over ``tokens`` by the prefill route: each
-    layer one flash_attention launch, the logits finite."""
+    attention layer one flash_attention launch, the logits finite."""
     from repro_torch.kernels import ops
     from repro_torch.models.transformer import forward
     before = ops.launch_counts()["flash_attention"]
     logits, _ = forward(model, {"tokens": tokens})
     launched = ops.launch_counts()["flash_attention"] - before
-    require(launched == len(model.layers)
-            and bool(torch.isfinite(logits).all()),
+    want = attention_layers(model.cfg)
+    require(launched == want and bool(torch.isfinite(logits).all()),
             f"{launched} flash_attention launches in the forward, want "
-            f"{len(model.layers)}; or its logits are not finite")
+            f"{want}; or its logits are not finite")
     return logits
 
 
@@ -3492,15 +3594,19 @@ def _pos0_routes(model, prompt, prompt_logits):
                  .abs().max()), full
 
 
-def _layer_routes(block, x, kv_shape) -> dict:
-    """One block's attention fed ``x`` by the prefill route (the kernel)
-    and the decode route (plain, through the cache) in bf16 and, with the
-    block's weights in float32, in float32 (``_mixer_routes``)."""
+def _layer_routes(block, x, cfg, layer: int) -> dict:
+    """Layer ``layer`` of ``cfg``'s plan (``block``, or its attention
+    alone) fed ``x`` by the prefill route (the kernel) and the decode route
+    (plain, through the layer's own cache for x's B and P rows) in bf16
+    and, with the block's weights in float32, in float32
+    (``_mixer_routes``)."""
     import copy
+    from repro_torch.models.transformer import _layer_cache_def, _layer_specs
+    cache_def = _layer_cache_def(_layer_specs(cfg)[layer], cfg, *x.shape[:2])
     with torch.inference_mode():
-        pre, dec = _mixer_routes(block, x, kv_shape)
+        pre, dec = _mixer_routes(block, x, cache_def)
         block32 = copy.deepcopy(block).float()
-        pre32, dec32 = _mixer_routes(block32, x.float(), kv_shape)
+        pre32, dec32 = _mixer_routes(block32, x.float(), cache_def)
         del block32
     return {"f32": _row_rel(pre32, dec32),
             "bf16_kernel_route": _row_rel(pre, dec32),
@@ -3706,7 +3812,8 @@ def phase_serve_gemma3():
                 "row_rel_err": _row_rel(out, want),
                 "plain_row_rel_err": _row_rel(plain, want),
                 "max_abs_err": float((out.float() - want).abs().max())}
-    attn = _checked_prefill(model, tokens, check)
+    attn = _checked_prefill(model, tokens,
+                            {"flash_attention": check})["flash_attention"]
     torch.cuda.empty_cache()
 
     # (2) the first local layer through both routes, past the window
@@ -3716,8 +3823,7 @@ def phase_serve_gemma3():
     with torch.inference_mode():
         x = embed(model.embed, routes_tokens)
     block = model.layers[layer]
-    local = _layer_routes(block, x, (
-        1, GEMMA3_ROUTES_S, cfg.n_kv_heads, cfg.head_dim_))
+    local = _layer_routes(block, x, cfg, layer)
     local["layer"] = layer
     with torch.inference_mode():
         h = block.ln1(x)
@@ -3795,12 +3901,119 @@ def _cuda_tensors_gb() -> list:
     return sorted(found, reverse=True)[:8]
 
 
+def _serve_guard(phase: str) -> int:
+    """Frees what the earlier phases left and raises unless under
+    SERVE_FREE_BEFORE is still allocated; returns the bytes allocated."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    if before >= SERVE_FREE_BEFORE:
+        raise AssertionError(
+            f"{phase}: {before / 1e9:.3f} GB allocated before init, want "
+            f"under {SERVE_FREE_BEFORE / 1e9:.3f}: {_cuda_tensors_gb()}")
+    return before
+
+
+def _serve_model(phase: str, cfg, n_params: int, prefill_shape,
+                 prompt_len: int, warm_up: bool = True):
+    """``cfg``'s model in bf16, its weights drawn from seed 0 (its count
+    required equal to ``count_params`` and ``n_params``), the prefill's
+    tokens (``prefill_shape``, seed 0) and SERVE_B requests of
+    ``prompt_len`` tokens (seed 1); with ``warm_up``, one prefill before
+    the counted path, so that its time is a warm one (the first call's
+    GEMM plans and allocations: deepseek's 0.70 s against ~0.2). The peak
+    memory counts from here. Returns the model, the tokens, the prompt and
+    the phase's record so far."""
+    import gc
+    from repro_torch.launch.inputs import concrete_batch
+    from repro_torch.models.transformer import (count_params, forward,
+                                                init_model)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_model(cfg, seed=0, dtype=torch.bfloat16)
+    sync()
+    init_s = time.perf_counter() - t0
+    got = sum(p.numel() for p in model.parameters())
+    require(got == count_params(cfg) == n_params,
+            f"{phase}: {got} parameters, want {n_params}")
+    tokens = concrete_batch(cfg, *prefill_shape, seed=0)["tokens"]
+    prompt = concrete_batch(cfg, SERVE_B, prompt_len, seed=1)["tokens"]
+    if warm_up:
+        with torch.inference_mode():
+            forward(model, {"tokens": tokens}, mode="prefill")
+        sync()
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    return model, tokens, prompt, {
+        "phase": phase, "arch": cfg.name, "n_layers": cfg.n_layers,
+        "n_params": got, "weight_gb": weight_bytes / 1e9, "dtype": "bfloat16",
+        "init_s": init_s, "prefill_shape": list(prefill_shape),
+        "serve_batch": SERVE_B, "prompt": prompt_len}
+
+
+def _serve_main(phase: str, model, cfg, tokens, prompt, new_tokens: int,
+                step_bytes: float):
+    """The served model's main path (``_lm_main_path``, one prefill), with
+    the launch counts set to 0 just before it and read just after: every
+    attention launch on the wgmma route and global, each mamba layer one
+    scan launch a prefill and a decode step. Decode is reported beside the
+    step's read of ``step_bytes`` at HBM_BPS. Returns the prompt's logits
+    through the cache and the record's fields."""
+    from repro_torch.kernels import ops
+    # ---- the main path: counts from 0 just before it, read just after
+    ops.reset_launch_counts()
+    main = _lm_main_path(model, cfg, tokens, prompt, new_tokens, prefills=1)
+    counts = ops.launch_counts()
+    routes = ops.route_counts()
+    windows = ops.window_counts()
+    # ---- end of the main path
+    peak = torch.cuda.max_memory_allocated()
+    n_attn, n_mamba = attention_layers(cfg), mamba_layers(cfg)
+    require(routes["flash_attention"] == {"fma": 0, "mma": 0, "wgmma": n_attn}
+            and windows == {"windowed": 0, "global": n_attn},
+            f"{phase}: the prefill's attention took routes "
+            f"{routes['flash_attention']} ({windows}), want wgmma and global "
+            f"for all {n_attn}")
+    require(counts["selective_scan"] == n_mamba * (1 + main["decode_steps"]),
+            f"{phase}: {counts['selective_scan']} selective_scan launches on "
+            f"the main path, want {n_mamba} a prefill and a decode step")
+    ops.reset_launch_counts()
+    bound_ms = 1e3 * step_bytes / HBM_BPS
+    prompt_logits = main.pop("prompt_logits")
+    return prompt_logits, {
+        **main, "new_tokens": new_tokens,
+        "decode_step_bytes_gb": step_bytes / 1e9,
+        "decode_step_bound_ms": bound_ms,
+        "decode_over_bound": main["decode_ms_per_step"] / bound_ms,
+        "peak_gb": peak / 1e9, "main_path_launches": counts,
+        "main_path_routes": routes, "main_path_windows": windows,
+        "logits_max_abs": float(prompt_logits.float().abs().max())}
+
+
+def _serve_done(rec: dict, t0: float) -> None:
+    """Emits the phase's record with the checks' peak memory and launches
+    and its seconds."""
+    from repro_torch.kernels import ops
+    emit({**rec,
+          "peak_gb_with_checks": torch.cuda.max_memory_allocated() / 1e9,
+          "check_launches": ops.launch_counts(),
+          "seconds": time.perf_counter() - t0})
+
+
+def _serve_free() -> None:
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def phase_serve_yi():
     """yi-34b at full width and depth in bf16 on the card (68.78 GB of
     weights, the largest dense config that one card holds whole), weights
     drawn from a seeded generator, after every other phase has released its
-    tensors (under YI_FREE_BEFORE allocated). The main path, with the
-    launch counts set to 0 just before it and read just after: prefill of
+    tensors (``_serve_guard``). The main path (``_serve_main``): prefill of
     1 x 2,048 tokens (60 flash_attention launches at head dim 128, all on
     the wgmma route), then SERVE_B requests of YI_PROMPT tokens
     teacher-forced and YI_NEW_TOKENS greedy. A float32 copy of the weights
@@ -3812,60 +4025,25 @@ def phase_serve_yi():
     prompt's forward against its teacher-forced decode at position 0 in
     bf16 (POS0_ATOL_BF16). Decode is reported beside the step's
     weight-read bound."""
-    import gc
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ops
-    from repro_torch.launch.inputs import concrete_batch
     from repro_torch.models.layers import embed
-    from repro_torch.models.transformer import count_params, init_model
     t0 = time.perf_counter()
-    gc.collect()
-    torch.cuda.empty_cache()
-    before = torch.cuda.memory_allocated()
-    if before >= YI_FREE_BEFORE:
-        raise AssertionError(
-            f"serve_yi: {before / 1e9:.3f} GB allocated before init, want "
-            f"under {YI_FREE_BEFORE / 1e9:.3f}: {_cuda_tensors_gb()}")
-    torch.cuda.reset_peak_memory_stats()
+    before = _serve_guard("serve_yi")
     cfg = get_config("yi-34b")
     require(cfg.n_layers == 60 and cfg.d_model == 7168,
             "serve_yi: not yi-34b's full width and depth")
-    model = init_model(cfg, seed=0, dtype=torch.bfloat16)
-    sync()
-    init_s = time.perf_counter() - t0
-    n_params = sum(p.numel() for p in model.parameters())
-    require(n_params == count_params(cfg) == YI_PARAMS,
-            f"serve_yi: {n_params} parameters, want {YI_PARAMS}")
-    weight_bytes = sum(p.numel() * p.element_size()
-                       for p in model.parameters())
-    tokens = concrete_batch(cfg, YI_PREFILL_B, YI_PREFILL_S,
-                            seed=0)["tokens"]
-    prompt = concrete_batch(cfg, SERVE_B, YI_PROMPT, seed=1)["tokens"]
-
-    # ---- the main path: counts from 0 just before it, read just after
-    ops.reset_launch_counts()
-    main = _lm_main_path(model, cfg, tokens, prompt, YI_NEW_TOKENS,
-                         prefills=1)
-    main_counts = ops.launch_counts()
-    main_routes = ops.route_counts()
-    main_windows = ops.window_counts()
-    # ---- end of the main path
-    peak = torch.cuda.max_memory_allocated()
-    require(main_routes["flash_attention"] == {
-        "fma": 0, "mma": 0, "wgmma": cfg.n_layers}
-        and main_windows == {"windowed": 0, "global": cfg.n_layers},
-        f"serve_yi: the prefill's attention took routes "
-        f"{main_routes['flash_attention']} ({main_windows}), want wgmma and "
-        "global for all 60")
-    ops.reset_launch_counts()
+    model, tokens, prompt, rec = _serve_model(
+        "serve_yi", cfg, YI_PARAMS, (YI_PREFILL_B, YI_PREFILL_S), YI_PROMPT,
+        warm_up=False)
+    prompt_logits, main = _serve_main("serve_yi", model, cfg, tokens, prompt,
+                                      YI_NEW_TOKENS, rec["weight_gb"] * 1e9)
 
     # (1) every prefill layer's attention on its own inputs
-    attn = _checked_prefill(model, tokens, flash_bf16_errors)
-    torch.cuda.empty_cache()
+    attn = _checked_prefill(model, tokens, {
+        "flash_attention": flash_bf16_errors})["flash_attention"]
 
     # (2) the first and last layers through both routes, on the prompt's
     # hidden states at their depth
-    kv_shape = (SERVE_B, YI_PROMPT, cfg.n_kv_heads, cfg.head_dim_)
     pos = torch.arange(YI_PROMPT, device=prompt.device)[None].expand(
         SERVE_B, YI_PROMPT)
     layers = []
@@ -3873,38 +4051,20 @@ def phase_serve_yi():
         x = embed(model.embed, prompt)
         for i, block in enumerate(model.layers):
             if i in (0, cfg.n_layers - 1):
-                layers.append({"layer": i, **_layer_routes(block, x,
-                                                            kv_shape)})
+                layers.append({"layer": i,
+                               **_layer_routes(block, x, cfg, i)})
             x = block(x, pos)[0]
     del x
 
     # (3) position 0 through both routes, bf16
-    pos0_bf16, _ = _pos0_routes(model, prompt, main["prompt_logits"])
-    step_bound_ms = 1e3 * weight_bytes / HBM_BPS
-    rec = {"phase": "serve_yi", "arch": cfg.name, "n_params": n_params,
-           "weight_gb": weight_bytes / 1e9, "allocated_before_gb":
-               before / 1e9, "dtype": "bfloat16", "init_s": init_s,
-           "prefill_shape": [YI_PREFILL_B, YI_PREFILL_S],
-           **{key: v for key, v in main.items() if key != "prompt_logits"},
-           "decode_step_bound_ms": step_bound_ms,
-           "decode_over_bound": main["decode_ms_per_step"] / step_bound_ms,
-           "peak_gb": peak / 1e9,
-           "peak_gb_with_checks": torch.cuda.max_memory_allocated() / 1e9,
-           "serve_batch": SERVE_B, "prompt": YI_PROMPT,
-           "new_tokens": YI_NEW_TOKENS, "main_path_launches": main_counts,
-           "main_path_routes": main_routes,
-           "main_path_windows": main_windows,
-           "prefill_attention_row_rel_max": max(r["row_rel_err"]
-                                                for r in attn),
-           "prefill_attention_plain_row_rel_min": min(
-               r["plain_row_rel_err"] for r in attn),
-           "layers": layers,
-           "logits_max_abs": float(main["prompt_logits"].float().abs()
-                                   .max()),
-           "pos0_max_abs_diff_bf16": pos0_bf16,
-           "check_launches": ops.launch_counts(),
-           "seconds": time.perf_counter() - t0}
-    emit(rec)
+    pos0_bf16, _ = _pos0_routes(model, prompt, prompt_logits)
+    rec.update(main, allocated_before_gb=before / 1e9,
+               prefill_attention_row_rel_max=max(r["row_rel_err"]
+                                                 for r in attn),
+               prefill_attention_plain_row_rel_min=min(
+                   r["plain_row_rel_err"] for r in attn),
+               layers=layers, pos0_max_abs_diff_bf16=pos0_bf16)
+    _serve_done(rec, t0)
     require(len(attn) == cfg.n_layers and all(map(flash_bf16_ok, attn)),
             "serve_yi: a prefill layer's attention is off its plain version "
             "in float32 by more than FLASH_ROW_REL or twice the bf16 plain "
@@ -3914,20 +4074,23 @@ def phase_serve_yi():
     require(pos0_bf16 <= POS0_ATOL_BF16,
             f"serve_yi: the prompt's forward and decode logits differ at "
             f"position 0 by {pos0_bf16} (bf16) > {POS0_ATOL_BF16}")
-    del model, main
-    gc.collect()
-    torch.cuda.empty_cache()
-    return main_counts, main_routes
+    del model
+    _serve_free()
+    return main["main_path_launches"], main["main_path_routes"]
 
 
 def _flash_errors_by_heads(got, q, k, v, causal=True, window=None,
-                           heads: int = MLA_CHECK_HEADS) -> dict:
-    """``flash_bf16_errors`` taken ``heads`` heads at a time (q, k, v with
-    one kv head a head, as MLA's): each of its numbers is a maximum over
-    rows, so the maxima over the chunks are the whole tensors' numbers."""
+                           heads: int = MLA_CHECK_HEADS, tail=None) -> dict:
+    """``flash_bf16_errors`` taken ``heads`` query heads (with their kv
+    heads) at a time, over the last ``tail`` queries where given: each of
+    its numbers is a maximum over rows, so the maxima over the chunks are
+    the whole tensors' numbers."""
+    G = q.shape[1] // k.shape[1]
+    require(heads % G == 0, f"{heads} heads a chunk, {G} a kv head")
     recs = [flash_bf16_errors(got[:, h:h + heads], q[:, h:h + heads],
-                              k[:, h:h + heads], v[:, h:h + heads], causal,
-                              window)
+                              k[:, h // G:(h + heads) // G],
+                              v[:, h // G:(h + heads) // G], causal, window,
+                              tail)
             for h in range(0, q.shape[1], heads)]
     torch.cuda.empty_cache()
     return {key: max(r[key] for r in recs) for key in recs[0]}
@@ -4089,46 +4252,31 @@ def phase_serve_deepseek():
     """deepseek-v2-236b at full width in bf16 on the card, cut to
     DEEPSEEK_LAYERS layers (1 dense + 7 MLA + MoE, 58.38 GB: its 60 layers
     are 471 GB), weights drawn from a seeded generator, after every other
-    phase has released its tensors (under DEEPSEEK_FREE_BEFORE allocated).
-    First, before the weights, flash_attention at MLA's prefill shape
-    (``_mla_flash_rows``: times beside the bounds, the plain version and
-    SDPA). The main path, with the launch counts set to 0 just before it
-    and read just after: prefill of 1 x 4,096 tokens (8 flash_attention
-    launches at (192, 128), all on the wgmma route, all global), then
-    SERVE_B requests of DEEPSEEK_PROMPT tokens teacher-forced through the
-    latent cache (MLA's absorbed decode) and DEEPSEEK_NEW_TOKENS greedy.
-    A float32 copy of the model (117 GB) cannot exist, so the checks are:
-    (1) every prefill layer's attention on its own bf16 q, k, v against
-    the plain version in float32 (FLASH_ROW_REL, twice the bf16 plain
-    version's error); (2) one MoE layer in bf16 against its weights alone
-    in float32 on the same input (``_moe_layer_check``); (3) the prompt's
-    first token through the forward ((4, 1): the MoE's capacity is set by
-    the same 4 tokens) against decode step 0, bf16 (DEEPSEEK_POS0_REL of
-    the logits' scale); (4) the last layer's attention fed the prompt's
-    hidden states by the prefill form and by the absorbed decode step by
-    step over the same cache rows, its weights alone in float32
-    (DEEPSEEK_MLA_REL_F32; bf16 recorded). Decode beside the step's
-    weight-read bound."""
-    import gc
+    phase has released its tensors (``_serve_guard``). First, before the
+    weights, flash_attention at MLA's prefill shape (``_mla_flash_rows``:
+    times beside the bounds, the plain version and SDPA). A warm-up
+    prefill, then the main path (``_serve_main``): prefill of 1 x 4,096
+    tokens (8 flash_attention launches at (192, 128), all on the wgmma
+    route, all global), then SERVE_B requests of DEEPSEEK_PROMPT tokens
+    teacher-forced through the latent cache (MLA's absorbed decode) and
+    DEEPSEEK_NEW_TOKENS greedy. A float32 copy of the model (117 GB)
+    cannot exist, so the checks are: (1) every prefill layer's attention
+    on its own bf16 q, k, v against the plain version in float32
+    (FLASH_ROW_REL, twice the bf16 plain version's error); (2) one MoE
+    layer in bf16 against its weights alone in float32 on the same input
+    (``_moe_layer_check``); (3) the prompt's first token through the
+    forward ((4, 1): the MoE's capacity is set by the same 4 tokens)
+    against decode step 0, bf16 (DEEPSEEK_POS0_REL of the logits' scale);
+    (4) the last layer's attention fed the prompt's hidden states by the
+    prefill form and by the absorbed decode step by step over the same
+    cache rows, its weights alone in float32 (DEEPSEEK_MLA_REL_F32; bf16
+    recorded). Decode beside the step's weight-read bound."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ops
-    from repro_torch.launch.inputs import concrete_batch
     from repro_torch.models.layers import embed
-    from repro_torch.models.transformer import (count_params, forward,
-                                                init_model)
+    from repro_torch.models.transformer import forward
     t0 = time.perf_counter()
-    gc.collect()
-    torch.cuda.empty_cache()
-    before = torch.cuda.memory_allocated()
-    if before >= DEEPSEEK_FREE_BEFORE:
-        raise AssertionError(
-            f"serve_deepseek: {before / 1e9:.3f} GB allocated before init, "
-            f"want under {DEEPSEEK_FREE_BEFORE / 1e9:.3f}: "
-            f"{_cuda_tensors_gb()}")
+    before = _serve_guard("serve_deepseek")
     flash_rec = _mla_flash_rows()
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
     full = get_config("deepseek-v2-236b")
     cfg = full.replace(n_layers=DEEPSEEK_LAYERS)
     require(full.n_layers == 60 and cfg.d_model == 5120
@@ -4137,47 +4285,19 @@ def phase_serve_deepseek():
                  DEEPSEEK_PREFILL_S, cfg.qk_nope_dim + cfg.qk_rope_dim,
                  cfg.v_head_dim) == FLASH_MLA,
             "serve_deepseek: not deepseek-v2-236b's full width")
-    t_init = time.perf_counter()
-    model = init_model(cfg, seed=0, dtype=torch.bfloat16)
-    sync()
-    init_s = time.perf_counter() - t_init
-    n_params = sum(p.numel() for p in model.parameters())
-    require(n_params == count_params(cfg) == DEEPSEEK_PARAMS,
-            f"serve_deepseek: {n_params} parameters, want {DEEPSEEK_PARAMS}")
-    weight_bytes = sum(p.numel() * p.element_size()
-                       for p in model.parameters())
-    tokens = concrete_batch(cfg, DEEPSEEK_PREFILL_B, DEEPSEEK_PREFILL_S,
-                            seed=0)["tokens"]
-    prompt = concrete_batch(cfg, SERVE_B, DEEPSEEK_PROMPT, seed=1)["tokens"]
-    # one prefill before the counted path, so that its time is a warm one
-    # (the first call's GEMM plans and allocations: 0.70 s against ~0.2)
-    with torch.inference_mode():
-        forward(model, {"tokens": tokens}, mode="prefill")
-    sync()
-
-    # ---- the main path: counts from 0 just before it, read just after
-    ops.reset_launch_counts()
-    main = _lm_main_path(model, cfg, tokens, prompt, DEEPSEEK_NEW_TOKENS,
-                         prefills=1)
-    main_counts = ops.launch_counts()
-    main_routes = ops.route_counts()
-    main_windows = ops.window_counts()
-    # ---- end of the main path
-    peak = torch.cuda.max_memory_allocated()
-    require(main_routes["flash_attention"] == {
-        "fma": 0, "mma": 0, "wgmma": cfg.n_layers}
-        and main_windows == {"windowed": 0, "global": cfg.n_layers},
-        f"serve_deepseek: the prefill's attention took routes "
-        f"{main_routes['flash_attention']} ({main_windows}), want wgmma and "
-        f"global for all {cfg.n_layers}")
-    ops.reset_launch_counts()
+    model, tokens, prompt, rec = _serve_model(
+        "serve_deepseek", cfg, DEEPSEEK_PARAMS,
+        (DEEPSEEK_PREFILL_B, DEEPSEEK_PREFILL_S), DEEPSEEK_PROMPT)
+    prompt_logits, main = _serve_main(
+        "serve_deepseek", model, cfg, tokens, prompt, DEEPSEEK_NEW_TOKENS,
+        rec["weight_gb"] * 1e9)
 
     # (1) every prefill layer's attention on its own inputs, at (192, 128)
-    attn = _checked_prefill(
-        model, tokens, lambda got, q, k, v, causal, window: {
+    attn = _checked_prefill(model, tokens, {
+        "flash_attention": lambda got, q, k, v, causal=True, window=None: {
             "dims": [q.shape[-1], v.shape[-1]],
-            **_flash_errors_by_heads(got, q, k, v, causal, window)})
-    torch.cuda.empty_cache()
+            **_flash_errors_by_heads(got, q, k, v, causal, window)}
+    })["flash_attention"]
 
     # (2) the first MoE layer, bf16 against its weights in float32
     moe_rec = _moe_layer_check(model, cfg, tokens)
@@ -4185,7 +4305,7 @@ def phase_serve_deepseek():
     # (3) the prompt's first token: a (4, 1) forward against decode step 0
     with torch.inference_mode():
         fwd, _ = forward(model, {"tokens": prompt[:, :1]})
-    dec0 = main["prompt_logits"][:, 0].float()
+    dec0 = prompt_logits[:, 0].float()
     pos0_rel = float((fwd[:, 0].float() - dec0).abs().max()
                      / dec0.abs().max())
 
@@ -4198,37 +4318,18 @@ def phase_serve_deepseek():
         x = embed(model.embed, prompt)
         for block in model.layers[:last]:
             x = block(x, pos)[0]
-        mla = _layer_routes(_attention_only(model.layers[last]), x, {
-            "c": (SERVE_B, DEEPSEEK_PROMPT, cfg.kv_lora_rank),
-            "kr": (SERVE_B, DEEPSEEK_PROMPT, cfg.qk_rope_dim)})
+        mla = _layer_routes(_attention_only(model.layers[last]), x, cfg,
+                            last)
     del x
-    step_bound_ms = 1e3 * weight_bytes / HBM_BPS
-    rec = {"phase": "serve_deepseek", "arch": cfg.name,
-           "n_layers": cfg.n_layers, "n_layers_published": full.n_layers,
-           "n_params": n_params, "weight_gb": weight_bytes / 1e9,
-           "allocated_before_gb": before / 1e9, "dtype": "bfloat16",
-           "init_s": init_s,
-           "prefill_shape": [DEEPSEEK_PREFILL_B, DEEPSEEK_PREFILL_S],
-           **{key: v for key, v in main.items() if key != "prompt_logits"},
-           "decode_step_bound_ms": step_bound_ms,
-           "decode_over_bound": main["decode_ms_per_step"] / step_bound_ms,
-           "peak_gb": peak / 1e9,
-           "peak_gb_with_checks": torch.cuda.max_memory_allocated() / 1e9,
-           "serve_batch": SERVE_B, "prompt": DEEPSEEK_PROMPT,
-           "new_tokens": DEEPSEEK_NEW_TOKENS,
-           "main_path_launches": main_counts,
-           "main_path_routes": main_routes,
-           "main_path_windows": main_windows,
-           "prefill_attention_row_rel_max": max(r["row_rel_err"]
-                                                for r in attn),
-           "prefill_attention_plain_row_rel_min": min(
-               r["plain_row_rel_err"] for r in attn),
-           "moe_layer": moe_rec, "mla_layer": {"layer": last, **mla},
-           "logits_max_abs": float(dec0.abs().max()),
-           "pos0_rel_diff_bf16": pos0_rel, "mla_flash": flash_rec,
-           "check_launches": ops.launch_counts(),
-           "seconds": time.perf_counter() - t0}
-    emit(rec)
+    rec.update(main, n_layers_published=full.n_layers,
+               allocated_before_gb=before / 1e9,
+               prefill_attention_row_rel_max=max(r["row_rel_err"]
+                                                 for r in attn),
+               prefill_attention_plain_row_rel_min=min(
+                   r["plain_row_rel_err"] for r in attn),
+               moe_layer=moe_rec, mla_layer={"layer": last, **mla},
+               pos0_rel_diff_bf16=pos0_rel, mla_flash=flash_rec)
+    _serve_done(rec, t0)
     require(len(attn) == cfg.n_layers and all(map(flash_bf16_ok, attn))
             and all(r["dims"] == [192, 128] for r in attn),
             "serve_deepseek: a prefill layer's attention is off its plain "
@@ -4244,10 +4345,277 @@ def phase_serve_deepseek():
     require(math.isfinite(mla["f32"]) and mla["f32"] <= DEEPSEEK_MLA_REL_F32,
             f"serve_deepseek: the MLA layer's absorbed decode is off its "
             f"prefill form in float32: {mla}")
-    del model, main
-    gc.collect()
+    del model
+    _serve_free()
+    return main["main_path_launches"], main["main_path_routes"], flash_rec
+
+
+def _scan_inputs(B: int, S: int, Din: int, St: int, dtype, seed: int,
+                 state: bool = False):
+    """Seeded inputs of the selective scan on the card: u ~ N(0, 1), dt =
+    softplus(N(0, 1)) (as the model's), A = -exp(1 + N(0, 1) / 2) (around
+    the init's -e), B and C ~ N(0, 1); with ``state``, h0 ~ N(0, 1)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    u = draw(B, S, Din).to(dtype)
+    dt = torch.nn.functional.softplus(draw(B, S, Din)).to(dtype)
+    A = -torch.exp(1.0 + 0.5 * draw(Din, St))
+    Bp, Cp = draw(B, S, St).to(dtype), draw(B, S, St).to(dtype)
+    return u, dt, A, Bp, Cp, (draw(B, Din, St) if state else None)
+
+
+def _scan_bf16_errors(got, u, dt, A, Bp, Cp, h0=None) -> dict:
+    """A bf16 scan's output ``got`` against the plain version run in
+    float32 on the same inputs (``_row_rel``), beside the plain version's
+    own error in bf16, as ``flash_bf16_errors`` holds attention."""
+    from repro_torch.kernels import ref
+    want, _ = ref.selective_scan_ref(u.float(), dt.float(), A, Bp.float(),
+                                     Cp.float(), h0)
+    plain, _ = ref.selective_scan_ref(u, dt, A, Bp, Cp, h0)
+    return {"row_rel_err": _row_rel(got, want),
+            "plain_row_rel_err": _row_rel(plain, want),
+            "max_abs_diff_bf16_plain": float(
+                (got.float() - plain.float()).abs().max())}
+
+
+def _scan_bf16_ok(rec: dict) -> bool:
+    """Within JAMBA_SCAN_ROW_REL and twice the bf16 plain version's error."""
+    return (math.isfinite(rec["row_rel_err"])
+            and rec["row_rel_err"] <= JAMBA_SCAN_ROW_REL
+            and rec["row_rel_err"] <= 2.0 * rec["plain_row_rel_err"])
+
+
+#: the scan's checks before the weights: (B, S, Din, with a state): a
+#: ragged S (1,000: not a multiple of the kernel's 64-step rounds) and a
+#: ragged Din (200: the last block's channels masked), the decode step
+#: from a nonzero state (S = 1, B = 4, the prefill's width) and a
+#: 4,096-step run at the prefill's width
+SCAN_CASES = ((2, 1000, 512, False), (4, 777, 200, True),
+              (4, 1, 8192, True), (1, 4096, 8192, False))
+
+
+def _scan_rows() -> dict:
+    """selective_scan against its plain version on the card, float32 and
+    bf16 (SCAN_CASES: the float32 outputs and final states within
+    SCAN_F32_REL row by row; bf16 by ``_scan_bf16_ok``, the state within
+    SCAN_F32_REL of the plain version's on the same bf16 inputs), then its
+    time at the main path's prefill (SCAN_PREFILL) and decode
+    (SCAN_DECODE) shapes beside the bound (the exps on the SFU; the bytes
+    of u, dt and y), and the plain version's at SCAN_PLAIN_S steps."""
+    from repro_torch.kernels import ops, ref
+    checks, f32_err = [], 0.0
+    for i, (B, S, Din, state) in enumerate(SCAN_CASES):
+        for dtype in (torch.float32, torch.bfloat16):
+            u, dt, A, Bp, Cp, h0 = _scan_inputs(B, S, Din, 16, dtype, i,
+                                                state)
+            h_out = torch.empty((B, Din, 16), device="cuda")
+            before = ops.launch_counts()["selective_scan"]
+            got = ops.selective_scan(u, dt, A, Bp, Cp, h0, h_out)
+            require(ops.launch_counts()["selective_scan"] == before + 1,
+                    "selective_scan did not launch its kernel")
+            want, h_want = ref.selective_scan_ref(u, dt, A, Bp, Cp, h0)
+            rec = {"shape": [B, S, Din, 16], "h0": state,
+                   "dtype": str(dtype).replace("torch.", ""),
+                   "state_row_rel": _row_rel(h_out, h_want)}
+            if dtype == torch.float32:
+                rec["row_rel"] = _row_rel(got, want)
+                rec["max_abs_err"] = float((got - want).abs().max())
+                f32_err = max(f32_err, rec["max_abs_err"])
+                ok = rec["row_rel"] <= SCAN_F32_REL
+            else:
+                rec.update(_scan_bf16_errors(got, u, dt, A, Bp, Cp, h0))
+                ok = _scan_bf16_ok(rec)
+            checks.append(rec)
+            require(ok and rec["state_row_rel"] <= SCAN_F32_REL,
+                    f"selective_scan against its plain version: {rec}")
+            del u, dt, A, Bp, Cp, h0, h_out, got, want, h_want
     torch.cuda.empty_cache()
-    return main_counts, main_routes, flash_rec
+    # the main path's shapes: its prefill (bf16 and float32) and decode
+    B, S, Din, St = SCAN_PREFILL
+    times = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        u, dt, A, Bp, Cp, _ = _scan_inputs(B, S, Din, St, dtype, 10)
+        name = str(dtype).replace("torch.", "")
+        times[f"ms_{name}"] = cuda_ms(
+            lambda: ops.selective_scan(u, dt, A, Bp, Cp), 10, 2)
+        if dtype == torch.bfloat16:
+            # the first SCAN_PLAIN_S steps, the plain version in bf16 and
+            # float32 (the kernel's rows there against it)
+            head = [t[:, :SCAN_PLAIN_S] for t in (u, dt, Bp, Cp)]
+            got = ops.selective_scan(u, dt, A, Bp, Cp)[:, :SCAN_PLAIN_S]
+            plain, _ = ref.selective_scan_ref(head[0], head[1], A, head[2],
+                                              head[3])
+            times["prefill_head"] = {
+                "steps": SCAN_PLAIN_S,
+                "max_abs_diff_bf16_plain": float(
+                    (got.float() - plain.float()).abs().max()),
+                **_scan_bf16_errors(got, head[0], head[1], A, head[2],
+                                    head[3])}
+            require(_scan_bf16_ok(times["prefill_head"]),
+                    f"selective_scan at the prefill's shape: {times}")
+            times["plain_ms"] = cuda_ms(lambda: ref.selective_scan_ref(
+                head[0], head[1], A, head[2], head[3]), 2, 1)
+            del head, got, plain
+        del u, dt, A, Bp, Cp
+        torch.cuda.empty_cache()
+    Bd, Sd, Dd, Std = SCAN_DECODE
+    u, dt, A, Bp, Cp, h = _scan_inputs(Bd, Sd, Dd, Std, torch.bfloat16, 11,
+                                       True)
+    times["decode_ms"] = cuda_ms(
+        lambda: ops.selective_scan(u, dt, A, Bp, Cp, h, h), 200, 5)
+    times["decode_graph_ms"] = graph_ms(
+        lambda: ops.selective_scan(u, dt, A, Bp, Cp, h, h), 200)
+    exps = B * S * Din * St
+    nbytes = 2.0 * 3 * B * S * Din + 2.0 * 2 * B * S * St + 4.0 * Din * St
+    exp_ms = exp_bound_ms(exps)
+    byte_ms = 1e3 * nbytes / HBM_BPS
+    dec_bytes = 2.0 * 3 * Bd * Dd + 2.0 * 2 * Bd * Std + 4.0 * Dd * Std \
+        + 2 * 4.0 * Bd * Dd * Std
+    dec_exp_ms = exp_bound_ms(Bd * Sd * Dd * Std)
+    dec_byte_ms = 1e3 * dec_bytes / HBM_BPS
+    return {"shape": list(SCAN_PREFILL), "checks": checks,
+            "max_abs_err": f32_err, "ms": times["ms_bfloat16"],
+            "plain_ms": times["plain_ms"], "plain_steps": SCAN_PLAIN_S,
+            "bound_ms": max(exp_ms, byte_ms),
+            "bound_by": "operations" if exp_ms >= byte_ms else "bytes",
+            "exp_bound_ms": exp_ms, "byte_bound_ms": byte_ms,
+            "library_ms": None, **times,
+            "decode_shape": list(SCAN_DECODE),
+            "decode_bound_ms": max(dec_exp_ms, dec_byte_ms),
+            "decode_bound_by": "operations" if dec_exp_ms >= dec_byte_ms
+            else "bytes"}
+
+
+def _scan_head_tail_errors(got, u, dt, A, Bp, Cp, h0=None, h_out=None,
+                           W: int = JAMBA_CHECK_S) -> dict:
+    """A prefill scan's output ``got`` on its own bf16 inputs
+    (``_scan_bf16_errors``): its first W positions against the plain
+    version from zero; and its last W against the plain version started
+    from the kernel's state after the first S - W positions (one more
+    launch, ``h_out``), where a drift that shows only late would show."""
+    from repro_torch.kernels.selective_scan import selective_scan
+    S = u.shape[1]
+    head = _scan_bf16_errors(got[:, :W], u[:, :W], dt[:, :W], A, Bp[:, :W],
+                             Cp[:, :W])
+    h = torch.empty((u.shape[0], u.shape[2], A.shape[1]), device=u.device)
+    selective_scan(*(t[:, :S - W].contiguous() for t in (u, dt)), A,
+                   *(t[:, :S - W].contiguous() for t in (Bp, Cp)), h_out=h)
+    tail = _scan_bf16_errors(got[:, S - W:], u[:, S - W:], dt[:, S - W:], A,
+                             Bp[:, S - W:], Cp[:, S - W:], h)
+    return {"head": head, "tail": tail}
+
+
+def phase_serve_jamba():
+    """jamba-v0.1-52b at full width in bf16 on the card, cut to
+    JAMBA_LAYERS layers (two period-8 blocks: 2 NoPE GQA + 14 mamba
+    layers, 8 MoE; 52.1 GB: its 32 layers are 103.1 GB), weights drawn
+    from a seeded generator, after every other phase has released its
+    tensors (``_serve_guard``). First, before the weights, selective_scan
+    against its plain version and timed (``_scan_rows``). A warm-up
+    prefill, then the main path (``_serve_main``): prefill of 1 x 32,768
+    tokens (2 flash_attention launches, wgmma and global, and 14
+    selective_scan launches), then SERVE_B requests of JAMBA_PROMPT tokens
+    teacher-forced through the cache and JAMBA_NEW_TOKENS greedy (14
+    selective_scan launches a step). A float32 copy of the model cannot
+    exist beside it, so the checks are: (1) one prefill with every kernel
+    launch held on its own bf16 inputs (``_checked_prefill``): each
+    attention layer's last JAMBA_CHECK_S queries against all 32,768 keys
+    (FLASH_ROW_REL, twice the bf16 plain version's error), each mamba
+    layer's scan at its first and last JAMBA_CHECK_S positions
+    (``_scan_head_tail_errors``; JAMBA_SCAN_ROW_REL and twice the bf16
+    plain version's error); (2) the first mamba layer fed the prompt's
+    embeddings by the prefill form and by decode step by step through its
+    cache, its weights alone in float32 (JAMBA_LAYER_REL_F32; bf16
+    recorded); (3) the prompt's first token through the forward ((4, 1))
+    against decode step 0, bf16 (JAMBA_POS0_REL of the logits' scale); (4)
+    the main path's tokens in range and logits finite (``_lm_main_path``).
+    Decode beside the step's weight-read bound (every weight but the
+    embedding table, of which a step reads 4 rows)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import embed
+    from repro_torch.models.transformer import _layer_specs, forward
+    t0 = time.perf_counter()
+    before = _serve_guard("serve_jamba")
+    scan_rec = _scan_rows()
+    full = get_config("jamba-v0.1-52b")
+    cfg = full.replace(n_layers=JAMBA_LAYERS)
+    Din = cfg.mamba_expand * cfg.d_model
+    n_attn, n_mamba = attention_layers(cfg), mamba_layers(cfg)
+    require(full.n_layers == 32 and cfg.d_model == 4096
+            and cfg.n_experts == 16 and cfg.rope_kind == "none"
+            and (JAMBA_PREFILL_B, JAMBA_PREFILL_S, Din,
+                 cfg.mamba_d_state) == SCAN_PREFILL
+            and (n_attn, n_mamba) == (2, 14),
+            "serve_jamba: not jamba-v0.1-52b's full width")
+    model, tokens, prompt, rec = _serve_model(
+        "serve_jamba", cfg, JAMBA_PARAMS, (JAMBA_PREFILL_B, JAMBA_PREFILL_S),
+        JAMBA_PROMPT)
+    table = model.embed.table
+    prompt_logits, main = _serve_main(
+        "serve_jamba", model, cfg, tokens, prompt, JAMBA_NEW_TOKENS,
+        rec["weight_gb"] * 1e9 - table.numel() * table.element_size())
+
+    # (1) every prefill layer's attention and scan on its own inputs
+    checked = _checked_prefill(model, tokens, {
+        "flash_attention": lambda got, q, k, v, causal=True, window=None:
+            _flash_errors_by_heads(got, q, k, v, causal, window,
+                                   JAMBA_CHECK_HEADS, JAMBA_CHECK_S),
+        "selective_scan": _scan_head_tail_errors})
+    attn, scans = checked["flash_attention"], checked["selective_scan"]
+
+    # (2) the first mamba layer by both forms on the prompt's embeddings
+    first = next(i for i, spec in enumerate(_layer_specs(cfg))
+                 if spec.mixer == "mamba")
+    with torch.inference_mode():
+        x = embed(model.embed, prompt)
+        layer = _layer_routes(_attention_only(model.layers[first]), x, cfg,
+                              first)
+    del x
+
+    # (3) the prompt's first token: a (4, 1) forward against decode step 0
+    with torch.inference_mode():
+        fwd, _ = forward(model, {"tokens": prompt[:, :1]})
+    dec0 = prompt_logits[:, 0].float()
+    pos0_rel = float((fwd[:, 0].float() - dec0).abs().max()
+                     / dec0.abs().max())
+    rec.update(main, n_layers_published=full.n_layers,
+               attention_layers=n_attn, mamba_layers=n_mamba,
+               allocated_before_gb=before / 1e9,
+               prefill_attention_tail=JAMBA_CHECK_S,
+               prefill_attention=attn,
+               prefill_scan_head_row_rel_max=max(
+                   r["head"]["row_rel_err"] for r in scans),
+               prefill_scan_tail_row_rel_max=max(
+                   r["tail"]["row_rel_err"] for r in scans),
+               prefill_scan_plain_row_rel_min=min(
+                   min(r["head"]["plain_row_rel_err"],
+                       r["tail"]["plain_row_rel_err"]) for r in scans),
+               prefill_scans=scans, mamba_layer={"layer": first, **layer},
+               pos0_rel_diff_bf16=pos0_rel, scan=scan_rec)
+    _serve_done(rec, t0)
+    require(len(attn) == n_attn and all(map(flash_bf16_ok, attn)),
+            "serve_jamba: a prefill layer's attention, over its last "
+            "JAMBA_CHECK_S queries, is off its plain version in float32 by "
+            "more than FLASH_ROW_REL or twice the bf16 plain version's error")
+    require(len(scans) == n_mamba
+            and all(_scan_bf16_ok(r[k]) for r in scans
+                    for k in ("head", "tail")),
+            "serve_jamba: a prefill layer's scan is off its plain version "
+            "in float32 by more than JAMBA_SCAN_ROW_REL or twice the bf16 "
+            "plain version's error, at its head or its tail")
+    require(math.isfinite(layer["f32"])
+            and layer["f32"] <= JAMBA_LAYER_REL_F32,
+            f"serve_jamba: the mamba layer's decode is off its prefill form "
+            f"in float32: {layer}")
+    require(math.isfinite(pos0_rel) and pos0_rel <= JAMBA_POS0_REL,
+            f"serve_jamba: the (4, 1) forward and decode step 0 differ by "
+            f"{pos0_rel} of the logits' scale > {JAMBA_POS0_REL}")
+    del model
+    _serve_free()
+    return main["main_path_launches"], main["main_path_routes"], scan_rec
 
 
 # --------------------------------------------------------------------------
@@ -5930,6 +6298,10 @@ def main() -> int:
     # at (192, 128), its absorbed decode and the MoE
     counts["serve_deepseek"], routes["serve_deepseek"], mla_flash = \
         phase_serve_deepseek()
+    # jamba-v0.1-52b (52.1 GB at 16 layers): mamba's selective scan on its
+    # kernel, two NoPE attention layers on flash_attention, the MoE
+    counts["serve_jamba"], routes["serve_jamba"], info["selective_scan"] = \
+        phase_serve_jamba()
     emit({"phase": "kernel_counts", **counts})
     emit({"phase": "sir_greedy_events", **sir_events})
     emit({"phase": "top_spill_walks", **top_walks})
@@ -6034,7 +6406,8 @@ def main() -> int:
             "flash_attention was not launched once per prefill layer on the "
             "serving path")
     for path, want in (("serve_gemma3", 2 * 34), ("serve_yi", 60),
-                       ("serve_deepseek", DEEPSEEK_LAYERS)):
+                       ("serve_deepseek", DEEPSEEK_LAYERS),
+                       ("serve_jamba", 2)):
         require(counts[path]["flash_attention"] == want,
                 f"flash_attention was launched {counts[path]['flash_attention']}"
                 f" times on {path}, want one per prefill layer ({want})")
@@ -6098,7 +6471,10 @@ def main() -> int:
                "avg_spill": (csrc + "seeding.cu",
                              "src/repro/core/seeding.py:548", "loo"),
                "top_spill": (csrc + "seeding.cu",
-                             "src/repro/core/seeding.py:573", "loo")}
+                             "src/repro/core/seeding.py:573", "loo"),
+               "selective_scan": (csrc + "selective_scan.cu",
+                                  "src/repro/models/ssm.py:103",
+                                  "serve_jamba")}
     # the dense chunk's four routes are four kernels, each counted on its
     # own path (the global-state one is on none now: its count there is
     # 0); flash_attention's routes are listed beside its launches
@@ -6133,10 +6509,12 @@ def main() -> int:
             kernels[-1]["mma_route"] = k["mma_route"]
             kernels[-1]["launches_by_path"] = {
                 p: counts[p][name] for p in ("serve_lm", "serve_gemma3",
-                                             "serve_yi", "serve_deepseek")}
+                                             "serve_yi", "serve_deepseek",
+                                             "serve_jamba")}
             kernels[-1]["routes_by_path"] = {
                 p: routes[p][name] for p in ("serve_gemma3", "serve_yi",
-                                             "serve_deepseek")}
+                                             "serve_deepseek",
+                                             "serve_jamba")}
             kernels[-1]["gemma3"] = gemma3_flash
             # MLA's pair, (192, 128), on serve_deepseek
             kernels[-1]["mla"] = {
@@ -6150,6 +6528,12 @@ def main() -> int:
         if name == "smo_select":
             kernels[-1].update({key: k[key] for key in (
                 "iteration_ms", "ms_cold", "ms_wrapper", "bound_ms_cold")})
+        # the scan: its shape, the other dtype's time, its decode step
+        if name == "selective_scan":
+            kernels[-1].update({key: k[key] for key in (
+                "ms_float32", "plain_steps", "exp_bound_ms",
+                "byte_bound_ms", "decode_shape", "decode_ms",
+                "decode_graph_ms", "decode_bound_ms", "decode_bound_by")})
         if name == "rbf_kernel_matrix":
             kernels[-1].update(
                 {key: k[key] for key in ("ms_distinct", "bound_ms_distinct",

@@ -111,6 +111,10 @@ SYNC_FREE = {
     # MLA's prefill and absorbed decode (``step`` is a host int)
     (f"{PACKAGE}/models/attention.py", "mla_apply"): (
         "cfg", "step", "window", "causal"),
+    # mamba's prefill and decode, and the scan's wrapper: one launch, no
+    # read of the state or the outputs
+    (f"{PACKAGE}/models/ssm.py", "mamba_apply"): ("cfg",),
+    (f"{PACKAGE}/kernels/selective_scan.py", "selective_scan"): (),
 }
 
 #: attribute reads that yield host values

@@ -16,7 +16,8 @@ import torch
 from repro_torch.core.study import LaneSpec
 from repro_torch.data.svm_suite import SVMDataset
 from repro_torch.device import DTYPE, resolve_device
-from repro_torch.models.transformer import layer_plan
+from repro_torch.models.params import leaf_dtype
+from repro_torch.models.transformer import cache_def, layer_plan
 from repro_torch.svm.engine import DenseKernel, PallasRBF, SMOResult
 
 
@@ -76,6 +77,14 @@ def lane_from_reference(spec, device=None) -> LaneSpec:
                     after=spec.after)
 
 
+def _host_tensor(a, device) -> torch.Tensor:
+    """A numpy array (bfloat16 ones too, which torch cannot take from
+    numpy: widened to float32, exactly) as a tensor on ``device``."""
+    a = np.array(a)
+    return torch.as_tensor(a.astype(np.float32) if a.dtype.name == "bfloat16"
+                           else a, device=device)
+
+
 def _tree(x, to_tensor, i=None):
     """A nested dict of arrays as one of tensors (each leaf's index ``i``
     of its leading axis, where given)."""
@@ -89,7 +98,10 @@ def _unstack(stages, cfg, to_tensor) -> list:
     stage repeated r times holds each leaf with a leading (r, ...) axis)
     as one subtree per layer, in layer order: a deepseek-v2's repeated
     [MLA + MoE] stage of 59 layers (3 at SMOKE size) becomes 59 subtrees,
-    the MoE's router and shared experts nested in each."""
+    the MoE's router and shared experts nested in each; Jamba's plan mixes
+    a scanned pair, repeated twice, with single layers (8 layers) or is
+    one scanned period of 8 (16 layers), each pattern walked layer by layer
+    within each repeat."""
     layers = []
     for (pattern, repeat), stage in zip(layer_plan(cfg), stages,
                                         strict=True):
@@ -106,8 +118,10 @@ def model_params_from_reference(params_np, cfg, device=None,
     reference's, given as nested dicts and lists of numpy arrays. Every
     weight keeps the reference's layout (``wq`` (D, H, Dh), ``wo``
     (H, Dh, D), MLP weights (in, out), MLA's and the experts' as the
-    reference has them); the stages are unstacked, and DeepSeek-V3's
-    ``mtp`` subtree is carried as it is."""
+    reference has them; mamba's ``in_proj`` (D, 2 Din), ``conv_w`` (Cv,
+    Din), ``x_db`` (Din, dt_rank + 2 St), ``dt_proj_w`` (dt_rank, Din),
+    ``A_log`` (Din, St), ``out_proj`` (Din, D)); the stages are unstacked,
+    and DeepSeek-V3's ``mtp`` subtree is carried as it is."""
     dev = resolve_device(device)
 
     def t(a):
@@ -124,11 +138,15 @@ def model_params_from_reference(params_np, cfg, device=None,
 
 def cache_from_reference(cache_np, cfg, device=None,
                          dtype=torch.float32) -> dict:
-    """The port's KV cache (``{"layers": [{"k", "v"} or, for MLA, {"c",
-    "kr"}, ...]}``) from the reference's ``init_cache`` tree of numpy
-    arrays."""
+    """The port's cache (``{"layers": [{"k", "v"} or, for MLA, {"c",
+    "kr"} or, for mamba, {"conv", "ssm"}, ...]}``) from the reference's
+    ``init_cache`` tree of numpy arrays, in ``dtype`` but for the leaves
+    the reference holds in a dtype of their own (mamba's float32
+    ``ssm``)."""
     dev = resolve_device(device)
-
-    def t(a):
-        return torch.as_tensor(np.array(a), device=dev).to(dtype)
-    return {"layers": _unstack(cache_np["stages"], cfg, t)}
+    layers = _unstack(cache_np["stages"], cfg,
+                      lambda a: _host_tensor(a, dev))
+    defs = cache_def(cfg, 1, 1)["layers"]
+    return {"layers": [{k: t.to(leaf_dtype(d[k], dtype))
+                        for k, t in layer.items()}
+                       for layer, d in zip(layers, defs, strict=True)]}

@@ -18,8 +18,9 @@ Flags are per source (``flags``). The SVM sources keep ``-fmad=false``,
 which keeps ``nvcc`` from contracting any expression into an FMA behind
 the code's back: they spell out the one FMA the reference rounds as one
 (the f-update) and round everything else op by op, as the plain PyTorch
-versions do, which their bitwise parity needs. ``flash_attention.cu`` is
-held to tolerances, not bits, and is built without it. Nothing links
+versions do, which their bitwise parity needs. ``flash_attention.cu`` and
+``selective_scan.cu`` are held to tolerances, not bits (their sums run in
+other orders than the reference's), and are built without it. Nothing links
 ``libcuda``: the attention source reaches ``cuTensorMapEncodeTiled``
 through the CUDA runtime's entry-point query.
 """
@@ -39,7 +40,7 @@ import torch
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
 SOURCES = ("rbf", "smo_update", "smo_chunk", "smo_step", "seeding",
-           "flash_attention")
+           "flash_attention", "selective_scan")
 #: the sources whose results are held bitwise to the plain versions
 BITWISE_SOURCES = ("rbf", "smo_update", "smo_chunk", "smo_step", "seeding")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -18,8 +18,10 @@ its selection and fused launches to ``smo_select`` and ``fused_smo_step``.
 (the LOO seeders' spills; their fused entries ``avg_spill_loo`` /
 ``top_spill_loo`` count on them) count one per launch.
 ``flash_attention`` counts one per launch (one per prefill attention layer
-on the LM serving path), and ``window_counts`` splits its launches into
-windowed (a sliding-window layer's) and global ones. ``route_counts``
+on the LM serving path), ``selective_scan`` likewise (one per mamba layer
+in a prefill and in a decode step), and ``window_counts`` splits
+``flash_attention``'s launches into windowed (a sliding-window layer's)
+and global ones. ``route_counts``
 splits the ten kernels that have routes: ``rbf_kernel_matrix`` (tensor,
 the FP64 tensor cores / fma), ``smo_chunk`` (one_block, the resident
 kernel / multi_block / cluster / one_block_global, the global-state
@@ -33,6 +35,7 @@ and spill in one launch / split: the spill alone).
 """
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rbf import rbf_kernel_matrix
+from repro_torch.kernels.selective_scan import selective_scan
 from repro_torch.kernels.seeding import (ato_apply_lanes, ato_system_lanes,
                                          avg_spill, avg_spill_loo,
                                          sir_greedy, top_spill,
@@ -49,7 +52,7 @@ __all__ = ["rbf_kernel_matrix", "smo_f_update", "smo_chunk",
            "smo_stream_chunk_sources", "smo_select",
            "fused_smo_step", "flash_attention", "water_fill",
            "sir_greedy", "ato_system_lanes", "ato_apply_lanes", "avg_spill",
-           "avg_spill_loo", "top_spill", "top_spill_loo",
+           "avg_spill_loo", "top_spill", "top_spill_loo", "selective_scan",
            "launch_counts", "reset_launch_counts", "route_counts",
            "window_counts"]
 
@@ -68,7 +71,8 @@ KERNELS = {"rbf_kernel_matrix": rbf_kernel_matrix,
            "ato_system_lanes": ato_system_lanes,
            "ato_apply_lanes": ato_apply_lanes,
            "avg_spill": avg_spill,
-           "top_spill": top_spill}
+           "top_spill": top_spill,
+           "selective_scan": selective_scan}
 
 
 def launch_counts() -> dict[str, int]:

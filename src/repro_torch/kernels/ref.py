@@ -820,3 +820,33 @@ def top_spill_loo_ref(K, y, alpha, C, t: int):
     beta, resid, lo, hi, _ = loo_start_ref(y, alpha, C, t)
     order = loo_order_ref(K[:, t], t)
     return top_spill_ref(order, beta, lo, hi, resid), lo, hi
+
+
+def selective_scan_ref(u, dt, A, Bp, Cp, h0=None):
+    """Mamba's selective scan with its C contraction, a float32 loop over
+    t: ``h_t = exp(dt_t A) h_{t-1} + x(dt_t u_t) B_t`` from ``h0`` (zeros
+    when None), ``y_t = sum_n h_t[n] C_t[n]`` rounded to u's dtype once.
+    u, dt (B, S, Din) and Bp, Cp (B, S, St) in one dtype, A (Din, St)
+    float32, h0 (B, Din, St) float32. Returns (y (B, S, Din), the final
+    state (B, Din, St) float32).
+
+    The reference's rounding points (``src/repro/models/ssm.py:86-88,
+    :107``): ``dt * u`` is rounded to the inputs' dtype before it is
+    widened, the state is float32, and ``a h + b`` is one FMA
+    (``addcmul``), as XLA-CPU contracts it. The reference composes a chunk
+    of 256 steps by an associative scan and sums over n in its dot's
+    order; this loop takes the steps in sequence."""
+    Bsz, S, Din = u.shape
+    St = A.shape[-1]
+    h = torch.zeros((Bsz, Din, St), dtype=torch.float32, device=u.device) \
+        if h0 is None else h0.float()
+    dtf = dt.float()
+    dtu = (dt * u).float()
+    Bf, Cf = Bp.float(), Cp.float()
+    A = A.float()
+    y = torch.empty((Bsz, S, Din), dtype=torch.float32, device=u.device)
+    for t in range(S):
+        dA = torch.exp(dtf[:, t, :, None] * A)
+        h = torch.addcmul(dtu[:, t, :, None] * Bf[:, t, None, :], dA, h)
+        y[:, t] = torch.einsum("ben,bn->be", h, Cf[:, t])
+    return y.to(u.dtype), h

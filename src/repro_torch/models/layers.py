@@ -1,6 +1,7 @@
 """Core layers: RMS norm, embeddings, the gated MLP and rotary embeddings.
-Mirrors ``src/repro/models/layers.py`` (standard RoPE only: M-RoPE waits
-with qwen2-vl, ROADMAP Queue 1 item 12), in the reference's rounding order:
+Mirrors ``src/repro/models/layers.py`` (standard RoPE, and none for
+``rope_kind="none"``, Jamba's NoPE attention; M-RoPE waits with qwen2-vl,
+ROADMAP Queue 1 item 12), in the reference's rounding order:
 
 * ``rmsnorm`` in float32, then cast back to x's dtype;
 * RoPE's cos and sin computed in float32 and cast to x's dtype before the
@@ -86,6 +87,8 @@ def rope(x, positions, theta=10_000.0):
 
 
 def apply_rope(x, positions, cfg):
+    if cfg.rope_kind == "none" or positions is None:  # Jamba: NoPE attention
+        return x
     if cfg.rope_kind == "mrope":
         raise NotImplementedError("M-RoPE is not ported yet (ROADMAP.md, "
                                   "Queue 1 item 12: it waits with qwen2-vl)")

@@ -1,16 +1,17 @@
 """Model assembly for the decoder LMs: a ``Transformer`` module over an
-``nn.ModuleList`` of blocks (RMS norm, attention, RMS norm, gated MLP or
-MoE), the full forward, the KV cache and one-token decode. Mirrors
+``nn.ModuleList`` of blocks (RMS norm, mixer, RMS norm, gated MLP or
+MoE), the full forward, the cache and one-token decode. Mirrors
 ``src/repro/models/transformer.py`` for the llama-family plan
-``[GQA + dense] * L`` and DeepSeek's ``[MLA + dense] * k + [MLA + MoE] *
-(L - k)``; the reference's ``lax.scan`` over stacked layers is a Python
-loop over the list.
+``[GQA + dense] * L``, DeepSeek's ``[MLA + dense] * k + [MLA + MoE] *
+(L - k)`` and Jamba's hybrid period-8 blocks (mamba everywhere but one
+NoPE GQA layer at offset 4, MoE on every second layer); the reference's
+``lax.scan`` over stacked layers is a Python loop over the list.
 
 ``layer_plan`` is kept as the reference computes it, so that
 ``repro_torch.convert`` can unstack the reference's scanned stages. The
-mixers ``attn`` (GQA) and ``mla`` and the MLPs ``dense`` and ``moe`` are
-ported: any other layer spec (mamba, xLSTM, cross-attention) raises and
-names ROADMAP, as do enc-dec and modality frontends.
+mixers ``attn`` (GQA), ``mla`` and ``mamba`` and the MLPs ``dense`` and
+``moe`` are ported: any other layer spec (xLSTM, cross-attention) raises
+and names ROADMAP, as do enc-dec and modality frontends.
 
 The port's parameter tree is the reference's with the stages unstacked:
 ``{"embed": {"table"}, "final_norm": {"scale"}, "layers": [{"ln1",
@@ -32,6 +33,7 @@ from torch import nn
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (embed, embedding_def, mlp, mlp_def,
                                        rmsnorm, rmsnorm_def, unembed)
 from repro_torch.models.params import ParamDef, count_from_defs, init_params
@@ -95,12 +97,17 @@ def layer_plan(cfg) -> list[tuple[tuple[LayerSpec, ...], int]]:
     return stages
 
 
+#: the ported mixers' parameter definitions
+_MIXER_DEFS = {"attn": attn_mod.gqa_def, "mla": attn_mod.mla_def,
+               "mamba": ssm_mod.mamba_def}
+
+
 def _check_spec(spec: LayerSpec) -> None:
-    if spec.mixer not in ("attn", "mla") or spec.mlp not in ("dense", "moe") \
+    if spec.mixer not in _MIXER_DEFS or spec.mlp not in ("dense", "moe") \
             or spec.cross:
         raise NotImplementedError(
-            f"layer {spec}: only GQA or MLA attention with a dense or MoE "
-            "MLP is ported (ROADMAP.md, Queue 1 item 12 lists mamba, xLSTM "
+            f"layer {spec}: only GQA, MLA or mamba mixers with a dense or "
+            "MoE MLP are ported (ROADMAP.md, Queue 1 item 12 lists xLSTM "
             "and enc-dec)")
 
 
@@ -109,8 +116,7 @@ def _check_spec(spec: LayerSpec) -> None:
 def _layer_def(spec: LayerSpec, cfg):
     _check_spec(spec)
     d = {"ln1": rmsnorm_def(cfg.d_model),
-         "mixer": attn_mod.mla_def(cfg) if spec.mixer == "mla"
-         else attn_mod.gqa_def(cfg),
+         "mixer": _MIXER_DEFS[spec.mixer](cfg),
          "ln2": rmsnorm_def(cfg.d_model)}
     if spec.mlp == "moe":
         d["moe"] = moe_mod.experts_def(cfg)
@@ -147,6 +153,8 @@ def model_params_def(cfg):
 
 def _layer_cache_def(spec: LayerSpec, cfg, batch, max_len):
     _check_spec(spec)
+    if spec.mixer == "mamba":
+        return ssm_mod.mamba_cache_def(cfg, batch)
     if spec.mixer == "mla":
         return attn_mod.mla_cache_def(cfg, batch, max_len)
     return attn_mod.gqa_cache_def(cfg, batch, max_len)
@@ -155,14 +163,16 @@ def _layer_cache_def(spec: LayerSpec, cfg, batch, max_len):
 def cache_def(cfg, batch, max_len):
     """Per layer: {'k', 'v'} (batch, max_len, KV, Dh) for GQA, {'c'
     (batch, max_len, kv_lora_rank), 'kr' (batch, max_len, qk_rope_dim)}
-    for MLA."""
+    for MLA, {'conv' (batch, Cv - 1, Din), 'ssm' (batch, Din, St),
+    float32 whatever the cache's dtype} for mamba."""
     return {"layers": [_layer_cache_def(s, cfg, batch, max_len)
                        for s in _layer_specs(cfg)]}
 
 
 def init_cache(cfg, batch, max_len, dtype=torch.bfloat16, device=None):
-    """A zeroed KV cache, preallocated at ``max_len`` rows; decode writes
-    into it in place."""
+    """A zeroed cache, preallocated at ``max_len`` rows (attention) and in
+    ``dtype`` but for the leaves that name their own (mamba's float32
+    state); decode writes into it in place."""
     dev = resolve_device(device)
     return init_params(cache_def(cfg, batch, max_len),
                        torch.Generator(device=dev), dtype, dev)
@@ -234,16 +244,31 @@ class MLA(Attention):
                                   window=self.window, cache=cache, step=step)
 
 
+class Mamba(ParamModule):
+    """The selective SSM mixer (``ssm.py``); positions and the decode step
+    do not enter it: its cache is its state."""
+
+    def __init__(self, tensors, cfg, window=None):
+        super().__init__(tensors)
+        self.cfg = cfg
+
+    def forward(self, x, positions=None, cache=None, step=None):
+        return ssm_mod.mamba_apply(self, x, self.cfg, cache=cache)
+
+
+#: layer spec mixer -> its module
+_MIXERS = {"attn": Attention, "mla": MLA, "mamba": Mamba}
+
+
 class Block(nn.Module):
-    """``x + attn(norm(x))``, then ``x + mlp(norm(x))`` (or the MoE's);
+    """``x + mixer(norm(x))``, then ``x + mlp(norm(x))`` (or the MoE's);
     returns (x, cache, the MoE's aux loss or None)."""
 
     def __init__(self, p, spec: LayerSpec, cfg):
         super().__init__()
         _check_spec(spec)
         self.ln1 = RMSNorm(p["ln1"], cfg.norm_eps)
-        self.mixer = (MLA if spec.mixer == "mla" else Attention)(
-            p["mixer"], cfg, spec.window)
+        self.mixer = _MIXERS[spec.mixer](p["mixer"], cfg, spec.window)
         self.ln2 = RMSNorm(p["ln2"], cfg.norm_eps)
         if spec.mlp == "moe":
             self.moe = MoE(p["moe"], cfg)
@@ -260,7 +285,7 @@ class Block(nn.Module):
 
 
 class Transformer(nn.Module):
-    """A dense decoder LM over the port's parameter tree (see the module
+    """A decoder LM over the port's parameter tree (see the module
     docstring); its device and dtype are those of the tensors given."""
 
     def __init__(self, cfg, params):
@@ -331,10 +356,11 @@ def forward(model: Transformer, batch, mode="train"):
 @torch.inference_mode()
 def decode_step(model: Transformer, cache, batch):
     """One-token decode. batch: tokens (B,1), step (an int: the cache rows
-    already filled). Writes each layer's k and v (MLA: its latent and rope
-    key) into ``cache`` in place at ``step``; returns (logits (B,1,V),
-    cache). An MoE layer routes the call's B tokens, its capacity set by
-    them."""
+    already filled). Hands each layer its own cache, whatever its keys:
+    attention writes its k and v (MLA: its latent and rope key) in place at
+    ``step``, mamba advances its conv window and state in place; returns
+    (logits (B,1,V), cache). An MoE layer routes the call's B tokens, its
+    capacity set by them."""
     dev = model.device
     tokens = torch.as_tensor(batch["tokens"], device=dev)
     B, S = tokens.shape

@@ -112,3 +112,20 @@ def test_select_split_edits_find_their_text_once():
     # the entry the timed build appends calls the C entry as it stands
     assert "extern \"C\" int smo_select_f64(const double* X" in \
         texts["smo_step.cu"]
+
+
+# ``chip_scan_variants.py`` edits copies of ``csrc/selective_scan.cu`` by
+# text: each edit must find its text exactly once, and the copies that
+# compute the scan change only its block shape or an unroll depth.
+SCAN_VARIANTS = _phases("chip_scan_variants")
+
+
+@pytest.mark.parametrize("name", sorted(SCAN_VARIANTS.VARIANTS))
+def test_scan_variants_edits_find_their_text_once(name):
+    src = (STEP / "selective_scan.cu").read_text()
+    for old, new in SCAN_VARIANTS.VARIANTS[name]:
+        assert src.count(old) == 1 and old != new
+    assert SCAN_VARIANTS.edited(name) != src or name == "as_is"
+    if name in SCAN_VARIANTS.EXACT and name != "as_is":
+        assert all(old.startswith(("constexpr int k", "#pragma unroll"))
+                   for old, _ in SCAN_VARIANTS.VARIANTS[name])

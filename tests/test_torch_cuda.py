@@ -2857,3 +2857,180 @@ def test_cuda_save_copies_state_before_its_writer(cuda, tmp_path,
     _, flat, _ = mgr.restore()
     assert np.array_equal(flat["alpha"], np.arange(1000, dtype=np.float64))
     assert int(flat["n_iter"]) == 5
+
+
+# ------------------------------------------------- mamba's selective scan ----
+
+def _scan_case(cuda, B, S, Din, dtype, state, seed=0):
+    """Seeded scan inputs on the card: u ~ N(0, 1), dt = softplus(N(0, 1)),
+    A = -exp(1 + N(0, 1) / 2), B and C ~ N(0, 1), h0 ~ N(0, 1)."""
+    rng = np.random.default_rng(seed)
+
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape)).float().to(cuda)
+    u = t(B, S, Din).to(dtype)
+    dt = torch.nn.functional.softplus(t(B, S, Din)).to(dtype)
+    A = -torch.exp(1.0 + 0.5 * t(Din, 16))
+    return (u, dt, A, t(B, S, 16).to(dtype), t(B, S, 16).to(dtype),
+            t(B, Din, 16) if state else None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,Din,state", [
+    (2, 1000, 512, False), (4, 777, 200, True), (4, 1, 8192, True),
+    (1, 64, 16, False), (3, 130, 48, True)],
+    ids=["ragged_s", "ragged_din_h0", "decode", "one_round", "b3_h0"])
+def test_cuda_selective_scan_matches_plain(cuda, dtype, B, S, Din, state):
+    """The kernel against its plain version on the same inputs: float32 y
+    and final state within 1e-5 row by row (the sums over the 16 states
+    run in other orders, the kernel's exp is the SFU's); bf16 y within one
+    bf16 ulp (the same roundings of dt * u and of y on both sides, so an
+    output differs only where the float32 sums straddle a rounding) and
+    the state within 1e-5. A ragged S (not a multiple of the 64-step
+    rounds), a ragged Din (the last block's channels masked), B > 1, and
+    the decode step (S = 1 from a nonzero state, written back in place)."""
+    u, dt, A, Bp, Cp, h0 = _scan_case(cuda, B, S, Din, dtype, state)
+    want, h_want = ref.selective_scan_ref(u, dt, A, Bp, Cp, h0)
+    before = ops.launch_counts()["selective_scan"]
+    h = h0.clone() if state else torch.empty((B, Din, 16), device=cuda)
+    got = ops.selective_scan(u, dt, A, Bp, Cp, h if state else None, h)
+    assert ops.launch_counts()["selective_scan"] == before + 1
+    assert got.dtype == dtype and got.shape == (B, S, Din)
+    assert _row_rel(h, h_want) <= 1e-5
+    if dtype == torch.float32:
+        assert _row_rel(got, want) <= 1e-5
+    else:
+        torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                                   atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+def test_cuda_selective_scan_refuses_what_it_does_not_take(cuda):
+    """A CUDA tensor the kernel does not take raises, with no launch and no
+    fallback to the plain version: float64, a state width other than 16,
+    a non-contiguous input, a bf16 state, a tensor on the CPU beside ones
+    on the card."""
+    u, dt, A, Bp, Cp, h0 = _scan_case(cuda, 2, 10, 32, torch.float32, True)
+    before = ops.launch_counts()["selective_scan"]
+    bad = [
+        (TypeError, (u.double(), dt.double(), A, Bp.double(), Cp.double())),
+        (ValueError, (u, dt, A[:, :8].contiguous(), Bp[..., :8].contiguous(),
+                      Cp[..., :8].contiguous())),
+        (ValueError, (u.transpose(0, 1).contiguous().transpose(0, 1), dt, A,
+                      Bp, Cp)),
+        (TypeError, (u, dt, A, Bp, Cp, h0.bfloat16())),
+        (ValueError, (u, dt, A.cpu(), Bp, Cp)),
+    ]
+    for err, args in bad:
+        with pytest.raises(err):
+            ops.selective_scan(*args)
+    assert ops.launch_counts()["selective_scan"] == before
+
+
+@pytest.mark.cuda
+def test_cuda_smoke_jamba_matches_its_cpu_run(cuda):
+    """SMOKE Jamba (7 mamba layers, 1 NoPE attention layer, MoE every
+    second layer) in float32 on the card against the same model on the
+    CPU: each prefill launches selective_scan 7 times and flash_attention
+    once, with logits within 1e-4; teacher-forced decode through the
+    caches (the mamba state float32, in place) launches the scan 7 times a
+    step, with logits within 1e-4 of the CPU's."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.inputs import concrete_batch
+    from repro_torch.models.transformer import (decode_step, init_cache,
+                                                init_model)
+    from repro_torch.serving import prefill_logits
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("jamba-v0.1-52b", smoke=True)
+    cpu = init_model(cfg, seed=0, dtype=torch.float32, device="cpu")
+    card = init_model(cfg, seed=0, dtype=torch.float32, device="cpu").to(cuda)
+    batch = concrete_batch(cfg, 2, 70, device="cpu")
+    before = ops.launch_counts()
+    got = prefill_logits(card, {"tokens": batch["tokens"].to(cuda)})
+    after = ops.launch_counts()
+    assert after["selective_scan"] - before["selective_scan"] == 7
+    assert after["flash_attention"] - before["flash_attention"] == 1
+    torch.testing.assert_close(got.cpu(), prefill_logits(cpu, batch),
+                               rtol=0, atol=1e-4)
+    caches = [init_cache(cfg, 2, 6, torch.float32, device=d)
+              for d in ("cpu", cuda)]
+    for t in range(6):
+        tok = batch["tokens"][:, t:t + 1]
+        want, _ = decode_step(cpu, caches[0], {"tokens": tok, "step": t})
+        scans = ops.launch_counts()["selective_scan"]
+        got, _ = decode_step(card, caches[1], {"tokens": tok.to(cuda),
+                                               "step": t})
+        assert ops.launch_counts()["selective_scan"] - scans == 7
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+    for a, b in zip(caches[0]["layers"], caches[1]["layers"], strict=True):
+        for key in a:
+            assert a[key].dtype == b[key].dtype
+            torch.testing.assert_close(b[key].cpu(), a[key], rtol=0,
+                                       atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_smoke_mamba_bf16_decode_one_request(cuda):
+    """SMOKE mamba in bf16 decoding a single request (B = S = 1, where B
+    and C are contiguous slices of the projection dt_rank = 4 elements in:
+    8 bytes, off the kernel's 16-byte alignment unless copied): each step
+    launches the kernel once, the state stays float32, and the steps match
+    the prefill form over the same tokens within 2e-2 of its scale (the
+    reference's own decode-against-forward bar)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+    from repro_torch.models.params import init_params
+    cfg = get_config("jamba-v0.1-52b", smoke=True)
+    assert max(cfg.d_model // 16, 1) * 2 % 16 != 0
+    p = init_params(ssm.mamba_def(cfg), torch.Generator(cuda).manual_seed(4),
+                    torch.bfloat16, cuda)
+    cache = init_params(ssm.mamba_cache_def(cfg, 1), torch.Generator(cuda),
+                        torch.bfloat16, cuda)
+    x = torch.randn((1, 12, cfg.d_model), device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(5)
+                    ).to(torch.bfloat16)
+    pre, _ = ssm.mamba_apply(p, x, cfg)
+    steps = []
+    for t in range(x.shape[1]):
+        before = ops.launch_counts()["selective_scan"]
+        d, cache = ssm.mamba_apply(p, x[:, t:t + 1], cfg, cache=cache)
+        assert ops.launch_counts()["selective_scan"] == before + 1
+        steps.append(d)
+    assert cache["ssm"].dtype == torch.float32
+    assert cache["conv"].dtype == torch.bfloat16
+    dec = torch.cat(steps, 1).float()
+    assert float((dec - pre.float()).abs().max()) <= 2e-2 * float(
+        pre.float().abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_scan_and_mamba_make_no_host_sync(cuda):
+    """The scan and ``mamba_apply`` (prefill, and decode through its cache)
+    on the card under ``set_sync_debug_mode("error")``: nothing waits for
+    the card (``jit_lint.SYNC_FREE`` names both)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+    from repro_torch.models.params import init_params
+    cfg = get_config("jamba-v0.1-52b", smoke=True)
+    p = init_params(ssm.mamba_def(cfg), torch.Generator(cuda).manual_seed(3),
+                    torch.bfloat16, cuda)
+    cache = init_params(ssm.mamba_cache_def(cfg, 3), torch.Generator(cuda),
+                        torch.bfloat16, cuda)
+    x = torch.randn((3, 20, cfg.d_model), device=cuda, dtype=torch.bfloat16)
+    scan_args = _scan_case(cuda, 3, 50, 64, torch.bfloat16, True)
+    # warm up (first launches, the library's load)
+    ssm.mamba_apply(p, x, cfg)
+    ssm.mamba_apply(p, x[:, :1], cfg, cache=cache)
+    ops.selective_scan(*scan_args, h_out=scan_args[-1])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ops.selective_scan(*scan_args, h_out=scan_args[-1])
+        y, _ = ssm.mamba_apply(p, x, cfg)
+        for t in range(3):
+            d, cache = ssm.mamba_apply(p, x[:, t:t + 1], cfg, cache=cache)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert cache["ssm"].dtype == torch.float32
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(d).all())

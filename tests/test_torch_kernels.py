@@ -126,6 +126,9 @@ def test_cpu_tensors_launch_no_kernel():
                   torch.tensor(0.5, dtype=torch.float64))
     ops.avg_spill_loo(y, hi * 0.5, 1.0, 0)
     ops.top_spill_loo(K, y, hi * 0.5, 1.0, n - 1)
+    u = torch.from_numpy(RNG.normal(size=(2, 5, 8))).float()
+    ops.selective_scan(u, u.abs(), -torch.ones(8, 16), u[..., :1].repeat(
+        1, 1, 16), u[..., 1:2].repeat(1, 1, 16), h_out=torch.empty(2, 8, 16))
     assert ops.launch_counts() == {"rbf_kernel_matrix": 0,
                                    "smo_f_update": 0, "smo_chunk": 0,
                                    "smo_chunk_sources": 0,
@@ -135,7 +138,7 @@ def test_cpu_tensors_launch_no_kernel():
                                    "flash_attention": 0, "water_fill": 0,
                                    "sir_greedy": 0, "ato_system_lanes": 0,
                                    "ato_apply_lanes": 0, "avg_spill": 0,
-                                   "top_spill": 0}
+                                   "top_spill": 0, "selective_scan": 0}
     assert ops.route_counts()["avg_spill"] == {"fused": 0, "split": 0}
     assert ops.route_counts()["top_spill"] == {"fused": 0, "split": 0}
 
@@ -834,14 +837,17 @@ def test_chunk_wrapper_rejects_other_devices():
 
 
 @pytest.mark.parametrize("name", ["rbf", "smo_update", "smo_chunk",
-                                  "smo_step", "seeding", "flash_attention"])
+                                  "smo_step", "seeding", "flash_attention",
+                                  "selective_scan"])
 def test_build_flags_per_source(name):
     """The SVM sources keep -fmad=false, which their bitwise parity with
-    the plain versions needs; the attention source, held to tolerances,
-    drops it. Every source targets sm_90a, and none links libcuda."""
+    the plain versions needs; the attention and scan sources, held to
+    tolerances, drop it. Every source targets sm_90a, and none links
+    libcuda."""
     from repro_torch.kernels import _build
     flags = _build.flags(name)
-    assert ("-fmad=false" in flags) == (name != "flash_attention")
+    assert ("-fmad=false" in flags) == (
+        name not in ("flash_attention", "selective_scan"))
     assert "arch=compute_90a,code=sm_90a" in flags
     assert not any(f.startswith("-lcuda") for f in flags)
     assert name in _build.SOURCES

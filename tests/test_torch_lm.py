@@ -8,7 +8,8 @@ kernel in interpret mode, as the reference's own tests run it, at their
 bars (f32 atol 2e-5, bf16 0.06). Layers, the sliding-window and q-chunked
 forms included: f32 atol 1e-5; whole models (SMOKE sizes of granite-8b,
 gemma-7b, yi-34b, gemma3-4b, whose local layers take the chunked form
-past 2W = 32 tokens, and deepseek-v2-236b and deepseek-v3-671b, MLA + MoE):
+past 2W = 32 tokens, deepseek-v2-236b and deepseek-v3-671b, MLA + MoE,
+and jamba-v0.1-52b, mamba + NoPE GQA + MoE):
 f32 atol 1e-4 on logits of
 magnitude up to 1, scaled by the logits' largest magnitude above that (see
 ``_assert_logits_close``), and greedy tokens identical. The kernel itself is held to the plain version on the card
@@ -44,7 +45,7 @@ from repro_torch.serving import build_serve_step, prefill_logits
 
 RNG = np.random.default_rng(11)
 ARCHS = ("granite-8b", "gemma-7b", "yi-34b", "gemma3-4b",
-         "deepseek-v2-236b", "deepseek-v3-671b")
+         "deepseek-v2-236b", "deepseek-v3-671b", "jamba-v0.1-52b")
 B, S = 2, 32
 
 
@@ -248,14 +249,13 @@ def test_gqa_apply_routes_gemma3_local_layers_to_the_chunked_form(
 
 
 @pytest.mark.parametrize("kw", [
-    {"attn_every": 2},                                     # mamba
     {"block_kinds": ("mlstm", "slstm")},                   # xLSTM
     {"is_encoder_decoder": True, "n_enc_layers": 2},       # enc-dec
     {"frontend": "audio_frames"},                          # frontends
     {"frontend": "vision_patches"},
-], ids=["mamba", "xlstm", "enc_dec", "audio", "vision"])
+], ids=["xlstm", "enc_dec", "audio", "vision"])
 def test_unported_layer_kinds_raise(kw):
-    """MLA and MoE are ported; mamba, xLSTM, enc-dec and the modality
+    """MLA, MoE and mamba are ported; xLSTM, enc-dec and the modality
     frontends still raise and name ROADMAP, for the parameters and the
     cache alike."""
     cfg = get_config("granite-8b", smoke=True).replace(**kw)
@@ -299,7 +299,7 @@ def test_configs_are_the_reference_configs():
 
 def test_get_config_refuses_unported_archs():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("jamba-v0.1-52b")
+        get_config("xlstm-125m")
     with pytest.raises(ValueError, match="unknown"):
         get_config("no-such-model")
 
@@ -319,7 +319,8 @@ def test_layer_plan_matches_reference():
     ("granite-8b", 8_254_689_280), ("gemma-7b", None),
     ("yi-34b", 34_388_917_248), ("gemma3-4b", 3_879_907_840),
     ("deepseek-v2-236b", 235_741_434_880),
-    ("deepseek-v3-671b", 671_712_655_360)])
+    ("deepseek-v3-671b", 671_712_655_360),
+    ("jamba-v0.1-52b", 51_570_315_264)])
 def test_count_params_matches_reference(arch, count):
     """Full widths, from the definitions alone (nothing is allocated)."""
     want = RT.count_params(ref_get_config(arch))
@@ -329,7 +330,7 @@ def test_count_params_matches_reference(arch, count):
 
 
 @pytest.mark.parametrize("arch", ["deepseek-v2-236b", "deepseek-v3-671b",
-                                  "granite-8b"])
+                                  "granite-8b", "jamba-v0.1-52b"])
 def test_active_params_matches_reference(arch):
     """top_k of the routed experts and the shared ones, at full width (a
     dense config: all of its parameters)."""
