@@ -53,12 +53,17 @@ to 0 just before it and read just after:
   weight-read bound), deepseek-v2-236b at full width cut to 8 layers
   (58.38 GB: MLA's prefill on the kernel at q/k head dim 192 and v head
   dim 128, 1 x 4,096 tokens; its absorbed decode over the latent cache;
-  the sort-based MoE of 160 experts; 4 requests of 16 + 16 tokens) and,
-  last, jamba-v0.1-52b at full width cut to 16 layers (52.1 GB: 14 mamba
+  the sort-based MoE of 160 experts; 4 requests of 16 + 16 tokens),
+  jamba-v0.1-52b at full width cut to 16 layers (52.1 GB: 14 mamba
   layers, each one launch of the selective scan kernel in a prefill of 1
   x 32,768 tokens and in each decode step through the float32 state; 2
   NoPE attention layers on the flash kernel; the MoE on every second
-  layer; 4 requests of 16 + 16 tokens).
+  layer; 4 requests of 16 + 16 tokens) and, last, xlstm-125m at full width
+  and depth (12 layers: 6 mLSTM, each one launch of the mLSTM kernel in a
+  prefill of 1 x 32,768 tokens and its recurrent update in decode; 6
+  sLSTM, each one launch of the sLSTM recurrence kernel in the prefill
+  and in each decode step through the cache; 4 requests of 16 + 16
+  tokens).
 
 Four kernels have routes, and every check and path records the one it
 took (``ops.route_counts``): every float64 ``rbf_kernel_matrix`` runs on
@@ -3459,20 +3464,47 @@ def mamba_layers(cfg) -> int:
     return sum(s.mixer == "mamba" for s in _layer_specs(cfg))
 
 
+def mlstm_layers(cfg) -> int:
+    """The layers of ``cfg``'s plan whose mixer is mLSTM: one mlstm_parallel
+    launch each in a prefill, none in a decode step (the recurrent update
+    is torch ops)."""
+    from repro_torch.models.transformer import _layer_specs
+    return sum(s.mixer == "mlstm" for s in _layer_specs(cfg))
+
+
+def slstm_layers(cfg) -> int:
+    """The layers of ``cfg``'s plan whose mixer is sLSTM: one slstm_scan
+    launch each in a prefill and in a decode step."""
+    from repro_torch.models.transformer import _layer_specs
+    return sum(s.mixer == "slstm" for s in _layer_specs(cfg))
+
+
+#: the kernels a prefill and a decode step of an LM launch a fixed number
+#: of times, by the plan's layers: {name: (launches a prefill, a step)}
+def lm_launches(cfg) -> dict:
+    n_mamba, n_slstm = mamba_layers(cfg), slstm_layers(cfg)
+    return {"flash_attention": (attention_layers(cfg), 0),
+            "selective_scan": (n_mamba, n_mamba),
+            "mlstm_parallel": (mlstm_layers(cfg), 0),
+            "slstm_scan": (n_slstm, n_slstm)}
+
+
 def _lm_main_path(model, cfg, tokens, prompt, new_tokens: int,
                   prefills: int) -> dict:
     """The LM serving path of ``model``: ``prefills`` prefills of
     ``tokens`` (each attention layer one flash_attention launch, each
-    mamba layer one selective_scan launch, checked per call), then
-    ``prompt``'s requests served through the cache, the prompt
-    teacher-forced and ``new_tokens`` greedy (each mamba layer one
-    selective_scan launch a step, checked over the steps). Returns the
-    times, each prefill's windowed and global launches, the prompt's
-    logits from the cache and the generated tokens."""
+    mamba layer one selective_scan launch, each mLSTM layer one
+    mlstm_parallel launch, each sLSTM layer one slstm_scan launch, checked
+    per call), then ``prompt``'s requests served through the cache, the
+    prompt teacher-forced and ``new_tokens`` greedy (each mamba and sLSTM
+    layer one launch of its kernel a step, no other of those kernels,
+    checked over the steps). Returns the times, each prefill's windowed
+    and global launches, the prompt's logits from the cache and the
+    generated tokens."""
     from repro_torch.kernels import ops
     from repro_torch.models.transformer import decode_step, init_cache
     from repro_torch.serving import build_serve_step, prefill_logits
-    n_attn, n_mamba = attention_layers(cfg), mamba_layers(cfg)
+    want = lm_launches(cfg)
     prefill_s, kinds = [], []
     for _ in range(prefills):
         before = ops.launch_counts()
@@ -3483,14 +3515,12 @@ def _lm_main_path(model, cfg, tokens, prompt, new_tokens: int,
         sync()
         prefill_s.append(time.perf_counter() - tp)
         after = ops.launch_counts()
-        launched = {name: after[name] - before[name]
-                    for name in ("flash_attention", "selective_scan")}
+        launched = {name: after[name] - before[name] for name in want}
         kinds.append({key: n - windows[key]
                       for key, n in ops.window_counts().items()})
-        require(launched == {"flash_attention": n_attn,
-                             "selective_scan": n_mamba},
+        require(launched == {name: n for name, (n, _) in want.items()},
                 f"{cfg.name}: {launched} launches in one prefill, want "
-                f"{n_attn} flash_attention and {n_mamba} selective_scan")
+                f"{want} (a prefill, a decode step)")
         require(bool(torch.isfinite(logits).all())
                 and tuple(logits.shape) == (tokens.shape[0], 1,
                                             cfg.vocab_size),
@@ -3500,7 +3530,7 @@ def _lm_main_path(model, cfg, tokens, prompt, new_tokens: int,
     B, P = prompt.shape
     cache = init_cache(cfg, B, P + new_tokens, torch.bfloat16)
     serve = build_serve_step(cfg)
-    scans = ops.launch_counts()["selective_scan"]
+    before = ops.launch_counts()
     sync()
     tp = time.perf_counter()
     prompt_logits = []
@@ -3519,10 +3549,12 @@ def _lm_main_path(model, cfg, tokens, prompt, new_tokens: int,
         step_s.append(time.perf_counter() - ts)
         out.append(tok)
     decode_steps = P + new_tokens - 1
-    scans = ops.launch_counts()["selective_scan"] - scans
-    require(scans == decode_steps * n_mamba,
-            f"{cfg.name}: {scans} selective_scan launches over "
-            f"{decode_steps} decode steps, want {n_mamba} a step")
+    after = ops.launch_counts()
+    stepped = {name: after[name] - before[name] for name in want}
+    require(stepped == {name: decode_steps * n
+                        for name, (_, n) in want.items()},
+            f"{cfg.name}: {stepped} launches over {decode_steps} decode "
+            f"steps, want {want} (a prefill, a decode step)")
     generated = torch.stack(out, 1)
     require(tuple(generated.shape) == (B, new_tokens)
             and int(generated.min()) >= 0
@@ -3957,11 +3989,12 @@ def _serve_model(phase: str, cfg, n_params: int, prefill_shape,
 def _serve_main(phase: str, model, cfg, tokens, prompt, new_tokens: int,
                 step_bytes: float):
     """The served model's main path (``_lm_main_path``, one prefill), with
-    the launch counts set to 0 just before it and read just after: every
-    attention launch on the wgmma route and global, each mamba layer one
-    scan launch a prefill and a decode step. Decode is reported beside the
-    step's read of ``step_bytes`` at HBM_BPS. Returns the prompt's logits
-    through the cache and the record's fields."""
+    the launch counts set to 0 just before it and read just after (each
+    kernel's launches a prefill and a decode step checked there): every
+    attention launch on the wgmma route and global, every mlstm_parallel
+    launch on mma and every slstm_scan launch on cluster. Decode is
+    reported beside the step's read of ``step_bytes`` at HBM_BPS. Returns
+    the prompt's logits through the cache and the record's fields."""
     from repro_torch.kernels import ops
     # ---- the main path: counts from 0 just before it, read just after
     ops.reset_launch_counts()
@@ -3971,15 +4004,19 @@ def _serve_main(phase: str, model, cfg, tokens, prompt, new_tokens: int,
     windows = ops.window_counts()
     # ---- end of the main path
     peak = torch.cuda.max_memory_allocated()
-    n_attn, n_mamba = attention_layers(cfg), mamba_layers(cfg)
+    n_attn = attention_layers(cfg)
     require(routes["flash_attention"] == {"fma": 0, "mma": 0, "wgmma": n_attn}
             and windows == {"windowed": 0, "global": n_attn},
             f"{phase}: the prefill's attention took routes "
             f"{routes['flash_attention']} ({windows}), want wgmma and global "
             f"for all {n_attn}")
-    require(counts["selective_scan"] == n_mamba * (1 + main["decode_steps"]),
-            f"{phase}: {counts['selective_scan']} selective_scan launches on "
-            f"the main path, want {n_mamba} a prefill and a decode step")
+    # _lm_main_path checked every kernel's launches a prefill and a decode
+    # step; here, that xLSTM's took the main path's routes
+    require(routes["mlstm_parallel"]["fma"] == 0
+            and routes["slstm_scan"]["block"] == 0,
+            f"{phase}: mlstm_parallel took routes {routes['mlstm_parallel']} "
+            f"and slstm_scan {routes['slstm_scan']} on the main path, want "
+            "mma and cluster only")
     ops.reset_launch_counts()
     bound_ms = 1e3 * step_bytes / HBM_BPS
     prompt_logits = main.pop("prompt_logits")
@@ -4367,25 +4404,57 @@ def _scan_inputs(B: int, S: int, Din: int, St: int, dtype, seed: int,
     return u, dt, A, Bp, Cp, (draw(B, Din, St) if state else None)
 
 
-def _scan_bf16_errors(got, u, dt, A, Bp, Cp, h0=None) -> dict:
-    """A bf16 scan's output ``got`` against the plain version run in
-    float32 on the same inputs (``_row_rel``), beside the plain version's
-    own error in bf16, as ``flash_bf16_errors`` holds attention."""
-    from repro_torch.kernels import ref
-    want, _ = ref.selective_scan_ref(u.float(), dt.float(), A, Bp.float(),
-                                     Cp.float(), h0)
-    plain, _ = ref.selective_scan_ref(u, dt, A, Bp, Cp, h0)
-    return {"row_rel_err": _row_rel(got, want),
-            "plain_row_rel_err": _row_rel(plain, want),
+def _row_rels(got, want):
+    """Each row's max |got - want| / max |want| (a row: the last axis)."""
+    w = want.float()
+    err = (got.float() - w).abs().amax(-1)
+    return (err / w.abs().amax(-1).clamp_min(1e-30)).flatten()
+
+
+#: a row's allowance beside twice the bf16 plain version's error on it:
+#: one bf16 ulp of the row's largest element is at most 2^-7 of it, so a
+#: kernel that rounds one element of a row apart from the plain version
+#: moves the row's error by up to that
+BF16_ROW_ULP = 2.0 ** -7
+
+
+def _bf16_errors(got, want, plain) -> dict:
+    """A bf16 kernel's output against the plain version in float32 on the
+    same inputs, row by row (the largest and the median row, and the
+    share of rows off by more than twice the plain version's error on the
+    same row plus BF16_ROW_ULP), beside the plain version's own error in
+    bf16."""
+    mine, own = _row_rels(got, want), _row_rels(plain, want)
+    return {"row_rel_err": float(mine.max()),
+            "rows_over_plain": float(
+                (mine > 2.0 * own + BF16_ROW_ULP).float().mean()),
+            "plain_row_rel_err": float(own.max()),
+            "median_row_rel_err": float(mine.median()),
+            "plain_median_row_rel_err": float(own.median()),
             "max_abs_diff_bf16_plain": float(
                 (got.float() - plain.float()).abs().max())}
 
 
-def _scan_bf16_ok(rec: dict) -> bool:
-    """Within JAMBA_SCAN_ROW_REL and twice the bf16 plain version's error."""
-    return (math.isfinite(rec["row_rel_err"])
-            and rec["row_rel_err"] <= JAMBA_SCAN_ROW_REL
+def _bf16_ok(rec: dict, bar: float, measure: str = "row_rel_err") -> bool:
+    """``rec[measure]`` within ``bar``, and the largest row's error within
+    twice the bf16 plain version's."""
+    return (math.isfinite(rec["row_rel_err"]) and rec[measure] <= bar
             and rec["row_rel_err"] <= 2.0 * rec["plain_row_rel_err"])
+
+
+def _scan_bf16_errors(got, u, dt, A, Bp, Cp, h0=None) -> dict:
+    """A bf16 scan's output ``got`` against the plain version run in
+    float32 on the same inputs (``_bf16_errors``), as
+    ``flash_bf16_errors`` holds attention."""
+    from repro_torch.kernels import ref
+    want, _ = ref.selective_scan_ref(u.float(), dt.float(), A, Bp.float(),
+                                     Cp.float(), h0)
+    plain, _ = ref.selective_scan_ref(u, dt, A, Bp, Cp, h0)
+    return _bf16_errors(got, want, plain)
+
+
+def _scan_bf16_ok(rec: dict) -> bool:
+    return _bf16_ok(rec, JAMBA_SCAN_ROW_REL)
 
 
 #: the scan's checks before the weights: (B, S, Din, with a state): a
@@ -4616,6 +4685,469 @@ def phase_serve_jamba():
     del model
     _serve_free()
     return main["main_path_launches"], main["main_path_routes"], scan_rec
+
+
+#: xlstm-125m at its full width and depth ([mlstm, slstm] x 6, d 768, 4
+#: heads, mLSTM head dim 384, vocab 50,304, tied): the reference's count
+#: (``tests/test_torch_xlstm.py`` holds the constant to it)
+XLSTM_PARAMS = 123_656_496
+#: its prefill (``prefill_32k``'s length, one sequence: xLSTM's users send
+#: long prompts, its states are fixed-size); its requests' prompt and new
+#: tokens
+XLSTM_PREFILL_B, XLSTM_PREFILL_S = 1, 32768
+XLSTM_PROMPT, XLSTM_NEW_TOKENS = 16, 16
+#: the kernels at the main path's prefill: mlstm_parallel (B, S, H, dh) and
+#: slstm_scan (B, S, D), bf16, and slstm_scan's decode step (the 4
+#: requests, one token)
+MLSTM_PREFILL = (1, 32768, 4, 384)
+SLSTM_PREFILL = (1, 32768, 768)
+SLSTM_DECODE = (4, 1, 768)
+#: rows (mLSTM) and positions (sLSTM) of a prefill layer held to the plain
+#: version, at its head and its tail: the plain mLSTM form materialises
+#: (rows, keys, H) float32 tensors (1.07 GB each at 2,048 x 32,768 x 4),
+#: the plain sLSTM loop is ~15 launches a step
+XLSTM_CHECK_S = 2048
+#: the kernels against the plain version on the same float32 inputs, row
+#: by row: the sums run in other orders
+XLSTM_F32_REL = 1e-5
+#: a bf16 slstm_scan against the plain version run in float32 on the same
+#: bf16 inputs, row by row: the plain version's own bf16-against-f32 gap at
+#: SMOKE size on the model's inputs is 0.0079-0.0089 (seeds 0-2,
+#: ``tests/test_torch_xlstm.py``; the rounding of r, z, o and h to bf16 a
+#: step); three times that. The kernel must also come within twice the
+#: bf16 plain version's own error
+SLSTM_ROW_REL = 0.03
+#: mlstm_parallel's bf16 rows against the plain version in float32, every
+#: row held (``_mlstm_ok``). On the model's inputs the plain version's own
+#: largest row error is 0.13-0.20 at SMOKE size and up to 6.2 at full
+#: width (rows whose |sum_j sw| cancels: the reference rounds sw and num
+#: to bf16, then divides by that small den), so no absolute bar holds the
+#: largest row there; instead every row is held to twice the bf16 plain
+#: version's error on that same row plus BF16_ROW_ULP (on the card no row
+#: of any check went beyond it, on the model's inputs or the seeded ones);
+#: the median row, 0.0043-0.0053 at both widths, within
+#: MLSTM_MEDIAN_ROW_REL (about three times), and the largest within twice
+#: the plain version's largest. On the seeded inputs (``_mlstm_inputs``:
+#: scores ~ N(0, 1), no such cancellation) the plain version's largest row
+#: is 0.0108-0.0176 at both widths, so there the largest row is held to
+#: MLSTM_ROW_REL too
+MLSTM_MEDIAN_ROW_REL = 0.015
+MLSTM_ROW_REL = 0.04
+#: one xLSTM layer fed the same float32 input by the prefill form (the
+#: kernel) and by decode step by step through its cache, its weights alone
+#: in float32, row by row, by mixer: the reference's own gap on the CPU at
+#: full width is 7.7e-5-2.3e-4 (mLSTM: the parallel form's den sums S
+#: terms that cancel, the recurrent one carries n) and 9.0e-7-1.1e-6
+#: (sLSTM) (seeds 0-2, 16 tokens of 4 requests); about twice the largest
+XLSTM_LAYER_REL_F32 = {"mlstm": 5e-4, "slstm": 1e-5}
+#: the (4, 1) forward against decode step 0 of the 4 requests, with the
+#: whole model in float32 (0.49 GB), max |diff| over the logits' largest
+#: magnitude: the reference's own gap at full width on the CPU is
+#: 3.9e-6-6.6e-5 (seeds 0-2); about twice the largest. The bf16 model,
+#: on the main path's kernels, within XLSTM_POS0_REL: the reference's own
+#: gap at full width in bf16 is 0.0124-0.0324 (seeds 0-2); about twice
+#: the largest. ``tests/test_torch_xlstm.py`` holds both bars to the gaps
+XLSTM_POS0_REL_F32 = 1.5e-4
+XLSTM_POS0_REL = 0.07
+#: the kernels' checks before the weights: mlstm_parallel (B, S, H, dh)
+#: and slstm_scan (B, S, D, from a carry): tails past the 64- and 16-row
+#: tiles, B > 1, both widths, and the decode step
+MLSTM_CASES = ((2, 100, 2, 64), (3, 1000, 4, 384), (1, 777, 4, 384))
+SLSTM_CASES = ((2, 300, 64, False), (3, 257, 768, True), (4, 1, 768, True))
+
+
+def _mlstm_inputs(B: int, S: int, H: int, dh: int, dtype, seed: int):
+    """Seeded mlstm_parallel inputs on the card, as the model makes them:
+    q, k, v ~ N(0, 1); logi ~ N(0, 0.1^2) (the input gate's 0.02 init, zero
+    bias); logf = log_sigmoid(1 + N(0, 0.1^2)) (its ones bias)."""
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    q, k, v = (draw(B, S, H, dh).to(dtype) for _ in range(3))
+    return q, k, v, 0.1 * draw(B, S, H), ref.log_sigmoid_ref(
+        1.0 + 0.1 * draw(B, S, H))
+
+
+def _slstm_inputs(B: int, S: int, D: int, dtype, seed: int,
+                  carry: bool = False):
+    """Seeded slstm_scan inputs on the card, as the model makes them: the
+    four gate inputs as views of one (B, S, 4 D) projection ~ N(0, 1) (gi
+    and gf at the init's 0.02 scale times sqrt(D)), rz ~ N(0, 0.02^2), bf
+    ones; with ``carry`` a nonzero (c, n, h, m)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    g = draw(B, S, 4 * D)
+    g[..., D:3 * D] *= 0.02 * D ** 0.5
+    gates = g.to(dtype).split(D, dim=-1)
+    rz = (0.02 * draw(D, D)).to(dtype)
+    bf = torch.ones(D, device="cuda", dtype=dtype)
+    c0 = (draw(B, D), draw(B, D).abs() + 1.0, (0.5 * draw(B, D)).to(dtype),
+          0.1 * draw(B, D)) if carry else None
+    return (*gates, rz, bf, c0)
+
+
+def _slstm_carry(B: int, D: int, dtype):
+    return tuple(torch.empty((B, D), device="cuda",
+                             dtype=dtype if k == 2 else torch.float32)
+                 for k in range(4))
+
+
+def _mlstm_ok(rec: dict, row_bar: float = math.inf) -> bool:
+    """A bf16 mlstm_parallel record (``_bf16_errors``) held row by row:
+    no row off by more than twice the bf16 plain version's error on the
+    same row plus BF16_ROW_ULP, its median row within
+    MLSTM_MEDIAN_ROW_REL, and its largest within twice the plain
+    version's largest and within ``row_bar``."""
+    return (_bf16_ok(rec, MLSTM_MEDIAN_ROW_REL, "median_row_rel_err")
+            and rec["rows_over_plain"] == 0.0
+            and rec["row_rel_err"] <= row_bar)
+
+
+def _mlstm_rows_errors(got, q, k, v, logi, logf, rows) -> dict:
+    """Rows ``rows`` of a bf16 mlstm_parallel output against the plain
+    version there, in float32 and in bf16 on the same inputs."""
+    from repro_torch.kernels import ref
+    a, b = rows
+    want = ref.mlstm_parallel_ref(q.float(), k.float(), v.float(), logi,
+                                  logf, rows)
+    plain = ref.mlstm_parallel_ref(q, k, v, logi, logf, rows)
+    rec = _bf16_errors(got[:, a:b], want, plain)
+    del want, plain
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _mlstm_head_tail_errors(got, q, k, v, logi, logf,
+                            W: int = XLSTM_CHECK_S) -> dict:
+    """A prefill layer's mlstm_parallel on its own bf16 inputs: its first
+    and its last W query rows (the latter against all S keys)."""
+    S = q.shape[1]
+    return {"head": _mlstm_rows_errors(got, q, k, v, logi, logf, (0, W)),
+            "tail": _mlstm_rows_errors(got, q, k, v, logi, logf, (S - W, S))}
+
+
+def _slstm_routes_bitwise(got, out, args, carry) -> bool:
+    """slstm_scan's output ``got`` and final carry ``out`` bit for bit those
+    of its block route on the same inputs ``args`` (gz .. bf) from
+    ``carry``."""
+    from repro_torch.kernels import ops
+    want_out = _slstm_carry(got.shape[0], got.shape[2], got.dtype)
+    want = ops.slstm_scan(*args, carry, want_out, _route="block")
+    return bool(torch.equal(got, want)) and all(
+        torch.equal(a, b) for a, b in zip(out, want_out))
+
+
+def _slstm_errors(got, gz, gi, gf, go, rz, bf, carry=None) -> dict:
+    """A bf16 slstm_scan's output ``got`` against the plain loop in float32
+    and in bf16 on the same inputs, from ``carry``."""
+    from repro_torch.kernels import ref
+    c32 = None if carry is None else (carry[0], carry[1], carry[2].float(),
+                                      carry[3])
+    want, _ = ref.slstm_scan_ref(*(t.float() for t in (gz, gi, gf, go, rz,
+                                                        bf)), c32)
+    plain, _ = ref.slstm_scan_ref(gz, gi, gf, go, rz, bf, carry)
+    return _bf16_errors(got, want, plain)
+
+
+def _slstm_head_tail_errors(got, gz, gi, gf, go, rz, bf, carry=None,
+                            carry_out=None, W: int = XLSTM_CHECK_S) -> dict:
+    """A prefill layer's slstm_scan on its own bf16 inputs
+    (``_slstm_errors``): its first W positions from zero, and its last W
+    from the kernel's own carry after the first S - W positions (one more
+    launch), where a drift that shows only late would show."""
+    from repro_torch.kernels.slstm import slstm_scan
+    S = gz.shape[1]
+    gates = (gz, gi, gf, go)
+    head = _slstm_errors(got[:, :W], *(g[:, :W] for g in gates), rz, bf)
+    c = _slstm_carry(gz.shape[0], gz.shape[2], gz.dtype)
+    slstm_scan(*(g[:, :S - W] for g in gates), rz, bf, carry_out=c)
+    tail = _slstm_errors(got[:, S - W:], *(g[:, S - W:] for g in gates), rz,
+                         bf, c)
+    return {"head": head, "tail": tail}
+
+
+def _xlstm_kernel_rows() -> dict:
+    """mlstm_parallel and slstm_scan against their plain versions on the
+    card, float32 and bf16 (MLSTM_CASES, SLSTM_CASES; float32 within
+    XLSTM_F32_REL row by row, bf16 by ``_mlstm_ok`` with MLSTM_ROW_REL
+    and ``_bf16_ok``;
+    slstm_scan's cluster route, every bf16 launch at D = 768, bit for bit
+    its block route, outputs and carry), then timed at the main
+    path's prefill shapes beside their bounds and their plain versions
+    (mLSTM's over the last XLSTM_CHECK_S rows, against all keys; sLSTM's
+    over its first XLSTM_CHECK_S steps), sLSTM's decode step too, and
+    each kernel's head and tail rows at the prefill's shape held like the
+    main path's layers; beside sLSTM's time, its cluster route's serial
+    chain alone (the ``slstm_chain`` build: the dot, the shuffles, the
+    exchange of h and the barrier a step, no gate math), the floor of
+    that design."""
+    from repro_torch.kernels import ops, ref
+    m_checks, s_checks, m_err, s_err = [], [], 0.0, 0.0
+    for i, (B, S, H, dh) in enumerate(MLSTM_CASES):
+        for dtype in (torch.float32, torch.bfloat16):
+            args = _mlstm_inputs(B, S, H, dh, dtype, 20 + i)
+            before = ops.launch_counts()["mlstm_parallel"]
+            got = ops.mlstm_parallel(*args)
+            require(ops.launch_counts()["mlstm_parallel"] == before + 1,
+                    "mlstm_parallel did not launch its kernel")
+            rec = {"shape": [B, S, H, dh],
+                   "dtype": str(dtype).replace("torch.", "")}
+            if dtype == torch.float32:
+                want = ref.mlstm_parallel_ref(*args)
+                rec["row_rel"] = _row_rel(got, want)
+                rec["max_abs_err"] = float((got - want).abs().max())
+                m_err = max(m_err, rec["max_abs_err"])
+                ok = rec["row_rel"] <= XLSTM_F32_REL
+            else:
+                rec.update(_mlstm_rows_errors(got, *args, (0, S)))
+                ok = _mlstm_ok(rec, MLSTM_ROW_REL)
+            m_checks.append(rec)
+            require(ok, f"mlstm_parallel against its plain version: {rec}")
+    for i, (B, S, D, carry) in enumerate(SLSTM_CASES):
+        for dtype in (torch.float32, torch.bfloat16):
+            *args, c0 = _slstm_inputs(B, S, D, dtype, 30 + i, carry)
+            out = _slstm_carry(B, D, dtype)
+            before = ops.launch_counts()["slstm_scan"]
+            got = ops.slstm_scan(*args, c0, out)
+            require(ops.launch_counts()["slstm_scan"] == before + 1,
+                    "slstm_scan did not launch its kernel")
+            rec = {"shape": [B, S, D], "carry": carry,
+                   "dtype": str(dtype).replace("torch.", "")}
+            if dtype == torch.float32:
+                want, last = ref.slstm_scan_ref(*args, c0)
+                rec["row_rel"] = _row_rel(got, want)
+                rec["carry_row_rel"] = max(_row_rel(a, b)
+                                           for a, b in zip(out, last))
+                rec["max_abs_err"] = float((got - want).abs().max())
+                s_err = max(s_err, rec["max_abs_err"])
+                ok = max(rec["row_rel"], rec["carry_row_rel"]) \
+                    <= XLSTM_F32_REL
+            else:
+                rec.update(_slstm_errors(got, *args, c0))
+                ok = _bf16_ok(rec, SLSTM_ROW_REL)
+                if D == 768:
+                    rec["cluster_bitwise_block"] = _slstm_routes_bitwise(
+                        got, out, args, c0)
+                    ok = ok and rec["cluster_bitwise_block"]
+            s_checks.append(rec)
+            require(ok, f"slstm_scan against its plain version: {rec}")
+    torch.cuda.empty_cache()
+
+    # mlstm_parallel at the prefill's shape
+    B, S, H, dh = MLSTM_PREFILL
+    W = XLSTM_CHECK_S
+    args = _mlstm_inputs(B, S, H, dh, torch.bfloat16, 40)
+    m_ms = cuda_ms(lambda: ops.mlstm_parallel(*args), 5, 1)
+    got = ops.mlstm_parallel(*args)
+    m_rows = _mlstm_head_tail_errors(got, *args)
+    require(all(_mlstm_ok(r, MLSTM_ROW_REL) for r in m_rows.values()),
+            f"mlstm_parallel at the prefill's shape: {m_rows}")
+    m_plain_ms = cuda_ms(lambda: ref.mlstm_parallel_ref(
+        *args, rows=(S - W, S)), 1, 0)
+    args32 = [t.float() for t in args[:3]] + list(args[3:])
+    m_f32_ms = cuda_ms(lambda: ops.mlstm_parallel(*args32), 1, 1)
+    del args, args32, got
+    torch.cuda.empty_cache()
+    pairs = B * H * S * (S + 1) / 2
+    flops = 4.0 * dh * pairs
+    nbytes = 2.0 * 4 * B * S * H * dh + 4.0 * 2 * B * S * H
+    m_flop_ms, m_byte_ms = 1e3 * flops / BF16_FLOPS, 1e3 * nbytes / HBM_BPS
+    m_rec = {"shape": list(MLSTM_PREFILL), "checks": m_checks,
+             "max_abs_err": m_err, "ms": m_ms, "ms_float32": m_f32_ms,
+             "tflops": flops / m_ms / 1e9, "plain_ms": m_plain_ms,
+             "plain_rows": [S - W, S],
+             "bound_ms": max(m_flop_ms, m_byte_ms),
+             "bound_by": "operations" if m_flop_ms >= m_byte_ms
+             else "bytes", "flop_bound_ms": m_flop_ms,
+             "byte_bound_ms": m_byte_ms, "exp_bound_ms": exp_bound_ms(pairs),
+             "library_ms": None, "prefill_rows": m_rows}
+
+    # slstm_scan at the prefill's shape and its decode step
+    B, S, D = SLSTM_PREFILL
+    *args, _ = _slstm_inputs(B, S, D, torch.bfloat16, 41)
+    s_ms = cuda_ms(lambda: ops.slstm_scan(*args), 3, 1)
+    s_block_ms = cuda_ms(lambda: ops.slstm_scan(*args, _route="block"), 1, 0)
+    s_chain_ms = cuda_ms(lambda: ops.slstm_scan(
+        *args, _build_name="slstm_chain"), 3, 1)
+    out = _slstm_carry(B, D, torch.bfloat16)
+    got = ops.slstm_scan(*args, carry_out=out)
+    s_bitwise = _slstm_routes_bitwise(got, out, args, None)
+    s_rows = _slstm_head_tail_errors(got, *args)
+    require(s_bitwise and all(_bf16_ok(r, SLSTM_ROW_REL)
+                              for r in s_rows.values()),
+            f"slstm_scan at the prefill's shape: {s_rows}, cluster route "
+            f"bitwise its block route: {s_bitwise}")
+    head = [g[:, :W] for g in args[:4]] + list(args[4:])
+    s_plain_ms = cuda_ms(lambda: ref.slstm_scan_ref(*head), 1, 1)
+    del args, head, got
+    Bd, Sd, Dd = SLSTM_DECODE
+    *dargs, c0 = _slstm_inputs(Bd, Sd, Dd, torch.bfloat16, 42, True)
+    dec_ms = cuda_ms(lambda: ops.slstm_scan(*dargs, c0, c0), 200, 5)
+    dec_graph_ms = graph_ms(lambda: ops.slstm_scan(*dargs, c0, c0), 200)
+    torch.cuda.empty_cache()
+    nbytes = 2.0 * 5 * B * S * D + 2.0 * (D * D + D)
+    flops = 2.0 * B * S * D * D
+    s_flop_ms, s_byte_ms = 1e3 * flops / BF16_FLOPS, 1e3 * nbytes / HBM_BPS
+    dec_bytes = 2.0 * 5 * Bd * Dd + 2.0 * (Dd * Dd + Dd) + 2 * 14.0 * Bd * Dd
+    s_rec = {"shape": list(SLSTM_PREFILL), "checks": s_checks,
+             "max_abs_err": s_err, "ms": s_ms, "us_per_step": 1e3 * s_ms / S,
+             "block_ms": s_block_ms, "cluster_bitwise_block": s_bitwise,
+             "chain_floor_ms": s_chain_ms,
+             "chain_floor_us_per_step": 1e3 * s_chain_ms / S,
+             "plain_ms": s_plain_ms, "plain_steps": W,
+             "bound_ms": max(s_flop_ms, s_byte_ms),
+             "bound_by": "operations" if s_flop_ms >= s_byte_ms
+             else "bytes", "flop_bound_ms": s_flop_ms,
+             "byte_bound_ms": s_byte_ms, "library_ms": None,
+             "prefill_rows": s_rows, "decode_shape": list(SLSTM_DECODE),
+             "decode_ms": dec_ms, "decode_graph_ms": dec_graph_ms,
+             "decode_bound_ms": 1e3 * dec_bytes / HBM_BPS,
+             "decode_bound_by": "bytes"}
+    return {"mlstm_parallel": m_rec, "slstm_scan": s_rec}
+
+
+def phase_serve_xlstm():
+    """xlstm-125m at its full width and depth in bf16 on the card (12
+    layers, [mlstm, slstm] x 6, 0.247 GB), weights drawn from a seeded
+    generator, after every other phase has released its tensors
+    (``_serve_guard``). First, before the weights, mlstm_parallel and
+    slstm_scan against their plain versions and timed
+    (``_xlstm_kernel_rows``). A warm-up prefill, then the main path
+    (``_serve_main``): prefill of 1 x 32,768 tokens (6 mlstm_parallel
+    launches on the mma route, 6 slstm_scan launches), then SERVE_B
+    requests of XLSTM_PROMPT tokens teacher-forced through the caches and
+    XLSTM_NEW_TOKENS greedy (6 slstm_scan launches a step, no
+    mlstm_parallel: mLSTM decodes by its recurrent update). The checks:
+    (1) one prefill with every kernel launch held on its own bf16 inputs
+    (``_checked_prefill``): each mLSTM layer's first and last
+    XLSTM_CHECK_S query rows, every row held (``_mlstm_ok``: none beyond
+    twice the bf16 plain version's error on the same row plus
+    BF16_ROW_ULP), each sLSTM layer's first and last
+    XLSTM_CHECK_S positions, the last from the kernel's own carry
+    (SLSTM_ROW_REL and twice the bf16 plain version's error); (2) the
+    first mLSTM and the first sLSTM layer fed the prompt's embeddings by
+    the prefill form and by decode step by step through its cache, its
+    weights alone in float32 (XLSTM_LAYER_REL_F32; bf16 recorded); (3)
+    the prompt's first
+    token through the forward ((4, 1)) against decode step 0, the bf16
+    model on the main path's kernels (XLSTM_POS0_REL of the logits'
+    scale) and the whole model in float32 (XLSTM_POS0_REL_F32); (4) the
+    main path's tokens in range and logits finite (``_lm_main_path``).
+    Decode beside the step's weight-read bound: every weight, the tied
+    table included (the logits read all of it)."""
+    import copy
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import embed
+    from repro_torch.models.transformer import (_layer_specs, decode_step,
+                                                forward, init_cache)
+    t0 = time.perf_counter()
+    before = _serve_guard("serve_xlstm")
+    kernel_recs = _xlstm_kernel_rows()
+    cfg = get_config("xlstm-125m")
+    n_mlstm, n_slstm = mlstm_layers(cfg), slstm_layers(cfg)
+    dh = 2 * cfg.d_model // cfg.n_heads
+    require(cfg.n_layers == 12 and cfg.d_model == 768
+            and (n_mlstm, n_slstm) == (6, 6)
+            and (XLSTM_PREFILL_B, XLSTM_PREFILL_S, cfg.n_heads, dh)
+            == MLSTM_PREFILL
+            and (XLSTM_PREFILL_B, XLSTM_PREFILL_S, cfg.d_model)
+            == SLSTM_PREFILL, "serve_xlstm: not xlstm-125m's full width")
+    model, tokens, prompt, rec = _serve_model(
+        "serve_xlstm", cfg, XLSTM_PARAMS,
+        (XLSTM_PREFILL_B, XLSTM_PREFILL_S), XLSTM_PROMPT)
+    prompt_logits, main = _serve_main(
+        "serve_xlstm", model, cfg, tokens, prompt, XLSTM_NEW_TOKENS,
+        rec["weight_gb"] * 1e9)
+
+    # (1) every prefill layer's kernel on its own inputs
+    checked = _checked_prefill(model, tokens, {
+        "mlstm_parallel": _mlstm_head_tail_errors,
+        "slstm_scan": _slstm_head_tail_errors})
+    mrows, srows = checked["mlstm_parallel"], checked["slstm_scan"]
+
+    # (2) the first mLSTM and sLSTM layers by both forms on the prompt's
+    # embeddings
+    specs = _layer_specs(cfg)
+    layers = {}
+    with torch.inference_mode():
+        x = embed(model.embed, prompt)
+        for kind in ("mlstm", "slstm"):
+            i = next(i for i, s in enumerate(specs) if s.mixer == kind)
+            layers[kind] = {"layer": i, **_layer_routes(
+                _attention_only(model.layers[i]), x, cfg, i)}
+    del x
+
+    # (3) the prompt's first token: a (4, 1) forward against decode step 0,
+    # the bf16 model and a float32 copy
+    with torch.inference_mode():
+        fwd, _ = forward(model, {"tokens": prompt[:, :1]})
+    dec0 = prompt_logits[:, 0].float()
+    pos0_bf16 = float((fwd[:, 0].float() - dec0).abs().max()
+                      / dec0.abs().max())
+    model32 = copy.deepcopy(model).float()
+    with torch.inference_mode():
+        fwd, _ = forward(model32, {"tokens": prompt[:, :1]})
+        cache = init_cache(cfg, SERVE_B, 1, torch.float32)
+        dec0, _ = decode_step(model32, cache, {"tokens": prompt[:, :1],
+                                               "step": 0})
+    pos0_rel = float((fwd[:, 0] - dec0[:, 0]).abs().max()
+                     / dec0[:, 0].abs().max())
+    del model32, cache, fwd, dec0
+
+    def worst(recs, key):
+        return max(r[part][key] for r in recs for part in ("head", "tail"))
+    rec.update(main, mlstm_layers=n_mlstm, slstm_layers=n_slstm,
+               allocated_before_gb=before / 1e9,
+               prefill_check_rows=XLSTM_CHECK_S,
+               prefill_mlstm_row_rel_max=worst(mrows, "row_rel_err"),
+               prefill_mlstm_plain_row_rel_max=worst(mrows,
+                                                     "plain_row_rel_err"),
+               prefill_mlstm_median_row_rel_max=worst(
+                   mrows, "median_row_rel_err"),
+               prefill_mlstm_rows_over_plain_max=worst(mrows,
+                                                       "rows_over_plain"),
+               prefill_slstm_row_rel_max=worst(srows, "row_rel_err"),
+               prefill_slstm_plain_row_rel_max=worst(srows,
+                                                     "plain_row_rel_err"),
+               prefill_mlstm=mrows, prefill_slstm=srows, layers=layers,
+               pos0_rel_diff_f32=pos0_rel, pos0_rel_diff_bf16=pos0_bf16,
+               kernels=kernel_recs)
+    _serve_done(rec, t0)
+    require(len(mrows) == n_mlstm
+            and all(_mlstm_ok(r[k]) for r in mrows
+                    for k in ("head", "tail")),
+            "serve_xlstm: a prefill layer's mlstm_parallel is off its plain "
+            "version in float32, at its head or its tail: a row beyond twice "
+            "the bf16 plain version's error on the row plus BF16_ROW_ULP, "
+            "its median row beyond MLSTM_MEDIAN_ROW_REL or its largest "
+            "beyond twice the plain version's")
+    require(len(srows) == n_slstm
+            and all(_bf16_ok(r[k], SLSTM_ROW_REL) for r in srows
+                    for k in ("head", "tail")),
+            "serve_xlstm: a prefill layer's slstm_scan is off its plain "
+            "version in float32 by more than SLSTM_ROW_REL or twice the "
+            "bf16 plain version's error, at its head or its tail")
+    for kind, layer in layers.items():
+        require(math.isfinite(layer["f32"])
+                and layer["f32"] <= XLSTM_LAYER_REL_F32[kind],
+                f"serve_xlstm: the {kind} layer's decode is off its prefill "
+                f"form in float32: {layer}")
+    require(math.isfinite(pos0_bf16) and pos0_bf16 <= XLSTM_POS0_REL,
+            f"serve_xlstm: the bf16 (4, 1) forward and decode step 0 differ "
+            f"by {pos0_bf16} of the logits' scale > {XLSTM_POS0_REL}")
+    require(math.isfinite(pos0_rel) and pos0_rel <= XLSTM_POS0_REL_F32,
+            f"serve_xlstm: the float32 (4, 1) forward and decode step 0 "
+            f"differ by {pos0_rel} of the logits' scale > "
+            f"{XLSTM_POS0_REL_F32}")
+    del model
+    _serve_free()
+    return main["main_path_launches"], main["main_path_routes"], kernel_recs
 
 
 # --------------------------------------------------------------------------
@@ -6302,6 +6834,11 @@ def main() -> int:
     # kernel, two NoPE attention layers on flash_attention, the MoE
     counts["serve_jamba"], routes["serve_jamba"], info["selective_scan"] = \
         phase_serve_jamba()
+    # xlstm-125m (0.25 GB, full depth): mLSTM's parallel form and the sLSTM
+    # recurrence on their kernels
+    counts["serve_xlstm"], routes["serve_xlstm"], xlstm_kernels = \
+        phase_serve_xlstm()
+    info.update(xlstm_kernels)
     emit({"phase": "kernel_counts", **counts})
     emit({"phase": "sir_greedy_events", **sir_events})
     emit({"phase": "top_spill_walks", **top_walks})
@@ -6474,7 +7011,13 @@ def main() -> int:
                              "src/repro/core/seeding.py:573", "loo"),
                "selective_scan": (csrc + "selective_scan.cu",
                                   "src/repro/models/ssm.py:103",
-                                  "serve_jamba")}
+                                  "serve_jamba"),
+               "mlstm_parallel": (csrc + "mlstm.cu",
+                                  "src/repro/models/xlstm.py:53",
+                                  "serve_xlstm"),
+               "slstm_scan": (csrc + "slstm.cu",
+                              "src/repro/models/xlstm.py:138",
+                              "serve_xlstm")}
     # the dense chunk's four routes are four kernels, each counted on its
     # own path (the global-state one is on none now: its count there is
     # 0); flash_attention's routes are listed beside its launches
@@ -6534,6 +7077,21 @@ def main() -> int:
                 "ms_float32", "plain_steps", "exp_bound_ms",
                 "byte_bound_ms", "decode_shape", "decode_ms",
                 "decode_graph_ms", "decode_bound_ms", "decode_bound_by")})
+        # xLSTM's kernels: their routes on the main path, the bounds beside
+        # them, sLSTM's time a step and its decode step
+        if name == "mlstm_parallel":
+            kernels[-1].update({key: k[key] for key in (
+                "ms_float32", "tflops", "plain_rows", "flop_bound_ms",
+                "byte_bound_ms", "exp_bound_ms")},
+                routes=routes[path][name])
+        if name == "slstm_scan":
+            kernels[-1].update({key: k[key] for key in (
+                "us_per_step", "block_ms", "cluster_bitwise_block",
+                "chain_floor_ms", "chain_floor_us_per_step",
+                "plain_steps", "flop_bound_ms",
+                "byte_bound_ms", "decode_shape", "decode_ms",
+                "decode_graph_ms", "decode_bound_ms", "decode_bound_by")},
+                routes=routes[path][name])
         if name == "rbf_kernel_matrix":
             kernels[-1].update(
                 {key: k[key] for key in ("ms_distinct", "bound_ms_distinct",

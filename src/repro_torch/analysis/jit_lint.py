@@ -115,6 +115,12 @@ SYNC_FREE = {
     # read of the state or the outputs
     (f"{PACKAGE}/models/ssm.py", "mamba_apply"): ("cfg",),
     (f"{PACKAGE}/kernels/selective_scan.py", "selective_scan"): (),
+    # xLSTM's mixers (prefill and decode) and their kernels' wrappers: one
+    # launch each, no read of a state or an output
+    (f"{PACKAGE}/models/xlstm.py", "mlstm_apply"): ("cfg",),
+    (f"{PACKAGE}/models/xlstm.py", "slstm_apply"): ("cfg",),
+    (f"{PACKAGE}/kernels/mlstm.py", "mlstm_parallel"): (),
+    (f"{PACKAGE}/kernels/slstm.py", "slstm_scan"): ("_route",),
 }
 
 #: attribute reads that yield host values

@@ -10,7 +10,8 @@ the dense llama-family configs (GQA attention + dense MLP), today
 local:global layers take the sliding-window form), the DeepSeek configs
 ``deepseek-v2-236b`` and ``deepseek-v3-671b`` (MLA attention, the
 sort-based MoE) and the hybrid ``jamba-v0.1-52b`` (mamba layers around a
-NoPE GQA layer, the MoE on every second layer). Any other architecture
+NoPE GQA layer, the MoE on every second layer) and ``xlstm-125m``
+(alternating mLSTM and sLSTM blocks, no MLP). Any other architecture
 of the zoo raises and names ROADMAP, where its missing layer kinds are
 queued.
 """
@@ -115,9 +116,11 @@ ARCH_IDS = (
     "xlstm-125m", "qwen2-vl-2b",
 )
 #: the architectures whose layer kinds the port has (GQA + dense MLP,
-#: sliding-window layers included; MLA + MoE; mamba + GQA + MoE)
+#: sliding-window layers included; MLA + MoE; mamba + GQA + MoE; mLSTM +
+#: sLSTM without an MLP)
 PORTED = ("granite-8b", "gemma-7b", "yi-34b", "gemma3-4b",
-          "deepseek-v2-236b", "deepseek-v3-671b", "jamba-v0.1-52b")
+          "deepseek-v2-236b", "deepseek-v3-671b", "jamba-v0.1-52b",
+          "xlstm-125m")
 
 
 def get_config(arch: str, smoke: bool = False) -> ModelConfig:

@@ -12,15 +12,21 @@ set: ``smo_step_fma`` keeps ``csrc/smo_step.cu``'s float64 dot products on
 the FMA pipes, the witness that ``chip_smoke.py`` holds bitwise equal to
 the FP64 tensor-core build the port runs; ``water_fill_seq`` builds
 ``csrc/seeding.cu`` with one bisection level a round, the sequential loop
-that the multi-level ``water_fill`` must equal bit for bit.
+that the multi-level ``water_fill`` must equal bit for bit;
+``slstm_chain`` keeps only the serial chain of ``csrc/slstm.cu``'s
+cluster route (no gate loads, no step math), whose time is that design's
+floor a step.
 
 Flags are per source (``flags``). The SVM sources keep ``-fmad=false``,
 which keeps ``nvcc`` from contracting any expression into an FMA behind
 the code's back: they spell out the one FMA the reference rounds as one
 (the f-update) and round everything else op by op, as the plain PyTorch
-versions do, which their bitwise parity needs. ``flash_attention.cu`` and
-``selective_scan.cu`` are held to tolerances, not bits (their sums run in
-other orders than the reference's), and are built without it. Nothing links
+versions do, which their bitwise parity needs. ``slstm.cu`` keeps it too:
+it writes the reference's two FMAs as ``fmaf`` and its dot product as an
+``fmaf`` chain, and no other contraction. ``flash_attention.cu``,
+``selective_scan.cu`` and ``mlstm.cu`` are held to tolerances, not bits
+(their sums run in other orders than the reference's), and are built
+without it. Nothing links
 ``libcuda``: the attention source reaches ``cuTensorMapEncodeTiled``
 through the CUDA runtime's entry-point query.
 """
@@ -40,16 +46,21 @@ import torch
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
 SOURCES = ("rbf", "smo_update", "smo_chunk", "smo_step", "seeding",
-           "flash_attention", "selective_scan")
+           "flash_attention", "selective_scan", "mlstm", "slstm")
 #: the sources whose results are held bitwise to the plain versions
 BITWISE_SOURCES = ("rbf", "smo_update", "smo_chunk", "smo_step", "seeding")
+#: the sources built with -fmad=false: the bitwise ones, and the sLSTM
+#: recurrence, which spells out the two FMAs the reference contracts and
+#: rounds everything else op by op, as the plain version does
+NO_FMAD_SOURCES = BITWISE_SOURCES + ("slstm",)
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 #: variant -> (its source, the flags it adds)
 VARIANTS = {"smo_step_fma": ("smo_step", ("-DSMO_STEP_TENSOR_F64=0",)),
-            "water_fill_seq": ("seeding", ("-DWATER_FILL_LEVELS=1",))}
+            "water_fill_seq": ("seeding", ("-DWATER_FILL_LEVELS=1",)),
+            "slstm_chain": ("slstm", ("-DSLSTM_CHAIN_ONLY=1",))}
 
 
 def source(name: str) -> Path:
@@ -60,7 +71,7 @@ def source(name: str) -> Path:
 def flags(name: str) -> tuple[str, ...]:
     """``nvcc`` flags of a source or variant."""
     src, extra = VARIANTS.get(name, (name, ()))
-    return FLAGS + (("-fmad=false",) if src in BITWISE_SOURCES else ()) \
+    return FLAGS + (("-fmad=false",) if src in NO_FMAD_SOURCES else ()) \
         + extra
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -19,10 +19,13 @@ its selection and fused launches to ``smo_select`` and ``fused_smo_step``.
 ``top_spill_loo`` count on them) count one per launch.
 ``flash_attention`` counts one per launch (one per prefill attention layer
 on the LM serving path), ``selective_scan`` likewise (one per mamba layer
-in a prefill and in a decode step), and ``window_counts`` splits
+in a prefill and in a decode step), ``mlstm_parallel`` one per mLSTM layer
+in a prefill (decode is the reference's recurrent update in torch ops),
+``slstm_scan`` one per sLSTM layer in a prefill and in a decode step, and
+``window_counts`` splits
 ``flash_attention``'s launches into windowed (a sliding-window layer's)
 and global ones. ``route_counts``
-splits the ten kernels that have routes: ``rbf_kernel_matrix`` (tensor,
+splits the twelve kernels that have routes: ``rbf_kernel_matrix`` (tensor,
 the FP64 tensor cores / fma), ``smo_chunk`` (one_block, the resident
 kernel / multi_block / cluster / one_block_global, the global-state
 kernel), ``smo_stream_chunk`` (pair / persistent: the chunks on each),
@@ -30,16 +33,20 @@ kernel), ``smo_stream_chunk`` (pair / persistent: the chunks on each),
 over lanes with their own operands), ``flash_attention`` (wgmma / mma /
 fma), ``ato_system_lanes`` (compact / carried: a ramp's later steps),
 ``ato_apply_lanes`` (split / fused: the ramp's, with the alpha update),
-and ``avg_spill`` and ``top_spill`` (fused: the seeder's prologue, order
-and spill in one launch / split: the spill alone).
+``avg_spill`` and ``top_spill`` (fused: the seeder's prologue, order
+and spill in one launch / split: the spill alone), ``mlstm_parallel``
+(mma, bf16 / fma, float32) and ``slstm_scan`` (cluster: 8 blocks a
+batch row, rz in their shared memory / block: one block a batch row).
 """
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.mlstm import mlstm_parallel
 from repro_torch.kernels.rbf import rbf_kernel_matrix
 from repro_torch.kernels.selective_scan import selective_scan
 from repro_torch.kernels.seeding import (ato_apply_lanes, ato_system_lanes,
                                          avg_spill, avg_spill_loo,
                                          sir_greedy, top_spill,
                                          top_spill_loo, water_fill)
+from repro_torch.kernels.slstm import slstm_scan
 from repro_torch.kernels.smo_chunk import (smo_chunk, smo_chunk_lanes,
                                            smo_chunk_sources, smo_select,
                                            smo_stream_chunk,
@@ -53,8 +60,8 @@ __all__ = ["rbf_kernel_matrix", "smo_f_update", "smo_chunk",
            "fused_smo_step", "flash_attention", "water_fill",
            "sir_greedy", "ato_system_lanes", "ato_apply_lanes", "avg_spill",
            "avg_spill_loo", "top_spill", "top_spill_loo", "selective_scan",
-           "launch_counts", "reset_launch_counts", "route_counts",
-           "window_counts"]
+           "mlstm_parallel", "slstm_scan", "launch_counts",
+           "reset_launch_counts", "route_counts", "window_counts"]
 
 #: kernel name -> the wrapper that carries its count
 KERNELS = {"rbf_kernel_matrix": rbf_kernel_matrix,
@@ -72,7 +79,9 @@ KERNELS = {"rbf_kernel_matrix": rbf_kernel_matrix,
            "ato_apply_lanes": ato_apply_lanes,
            "avg_spill": avg_spill,
            "top_spill": top_spill,
-           "selective_scan": selective_scan}
+           "selective_scan": selective_scan,
+           "mlstm_parallel": mlstm_parallel,
+           "slstm_scan": slstm_scan}
 
 
 def launch_counts() -> dict[str, int]:
@@ -89,7 +98,9 @@ ROUTED = {"rbf_kernel_matrix": rbf_kernel_matrix, "smo_chunk": smo_chunk,
           "ato_system_lanes": ato_system_lanes,
           "ato_apply_lanes": ato_apply_lanes,
           "avg_spill": avg_spill,
-          "top_spill": top_spill}
+          "top_spill": top_spill,
+          "mlstm_parallel": mlstm_parallel,
+          "slstm_scan": slstm_scan}
 
 
 def route_counts() -> dict[str, dict[str, int]]:

@@ -16,10 +16,12 @@ op by op, in the reference's order.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 _INF = math.inf
 _TAU = 1e-12
@@ -850,3 +852,90 @@ def selective_scan_ref(u, dt, A, Bp, Cp, h0=None):
         h = torch.addcmul(dtu[:, t, :, None] * Bf[:, t, None, :], dA, h)
         y[:, t] = torch.einsum("ben,bn->be", h, Cf[:, t])
     return y.to(u.dtype), h
+
+
+def log_sigmoid_ref(x):
+    """``jax.nn.log_sigmoid``: -softplus(-x), with torch's softplus (within
+    an ulp of jax's ``logaddexp(x, 0)``)."""
+    return -F.softplus(-x)
+
+
+def slstm_step_ref(gz, gi, gf, go, rz, bf, carry):
+    """One sLSTM step (``src/repro/models/xlstm.py::_slstm_step``, ``:116``)
+    from its input projections gz, gi, gf, go (B, D) in x's dtype, the
+    recurrent weight rz (D, D), the forget bias bf (D,) and carry (c, n, h,
+    m): c, n, m float32, h in x's dtype. Returns the next carry. The
+    reference's rounding points: ``h @ rz`` and ``gz + r`` and the tanh and
+    the sigmoid each in x's dtype; the gates' exponents float32; XLA-CPU
+    contracts ``fp * c + ip * z`` and ``fp * n + ip`` into one FMA each
+    (``addcmul``); ``c / max(n, 1e-6)`` rounded to x's dtype before the
+    output gate multiplies it there."""
+    c, n, h, m = carry
+    zt = torch.tanh(gz + h @ rz)
+    it = gi.float()
+    ft = log_sigmoid_ref(gf.float() + bf.float())
+    ot = torch.sigmoid(go)
+    m1 = torch.maximum(ft + m, it)
+    ip = torch.exp(it - m1)
+    fp = torch.exp(ft + m - m1)
+    c1 = torch.addcmul(ip * zt.float(), fp, c)
+    n1 = torch.addcmul(ip, fp, n)
+    h1 = ot * (c1 / torch.clamp_min(n1, 1e-6)).to(gz.dtype)
+    return c1, n1, h1, m1
+
+
+def slstm_scan_ref(gz, gi, gf, go, rz, bf, carry=None):
+    """The sLSTM recurrence over S steps, a loop of ``slstm_step_ref``:
+    gz, gi, gf, go (B, S, D) in x's dtype, from ``carry`` (c, n, h, m),
+    zeros when None (the reference's prefill starts from m = 0). Returns
+    (hs (B, S, D) in x's dtype, the final carry)."""
+    B, S, D = gz.shape
+    if carry is None:
+        zero = torch.zeros((B, D), dtype=torch.float32, device=gz.device)
+        carry = (zero, zero, zero.to(gz.dtype), zero)
+    hs = torch.empty_like(gz)
+    for t in range(S):
+        carry = slstm_step_ref(gz[:, t], gi[:, t], gf[:, t], go[:, t], rz,
+                               bf, carry)
+        hs[:, t] = carry[2]
+    return hs, carry
+
+
+@functools.lru_cache(maxsize=None)
+def mlstm_scale(dh: int, dtype) -> float:
+    """mLSTM's score scale 1/sqrt(dh) as the reference's prefill applies it:
+    a weakly typed float32, so rounded to the scores' dtype (bf16:
+    0.05102539 at dh = 384)."""
+    s = 1.0 / torch.sqrt(torch.tensor(float(dh), dtype=torch.float32))
+    return float(s.to(dtype))
+
+
+def mlstm_parallel_ref(q, k, v, logi, logf, rows=None):
+    """mLSTM's parallel stabilized form (``src/repro/models/xlstm.py:53-66``)
+    for query rows ``rows`` = (start, stop) (all when None) against their
+    keys j <= i: q, k, v (B, S, H, dh) in x's dtype, logi and logf (B, S,
+    H) float32 -> h (B, stop - start, H, dh) in x's dtype. ``F`` the
+    cumsum of logf; ``Dm_ij = (F_i - F_j) + logi_j`` (j <= i, else -inf);
+    ``m_i = max_j Dm_ij``; ``w = exp(Dm - m)``; the scores ``x(x(q.k) *
+    x(scale))``; ``sw = f32(scores) w``; ``h = x(x(sum_j x(sw) v_j) /
+    x(max(|sum_j sw|, exp(-m))))``, x() rounding to x's dtype. The rows
+    materialise (B, R, stop, H) tensors: the card holds a range of rows
+    at a time."""
+    B, S, H, dh = q.shape
+    start, stop = (0, S) if rows is None else rows
+    Fc = torch.cumsum(logf, dim=1)
+    Fi, Fj = Fc[:, start:stop], Fc[:, :stop]
+    Dm = (Fi[:, :, None, :] - Fj[:, None, :, :]) + logi[:, None, :stop, :]
+    i = torch.arange(start, stop, device=q.device)
+    causal = torch.arange(stop, device=q.device)[None, :] <= i[:, None]
+    Dm = torch.where(causal[None, :, :, None], Dm, -_INF)
+    m = Dm.amax(dim=2, keepdim=True)
+    w = torch.exp(Dm - m)
+    del Dm
+    scores = torch.einsum("bshk,bthk->bsth", q[:, start:stop], k[:, :stop]) \
+        * mlstm_scale(dh, q.dtype)
+    sw = scores.float() * w
+    del scores, w
+    num = torch.einsum("bsth,bthk->bshk", sw.to(q.dtype), v[:, :stop])
+    den = torch.maximum(sw.sum(dim=2).abs(), torch.exp(-m[:, :, 0, :]))
+    return num / den[..., None].to(q.dtype)

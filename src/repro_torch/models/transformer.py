@@ -3,19 +3,23 @@
 MoE), the full forward, the cache and one-token decode. Mirrors
 ``src/repro/models/transformer.py`` for the llama-family plan
 ``[GQA + dense] * L``, DeepSeek's ``[MLA + dense] * k + [MLA + MoE] *
-(L - k)`` and Jamba's hybrid period-8 blocks (mamba everywhere but one
-NoPE GQA layer at offset 4, MoE on every second layer); the reference's
-``lax.scan`` over stacked layers is a Python loop over the list.
+(L - k)``, Jamba's hybrid period-8 blocks (mamba everywhere but one
+NoPE GQA layer at offset 4, MoE on every second layer) and xLSTM's
+``[mlstm, slstm] * L/2`` mixer-only blocks (``mlp="none"``: ``x +
+mixer(norm(x))``); the reference's ``lax.scan`` over stacked layers is a
+Python loop over the list.
 
 ``layer_plan`` is kept as the reference computes it, so that
 ``repro_torch.convert`` can unstack the reference's scanned stages. The
-mixers ``attn`` (GQA), ``mla`` and ``mamba`` and the MLPs ``dense`` and
-``moe`` are ported: any other layer spec (xLSTM, cross-attention) raises
-and names ROADMAP, as do enc-dec and modality frontends.
+mixers ``attn`` (GQA), ``mla``, ``mamba``, ``mlstm`` and ``slstm`` and the
+MLPs ``dense``, ``moe`` and ``none`` are ported: any other layer spec
+(cross-attention) raises and names ROADMAP, as do enc-dec and modality
+frontends.
 
 The port's parameter tree is the reference's with the stages unstacked:
 ``{"embed": {"table"}, "final_norm": {"scale"}, "layers": [{"ln1",
-"mixer", "ln2", "mlp" or "moe"}, ...], "lm_head": {"table"}, "mtp":
+"mixer", "ln2", "mlp" or "moe"} (no "ln2" and no MLP for "none"), ...],
+"lm_head": {"table"}, "mtp":
 {...}}`` (no ``lm_head`` with tied embeddings; ``mtp``, DeepSeek-V3's
 multi-token-prediction head, where ``mtp_depth`` is set), every weight in
 the reference's layout. The module's parameter names are the same paths
@@ -34,6 +38,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import (embed, embedding_def, mlp, mlp_def,
                                        rmsnorm, rmsnorm_def, unembed)
 from repro_torch.models.params import ParamDef, count_from_defs, init_params
@@ -99,16 +104,17 @@ def layer_plan(cfg) -> list[tuple[tuple[LayerSpec, ...], int]]:
 
 #: the ported mixers' parameter definitions
 _MIXER_DEFS = {"attn": attn_mod.gqa_def, "mla": attn_mod.mla_def,
-               "mamba": ssm_mod.mamba_def}
+               "mamba": ssm_mod.mamba_def, "mlstm": xlstm_mod.mlstm_def,
+               "slstm": xlstm_mod.slstm_def}
 
 
 def _check_spec(spec: LayerSpec) -> None:
-    if spec.mixer not in _MIXER_DEFS or spec.mlp not in ("dense", "moe") \
-            or spec.cross:
+    if spec.mixer not in _MIXER_DEFS \
+            or spec.mlp not in ("dense", "moe", "none") or spec.cross:
         raise NotImplementedError(
-            f"layer {spec}: only GQA, MLA or mamba mixers with a dense or "
-            "MoE MLP are ported (ROADMAP.md, Queue 1 item 12 lists xLSTM "
-            "and enc-dec)")
+            f"layer {spec}: only GQA, MLA, mamba, mLSTM or sLSTM mixers with "
+            "a dense, MoE or no MLP are ported (ROADMAP.md, Queue 1 item 12 "
+            "lists enc-dec)")
 
 
 # ---------------------------------------------------------- param trees ----
@@ -116,11 +122,12 @@ def _check_spec(spec: LayerSpec) -> None:
 def _layer_def(spec: LayerSpec, cfg):
     _check_spec(spec)
     d = {"ln1": rmsnorm_def(cfg.d_model),
-         "mixer": _MIXER_DEFS[spec.mixer](cfg),
-         "ln2": rmsnorm_def(cfg.d_model)}
+         "mixer": _MIXER_DEFS[spec.mixer](cfg)}
     if spec.mlp == "moe":
+        d["ln2"] = rmsnorm_def(cfg.d_model)
         d["moe"] = moe_mod.experts_def(cfg)
-    else:
+    elif spec.mlp == "dense":
+        d["ln2"] = rmsnorm_def(cfg.d_model)
         d["mlp"] = mlp_def(cfg.d_model, cfg.d_ff)
     return d
 
@@ -155,6 +162,10 @@ def _layer_cache_def(spec: LayerSpec, cfg, batch, max_len):
     _check_spec(spec)
     if spec.mixer == "mamba":
         return ssm_mod.mamba_cache_def(cfg, batch)
+    if spec.mixer == "mlstm":
+        return xlstm_mod.mlstm_cache_def(cfg, batch)
+    if spec.mixer == "slstm":
+        return xlstm_mod.slstm_cache_def(cfg, batch)
     if spec.mixer == "mla":
         return attn_mod.mla_cache_def(cfg, batch, max_len)
     return attn_mod.gqa_cache_def(cfg, batch, max_len)
@@ -164,15 +175,18 @@ def cache_def(cfg, batch, max_len):
     """Per layer: {'k', 'v'} (batch, max_len, KV, Dh) for GQA, {'c'
     (batch, max_len, kv_lora_rank), 'kr' (batch, max_len, qk_rope_dim)}
     for MLA, {'conv' (batch, Cv - 1, Din), 'ssm' (batch, Din, St),
-    float32 whatever the cache's dtype} for mamba."""
+    float32 whatever the cache's dtype} for mamba, {'C' (batch, H, dh, dh),
+    'n' (batch, H, dh), 'm' (batch, H), all float32} for mLSTM, {'c', 'n',
+    'h', 'm'} (batch, d), h in the cache's dtype and the others float32,
+    for sLSTM."""
     return {"layers": [_layer_cache_def(s, cfg, batch, max_len)
                        for s in _layer_specs(cfg)]}
 
 
 def init_cache(cfg, batch, max_len, dtype=torch.bfloat16, device=None):
     """A zeroed cache, preallocated at ``max_len`` rows (attention) and in
-    ``dtype`` but for the leaves that name their own (mamba's float32
-    state); decode writes into it in place."""
+    ``dtype`` but for the leaves that name their own (mamba's and xLSTM's
+    float32 states); decode writes into it in place."""
     dev = resolve_device(device)
     return init_params(cache_def(cfg, batch, max_len),
                        torch.Generator(device=dev), dtype, dev)
@@ -256,23 +270,52 @@ class Mamba(ParamModule):
         return ssm_mod.mamba_apply(self, x, self.cfg, cache=cache)
 
 
+class MLSTM(Mamba):
+    """The mLSTM mixer (``xlstm.py``); its cache is its (C, n, m) state."""
+
+    def forward(self, x, positions=None, cache=None, step=None):
+        return xlstm_mod.mlstm_apply(self, x, self.cfg, cache=cache)
+
+
+class SLSTM(Mamba):
+    """The sLSTM mixer (``xlstm.py``); its cache is its (c, n, h, m)
+    carry. Its four gate weights are the column blocks of one (D, 4 D)
+    tensor, built once (the buffer ``w4``), which their GEMM reads
+    whole."""
+
+    def __init__(self, tensors, cfg, window=None):
+        w4 = xlstm_mod.slstm_gate_weight(tensors)
+        D = cfg.d_model
+        views = {k: w4[:, i * D:(i + 1) * D]
+                 for i, k in enumerate(xlstm_mod.SLSTM_GATES)}
+        super().__init__({**tensors, **views}, cfg)
+        self.register_buffer("w4", w4, persistent=False)
+
+    def forward(self, x, positions=None, cache=None, step=None):
+        return xlstm_mod.slstm_apply(self, x, self.cfg, cache=cache,
+                                     w4=self.w4)
+
+
 #: layer spec mixer -> its module
-_MIXERS = {"attn": Attention, "mla": MLA, "mamba": Mamba}
+_MIXERS = {"attn": Attention, "mla": MLA, "mamba": Mamba, "mlstm": MLSTM,
+           "slstm": SLSTM}
 
 
 class Block(nn.Module):
-    """``x + mixer(norm(x))``, then ``x + mlp(norm(x))`` (or the MoE's);
-    returns (x, cache, the MoE's aux loss or None)."""
+    """``x + mixer(norm(x))``, then ``x + mlp(norm(x))`` (or the MoE's; an
+    xLSTM block has neither); returns (x, cache, the MoE's aux loss or
+    None)."""
 
     def __init__(self, p, spec: LayerSpec, cfg):
         super().__init__()
         _check_spec(spec)
         self.ln1 = RMSNorm(p["ln1"], cfg.norm_eps)
         self.mixer = _MIXERS[spec.mixer](p["mixer"], cfg, spec.window)
-        self.ln2 = RMSNorm(p["ln2"], cfg.norm_eps)
+        if spec.mlp != "none":
+            self.ln2 = RMSNorm(p["ln2"], cfg.norm_eps)
         if spec.mlp == "moe":
             self.moe = MoE(p["moe"], cfg)
-        else:
+        elif spec.mlp == "dense":
             self.mlp = MLP(p["mlp"], cfg.act)
 
     def forward(self, x, positions, cache=None, step=None):
@@ -281,7 +324,9 @@ class Block(nn.Module):
         if hasattr(self, "moe"):
             y, aux = self.moe(self.ln2(x))
             return x + y, cache, aux
-        return x + self.mlp(self.ln2(x)), cache, None
+        if hasattr(self, "mlp"):
+            return x + self.mlp(self.ln2(x)), cache, None
+        return x, cache, None
 
 
 class Transformer(nn.Module):

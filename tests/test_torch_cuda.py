@@ -3034,3 +3034,316 @@ def test_cuda_scan_and_mamba_make_no_host_sync(cuda):
         torch.cuda.set_sync_debug_mode(0)
     assert cache["ssm"].dtype == torch.float32
     assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(d).all())
+
+
+# ------------------------------------------- xLSTM: sLSTM and mLSTM kernels ----
+
+def _slstm_case(cuda, B, S, D, dtype, carry, seed=0):
+    """Seeded sLSTM inputs on the card, as the model makes them: the four
+    gate inputs of one (B, S, 4 D) projection (views with its strides),
+    ~ N(0, 1) (gi and gf at the init's 0.02 fan-in scale times sqrt(D)),
+    rz ~ N(0, 0.02^2), bf ones; with ``carry`` a nonzero (c, n, h, m)."""
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, scale=1.0):
+        return (torch.from_numpy(rng.normal(size=shape)).float()
+                * scale).to(cuda)
+    g = t(B, S, 4 * D)
+    g[..., D:3 * D] *= 0.02 * D ** 0.5
+    g = g.to(dtype)
+    gz, gi, gf, go = g.split(D, dim=-1)
+    rz = t(D, D, scale=0.02).to(dtype)
+    bf = torch.ones(D, device=cuda, dtype=dtype)
+    c0 = None
+    if carry:
+        c0 = (t(B, D), t(B, D).abs() + 1.0, t(B, D, scale=0.5).to(dtype),
+              t(B, D, scale=0.1))
+    return gz, gi, gf, go, rz, bf, c0
+
+
+def _empty_carry(B, D, dtype, device):
+    return tuple(torch.empty((B, D), device=device,
+                             dtype=dtype if k == 2 else torch.float32)
+                 for k in range(4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,D,carry", [
+    (2, 300, 64, False), (3, 257, 768, True), (1, 1000, 768, False),
+    (4, 1, 768, True), (5, 33, 64, True)],
+    ids=["smoke_width", "full_width_carry", "long", "decode", "b5_carry"])
+def test_cuda_slstm_scan_matches_plain(cuda, dtype, B, S, D, carry):
+    """The kernel against its plain version (the loop of ``_slstm_step``)
+    on the same inputs, at SMOKE's D = 64 and the full 768, B > 1, from
+    zeros and from a nonzero carry: float32 hs and final carry within 1e-5
+    row by row (the dot product h @ rz sums in another order); bf16 hs
+    within 0.02 of the plain version run in float32 on the same bf16
+    inputs, and within twice the bf16 plain version's own error there, its
+    final float32 state likewise."""
+    gz, gi, gf, go, rz, bf, c0 = _slstm_case(cuda, B, S, D, dtype, carry)
+    out = _empty_carry(B, D, dtype, cuda)
+    before = ops.launch_counts()["slstm_scan"]
+    got = ops.slstm_scan(gz, gi, gf, go, rz, bf, c0, out)
+    assert ops.launch_counts()["slstm_scan"] == before + 1
+    assert got.dtype == dtype and got.shape == (B, S, D)
+    if dtype == torch.float32:
+        want, last = ref.slstm_scan_ref(gz, gi, gf, go, rz, bf, c0)
+        assert _row_rel(got, want) <= 1e-5
+        for a, b in zip(out, last, strict=True):
+            assert _row_rel(a, b) <= 1e-5
+        return
+    f32 = [t.float() for t in (gz, gi, gf, go, rz, bf)]
+    want, last = ref.slstm_scan_ref(*f32, None if c0 is None else (
+        c0[0], c0[1], c0[2].float(), c0[3]))
+    plain, _ = ref.slstm_scan_ref(gz, gi, gf, go, rz, bf, c0)
+    err, own = _row_rel(got, want), _row_rel(plain, want)
+    assert err <= 0.02 and err <= 2.0 * max(own, 2 ** -9), (err, own)
+    assert _row_rel(out[0], last[0]) <= 0.02
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 768])
+def test_cuda_slstm_steps_in_place_equal_one_launch(cuda, dtype, D):
+    """Decode's form: S launches at S = 1 with the carry passed as both
+    ``carry`` and ``carry_out`` (the cache, rewritten in place) give the
+    outputs and final carry of one launch over the S steps, bit for bit:
+    each step is the same arithmetic on the same values."""
+    gz, gi, gf, go, rz, bf, c0 = _slstm_case(cuda, 2, 17, D, dtype, True, 1)
+    out = _empty_carry(2, D, dtype, cuda)
+    whole = ops.slstm_scan(gz, gi, gf, go, rz, bf, c0, out)
+    cache = tuple(t.clone() for t in c0)
+    steps = []
+    for t in range(17):
+        steps.append(ops.slstm_scan(gz[:, t:t + 1], gi[:, t:t + 1],
+                                    gf[:, t:t + 1], go[:, t:t + 1], rz, bf,
+                                    cache, cache))
+    assert torch.equal(torch.cat(steps, 1), whole)
+    for a, b in zip(cache, out, strict=True):
+        assert torch.equal(a, b)
+
+
+def _mlstm_case(cuda, B, S, H, dh, dtype, seed=0):
+    """Seeded mLSTM inputs on the card, as the model makes them: q, k, v ~
+    N(0, 1) in ``dtype``; logi ~ N(0, 0.1^2) (the input gate's 0.02 init
+    and zero bias); logf = log_sigmoid(1 + N(0, 0.1^2)) (its ones bias)."""
+    rng = np.random.default_rng(seed)
+
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape)).float().to(cuda)
+    q, k, v = (t(B, S, H, dh).to(dtype) for _ in range(3))
+    logi = 0.1 * t(B, S, H)
+    logf = ref.log_sigmoid_ref(1.0 + 0.1 * t(B, S, H))
+    return q, k, v, logi, logf
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,dh", [
+    (2, 100, 2, 64), (1, 200, 4, 384), (3, 65, 2, 64), (1, 1, 4, 384),
+    (2, 130, 4, 384), (1, 1000, 2, 64)],
+    ids=["smoke", "full_dh", "tail_b3", "one_row", "ragged_full",
+         "long"])
+def test_cuda_mlstm_parallel_matches_plain(cuda, dtype, B, S, H, dh):
+    """The kernel against its plain version (the reference's materialised
+    form) on the same inputs: S not a multiple of the 64-row (bf16) or
+    16-row (float32) tiles, B > 1, dh at SMOKE's 64 and the full 384.
+    float32 (the fma route) within 1e-5 row by row (sums in other
+    orders); bf16 (the mma route) against the plain version run in float32
+    on the same bf16 inputs, every row held as ``chip_smoke.py`` holds
+    them: its largest row error within twice the bf16 plain version's own
+    and within 0.04 (MLSTM_ROW_REL: on these inputs the den does not
+    cancel, and the plain version's largest row is under 0.02), its
+    median row within 0.015, and no row off by more than twice the plain
+    version's error on the same row plus 2^-7 (one bf16 ulp of the row's
+    largest element)."""
+    q, k, v, logi, logf = _mlstm_case(cuda, B, S, H, dh, dtype)
+    route = "fma" if dtype == torch.float32 else "mma"
+    before = dict(ops.route_counts()["mlstm_parallel"])
+    got = ops.mlstm_parallel(q, k, v, logi, logf)
+    after = ops.route_counts()["mlstm_parallel"]
+    assert after[route] == before[route] + 1
+    assert got.dtype == dtype and got.shape == (B, S, H, dh)
+    want = ref.mlstm_parallel_ref(q.float(), k.float(), v.float(), logi,
+                                  logf)
+    err = _row_rel(got, want)
+    if dtype == torch.float32:
+        assert err <= 1e-5, err
+        return
+    plain = ref.mlstm_parallel_ref(q, k, v, logi, logf)
+    own = _row_rel(plain, want)
+    w = want.float()
+
+    def rows_of(h):
+        return (h.float() - w).abs().amax(-1) / w.abs().amax(-1).clamp_min(
+            1e-30)
+    rows, own_rows = rows_of(got), rows_of(plain)
+    assert err <= 2.0 * max(own, 2 ** -9) and err <= 0.04, (err, own)
+    assert float(rows.median()) <= 0.015, float(rows.median())
+    over = int((rows > 2.0 * own_rows + 2 ** -7).sum())
+    assert over == 0, over
+
+
+@pytest.mark.cuda
+def test_cuda_mlstm_plain_rows_are_the_whole_form(cuda):
+    """``mlstm_parallel_ref`` on a range of query rows is those rows of the
+    whole form (how ``chip_smoke.py`` holds the kernel at 32k rows), and
+    the kernel's rows there match it."""
+    q, k, v, logi, logf = _mlstm_case(cuda, 1, 300, 4, 384, torch.float32,
+                                      seed=2)
+    whole = ref.mlstm_parallel_ref(q, k, v, logi, logf)
+    rows = ref.mlstm_parallel_ref(q, k, v, logi, logf, rows=(200, 300))
+    assert torch.equal(rows, whole[:, 200:])
+    got = ops.mlstm_parallel(q, k, v, logi, logf)
+    assert _row_rel(got[:, 200:], rows) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_xlstm_kernels_refuse_what_they_do_not_take(cuda):
+    """A CUDA tensor a kernel does not take raises, with no launch and no
+    fallback to the plain version. mlstm_parallel: float64, a head dim it
+    is not built for (128), a non-contiguous q, bf16 gates, a tensor on
+    the CPU. slstm_scan: float64, a width it does not run at (128), gates
+    with other strides, a carry with a bf16 c, a tensor on the CPU."""
+    q, k, v, logi, logf = _mlstm_case(cuda, 1, 20, 2, 64, torch.bfloat16)
+    q2, k2, v2, li2, lf2 = _mlstm_case(cuda, 1, 20, 2, 128, torch.bfloat16)
+    before = ops.launch_counts()
+    bad = [
+        (TypeError, (q.double(), k.double(), v.double(), logi, logf)),
+        (ValueError, (q2, k2, v2, li2, lf2)),
+        (ValueError, (q.transpose(1, 2).contiguous().transpose(1, 2), k, v,
+                      logi, logf)),
+        (TypeError, (q, k, v, logi.bfloat16(), logf)),
+        (ValueError, (q, k, v, logi.cpu(), logf)),
+    ]
+    for err, args in bad:
+        with pytest.raises(err):
+            ops.mlstm_parallel(*args)
+    gz, gi, gf, go, rz, bf, c0 = _slstm_case(cuda, 2, 5, 64, torch.float32,
+                                             True)
+    g128 = _slstm_case(cuda, 2, 5, 128, torch.float32, False)
+    bad = [
+        (TypeError, (gz.double(), gi.double(), gf.double(), go.double(),
+                     rz.double(), bf.double())),
+        (ValueError, g128[:6]),
+        (ValueError, (gz.contiguous(), gi, gf, go, rz, bf)),
+        (ValueError, (gz, gi, gf, go, rz, bf, (c0[0].bfloat16(),) + c0[1:])),
+        (ValueError, (gz, gi, gf, go, rz.cpu(), bf)),
+    ]
+    for err, args in bad:
+        with pytest.raises(err):
+            ops.slstm_scan(*args)
+    after = ops.launch_counts()
+    assert after["mlstm_parallel"] == before["mlstm_parallel"]
+    assert after["slstm_scan"] == before["slstm_scan"]
+
+
+@pytest.mark.cuda
+def test_cuda_smoke_xlstm_matches_its_cpu_run(cuda):
+    """SMOKE xLSTM (2 mLSTM + 2 sLSTM layers) in float32 on the card against
+    the same model on the CPU: each prefill launches mlstm_parallel twice
+    (the fma route) and slstm_scan twice; teacher-forced decode through
+    the caches (every state float32, in place) launches slstm_scan twice a
+    step and mlstm_parallel never; logits and caches within 2e-5 of their
+    scale of the CPU's (the tied table gives logits up to ~30; the sums run
+    in other orders)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.inputs import concrete_batch
+    from repro_torch.models.transformer import (decode_step, init_cache,
+                                                init_model)
+    from repro_torch.serving import prefill_logits
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("xlstm-125m", smoke=True)
+    cpu = init_model(cfg, seed=0, dtype=torch.float32, device="cpu")
+    card = init_model(cfg, seed=0, dtype=torch.float32, device="cpu").to(cuda)
+    batch = concrete_batch(cfg, 2, 70, device="cpu")
+    before = ops.launch_counts()
+    got = prefill_logits(card, {"tokens": batch["tokens"].to(cuda)})
+    after = ops.launch_counts()
+    assert after["mlstm_parallel"] - before["mlstm_parallel"] == 2
+    assert after["slstm_scan"] - before["slstm_scan"] == 2
+    want = prefill_logits(cpu, batch)
+    torch.testing.assert_close(got.cpu(), want, rtol=0,
+                               atol=2e-5 * float(want.abs().max()))
+    caches = [init_cache(cfg, 2, 6, torch.float32, device=d)
+              for d in ("cpu", cuda)]
+    for t in range(6):
+        tok = batch["tokens"][:, t:t + 1]
+        want, _ = decode_step(cpu, caches[0], {"tokens": tok, "step": t})
+        before = ops.launch_counts()
+        got, _ = decode_step(card, caches[1], {"tokens": tok.to(cuda),
+                                               "step": t})
+        after = ops.launch_counts()
+        assert after["slstm_scan"] - before["slstm_scan"] == 2
+        assert after["mlstm_parallel"] == before["mlstm_parallel"]
+        torch.testing.assert_close(got.cpu(), want, rtol=0,
+                                   atol=2e-5 * float(want.abs().max()))
+    for a, b in zip(caches[0]["layers"], caches[1]["layers"], strict=True):
+        for key in a:
+            assert a[key].dtype == b[key].dtype
+            scale = max(1.0, float(a[key].abs().max()))
+            torch.testing.assert_close(b[key].cpu(), a[key], rtol=0,
+                                       atol=2e-5 * scale)
+
+
+@pytest.mark.cuda
+def test_cuda_xlstm_makes_no_host_sync(cuda):
+    """Both kernels' wrappers, ``mlstm_apply`` and ``slstm_apply`` (prefill,
+    and decode through their caches) on the card in bf16 under
+    ``set_sync_debug_mode("error")``: nothing waits for the card
+    (``jit_lint.SYNC_FREE`` names all four)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import xlstm
+    from repro_torch.models.params import init_params
+    cfg = get_config("xlstm-125m", smoke=True)
+    gen = torch.Generator(cuda).manual_seed(3)
+    pm, ps = (init_params(d(cfg), gen, torch.bfloat16, cuda)
+              for d in (xlstm.mlstm_def, xlstm.slstm_def))
+    cm, cs = (init_params(d(cfg, 3), gen, torch.bfloat16, cuda)
+              for d in (xlstm.mlstm_cache_def, xlstm.slstm_cache_def))
+    x = torch.randn((3, 20, cfg.d_model), device=cuda, dtype=torch.bfloat16)
+
+    def run():
+        ym, _ = xlstm.mlstm_apply(pm, x, cfg)
+        ys, _ = xlstm.slstm_apply(ps, x, cfg)
+        for t in range(3):
+            dm, _ = xlstm.mlstm_apply(pm, x[:, t:t + 1], cfg, cache=cm)
+            ds, _ = xlstm.slstm_apply(ps, x[:, t:t + 1], cfg, cache=cs)
+        return ym, ys, dm, ds
+    run()      # warm up (first launches, the libraries' load)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = run()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert cm["C"].dtype == torch.float32 and cs["h"].dtype == torch.bfloat16
+    assert all(bool(torch.isfinite(o).all()) for o in outs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,carry", [(1, 300, False), (3, 257, True),
+                                       (4, 1, True), (2, 0, True)],
+                         ids=["prefill", "b3_carry", "decode", "empty"])
+def test_cuda_slstm_cluster_route_bitwise_block(cuda, B, S, carry):
+    """bf16 at D = 768 takes the cluster route (8 blocks a batch row, rz in
+    their shared memory, h through distributed shared memory); it sums h
+    @ rz in the block route's order, so its outputs and final carry are
+    the block route's bit for bit, from zeros and from a carry, at B > 1,
+    S = 1 and S = 0 (the carry passed through)."""
+    gz, gi, gf, go, rz, bf, c0 = _slstm_case(cuda, B, max(S, 1), 768,
+                                             torch.bfloat16, carry, 3)
+    gates = [g[:, :S] for g in (gz, gi, gf, go)]
+    outs = [_empty_carry(B, 768, torch.bfloat16, cuda) for _ in range(2)]
+    before = dict(ops.route_counts()["slstm_scan"])
+    got = ops.slstm_scan(*gates, rz, bf, c0, outs[0])
+    after = ops.route_counts()["slstm_scan"]
+    assert after["cluster"] == before["cluster"] + 1
+    want = ops.slstm_scan(*gates, rz, bf, c0, outs[1], _route="block")
+    assert torch.equal(got, want)
+    for a, b in zip(*outs, strict=True):
+        assert torch.equal(a, b)
+    if carry and S == 0:
+        for a, b in zip(outs[0], c0, strict=True):
+            assert torch.equal(a, b)

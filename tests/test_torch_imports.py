@@ -51,7 +51,8 @@ def test_the_walk_sees_the_port():
             "gemma3_4b.py", "moe.py", "deepseek_v2_236b.py",
             "deepseek_v3_671b.py", "chip_flash_shapes.py", "ssm.py",
             "selective_scan.py", "jamba_v0_1_52b.py",
-            "chip_scan_variants.py"} <= names
+            "chip_scan_variants.py", "xlstm.py", "mlstm.py", "slstm.py",
+            "xlstm_125m.py"} <= names
     analysis = ROOT / "src" / "repro_torch" / "analysis"
     assert analysis / "__main__.py" in FILES
 

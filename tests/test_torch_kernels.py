@@ -129,6 +129,10 @@ def test_cpu_tensors_launch_no_kernel():
     u = torch.from_numpy(RNG.normal(size=(2, 5, 8))).float()
     ops.selective_scan(u, u.abs(), -torch.ones(8, 16), u[..., :1].repeat(
         1, 1, 16), u[..., 1:2].repeat(1, 1, 16), h_out=torch.empty(2, 8, 16))
+    q = torch.from_numpy(RNG.normal(size=(2, 5, 2, 8))).float()
+    ops.mlstm_parallel(q, q, q, q[..., 0], -q[..., 0].abs())
+    g = u.repeat(1, 1, 4).split(8, dim=-1)
+    ops.slstm_scan(*g, torch.eye(8), torch.ones(8))
     assert ops.launch_counts() == {"rbf_kernel_matrix": 0,
                                    "smo_f_update": 0, "smo_chunk": 0,
                                    "smo_chunk_sources": 0,
@@ -138,7 +142,8 @@ def test_cpu_tensors_launch_no_kernel():
                                    "flash_attention": 0, "water_fill": 0,
                                    "sir_greedy": 0, "ato_system_lanes": 0,
                                    "ato_apply_lanes": 0, "avg_spill": 0,
-                                   "top_spill": 0, "selective_scan": 0}
+                                   "top_spill": 0, "selective_scan": 0,
+                                   "mlstm_parallel": 0, "slstm_scan": 0}
     assert ops.route_counts()["avg_spill"] == {"fused": 0, "split": 0}
     assert ops.route_counts()["top_spill"] == {"fused": 0, "split": 0}
 
@@ -783,7 +788,9 @@ def test_cpu_tensors_count_no_route():
         "ato_system_lanes": {"compact": 0, "carried": 0},
         "ato_apply_lanes": {"split": 0, "fused": 0},
         "avg_spill": {"fused": 0, "split": 0},
-        "top_spill": {"fused": 0, "split": 0}}
+        "top_spill": {"fused": 0, "split": 0},
+        "mlstm_parallel": {"mma": 0, "fma": 0},
+        "slstm_scan": {"block": 0, "cluster": 0}}
 
 
 def test_window_counts_reset_and_skip_the_plain_version():
@@ -838,16 +845,17 @@ def test_chunk_wrapper_rejects_other_devices():
 
 @pytest.mark.parametrize("name", ["rbf", "smo_update", "smo_chunk",
                                   "smo_step", "seeding", "flash_attention",
-                                  "selective_scan"])
+                                  "selective_scan", "mlstm", "slstm"])
 def test_build_flags_per_source(name):
     """The SVM sources keep -fmad=false, which their bitwise parity with
-    the plain versions needs; the attention and scan sources, held to
-    tolerances, drop it. Every source targets sm_90a, and none links
-    libcuda."""
+    the plain versions needs, and so does the sLSTM recurrence, which
+    writes the reference's FMAs itself; the attention, scan and mLSTM
+    sources, held to tolerances, drop it. Every source targets sm_90a,
+    and none links libcuda."""
     from repro_torch.kernels import _build
     flags = _build.flags(name)
     assert ("-fmad=false" in flags) == (
-        name not in ("flash_attention", "selective_scan"))
+        name not in ("flash_attention", "selective_scan", "mlstm"))
     assert "arch=compute_90a,code=sm_90a" in flags
     assert not any(f.startswith("-lcuda") for f in flags)
     assert name in _build.SOURCES
@@ -875,6 +883,19 @@ def test_build_water_fill_witness():
                                               + ("-DWATER_FILL_LEVELS=1",))
     assert _build.lib_path("water_fill_seq") != _build.lib_path("seeding")
     assert "WATER_FILL_LEVELS" in _build.source("seeding").read_text()
+
+
+def test_build_slstm_chain_variant():
+    """The chain-only build of ``slstm.cu`` (its cluster route's serial
+    chain, timed as that design's floor) compiles the same file with the
+    same flags and one macro more, into a library of its own; the source
+    reads the macro."""
+    from repro_torch.kernels import _build
+    assert _build.source("slstm_chain") == _build.source("slstm")
+    assert _build.flags("slstm_chain") == (_build.flags("slstm")
+                                           + ("-DSLSTM_CHAIN_ONLY=1",))
+    assert _build.lib_path("slstm_chain") != _build.lib_path("slstm")
+    assert "SLSTM_CHAIN_ONLY" in _build.source("slstm").read_text()
 
 
 @pytest.mark.parametrize("n,m_cap,p", [(1, 1, 0.5), (10, 10, 1.0),
