@@ -77,10 +77,11 @@ blocks a lane of a cooperative launch (the size phase), a thread-block
 cluster a lane holding its state in the cluster's shared memory (the wide
 dense batch at n=32,544, 24 folds at once), or, for batches that fit
 nowhere on chip, one block a lane with the state in global memory; the
-matrix-free ``smo_stream_chunk`` runs as one persistent cooperative launch
-wherever its plan places the lanes (up to 16), else as a launch pair per
-iteration (the fused step and the selection; the batched path's 20-fold
-row); bf16 ``flash_attention`` runs on wgmma + TMA at head dims 64-256 and
+matrix-free ``smo_stream_chunk`` runs as one launch wherever a plan places
+the lanes (up to 16: in thread-block clusters, or the persistent
+cooperative launch, the fastest by a time model fitted on the card), else
+as a launch pair per iteration (the fused step and the selection; the
+batched path's 20-fold row); bf16 ``flash_attention`` runs on wgmma + TMA at head dims 64-256 and
 MLA's (192, 128), and on ``mma.sync`` below.
 
 ``smo_step.cu`` is also built with its float64 dot products on the FMA
@@ -224,8 +225,8 @@ CHUNK_WIDTH_SWEEP_N = (100, 500, 2000, 4096)
 #: than the multi-block plan places (22 at n = 32,560), so every chunk
 #: takes the cluster route
 WIDE_DENSE_K = 24
-#: the streaming chunk's route sweep: adult's first n rows, and iterations
-#: timed on each route
+#: the streaming chunk's route sweep: adult's first n rows (d = 123) and
+#: heart's 270 (d = 13), and iterations timed on each route
 STREAM_SWEEP_N = (270, 1000, 4096, 32560)
 STREAM_SWEEP_ITERS = 200
 #: a bf16 output against the plain version in float32 on the same bf16
@@ -455,7 +456,11 @@ def require(cond: bool, what: str) -> None:
 def phase_build():
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    names = _build.SOURCES + tuple(_build.VARIANTS)
+    # every source and the witness builds this script holds kernels to
+    # (the cluster streaming route's FMA build, smo_stream_fma, is the card
+    # tests')
+    names = _build.SOURCES + tuple(v for v in _build.VARIANTS
+                                   if v != "smo_stream_fma")
     per_source = _build.build_all(names)
     secs = time.perf_counter() - t0
     for name in names:
@@ -2554,8 +2559,8 @@ def phase_lane_chunks(datasets):
     """The chunks over lanes. Dense: each of 4 cold folds through the lane
     grid is bitwise (alpha, f, n_iter, done) the one-lane launch.
     Streaming: each cold fold is bitwise the same alone, packed at width 4
-    and at width 12 (10 folds + 2 pads), on its route (persistent) and at
-    width 12 on the pair route too, and within 1e-10 of the plain loop on
+    and at width 12 (10 folds + 2 pads), on its route (``stream_route``'s)
+    and at width 12 on the pair route too, and within 1e-10 of the plain loop on
     the card after 200 iterations. heart and adult n=1000 run to
     convergence; n=32,560 stops at it_cap=300."""
     from repro_torch.kernels import ops, ref
@@ -2621,7 +2626,7 @@ def phase_lane_chunks(datasets):
             sync()
             secs = time.perf_counter() - t
             # the pair route stops within 128 iterations of the last lane's
-            # stop (the persistent route, on the device, at it)
+            # stop (the one-launch routes, on the device, at it)
             issued = ops.launch_counts()["fused_smo_step"] - l0
             require(issued <= int(st[2].max()) + 128,
                     f"stream chunk {name} n={n}: {issued} iterations "
@@ -2680,22 +2685,63 @@ def _stream_lanes(X, y, b, dev):
     return masks, state
 
 
+def _stream_widest(n: int, d: int, route: str) -> int:
+    """The most lanes (at most 16) that a one-launch streaming route places
+    over n rows of d features on this card."""
+    from repro_torch.kernels.smo_chunk import (stream_cluster_capacity,
+                                               stream_cluster_plan,
+                                               stream_plan)
+    widest = 0
+    for b in range(1, 17):
+        placed = (stream_plan(n, d, b)[0] >= 1 if route == "persistent"
+                  else stream_cluster_plan(
+                      n, b, stream_cluster_capacity(d, b)) is not None)
+        if placed:
+            widest = b
+    return widest
+
+
 def phase_stream_routes(datasets):
-    """The streaming chunk's two routes side by side. Checks: ten cold
+    """The streaming chunk's three routes side by side. Checks: ten cold
     folds at heart (n=270) and adult n=1000 (to convergence) and adult
-    n=32,560 (capped at 300) are bitwise equal on the persistent and the
-    pair route (alpha, f, n_iter, done), each timed per longest-lane
-    iteration; at n=32,560 one lane against the plain loop after 200
-    iterations. Sweep: adult's first n rows x lanes (1, 4, 10, the widest
-    the persistent plan places, one more), 200 capped iterations on each
-    route the plan allows: the faster, and the route ``stream_route``
-    takes (required to be the persistent one wherever it places the
-    lanes, the pair route past them)."""
+    n=32,560 (capped at 300) are bitwise equal on the cluster, persistent
+    and pair routes (alpha, f, n_iter, done), each timed per longest-lane
+    iteration (the routes in turn, each its best round); at n=32,560 one
+    lane against the plain loop after 200 iterations. Sweep: adult's first
+    n rows x lanes (1, 4, 10, the widest each one-launch plan places and one
+    more), 200 capped iterations on each route that places them, bitwise:
+    the route ``stream_route`` takes, required to be within
+    CHUNK_ROUTE_MARGIN of the fastest (``smo_chunk.STREAM_US`` is fitted to
+    this sweep)."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.smo_chunk import (pad_rows, seq_norms,
+                                               stream_cluster_capacity,
+                                               stream_cluster_layout,
+                                               stream_cluster_plan,
                                                stream_plan, stream_route)
     t0 = time.perf_counter()
     dev = torch.device("cuda")
+
+    def placed(n, d, b):
+        """The routes that place b lanes over n x d, and stream_route's."""
+        m = stream_plan(n, d, b)[0]
+        cplan = stream_cluster_plan(n, b, stream_cluster_capacity(d, b))
+        routes = (("cluster",) * (cplan is not None)
+                  + ("persistent",) * (m >= 1) + ("pair",))
+        return routes, stream_route(n, d, b, m, cplan), m, cplan
+
+    def compare(args, kw, routes, what):
+        """Each route's result bitwise the first's; {route: result}."""
+        outs = {r: ops.smo_stream_chunk(*args, **kw, _route=r)
+                for r in routes}
+        first = outs[routes[0]]
+        for r in routes[1:]:
+            for a, c, part in zip(first, outs[r], ("alpha", "f", "n_iter",
+                                                   "done")):
+                require(torch.equal(a, c), f"stream chunk {what}: the "
+                        f"{r} route's {part} differs from {routes[0]}'s")
+        return outs
+
     checks, info = [], {}
     for (name, _), ds in datasets.items():
         n, masks = _lane_masks(ds)
@@ -2704,25 +2750,31 @@ def phase_stream_routes(datasets):
         y = torch.as_tensor(ds.y[:n], dtype=torch.float64, device=dev)
         sq, sn = torch.sum(X * X, -1), seq_norms(X)
         masks = torch.as_tensor(masks, device=dev)
+        d = X.shape[1]
         state = _stream_lanes(X, y, 10, dev)[1]
         args = (X, sq, ds.gamma, y, masks, [ds.C] * 10, 1e-3, [cap] * 10,
                 cap + 1, *state)
-        X_rows = pad_rows(X)
+        kw = {"X_rows": pad_rows(X), "X_norms": sn}
+        routes, pick, m, cplan = placed(n, d, 10)
+        require(routes == ("cluster", "persistent", "pair"),
+                f"stream chunk {name} n={n}: routes placed {routes}")
         before = ops.route_counts()["smo_stream_chunk"]
-        got = ops.smo_stream_chunk(*args, X_rows=X_rows, X_norms=sn)
+        got = ops.smo_stream_chunk(*args, **kw)
         route = _route_taken(before, ops.route_counts()["smo_stream_chunk"])
-        require(route == "persistent", f"stream chunk {name} n={n}: took "
-                                       f"the {route} route")
-        pair = ops.smo_stream_chunk(*args, X_norms=sn, _route="pair")
-        for a, c, what in zip(got, pair, ("alpha", "f", "n_iter", "done")):
+        require(route == pick, f"stream chunk {name} n={n}: took the {route}"
+                               f" route, stream_route says {pick}")
+        outs = compare(args, kw, routes, f"{name} n={n}")
+        for a, c in zip(got, outs[route]):
             require(torch.equal(a, c), f"stream chunk {name} n={n}: the "
-                                       f"routes' {what} differ")
+                                       "default call differs")
         it = int(got[2].max())
-        rec = {"n": n, "lanes": 10, "it_cap": cap, "n_iter": got[2].tolist()}
-        for r in ("persistent", "pair"):
-            ms = cuda_ms(lambda: ops.smo_stream_chunk(
-                *args, X_rows=X_rows, X_norms=sn, _route=r), 1)
-            rec[f"us_per_iter_{r}"] = 1e3 * ms / it
+        ms = routes_ms(lambda r: ops.smo_stream_chunk(*args, **kw, _route=r),
+                       routes, reps=1, rounds=3)
+        rec = {"n": n, "lanes": 10, "it_cap": cap, "n_iter": got[2].tolist(),
+               "route": route, "cluster_plan": cplan._asdict(),
+               "cluster_layout": stream_cluster_layout(d, 10, cplan.rb),
+               "persistent_blocks": m,
+               **{f"us_per_iter_{r}": 1e3 * ms[r] / it for r in routes}}
         if n > 10_000:
             one = ops.smo_stream_chunk(X, sq, ds.gamma, y, masks[:1], [ds.C],
                                        1e-3, [200], 201,
@@ -2748,55 +2800,63 @@ def phase_stream_routes(datasets):
             # per iteration: the function reads X and the lanes' state once
             # a chunk and runs 4 b n d FP64 operations an iteration; beside
             # it, X read from HBM every iteration (it stays in the L2)
-            d, b_ = X.shape[1], 10
+            b_ = 10
             state_bytes = b_ * n * (8 * 4 + 1) + 16 * n
-            info["smo_stream_chunk"] = dict(
-                shape=[n, d, b_], ms=rec["us_per_iter_persistent"] / 1e3,
-                plain_ms=plain_ms, max_abs_err=err, library_ms=None,
-                x_per_iter_hbm_ms=1e3 * 8.0 * n * d / HBM_BPS,
-                **_bound((8.0 * n * d + state_bytes) / it, 4.0 * b_ * n * d))
+            bound = _bound((8.0 * n * d + state_bytes) / it,
+                           4.0 * b_ * n * d)
+            # the main path's route (stream_route's) and the persistent
+            # witness, each timed in this call
+            for key, r in (("smo_stream_chunk", route),
+                           ("smo_stream_chunk_persistent", "persistent")):
+                info[key] = dict(
+                    shape=[n, d, b_], route=r, ms=rec[f"us_per_iter_{r}"] / 1e3,
+                    plain_ms=plain_ms, max_abs_err=err, library_ms=None,
+                    x_per_iter_hbm_ms=1e3 * 8.0 * n * d / HBM_BPS, **bound)
+            layout = rec["cluster_layout"]
+            info["smo_stream_chunk"]["cluster"] = {
+                **cplan._asdict(), **layout,
+                "x_resident_share": layout["resident"] / layout["ksteps"],
+                "us_per_iter_by_route": {
+                    r: rec[f"us_per_iter_{r}"] for r in routes}}
             rec["max_abs_err_vs_plain_200"] = err
         checks.append(rec)
         del X, sq, sn
         torch.cuda.empty_cache()
 
     big = datasets[("adult", SIZE_N - 1)]
+    heart = next(ds for (name, _), ds in datasets.items() if name == "heart")
     sweep = []
-    for n in STREAM_SWEEP_N:
-        X = torch.as_tensor(big.X[:n], device=dev)
-        y = torch.as_tensor(big.y[:n], dtype=torch.float64, device=dev)
+    for src, n in [(big, n) for n in STREAM_SWEEP_N] + [(heart, heart.n)]:
+        X = torch.as_tensor(src.X[:n], device=dev)
+        y = torch.as_tensor(src.y[:n], dtype=torch.float64, device=dev)
         sq, sn = torch.sum(X * X, -1), seq_norms(X)
         d = X.shape[1]
-        widest = 1
-        while widest < 64 and stream_plan(n, d, widest + 1)[0] >= 1:
-            widest += 1
-        for b in sorted({1, 4, 10, widest, widest + 1}):
+        widths = {1, 4, 10}
+        for r in ("persistent", "cluster"):
+            w = _stream_widest(n, d, r)
+            widths |= {w, w + 1} - {0}
+        for b in sorted(widths):
             masks, state = _stream_lanes(X, y, b, dev)
-            args = (X, sq, big.gamma, y, masks, [big.C] * b, 1e-3,
+            args = (X, sq, src.gamma, y, masks, [src.C] * b, 1e-3,
                     [STREAM_SWEEP_ITERS] * b, STREAM_SWEEP_ITERS + 1, *state)
-            m = stream_plan(n, d, b)[0]
+            kw = {"X_norms": sn}
+            routes, pick, m, cplan = placed(n, d, b)
             before = ops.route_counts()["smo_stream_chunk"]
-            got = ops.smo_stream_chunk(*args, X_norms=sn)
+            got = ops.smo_stream_chunk(*args, **kw)
             route = _route_taken(before,
                                  ops.route_counts()["smo_stream_chunk"])
-            require(route == stream_route(m), f"stream chunk n={n} b={b}: "
-                    f"took {route}, stream_route says {stream_route(m)}")
-            require(route == ("pair" if b > widest else "persistent"),
-                    f"stream chunk n={n} b={b}: took the {route} route")
-            routes = ("persistent", "pair") if m >= 1 else ("pair",)
+            require(route == pick, f"stream chunk n={n} b={b}: took {route},"
+                                   f" stream_route says {pick}")
+            compare(args, kw, routes, f"n={n} b={b}")
             it = max(int(got[2].max()), 1)
-            rec = {"n": n, "b": b, "blocks": m, "route": route,
-                   "n_iter_max": it}
-            for r in routes:
-                out = ops.smo_stream_chunk(*args, X_norms=sn, _route=r)
-                for a, c, what in zip(got, out, ("alpha", "f", "n_iter",
-                                                 "done")):
-                    require(torch.equal(a, c), f"stream chunk n={n} b={b}: "
-                            f"the {r} route's {what} differs")
-                ms = cuda_ms(lambda: ops.smo_stream_chunk(
-                    *args, X_norms=sn, _route=r), 2)
-                rec[f"us_per_iter_{r}"] = 1e3 * ms / it
-            rec["faster"] = min(routes, key=lambda r: rec[f"us_per_iter_{r}"])
+            ms = routes_ms(lambda r: ops.smo_stream_chunk(*args, **kw,
+                                                          _route=r), routes,
+                           reps=1)
+            rec = {"n": n, "d": d, "b": b, "blocks": m, "route": route,
+                   "cluster_plan": cplan._asdict() if cplan else None,
+                   "n_iter_max": it,
+                   **{f"us_per_iter_{r}": 1e3 * ms[r] / it for r in routes}}
+            _judge_stream_routes(rec, routes)
             sweep.append(rec)
         del X, sq, sn
         torch.cuda.empty_cache()
@@ -2805,19 +2865,36 @@ def phase_stream_routes(datasets):
     return info
 
 
+def _judge_stream_routes(rec: dict, routes) -> None:
+    """The fastest of a streaming sweep point's routes, whether
+    ``stream_route``'s pick (``rec["route"]``) was it, and a failure unless
+    the pick is within CHUNK_ROUTE_MARGIN of it."""
+    us = {r: rec[f"us_per_iter_{r}"] for r in routes}
+    rec["faster"] = min(us, key=us.get)
+    rec["picks_faster"] = rec["faster"] == rec["route"]
+    require(us[rec["route"]] <= (1 + CHUNK_ROUTE_MARGIN) * us[rec["faster"]],
+            f"smo_stream_chunk n={rec['n']} d={rec['d']} b={rec['b']}: "
+            f"stream_route picks "
+            f"{rec['route']} at {us[rec['route']]:.2f} us, {rec['faster']} "
+            f"takes {us[rec['faster']]:.2f}")
+
+
 def phase_table1_batched(cold_folds):
     """Cold 10-fold CV through ``run_cv_batched`` in its three
     configurations on heart and adult: per-fold accuracy equal to Table 1's
     (and so to the reference), iterations beside the reference's (the
     matrix-free ones equal to them), and the streaming chunk's route.
-    Then adult n=1000 in 20 folds matrix-free: more lanes than the
-    persistent route places, so its chunks take the pair route until at
-    most 16 folds are left; per-fold accuracy equal to the dense chunk's."""
+    Every cold_pallas chunk takes a one-launch route (the model's pick), the
+    cluster route on at least one of the two. Then adult n=1000 in 20 folds
+    matrix-free: more lanes than a one-launch route places, so its chunks
+    take the pair route until at most 16 folds are left; per-fold accuracy
+    equal to the dense chunk's."""
     from repro_torch.core.cv import run_cv_batched
     from repro_torch.data.svm_suite import make_dataset
     from repro_torch.kernels import ops
     t0 = time.perf_counter()
     rows = []
+    cluster_chunks = 0
     for name, refd in REFERENCE.items():
         ds = make_dataset(name, n_override=refd["n"])
         for method, kw in BATCHED.items():
@@ -2829,8 +2906,10 @@ def phase_table1_batched(cold_folds):
             after = ops.route_counts()["smo_stream_chunk"]
             routes = {r: after[r] - before[r] for r in after}
             if method == "cold_pallas":
-                require(routes["pair"] == 0 and routes["persistent"] > 0,
+                require(routes["pair"] == 0
+                        and routes["persistent"] + routes["cluster"] > 0,
                         f"{name} cold_pallas: stream chunk routes {routes}")
+                cluster_chunks += routes["cluster"]
             if method == "cold_pallas" or refd["gated"]:
                 require(rep.total_iterations
                         == REFERENCE_BATCHED[name][method],
@@ -2860,6 +2939,8 @@ def phase_table1_batched(cold_folds):
                     1e6 * rep.total_solve_time / max(lane_max, 1),
                 "accuracy": rep.accuracy, "occupancy": rep.occupancy,
                 "stream_routes": routes})
+    require(cluster_chunks > 0, "cold_pallas: no chunk took the cluster "
+                                "route")
     ds = make_dataset("adult", n_override=REFERENCE["adult"]["n"])
     dense = run_cv_batched(ds, k=WIDE_K)
     before = ops.route_counts()["smo_stream_chunk"]
@@ -2904,7 +2985,7 @@ def phase_size_matrix_free(ds, dense_accs):
     peak = torch.cuda.max_memory_allocated()
     after = ops.route_counts()["smo_stream_chunk"]
     routes = {r: after[r] - before[r] for r in after}
-    require(routes["pair"] == 0 and routes["persistent"] > 0,
+    require(routes["pair"] == 0 and routes["cluster"] > 0,
             f"matrix-free size: stream chunk routes {routes}")
     require(rep.total_iterations == SIZE_MATRIX_FREE_ITERATIONS,
             f"matrix-free size: {rep.total_iterations} iterations, not "
@@ -5899,7 +5980,7 @@ def _check_stream_sources(a, kw) -> dict:
     Cl = torch.as_tensor(Cs).reshape(-1).tolist()
     cl = torch.as_tensor(caps).reshape(-1).tolist()
     for l in range(b):
-        for r in ("pair", "persistent"):
+        for r in ("pair", "persistent", "cluster"):
             solo = ops.smo_stream_chunk(
                 X[l], sq[l], gamma, y[l], masks[l:l + 1], [Cl[l]], tol,
                 [cl[l]], n_iters, *(t[l:l + 1].clone() for t in state),
@@ -6916,20 +6997,23 @@ def main() -> int:
     require(chunk["multi_block"] > 0 and chunk["one_block"] == 0
             and chunk["cluster"] == 0 and chunk["one_block_global"] == 0,
             f"size: the dense chunk's routes {chunk}")
-    # the batched path's ten folds take the persistent streaming chunk, its
-    # twenty folds the pair route (fused step + selection) while more than
-    # 16 are live; the matrix-free size path the persistent route alone
+    # the batched path's ten folds take a one-launch streaming chunk (the
+    # cluster route on some), its twenty folds the pair route (fused step +
+    # selection) while more than 16 are live; the matrix-free size path
+    # the cluster route, and never the pair route
     for name in ("rbf_kernel_matrix", "smo_chunk", "fused_smo_step",
                  "smo_select", "smo_stream_chunk"):
         require(counts["table1_batched"][name] > 0,
                 f"{name} was not launched on the batched path")
     require(routes["table1_batched"]["smo_stream_chunk"]["pair"] > 0
-            and routes["table1_batched"]["smo_stream_chunk"]["persistent"]
-            > 0, "the batched path did not take both streaming routes")
+            and routes["table1_batched"]["smo_stream_chunk"]["cluster"] > 0,
+            "the batched path did not take the pair and cluster streaming "
+            "routes")
     require(counts["size_matrix_free"]["smo_stream_chunk"] > 0
-            and routes["size_matrix_free"]["smo_stream_chunk"]["pair"] == 0,
-            "the matrix-free size path did not run the persistent chunk "
-            "alone")
+            and routes["size_matrix_free"]["smo_stream_chunk"]["pair"] == 0
+            and routes["size_matrix_free"]["smo_stream_chunk"]["cluster"] > 0,
+            "the matrix-free size path did not run the cluster chunk "
+            "without pairs")
     require(counts["size_matrix_free"]["rbf_kernel_matrix"] == 0,
             "the matrix-free path built a kernel matrix")
     # every float64 K of the dense paths is built on the FP64 tensor cores
@@ -6983,9 +7067,15 @@ def main() -> int:
                "smo_select": (csrc + "smo_step.cu",
                               "src/repro/svm/engine.py:519",
                               "table1_batched"),
-               "smo_stream_chunk": (csrc + "smo_step.cu",
-                                    "src/repro/svm/engine.py:566",
+               "smo_stream_chunk": (csrc + ("smo_stream.cu" if info[
+                   "smo_stream_chunk"]["route"] == "cluster"
+                   else "smo_step.cu"), "src/repro/svm/engine.py:566",
                                     "size_matrix_free"),
+               # the persistent streaming chunk, the cluster route's
+               # bitwise witness (off the main path)
+               "smo_stream_chunk_persistent": (csrc + "smo_step.cu",
+                                               "src/repro/svm/engine.py:566",
+                                               "size_matrix_free"),
                "smo_chunk_sources": (csrc + "smo_chunk.cu",
                                      "src/repro/svm/engine.py:647",
                                      "shrink"),
@@ -7033,6 +7123,8 @@ def main() -> int:
     launches["smo_chunk_cluster"] = routes["size_wide"]["smo_chunk"]["cluster"]
     launches["smo_chunk_one_block_global"] = (
         routes["size_wide"]["smo_chunk"]["one_block_global"])
+    launches["smo_stream_chunk_persistent"] = (
+        routes["size_matrix_free"]["smo_stream_chunk"]["persistent"])
     # the per-lane chunks run on every shrinking path
     for name in ("smo_chunk_sources", "smo_stream_chunk_sources"):
         launches[name] = sum(counts[p][name]
@@ -7048,6 +7140,9 @@ def main() -> int:
             "bound_by": k["bound_by"], "library_ms": k.get("library_ms")})
         if name in ("flash_attention", "smo_stream_chunk"):
             kernels[-1]["routes"] = routes[path][name]
+        if name.startswith("smo_stream_chunk") and "_sources" not in name:
+            kernels[-1].update({key: k[key] for key in ("route", "cluster")
+                                if key in k})
         if name == "flash_attention":
             kernels[-1]["mma_route"] = k["mma_route"]
             kernels[-1]["launches_by_path"] = {

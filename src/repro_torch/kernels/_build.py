@@ -10,7 +10,8 @@ starts one ``nvcc`` per source, all at once.
 A variant (``VARIANTS``) is another build of one source with a macro
 set: ``smo_step_fma`` keeps ``csrc/smo_step.cu``'s float64 dot products on
 the FMA pipes, the witness that ``chip_smoke.py`` holds bitwise equal to
-the FP64 tensor-core build the port runs; ``water_fill_seq`` builds
+the FP64 tensor-core build the port runs, and ``smo_stream_fma`` does the
+same for ``csrc/smo_stream.cu`` (held equal by the card tests); ``water_fill_seq`` builds
 ``csrc/seeding.cu`` with one bisection level a round, the sequential loop
 that the multi-level ``water_fill`` must equal bit for bit;
 ``slstm_chain`` keeps only the serial chain of ``csrc/slstm.cu``'s
@@ -45,10 +46,11 @@ import torch
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
-SOURCES = ("rbf", "smo_update", "smo_chunk", "smo_step", "seeding",
-           "flash_attention", "selective_scan", "mlstm", "slstm")
+SOURCES = ("rbf", "smo_update", "smo_chunk", "smo_step", "smo_stream",
+           "seeding", "flash_attention", "selective_scan", "mlstm", "slstm")
 #: the sources whose results are held bitwise to the plain versions
-BITWISE_SOURCES = ("rbf", "smo_update", "smo_chunk", "smo_step", "seeding")
+BITWISE_SOURCES = ("rbf", "smo_update", "smo_chunk", "smo_step",
+                   "smo_stream", "seeding")
 #: the sources built with -fmad=false: the bitwise ones, and the sLSTM
 #: recurrence, which spells out the two FMAs the reference contracts and
 #: rounds everything else op by op, as the plain version does
@@ -59,6 +61,7 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 #: variant -> (its source, the flags it adds)
 VARIANTS = {"smo_step_fma": ("smo_step", ("-DSMO_STEP_TENSOR_F64=0",)),
+            "smo_stream_fma": ("smo_stream", ("-DSMO_STEP_TENSOR_F64=0",)),
             "water_fill_seq": ("seeding", ("-DWATER_FILL_LEVELS=1",)),
             "slstm_chain": ("slstm", ("-DSLSTM_CHAIN_ONLY=1",))}
 

@@ -5,7 +5,8 @@ on a CUDA tensor (or raises) and runs its plain PyTorch version
 (``ref.py``) on a CPU tensor; a kernel's count grows by its launches only.
 ``smo_chunk`` counts the dense chunk kernels' launches at one lane and over
 lanes, on all four of their routes. ``smo_stream_chunk`` counts its
-persistent kernel's launches; on its pair route it adds its launches of
+one-launch kernels' launches (the cluster and the persistent routes'); on
+its pair route it adds its launches of
 the WSS-1 selection kernel to ``smo_select`` and of the fused step to
 ``fused_smo_step``.
 ``smo_chunk_sources`` and ``smo_stream_chunk_sources`` are the same chunks
@@ -28,9 +29,10 @@ and global ones. ``route_counts``
 splits the twelve kernels that have routes: ``rbf_kernel_matrix`` (tensor,
 the FP64 tensor cores / fma), ``smo_chunk`` (one_block, the resident
 kernel / multi_block / cluster / one_block_global, the global-state
-kernel), ``smo_stream_chunk`` (pair / persistent: the chunks on each),
-``smo_chunk_sources`` and ``smo_stream_chunk_sources`` (the same routes,
-over lanes with their own operands), ``flash_attention`` (wgmma / mma /
+kernel), ``smo_stream_chunk`` (pair / persistent / cluster: the chunks
+on each), ``smo_chunk_sources`` and ``smo_stream_chunk_sources`` (the same
+routes, over lanes with their own operands; the cluster route takes none
+of the latter's), ``flash_attention`` (wgmma / mma /
 fma), ``ato_system_lanes`` (compact / carried: a ramp's later steps),
 ``ato_apply_lanes`` (split / fused: the ramp's, with the alpha update),
 ``avg_spill`` and ``top_spill`` (fused: the seeder's prologue, order

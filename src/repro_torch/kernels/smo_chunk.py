@@ -22,23 +22,27 @@
   ``chunk_batched_sources_jit`` in the reference): one launch, each lane
   reading its operands at a stride; its own ``launches`` and
   ``route_launches`` count it.
-* ``smo_stream_chunk`` — a row-streaming RBF source (X, no K), built from
-  ``csrc/smo_step.cu``. Two routes (``stream_route``): ``persistent``, all
-  ``n_iters`` WSS-1 iterations over all lanes in ONE cooperative launch
-  whose blocks own slices of rows and stop on the device when every lane
-  is done; or ``pair``, up to ``n_iters`` (``smo_select``,
-  ``fused_smo_step``) launch pairs issued by one host call that stops soon
-  after every lane is done, where the persistent plan cannot place the
-  lanes. ``smo_stream_chunk.launches`` counts the persistent kernel,
-  ``smo_select`` and ``fused_smo_step`` the pair route's launches, and
-  ``smo_stream_chunk.route_launches`` the chunks on each route;
-  ``smo_select`` also launches the selection kernel alone.
+* ``smo_stream_chunk`` — a row-streaming RBF source (X, no K). Three
+  routes (``stream_route``, the fastest that places the lanes by a time
+  model fitted on the card): ``cluster`` (``csrc/smo_stream.cu``) and
+  ``persistent`` (``csrc/smo_step.cu``, its bitwise witness) each run all
+  ``n_iters`` WSS-1 iterations over all lanes in ONE launch whose blocks
+  own slices of rows and stop on the device when every lane is done, the
+  first in thread-block clusters (``stream_cluster_plan``) with X held in
+  shared memory as far as it fits; or ``pair``, up to ``n_iters``
+  (``smo_select``, ``fused_smo_step``) launch pairs issued by one host
+  call that stops soon after every lane is done, where neither one-launch
+  plan places the lanes. ``smo_stream_chunk.launches`` counts the
+  one-launch kernels, ``smo_select`` and ``fused_smo_step`` the pair
+  route's launches, and ``smo_stream_chunk.route_launches`` the chunks on
+  each route; ``smo_select`` also launches the selection kernel alone.
 * ``smo_stream_chunk_sources`` — the streaming chunk over lanes that each
-  carry their own X (b, n, d), norms and y, on the same two routes: the
-  persistent launch runs each lane on its own group of blocks; the pair
-  route's kernels read each lane's operands at a stride. Its own
-  ``launches`` and ``route_launches`` count the chunks; the pair route's
-  launches count on ``smo_select`` and ``fused_smo_step`` as above.
+  carry their own X (b, n, d), norms and y, on the ``persistent`` and
+  ``pair`` routes (the cluster route takes one X): the persistent launch
+  runs each lane on its own group of blocks; the pair route's kernels read
+  each lane's operands at a stride. Its own ``launches`` and
+  ``route_launches`` count the chunks; the pair route's launches count on
+  ``smo_select`` and ``fused_smo_step`` as above.
 
 The caller reads the lanes' ``done`` flags only between chunks. On a CPU
 tensor each wrapper runs the plain per-step loop, ``ref.smo_chunk_ref``,
@@ -93,7 +97,24 @@ RESIDENT_ROWS = ((320, 1, False), (640, 2, False), (2048, 4, False),
 #: the resident kernel's builds, (rows a thread, state in shared memory)
 RESIDENT_BUILDS = tuple((rows, smem) for _, rows, smem in RESIDENT_ROWS)
 #: the streaming chunk's routes
-STREAM_ROUTES = ("pair", "persistent")
+STREAM_ROUTES = ("pair", "persistent", "cluster")
+#: those of the streaming chunk over lanes with their own X
+STREAM_SOURCES_ROUTES = ("pair", "persistent")
+#: the cluster route's blocks a cluster (the portable sizes) and tiles (row
+#: blocks of 8 a warp: 2, tiles of 128 rows; 4, of 256)
+STREAM_CLUSTER_SIZES = tuple(range(2, 9))
+STREAM_TILES = (2, 4)
+#: rows a block of the one-launch streaming routes aims at
+STREAM_BLOCK_ROWS = 128
+#: an iteration's time on the one-launch streaming routes, in us, fitted to
+#: chip_smoke.py's sweep over n, d and lanes on an H100 (PERF.md §6), on
+#: the features ``stream_features``: a floor, the lane blocks of 4 a thread
+#: carries (nvb = ceil(b / 4)) and their square (a thread's cells, and the
+#: registers they take), its row blocks of 8 (2 or 4), the launch's blocks
+#: / 128 (the exchange) and the k-steps of four features / 32 (the
+#: products)
+STREAM_US = {"cluster": (2.508, -1.566, 1.048, 2.893, -0.512, 7.779),
+             "persistent": (-2.688, 2.895, -0.026, 2.986, 1.887, 10.258)}
 
 
 def resident_threads(n: int, rows: int) -> int:
@@ -471,12 +492,125 @@ smo_chunk_sources.launches = 0
 smo_chunk_sources.route_launches = dict.fromkeys(ROUTES, 0)
 
 
-def stream_route(m: int) -> str:
-    """The streaming chunk's route, given the blocks ``m`` that
-    ``stream_plan`` places: the persistent launch wherever it places the
-    lanes (it ran faster than the launch pairs at every point of
-    ``chip_smoke.py``'s sweep over n and lanes, PERF.md §6), else pairs."""
-    return "persistent" if m >= 1 else "pair"
+class StreamClusterPlan(NamedTuple):
+    """Where the cluster route holds a launch's lanes: its blocks (all
+    resident at once), blocks a cluster, rows a block, and row blocks of 8
+    a warp (tiles of 64 ``rb`` rows; one tile a block)."""
+    blocks: int
+    cluster: int
+    slice: int
+    rb: int
+
+
+def stream_tile_rb(slice_: int) -> int:
+    """Row blocks of 8 a warp for slices of ``slice_`` rows on the one-launch
+    streaming routes: 2 (tiles of 128 rows) up to 128 rows, else 4."""
+    return 2 if slice_ <= 128 else 4
+
+
+def stream_cluster_plan(n: int, b: int,
+                        capacity: dict) -> StreamClusterPlan | None:
+    """Where the cluster route holds b lanes over n rows, given
+    ``capacity`` {(blocks a cluster, row blocks a warp): clusters the card
+    runs at once} (``stream_cluster_capacity``): for each cluster size C,
+    about ``STREAM_BLOCK_ROWS`` rows a block over as many whole clusters as
+    the card holds, each block's slice one tile; of those, the smaller
+    tiles, then the fewest warps with rows, then the larger clusters (the
+    fewest records a lane to exchange). None past 16 lanes or where no
+    cluster size places every row. Pure: the card enters through
+    ``capacity``."""
+    if not 1 <= b <= 16 or n < 1:
+        return None
+    want = -(-n // STREAM_BLOCK_ROWS)
+    plans = []
+    for (c, rb), clusters in capacity.items():
+        if clusters < 1:
+            continue
+        m = min(clusters, -(-want // c)) * c
+        slice_ = -(-n // m)
+        if stream_tile_rb(slice_) == rb and slice_ <= 64 * rb:
+            plans.append(StreamClusterPlan(m, c, slice_, rb))
+    return min(plans, key=lambda p: (p.rb, -(-p.slice // (8 * p.rb)),
+                                     -p.cluster), default=None)
+
+
+def stream_features(b: int, rb: int, blocks: int, d: int) -> tuple:
+    """The features of ``STREAM_US``'s model for b lanes on a launch of
+    ``blocks`` blocks whose warps carry ``rb`` row blocks of 8, over d
+    features."""
+    nvb = -(-b // 4)
+    return (1.0, nvb, nvb * nvb, rb, blocks / 128, -(-d // 4) / 32)
+
+
+def stream_route(n: int, d: int, b: int, m: int,
+                 cluster: StreamClusterPlan | None) -> str:
+    """The streaming chunk's route for b lanes over n rows of d features:
+    of the one-launch routes that place them (``m`` the blocks
+    ``stream_plan`` gives the persistent route, 0: none; ``cluster`` what
+    ``stream_cluster_plan`` gives, None: none), the fastest by
+    ``STREAM_US``, else pairs."""
+    shapes = {}
+    if m >= 1:
+        shapes["persistent"] = (stream_tile_rb(-(-n // m)), m)
+    if cluster is not None:
+        shapes["cluster"] = (cluster.rb, cluster.blocks)
+    times = {r: sum(c * f for c, f in zip(STREAM_US[r], stream_features(
+        b, rb, blocks, d))) for r, (rb, blocks) in shapes.items()}
+    return min(times, key=times.get) if times else "pair"
+
+
+def stream_cluster_capacity(d: int, b: int) -> dict[tuple[int, int], int]:
+    """{(blocks a cluster, row blocks a warp): clusters the current device
+    runs at once} for the cluster route over d features and b lanes, every
+    size of ``STREAM_CLUSTER_SIZES`` and tile of ``STREAM_TILES``, each
+    block with the shared memory the kernel takes (0 where it cannot hold
+    a block), from the CUDA occupancy calculator. Computed once per
+    device, d and b."""
+    return _stream_cluster_capacity(torch.cuda.current_device(), d, b)
+
+
+@functools.lru_cache(maxsize=None)
+def _stream_cluster_capacity(device: int, d: int,
+                             b: int) -> dict[tuple[int, int], int]:
+    fn = _build.entry("smo_stream", "smo_stream_cluster_capacity", _I, _I,
+                      _I, _I, _P)
+    out = {}
+    for c in STREAM_CLUSTER_SIZES:
+        for rb in STREAM_TILES:
+            k = ctypes.c_int(0)
+            _build.check(fn(d, b, c, rb, ctypes.addressof(k)),
+                         f"smo_stream_cluster_capacity({d}, {b}, {c}, {rb})")
+            out[(c, rb)] = k.value
+    return out
+
+
+def stream_cluster_layout(d: int, b: int, rb: int) -> dict[str, int]:
+    """How a block of the cluster route holds X on the current device for
+    d features, b lanes and row blocks of 8 a warp ``rb``: its k-steps of
+    four features, those resident in shared memory for the launch, the
+    ring's stages that stream the others, and its dynamic shared memory in
+    bytes."""
+    return _stream_cluster_layout(torch.cuda.current_device(), d, b, rb)
+
+
+@functools.lru_cache(maxsize=None)
+def _stream_cluster_layout(device: int, d: int, b: int,
+                           rb: int) -> dict[str, int]:
+    out = [ctypes.c_int(0) for _ in range(3)]
+    smem = ctypes.c_longlong(0)
+    fn = _build.entry("smo_stream", "smo_stream_cluster_layout", _I, _I, _I,
+                      _P, _P, _P, _P)
+    _build.check(fn(d, b, rb, *map(ctypes.addressof, out),
+                    ctypes.addressof(smem)), "smo_stream_cluster_layout")
+    return {"ksteps": out[0].value, "resident": out[1].value,
+            "stages": out[2].value, "smem_bytes": smem.value}
+
+
+def stream_cluster_workspace(b: int, plan: StreamClusterPlan) -> int:
+    """Bytes of the cluster route's workspace: the grid's barrier counter
+    (16 bytes, zeroed), then two parities of a 48-byte record for each
+    lane, kind (b_up, b_low) and cluster."""
+    return 16 + 2 * b * 2 * (plan.blocks // plan.cluster) * 48
 
 
 def stream_plan(n: int, d: int, b: int,
@@ -553,17 +687,18 @@ def smo_stream_chunk(X, sq_norms, gamma, y, masks, Cs, tol, it_caps,
     n_iter, done)``, bitwise the same on either route and whatever the
     lanes launched beside a lane.
 
-    On the card the ``persistent`` route runs the chunk in one launch that
-    ends when every lane is done; the ``pair`` route launches, per
+    On the card the ``cluster`` and ``persistent`` routes run the chunk in
+    one launch that ends when every lane is done; the ``pair`` route launches, per
     iteration, the selection kernel (a block per lane: the pair, K[i, j],
     delta and alpha) and ``fused_smo_step`` over all lanes, and stops
     within 128 iterations of every lane's stop (a done lane's blocks exit
     at once meanwhile); both their counts grow by the iterations it
     launched. ``X_norms`` is ``seq_norms(X)``, which both routes read and
     the card requires (the plain version on the CPU reads none); ``X_rows``
-    is ``pad_rows(X)`` (the persistent route's), made per call when not
+    is ``pad_rows(X)`` (the one-launch routes'), made per call when not
     given. ``_route`` overrides ``stream_route``, to check and time the
-    routes against each other."""
+    routes against each other; a route that cannot place the lanes
+    raises."""
     n, d = X.shape
     if X.device.type == "cpu":
         ones = torch.ones(n, dtype=X.dtype)
@@ -598,9 +733,10 @@ def _stream_launch(counter, X, sq_norms, gamma, y, masks, Cs, tol, it_caps,
     b = masks.shape[0]
     if max(n, d) >= 2 ** 31:
         raise ValueError("smo_stream_chunk: n and d must be below 2**31")
-    if _route not in (None, *STREAM_ROUTES):
+    routes = STREAM_SOURCES_ROUTES if per_lane else STREAM_ROUTES
+    if _route not in (None, *routes):
         raise ValueError(f"smo_stream_chunk: route must be one of "
-                         f"{STREAM_ROUTES}, got {_route!r}")
+                         f"{routes}, got {_route!r}")
     masks, Cs, it_caps, alphas, fs, n_iter, done = _lane_args(
         X.device, b, n, masks, Cs, it_caps, alphas, fs, n_iter, done)
     sq_norms, y = sq_norms.contiguous(), y.contiguous()
@@ -608,25 +744,32 @@ def _stream_launch(counter, X, sq_norms, gamma, y, masks, Cs, tol, it_caps,
     # lanes a group, groups, and the element stride of the norms and labels
     lanes, groups, v_lane = (1, b, n) if per_lane else (b, 1, 0)
     m, slice_, ws_bytes = stream_plan(n, d, lanes, groups)
-    path = _route or stream_route(m)
+    cplan = None if per_lane else stream_cluster_plan(
+        n, b, stream_cluster_capacity(d, b))
+    path = _route or stream_route(n, d, lanes, m, cplan)
     if path == "persistent" and m < 1:
         raise ValueError(f"smo_stream_chunk: the persistent route cannot "
                          f"place {b} lanes over {'their own ' * per_lane}"
                          f"{n} x {d} on this card")
+    if path == "cluster" and cplan is None:
+        raise ValueError(f"smo_stream_chunk: the cluster route cannot place "
+                         f"{b} lanes over {'their own ' * per_lane}{n} x {d}"
+                         " on this card")
     args = (sq_norms.data_ptr(), sn.data_ptr(), y.data_ptr(),
             masks.data_ptr(), Cs.data_ptr(), float(tol), it_caps.data_ptr(),
             int(n_iters), float(gamma), alphas.data_ptr(), fs.data_ptr(),
             n_iter.data_ptr(), done.data_ptr())
     types = (_P, _P, _P, _P, _P, _D, _P, _LL, _D, _P, _P, _P, _P)
-    if path == "persistent":
-        # the barrier counters start at 0 in every launch
-        ws = torch.zeros(ws_bytes, dtype=torch.uint8, device=X.device)
+    if path in ("persistent", "cluster"):
         Xp = pad_rows(X) if X_rows is None else X_rows
         if tuple(Xp.shape) != tuple(X.shape) or Xp.stride(-1) != 1 \
                 or any(st % 2 for st in Xp.stride()[:-1]) \
                 or (per_lane and Xp.stride(0) < n * Xp.stride(1)) \
                 or Xp.data_ptr() % 16:
             raise ValueError("smo_stream_chunk: X_rows must be pad_rows(X)")
+    if path == "persistent":
+        # the barrier counters start at 0 in every launch
+        ws = torch.zeros(ws_bytes, dtype=torch.uint8, device=X.device)
         fn = _build.entry("smo_step", "smo_stream_persistent_f64", _P,
                           *types, _I, _I, _I, _I, _I, _I, _P, _LL, _LL, _I,
                           _P)
@@ -634,6 +777,17 @@ def _stream_launch(counter, X, sq_norms, gamma, y, masks, Cs, tol, it_caps,
                  slice_, ws.data_ptr(), Xp.stride(0) if per_lane else 0,
                  v_lane, groups, _build.stream_ptr(X))
         _build.check(err, "smo_stream_chunk (persistent)")
+        if n_iters > 0:
+            counter.launches += 1
+    elif path == "cluster":
+        ws = torch.zeros(stream_cluster_workspace(b, cplan),
+                         dtype=torch.uint8, device=X.device)
+        fn = _build.entry("smo_stream", "smo_stream_cluster_f64", _P, *types,
+                          _I, _I, _I, _I, _I, _I, _I, _P, _P)
+        err = fn(Xp.data_ptr(), *args, n, d, Xp.stride(-2), b, cplan.blocks,
+                 cplan.cluster, cplan.slice, ws.data_ptr(),
+                 _build.stream_ptr(X))
+        _build.check(err, "smo_stream_chunk (cluster)")
         if n_iters > 0:
             counter.launches += 1
     else:
@@ -673,8 +827,8 @@ def smo_stream_chunk_sources(X, sq_norms, gamma, y, masks, Cs, tol, it_caps,
     ``fused_smo_step`` (a grid row a lane, streaming its lane's X).
     ``X_norms`` is ``seq_norms(X)`` (b, n), required on the card;
     ``X_rows`` is ``pad_rows(X)``, made per call when not given.
-    ``_route`` overrides ``stream_route``; a route that cannot place the
-    lanes raises."""
+    ``_route`` (one of ``STREAM_SOURCES_ROUTES``) overrides
+    ``stream_route``; a route that cannot place the lanes raises."""
     if X.device.type == "cpu":
         return smo_chunk_sources_ref(
             None, None, y, masks, Cs, tol, it_caps, n_iters, "1", alphas, fs,
@@ -700,7 +854,8 @@ def smo_stream_chunk_sources(X, sq_norms, gamma, y, masks, Cs, tol, it_caps,
 
 
 smo_stream_chunk_sources.launches = 0
-smo_stream_chunk_sources.route_launches = dict.fromkeys(STREAM_ROUTES, 0)
+smo_stream_chunk_sources.route_launches = dict.fromkeys(
+    STREAM_SOURCES_ROUTES, 0)
 
 
 def smo_select(X, sq_norms, gamma, y, masks, Cs, tol, it_caps, alphas, fs,

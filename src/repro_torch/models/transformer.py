@@ -279,9 +279,12 @@ class MLSTM(Mamba):
 
 class SLSTM(Mamba):
     """The sLSTM mixer (``xlstm.py``); its cache is its (c, n, h, m)
-    carry. Its four gate weights are the column blocks of one (D, 4 D)
-    tensor, built once (the buffer ``w4``), which their GEMM reads
-    whole."""
+    carry. Its four gate weights wz, wi, wf, wo are its parameters, the
+    one state; their GEMM reads them as one (D, 4 D) tensor ``w4``, built
+    from them (at construction they are its column blocks) and built anew
+    the first time it is read after a gate is replaced (``.to()``,
+    ``.float()``) or written in place through its parameter
+    (``load_state_dict``), so a decode step reads one prebuilt weight."""
 
     def __init__(self, tensors, cfg, window=None):
         w4 = xlstm_mod.slstm_gate_weight(tensors)
@@ -289,7 +292,23 @@ class SLSTM(Mamba):
         views = {k: w4[:, i * D:(i + 1) * D]
                  for i, k in enumerate(xlstm_mod.SLSTM_GATES)}
         super().__init__({**tensors, **views}, cfg)
-        self.register_buffer("w4", w4, persistent=False)
+        self._w4 = (*self._gate_key(), w4)
+
+    def _gate_key(self) -> tuple:
+        """Each gate parameter's address, version, dtype and device (a
+        replaced or rewritten gate changes them), and the gates' tensors,
+        held so that no other tensor can take a held address."""
+        gates = tuple(self[k].detach() for k in xlstm_mod.SLSTM_GATES)
+        return tuple((t.data_ptr(), 0 if t.is_inference() else t._version,
+                      t.dtype, t.device) for t in gates), gates
+
+    @property
+    def w4(self):
+        """[wz | wi | wf | wo] as the parameters hold them now."""
+        key, gates = self._gate_key()
+        if self._w4[0] != key:
+            self._w4 = (key, gates, xlstm_mod.slstm_gate_weight(self))
+        return self._w4[2]
 
     def forward(self, x, positions=None, cache=None, step=None):
         return xlstm_mod.slstm_apply(self, x, self.cfg, cache=cache,

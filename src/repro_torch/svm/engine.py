@@ -337,7 +337,7 @@ def stack_sources(sources, width: int | None = None):
                          "gamma")
     cap, d = first.X.shape
     persistent = first.X.device.type == "cuda" and stream_route(
-        stream_plan(cap, d, 1, width)[0]) == "persistent"
+        cap, d, 1, stream_plan(cap, d, 1, width)[0], None) == "persistent"
     if persistent:
         rows = first.X.new_zeros((width, cap, d + d % 2))
         for i, s in enumerate(sources):

@@ -129,3 +129,30 @@ def test_scan_variants_edits_find_their_text_once(name):
     if name in SCAN_VARIANTS.EXACT and name != "as_is":
         assert all(old.startswith(("constexpr int k", "#pragma unroll"))
                    for old, _ in SCAN_VARIANTS.VARIANTS[name])
+
+
+# ``chip_stream_phases.py`` stamps copies of ``csrc/smo_step.cu`` (the
+# persistent streaming chunk) and ``csrc/smo_stream.cu`` (the cluster
+# route) by text: each edit must find its
+# text exactly once, inside the kernel it times, and every phase of each
+# kernel's chain is closed by one counter read.
+STREAM_PHASES = _phases("chip_stream_phases")
+
+
+@pytest.mark.parametrize("route", sorted(STREAM_PHASES.EDITS))
+def test_stream_phases_edits_find_their_text_once(route):
+    name, edits = STREAM_PHASES.EDITS[route]
+    src = (STEP / name).read_text()
+    for old, new in edits:
+        assert src.count(old) == 1 and old != new
+    kernel = {"persistent": "smo_stream_kernel(const double*",
+              "cluster": "smo_stream_cluster_kernel("}[route]
+    body = src[src.index(kernel):]
+    assert all(old in body for old, _ in edits[2 if route == "cluster"
+                                               else 1:])
+    text = STREAM_PHASES.edited(route)
+    for k in range(STREAM_PHASES.SLOTS):
+        reads = sum(text.count(STREAM_PHASES._s(k, it))
+                    for it in ("t", "stamp_t"))
+        assert reads == 1, (route, k)
+    assert len(STREAM_PHASES.PHASES[route]) == STREAM_PHASES.SLOTS - 1

@@ -1044,7 +1044,7 @@ def test_cuda_stream_persistent_bitwise(cuda, name, n, cap):
     ds, X, sq, y, masks, state = _stream_problem(cuda, n, 10, name)
     args = (X, sq, ds.gamma, y, masks, [ds.C] * 10, 1e-3, [cap] * 10)
     before = ops.route_counts()["smo_stream_chunk"]["persistent"]
-    got = _stream_chunk(*args, 10 ** 6, *state)
+    got = _stream_chunk(*args, 10 ** 6, *state, _route="persistent")
     assert ops.route_counts()["smo_stream_chunk"]["persistent"] == before + 1
     assert bool(got[3].all())
     _routes_equal(got, _stream_chunk(*args, 10 ** 6, *state,
@@ -1066,10 +1066,10 @@ def test_cuda_stream_persistent_bitwise(cuda, name, n, cap):
 
 @pytest.mark.cuda
 def test_cuda_stream_persistent_lane_widths(cuda):
-    """At n=32,560: one lane, ten, and the widest batch the plan places are
-    bitwise lane by lane the same lanes alone (lanes stop at caps spread
-    over the chunk); one lane more takes the pair route, with the same
-    lanes."""
+    """At n=32,560: one lane, ten, and the widest batch the persistent plan
+    places are bitwise lane by lane the same lanes alone (lanes stop at
+    caps spread over the chunk); one lane more it refuses, and the route
+    ``stream_route`` takes for it gives the same lanes."""
     from repro_torch.kernels.smo_chunk import stream_plan
     n = 32560
     b = 1
@@ -1088,15 +1088,15 @@ def test_cuda_stream_persistent_lane_widths(cuda):
 
     for width in (1, 10, b):
         before = ops.route_counts()["smo_stream_chunk"]["persistent"]
-        got = run(range(width))
+        got = run(range(width), "persistent")
         assert ops.route_counts()["smo_stream_chunk"]["persistent"] == \
             before + 1
         assert got[2].tolist() == caps[:width]
         for l in (0, width - 1):
             _routes_equal(run([l], "pair"), tuple(t[l:l + 1] for t in got))
-    before = ops.route_counts()["smo_stream_chunk"]["pair"]
+    with pytest.raises(ValueError, match="persistent route cannot place"):
+        run(range(b + 1), "persistent")
     wide = run(range(b + 1))
-    assert ops.route_counts()["smo_stream_chunk"]["pair"] == before + 1
     _routes_equal(tuple(t[:b] for t in wide), got)
 
 
@@ -1136,6 +1136,131 @@ def test_cuda_stream_persistent_nan_lane(cuda):
         _routes_equal(alone, tuple(t[l:l + 1] for t in got))
     _routes_equal(got, _stream_chunk(*args, 10 ** 6, *lanes,
                                      _route="pair"))
+
+
+# ---- the streaming chunk's cluster route ----
+
+def _stream_routes_equal(args, kw=None, routes=("cluster", "persistent",
+                                                "pair")):
+    """The chunk on each of ``routes`` (those that place it), bitwise the
+    first's, NaN where NaN; the first's result."""
+    kw = kw or {}
+    outs = [_stream_chunk(*args, **kw, _route=r) for r in routes]
+    for other in outs[1:]:
+        _routes_equal(outs[0], other)
+    return outs[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 4, 10, 16])
+@pytest.mark.parametrize("n", [1, 31, 270, 1000, 4096, 32560])
+def test_cuda_stream_cluster_bitwise(cuda, n, b):
+    """The cluster route is bitwise the persistent witness (where its plan
+    places the lanes) and the pair route: adult's first n rows, b lanes
+    stopping at caps spread over the chunk (to convergence at n <= 1,000
+    otherwise), and a lane of the pack bitwise the lane alone."""
+    from repro_torch.kernels.smo_chunk import stream_plan
+    ds, X, sq, y, masks, state = _stream_problem(cuda, n, b)
+    big = n > 1000
+    caps = [40 + 7 * l if big else 10 ** 6 - l for l in range(b)]
+    args = (X, sq, ds.gamma, y, masks, [ds.C] * b, 1e-3, caps,
+            500 if big else 10 ** 6, *state)
+    routes = ("cluster",) + ("persistent",) * (
+        stream_plan(n, X.shape[1], b)[0] >= 1) + ("pair",)
+    before = ops.route_counts()["smo_stream_chunk"]["cluster"]
+    got = _stream_routes_equal(args, routes=routes)
+    assert ops.route_counts()["smo_stream_chunk"]["cluster"] == before + 1
+    if big:
+        assert got[2].tolist() == caps
+    for l in {0, b - 1}:
+        alone = _stream_chunk(X, sq, ds.gamma, y, masks[l:l + 1], [ds.C],
+                              1e-3, caps[l:l + 1], args[8],
+                              *(t[l:l + 1] for t in state), _route="cluster")
+        _routes_equal(alone, tuple(t[l:l + 1] for t in got))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [270, 1000, 32560])
+def test_cuda_stream_cluster_frozen_and_nan_edges(cuda, n):
+    """Lanes frozen part-way (done on entry, or at their caps mid-chunk)
+    and NaN f on rows at the cluster route's block edges (and so at
+    cluster edges, clusters being runs of blocks), on a training row (the
+    lane stops at once) and off both sets: the three routes bitwise."""
+    from repro_torch.kernels.smo_chunk import (stream_cluster_capacity,
+                                               stream_cluster_plan)
+    b = 6
+    ds, X, sq, y, masks, state = _stream_problem(cuda, n, b)
+    plan = stream_cluster_plan(n, b, stream_cluster_capacity(X.shape[1], b))
+    edges = sorted({min(n - 1, e) for lo in range(0, n, plan.slice)
+                    for e in (lo, lo + plan.slice - 1)})
+    fs, done = state[1].clone(), state[3].clone()
+    done[4] = True                          # frozen on entry
+    train = [e for e in edges if bool(masks[1, e])]
+    fs[1, train[len(train) // 2]] = float("nan")  # a training row: stops
+    masks[2, edges[1::2]] = False           # off the training set: ignored
+    fs[2, edges[1::2]] = float("nan")
+    fs[3, edges] = float("nan")
+    lanes = (state[0], fs, state[2], done)
+    caps = [10 ** 6, 10 ** 6, 60, 10 ** 6, 10 ** 6, 25]
+    got = _stream_routes_equal((X, sq, ds.gamma, y, masks, [ds.C] * b, 1e-3,
+                                caps, 300, *lanes))
+    assert int(got[2][4]) == 0 and torch.equal(got[1][4], fs[4])
+    assert int(got[2][1]) == int(got[2][3]) == 0 and bool(got[3][1])
+    assert int(got[2][5]) == 25
+
+
+@pytest.mark.cuda
+def test_cuda_stream_cluster_refuses_what_it_cannot_place(cuda):
+    """A forced route that cannot place the lanes raises: the cluster route
+    past 16 lanes or past its rows (every block's slice one tile), and on
+    lanes with their own X (``smo_stream_chunk_sources`` has no cluster
+    route)."""
+    from repro_torch.kernels.smo_chunk import (pad_rows, seq_norms,
+                                               stream_cluster_capacity,
+                                               stream_cluster_plan)
+    ds, X, sq, y, masks, state = _stream_problem(cuda, 1000, 17)
+    args = (X, sq, ds.gamma, y, masks, [ds.C] * 17, 1e-3, [10] * 17, 10,
+            *state)
+    with pytest.raises(ValueError, match="cluster route cannot place"):
+        _stream_chunk(*args, _route="cluster")
+    wide = 80_000
+    assert stream_cluster_plan(wide, 1, stream_cluster_capacity(9, 1)) \
+        is None
+    Xw = torch.ones((wide, 9), dtype=torch.float64, device=cuda)
+    yw = torch.ones(wide, dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError, match="cluster route cannot place"):
+        ops.smo_stream_chunk(
+            Xw, torch.sum(Xw * Xw, -1), 0.5, yw,
+            torch.ones((1, wide), dtype=torch.bool, device=cuda), [1.0],
+            1e-3, [1], 1, torch.zeros((1, wide), dtype=torch.float64,
+                                      device=cuda), -yw[None],
+            torch.zeros(1, dtype=torch.int64, device=cuda),
+            torch.zeros(1, dtype=torch.bool, device=cuda),
+            X_norms=seq_norms(Xw), _route="cluster")
+    Xs = X[None].repeat(2, 1, 1)
+    with pytest.raises(ValueError, match="route must be one of"):
+        ops.smo_stream_chunk_sources(
+            Xs, sq[None].repeat(2, 1), ds.gamma, y[None].repeat(2, 1),
+            masks[:2], [ds.C] * 2, 1e-3, [10] * 2, 10,
+            *(t[:2] for t in state), X_rows=pad_rows(Xs),
+            X_norms=seq_norms(Xs), _route="cluster")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [270, 32560])
+def test_cuda_stream_cluster_fma_build_bitwise(cuda, n, monkeypatch):
+    """The FP64 tensor cores round like an ordered fma chain: the build of
+    ``smo_stream.cu`` with its float64 dot products on the FMA pipes
+    (``smo_stream_fma``) gives the cluster route's results bit for bit."""
+    from repro_torch.kernels import _build
+    ds, X, sq, y, masks, state = _stream_problem(cuda, n, 10)
+    args = (X, sq, ds.gamma, y, masks, [ds.C] * 10, 1e-3, [200] * 10, 201,
+            *state)
+    got = _stream_chunk(*args, _route="cluster")
+    entry = _build.entry
+    monkeypatch.setattr(_build, "entry", lambda name, *a: entry(
+        "smo_stream_fma" if name == "smo_stream" else name, *a))
+    _routes_equal(got, _stream_chunk(*args, _route="cluster"))
 
 
 @pytest.mark.cuda

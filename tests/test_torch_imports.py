@@ -17,7 +17,8 @@ FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
        ROOT / "chip_smo_variants.py", ROOT / "chip_sir_split.py",
        ROOT / "chip_ato_split.py", ROOT / "chip_ato_phases.py",
        ROOT / "chip_spill_phases.py", ROOT / "chip_cost_model.py",
-       ROOT / "chip_flash_shapes.py", ROOT / "chip_scan_variants.py"]
+       ROOT / "chip_flash_shapes.py", ROOT / "chip_scan_variants.py",
+       ROOT / "chip_stream_phases.py"]
 
 
 def _imported(tree):
@@ -52,7 +53,7 @@ def test_the_walk_sees_the_port():
             "deepseek_v3_671b.py", "chip_flash_shapes.py", "ssm.py",
             "selective_scan.py", "jamba_v0_1_52b.py",
             "chip_scan_variants.py", "xlstm.py", "mlstm.py", "slstm.py",
-            "xlstm_125m.py"} <= names
+            "xlstm_125m.py", "chip_stream_phases.py"} <= names
     analysis = ROOT / "src" / "repro_torch" / "analysis"
     assert analysis / "__main__.py" in FILES
 

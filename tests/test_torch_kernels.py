@@ -425,52 +425,49 @@ def _better(va, ia, vb, ib, want_max):
     return ia < ib
 
 
-def _two_level_select(alpha, f, y, mask, C, tiles, rng):
-    """The persistent chunk's selection, modelled: every block (a slice
-    of rows, cut as ``smo_stream_plan`` cuts them) takes its candidates
-    for b_up / i and b_low / j and the OR of its set flags, visiting its
-    rows in any order; every block then reduces all blocks' candidates in
-    any order by the same rule. Returns (i, j, gap)."""
+def _two_level_select(alpha, f, y, mask, C, tiles, rng, cluster=1):
+    """The one-launch streaming chunks' selection, modelled: every block
+    (a slice of rows, cut as the plans cut them) takes its candidates for
+    b_up / i and b_low / j and the OR of its set flags, visiting its rows
+    in any order; with ``cluster`` > 1 (the cluster route) each cluster of
+    that many consecutive blocks reduces its blocks' candidates in any
+    order into one record; every block then reduces all records (the
+    blocks', or the clusters') in any order by the same rule. Returns (i,
+    j, gap)."""
     n = f.shape[0]
     slice_ = -(-n // tiles)
     i_up, i_low = ref._sets(alpha, y, mask, C)
     up, low, fv = i_up.tolist(), i_low.tolist(), f.tolist()
+    none = (math.inf, 2 ** 31 - 1, -math.inf, 2 ** 31 - 1, 0)
+
+    def merge(records):
+        vu, iu, vl, il, fl = none
+        for p in rng.permutation(len(records)).tolist():
+            cu, ju, cl, jl, cf = records[p]
+            if _better(cu, ju, vu, iu, False):
+                vu, iu = cu, ju
+            if _better(cl, jl, vl, il, True):
+                vl, il = cl, jl
+            fl |= cf
+        return vu, iu, vl, il, fl
+
     cands = []
     for lo in range(0, n, slice_):
-        vu, iu, vl, il, fl = math.inf, 2 ** 31 - 1, -math.inf, 2 ** 31 - 1, 0
-        for k in rng.permutation(range(lo, min(n, lo + slice_))).tolist():
-            cu = fv[k] if up[k] else math.inf
-            cl = fv[k] if low[k] else -math.inf
-            if _better(cu, k, vu, iu, False):
-                vu, iu = cu, k
-            if _better(cl, k, vl, il, True):
-                vl, il = cl, k
-            fl |= (1 if up[k] else 0) | (2 if low[k] else 0)
-        cands.append((vu, iu, vl, il, fl))
-    assert len(cands) == tiles
-    vu, iu, vl, il, fl = math.inf, 2 ** 31 - 1, -math.inf, 2 ** 31 - 1, 0
-    for p in rng.permutation(tiles).tolist():
-        cu, ju, cl, jl, cf = cands[p]
-        if _better(cu, ju, vu, iu, False):
-            vu, iu = cu, ju
-        if _better(cl, jl, vl, il, True):
-            vl, il = cl, jl
-        fl |= cf
+        cands.append(merge([
+            (fv[k] if up[k] else math.inf, k, fv[k] if low[k] else -math.inf,
+             k, (1 if up[k] else 0) | (2 if low[k] else 0))
+            for k in range(lo, min(n, lo + slice_))]))
+    assert len(cands) == tiles and tiles % cluster == 0
+    records = [merge(cands[c:c + cluster]) for c in range(0, tiles, cluster)]
+    vu, iu, vl, il, fl = merge(records)
     return iu, il, (vl - vu if fl == 3 else -math.inf)
 
 
-@pytest.mark.parametrize("tiles", [1, 3, 264])
-@pytest.mark.parametrize("case", ["ties", "nan_at_edges", "nan_off_set",
-                                  "bound"])
-def test_two_level_selection_is_select_ref(tiles, case):
-    """Per-block candidates reduced across blocks (the persistent
-    chunk's one exchange an iteration) give ``smo_select_ref``'s pair and
-    gap: the rule is exact in any order and at any cut into blocks. Ties
-    (f on a coarse grid, so many rows share the extreme), NaN f on rows at
-    block edges (the first NaN row must win), NaN f on rows outside both
-    sets (it must not), and lanes pinned at the box."""
-    rng = np.random.default_rng(tiles)
-    n = 264 * 4   # 264, 3 and 1 blocks under the plan's cut
+def _check_selection(tiles, case, cluster=1):
+    """``_two_level_select`` at ``tiles`` blocks in clusters of
+    ``cluster`` against ``smo_select_ref`` on one of the cases below."""
+    rng = np.random.default_rng(tiles if cluster == 1 else (tiles, cluster))
+    n = 264 * 4   # 264, 132, 24, 8, 3 and 1 blocks under the plans' cut
     y = torch.from_numpy(np.where(rng.random(n) < 0.5, 1.0, -1.0))
     C = 2.0
     alpha = torch.from_numpy(rng.choice([0.0, 0.7, C], size=n))
@@ -491,7 +488,7 @@ def test_two_level_selection_is_select_ref(tiles, case):
     elif case == "bound":
         alpha[:] = torch.where(y > 0, C, 0.0)
         alpha[edges[0]] = 0.7
-    i, j, gap = _two_level_select(alpha, f, y, mask, C, tiles, rng)
+    i, j, gap = _two_level_select(alpha, f, y, mask, C, tiles, rng, cluster)
     i_up, i_low = ref._sets(alpha, y, mask, C)
     v_up = torch.where(i_up, f, math.inf)
     v_low = torch.where(i_low, f, -math.inf)
@@ -509,6 +506,32 @@ def test_two_level_selection_is_select_ref(tiles, case):
         assert (i, j) == (wi, wj)
     if case == "nan_at_edges":
         assert math.isnan(gap) and i == j == nan_rows[0]
+
+
+SELECT_CASES = ["ties", "nan_at_edges", "nan_off_set", "bound"]
+
+
+@pytest.mark.parametrize("tiles", [1, 3, 264])
+@pytest.mark.parametrize("case", SELECT_CASES)
+def test_two_level_selection_is_select_ref(tiles, case):
+    """Per-block candidates reduced across blocks (the persistent
+    chunk's one exchange an iteration) give ``smo_select_ref``'s pair and
+    gap: the rule is exact in any order and at any cut into blocks. Ties
+    (f on a coarse grid, so many rows share the extreme), NaN f on rows at
+    block edges (the first NaN row must win), NaN f on rows outside both
+    sets (it must not), and lanes pinned at the box."""
+    _check_selection(tiles, case)
+
+
+@pytest.mark.parametrize("tiles,cluster", [(8, 2), (24, 3), (132, 4),
+                                           (264, 8)])
+@pytest.mark.parametrize("case", SELECT_CASES)
+def test_three_level_selection_is_select_ref(tiles, cluster, case):
+    """The cluster route's exchange: blocks, then clusters (one record a
+    cluster, through distributed shared memory), then the grid, each in
+    any order, give ``smo_select_ref``'s pair and gap on the same cases
+    at several cluster sizes, NaN rows at block and so at cluster edges."""
+    _check_selection(tiles, case, cluster)
 
 
 # ---- the routes of the redesigned kernels, and the wrappers' checks ----
@@ -651,6 +674,139 @@ def test_cluster_plan_is_pure():
     assert cluster_plan(32544, 1, {}, H100_SMS) is None
 
 
+#: the cluster streaming route's capacity on an H100: clusters of C blocks
+#: (2..8) the card runs at once at either tile, each block with the
+#: kernel's whole shared memory (one block an SM), recorded from the card
+#: (``stream_cluster_capacity``, chip_smoke.py's stream_routes phase); the
+#: same at every d and lane count tried
+H100_STREAM_CLUSTERS = {(c, rb): k for c, k in ((2, 66), (3, 39), (4, 30),
+                                                 (5, 22), (6, 17), (7, 15),
+                                                 (8, 15)) for rb in (2, 4)}
+
+#: chip_smoke.py's streaming route sweep on an H100 (700 W): rows, d,
+#: lanes, the persistent plan's blocks, and each placed route's us an
+#: iteration (200 capped iterations, each route its best of 5 rounds)
+STREAM_SWEEP_H100 = [
+    (270, 123, 1, 3, {"cluster": 16.22, "persistent": 16.57, "pair": 23.54}),
+    (270, 123, 4, 3, {"cluster": 16.47, "persistent": 16.97, "pair": 24.33}),
+    (270, 123, 10, 3, {"cluster": 20.22, "persistent": 22.08,
+                       "pair": 28.82}),
+    (270, 123, 16, 3, {"cluster": 26.49, "persistent": 25.37,
+                       "pair": 32.14}),
+    (270, 123, 17, 0, {"pair": 29.11}),
+    (1000, 123, 1, 8, {"cluster": 14.72, "persistent": 15.55, "pair": 22.69}),
+    (1000, 123, 4, 8, {"cluster": 15.74, "persistent": 16.01, "pair": 23.58}),
+    (1000, 123, 10, 8, {"cluster": 19.38, "persistent": 20.57,
+                        "pair": 27.56}),
+    (1000, 123, 16, 8, {"cluster": 24.65, "persistent": 23.96,
+                        "pair": 30.61}),
+    (1000, 123, 17, 0, {"pair": 27.2}),
+    (4096, 123, 1, 32, {"cluster": 14.93, "persistent": 15.75,
+                        "pair": 24.24}),
+    (4096, 123, 4, 32, {"cluster": 15.28, "persistent": 16.28,
+                        "pair": 24.77}),
+    (4096, 123, 10, 32, {"cluster": 19.81, "persistent": 21.51,
+                         "pair": 29.42}),
+    (4096, 123, 16, 32, {"cluster": 25.39, "persistent": 24.81,
+                         "pair": 33.54}),
+    (4096, 123, 17, 0, {"pair": 29.79}),
+    (32560, 123, 1, 132, {"cluster": 17.02, "persistent": 23.94,
+                          "pair": 41.99}),
+    (32560, 123, 4, 132, {"cluster": 19.04, "persistent": 22.68,
+                          "pair": 42.68}),
+    (32560, 123, 10, 132, {"cluster": 27.04, "persistent": 30.85,
+                           "pair": 52.78}),
+    (32560, 123, 14, 132, {"cluster": 31.74, "persistent": 32.67,
+                           "pair": 63.18}),
+    (32560, 123, 15, 0, {"cluster": 33.28, "pair": 63.32}),
+    (32560, 123, 16, 0, {"cluster": 33.69, "pair": 65.05}),
+    (32560, 123, 17, 0, {"pair": 78.59}),
+    (270, 13, 1, 3, {"cluster": 10.67, "persistent": 8.19, "pair": 12.29}),
+    (270, 13, 4, 3, {"cluster": 10.89, "persistent": 8.74, "pair": 12.46}),
+    (270, 13, 10, 3, {"cluster": 13.63, "persistent": 12.31, "pair": 14.55}),
+    (270, 13, 16, 3, {"cluster": 15.96, "persistent": 14.54, "pair": 16.04}),
+    (270, 13, 17, 0, {"pair": 14.38}),
+]
+
+
+@pytest.mark.parametrize("n,b,want", [
+    (32560, 10, (132, 2, 247, 4)), (32560, 16, (132, 2, 247, 4)),
+    (33792, 1, (132, 2, 256, 4)), (33793, 1, None),
+    (1000, 10, (14, 7, 72, 2)), (270, 1, (8, 8, 34, 2)),
+    (4096, 4, (32, 8, 128, 2)), (1, 1, (8, 8, 1, 2)),
+    (1000, 17, None), (1000, 0, None)])
+def test_stream_cluster_plan_on_an_h100(n, b, want):
+    """The cluster streaming route's plan from the H100's capacity: about
+    128 rows a block over whole clusters, every block's slice one tile (256
+    rows at most: 33,792 rows at 66 clusters of 2), the smaller tiles, then
+    the fewest warps with rows, then the larger clusters (n = 32,560: 8,
+    7, 6, 5, 4 or 3 blocks a cluster place too few blocks, so 66 clusters
+    of 2); none past 16 lanes; the same whatever the order of the
+    capacity table."""
+    from repro_torch.kernels.smo_chunk import (StreamClusterPlan,
+                                               stream_cluster_plan)
+    got = stream_cluster_plan(n, b, H100_STREAM_CLUSTERS)
+    assert got == (StreamClusterPlan(*want) if want else None)
+    assert got == stream_cluster_plan(
+        n, b, dict(reversed(H100_STREAM_CLUSTERS.items())))
+    assert stream_cluster_plan(n, b, {}) is None
+    if got:
+        assert got.blocks % got.cluster == 0
+        assert n <= got.blocks * got.slice   # (tiny n leaves blocks empty)
+        assert got.slice <= 64 * got.rb
+
+
+@pytest.mark.parametrize("n,d,b,m,cluster,want", [
+    (32560, 123, 10, 132, True, "cluster"),
+    (32560, 123, 1, 132, True, "cluster"),
+    (32560, 123, 15, 0, True, "cluster"),
+    (1000, 123, 10, 8, True, "cluster"),
+    (1000, 123, 16, 8, True, "persistent"),
+    (270, 13, 10, 3, True, "persistent"),
+    (1000, 123, 4, 8, False, "persistent"),
+    (1000, 123, 17, 0, False, "pair"),
+    (1000, 123, 4, 0, False, "pair")])
+def test_stream_route_picks(n, d, b, m, cluster, want):
+    """``stream_route``: the fastest placed one-launch route by the fitted
+    model (the cluster route at the paper's n = 32,560 and at adult n =
+    1,000 x 10 lanes, the persistent route at heart's d = 13 and at 16
+    lanes of tiles of 128 rows), the persistent route where only it places
+    the lanes (lanes with their own X), else pairs."""
+    from repro_torch.kernels.smo_chunk import (stream_cluster_plan,
+                                               stream_route)
+    plan = stream_cluster_plan(n, b, H100_STREAM_CLUSTERS) if cluster \
+        else None
+    assert (plan is not None) == cluster
+    assert stream_route(n, d, b, m, plan) == want
+
+
+def test_stream_route_model_holds_the_recorded_sweep():
+    """At every point of the H100 sweep recorded above, the route the model
+    picks (from the plans the card gives there) ran within 5% of the
+    fastest placed route (chip_smoke.py's CHUNK_ROUTE_MARGIN), and a route
+    is placed exactly where the sweep timed it."""
+    from repro_torch.kernels.smo_chunk import (stream_cluster_plan,
+                                               stream_route)
+    for n, d, b, m, us in STREAM_SWEEP_H100:
+        plan = stream_cluster_plan(n, b, H100_STREAM_CLUSTERS)
+        assert ("cluster" in us) == (plan is not None), (n, b)
+        assert ("persistent" in us) == (m >= 1), (n, b)
+        pick = stream_route(n, d, b, m, plan)
+        assert us[pick] <= 1.05 * min(us.values()), (n, d, b, pick)
+
+
+def test_stream_cluster_workspace_and_tiles():
+    """The cluster route's workspace: the barrier counter, then two
+    parities of a 48-byte record (16-byte key, 32-byte row) a lane, kind
+    and cluster; and tiles of 128 rows up to 128-row slices, else 256."""
+    from repro_torch.kernels.smo_chunk import (StreamClusterPlan,
+                                               stream_cluster_workspace,
+                                               stream_tile_rb)
+    assert stream_cluster_workspace(10, StreamClusterPlan(132, 2, 247, 4)) \
+        == 16 + 2 * 10 * 2 * 66 * 48
+    assert [stream_tile_rb(s) for s in (1, 128, 129, 256)] == [2, 2, 4, 4]
+
+
 def test_cluster_plan_prefers_portable_then_fewest_rows_an_sm():
     """The card is asked for portable clusters only (2 to 8 blocks); of
     the shapes that place every lane, the plan takes the fewest rows an SM,
@@ -748,11 +904,13 @@ def test_cpu_tensors_count_no_route():
                   torch.zeros(20, dtype=torch.float64), -y, torch.tensor(0),
                   torch.tensor(False), _route="multi_block")
     sq = torch.sum(X * X, -1)
-    ops.smo_stream_chunk(X, sq, 0.5, y, torch.ones((1, 20), dtype=torch.bool),
-                         [1.0], 1e-3, [100], 5,
-                         torch.zeros((1, 20), dtype=torch.float64), -y[None],
-                         torch.zeros(1, dtype=torch.int64),
-                         torch.zeros(1, dtype=torch.bool), _route="persistent")
+    for route in ("persistent", "cluster"):
+        ops.smo_stream_chunk(X, sq, 0.5, y,
+                             torch.ones((1, 20), dtype=torch.bool), [1.0],
+                             1e-3, [100], 5,
+                             torch.zeros((1, 20), dtype=torch.float64),
+                             -y[None], torch.zeros(1, dtype=torch.int64),
+                             torch.zeros(1, dtype=torch.bool), _route=route)
     # ATO's ramp step on both pairs of routes
     from repro_torch.kernels.seeding import ato_system_buffers
     Cs, on = torch.ones(1, dtype=torch.float64), torch.ones(20, dtype=bool)
@@ -782,7 +940,7 @@ def test_cpu_tensors_count_no_route():
                       "one_block_global": 0},
         "smo_chunk_sources": {"one_block": 0, "multi_block": 0,
                               "cluster": 0, "one_block_global": 0},
-        "smo_stream_chunk": {"pair": 0, "persistent": 0},
+        "smo_stream_chunk": {"pair": 0, "persistent": 0, "cluster": 0},
         "smo_stream_chunk_sources": {"pair": 0, "persistent": 0},
         "flash_attention": {"fma": 0, "mma": 0, "wgmma": 0},
         "ato_system_lanes": {"compact": 0, "carried": 0},
@@ -844,8 +1002,9 @@ def test_chunk_wrapper_rejects_other_devices():
 
 
 @pytest.mark.parametrize("name", ["rbf", "smo_update", "smo_chunk",
-                                  "smo_step", "seeding", "flash_attention",
-                                  "selective_scan", "mlstm", "slstm"])
+                                  "smo_step", "smo_stream", "seeding",
+                                  "flash_attention", "selective_scan",
+                                  "mlstm", "slstm"])
 def test_build_flags_per_source(name):
     """The SVM sources keep -fmad=false, which their bitwise parity with
     the plain versions needs, and so does the sLSTM recurrence, which
@@ -871,6 +1030,19 @@ def test_build_fma_variant_of_the_step():
                                             + ("-DSMO_STEP_TENSOR_F64=0",))
     assert _build.lib_path("smo_step_fma") != _build.lib_path("smo_step")
     assert "SMO_STEP_TENSOR_F64" in _build.source("smo_step").read_text()
+
+
+def test_build_fma_variant_of_the_stream_chunk():
+    """The witness build of ``smo_stream.cu`` (the cluster route's float64
+    dot products on the FMA pipes) compiles the same file with the same
+    flags and the step's macro, into a library of its own; the source
+    reads the macro."""
+    from repro_torch.kernels import _build
+    assert _build.source("smo_stream_fma") == _build.source("smo_stream")
+    assert _build.flags("smo_stream_fma") == (_build.flags("smo_stream")
+                                              + ("-DSMO_STEP_TENSOR_F64=0",))
+    assert _build.lib_path("smo_stream_fma") != _build.lib_path("smo_stream")
+    assert "SMO_STEP_TENSOR_F64" in _build.source("smo_stream").read_text()
 
 
 def test_build_water_fill_witness():

@@ -174,6 +174,38 @@ def test_slstm_module_builds_its_gate_weight_once():
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("write", ["load_state_dict", "in_place"])
+def test_slstm_gate_weight_follows_its_parameters_after_to(write):
+    """After ``.to(torch.float64)`` the gate parameters are new tensors;
+    a gate then written (through ``load_state_dict`` or in place) reaches
+    the mixer's GEMM: its output equals ``slstm_apply`` over its
+    parameters with ``w4=None`` (built from them), and two calls with no
+    write between them read one prebuilt weight."""
+    _, cfg = _cfgs()
+    D = cfg.d_model
+    params = PT.init_params(PT.model_params_def(cfg),
+                            torch.Generator().manual_seed(5), torch.float32,
+                            torch.device("cpu"))
+    mixer = PT.Transformer(cfg, params).layers[1].mixer.to(torch.float64)
+    x = torch.randn((2, 5, D), generator=torch.Generator().manual_seed(6),
+                    dtype=torch.float64)
+    mixer(x)
+    new_wi = torch.randn((D, D), generator=torch.Generator().manual_seed(7),
+                         dtype=torch.float64)
+    if write == "load_state_dict":
+        mixer.load_state_dict({**mixer.state_dict(), "wi": new_wi})
+    else:
+        with torch.no_grad():
+            mixer.wi.copy_(new_wi)
+    assert torch.equal(mixer.wi, new_wi)
+    tree = dict(mixer.named_parameters())
+    got, _ = mixer(x)
+    want, _ = xlstm.slstm_apply(tree, x, cfg, w4=None)
+    assert got.dtype == torch.float64 and torch.equal(got, want)
+    assert torch.equal(mixer.w4[:, D:2 * D], new_wi)
+    assert mixer.w4 is mixer.w4
+
+
 # -------------------------------------------------------- the mixers -------
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
