@@ -457,10 +457,11 @@ def phase_build():
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     # every source and the witness builds this script holds kernels to
-    # (the cluster streaming route's FMA build, smo_stream_fma, is the card
-    # tests')
-    names = _build.SOURCES + tuple(v for v in _build.VARIANTS
-                                   if v != "smo_stream_fma")
+    # (the cluster streaming route's FMA build, smo_stream_fma, and the
+    # refused sLSTM cluster, slstm_cluster32, are the card tests')
+    names = _build.SOURCES + tuple(
+        v for v in _build.VARIANTS
+        if v not in ("smo_stream_fma", "slstm_cluster32"))
     per_source = _build.build_all(names)
     secs = time.perf_counter() - t0
     for name in names:
@@ -4835,6 +4836,11 @@ XLSTM_POS0_REL = 0.07
 #: tiles, B > 1, both widths, and the decode step
 MLSTM_CASES = ((2, 100, 2, 64), (3, 1000, 4, 384), (1, 777, 4, 384))
 SLSTM_CASES = ((2, 300, 64, False), (3, 257, 768, True), (4, 1, 768, True))
+#: the previous design of slstm_scan's cluster route (8 blocks, rz in shared
+#: memory, a cluster barrier a step), us a step at SLSTM_PREFILL, as
+#: ``chip_slstm_phases.py`` timed its copy beside the redesigned route on
+#: an H100 (80GB HBM3, 700 W) in four runs: 3.503-3.530, median 3.507
+SLSTM_PARENT_US_PER_STEP = 3.5070
 
 
 def _mlstm_inputs(B: int, S: int, H: int, dh: int, dtype, seed: int):
@@ -4913,6 +4919,18 @@ def _mlstm_head_tail_errors(got, q, k, v, logi, logf,
             "tail": _mlstm_rows_errors(got, q, k, v, logi, logf, (S - W, S))}
 
 
+def kernel_ptxas(log: str, word: str) -> list:
+    """The ``ptxas -v`` lines (registers, spills, stack) of the kernels
+    whose mangled names hold ``word`` in an ``nvcc -Xptxas -v`` log."""
+    out, on = [], False
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln or "Function properties" in ln:
+            on = word in ln
+        if on and ("registers" in ln or "spill" in ln):
+            out.append(ln.split(":", 1)[-1].strip())
+    return out
+
+
 def _slstm_routes_bitwise(got, out, args, carry) -> bool:
     """slstm_scan's output ``got`` and final carry ``out`` bit for bit those
     of its block route on the same inputs ``args`` (gz .. bf) from
@@ -4965,10 +4983,11 @@ def _xlstm_kernel_rows() -> dict:
     over its first XLSTM_CHECK_S steps), sLSTM's decode step too, and
     each kernel's head and tail rows at the prefill's shape held like the
     main path's layers; beside sLSTM's time, its cluster route's serial
-    chain alone (the ``slstm_chain`` build: the dot, the shuffles, the
-    exchange of h and the barrier a step, no gate math), the floor of
-    that design."""
-    from repro_torch.kernels import ops, ref
+    chain alone (the ``slstm_chain`` build: the wait for h, the dot, the
+    shuffles and the hand-over of h a step, no gate math), the floor of
+    that design, the cluster kernel's ``ptxas -v`` lines, and the parent
+    design's recorded step (SLSTM_PARENT_US_PER_STEP)."""
+    from repro_torch.kernels import _build, ops, ref
     m_checks, s_checks, m_err, s_err = [], [], 0.0, 0.0
     for i, (B, S, H, dh) in enumerate(MLSTM_CASES):
         for dtype in (torch.float32, torch.bfloat16):
@@ -5081,6 +5100,9 @@ def _xlstm_kernel_rows() -> dict:
              "block_ms": s_block_ms, "cluster_bitwise_block": s_bitwise,
              "chain_floor_ms": s_chain_ms,
              "chain_floor_us_per_step": 1e3 * s_chain_ms / S,
+             "parent_us_per_step_recorded": SLSTM_PARENT_US_PER_STEP,
+             "cluster_ptxas": kernel_ptxas(_build.ptxas_log("slstm"),
+                                           "slstm_cluster_kernel"),
              "plain_ms": s_plain_ms, "plain_steps": W,
              "bound_ms": max(s_flop_ms, s_byte_ms),
              "bound_by": "operations" if s_flop_ms >= s_byte_ms
@@ -7182,7 +7204,7 @@ def main() -> int:
         if name == "slstm_scan":
             kernels[-1].update({key: k[key] for key in (
                 "us_per_step", "block_ms", "cluster_bitwise_block",
-                "chain_floor_ms", "chain_floor_us_per_step",
+                "chain_floor_ms", "chain_floor_us_per_step", "cluster_ptxas",
                 "plain_steps", "flop_bound_ms",
                 "byte_bound_ms", "decode_shape", "decode_ms",
                 "decode_graph_ms", "decode_bound_ms", "decode_bound_by")},

@@ -16,7 +16,9 @@ same for ``csrc/smo_stream.cu`` (held equal by the card tests); ``water_fill_seq
 that the multi-level ``water_fill`` must equal bit for bit;
 ``slstm_chain`` keeps only the serial chain of ``csrc/slstm.cu``'s
 cluster route (no gate loads, no step math), whose time is that design's
-floor a step.
+floor a step; ``slstm_cluster32`` builds that route at 32 blocks a
+cluster, which no card places, so that the card tests see its launch
+refused.
 
 Flags are per source (``flags``). The SVM sources keep ``-fmad=false``,
 which keeps ``nvcc`` from contracting any expression into an FMA behind
@@ -63,7 +65,8 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 VARIANTS = {"smo_step_fma": ("smo_step", ("-DSMO_STEP_TENSOR_F64=0",)),
             "smo_stream_fma": ("smo_stream", ("-DSMO_STEP_TENSOR_F64=0",)),
             "water_fill_seq": ("seeding", ("-DWATER_FILL_LEVELS=1",)),
-            "slstm_chain": ("slstm", ("-DSLSTM_CHAIN_ONLY=1",))}
+            "slstm_chain": ("slstm", ("-DSLSTM_CHAIN_ONLY=1",)),
+            "slstm_cluster32": ("slstm", ("-DSLSTM_CLUSTER_BLOCKS=32",))}
 
 
 def source(name: str) -> Path:

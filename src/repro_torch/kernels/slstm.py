@@ -6,10 +6,12 @@ runs as a while loop, not Pallas.
 The caller hands over the four input projections gz, gi, gf, go of every
 step (none depends on h: one GEMM computes them) and the recurrent weight
 rz; one launch runs the whole time loop. Two routes (``route``):
-``cluster`` (bf16 at D = 768, xlstm-125m's: a cluster of 8 blocks a batch
-row, rz in their shared memory) and ``block`` (any other: one block a
-batch row, rz read from L2 each step; ``_route="block"`` forces it, the
-witness the cluster route equals bit for bit). On CUDA tensors the
+``cluster`` (bf16 at D = 768, xlstm-125m's: a cluster of 16 blocks a
+batch row, rz in their registers, h handed between them by ``st.async``
+onto an ``mbarrier``; a card that cannot place such a cluster refuses
+the launch, and the wrapper raises) and ``block`` (any other: one block
+a batch row, rz read from L2 each step; ``_route="block"`` forces it,
+the witness the cluster route equals bit for bit). On CUDA tensors the
 wrapper launches the kernel (float32 or bfloat16, D 64 or 768, the gates
 views with one set of strides and a unit last stride) or raises; on
 CPU tensors it runs the plain version, ``ref.slstm_scan_ref``. Prefill
@@ -67,7 +69,8 @@ def slstm_scan(gz, gi, gf, go, rz, bf, carry=None, carry_out=None, *,
     updates its cache in place). ``_route`` forces a route on the card
     (checks and timing); ``_build_name`` names the build launched
     (``"slstm_chain"``: the cluster route's serial chain alone, timed as
-    its floor; its output is not the recurrence)."""
+    its floor; its output is not the recurrence; ``"slstm_cluster32"``: a
+    cluster no card places, whose launch raises)."""
     states = [t for c in (carry, carry_out) if c is not None for t in c]
     tensors = (gz, gi, gf, go, rz, bf, *states)
     if all(t.device.type == "cpu" for t in tensors):

@@ -156,3 +156,61 @@ def test_stream_phases_edits_find_their_text_once(route):
                     for it in ("t", "stamp_t"))
         assert reads == 1, (route, k)
     assert len(STREAM_PHASES.PHASES[route]) == STREAM_PHASES.SLOTS - 1
+
+
+# ``chip_slstm_phases.py`` stamps copies of ``csrc/slstm.cu``: the source
+# as it stands (``new``) and the parent design's cluster route spliced in
+# its place (``parent``). Each edit must find its text exactly once in its
+# design's text, inside the cluster kernel it times, and every phase of
+# the step is closed by one counter read.
+SLSTM_PHASES = _phases("chip_slstm_phases")
+
+
+@pytest.mark.parametrize("base", sorted(SLSTM_PHASES.EDITS))
+def test_slstm_phases_edits_find_their_text_once(base):
+    src = SLSTM_PHASES.design_text(base)
+    edits = SLSTM_PHASES.EDITS[base]
+    for old, new in edits:
+        assert src.count(old) == 1 and old != new
+    body = src[src.index("slstm_cluster_kernel(const bf16*"):
+               src.index(SLSTM_PHASES.ROUTE_END)]
+    assert all(old in body for old, _ in edits[1:])
+
+
+@pytest.mark.parametrize("base", sorted(SLSTM_PHASES.EDITS))
+def test_slstm_phases_stamps_every_phase(base):
+    text = SLSTM_PHASES.edited(base)
+    for k in range(SLSTM_PHASES.SLOTS):
+        assert text.count(SLSTM_PHASES._s(k)) == 1, (base, k)
+    assert len(SLSTM_PHASES.PHASES[base]) == SLSTM_PHASES.SLOTS - 1
+    assert text.endswith(SLSTM_PHASES.TAIL)
+
+
+def test_slstm_phases_parent_splice_keeps_the_rest():
+    """The parent's copy differs from the source only in the cluster
+    route's namespace: the block route, the step and the C entries are
+    the source's, and the parent's route is whole."""
+    src = (STEP / "slstm.cu").read_text()
+    parent = SLSTM_PHASES.design_text("parent")
+    begin, end = SLSTM_PHASES.ROUTE_BEGIN, SLSTM_PHASES.ROUTE_END
+    assert SLSTM_PHASES.PARENT_ROUTE.startswith(begin)
+    assert SLSTM_PHASES.PARENT_ROUTE.endswith(end)
+    assert parent.count(begin) == 1 and parent.count(end) == 1
+    assert SLSTM_PHASES.PARENT_ROUTE in parent
+    assert src[:src.index(begin)] == parent[:parent.index(begin)]
+    assert src[src.index(end):] == parent[parent.index(end):]
+    assert "cluster.sync();\n  }\n" in SLSTM_PHASES.PARENT_ROUTE
+    assert "expect_bytes" in src and "expect_bytes" not in parent
+
+
+@pytest.mark.parametrize("design", sorted(SLSTM_PHASES.DESIGNS))
+def test_slstm_phases_designs_set_the_sources_macros(design):
+    """Each design's flags set macros the source defines a default for,
+    and to another value than that default."""
+    base, flags = SLSTM_PHASES.DESIGNS[design]
+    assert base in SLSTM_PHASES.EDITS
+    src = (STEP / "slstm.cu").read_text()
+    for flag in flags:
+        name, value = flag[2:].split("=")
+        assert f"#ifndef {name}\n#define {name} " in src
+        assert f"#define {name} {value}\n" not in src

@@ -3449,26 +3449,58 @@ def test_cuda_xlstm_makes_no_host_sync(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,S,carry", [(1, 300, False), (3, 257, True),
-                                       (4, 1, True), (2, 0, True)],
-                         ids=["prefill", "b3_carry", "decode", "empty"])
+                                       (4, 1, True), (2, 0, True),
+                                       (1, 4096, True), (2, 4096, True)],
+                         ids=["prefill", "b3_carry", "decode", "empty",
+                              "long_b1_carry", "long_b2_carry"])
 def test_cuda_slstm_cluster_route_bitwise_block(cuda, B, S, carry):
-    """bf16 at D = 768 takes the cluster route (8 blocks a batch row, rz in
-    their shared memory, h through distributed shared memory); it sums h
-    @ rz in the block route's order, so its outputs and final carry are
-    the block route's bit for bit, from zeros and from a carry, at B > 1,
-    S = 1 and S = 0 (the carry passed through)."""
+    """bf16 at D = 768 takes the cluster route (16 blocks a batch row, rz
+    in their registers, h handed over by st.async onto each block's
+    mbarrier, no cluster barrier a step); it sums h @ rz in the block
+    route's order, so its outputs and final carry are the block route's
+    bit for bit, from zeros and from a carry, at B > 1, S = 1 and S = 0
+    (the carry passed through). Three launches on the same inputs, each
+    bitwise the block route and so each other: over 4,096 steps a hand-over
+    read early or missed would show."""
     gz, gi, gf, go, rz, bf, c0 = _slstm_case(cuda, B, max(S, 1), 768,
                                              torch.bfloat16, carry, 3)
     gates = [g[:, :S] for g in (gz, gi, gf, go)]
-    outs = [_empty_carry(B, 768, torch.bfloat16, cuda) for _ in range(2)]
-    before = dict(ops.route_counts()["slstm_scan"])
-    got = ops.slstm_scan(*gates, rz, bf, c0, outs[0])
-    after = ops.route_counts()["slstm_scan"]
-    assert after["cluster"] == before["cluster"] + 1
-    want = ops.slstm_scan(*gates, rz, bf, c0, outs[1], _route="block")
-    assert torch.equal(got, want)
-    for a, b in zip(*outs, strict=True):
-        assert torch.equal(a, b)
-    if carry and S == 0:
-        for a, b in zip(outs[0], c0, strict=True):
+    want_out = _empty_carry(B, 768, torch.bfloat16, cuda)
+    want = ops.slstm_scan(*gates, rz, bf, c0, want_out, _route="block")
+    runs = []
+    for _ in range(3):
+        out = _empty_carry(B, 768, torch.bfloat16, cuda)
+        before = dict(ops.route_counts()["slstm_scan"])
+        runs.append((ops.slstm_scan(*gates, rz, bf, c0, out), out))
+        after = ops.route_counts()["slstm_scan"]
+        assert after["cluster"] == before["cluster"] + 1
+    for got, out in runs:
+        assert torch.equal(got, want)
+        for a, b in zip(out, want_out, strict=True):
             assert torch.equal(a, b)
+    if carry and S == 0:
+        for a, b in zip(runs[0][1], c0, strict=True):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_slstm_cluster_launch_refused_raises(cuda):
+    """The cluster route's 16-block cluster is non-portable, so its launch
+    asks the card whether it can place one and returns the error if not:
+    the wrapper raises, counts no launch, and falls back to nothing. The
+    route built at 32 blocks a cluster (``slstm_cluster32``), which no
+    card places, is refused so; the runtime's error is cleared, so the
+    next launch of the shipped route runs and is bitwise the block
+    route."""
+    gz, gi, gf, go, rz, bf, _ = _slstm_case(cuda, 1, 8, 768, torch.bfloat16,
+                                            False, 4)
+    args = (gz, gi, gf, go, rz, bf)
+    before = ops.launch_counts()["slstm_scan"]
+    routes = dict(ops.route_counts()["slstm_scan"])
+    with pytest.raises(RuntimeError, match="slstm_scan: CUDA error"):
+        ops.slstm_scan(*args, _build_name="slstm_cluster32")
+    assert ops.launch_counts()["slstm_scan"] == before
+    assert ops.route_counts()["slstm_scan"] == routes
+    torch.cuda.synchronize()
+    got = ops.slstm_scan(*args)
+    assert torch.equal(got, ops.slstm_scan(*args, _route="block"))

@@ -2,7 +2,8 @@
 ``chip_smoke.py``, ``chip_flash_mutants.py``, ``chip_smo_variants.py``,
 ``chip_sir_split.py``, ``chip_ato_split.py``, ``chip_ato_phases.py``,
 ``chip_spill_phases.py``, ``chip_cost_model.py``,
-``chip_flash_shapes.py`` and ``chip_scan_variants.py``, imports jax or
+``chip_flash_shapes.py``, ``chip_scan_variants.py``,
+``chip_stream_phases.py`` and ``chip_slstm_phases.py``, imports jax or
 the JAX package ``repro``; and every entry point defaults to ``cuda``,
 raising without a GPU unless given ``device="cpu"``."""
 import ast
@@ -18,7 +19,7 @@ FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
        ROOT / "chip_ato_split.py", ROOT / "chip_ato_phases.py",
        ROOT / "chip_spill_phases.py", ROOT / "chip_cost_model.py",
        ROOT / "chip_flash_shapes.py", ROOT / "chip_scan_variants.py",
-       ROOT / "chip_stream_phases.py"]
+       ROOT / "chip_stream_phases.py", ROOT / "chip_slstm_phases.py"]
 
 
 def _imported(tree):
@@ -53,7 +54,8 @@ def test_the_walk_sees_the_port():
             "deepseek_v3_671b.py", "chip_flash_shapes.py", "ssm.py",
             "selective_scan.py", "jamba_v0_1_52b.py",
             "chip_scan_variants.py", "xlstm.py", "mlstm.py", "slstm.py",
-            "xlstm_125m.py", "chip_stream_phases.py"} <= names
+            "xlstm_125m.py", "chip_stream_phases.py",
+            "chip_slstm_phases.py"} <= names
     analysis = ROOT / "src" / "repro_torch" / "analysis"
     assert analysis / "__main__.py" in FILES
 

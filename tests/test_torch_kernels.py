@@ -1070,6 +1070,22 @@ def test_build_slstm_chain_variant():
     assert "SLSTM_CHAIN_ONLY" in _build.source("slstm").read_text()
 
 
+def test_build_slstm_refused_cluster_variant():
+    """The build whose cluster no card places (``slstm_cluster32``, for
+    the card test that its launch raises) compiles ``slstm.cu`` with the
+    same flags and the cluster's block count set past the 16 an H100
+    places, into a library of its own; the source reads the macro, and
+    the card runs it at the default, 16."""
+    from repro_torch.kernels import _build
+    assert _build.source("slstm_cluster32") == _build.source("slstm")
+    assert _build.flags("slstm_cluster32") == (
+        _build.flags("slstm") + ("-DSLSTM_CLUSTER_BLOCKS=32",))
+    assert _build.lib_path("slstm_cluster32") != _build.lib_path("slstm")
+    src = _build.source("slstm").read_text()
+    assert "#ifndef SLSTM_CLUSTER_BLOCKS\n#define SLSTM_CLUSTER_BLOCKS 16\n" \
+        in src
+
+
 @pytest.mark.parametrize("n,m_cap,p", [(1, 1, 0.5), (10, 10, 1.0),
                                        (100, 128, 0.3), (257, 128, 0.2),
                                        (1000, 512, 0.0), (1000, 384, 0.35)])
