@@ -93,6 +93,12 @@ def build_all(tmp: str) -> dict:
             "kernels", "csrc", "flash_attention.cu")
         with open(parent) as fh:
             srcs["parent"] = fh.read()
+    csrc = os.path.dirname(CU)
+    for header in os.listdir(csrc):   # the headers the copies include
+        if header.endswith(".cuh"):
+            with open(os.path.join(csrc, header)) as fh, \
+                    open(os.path.join(tmp, header), "w") as out:
+                out.write(fh.read())
     procs = {}
     for name, src in srcs.items():
         cu = os.path.join(tmp, f"{name}.cu")

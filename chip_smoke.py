@@ -4074,7 +4074,7 @@ def _serve_main(phase: str, model, cfg, tokens, prompt, new_tokens: int,
     the launch counts set to 0 just before it and read just after (each
     kernel's launches a prefill and a decode step checked there): every
     attention launch on the wgmma route and global, every mlstm_parallel
-    launch on mma and every slstm_scan launch on cluster. Decode is
+    launch on wgmma and every slstm_scan launch on cluster. Decode is
     reported beside the step's read of ``step_bytes`` at HBM_BPS. Returns
     the prompt's logits through the cache and the record's fields."""
     from repro_torch.kernels import ops
@@ -4094,11 +4094,12 @@ def _serve_main(phase: str, model, cfg, tokens, prompt, new_tokens: int,
             f"for all {n_attn}")
     # _lm_main_path checked every kernel's launches a prefill and a decode
     # step; here, that xLSTM's took the main path's routes
-    require(routes["mlstm_parallel"]["fma"] == 0
+    require(routes["mlstm_parallel"] == {
+                "wgmma": counts["mlstm_parallel"], "mma": 0, "fma": 0}
             and routes["slstm_scan"]["block"] == 0,
             f"{phase}: mlstm_parallel took routes {routes['mlstm_parallel']} "
             f"and slstm_scan {routes['slstm_scan']} on the main path, want "
-            "mma and cluster only")
+            "wgmma and cluster only")
     ops.reset_launch_counts()
     bound_ms = 1e3 * step_bytes / HBM_BPS
     prompt_logits = main.pop("prompt_logits")
@@ -4833,7 +4834,8 @@ XLSTM_POS0_REL_F32 = 1.5e-4
 XLSTM_POS0_REL = 0.07
 #: the kernels' checks before the weights: mlstm_parallel (B, S, H, dh)
 #: and slstm_scan (B, S, D, from a carry): tails past the 64- and 16-row
-#: tiles, B > 1, both widths, and the decode step
+#: tiles, B > 1, both widths, and the decode step; mlstm_parallel's bf16
+#: cases at dh = 384 on its chosen route (wgmma) and the forced mma route
 MLSTM_CASES = ((2, 100, 2, 64), (3, 1000, 4, 384), (1, 777, 4, 384))
 SLSTM_CASES = ((2, 300, 64, False), (3, 257, 768, True), (4, 1, 768, True))
 #: the previous design of slstm_scan's cluster route (8 blocks, rz in shared
@@ -4975,7 +4977,9 @@ def _xlstm_kernel_rows() -> dict:
     """mlstm_parallel and slstm_scan against their plain versions on the
     card, float32 and bf16 (MLSTM_CASES, SLSTM_CASES; float32 within
     XLSTM_F32_REL row by row, bf16 by ``_mlstm_ok`` with MLSTM_ROW_REL
-    and ``_bf16_ok``;
+    and ``_bf16_ok``; mlstm_parallel's bf16 cases at dh = 384 on its
+    wgmma route and the forced mma route, both also timed and checked at
+    the prefill's shape;
     slstm_scan's cluster route, every bf16 launch at D = 768, bit for bit
     its block route, outputs and carry), then timed at the main
     path's prefill shapes beside their bounds and their plain versions
@@ -4988,27 +4992,32 @@ def _xlstm_kernel_rows() -> dict:
     that design, the cluster kernel's ``ptxas -v`` lines, and the parent
     design's recorded step (SLSTM_PARENT_US_PER_STEP)."""
     from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels.mlstm import route as mlstm_route
     m_checks, s_checks, m_err, s_err = [], [], 0.0, 0.0
     for i, (B, S, H, dh) in enumerate(MLSTM_CASES):
         for dtype in (torch.float32, torch.bfloat16):
             args = _mlstm_inputs(B, S, H, dh, dtype, 20 + i)
-            before = ops.launch_counts()["mlstm_parallel"]
-            got = ops.mlstm_parallel(*args)
-            require(ops.launch_counts()["mlstm_parallel"] == before + 1,
-                    "mlstm_parallel did not launch its kernel")
-            rec = {"shape": [B, S, H, dh],
-                   "dtype": str(dtype).replace("torch.", "")}
-            if dtype == torch.float32:
-                want = ref.mlstm_parallel_ref(*args)
-                rec["row_rel"] = _row_rel(got, want)
-                rec["max_abs_err"] = float((got - want).abs().max())
-                m_err = max(m_err, rec["max_abs_err"])
-                ok = rec["row_rel"] <= XLSTM_F32_REL
-            else:
-                rec.update(_mlstm_rows_errors(got, *args, (0, S)))
-                ok = _mlstm_ok(rec, MLSTM_ROW_REL)
-            m_checks.append(rec)
-            require(ok, f"mlstm_parallel against its plain version: {rec}")
+            took = mlstm_route(dtype, dh)
+            for forced in (None, "mma") if took == "wgmma" else (None,):
+                before = ops.route_counts()["mlstm_parallel"]
+                got = ops.mlstm_parallel(*args, _route=forced)
+                require(ops.route_counts()["mlstm_parallel"][forced or took]
+                        == before[forced or took] + 1,
+                        "mlstm_parallel did not launch its kernel")
+                rec = {"shape": [B, S, H, dh], "route": forced or took,
+                       "dtype": str(dtype).replace("torch.", "")}
+                if dtype == torch.float32:
+                    want = ref.mlstm_parallel_ref(*args)
+                    rec["row_rel"] = _row_rel(got, want)
+                    rec["max_abs_err"] = float((got - want).abs().max())
+                    m_err = max(m_err, rec["max_abs_err"])
+                    ok = rec["row_rel"] <= XLSTM_F32_REL
+                else:
+                    rec.update(_mlstm_rows_errors(got, *args, (0, S)))
+                    ok = _mlstm_ok(rec, MLSTM_ROW_REL)
+                m_checks.append(rec)
+                require(ok, f"mlstm_parallel against its plain version: "
+                        f"{rec}")
     for i, (B, S, D, carry) in enumerate(SLSTM_CASES):
         for dtype in (torch.float32, torch.bfloat16):
             *args, c0 = _slstm_inputs(B, S, D, dtype, 30 + i, carry)
@@ -5039,15 +5048,22 @@ def _xlstm_kernel_rows() -> dict:
             require(ok, f"slstm_scan against its plain version: {rec}")
     torch.cuda.empty_cache()
 
-    # mlstm_parallel at the prefill's shape
+    # mlstm_parallel at the prefill's shape: its route (wgmma) and the
+    # forced mma route, each timed and checked at its head and tail rows
     B, S, H, dh = MLSTM_PREFILL
     W = XLSTM_CHECK_S
     args = _mlstm_inputs(B, S, H, dh, torch.bfloat16, 40)
     m_ms = cuda_ms(lambda: ops.mlstm_parallel(*args), 5, 1)
+    m_mma_ms = cuda_ms(lambda: ops.mlstm_parallel(*args, _route="mma"), 3,
+                       1)
     got = ops.mlstm_parallel(*args)
     m_rows = _mlstm_head_tail_errors(got, *args)
-    require(all(_mlstm_ok(r, MLSTM_ROW_REL) for r in m_rows.values()),
-            f"mlstm_parallel at the prefill's shape: {m_rows}")
+    got = ops.mlstm_parallel(*args, _route="mma")
+    m_mma_rows = _mlstm_head_tail_errors(got, *args)
+    require(all(_mlstm_ok(r, MLSTM_ROW_REL) for r in (
+        *m_rows.values(), *m_mma_rows.values())),
+            f"mlstm_parallel at the prefill's shape: wgmma {m_rows}, mma "
+            f"{m_mma_rows}")
     m_plain_ms = cuda_ms(lambda: ref.mlstm_parallel_ref(
         *args, rows=(S - W, S)), 1, 0)
     args32 = [t.float() for t in args[:3]] + list(args[3:])
@@ -5059,14 +5075,20 @@ def _xlstm_kernel_rows() -> dict:
     nbytes = 2.0 * 4 * B * S * H * dh + 4.0 * 2 * B * S * H
     m_flop_ms, m_byte_ms = 1e3 * flops / BF16_FLOPS, 1e3 * nbytes / HBM_BPS
     m_rec = {"shape": list(MLSTM_PREFILL), "checks": m_checks,
-             "max_abs_err": m_err, "ms": m_ms, "ms_float32": m_f32_ms,
-             "tflops": flops / m_ms / 1e9, "plain_ms": m_plain_ms,
+             "max_abs_err": m_err, "route": mlstm_route(torch.bfloat16, dh),
+             "ms": m_ms, "ms_float32": m_f32_ms,
+             "tflops": flops / m_ms / 1e9, "mma_ms": m_mma_ms,
+             "mma_tflops": flops / m_mma_ms / 1e9,
+             "wgmma_ptxas": kernel_ptxas(_build.ptxas_log("mlstm"),
+                                         "mlstm_wgmma_kernel"),
+             "plain_ms": m_plain_ms,
              "plain_rows": [S - W, S],
              "bound_ms": max(m_flop_ms, m_byte_ms),
              "bound_by": "operations" if m_flop_ms >= m_byte_ms
              else "bytes", "flop_bound_ms": m_flop_ms,
              "byte_bound_ms": m_byte_ms, "exp_bound_ms": exp_bound_ms(pairs),
-             "library_ms": None, "prefill_rows": m_rows}
+             "library_ms": None, "prefill_rows": m_rows,
+             "mma_prefill_rows": m_mma_rows}
 
     # slstm_scan at the prefill's shape and its decode step
     B, S, D = SLSTM_PREFILL
@@ -5123,7 +5145,7 @@ def phase_serve_xlstm():
     slstm_scan against their plain versions and timed
     (``_xlstm_kernel_rows``). A warm-up prefill, then the main path
     (``_serve_main``): prefill of 1 x 32,768 tokens (6 mlstm_parallel
-    launches on the mma route, 6 slstm_scan launches), then SERVE_B
+    launches on the wgmma route, 6 slstm_scan launches), then SERVE_B
     requests of XLSTM_PROMPT tokens teacher-forced through the caches and
     XLSTM_NEW_TOKENS greedy (6 slstm_scan launches a step, no
     mlstm_parallel: mLSTM decodes by its recurrent update). The checks:
@@ -7198,7 +7220,8 @@ def main() -> int:
         # them, sLSTM's time a step and its decode step
         if name == "mlstm_parallel":
             kernels[-1].update({key: k[key] for key in (
-                "ms_float32", "tflops", "plain_rows", "flop_bound_ms",
+                "ms_float32", "tflops", "mma_ms", "mma_tflops",
+                "wgmma_ptxas", "plain_rows", "flop_bound_ms",
                 "byte_bound_ms", "exp_bound_ms")},
                 routes=routes[path][name])
         if name == "slstm_scan":

@@ -119,7 +119,7 @@ SYNC_FREE = {
     # launch each, no read of a state or an output
     (f"{PACKAGE}/models/xlstm.py", "mlstm_apply"): ("cfg",),
     (f"{PACKAGE}/models/xlstm.py", "slstm_apply"): ("cfg",),
-    (f"{PACKAGE}/kernels/mlstm.py", "mlstm_parallel"): (),
+    (f"{PACKAGE}/kernels/mlstm.py", "mlstm_parallel"): ("_route",),
     (f"{PACKAGE}/kernels/slstm.py", "slstm_scan"): ("_route",),
 }
 

@@ -30,8 +30,9 @@ it writes the reference's two FMAs as ``fmaf`` and its dot product as an
 ``selective_scan.cu`` and ``mlstm.cu`` are held to tolerances, not bits
 (their sums run in other orders than the reference's), and are built
 without it. Nothing links
-``libcuda``: the attention source reaches ``cuTensorMapEncodeTiled``
-through the CUDA runtime's entry-point query.
+``libcuda``: the sources that build tensor maps reach
+``cuTensorMapEncodeTiled`` through the CUDA runtime's entry-point query
+(``csrc/hopper.cuh``). A library's digest covers every ``csrc/*.cuh``.
 """
 from __future__ import annotations
 

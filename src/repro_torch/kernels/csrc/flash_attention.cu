@@ -59,6 +59,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int BQ = 64;        // q rows per block
@@ -657,89 +659,7 @@ struct Cfg {
   static_assert(SMEM <= 232448, "a block takes at most 227 KB");
 };
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ unsigned long long now_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
-
-// spin until the phase of parity `parity` has completed; a wait of more
-// than two minutes can only be a fault, and traps: an error, not a hang, but
-// a sticky one that ends the process's CUDA context, so the guard is kept far
-// above any slow but sound wait (a preempted block, a debugger)
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  unsigned long long t0 = 0;
-  for (;;) {
-    uint32_t ok;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(ok)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (ok) return;
-    if (t0 == 0)
-      t0 = now_ns();
-    else if (now_ns() - t0 > 120000000000ull)
-      __trap();
-  }
-}
-
-// one box of a 4-d tensor map (d, s, h, b) into shared memory
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// wgmma descriptor of a 128-byte-swizzled tile at shared address `addr`:
-// lbo / sbo in bytes (sbo: the next 8-row group, 1024; lbo: the next
-// 64-column panel of an MN-major operand, unused for K-major)
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// keep the compiler from moving accumulator reads across the wait
-template <int R>
-__device__ __forceinline__ void fence_regs(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
+using namespace hopper;   // mbarriers, TMA, wgmma descriptors and fences
 
 // d (64 x N, f32) = [d +] A (64 x 16, shared) B (N x 16, shared), K-major
 template <int N>
@@ -1060,64 +980,18 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
 }  // namespace wg
 
-// cuTensorMapEncodeTiled, fetched through the runtime so that nothing
-// links libcuda
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult res = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &res);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &res);
-#endif
-    if (res == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
-  }
-  return fn;
-}
-
-// A (b, h, s, d) bf16 view with element strides (bs, hs, rs) and d
-// contiguous, as 4-d boxes of 64 columns x box_rows rows, 128-byte swizzle;
-// rows past `rows` read as zeros.
-int tensor_map(CUtensorMap* map, const void* ptr, int D, int rows, int heads,
-               int B, long long rs, long long hs, long long bs,
-               int box_rows) {
-  const EncodeTiled enc = encode_tiled();
-  if (enc == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)rows,
-                              (cuuint64_t)heads, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)rs * 2, (cuuint64_t)hs * 2,
-                                 (cuuint64_t)bs * 2};
-  const cuuint32_t box[4] = {64, (cuuint32_t)box_rows, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                         const_cast<void*>(ptr), dims, strides, box, unit,
-                         CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_128B,
-                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
-}
-
 template <int DQK, int DV>
 int launch_bf16_wgmma(const bf16* q, const bf16* k, const bf16* v, bf16* o,
                       int B, int H, int KV, int S, int Tk, const Strides& st,
                       int causal, int window, cudaStream_t stream) {
   using C = wg::Cfg<DQK, DV>;
   CUtensorMap mq, mk, mv;
-  int e = tensor_map(&mq, q, DQK, S, H, B, st.qs, st.qh, st.qb, wg::BQ);
-  if (!e) e = tensor_map(&mk, k, DQK, Tk, KV, B, st.ks, st.kh, st.kb, C::BK);
-  if (!e) e = tensor_map(&mv, v, DV, Tk, KV, B, st.vs, st.vh, st.vb, C::BK);
+  using hopper::bf16_tensor_map;
+  int e = bf16_tensor_map(&mq, q, DQK, S, H, B, st.qs, st.qh, st.qb, wg::BQ);
+  if (!e)
+    e = bf16_tensor_map(&mk, k, DQK, Tk, KV, B, st.ks, st.kh, st.kb, C::BK);
+  if (!e)
+    e = bf16_tensor_map(&mv, v, DV, Tk, KV, B, st.vs, st.vh, st.vb, C::BK);
   if (e) return e;
   cudaError_t err = cudaFuncSetAttribute(
       wg::flash_fwd_wgmma_kernel<DQK, DV>,

@@ -72,6 +72,7 @@
 
 #include <cstdint>
 
+#include "hopper.cuh"   // the tensor-map encoder
 #include "smo_common.cuh"
 
 namespace cg = cooperative_groups;
@@ -970,37 +971,11 @@ cudaError_t config(int m, int C, int rb, int d, int b,
   return cudaSuccess;
 }
 
-// cuTensorMapEncodeTiled, fetched through the runtime so that nothing
-// links libcuda (as flash_attention.cu does)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult res = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &res);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &res);
-#endif
-    if (res == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
-  }
-  return fn;
-}
-
 // X (n, d), rows ldx apart, as boxes of 16 features x `rows` rows with the
 // 128-byte swizzle; features past d and rows past n read as zeros.
 int x_tensor_map(CUtensorMap* map, const double* X, int n, int d, int ldx,
                  int rows) {
-  const EncodeTiled enc = encode_tiled();
+  const hopper::EncodeTiled enc = hopper::encode_tiled();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
   const cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)n};
   const cuuint64_t strides[1] = {(cuuint64_t)ldx * sizeof(double)};

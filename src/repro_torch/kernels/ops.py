@@ -37,7 +37,8 @@ fma), ``ato_system_lanes`` (compact / carried: a ramp's later steps),
 ``ato_apply_lanes`` (split / fused: the ramp's, with the alpha update),
 ``avg_spill`` and ``top_spill`` (fused: the seeder's prologue, order
 and spill in one launch / split: the spill alone), ``mlstm_parallel``
-(mma, bf16 / fma, float32) and ``slstm_scan`` (cluster: 16 blocks a
+(wgmma, bf16 at head dim 384 / mma, bf16 / fma, float32) and
+``slstm_scan`` (cluster: 16 blocks a
 batch row, rz in their registers / block: one block a batch row).
 """
 from repro_torch.kernels.flash_attention import flash_attention

@@ -214,3 +214,66 @@ def test_slstm_phases_designs_set_the_sources_macros(design):
         name, value = flag[2:].split("=")
         assert f"#ifndef {name}\n#define {name} " in src
         assert f"#define {name} {value}\n" not in src
+
+
+# ``chip_mlstm_phases.py`` stamps copies of ``csrc/mlstm.cu``: both bf16
+# kernels, the mma route (the parent) and the wgmma route. Each edit must
+# find its text exactly once, inside the kernel it times; every phase of
+# each role's tile, and of its prologue and epilogue, is closed by one
+# counter read; and each design's build edits the wgmma route's text.
+MLSTM_PHASES = _phases("chip_mlstm_phases")
+
+
+@pytest.mark.parametrize("k", range(len(MLSTM_PHASES.EDITS)))
+def test_mlstm_phases_edit_finds_its_text_once(k):
+    old, new = MLSTM_PHASES.EDITS[k]
+    src = (STEP / "mlstm.cu").read_text()
+    assert src.count(old) == 1 and old != new
+    if k == 0:
+        return
+    mma = src[src.index("mlstm_mma_kernel(const bf16*"):
+              src.index("}  // namespace mma_route")]
+    wg = src[src.index("mlstm_wgmma_kernel(const __grid_constant__"):
+             src.index("}  // namespace wg_route")]
+    assert (old in mma) != (old in wg)
+
+
+@pytest.mark.parametrize("kernel", sorted(MLSTM_PHASES.PHASES))
+def test_mlstm_phases_stamps_every_phase(kernel):
+    text = MLSTM_PHASES.edited()
+    assert text.endswith(MLSTM_PHASES.TAIL)
+    roles = MLSTM_PHASES.PHASES[kernel]
+    for r, (role, names) in enumerate(roles.items()):
+        tid = MLSTM_PHASES.ROLE_THREAD[kernel][role]
+        assert len(names) + 1 <= MLSTM_PHASES.SLOTS
+        for k in range(len(names) + 1):
+            assert text.count(MLSTM_PHASES._s(r, k, tid)) == 1, (role, k)
+        reads = {k for ab in MLSTM_PHASES.PROLOGUE[kernel][role].values()
+                 for k in ab}
+        assert max(reads) < MLSTM_PHASES.PRO
+        for k in reads:
+            assert text.count(MLSTM_PHASES._p(r, k, tid)) == 1, (role, k)
+
+
+@pytest.mark.parametrize("design", sorted(MLSTM_PHASES.DESIGNS))
+def test_mlstm_phases_design_edits_find_their_text_once(design):
+    """Each design's build edits the wgmma route only, each edit finding
+    its text exactly once in turn; its kernel is one the script stamps,
+    and its copy takes every counter read."""
+    build, kernel = MLSTM_PHASES.DESIGNS[design]
+    assert kernel in MLSTM_PHASES.PHASES
+    src = (STEP / "mlstm.cu").read_text()
+    text = src
+    for old, new in MLSTM_PHASES.BUILDS[build]:
+        assert text.count(old) == 1 and old != new
+        text = text.replace(old, new)
+    assert text == MLSTM_PHASES.design_text(build)
+    assert (text != src) == bool(MLSTM_PHASES.BUILDS[build])
+    start = "namespace wg_route {"
+    assert text[:text.index(start)] + text[text.index("namespace fma_route"):] \
+        == src[:src.index(start)] + src[src.index("namespace fma_route"):]
+    stamped = MLSTM_PHASES.edited(text)
+    for r, tid in enumerate(MLSTM_PHASES.ROLE_THREAD[kernel].values()):
+        for k in range(len(list(MLSTM_PHASES.PHASES[kernel].values())[r])
+                       + 1):
+            assert stamped.count(MLSTM_PHASES._s(r, k, tid)) == 1

@@ -3263,39 +3263,18 @@ def _mlstm_case(cuda, B, S, H, dh, dtype, seed=0):
     return q, k, v, logi, logf
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,S,H,dh", [
-    (2, 100, 2, 64), (1, 200, 4, 384), (3, 65, 2, 64), (1, 1, 4, 384),
-    (2, 130, 4, 384), (1, 1000, 2, 64)],
-    ids=["smoke", "full_dh", "tail_b3", "one_row", "ragged_full",
-         "long"])
-def test_cuda_mlstm_parallel_matches_plain(cuda, dtype, B, S, H, dh):
-    """The kernel against its plain version (the reference's materialised
-    form) on the same inputs: S not a multiple of the 64-row (bf16) or
-    16-row (float32) tiles, B > 1, dh at SMOKE's 64 and the full 384.
-    float32 (the fma route) within 1e-5 row by row (sums in other
-    orders); bf16 (the mma route) against the plain version run in float32
-    on the same bf16 inputs, every row held as ``chip_smoke.py`` holds
-    them: its largest row error within twice the bf16 plain version's own
-    and within 0.04 (MLSTM_ROW_REL: on these inputs the den does not
-    cancel, and the plain version's largest row is under 0.02), its
-    median row within 0.015, and no row off by more than twice the plain
-    version's error on the same row plus 2^-7 (one bf16 ulp of the row's
-    largest element)."""
-    q, k, v, logi, logf = _mlstm_case(cuda, B, S, H, dh, dtype)
-    route = "fma" if dtype == torch.float32 else "mma"
-    before = dict(ops.route_counts()["mlstm_parallel"])
-    got = ops.mlstm_parallel(q, k, v, logi, logf)
-    after = ops.route_counts()["mlstm_parallel"]
-    assert after[route] == before[route] + 1
-    assert got.dtype == dtype and got.shape == (B, S, H, dh)
+def _mlstm_bf16_held(got, q, k, v, logi, logf):
+    """A bf16 mlstm_parallel output against the plain version run in
+    float32 on the same bf16 inputs, every row held as ``chip_smoke.py``
+    holds them: its largest row error within twice the bf16 plain
+    version's own and within 0.04 (MLSTM_ROW_REL: on these inputs the den
+    does not cancel, and the plain version's largest row is under 0.02),
+    its median row within 0.015, and no row off by more than twice the
+    plain version's error on the same row plus 2^-7 (one bf16 ulp of the
+    row's largest element)."""
     want = ref.mlstm_parallel_ref(q.float(), k.float(), v.float(), logi,
                                   logf)
     err = _row_rel(got, want)
-    if dtype == torch.float32:
-        assert err <= 1e-5, err
-        return
     plain = ref.mlstm_parallel_ref(q, k, v, logi, logf)
     own = _row_rel(plain, want)
     w = want.float()
@@ -3308,6 +3287,82 @@ def test_cuda_mlstm_parallel_matches_plain(cuda, dtype, B, S, H, dh):
     assert float(rows.median()) <= 0.015, float(rows.median())
     over = int((rows > 2.0 * own_rows + 2 ** -7).sum())
     assert over == 0, over
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,dh", [
+    (2, 100, 2, 64), (1, 200, 4, 384), (3, 65, 2, 64), (1, 1, 4, 384),
+    (2, 130, 4, 384), (1, 1000, 2, 64), (3, 65, 2, 384), (1, 777, 4, 384),
+    (1, 1, 2, 64)],
+    ids=["smoke", "full_dh", "tail_b3", "one_row", "ragged_full",
+         "long", "tail_b3_full", "ragged_777", "one_row_smoke"])
+def test_cuda_mlstm_parallel_matches_plain(cuda, dtype, B, S, H, dh):
+    """The kernel on its chosen route (``mlstm.route``: fma for float32,
+    wgmma for bf16 at dh = 384, mma at 64) against its plain version (the
+    reference's materialised form) on the same inputs: S not a multiple
+    of the 64-row (bf16) or 16-row (float32) tiles, B > 1, S = 1, dh at
+    SMOKE's 64 and the full 384. float32 within 1e-5 row by row (sums in
+    other orders); bf16 as ``_mlstm_bf16_held``."""
+    from repro_torch.kernels.mlstm import route
+    q, k, v, logi, logf = _mlstm_case(cuda, B, S, H, dh, dtype)
+    took = route(dtype, dh)
+    assert took == ("fma" if dtype == torch.float32
+                    else "wgmma" if dh == 384 else "mma")
+    before = dict(ops.route_counts()["mlstm_parallel"])
+    got = ops.mlstm_parallel(q, k, v, logi, logf)
+    after = ops.route_counts()["mlstm_parallel"]
+    assert after == {r: n + (r == took) for r, n in before.items()}
+    assert got.dtype == dtype and got.shape == (B, S, H, dh)
+    if dtype == torch.float32:
+        want = ref.mlstm_parallel_ref(q, k, v, logi, logf)
+        err = _row_rel(got, want)
+        assert err <= 1e-5, err
+        return
+    _mlstm_bf16_held(got, q, k, v, logi, logf)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H", [(1, 1, 4), (3, 65, 2), (2, 130, 4),
+                                   (1, 777, 4), (1, 1000, 4)])
+def test_cuda_mlstm_wgmma_and_mma_routes_agree(cuda, B, S, H):
+    """At dh = 384 the wgmma route and the forced mma route, on the same
+    bf16 inputs, each held to the plain version as
+    ``_mlstm_bf16_held``, and within those bars of each other: the
+    largest row of their difference within 0.04 of the rows' scale, the
+    median within 0.015."""
+    q, k, v, logi, logf = _mlstm_case(cuda, B, S, H, 384, torch.bfloat16, 3)
+    before = dict(ops.route_counts()["mlstm_parallel"])
+    wg = ops.mlstm_parallel(q, k, v, logi, logf)
+    mma = ops.mlstm_parallel(q, k, v, logi, logf, _route="mma")
+    after = ops.route_counts()["mlstm_parallel"]
+    assert after["wgmma"] == before["wgmma"] + 1
+    assert after["mma"] == before["mma"] + 1
+    for got in (wg, mma):
+        _mlstm_bf16_held(got, q, k, v, logi, logf)
+    m = mma.float()
+    rows = (wg.float() - m).abs().amax(-1) / m.abs().amax(-1).clamp_min(
+        1e-30)
+    assert float(rows.max()) <= 0.04, float(rows.max())
+    assert float(rows.median()) <= 0.015, float(rows.median())
+
+
+@pytest.mark.cuda
+def test_cuda_mlstm_route_that_cannot_take_the_inputs_raises(cuda):
+    """A forced route built for other inputs raises before any launch, and
+    no count moves: wgmma at dh = 64 and on float32, mma on float32, fma
+    on bf16, and a route that does not exist."""
+    bf64 = _mlstm_case(cuda, 1, 20, 2, 64, torch.bfloat16)
+    f384 = _mlstm_case(cuda, 1, 20, 2, 384, torch.float32)
+    b384 = _mlstm_case(cuda, 1, 20, 2, 384, torch.bfloat16)
+    launches = ops.launch_counts()["mlstm_parallel"]
+    routes = dict(ops.route_counts()["mlstm_parallel"])
+    for args, r in ((bf64, "wgmma"), (f384, "wgmma"), (f384, "mma"),
+                    (b384, "fma"), (b384, "tma")):
+        with pytest.raises(ValueError, match="route"):
+            ops.mlstm_parallel(*args, _route=r)
+    assert ops.launch_counts()["mlstm_parallel"] == launches
+    assert ops.route_counts()["mlstm_parallel"] == routes
 
 
 @pytest.mark.cuda

@@ -3,7 +3,8 @@
 ``chip_sir_split.py``, ``chip_ato_split.py``, ``chip_ato_phases.py``,
 ``chip_spill_phases.py``, ``chip_cost_model.py``,
 ``chip_flash_shapes.py``, ``chip_scan_variants.py``,
-``chip_stream_phases.py`` and ``chip_slstm_phases.py``, imports jax or
+``chip_stream_phases.py``, ``chip_slstm_phases.py`` and
+``chip_mlstm_phases.py``, imports jax or
 the JAX package ``repro``; and every entry point defaults to ``cuda``,
 raising without a GPU unless given ``device="cpu"``."""
 import ast
@@ -19,7 +20,8 @@ FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
        ROOT / "chip_ato_split.py", ROOT / "chip_ato_phases.py",
        ROOT / "chip_spill_phases.py", ROOT / "chip_cost_model.py",
        ROOT / "chip_flash_shapes.py", ROOT / "chip_scan_variants.py",
-       ROOT / "chip_stream_phases.py", ROOT / "chip_slstm_phases.py"]
+       ROOT / "chip_stream_phases.py", ROOT / "chip_slstm_phases.py",
+       ROOT / "chip_mlstm_phases.py"]
 
 
 def _imported(tree):
@@ -55,7 +57,7 @@ def test_the_walk_sees_the_port():
             "selective_scan.py", "jamba_v0_1_52b.py",
             "chip_scan_variants.py", "xlstm.py", "mlstm.py", "slstm.py",
             "xlstm_125m.py", "chip_stream_phases.py",
-            "chip_slstm_phases.py"} <= names
+            "chip_slstm_phases.py", "chip_mlstm_phases.py"} <= names
     analysis = ROOT / "src" / "repro_torch" / "analysis"
     assert analysis / "__main__.py" in FILES
 

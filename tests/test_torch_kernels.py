@@ -547,6 +547,33 @@ def test_flash_route(dtype, D):
     assert route(dtype, D) == want
 
 
+@pytest.mark.parametrize("dh", [64, 384])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mlstm_route(dtype, dh):
+    """float32 runs on FMA; bf16 on wgmma at xlstm-125m's dh = 384, the
+    width it is built for, and on mma.sync at SMOKE's 64."""
+    from repro_torch.kernels.mlstm import WGMMA_HEAD_DIM, route
+    want = ("fma" if dtype == torch.float32
+            else "wgmma" if dh == WGMMA_HEAD_DIM else "mma")
+    assert route(dtype, dh) == want
+    assert WGMMA_HEAD_DIM == 384
+
+
+def test_mlstm_forced_route_on_cpu_tensors_is_the_plain_version():
+    """On CPU tensors ``_route`` changes nothing: the plain version runs,
+    bitwise, and no route counts a launch."""
+    ops.reset_launch_counts()
+    q = torch.from_numpy(RNG.normal(size=(1, 7, 2, 64))).to(torch.bfloat16)
+    li = torch.from_numpy(RNG.normal(size=(1, 7, 2))).float() * 0.1
+    lf = -li.abs()
+    want = ops.mlstm_parallel(q, q, q, li, lf)
+    for r in ("wgmma", "mma", "fma"):
+        assert torch.equal(ops.mlstm_parallel(q, q, q, li, lf, _route=r),
+                           want)
+    assert ops.route_counts()["mlstm_parallel"] == {"wgmma": 0, "mma": 0,
+                                                    "fma": 0}
+
+
 def test_rbf_same_operand():
     """Z is X for the RBF kernel (its tensor route then computes half the
     tiles): one tensor passed twice, or two equal slices of one (the SVM
@@ -947,7 +974,7 @@ def test_cpu_tensors_count_no_route():
         "ato_apply_lanes": {"split": 0, "fused": 0},
         "avg_spill": {"fused": 0, "split": 0},
         "top_spill": {"fused": 0, "split": 0},
-        "mlstm_parallel": {"mma": 0, "fma": 0},
+        "mlstm_parallel": {"wgmma": 0, "mma": 0, "fma": 0},
         "slstm_scan": {"block": 0, "cluster": 0}}
 
 
